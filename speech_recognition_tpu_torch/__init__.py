@@ -2,7 +2,8 @@
 
 The JAX package beside this one is the reference; this package keeps
 its module paths and function names so each counterpart is found at
-once.  The slice ported so far is the connected-digit main path:
+once.  The slices ported so far are the connected-digit main path and
+the large-vocabulary lexical-tree decode:
 
   ops.frontend.mfcc39_auto        wav -> 39-dim MFCCs   (kernel: csrc/mfcc39.cu)
   decode.connected.decode_connected
@@ -10,6 +11,11 @@ once.  The slice ported so far is the connected-digit main path:
                                    (kernel: csrc/viterbi_banded.cu)
     -> value backtrace             (kernel: csrc/banded_backtrace.cu)
     -> states_to_words_device      plain tensor ops
+  decode.lextree.decode_lextree
+    -> models.hmm.bank_nll_ubt     unit-bank emissions (torch.matmul)
+    -> viterbi_lex                 lexical-tree Viterbi (kernel: csrc/viterbi_lex.cu)
+    -> lex_backtrace_val           value backtrace (kernel: csrc/lex_backtrace.cu)
+    -> lex_words_from_path_batch   host numpy
 
 Every kernel wrapper runs its plain PyTorch version for CPU tensors and
 launches the hand-written CUDA kernel for CUDA tensors (or raises); a

@@ -2,16 +2,16 @@
 
 Counterpart of ``speech_recognition_tpu/cli.py`` ``connected_test``:
 wavs -> MFCC-39 (kernel K3 on CUDA) -> banded connected decode (kernels
-K1 + K2 on CUDA) -> word ids, scored against the Aurora-style
+K1 + K2 on CUDA), or with ``--graph lextree`` the lexical-tree decode
+(kernels K4 + K5 on CUDA) -> word ids, scored against the Aurora-style
 transcripts in the file names.  Output lines match the reference CLI.
 
 Run:  python -m speech_recognition_tpu_torch.cli connected_test \
-          -i bank.npz -d wav_dir [--graph loop|sausage] [--device cuda|cpu]
+          -i bank.npz -d wav_dir [--graph loop|sausage|lextree] [--device cuda|cpu]
 
 The device is explicit (default ``cuda``); asking for CUDA on a host
-without it is an error, never a silent CPU run.  Other actions, the
-bigram LM and the lexical-tree graph are not ported yet (ROADMAP
-queue A).
+without it is an error, never a silent CPU run.  Other actions and the
+bigram LM are not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -119,6 +119,19 @@ def cmd_connected_test(args):
     if args.graph == "loop":
         graph = build_loop_graph(trans_np, word_insertion_cost=args.word_insertion_cost)
         hyps, _ = decode_connected(bank, graph, feats, nf, drop_labels=drop)
+    elif args.graph == "lextree":
+        # the large-vocabulary decoder; on the flat digit vocabulary it
+        # gives the loop graph's words
+        from speech_recognition_tpu_torch.decode.lextree import decode_lextree
+        from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+
+        symbols = [chr(ord("0") + i) if i < 10 else chr(ord("A") + i - 10)
+                   for i in range(bank.n_models)]
+        lexg = build_lex_graph(symbols, trans_np, {s: i for i, s in enumerate(symbols)},
+                               word_insertion_cost=args.word_insertion_cost)
+        hyps, _ = decode_lextree(bank, lexg, feats, nf)
+        if sil is not None:
+            hyps = [[w for w in h if w != sil] for h in hyps]
     else:
         # one graph + one batched decode per distinct slot count
         vocab = [i for i in range(bank.n_models) if i != sil]
@@ -149,7 +162,7 @@ def main(argv=None):
     p = sub.add_parser("connected_test")
     p.add_argument("-i", "--input", required=True, help="bank .npz")
     p.add_argument("-d", "--data", required=True, help="wav dir")
-    p.add_argument("--graph", choices=["loop", "sausage"], default="loop")
+    p.add_argument("--graph", choices=["loop", "sausage", "lextree"], default="loop")
     p.add_argument("--lm", choices=["none", "bigram"], default="none")
     p.add_argument("--n-slots", type=int, default=0,
                    help=f"sausage slots (0 = per-utterance ref length; "

@@ -66,7 +66,8 @@ def _decode_banded_batch(bank: HMMBank, feats, n_frames, g: BandedGraph,
     fused = topo.fused_ok and eps_depth == 1
     if use_kernels(feats) and not fused:
         raise NotImplementedError(
-            "CUDA decode takes uniform word graphs with eps depth 1; the "
+            "CUDA decode takes uniform word graphs with eps depth 1 and no "
+            "cross edges (lexical trees decode through decode.lextree); the "
             "general backtrace kernel is ROADMAP queue B item B4")
     if fused:
         final, bp8, _, eps_prev = fused_forward(bank, feats, n_frames, g, topo)

@@ -5,8 +5,11 @@ Counterpart of ``speech_recognition_tpu/ops/viterbi_banded.py``.  Frame
 edges of every composed word graph lie within a word at state offsets
 0 (self), +1 (step) and +2 (skip), so one frame step is three shifted
 adds of the ``[S, B]`` frontier plus a small dense ``[R, L]`` epsilon
-block between word ends and word starts.  Backpointers are one int8 per
-(frame, state): the band offset 0..2, or ``_EPS`` for an epsilon
+block between word ends and word starts.  Lexical trees add one frame
+edge per arc start with a static origin, parent-arc end -> child-arc
+start (``cross_src`` / ``cross_cost``), a gather of the previous
+frontier.  Backpointers are one int8 per (frame, state): the band
+offset 0..2, ``_CROSS`` for the cross edge, or ``_EPS`` for an epsilon
 arrival whose origin word end goes to the ``[T, R, B]`` side plane.
 
 ``viterbi_banded_tb`` / ``banded_backtrace_tb`` are per-frame Python
@@ -17,7 +20,7 @@ path is ``ops.viterbi_banded_kernels``.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,6 +31,7 @@ __all__ = ["MAX_BAND", "BandedGraph", "banded_arrays", "eps_ranges",
            "viterbi_banded_tb", "banded_backtrace_tb"]
 
 MAX_BAND = 2  # reference max_jump_dist
+_CROSS = MAX_BAND + 1  # bp8 code: cross-arc frame edge (origin = cross_src[s])
 _EPS = MAX_BAND + 2  # bp8 code: eps arrival; origin u in the eps_u side plane
 
 
@@ -36,6 +40,9 @@ class BandedGraph(NamedTuple):
 
     ``word_starts [R]`` / ``word_ends [L]`` are the epsilon re-entry and
     exit states; ``eps_block [R, L]`` the same-column costs between them.
+    ``cross_src`` / ``cross_cost`` (None for composed word graphs) add a
+    frame edge with a static origin per state: a trie's parent-end ->
+    child-start edges.
     """
 
     band: torch.Tensor  # [MAX_BAND+1, S] cost of arriving from state v-d
@@ -48,6 +55,8 @@ class BandedGraph(NamedTuple):
     end_states: torch.Tensor  # [E] int64
     end_bonus: torch.Tensor  # [E]
     bank_state: torch.Tensor  # [S] int64
+    cross_src: Optional[torch.Tensor] = None  # [S] int64 static frame-edge origin
+    cross_cost: Optional[torch.Tensor] = None  # [S] f32, POS_INF where absent
 
     @property
     def n_states(self) -> int:
@@ -62,7 +71,7 @@ class BandedGraph(NamedTuple):
         return self.word_ends.shape[0]
 
     def to(self, device) -> "BandedGraph":
-        return BandedGraph(*[t.to(device) for t in self])
+        return BandedGraph(*[None if t is None else t.to(device) for t in self])
 
 
 def _eps_u_dtype(n_ends: int):
@@ -167,6 +176,18 @@ def _select_band(cands):
     return torch.clamp(best, max=POS_INF), d_sel
 
 
+def _cross_relax(base, d_sel, prev, g: BandedGraph):
+    """Static-origin cross edges: ``prev[cross_src] + cross_cost``, read
+    from the PREVIOUS frontier after the band select.  Ties go to the
+    cross edge (its origin precedes every band origin in preorder)."""
+    if g.cross_src is None:
+        return base, d_sel
+    cand = torch.clamp(prev[g.cross_src] + g.cross_cost[:, None], max=POS_INF)
+    take = cand <= base
+    return (torch.where(take, cand, base),
+            torch.where(take, torch.full_like(d_sel, _CROSS), d_sel))
+
+
 def _first_min(scores, dim):
     """``(min, index of the first minimum)`` along ``dim``."""
     return scores.amin(dim), torch.argmin(scores, dim)
@@ -209,6 +230,7 @@ def viterbi_banded_tb(nll_tb, g: BandedGraph, n_frames, eps_depth: int = 1):
         prev = cost
         base, d_sel = _select_band([g.band[d][:, None] + _shift_s(prev, d)
                                     for d in range(MAX_BAND + 1)])
+        base, d_sel = _cross_relax(base, d_sel, prev, g)
         cost, bp8[t], eps_u[t] = column(base, d_sel, nll_tb[t])
         cost = torch.where((t < n_frames)[None, :], cost, prev)
         final = torch.where((t == n_frames - 1)[None, :], cost, final)
@@ -237,7 +259,11 @@ def banded_backtrace_tb(bp8, eps_u, g: BandedGraph, end_state, n_frames,
             u = eps_u[t][g.start_pos[st], cols].to(torch.int64)
             st = torch.where(is_eps, g.word_ends[u], st)
             code = torch.where(is_eps, bp8[t][st, cols].to(torch.int64), code)
-        prev = st - code
+        if g.cross_src is None:
+            prev = st - code
+        else:
+            prev = torch.where(code == _CROSS, g.cross_src[st],
+                               st - torch.clamp(code, max=MAX_BAND))
         active = (t > 0) & (t < n_frames)
         states[t] = rec.to(torch.int32)
         flags[t] = used & (t < n_frames)

@@ -8,7 +8,9 @@ fuse_emission=True, emit_eps_prev=True)`` and
 uniform composed word graphs (V words of W states, slot-major) with
 eps depth 1 and disjoint word starts and ends: every graph
 ``build_word_graph`` / ``build_loop_graph`` composes from a bank of
-equal-length words.
+equal-length words.  Neither kernel implements cross edges, so a graph
+that carries them (a lexical tree) is refused here rather than decoded
+without them; it goes to ``ops.viterbi_lex_kernels``.
 
 Each wrapper runs its plain version for CPU tensors and launches its
 CUDA kernel for CUDA tensors, counting launches in ``<wrapper>.launches``.
@@ -50,11 +52,14 @@ class BandedTopo(NamedTuple):
     disjoint: bool
     # largest bank row the graph reads (checked against the bank on the host)
     max_bank_state: int
+    # the graph carries cross edges (cross_src / cross_cost), which K1/K2
+    # do not implement
+    cross: bool = False
 
     @property
     def fused_ok(self) -> bool:
         """Whether K1/K2 take the graph (eps depth is checked by callers)."""
-        return bool(self.uniform_w) and self.disjoint
+        return bool(self.uniform_w) and self.disjoint and not self.cross
 
     def row_spans(self, n_rows: int):
         """Per eps-block row ``(lo, hi)`` origin span; empty rows (0, 0)."""
@@ -78,7 +83,8 @@ def banded_topology(g: BandedGraph) -> BandedTopo:
             uniform_w = w
     return BandedTopo(n_states=s, uniform_w=uniform_w, ranges=eps_ranges(g),
                       disjoint=not (set(starts.tolist()) & set(ends.tolist())),
-                      max_bank_state=int(g.bank_state.max()) if s else -1)
+                      max_bank_state=int(g.bank_state.max()) if s else -1,
+                      cross=g.cross_src is not None)
 
 
 def use_kernels(t: torch.Tensor) -> bool:
@@ -95,7 +101,7 @@ def use_kernels(t: torch.Tensor) -> bool:
 def _check_fused(g: BandedGraph, topo: BandedTopo):
     if not topo.fused_ok:
         raise ValueError("fused banded Viterbi needs a uniform word graph with "
-                         "disjoint word starts and ends")
+                         "disjoint word starts and ends and no cross edges")
     if topo.n_states != g.n_states:
         raise ValueError(f"topology/graph mismatch: {topo.n_states} vs {g.n_states}")
 
@@ -191,7 +197,7 @@ def viterbi_banded_fused(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
         raise ValueError(f"emission weights {tuple(w.shape)}/{tuple(lw.shape)} "
                          f"do not match features [A={a}]")
     for name, x in (("xa", xa), ("w", w), ("lw", lw), ("n_frames", n_frames),
-                    *zip(g._fields, g)):
+                    *((f, x) for f, x in zip(g._fields, g) if x is not None)):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, features on {dev}")
     if xa.dtype != torch.float32 or not xa.is_contiguous():

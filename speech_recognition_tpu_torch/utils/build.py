@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, which is
-loaded with ``ctypes``.  No PyTorch headers are involved, so a cold
-build takes seconds.  The library is named by the content hash of the
-sources and flags and lives in ``speech_recognition_tpu_torch/_build/``
+(``sm_90a``), one ``nvcc`` process per source, all started together,
+and the objects are linked into ONE shared library with a plain C
+interface, which is loaded with ``ctypes``.  No PyTorch headers are
+involved, so a cold build takes seconds.  The library is named by the
+content hash of the sources and flags and lives in
+``speech_recognition_tpu_torch/_build/``
 (listed in ``.gitignore``); it is built at first use, so any entry
 point that launches a kernel builds it.  A failed build raises with
 nvcc's output; there is no fallback.
@@ -27,8 +29,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 
@@ -61,23 +63,38 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile the kernels if the hashed library is missing; returns its
-    path.  nvcc's output (including ``-Xptxas -v`` register and shared
-    memory reports) is kept beside it as ``<lib>.log``."""
+    path.  Each source compiles in its own ``nvcc`` process, all in
+    parallel; one more links the objects.  nvcc's output (including
+    ``-Xptxas -v`` register and shared memory reports) is kept beside
+    the library as ``<lib>.log``."""
     out = library_path()
     with _lock:
         if os.path.exists(out):
             return out
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cu = [p for p in _sources() if p.endswith(".cu")]
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        nvcc, tag = _nvcc(), f"{out}.{os.getpid()}"
+        jobs = []
+        for src in (p for p in _sources() if p.endswith(".cu")):
+            obj = f"{tag}.{os.path.basename(src)}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        steps = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in jobs]
+        objs = [obj for _, obj, _ in jobs]
+        if all(rc == 0 for _, _, rc in steps):
+            cmd = [nvcc, *_ARCH, "-shared", "-o", f"{tag}.tmp", *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            steps.append((cmd, proc.stdout + proc.stderr, proc.returncode))
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
         with open(out + ".log", "w") as f:
-            f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)
+            f.writelines(" ".join(cmd) + "\n" + text for cmd, text, _ in steps)
+        failed = [(cmd, text, rc) for cmd, text, rc in steps if rc != 0]
+        if failed:
+            cmd, text, rc = failed[0]
+            raise RuntimeError(f"nvcc failed (exit {rc}):\n{' '.join(cmd)}\n{text}")
+        os.replace(f"{tag}.tmp", out)
     return out
 
 
@@ -94,14 +111,19 @@ def load_library() -> ctypes.CDLL:
                                           i, i, i, i, i, i, i, i, i, i, i, p]
     lib.banded_backtrace_launch.argtypes = [p, p, p, p, p, p,
                                             i, i, i, i, i, p]
+    lib.viterbi_lex_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
+                                       i, p, i, i, i, i, i, i, p]
+    lib.lex_backtrace_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     for fn in (lib.mfcc39_launch, lib.viterbi_banded_launch,
-               lib.banded_backtrace_launch):
+               lib.banded_backtrace_launch, lib.viterbi_lex_launch,
+               lib.lex_backtrace_launch):
         fn.restype = ctypes.c_int
     lib.mfcc39_smem_bytes.argtypes = [i, i, i]
     lib.viterbi_banded_smem_bytes.argtypes = [i, i, i, i, i, i]
+    lib.viterbi_lex_smem_bytes.argtypes = [i, i]
     lib.srt_smem_limit.argtypes = []
     for fn in (lib.mfcc39_smem_bytes, lib.viterbi_banded_smem_bytes,
-               lib.srt_smem_limit):
+               lib.viterbi_lex_smem_bytes, lib.srt_smem_limit):
         fn.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p

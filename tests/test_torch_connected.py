@@ -124,14 +124,20 @@ def test_port_imports_no_jax():
     mods = ["speech_recognition_tpu_torch", "speech_recognition_tpu_torch.cli",
             "speech_recognition_tpu_torch.data.synthetic",
             "speech_recognition_tpu_torch.data.wav",
+            "speech_recognition_tpu_torch.data.lexicon",
             "speech_recognition_tpu_torch.decode.connected",
+            "speech_recognition_tpu_torch.decode.lextree",
+            "speech_recognition_tpu_torch.langmodel",
+            "speech_recognition_tpu_torch.langmodel.lextree",
             "speech_recognition_tpu_torch.models.graph",
             "speech_recognition_tpu_torch.models.hmm",
+            "speech_recognition_tpu_torch.models.lexgraph",
             "speech_recognition_tpu_torch.ops.frontend",
             "speech_recognition_tpu_torch.ops.frontend_kernel",
             "speech_recognition_tpu_torch.ops.gmm",
             "speech_recognition_tpu_torch.ops.viterbi_banded",
             "speech_recognition_tpu_torch.ops.viterbi_banded_kernels",
+            "speech_recognition_tpu_torch.ops.viterbi_lex_kernels",
             "speech_recognition_tpu_torch.utils.build",
             "speech_recognition_tpu_torch.utils.checkpoint",
             "speech_recognition_tpu_torch.utils.metrics",

@@ -8,7 +8,10 @@ none, and it is run there without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: K1 final costs rtol 1e-5 (emission GEMM summation order),
-K1 planes / K2 / words exact, K3 rtol 2e-3 / atol 5e-4.
+K1 planes / K2 / words exact, K3 rtol 2e-3 / atol 5e-4.  K4 (the
+lexical-tree forward) and K5 (its backtrace) are fed the plain
+version's own emissions, so every output is compared exactly; the
+lextree decode's costs are compared at rtol 1e-5 (emission GEMM).
 """
 
 import types
@@ -183,3 +186,129 @@ def test_wrappers_raise_instead_of_falling_back(dev):
                              torch.zeros((4, 2, 2), dtype=torch.int64, device=dev),
                              torch.zeros(2, dtype=torch.int32, device=dev),
                              torch.ones(2, dtype=torch.int32, device=dev), 3)
+
+
+def _units(rng, n_units, n_states=3, skip=True):
+    """Banded left-to-right unit costs (self, step and, on every other
+    unit, skip arcs)."""
+    trans = []
+    for k in range(n_units):
+        t = np.full((n_states, n_states), np.inf)
+        for i in range(n_states):
+            t[i, i] = rng.uniform(0.1, 1)
+            if i + 1 < n_states:
+                t[i + 1, i] = rng.uniform(0.1, 1)
+            if skip and k % 2 == 0 and i + 2 < n_states:
+                t[i + 2, i] = rng.uniform(0.5, 2)
+        trans.append(t)
+    return trans
+
+
+def _lex_graph(kind):
+    from speech_recognition_tpu_torch.data.lexicon import flat_lm_lexicon, random_words
+    from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+
+    if kind.startswith("flat_lm_"):  # R > 64 roots: several re-entry passes per frame
+        words, trans, ids, lm, _ = flat_lm_lexicon(int(kind[8:]))
+        return build_lex_graph(words, trans, ids, lm=lm, word_insertion_cost=0.3), 2 * len(words)
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    if kind == "flat_lm":  # digit-shaped flat vocabulary, bigram-weighted eps block
+        syms = list("0123456789A")
+        lm = types.SimpleNamespace(cost=rng.uniform(0.1, 3.0, (11, 11)),
+                                   start_cost=rng.uniform(0.1, 2.0, 11),
+                                   end_cost=rng.uniform(0.1, 2.0, 11))
+        return build_lex_graph(syms, _units(rng, 11, 5), {c: i for i, c in enumerate(syms)},
+                               lm=lm, word_insertion_cost=0.3), 11 * 5
+    units = list("abcde")
+    n_words = {"deep": 60, "deep_int32": 150}[kind]  # 150 leaves: int32 eps_u plane
+    words = random_words(rng, units, n_words, 1, 7)
+    uni = rng.uniform(0.1, 2.0, n_words) if kind == "deep" else None
+    return build_lex_graph(words, _units(rng, 5), {c: i for i, c in enumerate(units)},
+                           unigram_cost=uni, word_insertion_cost=0.5), 5 * 3
+
+
+def _check_k4_k5(dev, lexg, n_bank, b, t):
+    from speech_recognition_tpu_torch.ops import viterbi_lex_kernels as lk
+
+    g = lexg.banded.to(dev)
+    topo = lk.lex_topology(lexg.banded)
+    rng = np.random.default_rng(b + t)
+    nll = torch.from_numpy(rng.uniform(0, 5, (n_bank, t, b)).astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[t, 1, rng.integers(1, t + 1, b)][:b].astype(np.int32)).to(dev)
+    before = lk.viterbi_lex.launches
+    got = lk.viterbi_lex(nll, g, topo, nf)
+    want = lk.viterbi_lex_ref(nll, g, topo, nf)
+    torch.cuda.synchronize()
+    assert lk.viterbi_lex.launches == before + 1
+    assert got[2].dtype == topo.eps_u_dtype
+    assert torch.equal(got[0], want[0])
+    valid = torch.arange(t, device=dev)[:, None] < nf[None, :]  # [T, B]
+    for k in (1, 2, 3):
+        assert bool(((got[k] == want[k]) | ~valid[:, :, None]).all()), k
+    ends = g.end_states[torch.argmin(want[0][:, g.end_states] + g.end_bonus, 1)]
+    sk, fk = lk.lex_backtrace_val(want[1], want[3], g, ends, nf)
+    sp, fp = lk.lex_backtrace_val_ref(want[1], want[3], g, ends, nf)
+    torch.cuda.synchronize()
+    assert bool(((sk == sp) & (fk == fp) | ~valid).all())
+    return sk, fk, nf
+
+
+@pytest.mark.parametrize("b", [1, 5, 130])
+def test_k4_k5_match_plain(dev, b):
+    lexg, n_bank = _lex_graph("deep")
+    _check_k4_k5(dev, lexg, n_bank, b, 23)
+
+
+@pytest.mark.parametrize("kind", ["flat_lm", "deep_int32", "flat_lm_100", "flat_lm_130"])
+def test_k4_k5_match_plain_other_graphs(dev, kind):
+    from speech_recognition_tpu_torch.models.lexgraph import lex_words_from_path_batch
+
+    lexg, n_bank = _lex_graph(kind)
+    s, f, nf = _check_k4_k5(dev, lexg, n_bank, 9, 31)
+    words = lex_words_from_path_batch(lexg, s.T.cpu().numpy(), nf.cpu().numpy(),
+                                      f.T.cpu().numpy())
+    assert len(words) == 9
+
+
+def test_decode_lextree_cuda_matches_cpu(dev):
+    from speech_recognition_tpu_torch.data.lexicon import random_words
+    from speech_recognition_tpu_torch.decode.lextree import decode_lextree
+    from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+
+    bank = _bank(6, 3, 4, 39, seed=5)
+    units = list("abcdef")
+    trans = [bank.trans_cost[i].numpy() for i in range(6)]
+    rng = np.random.default_rng(6)
+    lexg = build_lex_graph(random_words(rng, units, 200, 2, 6), trans,
+                           {c: i for i, c in enumerate(units)}, word_insertion_cost=1.0)
+    feats = torch.from_numpy(rng.standard_normal((7, 50, 39)).astype(np.float32))
+    nf = torch.from_numpy(np.r_[50, 1, rng.integers(12, 51, 5)].astype(np.int32))
+    w_c, c_c = decode_lextree(bank, lexg, feats, nf)
+    w_g, c_g = decode_lextree(bank.to(dev), lexg, feats.to(dev), nf.to(dev))
+    assert w_g == w_c
+    np.testing.assert_allclose(c_g, c_c, rtol=1e-5)
+
+
+def test_lex_wrappers_raise_instead_of_falling_back(dev):
+    from speech_recognition_tpu_torch.ops import viterbi_lex_kernels as lk
+
+    lexg, n_bank = _lex_graph("deep")
+    g, topo = lexg.banded.to(dev), lk.lex_topology(lexg.banded)
+    nll = torch.zeros((n_bank, 6, 2), device=dev)
+    nf = torch.full((2,), 6, dtype=torch.int32, device=dev)
+    before = (lk.viterbi_lex.launches, lk.lex_backtrace_val.launches)
+    with pytest.raises(ValueError, match="n_frames is on cpu"):
+        lk.viterbi_lex(nll, g, topo, nf.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        lk.viterbi_lex(nll.double(), g, topo, nf)
+    with pytest.raises(ValueError, match="contiguous"):
+        lk.viterbi_lex(nll.transpose(1, 2).contiguous().transpose(1, 2), g, topo, nf)
+    bp8 = torch.zeros((6, 2, g.n_states), dtype=torch.int8, device=dev)
+    eps_prev = torch.zeros((6, 2, g.n_words), dtype=torch.int32, device=dev)
+    end = g.end_states[:2]
+    with pytest.raises(ValueError, match="contiguous"):
+        lk.lex_backtrace_val(bp8.transpose(0, 1).contiguous().transpose(0, 1),
+                             eps_prev, g, end, nf)
+    with pytest.raises(ValueError, match="n_frames is on cpu"):
+        lk.lex_backtrace_val(bp8, eps_prev, g, end, nf.cpu())
+    assert (lk.viterbi_lex.launches, lk.lex_backtrace_val.launches) == before
