@@ -11,16 +11,26 @@ through the CLI with the launch counters reset just before each:
   -> backtrace (K2) -> word ids;
 * lexical tree, ``cli connected_test --graph lextree --device cuda``:
   wavs -> MFCC-39 (K3) -> unit-bank emissions -> lexical-tree Viterbi
-  (K4) -> backtrace (K5) -> word ids.
+  (K4) -> backtrace (K5) -> word ids;
+* bigram LM composed onto the graph, ``--lm bigram`` with ``--graph
+  loop|sausage`` (K3 + K1 + K2) and ``--graph lextree --decoder compose``
+  (K3 + K4 + K5);
+* bigram LM over word lattices, ``--graph lextree --lm bigram --decoder
+  lattice``: wavs -> MFCC-39 (K3) -> unit-bank emissions -> lattice pass
+  (K6) -> bigram rescoring (K7) -> word walk -> word ids.
 
 Each output is checked against the same command on the CPU (plain
 versions).  K4 and K5 are also held against their plain versions on the
 1,000-word benchmark trie (128 x 500), on the same trie with a random
 eps block, on a flat 100-word vocabulary with bigram costs (more roots
 than one re-entry pass takes), and on a dictionary-shaped ~87k-state
-trie (32 x 500).  Every kernel, its plain
+trie (32 x 500); K6 and K7 on the 1,000-word trie (128 x 500) and the
+dictionary-shaped trie (16 x 500), with uniform-random and planted-word
+emissions, the backoff and the dense LM.  Every kernel, its plain
 version, the 256 x 5 s connected pipeline and the 128 x 5 s lexical-tree
-pipeline are timed with CUDA events.
+and bigram-lattice pipelines are timed with CUDA events, and each
+kernel's least possible time on the card (its bound) is computed from
+the bytes and operations of this run's inputs.
 
 Run from the repository root with one GPU:  python3 chip_smoke.py
 
@@ -43,13 +53,76 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 K3_TOL = dict(rtol=2e-3, atol=5e-4)  # f32 spectral chains, different sum orders
 K1_RTOL = 1e-5  # emission GEMM summation order
-# K4 / K5 take the plain version's own emissions: everything is compared
-# bit for bit
+# K4 / K5 / K6 / K7 take the plain version's own inputs: everything is
+# compared bit for bit
+
+# The card's published peaks (H100 SXM data sheet, at a 700 W limit):
+# device memory bandwidth and f32 rate outside the tensor cores (the port
+# keeps TF32 off); an add, min or compare counts as one operation.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(n_bytes: float, n_ops: float):
+    """``(ms, "bytes" | "operations")``: the least time the card could
+    take to move ``n_bytes`` and do ``n_ops``, and which of the two sets it."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors if x is not None)
+
+
+# Work models of the bounds: the bytes each kernel must move (every input
+# read once, every output written once; a backtrace reads only the plane
+# entries its walk visits) and the operations it does on this run's data
+# (frames past a stream's length are not counted where the kernel skips
+# them).  Per state and frame the banded DP does 3 band adds and compares,
+# an emission add and a clamp (8), a trie's cross edge 3 more; the re-entry
+# an add and a compare per (root, leaf) pair.
+
+
+def graph_bytes(g) -> int:
+    """The graph arrays a DP kernel reads, at 4 bytes an entry."""
+    parts = (g.band, g.init_cost, g.bank_state, g.word_starts, g.word_ends, g.eps_block,
+             g.cross_src, g.cross_cost)
+    return 4 * sum(x.numel() for x in parts if x is not None)
+
+
+def dp_ops(g, frames: int) -> float:
+    """Operations of ``frames`` (frame, stream) steps of the banded DP."""
+    per_state = 8 + (3 if g.cross_src is not None else 0)
+    return frames * (g.n_states * per_state + 2 * g.eps_block.numel() + 2 * g.n_words)
+
+
+def mfcc_ops(cfg, n_frames: int) -> float:
+    """Operations of the fused MFCC-39 over ``n_frames`` frames: pre-emphasis
+    and window, half a complex N-point FFT per real frame (5 N log2 N
+    each), power, two triangular filters per bin, log, DCT, lifter, the
+    two delta passes and the standardization."""
+    import math
+
+    n, half = cfg.n_fft, cfg.n_fft // 2 + 1
+    per = (3 * cfg.frame_len + 2.5 * n * math.log2(n) + 3 * half + 4 * half + cfg.n_mels
+           + 2 * cfg.n_mels * cfg.n_ceps + cfg.n_ceps + 2 * 10 * cfg.n_ceps
+           + 4 * 3 * cfg.n_ceps)
+    return n_frames * per
+
+
+def rescore_ops(t_len: int, b: int, l: int, k: int, dense: bool) -> float:
+    """Operations of the rescoring DP over every frame of ``b`` streams:
+    per leaf the D select and add, the backoff add and compare, K sparse
+    adds and compares, the take and the ring store (6 + 2K), or the dense
+    min-plus column (2L) plus 3."""
+    per_leaf = 2 * l + 3 if dense else 6 + 2 * k
+    return float(t_len) * b * l * per_leaf
 
 
 def fail(msg: str) -> None:
@@ -148,6 +221,87 @@ def check_lex(name, lexg, g, nll, nf):
                    f"flags and words identical; mean words/utt "
                    f"{sum(map(len, wk)) / len(wk):.2f}")
     return float((got[0] - want[0]).abs().max()), k5_err, want, ends
+
+
+def planted_emissions(rng, words, unit_ids, su, n_rows, b, t_len, dwell=2):
+    """``[U, T, B]`` emissions that plant random word strings (cost 0.05
+    on each state of each planted unit for ``dwell`` frames, 8.0
+    elsewhere, as the reference's lattice tests plant them), the planted
+    lengths and the word ids."""
+    import numpy as np
+
+    e = np.full((n_rows, t_len, b), 8.0, np.float32)
+    nf = np.zeros(b, np.int32)
+    seqs = []
+    for i in range(b):
+        rows, seq = [], []
+        while True:
+            w = int(rng.integers(len(words)))
+            r = [unit_ids[ch] * su + j for ch in words[w] for j in range(su)
+                 for _ in range(dwell)]
+            if len(rows) + len(r) > t_len:
+                break
+            rows += r
+            seq.append(w)
+        e[rows, np.arange(len(rows)), i] = 0.05
+        nf[i] = len(rows)
+        seqs.append(seq)
+    return e, nf, seqs
+
+
+def check_lattice(name, lexg, g, nll, nf, lm_l, max_dur=128):
+    """K6 against ``viterbi_lattice_ref`` (final, ends_cost and ends_tau
+    bit-identical in every frame, frozen ones included), K7 on K6's
+    planes against ``rescore_lattice_ref`` (cost and best leaf
+    bit-identical, pred_w at t < nf), and the words both walks read.
+    Returns ``(words, K6 max |d| of ends_cost, K7 max |d| of cost)``."""
+    import torch
+
+    from speech_recognition_tpu_torch.ops import lattice as lat
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lt
+    from speech_recognition_tpu_torch.ops.viterbi_lex_kernels import lex_topology
+
+    topo = lex_topology(lexg.banded)
+    got = lt.viterbi_lattice(nll, g, topo, nf)
+    want = lt.viterbi_lattice_ref(nll, g, topo, nf)
+    torch.cuda.synchronize()
+    for k, plane in enumerate(("final", "ends_cost", "ends_tau")):
+        if not torch.equal(got[k], want[k]):
+            fail(f"K6 {plane} differs from the plain version on {name}")
+    start_l, end_l, big, bo = lm_l
+    t_len = nll.shape[1]
+    args = (got[1], got[2], got[1].amin(2), start_l, end_l, nf,
+            lat._ring_depth(t_len, max_dur))
+    kw = dict(big_ll=big, backoff=bo)
+    rk = lt.rescore_lattice(*args, **kw)
+    rp = lt.rescore_lattice_ref(*args, **kw)
+    torch.cuda.synchronize()
+    valid = torch.arange(t_len, device=nll.device)[:, None, None] < nf[None, :, None]
+    if not (torch.equal(rk[0], rp[0]) and torch.equal(rk[1], rp[1])):
+        fail(f"K7 cost / best leaf differ from the plain version on {name}: max |d| "
+             f"{float((rk[0] - rp[0]).abs().max())}")
+    if not bool(((rk[2] == rp[2]) | ~valid).all()):
+        fail(f"K7 pred_w differs from the plain version on {name}")
+    su = lexg.n_states // lexg.n_arcs
+    mw = min(t_len, t_len // su + 1)
+    walks = [lat.lattice_words_device(r[2].transpose(1, 2), got[2].transpose(1, 2), r[1],
+                                      nf, max_words=mw) for r in (rk, rp)]
+    lw = lexg.leaf_word
+    words = []
+    for lr, nw in walks:
+        lr, nw = lr.cpu().numpy(), nw.cpu().numpy()
+        words.append([lw[lr[: nw[i], i][::-1]].tolist() for i in range(lr.shape[1])])
+    if words[0] != words[1]:
+        fail(f"words differ between K7 and its plain version on {name}")
+    live = float((got[1] < 1e29).float().mean())
+    phase("K6+K7", f"{name} ({g.n_states} states, L={g.n_ends}, "
+                   f"{'dense' if big is not None else 'backoff'} LM) at "
+                   f"{nll.shape[2]}x{t_len}: K6 planes == plain (bit-identical, frozen "
+                   f"frames included); K7 cost, best leaf, pred_w == plain; words "
+                   f"identical; live arcs {live:.3f}; mean words/utt "
+                   f"{sum(map(len, words[0])) / len(words[0]):.2f}")
+    return (words[0], float((got[1] - want[1]).abs().max()),
+            float((rk[0] - rp[0]).abs().max()))
 
 
 def make_lex_pipeline(dev, batch=128, samples=80000):
@@ -366,6 +520,64 @@ def main() -> int:
     report["K4"] = {"max_abs_err": max(k4_err, e4)}
     report["K5"] = {"max_abs_err": max(k5_err, e5)}
 
+    # ---- 5b. K6 + K7 vs their plain versions ---------------------------------
+    from speech_recognition_tpu_torch.langmodel.bigram import fit_bigram
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lt
+    from speech_recognition_tpu_torch.ops.lattice import lattice_lm
+
+    # bench_lextree_bigram's set-up: the 1k trie, then from the same rng
+    # the add-k LM of 200 random 12-word sentences and uniform(0, 5)
+    # emissions at 128 x 500
+    words1k, _, ids1k, brng = bench_lexicon()
+    lm1k = fit_bigram([[int(x) for x in brng.integers(0, 1000, 12)] for _ in range(200)], 1000)
+    e = brng.uniform(0, 5, (TL, 24, 128)).astype(np.float32)
+    nll_b = torch.from_numpy(np.ascontiguousarray(e.transpose(1, 0, 2))).to(dev)
+    # lengths T, 0 and 1 among them: every frame past nf is a frozen copy
+    nf_b = torch.from_numpy(np.r_[TL, 0, 1, brng.integers(2, TL + 1, 125)]
+                            .astype(np.int32)).to(dev)
+    lm_l1k = lattice_lm(lm1k, lex1k.leaf_word, dev)
+    if lm_l1k[3] is None:
+        fail("the add-k LM on the 1k trie has no backoff structure")
+    errs = [check_lattice("1k trie, uniform emissions", lex1k, g1k, nll_b, nf_b, lm_l1k)]
+    ep, nfp_, seqs_p = planted_emissions(np.random.default_rng(5), words1k, ids1k, 3, 24,
+                                         128, TL)
+    nll_p = torch.from_numpy(ep).to(dev)
+    nf_p = torch.from_numpy(nfp_).to(dev)
+    errs.append(check_lattice("1k trie, planted words", lex1k, g1k, nll_p, nf_p, lm_l1k))
+    hit = sum(w == s_ for w, s_ in zip(errs[-1][0], seqs_p))
+    phase("K6+K7", f"planted 1k-trie word strings recovered exactly: {hit} of {len(seqs_p)} "
+                   f"(mean {sum(map(len, seqs_p)) / len(seqs_p):.2f} words/utt)")
+    # the dense [L, L] recombination: a random LM without backoff structure
+    rnd = np.random.default_rng(6)
+    lm_dense = types.SimpleNamespace(cost=rnd.uniform(0.1, 3.0, (1000, 1000)),
+                                     start_cost=rnd.uniform(0.1, 2.0, 1000),
+                                     end_cost=rnd.uniform(0.1, 2.0, 1000))
+    lm_ld = lattice_lm(lm_dense, lex1k.leaf_word, dev)
+    if lm_ld[2] is None:
+        fail("the random LM was taken as a backoff LM")
+    errs.append(check_lattice("1k trie, uniform emissions", lex1k, g1k, nll_b, nf_b, lm_ld))
+    # bench_lextree_dict1_bigram's shape: the dictionary-shaped trie, the
+    # LM of 400 random 20-word sentences, 16 x 500
+    wordsd, _, idsd, drng2 = dict1_shaped_lexicon()
+    lmd = fit_bigram([[int(x) for x in drng2.integers(0, len(wordsd), 20)]
+                      for _ in range(400)], len(wordsd))
+    lm_ldd = lattice_lm(lmd, lexd.leaf_word, dev)
+    nll_bd = torch.from_numpy(drng2.uniform(0, 5, (n_bank_d, TL, 16)).astype(np.float32)).to(dev)
+    nf_bd = torch.from_numpy(np.r_[TL, 0, 1, drng2.integers(2, TL + 1, 13)]
+                             .astype(np.int32)).to(dev)
+    errs.append(check_lattice("dict1-shaped trie, uniform emissions", lexd, gd, nll_bd,
+                              nf_bd, lm_ldd))
+    ep, nfp_, seqs_p = planted_emissions(np.random.default_rng(8), wordsd, idsd, 3, n_bank_d,
+                                         16, TL)
+    errs.append(check_lattice("dict1-shaped trie, planted words", lexd, gd,
+                              torch.from_numpy(ep).to(dev), torch.from_numpy(nfp_).to(dev),
+                              lm_ldd))
+    hit = sum(w == s_ for w, s_ in zip(errs[-1][0], seqs_p))
+    phase("K6+K7", f"planted dict1-shaped word strings recovered exactly: {hit} of "
+                   f"{len(seqs_p)}")
+    report["K6"] = {"max_abs_err": max(e[1] for e in errs)}
+    report["K7"] = {"max_abs_err": max(e[2] for e in errs)}
+
     # ---- 6. both paths, through the CLI, on the card ------------------------
     from speech_recognition_tpu_torch import cli
     from speech_recognition_tpu_torch.data.synthetic import SyntheticDigits
@@ -377,46 +589,57 @@ def main() -> int:
         write_wav(os.path.join(wav_dir, u.name), u.samples)
     n_wavs = len(os.listdir(wav_dir))
 
-    def run_cli(graph, device):
+    def run_cli(run, device):
+        graph, *extra = run.split()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             cli.main(["connected_test", "-i", bank_path, "-d", wav_dir,
-                      "--graph", graph, "--device", device])
+                      "--graph", graph, *extra, "--device", device])
         return buf.getvalue()
 
     def word_lines(out):
         return [l for l in out.splitlines() if l.startswith(("Correct:", "Incorrect:"))]
 
     counters = (mfcc39_fused, vk.viterbi_banded_fused, vk.banded_backtrace_val,
-                lk.viterbi_lex, lk.lex_backtrace_val)
+                lk.viterbi_lex, lk.lex_backtrace_val, lt.viterbi_lattice, lt.rescore_lattice)
+    bigram = "--lm bigram"
     paths = {"connected": (("loop", "sausage"), (mfcc39_fused, vk.viterbi_banded_fused,
                                                  vk.banded_backtrace_val)),
-             "lextree": (("lextree",), (mfcc39_fused, lk.viterbi_lex, lk.lex_backtrace_val))}
+             "lextree": (("lextree",), (mfcc39_fused, lk.viterbi_lex, lk.lex_backtrace_val)),
+             "bigram composed": ((f"loop {bigram}", f"sausage {bigram}",
+                                  f"lextree {bigram} --decoder compose"),
+                                 (mfcc39_fused, vk.viterbi_banded_fused, vk.banded_backtrace_val,
+                                  lk.viterbi_lex, lk.lex_backtrace_val)),
+             "bigram lattice": ((f"lextree {bigram} --decoder lattice",),
+                                (mfcc39_fused, lt.viterbi_lattice, lt.rescore_lattice))}
     outs, launches = {}, {}
-    for path, (graphs_, used) in paths.items():
+    for path, (runs, used) in paths.items():
         for c in counters:
             c.launches = 0
-        for graph in graphs_:
-            outs[graph] = run_cli(graph, "cuda")
+        for run in runs:
+            outs[run] = run_cli(run, "cuda")
         torch.cuda.synchronize()
         launches[path] = {c.__name__: c.launches for c in counters}
         if not all(launches[path][c.__name__] for c in used):
             fail(f"a kernel of the {path} path was not launched: {launches[path]}")
         phase("main path", f"{path} path launches: {launches[path]}")
-    for graph in ("loop", "sausage", "lextree"):
-        if len(word_lines(outs[graph])) != n_wavs:
-            fail(f"connected_test --graph {graph} decoded "
-                 f"{len(word_lines(outs[graph]))} of {n_wavs} wavs")
-        if outs[graph] != run_cli(graph, "cpu"):
-            fail(f"connected_test --graph {graph}: CUDA output differs from the CPU run")
-        wer_line = [l for l in outs[graph].splitlines() if l.startswith("WER:")][0]
-        phase("main path", f"cli connected_test --graph {graph} --device cuda on "
+    for run in outs:
+        if len(word_lines(outs[run])) != n_wavs:
+            fail(f"connected_test --graph {run} decoded "
+                 f"{len(word_lines(outs[run]))} of {n_wavs} wavs")
+        if outs[run] != run_cli(run, "cpu"):
+            fail(f"connected_test --graph {run}: CUDA output differs from the CPU run")
+        wer_line = [l for l in outs[run].splitlines() if l.startswith("WER:")][0]
+        phase("main path", f"cli connected_test --graph {run} --device cuda on "
                            f"{n_wavs} synthetic wavs (random-weight bank): output "
                            f"identical to --device cpu; {wer_line}")
     if word_lines(outs["lextree"]) != word_lines(outs["loop"]):
         fail("connected_test --graph lextree decoded other words than --graph loop")
-    phase("main path", "--graph lextree words == --graph loop words (flat digit "
-                       "vocabulary)")
+    if word_lines(outs[f"lextree {bigram} --decoder compose"]) != \
+            word_lines(outs[f"loop {bigram}"]):
+        fail("the bigram composed onto the trie decoded other words than on the loop graph")
+    phase("main path", "--graph lextree words == --graph loop words, without an LM and "
+                       "with the bigram composed (flat digit vocabulary)")
 
     # ---- 7. timings ---------------------------------------------------------
     t = {}
@@ -449,6 +672,7 @@ def main() -> int:
                                                         lex_ends, nf1k), reps=3))
     topod = lk.lex_topology(gd)
     k4_dict_ms = cuda_ms(lambda: lk.viterbi_lex(nlld, gd, topod, nfd))
+    k4_dict_plain = cuda_ms(lambda: lk.viterbi_lex_ref(nlld, gd, topod, nfd), reps=1)
 
     from speech_recognition_tpu_torch.decode.lextree import _decode_lex_batch
     from speech_recognition_tpu_torch.models.lexgraph import lex_words_from_path_batch
@@ -467,12 +691,83 @@ def main() -> int:
     lex_words = lex_words_from_path_batch(lexp, states.T.cpu().numpy(), nfp.cpu().numpy(),
                                           flags.T.cpu().numpy())
     words_ms = (time.perf_counter() - t0) * 1e3
+
+    # K6 / K7 at bench_lextree_bigram's shape (every stream 500 frames)
+    from speech_recognition_tpu_torch.ops.lattice import _decode_lattice_batch, _ring_depth
+
+    nf_full = torch.full((128,), TL, dtype=torch.int32, device=dev)
+    dmax = _ring_depth(TL, 128)
+    k6_out = lt.viterbi_lattice(nll_b, g1k, topo1k, nf_full)
+    k7_args = (k6_out[1], k6_out[2], k6_out[1].amin(2), lm_l1k[0], lm_l1k[1], nf_full, dmax)
+    k7_kw = dict(big_ll=None, backoff=lm_l1k[3])
+    t["K6"] = (cuda_ms(lambda: lt.viterbi_lattice(nll_b, g1k, topo1k, nf_full)),
+               cuda_ms(lambda: lt.viterbi_lattice_ref(nll_b, g1k, topo1k, nf_full), reps=3))
+    t["K7"] = (cuda_ms(lambda: lt.rescore_lattice(*k7_args, **k7_kw)),
+               cuda_ms(lambda: lt.rescore_lattice_ref(*k7_args, **k7_kw), reps=3))
+    k7_dense_ms = cuda_ms(lambda: lt.rescore_lattice(*k7_args[:-1], dmax, big_ll=lm_ld[2]))
+    nf_d16 = torch.full((16,), TL, dtype=torch.int32, device=dev)
+    k6_dict_ms = cuda_ms(lambda: lt.viterbi_lattice(nll_bd, gd, topod, nf_d16))
+    kd_out = lt.viterbi_lattice(nll_bd, gd, topod, nf_d16)
+    k7_dict_ms = cuda_ms(lambda: lt.rescore_lattice(
+        kd_out[1], kd_out[2], kd_out[1].amin(2), lm_ldd[0], lm_ldd[1], nf_d16, dmax,
+        backoff=lm_ldd[3]))
+
+    # the bigram pipeline: 128 x 5 s wav -> words over lexp's trie with an
+    # add-k LM of 200 random 12-word sentences
+    from speech_recognition_tpu_torch.langmodel.bigram import fit_bigram as _fit
+
+    prng = np.random.default_rng(9)
+    lm_p = _fit([[int(x) for x in prng.integers(0, len(lexp.words), 12)] for _ in range(200)],
+                len(lexp.words))
+    lm_lp = lattice_lm(lm_p, lexp.leaf_word, dev)
+    su_p = lexp.n_states // lexp.n_arcs
+
+    def bigram_pipeline():
+        f, n = mfcc39_auto(lsig, llens, lcfg)
+        return _decode_lattice_batch(lbank, f, n, gp, topop, lm_lp, su_p)
+
+    big_ms = cuda_ms(bigram_pipeline)
+    # its stages, each timed alone on the previous stage's outputs
+    from speech_recognition_tpu_torch.models.hmm import bank_nll_ubt
+    from speech_recognition_tpu_torch.ops.lattice import (
+        _lattice_truncation_count,
+        lattice_words_device,
+    )
+
+    f_p, n_p = mfcc39_auto(lsig, llens, lcfg)
+    t_p = f_p.shape[1]
+    nll_pp = bank_nll_ubt(lbank, f_p, n_p)
+    p6 = lt.viterbi_lattice(nll_pp, gp, topop, n_p)
+    p7_args = (p6[1], p6[2], p6[1].amin(2), lm_lp[0], lm_lp[1], n_p, _ring_depth(t_p, 128))
+    p7 = lt.rescore_lattice(*p7_args, big_ll=lm_lp[2], backoff=lm_lp[3])
+    stages = {
+        "K3": lambda: mfcc39_auto(lsig, llens, lcfg),
+        "bank_nll_ubt": lambda: bank_nll_ubt(lbank, f_p, n_p),
+        "K6": lambda: lt.viterbi_lattice(nll_pp, gp, topop, n_p),
+        "truncation count": lambda: _lattice_truncation_count(
+            p6[1].transpose(1, 2), p6[2].transpose(1, 2), n_p, 128),
+        "K7": lambda: lt.rescore_lattice(*p7_args, big_ll=lm_lp[2], backoff=lm_lp[3]),
+        "word walk": lambda: lattice_words_device(
+            p7[2].transpose(1, 2), p6[2].transpose(1, 2), p7[1], n_p,
+            max_words=min(t_p, t_p // su_p + 1)),
+    }
+    stage_ms = {k: cuda_ms(fn) for k, fn in stages.items()}
+    leaves_rev, n_words, _, _ = bigram_pipeline()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lr_h, nw_h = leaves_rev.cpu().numpy(), n_words.cpu().numpy()
+    big_words = [lexp.leaf_word[lr_h[: nw_h[i], i][::-1]].tolist() for i in range(len(nw_h))]
+    big_words_ms = (time.perf_counter() - t0) * 1e3
+
     for k, (ms, plain) in t.items():
         phase("timing", f"{k}: kernel {ms:.3f} ms, plain {plain:.3f} ms "
                         f"(CUDA-event median; {card})")
     phase("timing", f"K4 dict1-shaped trie ({gd.n_states} states) at 32x{TL}: "
-                    f"{k4_dict_ms:.3f} ms "
+                    f"{k4_dict_ms:.3f} ms, plain {k4_dict_plain:.3f} ms "
                     f"(CUDA-event median; {card})")
+    phase("timing", f"K7 dense [L, L] LM on the 1k trie at 128x{TL}: {k7_dense_ms:.3f} ms; "
+                    f"dict1-shaped trie at 16x{TL}: K6 {k6_dict_ms:.3f} ms, K7 (backoff, "
+                    f"K={lm_ldd[3][1].shape[1]}) {k7_dict_ms:.3f} ms (CUDA-event median; {card})")
     phase("timing", f"pipeline 256 x 5 s wav -> word ids (K3 + K1 + K2 + "
                     f"states_to_words_device): {pipe_ms:.3f} ms "
                     f"= {256 * 5 / (pipe_ms / 1e3):.0f} audio-s/s (CUDA-event median; {card})")
@@ -481,9 +776,60 @@ def main() -> int:
                     f"= {128 * 5 / (lex_ms / 1e3):.0f} audio-s/s (CUDA-event median; {card}); "
                     f"+ host words {words_ms:.1f} ms wall for "
                     f"{sum(map(len, lex_words))} words")
+    phase("timing", f"bigram pipeline 128 x 5 s wav -> words over the 1k trie (K3 + "
+                    f"bank_nll_ubt + K6 + K7 + lattice_words_device): {big_ms:.3f} ms "
+                    f"= {128 * 5 / (big_ms / 1e3):.0f} audio-s/s (CUDA-event median; {card}); "
+                    f"+ host words {big_words_ms:.1f} ms wall for "
+                    f"{sum(map(len, big_words))} words")
+    phase("timing", "bigram pipeline stages alone: " + ", ".join(
+        f"{k} {ms:.3f} ms" for k, ms in stage_ms.items()) + f" (CUDA-event median; {card})")
 
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        fail("jax was imported")
+    # ---- 8. bounds ----------------------------------------------------------
+    sum_nf = int(nf.clamp(max=T).sum())  # K1 / K2 streams stop at nf
+    nfr3 = int(lens.numel()) * int(mfcc39_fused(sig, lens, cfg)[0].shape[1])
+    w_units = w.numel() // w.shape[-1]  # emission components per frame
+    sum_nf1k = int(nf1k.clamp(max=TL).sum())
+    l1k, k1k = g1k.n_ends, lm_l1k[3][1].shape[1]
+    work = {
+        "K3": (nbytes(sig, lens) + nfr3 * 39 * 4, mfcc_ops(cfg, nfr3)),
+        "K1": (nbytes(xa, w, lw, nf) + graph_bytes(bg) + nbytes(*want[:1])
+               + sum_nf * (bg.n_states + bg.n_words * (want[2].element_size() + 4)),
+               sum_nf * (2 * w.numel() + 4 * w_units) + dp_ops(bg, sum_nf)),
+        "K2": (sum_nf * 1 + T * B * 5 + nbytes(ends, nf), 4.0 * sum_nf),
+        "K4": (nbytes(nll1k, nf1k) + graph_bytes(g1k) + nbytes(lex_planes[0])
+               + sum_nf1k * (g1k.n_states + g1k.n_words * (lex_planes[2].element_size() + 4)),
+               dp_ops(g1k, sum_nf1k)),
+        "K5": (sum_nf1k * 1 + TL * 128 * 5 + nbytes(lex_ends, nf1k), 4.0 * sum_nf1k),
+        "K6": (nbytes(nll_b, nf_full, *k6_out) + graph_bytes(g1k), dp_ops(g1k, 128 * TL)),
+        "K7": (nbytes(*k7_args[:6], *lm_l1k[3]) + TL * 128 * l1k * 4 + 128 * 8,
+               rescore_ops(TL, 128, l1k, k1k, dense=False)),
+    }
+    # the other timed shapes: the dense LM and the dictionary-shaped trie
+    sum_nfd = int(nfd.clamp(max=TL).sum())
+    ld, kd = gd.n_ends, lm_ldd[3][1].shape[1]
+    eu_d = torch.empty((), dtype=topod.eps_u_dtype).element_size()
+    more = {
+        "K7 dense LM": (nbytes(*k7_args[:6], lm_ld[2]) + TL * 128 * l1k * 4 + 128 * 8,
+                        rescore_ops(TL, 128, l1k, 0, dense=True), k7_dense_ms),
+        "K4 dict1-shaped": (nbytes(nlld, nfd) + graph_bytes(gd) + 32 * gd.n_states * 4
+                            + sum_nfd * (gd.n_states + gd.n_words * (eu_d + 4)),
+                            dp_ops(gd, sum_nfd), k4_dict_ms),
+        "K6 dict1-shaped": (nbytes(nll_bd, nf_d16, *kd_out) + graph_bytes(gd),
+                            dp_ops(gd, 16 * TL), k6_dict_ms),
+        "K7 dict1-shaped": (nbytes(kd_out[1], kd_out[2], *lm_ldd[:2], *lm_ldd[3], nf_d16)
+                            + TL * 16 * 4 + TL * 16 * ld * 4 + 16 * 8,
+                            rescore_ops(TL, 16, ld, kd, dense=False), k7_dict_ms),
+    }
+    bounds = {k: bound(*v) for k, v in work.items()}
+    for k, (n_b, n_o, ms) in [(k, (*v, t[k][0])) for k, v in work.items()] + list(more.items()):
+        b_ms, by = bound(n_b, n_o)
+        phase("bound", f"{k}: {n_b / 1e6:.1f} MB, {n_o / 1e9:.2f} G operations -> "
+                       f"{b_ms:.4f} ms, bound by {by}; the kernel took {ms / b_ms:.0f}x it")
+
+    bad = sorted(m for m in sys.modules if m in ("jax", "speech_recognition_tpu")
+                 or m.startswith(("jax.", "speech_recognition_tpu.")))
+    if bad:
+        fail(f"modules of jax or of the JAX package were imported: {bad[:5]}")
     src = {"K3": ("mfcc39_fused", "speech_recognition_tpu_torch/csrc/mfcc39.cu",
                   "speech_recognition_tpu/ops/frontend_pallas.py:190"),
            "K1": ("viterbi_banded_fused", "speech_recognition_tpu_torch/csrc/viterbi_banded.cu",
@@ -494,13 +840,18 @@ def main() -> int:
            "K4": ("viterbi_lex", "speech_recognition_tpu_torch/csrc/viterbi_lex.cu",
                   "speech_recognition_tpu/ops/viterbi_lex_pallas.py:550"),
            "K5": ("lex_backtrace_val", "speech_recognition_tpu_torch/csrc/lex_backtrace.cu",
-                  "speech_recognition_tpu/ops/viterbi_lex_pallas.py:1581")}
-    # each kernel's launches in the path runs above; K3 runs in both paths
-    n_launch = {fn: launches["connected"][fn] + launches["lextree"][fn]
-                for fn in launches["connected"]}
+                  "speech_recognition_tpu/ops/viterbi_lex_pallas.py:1581"),
+           "K6": ("viterbi_lattice", "speech_recognition_tpu_torch/csrc/viterbi_lex.cu",
+                  "speech_recognition_tpu/ops/viterbi_lex_pallas.py:1017"),
+           "K7": ("rescore_lattice", "speech_recognition_tpu_torch/csrc/lattice_rescore.cu",
+                  "speech_recognition_tpu/ops/lattice.py:165")}
+    # each kernel's launches over the path runs above (no single PyTorch
+    # call computes any of these functions: library_ms is null)
+    n_launch = {fn: sum(p[fn] for p in launches.values()) for fn in launches["connected"]}
     kernels = [{"name": f"{k} {fn}", "route": "cuda", "source": path, "replaces": rep,
                 "launches": n_launch[fn], "max_abs_err": report[k]["max_abs_err"],
-                "ms": t[k][0], "plain_ms": t[k][1]}
+                "ms": t[k][0], "plain_ms": t[k][1], "bound_ms": bounds[k][0],
+                "bound_by": bounds[k][1], "library_ms": None}
                for k, (fn, path, rep) in src.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -22,9 +22,10 @@ launches the hand-written CUDA kernel for CUDA tensors (or raises); a
 CUDA tensor never falls back to the plain version.  The device is
 always taken from the input tensors.
 
-This package imports no ``jax``.  It reuses only the jax-free parts of
-the reference package: ``speech_recognition_tpu.config``, ``.data`` and
-``.runtime``.
+This package imports no ``jax`` and no module of the reference package
+``speech_recognition_tpu``, not even its jax-free ones: what it needs
+of ``config``, ``data`` and the wav loader has its own copy here
+(``config.py``, ``data/``).  Only the tests import both packages.
 """
 
 from speech_recognition_tpu_torch.utils import numerics as _numerics  # noqa: F401  (sets the f32 policy)

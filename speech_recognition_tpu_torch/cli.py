@@ -6,12 +6,21 @@ K1 + K2 on CUDA), or with ``--graph lextree`` the lexical-tree decode
 (kernels K4 + K5 on CUDA) -> word ids, scored against the Aurora-style
 transcripts in the file names.  Output lines match the reference CLI.
 
+``--lm bigram`` fits an add-k bigram on the transcripts of ``--lm-train``
+(default: the test transcripts, with a warning), scales it by
+``--lm-weight`` and makes silence LM-transparent.  ``loop`` and
+``sausage`` compose it onto the graph (K1 + K2); ``lextree`` composes
+it onto the trie (``--decoder compose``, flat vocabularies: K4 + K5) or
+rescores the pass-1 word lattice (``--decoder lattice``, and ``auto``
+on multi-unit words: K6 + K7).
+
 Run:  python -m speech_recognition_tpu_torch.cli connected_test \
-          -i bank.npz -d wav_dir [--graph loop|sausage|lextree] [--device cuda|cpu]
+          -i bank.npz -d wav_dir [--graph loop|sausage|lextree] \
+          [--lm none|bigram] [--decoder auto|compose|lattice] [--device cuda|cpu]
 
 The device is explicit (default ``cuda``); asking for CUDA on a host
-without it is an error, never a silent CPU run.  Other actions and the
-bigram LM are not ported yet (ROADMAP queue A).
+without it is an error, never a silent CPU run.  Other actions are not
+ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -20,11 +29,12 @@ import argparse
 import dataclasses
 import glob
 import os
+import sys
 
 import numpy as np
 import torch
 
-from speech_recognition_tpu.config import DIGIT_NAMES, DecodeConfig, FrontendConfig
+from speech_recognition_tpu_torch.config import DIGIT_NAMES, DecodeConfig, FrontendConfig
 
 __all__ = ["main", "cmd_connected_test"]
 
@@ -43,7 +53,7 @@ def _featurize_files(paths, cfg: FrontendConfig, cap_samples: int, device,
     The frontend adapts to the files' sample rate; ``norm`` is
     'utterance' (per-utterance z-norm) or 'cmvn' (raw features, then the
     corpus statistics ``cmvn = (mean, std)``)."""
-    from speech_recognition_tpu.runtime.loader import load_wav_batch
+    from speech_recognition_tpu_torch.data.wav import load_wav_batch
     from speech_recognition_tpu_torch.ops.frontend import (
         apply_cmvn,
         mfcc39_auto,
@@ -82,8 +92,36 @@ def _norm_from_meta(meta):
     return norm, cmvn
 
 
+def _bigram(args, refs, n_models, sil):
+    """The ``--lm bigram`` model: fitted on ``--lm-train``'s transcripts
+    (or the test transcripts), scaled, silence LM-transparent."""
+    from speech_recognition_tpu_torch.data.aurora import (
+        labels_from_transcript,
+        transcript_from_filename,
+    )
+    from speech_recognition_tpu_torch.langmodel.bigram import fit_bigram, scale
+
+    if args.lm_train:
+        names = [os.path.basename(f)
+                 for f in sorted(glob.glob(os.path.join(args.lm_train, "*.wav")))]
+        seqs = [labels_from_transcript(transcript_from_filename(n))
+                for n in names if transcript_from_filename(n)]
+    else:
+        print("WARNING: --lm-train not given; fitting the bigram on the "
+              "test transcripts themselves (evaluation is optimistic)")
+        seqs = refs
+    lm = scale(fit_bigram(seqs, n_models), args.lm_weight)
+    if sil is not None:
+        # entering or leaving silence spends no word-transition probability
+        lm.cost[sil, :] = 0.0
+        lm.cost[:, sil] = 0.0
+        lm.start_cost[sil] = 0.0
+        lm.end_cost[sil] = 0.0
+    return lm
+
+
 def cmd_connected_test(args):
-    from speech_recognition_tpu.data.aurora import (
+    from speech_recognition_tpu_torch.data.aurora import (
         labels_from_transcript,
         transcript_from_filename,
     )
@@ -99,8 +137,6 @@ def cmd_connected_test(args):
         wer,
     )
 
-    if args.lm != "none":
-        raise NotImplementedError("--lm bigram is not ported yet (ROADMAP queue A item 12)")
     dev = _device(args.device)
     bank, meta = load_bank(args.input)
     bank = bank.to(dev)
@@ -116,20 +152,38 @@ def cmd_connected_test(args):
 
     trans_np = [bank.trans_cost[i].cpu().numpy() for i in range(bank.n_models)]
     drop = {sil} if sil is not None else None
+    lm = _bigram(args, refs, bank.n_models, sil) if args.lm == "bigram" else None
     if args.graph == "loop":
-        graph = build_loop_graph(trans_np, word_insertion_cost=args.word_insertion_cost)
+        graph = build_loop_graph(trans_np, lm=lm, word_insertion_cost=args.word_insertion_cost)
         hyps, _ = decode_connected(bank, graph, feats, nf, drop_labels=drop)
     elif args.graph == "lextree":
         # the large-vocabulary decoder; on the flat digit vocabulary it
         # gives the loop graph's words
-        from speech_recognition_tpu_torch.decode.lextree import decode_lextree
         from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
 
         symbols = [chr(ord("0") + i) if i < 10 else chr(ord("A") + i - 10)
                    for i in range(bank.n_models)]
-        lexg = build_lex_graph(symbols, trans_np, {s: i for i, s in enumerate(symbols)},
-                               word_insertion_cost=args.word_insertion_cost)
-        hyps, _ = decode_lextree(bank, lexg, feats, nf)
+        ids = {s: i for i, s in enumerate(symbols)}
+        if args.decoder == "lattice" and lm is None:
+            sys.exit("--decoder lattice needs --lm bigram")
+        use_lattice = lm is not None and (
+            args.decoder == "lattice"
+            or (args.decoder == "auto" and any(len(s) > 1 for s in symbols)))
+        if use_lattice:
+            # the deep-tree path: no-LM pass-1 lattice + exact bigram
+            # rescoring (composing the bigram onto a trie is exact only
+            # on flat vocabularies)
+            from speech_recognition_tpu_torch.ops.lattice import decode_lextree_bigram
+
+            lexg = build_lex_graph(symbols, trans_np, ids,
+                                   word_insertion_cost=args.word_insertion_cost)
+            hyps, _ = decode_lextree_bigram(bank, lexg, lm, feats, nf)
+        else:
+            from speech_recognition_tpu_torch.decode.lextree import decode_lextree
+
+            lexg = build_lex_graph(symbols, trans_np, ids, lm=lm,
+                                   word_insertion_cost=args.word_insertion_cost)
+            hyps, _ = decode_lextree(bank, lexg, feats, nf)
         if sil is not None:
             hyps = [[w for w in h if w != sil] for h in hyps]
     else:
@@ -140,7 +194,7 @@ def cmd_connected_test(args):
             by_slots.setdefault(args.n_slots or len(r), []).append(i)
         hyps = [None] * len(refs)
         for n_slots, idxs in sorted(by_slots.items()):
-            graph = build_word_graph(trans_np, [vocab] * n_slots)
+            graph = build_word_graph(trans_np, [vocab] * n_slots, lm=lm)
             sel = torch.as_tensor(idxs, device=dev)
             hs, _ = decode_connected(bank, graph, feats[sel], nf[sel], drop_labels=drop)
             for i, h in zip(idxs, hs):
@@ -169,6 +223,14 @@ def main(argv=None):
                         f"reference uses {_dc.n_slots})")
     p.add_argument("--word-insertion-cost", type=float,
                    default=_dc.word_insertion_cost)
+    p.add_argument("--lm-weight", type=float, default=_dc.lm_weight)
+    p.add_argument("--lm-train", default=None,
+                   help="wav dir whose filenames provide bigram training "
+                        "transcripts (default: test transcripts, with warning)")
+    p.add_argument("--decoder", choices=["auto", "compose", "lattice"], default="auto",
+                   help="lextree+bigram strategy: compose the LM onto the graph "
+                        "(flat vocabularies only) or rescore the word lattice "
+                        "(the deep-tree path); auto picks lattice for multi-unit words")
     p.add_argument("--max-samples", type=int, default=120000)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; never falls back)")

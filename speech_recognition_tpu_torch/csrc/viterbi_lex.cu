@@ -35,7 +35,26 @@
 // Outputs: final [B,S] f32, bp8 [T,B,S] i8, eps_u [T,B,R] (i8, i32 when
 // L > 127), eps_prev [T,B,R] i32.
 //
-// What bounds it on the H100: latency of the serial frame loop.  One CTA
+// K6, the lattice mode (template argument kLattice), replaces
+// _lex_kernel(emit_lattice=True) (viterbi_lex_pallas_lattice) and
+// _lex_kernel_wide(emit_lattice=True) (viterbi_lex_pallas_wide_lattice):
+// the same band, cross and eps rules with an int32 entry-time frontier tau
+// double-buffered beside the costs, following the plain version
+// ops/lattice.viterbi_lattice_tb (the reference's XLA scan):
+//   tau      the band winner's tau[v-d]; then tau[cross_src[v]] where the
+//            cross edge wins (so a dead state, whose band candidates are
+//            all above POS_INF, takes its cross source's tau, as the scan
+//            does); then t where the re-entry strictly improves a root
+//            start; frame 0 seeds tau = 0 and still runs the eps pass
+//   length   frame 0 runs for every stream, nf = 0 included; frames
+//            t >= max(nf, 1) repeat the last computed frame, so every row
+//            t < T of the planes is written; final = the frontier after
+//            frame nf-1 for 1 <= nf <= T, else POS_INF
+// Outputs: final [B,S] f32, ends_cost [T,B,L] f32 and ends_tau [T,B,L] i32
+// (leaf-slot order); no bp8 or eps planes.  The eps pass keeps K4's
+// reduction; the lattice needs only its minimum.
+//
+// What bounds K4 on the H100: latency of the serial frame loop.  One CTA
 // owns one stream for all T frames (128 CTAs at B = 128 on 132 SMs, only
 // __syncthreads between phases).  Per frame a CTA reads band (3S f32),
 // bank_state, cross_src, cross_cost (S each) and the [R, L] eps block
@@ -50,6 +69,10 @@
 // shared memory; the per-root first-minimum is a warp-shuffle (value,
 // index) reduction, 64 roots per pass.  Staging or packing the constant
 // arrays is left to a later change.
+//
+// K6 has K4's bounds and design; it swaps the S-byte bp8 row for a 4S-byte
+// tau row per frame in the scratch and writes 8L bytes of planes per
+// frame and stream instead of S + 5R.
 
 #include <limits.h>
 #include <math.h>
@@ -82,6 +105,10 @@ struct Params {
   void* eps_u;              // [T, B, R] int8 or int32
   int u_wide;
   int* eps_prev;            // [T, B, R]
+  // lattice mode (K6)
+  int* tau_scratch;         // [B, 2, S] double-buffered entry times
+  float* ends_cost;         // [T, B, L]
+  int* ends_tau;            // [T, B, L]
   int U, T, B, S, R, L;
 };
 
@@ -102,6 +129,7 @@ __device__ __forceinline__ void argmin_merge(float& v, int& i, float v2,
   }
 }
 
+template <bool kLattice>
 __global__ void __launch_bounds__(kThreads, 1) viterbi_lex_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rc = p.R < kRootChunk ? p.R : kRootChunk;
@@ -113,7 +141,11 @@ __global__ void __launch_bounds__(kThreads, 1) viterbi_lex_kernel(Params p) {
   const int b = blockIdx.x;
   float* cur = p.scratch + (size_t)b * 2 * p.S;
   float* nxt = cur + p.S;
-  const int n = min(p.nf[b], p.T);
+  int* tcur = kLattice ? p.tau_scratch + (size_t)b * 2 * p.S : nullptr;
+  int* tnxt = kLattice ? tcur + p.S : nullptr;
+  const int nf = p.nf[b];
+  // K4 stops at the stream's length; the lattice runs frame 0 always
+  const int n = kLattice ? max(min(nf, p.T), 1) : min(nf, p.T);
 
   for (int t = 0; t < n; ++t) {
     // (A) this frame's bank emissions
@@ -123,10 +155,11 @@ __global__ void __launch_bounds__(kThreads, 1) viterbi_lex_kernel(Params p) {
     __syncthreads();
 
     // (B) band select, cross edge, emission
-    int8_t* bp_row = p.bp8 + ((size_t)t * p.B + b) * p.S;
+    int8_t* bp_row = kLattice ? nullptr : p.bp8 + ((size_t)t * p.B + b) * p.S;
     for (int v = tid; v < p.S; v += kThreads) {
       float base;
       int8_t d = 0;
+      int tv = 0;  // entry time (lattice mode)
       if (t == 0) {
         base = __ldg(p.init + v);
       } else {
@@ -140,15 +173,20 @@ __global__ void __launch_bounds__(kThreads, 1) viterbi_lex_kernel(Params p) {
             d = dd;
           }
         }
-        const float cc = fminf(
-            cur[__ldg(p.cross_src + v)] + __ldg(p.cross_cost + v), SRT_POS_INF);
+        if (kLattice) tv = v >= d ? tcur[v - d] : 0;
+        const int cs = __ldg(p.cross_src + v);
+        const float cc = fminf(cur[cs] + __ldg(p.cross_cost + v), SRT_POS_INF);
         if (cc <= base) {
           base = cc;
           d = kCrossCode;
+          if (kLattice) tv = tcur[cs];
         }
       }
       nxt[v] = fminf(base + en[__ldg(p.bank_state + v)], SRT_POS_INF);
-      bp_row[v] = d;
+      if (kLattice)
+        tnxt[v] = tv;
+      else
+        bp_row[v] = d;
     }
     __syncthreads();
 
@@ -190,12 +228,17 @@ __global__ void __launch_bounds__(kThreads, 1) viterbi_lex_kernel(Params p) {
             fminf(bv + en[__ldg(p.bank_state + start)], SRT_POS_INF);
         int uo = 0, pp = 0;
         if (cand < nxt[start]) {  // strict improvement only
-          const int end = __ldg(p.word_ends + bi);
-          uo = bi;
-          pp = end - bp_row[end];  // band code, written in (B)
           nxt[start] = cand;
-          bp_row[start] = kEpsCode;
+          if (kLattice) {
+            tnxt[start] = t;
+          } else {
+            const int end = __ldg(p.word_ends + bi);
+            uo = bi;
+            pp = end - bp_row[end];  // band code, written in (B)
+            bp_row[start] = kEpsCode;
+          }
         }
+        if (kLattice) continue;
         const size_t o = ((size_t)t * p.B + b) * p.R + r;
         if (p.u_wide)
           static_cast<int*>(p.eps_u)[o] = uo;
@@ -206,12 +249,39 @@ __global__ void __launch_bounds__(kThreads, 1) viterbi_lex_kernel(Params p) {
       __syncthreads();
     }
 
+    // (D) lattice planes: the leaf ends after the eps pass (starts and
+    // ends are disjoint, so the pass did not change them)
+    if (kLattice) {
+      const size_t o = ((size_t)t * p.B + b) * p.L;
+      for (int l = tid; l < p.L; l += kThreads) {
+        const int e = __ldg(p.word_ends + l);
+        p.ends_cost[o + l] = nxt[e];
+        p.ends_tau[o + l] = tnxt[e];
+      }
+      int* ttmp = tcur;
+      tcur = tnxt;
+      tnxt = ttmp;
+    }
+
     float* tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
+  bool has_final = n > 0;
+  if (kLattice) {
+    // frames past the stream's length repeat its last frame
+    const size_t rest = (size_t)(p.T - n) * p.L;
+    for (size_t i = tid; i < rest; i += kThreads) {
+      const int t = n + (int)(i / p.L), l = (int)(i % p.L);
+      const int e = __ldg(p.word_ends + l);
+      const size_t o = ((size_t)t * p.B + b) * p.L + l;
+      p.ends_cost[o] = cur[e];
+      p.ends_tau[o] = tcur[e];
+    }
+    has_final = nf >= 1 && nf <= p.T;
+  }
   for (int v = tid; v < p.S; v += kThreads)
-    p.final_cost[(size_t)b * p.S + v] = n > 0 ? cur[v] : SRT_POS_INF;
+    p.final_cost[(size_t)b * p.S + v] = has_final ? cur[v] : SRT_POS_INF;
 }
 
 }  // namespace
@@ -232,9 +302,27 @@ extern "C" int viterbi_lex_launch(
     return (int)cudaErrorInvalidValue;
   Params p{nll, band, init, bank_state, cross_src, cross_cost, word_starts,
            word_ends, eps, nf, scratch, final_cost, bp8, eps_u, u_wide,
-           eps_prev, U, T, B, S, R, L};
+           eps_prev, nullptr, nullptr, nullptr, U, T, B, S, R, L};
   const size_t smem = smem_bytes(U, R);
-  SRT_SET_SMEM(viterbi_lex_kernel, smem);
-  viterbi_lex_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(p);
+  SRT_SET_SMEM(viterbi_lex_kernel<false>, smem);
+  viterbi_lex_kernel<false><<<B, kThreads, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int viterbi_lattice_launch(
+    const float* nll, const float* band, const float* init,
+    const int* bank_state, const int* cross_src, const float* cross_cost,
+    const int* word_starts, const int* word_ends, const float* eps,
+    const int* nf, float* scratch, int* tau_scratch, float* final_cost,
+    float* ends_cost, int* ends_tau, int U, int T, int B, int S, int R, int L,
+    void* stream) {
+  if (B <= 0 || T <= 0 || S <= 0 || R <= 0 || L <= 0 || U <= 0)
+    return (int)cudaErrorInvalidValue;
+  Params p{nll, band, init, bank_state, cross_src, cross_cost, word_starts,
+           word_ends, eps, nf, scratch, final_cost, nullptr, nullptr, 0,
+           nullptr, tau_scratch, ends_cost, ends_tau, U, T, B, S, R, L};
+  const size_t smem = smem_bytes(U, R);
+  SRT_SET_SMEM(viterbi_lex_kernel<true>, smem);
+  viterbi_lex_kernel<true><<<B, kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

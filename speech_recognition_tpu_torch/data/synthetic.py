@@ -17,7 +17,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from speech_recognition_tpu.config import DIGIT_NAMES, FILENAME_INDEX_MAP
+from speech_recognition_tpu_torch.config import DIGIT_NAMES, FILENAME_INDEX_MAP
 
 __all__ = ["Utterance", "SyntheticDigits", "random_gmm_hmm"]
 

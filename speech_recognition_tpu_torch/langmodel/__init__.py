@@ -1,6 +1,16 @@
-"""Language-model side of the port: so far the lexical tree only (the
-bigram LM and the spell checker are later slices)."""
+"""Language-model side of the port: the lexical tree and the bigram LM
+(the spell checker is a later slice)."""
 
+from speech_recognition_tpu_torch.langmodel.bigram import (
+    BigramBackoff,
+    BigramLM,
+    bigram_backoff,
+    fit_bigram,
+    scale,
+    sequence_cost,
+    uniform_bigram,
+)
 from speech_recognition_tpu_torch.langmodel.lextree import LexTree, lextree_from_words
 
-__all__ = ["LexTree", "lextree_from_words"]
+__all__ = ["LexTree", "lextree_from_words", "BigramLM", "uniform_bigram", "fit_bigram",
+           "scale", "sequence_cost", "BigramBackoff", "bigram_backoff"]

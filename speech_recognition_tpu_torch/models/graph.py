@@ -74,7 +74,7 @@ def build_word_graph(
         forced-alignment graph of one transcript
         (``continuous_speech.py:80``); ``[[0..10]] * 7`` gives the
         7-slot connected-digit sausage (``main.py:35``).
-      lm: optional :class:`~speech_recognition_tpu.langmodel.BigramLM`;
+      lm: optional :class:`~speech_recognition_tpu_torch.langmodel.BigramLM`;
         its costs are added onto the closed word-boundary epsilon edges
         (the LM the reference planned but never wired in, SURVEY.md §1
         note on L4).

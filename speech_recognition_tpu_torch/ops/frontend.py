@@ -30,7 +30,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from speech_recognition_tpu.config import FrontendConfig
+from speech_recognition_tpu_torch.config import FrontendConfig
 
 __all__ = ["padded_length", "max_frames", "mfcc", "mfcc39", "mfcc39_batch",
            "mfcc39_auto", "delta_feature", "standardize", "cmvn_stats",

@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from speech_recognition_tpu.config import FrontendConfig
+from speech_recognition_tpu_torch.config import FrontendConfig
 from speech_recognition_tpu_torch.ops.frontend import (
     _frames_and_nf,
     _frontend_constants,

@@ -74,6 +74,45 @@ def lex_topology(g: BandedGraph) -> LexTopo:
 # ---------------------------------------------------------------------------
 
 
+def lex_launch_inputs(nll, g: BandedGraph, topo: LexTopo, n_frames, what: str):
+    """The checks K4 and its lattice mode K6 share (devices, ``nll``'s
+    dtype and layout, the graph's topology) and their common launcher
+    inputs ``[nll, band, init, bank_state, cross_src, cross_cost,
+    word_starts, word_ends, eps, n_frames]`` with int32 indices, to be
+    kept referenced until the launch has been enqueued."""
+    dev = nll.device
+    for name, x in (("n_frames", n_frames),
+                    *((f, x) for f, x in zip(g._fields, g) if x is not None)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, emissions on {dev}")
+    if nll.dtype != torch.float32 or nll.dim() != 3 or not nll.is_contiguous():
+        raise ValueError("nll must be a contiguous float32 [U, T, B] tensor")
+    if g.cross_src is None or topo.n_states != g.n_states or not topo.disjoint:
+        raise ValueError(f"{what} needs the graph's LexTopo (cross edges, disjoint "
+                         "word starts and ends)")
+    u, _, b = nll.shape
+    if n_frames.shape != (b,):
+        raise ValueError(f"n_frames has shape {tuple(n_frames.shape)}, batch is {b}")
+    if topo.max_bank_state >= u:
+        raise ValueError(f"graph reads bank row {topo.max_bank_state}, emissions have {u}")
+
+    def i32(x):
+        return x.to(torch.int32).contiguous()
+
+    return [nll, g.band.contiguous(), g.init_cost.contiguous(), i32(g.bank_state),
+            i32(g.cross_src), g.cross_cost.contiguous(), i32(g.word_starts),
+            i32(g.word_ends), g.eps_block.contiguous(), i32(n_frames)]
+
+
+def check_lex_smem(lib, u: int, r: int, what: str) -> None:
+    """Raise when the per-frame shared memory of K4 / K6 (``u`` bank rows,
+    ``r`` roots) is over the per-CTA limit."""
+    need, limit = lib.viterbi_lex_smem_bytes(u, r), lib.srt_smem_limit()
+    if need > limit:
+        raise ValueError(f"{what}: {need} B of shared memory for {u} bank rows, "
+                         f"over the {limit} B limit per CTA")
+
+
 def viterbi_lex_ref(nll, g: BandedGraph, topo: LexTopo, n_frames):
     """Plain version of K4: the extended plain banded DP
     (``ops.viterbi_banded.viterbi_banded_tb``, per-frame loop) in K4's
@@ -110,30 +149,10 @@ def viterbi_lex(nll, g: BandedGraph, topo: LexTopo, n_frames):
         return viterbi_lex_ref(nll, g, topo, n_frames)
     from speech_recognition_tpu_torch.utils.build import check, load_library
 
+    args = lex_launch_inputs(nll, g, topo, n_frames, "lexical-tree kernel")
     dev = nll.device
-    for name, x in (("n_frames", n_frames),
-                    *((f, x) for f, x in zip(g._fields, g) if x is not None)):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, emissions on {dev}")
-    if nll.dtype != torch.float32 or nll.dim() != 3 or not nll.is_contiguous():
-        raise ValueError("nll must be a contiguous float32 [U, T, B] tensor")
-    if g.cross_src is None or topo.n_states != g.n_states or not topo.disjoint:
-        raise ValueError("lexical-tree kernel needs the graph's LexTopo (cross "
-                         "edges, disjoint word starts and ends)")
     u, t_len, b = nll.shape
     s, r, l = g.n_states, g.n_words, g.n_ends
-    if n_frames.shape != (b,):
-        raise ValueError(f"n_frames has shape {tuple(n_frames.shape)}, batch is {b}")
-    if topo.max_bank_state >= u:
-        raise ValueError(f"graph reads bank row {topo.max_bank_state}, emissions have {u}")
-
-    def i32(x):
-        return x.to(torch.int32).contiguous()
-
-    # kept referenced until the launch has been enqueued
-    args = [nll, g.band.contiguous(), g.init_cost.contiguous(), i32(g.bank_state),
-            i32(g.cross_src), g.cross_cost.contiguous(), i32(g.word_starts),
-            i32(g.word_ends), g.eps_block.contiguous(), i32(n_frames)]
     u_dtype = topo.eps_u_dtype
     final = torch.empty((b, s), dtype=torch.float32, device=dev)
     bp8 = torch.empty((t_len, b, s), dtype=torch.int8, device=dev)
@@ -142,10 +161,7 @@ def viterbi_lex(nll, g: BandedGraph, topo: LexTopo, n_frames):
     if b == 0:
         return final, bp8, eps_u, eps_prev
     lib = load_library()
-    need, limit = lib.viterbi_lex_smem_bytes(u, r), lib.srt_smem_limit()
-    if need > limit:
-        raise ValueError(f"lexical-tree kernel: {need} B of shared memory for {u} "
-                         f"bank rows, over the {limit} B limit per CTA")
+    check_lex_smem(lib, u, r, "lexical-tree kernel")
     scratch = torch.empty((b, 2, s), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.viterbi_lex_launch(

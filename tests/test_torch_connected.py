@@ -120,39 +120,49 @@ def test_skip_arc_bank_keeps_every_word():
     assert max(len(w) for w in words) > 12 // 5 + 1
 
 
+def _port_modules():
+    """Every module of the port package, by dotted name."""
+    pkg = os.path.join(REPO, "speech_recognition_tpu_torch")
+    mods = []
+    for root, _, files in os.walk(pkg):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), REPO)[:-3].split(os.sep)
+                mods.append(".".join(rel[:-1] if rel[-1] == "__init__" else rel))
+    return sorted(mods)
+
+
 def test_port_imports_no_jax():
-    mods = ["speech_recognition_tpu_torch", "speech_recognition_tpu_torch.cli",
-            "speech_recognition_tpu_torch.data.synthetic",
-            "speech_recognition_tpu_torch.data.wav",
-            "speech_recognition_tpu_torch.data.lexicon",
-            "speech_recognition_tpu_torch.decode.connected",
-            "speech_recognition_tpu_torch.decode.lextree",
-            "speech_recognition_tpu_torch.langmodel",
-            "speech_recognition_tpu_torch.langmodel.lextree",
-            "speech_recognition_tpu_torch.models.graph",
-            "speech_recognition_tpu_torch.models.hmm",
-            "speech_recognition_tpu_torch.models.lexgraph",
-            "speech_recognition_tpu_torch.ops.frontend",
-            "speech_recognition_tpu_torch.ops.frontend_kernel",
-            "speech_recognition_tpu_torch.ops.gmm",
-            "speech_recognition_tpu_torch.ops.viterbi_banded",
-            "speech_recognition_tpu_torch.ops.viterbi_banded_kernels",
-            "speech_recognition_tpu_torch.ops.viterbi_lex_kernels",
-            "speech_recognition_tpu_torch.utils.build",
-            "speech_recognition_tpu_torch.utils.checkpoint",
-            "speech_recognition_tpu_torch.utils.metrics",
-            "speech_recognition_tpu_torch.utils.numerics",
-            "speech_recognition_tpu.runtime.loader",
-            "speech_recognition_tpu.data.aurora",
-            "speech_recognition_tpu.data.synthetic"]
+    """Importing every module of the port loads no jax and no module of
+    the reference package, and leaves TF32 off."""
+    mods = _port_modules()
+    assert "speech_recognition_tpu_torch.ops.lattice_kernels" in mods and len(mods) > 30
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "             or m == 'speech_recognition_tpu'\n"
+            "             or m.startswith('speech_recognition_tpu.'))\n"
             "assert not bad, bad\n"
             "import torch\n"
             "assert not torch.backends.cuda.matmul.allow_tf32\n"
             "assert not torch.backends.cudnn.allow_tf32\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_port_sources_name_no_reference_import():
+    """No import statement of the port's sources or of ``chip_smoke.py``
+    names jax or the reference package."""
+    import re
+
+    pat = re.compile(r"^\s*(from|import)\s+(jax|speech_recognition_tpu)(\.|\s|$)", re.M)
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, *m.split(".")) + (".py" if not os.path.isdir(
+            os.path.join(REPO, *m.split("."))) else os.sep + "__init__.py")
+        for m in _port_modules()]
+    for path in paths:
+        with open(path) as f:
+            hits = [m.group(0).strip() for m in pat.finditer(f.read())]
+        assert not hits, (path, hits)
 
 
 def test_cli_connected_test_matches_reference(tmp_path, capsys, monkeypatch):
@@ -168,16 +178,19 @@ def test_cli_connected_test_matches_reference(tmp_path, capsys, monkeypatch):
 
     def lines(out):
         return [l for l in out.splitlines()
-                if l.startswith(("Correct:", "Incorrect:", "WER:"))]
+                if l.startswith(("Correct:", "Incorrect:", "WER:", "WARNING:"))]
 
+    # the bigram composed onto the graph: fitted on the test transcripts
+    # (with the warning), or on the training transcripts, at a weight
+    lms = ([], ["--lm", "bigram"],
+           ["--lm", "bigram", "--lm-train", "data/train", "--lm-weight", "2.5"])
     for graph in ("loop", "sausage"):
-        jmain(["connected_test", "-i", "models/bank.npz", "-d", "data/test",
-               "--graph", graph])
-        ref = lines(capsys.readouterr().out)
-        tmain(["connected_test", "-i", "models/bank.npz", "-d", "data/test",
-               "--graph", graph, "--device", "cpu"])
-        got = lines(capsys.readouterr().out)
-        assert got == ref and len(ref) > 10
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmain(["connected_test", "-i", "models/bank.npz", "-d", "data/test",
-               "--lm", "bigram", "--device", "cpu"])
+        for lm in lms:
+            cmd = ["connected_test", "-i", "models/bank.npz", "-d", "data/test",
+                   "--graph", graph, *lm]
+            jmain(cmd)
+            ref = lines(capsys.readouterr().out)
+            tmain(cmd + ["--device", "cpu"])
+            got = lines(capsys.readouterr().out)
+            assert got == ref and len(ref) > 10, (graph, lm)
+            assert any(l.startswith("WARNING:") for l in got) == (lm == lms[1])

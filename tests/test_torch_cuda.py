@@ -9,9 +9,10 @@ none, and it is run there without the suite's conftest:
 
 Tolerances: K1 final costs rtol 1e-5 (emission GEMM summation order),
 K1 planes / K2 / words exact, K3 rtol 2e-3 / atol 5e-4.  K4 (the
-lexical-tree forward) and K5 (its backtrace) are fed the plain
-version's own emissions, so every output is compared exactly; the
-lextree decode's costs are compared at rtol 1e-5 (emission GEMM).
+lexical-tree forward), K5 (its backtrace), K6 (the lattice pass) and K7
+(the lattice rescorer) are fed the plain version's own inputs, so every
+output is compared exactly; the lextree and bigram decodes' costs are
+compared at rtol 1e-5 (emission GEMM).
 """
 
 import types
@@ -312,3 +313,117 @@ def test_lex_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="n_frames is on cpu"):
         lk.lex_backtrace_val(bp8, eps_prev, g, end, nf.cpu())
     assert (lk.viterbi_lex.launches, lk.lex_backtrace_val.launches) == before
+
+
+def _check_k6_k7(dev, lexg, n_bank, b, t, nf, lm_kind, max_dur):
+    """K6 against its plain version on every plane entry (frozen frames
+    included), then K7 on the plain planes against its plain version:
+    cost, best leaf and every predecessor."""
+    from speech_recognition_tpu_torch.langmodel.bigram import fit_bigram
+    from speech_recognition_tpu_torch.ops import lattice as lat
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lk
+    from speech_recognition_tpu_torch.ops.viterbi_lex_kernels import lex_topology
+
+    g = lexg.banded.to(dev)
+    topo = lex_topology(lexg.banded)
+    rng = np.random.default_rng(b + t)
+    nll = torch.from_numpy(rng.uniform(0, 5, (n_bank, t, b)).astype(np.float32)).to(dev)
+    nf = torch.as_tensor(nf, dtype=torch.int32, device=dev)
+    before = (lk.viterbi_lattice.launches, lk.rescore_lattice.launches)
+    got = lk.viterbi_lattice(nll, g, topo, nf)
+    want = lk.viterbi_lattice_ref(nll, g, topo, nf)
+    torch.cuda.synchronize()
+    for k in range(3):
+        assert torch.equal(got[k], want[k]), k
+    v = len(lexg.words)
+    if lm_kind == "dense":
+        cost = torch.from_numpy(rng.uniform(0.1, 3.0, (v, v)).astype(np.float32))
+        backoff = None
+    else:
+        lm = fit_bigram([[int(x) for x in rng.integers(0, v, 8)] for _ in range(30)], v)
+        cost = torch.from_numpy(lm.cost)
+        backoff = tuple(x.to(dev) for x in lat.rescore_backoff(lm, lexg.leaf_word))
+    lw = torch.as_tensor(lexg.leaf_word, dtype=torch.int64)
+    big = None if backoff is not None else cost[lw][:, lw].contiguous().to(dev)
+    ec, et = want[1], want[2]
+    args = (ec, et, ec.amin(2), torch.from_numpy(rng.uniform(0, 2, len(lw)).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.uniform(0, 2, len(lw)).astype(np.float32)).to(dev), nf,
+            lat._ring_depth(t, max_dur))
+    r_k = lk.rescore_lattice(*args, big_ll=big, backoff=backoff)
+    r_p = lk.rescore_lattice_ref(*args, big_ll=big, backoff=backoff)
+    torch.cuda.synchronize()
+    assert (lk.viterbi_lattice.launches, lk.rescore_lattice.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    for k in range(3):
+        assert torch.equal(r_k[k], r_p[k]), k
+    if max_dur < t:
+        assert int(lat._lattice_truncation_count(ec.transpose(1, 2), et.transpose(1, 2),
+                                                 nf, max_dur)) > 0
+
+
+@pytest.mark.parametrize("kind,b,lm_kind,max_dur", [
+    ("deep", 5, "backoff", 128),
+    ("deep", 1, "backoff", 128),       # B = 1
+    ("deep", 6, "dense", 128),          # the dense [L, L] recombination
+    ("deep", 7, "backoff", 8),          # arcs longer than 8 frames drop
+    ("deep_int32", 9, "backoff", 12),   # 150 leaves
+    ("deep_int32", 4, "dense", 16),
+])
+def test_k6_k7_match_plain(dev, kind, b, lm_kind, max_dur):
+    lexg, n_bank = _lex_graph(kind)
+    t = 29
+    nf = np.r_[t, 0, 1, np.random.default_rng(b).integers(2, t, 8)][:b]  # nf = T, 0, 1, ...
+    _check_k6_k7(dev, lexg, n_bank, b, t, nf, lm_kind, max_dur)
+
+
+def test_decode_lextree_bigram_cuda_matches_cpu(dev):
+    from speech_recognition_tpu_torch.data.lexicon import random_words
+    from speech_recognition_tpu_torch.langmodel.bigram import fit_bigram
+    from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+    from speech_recognition_tpu_torch.ops.lattice import decode_lextree_bigram
+
+    bank = _bank(6, 3, 4, 39, seed=5)
+    units = list("abcdef")
+    trans = [bank.trans_cost[i].numpy() for i in range(6)]
+    rng = np.random.default_rng(7)
+    words = random_words(rng, units, 200, 2, 6)
+    lexg = build_lex_graph(words, trans, {c: i for i, c in enumerate(units)},
+                           word_insertion_cost=1.0)
+    lm = fit_bigram([[int(x) for x in rng.integers(0, 200, 10)] for _ in range(40)], 200)
+    feats = torch.from_numpy(rng.standard_normal((7, 50, 39)).astype(np.float32))
+    nf = torch.from_numpy(np.r_[50, 1, rng.integers(12, 51, 5)].astype(np.int32))
+    w_c, c_c = decode_lextree_bigram(bank, lexg, lm, feats, nf)
+    w_g, c_g = decode_lextree_bigram(bank.to(dev), lexg, lm, feats.to(dev), nf.to(dev))
+    assert w_g == w_c
+    np.testing.assert_allclose(c_g, c_c, rtol=1e-5)
+
+
+def test_lattice_wrappers_raise_instead_of_falling_back(dev):
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lk
+    from speech_recognition_tpu_torch.ops.viterbi_lex_kernels import lex_topology
+
+    lexg, n_bank = _lex_graph("deep")
+    g, topo = lexg.banded.to(dev), lex_topology(lexg.banded)
+    nll = torch.zeros((n_bank, 6, 2), device=dev)
+    nf = torch.full((2,), 6, dtype=torch.int32, device=dev)
+    before = (lk.viterbi_lattice.launches, lk.rescore_lattice.launches)
+    with pytest.raises(ValueError, match="n_frames is on cpu"):
+        lk.viterbi_lattice(nll, g, topo, nf.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        lk.viterbi_lattice(nll.double(), g, topo, nf)
+    with pytest.raises(ValueError, match="at least one frame"):
+        lk.viterbi_lattice(nll[:, :0].contiguous(), g, topo, nf)
+    l = g.n_ends
+    ec = torch.zeros((6, 2, l), device=dev)
+    et = torch.zeros((6, 2, l), dtype=torch.int32, device=dev)
+    vec = torch.zeros(l, device=dev)
+    big = torch.zeros((l, l), device=dev)
+    with pytest.raises(ValueError, match="exactly one"):
+        lk.rescore_lattice(ec, et, ec.amin(2), vec, vec, nf, 8)
+    with pytest.raises(ValueError, match="ends_tau"):
+        lk.rescore_lattice(ec, et.long(), ec.amin(2), vec, vec, nf, 8, big_ll=big)
+    with pytest.raises(ValueError, match="big_ll"):
+        lk.rescore_lattice(ec, et, ec.amin(2), vec, vec, nf, 8, big_ll=big.T)
+    with pytest.raises(ValueError, match="n_frames is on cpu"):
+        lk.rescore_lattice(ec, et, ec.amin(2), vec, vec, nf.cpu(), 8, big_ll=big)
+    assert (lk.viterbi_lattice.launches, lk.rescore_lattice.launches) == before

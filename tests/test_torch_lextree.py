@@ -441,9 +441,21 @@ def test_cli_connected_test_lextree_matches_reference(tmp_path, capsys, monkeypa
     # flat digit vocabulary: the trie decodes the loop graph's words
     words = ("Correct:", "Incorrect:")
     assert lines(out["lextree"], words) == lines(out["loop"], words)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tmain(["connected_test", "-i", "models/bank.npz", "-d", "data/test",
-               "--graph", "lextree", "--lm", "bigram", "--device", "cpu"])
+    # the bigram on the trie: composed (K4 + K5 on the card) and lattice
+    # rescored (K6 + K7); the reference's auto picks compose on one-unit words
+    for decoder in ("auto", "compose", "lattice"):
+        cmd = ["connected_test", "-i", "models/bank.npz", "-d", "data/test",
+               "--graph", "lextree", "--lm", "bigram", "--decoder", decoder]
+        jmain(cmd)
+        ref = lines(capsys.readouterr().out, words + ("WER:", "WARNING:"))
+        tmain(cmd + ["--device", "cpu"])
+        out[decoder] = capsys.readouterr().out
+        assert lines(out[decoder], words + ("WER:", "WARNING:")) == ref and len(ref) > 10
+    assert lines(out["auto"]) == lines(out["compose"])
+    for main, dev in ((jmain, []), (tmain, ["--device", "cpu"])):
+        with pytest.raises(SystemExit, match="needs --lm bigram"):
+            main(["connected_test", "-i", "models/bank.npz", "-d", "data/test",
+                  "--graph", "lextree", "--decoder", "lattice", *dev])
 
 
 def test_lex_words_from_path_matches_reference():
