@@ -17,10 +17,24 @@ through the CLI with the launch counters reset just before each:
   (K3 + K4 + K5);
 * bigram LM over word lattices, ``--graph lextree --lm bigram --decoder
   lattice``: wavs -> MFCC-39 (K3) -> unit-bank emissions -> lattice pass
-  (K6) -> bigram rescoring (K7) -> word walk -> word ids.
+  (K6) -> bigram rescoring (K7) -> word walk -> word ids;
+* general word graphs, ``cli connected_test --graph sausage --device
+  cuda`` with a bank of 1-state words (every word start is also a word
+  end, eps depth up to 6): wavs -> MFCC-39 (K3) -> unit-bank emissions ->
+  banded forward on bank emissions (K8) -> general backtrace (K9) -> word
+  ids;
+* the word-trace backend, ``decode_connected(backend="wordtrace")`` on
+  the CLI corpus's features (K3) and at 512 x 500 on the 385-state
+  sausage: fused emission + forward with entry-time planes (K10) ->
+  chain walk -> word ids, equal to the states path's words.
 
-Each output is checked against the same command on the CPU (plain
-versions).  K4 and K5 are also held against their plain versions on the
+Each CLI output is checked against the same command on the CPU (plain
+versions).  K8 and K9 are held bit-identical to their plain versions at
+512 x 500 on the 7-slot sausage of 1-state words (77 states, eps depth
+6) and on a 7-slot sausage of words of 3 to 6 states, with uniform and
+tie-forcing integer emissions; K10 at 512 x 500 on the 385-state sausage
+with a random bank and with a bank whose last 5 words copy the first 5
+(exact ties).  K4 and K5 are also held against their plain versions on the
 1,000-word benchmark trie (128 x 500), on the same trie with a random
 eps block, on a flat 100-word vocabulary with bigram costs (more roots
 than one re-entry pass takes), and on a dictionary-shaped ~87k-state
@@ -96,10 +110,19 @@ def graph_bytes(g) -> int:
     return 4 * sum(x.numel() for x in parts if x is not None)
 
 
-def dp_ops(g, frames: int) -> float:
-    """Operations of ``frames`` (frame, stream) steps of the banded DP."""
+def dp_ops(g, frames: int, eps_pairs: int = None, passes: int = 1) -> float:
+    """Operations of ``frames`` (frame, stream) steps of the banded DP:
+    ``passes`` re-entry passes over ``eps_pairs`` (word end, word start)
+    pairs each (default: the whole eps block)."""
     per_state = 8 + (3 if g.cross_src is not None else 0)
-    return frames * (g.n_states * per_state + 2 * g.eps_block.numel() + 2 * g.n_words)
+    pairs = g.eps_block.numel() if eps_pairs is None else eps_pairs
+    return frames * (g.n_states * per_state + passes * (2 * pairs + 2 * g.n_words))
+
+
+def span_pairs(topo) -> int:
+    """The (word start, word end) pairs a banded kernel visits: the finite
+    spans of the eps block (``BandedTopo.ranges``)."""
+    return sum((r_hi - r_lo) * (u_hi - u_lo) for r_lo, r_hi, u_lo, u_hi in topo.ranges)
 
 
 def mfcc_ops(cfg, n_frames: int) -> float:
@@ -153,25 +176,35 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def make_bank(tmp: str):
-    """11 models x 5 states x 4 mixtures x 39 dims from the port's
-    ``random_gmm_hmm`` (seed 0, as the reference bench builds its bank),
-    round-tripped through the port's npz checkpoint."""
+def random_bank(n_states: int, seed: int = 0, dup: int = 0):
+    """11 models x ``n_states`` states x 4 mixtures x 39 dims from the
+    port's ``random_gmm_hmm`` (seed 0 and 5 states: as the reference bench
+    builds its bank).  With ``dup`` the last ``dup`` models copy the first
+    ones, so paths through a model and its copy tie exactly."""
     import numpy as np
 
     from speech_recognition_tpu_torch.data.synthetic import random_gmm_hmm
     from speech_recognition_tpu_torch.models.hmm import HMMBank
-    from speech_recognition_tpu_torch.utils.checkpoint import load_bank, save_bank
     from speech_recognition_tpu_torch.utils.numerics import to_cost_matrix
 
-    rng = np.random.default_rng(0)
-    ps = [random_gmm_hmm(rng, n_states=5, n_mix=4, dim=39, sep=3.0) for _ in range(11)]
-    bank = HMMBank.from_numpy(
+    rng = np.random.default_rng(seed)
+    ps = [random_gmm_hmm(rng, n_states=n_states, n_mix=4, dim=39, sep=3.0)
+          for _ in range(11 - dup)]
+    ps += ps[:dup]
+    return HMMBank.from_numpy(
         np.stack([p["means"] for p in ps]),
         np.log(np.stack([p["variances"] for p in ps])),
         np.log(np.stack([p["weights"] for p in ps])),
         np.stack([to_cost_matrix(p["trans"]) for p in ps]))
-    path = os.path.join(tmp, "bank.npz")
+
+
+def make_bank(tmp: str, n_states: int = 5, name: str = "bank.npz"):
+    """``random_bank(n_states)`` round-tripped through the port's npz
+    checkpoint."""
+    from speech_recognition_tpu_torch.utils.checkpoint import load_bank, save_bank
+
+    bank = random_bank(n_states)
+    path = os.path.join(tmp, name)
     save_bank(path, bank, {"norm": "utterance"})
     loaded, meta = load_bank(path)
     for f in ("means", "log_vars", "log_weights", "trans_cost"):
@@ -372,7 +405,7 @@ def main() -> int:
         connected_graph_arrays,
         states_to_words_device,
     )
-    from speech_recognition_tpu_torch.models.graph import build_loop_graph
+    from speech_recognition_tpu_torch.models.graph import build_loop_graph, build_word_graph
     from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
     from speech_recognition_tpu_torch.ops.frontend import (
         FrontendConfig,
@@ -478,6 +511,88 @@ def main() -> int:
                        f"{float(nk.float().mean()):.2f}")
     report["K1"] = {"max_abs_err": k1_err}
     report["K2"] = {"max_abs_err": k2_err}
+
+    # ---- 4b. K8 + K9 vs their plain versions ---------------------------------
+    bank1, bank1_path = make_bank(tmp, n_states=1, name="bank1.npz")
+    bank1 = bank1.to(dev)
+    bank6 = random_bank(6, seed=10).to(dev)
+    sizes = (3, 4, 5, 6, 3, 4, 5, 6, 3, 4, 5)  # a 7-slot sausage of 336 states
+    gen_graphs = {
+        "1-state sausage7": build_word_graph(
+            [bank1.trans_cost[i].cpu().numpy() for i in range(11)], [list(range(11))] * 7),
+        "3-6-state sausage7": build_word_graph(
+            [bank6.trans_cost[i].cpu().numpy()[:k, :k] for i, k in enumerate(sizes)],
+            [list(range(11))] * 7)}
+    g1s = gen_graphs["1-state sausage7"]
+    if (g1s.n_states, g1s.eps_depth) != (77, 6):
+        fail(f"1-state sausage has {g1s.n_states} states, eps depth {g1s.eps_depth}")
+    erng = np.random.default_rng(11)
+    nf8 = torch.from_numpy(np.r_[T, 1, 0, erng.integers(2, T + 1, B - 3)]
+                           .astype(np.int32)).to(dev)
+    k8_err, k9_err, gen_planes = 0.0, 0.0, {}
+    for gname, graph in gen_graphs.items():
+        bg = banded_arrays(graph, device=dev)
+        topo = vk.banded_topology(bg)
+        if topo.fused_ok:
+            fail(f"the fused kernels take the {gname}")
+        u = int(graph.bank_state.max()) + 1
+        for ename, e in (("uniform(0, 5)", erng.uniform(0, 5, (u, T, B))),
+                         ("integer 0..2 (ties)", erng.integers(0, 3, (u, T, B)))):
+            nll = torch.from_numpy(e.astype(np.float32)).to(dev)
+            got = vk.viterbi_banded_general(nll, bg, topo, nf8, graph.eps_depth)
+            want = vk.viterbi_banded_general_ref(nll, bg, topo, nf8, graph.eps_depth)
+            torch.cuda.synchronize()
+            for k, plane in enumerate(("final", "bp8", "eps_u")):
+                if not torch.equal(got[k], want[k]):
+                    fail(f"K8 {plane} differs from the plain version on the {gname}, "
+                         f"{ename} emissions")
+            k8_err = max(k8_err, float((got[0] - want[0]).abs().max()))
+            ends = bg.end_states[torch.argmin(want[0][bg.end_states]
+                                              + bg.end_bonus[:, None], 0)]
+            sk, fk = vk.banded_backtrace_general(got[1], got[2], bg, ends, nf8,
+                                                 graph.eps_depth)
+            sp, fp = vk.banded_backtrace_general_ref(want[1], want[2], bg, ends, nf8,
+                                                     graph.eps_depth)
+            torch.cuda.synchronize()
+            if not (torch.equal(sk, sp) and torch.equal(fk, fp)):
+                fail(f"K9 (on K8's planes) differs from the plain version on the {gname}, "
+                     f"{ename} emissions")
+            k9_err = max(k9_err, float((sk - sp).abs().max()))
+            if gname not in gen_planes:
+                gen_planes[gname] = (bg, topo, nll, want, ends, graph, int(fk.sum()))
+            phase("K8+K9", f"{gname} ({graph.n_states} states, eps depth "
+                           f"{graph.eps_depth}), {ename} emissions at {B}x{T}: final, bp8, "
+                           f"eps_u == plain (bit-identical, frozen frames included); K9 "
+                           f"states and flags == plain; eps unwinds on the best paths "
+                           f"{int(fk.sum())}")
+    report["K8"] = {"max_abs_err": k8_err}
+    report["K9"] = {"max_abs_err": k9_err}
+
+    # ---- 4c. K10 vs its plain version -----------------------------------------
+    bank_dup = random_bank(5, seed=12, dup=5).to(dev)  # models 6-10 copy 0-4
+    w_d, lw_d = gmm_emission_weights(*bank_dup.flat_states())
+    k10_err = 0.0
+    for bname, bk, ww, ll in (("random bank", bank, w, lw),
+                              ("bank with 5 copied models (ties)", bank_dup, w_d, lw_d)):
+        graph = connected_graph_arrays(bk, 7)
+        bg = banded_arrays(graph, device=dev)
+        topo = vk.banded_topology(bg)
+        got = vk.viterbi_banded_wordtrace(xa, ww, ll, bg, topo, nf)
+        want = vk.viterbi_banded_wordtrace_ref(xa, ww, ll, bg, topo, nf)
+        k1 = vk.viterbi_banded_fused(xa, ww, ll, bg, topo, nf)
+        torch.cuda.synchronize()
+        for k, plane in enumerate(("final", "eps_u", "eps_tau", "final_tau")):
+            if not torch.equal(got[k], want[k]):
+                fail(f"K10 {plane} differs from the plain version with the {bname}")
+        k10_err = max(k10_err, float((got[0] - want[0]).abs().max()))
+        if not torch.allclose(got[0], k1[0], rtol=K1_RTOL, atol=0.0):
+            fail(f"K10 final costs disagree with K1's with the {bname}: max |d| "
+                 f"{float((got[0] - k1[0]).abs().max())}")
+        phase("K10", f"sausage7 ({graph.n_states} states), {bname} at {B}x{T}: final, "
+                     f"eps_u, eps_tau, final_tau == plain (bit-identical); final == K1's "
+                     f"(rtol 1e-5, max |d| {float((got[0] - k1[0]).abs().max()):.3g}); "
+                     f"re-entries recorded {int((got[2] > 0).sum())}")
+    report["K10"] = {"max_abs_err": k10_err}
 
     # ---- 5. K4 + K5 vs their plain versions -------------------------------
     from speech_recognition_tpu_torch.data.lexicon import (
@@ -591,9 +706,11 @@ def main() -> int:
 
     def run_cli(run, device):
         graph, *extra = run.split()
+        bank_file = bank1_path if "@1-state-bank" in extra else bank_path
+        extra = [x for x in extra if x != "@1-state-bank"]
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            cli.main(["connected_test", "-i", bank_path, "-d", wav_dir,
+            cli.main(["connected_test", "-i", bank_file, "-d", wav_dir,
                       "--graph", graph, *extra, "--device", device])
         return buf.getvalue()
 
@@ -601,7 +718,9 @@ def main() -> int:
         return [l for l in out.splitlines() if l.startswith(("Correct:", "Incorrect:"))]
 
     counters = (mfcc39_fused, vk.viterbi_banded_fused, vk.banded_backtrace_val,
-                lk.viterbi_lex, lk.lex_backtrace_val, lt.viterbi_lattice, lt.rescore_lattice)
+                lk.viterbi_lex, lk.lex_backtrace_val, lt.viterbi_lattice, lt.rescore_lattice,
+                vk.viterbi_banded_general, vk.banded_backtrace_general,
+                vk.viterbi_banded_wordtrace)
     bigram = "--lm bigram"
     paths = {"connected": (("loop", "sausage"), (mfcc39_fused, vk.viterbi_banded_fused,
                                                  vk.banded_backtrace_val)),
@@ -611,7 +730,10 @@ def main() -> int:
                                  (mfcc39_fused, vk.viterbi_banded_fused, vk.banded_backtrace_val,
                                   lk.viterbi_lex, lk.lex_backtrace_val)),
              "bigram lattice": ((f"lextree {bigram} --decoder lattice",),
-                                (mfcc39_fused, lt.viterbi_lattice, lt.rescore_lattice))}
+                                (mfcc39_fused, lt.viterbi_lattice, lt.rescore_lattice)),
+             "general graph": (("sausage @1-state-bank",),
+                               (mfcc39_fused, vk.viterbi_banded_general,
+                                vk.banded_backtrace_general))}
     outs, launches = {}, {}
     for path, (runs, used) in paths.items():
         for c in counters:
@@ -623,6 +745,9 @@ def main() -> int:
         if not all(launches[path][c.__name__] for c in used):
             fail(f"a kernel of the {path} path was not launched: {launches[path]}")
         phase("main path", f"{path} path launches: {launches[path]}")
+    if launches["general graph"]["viterbi_banded_fused"] or \
+            launches["general graph"]["banded_backtrace_val"]:
+        fail(f"the 1-state bank's sausage ran the fused kernels: {launches['general graph']}")
     for run in outs:
         if len(word_lines(outs[run])) != n_wavs:
             fail(f"connected_test --graph {run} decoded "
@@ -640,6 +765,42 @@ def main() -> int:
         fail("the bigram composed onto the trie decoded other words than on the loop graph")
     phase("main path", "--graph lextree words == --graph loop words, without an LM and "
                        "with the bigram composed (flat digit vocabulary)")
+
+    # the word-trace backend through decode_connected: the CLI corpus's
+    # features (K3) on the loop graph, and 512 x 500 on the 385-state sausage
+    import glob
+
+    from speech_recognition_tpu_torch.decode.connected import decode_connected
+
+    wav_files = sorted(glob.glob(os.path.join(wav_dir, "*.wav")))
+    for c in counters:
+        c.launches = 0
+    f_w, n_w = cli._featurize_files(wav_files, FrontendConfig(), 120000, dev)
+    f_w = f_w[:, : int(n_w.max())]
+    wt_runs = {"CLI corpus, loop graph": (graphs["loop"], f_w, n_w),
+               f"{B}x{T}, sausage7": (graphs["sausage7"], feats, nf)}
+    wt_out = {k: decode_connected(bank, g_, f_, n_, backend="wordtrace")
+              for k, (g_, f_, n_) in wt_runs.items()}
+    torch.cuda.synchronize()
+    launches["wordtrace"] = {c.__name__: c.launches for c in counters}
+    if not (launches["wordtrace"]["mfcc39_fused"]
+            and launches["wordtrace"]["viterbi_banded_wordtrace"]) or \
+            launches["wordtrace"]["viterbi_banded_fused"]:
+        fail(f"the word-trace path did not run K3 and K10 alone: {launches['wordtrace']}")
+    phase("main path", f"wordtrace path launches: {launches['wordtrace']}")
+    for k, (g_, f_, n_) in wt_runs.items():
+        words_a, costs_a = decode_connected(bank, g_, f_, n_)
+        words_w, costs_w = wt_out[k]
+        if words_w != words_a:
+            bad = sum(a != b_ for a, b_ in zip(words_w, words_a))
+            fail(f"wordtrace words differ from the states path's on {k} ({bad} utterances)")
+        if not np.allclose(costs_w, costs_a, rtol=K1_RTOL, atol=0.0):
+            fail(f"wordtrace costs differ from the states path's on {k}: max |d| "
+                 f"{float(np.abs(costs_w - costs_a).max())}")
+        phase("main path", f"decode_connected(backend='wordtrace') on {k}: words == the "
+                           f"states path's (K1 + K2), costs within rtol 1e-5 (max |d| "
+                           f"{float(np.abs(costs_w - costs_a).max()):.3g}); mean words/utt "
+                           f"{sum(map(len, words_w)) / len(words_w):.2f}")
 
     # ---- 7. timings ---------------------------------------------------------
     t = {}
@@ -662,6 +823,47 @@ def main() -> int:
                                       uniform_w=topo.uniform_w)
 
     pipe_ms = cuda_ms(pipeline)
+
+    # K8 / K9 on the 1-state sausage (the general CLI path's graph) and the
+    # 3-6-state sausage; K10 and the word-trace decode on the 385-state one
+    bg1, topo1, nll1, want1, ends1, graph1, _ = gen_planes["1-state sausage7"]
+    d1 = graph1.eps_depth
+    t["K8"] = (cuda_ms(lambda: vk.viterbi_banded_general(nll1, bg1, topo1, nf8, d1)),
+               cuda_ms(lambda: vk.viterbi_banded_general_ref(nll1, bg1, topo1, nf8, d1),
+                       reps=3))
+    t["K9"] = (cuda_ms(lambda: vk.banded_backtrace_general(want1[1], want1[2], bg1, ends1,
+                                                           nf8, d1)),
+               cuda_ms(lambda: vk.banded_backtrace_general_ref(want1[1], want1[2], bg1, ends1,
+                                                               nf8, d1), reps=3))
+    bg6, topo6, nll6, want6, ends6, graph6, _ = gen_planes["3-6-state sausage7"]
+    k8_mixed_ms = cuda_ms(lambda: vk.viterbi_banded_general(nll6, bg6, topo6, nf8,
+                                                            graph6.eps_depth))
+    k9_mixed_ms = cuda_ms(lambda: vk.banded_backtrace_general(want6[1], want6[2], bg6, ends6,
+                                                              nf8, graph6.eps_depth))
+    t["K10"] = (cuda_ms(lambda: vk.viterbi_banded_wordtrace(xa, w, lw, bg, topo, nf)),
+                cuda_ms(lambda: vk.viterbi_banded_wordtrace_ref(xa, w, lw, bg, topo, nf),
+                        reps=1))
+    wt_ms = cuda_ms(lambda: decode_connected(bank, graph7, feats, nf, backend="wordtrace"),
+                    reps=3)
+    auto_ms = cuda_ms(lambda: decode_connected(bank, graph7, feats, nf), reps=3)
+    fwd = vk.viterbi_banded_wordtrace(xa, w, lw, bg, topo, nf)
+
+    def wt_ends():
+        end_costs = fwd[0][bg.end_states] + bg.end_bonus[:, None]
+        end_state = bg.end_states[torch.argmin(end_costs, 0)]
+        return end_state, fwd[3].gather(0, end_state[None])[0]
+
+    end_state7, entry7 = wt_ends()
+    wt_stages = {
+        "augment_dtb + weights": lambda: (augment_dtb(feats),
+                                          gmm_emission_weights(*bank.flat_states())),
+        "K10": lambda: vk.viterbi_banded_wordtrace(xa, w, lw, bg, topo, nf),
+        "end selection": wt_ends,
+        "chain walk": lambda: vk.wordtrace_words_device(fwd[1], fwd[2],
+                                                        end_state7 // topo.uniform_w,
+                                                        entry7, nf),
+    }
+    wt_stage_ms = {k: cuda_ms(fn) for k, fn in wt_stages.items()}
 
     topo1k = lk.lex_topology(g1k)
     t["K4"] = (cuda_ms(lambda: lk.viterbi_lex(nll1k, g1k, topo1k, nf1k)),
@@ -762,6 +964,14 @@ def main() -> int:
     for k, (ms, plain) in t.items():
         phase("timing", f"{k}: kernel {ms:.3f} ms, plain {plain:.3f} ms "
                         f"(CUDA-event median; {card})")
+    phase("timing", f"K8 / K9 on the 3-6-state sausage7 ({bg6.n_states} states) at {B}x{T}: "
+                    f"{k8_mixed_ms:.3f} / {k9_mixed_ms:.3f} ms (CUDA-event median; {card})")
+    phase("timing", f"word-trace decode {B}x{T} on sausage7 (decode_connected "
+                    f"backend='wordtrace', features -> word lists): {wt_ms:.3f} ms; the "
+                    f"states path (K1 + K2 + states_to_words_device) {auto_ms:.3f} ms; "
+                    f"word-trace stages alone: " + ", ".join(
+                        f"{k} {ms:.3f} ms" for k, ms in wt_stage_ms.items())
+                    + f" (CUDA-event median; {card})")
     phase("timing", f"K4 dict1-shaped trie ({gd.n_states} states) at 32x{TL}: "
                     f"{k4_dict_ms:.3f} ms, plain {k4_dict_plain:.3f} ms "
                     f"(CUDA-event median; {card})")
@@ -785,7 +995,9 @@ def main() -> int:
         f"{k} {ms:.3f} ms" for k, ms in stage_ms.items()) + f" (CUDA-event median; {card})")
 
     # ---- 8. bounds ----------------------------------------------------------
-    sum_nf = int(nf.clamp(max=T).sum())  # K1 / K2 streams stop at nf
+    sum_nf = int(nf.clamp(max=T).sum())  # K1 / K2 / K10 streams stop at nf
+    sum_nf8 = int(nf8.clamp(max=T).sum())
+    unwinds1 = gen_planes["1-state sausage7"][-1]  # eps flags on the best paths
     nfr3 = int(lens.numel()) * int(mfcc39_fused(sig, lens, cfg)[0].shape[1])
     w_units = w.numel() // w.shape[-1]  # emission components per frame
     sum_nf1k = int(nf1k.clamp(max=TL).sum())
@@ -794,7 +1006,7 @@ def main() -> int:
         "K3": (nbytes(sig, lens) + nfr3 * 39 * 4, mfcc_ops(cfg, nfr3)),
         "K1": (nbytes(xa, w, lw, nf) + graph_bytes(bg) + nbytes(*want[:1])
                + sum_nf * (bg.n_states + bg.n_words * (want[2].element_size() + 4)),
-               sum_nf * (2 * w.numel() + 4 * w_units) + dp_ops(bg, sum_nf)),
+               sum_nf * (2 * w.numel() + 4 * w_units) + dp_ops(bg, sum_nf, span_pairs(topo))),
         "K2": (sum_nf * 1 + T * B * 5 + nbytes(ends, nf), 4.0 * sum_nf),
         "K4": (nbytes(nll1k, nf1k) + graph_bytes(g1k) + nbytes(lex_planes[0])
                + sum_nf1k * (g1k.n_states + g1k.n_words * (lex_planes[2].element_size() + 4)),
@@ -803,6 +1015,17 @@ def main() -> int:
         "K6": (nbytes(nll_b, nf_full, *k6_out) + graph_bytes(g1k), dp_ops(g1k, 128 * TL)),
         "K7": (nbytes(*k7_args[:6], *lm_l1k[3]) + TL * 128 * l1k * 4 + 128 * 8,
                rescore_ops(TL, 128, l1k, k1k, dense=False)),
+        # K8 computes and writes every frame of every stream (the plain
+        # scan's planes, frozen frames included)
+        "K8": (nbytes(nll1, nf8, *want1) + graph_bytes(bg1),
+               dp_ops(bg1, T * B, span_pairs(topo1), d1)),
+        # K9 reads a code per frame below nf, and an eps_u entry, a
+        # start_pos and a word_ends entry and a code per unwind step
+        "K9": (sum_nf8 + unwinds1 * (want1[2].element_size() + 9) + T * B * 5
+               + nbytes(ends1, nf8), 4.0 * (sum_nf8 + unwinds1)),
+        "K10": (nbytes(xa, w, lw, nf) + graph_bytes(bg) + 2 * nbytes(fwd[0])
+                + sum_nf * bg.n_words * (fwd[1].element_size() + 4),
+                sum_nf * (2 * w.numel() + 4 * w_units) + dp_ops(bg, sum_nf, span_pairs(topo))),
     }
     # the other timed shapes: the dense LM and the dictionary-shaped trie
     sum_nfd = int(nfd.clamp(max=TL).sum())
@@ -819,6 +1042,8 @@ def main() -> int:
         "K7 dict1-shaped": (nbytes(kd_out[1], kd_out[2], *lm_ldd[:2], *lm_ldd[3], nf_d16)
                             + TL * 16 * 4 + TL * 16 * ld * 4 + 16 * 8,
                             rescore_ops(TL, 16, ld, kd, dense=False), k7_dict_ms),
+        "K8 3-6-state sausage7": (nbytes(nll6, nf8, *want6) + graph_bytes(bg6),
+                                  dp_ops(bg6, T * B, span_pairs(topo6)), k8_mixed_ms),
     }
     bounds = {k: bound(*v) for k, v in work.items()}
     for k, (n_b, n_o, ms) in [(k, (*v, t[k][0])) for k, v in work.items()] + list(more.items()):
@@ -844,7 +1069,16 @@ def main() -> int:
            "K6": ("viterbi_lattice", "speech_recognition_tpu_torch/csrc/viterbi_lex.cu",
                   "speech_recognition_tpu/ops/viterbi_lex_pallas.py:1017"),
            "K7": ("rescore_lattice", "speech_recognition_tpu_torch/csrc/lattice_rescore.cu",
-                  "speech_recognition_tpu/ops/lattice.py:165")}
+                  "speech_recognition_tpu/ops/lattice.py:165"),
+           "K8": ("viterbi_banded_general",
+                  "speech_recognition_tpu_torch/csrc/viterbi_banded.cu",
+                  "speech_recognition_tpu/ops/viterbi_banded_pallas.py:133"),
+           "K9": ("banded_backtrace_general",
+                  "speech_recognition_tpu_torch/csrc/banded_backtrace.cu",
+                  "speech_recognition_tpu/ops/viterbi_banded_pallas.py:945"),
+           "K10": ("viterbi_banded_wordtrace",
+                   "speech_recognition_tpu_torch/csrc/viterbi_banded.cu",
+                   "speech_recognition_tpu/ops/viterbi_banded_pallas.py:133")}
     # each kernel's launches over the path runs above (no single PyTorch
     # call computes any of these functions: library_ms is null)
     n_launch = {fn: sum(p[fn] for p in launches.values()) for fn in launches["connected"]}

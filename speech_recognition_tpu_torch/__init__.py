@@ -2,15 +2,21 @@
 
 The JAX package beside this one is the reference; this package keeps
 its module paths and function names so each counterpart is found at
-once.  The slices ported so far are the connected-digit main path and
-the large-vocabulary lexical-tree decode:
+once.  The slices ported so far are the connected-digit main path (every
+banded word graph, and the word-trace backend), the large-vocabulary
+lexical-tree decode and the bigram LM over word lattices:
 
   ops.frontend.mfcc39_auto        wav -> 39-dim MFCCs   (kernel: csrc/mfcc39.cu)
   decode.connected.decode_connected
-    -> _decode_banded_batch        fused GMM emission + banded Viterbi
-                                   (kernel: csrc/viterbi_banded.cu)
-    -> value backtrace             (kernel: csrc/banded_backtrace.cu)
+    -> _decode_banded_batch        uniform graphs: fused GMM emission + banded
+                                   Viterbi (kernel K1: csrc/viterbi_banded.cu),
+                                   value backtrace (K2: csrc/banded_backtrace.cu);
+                                   other graphs: bank_nll_ubt, banded Viterbi on
+                                   bank emissions (K8: csrc/viterbi_banded.cu),
+                                   general backtrace (K9: csrc/banded_backtrace.cu)
     -> states_to_words_device      plain tensor ops
+    backend="wordtrace"            forward with entry-time planes (K10:
+                                   csrc/viterbi_banded.cu) -> wordtrace_words_device
   decode.lextree.decode_lextree
     -> models.hmm.bank_nll_ubt     unit-bank emissions (torch.matmul)
     -> viterbi_lex                 lexical-tree Viterbi (kernel: csrc/viterbi_lex.cu)

@@ -2,9 +2,11 @@
 
 Counterpart of ``speech_recognition_tpu/cli.py`` ``connected_test``:
 wavs -> MFCC-39 (kernel K3 on CUDA) -> banded connected decode (kernels
-K1 + K2 on CUDA), or with ``--graph lextree`` the lexical-tree decode
-(kernels K4 + K5 on CUDA) -> word ids, scored against the Aurora-style
-transcripts in the file names.  Output lines match the reference CLI.
+K1 + K2 on CUDA; K8 + K9 for graphs the fused kernels refuse, such as a
+sausage of 1-state words), or with ``--graph lextree`` the lexical-tree
+decode (kernels K4 + K5 on CUDA) -> word ids, scored against the
+Aurora-style transcripts in the file names.  Output lines match the
+reference CLI.
 
 ``--lm bigram`` fits an add-k bigram on the transcripts of ``--lm-train``
 (default: the test transcripts, with a warning), scales it by

@@ -1,17 +1,20 @@
 """Connected-word decoding over composed word graphs.
 
 Counterpart of ``speech_recognition_tpu/decode/connected.py``, banded
-path only.  On uniform word graphs (every sausage and loop graph the
-CLI composes) a batch runs through kernel K1 (GMM emission fused into
-the banded Viterbi forward) and kernel K2 (value backtrace); CPU
-tensors take their plain versions, and CPU graphs the kernels do not
-take run the unfused oracles of ``ops.viterbi_banded``.  Words come out
-of ``states_to_words_device``.
+path only.  On uniform word graphs with eps depth 1 and disjoint word
+starts and ends (every loop graph, and every sausage over words of one
+length >= 2) a batch runs through kernel K1 (GMM emission fused into the
+banded Viterbi forward) and kernel K2 (value backtrace).  Every other
+banded graph (1-state words, words of different lengths, transcript
+graphs, eps depth > 1) runs ``models.hmm.bank_nll_ubt`` (one GEMM), then
+kernel K8 (the forward on bank emissions) and kernel K9 (the general
+backtrace).  Words come out of ``states_to_words_device``.
+``backend="wordtrace"`` runs kernel K10 (entry-time side planes, no
+backpointer plane) and the chain walk ``wordtrace_words_device``.  CPU
+tensors take every kernel's plain version.
 
 Not ported yet (each raises ``NotImplementedError``): beam pruning
-(ROADMAP queue A item 14), the word-trace backend (queue B, B5), the
-dense decoder (queue A item 7), and, on CUDA, graphs that are not
-uniform or need more than one epsilon pass (queue B, B4).
+(ROADMAP queue A item 14) and the dense decoder (queue A item 7).
 """
 
 from __future__ import annotations
@@ -23,18 +26,17 @@ import numpy as np
 import torch
 
 from speech_recognition_tpu_torch.models.graph import WordGraph, build_word_graph
-from speech_recognition_tpu_torch.models.hmm import HMMBank, bank_nll
-from speech_recognition_tpu_torch.ops.viterbi_banded import (
-    BandedGraph,
-    banded_arrays,
-    banded_backtrace_tb,
-    viterbi_banded_tb,
-)
+from speech_recognition_tpu_torch.models.hmm import HMMBank, bank_nll_ubt
+from speech_recognition_tpu_torch.ops.gmm import augment_dtb, gmm_emission_weights
+from speech_recognition_tpu_torch.ops.viterbi_banded import BandedGraph, banded_arrays
 from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import (
+    banded_backtrace_general,
     banded_backtrace_val,
     banded_topology,
     fused_forward,
-    use_kernels,
+    viterbi_banded_general,
+    viterbi_banded_wordtrace,
+    wordtrace_words_device,
 )
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
@@ -64,19 +66,11 @@ def _decode_banded_batch(bank: HMMBank, feats, n_frames, g: BandedGraph,
     n_frames = n_frames.to(dev)
     topo = banded_topology(g) if topo is None else topo
     fused = topo.fused_ok and eps_depth == 1
-    if use_kernels(feats) and not fused:
-        raise NotImplementedError(
-            "CUDA decode takes uniform word graphs with eps depth 1 and no "
-            "cross edges (lexical trees decode through decode.lextree); the "
-            "general backtrace kernel is ROADMAP queue B item B4")
     if fused:
         final, bp8, _, eps_prev = fused_forward(bank, feats, n_frames, g, topo)
     else:
-        b, t, _ = feats.shape
-        mask = torch.arange(t, device=dev)[None, :] < n_frames[:, None]
-        nll_bank = torch.stack([bank_nll(bank, feats[i], mask[i]) for i in range(b)])
-        nll_tb = nll_bank.permute(1, 2, 0)[:, g.bank_state, :]
-        final, bp8, eps_u = viterbi_banded_tb(nll_tb, g, n_frames, eps_depth)
+        nll = bank_nll_ubt(bank, feats, n_frames)  # [U, T, B]
+        final, bp8, eps_u = viterbi_banded_general(nll, g, topo, n_frames, eps_depth)
     end_costs = final[g.end_states, :] + g.end_bonus[:, None]  # [E, B]
     best = torch.argmin(end_costs, dim=0)
     end_state = g.end_states[best]
@@ -84,10 +78,41 @@ def _decode_banded_batch(bank: HMMBank, feats, n_frames, g: BandedGraph,
         states, eps_flags = banded_backtrace_val(bp8, eps_prev, end_state,
                                                  n_frames, topo.uniform_w)
     else:
-        states, eps_flags = banded_backtrace_tb(bp8, eps_u, g, end_state,
-                                                n_frames, eps_depth)
+        states, eps_flags = banded_backtrace_general(bp8, eps_u, g, end_state,
+                                                     n_frames, eps_depth)
     costs = end_costs.gather(0, best[None, :])[0]
     return states.T, eps_flags.T, costs
+
+
+def _decode_banded_words(bank: HMMBank, graph: WordGraph, g: BandedGraph, feats,
+                         n_frames, topo):
+    """Backtrace-free decode of a uniform word graph with eps depth 1: K10
+    carries entry times and records (origin word, entry time) at every
+    re-entry, so the words come from an O(#words) chain walk; the
+    ``[T, S, B]`` backpointer plane and the backtrace never exist.
+    Returns ``(word_sequences, costs [B])`` with the costs on the device
+    of ``feats``."""
+    dev = feats.device
+    if bank.means.device != dev:
+        raise ValueError(f"bank is on {bank.means.device}, features on {dev}")
+    g = g.to(dev)
+    n_frames = n_frames.to(dev)
+    w, lw = gmm_emission_weights(*bank.flat_states())
+    final, eps_u, eps_tau, ftau = viterbi_banded_wordtrace(augment_dtb(feats), w, lw, g,
+                                                           topo, n_frames)
+    end_costs = final[g.end_states, :] + g.end_bonus[:, None]  # [E, B]
+    best = torch.argmin(end_costs, dim=0)
+    costs = end_costs.gather(0, best[None, :])[0]
+    end_state = g.end_states[best]
+    entry = ftau.gather(0, end_state[None, :])[0]
+    words_rev, n_words = wordtrace_words_device(eps_u, eps_tau, end_state // topo.uniform_w,
+                                                entry, n_frames)
+    words_rev, n_words = words_rev.cpu().numpy(), n_words.cpu().numpy()
+    # root slot -> word id
+    labels = graph.slot_label[graph.slot[g.word_starts.cpu().numpy()]]
+    seqs = [labels[words_rev[: n_words[i], i][::-1]].tolist()
+            for i in range(words_rev.shape[1])]
+    return seqs, costs
 
 
 def decode_connected(bank: HMMBank, graph: WordGraph, feats, n_frames,
@@ -96,16 +121,16 @@ def decode_connected(bank: HMMBank, graph: WordGraph, feats, n_frames,
     """Decode a batch of utterances to word-id sequences.
 
     ``feats [B, T, D]`` and ``n_frames [B]`` are tensors; the decode runs
-    on their device.  Returns ``(word_sequences, costs)``; each sequence
-    is the consecutive-deduped slot labels along the best path.
+    on their device.  ``backend``: 'auto' / 'banded' (states path), or
+    'wordtrace' (the backtrace-free path; uniform word graphs with eps
+    depth 1, else ``ValueError``).  Returns ``(word_sequences, costs)``;
+    each sequence is the consecutive-deduped slot labels along the best
+    path.
     """
-    if backend == "wordtrace":
-        raise NotImplementedError("the word-trace backend is not ported yet "
-                                  "(ROADMAP queue B item B5)")
     if backend == "dense":
         raise NotImplementedError("the dense decoder is not ported yet "
                                   "(ROADMAP queue A item 7)")
-    if backend not in ("auto", "banded"):
+    if backend not in ("auto", "banded", "wordtrace"):
         raise ValueError(f"unknown backend {backend!r}")
     try:
         bg = banded_arrays(graph, device=feats.device)
@@ -113,6 +138,15 @@ def decode_connected(bank: HMMBank, graph: WordGraph, feats, n_frames,
         raise NotImplementedError(f"graph is not banded ({e}); the dense decoder "
                                   "is not ported yet (ROADMAP queue A item 7)") from e
     topo = banded_topology(bg)
+    if backend == "wordtrace" and not beam_width:
+        if not (topo.fused_ok and graph.eps_depth == 1):
+            raise ValueError("wordtrace backend needs a uniform word graph")
+        seqs, costs = _decode_banded_words(bank, graph, bg, feats, n_frames, topo)
+        costs = costs.cpu().numpy()
+        _warn_no_path(costs)
+        if drop_labels:
+            seqs = [[w for w in s if w not in drop_labels] for s in seqs]
+        return seqs, costs
     states, eps_flags, costs = _decode_banded_batch(
         bank, feats, n_frames, bg, eps_depth=graph.eps_depth,
         beam_width=beam_width, topo=topo)

@@ -1,16 +1,26 @@
-"""Banded Viterbi kernels K1 (fused emission + forward) and K2 (value
-backtrace), with their plain PyTorch versions.
+"""Banded Viterbi kernels with their plain PyTorch versions.
 
 Counterpart of ``speech_recognition_tpu/ops/viterbi_banded_pallas.py``
-on the connected-decode path (``viterbi_banded_tb_pallas(...,
-fuse_emission=True, emit_eps_prev=True)`` and
-``banded_backtrace_tb_pallas(..., eps_prev=...)``).  Both kernels take
-uniform composed word graphs (V words of W states, slot-major) with
-eps depth 1 and disjoint word starts and ends: every graph
-``build_word_graph`` / ``build_loop_graph`` composes from a bank of
-equal-length words.  Neither kernel implements cross edges, so a graph
-that carries them (a lexical tree) is refused here rather than decoded
-without them; it goes to ``ops.viterbi_lex_kernels``.
+on the connected-decode path:
+
+* K1 (fused emission + forward, ``viterbi_banded_tb_pallas(...,
+  fuse_emission=True, emit_eps_prev=True)``) and K2 (value backtrace,
+  ``banded_backtrace_tb_pallas(..., eps_prev=...)``) take uniform
+  composed word graphs (V words of W states, slot-major) with eps depth
+  1 and disjoint word starts and ends: every graph ``build_word_graph``
+  / ``build_loop_graph`` composes from a bank of equal-length words;
+* K8 (forward on unit-bank emissions, ``viterbi_banded_tb_pallas(...,
+  bank_input=True)``) and K9 (general backtrace,
+  ``banded_backtrace_tb_pallas`` without ``eps_prev``) take any banded
+  graph and any eps depth: 1-state words, words of different lengths,
+  transcript graphs;
+* K10 (the word-trace forward, ``viterbi_banded_wordtrace_pallas``)
+  takes K1's graphs and emission and writes entry-time side planes
+  instead of backpointers; ``wordtrace_words_device`` walks them.
+
+No kernel implements cross edges, so a graph that carries them (a
+lexical tree) is refused here rather than decoded without them; it goes
+to ``ops.viterbi_lex_kernels``.
 
 Each wrapper runs its plain version for CPU tensors and launches its
 CUDA kernel for CUDA tensors, counting launches in ``<wrapper>.launches``.
@@ -30,13 +40,19 @@ from speech_recognition_tpu_torch.ops.viterbi_banded import (
     BandedGraph,
     _eps_u_dtype,
     _shift_s,
+    banded_backtrace_tb,
     eps_ranges,
+    viterbi_banded_tb,
 )
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
 __all__ = ["BandedTopo", "banded_topology", "use_kernels",
            "viterbi_banded_fused", "viterbi_banded_fused_ref",
-           "banded_backtrace_val", "banded_backtrace_val_ref"]
+           "banded_backtrace_val", "banded_backtrace_val_ref",
+           "viterbi_banded_general", "viterbi_banded_general_ref",
+           "banded_backtrace_general", "banded_backtrace_general_ref",
+           "viterbi_banded_wordtrace", "viterbi_banded_wordtrace_ref",
+           "wordtrace_words_device"]
 
 
 class BandedTopo(NamedTuple):
@@ -98,12 +114,23 @@ def use_kernels(t: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _check_fused(g: BandedGraph, topo: BandedTopo):
+def _check_fused(g: BandedGraph, topo: BandedTopo, what: str = "fused banded Viterbi"):
     if not topo.fused_ok:
-        raise ValueError("fused banded Viterbi needs a uniform word graph with "
-                         "disjoint word starts and ends and no cross edges")
+        raise ValueError(f"{what} needs a uniform word graph with disjoint word "
+                         "starts and ends and no cross edges")
     if topo.n_states != g.n_states:
         raise ValueError(f"topology/graph mismatch: {topo.n_states} vs {g.n_states}")
+
+
+def _check_devices(dev, what: str, tensors) -> None:
+    """Raise unless every ``(name, tensor)`` lies on ``dev``."""
+    for name, x in tensors:
+        if x is not None and x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, {what} on {dev}")
+
+
+def _n_sm(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def viterbi_banded_fused_ref(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
@@ -182,6 +209,33 @@ def _k1_launch_plan(b: int, n_sm: int, smem_bytes, limit: int) -> Tuple[int, boo
                      "(graph too wide; ROADMAP queue B item B1)")
 
 
+def _fused_inputs(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
+    """The checks K1 and K10 share (devices, shapes, dtypes, the bank's
+    size) and their common launcher inputs ``[xa, wt, lw, band, init,
+    bank_state, eps, row_lo, row_hi, n_frames]``, to be kept referenced
+    until the launch has been enqueued."""
+    dev = xa.device
+    a, _, b = xa.shape
+    u, m, a_w = w.shape
+    if a_w != a or lw.shape != (u, m):
+        raise ValueError(f"emission weights {tuple(w.shape)}/{tuple(lw.shape)} "
+                         f"do not match features [A={a}]")
+    _check_devices(dev, "features", [("w", w), ("lw", lw), ("n_frames", n_frames),
+                                     *zip(g._fields, g)])
+    if xa.dtype != torch.float32 or not xa.is_contiguous():
+        raise ValueError("xa must be a contiguous float32 [A, T, B] tensor")
+    if n_frames.shape != (b,):
+        raise ValueError(f"n_frames has shape {tuple(n_frames.shape)}, batch is {b}")
+    if topo.max_bank_state >= u:
+        raise ValueError(f"graph reads bank state {topo.max_bank_state}, bank has {u}")
+    wt = w.reshape(u * m, a).T.contiguous().float()
+    row_lo, row_hi = (torch.from_numpy(x).to(dev) for x in topo.row_spans(g.n_words))
+    return [xa, wt, lw.reshape(-1).contiguous().float(), g.band.contiguous(),
+            g.init_cost.contiguous(), g.bank_state.to(torch.int32),
+            g.eps_block.contiguous(), row_lo, row_hi,
+            n_frames.to(torch.int32).contiguous()]
+
+
 def viterbi_banded_fused(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
     """K1 for CUDA tensors (``csrc/viterbi_banded.cu``), the plain version
     for CPU tensors.  Arguments and results as ``viterbi_banded_fused_ref``."""
@@ -190,27 +244,11 @@ def viterbi_banded_fused(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
     from speech_recognition_tpu_torch.utils.build import check, load_library
 
     _check_fused(g, topo)
+    args = _fused_inputs(xa, w, lw, g, topo, n_frames)
     dev = xa.device
     a, t_len, b = xa.shape
-    u, m, a_w = w.shape
-    if a_w != a or lw.shape != (u, m):
-        raise ValueError(f"emission weights {tuple(w.shape)}/{tuple(lw.shape)} "
-                         f"do not match features [A={a}]")
-    for name, x in (("xa", xa), ("w", w), ("lw", lw), ("n_frames", n_frames),
-                    *((f, x) for f, x in zip(g._fields, g) if x is not None)):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, features on {dev}")
-    if xa.dtype != torch.float32 or not xa.is_contiguous():
-        raise ValueError("xa must be a contiguous float32 [A, T, B] tensor")
+    u, m, _ = w.shape
     s, r, l = g.n_states, g.n_words, g.n_ends
-    if topo.max_bank_state >= u:
-        raise ValueError(f"graph reads bank state {topo.max_bank_state}, bank has {u}")
-    wt = w.reshape(u * m, a).T.contiguous().float()
-    row_lo, row_hi = (torch.from_numpy(x).to(dev) for x in topo.row_spans(r))
-    args = [xa, wt, lw.reshape(-1).contiguous().float(), g.band.contiguous(),
-            g.init_cost.contiguous(), g.bank_state.to(torch.int32),
-            g.eps_block.contiguous(), row_lo, row_hi,
-            n_frames.to(torch.int32).contiguous()]
     u_dtype = _eps_u_dtype(l)
     final = torch.empty((s, b), dtype=torch.float32, device=dev)
     bp8 = torch.empty((t_len, s, b), dtype=torch.int8, device=dev)
@@ -220,8 +258,7 @@ def viterbi_banded_fused(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
         return final.fill_(POS_INF), bp8, eps_u, eps_prev
     lib = load_library()
     tile, stage = _k1_launch_plan(
-        b, torch.cuda.get_device_properties(dev).multi_processor_count,
-        lambda tl, st: lib.viterbi_banded_smem_bytes(a, u, m, s, tl, int(st)),
+        b, _n_sm(dev), lambda tl, st: lib.viterbi_banded_smem_bytes(a, u, m, s, tl, int(st)),
         lib.srt_smem_limit())
     with torch.cuda.device(dev):
         rc = lib.viterbi_banded_launch(
@@ -309,3 +346,307 @@ def banded_backtrace_val(bp8, eps_prev, end_state, n_frames, uniform_w: int):
 
 
 banded_backtrace_val.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: banded Viterbi forward on unit-bank emissions, any banded graph
+# ---------------------------------------------------------------------------
+
+
+def viterbi_banded_general_ref(nll, g: BandedGraph, topo: BandedTopo, n_frames,
+                               eps_depth: int = 1):
+    """Plain version of K8: the plain scan ``viterbi_banded_tb`` on the
+    bank emissions gathered to graph states.
+
+    ``nll [U, T, B]`` bank emissions (``models.hmm.bank_nll_ubt``),
+    ``n_frames [B]`` -> ``(final [S, B], bp8 [T, S, B] int8,
+    eps_u [T, R, B])``.
+    """
+    if topo.n_states != g.n_states:
+        raise ValueError(f"topology/graph mismatch: {topo.n_states} vs {g.n_states}")
+    return viterbi_banded_tb(nll.permute(1, 0, 2)[:, g.bank_state, :], g, n_frames,
+                             eps_depth)
+
+
+def viterbi_banded_general(nll, g: BandedGraph, topo: BandedTopo, n_frames,
+                           eps_depth: int = 1):
+    """K8 for CUDA tensors (``csrc/viterbi_banded.cu``, mode kGeneral),
+    the plain version for CPU tensors.  Arguments and results as
+    ``viterbi_banded_general_ref``; the kernel computes every frame's
+    planes, frozen frames included, as the plain scan does."""
+    if not use_kernels(nll):
+        return viterbi_banded_general_ref(nll, g, topo, n_frames, eps_depth)
+    from speech_recognition_tpu_torch.utils.build import check, load_library
+
+    if topo.cross:
+        raise ValueError("the general banded kernel does not implement cross edges "
+                         "(lexical trees decode through decode.lextree)")
+    if topo.n_states != g.n_states:
+        raise ValueError(f"topology/graph mismatch: {topo.n_states} vs {g.n_states}")
+    dev = nll.device
+    _check_devices(dev, "emissions", [("n_frames", n_frames), *zip(g._fields, g)])
+    if nll.dtype != torch.float32 or nll.dim() != 3 or not nll.is_contiguous():
+        raise ValueError("nll must be a contiguous float32 [U, T, B] tensor")
+    u, t_len, b = nll.shape
+    if n_frames.shape != (b,):
+        raise ValueError(f"n_frames has shape {tuple(n_frames.shape)}, batch is {b}")
+    if topo.max_bank_state >= u:
+        raise ValueError(f"graph reads bank row {topo.max_bank_state}, emissions have {u}")
+    if eps_depth < 1:
+        raise ValueError(f"eps_depth must be >= 1, got {eps_depth}")
+    s, r, l = g.n_states, g.n_words, g.n_ends
+    u_dtype = _eps_u_dtype(l)
+    final = torch.empty((s, b), dtype=torch.float32, device=dev)
+    bp8 = torch.empty((t_len, s, b), dtype=torch.int8, device=dev)
+    eps_u = torch.empty((t_len, r, b), dtype=u_dtype, device=dev)
+    if b == 0 or t_len == 0:
+        return final.fill_(POS_INF), bp8, eps_u
+    lib = load_library()
+    tile, _ = _k1_launch_plan(
+        b, _n_sm(dev), lambda tl, _st: lib.viterbi_banded_general_smem_bytes(u, s, r, tl),
+        lib.srt_smem_limit())
+
+    def i32(x):
+        return x.to(torch.int32).contiguous()
+
+    row_lo, row_hi = (torch.from_numpy(x).to(dev) for x in topo.row_spans(r))
+    args = [nll, g.band.contiguous(), g.init_cost.contiguous(), i32(g.bank_state),
+            i32(g.word_starts), i32(g.word_ends), g.eps_block.contiguous(), row_lo,
+            row_hi, i32(n_frames)]
+    with torch.cuda.device(dev):
+        rc = lib.viterbi_banded_general_launch(
+            *[x.data_ptr() for x in args], final.data_ptr(), bp8.data_ptr(),
+            eps_u.data_ptr(), int(u_dtype == torch.int32), u, t_len, b, s, r, l,
+            eps_depth, tile, torch.cuda.current_stream(dev).cuda_stream)
+    check(rc, "general banded Viterbi kernel")
+    viterbi_banded_general.launches += 1
+    return final, bp8, eps_u
+
+
+viterbi_banded_general.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: general backtrace (eps unwind of any depth)
+# ---------------------------------------------------------------------------
+
+# Plain version of K9: ``bp8 [T, S, B]``, ``eps_u [T, R, B]``, the graph,
+# ``end_state [B]``, ``n_frames [B]``, ``eps_depth`` -> ``(states [T, B]
+# int32, eps_entered [T, B] bool)``.
+banded_backtrace_general_ref = banded_backtrace_tb
+
+
+def banded_backtrace_general(bp8, eps_u, g: BandedGraph, end_state, n_frames,
+                             eps_depth: int = 1):
+    """K9 for CUDA tensors (``csrc/banded_backtrace.cu``), the plain
+    version for CPU tensors.  Arguments and results as
+    ``banded_backtrace_tb``."""
+    if not use_kernels(bp8):
+        return banded_backtrace_tb(bp8, eps_u, g, end_state, n_frames, eps_depth)
+    from speech_recognition_tpu_torch.utils.build import check, load_library
+
+    dev = bp8.device
+    t_len, s, b = bp8.shape
+    r = g.n_words
+    if g.cross_src is not None:
+        raise ValueError("the general backtrace kernel does not implement cross edges")
+    if (bp8.dtype != torch.int8 or eps_u.dtype not in (torch.int8, torch.int32)
+            or eps_u.shape != (t_len, r, b) or s != g.n_states
+            or end_state.shape != (b,) or n_frames.shape != (b,)
+            or not (bp8.is_contiguous() and eps_u.is_contiguous())):
+        raise ValueError("general backtrace kernel takes contiguous int8 bp8 [T, S, B], "
+                         "int8 or int32 eps_u [T, R, B] and [B] end_state / n_frames")
+    if eps_depth < 1:
+        raise ValueError(f"eps_depth must be >= 1, got {eps_depth}")
+    _check_devices(dev, "planes", [("eps_u", eps_u), ("end_state", end_state),
+                                   ("n_frames", n_frames), ("start_pos", g.start_pos),
+                                   ("word_ends", g.word_ends)])
+    i32 = [x.to(torch.int32).contiguous()
+           for x in (g.start_pos, g.word_ends, end_state, n_frames)]
+    states = torch.empty((t_len, b), dtype=torch.int32, device=dev)
+    flags = torch.empty((t_len, b), dtype=torch.bool, device=dev)
+    if b == 0 or t_len == 0:
+        return states, flags
+    lib = load_library()
+    with torch.cuda.device(dev):
+        rc = lib.banded_backtrace_general_launch(
+            bp8.data_ptr(), eps_u.data_ptr(), int(eps_u.dtype == torch.int32),
+            *[x.data_ptr() for x in i32], states.data_ptr(), flags.data_ptr(),
+            t_len, s, r, b, eps_depth, torch.cuda.current_stream(dev).cuda_stream)
+    check(rc, "general backtrace kernel")
+    banded_backtrace_general.launches += 1
+    return states, flags
+
+
+banded_backtrace_general.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10: word-trace forward (fused emission, entry-time side planes)
+# ---------------------------------------------------------------------------
+
+_MIX_CHUNK = 8  # mixtures per block of the kernel's running logsumexp
+
+
+def _bank_nll_exact(xa, w, lw):
+    """``[U, T, B]`` bank NLLs in K10's arithmetic, one rounded operation
+    at a time: each mixture's dot product summed over A in order (product
+    and sum rounded apart), then the logsumexp over blocks of 8 mixtures
+    with a running maximum, summed in mixture order."""
+    a, t_len, b = xa.shape
+    u, m, _ = w.shape
+    x = xa.reshape(a, t_len * b)
+    wa = w.permute(2, 0, 1)  # [A, U, M]
+    acc = torch.zeros((u, m, t_len * b), dtype=torch.float32, device=xa.device)
+    for i in range(a):
+        acc = acc + wa[i][:, :, None] * x[i][None, None, :]
+    z = lw[:, :, None] - acc
+    zmax = total = None
+    for m0 in range(0, m, _MIX_CHUNK):
+        zc = z[:, m0 : m0 + _MIX_CHUNK]
+        cmax = zc[:, 0]
+        for j in range(1, zc.shape[1]):
+            cmax = torch.maximum(cmax, zc[:, j])
+        if m0 == 0:
+            zmax, total = cmax, torch.zeros_like(cmax)
+        else:
+            nm = torch.maximum(zmax, cmax)
+            total = total * torch.exp(zmax - nm)
+            zmax = nm
+        for j in range(zc.shape[1]):
+            total = total + torch.exp(zc[:, j] - zmax)
+    return (-(torch.log(total) + zmax)).reshape(u, t_len, b)
+
+
+def _shift_tau(tau, d):
+    """``tau[v-d]`` along the state axis with 0 fill."""
+    pad = torch.zeros((d,) + tau.shape[1:], dtype=tau.dtype, device=tau.device)
+    return torch.cat([pad, tau[:-d]], dim=0)
+
+
+def _wordtrace_dp(nll_bank, g: BandedGraph, n_frames):
+    """K10's DP on given bank emissions ``nll_bank [U, T, B]``: K1's band
+    (min-chain, largest d on ties), one eps pass (first minimum, strict
+    improvement) and length mask, with an int32 entry-time carry tau
+    that follows the band winner, is 0 at frame 0 and t where a re-entry
+    improves a word start.  Returns ``(final [S, B], eps_u [T, R, B],
+    eps_tau [T, R, B] int32, final_tau [S, B] int32)``."""
+    _, t_len, b = nll_bank.shape
+    dev = nll_bank.device
+    s, r, l = g.n_states, g.n_words, g.n_ends
+    n_frames = n_frames.to(dev)
+    starts, ends = g.word_starts, g.word_ends
+    bank_starts = g.bank_state[starts]
+    cols = torch.arange(b, device=dev)
+    u_dtype = _eps_u_dtype(l)
+    eps_u = torch.empty((t_len, r, b), dtype=u_dtype, device=dev)
+    eps_tau = torch.empty((t_len, r, b), dtype=torch.int32, device=dev)
+    prev = torch.full((s, b), POS_INF, dtype=torch.float32, device=dev)
+    tau = torch.zeros((s, b), dtype=torch.int32, device=dev)
+    for t in range(t_len):
+        emis_bank = nll_bank[:, t]  # [U, B]
+        if t == 0:
+            best = g.init_cost[:, None].expand(s, b)
+            tau_b = torch.zeros((s, b), dtype=torch.int32, device=dev)
+        else:
+            cands = [g.band[d][:, None] + _shift_s(prev, d) for d in range(MAX_BAND + 1)]
+            best = torch.minimum(torch.minimum(cands[0], cands[1]), cands[2])
+            tau_b = torch.where(cands[2] == best, _shift_tau(tau, 2),
+                                torch.where(cands[1] == best, _shift_tau(tau, 1), tau))
+        cost = torch.clamp(best + emis_bank[g.bank_state], max=POS_INF)
+        scores = g.eps_block[:, :, None] + cost[ends][None]  # [R, L, B]
+        base, origin = scores.amin(1), torch.argmin(scores, 1)
+        cand = torch.clamp(base + emis_bank[bank_starts], max=POS_INF)
+        better = cand < cost[starts]
+        origin_tau = tau_b[ends[origin], cols]  # [R, B]
+        cost[starts] = torch.where(better, cand, cost[starts])
+        tau_b[starts] = torch.where(better, t, tau_b[starts]).to(torch.int32)
+        eps_u[t] = torch.where(better, origin, 0).to(u_dtype)
+        eps_tau[t] = torch.where(better, origin_tau, 0)
+        active = (t < n_frames)[None, :]
+        prev = torch.where(active, cost, prev)
+        tau = torch.where(active, tau_b, tau)
+    return prev, eps_u, eps_tau, tau
+
+
+def viterbi_banded_wordtrace_ref(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
+    """Plain version of K10.
+
+    Inputs as ``viterbi_banded_fused_ref`` -> ``(final [S, B],
+    eps_u [T, R, B], eps_tau [T, R, B] int32, final_tau [S, B] int32)``:
+    at every re-entry the origin word slot and that word's entry time,
+    and each state's entry time after the last frame.
+    """
+    _check_fused(g, topo, "the word-trace forward")
+    return _wordtrace_dp(_bank_nll_exact(xa, w, lw), g, n_frames)
+
+
+def viterbi_banded_wordtrace(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
+    """K10 for CUDA tensors (``csrc/viterbi_banded.cu``, mode
+    kWordtrace), the plain version for CPU tensors.  Arguments and
+    results as ``viterbi_banded_wordtrace_ref``."""
+    if not use_kernels(xa):
+        return viterbi_banded_wordtrace_ref(xa, w, lw, g, topo, n_frames)
+    from speech_recognition_tpu_torch.utils.build import check, load_library
+
+    _check_fused(g, topo, "the word-trace forward")
+    args = _fused_inputs(xa, w, lw, g, topo, n_frames)
+    dev = xa.device
+    a, t_len, b = xa.shape
+    u, m, _ = w.shape
+    s, r, l = g.n_states, g.n_words, g.n_ends
+    u_dtype = _eps_u_dtype(l)
+    final = torch.empty((s, b), dtype=torch.float32, device=dev)
+    eps_u = torch.empty((t_len, r, b), dtype=u_dtype, device=dev)
+    eps_tau = torch.empty((t_len, r, b), dtype=torch.int32, device=dev)
+    final_tau = torch.zeros((s, b), dtype=torch.int32, device=dev)
+    if b == 0 or t_len == 0:
+        return final.fill_(POS_INF), eps_u, eps_tau, final_tau
+    lib = load_library()
+    tile, stage = _k1_launch_plan(
+        b, _n_sm(dev), lambda tl, st: lib.viterbi_wordtrace_smem_bytes(a, u, m, s, tl, int(st)),
+        lib.srt_smem_limit())
+    with torch.cuda.device(dev):
+        rc = lib.viterbi_wordtrace_launch(
+            *[x.data_ptr() for x in args], final.data_ptr(), eps_u.data_ptr(),
+            int(u_dtype == torch.int32), eps_tau.data_ptr(), final_tau.data_ptr(),
+            a, t_len, b, u, m, s, r, l, topo.uniform_w, tile, int(stage),
+            torch.cuda.current_stream(dev).cuda_stream)
+    check(rc, "word-trace Viterbi kernel")
+    viterbi_banded_wordtrace.launches += 1
+    return final, eps_u, eps_tau, final_tau
+
+
+viterbi_banded_wordtrace.launches = 0
+
+
+def wordtrace_words_device(eps_u, eps_tau, best_slot, entry_t, n_frames):
+    """Word recovery over K10's side planes, in tensor ops on their device.
+
+    From each stream's final word (slot ``best_slot``, entered at
+    ``entry_t``) follows the eps chain ``(t, v) -> (eps_tau[t, v],
+    eps_u[t, v])`` until the word entered at frame 0, checking every 16
+    steps whether any chain is still going.  The reference stops after
+    ``T // W + 1`` steps, which skip arcs undercut; this walk drops no
+    word.  Returns ``(words_rev [W, B] int32, slots from the last word
+    back, -1 past each stream's first word; n_words [B] int32)``.
+    """
+    t_len, r, b = eps_u.shape
+    dev = eps_u.device
+    flat_u, flat_t = eps_u.reshape(-1), eps_tau.reshape(-1)
+    cols = torch.arange(b, device=dev)
+    v = best_slot.to(dev, torch.int64)
+    t = entry_t.to(dev, torch.int64)
+    alive = n_frames.to(dev) > 0
+    words = []
+    while len(words) <= t_len:  # entry times fall each step: <= T + 1 words
+        words.append(torch.where(alive, v, -1))
+        idx = (t.clamp(0, max(t_len - 1, 0)) * r + v.clamp(0, r - 1)) * b + cols
+        cont = alive & (t > 0)
+        v = torch.where(cont, flat_u[idx].to(torch.int64), v)
+        t = torch.where(cont, flat_t[idx].to(torch.int64), t)
+        alive = cont
+        if len(words) % 16 == 0 and not bool(alive.any()):
+            break
+    words_rev = torch.stack(words).to(torch.int32)
+    return words_rev, (words_rev >= 0).sum(0).to(torch.int32)

@@ -111,6 +111,14 @@ def load_library() -> ctypes.CDLL:
                                           i, i, i, i, i, i, i, i, i, i, i, p]
     lib.banded_backtrace_launch.argtypes = [p, p, p, p, p, p,
                                             i, i, i, i, i, p]
+    lib.viterbi_banded_general_launch.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                                  p, p, p, i,
+                                                  i, i, i, i, i, i, i, i, p]
+    lib.banded_backtrace_general_launch.argtypes = [p, p, i, p, p, p, p, p, p,
+                                                    i, i, i, i, i, p]
+    lib.viterbi_wordtrace_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
+                                             p, i, p, p,
+                                             i, i, i, i, i, i, i, i, i, i, i, p]
     lib.viterbi_lex_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
                                        i, p, i, i, i, i, i, i, p]
     lib.lex_backtrace_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
@@ -119,16 +127,21 @@ def load_library() -> ctypes.CDLL:
     lib.lattice_rescore_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
                                            i, i, i, i, i, p]
     for fn in (lib.mfcc39_launch, lib.viterbi_banded_launch,
-               lib.banded_backtrace_launch, lib.viterbi_lex_launch,
+               lib.banded_backtrace_launch, lib.viterbi_banded_general_launch,
+               lib.banded_backtrace_general_launch, lib.viterbi_wordtrace_launch,
+               lib.viterbi_lex_launch,
                lib.lex_backtrace_launch, lib.viterbi_lattice_launch,
                lib.lattice_rescore_launch):
         fn.restype = ctypes.c_int
     lib.mfcc39_smem_bytes.argtypes = [i, i, i]
     lib.viterbi_banded_smem_bytes.argtypes = [i, i, i, i, i, i]
+    lib.viterbi_wordtrace_smem_bytes.argtypes = [i, i, i, i, i, i]
+    lib.viterbi_banded_general_smem_bytes.argtypes = [i, i, i, i]
     lib.viterbi_lex_smem_bytes.argtypes = [i, i]
     lib.lattice_rescore_smem_bytes.argtypes = [i]
     lib.srt_smem_limit.argtypes = []
     for fn in (lib.mfcc39_smem_bytes, lib.viterbi_banded_smem_bytes,
+               lib.viterbi_wordtrace_smem_bytes, lib.viterbi_banded_general_smem_bytes,
                lib.viterbi_lex_smem_bytes, lib.lattice_rescore_smem_bytes,
                lib.srt_smem_limit):
         fn.restype = ctypes.c_int

@@ -9,10 +9,14 @@ none, and it is run there without the suite's conftest:
 
 Tolerances: K1 final costs rtol 1e-5 (emission GEMM summation order),
 K1 planes / K2 / words exact, K3 rtol 2e-3 / atol 5e-4.  K4 (the
-lexical-tree forward), K5 (its backtrace), K6 (the lattice pass) and K7
-(the lattice rescorer) are fed the plain version's own inputs, so every
-output is compared exactly; the lextree and bigram decodes' costs are
-compared at rtol 1e-5 (emission GEMM).
+lexical-tree forward), K5 (its backtrace), K6 (the lattice pass), K7
+(the lattice rescorer), K8 (the banded forward on bank emissions) and K9
+(the general backtrace) are fed the plain version's own inputs, so every
+output is compared exactly; K10 (the word-trace forward) computes its
+emission in its plain version's order, one rounded operation at a time,
+so it too is compared exactly.  Decodes on the card against the CPU
+(emission GEMMs on two devices) compare words exactly and costs at rtol
+1e-5.
 """
 
 import types
@@ -427,3 +431,179 @@ def test_lattice_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="n_frames is on cpu"):
         lk.rescore_lattice(ec, et, ec.amin(2), vec, vec, nf.cpu(), 8, big_ll=big)
     assert (lk.viterbi_lattice.launches, lk.rescore_lattice.launches) == before
+
+
+def _general_graph(kind):
+    """``(bank, graph)`` for the general banded path (K8 + K9) or, for
+    ``loop_lm`` / ``loop_int32``, a graph the fused kernels also take."""
+    from speech_recognition_tpu_torch.models.graph import build_loop_graph, build_word_graph
+
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    if kind == "sausage_1state":  # starts == ends: eps depth 3 at 4 slots
+        bank = _bank(5, 1, 2, 6)
+        trans = [bank.trans_cost[i].numpy() for i in range(5)]
+        return bank, build_word_graph(trans, [list(range(5))] * 4, word_insertion_cost=0.3)
+    if kind == "loop_int32":  # 130 word ends: int32 eps_u
+        bank = _bank(130, 3, 2, 6)
+        return bank, build_loop_graph([bank.trans_cost[i].numpy() for i in range(130)],
+                                      word_insertion_cost=0.5)
+    bank = _bank(5, 4, 2, 6)
+    trans = [t[:k, :k] for t, k in zip(bank.trans_cost.numpy(), (2, 1, 3, 2, 4))]
+    if kind == "sausage_mixed":
+        return bank, build_word_graph(trans, [list(range(5))] * 3, word_insertion_cost=0.3)
+    if kind == "transcript":
+        return bank, build_word_graph(trans, [[2], [0, 1], [3], [4]], optional_layers=[1],
+                                      end_layers=[2, 3])
+    lm = types.SimpleNamespace(cost=rng.uniform(0.1, 3.0, (5, 5)),
+                               start_cost=rng.uniform(0.1, 2.0, 5),
+                               end_cost=rng.uniform(0.1, 2.0, 5))
+    full = [bank.trans_cost[i].numpy() for i in range(5)]
+    return bank, build_loop_graph(full, lm=lm, word_insertion_cost=0.4)
+
+
+@pytest.mark.parametrize("kind,b,t,ties", [
+    ("sausage_1state", 5, 17, False),
+    ("sausage_1state", 37, 12, True),   # integer emissions: ties everywhere
+    ("sausage_mixed", 3, 20, False),
+    ("sausage_mixed", 9, 15, True),
+    ("transcript", 11, 14, False),
+    ("loop_lm", 6, 13, True),
+    ("loop_int32", 4, 9, False),
+])
+def test_k8_k9_match_plain(dev, kind, b, t, ties):
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+
+    bank, graph = _general_graph(kind)
+    g = banded_arrays(graph, device=dev)
+    topo = vk.banded_topology(g)
+    rng = np.random.default_rng(b * t)
+    u = bank.n_models * bank.n_states
+    nll = (rng.integers(0, 3, (u, t, b)) if ties else rng.uniform(0, 6, (u, t, b)))
+    nll = torch.from_numpy(nll.astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[t, 1, 0, rng.integers(1, t + 1, b)][:b].astype(np.int32)).to(dev)
+    before = (vk.viterbi_banded_general.launches, vk.banded_backtrace_general.launches)
+    got = vk.viterbi_banded_general(nll, g, topo, nf, graph.eps_depth)
+    want = vk.viterbi_banded_general_ref(nll, g, topo, nf, graph.eps_depth)
+    torch.cuda.synchronize()
+    assert got[2].dtype == (torch.int32 if g.n_ends > 127 else torch.int8)
+    for k in range(3):  # every frame, frozen ones included
+        assert torch.equal(got[k], want[k]), k
+    ends = g.end_states[torch.argmin(want[0][g.end_states] + g.end_bonus[:, None], 0)]
+    sk, fk = vk.banded_backtrace_general(got[1], got[2], g, ends, nf, graph.eps_depth)
+    sp, fp = vk.banded_backtrace_general_ref(want[1], want[2], g, ends, nf, graph.eps_depth)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, sp) and torch.equal(fk, fp)
+    assert (vk.viterbi_banded_general.launches,
+            vk.banded_backtrace_general.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("kind,b,t,n_mix", [
+    ("loop", 3, 17, 2),
+    ("sausage", 11, 15, 2),
+    ("loop_lm", 37, 20, 11),    # two mixture blocks of the running logsumexp
+    ("loop_int32", 5, 9, 2),    # 130 word ends: int32 eps_u
+])
+def test_k10_matches_plain(dev, kind, b, t, n_mix):
+    from speech_recognition_tpu_torch.models.graph import build_loop_graph, build_word_graph
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.gmm import augment_dtb, gmm_emission_weights
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+
+    n_models = 130 if kind == "loop_int32" else 4
+    bank = _bank(n_models, 3, n_mix, 6).to(dev)
+    trans = [bank.trans_cost[i].cpu().numpy() for i in range(n_models)]
+    rng = np.random.default_rng(5)
+    if kind == "sausage":
+        graph = build_word_graph(trans, [list(range(n_models))] * 3)
+    else:
+        lm = None
+        if kind == "loop_lm":
+            lm = types.SimpleNamespace(cost=rng.uniform(0.1, 3.0, (n_models, n_models)),
+                                       start_cost=rng.uniform(0.1, 2.0, n_models),
+                                       end_cost=rng.uniform(0.1, 2.0, n_models))
+        graph = build_loop_graph(trans, lm=lm, word_insertion_cost=0.5)
+    g = banded_arrays(graph, device=dev)
+    topo = vk.banded_topology(g)
+    feats = torch.from_numpy(rng.standard_normal((b, t, 6)).astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[t, 1, 0, rng.integers(1, t + 1, b)][:b].astype(np.int32)).to(dev)
+    w, lw = gmm_emission_weights(*bank.flat_states())
+    xa = augment_dtb(feats)
+    before = vk.viterbi_banded_wordtrace.launches
+    got = vk.viterbi_banded_wordtrace(xa, w, lw, g, topo, nf)
+    want = vk.viterbi_banded_wordtrace_ref(xa, w, lw, g, topo, nf)
+    torch.cuda.synchronize()
+    assert vk.viterbi_banded_wordtrace.launches == before + 1
+    assert got[1].dtype == (torch.int32 if n_models > 127 else torch.int8)
+    for k in range(4):
+        assert torch.equal(got[k], want[k]), k
+    # K1 on the same inputs: the same costs to the emission's rounding
+    k1 = vk.viterbi_banded_fused(xa, w, lw, g, topo, nf)
+    torch.testing.assert_close(got[0], k1[0], rtol=1e-5, atol=0.0)
+
+
+def test_decode_general_and_wordtrace_cuda_match_cpu(dev):
+    from speech_recognition_tpu_torch.decode.connected import decode_connected
+    from speech_recognition_tpu_torch.models.graph import build_loop_graph
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+
+    rng = np.random.default_rng(8)
+    feats = torch.from_numpy(rng.standard_normal((9, 60, 6)).astype(np.float32))
+    nf = torch.from_numpy(np.r_[60, 1, rng.integers(2, 61, 7)].astype(np.int32))
+    for kind in ("sausage_1state", "sausage_mixed", "transcript"):
+        bank, graph = _general_graph(kind)
+        bank_g = _general_graph(kind)[0].to(dev)  # Module.to moves in place
+        before = (vk.viterbi_banded_general.launches, vk.viterbi_banded_fused.launches)
+        w_g, c_g = decode_connected(bank_g, graph, feats.to(dev), nf.to(dev))
+        assert (vk.viterbi_banded_general.launches,
+                vk.viterbi_banded_fused.launches) == (before[0] + 1, before[1])
+        w_c, c_c = decode_connected(bank, graph, feats, nf)
+        assert w_g == w_c, kind
+        np.testing.assert_allclose(c_g, c_c, rtol=1e-5)
+    bank, bank_g = _bank(4, 3, 2, 6), _bank(4, 3, 2, 6).to(dev)
+    graph = build_loop_graph([bank.trans_cost[i].numpy() for i in range(4)],
+                             word_insertion_cost=0.5)
+    before = vk.viterbi_banded_wordtrace.launches
+    w_g, c_g = decode_connected(bank_g, graph, feats.to(dev), nf.to(dev),
+                                backend="wordtrace")
+    assert vk.viterbi_banded_wordtrace.launches == before + 1
+    w_c, c_c = decode_connected(bank, graph, feats, nf, backend="wordtrace")
+    w_a, c_a = decode_connected(bank_g, graph, feats.to(dev), nf.to(dev))
+    assert w_g == w_c == w_a
+    np.testing.assert_allclose(c_g, c_c, rtol=1e-5)
+    np.testing.assert_allclose(c_g, c_a, rtol=1e-5)
+
+
+def test_general_and_wordtrace_wrappers_raise_instead_of_falling_back(dev):
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.gmm import augment_dtb, gmm_emission_weights
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+
+    bank, graph = _general_graph("sausage_mixed")
+    g = banded_arrays(graph, device=dev)
+    topo = vk.banded_topology(g)
+    nll = torch.zeros((bank.n_models * bank.n_states, 6, 2), device=dev)
+    nf = torch.full((2,), 6, dtype=torch.int32, device=dev)
+    counts = (vk.viterbi_banded_general.launches, vk.banded_backtrace_general.launches,
+              vk.viterbi_banded_wordtrace.launches)
+    with pytest.raises(ValueError, match="n_frames is on cpu"):
+        vk.viterbi_banded_general(nll, g, topo, nf.cpu(), graph.eps_depth)
+    with pytest.raises(ValueError, match="float32"):
+        vk.viterbi_banded_general(nll.double(), g, topo, nf, graph.eps_depth)
+    lexg, n_bank = _lex_graph("deep")
+    gl = lexg.banded.to(dev)
+    with pytest.raises(ValueError, match="cross edges"):
+        vk.viterbi_banded_general(torch.zeros((n_bank, 6, 2), device=dev), gl,
+                                  vk.banded_topology(gl), nf)
+    bp8 = torch.zeros((6, g.n_states, 2), dtype=torch.int8, device=dev)
+    eps_u = torch.zeros((6, g.n_words, 2), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="eps_u"):
+        vk.banded_backtrace_general(bp8, eps_u.long(), g, g.end_states[:2], nf)
+    with pytest.raises(ValueError, match="end_state is on cpu"):
+        vk.banded_backtrace_general(bp8, eps_u, g, g.end_states[:2].cpu(), nf)
+    w, lw = gmm_emission_weights(*bank.to(dev).flat_states())
+    xa = augment_dtb(torch.zeros((2, 6, 6), device=dev))
+    with pytest.raises(ValueError, match="word-trace"):
+        vk.viterbi_banded_wordtrace(xa, w, lw, g, topo, nf)
+    assert (vk.viterbi_banded_general.launches, vk.banded_backtrace_general.launches,
+            vk.viterbi_banded_wordtrace.launches) == counts
