@@ -26,7 +26,19 @@ through the CLI with the launch counters reset just before each:
 * the word-trace backend, ``decode_connected(backend="wordtrace")`` on
   the CLI corpus's features (K3) and at 512 x 500 on the 385-state
   sausage: fused emission + forward with entry-time planes (K10) ->
-  chain walk -> word ids, equal to the states path's words.
+  chain walk -> word ids, equal to the states path's words;
+* isolated words, ``cli isolated_test --device cuda`` on a synthetic
+  isolated corpus with a 12-model bank (11 digits of 5 states x 4
+  mixtures x 39 dims, and a silence model that is left out): wavs ->
+  MFCC-39 (K3) -> one emission GEMM -> dense Viterbi per (utterance,
+  model) without planes (K11) -> argmin;
+* forced alignment, ``cli align --device cuda`` with the same bank:
+  padded transcript graphs with optional silence -> K11 with
+  per-utterance matrices -> backtrace -> word segments;
+* the dense decoder, ``decode_connected(backend="dense")`` on the CLI
+  corpus's features (K3 + K11), words equal to the banded path's;
+* ``ops.frontend.mfcc`` on CUDA tensors (K12, the cepstra-only mode of
+  K3).
 
 Each CLI output is checked against the same command on the CPU (plain
 versions).  K8 and K9 are held bit-identical to their plain versions at
@@ -34,7 +46,13 @@ versions).  K8 and K9 are held bit-identical to their plain versions at
 6) and on a 7-slot sausage of words of 3 to 6 states, with uniform and
 tie-forcing integer emissions; K10 at 512 x 500 on the 385-state sausage
 with a random bank and with a bank whose last 5 words copy the first 5
-(exact ties).  K4 and K5 are also held against their plain versions on the
+(exact ties).  K11 is held bit-identical to its plain version (final
+costs and every frame of both planes) at the isolated shape (512 x 500 x
+11 models of 5 states, with and without planes), on the 385-state
+sausage at 64 x 500 (eps depth 1), on 256 padded transcript graphs and
+on a batch of integer (tie-forcing) emissions and costs with lengths 0,
+1 and T; K12 within rtol 2e-3 / atol 5e-4 of its plain version at 256 x
+5 s.  K4 and K5 are also held against their plain versions on the
 1,000-word benchmark trie (128 x 500), on the same trie with a random
 eps block, on a flat 100-word vocabulary with bigram costs (more roots
 than one re-entry pass takes), and on a dictionary-shaped ~87k-state
@@ -125,6 +143,24 @@ def span_pairs(topo) -> int:
     return sum((r_hi - r_lo) * (u_hi - u_lo) for r_lo, r_hi, u_lo, u_hi in topo.ranges)
 
 
+def ceps_ops(cfg, n_frames: int) -> float:
+    """Operations of the MFCC cepstra over ``n_frames`` frames: pre-emphasis
+    and window, half a complex N-point FFT per real frame (5 N log2 N
+    each), power, two triangular filters per bin, log, DCT, lifter."""
+    import math
+
+    n, half = cfg.n_fft, cfg.n_fft // 2 + 1
+    return n_frames * (3 * cfg.frame_len + 2.5 * n * math.log2(n) + 3 * half + 4 * half
+                       + cfg.n_mels + 2 * cfg.n_mels * cfg.n_ceps + cfg.n_ceps)
+
+
+def dense_ops(steps: int, s: int, eps_depth: int) -> float:
+    """Operations of ``steps`` (item, frame) steps of the dense Viterbi: an
+    add and a compare per (to, from) pair for the frame edge and for each
+    of ``eps_depth`` eps passes (0 without eps)."""
+    return float(steps) * s * s * 2 * (1 + eps_depth)
+
+
 def mfcc_ops(cfg, n_frames: int) -> float:
     """Operations of the fused MFCC-39 over ``n_frames`` frames: pre-emphasis
     and window, half a complex N-point FFT per real frame (5 N log2 N
@@ -176,11 +212,11 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def random_bank(n_states: int, seed: int = 0, dup: int = 0):
-    """11 models x ``n_states`` states x 4 mixtures x 39 dims from the
-    port's ``random_gmm_hmm`` (seed 0 and 5 states: as the reference bench
-    builds its bank).  With ``dup`` the last ``dup`` models copy the first
-    ones, so paths through a model and its copy tie exactly."""
+def random_bank(n_states: int, seed: int = 0, dup: int = 0, n_models: int = 11):
+    """``n_models`` models x ``n_states`` states x 4 mixtures x 39 dims from
+    the port's ``random_gmm_hmm`` (seed 0 and 5 states: as the reference
+    bench builds its bank).  With ``dup`` the last ``dup`` models copy the
+    first ones, so paths through a model and its copy tie exactly."""
     import numpy as np
 
     from speech_recognition_tpu_torch.data.synthetic import random_gmm_hmm
@@ -189,7 +225,7 @@ def random_bank(n_states: int, seed: int = 0, dup: int = 0):
 
     rng = np.random.default_rng(seed)
     ps = [random_gmm_hmm(rng, n_states=n_states, n_mix=4, dim=39, sep=3.0)
-          for _ in range(11 - dup)]
+          for _ in range(n_models - dup)]
     ps += ps[:dup]
     return HMMBank.from_numpy(
         np.stack([p["means"] for p in ps]),
@@ -198,14 +234,15 @@ def random_bank(n_states: int, seed: int = 0, dup: int = 0):
         np.stack([to_cost_matrix(p["trans"]) for p in ps]))
 
 
-def make_bank(tmp: str, n_states: int = 5, name: str = "bank.npz"):
-    """``random_bank(n_states)`` round-tripped through the port's npz
-    checkpoint."""
+def make_bank(tmp: str, n_states: int = 5, name: str = "bank.npz", n_models: int = 11,
+              meta=None):
+    """``random_bank(n_states, n_models=n_models)`` round-tripped through
+    the port's npz checkpoint with ``meta``."""
     from speech_recognition_tpu_torch.utils.checkpoint import load_bank, save_bank
 
-    bank = random_bank(n_states)
+    bank = random_bank(n_states, n_models=n_models)
     path = os.path.join(tmp, name)
-    save_bank(path, bank, {"norm": "utterance"})
+    save_bank(path, bank, {"norm": "utterance", **(meta or {})})
     loaded, meta = load_bank(path)
     for f in ("means", "log_vars", "log_weights", "trans_cost"):
         if not bool((getattr(loaded, f) == getattr(bank, f)).all()):
@@ -594,6 +631,108 @@ def main() -> int:
                      f"re-entries recorded {int((got[2] > 0).sum())}")
     report["K10"] = {"max_abs_err": k10_err}
 
+    # ---- 4d. K11 vs its plain version -----------------------------------------
+    from speech_recognition_tpu_torch.models.graph import pad_graphs, transcript_graph
+    from speech_recognition_tpu_torch.models.hmm import bank_nll, linear_init_cost
+    from speech_recognition_tpu_torch.ops.viterbi import viterbi_backtrace
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import (
+        viterbi_dense,
+        viterbi_dense_ref,
+    )
+    from speech_recognition_tpu_torch.utils.numerics import POS_INF
+
+    def on_dev(x):
+        return torch.as_tensor(x, device=dev)
+
+    mask = torch.arange(T, device=dev)[None, :] < nf[:, None]  # [B, T]
+    nll_bank = bank_nll(bank, feats, mask)  # [B, T, 55]
+    n_m, n_s = bank.n_models, bank.n_states
+    g7 = graphs["sausage7"]
+    # 256 transcripts of 2-7 digits over a 12-model bank whose model 11 is
+    # silence, optional between and around the words
+    bank_sil, bank_sil_path = make_bank(tmp, name="bank_sil.npz", n_models=12,
+                                        meta={"silence_index": 11})
+    bank_sil = bank_sil.to(dev)
+    trng = np.random.default_rng(13)
+    trans_sil = [bank_sil.trans_cost[i].cpu().numpy() for i in range(12)]
+    gb, depth_tr = pad_graphs([transcript_graph(
+        trans_sil, [int(x) for x in trng.integers(0, 11, trng.integers(2, 8))], sil=11)
+        for _ in range(256)])
+    bstate = on_dev(gb["bank_state"]).long()
+    nll_sil = bank_nll(bank_sil, feats[:256], mask[:256])
+    nll_sil = nll_sil.gather(2, bstate[:, None, :].expand(256, T, bstate.shape[1]))
+    # integer emissions and costs (every minimum ties), lengths T, 0 and 1
+    s_tie, t_tie = 48, 200
+    trans_tie = trng.integers(0, 3, (2, s_tie, s_tie)).astype(np.float32)
+    trans_tie[0][trng.uniform(size=(s_tie, s_tie)) < 0.5] = POS_INF
+    trans_tie[1][trng.uniform(size=(s_tie, s_tie)) < 0.8] = POS_INF
+    init_tie = np.where(np.arange(s_tie) < 12, trng.integers(0, 3, s_tie), POS_INF)
+    dense_cases = {
+        "isolated 512x500, 11 models x 5 states": dict(
+            nll=nll_bank.reshape(B, T, n_m, n_s).permute(0, 2, 1, 3)
+            .reshape(B * n_m, T, n_s).contiguous(),
+            trans=bank.trans_cost[None].expand(B, n_m, n_s, n_s)
+            .reshape(B * n_m, n_s, n_s).contiguous(),
+            init_cost=on_dev(linear_init_cost(n_s)), n_frames=nf.repeat_interleave(n_m),
+            eps_trans=None, eps_depth=1),
+        "385-state sausage7 64x500": dict(
+            nll=nll_bank[:64][:, :, on_dev(g7.bank_state).long()].contiguous(),
+            trans=on_dev(g7.trans), init_cost=on_dev(g7.init_cost), n_frames=nf[:64],
+            eps_trans=on_dev(g7.eps_trans), eps_depth=g7.eps_depth),
+        f"256 transcript graphs ({bstate.shape[1]} states, per item)": dict(
+            nll=nll_sil.contiguous(), trans=on_dev(gb["trans"]),
+            init_cost=on_dev(gb["init_cost"]), n_frames=nf[:256],
+            eps_trans=on_dev(gb["eps_trans"]), eps_depth=depth_tr),
+        f"integer ties {s_tie} states 64x{t_tie}": dict(
+            nll=on_dev(trng.integers(0, 3, (64, t_tie, s_tie)).astype(np.float32)),
+            trans=on_dev(trans_tie[0]), init_cost=on_dev(init_tie.astype(np.float32)),
+            n_frames=on_dev(np.r_[t_tie, 0, 1, trng.integers(2, t_tie + 1, 61)]
+                            .astype(np.int32)),
+            eps_trans=on_dev(trans_tie[1]), eps_depth=2)}
+    dense_out = {}
+    for name, kw in dense_cases.items():
+        got = viterbi_dense(**kw)
+        want = viterbi_dense_ref(**kw)
+        torch.cuda.synchronize()
+        for k, plane in enumerate(("final", "bp", "eps_bp")):
+            if not torch.equal(got[k], want[k]):
+                fail(f"K11 {plane} differs from the plain version on {name}")
+        dense_out[name] = want
+        extra = ""
+        if kw["eps_trans"] is None:
+            lean = viterbi_dense(**kw, planes=False)
+            torch.cuda.synchronize()
+            if not (torch.equal(lean[0], want[0]) and lean[1] is None):
+                fail(f"K11 without planes disagrees with K11 with planes on {name}")
+            extra = "; without planes: final identical"
+        live = float((want[0] < 1e29).float().mean())
+        phase("K11", f"{name}: final, bp, eps_bp == plain (bit-identical, every frame, "
+                     f"frozen ones included){extra}; live final states {live:.3f}")
+    if not bool((dense_out[f"integer ties {s_tie} states 64x{t_tie}"][0][1] == POS_INF).all()):
+        fail("K11 final at n_frames 0 is not POS_INF")
+    report["K11"] = {"max_abs_err": 0.0}
+
+    # ---- 4e. K12 vs its plain version -----------------------------------------
+    from speech_recognition_tpu_torch.ops.frontend_kernel import mfcc_fused, mfcc_fused_ref
+
+    k12_err = 0.0
+    for name, (s_, ln) in {"256x5s": (sig, lens),
+                           "64 varlen": (var_sig, torch.from_numpy(var_lens).to(dev))}.items():
+        got, nf_k = mfcc_fused(s_, ln, cfg)
+        want, nf_p = mfcc_fused_ref(s_, ln, cfg)
+        torch.cuda.synchronize()
+        if not torch.equal(nf_k, nf_p):
+            fail(f"K12 frame counts differ ({name})")
+        if not bool(torch.isfinite(got).all()):
+            fail(f"K12 output not finite ({name})")
+        if not torch.allclose(got, want, **K3_TOL):
+            fail(f"K12 disagrees with its plain version ({name}): max |d| "
+                 f"{float((got - want).abs().max())}")
+        k12_err = max(k12_err, float((got - want).abs().max()))
+    phase("K12", f"mfcc cepstra kernel == plain version at 256x80000 and 64 varlen "
+                 f"(rtol 2e-3, atol 5e-4), frame counts equal; max |d| {k12_err:.3g}")
+    report["K12"] = {"max_abs_err": k12_err}
+
     # ---- 5. K4 + K5 vs their plain versions -------------------------------
     from speech_recognition_tpu_torch.data.lexicon import (
         bench_lexicon,
@@ -720,7 +859,7 @@ def main() -> int:
     counters = (mfcc39_fused, vk.viterbi_banded_fused, vk.banded_backtrace_val,
                 lk.viterbi_lex, lk.lex_backtrace_val, lt.viterbi_lattice, lt.rescore_lattice,
                 vk.viterbi_banded_general, vk.banded_backtrace_general,
-                vk.viterbi_banded_wordtrace)
+                vk.viterbi_banded_wordtrace, viterbi_dense, mfcc_fused)
     bigram = "--lm bigram"
     paths = {"connected": (("loop", "sausage"), (mfcc39_fused, vk.viterbi_banded_fused,
                                                  vk.banded_backtrace_val)),
@@ -801,6 +940,99 @@ def main() -> int:
                            f"states path's (K1 + K2), costs within rtol 1e-5 (max |d| "
                            f"{float(np.abs(costs_w - costs_a).max()):.3g}); mean words/utt "
                            f"{sum(map(len, words_w)) / len(words_w):.2f}")
+
+    # isolated words, forced alignment, the dense decoder and ops.frontend.mfcc,
+    # each with the counters reset just before it
+    from speech_recognition_tpu_torch.ops.frontend import mfcc
+
+    iso_dir = os.path.join(tmp, "iso")
+    os.makedirs(iso_dir)
+    for u in SyntheticDigits(seed=0).isolated_corpus(6, tag="smoke"):
+        write_wav(os.path.join(iso_dir, u.name), u.samples)
+
+    def run_action(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        return buf.getvalue()
+
+    def counted(path, fn, need, forbid=()):
+        for c in counters:
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[path] = {c.__name__: c.launches for c in counters}
+        if not all(launches[path][c.__name__] for c in need) or \
+                any(launches[path][c.__name__] for c in forbid):
+            fail(f"the {path} path did not run {[c.__name__ for c in need]} alone: "
+                 f"{launches[path]}")
+        phase("main path", f"{path} path launches: {launches[path]}")
+        return out
+
+    iso_cmd = ["isolated_test", "-i", bank_sil_path, "-d", iso_dir, "--device"]
+    iso_out = counted("isolated", lambda: run_action(iso_cmd + ["cuda"]),
+                      (mfcc39_fused, viterbi_dense),
+                      (vk.viterbi_banded_fused, vk.viterbi_banded_general))
+    if iso_out != run_action(iso_cmd + ["cpu"]):
+        fail("isolated_test: CUDA output differs from the CPU run")
+    phase("main path", f"cli isolated_test --device cuda on {len(os.listdir(iso_dir))} "
+                       f"synthetic digit wavs (random-weight 12-model bank, silence left "
+                       f"out): output identical to --device cpu; accuracy "
+                       f"{iso_out.splitlines()[-1]}")
+    al = {d: os.path.join(tmp, f"align_{d}.jsonl") for d in ("cuda", "cpu")}
+    al_cmd = ["align", "-i", bank_sil_path, "-d", wav_dir, "--device"]
+    counted("align", lambda: run_action(al_cmd + ["cuda", "-o", al["cuda"]]),
+            (mfcc39_fused, viterbi_dense))
+    run_action(al_cmd + ["cpu", "-o", al["cpu"]])
+    recs = {}
+    for d, path in al.items():
+        with open(path) as f:
+            recs[d] = [json.loads(x) for x in f]
+    if [(r["file"], r["segments"]) for r in recs["cuda"]] != \
+            [(r["file"], r["segments"]) for r in recs["cpu"]] or len(recs["cuda"]) != n_wavs:
+        fail("align: CUDA word segments differ from the CPU run")
+    c_cu = np.array([r["cost"] for r in recs["cuda"]])
+    c_cp = np.array([r["cost"] for r in recs["cpu"]])
+    if not np.allclose(c_cu, c_cp, rtol=1e-5, atol=0.0):
+        fail(f"align: CUDA costs differ from the CPU run: max |d| "
+             f"{float(np.abs(c_cu - c_cp).max())}")
+    n_seg = sum(len(r["segments"]) for r in recs["cuda"])
+    n_sil = sum(s_["word"] == "sil" for r in recs["cuda"] for s_ in r["segments"])
+    phase("main path", f"cli align --device cuda on {n_wavs} wavs: segments identical to "
+                       f"--device cpu, costs within rtol 1e-5 (max |d| "
+                       f"{float(np.abs(c_cu - c_cp).max()):.3g}); {n_seg} segments, "
+                       f"{n_sil} of them silence")
+
+    def dense_decode():
+        f_, n_ = cli._featurize_files(wav_files, FrontendConfig(), 120000, dev)
+        f_ = f_[:, : int(n_.max())]
+        return {k: decode_connected(bank, graphs[k], f_, n_, backend="dense")
+                for k in ("loop", "sausage7")}
+
+    dense_words = counted("dense", dense_decode, (mfcc39_fused, viterbi_dense),
+                          (vk.viterbi_banded_fused, vk.viterbi_banded_general))
+    for k, (words_d, costs_d) in dense_words.items():
+        words_b, costs_b = decode_connected(bank, graphs[k], f_w, n_w)
+        if words_d != words_b:
+            fail(f"dense words differ from the banded path's on the {k} graph")
+        if not np.allclose(costs_d, costs_b, rtol=K1_RTOL, atol=0.0):
+            fail(f"dense costs differ from the banded path's on the {k} graph: max |d| "
+                 f"{float(np.abs(costs_d - costs_b).max())}")
+        phase("main path", f"decode_connected(backend='dense') on the CLI corpus, {k} "
+                           f"graph: words == the banded path's, costs within rtol 1e-5")
+    from speech_recognition_tpu_torch.data.wav import load_wav_batch
+
+    samp8, len8, _ = load_wav_batch(wav_files[:8], 120000)
+    wav_sig = [torch.from_numpy(np.ascontiguousarray(x[:n], np.float32))
+               for x, n in zip(samp8, len8)]
+    ceps_cuda = counted("mfcc", lambda: [mfcc(x.to(dev), len(x), cfg) for x in wav_sig],
+                        (mfcc_fused,), (mfcc39_fused,))
+    for x, (c_k, n_k) in zip(wav_sig, ceps_cuda):
+        c_p, n_p = mfcc(x, len(x), cfg)
+        if int(n_k) != int(n_p) or not torch.allclose(c_k.cpu(), c_p, **K3_TOL):
+            fail("ops.frontend.mfcc on CUDA (K12) differs from the CPU pipeline")
+    phase("main path", f"ops.frontend.mfcc on {len(wav_sig)} CLI wavs on CUDA (K12) == the "
+                       f"CPU pipeline (rtol 2e-3, atol 5e-4)")
 
     # ---- 7. timings ---------------------------------------------------------
     t = {}
@@ -961,9 +1193,58 @@ def main() -> int:
     big_words = [lexp.leaf_word[lr_h[: nw_h[i], i][::-1]].tolist() for i in range(len(nw_h))]
     big_words_ms = (time.perf_counter() - t0) * 1e3
 
+    # K11 at each checked shape (the isolated one without planes, as the
+    # isolated path runs it), the dense backtrace, K12, the isolated pipeline
+    from speech_recognition_tpu_torch.decode.isolated import classify_batch, model_costs
+
+    iso_case = dense_cases["isolated 512x500, 11 models x 5 states"]
+    t["K11"] = (cuda_ms(lambda: viterbi_dense(**iso_case, planes=False)),
+                cuda_ms(lambda: viterbi_dense_ref(**iso_case, planes=False), reps=3))
+    k11_ms = {name: (cuda_ms(lambda kw=kw: viterbi_dense(**kw)),
+                     cuda_ms(lambda kw=kw: viterbi_dense_ref(**kw), reps=1))
+              for name, kw in dense_cases.items()}
+    saus = dense_cases["385-state sausage7 64x500"]
+    fin_s, bp_s, ebp_s = dense_out["385-state sausage7 64x500"]
+    ends7 = on_dev(g7.end_states).long()
+    end_s = ends7[torch.argmin(fin_s[:, ends7] + on_dev(g7.end_bonus), 1)]
+    bt_ms = cuda_ms(lambda: viterbi_backtrace(bp_s, ebp_s, end_s, saus["n_frames"],
+                                              saus["eps_depth"]))
+    t["K12"] = (cuda_ms(lambda: mfcc_fused(sig, lens, cfg)),
+                cuda_ms(lambda: mfcc_fused_ref(sig, lens, cfg)))
+    n2 = 32000  # 2 s at 16 kHz
+    L2 = ((padded_length(cfg, n2) + 159) // 160 + 8) * 160
+    sig2 = torch.from_numpy((np.random.default_rng(15).standard_normal((512, L2)) * 3000)
+                            .astype(np.float32)).to(dev)
+    lens2 = torch.full((512,), n2, dtype=torch.int32, device=dev)
+
+    def iso_pipeline():
+        f, n = mfcc39_auto(sig2, lens2, cfg)
+        return classify_batch(bank, f, n)[0]
+
+    iso_ms = cuda_ms(iso_pipeline)
+    f2, n2_t = mfcc39_auto(sig2, lens2, cfg)
+    mask2 = torch.arange(f2.shape[1], device=dev)[None, :] < n2_t[:, None]
+    nll2 = bank_nll(bank, f2, mask2)
+    iso_stage_ms = {
+        "K3": lambda: mfcc39_auto(sig2, lens2, cfg),
+        "bank_nll": lambda: bank_nll(bank, f2, mask2),
+        "regroup + K11 + argmin": lambda: torch.argmin(
+            model_costs(nll2, bank.trans_cost, n2_t), 1),
+    }
+    iso_stage_ms = {k: cuda_ms(fn) for k, fn in iso_stage_ms.items()}
+
     for k, (ms, plain) in t.items():
         phase("timing", f"{k}: kernel {ms:.3f} ms, plain {plain:.3f} ms "
                         f"(CUDA-event median; {card})")
+    for name, (ms, plain) in k11_ms.items():
+        phase("timing", f"K11 with planes on {name}: kernel {ms:.3f} ms, plain {plain:.3f} "
+                        f"ms (CUDA-event median; {card})")
+    phase("timing", f"dense backtrace (viterbi_backtrace, tensor ops) on the 385-state "
+                    f"sausage at 64x{T}: {bt_ms:.3f} ms (CUDA-event median; {card})")
+    phase("timing", f"isolated pipeline 512 x 2 s wav -> predictions (K3 + bank_nll + "
+                    f"K11 + argmin): {iso_ms:.3f} ms = {512 * 2 / (iso_ms / 1e3):.0f} "
+                    f"audio-s/s (CUDA-event median; {card}); stages alone: " + ", ".join(
+                        f"{k} {ms:.3f} ms" for k, ms in iso_stage_ms.items()))
     phase("timing", f"K8 / K9 on the 3-6-state sausage7 ({bg6.n_states} states) at {B}x{T}: "
                     f"{k8_mixed_ms:.3f} / {k9_mixed_ms:.3f} ms (CUDA-event median; {card})")
     phase("timing", f"word-trace decode {B}x{T} on sausage7 (decode_connected "
@@ -1027,6 +1308,23 @@ def main() -> int:
                 + sum_nf * bg.n_words * (fwd[1].element_size() + 4),
                 sum_nf * (2 * w.numel() + 4 * w_units) + dp_ops(bg, sum_nf, span_pairs(topo))),
     }
+    # K11: the isolated path stops each item at its length and writes no
+    # planes; with planes every frame is computed and both planes written
+    def k11_work(kw, planes=True):
+        x, s_ = kw["nll"], kw["nll"].shape[2]
+        steps = x.shape[0] * x.shape[1] if planes else \
+            int(kw["n_frames"].clamp(max=x.shape[1]).sum())
+        depth = kw["eps_depth"] if kw["eps_trans"] is not None else 0
+        n_b = (steps * s_ * 4 + nbytes(kw["trans"], kw["eps_trans"], kw["init_cost"],
+                                        kw["n_frames"]) + x.shape[0] * s_ * 4
+               + (2 * x.numel() * 4 if planes else 0))
+        return n_b, dense_ops(steps, s_, depth)
+
+    work["K11"] = k11_work(iso_case, planes=False)
+    nf12 = mfcc_fused(sig, lens, cfg)[1]
+    work["K12"] = (nbytes(sig, lens) + lens.numel() * (1 + (L - cfg.frame_len)
+                                                       // cfg.frame_step) * cfg.n_ceps * 4,
+                   ceps_ops(cfg, int(nf12.sum())))
     # the other timed shapes: the dense LM and the dictionary-shaped trie
     sum_nfd = int(nfd.clamp(max=TL).sum())
     ld, kd = gd.n_ends, lm_ldd[3][1].shape[1]
@@ -1044,6 +1342,8 @@ def main() -> int:
                             rescore_ops(TL, 16, ld, kd, dense=False), k7_dict_ms),
         "K8 3-6-state sausage7": (nbytes(nll6, nf8, *want6) + graph_bytes(bg6),
                                   dp_ops(bg6, T * B, span_pairs(topo6)), k8_mixed_ms),
+        **{f"K11 with planes, {name}": (*k11_work(dense_cases[name]), ms)
+           for name, (ms, _) in k11_ms.items()},
     }
     bounds = {k: bound(*v) for k, v in work.items()}
     for k, (n_b, n_o, ms) in [(k, (*v, t[k][0])) for k, v in work.items()] + list(more.items()):
@@ -1078,7 +1378,11 @@ def main() -> int:
                   "speech_recognition_tpu/ops/viterbi_banded_pallas.py:945"),
            "K10": ("viterbi_banded_wordtrace",
                    "speech_recognition_tpu_torch/csrc/viterbi_banded.cu",
-                   "speech_recognition_tpu/ops/viterbi_banded_pallas.py:133")}
+                   "speech_recognition_tpu/ops/viterbi_banded_pallas.py:133"),
+           "K11": ("viterbi_dense", "speech_recognition_tpu_torch/csrc/viterbi_dense.cu",
+                   "speech_recognition_tpu/ops/pallas_kernels.py:59"),
+           "K12": ("mfcc_fused", "speech_recognition_tpu_torch/csrc/mfcc39.cu",
+                   "speech_recognition_tpu/ops/pallas_kernels.py:294")}
     # each kernel's launches over the path runs above (no single PyTorch
     # call computes any of these functions: library_ms is null)
     n_launch = {fn: sum(p[fn] for p in launches.values()) for fn in launches["connected"]}

@@ -4,7 +4,8 @@ The JAX package beside this one is the reference; this package keeps
 its module paths and function names so each counterpart is found at
 once.  The slices ported so far are the connected-digit main path (every
 banded word graph, and the word-trace backend), the large-vocabulary
-lexical-tree decode and the bigram LM over word lattices:
+lexical-tree decode, the bigram LM over word lattices, isolated-word
+recognition, the dense decoder and forced alignment:
 
   ops.frontend.mfcc39_auto        wav -> 39-dim MFCCs   (kernel: csrc/mfcc39.cu)
   decode.connected.decode_connected
@@ -22,6 +23,14 @@ lexical-tree decode and the bigram LM over word lattices:
     -> viterbi_lex                 lexical-tree Viterbi (kernel: csrc/viterbi_lex.cu)
     -> lex_backtrace_val           value backtrace (kernel: csrc/lex_backtrace.cu)
     -> lex_words_from_path_batch   host numpy
+  decode.isolated.classify_batch   one emission GEMM -> dense Viterbi per
+  decode.dtw.dtw_classify_batch      (utterance, model), no planes (K11:
+                                   csrc/viterbi_dense.cu) -> argmin
+  decode_connected(backend="dense") and train.continuous.align_batch
+                                   K11 with eps passes and planes (per
+                                   utterance graphs for alignment) ->
+                                   ops.viterbi.viterbi_backtrace
+  ops.frontend.mfcc                psf cepstra (K12: csrc/mfcc39.cu, cepstra mode)
 
 Every kernel wrapper runs its plain PyTorch version for CPU tensors and
 launches the hand-written CUDA kernel for CUDA tensors (or raises); a

@@ -1,4 +1,5 @@
-"""Command-line interface of the port: the ``connected_test`` action.
+"""Command-line interface of the port: the ``connected_test``,
+``isolated_test`` and ``align`` actions.
 
 Counterpart of ``speech_recognition_tpu/cli.py`` ``connected_test``:
 wavs -> MFCC-39 (kernel K3 on CUDA) -> banded connected decode (kernels
@@ -16,9 +17,22 @@ it onto the trie (``--decoder compose``, flat vocabularies: K4 + K5) or
 rescores the pass-1 word lattice (``--decoder lattice``, and ``auto``
 on multi-unit words: K6 + K7).
 
+``isolated_test`` classifies the single-digit wavs ``<SPEAKER>_<digit>
+[AB].wav`` of a directory (the silence model, if the bank has one, is
+left out): MFCC-39 (K3 on CUDA) -> one emission GEMM -> dense Viterbi per
+(utterance, model) (kernel K11 on CUDA) -> argmin; it prints each wrong
+file and the accuracy.  ``align`` force-aligns every Aurora-named wav to
+its transcript (optional silence between and around the words, when the
+bank has a silence model): padded transcript graphs -> K11 with
+per-utterance matrices -> backtrace, and writes one JSON line per file
+with its word segments, their times and the path cost.
+
 Run:  python -m speech_recognition_tpu_torch.cli connected_test \
           -i bank.npz -d wav_dir [--graph loop|sausage|lextree] \
           [--lm none|bigram] [--decoder auto|compose|lattice] [--device cuda|cpu]
+      python -m speech_recognition_tpu_torch.cli isolated_test -i bank.npz -d wav_dir
+      python -m speech_recognition_tpu_torch.cli align -i bank.npz -d wav_dir \
+          -o alignments.jsonl
 
 The device is explicit (default ``cuda``); asking for CUDA on a host
 without it is an error, never a silent CPU run.  Other actions are not
@@ -30,7 +44,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import glob
+import json
 import os
+import re
 import sys
 
 import numpy as np
@@ -38,7 +54,7 @@ import torch
 
 from speech_recognition_tpu_torch.config import DIGIT_NAMES, DecodeConfig, FrontendConfig
 
-__all__ = ["main", "cmd_connected_test"]
+__all__ = ["main", "cmd_connected_test", "cmd_isolated_test", "cmd_align"]
 
 
 def _device(name: str) -> torch.device:
@@ -211,10 +227,92 @@ def cmd_connected_test(args):
     return hyps, refs
 
 
+def cmd_isolated_test(args):
+    from speech_recognition_tpu_torch.decode.isolated import classify_batch
+    from speech_recognition_tpu_torch.models.hmm import HMMBank
+    from speech_recognition_tpu_torch.utils.checkpoint import load_bank
+
+    dev = _device(args.device)
+    bank, meta = load_bank(args.input)
+    norm, cmvn = _norm_from_meta(meta)
+    sil = meta.get("silence_index")
+    if sil is not None:  # classify over the digits only
+        bank = HMMBank(*[getattr(bank, f)[:sil]
+                         for f in ("means", "log_vars", "log_weights", "trans_cost")])
+    bank = bank.to(dev)
+    files, labels = [], []
+    for d, name in enumerate(DIGIT_NAMES):
+        pattern = re.compile("[A-Z]+_" + name + "[AB].wav")
+        for f in sorted(glob.glob(os.path.join(args.data, "*.wav"))):
+            if pattern.match(os.path.basename(f)):
+                files.append(f)
+                labels.append(d)
+    feats, nf = _featurize_files(files, FrontendConfig(), args.max_samples, dev,
+                                 norm=norm, cmvn=cmvn)
+    pred, _ = classify_batch(bank, feats[:, : int(nf.max())].contiguous(), nf)
+    pred = pred.cpu().numpy()
+    for f, p, l in zip(files, pred, labels):
+        if p != l:
+            print(f"Digit: {DIGIT_NAMES[l]} is wrong ({os.path.basename(f)} -> {DIGIT_NAMES[p]})")
+    acc = float(np.mean(pred == np.asarray(labels)))
+    print(acc)
+
+
+def cmd_align(args):
+    """Forced alignment: per-utterance word segments with times."""
+    from speech_recognition_tpu_torch.data.aurora import (
+        labels_from_transcript,
+        transcript_from_filename,
+    )
+    from speech_recognition_tpu_torch.models.graph import pad_graphs, transcript_graph
+    from speech_recognition_tpu_torch.train.continuous import align_batch
+    from speech_recognition_tpu_torch.utils.checkpoint import load_bank
+
+    dev = _device(args.device)
+    cfg = FrontendConfig()
+    bank, meta = load_bank(args.input)
+    bank = bank.to(dev)
+    norm, cmvn = _norm_from_meta(meta)
+    sil = meta.get("silence_index")
+    files = sorted(glob.glob(os.path.join(args.data, "*.wav")))
+    files = [f for f in files if transcript_from_filename(os.path.basename(f))]
+    labels = [labels_from_transcript(transcript_from_filename(os.path.basename(f)))
+              for f in files]
+    feats, nf = _featurize_files(files, cfg, args.max_samples, dev, norm=norm, cmvn=cmvn)
+    feats = feats[:, : int(nf.max())].contiguous()
+
+    trans_np = [bank.trans_cost[i].cpu().numpy() for i in range(bank.n_models)]
+    gb, eps_depth = pad_graphs([transcript_graph(trans_np, ls, sil=sil) for ls in labels])
+    g = {k: torch.as_tensor(gb[k], device=dev) for k in
+         ("trans", "eps_trans", "init_cost", "end_states", "bank_state")}
+    ids, costs = align_batch(bank, feats, nf, g["trans"], g["eps_trans"], g["init_cost"],
+                             g["end_states"], g["bank_state"], eps_depth=eps_depth)
+    ids, costs, nb = ids.cpu().numpy(), costs.cpu().numpy(), nf.cpu().numpy()
+    step_s, s_per_model = cfg.frame_step_s, bank.n_states
+    with open(args.output, "w") as out:
+        for i, f in enumerate(files):
+            # runs of one model id are word segments; a repeated word
+            # ("44") shows as the state index dropping within the model
+            valid = ids[i, : int(nb[i])]
+            mids, sids = valid // s_per_model, valid % s_per_model
+            segs, start = [], 0
+            for t in range(1, len(mids) + 1):
+                if t == len(mids) or mids[t] != mids[start] or sids[t] < sids[t - 1]:
+                    m = int(mids[start])
+                    segs.append({"word": DIGIT_NAMES[m] if m < len(DIGIT_NAMES) else "sil",
+                                 "start_s": round(start * step_s, 3),
+                                 "end_s": round(t * step_s, 3)})
+                    start = t
+            out.write(json.dumps({"file": os.path.basename(f), "cost": float(costs[i]),
+                                  "segments": segs}) + "\n")
+    print(f"wrote alignments for {len(files)} files to {args.output}")
+
+
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="Connected-digit ASR (PyTorch/CUDA port)")
+    ap = argparse.ArgumentParser(description="Digit ASR (PyTorch/CUDA port)")
     sub = ap.add_subparsers(dest="action", required=True)
     _dc = DecodeConfig()
+    device_help = "torch device to run on (default cuda; never falls back)"
     p = sub.add_parser("connected_test")
     p.add_argument("-i", "--input", required=True, help="bank .npz")
     p.add_argument("-d", "--data", required=True, help="wav dir")
@@ -234,9 +332,23 @@ def main(argv=None):
                         "(flat vocabularies only) or rescore the word lattice "
                         "(the deep-tree path); auto picks lattice for multi-unit words")
     p.add_argument("--max-samples", type=int, default=120000)
-    p.add_argument("--device", default="cuda",
-                   help="torch device to run on (default cuda; never falls back)")
+    p.add_argument("--device", default="cuda", help=device_help)
     p.set_defaults(fn=cmd_connected_test)
+
+    p = sub.add_parser("isolated_test")
+    p.add_argument("-i", "--input", required=True, help="bank .npz")
+    p.add_argument("-d", "--data", required=True, help="wav dir")
+    p.add_argument("--max-samples", type=int, default=64000)
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_isolated_test)
+
+    p = sub.add_parser("align", help="forced alignment -> word segments")
+    p.add_argument("-i", "--input", required=True, help="bank .npz")
+    p.add_argument("-d", "--data", required=True, help="wav dir (Aurora names)")
+    p.add_argument("-o", "--output", default="alignments.jsonl")
+    p.add_argument("--max-samples", type=int, default=120000)
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_align)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -1,9 +1,18 @@
-// K3: fused MFCC-39 frontend, one CTA per utterance.
+// K3: fused MFCC-39 frontend, one CTA per utterance, and K12, its
+// cepstra-only mode.
 //
-// Replaces the TPU kernel speech_recognition_tpu/ops/frontend_pallas.py
+// K3 replaces the TPU kernel speech_recognition_tpu/ops/frontend_pallas.py
 // _mfcc39_kernel (reached through mfcc39_pallas_batch <- mfcc39_auto),
 // with the semantics of the XLA reference ops/frontend.mfcc39 (frame
 // count clamped to F, not to the 8-row padded count).
+//
+// K12 (template mode kCepsOnly) replaces the TPU kernel
+// speech_recognition_tpu/ops/pallas_kernels.py pallas_mfcc (its inner
+// `kernel`: windowed-DFT GEMMs -> power -> mel -> log -> DCT + lifter)
+// and computes ops/frontend.mfcc (psf): the same chain as K3 up to the
+// lifted DCT, whose rows go straight to out [B, F, n_ceps] (rows >= nf
+// exact zeros).  It keeps no [F, n_ceps] block in shared memory, so it
+// has no frame limit.
 //
 // Chain per utterance: pre-emphasis (emph[0] = s[0], samples at/after
 // `length` zeroed) -> framing -> Hamming window -> (frames longer than
@@ -61,6 +70,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <bool kCepsOnly>
 __global__ void __launch_bounds__(kThreads)
 mfcc39_kernel(const float* __restrict__ sig, const int* __restrict__ lengths,
               const int* __restrict__ nframes,
@@ -75,8 +85,10 @@ mfcc39_kernel(const float* __restrict__ sig, const int* __restrict__ lengths,
   float2* tw = z + kPairs * kFFT;                       // [kFFT / 2]
   float* pw = reinterpret_cast<float*>(tw + kFFT / 2);  // [kFrames][kBins]
   float* lm = pw + kFrames * kBins;                     // [kFrames][n_mels]
-  float* ceps = lm + kFrames * n_mels;                  // [F][n_ceps]
-  float* d1 = ceps + F * n_ceps;                        // [F][n_ceps]
+  // K3: [F][n_ceps] cepstra in shared memory; K12: the output rows
+  float* ceps = kCepsOnly ? out + (size_t)blockIdx.x * F * n_ceps
+                          : lm + kFrames * n_mels;
+  float* d1 = lm + kFrames * n_mels + F * n_ceps;       // [F][n_ceps] (K3)
   float* mean = d1 + F * n_ceps;                        // [3 * n_ceps]
   float* scale = mean + 3 * n_ceps;                     // [3 * n_ceps]
 
@@ -160,6 +172,10 @@ mfcc39_kernel(const float* __restrict__ sig, const int* __restrict__ lengths,
     }
     __syncthreads();
   }
+  if (kCepsOnly) {
+    for (int i = nf * n_ceps + tid; i < F * n_ceps; i += kThreads) ceps[i] = 0.f;
+    return;
+  }
 
   for (int i = tid; i < nf * n_ceps; i += kThreads)
     d1[i] = delta_at(ceps, i / n_ceps, i % n_ceps, nf, n_ceps);
@@ -224,9 +240,27 @@ extern "C" int mfcc39_launch(const float* sig, const int* lengths,
                              int standardize, void* stream) {
   if (B <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
   const int smem = mfcc39_smem_bytes(F, n_mels, n_ceps);
-  SRT_SET_SMEM(mfcc39_kernel, smem);
-  mfcc39_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+  SRT_SET_SMEM(mfcc39_kernel<false>, smem);
+  mfcc39_kernel<false><<<B, kThreads, smem, (cudaStream_t)stream>>>(
       sig, lengths, nf, window, mel_w, mel_lo, mel_hi, dct_lift, out, L, F,
       fl, fs, preemph, n_mels, n_ceps, standardize);
+  return (int)cudaGetLastError();
+}
+
+// K12: as mfcc39_launch, cepstra only -> out [B, F, n_ceps]; its shared
+// memory does not grow with F
+extern "C" int mfcc_ceps_launch(const float* sig, const int* lengths,
+                                const int* nf, const float* window,
+                                const float* mel_w, const int* mel_lo,
+                                const int* mel_hi, const float* dct_lift,
+                                float* out, int B, int L, int F, int fl,
+                                int fs, float preemph, int n_mels, int n_ceps,
+                                void* stream) {
+  if (B <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  const int smem = mfcc39_smem_bytes(0, n_mels, n_ceps);
+  SRT_SET_SMEM(mfcc39_kernel<true>, smem);
+  mfcc39_kernel<true><<<B, kThreads, smem, (cudaStream_t)stream>>>(
+      sig, lengths, nf, window, mel_w, mel_lo, mel_hi, dct_lift, out, L, F,
+      fl, fs, preemph, n_mels, n_ceps, 0);
   return (int)cudaGetLastError();
 }

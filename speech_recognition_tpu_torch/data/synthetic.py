@@ -2,7 +2,7 @@
 parameters, in numpy.
 
 Counterpart of ``speech_recognition_tpu/data/synthetic.py`` (the parts
-the connected-digit path needs): the same seed gives the same samples,
+the decode paths need): the same seed gives the same samples,
 file names and parameters.  Each digit is three quasi-phoneme segments
 of digit-specific formant triples plus noise under an amplitude
 envelope; utterances join digits with silences and are named
@@ -86,6 +86,12 @@ class SyntheticDigits:
         sig = sig / (np.max(np.abs(sig)) + 1e-9)
         return Utterance(name=f"{speaker}_{transcript}A.wav", transcript=transcript,
                          samples=np.round(sig * 12000).astype(np.int16), labels=labels)
+
+    def isolated_corpus(self, n_per_digit: int, tag: str = "train") -> List[Utterance]:
+        """``n_per_digit`` single-digit utterances for each of the 11 models,
+        named ``<SPEAKER>_<digit>A.wav``."""
+        return [self.utterance(name, speaker=_speaker(self._rng(tag, name, i)))
+                for name in DIGIT_NAMES for i in range(n_per_digit)]
 
     def continuous_corpus(self, n: int, min_len: int = 2, max_len: int = 7,
                           tag: str = "train", markov: float = 0.0) -> List[Utterance]:

@@ -1,0 +1,19 @@
+"""Decoders of the port: isolated words (GMM-HMM bank and DTW templates),
+connected words over composed graphs, and the lexical tree."""
+
+from speech_recognition_tpu_torch.decode.connected import (
+    connected_graph_arrays,
+    decode_connected,
+)
+from speech_recognition_tpu_torch.decode.dtw import (
+    TemplateBank,
+    dtw_classify_batch,
+    dtw_score_models,
+    stack_templates,
+)
+from speech_recognition_tpu_torch.decode.isolated import classify_batch, score_models
+from speech_recognition_tpu_torch.decode.lextree import decode_lextree
+
+__all__ = ["score_models", "classify_batch", "decode_connected", "connected_graph_arrays",
+           "TemplateBank", "dtw_classify_batch", "dtw_score_models", "stack_templates",
+           "decode_lextree"]

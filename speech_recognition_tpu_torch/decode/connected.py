@@ -10,11 +10,15 @@ graphs, eps depth > 1) runs ``models.hmm.bank_nll_ubt`` (one GEMM), then
 kernel K8 (the forward on bank emissions) and kernel K9 (the general
 backtrace).  Words come out of ``states_to_words_device``.
 ``backend="wordtrace"`` runs kernel K10 (entry-time side planes, no
-backpointer plane) and the chain walk ``wordtrace_words_device``.  CPU
-tensors take every kernel's plain version.
+backpointer plane) and the chain walk ``wordtrace_words_device``.
+``backend="dense"``, and ``auto`` on a graph that is not banded, runs the
+dense decoder: the bank emissions gathered to graph states, kernel K11
+(``ops.viterbi_kernels.viterbi_dense``) with eps passes and planes, the
+end-state select and ``ops.viterbi.viterbi_backtrace``.  CPU tensors
+take every kernel's plain version.
 
-Not ported yet (each raises ``NotImplementedError``): beam pruning
-(ROADMAP queue A item 14) and the dense decoder (queue A item 7).
+Not ported yet: beam pruning (raises ``NotImplementedError``, ROADMAP
+queue A item 14).
 """
 
 from __future__ import annotations
@@ -26,8 +30,9 @@ import numpy as np
 import torch
 
 from speech_recognition_tpu_torch.models.graph import WordGraph, build_word_graph
-from speech_recognition_tpu_torch.models.hmm import HMMBank, bank_nll_ubt
+from speech_recognition_tpu_torch.models.hmm import HMMBank, bank_nll, bank_nll_ubt
 from speech_recognition_tpu_torch.ops.gmm import augment_dtb, gmm_emission_weights
+from speech_recognition_tpu_torch.ops.viterbi import viterbi_backtrace
 from speech_recognition_tpu_torch.ops.viterbi_banded import BandedGraph, banded_arrays
 from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import (
     banded_backtrace_general,
@@ -38,6 +43,7 @@ from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import (
     viterbi_banded_wordtrace,
     wordtrace_words_device,
 )
+from speech_recognition_tpu_torch.ops.viterbi_kernels import viterbi_dense
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
 __all__ = ["connected_graph_arrays", "decode_connected", "states_to_words",
@@ -51,14 +57,32 @@ def connected_graph_arrays(bank: HMMBank, n_slots: int, vocab=None) -> WordGraph
     return build_word_graph(model_trans, [vocab] * n_slots)
 
 
+def _decode_graph_batch(bank: HMMBank, feats, n_frames, trans, eps_trans, init_cost,
+                        end_states, end_bonus, bank_state, eps_depth: int = 1):
+    """Batched dense graph Viterbi: ``feats [B, T, D]``, the graph's
+    arrays as tensors on the device of ``feats`` -> ``(states [B, T]
+    int32, eps_flags [B, T] bool, costs [B])``."""
+    dev = feats.device
+    if bank.means.device != dev:
+        raise ValueError(f"bank is on {bank.means.device}, features on {dev}")
+    t = feats.shape[1]
+    n_frames = n_frames.to(dev)
+    mask = torch.arange(t, device=dev)[None, :] < n_frames[:, None]
+    nll = bank_nll(bank, feats, mask)[:, :, bank_state.to(torch.int64)]  # [B, T, S]
+    final, bp, eps_bp = viterbi_dense(nll.contiguous(), trans, init_cost, n_frames,
+                                      eps_trans=eps_trans, eps_depth=eps_depth)
+    end_costs = final[:, end_states.to(torch.int64)] + end_bonus  # [B, E]
+    best = torch.argmin(end_costs, dim=1)
+    states, eps_flags = viterbi_backtrace(bp, eps_bp, end_states.to(torch.int64)[best],
+                                          n_frames, eps_depth=eps_depth)
+    return states, eps_flags, end_costs.gather(1, best[:, None])[:, 0]
+
+
 def _decode_banded_batch(bank: HMMBank, feats, n_frames, g: BandedGraph,
-                         eps_depth: int = 1, beam_width: int = 0, topo=None):
+                         eps_depth: int = 1, topo=None):
     """Batched banded decode: ``feats [B, T, D]``, ``n_frames [B]`` ->
     ``(states [B, T] int32, eps_flags [B, T] bool, costs [B])``, on the
     device of ``feats``."""
-    if beam_width:
-        raise NotImplementedError("beam pruning is not ported yet "
-                                  "(ROADMAP queue A item 14)")
     dev = feats.device
     if bank.means.device != dev:
         raise ValueError(f"bank is on {bank.means.device}, features on {dev}")
@@ -121,24 +145,34 @@ def decode_connected(bank: HMMBank, graph: WordGraph, feats, n_frames,
     """Decode a batch of utterances to word-id sequences.
 
     ``feats [B, T, D]`` and ``n_frames [B]`` are tensors; the decode runs
-    on their device.  ``backend``: 'auto' / 'banded' (states path), or
-    'wordtrace' (the backtrace-free path; uniform word graphs with eps
-    depth 1, else ``ValueError``).  Returns ``(word_sequences, costs)``;
-    each sequence is the consecutive-deduped slot labels along the best
-    path.
+    on their device.  ``backend``: 'banded' (states path), 'wordtrace'
+    (the backtrace-free path; uniform word graphs with eps depth 1, else
+    ``ValueError``), 'dense' (the dense decoder), or 'auto' (banded when
+    the graph is banded, else dense).  Returns ``(word_sequences,
+    costs)``; each sequence is the consecutive-deduped slot labels along
+    the best path.
     """
-    if backend == "dense":
-        raise NotImplementedError("the dense decoder is not ported yet "
-                                  "(ROADMAP queue A item 7)")
-    if backend not in ("auto", "banded", "wordtrace"):
+    if backend not in ("auto", "banded", "wordtrace", "dense"):
         raise ValueError(f"unknown backend {backend!r}")
-    try:
-        bg = banded_arrays(graph, device=feats.device)
-    except ValueError as e:
-        raise NotImplementedError(f"graph is not banded ({e}); the dense decoder "
-                                  "is not ported yet (ROADMAP queue A item 7)") from e
+    if beam_width:
+        raise NotImplementedError("beam pruning is not ported yet (ROADMAP queue A item 14)")
+    bg = None
+    if backend != "dense":
+        try:
+            bg = banded_arrays(graph, device=feats.device)
+        except ValueError:
+            if backend != "auto":
+                raise
+    if bg is None:
+        dev = feats.device
+        arr = {k: torch.as_tensor(getattr(graph, k), device=dev)
+               for k in ("trans", "eps_trans", "init_cost", "end_states", "end_bonus",
+                         "bank_state")}
+        states, eps_flags, costs = _decode_graph_batch(bank, feats, n_frames,
+                                                       eps_depth=graph.eps_depth, **arr)
+        return _words_out(graph, states, eps_flags, costs, n_frames, 0, drop_labels)
     topo = banded_topology(bg)
-    if backend == "wordtrace" and not beam_width:
+    if backend == "wordtrace":
         if not (topo.fused_ok and graph.eps_depth == 1):
             raise ValueError("wordtrace backend needs a uniform word graph")
         seqs, costs = _decode_banded_words(bank, graph, bg, feats, n_frames, topo)
@@ -148,15 +182,23 @@ def decode_connected(bank: HMMBank, graph: WordGraph, feats, n_frames,
             seqs = [[w for w in s if w not in drop_labels] for s in seqs]
         return seqs, costs
     states, eps_flags, costs = _decode_banded_batch(
-        bank, feats, n_frames, bg, eps_depth=graph.eps_depth,
-        beam_width=beam_width, topo=topo)
+        bank, feats, n_frames, bg, eps_depth=graph.eps_depth, topo=topo)
+    return _words_out(graph, states, eps_flags, costs, n_frames, topo.uniform_w,
+                      drop_labels)
+
+
+def _words_out(graph: WordGraph, states, eps_flags, costs, n_frames, uniform_w: int,
+               drop_labels):
+    """Best paths ``states / eps_flags [B, T]`` -> ``(word_sequences,
+    costs)`` as numpy: ``states_to_words_device`` on the decode's device,
+    or the host ``states_to_words`` when labels are dropped."""
     costs = costs.cpu().numpy()
     _warn_no_path(costs)
     if not drop_labels:
-        uw = topo.uniform_w if np.array_equal(
-            graph.slot, np.arange(graph.n_states) // max(topo.uniform_w, 1)) else 0
+        uw = uniform_w if np.array_equal(
+            graph.slot, np.arange(graph.n_states) // max(uniform_w, 1)) else 0
         label_tbl = graph.slot_label if uw else graph.slot_label[graph.slot]
-        dev = feats.device
+        dev = states.device
         words, n_words = states_to_words_device(
             torch.as_tensor(graph.slot, device=dev),
             torch.as_tensor(label_tbl, device=dev),

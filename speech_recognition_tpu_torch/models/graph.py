@@ -18,9 +18,10 @@ from typing import List, Sequence
 
 import numpy as np
 
-from speech_recognition_tpu_torch.utils.numerics import POS_INF
+from speech_recognition_tpu_torch.utils.numerics import NEG_INF, POS_INF
 
-__all__ = ["WordGraph", "build_word_graph", "build_loop_graph"]
+__all__ = ["WordGraph", "build_word_graph", "build_loop_graph", "transcript_graph",
+           "pad_graphs"]
 
 
 @dataclasses.dataclass
@@ -201,6 +202,37 @@ def build_word_graph(
     )
 
 
+def transcript_graph(
+    model_trans: Sequence[np.ndarray],
+    labels: List[int],
+    sil: int = None,
+    edge_sil: bool = True,
+) -> WordGraph:
+    """Forced-alignment graph for one transcript, optionally with
+    skippable silence between (and, with ``edge_sil``, around) the words.
+    With ``sil=None`` it is the reference's linear graph."""
+    if sil is None:
+        return build_word_graph(model_trans, [[l] for l in labels])
+    layers: List[List[int]] = []
+    optional = set()
+    if edge_sil:
+        optional.add(len(layers))
+        layers.append([sil])
+    for i, l in enumerate(labels):
+        layers.append([l])
+        if i + 1 < len(labels):
+            optional.add(len(layers))
+            layers.append([sil])
+    end_layers = {len(layers) - 1}
+    if edge_sil:
+        optional.add(len(layers))
+        layers.append([sil])
+        end_layers.add(len(layers) - 1)
+    return build_word_graph(
+        model_trans, layers, optional_layers=optional, end_layers=end_layers
+    )
+
+
 def build_loop_graph(
     model_trans: Sequence[np.ndarray],
     vocab: Sequence[int] = None,
@@ -298,3 +330,53 @@ def _eps_depth(eps_trans: np.ndarray) -> int:
             return max(1, int(depth.max()))
         depth = new
     raise ValueError("epsilon cycle in word graph")
+
+
+def _end_scores(g: WordGraph, smax: int) -> np.ndarray:
+    """``[smax]`` terminal log-probabilities: ``-end_bonus`` at the end
+    states, ``NEG_INF`` elsewhere."""
+    out = np.full((smax,), NEG_INF, dtype=np.float32)
+    out[g.end_states] = -g.end_bonus
+    return out
+
+
+def pad_graphs(graphs: List[WordGraph]):
+    """Pad a batch of graphs to a common state count for one batched
+    decode (forced alignment: one graph per utterance).
+
+    Padding states are unreachable (POS_INF in and out, POS_INF init) and
+    read bank row 0; end-state lists are padded by repeating the first.
+    Returns ``(dict of stacked numpy arrays, the largest eps_depth)``."""
+    smax = max(g.n_states for g in graphs)
+    emax = max(len(g.end_states) for g in graphs)
+    depth = max(g.eps_depth for g in graphs)
+
+    def pad_mat(m, fill):
+        out = np.full((smax, smax), fill, dtype=np.float32)
+        s = m.shape[0]
+        out[:s, :s] = m
+        return out
+
+    def pad_vec(v, fill, n, dtype=np.float32):
+        out = np.full((n,), fill, dtype=dtype)
+        out[: len(v)] = v
+        return out
+
+    batch = {
+        "trans": np.stack([pad_mat(g.trans, POS_INF) for g in graphs]),
+        "eps_trans": np.stack([pad_mat(g.eps_trans, POS_INF) for g in graphs]),
+        "init_cost": np.stack([pad_vec(g.init_cost, POS_INF, smax) for g in graphs]),
+        "end_states": np.stack(
+            [pad_vec(g.end_states, g.end_states[0], emax, np.int32) for g in graphs]
+        ),
+        "end_bonus": np.stack(
+            [pad_vec(g.end_bonus, g.end_bonus[0], emax) for g in graphs]
+        ),
+        "end_scores": np.stack([_end_scores(g, smax) for g in graphs]),
+        "bank_state": np.stack(
+            [pad_vec(g.bank_state, 0, smax, np.int32) for g in graphs]
+        ),
+        "slot": np.stack([pad_vec(g.slot, -1, smax, np.int32) for g in graphs]),
+        "n_states": np.array([g.n_states for g in graphs], dtype=np.int32),
+    }
+    return batch, depth

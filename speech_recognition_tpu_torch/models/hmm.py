@@ -23,8 +23,10 @@ from speech_recognition_tpu_torch.ops.gmm import (
     gmm_neg_log_lik,
     gmm_neg_log_lik_ubt,
 )
+from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
-__all__ = ["GMMHMM", "HMMBank", "bank_nll", "bank_nll_ubt"]
+__all__ = ["GMMHMM", "HMMBank", "bank_nll", "bank_nll_ubt", "linear_init_cost",
+           "uniform_left_to_right_trans"]
 
 _FIELDS = ("means", "log_vars", "log_weights", "trans_cost")
 
@@ -83,8 +85,8 @@ class HMMBank(_Params):
 
 
 def bank_nll(bank: HMMBank, x, frame_mask=None):
-    """Emission costs of every frame against every bank state:
-    ``[T, D] -> [T, N*S]``."""
+    """Emission costs of every frame against every bank state, one GEMM:
+    ``[..., T, D] -> [..., T, N*S]``."""
     w, lw = gmm_emission_weights(*bank.flat_states())
     return gmm_neg_log_lik(x, w, lw, frame_mask)
 
@@ -93,3 +95,23 @@ def bank_nll_ubt(bank: HMMBank, feats, n_frames):
     """Batched emission costs in the state-major ``[N*S, T, B]`` layout."""
     w, lw = gmm_emission_weights(*bank.flat_states())
     return gmm_neg_log_lik_ubt(feats, w, lw, n_frames)
+
+
+def uniform_left_to_right_trans(n_states: int, self_loop_cost: float = 0.6931472,
+                                step_cost: float = 0.6931472) -> np.ndarray:
+    """A generic initial left-to-right transition matrix (-log 0.5 each;
+    the final state absorbs at cost 0), before segmental K-means."""
+    t = np.full((n_states, n_states), POS_INF, dtype=np.float32)
+    for i in range(n_states):
+        t[i, i] = self_loop_cost
+        if i + 1 < n_states:
+            t[i + 1, i] = step_cost
+    t[n_states - 1, n_states - 1] = 0.0
+    return t
+
+
+def linear_init_cost(n_states: int) -> np.ndarray:
+    """Entry in state 0 only (the isolated decode's initialization)."""
+    init = np.full((n_states,), POS_INF, dtype=np.float32)
+    init[0] = 0.0
+    return init

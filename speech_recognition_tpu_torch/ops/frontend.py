@@ -19,7 +19,8 @@ TPU pass-count dials and are not read here.
 ``mfcc39_auto`` is the production entry: a CUDA tensor runs kernel K3
 (``ops.frontend_kernel``, ``csrc/mfcc39.cu``), which raises for a config
 it does not implement (``fused_supported``); a CPU tensor runs the plain
-pipeline below, which is also K3's plain version.
+pipeline below, which is also K3's plain version.  ``mfcc`` routes the
+same way to kernel K12 (the cepstra-only mode of K3).
 """
 
 from __future__ import annotations
@@ -213,9 +214,17 @@ def _mfcc_batch(signals, lengths, cfg: FrontendConfig, n_frames_cap=None):
 
 def mfcc(signal, length, cfg: FrontendConfig = FrontendConfig(),
          n_frames_cap: int = None):
-    """MFCC for one utterance: ``[L]`` -> ``(ceps [F, n_ceps], nf)``."""
+    """MFCC for one utterance: ``[L]`` -> ``(ceps [F, n_ceps], nf)``.  A
+    CUDA tensor runs kernel K12 (``ops.frontend_kernel.mfcc_fused``), which
+    raises for a config it does not implement; a CPU tensor the plain
+    pipeline."""
     length = torch.as_tensor(length, device=signal.device).reshape(1)
-    ceps, nf = _mfcc_batch(signal[None], length, cfg, n_frames_cap)
+    if signal.is_cuda:
+        from speech_recognition_tpu_torch.ops.frontend_kernel import mfcc_fused
+
+        ceps, nf = mfcc_fused(signal[None].contiguous(), length, cfg, n_frames_cap)
+    else:
+        ceps, nf = _mfcc_batch(signal[None], length, cfg, n_frames_cap)
     return ceps[0], nf[0]
 
 

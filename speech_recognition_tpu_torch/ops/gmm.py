@@ -19,7 +19,8 @@ import math
 import torch
 
 __all__ = ["gmm_emission_weights", "augment_features", "augment_dtb",
-           "gmm_neg_log_lik", "gmm_neg_log_lik_ubt"]
+           "gmm_neg_log_lik", "gmm_neg_log_lik_ubt", "mahalanobis",
+           "pairwise_gaussian_nll", "pairwise_sq_euclidean"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -60,13 +61,14 @@ def _mix_lse(per_mix, log_weights, dim):
 
 
 def gmm_neg_log_lik(x, w, log_weights, frame_mask=None):
-    """``x [T, D]``, ``w [S, M, 2D+1]``, ``log_weights [S, M]`` ->
-    ``[T, S]`` NLLs; masked frames get 0."""
+    """``x [..., T, D]``, ``w [S, M, 2D+1]``, ``log_weights [S, M]`` ->
+    ``[..., T, S]`` NLLs (one GEMM over every frame); frames where
+    ``frame_mask [..., T]`` is False get 0."""
     s, m, a = w.shape
     per_mix = torch.matmul(augment_features(x), w.reshape(s * m, a).T)
-    nll = _mix_lse(per_mix.reshape(x.shape[0], s, m), log_weights[None], -1)
+    nll = _mix_lse(per_mix.reshape(*x.shape[:-1], s, m), log_weights, -1)
     if frame_mask is not None:
-        nll = torch.where(frame_mask[:, None], nll, torch.zeros_like(nll))
+        nll = torch.where(frame_mask[..., None], nll, torch.zeros_like(nll))
     return nll
 
 
@@ -81,3 +83,26 @@ def gmm_neg_log_lik_ubt(feats, w, log_weights, n_frames):
     mask = (torch.arange(t, device=feats.device)[:, None]
             < n_frames.to(feats.device)[None, :])
     return torch.where(mask[None], nll, torch.zeros_like(nll))
+
+
+def mahalanobis(x, mu, var):
+    """Diagonal-Gaussian NLL of ``x`` under ``(mu, var)``, broadcasting."""
+    d = x.shape[-1]
+    m = x - mu
+    return 0.5 * (d * _LOG_2PI + torch.log(var).sum(-1)) + 0.5 * (m * m / var).sum(-1)
+
+
+def pairwise_gaussian_nll(x, means, variances):
+    """``x [..., T, D]``, ``means [K, D]``, ``variances [K, D]`` or ``[D]``
+    -> ``[..., T, K]`` single-Gaussian NLLs through the emission GEMM."""
+    variances = torch.broadcast_to(variances, means.shape)
+    w, _ = gmm_emission_weights(means, torch.log(variances), means.new_zeros(means.shape[:-1]))
+    return torch.matmul(augment_features(x), w.reshape(means.shape[0], -1).T)
+
+
+def pairwise_sq_euclidean(x, y):
+    """``x [T, D]``, ``y [K, D]`` -> ``[T, K]`` squared L2 (one GEMM plus
+    norms, clamped at 0)."""
+    xn = (x * x).sum(-1, keepdim=True)
+    yn = (y * y).sum(-1)
+    return torch.clamp(xn + yn[None, :] - 2.0 * torch.matmul(x, y.T), min=0.0)

@@ -106,6 +106,10 @@ def load_library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mfcc39_launch.argtypes = [p, p, p, p, p, p, p, p, p,
                                   i, i, i, i, i, f, i, i, i, p]
+    lib.mfcc_ceps_launch.argtypes = [p, p, p, p, p, p, p, p, p,
+                                     i, i, i, i, i, f, i, i, p]
+    lib.viterbi_dense_launch.argtypes = [p, p, p, p, p, p, p, p,
+                                         i, i, i, i, i, i, i, p]
     lib.viterbi_banded_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
                                           p, p, i, p,
                                           i, i, i, i, i, i, i, i, i, i, i, p]
@@ -131,7 +135,8 @@ def load_library() -> ctypes.CDLL:
                lib.banded_backtrace_general_launch, lib.viterbi_wordtrace_launch,
                lib.viterbi_lex_launch,
                lib.lex_backtrace_launch, lib.viterbi_lattice_launch,
-               lib.lattice_rescore_launch):
+               lib.lattice_rescore_launch, lib.mfcc_ceps_launch,
+               lib.viterbi_dense_launch):
         fn.restype = ctypes.c_int
     lib.mfcc39_smem_bytes.argtypes = [i, i, i]
     lib.viterbi_banded_smem_bytes.argtypes = [i, i, i, i, i, i]
@@ -139,11 +144,12 @@ def load_library() -> ctypes.CDLL:
     lib.viterbi_banded_general_smem_bytes.argtypes = [i, i, i, i]
     lib.viterbi_lex_smem_bytes.argtypes = [i, i]
     lib.lattice_rescore_smem_bytes.argtypes = [i]
+    lib.viterbi_dense_smem_bytes.argtypes = [i, i, i]
     lib.srt_smem_limit.argtypes = []
     for fn in (lib.mfcc39_smem_bytes, lib.viterbi_banded_smem_bytes,
                lib.viterbi_wordtrace_smem_bytes, lib.viterbi_banded_general_smem_bytes,
                lib.viterbi_lex_smem_bytes, lib.lattice_rescore_smem_bytes,
-               lib.srt_smem_limit):
+               lib.viterbi_dense_smem_bytes, lib.srt_smem_limit):
         fn.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p

@@ -14,7 +14,10 @@ lexical-tree forward), K5 (its backtrace), K6 (the lattice pass), K7
 (the general backtrace) are fed the plain version's own inputs, so every
 output is compared exactly; K10 (the word-trace forward) computes its
 emission in its plain version's order, one rounded operation at a time,
-so it too is compared exactly.  Decodes on the card against the CPU
+so it too is compared exactly.  K11 (the dense Viterbi) is fed its
+plain version's own inputs and compared exactly, both planes over every
+frame; K12 (the MFCC cepstra) at K3's rtol 2e-3 / atol 5e-4.  Decodes
+on the card against the CPU
 (emission GEMMs on two devices) compare words exactly and costs at rtol
 1e-5.
 """
@@ -607,3 +610,195 @@ def test_general_and_wordtrace_wrappers_raise_instead_of_falling_back(dev):
         vk.viterbi_banded_wordtrace(xa, w, lw, g, topo, nf)
     assert (vk.viterbi_banded_general.launches, vk.banded_backtrace_general.launches,
             vk.viterbi_banded_wordtrace.launches) == counts
+
+
+# ---------------------------------------------------------------------------
+# K11 (dense Viterbi) and K12 (MFCC cepstra)
+# ---------------------------------------------------------------------------
+
+
+def _dense_problem(seed, b, t, s, per_item=False, eps=False, ties=False, nf=None):
+    """Random dense graphs: emissions (uniform, or integers 0..2 that force
+    ties), transition / eps matrices with POS_INF holes (integers too with
+    ``ties``), init costs finite on the first few states."""
+    from speech_recognition_tpu_torch.utils.numerics import POS_INF
+
+    rng = np.random.default_rng(seed)
+    lead = (b,) if per_item else ()
+
+    def mat(p_hole):
+        m = (rng.integers(0, 3, lead + (s, s)) if ties
+             else rng.uniform(0, 3, lead + (s, s))).astype(np.float32)
+        m[rng.uniform(size=m.shape) < p_hole] = POS_INF
+        return torch.from_numpy(m)
+
+    e = rng.integers(0, 3, (b, t, s)) if ties else rng.uniform(0, 5, (b, t, s))
+    init = rng.uniform(0, 2, s).astype(np.float32)
+    init[max(1, s // 4):] = POS_INF
+    if nf is None:
+        nf = np.r_[t, 0, 1, rng.integers(2, t + 1, max(b - 3, 0))][:b]
+    return (torch.from_numpy(e.astype(np.float32)), mat(0.5), torch.from_numpy(init),
+            torch.from_numpy(np.asarray(nf, np.int32)), mat(0.8) if eps else None)
+
+
+@pytest.mark.parametrize("b,t,s,per_item,eps,depth,ties", [
+    (37, 40, 5, True, False, 1, False),     # isolated shape: 8 items per CTA, 5 CTAs
+    (37, 40, 5, True, False, 1, True),
+    (11, 30, 32, False, True, 2, True),     # the largest warp-per-item graph
+    (9, 50, 75, True, True, 2, False),      # transcript-graph size, matrices staged
+    (9, 50, 75, True, True, 1, True),
+    (6, 40, 385, False, True, 1, False),    # the sausage size, matrices in L2
+    (5, 24, 200, False, True, 2, True),     # above the staging size
+])
+@pytest.mark.parametrize("planes", [True, False])
+def test_k11_matches_plain(dev, b, t, s, per_item, eps, depth, ties, planes):
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import (
+        viterbi_dense,
+        viterbi_dense_ref,
+    )
+
+    nll, trans, init, nf, eps_m = _dense_problem(b * s + t, b, t, s, per_item, eps, ties)
+    want = viterbi_dense_ref(nll, trans, init, nf, eps_m, depth, planes=planes)
+    before = viterbi_dense.launches
+    got = viterbi_dense(nll.to(dev), trans.to(dev), init.to(dev), nf.to(dev),
+                        eps_m.to(dev) if eps_m is not None else None, depth, planes=planes)
+    torch.cuda.synchronize()
+    assert viterbi_dense.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    if planes:  # every frame of both planes, frozen ones included
+        assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[2].cpu(), want[2])
+    else:
+        assert got[1] is None and got[2] is None
+    assert bool((want[0][1] == 1e30).all())  # nf = 0: POS_INF
+
+
+def test_k11_edge_lengths_and_per_item_init(dev):
+    """nf past T (final stays POS_INF, as the scan never reaches nf - 1),
+    T = 1, and a per-item init row."""
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import (
+        viterbi_dense,
+        viterbi_dense_ref,
+    )
+
+    for t, s, nf in ((12, 40, [12, 15, 0, 1, 7]), (1, 6, [1, 0, 3, 1, 1])):
+        nll, trans, _, nf_t, eps_m = _dense_problem(3, 5, t, s, eps=True, nf=nf)
+        init = torch.from_numpy(np.random.default_rng(4).uniform(0, 2, (5, s))
+                                .astype(np.float32))
+        want = viterbi_dense_ref(nll, trans, init, nf_t, eps_m, 1)
+        got = viterbi_dense(*(x.to(dev) for x in (nll, trans, init, nf_t, eps_m)), 1)
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_.cpu(), w_)
+
+
+def test_k11_through_the_slice(dev):
+    """classify_batch, dtw_classify_batch, the dense connected decode and
+    align_batch on the card against the CPU: predictions, words and ids
+    equal, costs at rtol 1e-5 (emission GEMMs on two devices)."""
+    from speech_recognition_tpu_torch.decode.connected import decode_connected
+    from speech_recognition_tpu_torch.decode.dtw import TemplateBank, dtw_classify_batch
+    from speech_recognition_tpu_torch.decode.isolated import classify_batch
+    from speech_recognition_tpu_torch.models.graph import (
+        build_word_graph,
+        pad_graphs,
+        transcript_graph,
+    )
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import viterbi_dense
+    from speech_recognition_tpu_torch.train.continuous import align_batch
+
+    bank, bank_g = _bank(5, 4, 2, 6), _bank(5, 4, 2, 6).to(dev)
+    feats = torch.from_numpy(np.random.default_rng(5).standard_normal((7, 30, 6))
+                             .astype(np.float32))
+    nf = torch.tensor([30, 1, 0, 12, 29, 5, 17], dtype=torch.int32)
+    before = viterbi_dense.launches
+    p_g, c_g = classify_batch(bank_g, feats.to(dev), nf.to(dev))
+    p_c, c_c = classify_batch(bank, feats, nf)
+    assert torch.equal(p_g.cpu(), p_c)
+    np.testing.assert_allclose(c_g.cpu().numpy(), c_c.numpy(), rtol=1e-5)
+    tb = TemplateBank(bank.means[:, :, 0], torch.exp(bank.log_vars[:, :, 0]), bank.trans_cost)
+    p_g, c_g = dtw_classify_batch(tb.to(dev), feats.to(dev), nf.to(dev))
+    p_c, c_c = dtw_classify_batch(tb, feats, nf)
+    assert torch.equal(p_g.cpu(), p_c)
+    np.testing.assert_allclose(c_g.cpu().numpy(), c_c.numpy(), rtol=1e-5)
+    trans = [bank.trans_cost[i].numpy() for i in range(5)]
+    graph = build_word_graph(trans, [[0, 1, 2, 3, 4]] * 3)
+    nf3 = torch.clamp(nf, min=12)
+    w_g, k_g = decode_connected(bank_g, graph, feats.to(dev), nf3.to(dev),
+                                backend="dense")
+    w_c, k_c = decode_connected(bank, graph, feats, nf3, backend="dense")
+    assert w_g == w_c
+    np.testing.assert_allclose(k_g, k_c, rtol=1e-5)
+    gb, depth = pad_graphs([transcript_graph(trans, [i % 4, (i + 1) % 4], sil=4)
+                            for i in range(7)])
+    arrs = [torch.as_tensor(gb[k]) for k in ("trans", "eps_trans", "init_cost",
+                                             "end_states", "bank_state")]
+    i_g, a_g = align_batch(bank_g, feats.to(dev), nf3.to(dev),
+                           *(x.to(dev) for x in arrs), eps_depth=depth)
+    i_c, a_c = align_batch(bank, feats, nf3, *arrs, eps_depth=depth)
+    assert torch.equal(i_g.cpu(), i_c)
+    np.testing.assert_allclose(a_g.cpu().numpy(), a_c.numpy(), rtol=1e-5)
+    assert viterbi_dense.launches == before + 4
+
+
+def test_k11_raises_instead_of_falling_back(dev):
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import (
+        max_dense_states,
+        viterbi_dense,
+    )
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    nll, trans, init, nf, eps_m = _dense_problem(6, 3, 8, 40, eps=True)
+    nll, trans, init, nf, eps_m = (x.to(dev) for x in (nll, trans, init, nf, eps_m))
+    before = viterbi_dense.launches
+    with pytest.raises(ValueError, match="n_frames is on cpu"):
+        viterbi_dense(nll, trans, init, nf.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        viterbi_dense(nll.double(), trans, init, nf)
+    with pytest.raises(ValueError, match="both be shared or both per item"):
+        viterbi_dense(nll, trans, init, nf, eps_m[None].expand(3, 40, 40))
+    s_max = max_dense_states(load_library())
+    s = s_max + 1
+    with pytest.raises(ValueError, match=f"at most {s_max} states"):
+        viterbi_dense(torch.zeros((1, 2, s), device=dev), torch.zeros((s, s), device=dev),
+                      torch.zeros(s, device=dev), nf[:1])
+    assert viterbi_dense.launches == before
+
+
+@pytest.mark.parametrize("rate,lens", [
+    (16000, [16000, 7321, 400, 123, 16000, 561]),
+    (8000, [8000, 3000, 5555, 200]),
+    (16000, [400000, 31000]),   # 2,499 frames: past K3's 1,967-frame limit
+    (8000, [200000, 8000]),
+])
+def test_k12_matches_plain(dev, rate, lens):
+    from speech_recognition_tpu_torch.ops.frontend import mfcc, padded_length
+    from speech_recognition_tpu_torch.ops.frontend_kernel import mfcc_fused, mfcc_fused_ref
+
+    cfg = FrontendConfig(sample_rate=rate)
+    rng = np.random.default_rng(2)
+    sig = (rng.standard_normal((len(lens), padded_length(cfg, max(lens)))) * 3000)
+    sig = torch.from_numpy(sig.astype(np.float32))
+    ln = torch.tensor(lens, dtype=torch.int32)
+    before = mfcc_fused.launches
+    got, nf_k = mfcc_fused(sig.to(dev), ln.to(dev), cfg)
+    want, nf_p = mfcc_fused_ref(sig.to(dev), ln.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert mfcc_fused.launches == before + 1
+    assert torch.equal(nf_k, nf_p)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=5e-4)
+    one, n1 = mfcc(sig[1].to(dev), lens[1], cfg)  # ops.frontend.mfcc on CUDA runs K12
+    assert mfcc_fused.launches == before + 2 and int(n1) == int(nf_p[1])
+    torch.testing.assert_close(one, want[1], rtol=2e-3, atol=5e-4)
+
+
+def test_k12_raises_for_configs_it_does_not_implement(dev):
+    from speech_recognition_tpu_torch.ops.frontend_kernel import mfcc_fused
+
+    sig = torch.zeros((2, 4000), device=dev)
+    ln = torch.full((2,), 4000, dtype=torch.int32, device=dev)
+    before = mfcc_fused.launches
+    with pytest.raises(ValueError, match="does not implement"):
+        mfcc_fused(sig, ln, FrontendConfig(variant="scratch"))
+    with pytest.raises(ValueError, match="float32"):
+        mfcc_fused(sig.double(), ln)
+    assert mfcc_fused.launches == before

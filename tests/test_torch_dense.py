@@ -1,0 +1,174 @@
+"""Port vs reference: the dense Viterbi (K11's plain version) and the
+dense connected decoder.
+
+* ``viterbi_batch`` / ``viterbi`` / ``viterbi_backtrace`` against the
+  reference's XLA scan ``ops/viterbi``, bit for bit (final costs and
+  both planes over every frame), at eps depth 1 and 2, with ties forced
+  by integer emissions and costs, and n_frames 0, 1, mid and T;
+* ``viterbi_batch`` against the reference's Pallas kernel
+  ``pallas_viterbi`` in interpret mode, shared and per-utterance graphs,
+  at n_frames >= 1 (where the kernel writes ``final``);
+* ``decode_connected(backend="dense")`` against the reference's dense
+  decoder and the port's banded path, and a graph that is not banded
+  under ``auto``: words identical, costs at rtol 1e-5 (emission GEMMs
+  sum in different orders).
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from speech_recognition_tpu.decode import connected as jconn
+from speech_recognition_tpu.ops.pallas_kernels import pallas_viterbi
+from speech_recognition_tpu_torch.decode import connected as tconn
+from speech_recognition_tpu_torch.ops import viterbi_kernels as tvk
+from tests.test_torch_banded import build_graphs
+from tests.test_torch_gmm_hmm import both_banks
+
+jv = importlib.import_module("speech_recognition_tpu.ops.viterbi")
+tv = importlib.import_module("speech_recognition_tpu_torch.ops.viterbi")
+
+POS_INF = 1e30
+
+
+def dense_problem(seed, b, t, s, per_item=False, eps=True, ties=False):
+    """Numpy float32 inputs: emissions (uniform, or integers 0..2 forcing
+    ties), transition and eps matrices with POS_INF holes, init costs
+    finite on the first quarter of the states, and n_frames T, 0, 1 and
+    random."""
+    rng = np.random.default_rng(seed)
+    lead = (b,) if per_item else ()
+
+    def mat(p_hole):
+        m = (rng.integers(0, 3, lead + (s, s)) if ties
+             else rng.uniform(0, 3, lead + (s, s))).astype(np.float32)
+        m[rng.uniform(size=m.shape) < p_hole] = POS_INF
+        return m
+
+    nll = (rng.integers(0, 3, (b, t, s)) if ties
+           else rng.uniform(0, 5, (b, t, s))).astype(np.float32)
+    init = rng.uniform(0, 2, lead + (s,)).astype(np.float32)
+    init[..., max(1, s // 4):] = POS_INF
+    nf = np.r_[t, 0, 1, rng.integers(2, t, max(b - 3, 0))][:b].astype(np.int32)
+    return nll, mat(0.5), init, nf, (mat(0.8) if eps else None)
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("per_item", [False, True])
+def test_viterbi_batch_matches_reference_scan(depth, ties, per_item):
+    nll, trans, init, nf, eps = dense_problem(depth + 2 * ties + 4 * per_item, 5, 24, 12,
+                                              per_item=per_item, ties=ties)
+    final, bp, eps_bp = tv.viterbi_batch(_t(nll), _t(trans), _t(init), _t(nf), _t(eps),
+                                         depth)
+    for b in range(len(nf)):
+        pick = (lambda x: x[b]) if per_item else (lambda x: x)
+        ref = jv.viterbi(jnp.asarray(nll[b]), jnp.asarray(pick(trans)),
+                         jnp.asarray(pick(init)), jnp.int32(nf[b]),
+                         eps_trans=jnp.asarray(pick(eps)), eps_depth=depth)
+        np.testing.assert_array_equal(final[b].numpy(), np.asarray(ref.final_cost))
+        np.testing.assert_array_equal(bp[b].numpy(), np.asarray(ref.bp))
+        np.testing.assert_array_equal(eps_bp[b].numpy(), np.asarray(ref.eps_bp))
+        end = int(np.argmin(np.asarray(ref.final_cost)))
+        s_j, e_j = jv.viterbi_backtrace(ref.bp, ref.eps_bp, jnp.int32(end), jnp.int32(nf[b]),
+                                        eps_depth=depth)
+        s_t, e_t = tv.viterbi_backtrace(bp[b], eps_bp[b], end, int(nf[b]), eps_depth=depth)
+        np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+        np.testing.assert_array_equal(e_t.numpy(), np.asarray(e_j))
+    assert (final[1] == POS_INF).all()  # n_frames 0
+
+
+def test_single_utterance_forms_and_batched_backtrace():
+    nll, trans, init, nf, eps = dense_problem(9, 4, 20, 10, eps=False)
+    for b in range(4):
+        ref = jv.viterbi(jnp.asarray(nll[b]), jnp.asarray(trans), jnp.asarray(init),
+                         jnp.int32(nf[b]))
+        got = tv.viterbi(_t(nll[b]), _t(trans), _t(init), int(nf[b]))
+        for g_, r_ in zip(got, ref[:3]):
+            np.testing.assert_array_equal(g_.numpy(), np.asarray(r_))
+        np.testing.assert_array_equal(
+            tv.viterbi_path_cost(_t(nll[b]), _t(trans), _t(init), int(nf[b])).numpy(),
+            np.asarray(jv.viterbi_path_cost(jnp.asarray(nll[b]), jnp.asarray(trans),
+                                            jnp.asarray(init), jnp.int32(nf[b]))))
+    # the batched backtrace equals the per-utterance one
+    final, bp, eps_bp = tv.viterbi_batch(_t(nll), _t(trans), _t(init), _t(nf))
+    ends = torch.argmin(final, 1)
+    states, flags = tv.viterbi_backtrace(bp, eps_bp, ends, _t(nf))
+    for b in range(4):
+        s1, f1 = tv.viterbi_backtrace(bp[b], eps_bp[b], int(ends[b]), int(nf[b]))
+        assert torch.equal(states[b], s1) and torch.equal(flags[b], f1)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tv.viterbi(_t(nll[0]), _t(trans), _t(init), 20, beam_width=3)
+
+
+def test_planes_off_gives_the_same_final():
+    nll, trans, init, nf, eps = dense_problem(10, 6, 30, 5, per_item=True, eps=False)
+    full = tv.viterbi_batch(_t(nll), _t(trans), _t(init), _t(nf))
+    final, bp, eps_bp = tvk.viterbi_dense(_t(nll), _t(trans), _t(init), _t(nf), planes=False)
+    assert bp is None and eps_bp is None
+    assert torch.equal(final, full[0])
+
+
+@pytest.mark.parametrize("per_item", [False, True])
+def test_viterbi_batch_matches_pallas_viterbi(per_item):
+    """The reference's Pallas kernel in interpret mode (S = one lane tile),
+    as its own test runs it; n_frames >= 1."""
+    nll, trans, init, _, eps = dense_problem(11 + per_item, 2, 16, 128, per_item=per_item)
+    nf = np.asarray([16, 9], np.int32)
+    fin, bp, eps_bp = pallas_viterbi(
+        jnp.asarray(nll), jnp.asarray(trans), jnp.asarray(init), jnp.asarray(nf),
+        eps_trans=jnp.asarray(eps), per_utterance_graph=per_item, interpret=True)
+    final, bp_t, eps_bp_t = tv.viterbi_batch(_t(nll), _t(trans), _t(init), _t(nf), _t(eps))
+    np.testing.assert_array_equal(final.numpy(), np.asarray(fin))
+    np.testing.assert_array_equal(bp_t.numpy(), np.asarray(bp))
+    np.testing.assert_array_equal(eps_bp_t.numpy(), np.asarray(eps_bp))
+
+
+def _feats(seed, b, t, nf):
+    f = np.random.default_rng(seed).standard_normal((b, t, 6)).astype(np.float32)
+    return f, np.asarray(nf, np.int32)
+
+
+@pytest.mark.parametrize("kind", ["loop", "sausage", "loop_lm"])
+def test_decode_connected_dense_matches_reference_and_banded(kind):
+    jb, tb = both_banks(21, n_models=4, n_states=3, n_mix=2, dim=6)
+    trans = [np.asarray(jb.trans_cost[i]) for i in range(4)]
+    gj, gt = build_graphs(kind, trans)
+    feats, nf = _feats(22, 5, 18, [18, 1, 9, 17, 12])
+    for drop in (None, {1}):
+        w_j, c_j = jconn.decode_connected(jb, gj, feats, nf, backend="dense",
+                                          drop_labels=drop)
+        ft, nt = torch.from_numpy(feats), torch.from_numpy(nf)
+        w_d, c_d = tconn.decode_connected(tb, gt, ft, nt, backend="dense", drop_labels=drop)
+        w_b, c_b = tconn.decode_connected(tb, gt, ft, nt, backend="banded", drop_labels=drop)
+        assert w_d == w_j == w_b
+        np.testing.assert_allclose(c_d, np.asarray(c_j), rtol=1e-5)
+        np.testing.assert_allclose(c_d, c_b, rtol=1e-5)
+
+
+def test_graph_that_is_not_banded_decodes_dense_under_auto():
+    """A model with a backward arc (state 1 -> 0) has no banded form:
+    ``auto`` takes the dense decoder as the reference does, ``banded``
+    raises."""
+    jb, tb = both_banks(23, n_models=3, n_states=3, n_mix=2, dim=6)
+    trans = [np.asarray(jb.trans_cost[i]).copy() for i in range(3)]
+    trans[1][0, 1] = 1.5
+    gj, gt = build_graphs("loop", trans)
+    feats, nf = _feats(24, 4, 16, [16, 3, 11, 8])
+    w_j, c_j = jconn.decode_connected(jb, gj, feats, nf)
+    w_t, c_t = tconn.decode_connected(tb, gt, torch.from_numpy(feats), torch.from_numpy(nf))
+    assert w_t == w_j
+    np.testing.assert_allclose(c_t, np.asarray(c_j), rtol=1e-5)
+    with pytest.raises(ValueError):
+        tconn.decode_connected(tb, gt, torch.from_numpy(feats), torch.from_numpy(nf),
+                               backend="banded")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tconn.decode_connected(tb, gt, torch.from_numpy(feats), torch.from_numpy(nf),
+                               backend="dense", beam_width=4)
