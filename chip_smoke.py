@@ -7,8 +7,10 @@ PyTorch version on the card at its path's shapes, and drives both paths
 through the CLI with the launch counters reset just before each:
 
 * connected digits, ``cli connected_test --graph loop|sausage --device
-  cuda``: wavs -> MFCC-39 (K3) -> fused emission + banded Viterbi (K1)
-  -> backtrace (K2) -> word ids;
+  cuda``: wavs -> MFCC-39 (K3) -> fused emission + banded Viterbi (K1 =
+  the emission kernel K13 + the banded DP) -> backtrace (K2) ->
+  word ids; and ``--graph loop`` with a 25 s ``--max-samples`` cap (2,499
+  frames: K3 with its cepstra in a device-memory scratch);
 * lexical tree, ``cli connected_test --graph lextree --device cuda``:
   wavs -> MFCC-39 (K3) -> unit-bank emissions -> lexical-tree Viterbi
   (K4) -> backtrace (K5) -> word ids;
@@ -41,7 +43,12 @@ through the CLI with the launch counters reset just before each:
   K3).
 
 Each CLI output is checked against the same command on the CPU (plain
-versions).  K8 and K9 are held bit-identical to their plain versions at
+versions).  K13 (the emission kernel) is held to its plain version at
+rtol 1e-5 / atol 1e-4, and K1's DP alone to its plain version bit for
+bit on K13's emissions.  Past the old size limits: K1 + K2 on a
+1,500-word loop graph (7,500 states) and K8 + K9 on a 2,000-word loop of
+2-5-state words (7,000 states), K3 at 64 x 25 s (2,499 frames), K11 at
+one state past its shared-memory frontier.  K8 and K9 are held bit-identical to their plain versions at
 512 x 500 on the 7-slot sausage of 1-state words (77 states, eps depth
 6) and on a 7-slot sausage of words of 3 to 6 states, with uniform and
 tie-forcing integer emissions; K10 at 512 x 500 on the 385-state sausage
@@ -91,6 +98,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 K3_TOL = dict(rtol=2e-3, atol=5e-4)  # f32 spectral chains, different sum orders
 K1_RTOL = 1e-5  # emission GEMM summation order
+K13_TOL = dict(rtol=1e-5, atol=1e-4)  # 79-term f32 dot products, another order
 # K4 / K5 / K6 / K7 take the plain version's own inputs: everything is
 # compared bit for bit
 
@@ -548,6 +556,24 @@ def main() -> int:
                        f"{float(nk.float().mean()):.2f}")
     report["K1"] = {"max_abs_err": k1_err}
     report["K2"] = {"max_abs_err": k2_err}
+    # K13 alone, and K1's DP alone on K13's emissions against its plain DP
+    nll13 = vk.bank_emission(xa, w, lw)
+    want13 = vk.bank_emission_ref(xa, w, lw)
+    bg, topo = planes["sausage7"][:2]
+    dp_got = vk._banded_forward(nll13, bg, nf, 1, True, vk.viterbi_banded_fused)
+    dp_want = vk.fused_dp_ref(nll13, bg, nf)
+    torch.cuda.synchronize()
+    if not torch.allclose(nll13, want13, **K13_TOL):
+        fail(f"K13 disagrees with its plain version: max |d| "
+             f"{float((nll13 - want13).abs().max())}")
+    for k, plane in enumerate(("final", "bp8", "eps_u", "eps_prev")):
+        if not torch.equal(dp_got[k], dp_want[k]):
+            fail(f"K1's DP {plane} differs from its plain version on K13's emissions")
+    report["K13"] = {"max_abs_err": float((nll13 - want13).abs().max())}
+    phase("K13", f"bank emission kernel == plain version at {B}x{T} (rtol 1e-5, atol "
+                 f"1e-4; max |d| {report['K13']['max_abs_err']:.3g}); K1's DP on its "
+                 f"[T, B, U] plane == plain DP (final, bp8, eps_u, eps_prev bit-identical, "
+                 f"every frame)")
 
     # ---- 4b. K8 + K9 vs their plain versions ---------------------------------
     bank1, bank1_path = make_bank(tmp, n_states=1, name="bank1.npz")
@@ -733,6 +759,113 @@ def main() -> int:
                  f"(rtol 2e-3, atol 5e-4), frame counts equal; max |d| {k12_err:.3g}")
     report["K12"] = {"max_abs_err": k12_err}
 
+    # ---- 4f. past the old size limits ------------------------------------------
+    from speech_recognition_tpu_torch.models.graph import build_loop_graph
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import max_dense_states
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    lib = load_library()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    # K3 at 64 x 25 s: 2,499 frames, cepstra and deltas in device memory
+    n_long = 400000
+    L_long = padded_length(cfg, n_long)
+    rng_long = np.random.default_rng(21)
+    sig_long = torch.from_numpy((rng_long.standard_normal((64, L_long)) * 3000)
+                                .astype(np.float32)).to(dev)
+    lens_long = torch.from_numpy(np.r_[n_long, 561, rng_long.integers(30000, n_long + 1, 62)]
+                                 .astype(np.int32)).to(dev)
+    got, nf_long = mfcc39_fused(sig_long, lens_long, cfg)
+    want, nf_p = mfcc39_fused_ref(sig_long, lens_long, cfg)
+    torch.cuda.synchronize()
+    f_long = got.shape[1]
+    if lib.mfcc39_smem_bytes(f_long, 26, 13) <= lib.srt_smem_limit():
+        fail(f"K3 at {f_long} frames still fits in shared memory")
+    if not torch.equal(nf_long, nf_p) or not torch.allclose(got, want, **K3_TOL):
+        fail(f"K3 at {f_long} frames disagrees with its plain version: max |d| "
+             f"{float((got - want).abs().max())}")
+    k3_long_err = float((got - want).abs().max())
+    phase("K3", f"64 x 25 s ({f_long} frames, cepstra and deltas in a device-memory "
+                f"scratch): == plain (rtol 2e-3, atol 5e-4; max |d| {k3_long_err:.3g}), "
+                f"frame counts equal")
+    # K1 + K2 on a 1,500-word loop graph of the bank's digits (7,500 states)
+    trans11 = [bank.trans_cost[i].cpu().numpy() for i in range(11)]
+    big1 = build_loop_graph([trans11[i % 11] for i in range(1500)], word_insertion_cost=2.0)
+    bgb = banded_arrays(big1, device=dev)
+    bgb = bgb._replace(bank_state=bgb.bank_state % w.shape[0])  # word i is digit i % 11
+    topob = vk.banded_topology(bgb)
+    Bb, Tb = 64, 100
+    xab, nfb = xa[:, :Tb, :Bb].contiguous(), nf[:Bb].clamp(max=Tb)
+    plan_b = vk.banded_plan(Bb, n_sm, bgb.n_states, bgb.n_words, bgb.n_ends, w.shape[0], True,
+                            lib.srt_smem_limit())
+    got = vk.viterbi_banded_fused(xab, w, lw, bgb, topob, nfb)
+    want = vk.viterbi_banded_fused_ref(xab, w, lw, bgb, topob, nfb)
+    torch.cuda.synchronize()
+    if not torch.allclose(got[0], want[0], rtol=K1_RTOL, atol=0.0):
+        fail(f"K1 on the {bgb.n_states}-state loop disagrees: max |d| "
+             f"{float((got[0] - want[0]).abs().max())}")
+    validb = torch.arange(Tb, device=dev)[:, None] < nfb[None, :]
+    endsb = bgb.end_states[torch.argmin(want[0][bgb.end_states], 0)]
+    sk, fk = vk.banded_backtrace_val(got[1], got[3], endsb, nfb, topob.uniform_w)
+    sp, fp = vk.banded_backtrace_val_ref(want[1], want[3], endsb, nfb, topob.uniform_w)
+    torch.cuda.synchronize()
+    if not bool(((sk == sp) & (fk == fp) | ~validb).all()):
+        fail(f"K1 + K2 states differ on the {bgb.n_states}-state loop")
+    k1_big = (got, want)
+    phase("K1+K2", f"1,500-word loop ({bgb.n_states} states, frontier in "
+                   f"{plan_b.frontier} memory, {plan_b.kf} frames staged) at {Bb}x{Tb}: "
+                   f"final == plain (rtol 1e-5, max |d| "
+                   f"{float((got[0] - want[0]).abs().max()):.3g}); states identical")
+    # K8 + K9 on a 2,000-word loop of 2-5-state words (7,000 states)
+    tr6 = [bank6.trans_cost[i].cpu().numpy() for i in range(11)]
+    big8 = build_loop_graph([tr6[i % 11][:k, :k] for i, k in zip(range(2000),
+                                                                (3, 4, 5, 2) * 500)],
+                            word_insertion_cost=0.5)
+    bg8 = banded_arrays(big8, device=dev)
+    bg8 = bg8._replace(bank_state=bg8.bank_state % 66)
+    topo8 = vk.banded_topology(bg8)
+    B8b = 32
+    nll8b = torch.from_numpy(erng.integers(0, 3, (66, Tb, B8b)).astype(np.float32)).to(dev)
+    nf8b = torch.from_numpy(np.r_[Tb, 0, 1, Tb + 3, erng.integers(2, Tb + 1, B8b - 4)]
+                            .astype(np.int32)).to(dev)
+    plan_8 = vk.banded_plan(B8b, n_sm, bg8.n_states, bg8.n_words, bg8.n_ends, 66, False,
+                            lib.srt_smem_limit())
+    got = vk.viterbi_banded_general(nll8b, bg8, topo8, nf8b, big8.eps_depth)
+    want = vk.viterbi_banded_general_ref(nll8b, bg8, topo8, nf8b, big8.eps_depth)
+    torch.cuda.synchronize()
+    for k, plane in enumerate(("final", "bp8", "eps_u")):
+        if not torch.equal(got[k], want[k]):
+            fail(f"K8 {plane} differs on the {bg8.n_states}-state loop")
+    ends8 = bg8.end_states[torch.argmin(want[0][bg8.end_states] + bg8.end_bonus[:, None], 0)]
+    sk, fk = vk.banded_backtrace_general(got[1], got[2], bg8, ends8, nf8b, big8.eps_depth)
+    sp, fp = vk.banded_backtrace_general_ref(want[1], want[2], bg8, ends8, nf8b,
+                                             big8.eps_depth)
+    torch.cuda.synchronize()
+    if not (torch.equal(sk, sp) and torch.equal(fk, fp)):
+        fail(f"K9 differs on the {bg8.n_states}-state loop")
+    k8_big = (got, want)
+    phase("K8+K9", f"2,000-word loop of 2-5-state words ({bg8.n_states} states, frontier "
+                   f"in {plan_8.frontier} memory), integer emissions (ties), lengths 0, "
+                   f"1, T, T + 3 at {B8b}x{Tb}: final, bp8, eps_u, K9 states == plain "
+                   f"(bit-identical)")
+    # K11 one state past its shared-memory frontier
+    s11 = max_dense_states(lib) + 1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tr11 = torch.rand((s11, s11), generator=gen, device=dev) * 3
+    tr11[torch.rand((s11, s11), generator=gen, device=dev) < 0.5] = POS_INF
+    k11_big = dict(nll=torch.rand((2, 4, s11), generator=gen, device=dev) * 5, trans=tr11,
+                   init_cost=torch.rand(s11, generator=gen, device=dev),
+                   n_frames=torch.tensor([4, 3], dtype=torch.int32, device=dev),
+                   eps_trans=None, eps_depth=1)
+    got = viterbi_dense(**k11_big)
+    want = viterbi_dense_ref(**k11_big)
+    torch.cuda.synchronize()
+    for k, plane in enumerate(("final", "bp", "eps_bp")):
+        if not torch.equal(got[k], want[k]):
+            fail(f"K11 {plane} differs from the plain version at {s11} states")
+    phase("K11", f"{s11} states (one past the shared-memory frontier; frontier in a "
+                 f"device-memory scratch) at 2x4: final, bp, eps_bp == plain "
+                 f"(bit-identical)")
+
     # ---- 5. K4 + K5 vs their plain versions -------------------------------
     from speech_recognition_tpu_torch.data.lexicon import (
         bench_lexicon,
@@ -856,23 +989,30 @@ def main() -> int:
     def word_lines(out):
         return [l for l in out.splitlines() if l.startswith(("Correct:", "Incorrect:"))]
 
-    counters = (mfcc39_fused, vk.viterbi_banded_fused, vk.banded_backtrace_val,
+    counters = (mfcc39_fused, vk.bank_emission, vk.viterbi_banded_fused,
+                vk.banded_backtrace_val,
                 lk.viterbi_lex, lk.lex_backtrace_val, lt.viterbi_lattice, lt.rescore_lattice,
                 vk.viterbi_banded_general, vk.banded_backtrace_general,
                 vk.viterbi_banded_wordtrace, viterbi_dense, mfcc_fused)
     bigram = "--lm bigram"
-    paths = {"connected": (("loop", "sausage"), (mfcc39_fused, vk.viterbi_banded_fused,
+    paths = {"connected": (("loop", "sausage"), (mfcc39_fused, vk.bank_emission,
+                                                 vk.viterbi_banded_fused,
                                                  vk.banded_backtrace_val)),
              "lextree": (("lextree",), (mfcc39_fused, lk.viterbi_lex, lk.lex_backtrace_val)),
              "bigram composed": ((f"loop {bigram}", f"sausage {bigram}",
                                   f"lextree {bigram} --decoder compose"),
-                                 (mfcc39_fused, vk.viterbi_banded_fused, vk.banded_backtrace_val,
-                                  lk.viterbi_lex, lk.lex_backtrace_val)),
+                                 (mfcc39_fused, vk.bank_emission, vk.viterbi_banded_fused,
+                                  vk.banded_backtrace_val, lk.viterbi_lex,
+                                  lk.lex_backtrace_val)),
              "bigram lattice": ((f"lextree {bigram} --decoder lattice",),
                                 (mfcc39_fused, lt.viterbi_lattice, lt.rescore_lattice)),
              "general graph": (("sausage @1-state-bank",),
                                (mfcc39_fused, vk.viterbi_banded_general,
-                                vk.banded_backtrace_general))}
+                                vk.banded_backtrace_general)),
+             # a 25 s cap: 2,499 frames, K3's cepstra and deltas in device memory
+             "long cap": (("loop --max-samples 400000",),
+                          (mfcc39_fused, vk.bank_emission, vk.viterbi_banded_fused,
+                           vk.banded_backtrace_val))}
     outs, launches = {}, {}
     for path, (runs, used) in paths.items():
         for c in counters:
@@ -1041,6 +1181,15 @@ def main() -> int:
     bg, topo, want, ends = planes["sausage7"]
     t["K1"] = (cuda_ms(lambda: vk.viterbi_banded_fused(xa, w, lw, bg, topo, nf)),
                cuda_ms(lambda: vk.viterbi_banded_fused_ref(xa, w, lw, bg, topo, nf), reps=3))
+    t["K13"] = (cuda_ms(lambda: vk.bank_emission(xa, w, lw)),
+                cuda_ms(lambda: vk.bank_emission_ref(xa, w, lw)))
+    dp_ms = cuda_ms(lambda: vk._banded_forward(nll13, bg, nf, 1, True,
+                                               vk.viterbi_banded_fused))
+    k3_long_ms = cuda_ms(lambda: mfcc39_fused(sig_long, lens_long, cfg))
+    k1_big_ms = cuda_ms(lambda: vk.viterbi_banded_fused(xab, w, lw, bgb, topob, nfb))
+    k8_big_ms = cuda_ms(lambda: vk.viterbi_banded_general(nll8b, bg8, topo8, nf8b,
+                                                          big8.eps_depth))
+    k11_big_ms = cuda_ms(lambda: viterbi_dense(**k11_big))
     t["K2"] = (cuda_ms(lambda: vk.banded_backtrace_val(want[1], want[3], ends, nf, topo.uniform_w)),
                cuda_ms(lambda: vk.banded_backtrace_val_ref(want[1], want[3], ends, nf,
                                                            topo.uniform_w), reps=3))
@@ -1247,6 +1396,12 @@ def main() -> int:
                         f"{k} {ms:.3f} ms" for k, ms in iso_stage_ms.items()))
     phase("timing", f"K8 / K9 on the 3-6-state sausage7 ({bg6.n_states} states) at {B}x{T}: "
                     f"{k8_mixed_ms:.3f} / {k9_mixed_ms:.3f} ms (CUDA-event median; {card})")
+    phase("timing", f"K1 = K13 {t['K13'][0]:.3f} ms + DP alone {dp_ms:.3f} ms on sausage7 "
+                    f"at {B}x{T}; past the old limits: K3 64 x 25 s ({f_long} frames, "
+                    f"scratch) {k3_long_ms:.3f} ms, K1 on the {bgb.n_states}-state loop at "
+                    f"{Bb}x{Tb} {k1_big_ms:.3f} ms, K8 on the {bg8.n_states}-state loop at "
+                    f"{B8b}x{Tb} {k8_big_ms:.3f} ms, K11 at {s11} states 2x4 "
+                    f"{k11_big_ms:.3f} ms (CUDA-event median; {card})")
     phase("timing", f"word-trace decode {B}x{T} on sausage7 (decode_connected "
                     f"backend='wordtrace', features -> word lists): {wt_ms:.3f} ms; the "
                     f"states path (K1 + K2 + states_to_words_device) {auto_ms:.3f} ms; "
@@ -1304,6 +1459,8 @@ def main() -> int:
         # start_pos and a word_ends entry and a code per unwind step
         "K9": (sum_nf8 + unwinds1 * (want1[2].element_size() + 9) + T * B * 5
                + nbytes(ends1, nf8), 4.0 * (sum_nf8 + unwinds1)),
+        # K13 computes every frame of every stream
+        "K13": (nbytes(xa, w, lw, nll13), T * B * (2 * w.numel() + 4 * w_units)),
         "K10": (nbytes(xa, w, lw, nf) + graph_bytes(bg) + 2 * nbytes(fwd[0])
                 + sum_nf * bg.n_words * (fwd[1].element_size() + 4),
                 sum_nf * (2 * w.numel() + 4 * w_units) + dp_ops(bg, sum_nf, span_pairs(topo))),
@@ -1342,6 +1499,20 @@ def main() -> int:
                             rescore_ops(TL, 16, ld, kd, dense=False), k7_dict_ms),
         "K8 3-6-state sausage7": (nbytes(nll6, nf8, *want6) + graph_bytes(bg6),
                                   dp_ops(bg6, T * B, span_pairs(topo6)), k8_mixed_ms),
+        "K1 DP alone": (nbytes(nll13, nf) + graph_bytes(bg) + nbytes(*want[:1])
+                        + sum_nf * (bg.n_states + bg.n_words * (want[2].element_size() + 4)),
+                        dp_ops(bg, sum_nf, span_pairs(topo)), dp_ms),
+        "K3 64 x 25 s": (nbytes(sig_long, lens_long) + 64 * f_long * 39 * 4,
+                         mfcc_ops(cfg, int(nf_long.sum())), k3_long_ms),
+        "K1 1,500-word loop": (nbytes(xab, w, lw, nfb) + graph_bytes(bgb)
+                               + nbytes(*k1_big[1][:1]) + int(nfb.sum()) * (
+                                   bgb.n_states + bgb.n_words * (k1_big[1][2].element_size() + 4)),
+                               int(nfb.sum()) * (2 * w.numel() + 4 * w_units)
+                               + dp_ops(bgb, int(nfb.sum()), span_pairs(topob)), k1_big_ms),
+        "K8 2,000-word loop": (nbytes(nll8b, nf8b, *k8_big[1]) + graph_bytes(bg8),
+                               dp_ops(bg8, Tb * B8b, span_pairs(topo8), big8.eps_depth),
+                               k8_big_ms),
+        f"K11 at {s11} states": (*k11_work(k11_big), k11_big_ms),
         **{f"K11 with planes, {name}": (*k11_work(dense_cases[name]), ms)
            for name, (ms, _) in k11_ms.items()},
     }
@@ -1357,8 +1528,10 @@ def main() -> int:
         fail(f"modules of jax or of the JAX package were imported: {bad[:5]}")
     src = {"K3": ("mfcc39_fused", "speech_recognition_tpu_torch/csrc/mfcc39.cu",
                   "speech_recognition_tpu/ops/frontend_pallas.py:190"),
-           "K1": ("viterbi_banded_fused", "speech_recognition_tpu_torch/csrc/viterbi_banded.cu",
+           "K1": ("viterbi_banded_fused", "speech_recognition_tpu_torch/csrc/banded_forward.cu",
                   "speech_recognition_tpu/ops/viterbi_banded_pallas.py:133"),
+           "K13": ("bank_emission", "speech_recognition_tpu_torch/csrc/bank_emission.cu",
+                   "speech_recognition_tpu/ops/viterbi_banded_pallas.py:133"),
            "K2": ("banded_backtrace_val",
                   "speech_recognition_tpu_torch/csrc/banded_backtrace.cu",
                   "speech_recognition_tpu/ops/viterbi_banded_pallas.py:1027"),
@@ -1371,7 +1544,7 @@ def main() -> int:
            "K7": ("rescore_lattice", "speech_recognition_tpu_torch/csrc/lattice_rescore.cu",
                   "speech_recognition_tpu/ops/lattice.py:165"),
            "K8": ("viterbi_banded_general",
-                  "speech_recognition_tpu_torch/csrc/viterbi_banded.cu",
+                  "speech_recognition_tpu_torch/csrc/banded_forward.cu",
                   "speech_recognition_tpu/ops/viterbi_banded_pallas.py:133"),
            "K9": ("banded_backtrace_general",
                   "speech_recognition_tpu_torch/csrc/banded_backtrace.cu",

@@ -9,11 +9,12 @@ recognition, the dense decoder and forced alignment:
 
   ops.frontend.mfcc39_auto        wav -> 39-dim MFCCs   (kernel: csrc/mfcc39.cu)
   decode.connected.decode_connected
-    -> _decode_banded_batch        uniform graphs: fused GMM emission + banded
-                                   Viterbi (kernel K1: csrc/viterbi_banded.cu),
+    -> _decode_banded_batch        uniform graphs: K1 = the GMM emission kernel
+                                   (K13: csrc/bank_emission.cu) + the banded
+                                   Viterbi DP (csrc/banded_forward.cu),
                                    value backtrace (K2: csrc/banded_backtrace.cu);
                                    other graphs: bank_nll_ubt, banded Viterbi on
-                                   bank emissions (K8: csrc/viterbi_banded.cu),
+                                   bank emissions (K8: csrc/banded_forward.cu),
                                    general backtrace (K9: csrc/banded_backtrace.cu)
     -> states_to_words_device      plain tensor ops
     backend="wordtrace"            forward with entry-time planes (K10:

@@ -1,0 +1,641 @@
+// Banded Viterbi forward DP over composed word graphs, four warps per
+// stream, shared by two kernels:
+//
+// K1 (kFused): the DP half of the fused emission + banded forward over a
+// uniform composed word graph (eps depth 1, disjoint word starts and ends).
+// Its emissions come from the emission kernel (csrc/bank_emission.cu) as a
+// [T, B, U] plane.  Together they replace the TPU kernel
+// speech_recognition_tpu/ops/viterbi_banded_pallas.py _kernel with
+// fuse_emission=True, emit_eps_prev=True (viterbi_banded_tb_pallas, reached
+// from decode/connected._decode_banded_batch).
+//
+// K8 (kGeneral): the forward on unit-bank emissions [U, T, B]
+// (models.hmm.bank_nll_ubt) over any banded graph without cross edges, any
+// eps depth.  Replaces _kernel with bank_input=True (the form
+// _decode_banded_batch takes for 1-state words, words of different
+// lengths, transcript graphs).
+//
+// Per frame t of stream b (the plain versions' semantics, unchanged):
+//   band   best = min_d band[d,s] + cost[s-d] (d = 0, 1, 2; cost[s-d] is
+//          POS_INF for s < d); frame 0 seeds from init with d = 0.  K1 takes
+//          the min-chain, the largest d winning ties; K8 the plain scan's
+//          _select_band (start at POS_INF, replace on <=)
+//   emis   cost[s] = min(best + nll[bank_state[s]], POS_INF) (K8 clamps the
+//          emission to POS_INF first)
+//   eps    eps_depth passes; each computes, for every word r, the strict
+//          first-minimum origin u of eps[r,u] + cost[end(u)] over the row's
+//          finite span from the costs the previous pass left (Jacobi: a
+//          1-state word entered in pass k is an origin in pass k+1), then
+//          applies the candidates that strictly improve their start state:
+//          bp8 = 4 (eps), eps_u = the origin of the last pass that did; K1
+//          records eps_prev = end(u) - d_end(u)
+//   mask   K1: t >= nf freezes the carry (frame 0 of an empty stream gives
+//          POS_INF), final = the carry after the last frame.  K8: frame 0 is
+//          never masked, frames t >= 1 with t >= nf freeze the carry, final =
+//          the carry for 1 <= nf <= T, else POS_INF.  Frozen frames still
+//          compute and write their plane rows from the frozen carry.
+// Outputs: final [S,B] f32; bp8 [T,S,B] i8; eps_u [T,R,B] i8 (i32 when
+// L > 127); K1: eps_prev [T,R,B] i32.
+//
+// What bounds it on the H100: at B=512, T=500, S=385 the planes are ~140 MB
+// (~0.04 ms at 3.35 TB/s) and the DP ~1.6 G operations (~0.02 ms), so the
+// bound is the latency of T dependent frame steps per stream.
+//
+// What the design does about it: kWps = 4 warps own one stream for all T
+// frames and meet at the stream's own named barrier (no CTA barrier in the
+// frame loop).  The stream's frontier (two [S] cost rows, each with
+// POS_INF in front so that s-1 and s-2 need no test, and the codes) lives
+// in its work area, in shared memory or, when that does not fit, in a
+// device-memory scratch.  Its 128 lanes take the states l, l + 128, ...:
+// every table read is coalesced (shared memory without bank conflicts, or
+// L1) and the s-1 / s-2 reads hit consecutive words.  The CTA copies the
+// graph tables (per state a float4 of the three band costs and the bank
+// row; word starts and ends, row spans, the eps block transposed to
+// [L, R]) into shared memory where they fit.  At B = 512 a frame step is
+// bound by the instructions each warp issues and their latency, so the
+// loops stay rolled and lean: a register frontier needs fully unrolled
+// state loops, whose code outgrew the instruction cache (measured: 2.68 /
+// 3.36 / 6.24 ms at 4 / 8 / 16 states per lane on the same 77-state graph,
+// scripts/exp_r6_dp_plan.py); the band step issues the loads of kBatch
+// states before their stores (which could alias them), and frame 0 has a
+// loop of its own; four warps per stream instead of one gave each
+// scheduler other warps' work to issue while one waits (K1's DP 1.54 ->
+// 1.15 ms).  An eps pass snapshots the word-end costs, then each lane
+// computes its rows' candidates from the snapshot and applies them to the
+// row's start state directly (one start per row), so every candidate reads
+// the pre-pass costs (Jacobi); K8 stops once a pass improves nothing, as
+// the next pass would repeat it.  The emission row of frame t + kRing-1 is
+// copied with cp.async into the stream's ring of kRing frames while frame
+// t computes.  The codes are written straight into a shared-memory staging
+// slot; an extra writer warp sends the bp8 rows and eps_u / eps_prev rows
+// of kf frames to device memory as [S, streams-per-CTA] segments (one 4-
+// or 16-byte store for a full 4-stream segment) while the compute warps
+// fill the other of two buffers (named barriers kBarFull / kBarEmpty);
+// where even one frame's staging does not fit, each stream writes its rows
+// itself.  The wrapper (ops/viterbi_banded_kernels.banded_plan) chooses
+// where the work area and the tables live, the ring and kf from the sizes;
+// nothing is refused for size.
+
+#include <limits.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxBand = 2;
+constexpr int kEpsCode = kMaxBand + 2;
+constexpr int kRing = 4;      // frames of emissions in flight per stream
+constexpr int kMaxTile = 4;   // streams per CTA
+constexpr int kWps = 4;       // warps per stream
+constexpr int kSL = kWps * kWarp;  // lanes per stream
+constexpr int kBatch = 4;     // states per lane whose loads are issued together
+constexpr int kPad = 4;       // POS_INF floats in front of each cost row
+// phases of a frame step that the optional cycle trace separates: emission
+// wait, band, eps passes, plane rows, mask, flush
+constexpr int kPhases = 6;
+
+enum Mode { kFused = 0, kGeneral = 1 };
+
+struct Params {
+  const float* nll;       // emission (u, t, b) at u*su + t*st + b*sb
+  long long su, st, sb;
+  const float4* band4;    // [S] (band0, band1, band2, bank_state as int bits)
+  const float* init;      // [S]
+  const int* word_starts; // [R]
+  const int* word_ends;   // [L]
+  const float* eps_t;     // [L, R] the eps block, transposed
+  const int* row_lo;      // [R] finite origin span of each eps row
+  const int* row_hi;      // [R]
+  const int* nf;          // [B]
+  float* final_cost;      // [S, B]
+  int8_t* bp8;            // [T, S, B]
+  void* eps_u;            // [T, R, B] int8 or int32
+  int u_wide;
+  int* eps_prev;          // [T, R, B] (K1)
+  unsigned char* scratch; // per-stream work areas when not in shared memory
+  long long* trace;       // [B, kPhases] cycles per phase, or null (off)
+  int U, T, B, S, R, L, eps_depth;
+  int tile, work_smem, tables, ring, kf;
+};
+
+__host__ __device__ inline size_t r16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// Bytes of one stream's work area: the two padded cost rows and the codes of
+// the frontier, the word-end snapshot (and K1's end(u) - d_end(u), the
+// eps_prev of an arrival from u), and each row's last improving origin.
+__host__ __device__ inline size_t work_bytes(int mode, int S, int R, int L) {
+  return 2 * r16((size_t)(S + kPad) * 4) + r16((size_t)S) +
+         r16((size_t)L * 4) * (mode == kFused ? 2 : 1) + r16((size_t)R * 4);
+}
+
+__host__ __device__ inline size_t ring_bytes(int U) { return r16((size_t)kRing * U * 4); }
+
+// Bytes of the CTA's double-buffered plane staging for kf frames.
+__host__ __device__ inline size_t stage_bytes(int mode, int S, int R, int tile, int kf) {
+  return (size_t)kf * 2 *
+         (r16((size_t)S * tile) + (mode == kFused ? 2 : 1) * r16((size_t)R * tile * 4));
+}
+
+// Bytes of the CTA's copy of the graph tables: band4, word starts, row
+// spans, word ends and the transposed eps block.
+__host__ __device__ inline size_t table_bytes(int S, int R, int L) {
+  return r16((size_t)S * 16) + 3 * r16((size_t)R * 4) + r16((size_t)L * 4) +
+         r16((size_t)L * R * 4);
+}
+
+__host__ __device__ inline size_t smem_bytes(int mode, int U, int S, int R, int L, int tile,
+                                             int work_smem, int tables, int ring, int kf) {
+  const size_t per_stream = (work_smem ? work_bytes(mode, S, R, L) : 0) +
+                            (ring ? ring_bytes(U) : 0);
+  return per_stream * tile + stage_bytes(mode, S, R, tile, kf) +
+         (tables ? table_bytes(S, R, L) : 0);
+}
+
+// A table read: from the CTA's shared-memory copy, or through L1.
+template <bool kShared, typename T>
+__device__ __forceinline__ T ldt(const T* p) {
+  if constexpr (kShared)
+    return *p;
+  else
+    return __ldg(p);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Named CTA barriers between the compute warps and the writer warp, and
+// one per stream between its warps.
+constexpr int kBarFull = 1;   // a staged block is ready to be written
+constexpr int kBarEmpty = 2;  // a staging buffer has been written out
+constexpr int kBarStream = 3; // + the stream's index in the CTA
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+// bar.sync that also returns whether any participating thread passed true
+__device__ __forceinline__ bool bar_any(int id, int n, bool v) {
+  int r;
+  asm volatile(
+      "{\n .reg .pred p, q;\n setp.ne.u32 p, %1, 0;\n"
+      " bar.red.or.pred q, %2, %3, p;\n selp.u32 %0, 1, 0, q;\n}"
+      : "=r"(r)
+      : "r"((int)v), "r"(id), "r"(n)
+      : "memory");
+  return r != 0;
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  __threadfence_block();
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// Band select of one state from its three candidates.
+template <int kMode>
+__device__ __forceinline__ float band_select(float c0, float c1, float c2, int& d) {
+  if (kMode == kFused) {  // min-chain, the largest d wins ties
+    const float best = fminf(fminf(c0, c1), c2);
+    d = (c2 == best) ? 2 : ((c1 == best) ? 1 : 0);
+    return best;
+  }
+  float best = SRT_POS_INF;  // _select_band: replace on <=
+  d = 0;
+  if (c0 <= best) { best = c0; d = 0; }
+  if (c1 <= best) { best = c1; d = 1; }
+  if (c2 <= best) { best = c2; d = 2; }
+  return best;
+}
+
+// kWorkSmem: the work area is in shared memory (so the compiler emits
+// shared-memory accesses), else in the device scratch.  kTables: the CTA's
+// copy of the graph tables in shared memory, else they are read through
+// L1.  kRingOn: emissions from the cp.async ring, else straight from
+// device memory.
+template <int kMode, bool kWorkSmem, bool kTables, bool kRingOn>
+__global__ void __launch_bounds__((kMaxTile * kWps + 1) * kWarp)
+banded_forward_kernel(Params p) {
+  constexpr bool kK1 = kMode == kFused;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // tile streams of kWps warps each; with staging a writer warp follows
+  const int tile = p.tile;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int sw = min(warp / kWps, tile - 1);  // the stream within the CTA
+  const int ln = threadIdx.x % kSL;           // the lane within the stream
+  const int gw = blockIdx.x * tile + sw;      // the stream (padded)
+  const bool live = gw < p.B;
+  const int b = live ? gw : p.B - 1;        // padding warps compute a copy
+  const int S = p.S, R = p.R, L = p.L, T = p.T;
+  const int nf = live ? p.nf[b] : 0;
+
+  // ---- shared memory / scratch carve-up --------------------------------
+  const size_t wk = work_bytes(kMode, S, R, L);
+  const size_t rg = kRingOn ? ring_bytes(p.U) : 0;
+  unsigned char* mine = smem + (size_t)sw * ((kWorkSmem ? wk : 0) + rg);
+  unsigned char* work = kWorkSmem ? mine : p.scratch + (size_t)gw * wk;
+  float* ring = reinterpret_cast<float*>(mine + (kWorkSmem ? wk : 0));
+  const size_t row = r16((size_t)(S + kPad) * 4);
+  float* cur = reinterpret_cast<float*>(work) + kPad;                  // [S]
+  float* nxt = reinterpret_cast<float*>(work + row) + kPad;            // [S]
+  unsigned char* q = work + 2 * row;
+  int8_t* wcode = reinterpret_cast<int8_t*>(q);                        // [S]
+  q += r16((size_t)S);
+  float* ends = reinterpret_cast<float*>(q);                           // [L]
+  q += r16((size_t)L * 4);
+  int* endpp = reinterpret_cast<int*>(q);                              // [L] (K1)
+  q += kK1 ? r16((size_t)L * 4) : 0;
+  int* eu = reinterpret_cast<int*>(q);                                 // [R]
+  unsigned char* stage = smem + (size_t)tile * ((kWorkSmem ? wk : 0) + rg);
+  const size_t st_bp = r16((size_t)S * tile), st_row = r16((size_t)R * tile * 4);
+  const size_t st_frame = st_bp + (kK1 ? 2 : 1) * st_row;
+
+  // ---- graph tables ---------------------------------------------------------
+  const float4* band4 = p.band4;
+  const int* word_starts = p.word_starts;
+  const int* word_ends = p.word_ends;
+  const int* row_lo = p.row_lo;
+  const int* row_hi = p.row_hi;
+  const float* eps_t = p.eps_t;
+  if constexpr (kTables) {
+    unsigned char* tb = stage + stage_bytes(kMode, S, R, tile, p.kf);
+    float4* b4 = reinterpret_cast<float4*>(tb);
+    for (int i = threadIdx.x; i < S; i += blockDim.x) b4[i] = __ldg(p.band4 + i);
+    tb += r16((size_t)S * 16);
+    int* ws = reinterpret_cast<int*>(tb);
+    int* lo = ws + r16((size_t)R * 4) / 4;
+    int* hi = lo + r16((size_t)R * 4) / 4;
+    int* we = hi + r16((size_t)R * 4) / 4;
+    float* et = reinterpret_cast<float*>(we + r16((size_t)L * 4) / 4);
+    for (int i = threadIdx.x; i < R; i += blockDim.x) {
+      ws[i] = __ldg(p.word_starts + i);
+      lo[i] = __ldg(p.row_lo + i);
+      hi[i] = __ldg(p.row_hi + i);
+    }
+    for (int i = threadIdx.x; i < L; i += blockDim.x) we[i] = __ldg(p.word_ends + i);
+    for (size_t i = threadIdx.x; i < (size_t)L * R; i += blockDim.x) et[i] = __ldg(p.eps_t + i);
+    band4 = b4;
+    word_starts = ws;
+    row_lo = lo;
+    row_hi = hi;
+    word_ends = we;
+    eps_t = et;
+    __syncthreads();
+  }
+  auto bank_of = [&](int s) { return __float_as_int(ldt<kTables>(&band4[s].w)); };
+
+  // ---- the writer warp: writes each staged block of kf frames out as
+  // [S, streams-per-CTA] segments while the compute warps fill the other
+  // buffer ----------------------------------------------------------------
+  const int n_all = (tile * kWps + (p.kf ? 1 : 0)) * kWarp;
+  if (p.kf && warp == tile * kWps) {
+    const int b0 = blockIdx.x * tile;
+    const int nb_ = min(tile, p.B - b0);
+    // whole 4-stream segments go out as one 4-byte (int8) or 16-byte
+    // (int32) store
+    const bool words = tile == 4 && nb_ == 4 && (p.B & 3) == 0;
+    for (int t0 = 0, j = 0; t0 < T; t0 += p.kf, ++j) {
+      bar_sync(kBarFull, n_all);
+      const unsigned char* base = stage + (size_t)(j & 1) * p.kf * st_frame;
+      for (int ff = 0; ff < min(p.kf, T - t0); ++ff) {
+        const unsigned char* fr = base + (size_t)ff * st_frame;
+        int8_t* dst = p.bp8 + (size_t)(t0 + ff) * S * p.B + b0;
+        for (int s = lane; s < S; s += kWarp) {
+          const int8_t* src = reinterpret_cast<const int8_t*>(fr) + s * tile;
+          if (words)
+            *reinterpret_cast<int*>(dst + (size_t)s * p.B) = *reinterpret_cast<const int*>(src);
+          else
+            for (int k = 0; k < nb_; ++k) dst[(size_t)s * p.B + k] = src[k];
+        }
+        for (int r = lane; r < R; r += kWarp) {
+          const int* su_ = reinterpret_cast<const int*>(fr + st_bp) + r * tile;
+          const int* sp_ = reinterpret_cast<const int*>(fr + st_bp + st_row) + r * tile;
+          const size_t o = ((size_t)(t0 + ff) * R + r) * p.B + b0;
+          if (words) {
+            const int4 uv = *reinterpret_cast<const int4*>(su_);
+            if (p.u_wide)
+              *reinterpret_cast<int4*>(static_cast<int*>(p.eps_u) + o) = uv;
+            else
+              *reinterpret_cast<char4*>(static_cast<int8_t*>(p.eps_u) + o) =
+                  make_char4((char)uv.x, (char)uv.y, (char)uv.z, (char)uv.w);
+            if (kK1)
+              *reinterpret_cast<int4*>(p.eps_prev + o) = *reinterpret_cast<const int4*>(sp_);
+          } else {
+            for (int k = 0; k < nb_; ++k) {
+              if (p.u_wide)
+                static_cast<int*>(p.eps_u)[o + k] = su_[k];
+              else
+                static_cast<int8_t*>(p.eps_u)[o + k] = (int8_t)su_[k];
+              if (kK1) p.eps_prev[o + k] = sp_[k];
+            }
+          }
+        }
+      }
+      bar_arrive(kBarEmpty, n_all);
+    }
+    return;
+  }
+
+  // the stream's warps meet at their own named barrier
+  auto stream_sync = [&]() { bar_sync(kBarStream + sw, kSL); };
+
+  // ---- emission ring ------------------------------------------------------
+  const float* nb = p.nll + (size_t)b * p.sb;
+  auto prefetch = [&](int tf) {
+    if (tf < T) {
+      float* dst = ring + (tf % kRing) * p.U;
+      const float* src = nb + (size_t)tf * p.st;
+      for (int u = ln; u < p.U; u += kSL) cp_async4(dst + u, src + (size_t)u * p.su);
+    }
+    cp_async_commit();  // an empty group keeps the group count per frame fixed
+  };
+  if (kRingOn)
+    for (int tf = 0; tf < kRing - 1; ++tf) prefetch(tf);
+
+  for (int i = ln; i < S + kPad; i += kSL) {
+    cur[i - kPad] = SRT_POS_INF;
+    nxt[i - kPad] = SRT_POS_INF;
+  }
+  for (int r = ln; r < R; r += kSL) eu[r] = -1;  // -1: not entered by eps
+  stream_sync();
+
+  // the optional trace: lane 0 of each stream sums clock64() deltas per phase
+  long long tr[kPhases] = {0, 0, 0, 0, 0, 0};
+  long long tc = clock64();
+  auto mark = [&](int ph) {
+    if (p.trace) {
+      const long long now = clock64();
+      tr[ph] += now - tc;
+      tc = now;
+    }
+  };
+
+  int buf = 0, f = 0;  // staging buffer and frame within it
+  for (int t = 0; t < T; ++t) {
+    const float* er = ring + (t % kRing) * p.U;
+    if (kRingOn) {
+      prefetch(t + kRing - 1);
+      cp_async_wait<kRing - 1>();
+      stream_sync();
+    }
+    const float* eg = nb + (size_t)t * p.st;
+    auto emis = [&](int u) {
+      const float e = kRingOn ? er[u] : __ldg(eg + (size_t)u * p.su);
+      return kK1 ? e : fminf(e, SRT_POS_INF);
+    };
+    // a block of kf frames reuses the buffer of the block before last:
+    // wait until the writer warp has written that one out
+    if (p.kf && f == 0 && t >= 2 * p.kf) bar_sync(kBarEmpty, n_all);
+    // this frame's codes: written straight into the staging slot (its bp8
+    // row) when planes are staged, else into the work area
+    unsigned char* fb = stage + (size_t)(buf * p.kf + f) * st_frame;
+    int8_t* code = p.kf ? reinterpret_cast<int8_t*>(fb) + sw : wcode;
+    const int cs = p.kf ? tile : 1;  // code stride
+    mark(0);
+
+    // (a) band relaxation + emission; frame 0 seeds from init (code 0)
+    if (t == 0) {
+      for (int s = ln; s < S; s += kSL) {
+        nxt[s] = fminf(__ldg(p.init + s) + emis(bank_of(s)), SRT_POS_INF);
+        code[s * cs] = 0;
+      }
+    } else {
+      // kBatch states per lane at a time: every load of a batch is issued
+      // before its first store (the stores could alias the loads)
+      for (int sb = ln; sb < S; sb += kBatch * kSL) {
+        float4 bd[kBatch];
+        float c0[kBatch], c1[kBatch], c2[kBatch], e[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const int s = min(sb + k * kSL, S - 1);  // past S: a copy, not written
+          bd[k] = ldt<kTables>(band4 + s);
+          c0[k] = cur[s];
+          c1[k] = cur[s - 1];  // POS_INF in front of the row
+          c2[k] = cur[s - 2];
+        }
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) e[k] = emis(__float_as_int(bd[k].w));
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const int s = sb + k * kSL;
+          if (s < S) {
+            int d;
+            const float best = band_select<kMode>(bd[k].x + c0[k], bd[k].y + c1[k],
+                                                  bd[k].z + c2[k], d);
+            nxt[s] = fminf(best + e[k], SRT_POS_INF);
+            code[s * cs] = (int8_t)d;
+          }
+        }
+      }
+    }
+    stream_sync();
+    mark(1);
+
+    // (b) eps passes: snapshot the word-end costs; each lane computes its
+    // rows' candidates from the snapshot (lanes take consecutive rows, so
+    // the rows of one eps range read consecutive entries of the transposed
+    // block and one word end per step) and applies each to the row's start
+    for (int pass = 0; pass < p.eps_depth; ++pass) {
+      for (int ub = ln; ub < L; ub += 4 * kSL) {
+        int e[4], pe[4];
+        float v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) e[k] = ldt<kTables>(word_ends + min(ub + k * kSL, L - 1));
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          v[k] = nxt[e[k]];
+          pe[k] = kK1 ? e[k] - code[e[k] * cs] : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (ub + k * kSL < L) {
+            ends[ub + k * kSL] = v[k];
+            if (kK1) endpp[ub + k * kSL] = pe[k];
+          }
+      }
+      stream_sync();
+      bool improved = false;
+      for (int r = ln; r < R; r += kSL) {
+        const int lo = ldt<kTables>(row_lo + r), hi = ldt<kTables>(row_hi + r);
+        const int st = ldt<kTables>(word_starts + r);
+        const float es = emis(bank_of(st));
+        const float old = nxt[st];  // the row's start is this lane's alone
+        const float* ec = eps_t + r;
+        float bm = SRT_POS_INF;
+        int arg = 0;
+        for (int u = lo; u < hi; u += 4) {  // four loads in flight per step
+          float v[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)  // past the span: +inf, never a strict minimum
+            v[k] = u + k < hi ? ldt<kTables>(ec + (size_t)(u + k) * R) + ends[u + k]
+                              : INFINITY;
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (v[k] < bm) {  // strict: first minimum in origin order
+              bm = v[k];
+              arg = u + k;
+            }
+        }
+        const float cand = fminf(bm + es, SRT_POS_INF);
+        if (cand < old) {  // strict improvement only
+          nxt[st] = cand;
+          code[st * cs] = (int8_t)kEpsCode;
+          eu[r] = arg;
+          improved = true;
+        }
+      }
+      // (this barrier also orders the applies before the next snapshot);
+      // K8 stops once a pass improves nothing
+      if (!bar_any(kBarStream + sw, kSL, improved)) break;
+    }
+    mark(2);
+
+    // (c) planes of this frame: bp8 (already in the staging slot when
+    // staged); eps_u (and K1's eps_prev) per row from its own lane: the
+    // last improving origin, 0 when no pass improved the row's start
+    if (!p.kf && live)
+      for (int s = ln; s < S; s += kSL) p.bp8[((size_t)t * S + s) * p.B + b] = code[s];
+    int* st_u = reinterpret_cast<int*>(fb + st_bp) + sw;
+    for (int r = ln; r < R; r += kSL) {
+      const int uo = max(eu[r], 0);
+      const int pp = (kK1 && eu[r] >= 0) ? endpp[uo] : 0;
+      eu[r] = -1;
+      if (p.kf) {
+        st_u[r * tile] = uo;
+        if (kK1) reinterpret_cast<int*>(fb + st_bp + st_row)[r * tile + sw] = pp;
+      } else if (live) {
+        const size_t o = ((size_t)t * R + r) * p.B + b;
+        if (p.u_wide)
+          static_cast<int*>(p.eps_u)[o] = uo;
+        else
+          static_cast<int8_t*>(p.eps_u)[o] = (int8_t)uo;
+        if (kK1) p.eps_prev[o] = pp;
+      }
+    }
+    mark(3);
+
+    // (d) length mask: the carry moves on only for active frames
+    const bool frozen = kK1 ? t >= nf : (t >= 1 && t >= nf);
+    if (!frozen) {
+      float* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+    stream_sync();  // the ring slot and the work area are reused next frame
+    mark(4);
+
+    // (e) every kf frames (and after the last) hand the block to the writer
+    if (p.kf && (f == p.kf - 1 || t == T - 1)) {
+      bar_arrive(kBarFull, n_all);
+      buf ^= 1;
+      f = 0;
+    } else if (p.kf) {
+      ++f;
+    }
+    mark(5);
+  }
+  if (kRingOn) cp_async_wait<0>();
+  // the writer's last two blocks: keep the barrier generations balanced
+  if (p.kf)
+    for (int j = max((T + p.kf - 1) / p.kf - 2, 0); j < (T + p.kf - 1) / p.kf; ++j)
+      bar_sync(kBarEmpty, n_all);
+
+  if (!live) return;
+  if (p.trace && ln == 0)
+    for (int k = 0; k < kPhases; ++k) p.trace[(size_t)b * kPhases + k] = tr[k];
+  const bool has_final = kK1 || (nf >= 1 && nf <= T);
+  for (int s = ln; s < S; s += kSL)
+    p.final_cost[(size_t)s * p.B + b] = has_final ? cur[s] : SRT_POS_INF;
+}
+
+template <int kMode, bool kWorkSmem, bool kTables, bool kRingOn>
+int launch(const Params& p, int tile, cudaStream_t stream) {
+  const size_t smem = smem_bytes(kMode, p.U, p.S, p.R, p.L, tile, p.work_smem, p.tables,
+                                 p.ring, p.kf);
+  auto kernel = banded_forward_kernel<kMode, kWorkSmem, kTables, kRingOn>;
+  SRT_SET_SMEM(kernel, smem);
+  // carve out the shared memory of the CTAs an SM holds at once, no more:
+  // the rest of its 256 KB stays L1, which serves the tables read through it
+  const int grid = (p.B + tile - 1) / tile;
+  int dev = 0, n_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const size_t per_sm = smem * (size_t)((grid + n_sm - 1) / n_sm);
+  const int pct = (int)((per_sm * 100 + SRT_MAX_SMEM - 1) / SRT_MAX_SMEM);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct < 100 ? pct : 100);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, (tile * kWps + (p.kf ? 1 : 0)) * kWarp, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int kMode, bool kWorkSmem, bool kTables>
+int launch_ring(const Params& p, int tile, cudaStream_t s) {
+  return p.ring ? launch<kMode, kWorkSmem, kTables, true>(p, tile, s)
+                : launch<kMode, kWorkSmem, kTables, false>(p, tile, s);
+}
+
+template <int kMode>
+int launch_mode(const Params& p, int tile, cudaStream_t s) {
+  if (p.work_smem)
+    return p.tables ? launch_ring<kMode, true, true>(p, tile, s)
+                    : launch_ring<kMode, true, false>(p, tile, s);
+  return p.tables ? launch_ring<kMode, false, true>(p, tile, s)
+                  : launch_ring<kMode, false, false>(p, tile, s);
+}
+
+}  // namespace
+
+// Shared memory of one CTA for a plan (the wrapper's banded_plan computes
+// the same sum; the card tests hold the two equal).
+extern "C" int banded_forward_smem_bytes(int fused, int U, int S, int R, int L, int tile,
+                                         int work_smem, int tables, int ring, int kf) {
+  const size_t n = smem_bytes(fused ? kFused : kGeneral, U, S, R, L, tile, work_smem,
+                              tables, ring, kf);
+  return n > (size_t)INT_MAX ? INT_MAX : (int)n;
+}
+
+// Bytes of one stream's work area (the scratch holds one per padded stream).
+extern "C" long long banded_forward_work_bytes(int fused, int S, int R, int L) {
+  return (long long)work_bytes(fused ? kFused : kGeneral, S, R, L);
+}
+
+// nll: emission (u, t, b) at u*su + t*st + b*sb; band4 [S] float4 (band0,
+// band1, band2, bank_state's int bits); init [S]; word_starts [R];
+// word_ends [L]; eps_t [L, R]; row_lo / row_hi [R]; nf [B] -> final [S, B],
+// bp8 [T, S, B], eps_u [T, R, B], eps_prev [T, R, B] (fused).  scratch:
+// (B rounded up to the tile) work areas when work_smem is 0.  trace: null,
+// or [B, 6] int64 that receives each stream's cycles per phase of the frame
+// steps (emission wait, band, eps passes, plane rows, mask, flush;
+// scripts/exp_r6_dp_plan.py reads it).
+extern "C" int banded_forward_launch(
+    int fused, const float* nll, long long su, long long st, long long sb,
+    const void* band4, const float* init, const int* word_starts, const int* word_ends,
+    const float* eps_t, const int* row_lo, const int* row_hi, const int* nf,
+    float* final_cost, int8_t* bp8, void* eps_u, int u_wide, int* eps_prev, void* scratch,
+    int U, int T, int B, int S, int R, int L, int eps_depth, int tile, int work_smem,
+    int tables, int ring, int kf, long long* trace, void* stream) {
+  if (U < 1 || S < 1 || R < 1 || L < 1 || eps_depth < 1 || B <= 0 || T <= 0 ||
+      tile < 1 || tile > kMaxTile || kf < 0 || (!work_smem && scratch == nullptr) ||
+      (fused && (eps_depth != 1 || eps_prev == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.nll = nll; p.su = su; p.st = st; p.sb = sb;
+  p.band4 = static_cast<const float4*>(band4); p.init = init;
+  p.word_starts = word_starts; p.word_ends = word_ends; p.eps_t = eps_t;
+  p.row_lo = row_lo; p.row_hi = row_hi;
+  p.nf = nf; p.final_cost = final_cost; p.bp8 = bp8; p.eps_u = eps_u;
+  p.u_wide = u_wide; p.eps_prev = eps_prev;
+  p.scratch = static_cast<unsigned char*>(scratch);
+  p.U = U; p.T = T; p.B = B; p.S = S; p.R = R; p.L = L; p.eps_depth = eps_depth;
+  p.tile = tile; p.work_smem = work_smem; p.tables = tables; p.ring = ring; p.kf = kf;
+  p.trace = trace;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return fused ? launch_mode<kFused>(p, tile, s) : launch_mode<kGeneral>(p, tile, s);
+}

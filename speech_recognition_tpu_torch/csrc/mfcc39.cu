@@ -12,7 +12,11 @@
 // and computes ops/frontend.mfcc (psf): the same chain as K3 up to the
 // lifted DCT, whose rows go straight to out [B, F, n_ceps] (rows >= nf
 // exact zeros).  It keeps no [F, n_ceps] block in shared memory, so it
-// has no frame limit.
+// has no frame limit.  Where K3's [F, n_ceps] cepstra and first deltas do
+// not fit in shared memory (more than ~1,967 frames, about 19.7 s at
+// 16 kHz), they go to a [B, 2, F, n_ceps] device-memory scratch instead
+// (template mode kScratch; the same code through global pointers), so K3
+// has no frame limit either.
 //
 // Chain per utterance: pre-emphasis (emph[0] = s[0], samples at/after
 // `length` zeroed) -> framing -> Hamming window -> (frames longer than
@@ -33,9 +37,9 @@
 // afterwards by conjugate symmetry) and four such FFTs run per step, so
 // each barrier serves 8 frames; the radix-2 FFT replaces the TPU's
 // staged GEMM DFT (on this card a gather is an indexed load, no MXU
-// layout to serve).  Cepstra and deltas stay in shared memory, so the
-// tail (deltas + standardize) never touches device memory; the output
-// is written once, coalesced.  All arithmetic is f32.
+// layout to serve).  Cepstra and deltas stay in shared memory where they
+// fit, so the tail (deltas + standardize) never touches device memory;
+// the output is written once, coalesced.  All arithmetic is f32.
 
 #include <math.h>
 
@@ -70,7 +74,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <bool kCepsOnly>
+template <bool kCepsOnly, bool kScratch>
 __global__ void __launch_bounds__(kThreads)
 mfcc39_kernel(const float* __restrict__ sig, const int* __restrict__ lengths,
               const int* __restrict__ nframes,
@@ -78,19 +82,21 @@ mfcc39_kernel(const float* __restrict__ sig, const int* __restrict__ lengths,
               const float* __restrict__ mel_w, const int* __restrict__ mel_lo,
               const int* __restrict__ mel_hi,
               const float* __restrict__ dct_lift, float* __restrict__ out,
-              int L, int F, int fl, int fs, float preemph, int n_mels,
-              int n_ceps, int standardize) {
+              float* __restrict__ scratch, int L, int F, int fl, int fs,
+              float preemph, int n_mels, int n_ceps, int standardize) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float2* z = reinterpret_cast<float2*>(smem_raw);     // [kPairs][kFFT]
   float2* tw = z + kPairs * kFFT;                       // [kFFT / 2]
   float* pw = reinterpret_cast<float*>(tw + kFFT / 2);  // [kFrames][kBins]
   float* lm = pw + kFrames * kBins;                     // [kFrames][n_mels]
-  // K3: [F][n_ceps] cepstra in shared memory; K12: the output rows
-  float* ceps = kCepsOnly ? out + (size_t)blockIdx.x * F * n_ceps
-                          : lm + kFrames * n_mels;
-  float* d1 = lm + kFrames * n_mels + F * n_ceps;       // [F][n_ceps] (K3)
-  float* mean = d1 + F * n_ceps;                        // [3 * n_ceps]
+  float* mean = lm + kFrames * n_mels;                  // [3 * n_ceps]
   float* scale = mean + 3 * n_ceps;                     // [3 * n_ceps]
+  // K3: [F][n_ceps] cepstra and first deltas in shared memory, or in the
+  // utterance's scratch rows; K12: the cepstra are the output rows
+  float* ceps = kCepsOnly ? out + (size_t)blockIdx.x * F * n_ceps
+                : kScratch ? scratch + (size_t)blockIdx.x * 2 * F * n_ceps
+                           : scale + 3 * n_ceps;
+  float* d1 = ceps + F * n_ceps;                        // [F][n_ceps] (K3)
 
   const int b = blockIdx.x, tid = threadIdx.x;
   const float* s = sig + (size_t)b * L;
@@ -223,27 +229,40 @@ mfcc39_kernel(const float* __restrict__ sig, const int* __restrict__ lengths,
 
 }  // namespace
 
+// Shared memory of one CTA; F = 0 gives the form without the [F][n_ceps]
+// blocks (K12, and K3 with its scratch).
 extern "C" int mfcc39_smem_bytes(int F, int n_mels, int n_ceps) {
-  return (kPairs * kFFT + kFFT / 2) * (int)sizeof(float2) +
-         (kFrames * kBins + kFrames * n_mels + 2 * F * n_ceps + 6 * n_ceps) *
-             (int)sizeof(float);
+  const long long n = (kPairs * kFFT + kFFT / 2) * (long long)sizeof(float2) +
+                      (kFrames * kBins + kFrames * n_mels + 2LL * F * n_ceps +
+                       6 * n_ceps) * (long long)sizeof(float);
+  return n > 0x7fffffffLL ? 0x7fffffff : (int)n;
 }
 
 // signals [B, L] f32, lengths/nf [B] i32, window [fl], mel_w [n_mels, 257],
-// mel_lo/mel_hi [n_mels] i32, dct_lift [n_mels, n_ceps] -> out [B, F, 3*n_ceps]
+// mel_lo/mel_hi [n_mels] i32, dct_lift [n_mels, n_ceps] -> out [B, F, 3*n_ceps];
+// scratch: null (cepstra and deltas in shared memory) or [B, 2, F, n_ceps]
 extern "C" int mfcc39_launch(const float* sig, const int* lengths,
                              const int* nf, const float* window,
                              const float* mel_w, const int* mel_lo,
                              const int* mel_hi, const float* dct_lift,
-                             float* out, int B, int L, int F, int fl, int fs,
-                             float preemph, int n_mels, int n_ceps,
+                             float* out, float* scratch, int B, int L, int F, int fl,
+                             int fs, float preemph, int n_mels, int n_ceps,
                              int standardize, void* stream) {
   if (B <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
-  const int smem = mfcc39_smem_bytes(F, n_mels, n_ceps);
-  SRT_SET_SMEM(mfcc39_kernel<false>, smem);
-  mfcc39_kernel<false><<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      sig, lengths, nf, window, mel_w, mel_lo, mel_hi, dct_lift, out, L, F,
-      fl, fs, preemph, n_mels, n_ceps, standardize);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (scratch) {
+    const int smem = mfcc39_smem_bytes(0, n_mels, n_ceps);
+    SRT_SET_SMEM((mfcc39_kernel<false, true>), smem);
+    mfcc39_kernel<false, true><<<B, kThreads, smem, st>>>(
+        sig, lengths, nf, window, mel_w, mel_lo, mel_hi, dct_lift, out, scratch, L,
+        F, fl, fs, preemph, n_mels, n_ceps, standardize);
+  } else {
+    const int smem = mfcc39_smem_bytes(F, n_mels, n_ceps);
+    SRT_SET_SMEM((mfcc39_kernel<false, false>), smem);
+    mfcc39_kernel<false, false><<<B, kThreads, smem, st>>>(
+        sig, lengths, nf, window, mel_w, mel_lo, mel_hi, dct_lift, out, nullptr, L,
+        F, fl, fs, preemph, n_mels, n_ceps, standardize);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -258,9 +277,9 @@ extern "C" int mfcc_ceps_launch(const float* sig, const int* lengths,
                                 void* stream) {
   if (B <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
   const int smem = mfcc39_smem_bytes(0, n_mels, n_ceps);
-  SRT_SET_SMEM(mfcc39_kernel<true>, smem);
-  mfcc39_kernel<true><<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      sig, lengths, nf, window, mel_w, mel_lo, mel_hi, dct_lift, out, L, F,
+  SRT_SET_SMEM((mfcc39_kernel<true, false>), smem);
+  mfcc39_kernel<true, false><<<B, kThreads, smem, (cudaStream_t)stream>>>(
+      sig, lengths, nf, window, mel_w, mel_lo, mel_hi, dct_lift, out, nullptr, L, F,
       fl, fs, preemph, n_mels, n_ceps, 0);
   return (int)cudaGetLastError();
 }

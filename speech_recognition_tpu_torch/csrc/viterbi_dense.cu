@@ -40,7 +40,10 @@
 // then, after a barrier, applies them, so every row reads the pre-pass
 // cost.  The matrices are staged in shared memory where 2 * S^2 * 4
 // bytes fit beside the frontier (transcript graphs), else read from
-// device memory (L2-resident).  Narrow form (S <= 32, isolated words):
+// device memory (L2-resident).  A frontier too wide for shared memory
+// (above ~11,600 states) lives in a [B, 5, S] device-memory scratch
+// (template mode kScratch), so no graph size is refused.  Narrow form
+// (S <= 32, isolated words):
 // one warp per item, 8 items per CTA, lane = destination state, the
 // frontier in registers read across lanes with shuffles, the item's
 // matrices in shared memory.
@@ -90,6 +93,7 @@ __device__ __forceinline__ void row_min(const float* row, const float* cost,
   warp_argmin(v, idx);
 }
 
+template <bool kScratch>
 __global__ void __launch_bounds__(kCtaThreads)
 viterbi_dense_cta_kernel(const float* __restrict__ nll,
                          const float* __restrict__ trans,
@@ -97,16 +101,19 @@ viterbi_dense_cta_kernel(const float* __restrict__ nll,
                          const float* __restrict__ init,
                          const int* __restrict__ nframes,
                          float* __restrict__ final_cost, int* __restrict__ bp,
-                         int* __restrict__ eps_bp, int T, int S,
-                         int mat_per_item, int init_per_item, int eps_depth,
-                         int stage) {
+                         int* __restrict__ eps_bp, float* __restrict__ scratch,
+                         int T, int S, int mat_per_item, int init_per_item,
+                         int eps_depth, int stage) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* prev = reinterpret_cast<float*>(smem_raw);  // [S]
+  // the frontier: in shared memory, or in the item's scratch rows
+  float* prev = kScratch ? scratch + (size_t)blockIdx.x * 5 * S
+                         : reinterpret_cast<float*>(smem_raw);  // [S]
   float* cur = prev + S;                              // [S]
   float* cand = cur + S;                              // [S]
   int* ebp = reinterpret_cast<int*>(cand + S);        // [S]
   int* cidx = ebp + S;                                // [S]
-  float* staged = reinterpret_cast<float*>(cidx + S);  // [S*S] trans, [S*S] eps
+  float* staged = reinterpret_cast<float*>(smem_raw);  // [S*S] trans, [S*S] eps
+  if (!kScratch) staged = reinterpret_cast<float*>(cidx + S);
 
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid % kWarp, warp = tid / kWarp, n_warps = blockDim.x / kWarp;
@@ -286,7 +293,8 @@ viterbi_dense_warp_kernel(const float* __restrict__ nll,
 }  // namespace
 
 // Shared memory of the wide form: the frontier (prev, cur, candidates and
-// two index rows) and, with `stage`, the staged matrices.
+// two index rows) and, with `stage`, the staged matrices.  Where the
+// frontier alone does not fit, the launcher takes a [B, 5, S] scratch.
 extern "C" int viterbi_dense_smem_bytes(int S, int use_eps, int stage) {
   if (S <= kWarp)
     return kItemsPerCta * (use_eps ? 2 : 1) * S * S * (int)sizeof(float);
@@ -299,11 +307,13 @@ extern "C" int viterbi_dense_smem_bytes(int S, int use_eps, int stage) {
 // nll [B, T, S] f32; trans / eps [S, S] or [B, S, S] (mat_per_item), eps
 // may be null; init [S] or [B, S] (init_per_item); nf [B] i32 ->
 // final [B, S] f32, bp / eps_bp [B, T, S] i32 (both null: planes off).
+// scratch: null, or [B, 5, S] 4-byte words for a frontier too wide for
+// shared memory (wide form, no staging).
 extern "C" int viterbi_dense_launch(const float* nll, const float* trans,
                                     const float* eps, const float* init,
                                     const int* nf, float* final_cost, int* bp,
-                                    int* eps_bp, int B, int T, int S,
-                                    int mat_per_item, int init_per_item,
+                                    int* eps_bp, float* scratch, int B, int T,
+                                    int S, int mat_per_item, int init_per_item,
                                     int eps_depth, int stage, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || (bp == nullptr) != (eps_bp == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -316,12 +326,16 @@ extern "C" int viterbi_dense_launch(const float* nll, const float* trans,
                                 kItemsPerCta * kWarp, smem, st>>>(
         nll, trans, eps, init, nf, final_cost, bp, eps_bp, B, T, S,
         mat_per_item, init_per_item, eps_depth);
+  } else if (scratch) {
+    viterbi_dense_cta_kernel<true><<<B, kCtaThreads, 0, st>>>(
+        nll, trans, eps, init, nf, final_cost, bp, eps_bp, scratch, T, S,
+        mat_per_item, init_per_item, eps_depth, 0);
   } else {
     const int smem = viterbi_dense_smem_bytes(S, use_eps, stage);
-    SRT_SET_SMEM(viterbi_dense_cta_kernel, smem);
-    viterbi_dense_cta_kernel<<<B, kCtaThreads, smem, st>>>(
-        nll, trans, eps, init, nf, final_cost, bp, eps_bp, T, S, mat_per_item,
-        init_per_item, eps_depth, stage);
+    SRT_SET_SMEM(viterbi_dense_cta_kernel<false>, smem);
+    viterbi_dense_cta_kernel<false><<<B, kCtaThreads, smem, st>>>(
+        nll, trans, eps, init, nf, final_cost, bp, eps_bp, nullptr, T, S,
+        mat_per_item, init_per_item, eps_depth, stage);
   }
   return (int)cudaGetLastError();
 }

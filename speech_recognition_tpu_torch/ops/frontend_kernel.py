@@ -80,7 +80,9 @@ def _kernel_inputs(signals, lengths, cfg: FrontendConfig, n_frames_cap, what: st
 def mfcc39_fused(signals, lengths, cfg: FrontendConfig = FrontendConfig(),
                  n_frames_cap: int = None, norm: str = "utterance"):
     """Kernel K3 for a CUDA ``signals [B, L]`` (f32, contiguous); the
-    plain version for a CPU tensor.  Returns ``([B, F, 39], nf [B])``."""
+    plain version for a CPU tensor.  Returns ``([B, F, 39], nf [B])``.
+    Any frame count: above ~1,967 frames the kernel keeps its cepstra and
+    deltas in a device-memory scratch instead of shared memory."""
     if not signals.is_cuda:
         return mfcc39_fused_ref(signals, lengths, cfg, n_frames_cap, norm)
     from speech_recognition_tpu_torch.utils.build import check, load_library
@@ -92,18 +94,20 @@ def mfcc39_fused(signals, lengths, cfg: FrontendConfig = FrontendConfig(),
     b, L = signals.shape
     n_mels, n_ceps = c["dct_lift"].shape
     lib = load_library()
-    smem, limit = lib.mfcc39_smem_bytes(F, n_mels, n_ceps), lib.srt_smem_limit()
-    if smem > limit:
-        raise ValueError(f"mfcc39 kernel: {F} frames need {smem} B of shared "
-                         f"memory, over the {limit} B limit")
     out = torch.empty((b, F, 3 * n_ceps), dtype=torch.float32, device=dev)
     if b == 0:
         return out, nf
+    # cepstra and first deltas too long for shared memory go to a
+    # [B, 2, F, n_ceps] device-memory scratch
+    scratch = None
+    if lib.mfcc39_smem_bytes(F, n_mels, n_ceps) > lib.srt_smem_limit():
+        scratch = torch.empty((b, 2, F, n_ceps), dtype=torch.float32, device=dev)
     ptr = [t.data_ptr() for t in (signals, lengths, nf, c["window"], c["mel_w"],
                                   c["mel_lo"], c["mel_hi"], c["dct_lift"], out)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mfcc39_launch(*ptr, b, L, F, cfg.frame_len, cfg.frame_step,
+        rc = lib.mfcc39_launch(*ptr, scratch.data_ptr() if scratch is not None else None,
+                               b, L, F, cfg.frame_len, cfg.frame_step,
                                ctypes.c_float(cfg.effective_preemph), n_mels,
                                n_ceps, int(norm == "utterance"), stream)
     check(rc, "mfcc39 kernel")

@@ -7,9 +7,9 @@ against a whole bank of mixtures is one matmul:
     nll = [x^2, x, 1] @ [0.5/var, -mu/var, const]^T
 
 followed by a logsumexp over mixtures.  The emission GEMM is
-``torch.matmul`` in f32 (TF32 off, see ``utils.numerics``); the fused
-decode kernel (``csrc/viterbi_banded.cu``) evaluates the same form
-per frame inside the Viterbi.
+``torch.matmul`` in f32 (TF32 off, see ``utils.numerics``); the
+emission kernel of the banded decode (``csrc/bank_emission.cu``) and the
+word-trace kernel (``csrc/viterbi_banded.cu``) evaluate the same form.
 """
 
 from __future__ import annotations

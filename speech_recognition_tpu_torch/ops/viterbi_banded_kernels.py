@@ -18,6 +18,15 @@ on the connected-decode path:
   takes K1's graphs and emission and writes entry-time side planes
   instead of backpointers; ``wordtrace_words_device`` walks them.
 
+K1 runs as two launches: the emission kernel K13 (``bank_emission``,
+``csrc/bank_emission.cu``: every frame's bank NLLs in one tiled GEMM
+with the mixture logsumexp in its epilogue) and the banded DP
+of ``csrc/banded_forward.cu`` in its uniform-graph mode; K8 is the same
+DP in its general mode on ``bank_nll_ubt``'s emissions.
+``banded_plan`` picks the DP's streams per CTA, where its frontier lives
+(shared memory or a device-memory scratch) and how many frames of planes
+it stages; no graph size is refused.
+
 No kernel implements cross edges, so a graph that carries them (a
 lexical tree) is refused here rather than decoded without them; it goes
 to ``ops.viterbi_lex_kernels``.
@@ -46,7 +55,8 @@ from speech_recognition_tpu_torch.ops.viterbi_banded import (
 )
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
-__all__ = ["BandedTopo", "banded_topology", "use_kernels",
+__all__ = ["BandedTopo", "banded_topology", "use_kernels", "BandedPlan", "banded_plan",
+           "bank_emission", "bank_emission_ref", "fused_dp_ref",
            "viterbi_banded_fused", "viterbi_banded_fused_ref",
            "banded_backtrace_val", "banded_backtrace_val_ref",
            "viterbi_banded_general", "viterbi_banded_general_ref",
@@ -133,6 +143,70 @@ def _n_sm(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+def bank_emission_ref(xa, w, lw):
+    """Plain version of the emission kernel K13: ``xa [A, T, B]``
+    augmented features, ``w [U, M, A]`` / ``lw [U, M]`` ->
+    ``nll [U, T, B] = -logsumexp_m(lw[u, m] - w[u, m] . xa[:, t, b])``,
+    one GEMM and a max-shifted logsumexp (every frame, no length mask)."""
+    a, t_len, b = xa.shape
+    u, m, _ = w.shape
+    pm = torch.matmul(w.reshape(u * m, a), xa.reshape(a, t_len * b))
+    z = lw.reshape(u, m, 1) - pm.reshape(u, m, t_len * b)
+    zmax = z.amax(1, keepdim=True)
+    return (-(torch.log(torch.exp(z - zmax).sum(1)) + zmax[:, 0])).reshape(u, t_len, b)
+
+
+_EMIS_COLS = 64  # columns per tile of the emission kernel
+
+
+def _emission_smem(a: int, u: int, m: int, stage: bool) -> int:
+    """Shared memory of one emission CTA: the ``[A][U][Mp]`` weights
+    (mixtures padded to a multiple of 4) when staged, and the
+    ``[A][64]`` feature tile (``bank_emission_smem_bytes``)."""
+    return 4 * ((a * u * (-(-m // 4) * 4) if stage else 0) + a * _EMIS_COLS)
+
+
+def bank_emission(xa, w, lw):
+    """K13 for CUDA tensors (``csrc/bank_emission.cu``), the plain version
+    for CPU tensors.  Arguments and result as ``bank_emission_ref``; the
+    kernel writes a ``[T, B, U]`` plane and returns it as a ``[U, T, B]``
+    view (strides ``(1, B*U, U)``)."""
+    if not use_kernels(xa):
+        return bank_emission_ref(xa, w, lw)
+    from speech_recognition_tpu_torch.utils.build import check, load_library
+
+    dev = xa.device
+    if xa.dtype != torch.float32 or xa.dim() != 3 or not xa.is_contiguous():
+        raise ValueError("xa must be a contiguous float32 [A, T, B] tensor")
+    a, t_len, b = xa.shape
+    u, m, a_w = w.shape
+    if a_w != a or lw.shape != (u, m):
+        raise ValueError(f"emission weights {tuple(w.shape)}/{tuple(lw.shape)} "
+                         f"do not match features [A={a}]")
+    _check_devices(dev, "features", [("w", w), ("lw", lw)])
+    out = torch.empty((t_len, b, u), dtype=torch.float32, device=dev)
+    n = t_len * b
+    if n == 0:
+        return out.permute(2, 0, 1)
+    mp = -(-m // 4) * 4
+    wp = torch.zeros((a, u, mp), dtype=torch.float32, device=dev)
+    wp[:, :, :m] = w.permute(2, 0, 1).float()
+    lwc = lw.contiguous().float()
+    lib = load_library()
+    stage = _emission_smem(a, u, m, True) <= lib.srt_smem_limit()
+    grid = min(-(-n // _EMIS_COLS), 2 * _n_sm(dev))
+    with torch.cuda.device(dev):
+        rc = lib.bank_emission_launch(xa.data_ptr(), wp.data_ptr(), lwc.data_ptr(),
+                                      out.data_ptr(), a, n, u, m, int(stage), grid,
+                                      torch.cuda.current_stream(dev).cuda_stream)
+    check(rc, "bank emission kernel")
+    bank_emission.launches += 1
+    return out.permute(2, 0, 1)
+
+
+bank_emission.launches = 0
+
+
 def viterbi_banded_fused_ref(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
     """Plain version of K1.
 
@@ -142,17 +216,19 @@ def viterbi_banded_fused_ref(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_fram
     eps_u [T, R, B], eps_prev [T, R, B] int32)``.
     """
     _check_fused(g, topo)
-    a, t_len, b = xa.shape
-    u, m, _ = w.shape
-    dev = xa.device
+    return fused_dp_ref(bank_emission_ref(xa, w, lw), g, n_frames)
+
+
+def fused_dp_ref(nll_bank, g: BandedGraph, n_frames):
+    """K1's DP on given bank emissions ``nll_bank [U, T, B]``: the min-chain
+    band (largest d on ties), one eps pass (first minimum, strict
+    improvement, ``eps_prev = end - d_end``) and the length mask.  The
+    plain version of the DP kernel's uniform-graph mode."""
+    _, t_len, b = nll_bank.shape
+    dev = nll_bank.device
     s, r, l = g.n_states, g.n_words, g.n_ends
     n_frames = n_frames.to(dev)
     u_dtype = _eps_u_dtype(l)
-    pm = torch.matmul(w.reshape(u * m, a), xa.reshape(a, t_len * b))
-    z = lw.reshape(u, m, 1) - pm.reshape(u, m, t_len * b)
-    zmax = z.amax(1, keepdim=True)
-    nll_bank = -(torch.log(torch.exp(z - zmax).sum(1)) + zmax[:, 0])
-    nll_bank = nll_bank.reshape(u, t_len, b)
     starts, ends = g.word_starts, g.word_ends
     bank_starts = g.bank_state[starts]
 
@@ -188,32 +264,174 @@ def viterbi_banded_fused_ref(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_fram
     return prev, bp8, eps_u, eps_prev
 
 
-_K1_TILES = (32, 16, 8, 4)  # streams per CTA the kernel is built for
+# The DP kernel's launch plan (csrc/banded_forward.cu), mirrored here so
+# that it is testable without a card; the card tests hold these byte
+# counts equal to the kernel's own.
+_TILES = (1, 2, 4)  # streams per CTA (four warps each)
+_RING = 4           # frames in each stream's emission ring
+_KF = (8, 4, 2, 1)  # frames of planes staged per hand-off to the writer warp
 
 
-def _k1_launch_plan(b: int, n_sm: int, smem_bytes, limit: int) -> Tuple[int, bool]:
-    """``(tile, stage_weights)`` for K1.  The tile is the largest that
-    still gives every SM a CTA; when the shared memory
-    ``smem_bytes(tile, stage)`` exceeds ``limit``, smaller tiles are
-    tried, then the same without staging the emission weights.  Raises
-    when even 4 unstaged streams per CTA do not fit."""
-    first = next((t for t in _K1_TILES if -(-b // t) >= n_sm), _K1_TILES[-1])
-    tiles = [t for t in _K1_TILES if t <= first]
+class BandedPlan(NamedTuple):
+    """How the DP kernel runs a batch: ``tile`` streams per CTA;
+    ``work_smem``: each stream's work area (its frontier, codes, word-end
+    snapshot and row origins, ``work`` bytes) in shared memory, else in a
+    device-memory scratch; ``tables``: the CTA's copy of the graph tables
+    in shared memory, else they are read through L1; ``ring``: the
+    emission ring; ``kf``: frames of planes staged per hand-off to the
+    writer warp (0: each stream writes its rows itself); ``smem``: bytes
+    of shared memory per CTA."""
+
+    tile: int
+    work_smem: bool
+    tables: bool
+    ring: bool
+    kf: int
+    smem: int
+    work: int
+
+    @property
+    def frontier(self) -> str:
+        """Where the cost frontier lives: ``shared`` or ``device`` memory."""
+        return "shared" if self.work_smem else "device"
+
+
+def _r16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def banded_work_bytes(fused: bool, s: int, r: int, l: int) -> int:
+    """One stream's work area: two cost rows (with 4 POS_INF entries in
+    front) and the codes of the frontier, the word-end snapshot (and K1's
+    eps_prev per end), and each row's last improving origin
+    (``banded_forward_work_bytes``)."""
+    return (2 * _r16(4 * (s + 4)) + _r16(s) + _r16(4 * l) * (2 if fused else 1)
+            + _r16(4 * r))
+
+
+def banded_table_bytes(s: int, r: int, l: int) -> int:
+    """The CTA's copy of the graph tables: per state a float4 of the band
+    costs and the bank row, word starts, row spans, word ends and the
+    transposed eps block."""
+    return _r16(16 * s) + 3 * _r16(4 * r) + _r16(4 * l) + _r16(4 * l * r)
+
+
+def banded_smem_bytes(fused: bool, u: int, s: int, r: int, l: int, tile: int,
+                      work_smem: bool, tables: bool, ring: bool, kf: int) -> int:
+    """Shared memory of one DP CTA (``banded_forward_smem_bytes``)."""
+    per_stream = ((banded_work_bytes(fused, s, r, l) if work_smem else 0)
+                  + (_r16(4 * _RING * u) if ring else 0))
+    stage = kf * 2 * (_r16(s * tile) + (2 if fused else 1) * _r16(4 * r * tile))
+    return per_stream * tile + stage + (banded_table_bytes(s, r, l) if tables else 0)
+
+
+def banded_plan(b: int, n_sm: int, s: int, r: int, l: int, u: int, fused: bool,
+                limit: int) -> BandedPlan:
+    """The DP's plan for ``b`` streams over a graph of ``s`` states, ``r``
+    word starts, ``l`` word ends and ``u`` bank rows.  ``tile`` is the
+    fewest streams per CTA that keep the grid within one CTA per SM, up
+    to 4 (each stream takes four warps); then, in order of
+    preference, the work area in shared memory, the graph tables in
+    shared memory, the emission ring and the most staged frames that fit
+    ``limit``.  The last choice (everything in device memory, no ring,
+    no staging) needs no shared memory, so every size gets a plan."""
+    tile = next((t for t in _TILES if -(-b // t) <= n_sm), _TILES[-1])
+    work = banded_work_bytes(fused, s, r, l)
+    for work_smem in (True, False):
+        for tables in (True, False):
+            for ring in (True, False):
+                for kf in (*_KF, 0):
+                    smem = banded_smem_bytes(fused, u, s, r, l, tile, work_smem, tables,
+                                             ring, kf)
+                    if smem <= limit:
+                        return BandedPlan(tile, work_smem, tables, ring, kf, smem, work)
+    raise AssertionError("unreachable: the last plan uses no shared memory")
+
+
+def eps_row_spans(g: BandedGraph):
+    """``(lo [R], hi [R])`` int32 on the graph's device: each eps row's
+    finite origin span, from its first to one past its last finite entry,
+    ``(0, 0)`` for a row without one (``BandedTopo.row_spans``, computed
+    with tensor ops so that no host copy holds up the launch)."""
+    fin = g.eps_block < POS_INF / 2
+    some = fin.any(1)
+    lo = torch.where(some, fin.to(torch.int32).argmax(1), 0)
+    hi = torch.where(some, g.n_ends - fin.flip(1).to(torch.int32).argmax(1), 0)
+    return lo.to(torch.int32), hi.to(torch.int32)
+
+
+def _banded_forward(nll, g: BandedGraph, n_frames, eps_depth: int, fused: bool, wrapper):
+    """Launch the DP kernel on emissions ``nll [U, T, B]`` (any strides)
+    and count the launch on ``wrapper``: ``(final [S, B], bp8 [T, S, B],
+    eps_u [T, R, B][, eps_prev])``."""
+    from speech_recognition_tpu_torch.utils.build import check, load_library
+
+    dev = nll.device
+    u, t_len, b = nll.shape
+    s, r, l = g.n_states, g.n_words, g.n_ends
+    u_dtype = _eps_u_dtype(l)
+    final = torch.empty((s, b), dtype=torch.float32, device=dev)
+    bp8 = torch.empty((t_len, s, b), dtype=torch.int8, device=dev)
+    eps_u = torch.empty((t_len, r, b), dtype=u_dtype, device=dev)
+    eps_prev = torch.empty((t_len, r, b), dtype=torch.int32, device=dev) if fused else None
+    outs = (final, bp8, eps_u) + ((eps_prev,) if fused else ())
+    if b == 0 or t_len == 0:
+        final.fill_(POS_INF)
+        return outs
+    lib = load_library()
+    plan = banded_plan(b, _n_sm(dev), s, r, l, u, fused, lib.srt_smem_limit())
+    row_lo, row_hi = eps_row_spans(g)
+    scratch = None
+    if not plan.work_smem:
+        scratch = torch.empty(-(-b // plan.tile) * plan.tile * plan.work, dtype=torch.uint8,
+                              device=dev)
+
+    def i32(x):
+        return x.to(torch.int32).contiguous()
+
+    # per state (band0, band1, band2, bank row's int32 bits): one 16-byte load
+    band4 = torch.empty((s, 4), dtype=torch.float32, device=dev)
+    band4[:, :3] = g.band.T
+    band4[:, 3] = i32(g.bank_state).view(torch.float32)
+    args = [band4, g.init_cost.contiguous(), i32(g.word_starts), i32(g.word_ends),
+            g.eps_block.T.contiguous(), row_lo, row_hi, i32(n_frames)]
+    with torch.cuda.device(dev):
+        rc = lib.banded_forward_launch(
+            int(fused), nll.data_ptr(), *nll.stride(), *[x.data_ptr() for x in args],
+            final.data_ptr(), bp8.data_ptr(), eps_u.data_ptr(),
+            int(u_dtype == torch.int32), eps_prev.data_ptr() if fused else None,
+            scratch.data_ptr() if scratch is not None else None,
+            u, t_len, b, s, r, l, eps_depth, plan.tile, int(plan.work_smem),
+            int(plan.tables), int(plan.ring), plan.kf, None,
+            torch.cuda.current_stream(dev).cuda_stream)
+    check(rc, wrapper.__name__)
+    wrapper.launches += 1
+    return outs
+
+
+def _k10_launch_plan(b: int, n_sm: int, smem_bytes, limit: int) -> Tuple[int, bool]:
+    """``(tile, stage_weights)`` for K10.  The tile is the largest of 32,
+    16, 8 and 4 streams per CTA that still gives every SM a CTA; when the
+    shared memory ``smem_bytes(tile, stage)`` exceeds ``limit``, smaller
+    tiles are tried, then the same without staging the emission weights.
+    Raises when even 4 unstaged streams per CTA do not fit (ROADMAP C8:
+    lifted when K10 moves onto the banded DP of csrc/banded_forward.cu)."""
+    tiles_all = (32, 16, 8, 4)
+    first = next((t for t in tiles_all if -(-b // t) >= n_sm), tiles_all[-1])
+    tiles = [t for t in tiles_all if t <= first]
     for stage in (True, False):
         for tile in tiles:
             if smem_bytes(tile, stage) <= limit:
                 return tile, stage
-    raise ValueError(f"banded Viterbi kernel: the frontier needs "
-                     f"{smem_bytes(_K1_TILES[-1], False)} B of shared memory at "
-                     f"{_K1_TILES[-1]} streams per CTA, over the {limit} B limit "
-                     "(graph too wide; ROADMAP queue B item B1)")
+    raise ValueError(f"word-trace kernel: the frontier needs "
+                     f"{smem_bytes(tiles_all[-1], False)} B of shared memory at "
+                     f"{tiles_all[-1]} streams per CTA, over the {limit} B limit "
+                     "(ROADMAP C8)")
 
 
-def _fused_inputs(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
-    """The checks K1 and K10 share (devices, shapes, dtypes, the bank's
-    size) and their common launcher inputs ``[xa, wt, lw, band, init,
-    bank_state, eps, row_lo, row_hi, n_frames]``, to be kept referenced
-    until the launch has been enqueued."""
+def _check_fused_inputs(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
+    """The checks K1 and K10 share: devices, shapes, dtypes, the bank's
+    size."""
     dev = xa.device
     a, _, b = xa.shape
     u, m, a_w = w.shape
@@ -228,6 +446,15 @@ def _fused_inputs(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
         raise ValueError(f"n_frames has shape {tuple(n_frames.shape)}, batch is {b}")
     if topo.max_bank_state >= u:
         raise ValueError(f"graph reads bank state {topo.max_bank_state}, bank has {u}")
+
+
+def _fused_inputs(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
+    """K10's checks and launcher inputs ``[xa, wt, lw, band, init,
+    bank_state, eps, row_lo, row_hi, n_frames]``, to be kept referenced
+    until the launch has been enqueued."""
+    _check_fused_inputs(xa, w, lw, g, topo, n_frames)
+    dev = xa.device
+    u, m, a = w.shape
     wt = w.reshape(u * m, a).T.contiguous().float()
     row_lo, row_hi = (torch.from_numpy(x).to(dev) for x in topo.row_spans(g.n_words))
     return [xa, wt, lw.reshape(-1).contiguous().float(), g.band.contiguous(),
@@ -237,38 +464,16 @@ def _fused_inputs(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
 
 
 def viterbi_banded_fused(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
-    """K1 for CUDA tensors (``csrc/viterbi_banded.cu``), the plain version
-    for CPU tensors.  Arguments and results as ``viterbi_banded_fused_ref``."""
+    """K1 for CUDA tensors: the emission kernel K13, then the DP kernel
+    (``csrc/banded_forward.cu``) in its uniform-graph mode; the plain
+    version for CPU tensors.  Arguments and results as
+    ``viterbi_banded_fused_ref``."""
     if not use_kernels(xa):
         return viterbi_banded_fused_ref(xa, w, lw, g, topo, n_frames)
-    from speech_recognition_tpu_torch.utils.build import check, load_library
-
     _check_fused(g, topo)
-    args = _fused_inputs(xa, w, lw, g, topo, n_frames)
-    dev = xa.device
-    a, t_len, b = xa.shape
-    u, m, _ = w.shape
-    s, r, l = g.n_states, g.n_words, g.n_ends
-    u_dtype = _eps_u_dtype(l)
-    final = torch.empty((s, b), dtype=torch.float32, device=dev)
-    bp8 = torch.empty((t_len, s, b), dtype=torch.int8, device=dev)
-    eps_u = torch.empty((t_len, r, b), dtype=u_dtype, device=dev)
-    eps_prev = torch.empty((t_len, r, b), dtype=torch.int32, device=dev)
-    if b == 0 or t_len == 0:
-        return final.fill_(POS_INF), bp8, eps_u, eps_prev
-    lib = load_library()
-    tile, stage = _k1_launch_plan(
-        b, _n_sm(dev), lambda tl, st: lib.viterbi_banded_smem_bytes(a, u, m, s, tl, int(st)),
-        lib.srt_smem_limit())
-    with torch.cuda.device(dev):
-        rc = lib.viterbi_banded_launch(
-            *[x.data_ptr() for x in args], final.data_ptr(), bp8.data_ptr(),
-            eps_u.data_ptr(), int(u_dtype == torch.int32), eps_prev.data_ptr(),
-            a, t_len, b, u, m, s, r, l, topo.uniform_w, tile, int(stage),
-            torch.cuda.current_stream(dev).cuda_stream)
-    check(rc, "banded Viterbi kernel")
-    viterbi_banded_fused.launches += 1
-    return final, bp8, eps_u, eps_prev
+    _check_fused_inputs(xa, w, lw, g, topo, n_frames)
+    nll = bank_emission(xa, w, lw)  # [U, T, B] view of a [T, B, U] plane
+    return _banded_forward(nll, g, n_frames, 1, True, viterbi_banded_fused)
 
 
 viterbi_banded_fused.launches = 0
@@ -370,14 +575,12 @@ def viterbi_banded_general_ref(nll, g: BandedGraph, topo: BandedTopo, n_frames,
 
 def viterbi_banded_general(nll, g: BandedGraph, topo: BandedTopo, n_frames,
                            eps_depth: int = 1):
-    """K8 for CUDA tensors (``csrc/viterbi_banded.cu``, mode kGeneral),
-    the plain version for CPU tensors.  Arguments and results as
+    """K8 for CUDA tensors (``csrc/banded_forward.cu`` in its general
+    mode), the plain version for CPU tensors.  Arguments and results as
     ``viterbi_banded_general_ref``; the kernel computes every frame's
     planes, frozen frames included, as the plain scan does."""
     if not use_kernels(nll):
         return viterbi_banded_general_ref(nll, g, topo, n_frames, eps_depth)
-    from speech_recognition_tpu_torch.utils.build import check, load_library
-
     if topo.cross:
         raise ValueError("the general banded kernel does not implement cross edges "
                          "(lexical trees decode through decode.lextree)")
@@ -394,33 +597,7 @@ def viterbi_banded_general(nll, g: BandedGraph, topo: BandedTopo, n_frames,
         raise ValueError(f"graph reads bank row {topo.max_bank_state}, emissions have {u}")
     if eps_depth < 1:
         raise ValueError(f"eps_depth must be >= 1, got {eps_depth}")
-    s, r, l = g.n_states, g.n_words, g.n_ends
-    u_dtype = _eps_u_dtype(l)
-    final = torch.empty((s, b), dtype=torch.float32, device=dev)
-    bp8 = torch.empty((t_len, s, b), dtype=torch.int8, device=dev)
-    eps_u = torch.empty((t_len, r, b), dtype=u_dtype, device=dev)
-    if b == 0 or t_len == 0:
-        return final.fill_(POS_INF), bp8, eps_u
-    lib = load_library()
-    tile, _ = _k1_launch_plan(
-        b, _n_sm(dev), lambda tl, _st: lib.viterbi_banded_general_smem_bytes(u, s, r, tl),
-        lib.srt_smem_limit())
-
-    def i32(x):
-        return x.to(torch.int32).contiguous()
-
-    row_lo, row_hi = (torch.from_numpy(x).to(dev) for x in topo.row_spans(r))
-    args = [nll, g.band.contiguous(), g.init_cost.contiguous(), i32(g.bank_state),
-            i32(g.word_starts), i32(g.word_ends), g.eps_block.contiguous(), row_lo,
-            row_hi, i32(n_frames)]
-    with torch.cuda.device(dev):
-        rc = lib.viterbi_banded_general_launch(
-            *[x.data_ptr() for x in args], final.data_ptr(), bp8.data_ptr(),
-            eps_u.data_ptr(), int(u_dtype == torch.int32), u, t_len, b, s, r, l,
-            eps_depth, tile, torch.cuda.current_stream(dev).cuda_stream)
-    check(rc, "general banded Viterbi kernel")
-    viterbi_banded_general.launches += 1
-    return final, bp8, eps_u
+    return _banded_forward(nll, g, n_frames, eps_depth, False, viterbi_banded_general)
 
 
 viterbi_banded_general.launches = 0
@@ -582,8 +759,8 @@ def viterbi_banded_wordtrace_ref(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_
 
 
 def viterbi_banded_wordtrace(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
-    """K10 for CUDA tensors (``csrc/viterbi_banded.cu``, mode
-    kWordtrace), the plain version for CPU tensors.  Arguments and
+    """K10 for CUDA tensors (``csrc/viterbi_banded.cu``), the plain
+    version for CPU tensors.  Arguments and
     results as ``viterbi_banded_wordtrace_ref``."""
     if not use_kernels(xa):
         return viterbi_banded_wordtrace_ref(xa, w, lw, g, topo, n_frames)
@@ -603,7 +780,7 @@ def viterbi_banded_wordtrace(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_fram
     if b == 0 or t_len == 0:
         return final.fill_(POS_INF), eps_u, eps_tau, final_tau
     lib = load_library()
-    tile, stage = _k1_launch_plan(
+    tile, stage = _k10_launch_plan(
         b, _n_sm(dev), lambda tl, st: lib.viterbi_wordtrace_smem_bytes(a, u, m, s, tl, int(st)),
         lib.srt_smem_limit())
     with torch.cuda.device(dev):

@@ -27,8 +27,8 @@ viterbi_dense_ref = viterbi_batch
 
 
 def max_dense_states(lib) -> int:
-    """The most states K11's frontier (five ``[S]`` rows of 4 bytes in
-    shared memory) takes under the card's shared-memory limit."""
+    """The most states whose K11 frontier (five ``[S]`` rows of 4 bytes)
+    fits in shared memory; above, it lives in a device-memory scratch."""
     return lib.srt_smem_limit() // 20
 
 
@@ -41,7 +41,8 @@ def viterbi_dense(nll, trans, init_cost, n_frames, eps_trans=None, eps_depth: in
     [S]`` or ``[B, S]``; ``n_frames [B]``.  Returns ``(final [B, S], bp
     [B, T, S] int32, eps_bp [B, T, S] int32)``; ``planes=False`` writes
     neither plane (``None``), as the isolated scorers need only
-    ``final``."""
+    ``final``.  Any S: above ``max_dense_states`` the frontier lives in a
+    device-memory scratch."""
     if not nll.is_cuda:
         return viterbi_batch(nll, trans, init_cost, n_frames, eps_trans, eps_depth, planes)
     from speech_recognition_tpu_torch.utils.build import check, load_library
@@ -70,17 +71,16 @@ def viterbi_dense(nll, trans, init_cost, n_frames, eps_trans=None, eps_depth: in
         raise ValueError(f"eps_depth must be >= 1, got {eps_depth}")
     lib = load_library()
     limit, use_eps = lib.srt_smem_limit(), int(eps_trans is not None)
-    if lib.viterbi_dense_smem_bytes(s, use_eps, 0) > limit:
-        raise ValueError(f"dense Viterbi kernel: {s} states need a "
-                         f"{lib.viterbi_dense_smem_bytes(s, use_eps, 0)} B frontier in "
-                         f"shared memory, over the {limit} B limit (at most "
-                         f"{max_dense_states(lib)} states)")
     final = torch.empty((b, s), dtype=torch.float32, device=dev)
     bp = torch.empty((b, t_len, s), dtype=torch.int32, device=dev) if planes else None
     eps_bp = torch.empty_like(bp) if planes else None
     if b == 0 or t_len == 0 or s == 0:
         return final.fill_(POS_INF), bp, eps_bp
     stage = int(lib.viterbi_dense_smem_bytes(s, use_eps, 1) <= limit)
+    # a frontier too wide for shared memory lives in a [B, 5, S] scratch
+    scratch = None
+    if lib.viterbi_dense_smem_bytes(s, use_eps, 0) > limit:
+        scratch = torch.empty((b, 5, s), dtype=torch.float32, device=dev)
     args = [nll.contiguous(), trans.contiguous(),
             eps_trans.contiguous() if eps_trans is not None else None,
             init_cost.contiguous(), n_frames.to(torch.int32).contiguous()]
@@ -88,7 +88,9 @@ def viterbi_dense(nll, trans, init_cost, n_frames, eps_trans=None, eps_depth: in
     with torch.cuda.device(dev):
         rc = lib.viterbi_dense_launch(
             *ptr, final.data_ptr(), bp.data_ptr() if planes else None,
-            eps_bp.data_ptr() if planes else None, b, t_len, s, int(trans.dim() == 3),
+            eps_bp.data_ptr() if planes else None,
+            scratch.data_ptr() if scratch is not None else None, b, t_len, s,
+            int(trans.dim() == 3),
             int(init_cost.dim() == 2), eps_depth, stage,
             torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "dense Viterbi kernel")

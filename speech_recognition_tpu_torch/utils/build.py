@@ -103,21 +103,19 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with the argument
     types of every exported launcher declared."""
     lib = ctypes.CDLL(build())
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mfcc39_launch.argtypes = [p, p, p, p, p, p, p, p, p,
+    p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.mfcc39_launch.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                   i, i, i, i, i, f, i, i, i, p]
     lib.mfcc_ceps_launch.argtypes = [p, p, p, p, p, p, p, p, p,
                                      i, i, i, i, i, f, i, i, p]
-    lib.viterbi_dense_launch.argtypes = [p, p, p, p, p, p, p, p,
+    lib.viterbi_dense_launch.argtypes = [p, p, p, p, p, p, p, p, p,
                                          i, i, i, i, i, i, i, p]
-    lib.viterbi_banded_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
-                                          p, p, i, p,
-                                          i, i, i, i, i, i, i, i, i, i, i, p]
+    lib.bank_emission_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.banded_forward_launch.argtypes = [i, p, q, q, q, p, p, p, p, p, p, p, p, p, p, p,
+                                          i, p, p, i, i, i, i, i, i, i, i, i, i, i, i,
+                                          p, p]
     lib.banded_backtrace_launch.argtypes = [p, p, p, p, p, p,
                                             i, i, i, i, i, p]
-    lib.viterbi_banded_general_launch.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                                  p, p, p, i,
-                                                  i, i, i, i, i, i, i, i, p]
     lib.banded_backtrace_general_launch.argtypes = [p, p, i, p, p, p, p, p, p,
                                                     i, i, i, i, i, p]
     lib.viterbi_wordtrace_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
@@ -130,8 +128,8 @@ def load_library() -> ctypes.CDLL:
                                            i, i, i, i, i, i, p]
     lib.lattice_rescore_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
                                            i, i, i, i, i, p]
-    for fn in (lib.mfcc39_launch, lib.viterbi_banded_launch,
-               lib.banded_backtrace_launch, lib.viterbi_banded_general_launch,
+    for fn in (lib.mfcc39_launch, lib.bank_emission_launch, lib.banded_forward_launch,
+               lib.banded_backtrace_launch,
                lib.banded_backtrace_general_launch, lib.viterbi_wordtrace_launch,
                lib.viterbi_lex_launch,
                lib.lex_backtrace_launch, lib.viterbi_lattice_launch,
@@ -139,15 +137,17 @@ def load_library() -> ctypes.CDLL:
                lib.viterbi_dense_launch):
         fn.restype = ctypes.c_int
     lib.mfcc39_smem_bytes.argtypes = [i, i, i]
-    lib.viterbi_banded_smem_bytes.argtypes = [i, i, i, i, i, i]
+    lib.bank_emission_smem_bytes.argtypes = [i, i, i, i]
+    lib.banded_forward_smem_bytes.argtypes = [i, i, i, i, i, i, i, i, i, i]
+    lib.banded_forward_work_bytes.argtypes = [i, i, i, i]
+    lib.banded_forward_work_bytes.restype = q
     lib.viterbi_wordtrace_smem_bytes.argtypes = [i, i, i, i, i, i]
-    lib.viterbi_banded_general_smem_bytes.argtypes = [i, i, i, i]
     lib.viterbi_lex_smem_bytes.argtypes = [i, i]
     lib.lattice_rescore_smem_bytes.argtypes = [i]
     lib.viterbi_dense_smem_bytes.argtypes = [i, i, i]
     lib.srt_smem_limit.argtypes = []
-    for fn in (lib.mfcc39_smem_bytes, lib.viterbi_banded_smem_bytes,
-               lib.viterbi_wordtrace_smem_bytes, lib.viterbi_banded_general_smem_bytes,
+    for fn in (lib.mfcc39_smem_bytes, lib.bank_emission_smem_bytes,
+               lib.banded_forward_smem_bytes, lib.viterbi_wordtrace_smem_bytes,
                lib.viterbi_lex_smem_bytes, lib.lattice_rescore_smem_bytes,
                lib.viterbi_dense_smem_bytes, lib.srt_smem_limit):
         fn.restype = ctypes.c_int

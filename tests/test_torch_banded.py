@@ -234,20 +234,110 @@ def test_fused_wrapper_cpu_path_and_guards():
         viterbi_banded_fused_ref(xa, w, lw, g, topo, nf)
 
 
-def test_k1_launch_plan_fits_shared_memory():
-    """K1's tile / weight-staging choice (host-side, no card needed): the
+LIMIT = 227 * 1024  # the H100's shared memory per CTA
+# (B, S, R, L, U, fused) -> (streams per CTA, where the frontier lives,
+# graph tables in shared memory, emission ring, frames staged): the main
+# paths' shapes, each tier, no refusal
+PLAN_CASES = {
+    "k1_main_512": ((512, 385, 77, 77, 55, True), (4, "shared", True, True, 8)),
+    "k1_b130": ((130, 385, 77, 77, 55, True), (1, "shared", True, True, 8)),
+    "k1_b200": ((200, 385, 77, 77, 55, True), (2, "shared", True, True, 8)),
+    "k1_b5000": ((5000, 385, 77, 77, 55, True), (4, "shared", True, True, 8)),
+    "k8_1state_77": ((512, 77, 77, 77, 11, False), (4, "shared", True, True, 8)),
+    "k8_mixed_336": ((512, 336, 77, 77, 66, False), (4, "shared", True, True, 8)),
+    "k1_loop_7500_b5": ((5, 7500, 1500, 1500, 55, True), (1, "shared", False, True, 2)),
+    "k1_loop_7500_b512": ((512, 7500, 1500, 1500, 55, True),
+                          (4, "device", False, True, 1)),
+    "k8_50000": ((512, 50000, 10000, 10000, 500, False), (4, "device", False, True, 0)),
+    "big_bank_no_ring": ((512, 385, 77, 77, 20000, True), (4, "shared", True, False, 8)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_CASES))
+def test_banded_plan_tiers(name):
+    """The DP kernel's launch plan (host-side, no card needed): streams per
+    CTA by B, the frontier tier by size (each warp's work area in shared
+    memory, else in device memory), the emission ring and the staged
+    frames by what fits, and a plan at any size (S = 50,000 included)."""
+    from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import (
+        banded_plan,
+        banded_smem_bytes,
+        banded_work_bytes,
+    )
+
+    (b, s, r, l, u, fused), want = PLAN_CASES[name]
+    plan = banded_plan(b, 132, s, r, l, u, fused, LIMIT)
+    assert (plan.tile, plan.frontier, plan.tables, plan.ring, plan.kf) == want
+    assert plan.smem <= LIMIT and plan.work == banded_work_bytes(fused, s, r, l)
+    assert plan.smem == banded_smem_bytes(fused, u, s, r, l, plan.tile, plan.work_smem,
+                                          plan.tables, plan.ring, plan.kf)
+    assert -(-b // plan.tile) <= 132 or plan.tile == 4
+
+
+@pytest.mark.parametrize("kind", GRAPH_KINDS + ["transcript"])
+def test_eps_row_spans_match_topology(kind):
+    """The DP's eps row spans, computed with tensor ops on the graph's
+    device, equal the host topology's (empty rows (0, 0))."""
+    from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import eps_row_spans
+
+    trans = list(bank_params(3)[3])
+    if kind == "transcript":
+        g = tvb.banded_arrays(tgraph.build_word_graph(trans, [[2], [0, 1], [3]],
+                                                      optional_layers=[1], end_layers=[1, 2]))
+    else:
+        g = tvb.banded_arrays(build_graphs(kind, trans)[1])
+    lo, hi = eps_row_spans(g)
+    want_lo, want_hi = banded_topology(g).row_spans(g.n_words)
+    assert lo.dtype == hi.dtype == torch.int32
+    np.testing.assert_array_equal(lo.numpy(), want_lo)
+    np.testing.assert_array_equal(hi.numpy(), want_hi)
+
+
+def test_k10_launch_plan_fits_shared_memory():
+    """K10's tile / weight-staging choice (unchanged): the
     largest tile that still covers the SMs, shrunk and then unstaged until
     the shared memory fits, and a named error when nothing fits."""
-    from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import _k1_launch_plan
+    from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import _k10_launch_plan
 
     def smem(weights, per_stream):
         return lambda tile, stage: (weights if stage else 0) + per_stream * tile
 
     limit = 1000
-    assert _k1_launch_plan(512, 132, smem(100, 10), limit) == (4, True)
-    assert _k1_launch_plan(5000, 132, smem(100, 10), limit) == (32, True)
-    assert _k1_launch_plan(5000, 132, smem(100, 50), limit) == (16, True)
-    assert _k1_launch_plan(5000, 132, smem(950, 10), limit) == (4, True)
-    assert _k1_launch_plan(5000, 132, smem(990, 10), limit) == (32, False)
+    assert _k10_launch_plan(512, 132, smem(100, 10), limit) == (4, True)
+    assert _k10_launch_plan(5000, 132, smem(100, 10), limit) == (32, True)
+    assert _k10_launch_plan(5000, 132, smem(100, 50), limit) == (16, True)
+    assert _k10_launch_plan(5000, 132, smem(950, 10), limit) == (4, True)
+    assert _k10_launch_plan(5000, 132, smem(990, 10), limit) == (32, False)
     with pytest.raises(ValueError, match="ROADMAP"):
-        _k1_launch_plan(7, 132, smem(0, 300), limit)
+        _k10_launch_plan(7, 132, smem(0, 300), limit)
+
+
+@pytest.mark.parametrize("n_mix,n_states", [(2, 3), (4, 5), (11, 2)])
+def test_bank_emission_plain_matches_reference(n_mix, n_states):
+    """The emission kernel's plain version (K1's factored GMM GEMM +
+    logsumexp) against the reference ``models/hmm.bank_nll_ubt`` on every
+    frame below each stream's length, within rtol 1e-5; the wrapper runs
+    it for a CPU tensor."""
+    from speech_recognition_tpu.models.hmm import bank_nll_ubt as j_bank_nll_ubt
+    from speech_recognition_tpu_torch.ops.gmm import augment_dtb as t_augment
+    from speech_recognition_tpu_torch.ops.gmm import gmm_emission_weights as t_weights
+    from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import (
+        bank_emission,
+        bank_emission_ref,
+    )
+
+    jb, tb = both_banks(5, n_models=4, n_states=n_states, n_mix=n_mix, dim=6)
+    b, t = 5, 13
+    rng = np.random.default_rng(n_mix)
+    feats = rng.standard_normal((b, t, 6)).astype(np.float32)
+    nf = np.array([13, 1, 0, 7, 12], np.int32)
+    want = np.asarray(j_bank_nll_ubt(jb, jnp.asarray(feats), jnp.asarray(nf)))
+    w, lw = t_weights(*tb.flat_states())
+    xa = t_augment(torch.from_numpy(feats))
+    got = bank_emission_ref(xa, w, lw)
+    assert got.shape == (4 * n_states, t, b)
+    valid = np.arange(t)[None, :, None] < nf[None, None, :]
+    np.testing.assert_allclose(np.where(valid, got.numpy(), 0.0), want, rtol=1e-5)
+    before = bank_emission.launches
+    assert torch.equal(bank_emission(xa, w, lw), got)
+    assert bank_emission.launches == before

@@ -85,6 +85,36 @@ def test_k3_matches_plain(dev, rate, lens, norm):
         assert bool((got[i, n:] == 0).all())
 
 
+def test_k3_through_mfcc39_auto_past_shared_memory(dev):
+    """A 25 s cap (2,499 frames, above the 1,967 whose cepstra and deltas
+    fit in shared memory): mfcc39_auto runs K3 with its device-memory
+    scratch; equal to the plain version within rtol 2e-3 / atol 5e-4."""
+    from speech_recognition_tpu_torch.ops.frontend import mfcc39_auto, padded_length
+    from speech_recognition_tpu_torch.ops.frontend_kernel import (
+        mfcc39_fused,
+        mfcc39_fused_ref,
+    )
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    cfg = FrontendConfig()
+    lens = [400000, 31000, 16000, 561]
+    rng = np.random.default_rng(4)
+    sig = rng.standard_normal((len(lens), padded_length(cfg, 400000))) * 3000
+    sig = torch.from_numpy(sig.astype(np.float32)).to(dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    lib = load_library()
+    assert lib.mfcc39_smem_bytes(2499, 26, 13) > lib.srt_smem_limit()
+    before = mfcc39_fused.launches
+    got, nf_k = mfcc39_auto(sig, ln, cfg)
+    want, nf_p = mfcc39_fused_ref(sig, ln, cfg)
+    torch.cuda.synchronize()
+    assert mfcc39_fused.launches == before + 1 and got.shape[1] == 2499
+    assert torch.equal(nf_k, nf_p)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=5e-4)
+    for i, n in enumerate(nf_k.tolist()):
+        assert bool((got[i, n:] == 0).all())
+
+
 @pytest.mark.parametrize("kind,b,t,n_models", [
     ("loop", 3, 17, 4),       # B < the smallest tile
     ("sausage", 11, 15, 4),   # B not a multiple of the tile
@@ -100,16 +130,18 @@ def test_k1_k2_match_plain(dev, kind, b, t, n_models):
     (10, 8, False),   # 11 x 10 x 8 x 79 weights (278 KB) read from device memory
 ])
 def test_k1_large_banks(dev, n_states, n_mix, staged):
+    """The emission kernel stages the padded weights in shared memory when
+    they fit, else reads them through L1; K1 equal to its plain version
+    either way (the Python and CUDA byte counts agree)."""
     from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
     from speech_recognition_tpu_torch.utils.build import load_library
 
     lib = load_library()
-    a, u, s = 2 * 39 + 1, 11 * n_states, 3 * 11 * n_states  # 3-slot sausage
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    tile, stage = vk._k1_launch_plan(
-        7, n_sm, lambda tl, st: lib.viterbi_banded_smem_bytes(a, u, n_mix, s, tl, int(st)),
-        lib.srt_smem_limit())
-    assert (tile, stage) == (4, staged)
+    a, u = 2 * 39 + 1, 11 * n_states
+    for st in (0, 1):
+        assert lib.bank_emission_smem_bytes(a, u, n_mix, st) == vk._emission_smem(
+            a, u, n_mix, bool(st))
+    assert (vk._emission_smem(a, u, n_mix, True) <= lib.srt_smem_limit()) == staged
     _check_k1_k2(dev, "sausage", 7, 12, _bank(11, n_states, n_mix, 39, seed=4).to(dev))
 
 
@@ -150,6 +182,202 @@ def _check_k1_k2(dev, kind, b, t, bank):
     sp, fp = vk.banded_backtrace_val_ref(want[1], want[3], ends, nf, topo.uniform_w)
     torch.cuda.synchronize()
     assert bool(((sk == sp) & (fk == fp) | ~valid[:, 0]).all())
+
+
+def _plan_agrees_with_kernel(lib, fused, g, u, b, dev):
+    """The wrapper's plan and shared-memory sum equal the kernel's."""
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+
+    s, r, l = g.n_states, g.n_words, g.n_ends
+    plan = vk.banded_plan(b, torch.cuda.get_device_properties(dev).multi_processor_count,
+                          s, r, l, u, fused, lib.srt_smem_limit())
+    assert plan.smem == lib.banded_forward_smem_bytes(
+        int(fused), u, s, r, l, plan.tile, int(plan.work_smem), int(plan.tables),
+        int(plan.ring), plan.kf)
+    assert plan.work == lib.banded_forward_work_bytes(int(fused), s, r, l)
+    return plan
+
+
+def _big_loop(n_words, sizes, u_bank):
+    """A loop graph of ``n_words`` words cycling through ``sizes`` states
+    (bank rows reused modulo ``u_bank``): past the old 6,400-state limit."""
+    from speech_recognition_tpu_torch.models.graph import build_loop_graph
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+
+    base = _bank(5, max(sizes), 2, 6).trans_cost.numpy()
+    trans = [base[i % 5][:k, :k] for i, k in zip(range(n_words), sizes * n_words)]
+    graph = build_loop_graph(trans, word_insertion_cost=0.5)
+    g = banded_arrays(graph)
+    return graph, g._replace(bank_state=g.bank_state % u_bank)
+
+
+@pytest.mark.parametrize("b,ties,big", [
+    (1, False, False), (5, True, False), (130, False, False), (512, True, False),
+    (3, False, True),   # a 1,500-word loop graph, 7,500 states
+])
+def test_k1_dp_matches_plain(dev, b, ties, big):
+    """K1's DP kernel on given emissions (uniform or integer 0..2, which
+    force ties) against ``fused_dp_ref``, with lengths 0, 1, T and T + 3:
+    every output over every frame, frozen ones included; K2 on its planes;
+    K1 end to end (emission kernel + DP) at rtol 1e-5."""
+    from speech_recognition_tpu_torch.models.graph import build_word_graph
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.gmm import augment_dtb, gmm_emission_weights
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    bank = _bank(11, 5, 4, 39).to(dev)
+    u = 55
+    if big:
+        graph, g = _big_loop(1500, (5,), u)
+        t = 8
+    else:
+        graph = build_word_graph([bank.trans_cost[i].cpu().numpy() for i in range(11)],
+                                 [list(range(11))] * 7)
+        g = banded_arrays(graph)
+        t = 30
+    g = g.to(dev)
+    topo = vk.banded_topology(g)
+    assert topo.fused_ok
+    plan = _plan_agrees_with_kernel(load_library(), True, g, u, b, dev)
+    assert plan.frontier == "shared"
+    rng = np.random.default_rng(b)
+    e = rng.integers(0, 3, (u, t, b)) if ties else rng.uniform(0, 6, (u, t, b))
+    nll = torch.from_numpy(e.astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[0, t + 3, 1, t, rng.integers(1, t + 1, b)][:b]
+                          .astype(np.int32)).to(dev)
+    got = vk._banded_forward(nll, g, nf, 1, True, vk.viterbi_banded_fused)
+    want = vk.fused_dp_ref(nll, g, nf)
+    torch.cuda.synchronize()
+    for k in range(4):
+        assert torch.equal(got[k], want[k]), k
+    ends = g.end_states[torch.argmin(want[0][g.end_states], 0)]
+    sk, fk = vk.banded_backtrace_val(got[1], got[3], ends, nf, topo.uniform_w)
+    sp, fp = vk.banded_backtrace_val_ref(want[1], want[3], ends, nf, topo.uniform_w)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, sp) and torch.equal(fk, fp)
+    feats = torch.from_numpy(rng.standard_normal((b, t, 39)).astype(np.float32)).to(dev)
+    w, lw = gmm_emission_weights(*bank.flat_states())
+    xa = augment_dtb(feats)
+    before = (vk.bank_emission.launches, vk.viterbi_banded_fused.launches)
+    got = vk.viterbi_banded_fused(xa, w, lw, g, topo, nf)
+    want = vk.viterbi_banded_fused_ref(xa, w, lw, g, topo, nf)
+    torch.cuda.synchronize()
+    assert (vk.bank_emission.launches, vk.viterbi_banded_fused.launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(vk.bank_emission(xa, w, lw), vk.bank_emission_ref(xa, w, lw),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,ties,big", [
+    (1, True, False), (5, False, False), (130, True, False), (512, False, False),
+    (2, True, True),    # a 2,000-word loop graph of 2-5-state words, 7,000 states
+])
+def test_k8_at_batch_sizes_and_large_graphs(dev, b, ties, big):
+    """K8 / K9 against the plain scan at B = 1, 5, 130 and 512 on the
+    4-slot sausage of 1-state words (eps depth 3), and past the old
+    6,400-state limit, with lengths 0, 1, T and T + 3 and tie-forcing
+    integer emissions: every plane over every frame."""
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    if big:
+        graph, g = _big_loop(2000, (2, 3, 4, 5), 20)
+        u, t = 20, 6
+    else:
+        bank, graph = _general_graph("sausage_1state")
+        g, u, t = banded_arrays(graph), bank.n_models * bank.n_states, 25
+    g = g.to(dev)
+    topo = vk.banded_topology(g)
+    assert not topo.fused_ok
+    plan = _plan_agrees_with_kernel(load_library(), False, g, u, b, dev)
+    assert plan.frontier == "shared"
+    rng = np.random.default_rng(b + 7)
+    e = rng.integers(0, 3, (u, t, b)) if ties else rng.uniform(0, 6, (u, t, b))
+    nll = torch.from_numpy(e.astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[0, t + 3, 1, t, rng.integers(1, t + 1, b)][:b]
+                          .astype(np.int32)).to(dev)
+    got = vk.viterbi_banded_general(nll, g, topo, nf, graph.eps_depth)
+    want = vk.viterbi_banded_general_ref(nll, g, topo, nf, graph.eps_depth)
+    torch.cuda.synchronize()
+    for k in range(3):
+        assert torch.equal(got[k], want[k]), k
+    ends = g.end_states[torch.argmin(want[0][g.end_states] + g.end_bonus[:, None], 0)]
+    sk, fk = vk.banded_backtrace_general(got[1], got[2], g, ends, nf, graph.eps_depth)
+    sp, fp = vk.banded_backtrace_general_ref(want[1], want[2], g, ends, nf, graph.eps_depth)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, sp) and torch.equal(fk, fp)
+
+
+def _long_word_graph(n_slots, n_words, width, u, seed):
+    """A uniform sausage of ``n_slots`` x ``n_words`` words of ``width``
+    states, built as banded arrays directly (the graph constructors' dense
+    [S, S] matrices would not fit at these sizes): random band costs,
+    random eps costs from each slot's ends to the next slot's starts,
+    entry into the first slot, bank rows drawn from ``u``."""
+    from speech_recognition_tpu_torch.ops.viterbi_banded import BandedGraph
+    from speech_recognition_tpu_torch.utils.numerics import POS_INF
+
+    rng = np.random.default_rng(seed)
+    s, r = n_slots * n_words * width, n_slots * n_words
+    pos = np.arange(s) % width
+    band = np.full((3, s), POS_INF, np.float32)
+    band[0] = rng.uniform(0.1, 2.0, s)
+    band[1, pos >= 1] = rng.uniform(0.1, 2.0, int((pos >= 1).sum()))
+    band[2, pos >= 2] = rng.uniform(1.0, 3.0, int((pos >= 2).sum()))
+    starts = np.arange(r) * width
+    ends = starts + width - 1
+    eps = np.full((r, r), POS_INF, np.float32)
+    for k in range(1, n_slots):
+        eps[k * n_words:(k + 1) * n_words, (k - 1) * n_words:k * n_words] = rng.uniform(
+            0.1, 3.0, (n_words, n_words))
+    init = np.full(s, POS_INF, np.float32)
+    init[starts[:n_words]] = 0.0
+    start_pos = np.zeros(s, np.int64)
+    start_pos[starts] = np.arange(r)
+    t = torch.from_numpy
+    return BandedGraph(band=t(band), init_cost=t(init), word_starts=t(starts),
+                       word_ends=t(ends), eps_block=t(eps), start_pos=t(start_pos),
+                       is_start=t(np.isin(np.arange(s), starts)),
+                       end_states=t(ends[-n_words:]), end_bonus=torch.zeros(n_words),
+                       bank_state=t(rng.integers(0, u, s)))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("case", ["device_frontier", "no_staging", "no_ring"])
+def test_dp_fallback_plans_match_plain(dev, case, fused):
+    """The DP's fallbacks, chosen by size: the work area in device memory
+    (26,400 states), each warp writing its plane rows itself (33,000
+    states at 4 streams per CTA), and emissions read without the ring (a
+    20,000-row bank); K1's DP (uniform mode) and K8 each equal to their
+    plain versions over every frame, tie-forcing emissions, lengths 0, 1,
+    T and T + 3."""
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    width, b, u = {"device_frontier": (800, 2, 55), "no_staging": (1000, 265, 55),
+                   "no_ring": (7, 5, 20000)}[case]
+    g = _long_word_graph(3, 11, width, u, seed=width + b).to(dev)
+    topo = vk.banded_topology(g)
+    assert topo.fused_ok
+    plan = _plan_agrees_with_kernel(load_library(), fused, g, u, b, dev)
+    assert (plan.frontier, plan.kf > 0, plan.ring) == {
+        "device_frontier": ("device", True, True), "no_staging": ("device", False, True),
+        "no_ring": ("shared", True, False)}[case]
+    t = 4
+    rng = np.random.default_rng(b)
+    nll = torch.from_numpy(rng.integers(0, 3, (u, t, b)).astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[0, t + 3, 1, t, rng.integers(1, t + 1, b)][:b]
+                          .astype(np.int32)).to(dev)
+    wrapper = vk.viterbi_banded_fused if fused else vk.viterbi_banded_general
+    got = vk._banded_forward(nll, g, nf, 1, fused, wrapper)
+    want = (vk.fused_dp_ref(nll, g, nf) if fused
+            else vk.viterbi_banded_general_ref(nll, g, topo, nf, 1))
+    torch.cuda.synchronize()
+    for k in range(len(want)):
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_decode_connected_cuda_matches_cpu(dev):
@@ -744,6 +972,7 @@ def test_k11_raises_instead_of_falling_back(dev):
     from speech_recognition_tpu_torch.ops.viterbi_kernels import (
         max_dense_states,
         viterbi_dense,
+        viterbi_dense_ref,
     )
     from speech_recognition_tpu_torch.utils.build import load_library
 
@@ -756,12 +985,21 @@ def test_k11_raises_instead_of_falling_back(dev):
         viterbi_dense(nll.double(), trans, init, nf)
     with pytest.raises(ValueError, match="both be shared or both per item"):
         viterbi_dense(nll, trans, init, nf, eps_m[None].expand(3, 40, 40))
-    s_max = max_dense_states(load_library())
-    s = s_max + 1
-    with pytest.raises(ValueError, match=f"at most {s_max} states"):
-        viterbi_dense(torch.zeros((1, 2, s), device=dev), torch.zeros((s, s), device=dev),
-                      torch.zeros(s, device=dev), nf[:1])
     assert viterbi_dense.launches == before
+    # one state past the shared-memory frontier: the device-memory scratch,
+    # equal to the plain version (random costs with POS_INF holes)
+    s = max_dense_states(load_library()) + 1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    trans = torch.rand((s, s), generator=gen, device=dev) * 3
+    trans[torch.rand((s, s), generator=gen, device=dev) < 0.5] = 1e30
+    args = (torch.rand((2, 3, s), generator=gen, device=dev) * 5, trans,
+            torch.rand(s, generator=gen, device=dev), nf[:2].clamp(min=1))
+    got = viterbi_dense(*args)
+    want = viterbi_dense_ref(*args)
+    torch.cuda.synchronize()
+    assert viterbi_dense.launches == before + 1
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
 
 
 @pytest.mark.parametrize("rate,lens", [

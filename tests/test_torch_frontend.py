@@ -72,6 +72,21 @@ def test_mfcc39_matches_reference(path, case):
 
 
 @pytest.mark.parametrize("path", sorted(PORT_PATHS))
+def test_mfcc39_matches_reference_past_k3_shared_memory(path):
+    """25 s at 16 kHz (2,499 frames, past the 1,967 frames whose cepstra
+    and deltas fit in K3's shared memory; above that K3 keeps them in a
+    device-memory scratch): K3's plain version against the reference
+    ``mfcc39`` at rtol 2e-3 / atol 5e-4, frame counts equal."""
+    lens = [400000, 31000]
+    sigs, lengths, _ = _batch(13, lens, 400000)
+    f_j, nf_j = jfe.mfcc39_batch(sigs, lengths, PSF)
+    f_t, nf_t = PORT_PATHS[path](torch.from_numpy(sigs), torch.from_numpy(lengths), PSF)
+    assert f_t.shape[1] == 2499 > 1967
+    np.testing.assert_array_equal(nf_t.numpy(), np.asarray(nf_j))
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=2e-3, atol=5e-4)
+
+
+@pytest.mark.parametrize("path", sorted(PORT_PATHS))
 def test_mfcc39_matches_float64_oracle(path):
     lens = [16000, 7321, 7000, 12345]
     sigs, lengths, raw = _batch(11, lens, 16000)
