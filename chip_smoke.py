@@ -7,10 +7,10 @@ PyTorch version on the card at its path's shapes, and drives both paths
 through the CLI with the launch counters reset just before each:
 
 * connected digits, ``cli connected_test --graph loop|sausage --device
-  cuda``: wavs -> MFCC-39 (K3) -> fused emission + banded Viterbi (K1 =
-  the emission kernel K13 + the banded DP) -> backtrace (K2) ->
-  word ids; and ``--graph loop`` with a 25 s ``--max-samples`` cap (2,499
-  frames: K3 with its cepstra in a device-memory scratch);
+  cuda``: wavs -> MFCC-39 (K3 = the frame-parallel cepstra kernel + the
+  tail kernel K14) -> fused emission + banded Viterbi (K1 = the emission
+  kernel K13 + the banded DP) -> backtrace (K2) -> word ids; and
+  ``--graph loop`` with a 25 s ``--max-samples`` cap (2,499 frames);
 * lexical tree, ``cli connected_test --graph lextree --device cuda``:
   wavs -> MFCC-39 (K3) -> unit-bank emissions -> lexical-tree Viterbi
   (K4) -> backtrace (K5) -> word ids;
@@ -39,12 +39,15 @@ through the CLI with the launch counters reset just before each:
   per-utterance matrices -> backtrace -> word segments;
 * the dense decoder, ``decode_connected(backend="dense")`` on the CLI
   corpus's features (K3 + K11), words equal to the banded path's;
-* ``ops.frontend.mfcc`` on CUDA tensors (K12, the cepstra-only mode of
-  K3).
+* ``ops.frontend.mfcc`` on CUDA tensors (K12, whose kernel is K3's
+  first launch).
 
 Each CLI output is checked against the same command on the CPU (plain
-versions).  K13 (the emission kernel) is held to its plain version at
-rtol 1e-5 / atol 1e-4, and K1's DP alone to its plain version bit for
+versions).  K14 (the MFCC-39 tail) is held to its plain version on
+K12's cepstra (deltas bit-identical, standardized features at rtol 1e-4
+/ atol 1e-4: the mean and variance summed in another order).  K13 (the
+emission kernel) is held to its plain version at rtol 1e-5 / atol 1e-4,
+and K1's DP alone to its plain version bit for
 bit on K13's emissions.  Past the old size limits: K1 + K2 on a
 1,500-word loop graph (7,500 states) and K8 + K9 on a 2,000-word loop of
 2-5-state words (7,000 states), K3 at 64 x 25 s (2,499 frames), K11 at
@@ -63,13 +66,17 @@ on a batch of integer (tie-forcing) emissions and costs with lengths 0,
 1,000-word benchmark trie (128 x 500), on the same trie with a random
 eps block, on a flat 100-word vocabulary with bigram costs (more roots
 than one re-entry pass takes), and on a dictionary-shaped ~87k-state
-trie (32 x 500); K6 and K7 on the 1,000-word trie (128 x 500) and the
+trie (32 x 500), and on the 1k trie with one state's band perturbed (the
+general mode); K6 and K7 on the 1,000-word trie (128 x 500) and the
 dictionary-shaped trie (16 x 500), with uniform-random and planted-word
-emissions, the backoff and the dense LM.  Every kernel, its plain
-version, the 256 x 5 s connected pipeline and the 128 x 5 s lexical-tree
-and bigram-lattice pipelines are timed with CUDA events, and each
-kernel's least possible time on the card (its bound) is computed from
-the bytes and operations of this run's inputs.
+emissions, the backoff and the dense LM, and K6 in the general mode.
+K4 and K6 run the plan ``lex_plan`` picks (frontier and tables in shared
+memory on the 1k trie, in device memory on the dictionary-shaped trie);
+their cycles per frame step by phase come from the kernel's trace.
+Every kernel, its plain version, the 256 x 5 s connected pipeline and
+the 128 x 5 s lexical-tree and bigram-lattice pipelines are timed with
+CUDA events, and each kernel's least possible time on the card (its
+bound) is computed from the bytes and operations of this run's inputs.
 
 Run from the repository root with one GPU:  python3 chip_smoke.py
 
@@ -183,6 +190,12 @@ def mfcc_ops(cfg, n_frames: int) -> float:
     return n_frames * per
 
 
+def tail_ops(cfg, n_frames: int) -> float:
+    """Operations of the MFCC-39 tail over ``n_frames`` frames: the two
+    delta passes and the standardization (mfcc_ops' last two terms)."""
+    return n_frames * (2 * 10 * cfg.n_ceps + 4 * 3 * cfg.n_ceps)
+
+
 def rescore_ops(t_len: int, b: int, l: int, k: int, dense: bool) -> float:
     """Operations of the rescoring DP over every frame of ``b`` streams:
     per leaf the D select and add, the backoff add and compare, K sparse
@@ -294,11 +307,36 @@ def check_lex(name, lexg, g, nll, nf):
     if wk != wp:
         fail(f"words differ between the kernels and the plain versions on {name}")
     k5_err = float(((sk - sp).abs() * valid).max())
-    phase("K4+K5", f"{name} ({g.n_states} states, R={g.n_words}, L={g.n_ends}) at "
-                   f"{nll.shape[2]}x{t_len}: final, bp8, eps_u, eps_prev == plain (bit-identical); K5 states, "
+    phase("K4+K5", f"{name} ({g.n_states} states, R={g.n_words}, L={g.n_ends}; "
+                   f"{plan_text(topo, False)}) at {nll.shape[2]}x{t_len}: final, bp8, eps_u, "
+                   f"eps_prev == plain (bit-identical); K5 states, "
                    f"flags and words identical; mean words/utt "
                    f"{sum(map(len, wk)) / len(wk):.2f}")
     return float((got[0] - want[0]).abs().max()), k5_err, want, ends
+
+
+def plan_text(topo, lattice: bool) -> str:
+    """Where the K4 (K6 with ``lattice``) plan for ``topo`` keeps the
+    frontier, the tables and the eps block, and the graph's band mode."""
+    from speech_recognition_tpu_torch.ops.viterbi_lex_kernels import lex_plan
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    plan = lex_plan(lattice, topo, load_library().srt_smem_limit())
+    where = {True: "shared", False: "device"}
+    return (f"frontier {where[plan.front]}, tables {where[plan.tables]}, eps "
+            f"{where[plan.eps]}{', leaf ends gathered' if plan.gather else ''}, "
+            f"{'factorised' if topo.pack.factorised else 'general'} band, "
+            f"{plan.smem} B shared")
+
+
+def perturbed_band(g):
+    """A copy of a trie whose band no longer factorises over bank rows
+    (one state's step cost moved by 0.125): the kernels' general mode."""
+    import torch
+
+    band = g.band.clone()
+    band[1, int(torch.nonzero(band[1] < 1e29)[50])] += 0.125
+    return g._replace(band=band)
 
 
 def planted_emissions(rng, words, unit_ids, su, n_rows, b, t_len, dwell=2):
@@ -339,7 +377,7 @@ def check_lattice(name, lexg, g, nll, nf, lm_l, max_dur=128):
     from speech_recognition_tpu_torch.ops import lattice_kernels as lt
     from speech_recognition_tpu_torch.ops.viterbi_lex_kernels import lex_topology
 
-    topo = lex_topology(lexg.banded)
+    topo = lex_topology(g)
     got = lt.viterbi_lattice(nll, g, topo, nf)
     want = lt.viterbi_lattice_ref(nll, g, topo, nf)
     torch.cuda.synchronize()
@@ -372,7 +410,7 @@ def check_lattice(name, lexg, g, nll, nf, lm_l, max_dur=128):
     if words[0] != words[1]:
         fail(f"words differ between K7 and its plain version on {name}")
     live = float((got[1] < 1e29).float().mean())
-    phase("K6+K7", f"{name} ({g.n_states} states, L={g.n_ends}, "
+    phase("K6+K7", f"{name} ({g.n_states} states, L={g.n_ends}; {plan_text(topo, True)}, "
                    f"{'dense' if big is not None else 'backoff'} LM) at "
                    f"{nll.shape[2]}x{t_len}: K6 planes == plain (bit-identical, frozen "
                    f"frames included); K7 cost, best leaf, pred_w == plain; words "
@@ -454,12 +492,16 @@ def main() -> int:
     from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
     from speech_recognition_tpu_torch.ops.frontend import (
         FrontendConfig,
+        _stack39,
         mfcc39_auto,
         padded_length,
     )
     from speech_recognition_tpu_torch.ops.frontend_kernel import (
         mfcc39_fused,
         mfcc39_fused_ref,
+        mfcc_fused,
+        mfcc_fused_ref,
+        mfcc_tail,
     )
     from speech_recognition_tpu_torch.ops.gmm import augment_dtb, gmm_emission_weights
     from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
@@ -503,6 +545,23 @@ def main() -> int:
                 f"(rtol 2e-3, atol 5e-4; raw features scaled per column); "
                 f"max |d| standardized {k3_err:.3g}")
     report["K3"] = {"max_abs_err": k3_err}
+    # K14 alone: the tail kernel on K12's cepstra against its plain version
+    ceps_k, nf_c = mfcc_fused(sig, lens, cfg)
+    k14_err = 0.0
+    for norm in ("utterance", "none"):
+        got = mfcc_tail(ceps_k, nf_c, norm)
+        want = _stack39(ceps_k, nf_c, norm)
+        torch.cuda.synchronize()
+        if norm == "none" and not torch.equal(got, want):
+            fail("K14 raw features (cepstra and deltas) differ from the plain version")
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+            fail(f"K14 disagrees with its plain version (norm={norm}): max |d| "
+                 f"{float((got - want).abs().max())}")
+        k14_err = max(k14_err, float((got - want).abs().max()))
+    phase("K14", f"mfcc tail kernel on K12's 256x5s cepstra == plain (_stack39): raw "
+                 f"bit-identical, standardized within rtol 1e-4 / atol 1e-4 (max |d| "
+                 f"{k14_err:.3g})")
+    report["K14"] = {"max_abs_err": k14_err}
 
     # ---- 4. K1 + K2 vs their plain versions -------------------------------
     bank, bank_path = make_bank(tmp)
@@ -739,8 +798,6 @@ def main() -> int:
     report["K11"] = {"max_abs_err": 0.0}
 
     # ---- 4e. K12 vs its plain version -----------------------------------------
-    from speech_recognition_tpu_torch.ops.frontend_kernel import mfcc_fused, mfcc_fused_ref
-
     k12_err = 0.0
     for name, (s_, ln) in {"256x5s": (sig, lens),
                            "64 varlen": (var_sig, torch.from_numpy(var_lens).to(dev))}.items():
@@ -774,18 +831,19 @@ def main() -> int:
                                 .astype(np.float32)).to(dev)
     lens_long = torch.from_numpy(np.r_[n_long, 561, rng_long.integers(30000, n_long + 1, 62)]
                                  .astype(np.int32)).to(dev)
+    before = (mfcc39_fused.launches, mfcc_tail.launches)
     got, nf_long = mfcc39_fused(sig_long, lens_long, cfg)
     want, nf_p = mfcc39_fused_ref(sig_long, lens_long, cfg)
     torch.cuda.synchronize()
     f_long = got.shape[1]
-    if lib.mfcc39_smem_bytes(f_long, 26, 13) <= lib.srt_smem_limit():
-        fail(f"K3 at {f_long} frames still fits in shared memory")
+    if (mfcc39_fused.launches, mfcc_tail.launches) != (before[0] + 1, before[1] + 1):
+        fail(f"K3 at {f_long} frames did not run its two launches")
     if not torch.equal(nf_long, nf_p) or not torch.allclose(got, want, **K3_TOL):
         fail(f"K3 at {f_long} frames disagrees with its plain version: max |d| "
              f"{float((got - want).abs().max())}")
     k3_long_err = float((got - want).abs().max())
-    phase("K3", f"64 x 25 s ({f_long} frames, cepstra and deltas in a device-memory "
-                f"scratch): == plain (rtol 2e-3, atol 5e-4; max |d| {k3_long_err:.3g}), "
+    phase("K3", f"64 x 25 s ({f_long} frames; the cepstra kernel and K14, no frame "
+                f"limit): == plain (rtol 2e-3, atol 5e-4; max |d| {k3_long_err:.3g}), "
                 f"frame counts equal")
     # K1 + K2 on a 1,500-word loop graph of the bank's digits (7,500 states)
     trans11 = [bank.trans_cost[i].cpu().numpy() for i in range(11)]
@@ -890,6 +948,10 @@ def main() -> int:
         noise.astype(np.float32)).to(dev))
     e4, e5, _, _ = check_lex("1k trie, random eps block", lex1k, g_rand, nll1k, nf1k)
     k4_err, k5_err = max(k4_err, e4), max(k5_err, e5)
+    g_gen = perturbed_band(g1k)
+    e4, e5, _, _ = check_lex("1k trie, band perturbed (general mode)", lex1k, g_gen, nll1k,
+                             nf1k)
+    k4_err, k5_err = max(k4_err, e4), max(k5_err, e5)
     # 100 roots: K4 reduces the re-entry 64 roots per pass, so this takes two
     words, trans, ids, lm, frng = flat_lm_lexicon(100)
     lexf = build_lex_graph(words, trans, ids, lm=lm, word_insertion_cost=0.3)
@@ -943,6 +1005,8 @@ def main() -> int:
     if lm_ld[2] is None:
         fail("the random LM was taken as a backoff LM")
     errs.append(check_lattice("1k trie, uniform emissions", lex1k, g1k, nll_b, nf_b, lm_ld))
+    errs.append(check_lattice("1k trie, band perturbed (general mode)", lex1k, g_gen, nll_b,
+                              nf_b, lm_l1k))
     # bench_lextree_dict1_bigram's shape: the dictionary-shaped trie, the
     # LM of 400 random 20-word sentences, 16 x 500
     wordsd, _, idsd, drng2 = dict1_shaped_lexicon()
@@ -989,29 +1053,30 @@ def main() -> int:
     def word_lines(out):
         return [l for l in out.splitlines() if l.startswith(("Correct:", "Incorrect:"))]
 
-    counters = (mfcc39_fused, vk.bank_emission, vk.viterbi_banded_fused,
+    counters = (mfcc39_fused, mfcc_tail, vk.bank_emission, vk.viterbi_banded_fused,
                 vk.banded_backtrace_val,
                 lk.viterbi_lex, lk.lex_backtrace_val, lt.viterbi_lattice, lt.rescore_lattice,
                 vk.viterbi_banded_general, vk.banded_backtrace_general,
                 vk.viterbi_banded_wordtrace, viterbi_dense, mfcc_fused)
     bigram = "--lm bigram"
-    paths = {"connected": (("loop", "sausage"), (mfcc39_fused, vk.bank_emission,
+    k3 = (mfcc39_fused, mfcc_tail)
+    paths = {"connected": (("loop", "sausage"), (*k3, vk.bank_emission,
                                                  vk.viterbi_banded_fused,
                                                  vk.banded_backtrace_val)),
-             "lextree": (("lextree",), (mfcc39_fused, lk.viterbi_lex, lk.lex_backtrace_val)),
+             "lextree": (("lextree",), (*k3, lk.viterbi_lex, lk.lex_backtrace_val)),
              "bigram composed": ((f"loop {bigram}", f"sausage {bigram}",
                                   f"lextree {bigram} --decoder compose"),
-                                 (mfcc39_fused, vk.bank_emission, vk.viterbi_banded_fused,
+                                 (*k3, vk.bank_emission, vk.viterbi_banded_fused,
                                   vk.banded_backtrace_val, lk.viterbi_lex,
                                   lk.lex_backtrace_val)),
              "bigram lattice": ((f"lextree {bigram} --decoder lattice",),
-                                (mfcc39_fused, lt.viterbi_lattice, lt.rescore_lattice)),
+                                (*k3, lt.viterbi_lattice, lt.rescore_lattice)),
              "general graph": (("sausage @1-state-bank",),
-                               (mfcc39_fused, vk.viterbi_banded_general,
+                               (*k3, vk.viterbi_banded_general,
                                 vk.banded_backtrace_general)),
-             # a 25 s cap: 2,499 frames, K3's cepstra and deltas in device memory
+             # a 25 s cap: 2,499 frames
              "long cap": (("loop --max-samples 400000",),
-                          (mfcc39_fused, vk.bank_emission, vk.viterbi_banded_fused,
+                          (*k3, vk.bank_emission, vk.viterbi_banded_fused,
                            vk.banded_backtrace_val))}
     outs, launches = {}, {}
     for path, (runs, used) in paths.items():
@@ -1062,7 +1127,7 @@ def main() -> int:
               for k, (g_, f_, n_) in wt_runs.items()}
     torch.cuda.synchronize()
     launches["wordtrace"] = {c.__name__: c.launches for c in counters}
-    if not (launches["wordtrace"]["mfcc39_fused"]
+    if not (launches["wordtrace"]["mfcc39_fused"] and launches["wordtrace"]["mfcc_tail"]
             and launches["wordtrace"]["viterbi_banded_wordtrace"]) or \
             launches["wordtrace"]["viterbi_banded_fused"]:
         fail(f"the word-trace path did not run K3 and K10 alone: {launches['wordtrace']}")
@@ -1111,7 +1176,7 @@ def main() -> int:
 
     iso_cmd = ["isolated_test", "-i", bank_sil_path, "-d", iso_dir, "--device"]
     iso_out = counted("isolated", lambda: run_action(iso_cmd + ["cuda"]),
-                      (mfcc39_fused, viterbi_dense),
+                      (*k3, viterbi_dense),
                       (vk.viterbi_banded_fused, vk.viterbi_banded_general))
     if iso_out != run_action(iso_cmd + ["cpu"]):
         fail("isolated_test: CUDA output differs from the CPU run")
@@ -1122,7 +1187,7 @@ def main() -> int:
     al = {d: os.path.join(tmp, f"align_{d}.jsonl") for d in ("cuda", "cpu")}
     al_cmd = ["align", "-i", bank_sil_path, "-d", wav_dir, "--device"]
     counted("align", lambda: run_action(al_cmd + ["cuda", "-o", al["cuda"]]),
-            (mfcc39_fused, viterbi_dense))
+            (*k3, viterbi_dense))
     run_action(al_cmd + ["cpu", "-o", al["cpu"]])
     recs = {}
     for d, path in al.items():
@@ -1149,7 +1214,7 @@ def main() -> int:
         return {k: decode_connected(bank, graphs[k], f_, n_, backend="dense")
                 for k in ("loop", "sausage7")}
 
-    dense_words = counted("dense", dense_decode, (mfcc39_fused, viterbi_dense),
+    dense_words = counted("dense", dense_decode, (*k3, viterbi_dense),
                           (vk.viterbi_banded_fused, vk.viterbi_banded_general))
     for k, (words_d, costs_d) in dense_words.items():
         words_b, costs_b = decode_connected(bank, graphs[k], f_w, n_w)
@@ -1166,7 +1231,7 @@ def main() -> int:
     wav_sig = [torch.from_numpy(np.ascontiguousarray(x[:n], np.float32))
                for x, n in zip(samp8, len8)]
     ceps_cuda = counted("mfcc", lambda: [mfcc(x.to(dev), len(x), cfg) for x in wav_sig],
-                        (mfcc_fused,), (mfcc39_fused,))
+                        (mfcc_fused,), k3)
     for x, (c_k, n_k) in zip(wav_sig, ceps_cuda):
         c_p, n_p = mfcc(x, len(x), cfg)
         if int(n_k) != int(n_p) or not torch.allclose(c_k.cpu(), c_p, **K3_TOL):
@@ -1178,6 +1243,8 @@ def main() -> int:
     t = {}
     t["K3"] = (cuda_ms(lambda: mfcc39_fused(sig, lens, cfg)),
                cuda_ms(lambda: mfcc39_fused_ref(sig, lens, cfg)))
+    t["K14"] = (cuda_ms(lambda: mfcc_tail(ceps_k, nf_c)),
+                cuda_ms(lambda: _stack39(ceps_k, nf_c, "utterance")))
     bg, topo, want, ends = planes["sausage7"]
     t["K1"] = (cuda_ms(lambda: vk.viterbi_banded_fused(xa, w, lw, bg, topo, nf)),
                cuda_ms(lambda: vk.viterbi_banded_fused_ref(xa, w, lw, bg, topo, nf), reps=3))
@@ -1256,6 +1323,20 @@ def main() -> int:
     topod = lk.lex_topology(gd)
     k4_dict_ms = cuda_ms(lambda: lk.viterbi_lex(nlld, gd, topod, nfd))
     k4_dict_plain = cuda_ms(lambda: lk.viterbi_lex_ref(nlld, gd, topod, nfd), reps=1)
+    # the general mode, and the cycles per frame step by phase (the
+    # kernel's clock64 trace of thread 0: band, barrier, eps scan, warp
+    # reduction, apply, barrier; mean over streams of cycles / frames run)
+    topo_gen = lk.lex_topology(g_gen)
+    k4_gen_ms = cuda_ms(lambda: lk.viterbi_lex(nll1k, g_gen, topo_gen, nf1k))
+
+    def frame_cycles(lattice, nll_, nf_, topo_, g_):
+        trace = torch.zeros((nll_.shape[2], 6), dtype=torch.int64, device=dev)
+        lk.lex_forward(nll_, g_, topo_, nf_, lattice,
+                       lt.viterbi_lattice if lattice else lk.viterbi_lex, trace=trace)
+        frames = nf_.clamp(min=1 if lattice else 0, max=nll_.shape[1]).double()
+        return (trace.double()[frames > 0] / frames[frames > 0, None]).mean(0).tolist()
+
+    k4_cycles = frame_cycles(False, nll1k, nf1k, topo1k, g1k)
 
     from speech_recognition_tpu_torch.decode.lextree import _decode_lex_batch
     from speech_recognition_tpu_torch.models.lexgraph import lex_words_from_path_batch
@@ -1290,6 +1371,13 @@ def main() -> int:
     k7_dense_ms = cuda_ms(lambda: lt.rescore_lattice(*k7_args[:-1], dmax, big_ll=lm_ld[2]))
     nf_d16 = torch.full((16,), TL, dtype=torch.int32, device=dev)
     k6_dict_ms = cuda_ms(lambda: lt.viterbi_lattice(nll_bd, gd, topod, nf_d16))
+    k6_cycles = frame_cycles(True, nll_b, nf_full, topo1k, g1k)
+    k6_gen_ms = cuda_ms(lambda: lt.viterbi_lattice(nll_b, g_gen, topo_gen, nf_full))
+    # K6 on the 1k trie with its tau frontier in device memory (the plan
+    # keeps it on chip)
+    k6_alt = lk.lex_plan(True, topo1k, lib.srt_smem_limit())._replace(tau=False)
+    k6_alt_ms = cuda_ms(lambda: lk.lex_forward(nll_b, g1k, topo1k, nf_full, True,
+                                               lt.viterbi_lattice, plan=k6_alt))
     kd_out = lt.viterbi_lattice(nll_bd, gd, topod, nf_d16)
     k7_dict_ms = cuda_ms(lambda: lt.rescore_lattice(
         kd_out[1], kd_out[2], kd_out[1].amin(2), lm_ldd[0], lm_ldd[1], nf_d16, dmax,
@@ -1397,8 +1485,8 @@ def main() -> int:
     phase("timing", f"K8 / K9 on the 3-6-state sausage7 ({bg6.n_states} states) at {B}x{T}: "
                     f"{k8_mixed_ms:.3f} / {k9_mixed_ms:.3f} ms (CUDA-event median; {card})")
     phase("timing", f"K1 = K13 {t['K13'][0]:.3f} ms + DP alone {dp_ms:.3f} ms on sausage7 "
-                    f"at {B}x{T}; past the old limits: K3 64 x 25 s ({f_long} frames, "
-                    f"scratch) {k3_long_ms:.3f} ms, K1 on the {bgb.n_states}-state loop at "
+                    f"at {B}x{T}; past the old limits: K3 64 x 25 s ({f_long} frames) "
+                    f"{k3_long_ms:.3f} ms, K1 on the {bgb.n_states}-state loop at "
                     f"{Bb}x{Tb} {k1_big_ms:.3f} ms, K8 on the {bg8.n_states}-state loop at "
                     f"{B8b}x{Tb} {k8_big_ms:.3f} ms, K11 at {s11} states 2x4 "
                     f"{k11_big_ms:.3f} ms (CUDA-event median; {card})")
@@ -1411,6 +1499,24 @@ def main() -> int:
     phase("timing", f"K4 dict1-shaped trie ({gd.n_states} states) at 32x{TL}: "
                     f"{k4_dict_ms:.3f} ms, plain {k4_dict_plain:.3f} ms "
                     f"(CUDA-event median; {card})")
+    phases = ("band", "barrier A", "eps scan", "eps reduce", "eps apply", "barrier B")
+    for name, cyc in (("K4", k4_cycles), ("K6", k6_cycles)):
+        phase("timing", f"{name} on the 1k trie at 128x{TL}, cycles per frame step by phase "
+                        f"(trace, mean over streams): " + ", ".join(
+                            f"{k} {v:.0f}" for k, v in zip(phases, cyc))
+                        + f"; total {sum(cyc):.0f} ({card})")
+    phase("timing", f"general mode (1k trie, one band entry perturbed) at 128x{TL}: K4 "
+                    f"{k4_gen_ms:.3f} ms, K6 {k6_gen_ms:.3f} ms; K6 with its tau frontier in "
+                    f"device memory {k6_alt_ms:.3f} ms against the plan's "
+                    f"{t['K6'][0]:.3f} (CUDA-event median; {card})")
+    for name, ms, before in (("K3 256 x 5 s", t["K3"][0], 1.259),
+                             ("K12 256 x 5 s", t["K12"][0], 1.175),
+                             ("K4 1k trie 128 x 500", t["K4"][0], 5.970),
+                             ("K6 1k trie 128 x 500", t["K6"][0], 7.288),
+                             ("K4 dict1-shaped 32 x 500", k4_dict_ms, 51.236),
+                             ("K6 dict1-shaped 16 x 500", k6_dict_ms, 62.262)):
+        phase("timing", f"{name}: {ms:.3f} ms against PR 6's {before:.3f} ms on the same "
+                        f"card model = {ms / before:.3f} of it ({card})")
     phase("timing", f"K7 dense [L, L] LM on the 1k trie at 128x{TL}: {k7_dense_ms:.3f} ms; "
                     f"dict1-shaped trie at 16x{TL}: K6 {k6_dict_ms:.3f} ms, K7 (backoff, "
                     f"K={lm_ldd[3][1].shape[1]}) {k7_dict_ms:.3f} ms (CUDA-event median; {card})")
@@ -1440,6 +1546,7 @@ def main() -> int:
     l1k, k1k = g1k.n_ends, lm_l1k[3][1].shape[1]
     work = {
         "K3": (nbytes(sig, lens) + nfr3 * 39 * 4, mfcc_ops(cfg, nfr3)),
+        "K14": (nbytes(ceps_k, nf_c) + nfr3 * 39 * 4, tail_ops(cfg, int(nf_c.sum()))),
         "K1": (nbytes(xa, w, lw, nf) + graph_bytes(bg) + nbytes(*want[:1])
                + sum_nf * (bg.n_states + bg.n_words * (want[2].element_size() + 4)),
                sum_nf * (2 * w.numel() + 4 * w_units) + dp_ops(bg, sum_nf, span_pairs(topo))),
@@ -1494,6 +1601,9 @@ def main() -> int:
                             dp_ops(gd, sum_nfd), k4_dict_ms),
         "K6 dict1-shaped": (nbytes(nll_bd, nf_d16, *kd_out) + graph_bytes(gd),
                             dp_ops(gd, 16 * TL), k6_dict_ms),
+        "K4 general mode": (*work["K4"], k4_gen_ms),
+        "K6 general mode": (*work["K6"], k6_gen_ms),
+        "K6 tau in device memory": (*work["K6"], k6_alt_ms),
         "K7 dict1-shaped": (nbytes(kd_out[1], kd_out[2], *lm_ldd[:2], *lm_ldd[3], nf_d16)
                             + TL * 16 * 4 + TL * 16 * ld * 4 + 16 * 8,
                             rescore_ops(TL, 16, ld, kd, dense=False), k7_dict_ms),
@@ -1528,6 +1638,8 @@ def main() -> int:
         fail(f"modules of jax or of the JAX package were imported: {bad[:5]}")
     src = {"K3": ("mfcc39_fused", "speech_recognition_tpu_torch/csrc/mfcc39.cu",
                   "speech_recognition_tpu/ops/frontend_pallas.py:190"),
+           "K14": ("mfcc_tail", "speech_recognition_tpu_torch/csrc/mfcc39.cu",
+                   "speech_recognition_tpu/ops/frontend_pallas.py:190"),
            "K1": ("viterbi_banded_fused", "speech_recognition_tpu_torch/csrc/banded_forward.cu",
                   "speech_recognition_tpu/ops/viterbi_banded_pallas.py:133"),
            "K13": ("bank_emission", "speech_recognition_tpu_torch/csrc/bank_emission.cu",

@@ -26,9 +26,8 @@
 //            is not carried over: it can pick another origin on a rounding
 //            tie); the root start takes cand = min(min + nll[start], POS_INF)
 //            only on strict improvement, code 4; eps_u = l*, eps_prev =
-//            word_ends[l*] - code(word_ends[l*]), the code read before the
-//            eps pass (a leaf end never carries a cross or eps code: units
-//            have >= 2 states).  The eps pass also runs at frame 0.
+//            word_ends[l*] - code(word_ends[l*]), the code written before
+//            the eps pass.  The eps pass also runs at frame 0.
 //   length   frames t >= nf[b] are not computed (one CTA per stream, so the
 //            test is uniform); final = the frontier after frame nf-1, POS_INF
 //            when nf = 0.  Plane entries at t >= nf are not written.
@@ -51,28 +50,55 @@
 //            t < T of the planes is written; final = the frontier after
 //            frame nf-1 for 1 <= nf <= T, else POS_INF
 // Outputs: final [B,S] f32, ends_cost [T,B,L] f32 and ends_tau [T,B,L] i32
-// (leaf-slot order); no bp8 or eps planes.  The eps pass keeps K4's
-// reduction; the lattice needs only its minimum.
+// (leaf-slot order); no bp8 or eps planes.
 //
-// What bounds K4 on the H100: latency of the serial frame loop.  One CTA
-// owns one stream for all T frames (128 CTAs at B = 128 on 132 SMs, only
-// __syncthreads between phases).  Per frame a CTA reads band (3S f32),
-// bank_state, cross_src, cross_cost (S each) and the [R, L] eps block
-// through L1/L2: ~270 KB per frame at 9.6k states, so L2 bandwidth per SM
-// and three barriers per frame set the time; the FLOPs are negligible and
-// the bp8 store (S bytes per frame and stream) is far below HBM bandwidth.
+// What bounds it on the H100: the latency of T dependent frame steps per
+// stream; the bytes (the emission rows, the planes) and the operations
+// (~11 per state and frame) are far below the card's rates.  One CTA owns
+// one stream, so a frame step is one SM's work: with the graph on chip, the
+// instructions and shared-memory wavefronts of its ~10k state updates.
 //
-// What the design does about it: the frontier is double-buffered in a
-// [B, 2, S] device-memory scratch that stays L2-resident (22 MB at 32 x 87k
-// states), so one kernel serves every graph size (a shared-memory frontier
-// timed the same on the 1k trie); the frame's U emissions are staged in
-// shared memory; the per-root first-minimum is a warp-shuffle (value,
-// index) reduction, 64 roots per pass.  Staging or packing the constant
-// arrays is left to a later change.
-//
-// K6 has K4's bounds and design; it swaps the S-byte bp8 row for a 4S-byte
-// tau row per frame in the scratch and writes 8L bytes of planes per
-// frame and stream instead of S + 5R.
+// What the design does about it:
+//   tables   the wrapper packs the graph once (ops/viterbi_lex_kernels
+//            lex_pack): the band factorises over bank rows (band[d,v] ==
+//            rows[bank_state[v]][d] for every trie build_lex_graph makes),
+//            so per state one 32-bit record is read: the bank row in the
+//            low `shift` bits, above it a link, either the state's entry in
+//            a compact (source, cost) cross table (entry 0 the default pair
+//            that most states carry, then only the states whose pair
+//            differs, so every state reads a pair and no branch diverges)
+//            or, with bit 31 set, the state's leaf slot.  A graph whose
+//            band does not factorise runs the general mode, which reads
+//            per-state band rows (band_s) through L1.  Records, cross table
+//            and eps block (one value per root where its row is constant)
+//            are staged into shared memory once per CTA with cp.async where
+//            the plan finds room, else read through L1.
+//   frontier the two cost rows (and K6's two tau rows) live in shared
+//            memory where they fit, else in a [B, 2, S + 4] device scratch;
+//            each row has POS_INF (tau: 0) in front, so v-1 and v-2 need no
+//            test.  With the frontier on chip K4's codes are staged there
+//            too and copied out, a word at a time, during the next frame;
+//            the CTA has 512 threads (128 registers each; the step is bound
+//            by the instructions it issues), else 1,024 (to hide the
+//            device-memory latency).  The plan (lex_plan) is chosen by the
+//            wrapper from the sizes: the 1k trie on chip, the 86,520-state
+//            trie in device memory.
+//   emission the next frame's bank rows are copied with cp.async into the
+//            .w lane of a per-frame row table (band costs in .xyz), so one
+//            16-byte load gives a state its band costs and its emission;
+//            each row is kept eight times, so the eight lanes of a quarter
+//            warp read eight different bank groups.
+//   eps      the band phase writes each leaf end's cost (and K4's eps_prev
+//            or K6's entry time) into its leaf slot, so the frame's
+//            leaf-end costs are gathered once; each root's first minimum is
+//            one warp's (value, index) scan and shuffle reduction, applied
+//            by the same warp, so a frame step has two block barriers
+//            (after the band phase, after the eps pass).  A graph whose word
+//            ends repeat, or whose leaf ends carry their own cross pair,
+//            runs the gather mode instead: each root's warp reads
+//            cost[word_ends[l]] itself.
+// An optional per-phase clock64 trace (kPhases) is written when a pointer
+// is passed (scripts/exp_r7_lex_plan.py reads it).
 
 #include <limits.h>
 #include <math.h>
@@ -81,248 +107,532 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBand = 2;
-constexpr int kCrossCode = kMaxBand + 1;
-constexpr int kEpsCode = kMaxBand + 2;
-constexpr int kRootChunk = 64;  // roots reduced per pass
+// threads per CTA: with the frontier on chip a frame step is bound by the
+// instructions it issues, and 512 threads leave each 128 registers; with
+// it in device memory it waits on loads, and 1,024 threads hide more
+template <bool kFront>
+__host__ __device__ constexpr int threads_for() {
+  return kFront ? 512 : 1024;
+}
+constexpr int kCrossCode = 3;
+constexpr int kEpsCode = 4;
+constexpr int kPad = 4;          // POS_INF (tau: 0) entries in front of a row
+// phases of a frame step that the optional trace separates: band, barrier
+// A, (K6's planes and) the eps scan, its warp reduction, the apply, barrier
+// B
+constexpr int kPhases = 6;
+constexpr unsigned kLeaf = 0x80000000u;
 
 struct Params {
   const float* nll;         // [U, T, B] bank emissions
-  const float* band;        // [3, S]
   const float* init;        // [S]
-  const int* bank_state;    // [S]
-  const int* cross_src;     // [S]
-  const float* cross_cost;  // [S] (POS_INF where no cross edge)
+  const unsigned* rec;      // [S] packed records
+  const float4* rows;       // [n_rows] band costs per bank row (.w unused)
+  const float4* band_s;     // [S] per-state band costs (general mode), or null
+  const int2* cross;        // [n_cx] (source state, cost bits)
   const int* word_starts;   // [R]
   const int* word_ends;     // [L]
-  const float* eps;         // [R, L]
+  const float* eps;         // [R, eps_ld]: [R, L], or [R] where every row is one value
   const int* nf;            // [B]
-  float* scratch;           // [B, 2, S] double-buffered frontier
+  float* scratch;           // [B, 2, S + kPad] cost frontier (not on chip)
+  int* tau_scratch;         // [B, 2, S + kPad] tau frontier (K6, not on chip)
   float* final_cost;        // [B, S]
   int8_t* bp8;              // [T, B, S]
   void* eps_u;              // [T, B, R] int8 or int32
   int u_wide;
   int* eps_prev;            // [T, B, R]
-  // lattice mode (K6)
-  int* tau_scratch;         // [B, 2, S] double-buffered entry times
-  float* ends_cost;         // [T, B, L]
-  int* ends_tau;            // [T, B, L]
-  int U, T, B, S, R, L;
+  float* ends_cost;         // [T, B, L] (K6)
+  int* ends_tau;            // [T, B, L] (K6)
+  long long* trace;         // [B, kPhases] or null
+  int U, T, B, S, R, L, n_rows, n_cx, shift, gather, eps_ld;
+  int tau_smem, eps_smem, rep_shift;
 };
 
-// Dynamic shared memory of one CTA; the layout is the carve-up at the top
-// of the kernel.
-size_t smem_bytes(int U, int R) {
-  const int rc = R < kRootChunk ? R : kRootChunk;
-  return (size_t)U * sizeof(float) +
-         (size_t)rc * kWarps * (sizeof(float) + sizeof(int));
+__host__ __device__ inline size_t r16(size_t n) { return (n + 15) & ~(size_t)15; }
+__host__ __device__ inline size_t frontier_row(int S) { return r16((size_t)(S + kPad) * 4); }
+
+// Offsets of the CTA's shared-memory regions (0 bytes where a region lives
+// in device memory); the wrapper's lex_smem_bytes mirrors the total.
+struct Layout {
+  size_t front, tau, codes, rec, cross, eps, rows, ends, endx, total;
+};
+__host__ __device__ inline Layout layout(int lattice, int S, int n_eps, int L, int n_rows,
+                                         int n_cx, int front, int tau, int tables, int eps,
+                                         int gather, int rep) {
+  Layout y;
+  size_t o = 0;
+  y.front = o;
+  o += front ? 2 * frontier_row(S) : 0;
+  y.tau = o;
+  o += (lattice && tau) ? 2 * frontier_row(S) : 0;
+  y.codes = o;  // K4's codes of two frames, staged with an on-chip frontier
+  o += (front && !lattice) ? 2 * r16((size_t)S) : 0;
+  y.rec = o;
+  o += tables ? r16((size_t)S * 4) : 0;
+  y.cross = o;
+  o += tables ? r16((size_t)n_cx * 8) : 0;
+  y.eps = o;
+  o += eps ? r16((size_t)n_eps * 4) : 0;
+  y.rows = o;  // two frames' row tables, each row `rep` times
+  o += 2 * r16((size_t)n_rows * rep * 16);
+  y.ends = o;  // leaf-slot costs, then K4's eps_prev or K6's taus: scatter mode
+  o += gather ? 0 : r16((size_t)L * 4);
+  y.endx = o;
+  o += gather ? 0 : r16((size_t)L * 4);
+  y.total = o;
+  return y;
+}
+
+template <bool kShared, typename T>
+__device__ __forceinline__ T ldt(const T* p) {
+  if constexpr (kShared)
+    return *p;
+  else
+    return __ldg(p);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// Copy `bytes` (a multiple of 4) from device to shared memory with cp.async,
+// 16 bytes at a time where both ends allow it.
+__device__ __forceinline__ void stage(void* dst, const void* src, size_t bytes) {
+  const bool wide = ((reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src)) & 15) == 0;
+  const size_t n16 = wide ? bytes / 16 : 0;
+  for (size_t i = threadIdx.x; i < n16; i += blockDim.x)
+    cp_async16(static_cast<char*>(dst) + 16 * i, static_cast<const char*>(src) + 16 * i);
+  for (size_t i = 4 * n16 + threadIdx.x; i < bytes / 4; i += blockDim.x)
+    cp_async4(static_cast<char*>(dst) + 4 * i, static_cast<const char*>(src) + 4 * i);
 }
 
 // (value, leaf index) lexicographic min: the first minimum in leaf order.
-__device__ __forceinline__ void argmin_merge(float& v, int& i, float v2,
-                                             int i2) {
+__device__ __forceinline__ void argmin_merge(float& v, int& i, float v2, int i2) {
   if (v2 < v || (v2 == v && i2 < i)) {
     v = v2;
     i = i2;
   }
 }
 
-template <bool kLattice>
-__global__ void __launch_bounds__(kThreads, 1) viterbi_lex_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int rc = p.R < kRootChunk ? p.R : kRootChunk;
-  float* en = reinterpret_cast<float*>(smem_raw);  // [U] this frame
-  float* red_v = en + p.U;                         // [rc][kWarps]
-  int* red_i = reinterpret_cast<int*>(red_v + rc * kWarps);
+// One lane's first minimum of eps[r, l] + leaf(l) over its leaves l = lane,
+// lane + 32, ...: four leaves' loads in flight per step, compared in leaf
+// order (strict <).  kConstRow: the eps row is one value (er[0]).
+template <bool kConstRow, typename Leaf>
+__device__ __forceinline__ void scan_leaves(const float* er, const Leaf& leaf, int L, int lane,
+                                            float& bv, int& bi) {
+  const float ec = kConstRow ? er[0] : 0.f;
+  int l = lane;
+  for (; l + 96 < L; l += 128) {
+    float c[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) c[k] = (kConstRow ? ec : er[l + 32 * k]) + leaf(l + 32 * k);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (c[k] < bv) {
+        bv = c[k];
+        bi = l + 32 * k;
+      }
+  }
+  for (; l < L; l += 32) {
+    const float c = (kConstRow ? ec : er[l]) + leaf(l);
+    if (c < bv) {
+      bv = c;
+      bi = l;
+    }
+  }
+}
 
+// Where the graph tables come from (the kernel's third template argument):
+// records and cross table through L1, the same staged in shared memory, or
+// the general mode (records through L1 and per-state band rows band_s).
+enum Tables { kTabL1 = 0, kTabSmem = 1, kTabGeneral = 2 };
+
+// kFront: the cost frontier in shared memory (and, for K4, the frame's
+// codes, staged there and copied out during the next frame); else both in
+// device memory.  K6's tau frontier follows p.tau_smem.
+template <bool kLattice, bool kFront, int kTab>
+__global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(Params p) {
+  constexpr int kThreads = threads_for<kFront>(), kWarps = kThreads / 32;
+  constexpr bool kTablesSmem = kTab == kTabSmem;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout y = layout(kLattice, p.S, p.R * max(p.eps_ld, 1), p.L, p.n_rows, p.n_cx,
+                          kFront, p.tau_smem, kTablesSmem, p.eps_smem, p.gather, 1 << p.rep_shift);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
-  float* cur = p.scratch + (size_t)b * 2 * p.S;
-  float* nxt = cur + p.S;
-  int* tcur = kLattice ? p.tau_scratch + (size_t)b * 2 * p.S : nullptr;
-  int* tnxt = kLattice ? tcur + p.S : nullptr;
-  const int nf = p.nf[b];
+  const int S = p.S, R = p.R, L = p.L, T = p.T;
+  const unsigned mask = (1u << p.shift) - 1u;
+  const unsigned leaf_bit = p.gather ? 0u : kLeaf;  // leaf slots written in scatter mode
+  const size_t rowf = frontier_row(S) / 4;            // entries per frontier row
+
+  float* fr = kFront ? reinterpret_cast<float*>(smem + y.front) : p.scratch + (size_t)b * 2 * rowf;
+  float* cur = fr + kPad;
+  float* nxt = fr + rowf + kPad;
+  int* tf = nullptr;
+  if (kLattice)
+    tf = p.tau_smem ? reinterpret_cast<int*>(smem + y.tau) : p.tau_scratch + (size_t)b * 2 * rowf;
+  int* tcur = kLattice ? tf + kPad : nullptr;
+  int* tnxt = kLattice ? tf + rowf + kPad : nullptr;
+  const unsigned* rec = kTablesSmem ? reinterpret_cast<const unsigned*>(smem + y.rec) : p.rec;
+  const int2* cross = kTablesSmem ? reinterpret_cast<const int2*>(smem + y.cross) : p.cross;
+  const float* eps = p.eps_smem ? reinterpret_cast<const float*>(smem + y.eps) : p.eps;
+  // row tables: row u's copy k at (u << rep_shift) + k, so the eight lanes
+  // of a quarter warp (lane & 7 = k) read eight different bank groups
+  float4* rows = reinterpret_cast<float4*>(smem + y.rows);
+  const int n_rep = p.n_rows << p.rep_shift;
+  const size_t rows_n = r16((size_t)n_rep * 16) / 16;  // float4 per row table
+  const unsigned lane_rep = lane & ((1u << p.rep_shift) - 1u);
+  float* ends = reinterpret_cast<float*>(smem + y.ends);
+  // per leaf slot: K4 the state before the end's band step (its eps_prev
+  // should a root take it), K6 its entry time
+  int* endx = reinterpret_cast<int*>(smem + y.endx);
+  int8_t* codes = reinterpret_cast<int8_t*>(smem + y.codes);  // [2][S] (K4, kFront)
+  const size_t codes_n = r16((size_t)S);
+
+  // ---- set-up: tables, row tables, frontier padding, frame 0's emissions
+  if (kTablesSmem) {
+    stage(smem + y.rec, p.rec, (size_t)S * 4);
+    stage(smem + y.cross, p.cross, (size_t)p.n_cx * 8);
+  }
+  if (p.eps_smem) stage(smem + y.eps, p.eps, (size_t)R * max(p.eps_ld, 1) * 4);
+  for (int i = tid; i < n_rep; i += kThreads) {
+    const float4 v = __ldg(p.rows + (i >> p.rep_shift));
+    for (int k = 0; k < 2; ++k) {  // .w is the emission slot, written by cp.async
+      rows[k * rows_n + i].x = v.x;
+      rows[k * rows_n + i].y = v.y;
+      rows[k * rows_n + i].z = v.z;
+    }
+  }
+  for (int i = tid; i < kPad; i += kThreads) {
+    fr[i] = SRT_POS_INF;
+    fr[rowf + i] = SRT_POS_INF;
+    if (kLattice) {
+      tf[i] = 0;
+      tf[rowf + i] = 0;
+    }
+  }
+  // frame t's emissions -> the .w lanes of row table t & 1; each thread
+  // clamps its own rows to POS_INF once they have landed
+  auto prefetch = [&](int t) {
+    float* dst = reinterpret_cast<float*>(rows + (t & 1) * rows_n);
+    for (int i = tid; i < n_rep; i += kThreads)
+      cp_async4(dst + 4 * i + 3, p.nll + ((size_t)(i >> p.rep_shift) * T + t) * p.B + b);
+    cp_async_commit();
+  };
+  auto landed = [&](int t) {
+    cp_async_wait_all();
+    float* dst = reinterpret_cast<float*>(rows + (t & 1) * rows_n);
+    for (int i = tid; i < n_rep; i += kThreads)
+      dst[4 * i + 3] = fminf(dst[4 * i + 3], SRT_POS_INF);
+  };
+  // K4 with the codes staged: frame t's codes row -> bp8, in words of the
+  // widest size that divides S (every row then starts aligned)
+  auto flush_codes = [&](int t) {
+    const int8_t* src = codes + (t & 1) * codes_n;
+    int8_t* dst = p.bp8 + ((size_t)t * p.B + b) * S;
+    if ((S & 15) == 0) {
+      for (int i = tid; i < S / 16; i += kThreads)
+        reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
+    } else if ((S & 3) == 0) {
+      for (int i = tid; i < S / 4; i += kThreads)
+        reinterpret_cast<int*>(dst)[i] = reinterpret_cast<const int*>(src)[i];
+    } else {
+      for (int i = tid; i < S; i += kThreads) dst[i] = src[i];
+    }
+  };
+  constexpr bool kStaged = kFront && !kLattice;
+  const int nfb = p.nf[b];
   // K4 stops at the stream's length; the lattice runs frame 0 always
-  const int n = kLattice ? max(min(nf, p.T), 1) : min(nf, p.T);
+  const int n = kLattice ? max(min(nfb, T), 1) : min(nfb, T);
+  if (n > 0) prefetch(0);
+  landed(0);
+  __syncthreads();
+  // the start state and row-table index of this warp's first root (each
+  // warp keeps its roots for every frame)
+  const int start0 = warp < R ? __ldg(p.word_starts + warp) : 0;
+  const int row0 = (int)((ldt<kTablesSmem>(rec + start0) & mask) << p.rep_shift);
+
+  long long tr[kPhases] = {0, 0, 0, 0, 0, 0};
+  long long tc = clock64();
+  auto mark = [&](int ph) {
+    if (p.trace) {
+      const long long now = clock64();
+      tr[ph] += now - tc;
+      tc = now;
+    }
+  };
 
   for (int t = 0; t < n; ++t) {
-    // (A) this frame's bank emissions
-    for (int u = tid; u < p.U; u += kThreads)
-      en[u] = fminf(__ldg(p.nll + ((size_t)u * p.T + t) * p.B + b),
-                    SRT_POS_INF);
-    __syncthreads();
+    if (t + 1 < n) prefetch(t + 1);  // lands while this frame computes
+    if (kStaged && t > 0) flush_codes(t - 1);
+    const float4* rw = rows + (t & 1) * rows_n;
+    int8_t* code = kStaged ? codes + (t & 1) * codes_n
+                           : (kLattice ? nullptr : p.bp8 + ((size_t)t * p.B + b) * S);
 
-    // (B) band select, cross edge, emission
-    int8_t* bp_row = kLattice ? nullptr : p.bp8 + ((size_t)t * p.B + b) * p.S;
-    for (int v = tid; v < p.S; v += kThreads) {
-      float base;
-      int8_t d = 0;
-      int tv = 0;  // entry time (lattice mode)
-      if (t == 0) {
-        base = __ldg(p.init + v);
-      } else {
-        base = SRT_POS_INF;
-#pragma unroll
-        for (int dd = 0; dd <= kMaxBand; ++dd) {
-          const float c = __ldg(p.band + dd * p.S + v) +
-                          (v >= dd ? cur[v - dd] : SRT_POS_INF);
-          if (c <= base) {
-            base = c;
-            d = dd;
-          }
+    // (a) band select, cross edge, emission; leaf ends into their slots
+    if (t == 0) {
+      for (int v = tid; v < S; v += kThreads) {
+        const unsigned rc = ldt<kTablesSmem>(rec + v);
+        const float val =
+            fminf(__ldg(p.init + v) + rw[((rc & mask) << p.rep_shift) | lane_rep].w, SRT_POS_INF);
+        nxt[v] = val;
+        if (kLattice)
+          tnxt[v] = 0;
+        else
+          code[v] = 0;
+        if (rc & leaf_bit) {
+          const unsigned l = (rc & ~kLeaf) >> p.shift;
+          ends[l] = val;
+          endx[l] = kLattice ? 0 : v;
         }
-        if (kLattice) tv = v >= d ? tcur[v - d] : 0;
-        const int cs = __ldg(p.cross_src + v);
-        const float cc = fminf(cur[cs] + __ldg(p.cross_cost + v), SRT_POS_INF);
-        if (cc <= base) {
+      }
+    } else {
+      for (int v = tid; v < S; v += kThreads) {
+        const unsigned rc = ldt<kTablesSmem>(rec + v);
+        float4 bd = rw[((rc & mask) << p.rep_shift) | lane_rep];
+        if (kTab == kTabGeneral) {
+          const float4 g = __ldg(p.band_s + v);
+          bd.x = g.x;
+          bd.y = g.y;
+          bd.z = g.z;
+        }
+        const float a0 = bd.x + cur[v], a1 = bd.y + cur[v - 1], a2 = bd.z + cur[v - 2];
+        float base = SRT_POS_INF;
+        int d = 0;
+        if (a0 <= base) { base = a0; d = 0; }
+        if (a1 <= base) { base = a1; d = 1; }
+        if (a2 <= base) { base = a2; d = 2; }
+        // every state reads a cross pair: its own, else the default (entry
+        // 0; a leaf slot's link is no cross entry), so no branch diverges
+        const unsigned link = (rc & ~kLeaf) >> p.shift;
+        const int2 e = ldt<kTablesSmem>(cross + ((rc & kLeaf) ? 0u : link));
+        const int src = e.x;
+        const float cc = fminf(cur[src] + __int_as_float(e.y), SRT_POS_INF);
+        const bool crossed = cc <= base;
+        const int from = crossed ? src : v - d;  // K6: whose entry time carries over
+        if (crossed) {
           base = cc;
           d = kCrossCode;
-          if (kLattice) tv = tcur[cs];
+        }
+        const int tv = kLattice ? tcur[from] : 0;
+        const float val = fminf(base + bd.w, SRT_POS_INF);
+        nxt[v] = val;
+        if (kLattice)
+          tnxt[v] = tv;
+        else
+          code[v] = (int8_t)d;
+        if (rc & leaf_bit) {
+          ends[link] = val;
+          endx[link] = kLattice ? tv : v - d;
         }
       }
-      nxt[v] = fminf(base + en[__ldg(p.bank_state + v)], SRT_POS_INF);
-      if (kLattice)
-        tnxt[v] = tv;
-      else
-        bp_row[v] = d;
     }
-    __syncthreads();
+    mark(0);
+    __syncthreads();  // barrier A: the band phase's frontier, codes and leaf slots
+    mark(1);
 
-    // (C) leaf -> root epsilon re-entry, kRootChunk roots per pass (starts
-    // and ends are disjoint, so reading ends and writing starts never race)
-    for (int r0 = 0; r0 < p.R; r0 += kRootChunk) {
-      const int rn = min(kRootChunk, p.R - r0);
-      for (int rr = 0; rr < rn; ++rr) {
-        const float* row = p.eps + (size_t)(r0 + rr) * p.L;
-        float bv = INFINITY;
-        int bi = INT_MAX;
-        for (int l = tid; l < p.L; l += kThreads) {
-          const float c = __ldg(row + l) + nxt[__ldg(p.word_ends + l)];
-          if (c < bv) {  // strict: first minimum among this thread's leaves
-            bv = c;
-            bi = l;
-          }
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const float v2 = __shfl_xor_sync(0xffffffffu, bv, off);
-          const int i2 = __shfl_xor_sync(0xffffffffu, bi, off);
-          argmin_merge(bv, bi, v2, i2);
-        }
-        if (lane == 0) {
-          red_v[rr * kWarps + warp] = bv;
-          red_i[rr * kWarps + warp] = bi;
+    // (b) K6's planes: the leaf ends, which the eps pass does not change
+    // (starts and ends are disjoint)
+    if (kLattice) {
+      const size_t o = ((size_t)t * p.B + b) * L;
+      for (int l = tid; l < L; l += kThreads) {
+        if (p.gather) {
+          const int e = __ldg(p.word_ends + l);
+          p.ends_cost[o + l] = nxt[e];
+          p.ends_tau[o + l] = tnxt[e];
+        } else {
+          p.ends_cost[o + l] = ends[l];
+          p.ends_tau[o + l] = endx[l];
         }
       }
-      __syncthreads();
-      for (int rr = tid; rr < rn; rr += kThreads) {
-        float bv = red_v[rr * kWarps];
-        int bi = red_i[rr * kWarps];
-        for (int w = 1; w < kWarps; ++w)
-          argmin_merge(bv, bi, red_v[rr * kWarps + w], red_i[rr * kWarps + w]);
-        const int r = r0 + rr;
-        const int start = __ldg(p.word_starts + r);
-        const float cand =
-            fminf(bv + en[__ldg(p.bank_state + start)], SRT_POS_INF);
+    }
+    // (c) leaf -> root re-entry: warp w reduces roots w, w + kWarps, ...
+    // over every leaf and applies the result to the root's start
+    for (int r = warp; r < R; r += kWarps) {
+      const float* er = eps + (size_t)r * max(p.eps_ld, 1);
+      float bv = INFINITY;
+      int bi = INT_MAX;
+      if (p.gather) {
+        const auto leaf = [&](int l) { return nxt[__ldg(p.word_ends + l)]; };
+        if (p.eps_ld)
+          scan_leaves<false>(er, leaf, L, lane, bv, bi);
+        else
+          scan_leaves<true>(er, leaf, L, lane, bv, bi);
+      } else {
+        const auto leaf = [&](int l) { return ends[l]; };
+        if (p.eps_ld)
+          scan_leaves<false>(er, leaf, L, lane, bv, bi);
+        else
+          scan_leaves<true>(er, leaf, L, lane, bv, bi);
+      }
+      mark(2);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float v2 = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int i2 = __shfl_xor_sync(0xffffffffu, bi, off);
+        argmin_merge(bv, bi, v2, i2);
+      }
+      mark(3);
+      if (lane == 0) {
+        const int start = r == warp ? start0 : __ldg(p.word_starts + r);
+        const int row = r == warp ? row0
+                                  : (int)((ldt<kTablesSmem>(rec + start) & mask) << p.rep_shift);
+        const float cand = fminf(bv + rw[row].w, SRT_POS_INF);
         int uo = 0, pp = 0;
         if (cand < nxt[start]) {  // strict improvement only
           nxt[start] = cand;
           if (kLattice) {
             tnxt[start] = t;
           } else {
-            const int end = __ldg(p.word_ends + bi);
             uo = bi;
-            pp = end - bp_row[end];  // band code, written in (B)
-            bp_row[start] = kEpsCode;
+            if (p.gather) {
+              const int end = __ldg(p.word_ends + bi);
+              pp = end - code[end];  // the band code, written in (a)
+            } else {
+              pp = endx[bi];
+            }
+            code[start] = kEpsCode;
           }
         }
-        if (kLattice) continue;
-        const size_t o = ((size_t)t * p.B + b) * p.R + r;
-        if (p.u_wide)
-          static_cast<int*>(p.eps_u)[o] = uo;
-        else
-          static_cast<int8_t*>(p.eps_u)[o] = (int8_t)uo;
-        p.eps_prev[o] = pp;
+        if (!kLattice) {
+          const size_t o = ((size_t)t * p.B + b) * R + r;
+          if (p.u_wide)
+            static_cast<int*>(p.eps_u)[o] = uo;
+          else
+            static_cast<int8_t*>(p.eps_u)[o] = (int8_t)uo;
+          p.eps_prev[o] = pp;
+        }
       }
-      __syncthreads();
     }
-
-    // (D) lattice planes: the leaf ends after the eps pass (starts and
-    // ends are disjoint, so the pass did not change them)
-    if (kLattice) {
-      const size_t o = ((size_t)t * p.B + b) * p.L;
-      for (int l = tid; l < p.L; l += kThreads) {
-        const int e = __ldg(p.word_ends + l);
-        p.ends_cost[o + l] = nxt[e];
-        p.ends_tau[o + l] = tnxt[e];
-      }
-      int* ttmp = tcur;
-      tcur = tnxt;
-      tnxt = ttmp;
-    }
+    mark(4);
+    if (t + 1 < n) landed(t + 1);  // the next frame's emissions
+    __syncthreads();               // barrier B: the applied starts, the next row table
+    mark(5);
 
     float* tmp = cur;
     cur = nxt;
     nxt = tmp;
+    if (kLattice) {
+      int* ttmp = tcur;
+      tcur = tnxt;
+      tnxt = ttmp;
+    }
   }
+  if (kStaged && n > 0) flush_codes(n - 1);
   bool has_final = n > 0;
   if (kLattice) {
     // frames past the stream's length repeat its last frame
-    const size_t rest = (size_t)(p.T - n) * p.L;
+    const size_t rest = (size_t)(T - n) * L;
     for (size_t i = tid; i < rest; i += kThreads) {
-      const int t = n + (int)(i / p.L), l = (int)(i % p.L);
+      const int t = n + (int)(i / L), l = (int)(i % L);
       const int e = __ldg(p.word_ends + l);
-      const size_t o = ((size_t)t * p.B + b) * p.L + l;
+      const size_t o = ((size_t)t * p.B + b) * L + l;
       p.ends_cost[o] = cur[e];
       p.ends_tau[o] = tcur[e];
     }
-    has_final = nf >= 1 && nf <= p.T;
+    has_final = nfb >= 1 && nfb <= T;
   }
-  for (int v = tid; v < p.S; v += kThreads)
-    p.final_cost[(size_t)b * p.S + v] = has_final ? cur[v] : SRT_POS_INF;
+  for (int v = tid; v < S; v += kThreads)
+    p.final_cost[(size_t)b * S + v] = has_final ? cur[v] : SRT_POS_INF;
+  if (p.trace && tid == 0)
+    for (int k = 0; k < kPhases; ++k) p.trace[(size_t)b * kPhases + k] = tr[k];
+}
+
+template <bool kLattice, bool kFront, int kTab>
+int launch(const Params& p, size_t smem, cudaStream_t stream) {
+  constexpr int kThreads = threads_for<kFront>();
+  auto kernel = viterbi_lex_kernel<kLattice, kFront, kTab>;
+  SRT_SET_SMEM(kernel, smem);
+  // carve out the CTA's shared memory and no more: the rest of the SM's
+  // 256 KB stays L1, which serves what is read from device memory
+  const int pct = (int)((smem * 100 + SRT_MAX_SMEM - 1) / SRT_MAX_SMEM);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct < 100 ? pct : 100);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<p.B, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <bool kLattice, bool kFront>
+int launch_tables(const Params& p, int tab, size_t smem, cudaStream_t s) {
+  switch (tab) {
+    case kTabSmem: return launch<kLattice, kFront, kTabSmem>(p, smem, s);
+    case kTabGeneral: return launch<kLattice, kFront, kTabGeneral>(p, smem, s);
+    default: return launch<kLattice, kFront, kTabL1>(p, smem, s);
+  }
+}
+
+template <bool kLattice>
+int launch_plan(const Params& p, int front, int tab, cudaStream_t s) {
+  const size_t smem = layout(kLattice, p.S, p.R * max(p.eps_ld, 1), p.L, p.n_rows, p.n_cx,
+                             front, p.tau_smem, tab == kTabSmem, p.eps_smem, p.gather,
+                             1 << p.rep_shift).total;
+  return front ? launch_tables<kLattice, true>(p, tab, smem, s)
+               : launch_tables<kLattice, false>(p, tab, smem, s);
 }
 
 }  // namespace
 
-extern "C" int viterbi_lex_smem_bytes(int U, int R) {
-  const size_t n = smem_bytes(U, R);
+// Shared memory of one CTA for a plan (the wrapper's lex_smem_bytes
+// computes the same sum; the card tests hold the two equal).
+extern "C" int viterbi_lex_smem_bytes(int lattice, int S, int n_eps, int L, int n_rows,
+                                      int n_cx, int front, int tau, int tables, int eps,
+                                      int gather, int rep) {
+  const size_t n =
+      layout(lattice, S, n_eps, L, n_rows, n_cx, front, tau, tables, eps, gather, rep).total;
   return n > (size_t)INT_MAX ? INT_MAX : (int)n;
 }
 
+// K4 (lattice = 0) or K6 (lattice = 1).  nll [U, T, B]; init [S]; rec [S]
+// packed records; rows [n_rows] float4 band costs per bank row; band_s [S]
+// float4 per-state band costs or null; cross [n_cx] int2 (source, cost
+// bits), entry 0 the pair of every state without its own; word_starts
+// [R]; word_ends [L]; eps [R, eps_ld] (eps_ld = L, or 0 where each row is
+// one value, stored once); nf [B].  K4 writes
+// final [B, S], bp8 [T, B, S], eps_u [T, B, R] (int32 when u_wide) and
+// eps_prev [T, B, R]; K6 final, ends_cost and ends_tau [T, B, L].  scratch /
+// tau_scratch: [B, 2, S + 4] where the frontier / tau frontier is not in
+// shared memory (front / tau = 0).  trace: null, or [B, 6] int64 cycles per
+// phase of the frame steps (band, barrier, eps scan, warp reduction, apply,
+// barrier).
 extern "C" int viterbi_lex_launch(
-    const float* nll, const float* band, const float* init,
-    const int* bank_state, const int* cross_src, const float* cross_cost,
-    const int* word_starts, const int* word_ends, const float* eps,
-    const int* nf, float* scratch, float* final_cost, int8_t* bp8,
-    void* eps_u, int u_wide, int* eps_prev, int U, int T, int B, int S, int R,
-    int L, void* stream) {
-  if (B <= 0 || T < 0 || S <= 0 || R <= 0 || L <= 0 || U <= 0)
+    int lattice, const float* nll, const float* init, const unsigned* rec, const void* rows,
+    const void* band_s, const void* cross, const int* word_starts, const int* word_ends,
+    const float* eps, const int* nf, float* scratch, int* tau_scratch, float* final_cost,
+    int8_t* bp8, void* eps_u, int u_wide, int* eps_prev, float* ends_cost, int* ends_tau,
+    long long* trace, int U, int T, int B, int S, int R, int L, int n_rows, int n_cx,
+    int shift, int eps_ld, int front, int tau, int tables,
+    int eps_smem, int gather, int rep, void* stream) {
+  if (B <= 0 || T < 0 || S <= 0 || R <= 0 || L <= 0 || U <= 0 || n_rows <= 0 ||
+      n_rows > U || n_cx < 1 || shift < 1 || shift > 30 ||
+      (eps_ld != 0 && eps_ld != L) ||
+      (!front && scratch == nullptr) || (lattice && T <= 0) ||
+      (lattice && !tau && tau_scratch == nullptr) || (band_s && tables) ||
+      (rep != 1 && rep != 8))
     return (int)cudaErrorInvalidValue;
-  Params p{nll, band, init, bank_state, cross_src, cross_cost, word_starts,
-           word_ends, eps, nf, scratch, final_cost, bp8, eps_u, u_wide,
-           eps_prev, nullptr, nullptr, nullptr, U, T, B, S, R, L};
-  const size_t smem = smem_bytes(U, R);
-  SRT_SET_SMEM(viterbi_lex_kernel<false>, smem);
-  viterbi_lex_kernel<false><<<B, kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int viterbi_lattice_launch(
-    const float* nll, const float* band, const float* init,
-    const int* bank_state, const int* cross_src, const float* cross_cost,
-    const int* word_starts, const int* word_ends, const float* eps,
-    const int* nf, float* scratch, int* tau_scratch, float* final_cost,
-    float* ends_cost, int* ends_tau, int U, int T, int B, int S, int R, int L,
-    void* stream) {
-  if (B <= 0 || T <= 0 || S <= 0 || R <= 0 || L <= 0 || U <= 0)
-    return (int)cudaErrorInvalidValue;
-  Params p{nll, band, init, bank_state, cross_src, cross_cost, word_starts,
-           word_ends, eps, nf, scratch, final_cost, nullptr, nullptr, 0,
-           nullptr, tau_scratch, ends_cost, ends_tau, U, T, B, S, R, L};
-  const size_t smem = smem_bytes(U, R);
-  SRT_SET_SMEM(viterbi_lex_kernel<true>, smem);
-  viterbi_lex_kernel<true><<<B, kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  Params p{};
+  p.nll = nll; p.init = init; p.rec = rec;
+  p.rows = static_cast<const float4*>(rows);
+  p.band_s = static_cast<const float4*>(band_s);
+  p.cross = static_cast<const int2*>(cross);
+  p.word_starts = word_starts; p.word_ends = word_ends; p.eps = eps; p.nf = nf;
+  p.scratch = scratch; p.tau_scratch = tau_scratch; p.final_cost = final_cost;
+  p.bp8 = bp8; p.eps_u = eps_u; p.u_wide = u_wide; p.eps_prev = eps_prev;
+  p.ends_cost = ends_cost; p.ends_tau = ends_tau; p.trace = trace;
+  p.U = U; p.T = T; p.B = B; p.S = S; p.R = R; p.L = L;
+  p.n_rows = n_rows; p.n_cx = n_cx; p.shift = shift; p.gather = gather; p.eps_ld = eps_ld;
+  p.tau_smem = lattice ? tau : 0; p.eps_smem = eps_smem; p.rep_shift = rep == 8 ? 3 : 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int tab = band_s ? kTabGeneral : (tables ? kTabSmem : kTabL1);
+  return lattice ? launch_plan<true>(p, front, tab, s) : launch_plan<false>(p, front, tab, s);
 }

@@ -17,10 +17,11 @@ Every GEMM runs in f32 (TF32 off).  ``FrontendConfig.*_precision`` are
 TPU pass-count dials and are not read here.
 
 ``mfcc39_auto`` is the production entry: a CUDA tensor runs kernel K3
-(``ops.frontend_kernel``, ``csrc/mfcc39.cu``), which raises for a config
-it does not implement (``fused_supported``); a CPU tensor runs the plain
-pipeline below, which is also K3's plain version.  ``mfcc`` routes the
-same way to kernel K12 (the cepstra-only mode of K3).
+(``ops.frontend_kernel``, ``csrc/mfcc39.cu``: the cepstra kernel, then
+the tail kernel K14), which raises for a config it does not implement
+(``fused_supported``); a CPU tensor runs the plain pipeline below, which
+is also K3's plain version.  ``mfcc`` routes the same way to kernel K12
+(the cepstra kernel alone).
 """
 
 from __future__ import annotations

@@ -32,8 +32,7 @@ from speech_recognition_tpu_torch.ops.viterbi_banded import BandedGraph
 from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import use_kernels
 from speech_recognition_tpu_torch.ops.viterbi_lex_kernels import (
     LexTopo,
-    check_lex_smem,
-    lex_launch_inputs,
+    lex_forward,
 )
 
 __all__ = ["viterbi_lattice", "viterbi_lattice_ref", "rescore_lattice",
@@ -60,34 +59,12 @@ def viterbi_lattice(nll, g: BandedGraph, topo: LexTopo, n_frames):
     """K6 for CUDA tensors, the plain version for CPU tensors; arguments
     and results as ``viterbi_lattice_ref``.  Every frame ``t < T`` of
     the planes is written: frames past a stream's length repeat its last
-    frame, and a stream of length 0 still runs frame 0."""
+    frame, and a stream of length 0 still runs frame 0.  The same
+    kernel and plan as K4 (``viterbi_lex_kernels.lex_forward``), with an
+    entry-time frontier beside the costs."""
     if not use_kernels(nll):
         return viterbi_lattice_ref(nll, g, topo, n_frames)
-    from speech_recognition_tpu_torch.utils.build import check, load_library
-
-    args = lex_launch_inputs(nll, g, topo, n_frames, "lattice kernel")
-    dev = nll.device
-    u, t_len, b = nll.shape
-    s, r, l = g.n_states, g.n_words, g.n_ends
-    if t_len == 0:
-        raise ValueError("the lattice pass needs at least one frame")
-    final = torch.empty((b, s), dtype=torch.float32, device=dev)
-    ends_cost = torch.empty((t_len, b, l), dtype=torch.float32, device=dev)
-    ends_tau = torch.empty((t_len, b, l), dtype=torch.int32, device=dev)
-    if b == 0:
-        return final, ends_cost, ends_tau
-    lib = load_library()
-    check_lex_smem(lib, u, r, "lattice kernel")
-    scratch = torch.empty((b, 2, s), dtype=torch.float32, device=dev)
-    tau_scratch = torch.empty((b, 2, s), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.viterbi_lattice_launch(
-            *[x.data_ptr() for x in args], scratch.data_ptr(), tau_scratch.data_ptr(),
-            final.data_ptr(), ends_cost.data_ptr(), ends_tau.data_ptr(),
-            u, t_len, b, s, r, l, torch.cuda.current_stream(dev).cuda_stream)
-    check(rc, "lattice Viterbi kernel")
-    viterbi_lattice.launches += 1
-    return final, ends_cost, ends_tau
+    return lex_forward(nll, g, topo, n_frames, True, viterbi_lattice)
 
 
 viterbi_lattice.launches = 0

@@ -22,8 +22,11 @@ CUDA kernel for CUDA tensors (or raises), counting launches in
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+import itertools
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from speech_recognition_tpu_torch.ops.viterbi_banded import (
@@ -35,13 +38,97 @@ from speech_recognition_tpu_torch.ops.viterbi_banded import (
     viterbi_banded_tb,
 )
 from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import use_kernels
+from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
-__all__ = ["LexTopo", "lex_topology", "viterbi_lex", "viterbi_lex_ref",
+__all__ = ["LexPack", "lex_pack", "LexTopo", "lex_topology", "LexPlan", "lex_plan",
+           "lex_smem_bytes", "viterbi_lex", "viterbi_lex_ref",
            "lex_backtrace_val", "lex_backtrace_val_ref"]
+
+
+class LexPack(NamedTuple):
+    """The lexical-tree kernels' packed form of a graph (host numpy
+    arrays, built once per graph by ``lex_pack``).
+
+    Per state one 32-bit record: the bank row in the low ``shift`` bits,
+    above them a link, either the state's entry in ``cross`` (0: the
+    default pair, which most states carry, in entry 0) or, with bit 31
+    set, the state's leaf slot (a word end, whose cost the band phase
+    writes into the frame's leaf-end row; its pair is the default).
+    Where the band factorises over bank rows (``band[d, v] == rows[bank_state[v], d]``
+    bit for bit, true of every trie ``build_lex_graph`` makes), ``rows``
+    holds it and ``band_s`` is None; otherwise the kernel's general mode
+    reads ``band_s``, one row per state.  ``eps`` is the eps block, or
+    one value per row where every row is constant (a trie without an
+    LM); the kernel still adds it to every leaf's cost."""
+
+    rec: np.ndarray  # [S] int32 (uint32 bits)
+    rows: np.ndarray  # [n_rows, 4] f32: band costs per bank row (.w: emission slot)
+    band_s: Optional[np.ndarray]  # [S, 4] f32 per-state band costs, or None
+    cross: np.ndarray  # [n_cx, 2] int32: (source state, cost bits); entry 0 the default
+    eps: np.ndarray  # [R, L] f32, or [R] where each row is one value
+    init: np.ndarray  # [S] f32 frame-0 costs
+    starts: np.ndarray  # [R] int32 word starts
+    ends: np.ndarray  # [L] int32 word ends
+    shift: int  # bits of the bank row
+    # the leaf ends cannot be written into their slots (a repeated word
+    # end, or one with its own cross pair): each root gathers them itself
+    gather: bool
+
+    @property
+    def factorised(self) -> bool:
+        return self.band_s is None
+
+
+_LEAF = 1 << 31
+
+
+def lex_pack(g: BandedGraph) -> LexPack:
+    """Pack a graph with cross edges for K4 / K6 (see ``LexPack``)."""
+    band = g.band.cpu().numpy().astype(np.float32)  # [3, S]
+    bank = g.bank_state.cpu().numpy().astype(np.int64)
+    src = g.cross_src.cpu().numpy().astype(np.int64)
+    cost = g.cross_cost.cpu().numpy().astype(np.float32)
+    ends = g.word_ends.cpu().numpy().astype(np.int64)
+    eps = np.ascontiguousarray(g.eps_block.cpu().numpy(), dtype=np.float32)
+    if (eps.view(np.int32) == eps[:, :1].view(np.int32)).all():
+        eps = np.ascontiguousarray(eps[:, 0])
+    s = band.shape[1]
+    n_rows = int(bank.max()) + 1
+    rows = np.zeros((n_rows, 4), np.float32)
+    rows[bank, :3] = band.T  # a row's last state wins; checked against every state
+    band_s = None
+    if not np.array_equal(rows[bank, :3].view(np.int32), band.T.view(np.int32)):
+        band_s = np.zeros((s, 4), np.float32)
+        band_s[:, :3] = band.T
+        rows[:, :3] = 0.0
+    # the default pair: that of the first state without a cross edge
+    absent = np.nonzero(cost >= POS_INF)[0]
+    src_d, cost_d = (int(src[absent[0]]), cost[absent[0]]) if len(absent) else (
+        0, np.float32(POS_INF))
+    own = (src != src_d) | (cost.view(np.int32) != np.float32(cost_d).view(np.int32))
+    gather = len(np.unique(ends)) != len(ends) or bool(own[ends].any())
+    link = np.zeros(s, np.int64)
+    idx = np.nonzero(own)[0]
+    link[idx] = np.arange(1, len(idx) + 1)
+    if not gather:
+        link[ends] = np.arange(len(ends)) | _LEAF
+    cross = np.concatenate([[[src_d, np.float32(cost_d).view(np.int32)]],
+                            np.stack([src[idx], cost[idx].view(np.int32)], 1)]).astype(np.int32)
+    shift = max(1, (n_rows - 1).bit_length())
+    n_links = max(len(idx), len(ends))
+    if n_links >= 1 << (31 - shift):
+        raise ValueError(f"lexical-tree kernels: {n_rows} bank rows and {n_links} links do "
+                         "not fit a 32-bit state record")
+    rec = (bank | ((link & (_LEAF - 1)) << shift) | (link & _LEAF)).astype(np.uint32)
+    return LexPack(rec=rec.view(np.int32), rows=rows, band_s=band_s, cross=cross, eps=eps,
+                   init=np.ascontiguousarray(g.init_cost.cpu().numpy(), dtype=np.float32),
+                   starts=g.word_starts.cpu().numpy().astype(np.int32),
+                   ends=ends.astype(np.int32), shift=shift, gather=gather)
+
 
 class LexTopo(NamedTuple):
     """Static facts about a lexical-tree BandedGraph that select and
-    feed the kernels (host-side)."""
+    feed the kernels (host-side), with its packed tables."""
 
     n_states: int  # S
     n_roots: int  # R (re-entry slots = root arc starts)
@@ -50,15 +137,27 @@ class LexTopo(NamedTuple):
     disjoint: bool
     # largest bank row the graph reads (checked against the emissions)
     max_bank_state: int
+    pack: LexPack
+    # device copies of the packed tables and the launch plans, filled at
+    # first launch per device
+    on_device: dict
 
     @property
     def eps_u_dtype(self) -> torch.dtype:
         """Side-plane dtype for eps origins: int8 up to 127 leaves."""
         return _eps_u_dtype(self.n_leaves)
 
+    @property
+    def dims(self):
+        """``(S, eps entries, L, bank rows, cross entries)``: the sizes
+        the kernels' shared-memory layout depends on."""
+        p = self.pack
+        return (self.n_states, p.eps.size, self.n_leaves, p.rows.shape[0], p.cross.shape[0])
+
 
 def lex_topology(g: BandedGraph) -> LexTopo:
-    """Host-side topology of a lexical-tree graph (one with cross edges)."""
+    """Host-side topology of a lexical-tree graph (one with cross edges)
+    and its packed tables (``lex_pack``)."""
     if g.cross_src is None or g.cross_cost is None:
         raise ValueError("not a lexical-tree graph: cross_src / cross_cost missing")
     starts = set(g.word_starts.cpu().tolist())
@@ -66,7 +165,93 @@ def lex_topology(g: BandedGraph) -> LexTopo:
     s = g.n_states
     return LexTopo(n_states=s, n_roots=g.n_words, n_leaves=g.n_ends,
                    disjoint=not (starts & ends),
-                   max_bank_state=int(g.bank_state.max()) if s else -1)
+                   max_bank_state=int(g.bank_state.max()) if s else -1,
+                   pack=lex_pack(g), on_device={})
+
+
+_PACKED = ("init", "rec", "rows", "band_s", "cross", "starts", "ends", "eps")
+
+
+def _device_pack(topo: LexTopo, dev):
+    """``topo.pack``'s arrays (``_PACKED``, band_s None in the factorised
+    form) on ``dev``, copied once per device."""
+    key = str(dev)
+    if key not in topo.on_device:
+        p = topo.pack
+        topo.on_device[key] = {k: None if getattr(p, k) is None
+                               else torch.from_numpy(getattr(p, k)).to(dev) for k in _PACKED}
+    return topo.on_device[key]
+
+
+# ---------------------------------------------------------------------------
+# The forward kernel's launch plan (csrc/viterbi_lex.cu), mirrored here so
+# that it is testable without a card; the card tests hold these byte
+# counts equal to the kernel's own.
+# ---------------------------------------------------------------------------
+
+
+class LexPlan(NamedTuple):
+    """Where K4 / K6 keep what a frame step reads: ``front`` the cost
+    frontier (with K4's codes of two frames) and ``tau`` K6's entry-time
+    frontier in shared memory, else in a ``[B, 2, S + 4]`` device scratch
+    (the codes then go straight to the plane); ``tables`` the records
+    and cross table, and ``eps`` the eps block, staged into shared
+    memory, else read through L1; ``gather`` each root gathers the leaf
+    ends itself (no leaf-end row); ``rep`` copies of each bank row in the
+    per-frame row tables (8: a quarter warp's loads never share a bank);
+    ``smem`` bytes of shared memory per CTA."""
+
+    front: bool
+    tau: bool
+    tables: bool
+    eps: bool
+    gather: bool
+    rep: int  # copies of each row of the row tables (8: no bank conflicts)
+    smem: int
+
+    @property
+    def frontier(self) -> str:
+        """Where the cost frontier lives: ``shared`` or ``device`` memory."""
+        return "shared" if self.front else "device"
+
+
+def _r16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def lex_smem_bytes(lattice: bool, s: int, n_eps: int, l: int, n_rows: int, n_cx: int,
+                   front: bool, tau: bool, tables: bool, eps: bool, gather: bool,
+                   rep: int) -> int:
+    """Shared memory of one K4 / K6 CTA (``viterbi_lex_smem_bytes``) for
+    a graph of ``LexTopo.dims``: the frontier rows (with K4's staged codes
+    of two frames), K6's tau rows, the tables, the eps block, the two row
+    tables and the leaf-slot rows."""
+    row = 2 * _r16(4 * (s + 4))
+    return ((row + (0 if lattice else 2 * _r16(s)) if front else 0)
+            + (row if lattice and tau else 0)
+            + (_r16(4 * s) + _r16(8 * n_cx) if tables else 0) + (_r16(4 * n_eps) if eps else 0)
+            + 2 * _r16(16 * n_rows * rep)
+            + (0 if gather else 2 * _r16(4 * l)))
+
+
+def lex_plan(lattice: bool, topo: LexTopo, limit: int) -> LexPlan:
+    """The plan for ``topo``'s graph: in order of preference the cost
+    frontier, K6's tau frontier, the tables and the eps block in shared
+    memory (the general mode reads its tables through L1), then the
+    leaf-end row (where the pack allows it), then eight copies of each
+    bank row: the first combination that fits ``limit``.  Raises only
+    when even the two per-frame row tables do not fit (over ~7,000 bank
+    rows)."""
+    p = topo.pack
+    for front, tau, tables, eps, gather, rep in itertools.product(
+            (True, False), (True, False) if lattice else (False,),
+            (True, False) if p.factorised else (False,), (True, False),
+            (True,) if p.gather else (False, True), (8, 1)):
+        smem = lex_smem_bytes(lattice, *topo.dims, front, tau, tables, eps, gather, rep)
+        if smem <= limit:
+            return LexPlan(front, tau, tables, eps, gather, rep, smem)
+    raise ValueError(f"lexical-tree kernels: {p.rows.shape[0]} bank rows take more than the "
+                     f"{limit} B of shared memory per CTA")
 
 
 # ---------------------------------------------------------------------------
@@ -76,10 +261,9 @@ def lex_topology(g: BandedGraph) -> LexTopo:
 
 def lex_launch_inputs(nll, g: BandedGraph, topo: LexTopo, n_frames, what: str):
     """The checks K4 and its lattice mode K6 share (devices, ``nll``'s
-    dtype and layout, the graph's topology) and their common launcher
-    inputs ``[nll, band, init, bank_state, cross_src, cross_cost,
-    word_starts, word_ends, eps, n_frames]`` with int32 indices, to be
-    kept referenced until the launch has been enqueued."""
+    dtype and layout, the graph's topology); returns ``n_frames`` as
+    int32.  The kernels read the graph from ``topo``'s packed tables, so
+    ``topo`` must be ``lex_topology`` of this graph."""
     dev = nll.device
     for name, x in (("n_frames", n_frames),
                     *((f, x) for f, x in zip(g._fields, g) if x is not None)):
@@ -95,22 +279,66 @@ def lex_launch_inputs(nll, g: BandedGraph, topo: LexTopo, n_frames, what: str):
         raise ValueError(f"n_frames has shape {tuple(n_frames.shape)}, batch is {b}")
     if topo.max_bank_state >= u:
         raise ValueError(f"graph reads bank row {topo.max_bank_state}, emissions have {u}")
-
-    def i32(x):
-        return x.to(torch.int32).contiguous()
-
-    return [nll, g.band.contiguous(), g.init_cost.contiguous(), i32(g.bank_state),
-            i32(g.cross_src), g.cross_cost.contiguous(), i32(g.word_starts),
-            i32(g.word_ends), g.eps_block.contiguous(), i32(n_frames)]
+    return n_frames.to(torch.int32).contiguous()
 
 
-def check_lex_smem(lib, u: int, r: int, what: str) -> None:
-    """Raise when the per-frame shared memory of K4 / K6 (``u`` bank rows,
-    ``r`` roots) is over the per-CTA limit."""
-    need, limit = lib.viterbi_lex_smem_bytes(u, r), lib.srt_smem_limit()
-    if need > limit:
-        raise ValueError(f"{what}: {need} B of shared memory for {u} bank rows, "
-                         f"over the {limit} B limit per CTA")
+def lex_forward(nll, g: BandedGraph, topo: LexTopo, n_frames, lattice: bool, wrapper,
+                plan: LexPlan = None, trace=None):
+    """Launch ``csrc/viterbi_lex.cu`` (K4, or K6 with ``lattice``) with
+    ``plan`` (default ``lex_plan``'s) and count the launch on
+    ``wrapper``; ``trace``: None or a ``[B, 6]`` int64 tensor that
+    receives each stream's cycles per phase of its frame steps (band,
+    barrier, eps scan, warp reduction, apply, barrier; thread 0's
+    clock)."""
+    from speech_recognition_tpu_torch.utils.build import check, load_library
+
+    what = "lattice kernel" if lattice else "lexical-tree kernel"
+    nf = lex_launch_inputs(nll, g, topo, n_frames, what)
+    dev = nll.device
+    u, t_len, b = nll.shape
+    s, r, l = g.n_states, g.n_words, g.n_ends
+    final = torch.empty((b, s), dtype=torch.float32, device=dev)
+    if lattice:
+        if t_len == 0:
+            raise ValueError("the lattice pass needs at least one frame")
+        outs = (final, torch.empty((t_len, b, l), dtype=torch.float32, device=dev),
+                torch.empty((t_len, b, l), dtype=torch.int32, device=dev))
+        planes = [None, None, 0, None, outs[1], outs[2]]
+    else:
+        u_dtype = topo.eps_u_dtype
+        outs = (final, torch.empty((t_len, b, s), dtype=torch.int8, device=dev),
+                torch.empty((t_len, b, r), dtype=u_dtype, device=dev),
+                torch.empty((t_len, b, r), dtype=torch.int32, device=dev))
+        planes = [outs[1], outs[2], int(u_dtype == torch.int32), outs[3], None, None]
+    if b == 0:
+        return outs
+    lib = load_library()
+    if plan is None:
+        key = ("plan", lattice, lib.srt_smem_limit())
+        if key not in topo.on_device:
+            topo.on_device[key] = lex_plan(lattice, topo, key[2])
+        plan = topo.on_device[key]
+    pk = topo.pack
+    t = _device_pack(topo, dev)
+    row = _r16(4 * (s + 4)) // 4  # entries per frontier row
+    scratch = None if plan.front else torch.empty((b, 2, row), dtype=torch.float32, device=dev)
+    tau_scratch = None if not lattice or plan.tau else torch.empty((b, 2, row),
+                                                                   dtype=torch.int32, device=dev)
+
+    def ptr(x):
+        return x if x is None or isinstance(x, int) else x.data_ptr()
+
+    with torch.cuda.device(dev):
+        rc = lib.viterbi_lex_launch(
+            int(lattice), *map(ptr, (nll, *(t[k] for k in _PACKED), nf, scratch, tau_scratch,
+                                     final)),
+            *map(ptr, planes), ptr(trace), u, t_len, b, s, r, l, pk.rows.shape[0],
+            pk.cross.shape[0], pk.shift,
+            0 if pk.eps.ndim == 1 else l, int(plan.front), int(plan.tau), int(plan.tables),
+            int(plan.eps), int(plan.gather), plan.rep, torch.cuda.current_stream(dev).cuda_stream)
+    check(rc, what)
+    wrapper.launches += 1
+    return outs
 
 
 def viterbi_lex_ref(nll, g: BandedGraph, topo: LexTopo, n_frames):
@@ -140,38 +368,14 @@ def viterbi_lex(nll, g: BandedGraph, topo: LexTopo, n_frames):
     """K4 for CUDA tensors (``csrc/viterbi_lex.cu``), the plain version
     for CPU tensors.  Arguments and results as ``viterbi_lex_ref``.
 
-    The kernel keeps each stream's frontier in a ``[B, 2, S]``
-    device-memory scratch, so the graph's size is bounded only by
-    device memory.  It stops each stream at its own length, so its
-    planes hold values only for frames ``t < n_frames`` (the plain
-    version fills every frame)."""
+    The kernel keeps each stream's frontier and the packed graph tables
+    in shared memory where ``lex_plan`` finds room, else in device
+    memory, so the graph's size is bounded only by device memory.  It
+    stops each stream at its own length, so its planes hold values only
+    for frames ``t < n_frames`` (the plain version fills every frame)."""
     if not use_kernels(nll):
         return viterbi_lex_ref(nll, g, topo, n_frames)
-    from speech_recognition_tpu_torch.utils.build import check, load_library
-
-    args = lex_launch_inputs(nll, g, topo, n_frames, "lexical-tree kernel")
-    dev = nll.device
-    u, t_len, b = nll.shape
-    s, r, l = g.n_states, g.n_words, g.n_ends
-    u_dtype = topo.eps_u_dtype
-    final = torch.empty((b, s), dtype=torch.float32, device=dev)
-    bp8 = torch.empty((t_len, b, s), dtype=torch.int8, device=dev)
-    eps_u = torch.empty((t_len, b, r), dtype=u_dtype, device=dev)
-    eps_prev = torch.empty((t_len, b, r), dtype=torch.int32, device=dev)
-    if b == 0:
-        return final, bp8, eps_u, eps_prev
-    lib = load_library()
-    check_lex_smem(lib, u, r, "lexical-tree kernel")
-    scratch = torch.empty((b, 2, s), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.viterbi_lex_launch(
-            *[x.data_ptr() for x in args], scratch.data_ptr(),
-            final.data_ptr(), bp8.data_ptr(), eps_u.data_ptr(),
-            int(u_dtype == torch.int32), eps_prev.data_ptr(),
-            u, t_len, b, s, r, l, torch.cuda.current_stream(dev).cuda_stream)
-    check(rc, "lexical-tree Viterbi kernel")
-    viterbi_lex.launches += 1
-    return final, bp8, eps_u, eps_prev
+    return lex_forward(nll, g, topo, n_frames, False, viterbi_lex)
 
 
 viterbi_lex.launches = 0

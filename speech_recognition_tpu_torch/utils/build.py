@@ -104,8 +104,7 @@ def load_library() -> ctypes.CDLL:
     types of every exported launcher declared."""
     lib = ctypes.CDLL(build())
     p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.mfcc39_launch.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                  i, i, i, i, i, f, i, i, i, p]
+    lib.mfcc_tail_launch.argtypes = [p, p, p, i, i, i, i, p]
     lib.mfcc_ceps_launch.argtypes = [p, p, p, p, p, p, p, p, p,
                                      i, i, i, i, i, f, i, i, p]
     lib.viterbi_dense_launch.argtypes = [p, p, p, p, p, p, p, p, p,
@@ -121,32 +120,31 @@ def load_library() -> ctypes.CDLL:
     lib.viterbi_wordtrace_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
                                              p, i, p, p,
                                              i, i, i, i, i, i, i, i, i, i, i, p]
-    lib.viterbi_lex_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
-                                       i, p, i, i, i, i, i, i, p]
+    lib.viterbi_lex_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, p,
+                                       p, p, i, p, p, p, p,
+                                       i, i, i, i, i, i, i, i, i,
+                                       i, i, i, i, i, i, i, p]
     lib.lex_backtrace_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
-    lib.viterbi_lattice_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
-                                           i, i, i, i, i, i, p]
     lib.lattice_rescore_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
                                            i, i, i, i, i, p]
-    for fn in (lib.mfcc39_launch, lib.bank_emission_launch, lib.banded_forward_launch,
+    for fn in (lib.mfcc_tail_launch, lib.bank_emission_launch, lib.banded_forward_launch,
                lib.banded_backtrace_launch,
                lib.banded_backtrace_general_launch, lib.viterbi_wordtrace_launch,
                lib.viterbi_lex_launch,
-               lib.lex_backtrace_launch, lib.viterbi_lattice_launch,
+               lib.lex_backtrace_launch,
                lib.lattice_rescore_launch, lib.mfcc_ceps_launch,
                lib.viterbi_dense_launch):
         fn.restype = ctypes.c_int
-    lib.mfcc39_smem_bytes.argtypes = [i, i, i]
     lib.bank_emission_smem_bytes.argtypes = [i, i, i, i]
     lib.banded_forward_smem_bytes.argtypes = [i, i, i, i, i, i, i, i, i, i]
     lib.banded_forward_work_bytes.argtypes = [i, i, i, i]
     lib.banded_forward_work_bytes.restype = q
     lib.viterbi_wordtrace_smem_bytes.argtypes = [i, i, i, i, i, i]
-    lib.viterbi_lex_smem_bytes.argtypes = [i, i]
+    lib.viterbi_lex_smem_bytes.argtypes = [i] * 12
     lib.lattice_rescore_smem_bytes.argtypes = [i]
     lib.viterbi_dense_smem_bytes.argtypes = [i, i, i]
     lib.srt_smem_limit.argtypes = []
-    for fn in (lib.mfcc39_smem_bytes, lib.bank_emission_smem_bytes,
+    for fn in (lib.bank_emission_smem_bytes,
                lib.banded_forward_smem_bytes, lib.viterbi_wordtrace_smem_bytes,
                lib.viterbi_lex_smem_bytes, lib.lattice_rescore_smem_bytes,
                lib.viterbi_dense_smem_bytes, lib.srt_smem_limit):

@@ -8,7 +8,9 @@ none, and it is run there without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: K1 final costs rtol 1e-5 (emission GEMM summation order),
-K1 planes / K2 / words exact, K3 rtol 2e-3 / atol 5e-4.  K4 (the
+K1 planes / K2 / words exact, K3 rtol 2e-3 / atol 5e-4, K14 (the MFCC-39
+tail) exact for raw features and rtol 1e-4 / atol 1e-4 standardized (the
+mean and variance summed in another order).  K4 (the
 lexical-tree forward), K5 (its backtrace), K6 (the lattice pass), K7
 (the lattice rescorer), K8 (the banded forward on bank emissions) and K9
 (the general backtrace) are fed the plain version's own inputs, so every
@@ -57,6 +59,8 @@ def _bank(n_models, n_states, n_mix, dim, seed=0):
 @pytest.mark.parametrize("rate,lens,norm", [
     (16000, [16000, 7321, 400, 123, 16000, 561], "utterance"),
     (16000, [9000, 16000], "none"),
+    (16000, [16000, 300, 500, 700, 9000], "utterance"),  # nf 1, 2, 3: one-sided rows
+    (16000, [16000, 300, 500, 700], "none"),
     (8000, [8000, 3000, 5555], "utterance"),
     (48000, [48000, 20000, 1000], "utterance"),  # 1200-sample frames fold onto the FFT
     (44100, [30000, 44100], "none"),
@@ -66,6 +70,7 @@ def test_k3_matches_plain(dev, rate, lens, norm):
     from speech_recognition_tpu_torch.ops.frontend_kernel import (
         mfcc39_fused,
         mfcc39_fused_ref,
+        mfcc_tail,
     )
 
     cfg = FrontendConfig(sample_rate=rate)
@@ -73,11 +78,11 @@ def test_k3_matches_plain(dev, rate, lens, norm):
     sig = (rng.standard_normal((len(lens), padded_length(cfg, max(lens)))) * 3000)
     sig = torch.from_numpy(sig.astype(np.float32)).to(dev)
     ln = torch.tensor(lens, dtype=torch.int32, device=dev)
-    before = mfcc39_fused.launches
+    before = (mfcc39_fused.launches, mfcc_tail.launches)
     got, nf_k = mfcc39_fused(sig, ln, cfg, norm=norm)
     want, nf_p = mfcc39_fused_ref(sig, ln, cfg, norm=norm)
     torch.cuda.synchronize()
-    assert mfcc39_fused.launches == before + 1
+    assert (mfcc39_fused.launches, mfcc_tail.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(nf_k, nf_p)
     scale = 1.0 if norm == "utterance" else want.abs().amax((0, 1)).clamp(min=1.0)
     torch.testing.assert_close(got / scale, want / scale, rtol=2e-3, atol=5e-4)
@@ -86,15 +91,17 @@ def test_k3_matches_plain(dev, rate, lens, norm):
 
 
 def test_k3_through_mfcc39_auto_past_shared_memory(dev):
-    """A 25 s cap (2,499 frames, above the 1,967 whose cepstra and deltas
-    fit in shared memory): mfcc39_auto runs K3 with its device-memory
-    scratch; equal to the plain version within rtol 2e-3 / atol 5e-4."""
+    """A 25 s cap (2,499 frames, past the 1,967 whose cepstra and deltas
+    once had to fit in shared memory): mfcc39_auto runs K3's two launches,
+    the frame-parallel cepstra kernel and K14, neither with a frame limit;
+    equal to the plain version within rtol 2e-3 / atol 5e-4."""
     from speech_recognition_tpu_torch.ops.frontend import mfcc39_auto, padded_length
     from speech_recognition_tpu_torch.ops.frontend_kernel import (
         mfcc39_fused,
         mfcc39_fused_ref,
+        mfcc_fused,
+        mfcc_tail,
     )
-    from speech_recognition_tpu_torch.utils.build import load_library
 
     cfg = FrontendConfig()
     lens = [400000, 31000, 16000, 561]
@@ -102,16 +109,44 @@ def test_k3_through_mfcc39_auto_past_shared_memory(dev):
     sig = rng.standard_normal((len(lens), padded_length(cfg, 400000))) * 3000
     sig = torch.from_numpy(sig.astype(np.float32)).to(dev)
     ln = torch.tensor(lens, dtype=torch.int32, device=dev)
-    lib = load_library()
-    assert lib.mfcc39_smem_bytes(2499, 26, 13) > lib.srt_smem_limit()
-    before = mfcc39_fused.launches
+    before = (mfcc39_fused.launches, mfcc_tail.launches, mfcc_fused.launches)
     got, nf_k = mfcc39_auto(sig, ln, cfg)
     want, nf_p = mfcc39_fused_ref(sig, ln, cfg)
     torch.cuda.synchronize()
-    assert mfcc39_fused.launches == before + 1 and got.shape[1] == 2499
+    assert (mfcc39_fused.launches, mfcc_tail.launches, mfcc_fused.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert got.shape[1] == 2499
     assert torch.equal(nf_k, nf_p)
     torch.testing.assert_close(got, want, rtol=2e-3, atol=5e-4)
     for i, n in enumerate(nf_k.tolist()):
+        assert bool((got[i, n:] == 0).all())
+
+
+@pytest.mark.parametrize("norm", ["utterance", "none"])
+def test_k14_matches_plain(dev, norm):
+    """K14 alone on given cepstra with nf 0, 1, 2, 3, F and others against
+    its plain version ``_stack39``: deltas bit-identical (the same single
+    subtractions), standardized features at rtol 1e-4 / atol 1e-4 (sums
+    in another order); rows >= nf zeros."""
+    from speech_recognition_tpu_torch.ops.frontend import _stack39
+    from speech_recognition_tpu_torch.ops.frontend_kernel import mfcc_tail
+
+    rng = np.random.default_rng(9)
+    f = 57
+    ceps = rng.standard_normal((7, f, 13)).astype(np.float32) * 5
+    nf = np.array([0, 1, 2, 3, f, 20, 41], np.int32)
+    ceps[np.arange(f)[None, :] >= nf[:, None]] = 0.0
+    ceps, nf = torch.from_numpy(ceps).to(dev), torch.from_numpy(nf).to(dev)
+    before = mfcc_tail.launches
+    got = mfcc_tail(ceps, nf, norm)
+    want = _stack39(ceps, nf, norm)
+    torch.cuda.synchronize()
+    assert mfcc_tail.launches == before + 1
+    if norm == "none":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for i, n in enumerate(nf.tolist()):
         assert bool((got[i, n:] == 0).all())
 
 
@@ -664,6 +699,95 @@ def test_lattice_wrappers_raise_instead_of_falling_back(dev):
     assert (lk.viterbi_lattice.launches, lk.rescore_lattice.launches) == before
 
 
+def _lex_case(kind):
+    """``(graph, n_bank)`` for the K4 / K6 plan tests: the 1,000-word
+    benchmark trie, the dictionary-shaped trie, the 1k trie with one
+    state's band perturbed (it no longer factorises: the general mode)
+    and the 60-word trie with a repeated word end (the gather mode)."""
+    from speech_recognition_tpu_torch.data.lexicon import bench_lexicon, dict1_shaped_lexicon
+    from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+
+    if kind == "dup_end":
+        lexg, n_bank = _lex_graph("deep")
+        g = lexg.banded
+        return g._replace(word_ends=torch.cat([g.word_ends, g.word_ends[:1]]),
+                          eps_block=torch.cat([g.eps_block, g.eps_block[:, :1] + 0.25], 1)
+                          ), n_bank
+    words, trans, ids, _ = dict1_shaped_lexicon() if kind == "dict1" else bench_lexicon()
+    g = build_lex_graph(words, trans, ids, word_insertion_cost=0.5).banded
+    if kind == "1k_general":
+        band = g.band.clone()
+        v = int(torch.nonzero(band[1] < 1e29)[50])
+        band[1, v] += 0.125
+        g = g._replace(band=band)
+    return g, int(g.bank_state.max()) + 1
+
+
+@pytest.mark.parametrize("kind,variant,lattice", [
+    ("1k", "plan", False), ("1k", "plan", True),
+    ("1k", "device frontier", False), ("1k", "device frontier", True),
+    ("1k", "tables via L1", False), ("1k", "tables via L1", True),
+    ("1k", "eps via L1", False), ("1k", "gather", False), ("1k", "gather", True),
+    ("1k", "rows once", False), ("1k", "rows once", True),
+    ("1k", "tau in scratch", True),
+    ("dict1", "plan", False), ("dict1", "plan", True),
+    ("1k_general", "plan", False), ("1k_general", "plan", True),
+    ("dup_end", "plan", False), ("dup_end", "plan", True),
+])
+def test_k4_k6_plans_match_plain(dev, kind, variant, lattice):
+    """K4 and K6 under every placement of their frontier, tables and eps
+    block: the plans ``lex_plan`` picks for the 1k trie (on chip) and the
+    dictionary-shaped trie (device scratch), each field moved off chip in
+    turn, the leaf ends gathered per root, one copy of each bank row in
+    the row tables instead of eight, the general mode (per-state
+    band rows) and a repeated word end; integer (tie-forcing) or uniform
+    emissions, lengths 0, 1 and T: every output bit-identical to the
+    plain version (K4's planes on frames below nf), the plan's shared
+    memory equal to the kernel's, and the cycle trace filled."""
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lt
+    from speech_recognition_tpu_torch.ops import viterbi_lex_kernels as lk
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    g, n_bank = _lex_case(kind)
+    topo = lk.lex_topology(g)
+    g = g.to(dev)
+    lib = load_library()
+    plan = lk.lex_plan(lattice, topo, lib.srt_smem_limit())
+    assert plan.frontier == ("device" if kind == "dict1" else "shared")
+    assert topo.pack.factorised == (kind != "1k_general")
+    assert plan.gather == topo.pack.gather == (kind == "dup_end")
+    plan = plan._replace(**{"plan": {}, "device frontier": dict(front=False),
+                            "tables via L1": dict(tables=False), "eps via L1": dict(eps=False),
+                            "gather": dict(gather=True), "rows once": dict(rep=1),
+                            "tau in scratch": dict(tau=False, eps=True)}[variant])
+    dims = topo.dims
+    plan = plan._replace(smem=lk.lex_smem_bytes(lattice, *dims, plan.front, plan.tau,
+                                                plan.tables, plan.eps, plan.gather, plan.rep))
+    assert plan.smem == lib.viterbi_lex_smem_bytes(
+        int(lattice), *dims, int(plan.front), int(plan.tau), int(plan.tables), int(plan.eps),
+        int(plan.gather), plan.rep)
+    b, t = (3, 30) if kind == "dict1" else (5, 40)
+    rng = np.random.default_rng(len(variant) + t)
+    e = rng.uniform(0, 5, (n_bank, t, b)) if variant == "plan" else rng.integers(
+        0, 3, (n_bank, t, b))
+    nll = torch.from_numpy(e.astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[t, 0, 1, rng.integers(2, t + 1, b)][:b].astype(np.int32)).to(dev)
+    trace = torch.zeros((b, 6), dtype=torch.int64, device=dev)
+    wrapper = lt.viterbi_lattice if lattice else lk.viterbi_lex
+    before = wrapper.launches
+    got = lk.lex_forward(nll, g, topo, nf, lattice, wrapper, plan=plan, trace=trace)
+    want = (lt.viterbi_lattice_ref if lattice else lk.viterbi_lex_ref)(nll, g, topo, nf)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got[0], want[0])
+    valid = torch.arange(t, device=dev)[:, None, None] < nf[None, :, None]
+    for k in range(1, len(want)):
+        assert bool(((got[k] == want[k]) | ~valid).all() if not lattice
+                    else torch.equal(got[k], want[k])), k
+    ran = (nf > 0) | lattice
+    assert bool((trace[ran].sum(1) > 0).all())
+
+
 def _general_graph(kind):
     """``(bank, graph)`` for the general banded path (K8 + K9) or, for
     ``loop_lm`` / ``loop_int32``, a graph the fused kernels also take."""
@@ -1005,8 +1129,11 @@ def test_k11_raises_instead_of_falling_back(dev):
 @pytest.mark.parametrize("rate,lens", [
     (16000, [16000, 7321, 400, 123, 16000, 561]),
     (8000, [8000, 3000, 5555, 200]),
-    (16000, [400000, 31000]),   # 2,499 frames: past K3's 1,967-frame limit
+    (16000, [400000, 31000]),   # 2,499 frames
     (8000, [200000, 8000]),
+    (16000, [16000, 300, 500, 700]),  # nf 1, 2, 3
+    (48000, [48000, 20000, 1000]),    # 1200-sample frames fold onto the FFT
+    (44100, [30000, 44100]),          # 1102-sample frames
 ])
 def test_k12_matches_plain(dev, rate, lens):
     from speech_recognition_tpu_torch.ops.frontend import mfcc, padded_length

@@ -21,6 +21,8 @@ from speech_recognition_tpu_torch.ops import frontend as tfe
 from speech_recognition_tpu_torch.ops.frontend_kernel import (
     mfcc39_fused,
     mfcc39_fused_ref,
+    mfcc_fused_ref,
+    mfcc_tail,
 )
 from tests.oracles.frontend_ref import load_wav_as_mfcc_oracle
 from tests.test_frontend import synth_signal
@@ -74,9 +76,9 @@ def test_mfcc39_matches_reference(path, case):
 @pytest.mark.parametrize("path", sorted(PORT_PATHS))
 def test_mfcc39_matches_reference_past_k3_shared_memory(path):
     """25 s at 16 kHz (2,499 frames, past the 1,967 frames whose cepstra
-    and deltas fit in K3's shared memory; above that K3 keeps them in a
-    device-memory scratch): K3's plain version against the reference
-    ``mfcc39`` at rtol 2e-3 / atol 5e-4, frame counts equal."""
+    and deltas once fit in K3's shared memory; K3 has no frame limit
+    now): K3's plain version against the reference ``mfcc39`` at rtol
+    2e-3 / atol 5e-4, frame counts equal."""
     lens = [400000, 31000]
     sigs, lengths, _ = _batch(13, lens, 400000)
     f_j, nf_j = jfe.mfcc39_batch(sigs, lengths, PSF)
@@ -189,3 +191,30 @@ def test_auto_gate_is_a_config_predicate():
     d, nd = mfcc39_fused_ref(st, lt, PSF)
     assert torch.equal(c, d) and torch.equal(nc, nd)
     assert mfcc39_fused.launches == before
+
+
+@pytest.mark.parametrize("norm", ["utterance", "none"])
+def test_tail_of_cepstra_is_k3s_plain_version(norm):
+    """K3 is K12's cepstra kernel followed by the tail kernel K14, whose
+    plain version is ``_stack39``: the two plain versions composed equal
+    K3's plain version exactly, and the reference ``mfcc39`` within rtol
+    2e-3 / atol 5e-4 (raw features: one-sided delta rows at nf 1, 2 and
+    3 included; standardized: nf 1 and >= 4, since at nf 2 and 3 a delta
+    column is constant or nearly so and standardizing it only amplifies
+    the two pipelines' rounding).  ``mfcc_tail`` takes ``_stack39`` for a
+    CPU tensor and counts no launch."""
+    sigs, lengths, _ = _batch(17, [16000, 300, 500, 700, 9000], 16000)
+    st, lt = torch.from_numpy(sigs), torch.from_numpy(lengths)
+    ceps, nf = mfcc_fused_ref(st, lt, PSF)
+    assert nf.tolist()[1:4] == [1, 2, 3]
+    want, nf_w = mfcc39_fused_ref(st, lt, PSF, norm=norm)
+    before = mfcc_tail.launches
+    for got in (tfe._stack39(ceps, nf, norm), mfcc_tail(ceps, nf, norm)):
+        assert torch.equal(got, want) and torch.equal(nf, nf_w)
+    assert mfcc_tail.launches == before
+    f_j, nf_j = jfe.mfcc39_batch(sigs, lengths, PSF, norm=norm)
+    np.testing.assert_array_equal(nf.numpy(), np.asarray(nf_j))
+    rows = [0, 1, 4] if norm == "utterance" else list(range(5))
+    f_j = np.asarray(f_j)[rows]
+    scale = 1.0 if norm == "utterance" else np.abs(f_j).max(axis=(0, 1))
+    np.testing.assert_allclose(want.numpy()[rows] / scale, f_j / scale, rtol=2e-3, atol=5e-4)
