@@ -26,9 +26,10 @@ through the CLI with the launch counters reset just before each:
   banded forward on bank emissions (K8) -> general backtrace (K9) -> word
   ids;
 * the word-trace backend, ``decode_connected(backend="wordtrace")`` on
-  the CLI corpus's features (K3) and at 512 x 500 on the 385-state
-  sausage: fused emission + forward with entry-time planes (K10) ->
-  chain walk -> word ids, equal to the states path's words;
+  the CLI corpus's features (K3), at 512 x 500 on the 385-state sausage
+  and at 64 x 100 on a 1,500-word loop (7,500 states): the emission
+  kernel K13 + the banded DP's word-trace mode (together K10, entry-time
+  planes) -> chain walk -> word ids, equal to the states path's words;
 * isolated words, ``cli isolated_test --device cuda`` on a synthetic
   isolated corpus with a 12-model bank (11 digits of 5 states x 4
   mixtures x 39 dims, and a silence model that is left out): wavs ->
@@ -48,15 +49,17 @@ K12's cepstra (deltas bit-identical, standardized features at rtol 1e-4
 / atol 1e-4: the mean and variance summed in another order).  K13 (the
 emission kernel) is held to its plain version at rtol 1e-5 / atol 1e-4,
 and K1's DP alone to its plain version bit for
-bit on K13's emissions.  Past the old size limits: K1 + K2 on a
+bit on K13's emissions.  Past the old size limits: K1 + K2 and K10 on a
 1,500-word loop graph (7,500 states) and K8 + K9 on a 2,000-word loop of
 2-5-state words (7,000 states), K3 at 64 x 25 s (2,499 frames), K11 at
 one state past its shared-memory frontier.  K8 and K9 are held bit-identical to their plain versions at
 512 x 500 on the 7-slot sausage of 1-state words (77 states, eps depth
 6) and on a 7-slot sausage of words of 3 to 6 states, with uniform and
-tie-forcing integer emissions; K10 at 512 x 500 on the 385-state sausage
-with a random bank and with a bank whose last 5 words copy the first 5
-(exact ties).  K11 is held bit-identical to its plain version (final
+tie-forcing integer emissions; K10's DP (final, eps_u, eps_tau,
+final_tau) bit-identical to its plain DP on K13's own plane at 512 x 500
+on the 385-state sausage with a random bank and with a bank whose last 5
+words copy the first 5 (exact ties), its final costs within rtol 1e-5 of
+the whole plain version and of K1's.  K11 is held bit-identical to its plain version (final
 costs and every frame of both planes) at the isolated shape (512 x 500 x
 11 models of 5 states, with and without planes), on the 385-state
 sausage at 64 x 500 (eps depth 1), on 256 padded transcript graphs and
@@ -75,8 +78,10 @@ memory on the 1k trie, in device memory on the dictionary-shaped trie);
 their cycles per frame step by phase come from the kernel's trace.
 Every kernel, its plain version, the 256 x 5 s connected pipeline and
 the 128 x 5 s lexical-tree and bigram-lattice pipelines are timed with
-CUDA events, and each kernel's least possible time on the card (its
-bound) is computed from the bytes and operations of this run's inputs.
+CUDA events, K13 and K10 also with torch.profiler's device time (and
+torch.matmul of K13's product alone as a yardstick), and each kernel's
+least possible time on the card (its bound) is computed from the bytes
+and operations of this run's inputs.
 
 Run from the repository root with one GPU:  python3 chip_smoke.py
 
@@ -231,6 +236,24 @@ def cuda_ms(fn, reps: int = 5) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """Mean device time per call of ``fn()`` (ms): the kernels it launches,
+    summed, from torch.profiler's CUPTI trace, after one warm-up run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages())
+    if total <= 0:
+        fail("torch.profiler recorded no device time")
+    return total / reps / 1e3
 
 
 def random_bank(n_states: int, seed: int = 0, dup: int = 0, n_models: int = 11):
@@ -619,7 +642,7 @@ def main() -> int:
     nll13 = vk.bank_emission(xa, w, lw)
     want13 = vk.bank_emission_ref(xa, w, lw)
     bg, topo = planes["sausage7"][:2]
-    dp_got = vk._banded_forward(nll13, bg, nf, 1, True, vk.viterbi_banded_fused)
+    dp_got = vk._banded_forward(nll13, bg, nf, 1, "fused", vk.viterbi_banded_fused)
     dp_want = vk.fused_dp_ref(nll13, bg, nf)
     torch.cuda.synchronize()
     if not torch.allclose(nll13, want13, **K13_TOL):
@@ -691,6 +714,37 @@ def main() -> int:
     report["K9"] = {"max_abs_err": k9_err}
 
     # ---- 4c. K10 vs its plain version -----------------------------------------
+    def check_k10(name, xa_, ww, ll, bg_, topo_, nf_):
+        """K10 (one K13 launch + one word-trace DP launch): its DP's outputs
+        bit-identical to the plain DP on K13's own plane, its final costs
+        within rtol 1e-5 of the whole plain version and of K1's.  Returns
+        ``(max |d| against the plain version, K10's outputs)``."""
+        before = (vk.bank_emission.launches, vk.viterbi_banded_wordtrace.launches)
+        got = vk.viterbi_banded_wordtrace(xa_, ww, ll, bg_, topo_, nf_)
+        torch.cuda.synchronize()
+        if (vk.bank_emission.launches, vk.viterbi_banded_wordtrace.launches) != \
+                (before[0] + 1, before[1] + 1):
+            fail(f"K10 on {name} did not make one K13 and one DP launch")
+        dp = vk._wordtrace_dp(vk.bank_emission(xa_, ww, ll), bg_, nf_)
+        want = vk.viterbi_banded_wordtrace_ref(xa_, ww, ll, bg_, topo_, nf_)
+        k1 = vk.viterbi_banded_fused(xa_, ww, ll, bg_, topo_, nf_)
+        torch.cuda.synchronize()
+        for k, plane in enumerate(("final", "eps_u", "eps_tau", "final_tau")):
+            if not torch.equal(got[k], dp[k]):
+                fail(f"K10 {plane} differs from the plain DP on K13's plane on {name}")
+        for other, ref in (("the plain version", want[0]), ("K1", k1[0])):
+            if not torch.allclose(got[0], ref, rtol=K1_RTOL, atol=0.0):
+                fail(f"K10 final costs disagree with {other} on {name}: max |d| "
+                     f"{float((got[0] - ref).abs().max())}")
+        err = float((got[0] - want[0]).abs().max())
+        phase("K10", f"{name} at {xa_.shape[2]}x{xa_.shape[1]}: final, eps_u, eps_tau, "
+                     f"final_tau == the plain DP on K13's plane (bit-identical, every "
+                     f"frame); final within rtol 1e-5 of the plain version (max |d| "
+                     f"{err:.3g}) and of K1's (max |d| "
+                     f"{float((got[0] - k1[0]).abs().max()):.3g}); re-entries recorded "
+                     f"{int((got[2] > 0).sum())}")
+        return err, got
+
     bank_dup = random_bank(5, seed=12, dup=5).to(dev)  # models 6-10 copy 0-4
     w_d, lw_d = gmm_emission_weights(*bank_dup.flat_states())
     k10_err = 0.0
@@ -698,23 +752,9 @@ def main() -> int:
                               ("bank with 5 copied models (ties)", bank_dup, w_d, lw_d)):
         graph = connected_graph_arrays(bk, 7)
         bg = banded_arrays(graph, device=dev)
-        topo = vk.banded_topology(bg)
-        got = vk.viterbi_banded_wordtrace(xa, ww, ll, bg, topo, nf)
-        want = vk.viterbi_banded_wordtrace_ref(xa, ww, ll, bg, topo, nf)
-        k1 = vk.viterbi_banded_fused(xa, ww, ll, bg, topo, nf)
-        torch.cuda.synchronize()
-        for k, plane in enumerate(("final", "eps_u", "eps_tau", "final_tau")):
-            if not torch.equal(got[k], want[k]):
-                fail(f"K10 {plane} differs from the plain version with the {bname}")
-        k10_err = max(k10_err, float((got[0] - want[0]).abs().max()))
-        if not torch.allclose(got[0], k1[0], rtol=K1_RTOL, atol=0.0):
-            fail(f"K10 final costs disagree with K1's with the {bname}: max |d| "
-                 f"{float((got[0] - k1[0]).abs().max())}")
-        phase("K10", f"sausage7 ({graph.n_states} states), {bname} at {B}x{T}: final, "
-                     f"eps_u, eps_tau, final_tau == plain (bit-identical); final == K1's "
-                     f"(rtol 1e-5, max |d| {float((got[0] - k1[0]).abs().max()):.3g}); "
-                     f"re-entries recorded {int((got[2] > 0).sum())}")
-    report["K10"] = {"max_abs_err": k10_err}
+        err, _ = check_k10(f"sausage7 ({graph.n_states} states), {bname}", xa, ww, ll, bg,
+                           vk.banded_topology(bg), nf)
+        k10_err = max(k10_err, err)
 
     # ---- 4d. K11 vs its plain version -----------------------------------------
     from speech_recognition_tpu_torch.models.graph import pad_graphs, transcript_graph
@@ -853,8 +893,8 @@ def main() -> int:
     topob = vk.banded_topology(bgb)
     Bb, Tb = 64, 100
     xab, nfb = xa[:, :Tb, :Bb].contiguous(), nf[:Bb].clamp(max=Tb)
-    plan_b = vk.banded_plan(Bb, n_sm, bgb.n_states, bgb.n_words, bgb.n_ends, w.shape[0], True,
-                            lib.srt_smem_limit())
+    plan_b = vk.banded_plan(Bb, n_sm, bgb.n_states, bgb.n_words, bgb.n_ends, w.shape[0],
+                            "fused", lib.srt_smem_limit())
     got = vk.viterbi_banded_fused(xab, w, lw, bgb, topob, nfb)
     want = vk.viterbi_banded_fused_ref(xab, w, lw, bgb, topob, nfb)
     torch.cuda.synchronize()
@@ -873,6 +913,13 @@ def main() -> int:
                    f"{plan_b.frontier} memory, {plan_b.kf} frames staged) at {Bb}x{Tb}: "
                    f"final == plain (rtol 1e-5, max |d| "
                    f"{float((got[0] - want[0]).abs().max()):.3g}); states identical")
+    # K10 on the same loop and inputs (K10 refused above ~6,400 states before)
+    plan_10b = vk.banded_plan(Bb, n_sm, bgb.n_states, bgb.n_words, bgb.n_ends, w.shape[0],
+                              "wordtrace", lib.srt_smem_limit())
+    err, k10_big = check_k10(f"the 1,500-word loop ({bgb.n_states} states, frontier in "
+                             f"{plan_10b.frontier} memory, {plan_10b.kf} frames staged)",
+                             xab, w, lw, bgb, topob, nfb)
+    report["K10"] = {"max_abs_err": max(k10_err, err)}
     # K8 + K9 on a 2,000-word loop of 2-5-state words (7,000 states)
     tr6 = [bank6.trans_cost[i].cpu().numpy() for i in range(11)]
     big8 = build_loop_graph([tr6[i % 11][:k, :k] for i, k in zip(range(2000),
@@ -885,7 +932,7 @@ def main() -> int:
     nll8b = torch.from_numpy(erng.integers(0, 3, (66, Tb, B8b)).astype(np.float32)).to(dev)
     nf8b = torch.from_numpy(np.r_[Tb, 0, 1, Tb + 3, erng.integers(2, Tb + 1, B8b - 4)]
                             .astype(np.int32)).to(dev)
-    plan_8 = vk.banded_plan(B8b, n_sm, bg8.n_states, bg8.n_words, bg8.n_ends, 66, False,
+    plan_8 = vk.banded_plan(B8b, n_sm, bg8.n_states, bg8.n_words, bg8.n_ends, 66, "general",
                             lib.srt_smem_limit())
     got = vk.viterbi_banded_general(nll8b, bg8, topo8, nf8b, big8.eps_depth)
     want = vk.viterbi_banded_general_ref(nll8b, bg8, topo8, nf8b, big8.eps_depth)
@@ -1111,7 +1158,9 @@ def main() -> int:
                        "with the bigram composed (flat digit vocabulary)")
 
     # the word-trace backend through decode_connected: the CLI corpus's
-    # features (K3) on the loop graph, and 512 x 500 on the 385-state sausage
+    # features (K3) on the loop graph, 512 x 500 on the 385-state sausage and
+    # 64 x 100 on the 1,500-word loop (7,500 states; word i is digit i % 11)
+    import dataclasses
     import glob
 
     from speech_recognition_tpu_torch.decode.connected import decode_connected
@@ -1121,16 +1170,20 @@ def main() -> int:
         c.launches = 0
     f_w, n_w = cli._featurize_files(wav_files, FrontendConfig(), 120000, dev)
     f_w = f_w[:, : int(n_w.max())]
+    big1_g = dataclasses.replace(big1, bank_state=big1.bank_state % w.shape[0])
     wt_runs = {"CLI corpus, loop graph": (graphs["loop"], f_w, n_w),
-               f"{B}x{T}, sausage7": (graphs["sausage7"], feats, nf)}
+               f"{B}x{T}, sausage7": (graphs["sausage7"], feats, nf),
+               f"{Bb}x{Tb}, 1,500-word loop ({bgb.n_states} states)": (
+                   big1_g, feats[:Bb, :Tb].contiguous(), nfb)}
     wt_out = {k: decode_connected(bank, g_, f_, n_, backend="wordtrace")
               for k, (g_, f_, n_) in wt_runs.items()}
     torch.cuda.synchronize()
     launches["wordtrace"] = {c.__name__: c.launches for c in counters}
-    if not (launches["wordtrace"]["mfcc39_fused"] and launches["wordtrace"]["mfcc_tail"]
-            and launches["wordtrace"]["viterbi_banded_wordtrace"]) or \
+    if not all(launches["wordtrace"][c.__name__] for c in (
+            mfcc39_fused, mfcc_tail, vk.bank_emission, vk.viterbi_banded_wordtrace)) or \
             launches["wordtrace"]["viterbi_banded_fused"]:
-        fail(f"the word-trace path did not run K3 and K10 alone: {launches['wordtrace']}")
+        fail(f"the word-trace path did not run K3 and K10 (K13 + the word-trace DP) "
+             f"alone: {launches['wordtrace']}")
     phase("main path", f"wordtrace path launches: {launches['wordtrace']}")
     for k, (g_, f_, n_) in wt_runs.items():
         words_a, costs_a = decode_connected(bank, g_, f_, n_)
@@ -1250,7 +1303,7 @@ def main() -> int:
                cuda_ms(lambda: vk.viterbi_banded_fused_ref(xa, w, lw, bg, topo, nf), reps=3))
     t["K13"] = (cuda_ms(lambda: vk.bank_emission(xa, w, lw)),
                 cuda_ms(lambda: vk.bank_emission_ref(xa, w, lw)))
-    dp_ms = cuda_ms(lambda: vk._banded_forward(nll13, bg, nf, 1, True,
+    dp_ms = cuda_ms(lambda: vk._banded_forward(nll13, bg, nf, 1, "fused",
                                                vk.viterbi_banded_fused))
     k3_long_ms = cuda_ms(lambda: mfcc39_fused(sig_long, lens_long, cfg))
     k1_big_ms = cuda_ms(lambda: vk.viterbi_banded_fused(xab, w, lw, bgb, topob, nfb))
@@ -1291,6 +1344,21 @@ def main() -> int:
     t["K10"] = (cuda_ms(lambda: vk.viterbi_banded_wordtrace(xa, w, lw, bg, topo, nf)),
                 cuda_ms(lambda: vk.viterbi_banded_wordtrace_ref(xa, w, lw, bg, topo, nf),
                         reps=1))
+    dp10_ms = cuda_ms(lambda: vk._banded_forward(nll13, bg, nf, 1, "wordtrace",
+                                                 vk.viterbi_banded_wordtrace))
+    k10_big_ms = cuda_ms(lambda: vk.viterbi_banded_wordtrace(xab, w, lw, bgb, topob, nfb))
+    # device times (torch.profiler) beside the event times, and torch.matmul
+    # of K13's [U*M, A] x [A, T*B] product alone: a yardstick the port never
+    # calls (no single PyTorch call computes the emission with its logsumexp)
+    w2, x2 = w.reshape(-1, w.shape[2]), xa.reshape(xa.shape[0], -1)
+    mm_ms = cuda_ms(lambda: torch.matmul(w2, x2))
+    dev_ms = {k: device_ms(fn) for k, fn in (
+        ("K13", lambda: vk.bank_emission(xa, w, lw)),
+        ("K10", lambda: vk.viterbi_banded_wordtrace(xa, w, lw, bg, topo, nf)),
+        ("K10 DP", lambda: vk._banded_forward(nll13, bg, nf, 1, "wordtrace",
+                                              vk.viterbi_banded_wordtrace)),
+        ("K1", lambda: vk.viterbi_banded_fused(xa, w, lw, bg, topo, nf)),
+        ("matmul", lambda: torch.matmul(w2, x2)))}
     wt_ms = cuda_ms(lambda: decode_connected(bank, graph7, feats, nf, backend="wordtrace"),
                     reps=3)
     auto_ms = cuda_ms(lambda: decode_connected(bank, graph7, feats, nf), reps=3)
@@ -1509,14 +1577,31 @@ def main() -> int:
                     f"{k4_gen_ms:.3f} ms, K6 {k6_gen_ms:.3f} ms; K6 with its tau frontier in "
                     f"device memory {k6_alt_ms:.3f} ms against the plan's "
                     f"{t['K6'][0]:.3f} (CUDA-event median; {card})")
+    phase("timing", f"K13 {B}x{T}: {t['K13'][0]:.3f} ms event, {dev_ms['K13']:.3f} ms "
+                    f"device; torch.matmul of its [U*M, A] x [A, T*B] product alone (a "
+                    f"yardstick the port does not call) {mm_ms:.3f} ms event, "
+                    f"{dev_ms['matmul']:.3f} ms device; K10 = K13 + the word-trace DP: "
+                    f"{t['K10'][0]:.3f} ms event, {dev_ms['K10']:.3f} ms device, the DP alone "
+                    f"{dp10_ms:.3f} ms event, {dev_ms['K10 DP']:.3f} ms device; K1 "
+                    f"{t['K1'][0]:.3f} ms event, {dev_ms['K1']:.3f} ms device ({card})")
+    phase("timing", f"on the {bgb.n_states}-state loop at {Bb}x{Tb}: K10 {k10_big_ms:.3f} ms "
+                    f"(frontier in {plan_10b.frontier} memory), K1 {k1_big_ms:.3f} ms "
+                    f"(CUDA-event median; {card})")
+    # each kernel's time before its last redesign (PERF.md §6), on the same
+    # card model and limit
     for name, ms, before in (("K3 256 x 5 s", t["K3"][0], 1.259),
                              ("K12 256 x 5 s", t["K12"][0], 1.175),
                              ("K4 1k trie 128 x 500", t["K4"][0], 5.970),
                              ("K6 1k trie 128 x 500", t["K6"][0], 7.288),
                              ("K4 dict1-shaped 32 x 500", k4_dict_ms, 51.236),
-                             ("K6 dict1-shaped 16 x 500", k6_dict_ms, 62.262)):
-        phase("timing", f"{name}: {ms:.3f} ms against PR 6's {before:.3f} ms on the same "
-                        f"card model = {ms / before:.3f} of it ({card})")
+                             ("K6 dict1-shaped 16 x 500", k6_dict_ms, 62.262),
+                             ("K13 512 x 500", t["K13"][0], 0.425),
+                             ("K10 512 x 500", t["K10"][0], 5.133),
+                             ("K1 512 x 500", t["K1"][0], 1.648),
+                             ("word-trace decode 512 x 500", wt_ms, 10.014),
+                             ("K1 7,500-state loop 64 x 100", k1_big_ms, 116.473)):
+        phase("timing", f"{name}: {ms:.3f} ms against {before:.3f} ms before its last "
+                        f"redesign on the same card model = {ms / before:.3f} of it ({card})")
     phase("timing", f"K7 dense [L, L] LM on the 1k trie at 128x{TL}: {k7_dense_ms:.3f} ms; "
                     f"dict1-shaped trie at 16x{TL}: K6 {k6_dict_ms:.3f} ms, K7 (backoff, "
                     f"K={lm_ldd[3][1].shape[1]}) {k7_dict_ms:.3f} ms (CUDA-event median; {card})")
@@ -1612,6 +1697,14 @@ def main() -> int:
         "K1 DP alone": (nbytes(nll13, nf) + graph_bytes(bg) + nbytes(*want[:1])
                         + sum_nf * (bg.n_states + bg.n_words * (want[2].element_size() + 4)),
                         dp_ops(bg, sum_nf, span_pairs(topo)), dp_ms),
+        "K10 DP alone": (nbytes(nll13, nf) + graph_bytes(bg) + 2 * nbytes(fwd[0])
+                         + sum_nf * bg.n_words * (fwd[1].element_size() + 4),
+                         dp_ops(bg, sum_nf, span_pairs(topo)), dp10_ms),
+        "K10 1,500-word loop": (nbytes(xab, w, lw, nfb) + graph_bytes(bgb)
+                                + 2 * nbytes(k10_big[0]) + int(nfb.sum()) * bgb.n_words
+                                * (k10_big[1].element_size() + 4),
+                                int(nfb.sum()) * (2 * w.numel() + 4 * w_units)
+                                + dp_ops(bgb, int(nfb.sum()), span_pairs(topob)), k10_big_ms),
         "K3 64 x 25 s": (nbytes(sig_long, lens_long) + 64 * f_long * 39 * 4,
                          mfcc_ops(cfg, int(nf_long.sum())), k3_long_ms),
         "K1 1,500-word loop": (nbytes(xab, w, lw, nfb) + graph_bytes(bgb)
@@ -1662,7 +1755,7 @@ def main() -> int:
                   "speech_recognition_tpu_torch/csrc/banded_backtrace.cu",
                   "speech_recognition_tpu/ops/viterbi_banded_pallas.py:945"),
            "K10": ("viterbi_banded_wordtrace",
-                   "speech_recognition_tpu_torch/csrc/viterbi_banded.cu",
+                   "speech_recognition_tpu_torch/csrc/banded_forward.cu",
                    "speech_recognition_tpu/ops/viterbi_banded_pallas.py:133"),
            "K11": ("viterbi_dense", "speech_recognition_tpu_torch/csrc/viterbi_dense.cu",
                    "speech_recognition_tpu/ops/pallas_kernels.py:59"),

@@ -31,7 +31,7 @@ from speech_recognition_tpu_torch.models.graph import build_word_graph  # noqa: 
 from speech_recognition_tpu_torch.models.hmm import HMMBank  # noqa: E402
 from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk  # noqa: E402
 from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays  # noqa: E402
-from speech_recognition_tpu_torch.utils.build import check, load_library  # noqa: E402
+from speech_recognition_tpu_torch.utils.build import load_library  # noqa: E402
 from speech_recognition_tpu_torch.utils.numerics import to_cost_matrix  # noqa: E402
 
 
@@ -61,37 +61,17 @@ def ms(fn, reps=5):
     return statistics.median(out)
 
 
-def launcher(nll, g, topo, nf, depth, fused, plan):
-    """A closure that launches the DP kernel with ``plan`` (outputs and
-    tables made once)."""
-    lib = load_library()
+def launcher(nll, g, nf, depth, mode, plan):
+    """A closure that launches the DP kernel in ``mode`` with ``plan``;
+    ``run(True)`` also returns the per-stream cycle trace."""
     dev = nll.device
-    u, t_len, b = nll.shape
-    s, r, l = g.n_states, g.n_words, g.n_ends
-    u_dtype = torch.int8 if l <= 127 else torch.int32
-    final = torch.empty((s, b), device=dev)
-    bp8 = torch.empty((t_len, s, b), dtype=torch.int8, device=dev)
-    eps_u = torch.empty((t_len, r, b), dtype=u_dtype, device=dev)
-    eps_prev = torch.empty((t_len, r, b), dtype=torch.int32, device=dev)
-    lo, hi = (torch.from_numpy(x).to(dev) for x in topo.row_spans(r))
-    scratch = torch.empty(-(-b // plan.tile) * plan.tile * plan.work, dtype=torch.uint8,
-                          device=dev)
-    band4 = torch.empty((s, 4), dtype=torch.float32, device=dev)
-    band4[:, :3] = g.band.T
-    band4[:, 3] = g.bank_state.int().view(torch.float32)
-    args = [band4, g.init_cost.contiguous(), g.word_starts.int(), g.word_ends.int(),
-            g.eps_block.T.contiguous(), lo, hi, nf.int().contiguous()]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    trace = torch.zeros((b, 6), dtype=torch.int64, device=dev)
+    trace = torch.zeros((nll.shape[2], 6), dtype=torch.int64, device=dev)
+    wrapper = {"fused": vk.viterbi_banded_fused, "general": vk.viterbi_banded_general,
+               "wordtrace": vk.viterbi_banded_wordtrace}[mode]
 
     def run(traced=False):
-        rc = lib.banded_forward_launch(
-            int(fused), nll.data_ptr(), *nll.stride(), *[x.data_ptr() for x in args],
-            final.data_ptr(), bp8.data_ptr(), eps_u.data_ptr(), int(u_dtype == torch.int32),
-            eps_prev.data_ptr(), scratch.data_ptr(), u, t_len, b, s, r, l, depth,
-            plan.tile, int(plan.work_smem), int(plan.tables), int(plan.ring), plan.kf,
-            trace.data_ptr() if traced else None, stream)
-        check(rc, "dp")
+        vk._banded_forward(nll, g, nf, depth, mode, wrapper, plan=plan,
+                           trace=trace if traced else None)
         return trace
     return run
 
@@ -106,9 +86,9 @@ def main():
     limit, n_sm = lib.srt_smem_limit(), torch.cuda.get_device_properties(dev).multi_processor_count
     b5, b1 = bank(5, 0), bank(1, 0)
     cases = {
-        "K1 DP sausage7 385": (connected_graph_arrays(b5, 7), 55, True),
+        "K1 DP sausage7 385": (connected_graph_arrays(b5, 7), 55, "fused"),
         "K8 1-state sausage7 77": (build_word_graph([b1.trans_cost[i].numpy() for i in range(11)],
-                                                    [list(range(11))] * 7), 11, False),
+                                                    [list(range(11))] * 7), 11, "general"),
     }
     rng = np.random.default_rng(0)
     # K13 (K1's emission launch) at 512 x 500 with the 11 x 5 x 4-mixture bank
@@ -120,20 +100,19 @@ def main():
                                       .astype(np.float32)).to(dev))
     print(f"K13 bank emission 512 x 500: {ms(lambda: vk.bank_emission(xa, w, lw)):.3f} ms "
           f"({card})", flush=True)
-    for name, (graph, u, fused) in cases.items():
+    for name, (graph, u, mode) in cases.items():
         g = banded_arrays(graph, device=dev)
-        topo = vk.banded_topology(g)
         for b, t in ((512, 500), (512, 250), (128, 500)):
             nll = torch.from_numpy(rng.uniform(0, 5, (u, t, b)).astype(np.float32)).to(dev)
-            if fused:  # K13's [T, B, U] layout
+            if mode == "fused":  # K13's [T, B, U] layout
                 nll = nll.permute(1, 2, 0).contiguous().permute(2, 0, 1)
             nf = torch.full((b,), t, dtype=torch.int32, device=dev)
-            base = vk.banded_plan(b, n_sm, g.n_states, g.n_words, g.n_ends, u, fused, limit)
+            base = vk.banded_plan(b, n_sm, g.n_states, g.n_words, g.n_ends, u, mode, limit)
             variants = {"plan": base}
             if (b, t) == (512, 500):  # chip_smoke's lengths: T, 1, 0 and 2..T
                 nf_mixed = torch.from_numpy(np.r_[t, 1, 0, rng.integers(2, t + 1, b - 3)]
                                             .astype(np.int32)).to(dev)
-                run = launcher(nll, g, topo, nf_mixed, graph.eps_depth, fused, base)
+                run = launcher(nll, g, nf_mixed, graph.eps_depth, mode, base)
                 per = (run(True).double().mean(0) / t).tolist()
                 print(f"{name} B={b} T={t} plan, lengths T, 1, 0, 2..T: {ms(run):.3f} ms | "
                       "cycles/frame " + ", ".join(f"{k} {v:.0f}" for k, v in zip(PHASES, per))
@@ -152,9 +131,9 @@ def main():
                 })
             for vname, plan in variants.items():
                 plan = plan._replace(smem=vk.banded_smem_bytes(
-                    fused, u, g.n_states, g.n_words, g.n_ends, plan.tile, plan.work_smem,
+                    mode, u, g.n_states, g.n_words, g.n_ends, plan.tile, plan.work_smem,
                     plan.tables, plan.ring, plan.kf))
-                run = launcher(nll, g, topo, nf, graph.eps_depth, fused, plan)
+                run = launcher(nll, g, nf, graph.eps_depth, mode, plan)
                 line = (f"{name} B={b} T={t} {vname} (tile {plan.tile}, frontier "
                         f"{plan.frontier}, tables {int(plan.tables)}, ring {int(plan.ring)}, "
                         f"kf {plan.kf}): "

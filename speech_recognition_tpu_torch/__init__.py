@@ -17,8 +17,9 @@ recognition, the dense decoder and forced alignment:
                                    bank emissions (K8: csrc/banded_forward.cu),
                                    general backtrace (K9: csrc/banded_backtrace.cu)
     -> states_to_words_device      plain tensor ops
-    backend="wordtrace"            forward with entry-time planes (K10:
-                                   csrc/viterbi_banded.cu) -> wordtrace_words_device
+    backend="wordtrace"            forward with entry-time planes (K10 = K13 +
+                                   the word-trace mode of csrc/banded_forward.cu)
+                                   -> wordtrace_words_device
   decode.lextree.decode_lextree
     -> models.hmm.bank_nll_ubt     unit-bank emissions (torch.matmul)
     -> viterbi_lex                 lexical-tree Viterbi (kernel: csrc/viterbi_lex.cu)

@@ -1,5 +1,5 @@
 // Banded Viterbi forward DP over composed word graphs, four warps per
-// stream, shared by two kernels:
+// stream, shared by three kernels:
 //
 // K1 (kFused): the DP half of the fused emission + banded forward over a
 // uniform composed word graph (eps depth 1, disjoint word starts and ends).
@@ -15,11 +15,18 @@
 // _decode_banded_batch takes for 1-state words, words of different
 // lengths, transcript graphs).
 //
+// K10 (kWordTrace): K1's graphs and emission plane, with an int32
+// entry-time frontier tau instead of a backpointer plane.  With the
+// emission kernel it replaces _kernel(emit_wordtrace=True)
+// (ops/viterbi_banded_pallas.py:133, reached at :867 from
+// viterbi_banded_wordtrace_pallas, the backend="wordtrace" decode).
+//
 // Per frame t of stream b (the plain versions' semantics, unchanged):
 //   band   best = min_d band[d,s] + cost[s-d] (d = 0, 1, 2; cost[s-d] is
-//          POS_INF for s < d); frame 0 seeds from init with d = 0.  K1 takes
-//          the min-chain, the largest d winning ties; K8 the plain scan's
-//          _select_band (start at POS_INF, replace on <=)
+//          POS_INF for s < d); frame 0 seeds from init with d = 0.  K1 and
+//          K10 take the min-chain, the largest d winning ties; K8 the plain
+//          scan's _select_band (start at POS_INF, replace on <=).  K10's
+//          tau follows the winner: tau[s-d] (0 for s < d), 0 at frame 0
 //   emis   cost[s] = min(best + nll[bank_state[s]], POS_INF) (K8 clamps the
 //          emission to POS_INF first)
 //   eps    eps_depth passes; each computes, for every word r, the strict
@@ -28,53 +35,61 @@
 //          1-state word entered in pass k is an origin in pass k+1), then
 //          applies the candidates that strictly improve their start state:
 //          bp8 = 4 (eps), eps_u = the origin of the last pass that did; K1
-//          records eps_prev = end(u) - d_end(u)
-//   mask   K1: t >= nf freezes the carry (frame 0 of an empty stream gives
-//          POS_INF), final = the carry after the last frame.  K8: frame 0 is
-//          never masked, frames t >= 1 with t >= nf freeze the carry, final =
-//          the carry for 1 <= nf <= T, else POS_INF.  Frozen frames still
-//          compute and write their plane rows from the frozen carry.
-// Outputs: final [S,B] f32; bp8 [T,S,B] i8; eps_u [T,R,B] i8 (i32 when
-// L > 127); K1: eps_prev [T,R,B] i32.
+//          records eps_prev = end(u) - d_end(u); K10 sets tau[start] = t and
+//          records eps_tau = tau[end(u)] before the pass
+//   mask   K1, K10: t >= nf freezes the carry (frame 0 of an empty stream
+//          gives POS_INF, tau 0), final = the carry after the last frame.
+//          K8: frame 0 is never masked, frames t >= 1 with t >= nf freeze
+//          the carry, final = the carry for 1 <= nf <= T, else POS_INF.
+//          Frozen frames still compute and write their plane rows from the
+//          frozen carry.
+// Outputs: final [S,B] f32; eps_u [T,R,B] i8 (i32 when L > 127); K1 and
+// K8: bp8 [T,S,B] i8; K1: eps_prev [T,R,B] i32; K10: eps_tau [T,R,B] i32
+// and final_tau [S,B] i32 (no bp8).
 //
 // What bounds it on the H100: at B=512, T=500, S=385 the planes are ~140 MB
 // (~0.04 ms at 3.35 TB/s) and the DP ~1.6 G operations (~0.02 ms), so the
-// bound is the latency of T dependent frame steps per stream.
+// bound is the latency of T dependent frame steps per stream.  K10 moves
+// less (no bp8 plane) but carries a second frontier: one more shared-memory
+// load and store per state and frame.
 //
 // What the design does about it: kWps = 4 warps own one stream for all T
 // frames and meet at the stream's own named barrier (no CTA barrier in the
 // frame loop).  The stream's frontier (two [S] cost rows, each with
-// POS_INF in front so that s-1 and s-2 need no test, and the codes) lives
-// in its work area, in shared memory or, when that does not fit, in a
-// device-memory scratch.  Its 128 lanes take the states l, l + 128, ...:
-// every table read is coalesced (shared memory without bank conflicts, or
-// L1) and the s-1 / s-2 reads hit consecutive words.  The CTA copies the
-// graph tables (per state a float4 of the three band costs and the bank
-// row; word starts and ends, row spans, the eps block transposed to
-// [L, R]) into shared memory where they fit.  At B = 512 a frame step is
-// bound by the instructions each warp issues and their latency, so the
-// loops stay rolled and lean: a register frontier needs fully unrolled
-// state loops, whose code outgrew the instruction cache (measured: 2.68 /
-// 3.36 / 6.24 ms at 4 / 8 / 16 states per lane on the same 77-state graph,
-// scripts/exp_r6_dp_plan.py); the band step issues the loads of kBatch
-// states before their stores (which could alias them), and frame 0 has a
-// loop of its own; four warps per stream instead of one gave each
-// scheduler other warps' work to issue while one waits (K1's DP 1.54 ->
-// 1.15 ms).  An eps pass snapshots the word-end costs, then each lane
-// computes its rows' candidates from the snapshot and applies them to the
-// row's start state directly (one start per row), so every candidate reads
-// the pre-pass costs (Jacobi); K8 stops once a pass improves nothing, as
-// the next pass would repeat it.  The emission row of frame t + kRing-1 is
-// copied with cp.async into the stream's ring of kRing frames while frame
-// t computes.  The codes are written straight into a shared-memory staging
-// slot; an extra writer warp sends the bp8 rows and eps_u / eps_prev rows
-// of kf frames to device memory as [S, streams-per-CTA] segments (one 4-
-// or 16-byte store for a full 4-stream segment) while the compute warps
-// fill the other of two buffers (named barriers kBarFull / kBarEmpty);
-// where even one frame's staging does not fit, each stream writes its rows
-// itself.  The wrapper (ops/viterbi_banded_kernels.banded_plan) chooses
-// where the work area and the tables live, the ring and kf from the sizes;
-// nothing is refused for size.
+// POS_INF in front so that s-1 and s-2 need no test, K10's two tau rows
+// with 0 in front, and the codes) lives in its work area, in shared memory
+// or, when that does not fit, in a device-memory scratch.  Its 128 lanes
+// take the states l, l + 128, ...: every table read is coalesced (shared
+// memory without bank conflicts, or L1) and the s-1 / s-2 reads hit
+// consecutive words.  The CTA copies the graph tables (per state a float4
+// of the three band costs and the bank row; word starts and ends, row
+// spans, the eps block transposed to [L, R]) into shared memory where they
+// fit.  At B = 512 a frame step is bound by the instructions each warp
+// issues and their latency, so the loops stay rolled and lean: a register
+// frontier needs fully unrolled state loops, whose code outgrew the
+// instruction cache (measured: 2.68 / 3.36 / 6.24 ms at 4 / 8 / 16 states
+// per lane on the same 77-state graph, scripts/exp_r6_dp_plan.py); the
+// band step issues the loads of kBatch states before their stores (which
+// could alias them; K10's tau[s-d] loads follow the selects, still before
+// the stores), and frame 0 has a loop of its own; four warps per stream
+// instead of one gave each scheduler other warps' work to issue while one
+// waits (K1's DP 1.54 -> 1.15 ms).  An eps pass snapshots the word-end
+// costs (and K10's word-end taus), then each lane computes its rows'
+// candidates from the snapshot and applies them to the row's start state
+// directly (one start per row), so every candidate reads the pre-pass
+// costs (Jacobi); K8 stops once a pass improves nothing, as the next pass
+// would repeat it.  The emission row of frame t + kRing-1 is copied with
+// cp.async into the stream's ring of kRing frames while frame t computes.
+// The codes are written straight into a shared-memory staging slot; an
+// extra writer warp sends the bp8 rows and the eps_u / eps_prev (K10:
+// eps_u / eps_tau) rows of kf frames to device memory as
+// [S, streams-per-CTA] segments (one 4- or 16-byte store for a full
+// 4-stream segment) while the compute warps fill the other of two buffers
+// (named barriers kBarFull / kBarEmpty); where even one frame's staging
+// does not fit, each stream writes its rows itself.  The wrapper
+// (ops/viterbi_banded_kernels.banded_plan) chooses where the work area and
+// the tables live, the ring and kf from the sizes; nothing is refused for
+// size.
 
 #include <limits.h>
 
@@ -96,7 +111,7 @@ constexpr int kPad = 4;       // POS_INF floats in front of each cost row
 // wait, band, eps passes, plane rows, mask, flush
 constexpr int kPhases = 6;
 
-enum Mode { kFused = 0, kGeneral = 1 };
+enum Mode { kFused = 0, kGeneral = 1, kWordTrace = 2 };
 
 struct Params {
   const float* nll;       // emission (u, t, b) at u*su + t*st + b*sb
@@ -110,10 +125,11 @@ struct Params {
   const int* row_hi;      // [R]
   const int* nf;          // [B]
   float* final_cost;      // [S, B]
-  int8_t* bp8;            // [T, S, B]
+  int8_t* bp8;            // [T, S, B] (K1, K8)
   void* eps_u;            // [T, R, B] int8 or int32
   int u_wide;
-  int* eps_prev;          // [T, R, B] (K1)
+  int* eps_aux;           // [T, R, B]: K1's eps_prev, K10's eps_tau
+  int* final_tau;         // [S, B] (K10)
   unsigned char* scratch; // per-stream work areas when not in shared memory
   long long* trace;       // [B, kPhases] cycles per phase, or null (off)
   int U, T, B, S, R, L, eps_depth;
@@ -123,19 +139,30 @@ struct Params {
 __host__ __device__ inline size_t r16(size_t n) { return (n + 15) & ~(size_t)15; }
 
 // Bytes of one stream's work area: the two padded cost rows and the codes of
-// the frontier, the word-end snapshot (and K1's end(u) - d_end(u), the
-// eps_prev of an arrival from u), and each row's last improving origin.
+// the frontier (K10: two padded tau rows instead of the codes), the
+// word-end snapshot (and K1's end(u) - d_end(u), the eps_prev of an arrival
+// from u; K10's word-end taus), and each row's last improving origin.
 __host__ __device__ inline size_t work_bytes(int mode, int S, int R, int L) {
-  return 2 * r16((size_t)(S + kPad) * 4) + r16((size_t)S) +
-         r16((size_t)L * 4) * (mode == kFused ? 2 : 1) + r16((size_t)R * 4);
+  const size_t row = r16((size_t)(S + kPad) * 4);
+  return (mode == kWordTrace ? 4 * row : 2 * row + r16((size_t)S)) +
+         r16((size_t)L * 4) * (mode == kGeneral ? 1 : 2) + r16((size_t)R * 4);
 }
 
 __host__ __device__ inline size_t ring_bytes(int U) { return r16((size_t)kRing * U * 4); }
 
+// Bytes of one frame of the CTA's plane staging: the bp8 rows (not K10's)
+// and the int32 eps rows (eps_u, and K1's eps_prev or K10's eps_tau).
+__host__ __device__ inline size_t stage_bp_bytes(int mode, int S, int tile) {
+  return mode == kWordTrace ? 0 : r16((size_t)S * tile);
+}
+__host__ __device__ inline size_t stage_frame_bytes(int mode, int S, int R, int tile) {
+  return stage_bp_bytes(mode, S, tile) +
+         (mode == kGeneral ? 1 : 2) * r16((size_t)R * tile * 4);
+}
+
 // Bytes of the CTA's double-buffered plane staging for kf frames.
 __host__ __device__ inline size_t stage_bytes(int mode, int S, int R, int tile, int kf) {
-  return (size_t)kf * 2 *
-         (r16((size_t)S * tile) + (mode == kFused ? 2 : 1) * r16((size_t)R * tile * 4));
+  return (size_t)kf * 2 * stage_frame_bytes(mode, S, R, tile);
 }
 
 // Bytes of the CTA's copy of the graph tables: band4, word starts, row
@@ -201,7 +228,7 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 // Band select of one state from its three candidates.
 template <int kMode>
 __device__ __forceinline__ float band_select(float c0, float c1, float c2, int& d) {
-  if (kMode == kFused) {  // min-chain, the largest d wins ties
+  if (kMode != kGeneral) {  // min-chain, the largest d wins ties
     const float best = fminf(fminf(c0, c1), c2);
     d = (c2 == best) ? 2 : ((c1 == best) ? 1 : 0);
     return best;
@@ -219,10 +246,13 @@ __device__ __forceinline__ float band_select(float c0, float c1, float c2, int& 
 // copy of the graph tables in shared memory, else they are read through
 // L1.  kRingOn: emissions from the cp.async ring, else straight from
 // device memory.
+constexpr int kMaxThreads = (kMaxTile * kWps + 1) * kWarp;
+
 template <int kMode, bool kWorkSmem, bool kTables, bool kRingOn>
-__global__ void __launch_bounds__((kMaxTile * kWps + 1) * kWarp)
-banded_forward_kernel(Params p) {
+__device__ __forceinline__ void banded_forward_body(const Params& p) {
   constexpr bool kK1 = kMode == kFused;
+  constexpr bool kWT = kMode == kWordTrace;
+  constexpr bool kAux = kMode != kGeneral;  // a second int32 eps plane
   extern __shared__ __align__(16) unsigned char smem[];
   // tile streams of kWps warps each; with staging a writer warp follows
   const int tile = p.tile;
@@ -245,16 +275,18 @@ banded_forward_kernel(Params p) {
   float* cur = reinterpret_cast<float*>(work) + kPad;                  // [S]
   float* nxt = reinterpret_cast<float*>(work + row) + kPad;            // [S]
   unsigned char* q = work + 2 * row;
-  int8_t* wcode = reinterpret_cast<int8_t*>(q);                        // [S]
-  q += r16((size_t)S);
+  int* tcur = reinterpret_cast<int*>(q) + kPad;                        // [S] (K10)
+  int* tnxt = reinterpret_cast<int*>(q + row) + kPad;                  // [S] (K10)
+  int8_t* wcode = reinterpret_cast<int8_t*>(q);                        // [S] (K1, K8)
+  q += kWT ? 2 * row : r16((size_t)S);
   float* ends = reinterpret_cast<float*>(q);                           // [L]
   q += r16((size_t)L * 4);
-  int* endpp = reinterpret_cast<int*>(q);                              // [L] (K1)
-  q += kK1 ? r16((size_t)L * 4) : 0;
+  int* endpp = reinterpret_cast<int*>(q);  // [L] K1: end - d_end; K10: tau of the end
+  q += kAux ? r16((size_t)L * 4) : 0;
   int* eu = reinterpret_cast<int*>(q);                                 // [R]
   unsigned char* stage = smem + (size_t)tile * ((kWorkSmem ? wk : 0) + rg);
-  const size_t st_bp = r16((size_t)S * tile), st_row = r16((size_t)R * tile * 4);
-  const size_t st_frame = st_bp + (kK1 ? 2 : 1) * st_row;
+  const size_t st_bp = stage_bp_bytes(kMode, S, tile), st_row = r16((size_t)R * tile * 4);
+  const size_t st_frame = stage_frame_bytes(kMode, S, R, tile);
 
   // ---- graph tables ---------------------------------------------------------
   const float4* band4 = p.band4;
@@ -305,13 +337,15 @@ banded_forward_kernel(Params p) {
       const unsigned char* base = stage + (size_t)(j & 1) * p.kf * st_frame;
       for (int ff = 0; ff < min(p.kf, T - t0); ++ff) {
         const unsigned char* fr = base + (size_t)ff * st_frame;
-        int8_t* dst = p.bp8 + (size_t)(t0 + ff) * S * p.B + b0;
-        for (int s = lane; s < S; s += kWarp) {
-          const int8_t* src = reinterpret_cast<const int8_t*>(fr) + s * tile;
-          if (words)
-            *reinterpret_cast<int*>(dst + (size_t)s * p.B) = *reinterpret_cast<const int*>(src);
-          else
-            for (int k = 0; k < nb_; ++k) dst[(size_t)s * p.B + k] = src[k];
+        if (!kWT) {
+          int8_t* dst = p.bp8 + (size_t)(t0 + ff) * S * p.B + b0;
+          for (int s = lane; s < S; s += kWarp) {
+            const int8_t* src = reinterpret_cast<const int8_t*>(fr) + s * tile;
+            if (words)
+              *reinterpret_cast<int*>(dst + (size_t)s * p.B) = *reinterpret_cast<const int*>(src);
+            else
+              for (int k = 0; k < nb_; ++k) dst[(size_t)s * p.B + k] = src[k];
+          }
         }
         for (int r = lane; r < R; r += kWarp) {
           const int* su_ = reinterpret_cast<const int*>(fr + st_bp) + r * tile;
@@ -324,15 +358,15 @@ banded_forward_kernel(Params p) {
             else
               *reinterpret_cast<char4*>(static_cast<int8_t*>(p.eps_u) + o) =
                   make_char4((char)uv.x, (char)uv.y, (char)uv.z, (char)uv.w);
-            if (kK1)
-              *reinterpret_cast<int4*>(p.eps_prev + o) = *reinterpret_cast<const int4*>(sp_);
+            if (kAux)
+              *reinterpret_cast<int4*>(p.eps_aux + o) = *reinterpret_cast<const int4*>(sp_);
           } else {
             for (int k = 0; k < nb_; ++k) {
               if (p.u_wide)
                 static_cast<int*>(p.eps_u)[o + k] = su_[k];
               else
                 static_cast<int8_t*>(p.eps_u)[o + k] = (int8_t)su_[k];
-              if (kK1) p.eps_prev[o + k] = sp_[k];
+              if (kAux) p.eps_aux[o + k] = sp_[k];
             }
           }
         }
@@ -361,6 +395,10 @@ banded_forward_kernel(Params p) {
   for (int i = ln; i < S + kPad; i += kSL) {
     cur[i - kPad] = SRT_POS_INF;
     nxt[i - kPad] = SRT_POS_INF;
+    if (kWT) {  // tau 0 in front of the rows and before frame 0
+      tcur[i - kPad] = 0;
+      tnxt[i - kPad] = 0;
+    }
   }
   for (int r = ln; r < R; r += kSL) eu[r] = -1;  // -1: not entered by eps
   stream_sync();
@@ -387,13 +425,13 @@ banded_forward_kernel(Params p) {
     const float* eg = nb + (size_t)t * p.st;
     auto emis = [&](int u) {
       const float e = kRingOn ? er[u] : __ldg(eg + (size_t)u * p.su);
-      return kK1 ? e : fminf(e, SRT_POS_INF);
+      return kAux ? e : fminf(e, SRT_POS_INF);
     };
     // a block of kf frames reuses the buffer of the block before last:
     // wait until the writer warp has written that one out
     if (p.kf && f == 0 && t >= 2 * p.kf) bar_sync(kBarEmpty, n_all);
     // this frame's codes: written straight into the staging slot (its bp8
-    // row) when planes are staged, else into the work area
+    // row) when planes are staged, else into the work area (K10 keeps none)
     unsigned char* fb = stage + (size_t)(buf * p.kf + f) * st_frame;
     int8_t* code = p.kf ? reinterpret_cast<int8_t*>(fb) + sw : wcode;
     const int cs = p.kf ? tile : 1;  // code stride
@@ -403,7 +441,10 @@ banded_forward_kernel(Params p) {
     if (t == 0) {
       for (int s = ln; s < S; s += kSL) {
         nxt[s] = fminf(__ldg(p.init + s) + emis(bank_of(s)), SRT_POS_INF);
-        code[s * cs] = 0;
+        if (kWT)
+          tnxt[s] = 0;
+        else
+          code[s * cs] = 0;
       }
     } else {
       // kBatch states per lane at a time: every load of a batch is issued
@@ -421,15 +462,36 @@ banded_forward_kernel(Params p) {
         }
 #pragma unroll
         for (int k = 0; k < kBatch; ++k) e[k] = emis(__float_as_int(bd[k].w));
+        if constexpr (kWT) {
+          // the entry time follows the band winner (0 in front of the row);
+          // its loads, like the others, come before the batch's stores
+          int d[kBatch], tau[kBatch];
+          float best[kBatch];
 #pragma unroll
-        for (int k = 0; k < kBatch; ++k) {
-          const int s = sb + k * kSL;
-          if (s < S) {
-            int d;
-            const float best = band_select<kMode>(bd[k].x + c0[k], bd[k].y + c1[k],
-                                                  bd[k].z + c2[k], d);
-            nxt[s] = fminf(best + e[k], SRT_POS_INF);
-            code[s * cs] = (int8_t)d;
+          for (int k = 0; k < kBatch; ++k)
+            best[k] = band_select<kMode>(bd[k].x + c0[k], bd[k].y + c1[k], bd[k].z + c2[k],
+                                         d[k]);
+#pragma unroll
+          for (int k = 0; k < kBatch; ++k) tau[k] = tcur[min(sb + k * kSL, S - 1) - d[k]];
+#pragma unroll
+          for (int k = 0; k < kBatch; ++k) {
+            const int s = sb + k * kSL;
+            if (s < S) {
+              nxt[s] = fminf(best[k] + e[k], SRT_POS_INF);
+              tnxt[s] = tau[k];
+            }
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < kBatch; ++k) {
+            const int s = sb + k * kSL;
+            if (s < S) {
+              int d;
+              const float best = band_select<kMode>(bd[k].x + c0[k], bd[k].y + c1[k],
+                                                    bd[k].z + c2[k], d);
+              nxt[s] = fminf(best + e[k], SRT_POS_INF);
+              code[s * cs] = (int8_t)d;
+            }
           }
         }
       }
@@ -450,13 +512,13 @@ banded_forward_kernel(Params p) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           v[k] = nxt[e[k]];
-          pe[k] = kK1 ? e[k] - code[e[k] * cs] : 0;
+          pe[k] = kK1 ? e[k] - code[e[k] * cs] : (kWT ? tnxt[e[k]] : 0);
         }
 #pragma unroll
         for (int k = 0; k < 4; ++k)
           if (ub + k * kSL < L) {
             ends[ub + k * kSL] = v[k];
-            if (kK1) endpp[ub + k * kSL] = pe[k];
+            if (kAux) endpp[ub + k * kSL] = pe[k];
           }
       }
       stream_sync();
@@ -485,7 +547,10 @@ banded_forward_kernel(Params p) {
         const float cand = fminf(bm + es, SRT_POS_INF);
         if (cand < old) {  // strict improvement only
           nxt[st] = cand;
-          code[st * cs] = (int8_t)kEpsCode;
+          if (kWT)
+            tnxt[st] = t;
+          else
+            code[st * cs] = (int8_t)kEpsCode;
           eu[r] = arg;
           improved = true;
         }
@@ -497,35 +562,41 @@ banded_forward_kernel(Params p) {
     mark(2);
 
     // (c) planes of this frame: bp8 (already in the staging slot when
-    // staged); eps_u (and K1's eps_prev) per row from its own lane: the
-    // last improving origin, 0 when no pass improved the row's start
-    if (!p.kf && live)
+    // staged); eps_u (and K1's eps_prev, K10's eps_tau) per row from its
+    // own lane: the last improving origin (and its snapshot entry), 0 when
+    // no pass improved the row's start
+    if (!kWT && !p.kf && live)
       for (int s = ln; s < S; s += kSL) p.bp8[((size_t)t * S + s) * p.B + b] = code[s];
     int* st_u = reinterpret_cast<int*>(fb + st_bp) + sw;
     for (int r = ln; r < R; r += kSL) {
       const int uo = max(eu[r], 0);
-      const int pp = (kK1 && eu[r] >= 0) ? endpp[uo] : 0;
+      const int pp = (kAux && eu[r] >= 0) ? endpp[uo] : 0;
       eu[r] = -1;
       if (p.kf) {
         st_u[r * tile] = uo;
-        if (kK1) reinterpret_cast<int*>(fb + st_bp + st_row)[r * tile + sw] = pp;
+        if (kAux) reinterpret_cast<int*>(fb + st_bp + st_row)[r * tile + sw] = pp;
       } else if (live) {
         const size_t o = ((size_t)t * R + r) * p.B + b;
         if (p.u_wide)
           static_cast<int*>(p.eps_u)[o] = uo;
         else
           static_cast<int8_t*>(p.eps_u)[o] = (int8_t)uo;
-        if (kK1) p.eps_prev[o] = pp;
+        if (kAux) p.eps_aux[o] = pp;
       }
     }
     mark(3);
 
     // (d) length mask: the carry moves on only for active frames
-    const bool frozen = kK1 ? t >= nf : (t >= 1 && t >= nf);
+    const bool frozen = kAux ? t >= nf : (t >= 1 && t >= nf);
     if (!frozen) {
       float* tmp = cur;
       cur = nxt;
       nxt = tmp;
+      if (kWT) {
+        int* ttmp = tcur;
+        tcur = tnxt;
+        tnxt = ttmp;
+      }
     }
     stream_sync();  // the ring slot and the work area are reused next frame
     mark(4);
@@ -549,16 +620,37 @@ banded_forward_kernel(Params p) {
   if (!live) return;
   if (p.trace && ln == 0)
     for (int k = 0; k < kPhases; ++k) p.trace[(size_t)b * kPhases + k] = tr[k];
-  const bool has_final = kK1 || (nf >= 1 && nf <= T);
-  for (int s = ln; s < S; s += kSL)
+  const bool has_final = kAux || (nf >= 1 && nf <= T);
+  for (int s = ln; s < S; s += kSL) {
     p.final_cost[(size_t)s * p.B + b] = has_final ? cur[s] : SRT_POS_INF;
+    if (kWT) p.final_tau[(size_t)s * p.B + b] = tcur[s];
+  }
+}
+
+// K1 and K8.  The word-trace mode has a kernel of its own that declares
+// one CTA per SM: without that, ptxas held its instances that read the
+// tables through L1 to 56 registers and spilled (the 7,500-state loop at
+// 64 x 100: 250.8 ms against 110.9), while the same declaration slowed K8
+// on the 7,000-state loop from 195.6 to 249.7 ms
+// (scripts/exp_r8_emission.py --lab --big).
+template <int kMode, bool kWorkSmem, bool kTables, bool kRingOn>
+__global__ void __launch_bounds__(kMaxThreads) banded_forward_kernel(Params p) {
+  banded_forward_body<kMode, kWorkSmem, kTables, kRingOn>(p);
+}
+template <bool kWorkSmem, bool kTables, bool kRingOn>
+__global__ void __launch_bounds__(kMaxThreads, 1) wordtrace_forward_kernel(Params p) {
+  banded_forward_body<kWordTrace, kWorkSmem, kTables, kRingOn>(p);
 }
 
 template <int kMode, bool kWorkSmem, bool kTables, bool kRingOn>
 int launch(const Params& p, int tile, cudaStream_t stream) {
   const size_t smem = smem_bytes(kMode, p.U, p.S, p.R, p.L, tile, p.work_smem, p.tables,
                                  p.ring, p.kf);
-  auto kernel = banded_forward_kernel<kMode, kWorkSmem, kTables, kRingOn>;
+  void (*kernel)(Params);
+  if constexpr (kMode == kWordTrace)
+    kernel = wordtrace_forward_kernel<kWorkSmem, kTables, kRingOn>;
+  else
+    kernel = banded_forward_kernel<kMode, kWorkSmem, kTables, kRingOn>;
   SRT_SET_SMEM(kernel, smem);
   // carve out the shared memory of the CTAs an SM holds at once, no more:
   // the rest of its 256 KB stays L1, which serves the tables read through it
@@ -592,38 +684,45 @@ int launch_mode(const Params& p, int tile, cudaStream_t s) {
 
 }  // namespace
 
+// Modes of the C interface: 0 K1 (uniform graphs, eps_prev), 1 K8 (any
+// banded graph), 2 K10 (uniform graphs, entry times).
+inline bool valid_mode(int mode) { return mode >= kFused && mode <= kWordTrace; }
+
 // Shared memory of one CTA for a plan (the wrapper's banded_plan computes
 // the same sum; the card tests hold the two equal).
-extern "C" int banded_forward_smem_bytes(int fused, int U, int S, int R, int L, int tile,
+extern "C" int banded_forward_smem_bytes(int mode, int U, int S, int R, int L, int tile,
                                          int work_smem, int tables, int ring, int kf) {
-  const size_t n = smem_bytes(fused ? kFused : kGeneral, U, S, R, L, tile, work_smem,
-                              tables, ring, kf);
+  if (!valid_mode(mode)) return -1;
+  const size_t n = smem_bytes(mode, U, S, R, L, tile, work_smem, tables, ring, kf);
   return n > (size_t)INT_MAX ? INT_MAX : (int)n;
 }
 
 // Bytes of one stream's work area (the scratch holds one per padded stream).
-extern "C" long long banded_forward_work_bytes(int fused, int S, int R, int L) {
-  return (long long)work_bytes(fused ? kFused : kGeneral, S, R, L);
+extern "C" long long banded_forward_work_bytes(int mode, int S, int R, int L) {
+  return valid_mode(mode) ? (long long)work_bytes(mode, S, R, L) : -1;
 }
 
 // nll: emission (u, t, b) at u*su + t*st + b*sb; band4 [S] float4 (band0,
 // band1, band2, bank_state's int bits); init [S]; word_starts [R];
 // word_ends [L]; eps_t [L, R]; row_lo / row_hi [R]; nf [B] -> final [S, B],
-// bp8 [T, S, B], eps_u [T, R, B], eps_prev [T, R, B] (fused).  scratch:
-// (B rounded up to the tile) work areas when work_smem is 0.  trace: null,
-// or [B, 6] int64 that receives each stream's cycles per phase of the frame
-// steps (emission wait, band, eps passes, plane rows, mask, flush;
-// scripts/exp_r6_dp_plan.py reads it).
+// eps_u [T, R, B]; K1 and K8: bp8 [T, S, B]; K1: eps_aux = eps_prev
+// [T, R, B]; K10: eps_aux = eps_tau [T, R, B] and final_tau [S, B].
+// scratch: (B rounded up to the tile) work areas when work_smem is 0.
+// trace: null, or [B, 6] int64 that receives each stream's cycles per phase
+// of the frame steps (emission wait, band, eps passes, plane rows, mask,
+// flush; scripts/exp_r6_dp_plan.py and scripts/exp_r8_emission.py read it).
 extern "C" int banded_forward_launch(
-    int fused, const float* nll, long long su, long long st, long long sb,
+    int mode, const float* nll, long long su, long long st, long long sb,
     const void* band4, const float* init, const int* word_starts, const int* word_ends,
     const float* eps_t, const int* row_lo, const int* row_hi, const int* nf,
-    float* final_cost, int8_t* bp8, void* eps_u, int u_wide, int* eps_prev, void* scratch,
-    int U, int T, int B, int S, int R, int L, int eps_depth, int tile, int work_smem,
-    int tables, int ring, int kf, long long* trace, void* stream) {
-  if (U < 1 || S < 1 || R < 1 || L < 1 || eps_depth < 1 || B <= 0 || T <= 0 ||
-      tile < 1 || tile > kMaxTile || kf < 0 || (!work_smem && scratch == nullptr) ||
-      (fused && (eps_depth != 1 || eps_prev == nullptr)))
+    float* final_cost, int8_t* bp8, void* eps_u, int u_wide, int* eps_aux, int* final_tau,
+    void* scratch, int U, int T, int B, int S, int R, int L, int eps_depth, int tile,
+    int work_smem, int tables, int ring, int kf, long long* trace, void* stream) {
+  if (!valid_mode(mode) || U < 1 || S < 1 || R < 1 || L < 1 || eps_depth < 1 || B <= 0 ||
+      T <= 0 || tile < 1 || tile > kMaxTile || kf < 0 || (!work_smem && scratch == nullptr) ||
+      (mode != kWordTrace && bp8 == nullptr) ||
+      (mode != kGeneral && (eps_depth != 1 || eps_aux == nullptr)) ||
+      (mode == kWordTrace && final_tau == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p{};
   p.nll = nll; p.su = su; p.st = st; p.sb = sb;
@@ -631,11 +730,15 @@ extern "C" int banded_forward_launch(
   p.word_starts = word_starts; p.word_ends = word_ends; p.eps_t = eps_t;
   p.row_lo = row_lo; p.row_hi = row_hi;
   p.nf = nf; p.final_cost = final_cost; p.bp8 = bp8; p.eps_u = eps_u;
-  p.u_wide = u_wide; p.eps_prev = eps_prev;
+  p.u_wide = u_wide; p.eps_aux = eps_aux; p.final_tau = final_tau;
   p.scratch = static_cast<unsigned char*>(scratch);
   p.U = U; p.T = T; p.B = B; p.S = S; p.R = R; p.L = L; p.eps_depth = eps_depth;
   p.tile = tile; p.work_smem = work_smem; p.tables = tables; p.ring = ring; p.kf = kf;
   p.trace = trace;
   const cudaStream_t s = (cudaStream_t)stream;
-  return fused ? launch_mode<kFused>(p, tile, s) : launch_mode<kGeneral>(p, tile, s);
+  switch (mode) {
+    case kFused: return launch_mode<kFused>(p, tile, s);
+    case kGeneral: return launch_mode<kGeneral>(p, tile, s);
+    default: return launch_mode<kWordTrace>(p, tile, s);
+  }
 }

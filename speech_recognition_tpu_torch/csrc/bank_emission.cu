@@ -1,137 +1,280 @@
-// Bank emission: the GMM negative log-likelihood of every bank state for
-// every (frame, stream) at once, the first half of K1.
+// Bank emission (K13): the GMM negative log-likelihood of every bank state
+// for every (frame, stream) at once, the first launch of K1 and K10.
 //
 //   nll[t, b, u] = -logsumexp_m(lw[u, m] - w[u, m, :] . xa[:, t, b])
 //
 // with xa [A, T, B] the augmented features [x^2, x, 1] (ops.gmm.augment_dtb)
 // and w [U, M, A] / lw [U, M] from ops.gmm.gmm_emission_weights.  The TPU
 // kernel speech_recognition_tpu/ops/viterbi_banded_pallas.py _kernel
-// (fuse_emission=True) computes this product in its own body, frame block
-// by frame block; here it runs once for all T x B columns before the DP
-// (csrc/banded_forward.cu), which reads the [T, B, U] plane this writes.
+// (fuse_emission=True, and emit_wordtrace=True) computes this product in
+// its own body, frame block by frame block; here it runs once for all
+// T x B columns before the DP (csrc/banded_forward.cu), which reads the
+// [T, B, U] plane this writes.
 //
 // What bounds it on the H100: at B=512, T=500 (N = 256,000 columns) and the
-// 11 x 5 x 4-mixture bank (U*M = 220 rows, A = 79) it is 8.9 G f32 FMA
+// 11 x 5 x 4-mixture bank (U*M = 220 rows, A = 79) it is 8.9 G f32
 // operations (~0.13 ms at 67 TFLOP/s, TF32 off) against 81 MB read and
-// 56 MB written (~0.04 ms): bound by operations.
+// 56 MB written (~0.04 ms): bound by the f32 FMA rate.  Measured on the
+// card (scripts/exp_r8_k13_variants.py: this kernel with parts taken out),
+// its FMAs alone issue at about half that rate (~0.28 ms) and the
+// shared-memory loads that feed them alone take ~0.21 ms, so the design
+// keeps loads per FMA low and lets the two overlap.
 //
-// Design: a tiled f32 SIMT GEMM.  Each CTA stages the [A][U][Mp] weights
-// (mixtures padded to a multiple of 4) in shared memory once, when they
-// fit, and then walks column tiles of kCols (persistent grid): it loads
-// the [A][kCols] feature tile, and each thread accumulates, for one bank
-// state u and kColsT columns, the dot products of a block of 4 mixtures in
-// registers (4 x kColsT accumulators; the 4 weights of a step are one
-// 16-byte load, the columns broadcast across the warp, whose lanes are 32
-// consecutive states).  The mixture logsumexp runs in the epilogue with a
-// running maximum across mixture blocks, and the lanes of a warp store 32
-// consecutive u of one column: coalesced rows of the [T, B, U] plane.
-// Weights too large for shared memory are read through L1.
+// Design: a persistent tiled f32 SIMT GEMM with the mixture logsumexp in
+// its epilogue.  Each CTA stages w into shared memory once, in the layout
+// the product reads ([A][U][Mp], mixtures padded to a multiple of 4 by
+// zeros, one 16-byte load per (a, state) step), with 4-byte cp.async
+// copies in w's own order (coalesced reads, nothing held in registers), and
+// lw beside it.  It then walks column tiles of kCols: tile i+1's [A][kCols]
+// features are copied with cp.async into the other of two buffers while
+// tile i computes, so one barrier per tile separates the two.  The work of
+// a tile is ceil(U/2) x kGroups items, each a pair of states and kColsT
+// columns: a thread accumulates 2 states x 4 mixtures x 8 columns in
+// registers, 64 FMAs per step of a from four 16-byte shared-memory loads
+// (the two states' weights; columns cg*4.. and 32 + cg*4.., so the eight
+// column groups of a warp read 128 consecutive bytes), with step a+1's
+// loads issued before step a's FMAs.  The running logsumexp over blocks of
+// 4 mixtures follows, and each state's 8 columns go to the [T, B, U] plane.
+// The item index runs over all items in passes of the CTA's threads, and
+// the wrapper picks 4-8 warps per CTA so that the last pass leaves the
+// fewest lanes idle (U = 55: 28 pairs x 8 groups = 7 full warps), two CTAs
+// per SM.  Weights too large for shared memory are read from w through L1.
 
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCols = 64;     // columns per tile
-constexpr int kColsT = 16;    // columns per thread
-constexpr int kMixT = 4;      // mixtures per register block
-constexpr int kGroups = kCols / kColsT;            // column groups (4)
-constexpr int kStateSlots = kThreads / kGroups;    // states per pass (64)
+constexpr int kMaxThreads = 256;
+constexpr int kCols = 64;    // columns per tile
+constexpr int kMixT = 4;     // mixtures per register block
+constexpr int kColsT = 8;    // columns per item: two float4, 32 columns apart
+constexpr int kGroups = kCols / kColsT;  // column groups per tile (items per state pair)
 
-inline int round4(int m) { return (m + 3) & ~3; }
+__host__ __device__ inline int round4(int m) { return (m + 3) & ~3; }
 
-template <bool kStage>
-__global__ void __launch_bounds__(kThreads, 2)
-bank_emission_kernel(const float* __restrict__ xa, const float* __restrict__ wp,
-                     const float* __restrict__ lw, float* __restrict__ out, int A,
-                     int N, int U, int M, int Mp) {
-  extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                                   // [A][U][Mp] if kStage
-  float* xs = smem + (kStage ? (size_t)A * U * Mp : 0);  // [A][kCols]
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int cg = warp % kGroups;                      // column group
-  const int slot = (warp / kGroups) * 32 + lane;      // state slot
-  const float* w = kStage ? ws : wp;
-  if (kStage) {
-    const int n4 = A * U * Mp / 4;
-    for (int i = tid; i < n4; i += kThreads)
-      reinterpret_cast<float4*>(ws)[i] = __ldg(reinterpret_cast<const float4*>(wp) + i);
-  }
-  const int n_tiles = (N + kCols - 1) / kCols;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int n0 = tile * kCols;
-    __syncthreads();  // the previous tile's reads of xs are done
-    for (int i = tid; i < A * kCols; i += kThreads) {
-      const int a = i / kCols, c = i % kCols;
-      xs[i] = n0 + c < N ? __ldg(xa + (size_t)a * N + n0 + c) : 0.f;
-    }
-    __syncthreads();
-    for (int u = slot; u < U; u += kStateSlots) {
-      float zmax[kColsT], sum[kColsT];
-      for (int m0 = 0; m0 < M; m0 += kMixT) {
-        float acc[kMixT][kColsT];
-#pragma unroll
-        for (int m = 0; m < kMixT; ++m)
-#pragma unroll
-          for (int j = 0; j < kColsT; ++j) acc[m][j] = 0.f;
-        const float* wr = w + (size_t)u * Mp + m0;
-        const float* xr = xs + cg * kColsT;
-        for (int a = 0; a < A; ++a) {
-          const float4 wv = kStage
-              ? *reinterpret_cast<const float4*>(wr + (size_t)a * U * Mp)
-              : __ldg(reinterpret_cast<const float4*>(wr + (size_t)a * U * Mp));
-          const float wm[kMixT] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-          for (int j4 = 0; j4 < kColsT; j4 += 4) {
-            const float4 xv = *reinterpret_cast<const float4*>(xr + a * kCols + j4);
-            const float xj[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-            for (int m = 0; m < kMixT; ++m)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[m][j4 + j] = fmaf(wm[m], xj[j], acc[m][j4 + j]);
-          }
-        }
-        // running logsumexp over mixture blocks, padded mixtures left out
-        float lwm[kMixT];
-#pragma unroll
-        for (int m = 0; m < kMixT; ++m)
-          lwm[m] = m0 + m < M ? __ldg(lw + u * M + m0 + m) : 0.f;
-#pragma unroll
-        for (int j = 0; j < kColsT; ++j) {
-          float cmax = -INFINITY;
-#pragma unroll
-          for (int m = 0; m < kMixT; ++m)
-            if (m0 + m < M) {
-              acc[m][j] = lwm[m] - acc[m][j];
-              cmax = fmaxf(cmax, acc[m][j]);
-            }
-          if (m0 == 0) {
-            zmax[j] = cmax;
-            sum[j] = 0.f;
-          } else {
-            const float nm = fmaxf(zmax[j], cmax);
-            sum[j] *= expf(zmax[j] - nm);
-            zmax[j] = nm;
-          }
-#pragma unroll
-          for (int m = 0; m < kMixT; ++m)
-            if (m0 + m < M) sum[j] += expf(acc[m][j] - zmax[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kColsT; ++j) {
-        const int col = n0 + cg * kColsT + j;
-        if (col < N) out[(size_t)col * U + u] = -(logf(sum[j]) + zmax[j]);
-      }
-    }
-  }
+// Floats of the staged weights: [A][U][Mp] and the [U][Mp] log weights.
+__host__ __device__ inline size_t weight_floats(int A, int U, int M) {
+  return (size_t)(A + 1) * U * round4(M);
 }
 
 size_t smem_bytes(int A, int U, int M, int stage) {
-  return ((stage ? (size_t)A * U * round4(M) : 0) + (size_t)A * kCols) * sizeof(float);
+  return ((stage ? weight_floats(A, U, M) : 0) + 2 * (size_t)A * kCols) * sizeof(float);
+}
+
+// cp.async of 4 or 16 bytes; fewer source bytes (0) fill the rest with zeros.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// kOneBlock: M <= 4, one block of mixtures (no running logsumexp to keep
+// live across blocks, which costs registers)
+template <bool kStage, bool kOneBlock>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+bank_emission_kernel(const float* __restrict__ xa, const float* __restrict__ w,
+                     const float* __restrict__ lw, float* __restrict__ out, int A, int N,
+                     int U, int M, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int Mp = round4(M);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float* ws = smem;                              // [A][U][Mp] (kStage)
+  float* lws = smem + (size_t)A * U * Mp;        // [U][Mp] (kStage)
+  float* xs0 = smem + (kStage ? weight_floats(A, U, M) : 0);  // two [A][kCols] tiles
+  const int n_tiles = (N + kCols - 1) / kCols;
+
+  // tile's features into xs; columns past N are zeros (never stored)
+  auto load_tile = [&](int tile, float* xs) {
+    const int n0 = tile * kCols;
+    if (vec) {  // N % 4 == 0 and xa 16-byte aligned: 16-byte copies
+      for (int i = tid; i < A * (kCols / 4); i += nt) {
+        const int a = i / (kCols / 4), c = (i % (kCols / 4)) * 4;
+        const bool in = n0 + c < N;
+        cp_async16(xs + a * kCols + c, xa + (size_t)a * N + (in ? n0 + c : 0), in ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < A * kCols; i += nt) {
+        const int a = i / kCols, c = i % kCols;
+        const bool in = n0 + c < N;
+        cp_async4(xs + i, xa + (size_t)a * N + (in ? n0 + c : 0), in ? 4 : 0);
+      }
+    }
+  };
+
+  if (kStage) {
+    const int um = U * M;
+    for (int i = tid; i < um * A; i += nt) {  // w's own order: coalesced reads
+      const int a = i % A, r = i / A;
+      cp_async4(ws + ((size_t)a * U + r / M) * Mp + r % M, w + i, 4);
+    }
+    for (int i = tid; i < A * U * (Mp - M); i += nt) {  // padded mixtures: zero weights
+      const int pm = Mp - M;
+      ws[(size_t)(i / pm) * Mp + M + i % pm] = 0.f;
+    }
+    for (int i = tid; i < U * Mp; i += nt)
+      lws[i] = i % Mp < M ? __ldg(lw + (i / Mp) * M + i % Mp) : 0.f;
+  }
+  int tile = blockIdx.x;
+  if (tile < n_tiles) load_tile(tile, xs0);
+  cp_async_commit();
+
+  const int n_items = ((U + 1) / 2) * kGroups;
+  for (int k = 0; tile < n_tiles; tile += gridDim.x, ++k) {
+    const float* xs = xs0 + (size_t)(k & 1) * A * kCols;
+    cp_async_wait_all();
+    __syncthreads();  // this tile (and the weights) arrived; the last tile's reads are done
+    if (tile + (int)gridDim.x < n_tiles)
+      load_tile(tile + gridDim.x, xs0 + (size_t)((k + 1) & 1) * A * kCols);
+    cp_async_commit();
+    const int n0 = tile * kCols;
+
+    for (int it = tid; it < n_items; it += nt) {
+      // a pair of states (an odd U's last pair computes its state twice and
+      // stores it once) and the columns cg*4 .. +3, 32 + cg*4 .. +3: the 8
+      // column groups of a warp read 128 consecutive bytes, no bank conflict
+      const int u0 = 2 * (it / kGroups), cg = it % kGroups;
+      const int u1 = min(u0 + 1, U - 1);
+      const float* xr = xs + cg * 4;
+      // acc[s * 4 + m][j] = lw - w . x for mixture m0 + m of state u0 (s = 0)
+      // or u1 (s = 1) and column j
+      auto product = [&](int m0, float (&acc)[2 * kMixT][kColsT]) {
+#pragma unroll
+        for (int m = 0; m < 2 * kMixT; ++m)
+#pragma unroll
+          for (int j = 0; j < kColsT; ++j) acc[m][j] = 0.f;
+        auto step = [&](const float (&wm)[2 * kMixT], float4 x0, float4 x1) {
+          const float xj[kColsT] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+          for (int m = 0; m < 2 * kMixT; ++m)
+#pragma unroll
+            for (int j = 0; j < kColsT; ++j) acc[m][j] = fmaf(wm[m], xj[j], acc[m][j]);
+        };
+        if (kStage) {
+          // pointer-bumped rows; step a+1's fragments load while step a computes
+          const int wstep = U * Mp, dw = (u1 - u0) * Mp;
+          const float* wp = ws + (size_t)u0 * Mp + m0;
+          const float* xp = xr;
+          float4 wa = lds4(wp), wb = lds4(wp + dw), x0 = lds4(xp), x1 = lds4(xp + 32);
+#pragma unroll 1
+          for (int a = 1; a <= A; ++a) {
+            float4 na = wa, nb = wb, n0v = x0, n1v = x1;
+            if (a < A) {
+              wp += wstep;
+              xp += kCols;
+              na = lds4(wp);
+              nb = lds4(wp + dw);
+              n0v = lds4(xp);
+              n1v = lds4(xp + 32);
+            }
+            const float wm[2 * kMixT] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+            step(wm, x0, x1);
+            wa = na;
+            wb = nb;
+            x0 = n0v;
+            x1 = n1v;
+          }
+        } else {
+          for (int a = 0; a < A; ++a) {
+            float wm[2 * kMixT];
+#pragma unroll
+            for (int m = 0; m < kMixT; ++m) {
+              const bool in = m0 + m < M;
+              wm[m] = in ? __ldg(w + ((size_t)u0 * M + m0 + m) * A + a) : 0.f;
+              wm[kMixT + m] = in ? __ldg(w + ((size_t)u1 * M + m0 + m) * A + a) : 0.f;
+            }
+            step(wm, lds4(xr + a * kCols), lds4(xr + a * kCols + 32));
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < 2 * kMixT; ++m) {
+          const int uu = m < kMixT ? u0 : u1, mm = m0 + m % kMixT;
+          const float l = mm < M ? (kStage ? lws[uu * Mp + mm] : __ldg(lw + uu * M + mm)) : 0.f;
+#pragma unroll
+          for (int j = 0; j < kColsT; ++j) acc[m][j] = l - acc[m][j];
+        }
+      };
+      // the first block of 4 mixtures starts the logsumexp (its running
+      // maximum and sum are not live during this block's product); later
+      // blocks rescale it; padded mixtures are left out
+      float zmax[2][kColsT], sum[2][kColsT];
+      {
+        float acc[2 * kMixT][kColsT];
+        product(0, acc);
+#pragma unroll
+        for (int s2 = 0; s2 < 2; ++s2)
+#pragma unroll
+          for (int j = 0; j < kColsT; ++j) {
+            float zm = acc[s2 * kMixT][j];
+#pragma unroll
+            for (int m = 1; m < kMixT; ++m)
+              if (m < M) zm = fmaxf(zm, acc[s2 * kMixT + m][j]);
+            float sm = 0.f;
+#pragma unroll
+            for (int m = 0; m < kMixT; ++m)
+              if (m < M) sm += __expf(acc[s2 * kMixT + m][j] - zm);
+            zmax[s2][j] = zm;
+            sum[s2][j] = sm;
+          }
+      }
+      for (int m0 = kMixT; !kOneBlock && m0 < M; m0 += kMixT) {
+        float acc[2 * kMixT][kColsT];
+        product(m0, acc);
+#pragma unroll
+        for (int s2 = 0; s2 < 2; ++s2)
+#pragma unroll
+          for (int j = 0; j < kColsT; ++j) {
+            float nm = zmax[s2][j];
+#pragma unroll
+            for (int m = 0; m < kMixT; ++m)
+              if (m0 + m < M) nm = fmaxf(nm, acc[s2 * kMixT + m][j]);
+            float sm = sum[s2][j] * __expf(zmax[s2][j] - nm);
+#pragma unroll
+            for (int m = 0; m < kMixT; ++m)
+              if (m0 + m < M) sm += __expf(acc[s2 * kMixT + m][j] - nm);
+            zmax[s2][j] = nm;
+            sum[s2][j] = sm;
+          }
+      }
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+        if (s2 && u0 + 1 >= U) break;
+        const int uu = u0 + s2;
+#pragma unroll
+        for (int j = 0; j < kColsT; ++j) {
+          const int col = n0 + (j / 4) * 32 + cg * 4 + j % 4;
+          if (col < N) out[(size_t)col * U + uu] = -(__logf(sum[s2][j]) + zmax[s2][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+}
+
+template <bool kStage, bool kOneBlock>
+int launch(const float* xa, const float* w, const float* lw, float* out, int A, int N, int U,
+           int M, int warps, int grid, cudaStream_t s) {
+  const size_t smem = smem_bytes(A, U, M, kStage);
+  auto kernel = bank_emission_kernel<kStage, kOneBlock>;
+  SRT_SET_SMEM(kernel, smem);
+  // all of the SM's shared memory: two CTAs of ~110 KB each at A = 79, U = 55
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(xa) % 16 == 0;
+  kernel<<<grid, warps * 32, smem, s>>>(xa, w, lw, out, A, N, U, M, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -142,23 +285,19 @@ extern "C" int bank_emission_smem_bytes(int A, int U, int M, int stage) {
   return n > 0x7fffffff ? 0x7fffffff : (int)n;
 }
 
-// xa [A, N] (N = T*B columns), wp [A, U, Mp] weights with the mixtures
-// padded to Mp = round4(M) by zeros, lw [U, M] -> out [N, U]; grid = CTAs
-// of the persistent column walk.
-extern "C" int bank_emission_launch(const float* xa, const float* wp, const float* lw,
+// xa [A, N] (N = T*B columns), w [U, M, A], lw [U, M] -> out [N, U]; stage:
+// the weights in shared memory; warps (1-8) per CTA; grid = CTAs of the
+// persistent column walk.
+extern "C" int bank_emission_launch(const float* xa, const float* w, const float* lw,
                                     float* out, int A, int N, int U, int M, int stage,
-                                    int grid, void* stream) {
-  if (A < 1 || N < 1 || U < 1 || M < 1 || grid < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(A, U, M, stage);
+                                    int warps, int grid, void* stream) {
+  if (A < 1 || N < 1 || U < 1 || M < 1 || grid < 1 || warps < 1 ||
+      warps * 32 > kMaxThreads)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (stage) {
-    SRT_SET_SMEM(bank_emission_kernel<true>, smem);
-    bank_emission_kernel<true><<<grid, kThreads, smem, s>>>(xa, wp, lw, out, A, N, U, M,
-                                                            round4(M));
-  } else {
-    SRT_SET_SMEM(bank_emission_kernel<false>, smem);
-    bank_emission_kernel<false><<<grid, kThreads, smem, s>>>(xa, wp, lw, out, A, N, U, M,
-                                                             round4(M));
-  }
-  return (int)cudaGetLastError();
+  if (M <= kMixT)
+    return stage ? launch<true, true>(xa, w, lw, out, A, N, U, M, warps, grid, s)
+                 : launch<false, true>(xa, w, lw, out, A, N, U, M, warps, grid, s);
+  return stage ? launch<true, false>(xa, w, lw, out, A, N, U, M, warps, grid, s)
+               : launch<false, false>(xa, w, lw, out, A, N, U, M, warps, grid, s);
 }

@@ -8,8 +8,8 @@ against a whole bank of mixtures is one matmul:
 
 followed by a logsumexp over mixtures.  The emission GEMM is
 ``torch.matmul`` in f32 (TF32 off, see ``utils.numerics``); the
-emission kernel of the banded decode (``csrc/bank_emission.cu``) and the
-word-trace kernel (``csrc/viterbi_banded.cu``) evaluate the same form.
+emission kernel of the banded decode and of the word trace
+(``csrc/bank_emission.cu``) evaluates the same form.
 """
 
 from __future__ import annotations

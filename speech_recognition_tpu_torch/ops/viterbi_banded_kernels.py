@@ -18,14 +18,15 @@ on the connected-decode path:
   takes K1's graphs and emission and writes entry-time side planes
   instead of backpointers; ``wordtrace_words_device`` walks them.
 
-K1 runs as two launches: the emission kernel K13 (``bank_emission``,
-``csrc/bank_emission.cu``: every frame's bank NLLs in one tiled GEMM
-with the mixture logsumexp in its epilogue) and the banded DP
-of ``csrc/banded_forward.cu`` in its uniform-graph mode; K8 is the same
-DP in its general mode on ``bank_nll_ubt``'s emissions.
-``banded_plan`` picks the DP's streams per CTA, where its frontier lives
-(shared memory or a device-memory scratch) and how many frames of planes
-it stages; no graph size is refused.
+K1 and K10 run as two launches each: the emission kernel K13
+(``bank_emission``, ``csrc/bank_emission.cu``: every frame's bank NLLs
+in one tiled GEMM with the mixture logsumexp in its epilogue) and the
+banded DP of ``csrc/banded_forward.cu`` in its uniform-graph mode (K1)
+or its word-trace mode (K10); K8 is the same DP in its general mode on
+``bank_nll_ubt``'s emissions.  ``banded_plan`` picks the DP's streams
+per CTA, where its frontier lives (shared memory or a device-memory
+scratch) and how many frames of planes it stages; no graph size is
+refused.
 
 No kernel implements cross edges, so a graph that carries them (a
 lexical tree) is refused here rather than decoded without them; it goes
@@ -160,17 +161,27 @@ _EMIS_COLS = 64  # columns per tile of the emission kernel
 
 
 def _emission_smem(a: int, u: int, m: int, stage: bool) -> int:
-    """Shared memory of one emission CTA: the ``[A][U][Mp]`` weights
-    (mixtures padded to a multiple of 4) when staged, and the
-    ``[A][64]`` feature tile (``bank_emission_smem_bytes``)."""
-    return 4 * ((a * u * (-(-m // 4) * 4) if stage else 0) + a * _EMIS_COLS)
+    """Shared memory of one emission CTA: the ``[A][U][Mp]`` weights and
+    ``[U][Mp]`` log weights (mixtures padded to a multiple of 4) when
+    staged, and two ``[A][64]`` feature tiles
+    (``bank_emission_smem_bytes``)."""
+    return 4 * (((a + 1) * u * (-(-m // 4) * 4) if stage else 0) + 2 * a * _EMIS_COLS)
+
+
+def _emission_warps(u: int) -> int:
+    """Warps per emission CTA: of 8 down to 4, the count whose passes over
+    a tile's ``8 ceil(U / 2)`` items (a pair of bank states and 8 columns)
+    leave the fewest lanes idle (U = 55: 7, no lane idle)."""
+    items = 8 * -(-u // 2)
+    return min(range(8, 3, -1), key=lambda nw: -(-items // (32 * nw)) * 32 * nw - items)
 
 
 def bank_emission(xa, w, lw):
     """K13 for CUDA tensors (``csrc/bank_emission.cu``), the plain version
     for CPU tensors.  Arguments and result as ``bank_emission_ref``; the
     kernel writes a ``[T, B, U]`` plane and returns it as a ``[U, T, B]``
-    view (strides ``(1, B*U, U)``)."""
+    view (strides ``(1, B*U, U)``).  Raises for a feature dimension whose
+    two feature tiles do not fit in shared memory (A > ~450)."""
     if not use_kernels(xa):
         return bank_emission_ref(xa, w, lw)
     from speech_recognition_tpu_torch.utils.build import check, load_library
@@ -183,21 +194,25 @@ def bank_emission(xa, w, lw):
     if a_w != a or lw.shape != (u, m):
         raise ValueError(f"emission weights {tuple(w.shape)}/{tuple(lw.shape)} "
                          f"do not match features [A={a}]")
+    if w.dtype != torch.float32 or lw.dtype != torch.float32:
+        raise ValueError("emission weights must be float32")
     _check_devices(dev, "features", [("w", w), ("lw", lw)])
     out = torch.empty((t_len, b, u), dtype=torch.float32, device=dev)
     n = t_len * b
     if n == 0:
         return out.permute(2, 0, 1)
-    mp = -(-m // 4) * 4
-    wp = torch.zeros((a, u, mp), dtype=torch.float32, device=dev)
-    wp[:, :, :m] = w.permute(2, 0, 1).float()
-    lwc = lw.contiguous().float()
     lib = load_library()
-    stage = _emission_smem(a, u, m, True) <= lib.srt_smem_limit()
+    limit = lib.srt_smem_limit()
+    if _emission_smem(a, u, m, False) > limit:
+        raise ValueError(f"emission kernel: two [{a}][{_EMIS_COLS}] feature tiles exceed "
+                         f"the {limit} B of shared memory")
+    stage = _emission_smem(a, u, m, True) <= limit
+    wc, lwc = w.contiguous(), lw.contiguous()
     grid = min(-(-n // _EMIS_COLS), 2 * _n_sm(dev))
     with torch.cuda.device(dev):
-        rc = lib.bank_emission_launch(xa.data_ptr(), wp.data_ptr(), lwc.data_ptr(),
-                                      out.data_ptr(), a, n, u, m, int(stage), grid,
+        rc = lib.bank_emission_launch(xa.data_ptr(), wc.data_ptr(), lwc.data_ptr(),
+                                      out.data_ptr(), a, n, u, m, int(stage),
+                                      _emission_warps(u), grid,
                                       torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "bank emission kernel")
     bank_emission.launches += 1
@@ -270,17 +285,19 @@ def fused_dp_ref(nll_bank, g: BandedGraph, n_frames):
 _TILES = (1, 2, 4)  # streams per CTA (four warps each)
 _RING = 4           # frames in each stream's emission ring
 _KF = (8, 4, 2, 1)  # frames of planes staged per hand-off to the writer warp
+# the DP's modes and their numbers in the C interface: K1, K8, K10
+MODES = {"fused": 0, "general": 1, "wordtrace": 2}
 
 
 class BandedPlan(NamedTuple):
     """How the DP kernel runs a batch: ``tile`` streams per CTA;
-    ``work_smem``: each stream's work area (its frontier, codes, word-end
-    snapshot and row origins, ``work`` bytes) in shared memory, else in a
-    device-memory scratch; ``tables``: the CTA's copy of the graph tables
-    in shared memory, else they are read through L1; ``ring``: the
-    emission ring; ``kf``: frames of planes staged per hand-off to the
-    writer warp (0: each stream writes its rows itself); ``smem``: bytes
-    of shared memory per CTA."""
+    ``work_smem``: each stream's work area (its frontier, codes or entry
+    times, word-end snapshot and row origins, ``work`` bytes) in shared
+    memory, else in a device-memory scratch; ``tables``: the CTA's copy of
+    the graph tables in shared memory, else they are read through L1;
+    ``ring``: the emission ring; ``kf``: frames of planes staged per
+    hand-off to the writer warp (0: each stream writes its rows itself);
+    ``smem``: bytes of shared memory per CTA."""
 
     tile: int
     work_smem: bool
@@ -300,13 +317,21 @@ def _r16(n: int) -> int:
     return (n + 15) & ~15
 
 
-def banded_work_bytes(fused: bool, s: int, r: int, l: int) -> int:
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"DP mode {mode!r} is not one of {sorted(MODES)}")
+
+
+def banded_work_bytes(mode: str, s: int, r: int, l: int) -> int:
     """One stream's work area: two cost rows (with 4 POS_INF entries in
-    front) and the codes of the frontier, the word-end snapshot (and K1's
-    eps_prev per end), and each row's last improving origin
-    (``banded_forward_work_bytes``)."""
-    return (2 * _r16(4 * (s + 4)) + _r16(s) + _r16(4 * l) * (2 if fused else 1)
-            + _r16(4 * r))
+    front) and the codes of the frontier (``wordtrace``: two entry-time
+    rows with 4 zeros in front instead of the codes), the word-end
+    snapshot (and K1's eps_prev or K10's entry time per end), and each
+    row's last improving origin (``banded_forward_work_bytes``)."""
+    _check_mode(mode)
+    row = _r16(4 * (s + 4))
+    front = 4 * row if mode == "wordtrace" else 2 * row + _r16(s)
+    return front + _r16(4 * l) * (1 if mode == "general" else 2) + _r16(4 * r)
 
 
 def banded_table_bytes(s: int, r: int, l: int) -> int:
@@ -316,32 +341,41 @@ def banded_table_bytes(s: int, r: int, l: int) -> int:
     return _r16(16 * s) + 3 * _r16(4 * r) + _r16(4 * l) + _r16(4 * l * r)
 
 
-def banded_smem_bytes(fused: bool, u: int, s: int, r: int, l: int, tile: int,
+def banded_stage_bytes(mode: str, s: int, r: int, tile: int) -> int:
+    """One frame of the CTA's plane staging: the bp8 rows (none in
+    ``wordtrace`` mode) and the int32 eps rows (eps_u, and K1's eps_prev
+    or K10's eps_tau)."""
+    _check_mode(mode)
+    return ((0 if mode == "wordtrace" else _r16(s * tile))
+            + (1 if mode == "general" else 2) * _r16(4 * r * tile))
+
+
+def banded_smem_bytes(mode: str, u: int, s: int, r: int, l: int, tile: int,
                       work_smem: bool, tables: bool, ring: bool, kf: int) -> int:
     """Shared memory of one DP CTA (``banded_forward_smem_bytes``)."""
-    per_stream = ((banded_work_bytes(fused, s, r, l) if work_smem else 0)
+    per_stream = ((banded_work_bytes(mode, s, r, l) if work_smem else 0)
                   + (_r16(4 * _RING * u) if ring else 0))
-    stage = kf * 2 * (_r16(s * tile) + (2 if fused else 1) * _r16(4 * r * tile))
-    return per_stream * tile + stage + (banded_table_bytes(s, r, l) if tables else 0)
+    return (per_stream * tile + kf * 2 * banded_stage_bytes(mode, s, r, tile)
+            + (banded_table_bytes(s, r, l) if tables else 0))
 
 
-def banded_plan(b: int, n_sm: int, s: int, r: int, l: int, u: int, fused: bool,
+def banded_plan(b: int, n_sm: int, s: int, r: int, l: int, u: int, mode: str,
                 limit: int) -> BandedPlan:
-    """The DP's plan for ``b`` streams over a graph of ``s`` states, ``r``
-    word starts, ``l`` word ends and ``u`` bank rows.  ``tile`` is the
-    fewest streams per CTA that keep the grid within one CTA per SM, up
-    to 4 (each stream takes four warps); then, in order of
-    preference, the work area in shared memory, the graph tables in
-    shared memory, the emission ring and the most staged frames that fit
-    ``limit``.  The last choice (everything in device memory, no ring,
-    no staging) needs no shared memory, so every size gets a plan."""
+    """The DP's plan in ``mode`` (a key of ``MODES``) for ``b`` streams over
+    a graph of ``s`` states, ``r`` word starts, ``l`` word ends and ``u``
+    bank rows.  ``tile`` is the fewest streams per CTA that keep the grid
+    within one CTA per SM, up to 4 (each stream takes four warps); then,
+    in order of preference, the work area in shared memory, the graph
+    tables in shared memory, the emission ring and the most staged frames
+    that fit ``limit``.  The last choice (everything in device memory, no
+    ring, no staging) needs no shared memory, so every size gets a plan."""
     tile = next((t for t in _TILES if -(-b // t) <= n_sm), _TILES[-1])
-    work = banded_work_bytes(fused, s, r, l)
+    work = banded_work_bytes(mode, s, r, l)
     for work_smem in (True, False):
         for tables in (True, False):
             for ring in (True, False):
                 for kf in (*_KF, 0):
-                    smem = banded_smem_bytes(fused, u, s, r, l, tile, work_smem, tables,
+                    smem = banded_smem_bytes(mode, u, s, r, l, tile, work_smem, tables,
                                              ring, kf)
                     if smem <= limit:
                         return BandedPlan(tile, work_smem, tables, ring, kf, smem, work)
@@ -360,26 +394,39 @@ def eps_row_spans(g: BandedGraph):
     return lo.to(torch.int32), hi.to(torch.int32)
 
 
-def _banded_forward(nll, g: BandedGraph, n_frames, eps_depth: int, fused: bool, wrapper):
-    """Launch the DP kernel on emissions ``nll [U, T, B]`` (any strides)
-    and count the launch on ``wrapper``: ``(final [S, B], bp8 [T, S, B],
-    eps_u [T, R, B][, eps_prev])``."""
+def _banded_forward(nll, g: BandedGraph, n_frames, eps_depth: int, mode: str, wrapper,
+                    plan: BandedPlan = None, trace=None):
+    """Launch the DP kernel in ``mode`` on emissions ``nll [U, T, B]`` (any
+    strides) and count the launch on ``wrapper``: ``fused`` -> ``(final
+    [S, B], bp8 [T, S, B], eps_u [T, R, B], eps_prev)``, ``general`` ->
+    ``(final, bp8, eps_u)``, ``wordtrace`` -> ``(final, eps_u, eps_tau
+    [T, R, B], final_tau [S, B])``.  ``plan`` overrides ``banded_plan``'s;
+    ``trace``, a ``[B, 6]`` int64 tensor, receives each stream's cycles per
+    phase of the frame steps."""
     from speech_recognition_tpu_torch.utils.build import check, load_library
 
+    _check_mode(mode)
     dev = nll.device
     u, t_len, b = nll.shape
     s, r, l = g.n_states, g.n_words, g.n_ends
     u_dtype = _eps_u_dtype(l)
+    wt = mode == "wordtrace"
     final = torch.empty((s, b), dtype=torch.float32, device=dev)
-    bp8 = torch.empty((t_len, s, b), dtype=torch.int8, device=dev)
+    bp8 = None if wt else torch.empty((t_len, s, b), dtype=torch.int8, device=dev)
     eps_u = torch.empty((t_len, r, b), dtype=u_dtype, device=dev)
-    eps_prev = torch.empty((t_len, r, b), dtype=torch.int32, device=dev) if fused else None
-    outs = (final, bp8, eps_u) + ((eps_prev,) if fused else ())
+    aux = (None if mode == "general"
+           else torch.empty((t_len, r, b), dtype=torch.int32, device=dev))
+    final_tau = torch.empty((s, b), dtype=torch.int32, device=dev) if wt else None
+    outs = {"fused": (final, bp8, eps_u, aux), "general": (final, bp8, eps_u),
+            "wordtrace": (final, eps_u, aux, final_tau)}[mode]
     if b == 0 or t_len == 0:
         final.fill_(POS_INF)
+        if wt:
+            final_tau.zero_()
         return outs
     lib = load_library()
-    plan = banded_plan(b, _n_sm(dev), s, r, l, u, fused, lib.srt_smem_limit())
+    if plan is None:
+        plan = banded_plan(b, _n_sm(dev), s, r, l, u, mode, lib.srt_smem_limit())
     row_lo, row_hi = eps_row_spans(g)
     scratch = None
     if not plan.work_smem:
@@ -389,6 +436,9 @@ def _banded_forward(nll, g: BandedGraph, n_frames, eps_depth: int, fused: bool, 
     def i32(x):
         return x.to(torch.int32).contiguous()
 
+    def ptr(x):
+        return x.data_ptr() if x is not None else None
+
     # per state (band0, band1, band2, bank row's int32 bits): one 16-byte load
     band4 = torch.empty((s, 4), dtype=torch.float32, device=dev)
     band4[:, :3] = g.band.T
@@ -397,36 +447,14 @@ def _banded_forward(nll, g: BandedGraph, n_frames, eps_depth: int, fused: bool, 
             g.eps_block.T.contiguous(), row_lo, row_hi, i32(n_frames)]
     with torch.cuda.device(dev):
         rc = lib.banded_forward_launch(
-            int(fused), nll.data_ptr(), *nll.stride(), *[x.data_ptr() for x in args],
-            final.data_ptr(), bp8.data_ptr(), eps_u.data_ptr(),
-            int(u_dtype == torch.int32), eps_prev.data_ptr() if fused else None,
-            scratch.data_ptr() if scratch is not None else None,
-            u, t_len, b, s, r, l, eps_depth, plan.tile, int(plan.work_smem),
-            int(plan.tables), int(plan.ring), plan.kf, None,
-            torch.cuda.current_stream(dev).cuda_stream)
+            MODES[mode], nll.data_ptr(), *nll.stride(), *[x.data_ptr() for x in args],
+            final.data_ptr(), ptr(bp8), eps_u.data_ptr(), int(u_dtype == torch.int32),
+            ptr(aux), ptr(final_tau), ptr(scratch), u, t_len, b, s, r, l, eps_depth,
+            plan.tile, int(plan.work_smem), int(plan.tables), int(plan.ring), plan.kf,
+            ptr(trace), torch.cuda.current_stream(dev).cuda_stream)
     check(rc, wrapper.__name__)
     wrapper.launches += 1
     return outs
-
-
-def _k10_launch_plan(b: int, n_sm: int, smem_bytes, limit: int) -> Tuple[int, bool]:
-    """``(tile, stage_weights)`` for K10.  The tile is the largest of 32,
-    16, 8 and 4 streams per CTA that still gives every SM a CTA; when the
-    shared memory ``smem_bytes(tile, stage)`` exceeds ``limit``, smaller
-    tiles are tried, then the same without staging the emission weights.
-    Raises when even 4 unstaged streams per CTA do not fit (ROADMAP C8:
-    lifted when K10 moves onto the banded DP of csrc/banded_forward.cu)."""
-    tiles_all = (32, 16, 8, 4)
-    first = next((t for t in tiles_all if -(-b // t) >= n_sm), tiles_all[-1])
-    tiles = [t for t in tiles_all if t <= first]
-    for stage in (True, False):
-        for tile in tiles:
-            if smem_bytes(tile, stage) <= limit:
-                return tile, stage
-    raise ValueError(f"word-trace kernel: the frontier needs "
-                     f"{smem_bytes(tiles_all[-1], False)} B of shared memory at "
-                     f"{tiles_all[-1]} streams per CTA, over the {limit} B limit "
-                     "(ROADMAP C8)")
 
 
 def _check_fused_inputs(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
@@ -448,21 +476,6 @@ def _check_fused_inputs(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
         raise ValueError(f"graph reads bank state {topo.max_bank_state}, bank has {u}")
 
 
-def _fused_inputs(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
-    """K10's checks and launcher inputs ``[xa, wt, lw, band, init,
-    bank_state, eps, row_lo, row_hi, n_frames]``, to be kept referenced
-    until the launch has been enqueued."""
-    _check_fused_inputs(xa, w, lw, g, topo, n_frames)
-    dev = xa.device
-    u, m, a = w.shape
-    wt = w.reshape(u * m, a).T.contiguous().float()
-    row_lo, row_hi = (torch.from_numpy(x).to(dev) for x in topo.row_spans(g.n_words))
-    return [xa, wt, lw.reshape(-1).contiguous().float(), g.band.contiguous(),
-            g.init_cost.contiguous(), g.bank_state.to(torch.int32),
-            g.eps_block.contiguous(), row_lo, row_hi,
-            n_frames.to(torch.int32).contiguous()]
-
-
 def viterbi_banded_fused(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
     """K1 for CUDA tensors: the emission kernel K13, then the DP kernel
     (``csrc/banded_forward.cu``) in its uniform-graph mode; the plain
@@ -473,7 +486,7 @@ def viterbi_banded_fused(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
     _check_fused(g, topo)
     _check_fused_inputs(xa, w, lw, g, topo, n_frames)
     nll = bank_emission(xa, w, lw)  # [U, T, B] view of a [T, B, U] plane
-    return _banded_forward(nll, g, n_frames, 1, True, viterbi_banded_fused)
+    return _banded_forward(nll, g, n_frames, 1, "fused", viterbi_banded_fused)
 
 
 viterbi_banded_fused.launches = 0
@@ -597,7 +610,7 @@ def viterbi_banded_general(nll, g: BandedGraph, topo: BandedTopo, n_frames,
         raise ValueError(f"graph reads bank row {topo.max_bank_state}, emissions have {u}")
     if eps_depth < 1:
         raise ValueError(f"eps_depth must be >= 1, got {eps_depth}")
-    return _banded_forward(nll, g, n_frames, eps_depth, False, viterbi_banded_general)
+    return _banded_forward(nll, g, n_frames, eps_depth, "general", viterbi_banded_general)
 
 
 viterbi_banded_general.launches = 0
@@ -659,40 +672,8 @@ banded_backtrace_general.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K10: word-trace forward (fused emission, entry-time side planes)
+# K10: word-trace forward (K13 + the DP's word-trace mode)
 # ---------------------------------------------------------------------------
-
-_MIX_CHUNK = 8  # mixtures per block of the kernel's running logsumexp
-
-
-def _bank_nll_exact(xa, w, lw):
-    """``[U, T, B]`` bank NLLs in K10's arithmetic, one rounded operation
-    at a time: each mixture's dot product summed over A in order (product
-    and sum rounded apart), then the logsumexp over blocks of 8 mixtures
-    with a running maximum, summed in mixture order."""
-    a, t_len, b = xa.shape
-    u, m, _ = w.shape
-    x = xa.reshape(a, t_len * b)
-    wa = w.permute(2, 0, 1)  # [A, U, M]
-    acc = torch.zeros((u, m, t_len * b), dtype=torch.float32, device=xa.device)
-    for i in range(a):
-        acc = acc + wa[i][:, :, None] * x[i][None, None, :]
-    z = lw[:, :, None] - acc
-    zmax = total = None
-    for m0 in range(0, m, _MIX_CHUNK):
-        zc = z[:, m0 : m0 + _MIX_CHUNK]
-        cmax = zc[:, 0]
-        for j in range(1, zc.shape[1]):
-            cmax = torch.maximum(cmax, zc[:, j])
-        if m0 == 0:
-            zmax, total = cmax, torch.zeros_like(cmax)
-        else:
-            nm = torch.maximum(zmax, cmax)
-            total = total * torch.exp(zmax - nm)
-            zmax = nm
-        for j in range(zc.shape[1]):
-            total = total + torch.exp(zc[:, j] - zmax)
-    return (-(torch.log(total) + zmax)).reshape(u, t_len, b)
 
 
 def _shift_tau(tau, d):
@@ -707,7 +688,8 @@ def _wordtrace_dp(nll_bank, g: BandedGraph, n_frames):
     improvement) and length mask, with an int32 entry-time carry tau
     that follows the band winner, is 0 at frame 0 and t where a re-entry
     improves a word start.  Returns ``(final [S, B], eps_u [T, R, B],
-    eps_tau [T, R, B] int32, final_tau [S, B] int32)``."""
+    eps_tau [T, R, B] int32, final_tau [S, B] int32)``.  The plain
+    version of the DP kernel's word-trace mode."""
     _, t_len, b = nll_bank.shape
     dev = nll_bank.device
     s, r, l = g.n_states, g.n_words, g.n_ends
@@ -747,7 +729,7 @@ def _wordtrace_dp(nll_bank, g: BandedGraph, n_frames):
 
 
 def viterbi_banded_wordtrace_ref(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
-    """Plain version of K10.
+    """Plain version of K10: K13's plain version, then ``_wordtrace_dp``.
 
     Inputs as ``viterbi_banded_fused_ref`` -> ``(final [S, B],
     eps_u [T, R, B], eps_tau [T, R, B] int32, final_tau [S, B] int32)``:
@@ -755,43 +737,20 @@ def viterbi_banded_wordtrace_ref(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_
     and each state's entry time after the last frame.
     """
     _check_fused(g, topo, "the word-trace forward")
-    return _wordtrace_dp(_bank_nll_exact(xa, w, lw), g, n_frames)
+    return _wordtrace_dp(bank_emission_ref(xa, w, lw), g, n_frames)
 
 
 def viterbi_banded_wordtrace(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
-    """K10 for CUDA tensors (``csrc/viterbi_banded.cu``), the plain
-    version for CPU tensors.  Arguments and
-    results as ``viterbi_banded_wordtrace_ref``."""
+    """K10 for CUDA tensors: the emission kernel K13, then the DP kernel
+    (``csrc/banded_forward.cu``) in its word-trace mode; the plain
+    version for CPU tensors.  Arguments and results as
+    ``viterbi_banded_wordtrace_ref``."""
     if not use_kernels(xa):
         return viterbi_banded_wordtrace_ref(xa, w, lw, g, topo, n_frames)
-    from speech_recognition_tpu_torch.utils.build import check, load_library
-
     _check_fused(g, topo, "the word-trace forward")
-    args = _fused_inputs(xa, w, lw, g, topo, n_frames)
-    dev = xa.device
-    a, t_len, b = xa.shape
-    u, m, _ = w.shape
-    s, r, l = g.n_states, g.n_words, g.n_ends
-    u_dtype = _eps_u_dtype(l)
-    final = torch.empty((s, b), dtype=torch.float32, device=dev)
-    eps_u = torch.empty((t_len, r, b), dtype=u_dtype, device=dev)
-    eps_tau = torch.empty((t_len, r, b), dtype=torch.int32, device=dev)
-    final_tau = torch.zeros((s, b), dtype=torch.int32, device=dev)
-    if b == 0 or t_len == 0:
-        return final.fill_(POS_INF), eps_u, eps_tau, final_tau
-    lib = load_library()
-    tile, stage = _k10_launch_plan(
-        b, _n_sm(dev), lambda tl, st: lib.viterbi_wordtrace_smem_bytes(a, u, m, s, tl, int(st)),
-        lib.srt_smem_limit())
-    with torch.cuda.device(dev):
-        rc = lib.viterbi_wordtrace_launch(
-            *[x.data_ptr() for x in args], final.data_ptr(), eps_u.data_ptr(),
-            int(u_dtype == torch.int32), eps_tau.data_ptr(), final_tau.data_ptr(),
-            a, t_len, b, u, m, s, r, l, topo.uniform_w, tile, int(stage),
-            torch.cuda.current_stream(dev).cuda_stream)
-    check(rc, "word-trace Viterbi kernel")
-    viterbi_banded_wordtrace.launches += 1
-    return final, eps_u, eps_tau, final_tau
+    _check_fused_inputs(xa, w, lw, g, topo, n_frames)
+    nll = bank_emission(xa, w, lw)  # [U, T, B] view of a [T, B, U] plane
+    return _banded_forward(nll, g, n_frames, 1, "wordtrace", viterbi_banded_wordtrace)
 
 
 viterbi_banded_wordtrace.launches = 0

@@ -109,17 +109,14 @@ def load_library() -> ctypes.CDLL:
                                      i, i, i, i, i, f, i, i, p]
     lib.viterbi_dense_launch.argtypes = [p, p, p, p, p, p, p, p, p,
                                          i, i, i, i, i, i, i, p]
-    lib.bank_emission_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.bank_emission_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.banded_forward_launch.argtypes = [i, p, q, q, q, p, p, p, p, p, p, p, p, p, p, p,
-                                          i, p, p, i, i, i, i, i, i, i, i, i, i, i, i,
+                                          i, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i,
                                           p, p]
     lib.banded_backtrace_launch.argtypes = [p, p, p, p, p, p,
                                             i, i, i, i, i, p]
     lib.banded_backtrace_general_launch.argtypes = [p, p, i, p, p, p, p, p, p,
                                                     i, i, i, i, i, p]
-    lib.viterbi_wordtrace_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
-                                             p, i, p, p,
-                                             i, i, i, i, i, i, i, i, i, i, i, p]
     lib.viterbi_lex_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, p,
                                        p, p, i, p, p, p, p,
                                        i, i, i, i, i, i, i, i, i,
@@ -129,8 +126,7 @@ def load_library() -> ctypes.CDLL:
                                            i, i, i, i, i, p]
     for fn in (lib.mfcc_tail_launch, lib.bank_emission_launch, lib.banded_forward_launch,
                lib.banded_backtrace_launch,
-               lib.banded_backtrace_general_launch, lib.viterbi_wordtrace_launch,
-               lib.viterbi_lex_launch,
+               lib.banded_backtrace_general_launch, lib.viterbi_lex_launch,
                lib.lex_backtrace_launch,
                lib.lattice_rescore_launch, lib.mfcc_ceps_launch,
                lib.viterbi_dense_launch):
@@ -139,13 +135,11 @@ def load_library() -> ctypes.CDLL:
     lib.banded_forward_smem_bytes.argtypes = [i, i, i, i, i, i, i, i, i, i]
     lib.banded_forward_work_bytes.argtypes = [i, i, i, i]
     lib.banded_forward_work_bytes.restype = q
-    lib.viterbi_wordtrace_smem_bytes.argtypes = [i, i, i, i, i, i]
     lib.viterbi_lex_smem_bytes.argtypes = [i] * 12
     lib.lattice_rescore_smem_bytes.argtypes = [i]
     lib.viterbi_dense_smem_bytes.argtypes = [i, i, i]
     lib.srt_smem_limit.argtypes = []
-    for fn in (lib.bank_emission_smem_bytes,
-               lib.banded_forward_smem_bytes, lib.viterbi_wordtrace_smem_bytes,
+    for fn in (lib.bank_emission_smem_bytes, lib.banded_forward_smem_bytes,
                lib.viterbi_lex_smem_bytes, lib.lattice_rescore_smem_bytes,
                lib.viterbi_dense_smem_bytes, lib.srt_smem_limit):
         fn.restype = ctypes.c_int

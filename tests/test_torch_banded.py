@@ -235,21 +235,24 @@ def test_fused_wrapper_cpu_path_and_guards():
 
 
 LIMIT = 227 * 1024  # the H100's shared memory per CTA
-# (B, S, R, L, U, fused) -> (streams per CTA, where the frontier lives,
+# (B, S, R, L, U, mode) -> (streams per CTA, where the frontier lives,
 # graph tables in shared memory, emission ring, frames staged): the main
 # paths' shapes, each tier, no refusal
 PLAN_CASES = {
-    "k1_main_512": ((512, 385, 77, 77, 55, True), (4, "shared", True, True, 8)),
-    "k1_b130": ((130, 385, 77, 77, 55, True), (1, "shared", True, True, 8)),
-    "k1_b200": ((200, 385, 77, 77, 55, True), (2, "shared", True, True, 8)),
-    "k1_b5000": ((5000, 385, 77, 77, 55, True), (4, "shared", True, True, 8)),
-    "k8_1state_77": ((512, 77, 77, 77, 11, False), (4, "shared", True, True, 8)),
-    "k8_mixed_336": ((512, 336, 77, 77, 66, False), (4, "shared", True, True, 8)),
-    "k1_loop_7500_b5": ((5, 7500, 1500, 1500, 55, True), (1, "shared", False, True, 2)),
-    "k1_loop_7500_b512": ((512, 7500, 1500, 1500, 55, True),
+    "k1_main_512": ((512, 385, 77, 77, 55, "fused"), (4, "shared", True, True, 8)),
+    "k1_b130": ((130, 385, 77, 77, 55, "fused"), (1, "shared", True, True, 8)),
+    "k1_b200": ((200, 385, 77, 77, 55, "fused"), (2, "shared", True, True, 8)),
+    "k1_b5000": ((5000, 385, 77, 77, 55, "fused"), (4, "shared", True, True, 8)),
+    "k8_1state_77": ((512, 77, 77, 77, 11, "general"), (4, "shared", True, True, 8)),
+    "k8_mixed_336": ((512, 336, 77, 77, 66, "general"), (4, "shared", True, True, 8)),
+    "k1_loop_7500_b5": ((5, 7500, 1500, 1500, 55, "fused"), (1, "shared", False, True, 2)),
+    "k1_loop_7500_b512": ((512, 7500, 1500, 1500, 55, "fused"),
                           (4, "device", False, True, 1)),
-    "k8_50000": ((512, 50000, 10000, 10000, 500, False), (4, "device", False, True, 0)),
-    "big_bank_no_ring": ((512, 385, 77, 77, 20000, True), (4, "shared", True, False, 8)),
+    "k8_50000": ((512, 50000, 10000, 10000, 500, "general"), (4, "device", False, True, 0)),
+    "big_bank_no_ring": ((512, 385, 77, 77, 20000, "fused"), (4, "shared", True, False, 8)),
+    "k10_main_512": ((512, 385, 77, 77, 55, "wordtrace"), (4, "shared", True, True, 8)),
+    "k10_loop_7500_b5": ((5, 7500, 1500, 1500, 55, "wordtrace"),
+                         (1, "shared", False, True, 2)),
 }
 
 
@@ -265,13 +268,72 @@ def test_banded_plan_tiers(name):
         banded_work_bytes,
     )
 
-    (b, s, r, l, u, fused), want = PLAN_CASES[name]
-    plan = banded_plan(b, 132, s, r, l, u, fused, LIMIT)
+    (b, s, r, l, u, mode), want = PLAN_CASES[name]
+    plan = banded_plan(b, 132, s, r, l, u, mode, LIMIT)
     assert (plan.tile, plan.frontier, plan.tables, plan.ring, plan.kf) == want
-    assert plan.smem <= LIMIT and plan.work == banded_work_bytes(fused, s, r, l)
-    assert plan.smem == banded_smem_bytes(fused, u, s, r, l, plan.tile, plan.work_smem,
+    assert plan.smem <= LIMIT and plan.work == banded_work_bytes(mode, s, r, l)
+    assert plan.smem == banded_smem_bytes(mode, u, s, r, l, plan.tile, plan.work_smem,
                                           plan.tables, plan.ring, plan.kf)
     assert -(-b // plan.tile) <= 132 or plan.tile == 4
+
+
+@pytest.mark.parametrize("b", [512, 200])
+def test_wordtrace_plan_puts_large_work_area_in_device_scratch(b):
+    """K10's DP at 7,500 states (a 1,500-word loop of 5-state words): the
+    work area (cost and entry-time frontiers) goes to the device scratch
+    instead of being refused, as K1's does; the planes still stage."""
+    from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import (
+        banded_plan,
+        banded_work_bytes,
+    )
+
+    s, r = 7500, 1500
+    plan = banded_plan(b, 132, s, r, r, 55, "wordtrace", LIMIT)
+    work = banded_work_bytes("wordtrace", s, r, r)
+    assert work * plan.tile > LIMIT and not plan.work_smem and plan.frontier == "device"
+    assert plan.kf > 0 and plan.ring and plan.smem <= LIMIT
+    assert work > banded_work_bytes("fused", s, r, r)  # two tau rows replace the codes
+
+
+# (S, R, L, tile): K10's byte model term by term
+WT_BYTES_CASES = [(385, 77, 77, 4), (7, 1, 1, 1), (33, 11, 9, 2), (7500, 1500, 1500, 4),
+                  (1, 1, 1, 3)]
+
+
+@pytest.mark.parametrize("s,r,l,tile", WT_BYTES_CASES)
+def test_wordtrace_byte_model_case_by_case(s, r, l, tile):
+    """The word-trace mode's Python byte model (which the card tests hold
+    equal to the kernel's): per stream four padded [S + 4] int32/f32
+    rows (two cost, two entry-time), the word-end costs and taus and the
+    rows' origins; per staged frame the eps_u and eps_tau rows and no
+    bp8 rows; the CTA total with each placement switched on alone."""
+    from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import (
+        banded_smem_bytes,
+        banded_stage_bytes,
+        banded_table_bytes,
+        banded_work_bytes,
+    )
+
+    def r16(n):
+        return -(-n // 16) * 16
+
+    work = 4 * r16(4 * (s + 4)) + 2 * r16(4 * l) + r16(4 * r)
+    frame = 2 * r16(4 * r * tile)
+    assert banded_work_bytes("wordtrace", s, r, l) == work
+    assert banded_stage_bytes("wordtrace", s, r, tile) == frame
+    assert banded_stage_bytes("fused", s, r, tile) == frame + r16(s * tile)
+    ring, u = r16(4 * 4 * 55), 55
+    assert banded_smem_bytes("wordtrace", u, s, r, l, tile, False, False, False, 0) == 0
+    assert banded_smem_bytes("wordtrace", u, s, r, l, tile, True, False, False, 0) == \
+        work * tile
+    assert banded_smem_bytes("wordtrace", u, s, r, l, tile, False, True, False, 0) == \
+        banded_table_bytes(s, r, l)
+    assert banded_smem_bytes("wordtrace", u, s, r, l, tile, False, False, True, 0) == \
+        ring * tile
+    assert banded_smem_bytes("wordtrace", u, s, r, l, tile, False, False, False, 3) == \
+        3 * 2 * frame
+    with pytest.raises(ValueError, match="mode"):
+        banded_work_bytes("tau", s, r, l)
 
 
 @pytest.mark.parametrize("kind", GRAPH_KINDS + ["transcript"])
@@ -293,23 +355,24 @@ def test_eps_row_spans_match_topology(kind):
     np.testing.assert_array_equal(hi.numpy(), want_hi)
 
 
-def test_k10_launch_plan_fits_shared_memory():
-    """K10's tile / weight-staging choice (unchanged): the
-    largest tile that still covers the SMs, shrunk and then unstaged until
-    the shared memory fits, and a named error when nothing fits."""
-    from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import _k10_launch_plan
+@pytest.mark.parametrize("u,warps", [(55, 7), (11, 4), (110, 7), (1, 4), (64, 8)])
+def test_emission_launch_shape(u, warps):
+    """K13's warps per CTA: the count of 4-8 whose passes over a tile's
+    items (a pair of bank states and 8 columns) leave the fewest lanes
+    idle; its shared memory (staged weights and log weights, two feature
+    tiles) at the main path's shape fits two CTAs per SM."""
+    from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import (
+        _emission_smem,
+        _emission_warps,
+    )
 
-    def smem(weights, per_stream):
-        return lambda tile, stage: (weights if stage else 0) + per_stream * tile
-
-    limit = 1000
-    assert _k10_launch_plan(512, 132, smem(100, 10), limit) == (4, True)
-    assert _k10_launch_plan(5000, 132, smem(100, 10), limit) == (32, True)
-    assert _k10_launch_plan(5000, 132, smem(100, 50), limit) == (16, True)
-    assert _k10_launch_plan(5000, 132, smem(950, 10), limit) == (4, True)
-    assert _k10_launch_plan(5000, 132, smem(990, 10), limit) == (32, False)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        _k10_launch_plan(7, 132, smem(0, 300), limit)
+    assert _emission_warps(u) == warps
+    items = 8 * -(-u // 2)
+    assert -(-items // (32 * warps)) * 32 * warps - items < 32 * 4
+    a = 2 * 39 + 1
+    assert _emission_smem(a, 55, 4, True) == 4 * (80 * 55 * 4 + 2 * a * 64)
+    assert 2 * (_emission_smem(a, 55, 4, True) + 1024) <= 228 * 1024
+    assert _emission_smem(a, 55, 4, False) == 4 * 2 * a * 64
 
 
 @pytest.mark.parametrize("n_mix,n_states", [(2, 3), (4, 5), (11, 2)])

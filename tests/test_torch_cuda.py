@@ -14,9 +14,10 @@ mean and variance summed in another order).  K4 (the
 lexical-tree forward), K5 (its backtrace), K6 (the lattice pass), K7
 (the lattice rescorer), K8 (the banded forward on bank emissions) and K9
 (the general backtrace) are fed the plain version's own inputs, so every
-output is compared exactly; K10 (the word-trace forward) computes its
-emission in its plain version's order, one rounded operation at a time,
-so it too is compared exactly.  K11 (the dense Viterbi) is fed its
+output is compared exactly; K10 (the word-trace forward = K13 + the DP's
+word-trace mode) is compared exactly with its plain DP on K13's own
+plane, and its final costs at rtol 1e-5 with the whole plain version and
+with K1; K13 (the bank emission) at rtol 1e-5 / atol 1e-4.  K11 (the dense Viterbi) is fed its
 plain version's own inputs and compared exactly, both planes over every
 frame; K12 (the MFCC cepstra) at K3's rtol 2e-3 / atol 5e-4.  Decodes
 on the card against the CPU
@@ -219,17 +220,17 @@ def _check_k1_k2(dev, kind, b, t, bank):
     assert bool(((sk == sp) & (fk == fp) | ~valid[:, 0]).all())
 
 
-def _plan_agrees_with_kernel(lib, fused, g, u, b, dev):
+def _plan_agrees_with_kernel(lib, mode, g, u, b, dev):
     """The wrapper's plan and shared-memory sum equal the kernel's."""
     from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
 
     s, r, l = g.n_states, g.n_words, g.n_ends
     plan = vk.banded_plan(b, torch.cuda.get_device_properties(dev).multi_processor_count,
-                          s, r, l, u, fused, lib.srt_smem_limit())
+                          s, r, l, u, mode, lib.srt_smem_limit())
     assert plan.smem == lib.banded_forward_smem_bytes(
-        int(fused), u, s, r, l, plan.tile, int(plan.work_smem), int(plan.tables),
+        vk.MODES[mode], u, s, r, l, plan.tile, int(plan.work_smem), int(plan.tables),
         int(plan.ring), plan.kf)
-    assert plan.work == lib.banded_forward_work_bytes(int(fused), s, r, l)
+    assert plan.work == lib.banded_forward_work_bytes(vk.MODES[mode], s, r, l)
     return plan
 
 
@@ -274,14 +275,14 @@ def test_k1_dp_matches_plain(dev, b, ties, big):
     g = g.to(dev)
     topo = vk.banded_topology(g)
     assert topo.fused_ok
-    plan = _plan_agrees_with_kernel(load_library(), True, g, u, b, dev)
+    plan = _plan_agrees_with_kernel(load_library(), "fused", g, u, b, dev)
     assert plan.frontier == "shared"
     rng = np.random.default_rng(b)
     e = rng.integers(0, 3, (u, t, b)) if ties else rng.uniform(0, 6, (u, t, b))
     nll = torch.from_numpy(e.astype(np.float32)).to(dev)
     nf = torch.from_numpy(np.r_[0, t + 3, 1, t, rng.integers(1, t + 1, b)][:b]
                           .astype(np.int32)).to(dev)
-    got = vk._banded_forward(nll, g, nf, 1, True, vk.viterbi_banded_fused)
+    got = vk._banded_forward(nll, g, nf, 1, "fused", vk.viterbi_banded_fused)
     want = vk.fused_dp_ref(nll, g, nf)
     torch.cuda.synchronize()
     for k in range(4):
@@ -327,7 +328,7 @@ def test_k8_at_batch_sizes_and_large_graphs(dev, b, ties, big):
     g = g.to(dev)
     topo = vk.banded_topology(g)
     assert not topo.fused_ok
-    plan = _plan_agrees_with_kernel(load_library(), False, g, u, b, dev)
+    plan = _plan_agrees_with_kernel(load_library(), "general", g, u, b, dev)
     assert plan.frontier == "shared"
     rng = np.random.default_rng(b + 7)
     e = rng.integers(0, 3, (u, t, b)) if ties else rng.uniform(0, 6, (u, t, b))
@@ -380,15 +381,17 @@ def _long_word_graph(n_slots, n_words, width, u, seed):
                        bank_state=t(rng.integers(0, u, s)))
 
 
-@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("mode", ["fused", "general", "wordtrace"])
 @pytest.mark.parametrize("case", ["device_frontier", "no_staging", "no_ring"])
-def test_dp_fallback_plans_match_plain(dev, case, fused):
+def test_dp_fallback_plans_match_plain(dev, case, mode):
     """The DP's fallbacks, chosen by size: the work area in device memory
     (26,400 states), each warp writing its plane rows itself (33,000
     states at 4 streams per CTA), and emissions read without the ring (a
-    20,000-row bank); K1's DP (uniform mode) and K8 each equal to their
-    plain versions over every frame, tie-forcing emissions, lengths 0, 1,
-    T and T + 3."""
+    20,000-row bank); K1's DP (uniform mode), K8 and K10's DP (word-trace
+    mode) each equal to their plain versions over every frame,
+    tie-forcing emissions, lengths 0, 1, T and T + 3.  K10 stages no bp8
+    rows, so its planes fit the staging at 33,000 states: there the
+    unstaged plan is given to the launch explicitly."""
     from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
     from speech_recognition_tpu_torch.utils.build import load_library
 
@@ -397,7 +400,12 @@ def test_dp_fallback_plans_match_plain(dev, case, fused):
     g = _long_word_graph(3, 11, width, u, seed=width + b).to(dev)
     topo = vk.banded_topology(g)
     assert topo.fused_ok
-    plan = _plan_agrees_with_kernel(load_library(), fused, g, u, b, dev)
+    plan = _plan_agrees_with_kernel(load_library(), mode, g, u, b, dev)
+    if mode == "wordtrace" and case == "no_staging":
+        assert plan.kf > 0
+        plan = plan._replace(kf=0, smem=vk.banded_smem_bytes(
+            mode, u, g.n_states, g.n_words, g.n_ends, plan.tile, plan.work_smem, plan.tables,
+            plan.ring, 0))
     assert (plan.frontier, plan.kf > 0, plan.ring) == {
         "device_frontier": ("device", True, True), "no_staging": ("device", False, True),
         "no_ring": ("shared", True, False)}[case]
@@ -406,10 +414,14 @@ def test_dp_fallback_plans_match_plain(dev, case, fused):
     nll = torch.from_numpy(rng.integers(0, 3, (u, t, b)).astype(np.float32)).to(dev)
     nf = torch.from_numpy(np.r_[0, t + 3, 1, t, rng.integers(1, t + 1, b)][:b]
                           .astype(np.int32)).to(dev)
-    wrapper = vk.viterbi_banded_fused if fused else vk.viterbi_banded_general
-    got = vk._banded_forward(nll, g, nf, 1, fused, wrapper)
-    want = (vk.fused_dp_ref(nll, g, nf) if fused
-            else vk.viterbi_banded_general_ref(nll, g, topo, nf, 1))
+    wrapper, want = {
+        "fused": (vk.viterbi_banded_fused, lambda: vk.fused_dp_ref(nll, g, nf)),
+        "general": (vk.viterbi_banded_general,
+                    lambda: vk.viterbi_banded_general_ref(nll, g, topo, nf, 1)),
+        "wordtrace": (vk.viterbi_banded_wordtrace, lambda: vk._wordtrace_dp(nll, g, nf)),
+    }[mode]
+    got = vk._banded_forward(nll, g, nf, 1, mode, wrapper, plan=plan)
+    want = want()
     torch.cuda.synchronize()
     for k in range(len(want)):
         assert torch.equal(got[k], want[k]), k
@@ -856,7 +868,7 @@ def test_k8_k9_match_plain(dev, kind, b, t, ties):
 @pytest.mark.parametrize("kind,b,t,n_mix", [
     ("loop", 3, 17, 2),
     ("sausage", 11, 15, 2),
-    ("loop_lm", 37, 20, 11),    # two mixture blocks of the running logsumexp
+    ("loop_lm", 37, 20, 11),    # three mixture blocks of K13's logsumexp
     ("loop_int32", 5, 9, 2),    # 130 word ends: int32 eps_u
 ])
 def test_k10_matches_plain(dev, kind, b, t, n_mix):
@@ -884,17 +896,90 @@ def test_k10_matches_plain(dev, kind, b, t, n_mix):
     nf = torch.from_numpy(np.r_[t, 1, 0, rng.integers(1, t + 1, b)][:b].astype(np.int32)).to(dev)
     w, lw = gmm_emission_weights(*bank.flat_states())
     xa = augment_dtb(feats)
-    before = vk.viterbi_banded_wordtrace.launches
+    _check_k10(xa, w, lw, g, topo, nf)
+
+
+def _check_k10(xa, w, lw, g, topo, nf):
+    """K10 = one K13 launch + one word-trace DP launch; the DP's outputs
+    bit-identical to the plain DP on K13's own plane (every frame), final
+    costs within rtol 1e-5 of the whole plain version and equal to K1's
+    (the same K13 plane, the same band and eps rule)."""
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+
+    before = (vk.bank_emission.launches, vk.viterbi_banded_wordtrace.launches)
     got = vk.viterbi_banded_wordtrace(xa, w, lw, g, topo, nf)
-    want = vk.viterbi_banded_wordtrace_ref(xa, w, lw, g, topo, nf)
     torch.cuda.synchronize()
-    assert vk.viterbi_banded_wordtrace.launches == before + 1
-    assert got[1].dtype == (torch.int32 if n_models > 127 else torch.int8)
-    for k in range(4):
-        assert torch.equal(got[k], want[k]), k
-    # K1 on the same inputs: the same costs to the emission's rounding
+    assert (vk.bank_emission.launches, vk.viterbi_banded_wordtrace.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got[1].dtype == (torch.int32 if g.n_ends > 127 else torch.int8)
+    dp = vk._wordtrace_dp(vk.bank_emission(xa, w, lw), g, nf)
+    want = vk.viterbi_banded_wordtrace_ref(xa, w, lw, g, topo, nf)
     k1 = vk.viterbi_banded_fused(xa, w, lw, g, topo, nf)
-    torch.testing.assert_close(got[0], k1[0], rtol=1e-5, atol=0.0)
+    torch.cuda.synchronize()
+    for k in range(4):
+        assert torch.equal(got[k], dp[k]), k
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+    assert torch.equal(got[0], k1[0])
+
+
+@pytest.mark.parametrize("b,t", [(3, 8), (200, 5)])
+def test_k10_on_a_7500_state_loop(dev, b, t):
+    """K10 past its old ~6,400-state limit: a 1,500-word loop of 5-state
+    words (7,500 states), the work area in shared memory at B = 3 and in
+    the device scratch at B = 200; lengths 0, 1, T and T + 3."""
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.gmm import augment_dtb, gmm_emission_weights
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    bank = _bank(11, 5, 4, 39).to(dev)
+    _, g = _big_loop(1500, (5,), 55)
+    g = g.to(dev)
+    topo = vk.banded_topology(g)
+    assert topo.fused_ok and g.n_states == 7500
+    plan = _plan_agrees_with_kernel(load_library(), "wordtrace", g, 55, b, dev)
+    assert plan.frontier == ("shared" if b == 3 else "device")
+    rng = np.random.default_rng(b)
+    feats = torch.from_numpy(rng.standard_normal((b, t, 39)).astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[0, t + 3, 1, t, rng.integers(1, t + 1, b)][:b]
+                          .astype(np.int32)).to(dev)
+    w, lw = gmm_emission_weights(*bank.flat_states())
+    _check_k10(augment_dtb(feats), w, lw, g, topo, nf)
+
+
+@pytest.mark.parametrize("n_models,n_states,n_mix,dim,t,b,staged", [
+    (7, 3, 3, 6, 7, 9, True),        # U = 21, M = 3, N = 63: 4-byte feature copies
+    (5, 5, 6, 39, 13, 8, True),      # U = 25, M = 6: two mixture blocks, N = 104
+    (11, 10, 8, 39, 9, 37, False),   # U = 110, weights from device memory, N = 333
+    (13, 10, 5, 39, 11, 16, False),  # U = 130, M = 5 unstaged, N = 176
+])
+def test_k13_edge_shapes(dev, n_models, n_states, n_mix, dim, t, b, staged):
+    """K13 where the main path's shape hides the edges: U not a multiple of
+    32 (the items wrap across warps), M not a multiple of 4 (padded
+    mixtures, more than one block), N not a multiple of the 64-column tile
+    (and not of 4), the weights unstaged; within rtol 1e-5 / atol 1e-4 of
+    its plain version, its Python and CUDA byte counts equal."""
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.gmm import augment_dtb, gmm_emission_weights
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    lib = load_library()
+    bank = _bank(n_models, n_states, n_mix, dim, seed=n_mix).to(dev)
+    w, lw = gmm_emission_weights(*bank.flat_states())
+    u, a = w.shape[0], w.shape[2]
+    for st in (0, 1):
+        assert lib.bank_emission_smem_bytes(a, u, n_mix, st) == vk._emission_smem(
+            a, u, n_mix, bool(st))
+    assert (vk._emission_smem(a, u, n_mix, True) <= lib.srt_smem_limit()) == staged
+    rng = np.random.default_rng(t * b)
+    xa = augment_dtb(torch.from_numpy(rng.standard_normal((b, t, dim))
+                                      .astype(np.float32)).to(dev))
+    before = vk.bank_emission.launches
+    got = vk.bank_emission(xa, w, lw)
+    want = vk.bank_emission_ref(xa, w, lw)
+    torch.cuda.synchronize()
+    assert vk.bank_emission.launches == before + 1
+    assert got.shape == (u, t, b) and got.stride() == (1, b * u, u)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
 def test_decode_general_and_wordtrace_cuda_match_cpu(dev):

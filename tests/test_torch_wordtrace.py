@@ -6,10 +6,10 @@ K10 (fused emission + forward with entry-time side planes) and
   ``viterbi_banded_wordtrace_pallas`` (interpret mode, compact bank
   input): final costs bit-identical; eps_u / eps_tau equal below each
   utterance's length; final_tau equal at every state a path reaches;
-* K10's emission (each product and sum rounded apart, in the kernel's
-  order) against the GEMM emission at rtol 1e-5 / atol 1e-4, and the
-  whole plain K10 against the reference's fused-emission form at rtol
-  1e-5 (different summation orders);
+* the whole plain K10 (K13's plain GEMM emission, then the DP) against
+  the reference's fused-emission form at rtol 1e-5 (different summation
+  orders), and its final costs equal to the plain K1's on the same
+  inputs (one emission, one band and eps rule);
 * ``wordtrace_words_device`` against the reference's walk on the same
   planes: identical words;
 * ``decode_connected(backend="wordtrace")`` against the reference's
@@ -29,7 +29,6 @@ import torch
 
 from speech_recognition_tpu.decode import connected as jconn
 from speech_recognition_tpu.models import graph as jgraph
-from speech_recognition_tpu.models.hmm import bank_nll_ubt as j_bank_nll_ubt
 from speech_recognition_tpu.ops.gmm import augment_dtb, gmm_emission_weights
 from speech_recognition_tpu.ops.viterbi_banded_pallas import (
     banded_topology as j_banded_topology,
@@ -113,21 +112,6 @@ def test_wordtrace_walk_matches_reference(kind):
     assert wt.shape[0] % 16 == 0 and nt.numpy().max() <= wt.shape[0]
 
 
-def test_k10_emission_matches_gemm_emission():
-    means, log_vars, log_weights, _ = bank_params(62, n_models=3, n_states=3, n_mix=11,
-                                                  dim=6)
-    s = 9
-    args = [torch.from_numpy(a.reshape((s,) + a.shape[2:]))
-            for a in (means, log_vars, log_weights)]
-    w, lw = tgmm.gmm_emission_weights(*args)
-    feats = np.random.default_rng(63).standard_normal((4, 7, 6)).astype(np.float32)
-    xa = tgmm.augment_dtb(torch.from_numpy(feats))
-    exact = vk._bank_nll_exact(xa, w, lw)  # 11 mixtures: two blocks of the logsumexp
-    gemm = tgmm.gmm_neg_log_lik_ubt(torch.from_numpy(feats), w, lw,
-                                    torch.full((4,), 7, dtype=torch.int32))
-    torch.testing.assert_close(exact, gemm, rtol=1e-5, atol=1e-4)
-
-
 @pytest.mark.parametrize("kind", ["loop_lm", "sausage"])
 def test_k10_plain_matches_fused_pallas_reference(kind):
     jb, tb, _, gt, bj, bt = graphs(kind)
@@ -149,12 +133,25 @@ def test_k10_plain_matches_fused_pallas_reference(kind):
     for i, n in enumerate(nf):
         for k in (1, 2):
             np.testing.assert_array_equal(got[k].numpy()[:n, :, i], np.asarray(ref[k])[:n, :, i])
-    # the exact emission equals the reference's bank emissions to f32 GEMM order
-    nll_j = np.asarray(j_bank_nll_ubt(jb, jnp.asarray(feats), jnp.asarray(nf)))
-    ex = vk._bank_nll_exact(xa, w, lw).numpy()
-    valid = np.arange(12)[None, :, None] < nf[None, None, :]
-    np.testing.assert_allclose(ex[np.broadcast_to(valid, ex.shape)],
-                               nll_j[np.broadcast_to(valid, ex.shape)], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_k10_plain_final_equals_k1_plain(kind):
+    """The plain K10 and the plain K1 share K13's plain emission, the
+    min-chain band and the eps rule, so their final costs are equal bit
+    for bit; K10's entry times at word starts are entry frames."""
+    _, tb, _, _, _, bt = graphs(kind)
+    rng = np.random.default_rng(68)
+    feats = torch.from_numpy(rng.standard_normal((5, 14, 6)).astype(np.float32))
+    nf = torch.tensor([14, 0, 1, 9, 13], dtype=torch.int32)
+    w, lw = tgmm.gmm_emission_weights(*tb.flat_states())
+    xa = tgmm.augment_dtb(feats)
+    topo = vk.banded_topology(bt)
+    k10 = vk.viterbi_banded_wordtrace_ref(xa, w, lw, bt, topo, nf)
+    k1 = vk.viterbi_banded_fused_ref(xa, w, lw, bt, topo, nf)
+    assert torch.equal(k10[0], k1[0])
+    assert bool((k10[0][:, 1] == 1e30).all()) and bool((k10[3][:, 1] == 0).all())
+    assert bool(((k10[3] >= 0) & (k10[3] < 14)).all())
 
 
 def planted(bank_means, seqs, rng):
