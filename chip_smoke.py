@@ -72,7 +72,13 @@ than one re-entry pass takes), and on a dictionary-shaped ~87k-state
 trie (32 x 500), and on the 1k trie with one state's band perturbed (the
 general mode); K6 and K7 on the 1,000-word trie (128 x 500) and the
 dictionary-shaped trie (16 x 500), with uniform-random and planted-word
-emissions, the backoff and the dense LM, and K6 in the general mode.
+emissions, the backoff and the dense LM, and K6 in the general mode; K7
+also in every plan ``rescore_plan`` can give (staged with its LM tables on
+chip or through L1, direct with its D rows in shared memory or in device
+memory) on both tries.  K2 (one warp per stream, windows of frames x
+reachable states) is also held to its plain version at B = 500 (not a
+multiple of 16) and, after K1, on the 1,500-word loop; K1 then K2 is
+timed as one number beside K2 alone.
 K4 and K6 run the plan ``lex_plan`` picks (frontier and tables in shared
 memory on the 1k trie, in device memory on the dictionary-shaped trie);
 their cycles per frame step by phase come from the kernel's trace.
@@ -636,6 +642,16 @@ def main() -> int:
                        f"(rtol 1e-5, max |d| {float((got[0] - want[0]).abs().max()):.3g}); "
                        f"states and words identical; mean words/utt "
                        f"{float(nk.float().mean()):.2f}")
+    # K2 on a batch that is not a multiple of 16: the first 500 streams
+    bg5, topo5, want5, ends5 = planes["sausage7"]
+    sub = (want5[1][:, :, :500].contiguous(), want5[3][:, :, :500].contiguous(), ends5[:500],
+           nf[:500], topo5.uniform_w)
+    s5, f5 = vk.banded_backtrace_val(*sub)
+    sp5, fp5 = vk.banded_backtrace_val_ref(*sub)
+    torch.cuda.synchronize()
+    if not bool(((s5 == sp5) & (f5 == fp5) | ~valid[:, :500]).all()):
+        fail("K2 disagrees with its plain version at B = 500")
+    phase("K2", f"sausage7 planes at 500x{T} (B % 16 = 4): states and flags == plain")
     report["K1"] = {"max_abs_err": k1_err}
     report["K2"] = {"max_abs_err": k2_err}
     # K13 alone, and K1's DP alone on K13's emissions against its plain DP
@@ -1076,6 +1092,40 @@ def main() -> int:
     report["K6"] = {"max_abs_err": max(e[1] for e in errs)}
     report["K7"] = {"max_abs_err": max(e[2] for e in errs)}
 
+    # K7 in every plan on K6's planes: the staged mode as the plan takes it
+    # and with its LM tables through L1, the direct
+    # mode with its D rows in shared memory and in a device-memory scratch
+    from speech_recognition_tpu_torch.ops.lattice import _ring_depth
+
+    def k7_plans(name, nll_, g_, nf_, lm_):
+        ec, et = lt.viterbi_lattice(nll_, g_, lk.lex_topology(g_), nf_)[1:]
+        l_, dense = g_.n_ends, lm_[3] is None
+        k_ = 0 if dense else lm_[3][1].shape[1]
+        auto = lt.rescore_plan(l_, k_, dense, lib.srt_smem_limit())
+        plans = {"the plan's": auto,
+                 "direct": lt.RescorePlan(0, 1024, False, False, 8 * l_),
+                 "direct, D in device memory": lt.RescorePlan(0, 1024, False, True, 0)}
+        if auto.leaves and auto.tables:
+            plans["staged, tables through L1"] = auto._replace(
+                tables=False, smem=lt.rescore_smem_bytes(l_, k_, False))
+        args = (ec, et, ec.amin(2), lm_[0], lm_[1], nf_, _ring_depth(nll_.shape[1], 128))
+        kw = dict(big_ll=lm_[2], backoff=lm_[3])
+        want_ = lt.rescore_lattice_ref(*args, **kw)
+        ok = torch.arange(nll_.shape[1], device=dev)[:, None, None] < nf_[None, :, None]
+        for pname, plan in plans.items():
+            got_ = lt.rescore_lattice(*args, **kw, plan=plan)
+            torch.cuda.synchronize()
+            if not (torch.equal(got_[0], want_[0]) and torch.equal(got_[1], want_[1])
+                    and bool(((got_[2] == want_[2]) | ~ok).all())):
+                fail(f"K7 ({pname} plan, {plan.mode}) differs from the plain version on {name}")
+        phase("K7", f"{name} (L={l_}, {'dense' if dense else f'backoff, K={k_}'} LM) in every "
+                    f"plan (" + "; ".join(v.mode for v in plans.values())
+                    + "): cost, best leaf, pred_w == plain (bit-identical)")
+
+    k7_plans("1k trie, uniform emissions", nll_b, g1k, nf_b, lm_l1k)
+    k7_plans("1k trie, dense LM", nll_b, g1k, nf_b, lm_ld)
+    k7_plans("dict1-shaped trie, uniform emissions", nll_bd, gd, nf_bd, lm_ldd)
+
     # ---- 6. both paths, through the CLI, on the card ------------------------
     from speech_recognition_tpu_torch import cli
     from speech_recognition_tpu_torch.data.synthetic import SyntheticDigits
@@ -1313,6 +1363,12 @@ def main() -> int:
     t["K2"] = (cuda_ms(lambda: vk.banded_backtrace_val(want[1], want[3], ends, nf, topo.uniform_w)),
                cuda_ms(lambda: vk.banded_backtrace_val_ref(want[1], want[3], ends, nf,
                                                            topo.uniform_w), reps=3))
+
+    def k1_k2():  # K2 reads the planes K1 has just written (part of them in L2)
+        p_ = vk.viterbi_banded_fused(xa, w, lw, bg, topo, nf)
+        return vk.banded_backtrace_val(p_[1], p_[3], ends, nf, topo.uniform_w)
+
+    k1k2_ms = cuda_ms(k1_k2)
     graph7 = graphs["sausage7"]
     slot7 = torch.as_tensor(graph7.slot, device=dev)
     label7 = torch.as_tensor(graph7.slot_label, device=dev)
@@ -1447,9 +1503,15 @@ def main() -> int:
     k6_alt_ms = cuda_ms(lambda: lk.lex_forward(nll_b, g1k, topo1k, nf_full, True,
                                                lt.viterbi_lattice, plan=k6_alt))
     kd_out = lt.viterbi_lattice(nll_bd, gd, topod, nf_d16)
-    k7_dict_ms = cuda_ms(lambda: lt.rescore_lattice(
-        kd_out[1], kd_out[2], kd_out[1].amin(2), lm_ldd[0], lm_ldd[1], nf_d16, dmax,
-        backoff=lm_ldd[3]))
+    k7d_args = (kd_out[1], kd_out[2], kd_out[1].amin(2), lm_ldd[0], lm_ldd[1], nf_d16, dmax)
+    k7_plan = lt.rescore_plan(g1k.n_ends, lm_l1k[3][1].shape[1], False, lib.srt_smem_limit())
+    k7d_plan = lt.rescore_plan(gd.n_ends, lm_ldd[3][1].shape[1], False, lib.srt_smem_limit())
+    k7_dict_ms = cuda_ms(lambda: lt.rescore_lattice(*k7d_args, backoff=lm_ldd[3]))
+    dev_ms.update({k: device_ms(fn) for k, fn in (
+        ("K2", lambda: vk.banded_backtrace_val(want[1], want[3], ends, nf, topo.uniform_w)),
+        ("K1+K2", k1_k2),
+        ("K7", lambda: lt.rescore_lattice(*k7_args, **k7_kw)),
+        ("K7 dict1-shaped", lambda: lt.rescore_lattice(*k7d_args, backoff=lm_ldd[3])))})
 
     # the bigram pipeline: 128 x 5 s wav -> words over lexp's trie with an
     # add-k LM of 200 random 12-word sentences
@@ -1584,6 +1646,14 @@ def main() -> int:
                     f"{t['K10'][0]:.3f} ms event, {dev_ms['K10']:.3f} ms device, the DP alone "
                     f"{dp10_ms:.3f} ms event, {dev_ms['K10 DP']:.3f} ms device; K1 "
                     f"{t['K1'][0]:.3f} ms event, {dev_ms['K1']:.3f} ms device ({card})")
+    phase("timing", f"K2 {B}x{T} on sausage7: {t['K2'][0]:.3f} ms event, {dev_ms['K2']:.4f} ms "
+                    f"device; K1 then K2 as one number (K2 on the planes K1 has just "
+                    f"written): {k1k2_ms:.3f} ms event, {dev_ms['K1+K2']:.3f} ms device, "
+                    f"against K1 alone {t['K1'][0]:.3f} / {dev_ms['K1']:.3f} ms ({card})")
+    phase("timing", f"K7 1k trie 128x{TL} (backoff, plan {k7_plan.mode}): {t['K7'][0]:.3f} "
+                    f"ms event, {dev_ms['K7']:.3f} ms device; dict1-shaped 16x{TL} (plan "
+                    f"{k7d_plan.mode}): {k7_dict_ms:.3f} ms event, "
+                    f"{dev_ms['K7 dict1-shaped']:.3f} ms device ({card})")
     phase("timing", f"on the {bgb.n_states}-state loop at {Bb}x{Tb}: K10 {k10_big_ms:.3f} ms "
                     f"(frontier in {plan_10b.frontier} memory), K1 {k1_big_ms:.3f} ms "
                     f"(CUDA-event median; {card})")
@@ -1599,6 +1669,9 @@ def main() -> int:
                              ("K10 512 x 500", t["K10"][0], 5.133),
                              ("K1 512 x 500", t["K1"][0], 1.648),
                              ("word-trace decode 512 x 500", wt_ms, 10.014),
+                             ("K2 512 x 500", t["K2"][0], 0.183),
+                             ("K7 1k trie 128 x 500", t["K7"][0], 1.867),
+                             ("K7 dict1-shaped 16 x 500", k7_dict_ms, 11.467),
                              ("K1 7,500-state loop 64 x 100", k1_big_ms, 116.473)):
         phase("timing", f"{name}: {ms:.3f} ms against {before:.3f} ms before its last "
                         f"redesign on the same card model = {ms / before:.3f} of it ({card})")
@@ -1694,6 +1767,7 @@ def main() -> int:
                             rescore_ops(TL, 16, ld, kd, dense=False), k7_dict_ms),
         "K8 3-6-state sausage7": (nbytes(nll6, nf8, *want6) + graph_bytes(bg6),
                                   dp_ops(bg6, T * B, span_pairs(topo6)), k8_mixed_ms),
+        "K1 + K2": (work["K1"][0] + work["K2"][0], work["K1"][1] + work["K2"][1], k1k2_ms),
         "K1 DP alone": (nbytes(nll13, nf) + graph_bytes(bg) + nbytes(*want[:1])
                         + sum_nf * (bg.n_states + bg.n_words * (want[2].element_size() + 4)),
                         dp_ops(bg, sum_nf, span_pairs(topo)), dp_ms),

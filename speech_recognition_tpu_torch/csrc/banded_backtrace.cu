@@ -23,18 +23,25 @@
 // any unwind step ran.  The rules are those of the plain version
 // ops/viterbi_banded.banded_backtrace_tb.
 //
-// What bounds them on the H100: one dependent 1-byte load per frame and
-// stream (K9: plus two per eps unwind step), ~T * B bytes read from a
-// [T, S, B] plane (~0.26 MB of the ~99 MB plane at T=500, B=512):
-// latency, not bandwidth -- T loads in a chain, each a device-memory round
-// trip.
+// What bounds them on the H100: a walk is T dependent steps per stream,
+// each a 1-byte read of the [T, S, B] plane at a state known only after
+// the step before (K2: plus one eps_prev read per word).  Read where they
+// lie (the plane is ~99 MB at T=500, S=385, B=512, over the 50 MB L2),
+// every step is a device-memory round trip: ~0.3 us a frame, ~0.15 ms in
+// all, while the bytes on the path (~0.26 MB) would take 0.0004 ms.  The
+// floor that means something for a serial walk is T steps out of shared
+// memory, ~10-15 us.  Streaming a stream group's whole slice of the plane
+// through shared memory instead moves the whole plane (the copy is half of
+// every 32-byte sector at B's stride) and measured slower than the chain.
 //
-// What the design does about it: one thread per stream and nothing else.
-// The TPU kernel's one-hot [S, B] state plane (a full-plane pass per
-// frame to read one value per stream, an MXU select per unwind step) is
-// not needed: on this card a gather is an indexed load.  B independent
-// chains keep the memory system busy; hiding the per-frame latency further
-// (prefetching a frame's candidate codes) is later work.
+// What K2's design does about it (below): a round trip
+// fetches a window of frames x the states the band can reach, so the
+// chain pays one round trip per window instead of per frame, and the next
+// window of the same word is loaded while the warp walks this one: on K1's
+// planes about half of the windows arrive before they are needed and the
+// rest follow the ~6 word changes per stream.  No layout, alignment or
+// size limit: any B, S and word length.  K9 stays one thread per stream,
+// reading the plane where it lies.
 
 #include "common.cuh"
 
@@ -43,30 +50,97 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxBand = 2;
 constexpr int kEpsCode = kMaxBand + 2;
+constexpr int kWin = 128;             // codes one warp loads per window
+constexpr int kPerLane = kWin / 32;   // codes (and eps_prev entries) per lane
 
-__global__ void __launch_bounds__(kThreads)
-banded_backtrace_kernel(const int8_t* __restrict__ bp8,
-                        const int* __restrict__ eps_prev,
-                        const int* __restrict__ end_state,
-                        const int* __restrict__ nf, int* __restrict__ states,
-                        uint8_t* __restrict__ flags, int T, int S, int R,
-                        int B, int W) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int n = nf[b];
+// K2: one warp per stream (one CTA).  A window holds, for F
+// frames t, t-1, ..., t-F+1, the codes of the states [lo, hi] the band
+// can reach from hi (lo: the word start, at most 31 states below) and the
+// word's eps_prev entries; F = min(t + 1, kWin / (hi - lo + 2)).  The
+// lanes load a window into registers (one round trip) and stash it in
+// shared memory as one entry per (frame, state): the step's target
+// (eps_prev at an eps code, else s - min(code, 2)) and the eps mark.  Then
+// every lane walks the same chain, one shared-memory load per frame, until
+// the window ends, the walk leaves [lo, hi] or takes an eps code.  While
+// it walks, the lanes already load the next window of the same word and
+// state span (frames below): when the walk ends inside [lo, hi] with the
+// window used up, that window is the next one, and its round trip was
+// hidden.
+__global__ void __launch_bounds__(32)
+banded_backtrace_window_kernel(const int8_t* __restrict__ bp8,
+                               const int* __restrict__ eps_prev,
+                               const int* __restrict__ end_state,
+                               const int* __restrict__ nf,
+                               int* __restrict__ states,
+                               uint8_t* __restrict__ flags, int T, int S, int R,
+                               int B, int W) {
+  __shared__ int step[kWin];  // target << 1 | eps mark, [frame][state]
+  __shared__ int epsv[kWin];
+  __shared__ int recs[kWin];
+  __shared__ uint8_t marks[kWin];
+  const int b = blockIdx.x, lane = threadIdx.x;
+  const int n = min(max(nf[b], 0), T);
   int st = end_state[b];
-  for (int t = T - 1; t >= 0; --t) {
-    const int rec = st;
-    uint8_t m = 0;
-    if (t < n) {
-      const int code = bp8[((size_t)t * S + st) * B + b];
-      m = code == kEpsCode;
-      if (t > 0)
-        st = m ? eps_prev[((size_t)t * R + st / W) * B + b]
-               : st - min(code, kMaxBand);
+  for (int t = n + lane; t < T; t += 32) {  // frames passed through
+    states[(size_t)t * B + b] = st;
+    flags[(size_t)t * B + b] = 0;
+  }
+  int8_t rc[kPerLane];
+  int re[kPerLane];
+  int v = 0, lo = 0, hi = 0, ns = 1;
+  // the window of F frames from t0 down into rc / re
+  auto load = [&](int t0, int F) {
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      const int i = lane + 32 * j, f = i / ns;
+      if (i < F * ns) rc[j] = bp8[((size_t)(t0 - f) * S + lo + i - f * ns) * B + b];
+      if (i < F) re[j] = eps_prev[((size_t)(t0 - i) * R + v) * B + b];
     }
-    states[(size_t)t * B + b] = rec;
-    flags[(size_t)t * B + b] = m;
+  };
+  bool ahead = false;  // rc / re hold the window at t (same lo, hi)
+  for (int t = n - 1; t >= 0;) {
+    if (!ahead) {
+      v = st / W;
+      hi = st;
+      lo = max(v * W, st - 31);
+      ns = hi - lo + 1;
+      load(t, min(t + 1, kWin / (ns + 1)));
+    }
+    const int nfr = min(t + 1, kWin / (ns + 1));
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j)
+      if (lane + 32 * j < nfr) epsv[lane + 32 * j] = re[j];
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      const int i = lane + 32 * j, f = i / ns;
+      if (i < nfr * ns) {
+        const int code = rc[j];
+        step[i] = code == kEpsCode ? epsv[f] << 1 | 1
+                                   : (lo + i - f * ns - min(code, kMaxBand)) << 1;
+      }
+    }
+    __syncwarp();
+    const int t2 = t - nfr;  // the next window of this word and span
+    if (t2 >= 0) load(t2, min(t2 + 1, kWin / (ns + 1)));
+    int f = 0;
+    while (f < nfr) {  // every lane walks the same chain
+      const int e = step[f * ns + st - lo];
+      if (lane == 0) {
+        recs[f] = st;
+        marks[f] = e & 1;
+      }
+      if (t - f++ > 0) st = e >> 1;
+      if ((e & 1) || st < lo || st > hi) break;
+    }
+    __syncwarp();
+    for (int i = lane; i < f; i += 32) {
+      states[(size_t)(t - i) * B + b] = recs[i];
+      flags[(size_t)(t - i) * B + b] = marks[i];
+    }
+    __syncwarp();  // the next window is stashed over this one
+    ahead = f == nfr && t2 >= 0 && st >= lo && st <= hi;
+    t -= f;
   }
 }
 
@@ -112,11 +186,9 @@ banded_backtrace_general_kernel(const int8_t* __restrict__ bp8,
 extern "C" int banded_backtrace_launch(const int8_t* bp8, const int* eps_prev,
                                        const int* end_state, const int* nf,
                                        int* states, uint8_t* flags, int T,
-                                       int S, int R, int B, int W,
-                                       void* stream) {
+                                       int S, int R, int B, int W, void* stream) {
   if (B <= 0 || T <= 0 || W < 1) return (int)cudaErrorInvalidValue;
-  const int grid = (B + kThreads - 1) / kThreads;
-  banded_backtrace_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  banded_backtrace_window_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(
       bp8, eps_prev, end_state, nf, states, flags, T, S, R, B, W);
   return (int)cudaGetLastError();
 }

@@ -22,19 +22,43 @@
 //   end      D at frame clip(nf - 1, 0, T - 1) plus end_l, first minimum ->
 //            cost[b], best_leaf[b]
 //
-// What bounds it on the H100: latency of the serial frame loop, as in K4.
-// One CTA owns one stream for all T frames; per frame it reads 8L bytes of
-// lattice planes, up to 4L of ring and 8KL (backoff) or 4L^2 (dense) of LM
-// arrays through L1/L2, writes 8L bytes, and crosses two to four barriers.
-// The bytes per frame are far below what the card moves in a frame's time,
-// so barriers and the dependent loads set the time; the dense form adds L^2
-// adds per frame and is left to graphs without a backoff structure.
+// What bounds it on the H100: one CTA owns one stream for all T frames, so
+// a frame's time is the latency of its dependent steps: the frame's
+// ends_cost / ends_tau rows from device memory, then the ring rows that
+// tau selects, then the block-wide argmin, then the sparse gathers of D,
+// with barriers between.  The bytes per frame are small (8L of lattice
+// rows, up to 4L of ring, 8L of pred_w and ring written): at 128 x 500 on
+// the 1k trie the whole DP moves ~1.3 GB, ~0.4 ms at 3.35 TB/s.  The ring
+// is [B, dmax, L] floats in device memory: 65.5 MB at B = 128, dmax = 128,
+// L = 1,000, more than the 50 MB L2, so a ring read may go to device memory.
 //
-// What the design does about it: the D row (and D at the final frame) stays
-// in shared memory, so the sparse gathers and the dense column sweep read
-// it without a memory round trip; the ring keeps dmax rows per stream in
-// device memory (L2-resident at the main path's sizes); the backoff
-// minimum is a warp-shuffle (value, index) reduction, one per frame.
+// What the staged mode does about it (ops/lattice_kernels.rescore_plan):
+// each thread owns the leaves l = tid + i * threads (i < kNL), and every
+// per-leaf quantity stays with its owner, so the frame loop has ONE block
+// barrier, the one that publishes D to the sparse gathers.
+// - The lattice rows of frame t + 2 are copied with cp.async into a ring
+//   of kDepth = 3 shared-memory rows while frame t computes; each
+//   thread copies and reads only its own leaves, so a wait_group, not a
+//   barrier, makes them visible.
+// - The ring column l is written and read only by leaf l's owner.  The
+//   next frame's ring reads (tau <= t - 1: final rows) are issued into
+//   registers right after this frame's D, so they are in flight across
+//   the barrier and the sparse phase; the newest row (tau = t, written this
+//   frame) stays in a register.  Slot (t + 1) % dmax is overwritten only in
+//   frame t + 1, after its read; no live lookup at frame t + 1 maps to the
+//   slot written at frame t.
+// - D and the argmin partials are double-buffered by frame parity, so the
+//   next frame writes them without waiting for this frame's readers; the
+//   block argmin is one barrier: each warp publishes its (value, index)
+//   and every warp reduces the partials itself.
+// - pidx / pcost are staged transposed ([K, L]) in shared memory where
+//   they fit (the 1k trie), else read through L1 (the dictionary-shaped
+//   trie).
+// Where even the D rows and three row frames do not fit (over ~7,200
+// leaves) or a thread would own more than 8 leaves, the direct mode runs:
+// 1,024 threads per stream, the D row (and D at the last frame) in shared
+// memory or, past ~29,000 leaves, in a device-memory scratch, the rows
+// read where they lie, four barriers per frame.
 
 #include <limits.h>
 #include <math.h>
@@ -57,14 +81,42 @@ struct Params {
   const float* base_l;     // [L] backoff level or null
   const int* pidx;         // [L, K] seen predecessors (target-major)
   const float* pcost;      // [L, K]
+  const int2* tab;         // [K, L] (pidx, pcost bits): the staged mode's copy
   float* ring;             // [B, dmax, L] H - q rows
+  float* scratch;          // [B, 2, L] D rows (direct mode past shared memory)
+  long long* trace;        // [B, kPhases] staged-mode cycles per phase, or null
   float* cost;             // [B]
   int* best_leaf;          // [B]
   int* pred_w;             // [T, B, L]
   int T, B, L, K, dmax;
 };
 
+constexpr int kPhases = 4;  // row wait, D + gathers, barrier, recombination
+
 size_t smem_bytes(int L) { return (size_t)2 * L * sizeof(float); }
+
+// Staged mode: every shared-memory row is Lp = L rounded up to 4 floats:
+// D [2][Lp], the lattice rows ends_cost / ends_tau [kDepth][Lp] each, and
+// (tables) the packed (pidx, pcost) pairs [K][Lp].
+constexpr int kDepth = 3;
+size_t staged_smem_bytes(int L, int K, bool tables) {
+  const size_t lp = ((size_t)L + 3) & ~(size_t)3;
+  return 4 * lp * (2 + 2 * kDepth + (tables ? 2 * (size_t)K : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  // the clobber keeps the compiler from hoisting shared-memory reads above it
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // (value, leaf index) lexicographic min: the first minimum in leaf order.
 __device__ __forceinline__ void argmin_merge(float& v, int& i, float v2, int i2) {
@@ -105,14 +157,34 @@ __device__ void block_argmin(float& v, int& i, float* red_v, int* red_i) {
   __syncthreads();  // red_v / red_i are reused by the next call
 }
 
+// An order-preserving 32-bit key of a float (-0 taken as +0), and back.
+__device__ __forceinline__ unsigned fkey(float v) {
+  const unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  return (u & 0x80000000u) ? ~u : u | 0x80000000u;
+}
+__device__ __forceinline__ float fval(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? k & 0x7fffffffu : ~k);
+}
+
+// Warp-wide first minimum, (value, index) lexicographic, every lane gets
+// it: two redux.sync (the least key, then the least index holding it)
+// where the shuffle tree takes ten shuffles.
+__device__ __forceinline__ void warp_argmin(float& v, int& i) {
+  const unsigned k = fkey(v), m = __reduce_min_sync(0xffffffffu, k);
+  i = (int)__reduce_min_sync(0xffffffffu, k == m ? (unsigned)i : 0xffffffffu);
+  v = fval(m);
+}
+
+// Direct mode.  kScratch: the D rows live in p.scratch, not shared memory.
+template <bool kScratch>
 __global__ void __launch_bounds__(kThreads, 1) lattice_rescore_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
-  float* d = smem;          // [L] this frame's D row
+  const int tid = threadIdx.x, b = blockIdx.x;
+  float* d = kScratch ? p.scratch + (size_t)b * 2 * p.L : smem;  // [L] this frame's D
   float* dfin = d + p.L;    // [L] D at the stream's last frame
   __shared__ float red_v[kWarps];
   __shared__ int red_i[kWarps];
 
-  const int tid = threadIdx.x, b = blockIdx.x;
   const int L = p.L, K = p.K, dmax = p.dmax;
   const bool backoff = p.base_l != nullptr;
   float* ring = p.ring + (size_t)b * dmax * L;
@@ -205,6 +277,236 @@ __global__ void __launch_bounds__(kThreads, 1) lattice_rescore_kernel(Params p) 
   }
 }
 
+// Staged mode (see the header): kNL leaves per thread, kDense the dense
+// recombination, kTables pidx / pcost in shared memory.
+template <int kNL, bool kDense, bool kTables>
+__global__ void __launch_bounds__(kThreads, 1)
+lattice_rescore_staged_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red_v[2][kWarps];
+  __shared__ int red_i[2][kWarps];
+  const int L = p.L, K = p.K, T = p.T, B = p.B, dmax = p.dmax;
+  const int lp = (L + 3) & ~3;
+  float* dbuf = smem;                                  // [2][lp]
+  float* rcost = dbuf + 2 * lp;                             // [kDepth][lp]
+  int* rtau = reinterpret_cast<int*>(rcost + kDepth * lp);   // [kDepth][lp]
+  int2* stab = reinterpret_cast<int2*>(rtau + kDepth * lp);  // [K][lp]
+  const int tid = threadIdx.x, nthr = blockDim.x, b = blockIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  float* ring = p.ring + (size_t)b * dmax * L;
+  const int t_fin = min(max(p.nf[b] - 1, 0), T - 1);
+
+  if constexpr (kTables)  // read after the first frame's barrier
+    for (int x = tid; x < L * K; x += nthr) {
+      const int k = x / L, j = x - k * L;
+      stab[k * lp + j] = __ldg(p.tab + x);
+    }
+  // the lattice rows of frame f into row slot `slot`, own leaves only;
+  // one commit group per frame (empty past T)
+  auto issue_rows = [&](int f, int slot) {
+    if (f < T) {
+      const size_t row = ((size_t)f * B + b) * L;
+      float* dc = rcost + slot * lp;
+      int* dt = rtau + slot * lp;
+#pragma unroll
+      for (int i = 0; i < kNL; ++i) {
+        const int l = tid + i * nthr;
+        if (l < L) {
+          cp_async4(dc + l, p.ends_cost + row + l);
+          cp_async4(dt + l, p.ends_tau + row + l);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int f = 0; f < kDepth - 1; ++f) issue_rows(f, f);
+
+  float hq_next[kNL], newest[kNL], dfin[kNL];
+#pragma unroll
+  for (int i = 0; i < kNL; ++i) hq_next[i] = newest[i] = dfin[i] = SRT_POS_INF;
+  long long tr[kPhases] = {0, 0, 0, 0};
+  long long tc = p.trace ? clock64() : 0;
+  auto stamp = [&](int k) {
+    if (p.trace) {
+      const long long now = clock64();
+      tr[k] += now - tc;
+      tc = now;
+    }
+  };
+
+  // slots without a division in the loop: rows of frame t in slot rs
+  // (t % kDepth), H - q of frame t in ring slot qs (t % dmax)
+  for (int t = 0, rs = 0, qs = 0; t < T; ++t) {
+    const int rs_prev = rs == 0 ? kDepth - 1 : rs - 1, rs_next = rs == kDepth - 1 ? 0 : rs + 1;
+    issue_rows(t + kDepth - 1, rs_prev);  // frame t - 1's slot is free
+    // rows of frames t and t + 1 complete; later frames may be in flight
+    cp_async_wait<kDepth - 2>();
+    stamp(0);
+    const float* rc = rcost + rs * lp;
+    const int* rt = rtau + rs * lp;
+    float* d = dbuf + (t & 1) * lp;
+    const float qt = __ldg(p.q + (size_t)t * B + b);
+    const int* rt1 = rtau + rs_next * lp;
+    float mv = INFINITY;  // first minimum of D + base_l over own leaves
+    int mi = INT_MAX;
+#pragma unroll
+    for (int i = 0; i < kNL; ++i) {
+      const int l = tid + i * nthr;
+      if (l < L) {
+        const float s0 = rc[l];
+        const int tau = rt[l];
+        const bool live = tau > 0 && tau < t && t - tau <= dmax;
+        const float hq = live ? (tau == t - 1 ? newest[i] : hq_next[i]) : SRT_POS_INF;
+        const float dl = tau <= 0 ? s0 + __ldg(p.start_l + l) : s0 + hq;
+        d[l] = dl;
+        if (t == t_fin) dfin[i] = dl;
+        if (!kDense) {
+          const float db = dl + __ldg(p.base_l + l);
+          if (db < mv) {  // strict, leaves ascending: the first minimum
+            mv = db;
+            mi = l;
+          }
+        }
+        // the next frame's ring value, in flight across the barrier: the
+        // same row as this frame's needs no read; else a final row
+        // (tau <= t - 1) is read; tau = t comes from `newest`
+        if (t + 1 < T) {
+          const int tau1 = rt1[l];
+          if (tau1 == tau && live)
+            hq_next[i] = hq;
+          else if (tau1 > 0 && tau1 < t && t + 1 - tau1 <= dmax) {
+            const int slot = qs - (t - tau1);  // tau1 % dmax
+            hq_next[i] = ring[(size_t)(slot < 0 ? slot + dmax : slot) * L + l];
+          }
+        }
+      }
+    }
+    if (!kDense) {
+      warp_argmin(mv, mi);
+      if (lane == 0) {
+        red_v[t & 1][warp] = mv;
+        red_i[t & 1][warp] = mi;
+      }
+    }
+    stamp(1);
+    __syncthreads();  // D and the partials of frame t are published
+    stamp(2);
+    if (!kDense) {
+      mv = lane < nwarps ? red_v[t & 1][lane] : INFINITY;
+      mi = lane < nwarps ? red_i[t & 1][lane] : INT_MAX;
+      warp_argmin(mv, mi);
+    }
+    float* ring_row = ring + (size_t)qs * L;
+    const size_t row = ((size_t)t * B + b) * L;
+#pragma unroll
+    for (int i = 0; i < kNL; ++i) {
+      const int j = tid + i * nthr;
+      if (j < L) {
+        float h;
+        int pj;
+        if constexpr (kDense) {
+          float m = d[0] + __ldg(p.big + j);
+          int a = 0;
+          for (int s = 1; s < L; ++s) {
+            const float c = d[s] + __ldg(p.big + (size_t)s * L + j);
+            if (c < m) {
+              m = c;
+              a = s;
+            }
+          }
+          h = fminf(m, SRT_POS_INF);
+          pj = a;
+        } else {
+          float hs = SRT_POS_INF;
+          int ps = 0;
+          auto pair = [&](int k) {
+            return kTables ? stab[k * lp + j] : __ldg(p.tab + (size_t)k * L + j);
+          };
+          // four pairs at a time: their loads, then their D gathers, are
+          // independent; the compares stay in k order
+          int k = 0;
+          for (; k + 4 <= K; k += 4) {
+            int2 e[4];
+            float c[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) e[u] = pair(k + u);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) c[u] = d[e[u].x] + __int_as_float(e[u].y);
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              if (c[u] < hs) {
+                hs = c[u];
+                ps = e[u].x;
+              }
+          }
+          for (; k < K; ++k) {
+            const int2 e = pair(k);
+            const float c = d[e.x] + __int_as_float(e.y);
+            if (c < hs) {
+              hs = c;
+              ps = e.x;
+            }
+          }
+          const bool take = hs < mv;
+          h = fminf(take ? hs : mv, SRT_POS_INF);
+          pj = take ? ps : mi;
+        }
+        __stcs(p.pred_w + row + j, pj);
+        const float v = h - qt;
+        ring_row[j] = v;
+        newest[i] = v;
+      }
+    }
+    stamp(3);
+    rs = rs_next;
+    qs = qs == dmax - 1 ? 0 : qs + 1;
+  }
+
+  // red[T & 1] was last read in frame T - 2, before frame T - 1's barrier
+  float fv = INFINITY;
+  int fi = INT_MAX;
+#pragma unroll
+  for (int i = 0; i < kNL; ++i) {
+    const int l = tid + i * nthr;
+    if (l < L) {
+      const float c = dfin[i] + __ldg(p.end_l + l);
+      if (c < fv) {
+        fv = c;
+        fi = l;
+      }
+    }
+  }
+  warp_argmin(fv, fi);
+  if (lane == 0) {
+    red_v[T & 1][warp] = fv;
+    red_i[T & 1][warp] = fi;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    fv = lane < nwarps ? red_v[T & 1][lane] : INFINITY;
+    fi = lane < nwarps ? red_i[T & 1][lane] : INT_MAX;
+    warp_argmin(fv, fi);
+    if (lane == 0) {
+      p.cost[b] = fv;
+      p.best_leaf[b] = fi;
+    }
+  }
+  if (p.trace && tid == 0)
+    for (int k = 0; k < kPhases; ++k) p.trace[(size_t)b * kPhases + k] = tr[k];
+}
+
+template <int kNL>
+int launch_staged(const Params& p, bool tables, int threads, cudaStream_t stream) {
+  void (*kern)(Params) = p.big != nullptr
+                                  ? lattice_rescore_staged_kernel<kNL, true, false>
+                              : tables ? lattice_rescore_staged_kernel<kNL, false, true>
+                                       : lattice_rescore_staged_kernel<kNL, false, false>;
+  const size_t smem = staged_smem_bytes(p.L, p.K, tables);
+  SRT_SET_SMEM(kern, smem);
+  kern<<<p.B, threads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int lattice_rescore_smem_bytes(int L) {
@@ -212,21 +514,53 @@ extern "C" int lattice_rescore_smem_bytes(int L) {
   return n > (size_t)INT_MAX ? INT_MAX : (int)n;
 }
 
+extern "C" int lattice_rescore_staged_smem_bytes(int L, int K, int tables) {
+  const size_t n = staged_smem_bytes(L, K, tables != 0);
+  return n > (size_t)INT_MAX ? INT_MAX : (int)n;
+}
+
+// leaves (1, 2, 4 or 8): the staged mode with that many leaves per thread,
+// `threads` threads per CTA and the LM tables in shared memory when
+// `tables`; it reads the backoff LM's pairs from tab ([K, L, 2] int32:
+// pidx, pcost's bits) and ignores pidx / pcost; trace: null or [B, 4]
+// int64.
+// leaves 0: the direct mode, its D rows in shared memory, or in `scratch`
+// ([B, 2, L] floats) when it is not null.
 extern "C" int lattice_rescore_launch(
     const float* ends_cost, const int* ends_tau, const float* q,
     const float* start_l, const float* end_l, const int* nf, const float* big,
-    const float* base_l, const int* pidx, const float* pcost, float* ring,
+    const float* base_l, const int* pidx, const float* pcost, const int* tab,
+    float* ring,
     float* cost, int* best_leaf, int* pred_w, int T, int B, int L, int K,
-    int dmax, void* stream) {
+    int dmax, int leaves, int threads, int tables, float* scratch,
+    long long* trace, void* stream) {
   const bool dense = big != nullptr;
   if (B <= 0 || T <= 0 || L <= 0 || dmax <= 0 ||
       dense == (base_l != nullptr) ||
       (!dense && (K <= 0 || pidx == nullptr || pcost == nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p{ends_cost, ends_tau, q, start_l, end_l, nf, big, base_l, pidx,
-           pcost, ring, cost, best_leaf, pred_w, T, B, L, dense ? 0 : K, dmax};
-  const size_t smem = smem_bytes(L);
-  SRT_SET_SMEM(lattice_rescore_kernel, smem);
-  lattice_rescore_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+           pcost, reinterpret_cast<const int2*>(tab), ring, scratch, trace, cost,
+           best_leaf, pred_w, T, B, L, dense ? 0 : K, dmax};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (leaves == 0) {
+    if (scratch != nullptr) {
+      lattice_rescore_kernel<true><<<B, kThreads, 0, st>>>(p);
+    } else {
+      const size_t smem = smem_bytes(L);
+      SRT_SET_SMEM(lattice_rescore_kernel<false>, smem);
+      lattice_rescore_kernel<false><<<B, kThreads, smem, st>>>(p);
+    }
+    return (int)cudaGetLastError();
+  }
+  if (threads % 32 != 0 || threads > kThreads || (size_t)threads * leaves < (size_t)L ||
+      (tables && dense) || (!dense && tab == nullptr))
+    return (int)cudaErrorInvalidValue;
+  switch (leaves) {
+    case 1: return launch_staged<1>(p, tables, threads, st);
+    case 2: return launch_staged<2>(p, tables, threads, st);
+    case 4: return launch_staged<4>(p, tables, threads, st);
+    case 8: return launch_staged<8>(p, tables, threads, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

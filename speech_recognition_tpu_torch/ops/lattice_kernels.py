@@ -25,6 +25,8 @@ CUDA kernel for CUDA tensors (or raises), counting launches in
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from speech_recognition_tpu_torch.ops.lattice import rescore_tbl, viterbi_lattice_tb
@@ -35,8 +37,8 @@ from speech_recognition_tpu_torch.ops.viterbi_lex_kernels import (
     lex_forward,
 )
 
-__all__ = ["viterbi_lattice", "viterbi_lattice_ref", "rescore_lattice",
-           "rescore_lattice_ref"]
+__all__ = ["viterbi_lattice", "viterbi_lattice_ref", "RescorePlan", "rescore_plan",
+           "rescore_smem_bytes", "rescore_lattice", "rescore_lattice_ref"]
 
 
 # ---------------------------------------------------------------------------
@@ -79,12 +81,73 @@ viterbi_lattice.launches = 0
 rescore_lattice_ref = rescore_tbl
 
 
+class RescorePlan(NamedTuple):
+    """K7's launch plan.  ``leaves`` per thread (1, 2, 4 or 8) selects the
+    staged mode with ``threads`` threads per CTA, three frames of lattice
+    rows in shared memory and the LM tables there when ``tables``;
+    ``leaves == 0`` is the direct mode, 1,024 threads, its D rows in
+    shared memory or, when ``scratch``, in device memory.  ``smem`` is
+    the CTA's dynamic shared memory in bytes."""
+
+    leaves: int
+    threads: int
+    tables: bool
+    scratch: bool
+    smem: int
+
+    @property
+    def mode(self) -> str:
+        if self.leaves:
+            return (f"staged, {self.leaves} leaves per thread"
+                    + (", LM tables on chip" if self.tables else ""))
+        return "direct, D in device memory" if self.scratch else "direct"
+
+
+_K7_THREADS = 1024
+_K7_LEAVES = (1, 2, 4, 8)
+
+
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def rescore_smem_bytes(l: int, k: int, tables: bool) -> int:
+    """Shared memory of a staged K7 CTA (``lattice_rescore_staged_smem_bytes``):
+    rows of ``l`` floats rounded up to 4, two D rows, three rows each of
+    ends_cost and ends_tau, and with ``tables`` ``k`` rows each of pidx
+    and pcost."""
+    return 4 * _r4(l) * (8 + (2 * k if tables else 0))
+
+
+def rescore_plan(l: int, k: int, dense: bool, limit: int) -> RescorePlan:
+    """K7's plan for ``l`` leaves and ``k`` predecessors per target (the
+    backoff LM; ``dense`` for the ``[L, L]`` one): the staged mode with the
+    fewest leaves per thread that cover ``l`` with 1,024 threads, the LM
+    tables in shared memory where they fit ``limit``, else read through
+    L1; where even the rows do not fit (over ~7,200 leaves), the direct
+    mode with its two D rows (``8 l`` bytes) in shared memory, or past
+    ``limit`` in a device-memory scratch.  Every size gets a plan."""
+    nl = next((n for n in _K7_LEAVES if n * _K7_THREADS >= l), 0)
+    if nl:
+        per_thread = -(-l // nl)
+        threads = -(-per_thread // 32) * 32  # whole warps
+        for tables in ((False,) if dense else (True, False)):
+            smem = rescore_smem_bytes(l, k, tables)
+            if smem <= limit:
+                return RescorePlan(nl, threads, tables, False, smem)
+    if 8 * l <= limit:
+        return RescorePlan(0, _K7_THREADS, False, False, 8 * l)
+    return RescorePlan(0, _K7_THREADS, False, True, 0)
+
+
 def rescore_lattice(ends_cost, ends_tau, q, start_l, end_l, n_frames, dmax: int,
-                    big_ll=None, backoff=None):
+                    big_ll=None, backoff=None, plan: RescorePlan = None, trace=None):
     """K7 for CUDA tensors, the plain version for CPU tensors; arguments
-    and results as ``rescore_lattice_ref``.  One CTA per stream keeps
-    the frame's D row in shared memory and the ``H - q`` rows in a
-    ``[B, dmax, L]`` device-memory ring."""
+    and results as ``rescore_lattice_ref``.  ``plan`` overrides
+    ``rescore_plan``'s; ``trace``, a ``[B, 4]`` int64 tensor, receives the
+    staged mode's cycles per phase of the frame loop (row wait, D and
+    the ring reads, barrier, recombination and stores; thread 0's clock).
+    The ``H - q`` rows live in a ``[B, dmax, L]`` device-memory ring."""
     if not use_kernels(ends_cost):
         return rescore_lattice_ref(ends_cost, ends_tau, q, start_l, end_l, n_frames, dmax,
                                    big_ll=big_ll, backoff=backoff)
@@ -120,22 +183,29 @@ def rescore_lattice(ends_cost, ends_tau, q, start_l, end_l, n_frames, dmax: int,
     if b == 0:
         return cost, best, pred
     lib = load_library()
-    need, limit = lib.lattice_rescore_smem_bytes(l), lib.srt_smem_limit()
-    if need > limit:
-        raise ValueError(f"rescoring kernel: {need} B of shared memory for {l} leaves, "
-                         f"over the {limit} B limit per CTA")
+    k = 0 if backoff is None else backoff[1].shape[1]
+    if plan is None:
+        plan = rescore_plan(l, k, backoff is None, lib.srt_smem_limit())
     nf = n_frames.to(torch.int32).contiguous()
     # every ring row is written before it is read (a lookup needs
     # tau < t), so the ring starts uninitialized
     ring = torch.empty((b, dmax, l), dtype=torch.float32, device=dev)
-    k = 0 if backoff is None else backoff[1].shape[1]
+    scratch = (torch.empty((b, 2, l), dtype=torch.float32, device=dev)
+               if plan.scratch else None)
     lm_ptrs = ([big_ll.data_ptr(), None, None, None] if backoff is None
                else [None] + [x.data_ptr() for x in backoff])
+    # the staged mode reads the backoff pairs target-minor: [K, L, 2] int32
+    tab = None
+    if plan.leaves and backoff is not None:
+        tab = torch.stack((backoff[1].T, backoff[2].T.view(torch.int32)), -1).contiguous()
     with torch.cuda.device(dev):
         rc = lib.lattice_rescore_launch(
             ends_cost.data_ptr(), ends_tau.data_ptr(), q.data_ptr(), start_l.data_ptr(),
-            end_l.data_ptr(), nf.data_ptr(), *lm_ptrs, ring.data_ptr(), cost.data_ptr(),
-            best.data_ptr(), pred.data_ptr(), t_len, b, l, k, dmax,
+            end_l.data_ptr(), nf.data_ptr(), *lm_ptrs, None if tab is None else tab.data_ptr(),
+            ring.data_ptr(), cost.data_ptr(), best.data_ptr(), pred.data_ptr(), t_len, b, l,
+            k, dmax, plan.leaves, plan.threads, int(plan.tables),
+            None if scratch is None else scratch.data_ptr(),
+            None if trace is None else trace.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "lattice rescoring kernel")
     rescore_lattice.launches += 1

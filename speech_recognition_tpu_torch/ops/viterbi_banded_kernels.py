@@ -528,8 +528,9 @@ def banded_backtrace_val_ref(bp8, eps_prev, end_state, n_frames, uniform_w: int)
 
 
 def banded_backtrace_val(bp8, eps_prev, end_state, n_frames, uniform_w: int):
-    """K2 for CUDA tensors (``csrc/banded_backtrace.cu``), the plain
-    version for CPU tensors."""
+    """K2 for CUDA tensors (``csrc/banded_backtrace.cu``: one warp per
+    stream, a window of frames x reachable states per round trip), the
+    plain version for CPU tensors."""
     if not use_kernels(bp8):
         return banded_backtrace_val_ref(bp8, eps_prev, end_state, n_frames, uniform_w)
     from speech_recognition_tpu_torch.utils.build import check, load_library

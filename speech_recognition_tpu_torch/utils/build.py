@@ -122,8 +122,8 @@ def load_library() -> ctypes.CDLL:
                                        i, i, i, i, i, i, i, i, i,
                                        i, i, i, i, i, i, i, p]
     lib.lex_backtrace_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
-    lib.lattice_rescore_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
-                                           i, i, i, i, i, p]
+    lib.lattice_rescore_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
+                                           i, i, i, i, i, i, i, i, p, p, p]
     for fn in (lib.mfcc_tail_launch, lib.bank_emission_launch, lib.banded_forward_launch,
                lib.banded_backtrace_launch,
                lib.banded_backtrace_general_launch, lib.viterbi_lex_launch,
@@ -137,10 +137,12 @@ def load_library() -> ctypes.CDLL:
     lib.banded_forward_work_bytes.restype = q
     lib.viterbi_lex_smem_bytes.argtypes = [i] * 12
     lib.lattice_rescore_smem_bytes.argtypes = [i]
+    lib.lattice_rescore_staged_smem_bytes.argtypes = [i, i, i]
     lib.viterbi_dense_smem_bytes.argtypes = [i, i, i]
     lib.srt_smem_limit.argtypes = []
     for fn in (lib.bank_emission_smem_bytes, lib.banded_forward_smem_bytes,
                lib.viterbi_lex_smem_bytes, lib.lattice_rescore_smem_bytes,
+               lib.lattice_rescore_staged_smem_bytes,
                lib.viterbi_dense_smem_bytes, lib.srt_smem_limit):
         fn.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [i]

@@ -183,6 +183,41 @@ def test_k2_plain_matches_pallas_reference(name):
     assert banded_backtrace_val.launches == before
 
 
+# (B, T, words, W): random planes whose walks change words often (an
+# eps code at every word start with probability 1/2, and at t = 1), with
+# B off a multiple of 16 and words longer than K2's 32-state window
+K2_EDGE_CASES = {"b37_w5": (37, 40, 11, 5), "b1_w5": (1, 25, 11, 5),
+                 "b36_w3": (36, 33, 20, 3), "b9_w40": (9, 30, 6, 40)}
+
+
+@pytest.mark.parametrize("name", sorted(K2_EDGE_CASES))
+def test_k2_plain_matches_pallas_reference_on_edge_planes(name):
+    """The planes the card tests give K2 (``tests/test_torch_cuda.py``),
+    through the reference's value backtrace (interpret mode) and K2's
+    plain version: states and flags equal for t < nf, with nf = T, 0, 1
+    and T + 2 side by side."""
+    from tests.test_torch_cuda import _k2_planes
+
+    b, t, r, w = K2_EDGE_CASES[name]
+    bp8, eps_prev, end = _k2_planes(b + t, t, w, r, b, torch.device("cpu"))
+    nf = np.r_[t, 0, 1, t + 2, np.random.default_rng(b).integers(0, t + 1, b)][:b]
+    nf = nf.astype(np.int32)
+    jb, _ = both_banks(3, n_models=r, n_states=w, n_mix=1, dim=2)
+    gj = jgraph.build_loop_graph([np.asarray(jb.trans_cost[i]) for i in range(r)])
+    bj = jvb.banded_arrays(gj)
+    topo = j_banded_topology(bj)
+    assert topo.uniform_w == w and gj.n_states == r * w
+    s_j, f_j = banded_backtrace_tb_pallas(
+        jnp.asarray(bp8.numpy()), jnp.zeros((t, r, b), jnp.int8), bj, jnp.asarray(end.numpy()),
+        jnp.asarray(nf), topo, eps_prev=jnp.asarray(eps_prev.numpy()), interpret=True)
+    s_t, f_t = banded_backtrace_val_ref(bp8, eps_prev, end, torch.from_numpy(nf), w)
+    valid = np.arange(t)[:, None] < nf[None, :]
+    np.testing.assert_array_equal(np.where(valid, s_t.numpy(), 0),
+                                  np.where(valid, np.asarray(s_j), 0))
+    np.testing.assert_array_equal(np.where(valid, f_t.numpy(), 0),
+                                  np.where(valid, np.asarray(f_j), 0))
+
+
 @pytest.mark.parametrize("kind", GRAPH_KINDS)
 def test_plain_oracles_match_reference_scan(kind):
     """viterbi_banded_tb / banded_backtrace_tb vs the reference XLA scan

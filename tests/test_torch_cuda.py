@@ -471,6 +471,155 @@ def test_wrappers_raise_instead_of_falling_back(dev):
                              torch.ones(2, dtype=torch.int32, device=dev), 3)
 
 
+def _k2_planes(seed, t, w, r, b, dev, eps_at_1=True):
+    """Random K2 planes over a uniform graph of ``r`` words of ``w``
+    states whose walks stay on the graph: band codes 0..3 (3 is clamped to
+    MAX_BAND) no deeper than the state's place in its word, codes 0 or 4
+    (eps) at word starts, eps_prev any state; with ``eps_at_1`` every word
+    start takes the eps code at t = 1."""
+    rng = np.random.default_rng(seed)
+    s = r * w
+    pos = np.arange(s) % w
+    band = np.minimum(rng.integers(0, 4, (t, s, b)), pos[None, :, None] + (pos >= 2)[None, :, None])
+    band = np.where((band == 3) & (pos[None, :, None] < 2), 0, band)
+    eps = np.where(rng.random((t, s, b)) < 0.5, 4, 0)
+    bp8 = np.where(pos[None, :, None] == 0, eps, band)
+    if eps_at_1 and t > 1:
+        bp8[1, pos == 0] = 4
+    eps_prev = rng.integers(0, s, (t, r, b))
+    return (torch.from_numpy(bp8.astype(np.int8)).to(dev),
+            torch.from_numpy(eps_prev.astype(np.int32)).to(dev),
+            torch.from_numpy(rng.integers(0, s, b).astype(np.int32)).to(dev))
+
+
+# (B, T, words, W): B a multiple of 16, of 4, of neither, B = 1; words
+# longer than the window's 32 states; the 7,500-state loop
+K2_CASES = {
+    "b48": (48, 40, 11, 5),
+    "b37": (37, 40, 11, 5),
+    "b36_w3": (36, 33, 20, 3),
+    "b1": (1, 25, 11, 5),
+    "b9_w40": (9, 60, 6, 40),
+    "b5_loop7500": (5, 9, 1500, 5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K2_CASES))
+def test_k2_windows_match_plain(dev, name):
+    """K2 against ``banded_backtrace_val_ref`` on random planes (walks
+    that change words often and leave long words' windows): states and
+    flags equal for t < nf, with nf = T, 0, 1 and T + 2 side by side and an
+    eps code at t = 1; the launch is counted."""
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+
+    b, t, r, w = K2_CASES[name]
+    bp8, eps_prev, end = _k2_planes(b + t, t, w, r, b, dev)
+    rng = np.random.default_rng(b)
+    nf = torch.from_numpy(np.r_[t, 0, 1, t + 2, rng.integers(0, t + 1, b)][:b]
+                          .astype(np.int32)).to(dev)
+    before = vk.banded_backtrace_val.launches
+    sk, fk = vk.banded_backtrace_val(bp8, eps_prev, end, nf, w)
+    sp, fp = vk.banded_backtrace_val_ref(bp8, eps_prev, end, nf, w)
+    torch.cuda.synchronize()
+    assert vk.banded_backtrace_val.launches == before + 1
+    valid = torch.arange(t, device=dev)[:, None] < nf[None, :]
+    assert bool(((sk == sp) & (fk == fp) | ~valid).all())
+    assert bool(fp[1][nf > 1].any())  # eps codes at t = 1 were taken
+
+
+def _k7_lattice(seed, t, b, l, k, dmax, dev, dense=False):
+    """Random K7 inputs: ends_cost with dead (POS_INF) entries, ends_tau
+    mixing tau <= 0, tau = t - 1, taus inside the window and beyond it;
+    the backoff LM (K predecessors per target) or a dense ``[L, L]`` one."""
+    from speech_recognition_tpu_torch.utils.numerics import POS_INF
+
+    rng = np.random.default_rng(seed)
+    ec = rng.uniform(0, 50, (t, b, l)).astype(np.float32)
+    ec[rng.random((t, b, l)) < 0.2] = POS_INF
+    tt = np.arange(t)[:, None, None]
+    pick = rng.integers(0, 4, (t, b, l))
+    tau = np.select([pick == 0, pick == 1, pick == 2],
+                    [rng.integers(-2, 1, (t, b, l)), tt - 1,
+                     tt - rng.integers(1, dmax + 1, (t, b, l))],
+                    tt - rng.integers(dmax + 1, dmax + 4, (t, b, l)))
+    tau = np.minimum(tau, tt)
+    ec_t = torch.from_numpy(ec).to(dev)
+    lm = dict(big_ll=None, backoff=None)
+    if dense:
+        lm["big_ll"] = torch.from_numpy(rng.uniform(0.1, 3.0, (l, l)).astype(np.float32)).to(dev)
+    else:
+        lm["backoff"] = tuple(torch.from_numpy(x).to(dev) for x in (
+            rng.uniform(1.0, 4.0, l).astype(np.float32),
+            rng.integers(0, l, (l, k)).astype(np.int32),
+            rng.uniform(0.0, 2.0, (l, k)).astype(np.float32)))
+    nf = np.r_[t, 0, 1, rng.integers(2, t + 1, b)][:b]
+    args = (ec_t, torch.from_numpy(tau.astype(np.int32)).to(dev), ec_t.amin(2),
+            torch.from_numpy(rng.uniform(0, 2, l).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.uniform(0, 2, l).astype(np.float32)).to(dev),
+            torch.from_numpy(nf.astype(np.int32)).to(dev), dmax)
+    return args, lm
+
+
+# (T, B, L, K, dmax, dense, plan): L off a multiple of 32 and of 4; small
+# dmax with taus beyond the window; the dense LM; the dictionary-shaped
+# trie's L (no tables on chip); each staged variant forced; the direct
+# mode in shared memory and, past the parent's ~29,000 leaves, in a
+# device-memory scratch
+K7_CASES = {
+    "l1000_auto": (40, 5, 1000, 9, 32, False, None),
+    "l203_dmax3": (30, 4, 203, 5, 3, False, None),
+    "l203_dmax1": (12, 3, 203, 2, 1, False, None),
+    "l203_dense": (20, 3, 203, 0, 6, True, None),
+    "l1000_no_tables": (30, 3, 1000, 9, 8, False, (1, 1024, False)),
+    "l1500_leaves2": (25, 2, 1500, 4, 8, False, None),
+    "l3001_leaves4": (20, 2, 3001, 3, 8, False, None),
+    "l6250_dict": (20, 2, 6250, 9, 16, False, None),
+    "l1000_direct": (30, 3, 1000, 9, 8, False, (0, 1024, False)),
+    "l203_direct_dense": (20, 2, 203, 0, 6, True, (0, 1024, False)),
+    "l29100_direct_scratch": (6, 2, 29100, 3, 4, False, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K7_CASES))
+def test_k7_plans_match_plain(dev, name):
+    """K7 in every plan against ``rescore_lattice_ref``: cost and best
+    leaf bit-identical, pred_w for t < nf, with tau = t - 1 (read from
+    the newest row), taus outside the window, nf = T, 0, 1; the plan's and
+    the kernel's shared-memory sums agree, and the staged trace fills."""
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lk
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    t, b, l, k, dmax, dense, forced = K7_CASES[name]
+    lib = load_library()
+    args, lm = _k7_lattice(l + t, t, b, l, k, dmax, dev, dense)
+    auto = lk.rescore_plan(l, k, dense, lib.srt_smem_limit())
+    plan = auto
+    if forced is not None:
+        leaves, threads, tables = forced
+        plan = lk.RescorePlan(leaves, threads, tables, False,
+                              lk.rescore_smem_bytes(l, k, tables) if leaves else 8 * l)
+    if name == "l6250_dict":
+        assert plan.leaves == 8 and not plan.tables
+    if name == "l29100_direct_scratch":
+        assert plan.leaves == 0 and plan.scratch
+    if name == "l1000_auto":
+        assert plan.leaves == 1 and plan.tables
+    if plan.leaves:
+        assert lib.lattice_rescore_staged_smem_bytes(l, k, int(plan.tables)) == plan.smem
+    elif not plan.scratch:
+        assert lib.lattice_rescore_smem_bytes(l) == plan.smem
+    trace = torch.zeros((b, 4), dtype=torch.int64, device=dev)
+    before = lk.rescore_lattice.launches
+    r_k = lk.rescore_lattice(*args, **lm, plan=plan, trace=trace)
+    r_p = lk.rescore_lattice_ref(*args, **lm)
+    torch.cuda.synchronize()
+    assert lk.rescore_lattice.launches == before + 1
+    assert torch.equal(r_k[0], r_p[0]) and torch.equal(r_k[1], r_p[1])
+    valid = torch.arange(t, device=dev)[:, None, None] < args[5][None, :, None]
+    assert bool(((r_k[2] == r_p[2]) | ~valid).all())
+    assert bool((trace > 0).all()) == bool(plan.leaves)
+
+
 def _units(rng, n_units, n_states=3, skip=True):
     """Banded left-to-right unit costs (self, step and, on every other
     unit, skip arcs)."""

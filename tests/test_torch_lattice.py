@@ -362,3 +362,67 @@ def test_wrappers_take_plain_versions_on_cpu():
     assert (tlk.viterbi_lattice.launches, tlk.rescore_lattice.launches) == before
     with pytest.raises(ValueError, match="at least one frame"):
         tlk.viterbi_lattice(nll[:, :0], g, lex_topology(g), torch.from_numpy(NF))
+
+
+# K7's plan (host-side, no card needed) at the 227 KB limit per CTA:
+# (L, K, dense) -> (leaves per thread, threads, tables on chip, D in device
+# memory)
+RESCORE_PLAN_CASES = {
+    "1k_trie": ((1000, 9, False), (1, 1024, True, False)),
+    "1k_dense": ((1000, 0, True), (1, 1024, False, False)),
+    "dict1_trie": ((6250, 8, False), (8, 800, False, False)),
+    "l203_off_32": ((203, 5, False), (1, 224, True, False)),
+    "l1025_two_leaves": ((1025, 9, False), (2, 544, True, False)),
+    "tables_too_big": ((3000, 40, False), (4, 768, False, False)),
+    "l7000_rows_fit": ((7000, 9, False), (8, 896, False, False)),
+    "l7300_rows_do_not_fit": ((7300, 9, False), (0, 1024, False, False)),
+    "l8000_direct": ((8000, 9, False), (0, 1024, False, False)),
+    "l29056_direct_full": ((29056, 9, False), (0, 1024, False, False)),
+    "l29057_past_old_limit": ((29057, 9, False), (0, 1024, False, True)),
+    "l100000_scratch": ((100000, 3, False), (0, 1024, False, True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RESCORE_PLAN_CASES))
+def test_rescore_plan_tiers(name):
+    """K7's launch plan: the staged mode with the fewest leaves per thread
+    (LM tables on chip for the 1k trie, through L1 for the
+    dictionary-shaped trie), the direct mode where its three row frames
+    do not fit (past ~7,260 leaves), its D rows in device memory past the
+    parent's ~29,000-leaf shared-memory limit: every size has a plan, and
+    the plan's byte count is its shared memory."""
+    (l, k, dense), want = RESCORE_PLAN_CASES[name]
+    limit = 227 * 1024
+    plan = tlk.rescore_plan(l, k, dense, limit)
+    assert (plan.leaves, plan.threads, plan.tables, plan.scratch) == want
+    assert plan.smem <= limit
+    if plan.leaves:
+        assert plan.threads % 32 == 0 and plan.threads <= 1024
+        assert plan.leaves * plan.threads >= l > (plan.leaves // 2) * 1024
+        assert plan.smem == tlk.rescore_smem_bytes(l, k, plan.tables)
+        # two D rows, three ends_cost / ends_tau row frames, (pidx, pcost) pairs
+        lp = -(-l // 4) * 4
+        assert plan.smem == 4 * lp * 2 + 8 * lp * 3 + (8 * lp * k if plan.tables else 0)
+    else:
+        assert plan.smem == (0 if plan.scratch else 8 * l)
+
+
+def test_rescore_wrapper_ignores_plan_and_trace_on_cpu():
+    """A CPU tensor takes the plain version whatever plan is passed."""
+    rng = np.random.default_rng(4)
+    t, b, l, k = 9, 3, 37, 3
+    ec = torch.from_numpy(rng.uniform(0, 9, (t, b, l)).astype(np.float32))
+    et = torch.from_numpy(rng.integers(-1, 3, (t, b, l)).astype(np.int32))
+    et = torch.minimum(et, torch.arange(t, dtype=torch.int32)[:, None, None])
+    bo = (torch.from_numpy(rng.uniform(1, 3, l).astype(np.float32)),
+          torch.from_numpy(rng.integers(0, l, (l, k)).astype(np.int32)),
+          torch.from_numpy(rng.uniform(0, 2, (l, k)).astype(np.float32)))
+    args = (ec, et, ec.amin(2), torch.zeros(l), torch.zeros(l),
+            torch.tensor([t, 0, 4], dtype=torch.int32), 4)
+    before = tlk.rescore_lattice.launches
+    plan = tlk.rescore_plan(l, k, False, 227 * 1024)._replace(leaves=0)
+    got = tlk.rescore_lattice(*args, backoff=bo, plan=plan,
+                              trace=torch.zeros((b, 4), dtype=torch.int64))
+    want = tlk.rescore_lattice_ref(*args, backoff=bo)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert tlk.rescore_lattice.launches == before
