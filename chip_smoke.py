@@ -64,8 +64,11 @@ costs and every frame of both planes) at the isolated shape (512 x 500 x
 11 models of 5 states, with and without planes), on the 385-state
 sausage at 64 x 500 (eps depth 1), on 256 padded transcript graphs and
 on a batch of integer (tie-forcing) emissions and costs with lengths 0,
-1 and T; K12 within rtol 2e-3 / atol 5e-4 of its plain version at 256 x
-5 s.  K4 and K5 are also held against their plain versions on the
+1 and T, and in every form its plan ``dense_plan`` picks (packed,
+cluster, item, wide; S from 1 to 477 over the plan's boundaries, shared
+and per-item matrices, eps depth 1-3, tie batches, lengths 0, 1 and T,
+planes on and off; the scratch form at 11,623 states); K12 within rtol
+2e-3 / atol 5e-4 of its plain version at 256 x 5 s.  K4 and K5 are also held against their plain versions on the
 1,000-word benchmark trie (128 x 500), on the same trie with a random
 eps block, on a flat 100-word vocabulary with bigram costs (more roots
 than one re-entry pass takes), and on a dictionary-shaped ~87k-state
@@ -78,7 +81,10 @@ chip or through L1, direct with its D rows in shared memory or in device
 memory) on both tries.  K2 (one warp per stream, windows of frames x
 reachable states) is also held to its plain version at B = 500 (not a
 multiple of 16) and, after K1, on the 1,500-word loop; K1 then K2 is
-timed as one number beside K2 alone.
+timed as one number beside K2 alone, and so is K8 then K9 beside K8; K9
+also at B = 500.  K9's and K11's clock64 traces give their cycles by
+phase (K9: windows and walks per stream; K11: the packed form's frame
+step, the cluster form's scans, publishing and cluster barriers).
 K4 and K6 run the plan ``lex_plan`` picks (frontier and tables in shared
 memory on the 1k trie, in device memory on the dictionary-shaped trie);
 their cycles per frame step by phase come from the kernel's trace.
@@ -252,14 +258,17 @@ def device_ms(fn, reps: int = 5) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages())
-    if total <= 0:
-        fail("torch.profiler recorded no device time")
-    return total / reps / 1e3
+    # a profiler run now and then records no kernel at all (seen once in
+    # ~300 runs on an H100): one more run, then fail
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages())
+        if total > 0:
+            return total / reps / 1e3
+    fail("torch.profiler recorded no device time in two runs")
 
 
 def random_bank(n_states: int, seed: int = 0, dup: int = 0, n_models: int = 11):
@@ -726,6 +735,18 @@ def main() -> int:
                            f"eps_u == plain (bit-identical, frozen frames included); K9 "
                            f"states and flags == plain; eps unwinds on the best paths "
                            f"{int(fk.sum())}")
+    # K9 at B = 500 (not a multiple of its 4 streams per CTA) on the
+    # 1-state sausage's planes (int8 eps_u; int32 on the 2,000-word loop below)
+    bg, topo, nll, want, ends, graph, _ = gen_planes["1-state sausage7"]
+    sub = (want[1][:, :, :500].contiguous(), want[2][:, :, :500].contiguous(), bg,
+           ends[:500], nf8[:500], graph.eps_depth)
+    sk, fk = vk.banded_backtrace_general(*sub)
+    sp, fp = vk.banded_backtrace_general_ref(*sub)
+    torch.cuda.synchronize()
+    if not (torch.equal(sk, sp) and torch.equal(fk, fp)):
+        fail("K9 differs from the plain version at B = 500 on the 1-state sausage")
+    phase("K8+K9", f"K9 at 500x{T} on the 1-state sausage's planes (int8 eps_u, eps depth "
+                   f"{graph.eps_depth}): states and flags == plain")
     report["K8"] = {"max_abs_err": k8_err}
     report["K9"] = {"max_abs_err": k9_err}
 
@@ -830,6 +851,22 @@ def main() -> int:
             n_frames=on_dev(np.r_[t_tie, 0, 1, trng.integers(2, t_tie + 1, 61)]
                             .astype(np.int32)),
             eps_trans=on_dev(trans_tie[1]), eps_depth=2)}
+    from speech_recognition_tpu_torch.ops import viterbi_kernels as dk
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    slots = dk._cluster_slots(dev)
+
+    def dense_form(kw):
+        """The plan K11 runs at these inputs, as text."""
+        b_, _, s_ = kw["nll"].shape
+        p = dk.dense_plan(b_, s_, kw["trans"].dim() == 3, kw["eps_trans"] is not None,
+                          build.load_library().srt_smem_limit(), n_sm, slots)
+        if p.form in ("cluster", "item"):
+            return (f"{p.form} form, {p.cluster} CTAs x {p.rows} rows, {p.lanes} lanes a row, "
+                    f"{p.items} items a cluster")
+        return f"{p.form} form" + (f", {p.items_per_warp} items a warp" if p.form == "packed"
+                                   else "")
+
     dense_out = {}
     for name, kw in dense_cases.items():
         got = viterbi_dense(**kw)
@@ -847,10 +884,64 @@ def main() -> int:
                 fail(f"K11 without planes disagrees with K11 with planes on {name}")
             extra = "; without planes: final identical"
         live = float((want[0] < 1e29).float().mean())
-        phase("K11", f"{name}: final, bp, eps_bp == plain (bit-identical, every frame, "
-                     f"frozen ones included){extra}; live final states {live:.3f}")
+        phase("K11", f"{name} ({dense_form(kw)}): final, bp, eps_bp == plain "
+                     f"(bit-identical, every frame, frozen ones included){extra}; live "
+                     f"final states {live:.3f}")
     if not bool((dense_out[f"integer ties {s_tie} states 64x{t_tie}"][0][1] == POS_INF).all()):
         fail("K11 final at n_frames 0 is not POS_INF")
+    # K11 in every form dense_plan picks: S over the plan's boundaries
+    # (packed up to 32 states, the cluster size growing from 63 states at
+    # B = 5, the wide form past the largest cluster), B not a multiple of
+    # the items per warp or cluster (4 items a cluster at B = 150, one below
+    # the card's SMs), shared and per-item matrices, eps
+    # depth 1-3, integer (tie-forcing) emissions and costs with POS_INF
+    # holes, lengths T, 0, 1; planes on and off
+    frng = np.random.default_rng(17)
+    forms_seen = {}
+    for s_, b_, per_item, use_eps, depth, ties in (
+            (1, 37, True, False, 1, True), (5, 37, True, False, 1, False),
+            (5, 29, False, True, 3, True), (6, 11, True, True, 2, True),
+            (16, 9, False, True, 1, False), (31, 7, True, True, 3, True),
+            (32, 5, True, True, 2, False), (33, 9, False, True, 2, True),
+            (33, 5, True, True, 1, True), (63, 5, False, True, 3, True),
+            (64, 6, True, False, 1, True), (249, 5, False, True, 2, True),
+            (385, 6, False, True, 1, False), (385, 3, True, True, 2, True),
+            (465, 5, False, True, 1, False), (477, 3, True, True, 1, True),
+            (40, 150, False, True, 2, True)):
+        t_ = 24 if s_ > 100 else 40
+        lead = (b_,) if per_item else ()
+
+        def mat(p_hole):
+            m = (frng.integers(0, 3, lead + (s_, s_)) if ties
+                 else frng.uniform(0, 3, lead + (s_, s_))).astype(np.float32)
+            m[frng.uniform(size=m.shape) < p_hole] = POS_INF
+            return on_dev(m)
+
+        init_f = frng.uniform(0, 2, s_).astype(np.float32)
+        init_f[max(1, s_ // 4):] = POS_INF
+        kw = dict(nll=on_dev((frng.integers(0, 3, (b_, t_, s_)) if ties else
+                              frng.uniform(0, 5, (b_, t_, s_))).astype(np.float32)),
+                  trans=mat(0.5), init_cost=on_dev(init_f),
+                  n_frames=on_dev(np.r_[t_, 0, 1, frng.integers(2, t_ + 1, b_)][:b_]
+                                  .astype(np.int32)),
+                  eps_trans=mat(0.8) if use_eps else None, eps_depth=depth)
+        form = dense_form(kw).split(" form")[0]
+        want = viterbi_dense_ref(**kw)
+        got = viterbi_dense(**kw)
+        lean = viterbi_dense(**kw, planes=False)
+        torch.cuda.synchronize()
+        for k, plane in enumerate(("final", "bp", "eps_bp")):
+            if not torch.equal(got[k], want[k]):
+                fail(f"K11 {plane} differs from the plain version at S={s_}, B={b_} "
+                     f"({form} form)")
+        if not torch.equal(lean[0], want[0]):
+            fail(f"K11 final without planes differs at S={s_}, B={b_} ({form} form)")
+        forms_seen.setdefault(form, []).append(str(s_))
+    if set(forms_seen) != {"packed", "cluster", "item", "wide"}:
+        fail(f"the K11 sweep missed a form: {sorted(forms_seen)}")
+    phase("K11", "every form dense_plan picks == plain (final, bp, eps_bp bit-identical, "
+                 "every frame; final without planes identical), states per form: "
+                 + "; ".join(f"{k} {', '.join(v)}" for k, v in forms_seen.items()))
     report["K11"] = {"max_abs_err": 0.0}
 
     # ---- 4e. K12 vs its plain version -----------------------------------------
@@ -983,8 +1074,10 @@ def main() -> int:
     for k, plane in enumerate(("final", "bp", "eps_bp")):
         if not torch.equal(got[k], want[k]):
             fail(f"K11 {plane} differs from the plain version at {s11} states")
-    phase("K11", f"{s11} states (one past the shared-memory frontier; frontier in a "
-                 f"device-memory scratch) at 2x4: final, bp, eps_bp == plain "
+    if dense_form(k11_big) != "scratch form":
+        fail(f"K11 at {s11} states runs the {dense_form(k11_big)}, not the scratch form")
+    phase("K11", f"{s11} states (one past the shared-memory frontier; scratch form: "
+                 f"frontier in device memory) at 2x4: final, bp, eps_bp == plain "
                  f"(bit-identical)")
 
     # ---- 5. K4 + K5 vs their plain versions -------------------------------
@@ -1513,6 +1606,29 @@ def main() -> int:
         ("K7", lambda: lt.rescore_lattice(*k7_args, **k7_kw)),
         ("K7 dict1-shaped", lambda: lt.rescore_lattice(*k7d_args, backoff=lm_ldd[3])))})
 
+    # K9 on both sausages, K8 alone and K8 then K9 as one number (K9 reads
+    # the planes K8 has just written), device times
+    def k8_k9():
+        p_ = vk.viterbi_banded_general(nll1, bg1, topo1, nf8, d1)
+        return vk.banded_backtrace_general(p_[1], p_[2], bg1, ends1, nf8, d1)
+
+    k8k9_ms = cuda_ms(k8_k9)
+    # K9's clock64 trace per stream: lane 0's cycles in windows and walks,
+    # windows waited for and loaded during the walk
+    k9_trace = {}
+    for name, (w_, e_, g_, d_) in (("1-state", (want1, ends1, bg1, d1)),
+                                   ("3-6-state", (want6, ends6, bg6, graph6.eps_depth))):
+        tr = torch.zeros((B, 5), dtype=torch.int64, device=dev)
+        vk.banded_backtrace_general(w_[1], w_[2], g_, e_, nf8, d_, trace=tr)
+        torch.cuda.synchronize()
+        k9_trace[name] = tr.double().mean(0).tolist()
+    dev_ms.update({k: device_ms(fn) for k, fn in (
+        ("K9", lambda: vk.banded_backtrace_general(want1[1], want1[2], bg1, ends1, nf8, d1)),
+        ("K9 3-6-state", lambda: vk.banded_backtrace_general(want6[1], want6[2], bg6, ends6,
+                                                             nf8, graph6.eps_depth)),
+        ("K8", lambda: vk.viterbi_banded_general(nll1, bg1, topo1, nf8, d1)),
+        ("K8+K9", k8_k9))})
+
     # the bigram pipeline: 128 x 5 s wav -> words over lexp's trie with an
     # add-k LM of 200 random 12-word sentences
     from speech_recognition_tpu_torch.langmodel.bigram import fit_bigram as _fit
@@ -1570,6 +1686,39 @@ def main() -> int:
     k11_ms = {name: (cuda_ms(lambda kw=kw: viterbi_dense(**kw)),
                      cuda_ms(lambda kw=kw: viterbi_dense_ref(**kw), reps=1))
               for name, kw in dense_cases.items()}
+    # K11 in each form, device times: packed (the isolated path, no planes),
+    # cluster (the sausage; the tie batch), item (the transcript graphs), wide
+    # (a 500-state graph, past the largest cluster, 8 x 100) and scratch
+    wrng = np.random.default_rng(19)
+    tr_w = wrng.uniform(0, 3, (2, 500, 500)).astype(np.float32)
+    tr_w[wrng.uniform(size=tr_w.shape) < 0.7] = POS_INF
+    wide_case = dict(nll=on_dev(wrng.uniform(0, 5, (8, 100, 500)).astype(np.float32)),
+                     trans=on_dev(tr_w[0]), init_cost=on_dev(wrng.uniform(0, 2, 500)
+                                                             .astype(np.float32)),
+                     n_frames=on_dev(np.full(8, 100, np.int32)), eps_trans=on_dev(tr_w[1]),
+                     eps_depth=1)
+    k11_forms = {
+        f"isolated, no planes ({dense_form(iso_case)})":
+            lambda: viterbi_dense(**iso_case, planes=False),
+        **{f"{name} ({dense_form(kw)})": (lambda kw=kw: viterbi_dense(**kw))
+           for name, kw in dense_cases.items() if not name.startswith("isolated")},
+        f"500 states 8x100 ({dense_form(wide_case)})": lambda: viterbi_dense(**wide_case),
+        f"{s11} states 2x4 ({dense_form(k11_big)})": lambda: viterbi_dense(**k11_big)}
+    k11_dev = {k: device_ms(fn) for k, fn in k11_forms.items()}
+    # K11's clock64 traces: the packed form's cycles per frame step (mean
+    # over warps) at the isolated shape, the cluster form's cycles per
+    # frame by phase (thread 0 of each CTA, mean) on the sausage
+    iso_plan = dk.dense_plan(iso_case["nll"].shape[0], n_s, True, False,
+                             lib.srt_smem_limit(), n_sm, slots)
+    tr = torch.zeros((iso_plan.grid * iso_plan.warps, 2), dtype=torch.int64, device=dev)
+    dk._launch(**iso_case, planes=False, trace=tr)
+    sau_plan = dk.dense_plan(64, g7.n_states, False, True, lib.srt_smem_limit(), n_sm, slots)
+    tr_s = torch.zeros((sau_plan.grid, 5), dtype=torch.int64, device=dev)
+    dk._launch(**dense_cases["385-state sausage7 64x500"], trace=tr_s)
+    torch.cuda.synchronize()
+    tr = tr[tr[:, 1] > 0].double()
+    k11_cycles = (float((tr[:, 0] / tr[:, 1]).mean()),
+                  (tr_s[:, :4].double() / tr_s[:, 4:].double()).mean(0).tolist())
     saus = dense_cases["385-state sausage7 64x500"]
     fin_s, bp_s, ebp_s = dense_out["385-state sausage7 64x500"]
     ends7 = on_dev(g7.end_states).long()
@@ -1606,6 +1755,14 @@ def main() -> int:
     for name, (ms, plain) in k11_ms.items():
         phase("timing", f"K11 with planes on {name}: kernel {ms:.3f} ms, plain {plain:.3f} "
                         f"ms (CUDA-event median; {card})")
+    for name, ms in k11_dev.items():
+        phase("timing", f"K11 {name}: {ms:.4f} ms device (torch.profiler; {card})")
+    phase("timing", f"K11 cycles per frame (clock64 trace): packed form at the isolated "
+                    f"shape {k11_cycles[0]:.0f} a warp; cluster form on the sausage, thread "
+                    f"0 of each CTA: " + ", ".join(
+                        f"{k} {v:.0f}" for k, v in zip(("scans", "owners + publish",
+                                                         "barriers", "total"), k11_cycles[1]))
+                    + f" ({card})")
     phase("timing", f"dense backtrace (viterbi_backtrace, tensor ops) on the 385-state "
                     f"sausage at 64x{T}: {bt_ms:.3f} ms (CUDA-event median; {card})")
     phase("timing", f"isolated pipeline 512 x 2 s wav -> predictions (K3 + bank_nll + "
@@ -1614,6 +1771,17 @@ def main() -> int:
                         f"{k} {ms:.3f} ms" for k, ms in iso_stage_ms.items()))
     phase("timing", f"K8 / K9 on the 3-6-state sausage7 ({bg6.n_states} states) at {B}x{T}: "
                     f"{k8_mixed_ms:.3f} / {k9_mixed_ms:.3f} ms (CUDA-event median; {card})")
+    for name, (win, walk, wait, ahead, frames) in k9_trace.items():
+        phase("timing", f"K9 trace on the {name} sausage, mean over {B} streams: lane 0's "
+                        f"cycles in windows {win:.0f}, walking {walk:.0f} ({frames:.0f} "
+                        f"frames); windows waited for {wait:.2f}, loaded during the walk "
+                        f"{ahead:.2f} ({card})")
+    phase("timing", f"K9 {B}x{T}: 1-state sausage {t['K9'][0]:.3f} ms event, "
+                    f"{dev_ms['K9']:.4f} ms device; 3-6-state sausage {k9_mixed_ms:.3f} ms "
+                    f"event, {dev_ms['K9 3-6-state']:.4f} ms device; K8 then K9 as one number "
+                    f"on the 1-state sausage: {k8k9_ms:.3f} ms event, {dev_ms['K8+K9']:.3f} "
+                    f"ms device, against K8 alone {t['K8'][0]:.3f} / {dev_ms['K8']:.3f} ms "
+                    f"({card})")
     phase("timing", f"K1 = K13 {t['K13'][0]:.3f} ms + DP alone {dp_ms:.3f} ms on sausage7 "
                     f"at {B}x{T}; past the old limits: K3 64 x 25 s ({f_long} frames) "
                     f"{k3_long_ms:.3f} ms, K1 on the {bgb.n_states}-state loop at "
@@ -1672,7 +1840,11 @@ def main() -> int:
                              ("K2 512 x 500", t["K2"][0], 0.183),
                              ("K7 1k trie 128 x 500", t["K7"][0], 1.867),
                              ("K7 dict1-shaped 16 x 500", k7_dict_ms, 11.467),
-                             ("K1 7,500-state loop 64 x 100", k1_big_ms, 116.473)):
+                             ("K1 7,500-state loop 64 x 100", k1_big_ms, 116.473),
+                             ("K9 512 x 500, 1-state sausage", t["K9"][0], 0.256),
+                             ("K11 isolated 512 x 500 x 11, no planes", t["K11"][0], 0.360),
+                             ("K11 385-state sausage 64 x 500",
+                              k11_ms["385-state sausage7 64x500"][0], 28.525)):
         phase("timing", f"{name}: {ms:.3f} ms against {before:.3f} ms before its last "
                         f"redesign on the same card model = {ms / before:.3f} of it ({card})")
     phase("timing", f"K7 dense [L, L] LM on the 1k trie at 128x{TL}: {k7_dense_ms:.3f} ms; "
@@ -1698,6 +1870,7 @@ def main() -> int:
     sum_nf = int(nf.clamp(max=T).sum())  # K1 / K2 / K10 streams stop at nf
     sum_nf8 = int(nf8.clamp(max=T).sum())
     unwinds1 = gen_planes["1-state sausage7"][-1]  # eps flags on the best paths
+    unwinds6 = gen_planes["3-6-state sausage7"][-1]
     nfr3 = int(lens.numel()) * int(mfcc39_fused(sig, lens, cfg)[0].shape[1])
     w_units = w.numel() // w.shape[-1]  # emission components per frame
     sum_nf1k = int(nf1k.clamp(max=TL).sum())
@@ -1767,6 +1940,12 @@ def main() -> int:
                             rescore_ops(TL, 16, ld, kd, dense=False), k7_dict_ms),
         "K8 3-6-state sausage7": (nbytes(nll6, nf8, *want6) + graph_bytes(bg6),
                                   dp_ops(bg6, T * B, span_pairs(topo6)), k8_mixed_ms),
+        "K9 3-6-state sausage7": (sum_nf8 + unwinds6 * (want6[2].element_size() + 9)
+                                  + T * B * 5 + nbytes(ends6, nf8), 4.0 * (sum_nf8 + unwinds6),
+                                  k9_mixed_ms),
+        "K8 + K9": (work["K8"][0] + work["K9"][0], work["K8"][1] + work["K9"][1], k8k9_ms),
+        "K11 wide form, 500 states 8x100": (*k11_work(wide_case), cuda_ms(
+            lambda: viterbi_dense(**wide_case))),
         "K1 + K2": (work["K1"][0] + work["K2"][0], work["K1"][1] + work["K2"][1], k1k2_ms),
         "K1 DP alone": (nbytes(nll13, nf) + graph_bytes(bg) + nbytes(*want[:1])
                         + sum_nf * (bg.n_states + bg.n_words * (want[2].element_size() + 4)),

@@ -189,18 +189,6 @@ __device__ __forceinline__ T ldt(const T* p) {
     return __ldg(p);
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Named CTA barriers between the compute warps and the writer warp, and
 // one per stream between its warps.
 constexpr int kBarFull = 1;   // a staged block is ready to be written

@@ -64,18 +64,6 @@ size_t smem_bytes(int A, int U, int M, int stage) {
   return ((stage ? weight_floats(A, U, M) : 0) + 2 * (size_t)A * kCols) * sizeof(float);
 }
 
-// cp.async of 4 or 16 bytes; fewer source bytes (0) fill the rest with zeros.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
 __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -133,7 +121,7 @@ bank_emission_kernel(const float* __restrict__ xa, const float* __restrict__ w,
   const int n_items = ((U + 1) / 2) * kGroups;
   for (int k = 0; tile < n_tiles; tile += gridDim.x, ++k) {
     const float* xs = xs0 + (size_t)(k & 1) * A * kCols;
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();  // this tile (and the weights) arrived; the last tile's reads are done
     if (tile + (int)gridDim.x < n_tiles)
       load_tile(tile + gridDim.x, xs0 + (size_t)((k + 1) & 1) * A * kCols);
@@ -259,7 +247,7 @@ bank_emission_kernel(const float* __restrict__ xa, const float* __restrict__ w,
       }
     }
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
 }
 
 template <bool kStage, bool kOneBlock>

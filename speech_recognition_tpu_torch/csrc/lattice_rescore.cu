@@ -104,20 +104,6 @@ size_t staged_smem_bytes(int L, int K, bool tables) {
   return 4 * lp * (2 + 2 * kDepth + (tables ? 2 * (size_t)K : 0));
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  // the clobber keeps the compiler from hoisting shared-memory reads above it
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // (value, leaf index) lexicographic min: the first minimum in leaf order.
 __device__ __forceinline__ void argmin_merge(float& v, int& i, float v2, int i2) {
   if (v2 < v || (v2 == v && i2 < i)) {

@@ -628,17 +628,20 @@ banded_backtrace_general_ref = banded_backtrace_tb
 
 
 def banded_backtrace_general(bp8, eps_u, g: BandedGraph, end_state, n_frames,
-                             eps_depth: int = 1):
-    """K9 for CUDA tensors (``csrc/banded_backtrace.cu``), the plain
+                             eps_depth: int = 1, trace=None):
+    """K9 for CUDA tensors (``csrc/banded_backtrace.cu``: one warp per
+    stream, a window of frames x the states of the word the band can
+    reach, with the word's eps_u entries, per round trip), the plain
     version for CPU tensors.  Arguments and results as
-    ``banded_backtrace_tb``."""
+    ``banded_backtrace_tb``; ``trace`` (int64 ``[B, 5]`` on the device)
+    receives the kernel's clock64 counts per stream (see the launcher)."""
     if not use_kernels(bp8):
         return banded_backtrace_tb(bp8, eps_u, g, end_state, n_frames, eps_depth)
     from speech_recognition_tpu_torch.utils.build import check, load_library
 
     dev = bp8.device
     t_len, s, b = bp8.shape
-    r = g.n_words
+    r, l_ends = g.n_words, g.n_ends
     if g.cross_src is not None:
         raise ValueError("the general backtrace kernel does not implement cross edges")
     if (bp8.dtype != torch.int8 or eps_u.dtype not in (torch.int8, torch.int32)
@@ -651,9 +654,10 @@ def banded_backtrace_general(bp8, eps_u, g: BandedGraph, end_state, n_frames,
         raise ValueError(f"eps_depth must be >= 1, got {eps_depth}")
     _check_devices(dev, "planes", [("eps_u", eps_u), ("end_state", end_state),
                                    ("n_frames", n_frames), ("start_pos", g.start_pos),
-                                   ("word_ends", g.word_ends)])
-    i32 = [x.to(torch.int32).contiguous()
-           for x in (g.start_pos, g.word_ends, end_state, n_frames)]
+                                   ("word_ends", g.word_ends), ("is_start", g.is_start)])
+    tabs = [g.start_pos.to(torch.int64).contiguous(), g.word_ends.to(torch.int64).contiguous(),
+            g.is_start.to(torch.bool).contiguous()]
+    i32 = [x.to(torch.int32).contiguous() for x in (end_state, n_frames)]
     states = torch.empty((t_len, b), dtype=torch.int32, device=dev)
     flags = torch.empty((t_len, b), dtype=torch.bool, device=dev)
     if b == 0 or t_len == 0:
@@ -662,8 +666,10 @@ def banded_backtrace_general(bp8, eps_u, g: BandedGraph, end_state, n_frames,
     with torch.cuda.device(dev):
         rc = lib.banded_backtrace_general_launch(
             bp8.data_ptr(), eps_u.data_ptr(), int(eps_u.dtype == torch.int32),
-            *[x.data_ptr() for x in i32], states.data_ptr(), flags.data_ptr(),
-            t_len, s, r, b, eps_depth, torch.cuda.current_stream(dev).cuda_stream)
+            *[x.data_ptr() for x in tabs + i32], states.data_ptr(), flags.data_ptr(),
+            t_len, s, r, l_ends, b, eps_depth,
+            trace.data_ptr() if trace is not None else None,
+            torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "general backtrace kernel")
     banded_backtrace_general.launches += 1
     return states, flags

@@ -10,20 +10,184 @@ the frames to 8, no VMEM tiles.
 
 ``viterbi_dense`` runs the plain version for CPU tensors and launches
 K11 for CUDA tensors (or raises); ``viterbi_dense.launches`` counts
-launches.
+launches.  ``dense_plan`` is the pure host function that picks K11's
+form and sizes (packed narrow form for S <= 32, a thread block cluster
+per batch slice for a shared matrix, CTAs sized to S for per-item
+matrices, the 1,024-thread wide form where neither fits, and its
+device-memory frontier above ~11,600 states); ``dense_smem_bytes``
+mirrors the kernel's shared-memory layouts.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from speech_recognition_tpu_torch.ops.viterbi import viterbi_batch
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
-__all__ = ["viterbi_dense", "viterbi_dense_ref", "max_dense_states"]
+__all__ = ["viterbi_dense", "viterbi_dense_ref", "max_dense_states", "DensePlan",
+           "dense_plan", "dense_smem_bytes"]
 
 # K11's plain version
 viterbi_dense_ref = viterbi_batch
+
+# the kernel's forms (csrc/viterbi_dense.cu, enum Form)
+FORMS = {"packed": 0, "cluster": 1, "item": 1, "wide": 2, "scratch": 3}
+_WARP = 32
+PACKED_WARPS = 4       # packed form: warps per CTA
+CLUSTER_ITEMS = 4      # cluster form: items sharing each matrix read
+CLUSTER_LANES = (8, 4)  # cluster form: lanes per destination row, by preference
+ITEM_LANES = (4, 2)     # item form: lanes per destination row, by preference
+MAX_CLUSTER = 8        # the portable cluster size
+ROWS_MAX_THREADS = 544  # 17 warps: 120 registers a thread
+
+
+class DensePlan(NamedTuple):
+    """K11's form and launch sizes (see ``dense_plan``)."""
+
+    form: str           # packed | cluster | item | wide | scratch
+    items_per_warp: int  # packed: floor(32 / S); else 0
+    warps: int          # warps per CTA
+    cluster: int        # CTAs per cluster (row forms), else 1
+    items: int          # items per CTA (row forms), else 0
+    rows: int           # destination rows per CTA (row forms), else S
+    lanes: int          # lanes per destination row (row forms), else 0
+    grid: int           # CTAs
+    smem: int           # dynamic shared memory per CTA, bytes
+
+    @property
+    def params(self):
+        """``(p0, p1, p2)`` of the launcher for this form."""
+        if self.form == "packed":
+            return self.warps, 0, 0
+        if self.form in ("cluster", "item"):
+            return self.rows, self.lanes, self.items
+        return 0, 0, 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _rows_layout(s: int, r: int, k: int, ki: int):
+    """``(warps, floats of one frontier buffer, floats of one staged
+    matrix)`` of the row forms (``RowsLayout`` in the kernel)."""
+    rpw = _WARP // k
+    cl = _cdiv(s, k)
+    cs = cl * r
+    cs += (rpw - cs) % _WARP if k > 1 else (-cs) % 4
+    return _cdiv(r, rpw), k * (cl | 1) * ki, k * cs
+
+
+def dense_smem_bytes(form: str, s: int, per_item: bool, use_eps: bool, p0: int = 0,
+                     p1: int = 0, p2: int = 0) -> int:
+    """Shared memory per CTA of a form, as ``viterbi_dense_smem_bytes`` in
+    the kernel: none for the packed form (its matrices live in registers)
+    and the scratch form; row forms ``p0`` rows, ``p1`` lanes per row,
+    ``p2`` items; wide its frontier, five ``[S]`` rows."""
+    if form in ("cluster", "item"):
+        _, front, mat = _rows_layout(s, p0, p1, p2)
+        return 4 * (2 * front + (1 + bool(use_eps)) * mat)
+    if form == "wide":
+        return 5 * s * 4
+    return 0
+
+
+MIN_CLUSTER_ROWS = 32  # a cluster grows only while each CTA keeps this many rows
+
+
+def _rows_plan(form, b, s, per_item, use_eps, limit, n_sm, slots, ki):
+    """The cluster form (shared matrix, ``ki`` items per cluster) or the
+    item form (per-item matrices, one item per cluster).
+    The cluster size is the smallest whose rows fit (a cluster barrier per
+    phase costs more than the rows it saves on small graphs), grown up to
+    ``MAX_CLUSTER`` while every CTA keeps ``MIN_CLUSTER_ROWS`` rows, the
+    CTAs fit one per SM and the card holds all the clusters at once
+    (``slots(c, threads, smem, items per CTA)``).  None if no size fits."""
+    lanes = ITEM_LANES if per_item else CLUSTER_LANES
+    clusters = _cdiv(b, ki)
+
+    def plan(c):  # the first lane count whose CTA fits
+        r = _cdiv(s, c)
+        for k in lanes:
+            warps = _rows_layout(s, r, k, ki)[0]
+            smem = dense_smem_bytes(form, s, per_item, use_eps, r, k, ki)
+            if warps * _WARP <= ROWS_MAX_THREADS and smem <= limit:
+                return DensePlan(form, 0, warps, c, ki, r, k, clusters * c, smem)
+        return None
+
+    sizes = range(1, MAX_CLUSTER + 1)
+    best = next((p for p in map(plan, sizes) if p is not None), None)
+    if best is None:
+        return None
+    for c in range(best.cluster + 1, MAX_CLUSTER + 1):
+        p = plan(c)
+        if (p is not None and p.rows >= MIN_CLUSTER_ROWS and p.grid <= n_sm
+                and slots(c, p.warps * _WARP, p.smem, ki) >= clusters):
+            best = p
+    return best
+
+
+def dense_plan(b: int, s: int, per_item: bool, use_eps: bool, smem_limit: int,
+               n_sm: int, cluster_slots) -> DensePlan:
+    """K11's form for ``b`` items of ``s`` states, matrices shared or
+    ``per_item``, with or without eps passes, under ``smem_limit`` bytes
+    of shared memory per CTA on ``n_sm`` SMs.  No size is refused:
+
+    * ``packed`` (S <= 32): floor(32 / S) items per warp,
+      ``PACKED_WARPS`` warps per CTA;
+    * ``cluster`` (shared matrix): ``CLUSTER_ITEMS`` items per cluster of
+      up to ``MAX_CLUSTER`` CTAs that split the destination rows, or one
+      item per cluster where the card holds one cluster per item at once;
+    * ``item`` (per-item matrices): one item per cluster (usually of one
+      CTA), 32 x ceil(rows / 16) threads;
+    * the cluster size of either: see ``_rows_plan``; ``cluster_slots(c,
+      threads, smem, items)`` counts the clusters the card holds at once
+      (on the card ``_cluster_slots``, which asks the CUDA runtime);
+    * ``wide`` where no cluster holds the rows, ``scratch`` where not
+      even its frontier fits.
+    """
+    if b < 1 or s < 1:
+        raise ValueError(f"dense plan needs b >= 1 and s >= 1, got {b}, {s}")
+    if s <= _WARP:
+        g = _WARP // s
+        return DensePlan("packed", g, PACKED_WARPS, 1, 0, s, 0,
+                         _cdiv(b, g * PACKED_WARPS),
+                         dense_smem_bytes("packed", s, per_item, use_eps, PACKED_WARPS))
+    if per_item:
+        rows = _rows_plan("item", b, s, True, use_eps, smem_limit, n_sm, cluster_slots, 1)
+    else:
+        # one item per cluster where the card holds all of them at once (a
+        # small batch: more SMs at work), else CLUSTER_ITEMS share each read
+        rows = _rows_plan("cluster", b, s, False, use_eps, smem_limit, n_sm, cluster_slots, 1)
+        if rows is None or rows.grid > n_sm or cluster_slots(
+                rows.cluster, rows.warps * _WARP, rows.smem, 1) < b:
+            rows = _rows_plan("cluster", b, s, False, use_eps, smem_limit, n_sm, cluster_slots,
+                              CLUSTER_ITEMS)
+    if rows is not None:
+        return rows
+    smem = dense_smem_bytes("wide", s, per_item, use_eps)
+    if smem > smem_limit:
+        return DensePlan("scratch", 0, 32, 1, 0, s, 0, b, 0)
+    return DensePlan("wide", 0, 32, 1, 0, s, 0, b, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_cluster_slots(dev_index: int, c: int, threads: int, smem: int, items: int) -> int:
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    with torch.cuda.device(dev_index):
+        return load_library().viterbi_dense_cluster_slots(c, threads, smem, items)
+
+
+def _cluster_slots(dev):
+    """The card's co-resident clusters of the row form
+    (``viterbi_dense_cluster_slots``, asked once per device and shape)."""
+    return lambda c, threads, smem, items: _card_cluster_slots(dev.index, c, threads, smem,
+                                                               items)
 
 
 def max_dense_states(lib) -> int:
@@ -41,12 +205,24 @@ def viterbi_dense(nll, trans, init_cost, n_frames, eps_trans=None, eps_depth: in
     [S]`` or ``[B, S]``; ``n_frames [B]``.  Returns ``(final [B, S], bp
     [B, T, S] int32, eps_bp [B, T, S] int32)``; ``planes=False`` writes
     neither plane (``None``), as the isolated scorers need only
-    ``final``.  Any S: above ``max_dense_states`` the frontier lives in a
-    device-memory scratch."""
+    ``final``.  Any S: ``dense_plan`` picks the form; above
+    ``max_dense_states`` the frontier lives in a device-memory scratch."""
     if not nll.is_cuda:
         return viterbi_batch(nll, trans, init_cost, n_frames, eps_trans, eps_depth, planes)
+    return _launch(nll, trans, init_cost, n_frames, eps_trans, eps_depth, planes)
+
+
+def _launch(nll, trans, init_cost, n_frames, eps_trans=None, eps_depth: int = 1,
+            planes: bool = True, plan: DensePlan = None, trace=None):
+    """K11 on CUDA tensors in the form ``plan`` (default: ``dense_plan``'s
+    for the card; the card tests and the timing lab force other forms).
+    ``trace`` (int64 on the device, packed form ``[warps, 2]``, row forms
+    ``[grid, 5]``) receives the kernel's clock64 counts (see the launcher
+    in ``csrc/viterbi_dense.cu``)."""
     from speech_recognition_tpu_torch.utils.build import check, load_library
 
+    if not nll.is_cuda:
+        raise ValueError(f"the dense Viterbi kernel runs on CUDA tensors, got {nll.device}")
     dev = nll.device
     if nll.dtype != torch.float32 or nll.dim() != 3:
         raise ValueError(f"dense Viterbi kernel takes float32 nll [B, T, S], got "
@@ -70,19 +246,22 @@ def viterbi_dense(nll, trans, init_cost, n_frames, eps_trans=None, eps_depth: in
     if eps_depth < 1:
         raise ValueError(f"eps_depth must be >= 1, got {eps_depth}")
     lib = load_library()
-    limit, use_eps = lib.srt_smem_limit(), int(eps_trans is not None)
+    use_eps = eps_trans is not None
     final = torch.empty((b, s), dtype=torch.float32, device=dev)
     bp = torch.empty((b, t_len, s), dtype=torch.int32, device=dev) if planes else None
     eps_bp = torch.empty_like(bp) if planes else None
     if b == 0 or t_len == 0 or s == 0:
         return final.fill_(POS_INF), bp, eps_bp
-    stage = int(lib.viterbi_dense_smem_bytes(s, use_eps, 1) <= limit)
+    per_item = trans.dim() == 3
+    if plan is None:
+        plan = dense_plan(b, s, per_item, use_eps, lib.srt_smem_limit(),
+                          torch.cuda.get_device_properties(dev).multi_processor_count,
+                          _cluster_slots(dev))
     # a frontier too wide for shared memory lives in a [B, 5, S] scratch
-    scratch = None
-    if lib.viterbi_dense_smem_bytes(s, use_eps, 0) > limit:
-        scratch = torch.empty((b, 5, s), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((b, 5, s), dtype=torch.float32, device=dev)
+               if plan.form == "scratch" else None)
     args = [nll.contiguous(), trans.contiguous(),
-            eps_trans.contiguous() if eps_trans is not None else None,
+            eps_trans.contiguous() if use_eps else None,
             init_cost.contiguous(), n_frames.to(torch.int32).contiguous()]
     ptr = [x.data_ptr() if x is not None else None for x in args]
     with torch.cuda.device(dev):
@@ -90,8 +269,9 @@ def viterbi_dense(nll, trans, init_cost, n_frames, eps_trans=None, eps_depth: in
             *ptr, final.data_ptr(), bp.data_ptr() if planes else None,
             eps_bp.data_ptr() if planes else None,
             scratch.data_ptr() if scratch is not None else None, b, t_len, s,
-            int(trans.dim() == 3),
-            int(init_cost.dim() == 2), eps_depth, stage,
+            int(per_item), int(init_cost.dim() == 2), eps_depth, FORMS[plan.form],
+            *plan.params, plan.cluster, plan.grid, plan.smem,
+            trace.data_ptr() if trace is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "dense Viterbi kernel")
     viterbi_dense.launches += 1

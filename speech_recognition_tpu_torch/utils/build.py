@@ -108,15 +108,15 @@ def load_library() -> ctypes.CDLL:
     lib.mfcc_ceps_launch.argtypes = [p, p, p, p, p, p, p, p, p,
                                      i, i, i, i, i, f, i, i, p]
     lib.viterbi_dense_launch.argtypes = [p, p, p, p, p, p, p, p, p,
-                                         i, i, i, i, i, i, i, p]
+                                         i, i, i, i, i, i, i, i, i, i, i, i, q, p, p]
     lib.bank_emission_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.banded_forward_launch.argtypes = [i, p, q, q, q, p, p, p, p, p, p, p, p, p, p, p,
                                           i, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i,
                                           p, p]
     lib.banded_backtrace_launch.argtypes = [p, p, p, p, p, p,
                                             i, i, i, i, i, p]
-    lib.banded_backtrace_general_launch.argtypes = [p, p, i, p, p, p, p, p, p,
-                                                    i, i, i, i, i, p]
+    lib.banded_backtrace_general_launch.argtypes = [p, p, i, p, p, p, p, p, p, p,
+                                                    i, i, i, i, i, i, p, p]
     lib.viterbi_lex_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, p,
                                        p, p, i, p, p, p, p,
                                        i, i, i, i, i, i, i, i, i,
@@ -138,12 +138,14 @@ def load_library() -> ctypes.CDLL:
     lib.viterbi_lex_smem_bytes.argtypes = [i] * 12
     lib.lattice_rescore_smem_bytes.argtypes = [i]
     lib.lattice_rescore_staged_smem_bytes.argtypes = [i, i, i]
-    lib.viterbi_dense_smem_bytes.argtypes = [i, i, i]
+    lib.viterbi_dense_cluster_slots.argtypes = [i, i, q, i]
+    lib.viterbi_dense_cluster_slots.restype = ctypes.c_int
+    lib.viterbi_dense_smem_bytes.argtypes = [i] * 7
+    lib.viterbi_dense_smem_bytes.restype = q
     lib.srt_smem_limit.argtypes = []
     for fn in (lib.bank_emission_smem_bytes, lib.banded_forward_smem_bytes,
                lib.viterbi_lex_smem_bytes, lib.lattice_rescore_smem_bytes,
-               lib.lattice_rescore_staged_smem_bytes,
-               lib.viterbi_dense_smem_bytes, lib.srt_smem_limit):
+               lib.lattice_rescore_staged_smem_bytes, lib.srt_smem_limit):
         fn.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p

@@ -43,6 +43,7 @@ from speech_recognition_tpu_torch.decode import connected as tconn
 from speech_recognition_tpu_torch.models import graph as tgraph
 from speech_recognition_tpu_torch.ops import viterbi_banded as tvb
 from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+from tests import k9_walk
 from tests.test_torch_gmm_hmm import both_banks
 
 jvb = importlib.import_module("speech_recognition_tpu.ops.viterbi_banded")
@@ -227,3 +228,100 @@ def test_general_wrappers_refuse_cross_edges_only_on_cuda_inputs():
         vk.viterbi_banded_general_ref(torch.zeros((16, 3, 2)), bt,
                                       topo._replace(n_states=topo.n_states + 1),
                                       torch.ones(2, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K9's window walk (csrc/banded_backtrace.cu), emulated on the CPU by
+# tests/k9_walk.py
+# ---------------------------------------------------------------------------
+
+def _lr_trans(n, rng):
+    """Left-to-right ``[n, n]`` costs ``T[to, from]``: self loops, next
+    states and some skips, POS_INF elsewhere."""
+    m = np.full((n, n), 1e30, np.float32)
+    for i in range(n):
+        m[i, i] = rng.uniform(0.1, 1.0)
+        if i + 1 < n:
+            m[i + 1, i] = rng.uniform(0.1, 1.0)
+        if i + 2 < n and rng.uniform() < 0.5:
+            m[i + 2, i] = rng.uniform(0.5, 2.0)
+    return m
+
+
+WALK_GRAPHS = {  # model sizes, slots, frames
+    "1-state sausage7": ((1, 1, 1, 1), 7, 70),      # eps depth 6, 64-frame windows
+    "3-6-state sausage": ((3, 4, 5, 6), 3, 45),
+    "word of 40 states": ((40, 3, 2), 3, 25),       # lo is a hint 31 below st
+}
+
+
+@functools.lru_cache(maxsize=None)
+def walk_case(kind):
+    sizes, slots, t = WALK_GRAPHS[kind]
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    trans = [_lr_trans(n, rng) for n in sizes]
+    layers = [list(range(len(sizes)))] * slots
+    gj = jgraph.build_word_graph(trans, layers, word_insertion_cost=0.2)
+    gt = tgraph.build_word_graph(trans, layers, word_insertion_cost=0.2)
+    return gj, gt, t
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["uniform", "ties"])
+@pytest.mark.parametrize("kind", list(WALK_GRAPHS))
+def test_k9_window_walk_matches_plain_and_pallas(kind, ties):
+    """The emulated walk (span hint, reload on leaving the span, unwind at
+    the same frame, the eps code left after eps_depth unwinds) equals the
+    plain backtrace state for state and flag for flag over every frame,
+    and the reference's Pallas backtrace (interpret mode) below each
+    length; lengths 0, 1 and T included."""
+    gj, gt, t = walk_case(kind)
+    if kind == "1-state sausage7":
+        assert gt.eps_depth == 6
+    bj, bt = jvb.banded_arrays(gj), tvb.banded_arrays(gt)
+    topo = vk.banded_topology(bt)
+    b = 6
+    nll = emissions(gt, 61 + ties, t, b, ties)
+    nf = np.array([t, 0, 1, t // 2, t - 1, t // 3 + 2], np.int32)
+    final, bp8, eps_u = vk.viterbi_banded_general_ref(torch.from_numpy(nll), bt, topo,
+                                                     torch.from_numpy(nf), gt.eps_depth)
+    ends = bt.end_states[torch.argmin(final[bt.end_states] + bt.end_bonus[:, None], 0)]
+    sp, fp = vk.banded_backtrace_general_ref(bp8, eps_u, bt, ends, torch.from_numpy(nf),
+                                             gt.eps_depth)
+    s, f, waited, ahead, unwinds = k9_walk.walk(bp8.numpy(), eps_u.numpy(),
+                                                *k9_walk.graph_tables(bt), ends.numpy(), nf,
+                                                gt.eps_depth)
+    np.testing.assert_array_equal(s, sp.numpy())
+    np.testing.assert_array_equal(f, fp.numpy())
+    assert waited >= b - 1 and unwinds >= int(fp.sum())  # stream 1 (nf 0) loads none
+    sj, ej = banded_backtrace_tb_pallas(jnp.asarray(bp8.numpy()), jnp.asarray(eps_u.numpy()),
+                                        bj, jnp.asarray(ends.numpy()), jnp.asarray(nf),
+                                        j_banded_topology(bj), eps_depth=gj.eps_depth,
+                                        interpret=True)
+    for i, n in enumerate(nf):
+        np.testing.assert_array_equal(s[:n, i], np.asarray(sj)[:n, i])
+        np.testing.assert_array_equal(f[:n, i], np.asarray(ej)[:n, i])
+
+
+def test_k9_window_walk_takes_the_eps_code_left_after_eps_depth():
+    """A plane whose eps chain is longer than eps_depth: after eps_depth
+    unwinds the code is still the eps code and the walk steps to st - 4,
+    as the plain version does; the word hint of a state with no word start
+    within 31 below is st - 31."""
+    _, gt, _ = walk_case("1-state sausage7")
+    bt = tvb.banded_arrays(gt)
+    t, b, s = 3, 1, gt.n_states
+    bp8 = np.zeros((t, s, b), np.int8)
+    eps_u = np.zeros((t, bt.n_words, b), np.int8)
+    starts = bt.word_starts.numpy()
+    bp8[2, starts, 0] = 4  # every word start at frame 2 is an eps arrival
+    for r in range(4, len(starts)):  # slot k's word 0 from slot k-1's word 0
+        eps_u[2, r, 0] = r - 4
+    end = np.array([starts[-4]])  # slot 6's word 0: a chain 24 -> 20 -> ... -> 0
+    for depth in (1, 2, 3, 5):  # the code left at the chain's last state steps 4 down
+        sp, fp = tvb.banded_backtrace_tb(torch.from_numpy(bp8), torch.from_numpy(eps_u), bt,
+                                         torch.from_numpy(end), torch.tensor([t]), depth)
+        sw, fw, *_ = k9_walk.walk(bp8, eps_u, *k9_walk.graph_tables(bt), end, [t], depth)
+        np.testing.assert_array_equal(sw, sp.numpy())
+        np.testing.assert_array_equal(fw, fp.numpy())
+    assert k9_walk.word_hint(70, np.zeros(80, bool)) == 39
+    assert k9_walk.word_hint(5, np.zeros(80, bool)) == 0

@@ -1014,6 +1014,49 @@ def test_k8_k9_match_plain(dev, kind, b, t, ties):
             vk.banded_backtrace_general.launches) == (before[0] + 1, before[1] + 1)
 
 
+@pytest.mark.parametrize("kind,b,t", [
+    ("sausage7_1state", 500, 120),   # int8 eps_u, eps depth 6, B = 500
+    ("loop_int32", 500, 60),         # int32 eps_u (130 word ends)
+    ("loop_2000", 32, 100),          # 2,000 words of 2-5 states: tables through L1
+])
+def test_k9_at_scale_matches_plain(dev, kind, b, t):
+    """K9 on K8's planes, states and flags bit-identical to the plain
+    version, with lengths 0, 1, T and T + 3."""
+    from speech_recognition_tpu_torch.models.graph import build_loop_graph, build_word_graph
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+
+    if kind == "sausage7_1state":
+        bank = _bank(11, 1, 2, 6)
+        graph = build_word_graph([bank.trans_cost[i].numpy() for i in range(11)],
+                                 [list(range(11))] * 7)
+        assert graph.eps_depth == 6
+    elif kind == "loop_int32":
+        bank, graph = _general_graph(kind)
+    else:
+        bank = _bank(11, 5, 2, 6)
+        graph = build_loop_graph([bank.trans_cost[i % 11].numpy()[:k, :k] for i, k in
+                                  zip(range(2000), (3, 4, 5, 2) * 500)],
+                                 word_insertion_cost=0.5)
+    g = banded_arrays(graph, device=dev)
+    topo = vk.banded_topology(g)
+    rng = np.random.default_rng(b + t)
+    u = int(graph.bank_state.max()) + 1
+    nll = torch.from_numpy(rng.uniform(0, 5, (u, t, b)).astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[t, 0, 1, t + 3, rng.integers(2, t + 1, b - 4)]
+                          .astype(np.int32)).to(dev)
+    fin, bp8, eps_u = vk.viterbi_banded_general(nll, g, topo, nf, graph.eps_depth)
+    assert eps_u.dtype == (torch.int32 if g.n_ends > 127 else torch.int8)
+    ends = g.end_states[torch.argmin(fin[g.end_states] + g.end_bonus[:, None], 0)]
+    before = vk.banded_backtrace_general.launches
+    sk, fk = vk.banded_backtrace_general(bp8, eps_u, g, ends, nf, graph.eps_depth)
+    sp, fp = vk.banded_backtrace_general_ref(bp8, eps_u, g, ends, nf, graph.eps_depth)
+    torch.cuda.synchronize()
+    assert vk.banded_backtrace_general.launches == before + 1
+    assert torch.equal(sk, sp) and torch.equal(fk, fp)
+    assert int(fp.sum()) > 0  # the walks unwound eps arrivals
+
+
 @pytest.mark.parametrize("kind,b,t,n_mix", [
     ("loop", 3, 17, 2),
     ("sausage", 11, 15, 2),
@@ -1256,6 +1299,124 @@ def test_k11_matches_plain(dev, b, t, s, per_item, eps, depth, ties, planes):
     else:
         assert got[1] is None and got[2] is None
     assert bool((want[0][1] == 1e30).all())  # nf = 0: POS_INF
+
+
+# K11 in each of its forms: (S, B, per item, eps, depth, ties).  B is not a
+# multiple of the items per warp (floor(32 / S), 4 warps) or per cluster (4
+# items a cluster where the batch outnumbers the SMs, as at B = 150);
+# S steps over the plan's boundaries: packed -> rows at 33, the cluster
+# size at B = 5 (1 -> 2 CTAs at 63 states, 7 -> 8 at 249), rows -> wide at
+# 465 (shared, eps) and 477 (per item, eps).
+K11_FORMS = [
+    (1, 37, True, False, 1, True), (5, 37, True, False, 1, False),
+    (5, 29, False, True, 3, True), (6, 11, True, True, 2, True),
+    (16, 9, False, True, 1, False), (31, 7, True, True, 3, True),
+    (32, 5, True, True, 2, False), (33, 9, False, True, 2, True),
+    (33, 5, True, True, 1, True), (62, 5, False, True, 1, False),
+    (63, 5, False, True, 3, True), (64, 6, True, False, 1, True),
+    (248, 5, False, False, 1, False), (249, 5, False, True, 2, True),
+    (385, 6, False, True, 1, False), (385, 3, True, True, 2, True),
+    (464, 5, False, True, 1, True), (465, 5, False, True, 1, False),
+    (476, 3, True, True, 1, False), (477, 3, True, True, 1, True),
+    (40, 150, False, True, 2, True),
+]
+
+
+@pytest.mark.parametrize("s,b,per_item,eps,depth,ties", K11_FORMS)
+@pytest.mark.parametrize("planes", [True, False])
+def test_k11_forms_match_plain(dev, s, b, per_item, eps, depth, ties, planes):
+    """Every frame of final, bp and eps_bp bit-identical to the plain
+    version in the form ``dense_plan`` picks; final with planes off equals
+    final with planes on."""
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import (
+        viterbi_dense,
+        viterbi_dense_ref,
+    )
+
+    t = 24 if s > 100 else 40
+    nll, trans, init, nf, eps_m = _dense_problem(s * 7 + b, b, t, s, per_item, eps, ties)
+    want = viterbi_dense_ref(nll, trans, init, nf, eps_m, depth)
+    before = viterbi_dense.launches
+    got = viterbi_dense(*(x.to(dev) if x is not None else None
+                          for x in (nll, trans, init, nf, eps_m)), depth, planes=planes)
+    torch.cuda.synchronize()
+    assert viterbi_dense.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    if planes:
+        assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[2].cpu(), want[2])
+    else:
+        assert got[1] is None and got[2] is None
+
+
+def _forced_dense_plans(lib, dev, b, s, per_item, use_eps):
+    """Every plan K11 can run at this shape: the row forms at each cluster
+    size whose rows fit, the wide form, the scratch frontier, and the
+    packed form where S <= 32."""
+    from speech_recognition_tpu_torch.ops import viterbi_kernels as tvk
+
+    limit, plans = lib.srt_smem_limit(), []
+    if s <= 32:
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        return [tvk.dense_plan(b, s, per_item, use_eps, limit, n_sm, tvk._cluster_slots(dev))]
+    lanes = tvk.ITEM_LANES if per_item else tvk.CLUSTER_LANES
+    for ki in (1,) if per_item else (1, tvk.CLUSTER_ITEMS):
+        for c in range(1, tvk.MAX_CLUSTER + 1):
+            for k in lanes:
+                r = -(-s // c)
+                smem = tvk.dense_smem_bytes("item", s, per_item, use_eps, r, k, ki)
+                warps = tvk._rows_layout(s, r, k, ki)[0]
+                if smem <= limit and warps * 32 <= tvk.ROWS_MAX_THREADS:
+                    plans.append(tvk.DensePlan("item" if per_item else "cluster", 0, warps,
+                                               c, ki, r, k, -(-b // ki) * c, smem))
+    smem = tvk.dense_smem_bytes("wide", s, per_item, use_eps)
+    if smem <= limit:
+        plans.append(tvk.DensePlan("wide", 0, 32, 1, 0, s, 0, b, smem))
+    plans.append(tvk.DensePlan("scratch", 0, 32, 1, 0, s, 0, b, 0))
+    return plans
+
+
+@pytest.mark.parametrize("s,b,per_item,eps,depth", [
+    (48, 7, False, True, 2), (48, 5, True, True, 3), (100, 6, False, False, 1),
+    (5, 9, True, False, 1),
+])
+def test_k11_every_plan_matches_plain(dev, s, b, per_item, eps, depth):
+    """The integer tie batch (every minimum ties; POS_INF holes) in every
+    plan K11 can run: the kernel's layout agrees with ``dense_smem_bytes``
+    (the launcher refuses a plan whose bytes differ) and every output is
+    bit-identical."""
+    from speech_recognition_tpu_torch.ops import viterbi_kernels as tvk
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    lib = load_library()
+    nll, trans, init, nf, eps_m = _dense_problem(s + b, b, 30, s, per_item, eps, True)
+    want = tvk.viterbi_dense_ref(nll, trans, init, nf, eps_m, depth)
+    args = [x.to(dev) if x is not None else None for x in (nll, trans, init, nf, eps_m)]
+    plans = _forced_dense_plans(lib, dev, b, s, per_item, eps)
+    assert len({p.form for p in plans}) >= (1 if s <= 32 else 3)
+    for plan in plans:
+        assert lib.viterbi_dense_smem_bytes(tvk.FORMS[plan.form], s, int(per_item), int(eps),
+                                            *plan.params) == plan.smem
+        got = tvk._launch(*args, depth, plan=plan)
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_.cpu(), w_), plan
+
+
+def test_k11_plan_agrees_with_kernel(dev):
+    """``dense_smem_bytes`` equals the kernel's layout for every plan of
+    S = 1..64 and the main path's shapes."""
+    from speech_recognition_tpu_torch.ops import viterbi_kernels as tvk
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    lib = load_library()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for s in list(range(1, 65)) + [75, 385, 500, 11623]:
+        for per_item in (False, True):
+            for eps in (False, True):
+                p = tvk.dense_plan(64, s, per_item, eps, lib.srt_smem_limit(), n_sm,
+                                   tvk._cluster_slots(dev))
+                assert lib.viterbi_dense_smem_bytes(tvk.FORMS[p.form], s, int(per_item),
+                                                    int(eps), *p.params) == p.smem
 
 
 def test_k11_edge_lengths_and_per_item_init(dev):

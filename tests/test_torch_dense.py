@@ -172,3 +172,93 @@ def test_graph_that_is_not_banded_decodes_dense_under_auto():
     with pytest.raises(NotImplementedError, match="item 14"):
         tconn.decode_connected(tb, gt, torch.from_numpy(feats), torch.from_numpy(nf),
                                backend="dense", beam_width=4)
+
+
+# K11's plan: the form and sizes ``dense_plan`` picks (no card needed)
+SMEM_LIMIT, N_SM = 227 * 1024, 132  # the H100's, as the kernel library reports them
+
+
+def occupancy_slots(c, threads, smem, items):
+    """A fake of the card's count of co-resident clusters of ``c`` CTAs
+    (``viterbi_dense_cluster_slots``): the CTAs one SM holds by shared
+    memory and threads, times the SMs, over ``c``."""
+    per_sm = max(1, min(SMEM_LIMIT // max(smem, 1), 2048 // threads, 32))
+    return N_SM * per_sm // c
+
+
+def gpc_slots(c, threads, smem, items):
+    """The count an H100 gives for clusters of one CTA an SM: 15 of 7 or 8
+    CTAs, since a cluster's CTAs share one GPC."""
+    return 15 if c >= 7 else occupancy_slots(c, threads, smem, items)
+
+
+@pytest.mark.parametrize("use_eps", [False, True])
+@pytest.mark.parametrize("per_item", [False, True])
+def test_dense_plan_every_small_graph(per_item, use_eps):
+    """S = 1..64 at several batch sizes: packed below 33 states with
+    floor(32 / S) items per warp, a row form above; every form's shared
+    memory within the limit, enough CTAs for the batch, nothing refused."""
+    for s in range(1, 65):
+        for b in (1, 5, 37, 64, 5632):
+            p = tvk.dense_plan(b, s, per_item, use_eps, SMEM_LIMIT, N_SM, occupancy_slots)
+            assert p.smem == tvk.dense_smem_bytes(p.form, s, per_item, use_eps, *p.params)
+            assert p.smem <= SMEM_LIMIT
+            if s <= 32:
+                assert p.form == "packed" and p.items_per_warp == 32 // s
+                assert p.grid * p.warps * p.items_per_warp >= b
+            else:
+                assert p.form == ("item" if per_item else "cluster")
+                assert p.cluster * p.rows >= s and p.grid % p.cluster == 0
+                assert p.grid // p.cluster * p.items >= b
+                assert p.items in ((1,) if per_item else (1, tvk.CLUSTER_ITEMS))
+                if not per_item:  # one item a cluster only where every cluster is resident
+                    assert p.items == tvk.CLUSTER_ITEMS or (p.grid <= N_SM and b * p.cluster
+                                                             <= N_SM)
+                assert p.warps * 32 <= tvk.ROWS_MAX_THREADS
+                assert p.warps * 32 // p.lanes >= p.rows  # a lane group per row
+
+
+def test_dense_plan_main_path_shapes():
+    """The isolated shape (5 states, 6 items per warp), the 385-state
+    sausage at 64 items (16 clusters of 4 items; an H100 holds 15 clusters
+    of 7 or 8 CTAs at once, so the cluster stays the smallest whose matrix
+    rows fit, 6 CTAs of 65 rows), the transcript graphs (CTAs sized to S:
+    a warp per 8 rows)."""
+    iso = tvk.dense_plan(5632, 5, True, False, SMEM_LIMIT, N_SM, occupancy_slots)
+    assert (iso.form, iso.items_per_warp, iso.grid) == ("packed", 6, 235)
+    saus = tvk.dense_plan(64, 385, False, True, SMEM_LIMIT, N_SM, gpc_slots)
+    assert (saus.form, saus.items) == ("cluster", 4)
+    assert (saus.cluster, saus.rows, saus.lanes, saus.warps, saus.grid) == (6, 65, 8, 17, 96)
+    assert saus.smem >= 2 * 65 * 385 * 4
+    tr = tvk.dense_plan(256, 75, True, True, SMEM_LIMIT, N_SM, occupancy_slots)
+    assert (tr.form, tr.cluster, tr.lanes, tr.warps, tr.grid) == ("item", 1, 4, 10, 256)
+
+
+@pytest.mark.parametrize("per_item", [False, True])
+def test_dense_plan_boundaries(per_item):
+    """Past the largest row form the wide form takes over, past the
+    shared-memory frontier the scratch form; one state either side of
+    each boundary, and no size is refused."""
+    def plan(b, s, use_eps):
+        return tvk.dense_plan(b, s, per_item, use_eps, SMEM_LIMIT, N_SM, occupancy_slots)
+
+    forms = []
+    for use_eps in (False, True):
+        prev = None
+        for s in list(range(33, 1200, 7)) + [11622, 11623, 11624, 20000]:
+            p = plan(64, s, use_eps)
+            assert p.smem <= SMEM_LIMIT
+            if prev is not None and p.form != prev.form:  # a boundary: check both sides
+                for s2 in (s - 7, s - 1, s, s + 1):
+                    q = plan(64, s2, use_eps)
+                    assert q.smem <= SMEM_LIMIT
+                    assert q.smem == tvk.dense_smem_bytes(q.form, s2, per_item, use_eps,
+                                                          *q.params)
+            forms.append(p.form)
+            prev = p
+        assert plan(64, 11622, use_eps).form == "wide"
+        assert plan(64, 11623, use_eps).form == "scratch"
+        assert plan(64, 700 if per_item else 1100, use_eps).form == "wide"
+    assert {"wide", "scratch", "item" if per_item else "cluster"} <= set(forms)
+    with pytest.raises(ValueError):
+        plan(0, 5, False)
