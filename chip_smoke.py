@@ -72,8 +72,12 @@ planes on and off; the scratch form at 11,623 states); K12 within rtol
 1,000-word benchmark trie (128 x 500), on the same trie with a random
 eps block, on a flat 100-word vocabulary with bigram costs (more roots
 than one re-entry pass takes), and on a dictionary-shaped ~87k-state
-trie (32 x 500), and on the 1k trie with one state's band perturbed (the
-general mode); K6 and K7 on the 1,000-word trie (128 x 500) and the
+trie (32 x 500), on the 1k trie with one state's band perturbed (the
+general mode), and on a trie over 8,000 bank rows (16 x 500), whose two
+per-frame row tables pass shared memory (the plan without row tables);
+K5 (one warp per stream, windows of frames x the chain of states its
+walk can reach) is timed on the 1k and the dictionary-shaped tries with
+its clock64 trace, beside its serial floor; K6 and K7 on the 1,000-word trie (128 x 500) and the
 dictionary-shaped trie (16 x 500), with uniform-random and planted-word
 emissions, the backoff and the dense LM, and K6 in the general mode; K7
 also in every plan ``rescore_plan`` can give (staged with its LM tables on
@@ -131,6 +135,10 @@ K13_TOL = dict(rtol=1e-5, atol=1e-4)  # 79-term f32 dot products, another order
 # keeps TF32 off); an add, min or compare counts as one operation.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# a serial walk's step: one dependent shared-memory load (~30 cycles on
+# Hopper) at the H100 SXM's boost clock
+SMEM_STEP_CYCLES = 30
+SM_CLOCK_HZ = 1.98e9
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -250,7 +258,7 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 5) -> float:
+def device_ms(fn, reps: int = 5, what: str = "a timed call") -> float:
     """Mean device time per call of ``fn()`` (ms): the kernels it launches,
     summed, from torch.profiler's CUPTI trace, after one warm-up run."""
     import torch
@@ -259,8 +267,9 @@ def device_ms(fn, reps: int = 5) -> float:
     fn()
     torch.cuda.synchronize()
     # a profiler run now and then records no kernel at all (seen once in
-    # ~300 runs on an H100): one more run, then fail
-    for _ in range(2):
+    # ~300 runs on an H100, and twice in a row once): two more runs, then
+    # fail
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -268,7 +277,7 @@ def device_ms(fn, reps: int = 5) -> float:
         total = sum(e.self_device_time_total for e in prof.key_averages())
         if total > 0:
             return total / reps / 1e3
-    fail("torch.profiler recorded no device time in two runs")
+    fail(f"torch.profiler recorded no device time in three runs of {what}")
 
 
 def random_bank(n_states: int, seed: int = 0, dup: int = 0, n_models: int = 11):
@@ -334,7 +343,7 @@ def check_lex(name, lexg, g, nll, nf):
         if not bool(((got[k] == want[k]) | ~valid[:, :, None]).all()):
             fail(f"K4 {plane} differs from the plain version on {name}")
     ends = g.end_states[torch.argmin(want[0][:, g.end_states] + g.end_bonus, 1)]
-    sk, fk = lk.lex_backtrace_val(got[1], got[3], g, ends, nf)
+    sk, fk = lk.lex_backtrace_val(got[1], got[3], g, ends, nf, topo=topo)
     sp, fp = lk.lex_backtrace_val_ref(want[1], want[3], g, ends, nf)
     torch.cuda.synchronize()
     if not bool(((sk == sp) & (fk == fp) | ~valid).all()):
@@ -361,10 +370,11 @@ def plan_text(topo, lattice: bool) -> str:
 
     plan = lex_plan(lattice, topo, load_library().srt_smem_limit())
     where = {True: "shared", False: "device"}
+    rows = f"{plan.rep} copies of each bank row" if plan.rep else "no row tables"
     return (f"frontier {where[plan.front]}, tables {where[plan.tables]}, eps "
-            f"{where[plan.eps]}{', leaf ends gathered' if plan.gather else ''}, "
-            f"{'factorised' if topo.pack.factorised else 'general'} band, "
-            f"{plan.smem} B shared")
+            f"{where[plan.eps]}{', leaf ends gathered' if plan.gather else ''}, {rows}, "
+            f"{'factorised' if topo.pack.factorised else 'general'} band"
+            f"{', wide records' if topo.pack.wide else ''}, {plan.smem} B shared")
 
 
 def perturbed_band(g):
@@ -375,32 +385,6 @@ def perturbed_band(g):
     band = g.band.clone()
     band[1, int(torch.nonzero(band[1] < 1e29)[50])] += 0.125
     return g._replace(band=band)
-
-
-def planted_emissions(rng, words, unit_ids, su, n_rows, b, t_len, dwell=2):
-    """``[U, T, B]`` emissions that plant random word strings (cost 0.05
-    on each state of each planted unit for ``dwell`` frames, 8.0
-    elsewhere, as the reference's lattice tests plant them), the planted
-    lengths and the word ids."""
-    import numpy as np
-
-    e = np.full((n_rows, t_len, b), 8.0, np.float32)
-    nf = np.zeros(b, np.int32)
-    seqs = []
-    for i in range(b):
-        rows, seq = [], []
-        while True:
-            w = int(rng.integers(len(words)))
-            r = [unit_ids[ch] * su + j for ch in words[w] for j in range(su)
-                 for _ in range(dwell)]
-            if len(rows) + len(r) > t_len:
-                break
-            rows += r
-            seq.append(w)
-        e[rows, np.arange(len(rows)), i] = 0.05
-        nf[i] = len(rows)
-        seqs.append(seq)
-    return e, nf, seqs
 
 
 def check_lattice(name, lexg, g, nll, nf, lm_l, max_dur=128):
@@ -1085,6 +1069,8 @@ def main() -> int:
         bench_lexicon,
         dict1_shaped_lexicon,
         flat_lm_lexicon,
+        large_bank_lexicon,
+        planted_emissions,
     )
     from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
     from speech_recognition_tpu_torch.ops import viterbi_lex_kernels as lk
@@ -1121,7 +1107,17 @@ def main() -> int:
     nlld = torch.from_numpy(drng.uniform(0, 5, (n_bank_d, TL, 32)).astype(np.float32)).to(dev)
     nfd = torch.from_numpy(np.r_[TL, 1, drng.integers(2, TL + 1, 30)].astype(np.int32)).to(dev)
     gd = lexd.banded.to(dev)
-    e4, e5, _, _ = check_lex("dict1-shaped trie", lexd, gd, nlld, nfd)
+    e4, e5, dict_planes, dict_ends = check_lex("dict1-shaped trie", lexd, gd, nlld, nfd)
+    k4_err, k5_err = max(k4_err, e4), max(k5_err, e5)
+    # 8,000 bank rows: the two per-frame row tables alone pass a CTA's
+    # shared memory, so the plan keeps none (the band phase reads the bank
+    # rows and emissions through L1)
+    words, trans, ids, brng = large_bank_lexicon()
+    lexb = build_lex_graph(words, trans, ids, word_insertion_cost=0.5)
+    nllbig = torch.from_numpy(brng.uniform(0, 5, (8000, TL, 16)).astype(np.float32)).to(dev)
+    nfbig = torch.from_numpy(np.r_[TL, 1, brng.integers(2, TL + 1, 14)].astype(np.int32)).to(dev)
+    gbig = lexb.banded.to(dev)
+    e4, e5, _, _ = check_lex("8,000-bank-row trie", lexb, gbig, nllbig, nfbig)
     report["K4"] = {"max_abs_err": max(k4_err, e4)}
     report["K5"] = {"max_abs_err": max(k5_err, e5)}
 
@@ -1501,7 +1497,7 @@ def main() -> int:
     # calls (no single PyTorch call computes the emission with its logsumexp)
     w2, x2 = w.reshape(-1, w.shape[2]), xa.reshape(xa.shape[0], -1)
     mm_ms = cuda_ms(lambda: torch.matmul(w2, x2))
-    dev_ms = {k: device_ms(fn) for k, fn in (
+    dev_ms = {k: device_ms(fn, what=k) for k, fn in (
         ("K13", lambda: vk.bank_emission(xa, w, lw)),
         ("K10", lambda: vk.viterbi_banded_wordtrace(xa, w, lw, bg, topo, nf)),
         ("K10 DP", lambda: vk._banded_forward(nll13, bg, nf, 1, "wordtrace",
@@ -1533,11 +1529,36 @@ def main() -> int:
     topo1k = lk.lex_topology(g1k)
     t["K4"] = (cuda_ms(lambda: lk.viterbi_lex(nll1k, g1k, topo1k, nf1k)),
                cuda_ms(lambda: lk.viterbi_lex_ref(nll1k, g1k, topo1k, nf1k), reps=3))
-    t["K5"] = (cuda_ms(lambda: lk.lex_backtrace_val(lex_planes[1], lex_planes[3], g1k,
-                                                    lex_ends, nf1k)),
+    topod = lk.lex_topology(gd)
+
+    def k5_1k():
+        return lk.lex_backtrace_val(lex_planes[1], lex_planes[3], g1k, lex_ends, nf1k,
+                                    topo=topo1k)
+
+    def k5_dict():
+        return lk.lex_backtrace_val(dict_planes[1], dict_planes[3], gd, dict_ends, nfd,
+                                    topo=topod)
+
+    t["K5"] = (cuda_ms(k5_1k, reps=10),
                cuda_ms(lambda: lk.lex_backtrace_val_ref(lex_planes[1], lex_planes[3], g1k,
                                                         lex_ends, nf1k), reps=3))
-    topod = lk.lex_topology(gd)
+    k5_dict_ms = cuda_ms(k5_dict, reps=10)
+    k5_dev = {"1k": device_ms(k5_1k, what="K5 on the 1k trie"),
+              "dict1": device_ms(k5_dict, what="K5 on the dictionary-shaped trie")}
+    # K5's trace: lane 0's cycles fetching new chains, waiting for windows,
+    # stashing, issuing the next window, walking and writing out; windows
+    # waited for and loaded during the walk; frames (mean over the streams
+    # that ran)
+    k5_trace = {}
+    for name, (planes_, g_, ends_, nf_, topo_) in (
+            ("1k", (lex_planes, g1k, lex_ends, nf1k, topo1k)),
+            ("dict1-shaped", (dict_planes, gd, dict_ends, nfd, topod))):
+        tr5 = torch.zeros((nf_.numel(), 9), dtype=torch.int64, device=dev)
+        lk.lex_backtrace_val(planes_[1], planes_[3], g_, ends_, nf_, topo=topo_, trace=tr5)
+        torch.cuda.synchronize()
+        k5_trace[name] = tr5[tr5[:, 8] > 0].double().mean(0).tolist()
+    topo_big = lk.lex_topology(gbig)
+    k4_big_ms = cuda_ms(lambda: lk.viterbi_lex(nllbig, gbig, topo_big, nfbig))
     k4_dict_ms = cuda_ms(lambda: lk.viterbi_lex(nlld, gd, topod, nfd))
     k4_dict_plain = cuda_ms(lambda: lk.viterbi_lex_ref(nlld, gd, topod, nfd), reps=1)
     # the general mode, and the cycles per frame step by phase (the
@@ -1600,7 +1621,7 @@ def main() -> int:
     k7_plan = lt.rescore_plan(g1k.n_ends, lm_l1k[3][1].shape[1], False, lib.srt_smem_limit())
     k7d_plan = lt.rescore_plan(gd.n_ends, lm_ldd[3][1].shape[1], False, lib.srt_smem_limit())
     k7_dict_ms = cuda_ms(lambda: lt.rescore_lattice(*k7d_args, backoff=lm_ldd[3]))
-    dev_ms.update({k: device_ms(fn) for k, fn in (
+    dev_ms.update({k: device_ms(fn, what=k) for k, fn in (
         ("K2", lambda: vk.banded_backtrace_val(want[1], want[3], ends, nf, topo.uniform_w)),
         ("K1+K2", k1_k2),
         ("K7", lambda: lt.rescore_lattice(*k7_args, **k7_kw)),
@@ -1622,7 +1643,7 @@ def main() -> int:
         vk.banded_backtrace_general(w_[1], w_[2], g_, e_, nf8, d_, trace=tr)
         torch.cuda.synchronize()
         k9_trace[name] = tr.double().mean(0).tolist()
-    dev_ms.update({k: device_ms(fn) for k, fn in (
+    dev_ms.update({k: device_ms(fn, what=k) for k, fn in (
         ("K9", lambda: vk.banded_backtrace_general(want1[1], want1[2], bg1, ends1, nf8, d1)),
         ("K9 3-6-state", lambda: vk.banded_backtrace_general(want6[1], want6[2], bg6, ends6,
                                                              nf8, graph6.eps_depth)),
@@ -1704,7 +1725,7 @@ def main() -> int:
            for name, kw in dense_cases.items() if not name.startswith("isolated")},
         f"500 states 8x100 ({dense_form(wide_case)})": lambda: viterbi_dense(**wide_case),
         f"{s11} states 2x4 ({dense_form(k11_big)})": lambda: viterbi_dense(**k11_big)}
-    k11_dev = {k: device_ms(fn) for k, fn in k11_forms.items()}
+    k11_dev = {k: device_ms(fn, what=f"K11 {k}") for k, fn in k11_forms.items()}
     # K11's clock64 traces: the packed form's cycles per frame step (mean
     # over warps) at the isolated shape, the cluster form's cycles per
     # frame by phase (thread 0 of each CTA, mean) on the sausage
@@ -1795,8 +1816,20 @@ def main() -> int:
                         f"{k} {ms:.3f} ms" for k, ms in wt_stage_ms.items())
                     + f" (CUDA-event median; {card})")
     phase("timing", f"K4 dict1-shaped trie ({gd.n_states} states) at 32x{TL}: "
-                    f"{k4_dict_ms:.3f} ms, plain {k4_dict_plain:.3f} ms "
+                    f"{k4_dict_ms:.3f} ms, plain {k4_dict_plain:.3f} ms; K4 on the "
+                    f"8,000-bank-row trie (no row tables) at 16x{TL}: {k4_big_ms:.3f} ms "
                     f"(CUDA-event median; {card})")
+    phase("timing", f"K5 1k trie at 128x{TL}: {t['K5'][0]:.4f} ms event, "
+                    f"{k5_dev['1k']:.4f} ms device; dict1-shaped trie at 32x{TL}: "
+                    f"{k5_dict_ms:.4f} ms event, {k5_dev['dict1']:.4f} ms device ({card})")
+    for name, (rows, wait, stash, issue, walk, write, waited, ahead,
+               frames) in k5_trace.items():
+        phase("timing", f"K5 trace on the {name} trie, mean over streams: lane 0's cycles "
+                        f"fetching chains {rows:.0f}, waiting for windows {wait:.0f}, "
+                        f"stashing {stash:.0f}, issuing the next window {issue:.0f}, "
+                        f"walking {walk:.0f} ({frames:.0f} frames, "
+                        f"{walk / frames:.1f} a frame), writing out {write:.0f}; windows "
+                        f"waited for {waited:.2f}, loaded during the walk {ahead:.2f} ({card})")
     phases = ("band", "barrier A", "eps scan", "eps reduce", "eps apply", "barrier B")
     for name, cyc in (("K4", k4_cycles), ("K6", k6_cycles)):
         phase("timing", f"{name} on the 1k trie at 128x{TL}, cycles per frame step by phase "
@@ -1838,6 +1871,7 @@ def main() -> int:
                              ("K1 512 x 500", t["K1"][0], 1.648),
                              ("word-trace decode 512 x 500", wt_ms, 10.014),
                              ("K2 512 x 500", t["K2"][0], 0.183),
+                             ("K5 1k trie 128 x 500", t["K5"][0], 0.325),
                              ("K7 1k trie 128 x 500", t["K7"][0], 1.867),
                              ("K7 dict1-shaped 16 x 500", k7_dict_ms, 11.467),
                              ("K1 7,500-state loop 64 x 100", k1_big_ms, 116.473),
@@ -1922,14 +1956,22 @@ def main() -> int:
                    ceps_ops(cfg, int(nf12.sum())))
     # the other timed shapes: the dense LM and the dictionary-shaped trie
     sum_nfd = int(nfd.clamp(max=TL).sum())
+    sum_nfb = int(nfbig.clamp(max=TL).sum())
     ld, kd = gd.n_ends, lm_ldd[3][1].shape[1]
     eu_d = torch.empty((), dtype=topod.eps_u_dtype).element_size()
+    eu_b = torch.empty((), dtype=topo_big.eps_u_dtype).element_size()
     more = {
         "K7 dense LM": (nbytes(*k7_args[:6], lm_ld[2]) + TL * 128 * l1k * 4 + 128 * 8,
                         rescore_ops(TL, 128, l1k, 0, dense=True), k7_dense_ms),
         "K4 dict1-shaped": (nbytes(nlld, nfd) + graph_bytes(gd) + 32 * gd.n_states * 4
                             + sum_nfd * (gd.n_states + gd.n_words * (eu_d + 4)),
                             dp_ops(gd, sum_nfd), k4_dict_ms),
+        "K4 8,000-bank-row trie": (nbytes(nllbig, nfbig) + graph_bytes(gbig)
+                                   + 16 * gbig.n_states * 4 + sum_nfb * (
+                                       gbig.n_states + gbig.n_words * (eu_b + 4)),
+                                   dp_ops(gbig, sum_nfb), k4_big_ms),
+        "K5 dict1-shaped": (sum_nfd * 1 + TL * 32 * 5 + nbytes(dict_ends, nfd), 4.0 * sum_nfd,
+                            k5_dict_ms),
         "K6 dict1-shaped": (nbytes(nll_bd, nf_d16, *kd_out) + graph_bytes(gd),
                             dp_ops(gd, 16 * TL), k6_dict_ms),
         "K4 general mode": (*work["K4"], k4_gen_ms),
@@ -1973,6 +2015,14 @@ def main() -> int:
            for name, (ms, _) in k11_ms.items()},
     }
     bounds = {k: bound(*v) for k, v in work.items()}
+    # a serial walk's floor beside its byte bound: its longest stream's
+    # frames as dependent shared-memory loads (~30 cycles each on Hopper)
+    # at the H100 SXM's 1,980 MHz boost clock
+    for name, nf_, ms in (("K5 1k trie 128x500", nf1k, t["K5"][0]),
+                          ("K5 dict1-shaped 32x500", nfd, k5_dict_ms)):
+        floor_ms = int(nf_.clamp(max=TL).max()) * SMEM_STEP_CYCLES / SM_CLOCK_HZ * 1e3
+        phase("bound", f"{name}: serial floor {floor_ms:.4f} ms ({int(nf_.max())} dependent "
+                       f"shared-memory steps); the kernel took {ms / floor_ms:.1f}x it")
     for k, (n_b, n_o, ms) in [(k, (*v, t[k][0])) for k, v in work.items()] + list(more.items()):
         b_ms, by = bound(n_b, n_o)
         phase("bound", f"{k}: {n_b / 1e6:.1f} MB, {n_o / 1e9:.2f} G operations -> "

@@ -67,7 +67,10 @@
 //            a compact (source, cost) cross table (entry 0 the default pair
 //            that most states carry, then only the states whose pair
 //            differs, so every state reads a pair and no branch diverges)
-//            or, with bit 31 set, the state's leaf slot.  A graph whose
+//            or, with bit 31 set, the state's leaf slot.  Where the bank
+//            rows and the links do not fit 31 bits together, the wide
+//            records (template argument kWide) hold two words per state,
+//            the bank row and the link, read through L1.  A graph whose
 //            band does not factorise runs the general mode, which reads
 //            per-state band rows (band_s) through L1.  Records, cross table
 //            and eps block (one value per root where its row is constant)
@@ -87,7 +90,12 @@
 //            .w lane of a per-frame row table (band costs in .xyz), so one
 //            16-byte load gives a state its band costs and its emission;
 //            each row is kept eight times, so the eight lanes of a quarter
-//            warp read eight different bank groups.
+//            warp read eight different bank groups.  Where not even the two
+//            row tables fit (over ~7,000 bank rows), the plan keeps none
+//            (rep 0, template argument kRowsDev): the band phase reads each
+//            state's band costs and its emission nll[row, t, b] through L1
+//            where it needs them, and the frontier and tables live in
+//            device memory, so no bank size is refused.
 //   eps      the band phase writes each leaf end's cost (and K4's eps_prev
 //            or K6's entry time) into its leaf slot, so the frame's
 //            leaf-end costs are gathered once; each root's first minimum is
@@ -145,7 +153,7 @@ struct Params {
   int* ends_tau;            // [T, B, L] (K6)
   long long* trace;         // [B, kPhases] or null
   int U, T, B, S, R, L, n_rows, n_cx, shift, gather, eps_ld;
-  int tau_smem, eps_smem, rep_shift;
+  int tau_smem, eps_smem, rep, rep_shift;
 };
 
 __host__ __device__ inline size_t r16(size_t n) { return (n + 15) & ~(size_t)15; }
@@ -245,14 +253,16 @@ enum Tables { kTabL1 = 0, kTabSmem = 1, kTabGeneral = 2 };
 
 // kFront: the cost frontier in shared memory (and, for K4, the frame's
 // codes, staged there and copied out during the next frame); else both in
-// device memory.  K6's tau frontier follows p.tau_smem.
-template <bool kLattice, bool kFront, int kTab>
+// device memory.  K6's tau frontier follows p.tau_smem.  kWide: two-word
+// state records.  kRowsDev: no row tables; band costs and emissions are
+// read through L1.
+template <bool kLattice, bool kFront, int kTab, bool kWide, bool kRowsDev>
 __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(Params p) {
   constexpr int kThreads = threads_for<kFront>(), kWarps = kThreads / 32;
   constexpr bool kTablesSmem = kTab == kTabSmem;
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout y = layout(kLattice, p.S, p.R * max(p.eps_ld, 1), p.L, p.n_rows, p.n_cx,
-                          kFront, p.tau_smem, kTablesSmem, p.eps_smem, p.gather, 1 << p.rep_shift);
+                          kFront, p.tau_smem, kTablesSmem, p.eps_smem, p.gather, p.rep);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
   const int S = p.S, R = p.R, L = p.L, T = p.T;
@@ -274,7 +284,7 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
   // row tables: row u's copy k at (u << rep_shift) + k, so the eight lanes
   // of a quarter warp (lane & 7 = k) read eight different bank groups
   float4* rows = reinterpret_cast<float4*>(smem + y.rows);
-  const int n_rep = p.n_rows << p.rep_shift;
+  const int n_rep = kRowsDev ? 0 : p.n_rows << p.rep_shift;  // kRowsDev: no copies, no prefetch
   const size_t rows_n = r16((size_t)n_rep * 16) / 16;  // float4 per row table
   const unsigned lane_rep = lane & ((1u << p.rep_shift) - 1u);
   float* ends = reinterpret_cast<float*>(smem + y.ends);
@@ -283,6 +293,31 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
   int* endx = reinterpret_cast<int*>(smem + y.endx);
   int8_t* codes = reinterpret_cast<int8_t*>(smem + y.codes);  // [2][S] (K4, kFront)
   const size_t codes_n = r16((size_t)S);
+  // state v's record: its bank row, its link (cross entry or leaf slot)
+  // and, in bit 31 of lf, the leaf mark
+  struct Rec {
+    unsigned row, link, lf;
+  };
+  const auto rec_at = [&](int v) -> Rec {
+    if constexpr (kWide) {
+      const uint2 r = __ldg(reinterpret_cast<const uint2*>(p.rec) + v);
+      return {r.x, r.y & ~kLeaf, r.y};
+    } else {
+      const unsigned rc = ldt<kTablesSmem>(rec + v);
+      return {rc & mask, (rc & ~kLeaf) >> p.shift, rc};
+    }
+  };
+  // bank row u's band costs (.xyz) and frame t's emission (.w), from the
+  // frame's row table rw, else read where they lie
+  const auto row_at = [&](const float4* rw, unsigned u, int t) -> float4 {
+    if constexpr (kRowsDev) {
+      float4 v = __ldg(p.rows + u);
+      v.w = fminf(__ldg(p.nll + ((size_t)u * T + t) * p.B + b), SRT_POS_INF);
+      return v;
+    } else {
+      return rw[(u << p.rep_shift) | lane_rep];
+    }
+  };
 
   // ---- set-up: tables, row tables, frontier padding, frame 0's emissions
   if (kTablesSmem) {
@@ -342,10 +377,10 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
   if (n > 0) prefetch(0);
   landed(0);
   __syncthreads();
-  // the start state and row-table index of this warp's first root (each
-  // warp keeps its roots for every frame)
+  // the start state and bank row of this warp's first root (each warp
+  // keeps its roots for every frame)
   const int start0 = warp < R ? __ldg(p.word_starts + warp) : 0;
-  const int row0 = (int)((ldt<kTablesSmem>(rec + start0) & mask) << p.rep_shift);
+  const unsigned row0 = rec_at(start0).row;
 
   long long tr[kPhases] = {0, 0, 0, 0, 0, 0};
   long long tc = clock64();
@@ -367,24 +402,22 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
     // (a) band select, cross edge, emission; leaf ends into their slots
     if (t == 0) {
       for (int v = tid; v < S; v += kThreads) {
-        const unsigned rc = ldt<kTablesSmem>(rec + v);
-        const float val =
-            fminf(__ldg(p.init + v) + rw[((rc & mask) << p.rep_shift) | lane_rep].w, SRT_POS_INF);
+        const Rec rc = rec_at(v);
+        const float val = fminf(__ldg(p.init + v) + row_at(rw, rc.row, t).w, SRT_POS_INF);
         nxt[v] = val;
         if (kLattice)
           tnxt[v] = 0;
         else
           code[v] = 0;
-        if (rc & leaf_bit) {
-          const unsigned l = (rc & ~kLeaf) >> p.shift;
-          ends[l] = val;
-          endx[l] = kLattice ? 0 : v;
+        if (rc.lf & leaf_bit) {
+          ends[rc.link] = val;
+          endx[rc.link] = kLattice ? 0 : v;
         }
       }
     } else {
       for (int v = tid; v < S; v += kThreads) {
-        const unsigned rc = ldt<kTablesSmem>(rec + v);
-        float4 bd = rw[((rc & mask) << p.rep_shift) | lane_rep];
+        const Rec rc = rec_at(v);
+        float4 bd = row_at(rw, rc.row, t);
         if (kTab == kTabGeneral) {
           const float4 g = __ldg(p.band_s + v);
           bd.x = g.x;
@@ -399,8 +432,7 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
         if (a2 <= base) { base = a2; d = 2; }
         // every state reads a cross pair: its own, else the default (entry
         // 0; a leaf slot's link is no cross entry), so no branch diverges
-        const unsigned link = (rc & ~kLeaf) >> p.shift;
-        const int2 e = ldt<kTablesSmem>(cross + ((rc & kLeaf) ? 0u : link));
+        const int2 e = ldt<kTablesSmem>(cross + ((rc.lf & kLeaf) ? 0u : rc.link));
         const int src = e.x;
         const float cc = fminf(cur[src] + __int_as_float(e.y), SRT_POS_INF);
         const bool crossed = cc <= base;
@@ -416,9 +448,9 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
           tnxt[v] = tv;
         else
           code[v] = (int8_t)d;
-        if (rc & leaf_bit) {
-          ends[link] = val;
-          endx[link] = kLattice ? tv : v - d;
+        if (rc.lf & leaf_bit) {
+          ends[rc.link] = val;
+          endx[rc.link] = kLattice ? tv : v - d;
         }
       }
     }
@@ -470,9 +502,8 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
       mark(3);
       if (lane == 0) {
         const int start = r == warp ? start0 : __ldg(p.word_starts + r);
-        const int row = r == warp ? row0
-                                  : (int)((ldt<kTablesSmem>(rec + start) & mask) << p.rep_shift);
-        const float cand = fminf(bv + rw[row].w, SRT_POS_INF);
+        const unsigned row = r == warp ? row0 : rec_at(start).row;
+        const float cand = fminf(bv + row_at(rw, row, t).w, SRT_POS_INF);
         int uo = 0, pp = 0;
         if (cand < nxt[start]) {  // strict improvement only
           nxt[start] = cand;
@@ -533,10 +564,10 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
     for (int k = 0; k < kPhases; ++k) p.trace[(size_t)b * kPhases + k] = tr[k];
 }
 
-template <bool kLattice, bool kFront, int kTab>
+template <bool kLattice, bool kFront, int kTab, bool kWide, bool kRowsDev>
 int launch(const Params& p, size_t smem, cudaStream_t stream) {
   constexpr int kThreads = threads_for<kFront>();
-  auto kernel = viterbi_lex_kernel<kLattice, kFront, kTab>;
+  auto kernel = viterbi_lex_kernel<kLattice, kFront, kTab, kWide, kRowsDev>;
   SRT_SET_SMEM(kernel, smem);
   // carve out the CTA's shared memory and no more: the rest of the SM's
   // 256 KB stays L1, which serves what is read from device memory
@@ -548,22 +579,29 @@ int launch(const Params& p, size_t smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool kLattice, bool kFront>
+// The wide records and the plan without row tables read their tables
+// through L1 (no kTabSmem instance) and keep the frontier in device memory.
+template <bool kLattice, bool kFront, bool kWide, bool kRowsDev>
 int launch_tables(const Params& p, int tab, size_t smem, cudaStream_t s) {
-  switch (tab) {
-    case kTabSmem: return launch<kLattice, kFront, kTabSmem>(p, smem, s);
-    case kTabGeneral: return launch<kLattice, kFront, kTabGeneral>(p, smem, s);
-    default: return launch<kLattice, kFront, kTabL1>(p, smem, s);
+  if (tab == kTabGeneral) return launch<kLattice, kFront, kTabGeneral, kWide, kRowsDev>(p, smem, s);
+  if (tab == kTabSmem) {
+    if constexpr (!kWide && !kRowsDev) return launch<kLattice, kFront, kTabSmem, false, false>(p, smem, s);
+    return (int)cudaErrorInvalidValue;
   }
+  return launch<kLattice, kFront, kTabL1, kWide, kRowsDev>(p, smem, s);
 }
 
 template <bool kLattice>
-int launch_plan(const Params& p, int front, int tab, cudaStream_t s) {
+int launch_plan(const Params& p, int wide, int front, int tab, cudaStream_t s) {
   const size_t smem = layout(kLattice, p.S, p.R * max(p.eps_ld, 1), p.L, p.n_rows, p.n_cx,
                              front, p.tau_smem, tab == kTabSmem, p.eps_smem, p.gather,
-                             1 << p.rep_shift).total;
-  return front ? launch_tables<kLattice, true>(p, tab, smem, s)
-               : launch_tables<kLattice, false>(p, tab, smem, s);
+                             p.rep).total;
+  if (wide)
+    return p.rep ? launch_tables<kLattice, false, true, false>(p, tab, smem, s)
+                 : launch_tables<kLattice, false, true, true>(p, tab, smem, s);
+  if (!p.rep) return launch_tables<kLattice, false, false, true>(p, tab, smem, s);
+  return front ? launch_tables<kLattice, true, false, false>(p, tab, smem, s)
+               : launch_tables<kLattice, false, false, false>(p, tab, smem, s);
 }
 
 }  // namespace
@@ -579,7 +617,8 @@ extern "C" int viterbi_lex_smem_bytes(int lattice, int S, int n_eps, int L, int 
 }
 
 // K4 (lattice = 0) or K6 (lattice = 1).  nll [U, T, B]; init [S]; rec [S]
-// packed records; rows [n_rows] float4 band costs per bank row; band_s [S]
+// packed records (wide: [S] uint2, bank row and link, shift 0); rows
+// [n_rows] float4 band costs per bank row; band_s [S]
 // float4 per-state band costs or null; cross [n_cx] int2 (source, cost
 // bits), entry 0 the pair of every state without its own; word_starts
 // [R]; word_ends [L]; eps [R, eps_ld] (eps_ld = L, or 0 where each row is
@@ -589,21 +628,23 @@ extern "C" int viterbi_lex_smem_bytes(int lattice, int S, int n_eps, int L, int 
 // tau_scratch: [B, 2, S + 4] where the frontier / tau frontier is not in
 // shared memory (front / tau = 0).  trace: null, or [B, 6] int64 cycles per
 // phase of the frame steps (band, barrier, eps scan, warp reduction, apply,
-// barrier).
+// barrier).  rep: copies of each bank row in the row tables (8 or 1), or 0
+// for none (frontier and tables then in device memory).
 extern "C" int viterbi_lex_launch(
     int lattice, const float* nll, const float* init, const unsigned* rec, const void* rows,
     const void* band_s, const void* cross, const int* word_starts, const int* word_ends,
     const float* eps, const int* nf, float* scratch, int* tau_scratch, float* final_cost,
     int8_t* bp8, void* eps_u, int u_wide, int* eps_prev, float* ends_cost, int* ends_tau,
     long long* trace, int U, int T, int B, int S, int R, int L, int n_rows, int n_cx,
-    int shift, int eps_ld, int front, int tau, int tables,
+    int shift, int wide, int eps_ld, int front, int tau, int tables,
     int eps_smem, int gather, int rep, void* stream) {
   if (B <= 0 || T < 0 || S <= 0 || R <= 0 || L <= 0 || U <= 0 || n_rows <= 0 ||
-      n_rows > U || n_cx < 1 || shift < 1 || shift > 30 ||
+      n_rows > U || n_cx < 1 || (wide ? shift != 0 : (shift < 1 || shift > 30)) ||
       (eps_ld != 0 && eps_ld != L) ||
       (!front && scratch == nullptr) || (lattice && T <= 0) ||
       (lattice && !tau && tau_scratch == nullptr) || (band_s && tables) ||
-      (rep != 1 && rep != 8))
+      (rep != 0 && rep != 1 && rep != 8) ||
+      ((wide || rep == 0) && (front || tables)))
     return (int)cudaErrorInvalidValue;
   Params p{};
   p.nll = nll; p.init = init; p.rec = rec;
@@ -616,8 +657,10 @@ extern "C" int viterbi_lex_launch(
   p.ends_cost = ends_cost; p.ends_tau = ends_tau; p.trace = trace;
   p.U = U; p.T = T; p.B = B; p.S = S; p.R = R; p.L = L;
   p.n_rows = n_rows; p.n_cx = n_cx; p.shift = shift; p.gather = gather; p.eps_ld = eps_ld;
-  p.tau_smem = lattice ? tau : 0; p.eps_smem = eps_smem; p.rep_shift = rep == 8 ? 3 : 0;
+  p.tau_smem = lattice ? tau : 0; p.eps_smem = eps_smem; p.rep = rep;
+  p.rep_shift = rep == 8 ? 3 : 0;
   const cudaStream_t s = (cudaStream_t)stream;
   const int tab = band_s ? kTabGeneral : (tables ? kTabSmem : kTabL1);
-  return lattice ? launch_plan<true>(p, front, tab, s) : launch_plan<false>(p, front, tab, s);
+  return lattice ? launch_plan<true>(p, wide, front, tab, s)
+                 : launch_plan<false>(p, wide, front, tab, s);
 }

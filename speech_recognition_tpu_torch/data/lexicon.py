@@ -9,7 +9,10 @@ reference dictionary's shape: 6,250 random words of 3-10 symbols over
 31 units of 3 states, ~87k states.  ``flat_lm_lexicon`` is a flat
 vocabulary (every word one unit) with random bigram costs, so its
 re-entry block differs from cell to cell and it has as many roots as
-words.
+words.  ``large_bank_lexicon`` is a trie over a bank of 2,000 units
+(8,000 bank rows), past the bank the lexical-tree kernels hold in shared
+memory.  ``planted_emissions`` plants random words of a lexicon into
+unit-bank emissions, speech-like input for the trie decoders.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 __all__ = ["random_words", "unit_transitions", "bench_lexicon", "dict1_shaped_lexicon",
-           "flat_lm_lexicon"]
+           "flat_lm_lexicon", "large_bank_lexicon", "planted_emissions"]
 
 
 def random_words(rng: np.random.Generator, units: Sequence[str], n_words: int,
@@ -83,3 +86,42 @@ def flat_lm_lexicon(n_words: int = 100, n_states: int = 2, seed: int = 13):
                                start_cost=rng.uniform(0.1, 2.0, n_words),
                                end_cost=rng.uniform(0.1, 2.0, n_words))
     return words, trans, {w: i for i, w in enumerate(words)}, lm, rng
+
+
+def large_bank_lexicon(n_units: int = 2000, n_states: int = 4, n_prefixes: int = 8,
+                       seed: int = 17):
+    """``(words, unit_trans, unit_ids, rng)``: ``n_units`` units of
+    ``n_states`` states (8,000 bank rows by default) and one two-unit
+    word per unit, the unit after one of the first ``n_prefixes`` units,
+    so the trie has ``n_prefixes`` roots and ``n_units`` leaves."""
+    rng = np.random.default_rng(seed)
+    units = [chr(0x100 + i) for i in range(n_units)]
+    trans = unit_transitions(rng, n_units, n_states)
+    words = [units[i % n_prefixes] + units[i] for i in range(n_units)]
+    return words, trans, {u: i for i, u in enumerate(units)}, rng
+
+
+def planted_emissions(rng: np.random.Generator, words: Sequence[str], unit_ids: Dict[str, int],
+                      su: int, n_rows: int, b: int, t_len: int, dwell: int = 2):
+    """``(nll [n_rows, t_len, b] float32, n_frames [b] int32, word ids)``:
+    unit-bank emissions that plant random words of ``words`` one after
+    another in each stream (cost 0.05 on each of the ``su`` states of each
+    planted unit for ``dwell`` frames, 8.0 elsewhere, as the reference's
+    lattice tests plant them), each stream as long as its words."""
+    e = np.full((n_rows, t_len, b), 8.0, np.float32)
+    nf = np.zeros(b, np.int32)
+    seqs = []
+    for i in range(b):
+        rows, seq = [], []
+        while True:
+            w = int(rng.integers(len(words)))
+            r = [unit_ids[ch] * su + j for ch in words[w] for j in range(su)
+                 for _ in range(dwell)]
+            if len(rows) + len(r) > t_len:
+                break
+            rows += r
+            seq.append(w)
+        e[rows, np.arange(len(rows)), i] = 0.05
+        nf[i] = len(rows)
+        seqs.append(seq)
+    return e, nf, seqs

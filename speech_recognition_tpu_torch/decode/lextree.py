@@ -47,7 +47,8 @@ def _decode_lex_batch(bank: HMMBank, feats, n_frames, g: BandedGraph, topo: LexT
     final, bp8, _, eps_prev = viterbi_lex(nll, g, topo, n_frames)
     end_costs = final[:, g.end_states] + g.end_bonus[None, :]  # [B, L]
     best = torch.argmin(end_costs, dim=1)  # first minimum in leaf order
-    states, eps_flags = lex_backtrace_val(bp8, eps_prev, g, g.end_states[best], n_frames)
+    states, eps_flags = lex_backtrace_val(bp8, eps_prev, g, g.end_states[best], n_frames,
+                                          topo=topo)
     costs = end_costs.gather(1, best[:, None])[:, 0]
     return states, eps_flags, costs
 

@@ -41,7 +41,7 @@ from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import use_kernels
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
 __all__ = ["LexPack", "lex_pack", "LexTopo", "lex_topology", "LexPlan", "lex_plan",
-           "lex_smem_bytes", "viterbi_lex", "viterbi_lex_ref",
+           "lex_smem_bytes", "viterbi_lex", "viterbi_lex_ref", "lex_chains",
            "lex_backtrace_val", "lex_backtrace_val_ref"]
 
 
@@ -54,6 +54,9 @@ class LexPack(NamedTuple):
     default pair, which most states carry, in entry 0) or, with bit 31
     set, the state's leaf slot (a word end, whose cost the band phase
     writes into the frame's leaf-end row; its pair is the default).
+    Where the bank rows and the links do not fit 31 bits together, the
+    wide form keeps two words per state (``rec [S, 2]``: the bank row,
+    then the link with the leaf bit; ``shift`` 0).
     Where the band factorises over bank rows (``band[d, v] == rows[bank_state[v], d]``
     bit for bit, true of every trie ``build_lex_graph`` makes), ``rows``
     holds it and ``band_s`` is None; otherwise the kernel's general mode
@@ -61,7 +64,7 @@ class LexPack(NamedTuple):
     one value per row where every row is constant (a trie without an
     LM); the kernel still adds it to every leaf's cost."""
 
-    rec: np.ndarray  # [S] int32 (uint32 bits)
+    rec: np.ndarray  # [S] int32 (uint32 bits), or [S, 2] in the wide form
     rows: np.ndarray  # [n_rows, 4] f32: band costs per bank row (.w: emission slot)
     band_s: Optional[np.ndarray]  # [S, 4] f32 per-state band costs, or None
     cross: np.ndarray  # [n_cx, 2] int32: (source state, cost bits); entry 0 the default
@@ -77,6 +80,11 @@ class LexPack(NamedTuple):
     @property
     def factorised(self) -> bool:
         return self.band_s is None
+
+    @property
+    def wide(self) -> bool:
+        """Two words per state record (bank row, link)."""
+        return self.rec.ndim == 2
 
 
 _LEAF = 1 << 31
@@ -116,10 +124,10 @@ def lex_pack(g: BandedGraph) -> LexPack:
                             np.stack([src[idx], cost[idx].view(np.int32)], 1)]).astype(np.int32)
     shift = max(1, (n_rows - 1).bit_length())
     n_links = max(len(idx), len(ends))
-    if n_links >= 1 << (31 - shift):
-        raise ValueError(f"lexical-tree kernels: {n_rows} bank rows and {n_links} links do "
-                         "not fit a 32-bit state record")
-    rec = (bank | ((link & (_LEAF - 1)) << shift) | (link & _LEAF)).astype(np.uint32)
+    if n_links < 1 << (31 - shift):
+        rec = (bank | ((link & (_LEAF - 1)) << shift) | (link & _LEAF)).astype(np.uint32)
+    else:  # the wide form: the bank row, then the link with its leaf bit
+        rec, shift = np.stack([bank, link], 1).astype(np.uint32), 0
     return LexPack(rec=rec.view(np.int32), rows=rows, band_s=band_s, cross=cross, eps=eps,
                    init=np.ascontiguousarray(g.init_cost.cpu().numpy(), dtype=np.float32),
                    starts=g.word_starts.cpu().numpy().astype(np.int32),
@@ -198,8 +206,9 @@ class LexPlan(NamedTuple):
     and cross table, and ``eps`` the eps block, staged into shared
     memory, else read through L1; ``gather`` each root gathers the leaf
     ends itself (no leaf-end row); ``rep`` copies of each bank row in the
-    per-frame row tables (8: a quarter warp's loads never share a bank);
-    ``smem`` bytes of shared memory per CTA."""
+    per-frame row tables (8: a quarter warp's loads never share a bank;
+    0: no row tables, the band phase reads each state's band costs and
+    emission through L1); ``smem`` bytes of shared memory per CTA."""
 
     front: bool
     tau: bool
@@ -237,21 +246,25 @@ def lex_smem_bytes(lattice: bool, s: int, n_eps: int, l: int, n_rows: int, n_cx:
 def lex_plan(lattice: bool, topo: LexTopo, limit: int) -> LexPlan:
     """The plan for ``topo``'s graph: in order of preference the cost
     frontier, K6's tau frontier, the tables and the eps block in shared
-    memory (the general mode reads its tables through L1), then the
-    leaf-end row (where the pack allows it), then eight copies of each
-    bank row: the first combination that fits ``limit``.  Raises only
-    when even the two per-frame row tables do not fit (over ~7,000 bank
-    rows)."""
+    memory (the general mode and the wide records read their tables
+    through L1, and the wide records keep the frontier in device memory),
+    then the leaf-end row (where the pack allows it), then eight copies
+    of each bank row: the first combination that fits ``limit``.  Where
+    not even the two per-frame row tables fit (over ~7,000 bank rows),
+    the last tier keeps no row tables (``rep`` 0) and the frontier and
+    tables in device memory; it fits any graph."""
     p = topo.pack
-    for front, tau, tables, eps, gather, rep in itertools.product(
-            (True, False), (True, False) if lattice else (False,),
-            (True, False) if p.factorised else (False,), (True, False),
-            (True,) if p.gather else (False, True), (8, 1)):
-        smem = lex_smem_bytes(lattice, *topo.dims, front, tau, tables, eps, gather, rep)
-        if smem <= limit:
-            return LexPlan(front, tau, tables, eps, gather, rep, smem)
-    raise ValueError(f"lexical-tree kernels: {p.rows.shape[0]} bank rows take more than the "
-                     f"{limit} B of shared memory per CTA")
+    plans = [LexPlan(front, tau, tables, eps, gather, rep,
+                     lex_smem_bytes(lattice, *topo.dims, front, tau, tables, eps, gather, rep))
+             for rows in (True, False)  # row tables in shared memory, else none
+             for front, tau, tables, eps, gather, rep in itertools.product(
+                 (True, False) if rows and not p.wide else (False,),
+                 (True, False) if lattice else (False,),
+                 (True, False) if rows and p.factorised and not p.wide else (False,),
+                 (True, False), (True,) if p.gather else (False, True),
+                 (8, 1) if rows else (0,))]
+    # the last plan keeps everything in device memory: 0 bytes
+    return next((plan for plan in plans if plan.smem <= limit), plans[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +346,7 @@ def lex_forward(nll, g: BandedGraph, topo: LexTopo, n_frames, lattice: bool, wra
             int(lattice), *map(ptr, (nll, *(t[k] for k in _PACKED), nf, scratch, tau_scratch,
                                      final)),
             *map(ptr, planes), ptr(trace), u, t_len, b, s, r, l, pk.rows.shape[0],
-            pk.cross.shape[0], pk.shift,
+            pk.cross.shape[0], pk.shift, int(pk.wide),
             0 if pk.eps.ndim == 1 else l, int(plan.front), int(plan.tau), int(plan.tables),
             int(plan.eps), int(plan.gather), plan.rep, torch.cuda.current_stream(dev).cuda_stream)
     check(rc, what)
@@ -368,9 +381,10 @@ def viterbi_lex(nll, g: BandedGraph, topo: LexTopo, n_frames):
     """K4 for CUDA tensors (``csrc/viterbi_lex.cu``), the plain version
     for CPU tensors.  Arguments and results as ``viterbi_lex_ref``.
 
-    The kernel keeps each stream's frontier and the packed graph tables
-    in shared memory where ``lex_plan`` finds room, else in device
-    memory, so the graph's size is bounded only by device memory.  It
+    The kernel keeps each stream's frontier, the packed graph tables and
+    the per-frame bank row tables in shared memory where ``lex_plan``
+    finds room, else in device memory (or reads them through L1), so the
+    graph's size is bounded only by device memory.  It
     stops each stream at its own length, so its planes hold values only
     for frames ``t < n_frames`` (the plain version fills every frame)."""
     if not use_kernels(nll):
@@ -410,9 +424,52 @@ def lex_backtrace_val_ref(bp8, eps_prev, g: BandedGraph, end_state, n_frames):
     return states, flags
 
 
-def lex_backtrace_val(bp8, eps_prev, g: BandedGraph, end_state, n_frames):
+CHAIN = 32  # positions of a chain row (csrc/lex_backtrace.cu kChain)
+
+
+def lex_chains(g: BandedGraph):
+    """K5's chain table of a graph with cross edges: ``(chains [S, 32],
+    heads [S, 2])`` int32 numpy arrays.
+
+    The chain of state s is what the walk can reach backwards from s
+    without an eps step: the states of s's arc below it, then, through
+    the cross edge at the arc's start, the parent arc's end and its chain,
+    up to a root.  An arc starts at state 0, at a word start and at a
+    state whose cross edge (finite cost) comes from a lower state.
+    ``chains[s]`` holds the last 32 states of s's chain, first state
+    first, so ``s`` is at position ``P - 1`` (padded with 0);
+    ``heads[s]`` is ``(P, start_pos[chains[s, 0]])``."""
+    s_n = g.n_states
+    v = np.arange(s_n)
+    src = g.cross_src.cpu().numpy().astype(np.int64)
+    linked = (g.cross_cost.cpu().numpy() < POS_INF) & (src < v)
+    arc_start = linked | g.is_start.cpu().numpy().astype(bool)
+    arc_start[0] = True
+    prev = np.where(arc_start, np.where(linked, src, -1), v - 1)  # -1: the chain ends
+    anc = np.empty((CHAIN, s_n), np.int64)  # anc[k]: k steps back, -1 past the end
+    anc[0] = v
+    for k in range(1, CHAIN):
+        anc[k] = np.where(anc[k - 1] >= 0, prev[np.maximum(anc[k - 1], 0)], -1)
+    length = (anc >= 0).sum(0)
+    pos = np.arange(CHAIN)[None, :]
+    back = np.clip(length[:, None] - 1 - pos, 0, CHAIN - 1)  # position -> steps back
+    chains = np.where(pos < length[:, None], anc[back, v[:, None]], 0).astype(np.int32)
+    heads = np.stack([length, g.start_pos.cpu().numpy()[chains[:, 0]]], 1).astype(np.int32)
+    return chains, heads
+
+
+def lex_backtrace_val(bp8, eps_prev, g: BandedGraph, end_state, n_frames,
+                      topo: Optional[LexTopo] = None, trace=None):
     """K5 for CUDA tensors (``csrc/lex_backtrace.cu``), the plain version
-    for CPU tensors.  Arguments and results as ``lex_backtrace_val_ref``."""
+    for CPU tensors.  Arguments and results as ``lex_backtrace_val_ref``.
+
+    The kernel reads the graph's chain table (``lex_chains``) and its
+    cross sources and eps_prev slots as int32, cached on ``topo``
+    (``lex_topology(g)``) per device, else built for this call.
+    ``trace``: None or a ``[B, 9]`` int64 tensor that receives each
+    stream's cycles fetching new chains, waiting for windows, stashing,
+    issuing the next window, walking and writing out, the windows waited
+    for and loaded during the walk, and the frames."""
     if not use_kernels(bp8):
         return lex_backtrace_val_ref(bp8, eps_prev, g, end_state, n_frames)
     from speech_recognition_tpu_torch.utils.build import check, load_library
@@ -429,13 +486,23 @@ def lex_backtrace_val(bp8, eps_prev, g: BandedGraph, end_state, n_frames):
                          "end_state / n_frames")
     if g.cross_src is None:
         raise ValueError("not a lexical-tree graph: cross_src missing")
+    if topo is not None and topo.n_states != s:
+        raise ValueError(f"topology/graph mismatch: {topo.n_states} vs {s}")
     for name, x in (("eps_prev", eps_prev), ("end_state", end_state),
                     ("n_frames", n_frames), ("cross_src", g.cross_src),
                     ("start_pos", g.start_pos)):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, planes on {dev}")
-    i32 = [x.to(torch.int32).contiguous()
-           for x in (g.cross_src, g.start_pos, end_state, n_frames)]
+    key = ("chains", str(dev))
+    if topo is None or key not in topo.on_device:
+        tabs = (*(torch.from_numpy(x).to(dev) for x in lex_chains(g)),
+                *(x.to(torch.int32).contiguous() for x in (g.cross_src, g.start_pos)))
+        if topo is not None:
+            topo.on_device[key] = tabs
+    else:
+        tabs = topo.on_device[key]
+    chains, heads, cross_src, start_pos = tabs
+    end_state, n_frames = (x.to(torch.int32).contiguous() for x in (end_state, n_frames))
     states = torch.empty((t_len, b), dtype=torch.int32, device=dev)
     flags = torch.empty((t_len, b), dtype=torch.bool, device=dev)
     if b == 0 or t_len == 0:
@@ -443,8 +510,9 @@ def lex_backtrace_val(bp8, eps_prev, g: BandedGraph, end_state, n_frames):
     lib = load_library()
     with torch.cuda.device(dev):
         rc = lib.lex_backtrace_launch(
-            bp8.data_ptr(), eps_prev.data_ptr(), *[x.data_ptr() for x in i32],
-            states.data_ptr(), flags.data_ptr(), t_len, b, s, r,
+            *(x.data_ptr() for x in (bp8, eps_prev, cross_src, start_pos, chains, heads,
+                                     end_state, n_frames, states, flags)), t_len, b, s, r,
+            None if trace is None else trace.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "lexical-tree backtrace kernel")
     lex_backtrace_val.launches += 1

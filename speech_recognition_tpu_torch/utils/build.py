@@ -119,9 +119,9 @@ def load_library() -> ctypes.CDLL:
                                                     i, i, i, i, i, i, p, p]
     lib.viterbi_lex_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, p,
                                        p, p, i, p, p, p, p,
-                                       i, i, i, i, i, i, i, i, i,
+                                       i, i, i, i, i, i, i, i, i, i,
                                        i, i, i, i, i, i, i, p]
-    lib.lex_backtrace_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.lex_backtrace_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p, p]
     lib.lattice_rescore_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
                                            i, i, i, i, i, i, i, i, p, p, p]
     for fn in (lib.mfcc_tail_launch, lib.bank_emission_launch, lib.banded_forward_launch,

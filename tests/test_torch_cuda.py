@@ -894,13 +894,18 @@ def _lex_case(kind):
     ("dict1", "plan", False), ("dict1", "plan", True),
     ("1k_general", "plan", False), ("1k_general", "plan", True),
     ("dup_end", "plan", False), ("dup_end", "plan", True),
+    ("1k", "rows in device memory", False), ("1k", "rows in device memory", True),
+    ("1k_general", "rows in device memory", False),
+    ("1k_general", "rows in device memory", True),
 ])
 def test_k4_k6_plans_match_plain(dev, kind, variant, lattice):
     """K4 and K6 under every placement of their frontier, tables and eps
     block: the plans ``lex_plan`` picks for the 1k trie (on chip) and the
     dictionary-shaped trie (device scratch), each field moved off chip in
     turn, the leaf ends gathered per root, one copy of each bank row in
-    the row tables instead of eight, the general mode (per-state
+    the row tables instead of eight, no row tables (the bank rows and
+    emissions read through L1, the tier past ~7,000 bank rows), the
+    general mode (per-state
     band rows) and a repeated word end; integer (tie-forcing) or uniform
     emissions, lengths 0, 1 and T: every output bit-identical to the
     plain version (K4's planes on frames below nf), the plan's shared
@@ -920,7 +925,9 @@ def test_k4_k6_plans_match_plain(dev, kind, variant, lattice):
     plan = plan._replace(**{"plan": {}, "device frontier": dict(front=False),
                             "tables via L1": dict(tables=False), "eps via L1": dict(eps=False),
                             "gather": dict(gather=True), "rows once": dict(rep=1),
-                            "tau in scratch": dict(tau=False, eps=True)}[variant])
+                            "tau in scratch": dict(tau=False, eps=True),
+                            "rows in device memory": dict(front=False, tables=False, rep=0),
+                            }[variant])
     dims = topo.dims
     plan = plan._replace(smem=lk.lex_smem_bytes(lattice, *dims, plan.front, plan.tau,
                                                 plan.tables, plan.eps, plan.gather, plan.rep))
@@ -947,6 +954,164 @@ def test_k4_k6_plans_match_plain(dev, kind, variant, lattice):
                     else torch.equal(got[k], want[k])), k
     ran = (nf > 0) | lattice
     assert bool((trace[ran].sum(1) > 0).all())
+
+
+@pytest.mark.parametrize("kind,b", [("1k", 1), ("1k", 7), ("1k", 128), ("1k_planted", 7),
+                                    ("dict1", 1), ("dict1", 7), ("dict1", 128),
+                                    ("deep", 9), ("flat_lm_100", 7)])
+def test_k5_windows_match_plain(dev, kind, b):
+    """K5's window walk against its plain version on K4's planes: the 1k
+    trie and the dictionary-shaped trie at B = 1, 7 and 128 (lengths 0, 1,
+    T and between), planted words, a trie whose words pass a chain row
+    (32 states) and the flat bigram vocabulary; states and flags
+    bit-identical, the chain table cached on the topology, and the trace
+    counting one waited window at least per stream that runs."""
+    from speech_recognition_tpu_torch.data.lexicon import (
+        bench_lexicon,
+        dict1_shaped_lexicon,
+        planted_emissions,
+        random_words,
+        unit_transitions,
+    )
+    from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+    from speech_recognition_tpu_torch.ops import viterbi_lex_kernels as lk
+
+    rng = np.random.default_rng(b + len(kind))
+    t = 200
+    if kind == "deep":
+        units = list("abcde")
+        words = random_words(rng, units, 30, 12, 16)
+        ids = {c: i for i, c in enumerate(units)}
+        lexg = build_lex_graph(words, unit_transitions(rng, 5), ids, word_insertion_cost=0.5)
+        e, nf, _ = planted_emissions(rng, words, ids, 3, 15, b, t)
+    elif kind == "flat_lm_100":
+        lexg, n_bank = _lex_graph(kind)
+        e = rng.uniform(0, 5, (n_bank, t, b))
+        nf = np.r_[t, 0, 1, rng.integers(2, t + 1, b)][:b]
+    else:
+        words, trans, ids, _ = dict1_shaped_lexicon() if kind == "dict1" else bench_lexicon()
+        lexg = build_lex_graph(words, trans, ids, word_insertion_cost=0.5)
+        n_bank = int(lexg.banded.bank_state.max()) + 1
+        if kind == "1k_planted":
+            e, nf, _ = planted_emissions(rng, words, ids, 3, n_bank, b, t)
+        else:
+            e = rng.uniform(0, 5, (n_bank, t, b))
+            nf = np.r_[t, 0, 1, rng.integers(2, t + 1, b)][:b]
+    g = lexg.banded.to(dev)
+    topo = lk.lex_topology(lexg.banded)
+    nll = torch.from_numpy(e.astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.asarray(nf, np.int32)).to(dev)
+    final, bp8, _, eps_prev = lk.viterbi_lex(nll, g, topo, nf)
+    ends = g.end_states[torch.argmin(final[:, g.end_states] + g.end_bonus, 1)]
+    trace = torch.zeros((b, 9), dtype=torch.int64, device=dev)
+    before = lk.lex_backtrace_val.launches
+    sk, fk = lk.lex_backtrace_val(bp8, eps_prev, g, ends, nf, topo=topo, trace=trace)
+    sp, fp = lk.lex_backtrace_val_ref(bp8, eps_prev, g, ends, nf)
+    torch.cuda.synchronize()
+    assert lk.lex_backtrace_val.launches == before + 1
+    assert ("chains", str(dev)) in topo.on_device
+    assert torch.equal(sk, sp) and torch.equal(fk, fp)
+    ran = nf > 0
+    assert bool((trace[ran, 6] >= 1).all()) and torch.equal(trace[:, 8], nf.long())
+    if kind in ("1k", "1k_planted") and b > 1:
+        assert bool(fp.any())  # eps re-entries on the paths
+
+
+def _large_bank_case(dev, b, t):
+    """The 8,000-bank-row trie (``large_bank_lexicon``), its topology and
+    uniform(0, 5) emissions with lengths T, 1 and between."""
+    from speech_recognition_tpu_torch.data.lexicon import large_bank_lexicon
+    from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+    from speech_recognition_tpu_torch.ops import viterbi_lex_kernels as lk
+
+    words, trans, ids, rng = large_bank_lexicon()
+    lexg = build_lex_graph(words, trans, ids, word_insertion_cost=0.5)
+    topo = lk.lex_topology(lexg.banded)
+    nll = torch.from_numpy(rng.uniform(0, 5, (8000, t, b)).astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[t, 1, rng.integers(2, t + 1, b)][:b].astype(np.int32)).to(dev)
+    return lexg, topo, nll, nf
+
+
+def test_k4_k5_k6_on_a_bank_past_the_row_tables(dev):
+    """8,000 bank rows (the two row tables alone pass 227 KB): the plan
+    keeps none, and K4's planes, K5's walk and K6's lattice planes equal
+    their plain versions bit for bit."""
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lt
+    from speech_recognition_tpu_torch.ops import viterbi_lex_kernels as lk
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    lexg, topo, nll, nf = _large_bank_case(dev, 6, 40)
+    for lattice in (False, True):
+        plan = lk.lex_plan(lattice, topo, load_library().srt_smem_limit())
+        assert plan.rep == 0 and not plan.front
+    g = lexg.banded.to(dev)
+    got = lk.viterbi_lex(nll, g, topo, nf)
+    want = lk.viterbi_lex_ref(nll, g, topo, nf)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    valid = torch.arange(nll.shape[1], device=dev)[:, None] < nf[None, :]
+    for k in (1, 2, 3):
+        assert bool(((got[k] == want[k]) | ~valid[:, :, None]).all()), k
+    ends = g.end_states[torch.argmin(want[0][:, g.end_states] + g.end_bonus, 1)]
+    sk, fk = lk.lex_backtrace_val(got[1], got[3], g, ends, nf, topo=topo)
+    sp, fp = lk.lex_backtrace_val_ref(want[1], want[3], g, ends, nf)
+    torch.cuda.synchronize()
+    assert bool(((sk == sp) & (fk == fp) | ~valid).all())
+    got = lt.viterbi_lattice(nll, g, topo, nf)
+    want = lt.viterbi_lattice_ref(nll, g, topo, nf)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+def test_k4_k6_with_wide_records(dev):
+    """~1M bank rows and ~3,200 cross links: the wide records (two words
+    per state) through K4 and K6, bit-identical to the plain versions."""
+    from speech_recognition_tpu_torch.data.lexicon import bench_lexicon
+    from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lt
+    from speech_recognition_tpu_torch.ops import viterbi_lex_kernels as lk
+
+    words, trans, ids, rng = bench_lexicon()
+    g = build_lex_graph(words, trans, ids, unigram_cost=rng.uniform(0.1, 2.0, len(words)),
+                        word_insertion_cost=0.5).banded
+    g = g._replace(bank_state=g.bank_state * 45000)
+    topo = lk.lex_topology(g)
+    assert topo.pack.wide
+    b, t = 3, 12
+    gen = torch.Generator(device=dev).manual_seed(5)
+    nll = torch.rand((topo.max_bank_state + 1, t, b), generator=gen, device=dev) * 5
+    nf = torch.tensor([t, 1, 7], dtype=torch.int32, device=dev)
+    g = g.to(dev)
+    got = lk.viterbi_lex(nll, g, topo, nf)
+    want = lk.viterbi_lex_ref(nll, g, topo, nf)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    valid = torch.arange(t, device=dev)[:, None] < nf[None, :]
+    for k in (1, 2, 3):
+        assert bool(((got[k] == want[k]) | ~valid[:, :, None]).all()), k
+    got = lt.viterbi_lattice(nll, g, topo, nf)
+    want = lt.viterbi_lattice_ref(nll, g, topo, nf)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+def test_decode_lextree_on_a_large_bank_cuda_matches_cpu(dev):
+    """``decode_lextree`` over a 2,000-unit bank (8,000 bank rows, the
+    device-row plan) prints the same words on the card as on the CPU."""
+    from speech_recognition_tpu_torch.data.lexicon import large_bank_lexicon
+    from speech_recognition_tpu_torch.decode.lextree import decode_lextree
+    from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+
+    bank = _bank(2000, 4, 2, 6, seed=9)
+    words, _, ids, rng = large_bank_lexicon()
+    lexg = build_lex_graph(words, [bank.trans_cost[i].numpy() for i in range(2000)], ids,
+                           word_insertion_cost=1.0)
+    feats = torch.from_numpy(rng.standard_normal((5, 40, 6)).astype(np.float32))
+    nf = torch.from_numpy(np.r_[40, 1, rng.integers(12, 41, 3)].astype(np.int32))
+    w_c, c_c = decode_lextree(bank, lexg, feats, nf)
+    w_g, c_g = decode_lextree(bank.to(dev), lexg, feats.to(dev), nf.to(dev))
+    assert w_g == w_c
+    np.testing.assert_allclose(c_g, c_c, rtol=1e-5)
 
 
 def _general_graph(kind):

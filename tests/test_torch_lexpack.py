@@ -8,7 +8,10 @@ CPU, they must give back ``band``, ``bank_state``, ``cross_src`` and
 ``cross_cost`` bit for bit on the 1,000-word benchmark trie, the
 dictionary-shaped trie and the flat bigram vocabulary, and each leaf
 slot its word end; a perturbed band must be flagged as not factorising
-and a repeated word end must select the gather mode.
+and a repeated word end must select the gather mode.  A graph whose bank
+rows and links overflow 31 bits packs in the wide form (two words per
+state) and unpacks as exactly, and the plan takes any bank: past the room
+of the per-frame row tables it keeps none.
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ from speech_recognition_tpu_torch.data.lexicon import (
     bench_lexicon,
     dict1_shaped_lexicon,
     flat_lm_lexicon,
+    large_bank_lexicon,
 )
 from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
 from speech_recognition_tpu_torch.ops import viterbi_lex_kernels as lk
@@ -30,7 +34,16 @@ def _graph(kind):
     if kind == "flat_lm_100":
         words, trans, ids, lm, _ = flat_lm_lexicon(100)
         return build_lex_graph(words, trans, ids, lm=lm, word_insertion_cost=0.3).banded
-    words, trans, ids, _ = dict1_shaped_lexicon() if kind == "dict1" else bench_lexicon()
+    if kind == "large_bank":
+        words, trans, ids, _ = large_bank_lexicon()
+        return build_lex_graph(words, trans, ids, word_insertion_cost=0.5).banded
+    words, trans, ids, rng = dict1_shaped_lexicon() if kind == "dict1" else bench_lexicon()
+    if kind == "1k_wide":
+        # a unigram gives ~3,200 arcs their own cross pair, and bank rows
+        # spread to ~2^20 leave 11 bits for them: the wide form
+        g = build_lex_graph(words, trans, ids, unigram_cost=rng.uniform(0.1, 2.0, len(words)),
+                            word_insertion_cost=0.5).banded
+        return g._replace(bank_state=g.bank_state * 45000)
     return build_lex_graph(words, trans, ids, word_insertion_cost=0.5).banded
 
 
@@ -39,7 +52,10 @@ def _unpack(p: lk.LexPack, n_leaves: int):
     as the kernel reads them from the packed tables (-1: a leaf slot no
     record names)."""
     rec = p.rec.view(np.uint32).astype(np.int64)
-    bank = rec & ((1 << p.shift) - 1)
+    if p.wide:
+        bank, rec = rec[:, 0], rec[:, 1]
+    else:
+        bank = rec & ((1 << p.shift) - 1)
     leaf = (rec >> 31).astype(bool)
     link = (rec & 0x7FFFFFFF) >> p.shift
     band = (p.rows[bank, :3] if p.factorised else p.band_s[:, :3]).T
@@ -66,7 +82,7 @@ def _assert_unpacks(g, p):
 def test_packed_tables_unpack_exactly(kind):
     g = _graph(kind)
     p = lk.lex_topology(g).pack
-    assert p.factorised and not p.gather
+    assert p.factorised and not p.gather and not p.wide
     _assert_unpacks(g, p)
     # the cross table holds the default pair, then only the states whose
     # pair differs from it
@@ -123,7 +139,9 @@ def test_lex_plan_places_the_main_path_graphs(kind, lattice, want):
 
 def test_lex_plan_falls_back_to_gathered_leaf_ends():
     """With only the two per-frame row tables' room, the plan keeps
-    everything in device memory and gathers the leaf ends per root."""
+    everything in device memory and gathers the leaf ends per root; with
+    less, it keeps no row tables either (the band phase reads the bank
+    rows and emissions through L1), down to no shared memory at all."""
     topo = lk.lex_topology(_graph("1k"))
     p = topo.pack
     least = lk.lex_smem_bytes(False, *topo.dims, False, False, False, False, True, 1)
@@ -131,5 +149,42 @@ def test_lex_plan_falls_back_to_gathered_leaf_ends():
     plan = lk.lex_plan(False, topo, least)
     assert (plan.front, plan.tables, plan.eps, plan.gather, plan.rep, plan.smem) == (
         False, False, False, True, 1, least)
-    with pytest.raises(ValueError, match="bank rows"):
-        lk.lex_plan(False, topo, least - 16)
+    plan = lk.lex_plan(False, topo, least - 16)
+    assert (plan.front, plan.tables, plan.rep) == (False, False, 0)
+    assert plan.smem == lk.lex_smem_bytes(False, *topo.dims, False, False, False, plan.eps,
+                                          plan.gather, 0) <= least - 16
+    for lattice in (False, True):
+        plan = lk.lex_plan(lattice, topo, 0)
+        assert (plan.front, plan.tau, plan.tables, plan.eps, plan.gather, plan.rep,
+                plan.smem) == (False, False, False, False, True, 0, 0)
+
+
+@pytest.mark.parametrize("lattice", [False, True])
+def test_lex_plan_keeps_large_banks_rows_in_device_memory(lattice):
+    """8,000 bank rows: the two row tables alone pass a CTA's shared
+    memory, so the plan keeps no row tables (the tier past ~7,000 rows)
+    and the frontier and tables in device memory."""
+    topo = lk.lex_topology(_graph("large_bank"))
+    assert topo.pack.rows.shape[0] == 8000 and not topo.pack.wide
+    assert lk.lex_smem_bytes(lattice, *topo.dims, False, False, False, False, True, 1) > LIMIT
+    plan = lk.lex_plan(lattice, topo, LIMIT)
+    assert (plan.front, plan.tables, plan.eps, plan.gather, plan.rep) == (
+        False, False, True, False, 0)
+    assert plan.tau == lattice
+    assert plan.smem == lk.lex_smem_bytes(lattice, *topo.dims, False, plan.tau, False, True,
+                                          False, 0) <= LIMIT
+
+
+def test_wide_records_unpack_exactly():
+    """~1M bank rows (20 bits) and ~3,200 cross links overflow a 32-bit
+    record: the pack takes two words per state and unpacks bit-exactly;
+    the plan reads them through L1 with the frontier in device memory."""
+    g = _graph("1k_wide")
+    topo = lk.lex_topology(g)
+    p = topo.pack
+    assert p.wide and p.shift == 0 and p.rec.shape == (g.n_states, 2)
+    assert p.cross.shape[0] - 1 >= 1 << (31 - (p.rows.shape[0] - 1).bit_length())
+    _assert_unpacks(g, p)
+    for lattice in (False, True):
+        plan = lk.lex_plan(lattice, topo, LIMIT)
+        assert not plan.front and not plan.tables and plan.rep == 0
