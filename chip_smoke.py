@@ -41,10 +41,29 @@ through the CLI with the launch counters reset just before each:
 * the dense decoder, ``decode_connected(backend="dense")`` on the CLI
   corpus's features (K3 + K11), words equal to the banded path's;
 * ``ops.frontend.mfcc`` on CUDA tensors (K12, whose kernel is K3's
-  first launch).
+  first launch);
+* training, through the CLI at full width: ``synth`` (20 training and 5
+  test utterances a digit, 200 training strings), ``isolated_train
+  --silence`` (11 digits + silence, 5 states x 4 mixtures x 39 dims:
+  MFCC-39 by K3 -> segmental K-means, every template of a word aligned by
+  one K11 launch an iteration -> mixture splitting with k-means and EM),
+  ``isolated_test``, ``continuous_train --algo hard --iterations 3``
+  (embedded Viterbi-EM: K11 with per-utterance transcript graphs) and
+  ``connected_test`` on the result, once with ``--device cuda`` and once
+  with ``--device cpu``.
 
 Each CLI output is checked against the same command on the CPU (plain
-versions).  K14 (the MFCC-39 tail) is held to its plain version on
+versions); the training path's, which sum GEMMs in other orders on the
+two devices, by accuracy: ``isolated_test`` within one file, and
+``connected_test`` within one wav decoded right.  K11 is held
+bit-identical to its plain version at the two training shapes the cuda
+run gave it (a word's segmental K-means batch, the embedded step's
+transcript graphs), and ``isolated_train`` is timed per digit (with its
+k-means and EM calls, and segmental K-means' K11 and backtrace) and one
+``continuous_train`` iteration by stage (graph composition, then inside
+``embedded_step``: ``bank_nll``, K11, ``viterbi_backtrace``, the
+statistics GEMMs, the M-step), with CUDA events around the calls the
+training code makes.  K14 (the MFCC-39 tail) is held to its plain version on
 K12's cepstra (deltas bit-identical, standardized features at rtol 1e-4
 / atol 1e-4: the mean and variance summed in another order).  K13 (the
 emission kernel) is held to its plain version at rtol 1e-5 / atol 1e-4,
@@ -278,6 +297,24 @@ def device_ms(fn, reps: int = 5, what: str = "a timed call") -> float:
         if total > 0:
             return total / reps / 1e3
     fail(f"torch.profiler recorded no device time in three runs of {what}")
+
+
+
+@contextlib.contextmanager
+def recording(module, name: str, calls: list):
+    """Record the arguments of every call of ``module.name`` (a kernel
+    wrapper as a training module calls it) while the block runs."""
+    orig = getattr(module, name)
+
+    def rec(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
 
 
 def random_bank(n_states: int, seed: int = 0, dup: int = 0, n_models: int = 11):
@@ -1430,6 +1467,257 @@ def main() -> int:
             fail("ops.frontend.mfcc on CUDA (K12) differs from the CPU pipeline")
     phase("main path", f"ops.frontend.mfcc on {len(wav_sig)} CLI wavs on CUDA (K12) == the "
                        f"CPU pipeline (rtol 2e-3, atol 5e-4)")
+
+    # ---- 6b. the training path, through the CLI, on the card and on the CPU --
+    # synth -> isolated_train --silence (11 digits + silence, 5 states x 4
+    # mixtures x 39 dims) -> isolated_test -> continuous_train --algo hard
+    # (3 iterations) -> connected_test, once with --device cuda (counters
+    # reset just before) and once with --device cpu
+    import importlib
+
+    from speech_recognition_tpu_torch.data.aurora import (
+        labels_from_transcript,
+        transcript_from_filename,
+    )
+    from speech_recognition_tpu_torch.utils.checkpoint import load_bank
+
+    skm = importlib.import_module("speech_recognition_tpu_torch.train.skmeans")
+    cont = importlib.import_module("speech_recognition_tpu_torch.train.continuous")
+    est = importlib.import_module("speech_recognition_tpu_torch.train.embedded_step")
+    iso = importlib.import_module("speech_recognition_tpu_torch.train.isolated")
+    corpus = os.path.join(tmp, "train_corpus")
+    run_action(["synth", "-o", corpus, "--n-train", "20", "--n-test", "5",
+                "--n-continuous", "200"])
+    tr_dir, te_dir = os.path.join(corpus, "train"), os.path.join(corpus, "test")
+    n_tr, n_te = len(os.listdir(tr_dir)), len(os.listdir(te_dir))
+    train_out, train_wall = {}, {}
+    k11_train_calls = {"skmeans": [], "embedded": []}
+    for d in ("cuda", "cpu"):
+        bank_d, cont_d = os.path.join(tmp, f"trained_{d}.npz"), os.path.join(tmp, f"cont_{d}")
+
+        def train_run(d=d, bank_d=bank_d, cont_d=cont_d):
+            out, wall = {}, {}
+            for name, argv in (
+                    ("isolated_train", ["isolated_train", "-i", tr_dir, "-o", bank_d,
+                                        "--silence"]),
+                    ("isolated_test", ["isolated_test", "-i", bank_d, "-d", te_dir]),
+                    ("continuous_train", ["continuous_train", "-i", bank_d, "-d", tr_dir,
+                                          "-o", cont_d, "--algo", "hard", "--iterations",
+                                          "3"]),
+                    ("connected_test", ["connected_test", "-i",
+                                        os.path.join(cont_d, "bank_00002.npz"), "-d",
+                                        te_dir])):
+                t0 = time.perf_counter()
+                out[name] = run_action(argv + ["--device", d])
+                wall[name] = time.perf_counter() - t0
+            return out, wall
+
+        if d == "cuda":
+            with recording(skm, "viterbi_dense", k11_train_calls["skmeans"]), \
+                    recording(cont, "viterbi_dense", k11_train_calls["embedded"]):
+                train_out[d], train_wall[d] = counted("training", train_run,
+                                                      (*k3, viterbi_dense))
+        else:
+            train_out[d], train_wall[d] = train_run()
+    acc = {d: float(o["isolated_test"].splitlines()[-1]) for d, o in train_out.items()}
+    n_iso_te = sum(1 for f in os.listdir(te_dir) if len(f.split("_")[1]) == 6)
+    if abs(acc["cuda"] - acc["cpu"]) > 1.0 / n_iso_te + 1e-9:
+        fail(f"isolated_test accuracy of the cuda-trained bank {acc['cuda']} is more than "
+             f"one file from the cpu-trained bank's {acc['cpu']}")
+    n_ok = {d: sum(l.startswith("Correct:") for l in o["connected_test"].splitlines())
+            for d, o in train_out.items()}
+    wers = {d: [l for l in o["connected_test"].splitlines() if l.startswith("WER:")][0]
+            for d, o in train_out.items()}
+    if abs(n_ok["cuda"] - n_ok["cpu"]) > 1 or len(word_lines(train_out["cuda"][
+            "connected_test"])) != n_te:
+        fail(f"connected_test after continuous_train: cuda decodes {n_ok['cuda']} of "
+             f"{n_te} wavs right, cpu {n_ok['cpu']}")
+    costs = {d: [float(l.split()[-1]) for l in o["continuous_train"].splitlines()
+                 if l.startswith("iteration")] for d, o in train_out.items()}
+    banks_tr = {d: load_bank(os.path.join(tmp, f"trained_{d}.npz"))[0] for d in train_out}
+    if banks_tr["cuda"].means.shape != (12, 5, 4, 39) or len(costs["cuda"]) != 3 or \
+            not all(np.isfinite(getattr(b_, f).numpy()).all() for b_ in banks_tr.values()
+                    for f in ("means", "log_vars", "log_weights")):
+        fail("the trained banks are not 12 finite models of 5 x 4 x 39, or continuous_train "
+             "ran other than 3 iterations")
+    if not (costs["cuda"][0] > costs["cuda"][-1] and acc["cuda"] >= 0.9):
+        fail(f"training did not learn: isolated accuracy {acc['cuda']}, alignment costs "
+             f"{costs['cuda']}")
+    d_means = float((banks_tr["cuda"].means - banks_tr["cpu"].means).abs().max())
+    phase("main path", f"training path (synth: {n_tr} training wavs, {n_te} test wavs) "
+                       f"--device cuda vs cpu: isolated_test accuracy {acc['cuda']} / "
+                       f"{acc['cpu']} ({n_iso_te} digit files); continuous_train costs "
+                       f"{costs['cuda']} / {costs['cpu']}; connected_test {n_ok['cuda']} / "
+                       f"{n_ok['cpu']} of {n_te} wavs right, {wers['cuda']} / {wers['cpu']}; "
+                       f"isolated banks' largest mean difference {d_means:.3g}")
+    phase("main path", "training path wall s (cuda / cpu): " + ", ".join(
+        f"{k} {train_wall['cuda'][k]:.2f} / {train_wall['cpu'][k]:.2f}"
+        for k in train_wall["cuda"]))
+    # K11 at the two training shapes the cuda run gave it: the segmental
+    # K-means batch of the first digit (its first call) and the embedded
+    # step's per-utterance graphs (the first iteration's call)
+    k11_train = {}
+    for name, calls in k11_train_calls.items():
+        if not calls:
+            fail(f"the training path made no K11 call in {name}")
+        args_, kw_ = calls[0]
+        kw_ = {"eps_trans": None, "eps_depth": 1,
+               **dict(zip(("nll", "trans", "init_cost", "n_frames"), args_)), **kw_}
+        got, want = viterbi_dense(**kw_), viterbi_dense_ref(**kw_)
+        torch.cuda.synchronize()
+        for k, plane in enumerate(("final", "bp", "eps_bp")):
+            if not torch.equal(got[k], want[k]):
+                fail(f"K11 {plane} differs from the plain version at the {name} training "
+                     f"shape")
+        k11_train[name] = kw_
+        phase("K11", f"training shape {name} {tuple(kw_['nll'].shape)} "
+                     f"({dense_form(kw_)}), {len(calls)} calls on the path: final, bp, "
+                     f"eps_bp == plain (bit-identical, every frame)")
+
+    # ---- 6c. training timings: isolated_train per digit, one
+    # continuous_train iteration by stage (CUDA events) ----------------------
+    tcfg = FrontendConfig()
+    by_digit = cli._digit_files(tr_dir)
+    files_d = [f for fs in by_digit.values() for f in fs]
+    f_tr, n_trf = cli._featurize_files(files_d, tcfg, 64000, dev)
+    nf_np = n_trf.cpu().numpy()
+    temps, i0 = {}, 0
+    for dgt, fs in by_digit.items():
+        temps[dgt] = [f_tr[j, : nf_np[j]] for j in range(i0, i0 + len(fs))]
+        i0 += len(fs)
+    from speech_recognition_tpu_torch.config import TrainConfig
+    from speech_recognition_tpu_torch.train.kmeans import random_assign
+
+    # stages split inside the port's own calls: CUDA events around the
+    # calls a training function makes (no synchronization between them), so
+    # the stages partition the call's time
+    stage_ev = []
+
+    @contextlib.contextmanager
+    def evented(stages):
+        """Record CUDA events around every call of ``module.name`` for each
+        ``stage: (module, name)`` into ``stage_ev`` while the block runs."""
+        origs = {k: getattr(m, n) for k, (m, n) in stages.items()}
+
+        def wrap(stage, fn):
+            def run(*a, **k):
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                stage_ev.append((stage, e0, e1, out))
+                return out
+            return run
+
+        for k, (m, n) in stages.items():
+            setattr(m, n, wrap(k, origs[k]))
+        try:
+            yield
+        finally:
+            for k, (m, n) in stages.items():
+                setattr(m, n, origs[k])
+
+    def stage_sums():
+        """``({stage: ms}, {stage: calls})`` of ``stage_ev`` (its events
+        done), which it empties."""
+        ms, n = {}, {}
+        for stage, a, b, _ in stage_ev:
+            ms[stage] = ms.get(stage, 0.0) + a.elapsed_time(b)
+            n[stage] = n.get(stage, 0) + 1
+        stage_ev.clear()
+        return ms, n
+
+    sk_stages = {"K11": (skm, "viterbi_dense"), "viterbi_backtrace": (skm, "viterbi_backtrace")}
+    fit_stages = {"k-means": (iso, "kmeans"), "EM": (iso, "em_fit")}
+    digit_ms, em_iters = {}, []
+    for dgt in temps:
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        with evented(sk_stages):
+            skm.skmeans(temps[dgt], 5, pad_to=int(nf_np.max()))
+        e1.record()
+        with evented(fit_stages):
+            iso.fit_hmm(temps[dgt], pad_to=int(nf_np.max()), draw_assign=random_assign(
+                torch.Generator().manual_seed(TrainConfig().seed + dgt)))
+        e2.record()
+        e2.synchronize()
+        em_iters += [out[3] for stage, _, _, out in stage_ev if stage == "EM"]
+        digit_ms[dgt] = (e1.elapsed_time(e2), e0.elapsed_time(e1), *stage_sums())
+    sk_kw = k11_train["skmeans"]
+    sk_iters = sum(v[3]["K11"] for v in digit_ms.values())
+    sk_stage = {k: sum(v[2][k] for v in digit_ms.values()) for k in sk_stages}
+    # one embedded-training iteration on the cuda-trained bank, split by
+    # stage inside each embedded_step call; "rest" is what lies between the
+    # stages
+    bank_c = banks_tr["cuda"].to(dev)
+    cfiles = [f for f in sorted(glob.glob(os.path.join(tr_dir, "*.wav")))
+              if transcript_from_filename(os.path.basename(f))]
+    clabels = [labels_from_transcript(transcript_from_filename(os.path.basename(f)))
+               for f in cfiles]
+    f_c, n_c = cli._featurize_files(cfiles, tcfg, 120000, dev)
+    f_c = f_c[:, : int(n_c.max())].contiguous()
+    bc, tc_, _ = f_c.shape
+    emb_stages = {"bank_nll": (cont, "bank_nll"), "K11": (cont, "viterbi_dense"),
+                  "viterbi_backtrace": (cont, "viterbi_backtrace"),
+                  "statistics GEMMs": (est, "embedded_stats"),
+                  "M-step": (est, "embedded_update")}
+
+    def embedded_iteration():
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        g_, depth_ = est.compose_graphs(bank_c, clabels, 11)
+        e1.record()
+        est.embedded_step(bank_c, f_c, n_c, g_, eps_depth=depth_)
+        e2.record()
+        e2.synchronize()
+        split = {"graph composition (host)": e0.elapsed_time(e1), **stage_sums()[0]}
+        split["rest"] = e1.elapsed_time(e2) - sum(split[k] for k in emb_stages)
+        split["whole embedded_step"] = e1.elapsed_time(e2)
+        return split
+
+    with evented(emb_stages):
+        embedded_iteration()
+        splits = [embedded_iteration() for _ in range(5)]
+    emb_ms = {k: statistics.median(sp[k] for sp in splits) for k in splits[0]}
+    # the device's busy time in the same calls (torch.profiler), against
+    # their event times: the rest is the device idle behind the host
+    whole = "whole embedded_step"
+    g_c, depth_c = est.compose_graphs(bank_c, clabels, 11)
+    emb_dev = device_ms(lambda: est.embedded_step(bank_c, f_c, n_c, g_c, eps_depth=depth_c),
+                        reps=3, what="one embedded step")
+
+    def fit0():
+        return iso.fit_hmm(temps[0], pad_to=int(nf_np.max()), draw_assign=random_assign(
+            torch.Generator().manual_seed(TrainConfig().seed)))
+
+    fit0_ms = cuda_ms(fit0, reps=1)
+    fit0_dev = device_ms(fit0, reps=1, what="fit_hmm of digit 0")
+    for dgt, (ms, sk_ms, sk_split, sk_n) in digit_ms.items():
+        phase("timing", f"isolated_train digit {dgt} ({len(temps[dgt])} templates): fit_hmm "
+                        f"{ms:.1f} ms; segmental K-means {sk_ms:.1f} ms in {sk_n['K11']} "
+                        f"iterations, of which K11 {sk_split['K11']:.1f} ms, viterbi_backtrace "
+                        f"{sk_split['viterbi_backtrace']:.1f} ms (CUDA events; {card})")
+    tot = sum(v[0] for v in digit_ms.values())
+    sk_tot = sum(v[1] for v in digit_ms.values())
+    phase("timing", f"isolated_train, 11 digits: fit_hmm {tot:.1f} ms in all; segmental "
+                    f"K-means {sk_tot:.1f} ms in {sk_iters} iterations (digit 0's batch "
+                    f"{tuple(sk_kw['nll'].shape)}), per iteration {sk_tot / sk_iters:.3f} ms, "
+                    f"of which K11 {sk_stage['K11'] / sk_iters:.3f} ms, viterbi_backtrace "
+                    f"{sk_stage['viterbi_backtrace'] / sk_iters:.3f} ms (CUDA events inside "
+                    f"the calls; {card})")
+    phase("timing", "isolated_train, 11 digits, inside fit_hmm: " + ", ".join(
+        f"{k} {sum(v[2][k] for v in digit_ms.values()):.1f} ms in "
+        f"{sum(v[3][k] for v in digit_ms.values())} calls" for k in fit_stages)
+        + f"; EM iterations a call: mean {np.mean(em_iters):.1f}, at the cap of 100: "
+          f"{sum(n == 100 for n in em_iters)} (CUDA events inside the calls; {card})")
+    phase("timing", f"one continuous_train iteration, {bc} utterances x {tc_} frames, "
+                    f"{g_c['bank_state'].shape[1]} graph states, by stage inside each call: "
+                    + ", ".join(f"{k} {v:.3f} ms" for k, v in emb_ms.items())
+                    + f" (CUDA-event medians of 5 calls; {card})")
+    phase("timing", f"device busy (torch.profiler) against event time: embedded_step "
+                    f"{emb_dev:.3f} of {emb_ms[whole]:.3f} ms (idle share "
+                    f"{1 - emb_dev / emb_ms[whole]:.3f}); fit_hmm of digit 0 {fit0_dev:.3f} of "
+                    f"{fit0_ms:.3f} ms (idle share {1 - fit0_dev / fit0_ms:.3f}) ({card})")
 
     # ---- 7. timings ---------------------------------------------------------
     t = {}

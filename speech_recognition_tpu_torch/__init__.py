@@ -5,7 +5,7 @@ its module paths and function names so each counterpart is found at
 once.  The slices ported so far are the connected-digit main path (every
 banded word graph, and the word-trace backend), the large-vocabulary
 lexical-tree decode, the bigram LM over word lattices, isolated-word
-recognition, the dense decoder and forced alignment:
+recognition, the dense decoder, forced alignment and hard-EM training:
 
   ops.frontend.mfcc39_auto        wav -> 39-dim MFCCs   (kernel: csrc/mfcc39.cu)
   decode.connected.decode_connected
@@ -33,6 +33,10 @@ recognition, the dense decoder and forced alignment:
                                    utterance graphs for alignment) ->
                                    ops.viterbi.viterbi_backtrace
   ops.frontend.mfcc                psf cepstra (K12: csrc/mfcc39.cu, cepstra mode)
+  train.isolated.fit_hmm           segmental K-means (K11 aligns a word's templates,
+                                   then ops.viterbi.viterbi_backtrace) -> mixture
+                                   splitting (train.kmeans, train.em: tensor ops)
+  train.embedded_step              align_batch (K11) -> statistics GEMMs -> M-step
 
 Every kernel wrapper runs its plain PyTorch version for CPU tensors and
 launches the hand-written CUDA kernel for CUDA tensors (or raises); a

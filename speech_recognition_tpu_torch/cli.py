@@ -1,13 +1,27 @@
-"""Command-line interface of the port: the ``connected_test``,
-``isolated_test`` and ``align`` actions.
+"""Command-line interface of the port: ``synth``, ``isolated_train``,
+``isolated_test``, ``continuous_train``, ``connected_test`` and
+``align``.
 
-Counterpart of ``speech_recognition_tpu/cli.py`` ``connected_test``:
-wavs -> MFCC-39 (kernel K3 on CUDA) -> banded connected decode (kernels
-K1 + K2 on CUDA; K8 + K9 for graphs the fused kernels refuse, such as a
-sausage of 1-state words), or with ``--graph lextree`` the lexical-tree
-decode (kernels K4 + K5 on CUDA) -> word ids, scored against the
-Aurora-style transcripts in the file names.  Output lines match the
-reference CLI.
+Counterpart of ``speech_recognition_tpu/cli.py``.  ``synth`` writes the
+deterministic synthetic Aurora-style corpus (the same wavs, byte for
+byte, as the JAX CLI for the same seed).  ``isolated_train`` trains one
+word model per digit from ``<SPEAKER>_<digit>[AB].wav`` files: MFCC-39
+(K3 on CUDA) -> segmental K-means (kernel K11 aligns every template of
+a word in one launch) -> mixture splitting with k-means and EM
+(``--no-gmm``: single-Gaussian segmental K-means templates; ``--no-em``:
+k-means only; ``--norm cmvn``: corpus CMVN; ``--silence``: a silence
+model from the non-speech regions).  ``continuous_train --algo hard``
+runs embedded Viterbi-EM iterations on connected-digit strings
+(per-utterance transcript graphs, K11 with per-utterance matrices, one
+bank of statistics GEMMs) and writes ``bank_NNNNN.npz`` each iteration,
+resuming from the newest; ``--algo soft`` is not ported yet.
+
+``connected_test``: wavs -> MFCC-39 (kernel K3 on CUDA) -> banded
+connected decode (kernels K1 + K2 on CUDA; K8 + K9 for graphs the fused
+kernels refuse, such as a sausage of 1-state words), or with ``--graph
+lextree`` the lexical-tree decode (kernels K4 + K5 on CUDA) -> word ids,
+scored against the Aurora-style transcripts in the file names.  Output
+lines match the reference CLI.
 
 ``--lm bigram`` fits an add-k bigram on the transcripts of ``--lm-train``
 (default: the test transcripts, with a warning), scales it by
@@ -27,7 +41,12 @@ bank has a silence model): padded transcript graphs -> K11 with
 per-utterance matrices -> backtrace, and writes one JSON line per file
 with its word segments, their times and the path cost.
 
-Run:  python -m speech_recognition_tpu_torch.cli connected_test \
+Run:  python -m speech_recognition_tpu_torch.cli synth -o data
+      python -m speech_recognition_tpu_torch.cli isolated_train -i data/train \
+          -o bank.npz [--silence] [--device cuda|cpu]
+      python -m speech_recognition_tpu_torch.cli continuous_train -i bank.npz \
+          -d data/train -o models-continuous --algo hard
+      python -m speech_recognition_tpu_torch.cli connected_test \
           -i bank.npz -d wav_dir [--graph loop|sausage|lextree] \
           [--lm none|bigram] [--decoder auto|compose|lattice] [--device cuda|cpu]
       python -m speech_recognition_tpu_torch.cli isolated_test -i bank.npz -d wav_dir
@@ -52,9 +71,16 @@ import sys
 import numpy as np
 import torch
 
-from speech_recognition_tpu_torch.config import DIGIT_NAMES, DecodeConfig, FrontendConfig
+from speech_recognition_tpu_torch.config import (
+    DIGIT_NAMES,
+    DecodeConfig,
+    FrontendConfig,
+    HMMConfig,
+    TrainConfig,
+)
 
-__all__ = ["main", "cmd_connected_test", "cmd_isolated_test", "cmd_align"]
+__all__ = ["main", "cmd_synth", "cmd_isolated_train", "cmd_continuous_train",
+           "cmd_connected_test", "cmd_isolated_test", "cmd_align"]
 
 
 def _device(name: str) -> torch.device:
@@ -72,11 +98,6 @@ def _featurize_files(paths, cfg: FrontendConfig, cap_samples: int, device,
     'utterance' (per-utterance z-norm) or 'cmvn' (raw features, then the
     corpus statistics ``cmvn = (mean, std)``)."""
     from speech_recognition_tpu_torch.data.wav import load_wav_batch
-    from speech_recognition_tpu_torch.ops.frontend import (
-        apply_cmvn,
-        mfcc39_auto,
-        padded_length,
-    )
 
     samples, lengths, rates = load_wav_batch(list(paths), cap_samples)
     b = samples.shape[0]
@@ -85,19 +106,43 @@ def _featurize_files(paths, cfg: FrontendConfig, cap_samples: int, device,
         raise ValueError(f"mixed sample rates in batch: {sorted(set(rates.tolist()))}")
     if rate != cfg.sample_rate:
         cfg = dataclasses.replace(cfg, sample_rate=rate)
+    return _featurize_samples(samples, np.minimum(lengths, cap_samples), cfg, cap_samples,
+                              device, norm, cmvn)
+
+
+def _featurize_samples(samples, lengths, cfg: FrontendConfig, cap_samples: int, device,
+                       norm: str = "utterance", cmvn=None):
+    """Zero-padded ``samples [N, W]`` (at the config's sample rate) with
+    their ``lengths`` -> features, as :func:`_featurize_files`."""
+    from speech_recognition_tpu_torch.ops.frontend import (
+        apply_cmvn,
+        mfcc39_auto,
+        padded_length,
+    )
+
     L = padded_length(cfg, cap_samples)
     if L > samples.shape[1]:
         samples = np.pad(samples, ((0, 0), (0, L - samples.shape[1])))
     else:
         samples = samples[:, :L]
     sig = torch.from_numpy(np.ascontiguousarray(samples, np.float32)).to(device)
-    lens = torch.from_numpy(np.minimum(lengths, cap_samples).astype(np.int32)).to(device)
+    lens = torch.from_numpy(np.minimum(lengths, L).astype(np.int32)).to(device)
     feats, nf = mfcc39_auto(sig, lens, cfg, None,
                             "utterance" if norm == "utterance" else "none")
     if norm == "cmvn" and cmvn is not None:
         feats = apply_cmvn(feats, nf, torch.as_tensor(cmvn[0], device=device),
                            torch.as_tensor(cmvn[1], device=device))
     return feats, nf
+
+
+def _digit_files(wav_dir: str):
+    """``{digit index: sorted files <SPEAKER>_<digit>[AB].wav}``."""
+    out = {}
+    for d, name in enumerate(DIGIT_NAMES):
+        pattern = re.compile("[A-Z]+_" + name + "[AB].wav")
+        out[d] = sorted(f for f in glob.glob(os.path.join(wav_dir, "*.wav"))
+                        if pattern.match(os.path.basename(f)))
+    return out
 
 
 def _norm_from_meta(meta):
@@ -136,6 +181,162 @@ def _bigram(args, refs, n_models, sil):
         lm.start_cost[sil] = 0.0
         lm.end_cost[sil] = 0.0
     return lm
+
+
+def cmd_synth(args):
+    from speech_recognition_tpu_torch.data.synthetic import SyntheticDigits
+    from speech_recognition_tpu_torch.data.wav import write_wav
+
+    gen = SyntheticDigits(seed=args.seed)
+    for sub in ("train", "test"):
+        os.makedirs(os.path.join(args.output, sub), exist_ok=True)
+    corpora = (("train", gen.isolated_corpus(args.n_train, tag="train")),
+               ("test", gen.isolated_corpus(args.n_test, tag="test")),
+               ("train", gen.continuous_corpus(args.n_continuous, tag="cont")),
+               ("test", gen.continuous_corpus(max(args.n_continuous // 4, 1), tag="ctest")))
+    for sub, utts in corpora:
+        for u in utts:
+            write_wav(os.path.join(args.output, sub, u.name), u.samples)
+    print(f"wrote corpus under {args.output}/")
+
+
+def cmd_isolated_train(args):
+    from speech_recognition_tpu_torch.models.hmm import GMMHMM, HMMBank
+    from speech_recognition_tpu_torch.train.isolated import fit_hmm
+    from speech_recognition_tpu_torch.train.kmeans import random_assign
+    from speech_recognition_tpu_torch.utils.checkpoint import save_bank
+
+    dev = _device(args.device)
+    cfg = FrontendConfig()
+    hmm_cfg = HMMConfig(n_states=args.n_states, n_mix=args.n_gaussians)
+    train_cfg = TrainConfig()
+    by_digit = _digit_files(args.input)
+    for d, files in by_digit.items():
+        if not files:
+            sys.exit(f"no training files for digit {DIGIT_NAMES[d]} under {args.input}")
+    all_files = [f for fs in by_digit.values() for f in fs]
+
+    cmvn = None
+    if args.norm == "cmvn":
+        from speech_recognition_tpu_torch.ops.frontend import cmvn_stats
+
+        raw, nf = _featurize_files(all_files, cfg, args.max_samples, dev, norm="cmvn")
+        cmvn = tuple(x.cpu().numpy() for x in cmvn_stats(raw, nf))
+    # the features of a file do not depend on its batch: featurize once
+    feats, nf = _featurize_files(all_files, cfg, args.max_samples, dev, norm=args.norm,
+                                 cmvn=cmvn)
+    nf_np = nf.cpu().numpy()
+    temps, i = {}, 0
+    for d, files in by_digit.items():
+        temps[d] = [feats[j, : nf_np[j]] for j in range(i, i + len(files))]
+        i += len(files)
+    pad_to = int(nf_np.max())
+    models = []
+    for d, name in enumerate(DIGIT_NAMES):
+        print(f"training {name} on {len(temps[d])} files")
+        if args.gmm:
+            draw = random_assign(torch.Generator().manual_seed(train_cfg.seed + d))
+            models.append(fit_hmm(temps[d], use_em=args.em, train_cfg=train_cfg,
+                                  hmm_cfg=hmm_cfg, pad_to=pad_to, draw_assign=draw))
+        else:
+            # single-Gaussian segmental K-means templates scored by
+            # Mahalanobis DTW == a one-mixture bank
+            from speech_recognition_tpu_torch.decode.dtw import fit_template
+
+            m, v, t = fit_template(temps[d], hmm_cfg.n_states, pad_to=pad_to)
+            models.append(GMMHMM(m[:, None, :], torch.log(v[:, None, :]),
+                                 torch.zeros((hmm_cfg.n_states, 1), device=dev), t))
+
+    meta = {"kind": "isolated" if args.gmm else "template",
+            "n_mix": args.n_gaussians if args.gmm else 1, "norm": args.norm}
+    arrays = {} if cmvn is None else {"cmvn_mean": cmvn[0], "cmvn_std": cmvn[1]}
+    if args.silence:
+        from speech_recognition_tpu_torch.data.wav import load_wav_batch
+        from speech_recognition_tpu_torch.ops.frontend import padded_length
+        from speech_recognition_tpu_torch.train.silence import (
+            fit_silence_hmm,
+            harvest_silence_samples,
+            pad_mixtures,
+        )
+
+        samples, lengths, _ = load_wav_batch(all_files, padded_length(cfg, args.max_samples))
+        segs = harvest_silence_samples([samples[i, : lengths[i]]
+                                        for i in range(len(all_files))])
+        if segs:
+            seg_lens = np.array([len(seg) for seg in segs])
+            buf = np.zeros((len(segs), int(seg_lens.max())), np.float32)
+            for i, seg in enumerate(segs):
+                buf[i, : len(seg)] = seg
+            sf, snf = _featurize_samples(buf, seg_lens, cfg, args.max_samples, dev,
+                                         norm=args.norm, cmvn=cmvn)
+            snf = snf.cpu().numpy()
+            frames = torch.cat([sf[i, : snf[i]] for i in range(len(segs))])
+            # at most 2 mixtures, and no more than the digits' (1 with --no-gmm)
+            sil = fit_silence_hmm(frames, n_states=args.n_states,
+                                  n_mix=min(args.n_gaussians, 2, models[0].n_mix),
+                                  hmm_cfg=hmm_cfg,
+                                  draw_assign=random_assign(
+                                      torch.Generator().manual_seed(4242)))
+            models.append(pad_mixtures(sil, models[0].n_mix))
+            meta["silence_index"] = len(models) - 1
+            print(f"trained silence model from {len(segs)} segments")
+
+    save_bank(args.output, HMMBank.stack(models), meta, arrays=arrays)
+    print(f"saved bank to {args.output}")
+
+
+def cmd_continuous_train(args):
+    from speech_recognition_tpu_torch.data.aurora import (
+        labels_from_transcript,
+        transcript_from_filename,
+    )
+    from speech_recognition_tpu_torch.train.embedded_step import compose_graphs, embedded_step
+    from speech_recognition_tpu_torch.utils.checkpoint import (
+        latest_iteration,
+        load_bank,
+        save_iteration,
+    )
+
+    if args.algo == "soft":
+        raise NotImplementedError("continuous_train --algo soft (Baum-Welch) is not ported "
+                                  "yet: ROADMAP queue A item 3")
+    dev = _device(args.device)
+    start_it = 0
+    it_found, ckpt = latest_iteration(args.output)
+    if ckpt:
+        print(f"resuming from {ckpt}")
+        bank, meta = load_bank(ckpt)
+        start_it = it_found + 1
+    else:
+        bank, meta = load_bank(args.input)
+    bank = bank.to(dev)
+    norm, cmvn = _norm_from_meta(meta)
+    files = sorted(glob.glob(os.path.join(args.data, "*.wav")))
+    files = [f for f in files if transcript_from_filename(os.path.basename(f))]
+    labels = [labels_from_transcript(transcript_from_filename(os.path.basename(f)))
+              for f in files]
+    feats, nf = _featurize_files(files, FrontendConfig(), args.max_samples, dev, norm=norm,
+                                 cmvn=cmvn)
+    feats = feats[:, : int(nf.max())].contiguous()
+
+    sil = meta.get("silence_index")
+    if sil is not None:
+        print(f"using optional silence arcs (model {sil}) in alignment graphs")
+    keep = {k: v for k, v in meta.items() if k != "arrays"}
+    for it in range(start_it, start_it + args.iterations):
+        g, eps_depth = compose_graphs(bank, labels, sil)
+        new_bank, stats = embedded_step(bank, feats, nf, g, eps_depth=eps_depth)
+        cost = float(stats.total_cost)
+        print(f"iteration {it}: total alignment cost {cost:.1f}")
+        save_iteration(args.output, it, new_bank, {**keep, "cost": cost},
+                       arrays=meta.get("arrays", {}))
+        converged = all(torch.allclose(getattr(new_bank, f), getattr(bank, f), rtol=1e-5,
+                                       atol=1e-8)
+                        for f in ("means", "log_vars", "log_weights"))
+        bank = new_bank
+        if converged:
+            print("continuous training converged")
+            break
 
 
 def cmd_connected_test(args):
@@ -240,13 +441,9 @@ def cmd_isolated_test(args):
         bank = HMMBank(*[getattr(bank, f)[:sil]
                          for f in ("means", "log_vars", "log_weights", "trans_cost")])
     bank = bank.to(dev)
-    files, labels = [], []
-    for d, name in enumerate(DIGIT_NAMES):
-        pattern = re.compile("[A-Z]+_" + name + "[AB].wav")
-        for f in sorted(glob.glob(os.path.join(args.data, "*.wav"))):
-            if pattern.match(os.path.basename(f)):
-                files.append(f)
-                labels.append(d)
+    by_digit = _digit_files(args.data)
+    files = [f for fs in by_digit.values() for f in fs]
+    labels = [d for d, fs in by_digit.items() for _ in fs]
     feats, nf = _featurize_files(files, FrontendConfig(), args.max_samples, dev,
                                  norm=norm, cmvn=cmvn)
     pred, _ = classify_batch(bank, feats[:, : int(nf.max())].contiguous(), nf)
@@ -313,6 +510,44 @@ def main(argv=None):
     sub = ap.add_subparsers(dest="action", required=True)
     _dc = DecodeConfig()
     device_help = "torch device to run on (default cuda; never falls back)"
+    p = sub.add_parser("synth", help="generate the synthetic Aurora-style corpus")
+    p.add_argument("-o", "--output", default="data")
+    p.add_argument("--n-train", type=int, default=6)
+    p.add_argument("--n-test", type=int, default=3)
+    p.add_argument("--n-continuous", type=int, default=40)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_synth)
+
+    p = sub.add_parser("isolated_train")
+    p.add_argument("-i", "--input", required=True, help="wav dir")
+    p.add_argument("-o", "--output", default="models/bank.npz")
+    p.add_argument("-g", "--gmm", action=argparse.BooleanOptionalAction, default=True,
+                   help="GMM-HMM models (--no-gmm: single-Gaussian segmental "
+                        "K-means templates, the DTW path)")
+    p.add_argument("-e", "--em", action=argparse.BooleanOptionalAction, default=True,
+                   help="refine mixtures with EM (--no-em: k-means only)")
+    p.add_argument("--n-states", type=int, default=5)
+    p.add_argument("--n-gaussians", type=int, default=4)
+    p.add_argument("--max-samples", type=int, default=64000)
+    p.add_argument("--norm", choices=["utterance", "cmvn"], default="utterance",
+                   help="per-utterance z-norm or corpus CMVN")
+    p.add_argument("--silence", action="store_true",
+                   help="train a silence model from non-speech regions")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_isolated_train)
+
+    p = sub.add_parser("continuous_train")
+    p.add_argument("-i", "--input", required=True, help="initial bank .npz")
+    p.add_argument("-o", "--output", default="models-continuous")
+    p.add_argument("-d", "--data", required=True, help="wav dir")
+    p.add_argument("--iterations", type=int, default=10)
+    p.add_argument("--algo", choices=["hard", "soft"], default="hard",
+                   help="hard = Viterbi-EM; soft = forward-backward Baum-Welch "
+                        "(not ported yet)")
+    p.add_argument("--max-samples", type=int, default=120000)
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_continuous_train)
+
     p = sub.add_parser("connected_test")
     p.add_argument("-i", "--input", required=True, help="bank .npz")
     p.add_argument("-d", "--data", required=True, help="wav dir")

@@ -2,7 +2,8 @@
 
 Counterpart of ``speech_recognition_tpu/config.py``, carrying what the
 port reads: the digit names and the Aurora filename map, the MFCC
-frontend parameters and the decoder defaults.  The reference's TPU
+frontend parameters, the acoustic-model topology, the training loop's
+parameters, the endpointer's and the decoder defaults.  The reference's TPU
 matmul-precision dials (``dft_as_gemm``, ``*_precision``) are not
 carried: every GEMM of the port runs in f32.  The dataclasses are
 frozen, so a config is hashable and can key a cache of constants.
@@ -13,7 +14,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["DIGIT_NAMES", "FILENAME_INDEX_MAP", "FrontendConfig", "DecodeConfig"]
+__all__ = ["DIGIT_NAMES", "FILENAME_INDEX_MAP", "FrontendConfig", "HMMConfig", "TrainConfig",
+           "DecodeConfig", "EndpointConfig"]
 
 # The 11 digit models: '1'..'9' plus two pronunciations of zero
 # ("oh" = O and "zero" = Z).
@@ -72,6 +74,48 @@ class FrontendConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HMMConfig:
+    """Acoustic-model topology: 5-state left-to-right word HMMs with
+    4-mixture diagonal-GMM emissions, as the original system trains.
+
+    ``ref_compat_splits``: the original system counts its binary mixture
+    splits as ``int(ln(n_mix))``, so "4 gaussians" trains 2 components
+    and evaluation sums over 2 never-updated extras.  The default is the
+    intended ``log2(n_mix)``; True replicates the quirk.
+    """
+
+    n_states: int = 5
+    n_mix: int = 4
+    ref_compat_splits: bool = False
+    var_floor: float = 1e-2
+
+    @property
+    def n_splits(self) -> int:
+        import math
+
+        if self.ref_compat_splits:
+            return int(math.log(self.n_mix))
+        return int(math.log2(self.n_mix))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training loop parameters: iteration caps of segmental K-means,
+    k-means, EM and embedded training, the +-10% mixture-split
+    perturbation, the seed and the ``allclose`` convergence
+    tolerances."""
+
+    skmeans_max_iters: int = 100
+    kmeans_max_iters: int = 100
+    em_max_iters: int = 100
+    continuous_max_iters: int = 20
+    split_perturbation: float = 0.1
+    seed: int = 0
+    rtol: float = 1e-5
+    atol: float = 1e-8
+
+
+@dataclasses.dataclass(frozen=True)
 class DecodeConfig:
     """Decoder parameters.  ``n_slots`` is the fixed-slot sausage depth
     of the reference's connected-digit decoder (7)."""
@@ -80,3 +124,28 @@ class DecodeConfig:
     beam_width: int = 0  # 0 -> no pruning
     word_insertion_cost: float = 0.0
     lm_weight: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class EndpointConfig:
+    """Energy-based endpointing (``data/endpoint.py``): frame geometry in
+    seconds, thresholds in dB and milliseconds."""
+
+    sample_rate: int = 16000
+    frame_time_s: float = 0.02
+    frame_stride_s: float = 0.01
+    forget_factor: float = 1.0
+    adjustment: float = 0.01
+    onset_threshold_db: float = 3.0
+    offset_threshold_db: float = 0.2
+    silence_threshold_ms: float = 500.0
+    speech_threshold_ms: float = 250.0
+    start_boundary_ms: float = 200.0
+
+    @property
+    def samples_per_frame(self) -> int:
+        return int(self.frame_time_s * self.sample_rate)
+
+    @property
+    def frame_stride(self) -> int:
+        return int(self.frame_stride_s * self.sample_rate)

@@ -18,7 +18,7 @@ end-state select and ``ops.viterbi.viterbi_backtrace``.  CPU tensors
 take every kernel's plain version.
 
 Not ported yet: beam pruning (raises ``NotImplementedError``, ROADMAP
-queue A item 14).
+queue A item 6).
 """
 
 from __future__ import annotations
@@ -155,7 +155,7 @@ def decode_connected(bank: HMMBank, graph: WordGraph, feats, n_frames,
     if backend not in ("auto", "banded", "wordtrace", "dense"):
         raise ValueError(f"unknown backend {backend!r}")
     if beam_width:
-        raise NotImplementedError("beam pruning is not ported yet (ROADMAP queue A item 14)")
+        raise NotImplementedError("beam pruning is not ported yet (ROADMAP queue A item 6)")
     bg = None
     if backend != "dense":
         try:

@@ -5,8 +5,8 @@ Counterpart of ``speech_recognition_tpu/decode/dtw.py``.  Templates are
 distance matrix of a batch against every template state is one GEMM
 (``ops.gmm.pairwise_gaussian_nll``), and the DP is the isolated path's
 (DTW is Viterbi with distances as emissions): kernel K11 on CUDA
-tensors, its plain version on CPU tensors.  ``fit_template`` waits for
-the training slice (it needs segmental K-means, ROADMAP queue A item 8).
+tensors, its plain version on CPU tensors.  ``fit_template`` trains a
+template by segmental K-means alone (``train.skmeans``).
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ import torch
 from speech_recognition_tpu_torch.decode.isolated import _frame_mask, model_costs
 from speech_recognition_tpu_torch.ops.gmm import pairwise_gaussian_nll
 
-__all__ = ["TemplateBank", "stack_templates", "dtw_score_models", "dtw_classify_batch"]
+__all__ = ["TemplateBank", "fit_template", "stack_templates", "dtw_score_models",
+           "dtw_classify_batch"]
 
 
 class TemplateBank(NamedTuple):
@@ -47,10 +48,24 @@ class TemplateBank(NamedTuple):
         return TemplateBank(*[x.to(device) for x in self])
 
 
+def fit_template(templates, n_segments: int = 5, **kw):
+    """Segmental K-means alone (the original ``HMM.fit(use_gmm=False)``)
+    on ``[T_i, D]`` templates.  Returns ``(means [S, D], variances [S, D]
+    floored at 1e-3, trans [S, S])`` as tensors on the templates' device
+    (``trans`` with ``POS_INF`` where absent)."""
+    from speech_recognition_tpu_torch.train.skmeans import skmeans
+    from speech_recognition_tpu_torch.utils.numerics import to_cost_matrix
+
+    means, variances, trans, _, _ = skmeans(templates, n_segments, **kw)
+    return (means, torch.clamp(variances, min=1e-3),
+            torch.from_numpy(to_cost_matrix(trans)).to(means.device))
+
+
 def stack_templates(models) -> TemplateBank:
-    """``[(means, variances, trans), ...]`` (numpy) -> a TemplateBank."""
-    m, v, t = zip(*models)
-    return TemplateBank.from_numpy(np.stack(m), np.stack(v), np.stack(t))
+    """``[(means, variances, trans), ...]`` (numpy, or tensors on one
+    device) -> a TemplateBank."""
+    return TemplateBank(*[torch.stack([torch.as_tensor(x, dtype=torch.float32) for x in xs])
+                          for xs in zip(*models)])
 
 
 def dtw_classify_batch(bank: TemplateBank, feats, n_frames):

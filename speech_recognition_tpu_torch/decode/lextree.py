@@ -11,7 +11,7 @@ reads the words off the path on the host.  The device of ``feats``
 picks the kernels (CUDA) or their plain versions (CPU).
 
 Not ported yet: beam pruning and ``beam_decode_lextree`` (ROADMAP queue
-A item 14).
+A item 6).
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def decode_lextree(bank: HMMBank, lexg: LexGraph, feats, n_frames,
     ``lexg.words``."""
     if beam_width:
         raise NotImplementedError("beam pruning and beam_decode_lextree are not "
-                                  "ported yet (ROADMAP queue A item 14)")
+                                  "ported yet (ROADMAP queue A item 6)")
     states, eps_flags, costs = _decode_lex_batch(
         bank, feats, n_frames, lexg.banded.to(feats.device), lex_topology(lexg.banded))
     costs = costs.cpu().numpy()

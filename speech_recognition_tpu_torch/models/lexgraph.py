@@ -87,7 +87,7 @@ def build_lex_graph(
     if lm is not None and any(len(w) > 1 for w in words):
         raise ValueError(
             "exact bigram on a deep lexical tree needs predecessor-carried "
-            "token passing (ROADMAP queue A item 14): build the graph "
+            "token passing (ROADMAP queue A item 6): build the graph "
             "without lm")
 
     tree = lextree_from_words(words)

@@ -108,7 +108,7 @@ def viterbi(nll, trans_cost, init_cost, n_frames, eps_trans=None, eps_depth: int
     [S]``, ``n_frames`` (frames >= it are ignored), optional ``eps_trans
     [S, S]`` with ``eps_depth`` passes.  A CUDA tensor runs K11."""
     if beam_width:
-        raise NotImplementedError("beam pruning is not ported yet (ROADMAP queue A item 14)")
+        raise NotImplementedError("beam pruning is not ported yet (ROADMAP queue A item 6)")
     from speech_recognition_tpu_torch.ops.viterbi_kernels import viterbi_dense
 
     nf = torch.as_tensor(n_frames, dtype=torch.int32, device=nll.device).reshape(1)

@@ -4,7 +4,8 @@ Same archive layout as ``speech_recognition_tpu/utils/checkpoint.py``:
 the four bank fields as float32 arrays, an optional ``_meta`` entry
 holding JSON as uint8 bytes, and auxiliary arrays as ``x_<name>``
 (returned in ``meta['arrays']``).  A bank saved by either package loads
-in the other.
+in the other.  Embedded training writes one ``bank_NNNNN.npz`` per
+iteration into its output directory and resumes from the newest.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 
 from speech_recognition_tpu_torch.models.hmm import _FIELDS, HMMBank
 
-__all__ = ["save_bank", "load_bank"]
+__all__ = ["save_bank", "load_bank", "latest_iteration", "save_iteration"]
 
 
 def save_bank(path: str, bank: HMMBank, meta: Optional[dict] = None,
@@ -42,3 +43,29 @@ def load_bank(path: str) -> Tuple[HMMBank, dict]:
         if extras:
             meta["arrays"] = extras
     return bank, meta
+
+
+def save_iteration(out_dir: str, iteration: int, bank: HMMBank, meta: Optional[dict] = None,
+                   arrays: Optional[dict] = None) -> str:
+    """Per-iteration checkpoint ``<out_dir>/bank_<iteration:05d>.npz``;
+    ``meta`` gains the ``iteration``."""
+    path = os.path.join(out_dir, f"bank_{iteration:05d}.npz")
+    save_bank(path, bank, {**(meta or {}), "iteration": iteration}, arrays)
+    return path
+
+
+def latest_iteration(out_dir: str) -> Tuple[Optional[int], Optional[str]]:
+    """``(iteration, path)`` of the newest ``bank_NNNNN.npz`` in
+    ``out_dir``, or ``(None, None)``."""
+    if not os.path.isdir(out_dir):
+        return None, None
+    best = None
+    for f in os.listdir(out_dir):
+        if f.startswith("bank_") and f.endswith(".npz"):
+            try:
+                it = int(f[5:10])
+            except ValueError:
+                continue
+            if best is None or it > best[0]:
+                best = (it, os.path.join(out_dir, f))
+    return best if best else (None, None)

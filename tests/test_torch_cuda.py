@@ -1727,3 +1727,89 @@ def test_k12_raises_for_configs_it_does_not_implement(dev):
     with pytest.raises(ValueError, match="float32"):
         mfcc_fused(sig.double(), ln)
     assert mfcc_fused.launches == before
+
+
+def _templates(seed, n=12, d=39, n_states=5):
+    """``n`` [T_i, d] feature sequences sampled from one random GMM-HMM
+    (separated states, so no alignment sits near a tie)."""
+    rng = np.random.default_rng(seed)
+    p = random_gmm_hmm(rng, n_states=n_states, n_mix=2, dim=d, sep=3.0)
+    out = []
+    for _ in range(n):
+        frames = []
+        for s in range(n_states):
+            for _ in range(int(rng.integers(4, 30))):
+                m = rng.choice(2, p=p["weights"][s])
+                frames.append(p["means"][s, m]
+                              + np.sqrt(p["variances"][s, m]) * rng.standard_normal(d))
+        out.append(torch.from_numpy(np.asarray(frames, np.float32)))
+    return out
+
+
+def test_k11_matches_plain_at_the_training_shapes(dev):
+    """K11 as segmental K-means calls it (one word's templates, a shared
+    5-state chain, Euclidean distances) and as the embedded step calls it
+    (per-utterance transcript graphs with optional silence): every plane
+    bit-identical."""
+    import importlib
+
+    from speech_recognition_tpu_torch.models.graph import pad_graphs, transcript_graph
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import viterbi_dense, viterbi_dense_ref
+
+    skm = importlib.import_module("speech_recognition_tpu_torch.train.skmeans")
+    cont = importlib.import_module("speech_recognition_tpu_torch.train.continuous")
+    temps = [t.to(dev) for t in _templates(1)]
+    calls = []
+    orig = skm.viterbi_dense
+    skm.viterbi_dense = lambda *a, **k: calls.append((a, k)) or orig(*a, **k)
+    try:
+        skm.skmeans(temps, 5, pad_to=160)
+    finally:
+        skm.viterbi_dense = orig
+    assert calls and calls[0][0][0].shape == (12, 160, 5) and calls[0][0][1].shape == (5, 5)
+    bank = _bank(12, 5, 4, 39, seed=3).to(dev)
+    trans = [bank.trans_cost[i].cpu().numpy() for i in range(12)]
+    rng = np.random.default_rng(4)
+    gb, depth = pad_graphs([transcript_graph(trans, [int(x) for x in rng.integers(
+        0, 11, rng.integers(1, 8))], sil=11) for _ in range(40)])
+    g = {k: torch.as_tensor(gb[k], device=dev)
+         for k in ("trans", "eps_trans", "init_cost", "end_states", "bank_state")}
+    feats = torch.from_numpy(rng.standard_normal((40, 300, 39)).astype(np.float32)).to(dev)
+    nf = torch.from_numpy(rng.integers(1, 301, 40).astype(np.int32)).to(dev)
+    orig = cont.viterbi_dense
+    cont.viterbi_dense = lambda *a, **k: calls.append((a, k)) or orig(*a, **k)
+    try:
+        cont.align_batch(bank, feats, nf, *g.values(), eps_depth=depth)
+    finally:
+        cont.viterbi_dense = orig
+    for a, k in (calls[0], calls[-1]):
+        got, want = viterbi_dense(*a, **k), viterbi_dense_ref(*a, **k)
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_)
+
+
+def test_isolated_train_cuda_matches_cpu(dev):
+    """``fit_hmm`` on the card and on the CPU from the same draws: the same
+    segmental K-means states and transitions, parameters at rtol 1e-4 /
+    atol 1e-4 (f32 GEMMs and sums in other orders)."""
+    import importlib
+
+    from speech_recognition_tpu_torch.config import HMMConfig
+    from speech_recognition_tpu_torch.train.isolated import fit_hmm
+    from speech_recognition_tpu_torch.train.kmeans import random_assign
+
+    skm = importlib.import_module("speech_recognition_tpu_torch.train.skmeans")
+    temps = _templates(5)
+    out = []
+    for d in ("cpu", dev):
+        ts = [t.to(d) for t in temps]
+        sk = skm.skmeans(ts, 5, pad_to=160)
+        model = fit_hmm(ts, hmm_cfg=HMMConfig(n_mix=4), pad_to=160,
+                        draw_assign=random_assign(torch.Generator().manual_seed(0)))
+        out.append((sk[3].cpu(), sk[2], model))
+    (s_c, t_c, m_c), (s_g, t_g, m_g) = out
+    assert torch.equal(s_c, s_g)
+    np.testing.assert_array_equal(t_c, t_g)
+    for f in ("means", "log_vars", "log_weights", "trans_cost"):
+        torch.testing.assert_close(getattr(m_g, f).cpu(), getattr(m_c, f), rtol=1e-4, atol=1e-4)

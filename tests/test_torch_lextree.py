@@ -410,7 +410,7 @@ def test_decode_lextree_matches_reference():
     assert w_t == w_j
     assert w_t[:3] == [[words.index(w) for w in seq] for seq in refs]
     np.testing.assert_allclose(c_t, np.asarray(c_j), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         tdec.decode_lextree(tb, tg, torch.from_numpy(feats), torch.from_numpy(nf),
                             beam_width=8)
 

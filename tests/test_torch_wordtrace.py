@@ -219,7 +219,7 @@ def test_wordtrace_refuses_other_graphs():
         with pytest.raises(ValueError, match="word-trace"):
             vk.viterbi_banded_wordtrace_ref(tgmm.augment_dtb(feats), w, lw, bg,
                                             vk.banded_topology(bg), nf)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         tconn.decode_connected(tb, tgraph.build_loop_graph(trans), feats, nf,
                                backend="wordtrace", beam_width=4)
 
