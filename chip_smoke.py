@@ -50,7 +50,16 @@ through the CLI with the launch counters reset just before each:
   ``isolated_test``, ``continuous_train --algo hard --iterations 3``
   (embedded Viterbi-EM: K11 with per-utterance transcript graphs) and
   ``connected_test`` on the result, once with ``--device cuda`` and once
-  with ``--device cpu``.
+  with ``--device cpu``;
+* soft EM, ``continuous_train --algo soft --iterations 3`` from that
+  isolated bank (Baum-Welch: bank emissions -> the dense forward-backward
+  K16 on the transcript graphs -> statistics GEMMs -> M-step) and
+  ``connected_test`` of its last bank, on cuda and on cpu (costs at rtol
+  1e-4, the same number of test wavs right);
+* word confidence, ``connected_test --graph loop --confidence``: K3 -> K1
+  -> K2 -> bank emissions -> the banded forward-backward K15 -> word
+  averages, on cuda and on cpu (the same words, confidences within
+  ``CONF_ATOL``).
 
 Each CLI output is checked against the same command on the CPU (plain
 versions); the training path's, which sum GEMMs in other orders on the
@@ -111,6 +120,18 @@ step, the cluster form's scans, publishing and cluster barriers).
 K4 and K6 run the plan ``lex_plan`` picks (frontier and tables in shared
 memory on the 1k trie, in device memory on the dictionary-shaped trie);
 their cycles per frame step by phase come from the kernel's trace.
+K15 (the banded forward-backward) is held to its plain version on the
+loop graph, on the 385-state sausage at 256 x 500 (lengths T, 1, 0 and
+mixed), on a sausage of 1-state words (eps depth 4), on the 1k trie's
+lexgraph (cross edges, -inf end scores), on 419 padded per-item
+banded transcript graphs and at the confidence path's own call; K16 (the dense one) at 419 x 319 on transcript
+graphs in both xi modes, at the soft-EM path's own call and on a
+170-state loop past its shared-memory tier (log Z at rtol 1e-5, gamma at
+atol 1e-4, xi at rtol 1e-4 / atol 1e-3); one soft iteration is timed by
+stage like the hard one, K15 and K16 alone beside their plain versions
+and their bounds (bytes, f32 operations and the SFU's exps and logs),
+and K15 against K16 on padded transcript graphs of 30-400 states (the
+crossover ``models.graph.BANDED_FB_MIN_STATES`` is set from).
 Every kernel, its plain version, the 256 x 5 s connected pipeline and
 the 128 x 5 s lexical-tree and bigram-lattice pipelines are timed with
 CUDA events, K13 and K10 also with torch.profiler's device time (and
@@ -148,6 +169,18 @@ K1_RTOL = 1e-5  # emission GEMM summation order
 K13_TOL = dict(rtol=1e-5, atol=1e-4)  # 79-term f32 dot products, another order
 # K4 / K5 / K6 / K7 take the plain version's own inputs: everything is
 # compared bit for bit
+# K15 / K16 against their plain versions: the same IEEE expf / logf on both
+# sides; only sums over frames (xi) and over a row's origins (K16) run in
+# other orders (measured: log Z equal, gamma within 4e-14, xi within 4e-6
+# of itself on an H100)
+FB_TOL = {"log_z_rtol": 1e-5, "gamma_atol": 1e-4}
+FB_XI_TOL = {"rtol": 1e-4, "atol": 1e-3}
+# word confidences of connected_test --confidence, cuda against cpu: the
+# two devices' features differ within K3_TOL, and a posterior exp(alpha +
+# beta - log Z) carries float32 rounding of |log Z| (~1e4 here: an ulp of
+# 1e-3); the JAX CLI's own float32 confidences are 9.6e-3 from float64 on
+# the CPU test corpus (scripts/exp_r13_float32_noise.py)
+CONF_ATOL = 1e-2
 
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit):
 # device memory bandwidth and f32 rate outside the tensor cores (the port
@@ -160,10 +193,19 @@ SMEM_STEP_CYCLES = 30
 SM_CLOCK_HZ = 1.98e9
 
 
-def bound(n_bytes: float, n_ops: float):
+# exp and log issue on the special function units, 16 a clock per SM: 132
+# SMs at the boost clock give ~4.2e12 a second (the forward-backward
+# kernels K15 / K16 are mostly exps and logs)
+SFU_PER_S = 132 * 16 * SM_CLOCK_HZ
+
+
+def bound(n_bytes: float, n_ops: float, n_sfu: float = 0.0):
     """``(ms, "bytes" | "operations")``: the least time the card could
-    take to move ``n_bytes`` and do ``n_ops``, and which of the two sets it."""
+    take to move ``n_bytes``, do ``n_ops`` f32 operations and ``n_sfu``
+    exps and logs (the largest of the three; the SFU term counts as
+    operations), and which sets it."""
     t_b, t_o = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+    t_o = max(t_o, n_sfu / SFU_PER_S * 1e3)
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -247,6 +289,60 @@ def rescore_ops(t_len: int, b: int, l: int, k: int, dense: bool) -> float:
     min-plus column (2L) plus 3."""
     per_leaf = 2 * l + 3 if dense else 6 + 2 * k
     return float(t_len) * b * l * per_leaf
+
+
+def fb_frames(nf, t_len: int) -> int:
+    """(item, frame) steps a forward-backward kernel computes: frames below
+    each item's length, and frame 0 of an empty item."""
+    return int(nf.clamp(min=1, max=t_len).sum())
+
+
+def fb_dense_work(nll, trans, eps, init, end, nf, depth: int, out):
+    """``(bytes, operations, exps and logs)`` of K16 on these inputs: per
+    frame step, forward and backward, a logsumexp over every (to, from)
+    pair of the frame edges and of each eps pass (two passes of an add and
+    a max, then an add, a subtract, an add and an exp; a log a row) and a
+    logaddexp a state an eps pass; then the xi terms (3 a state with band
+    xi, S with dense) and gamma."""
+    s = nll.shape[2]
+    f = fb_frames(nf, nll.shape[1])
+    passes = 1 + (depth if eps is not None else 0)
+    xi_terms = out.xi_sum.shape[1] * s
+    sfu = f * (2 * (passes * (s * s + s) + 2 * (passes - 1) * s) + xi_terms + s)
+    ops = f * (2 * passes * 5 * s * s + 5 * xi_terms + 20 * s)
+    return nbytes(nll, trans, eps, init, end, nf, out.gamma, out.xi_sum, out.log_z), ops, sfu
+
+
+def fb_banded_work(nll, g, nf, depth: int, end, out):
+    """``(bytes, operations, exps and logs)`` of K15 on these inputs: per
+    frame step, forward and backward, a 3-term logsumexp a state (4 exps
+    and logs), the cross edge's logaddexp, each eps pass's finite spans of
+    the eps block (an exp a pair, a log a row or column, a logaddexp a
+    state), then xi (3 a state, 1 more with cross edges) and gamma."""
+    import torch
+
+    from speech_recognition_tpu_torch.utils.numerics import POS_INF
+
+    s = nll.shape[2]
+    f = fb_frames(nf, nll.shape[1])
+    fin = g.eps_block < POS_INF / 2
+    b = nll.shape[0] if g.band.dim() == 3 else 1
+    cross = g.cross_src is not None
+    per = {}
+    for dim in (-1, -2):  # row spans (forward), column spans (backward)
+        any_ = fin.any(dim)
+        lo = torch.argmax(fin.int(), dim)
+        hi = fin.shape[dim] - torch.argmax(fin.int().flip(dim), dim)
+        per[dim] = float(torch.where(any_, hi - lo, 0).sum()) / b
+    r, l = g.word_starts.shape[-1], g.word_ends.shape[-1]
+    sfu = f * (8 * s + (4 * s if cross else 0)
+               + depth * (per[-1] + per[-2] + r + l + 4 * s) + 4 * s + (s if cross else 0))
+    ops = f * (2 * 12 * s + (12 * s if cross else 0)
+               + depth * 5 * (per[-1] + per[-2]) + 5 * 4 * s)
+    graph = [g.band, g.init_cost, g.eps_block, g.word_starts, g.word_ends, g.start_pos,
+             g.is_start, g.cross_src, g.cross_cost]
+    return (nbytes(nll, *graph, end, nf, out.gamma, out.xi_sum, out.xi_cross, out.log_z),
+            ops, sfu)
 
 
 def fail(msg: str) -> None:
@@ -1101,6 +1197,140 @@ def main() -> int:
                  f"frontier in device memory) at 2x4: final, bp, eps_bp == plain "
                  f"(bit-identical)")
 
+    # ---- 4g. K15 / K16 (the forward-backward) vs their plain versions --------
+    # K15 on the loop graph, the 385-state sausage at 256 x 500 (emissions
+    # from K13's plane, lengths T, 1, 0 and mixed), a sausage of 1-state words
+    # (eps depth > 1), the 1k trie's lexgraph (cross edges, -inf end scores
+    # off the word ends) and the padded per-item banded dict of 419 transcript
+    # graphs; K16 at 419 x 319 on the same transcripts (per-item matrices,
+    # both xi modes) and on a 170-state loop past its shared-memory tier
+    from speech_recognition_tpu_torch.models.graph import (
+        pad_graphs,
+        pad_graphs_banded,
+        transcript_graph,
+    )
+    from speech_recognition_tpu_torch.models.hmm import bank_nll
+    from speech_recognition_tpu_torch.ops import forward_backward_kernels as fbk
+    from speech_recognition_tpu_torch.ops.viterbi_banded import BandedGraph
+
+    def fb_errors(got, want):
+        """``(log Z relative, gamma absolute, xi absolute, xi relative)``
+        differences, with the cross counts in the xi terms."""
+        xg = [got.xi_sum] + ([got.xi_cross] if got.xi_cross is not None else [])
+        xw = [want.xi_sum] + ([want.xi_cross] if want.xi_cross is not None else [])
+        fin = torch.isfinite(want.log_z)
+        zr = float(((got.log_z - want.log_z).abs() / want.log_z.abs().clamp(min=1e-30))[fin]
+                   .max()) if bool(fin.any()) else 0.0
+        if not torch.equal(torch.isfinite(got.log_z), fin):
+            zr = float("inf")
+        return (zr, float((got.gamma - want.gamma).abs().max()),
+                max(float((a - b).abs().max()) for a, b in zip(xg, xw)),
+                max(float(((a - b).abs() - FB_XI_TOL["atol"]).clamp(min=0).div(
+                    b.abs().clamp(min=1e-30)).max()) for a, b in zip(xg, xw)))
+
+    def fb_check(kernel, name, got, want):
+        zr, ga, xa_, xr = fb_errors(got, want)
+        finite = all(bool(torch.isfinite(x).all()) for x in (got.gamma, got.xi_sum))
+        if not (finite and zr <= FB_TOL["log_z_rtol"] and ga <= FB_TOL["gamma_atol"]
+                and xr <= FB_XI_TOL["rtol"]):
+            fail(f"{kernel} disagrees with its plain version on {name}: log Z rel {zr:.3g}, "
+                 f"gamma {ga:.3g}, xi {xa_:.3g} (rel past atol {xr:.3g})")
+        phase(kernel, f"{name}: log Z rel {zr:.2g}, gamma |d| {ga:.2g}, xi |d| {xa_:.2g} "
+                      f"(tolerances {FB_TOL}, xi {FB_XI_TOL})")
+        return max(ga, xa_)
+
+    fb_rng = np.random.default_rng(13)
+    fb_err = {"K15": 0.0, "K16": 0.0}
+    bg7 = planes["sausage7"][0]
+    B15, T15 = 256, 500
+    nll15 = nll13[bg7.bank_state].permute(2, 1, 0)[:B15].contiguous()
+    nf15 = nf[:B15].clone()
+    nf15[2] = 0
+    bgl = banded_arrays(graphs["loop"], device=dev)
+    nll_loop = nll13[bgl.bank_state].permute(2, 1, 0)[:128, :200].contiguous()
+    nf_loop = nf[:128].clamp(max=200)
+    one_g = build_word_graph([np.array([[0.7]], np.float32)] + trans[:3], [[0, 1, 2, 3]] * 5)
+    bg_one = banded_arrays(one_g, device=dev)
+    nll_one = torch.from_numpy(fb_rng.uniform(40, 60, (32, 100, one_g.n_states)).astype(
+        np.float32)).to(dev)
+    nf_one = torch.from_numpy(np.r_[100, 0, 1, fb_rng.integers(2, 101, 29)].astype(
+        np.int32)).to(dev)
+    from speech_recognition_tpu_torch.data.lexicon import bench_lexicon
+    from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+
+    lex_w, lex_t, lex_ids, _ = bench_lexicon()
+    g_lex = build_lex_graph(lex_w, lex_t, lex_ids, word_insertion_cost=0.5).banded.to(dev)
+    end_lex = torch.full((g_lex.n_states,), -float("inf"), device=dev)
+    end_lex[g_lex.end_states] = 0.0
+    nll_lex = torch.from_numpy(fb_rng.uniform(40, 60, (16, 200, g_lex.n_states)).astype(
+        np.float32)).to(dev)
+    nf_lex = torch.from_numpy(np.r_[200, 1, fb_rng.integers(2, 201, 14)].astype(np.int32)
+                              ).to(dev)
+    # 419 transcripts of 1-7 digits over the bank's words: the soft-EM shape
+    B16, T16 = 419, 319
+    tr_graphs = [transcript_graph(trans, [int(x) for x in fb_rng.integers(
+        0, 11, fb_rng.integers(1, 8))]) for _ in range(B16)]
+    gd16, depth16 = pad_graphs(tr_graphs)
+    g16 = {k: torch.as_tensor(gd16[k], device=dev) for k in
+           ("trans", "eps_trans", "init_cost", "end_scores", "bank_state")}
+    feats16 = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (B16, T16, 39)).astype(np.float32)).to(dev)
+    nf16 = torch.from_numpy(np.r_[T16, 1, 0, fb_rng.integers(T16 // 2, T16 + 1, B16 - 3)]
+                            .astype(np.int32)).to(dev)
+    s16 = g16["trans"].shape[1]
+    nll16 = bank_nll(bank, feats16).gather(
+        2, g16["bank_state"].long()[:, None, :].expand(B16, T16, s16)).contiguous()
+    gbd, depth_b = pad_graphs_banded(tr_graphs)
+    g15t = BandedGraph(*[torch.as_tensor(gbd[k], device=dev) for k in (
+        "band", "init_cost", "word_starts", "word_ends", "eps_block", "start_pos", "is_start")],
+        end_states=None, end_bonus=None,
+        bank_state=torch.as_tensor(gbd["bank_state"], device=dev))
+    end15t = torch.as_tensor(gbd["end_scores"], device=dev)
+    fb15_cases = {
+        "loop graph 128x200": (nll_loop, bgl, nf_loop, 1, None),
+        f"385-state sausage7 {B15}x{T15} (lengths T, 1, 0, mixed)": (nll15, bg7, nf15, 1, None),
+        f"sausage of 1-state words ({one_g.n_states} states, eps depth {one_g.eps_depth}) "
+        f"32x100": (nll_one, bg_one, nf_one, one_g.eps_depth, None),
+        f"1k trie lexgraph ({g_lex.n_states} states, cross edges) 16x200":
+            (nll_lex, g_lex, nf_lex, 1, end_lex),
+        f"{B16} padded transcript graphs (per-item banded dict) {B16}x{T16}":
+            (nll16, g15t, nf16, depth_b, end15t),
+    }
+    for name, (x_, g_, n_, d_, e_) in fb15_cases.items():
+        got = fbk.fb_banded(x_, g_, n_, d_, e_)
+        want = fbk.fb_banded_ref(x_, g_, n_, d_, e_)
+        torch.cuda.synchronize()
+        fb_err["K15"] = max(fb_err["K15"], fb_check("K15", name, got, want))
+    if one_g.eps_depth < 2:
+        fail("the 1-state words' sausage has eps depth 1")
+    loop34 = build_loop_graph([trans[i % 11] for i in range(34)])
+    g34 = {k: torch.as_tensor(getattr(loop34, k), device=dev)
+           for k in ("trans", "eps_trans", "init_cost")}
+    nll34 = torch.from_numpy(fb_rng.uniform(40, 60, (8, 60, loop34.n_states)).astype(
+        np.float32)).to(dev)
+    nf34 = torch.tensor([60, 0, 1, 17, 60, 33, 59, 2], dtype=torch.int32, device=dev)
+    fb16_cases = {
+        f"{B16} padded transcript graphs {B16}x{T16}":
+            (nll16, g16["trans"], g16["init_cost"], nf16, g16["eps_trans"], depth16,
+             g16["end_scores"]),
+        f"{loop34.n_states}-state loop 8x60 (past the shared-memory tier)":
+            (nll34, g34["trans"], g34["init_cost"], nf34, g34["eps_trans"], 1, None),
+    }
+    for name, args_ in fb16_cases.items():
+        for mode in ("band", "dense"):
+            plan = fbk.dense_plan(args_[0].shape[2], True, mode == "dense",
+                                  lib.fb_dense_smem_bytes, lib.srt_smem_limit())
+            got = fbk.fb_dense(*args_, xi_mode=mode)
+            want = fbk.fb_dense_ref(*args_, xi_mode=mode)
+            torch.cuda.synchronize()
+            where = "shared memory" if plan.mats else "device memory through L1"
+            fb_err["K16"] = max(fb_err["K16"], fb_check(
+                "K16", f"{name}, xi {mode} (matrices in {where})", got, want))
+            if name.startswith(str(loop34.n_states)) and plan.mats:
+                fail(f"K16's plan keeps the {loop34.n_states}-state matrices in shared memory")
+    report["K15"] = {"max_abs_err": fb_err["K15"]}
+    report["K16"] = {"max_abs_err": fb_err["K16"]}
+
     # ---- 5. K4 + K5 vs their plain versions -------------------------------
     from speech_recognition_tpu_torch.data.lexicon import (
         bench_lexicon,
@@ -1280,7 +1510,8 @@ def main() -> int:
                 vk.banded_backtrace_val,
                 lk.viterbi_lex, lk.lex_backtrace_val, lt.viterbi_lattice, lt.rescore_lattice,
                 vk.viterbi_banded_general, vk.banded_backtrace_general,
-                vk.viterbi_banded_wordtrace, viterbi_dense, mfcc_fused)
+                vk.viterbi_banded_wordtrace, viterbi_dense, mfcc_fused, fbk.fb_banded,
+                fbk.fb_dense)
     bigram = "--lm bigram"
     k3 = (mfcc39_fused, mfcc_tail)
     paths = {"connected": (("loop", "sausage"), (*k3, vk.bank_emission,
@@ -1574,6 +1805,107 @@ def main() -> int:
                      f"({dense_form(kw_)}), {len(calls)} calls on the path: final, bp, "
                      f"eps_bp == plain (bit-identical, every frame)")
 
+    # soft EM through the CLI on the card and on the CPU, from the same
+    # isolated bank (the cuda-trained one): continuous_train --algo soft (3
+    # iterations, the dense dict: K16), then connected_test of its last bank;
+    # then connected_test --graph loop --confidence with that bank (K3 + K1 +
+    # K2 + K15); counters reset just before each cuda run
+    iso_bank = os.path.join(tmp, "trained_cuda.npz")
+    soft_out, soft_wall, k16_calls = {}, {}, []
+    for d in ("cuda", "cpu"):
+        soft_d = os.path.join(tmp, f"soft_{d}")
+
+        def soft_run(d=d, soft_d=soft_d):
+            t0 = time.perf_counter()
+            out = {"continuous_train": run_action(
+                ["continuous_train", "-i", iso_bank, "-d", tr_dir, "-o", soft_d, "--algo", "soft",
+                 "--iterations", "3", "--device", d])}
+            wall = time.perf_counter() - t0
+            out["connected_test"] = run_action(["connected_test", "-i", os.path.join(
+                soft_d, "bank_00002.npz"), "-d", te_dir, "--device", d])
+            return out, wall
+
+        if d == "cuda":
+            with recording(est, "forward_backward", k16_calls):
+                soft_out[d], soft_wall[d] = counted(
+                    "soft training", soft_run, (*k3, fbk.fb_dense, vk.bank_emission,
+                                                vk.viterbi_banded_fused, vk.banded_backtrace_val),
+                    (fbk.fb_banded, viterbi_dense))
+        else:
+            soft_out[d], soft_wall[d] = soft_run()
+    soft_costs = {d: [float(l.split()[-1]) for l in o["continuous_train"].splitlines()
+                      if l.startswith("iteration")] for d, o in soft_out.items()}
+    if len(soft_costs["cuda"]) != 3 or not np.allclose(soft_costs["cuda"], soft_costs["cpu"],
+                                                       rtol=1e-4, atol=0):
+        fail(f"continuous_train --algo soft costs differ between cuda and cpu: {soft_costs}")
+    if not soft_costs["cuda"][-1] < soft_costs["cuda"][0]:
+        fail(f"soft EM did not lower the total NLL: {soft_costs['cuda']}")
+    soft_ok = {d: sum(l.startswith("Correct:") for l in o["connected_test"].splitlines())
+               for d, o in soft_out.items()}
+    if soft_ok["cuda"] != soft_ok["cpu"] or len(word_lines(soft_out["cuda"][
+            "connected_test"])) != n_te:
+        fail(f"connected_test after soft EM: cuda decodes {soft_ok['cuda']} of {n_te} wavs "
+             f"right, cpu {soft_ok['cpu']}")
+    phase("main path", f"continuous_train --algo soft --iterations 3 --device cuda vs cpu: "
+                       f"costs {soft_costs['cuda']} / {soft_costs['cpu']} (rtol 1e-4); "
+                       f"connected_test {soft_ok['cuda']} / {soft_ok['cpu']} of {n_te} wavs "
+                       f"right; wall s {soft_wall['cuda']:.2f} / {soft_wall['cpu']:.2f}")
+    # K16 at the shape the soft path gave it (the first iteration's call)
+    args_, kw_ = k16_calls[0]
+    got, want = fbk.fb_dense(*args_, **kw_), fbk.fb_dense_ref(*args_, **kw_)
+    torch.cuda.synchronize()
+    k16_train = (args_, kw_)
+    fb_err["K16"] = max(fb_err["K16"], fb_check(
+        "K16", f"soft-EM shape {tuple(args_[0].shape)} from the CLI run, xi "
+               f"{kw_.get('xi_mode')}, {len(k16_calls)} calls on the path", got, want))
+    report["K16"] = {"max_abs_err": fb_err["K16"]}
+    conf_bank = os.path.join(tmp, "soft_cuda", "bank_00002.npz")
+    conf_cmd = ["connected_test", "-i", conf_bank, "-d", te_dir, "--graph", "loop",
+                "--confidence", "--device"]
+    conf_mod = importlib.import_module("speech_recognition_tpu_torch.decode.confidence")
+    k15_calls = []
+    with recording(conf_mod, "forward_backward_banded", k15_calls):
+        conf_out = {"cuda": counted("confidence", lambda: run_action(conf_cmd + ["cuda"]),
+                                    (*k3, vk.bank_emission, vk.viterbi_banded_fused,
+                                     vk.banded_backtrace_val, fbk.fb_banded), (fbk.fb_dense,))}
+    conf_out["cpu"] = run_action(conf_cmd + ["cpu"])
+    # K15 at the shape and on the inputs the confidence path gave it (the
+    # loop graph, bank_nll's emissions, -inf end scores off the word ends)
+    args_, kw_ = k15_calls[0]
+    got, want = fbk.fb_banded(*args_, **kw_), fbk.fb_banded_ref(*args_, **kw_)
+    torch.cuda.synchronize()
+    fb_err["K15"] = max(fb_err["K15"], fb_check(
+        "K15", f"confidence path {tuple(args_[0].shape)} on the loop graph from the CLI run, "
+               f"{len(k15_calls)} call(s) on the path", got, want))
+    report["K15"] = {"max_abs_err": fb_err["K15"]}
+
+    def conf_rows(out):
+        rows = {}
+        for line in out.splitlines():
+            if line.startswith("confidence "):
+                name, rest = line[len("confidence "):].split(": ", 1)
+                rows[name] = [x.rsplit(":", 1) for x in rest.split()]
+        return rows
+
+    rows_c, rows_p = conf_rows(conf_out["cuda"]), conf_rows(conf_out["cpu"])
+    if word_lines(conf_out["cuda"]) != word_lines(conf_out["cpu"]) or \
+            sorted(rows_c) != sorted(rows_p) or len(rows_c) != n_te:
+        fail("connected_test --confidence: cuda and cpu decode other words or files")
+    conf_d = 0.0
+    for name in rows_c:
+        if [w for w, _ in rows_c[name]] != [w for w, _ in rows_p[name]]:
+            fail(f"connected_test --confidence: other words for {name} on cuda and cpu")
+        conf_d = max([conf_d] + [abs(float(a) - float(b)) for (_, a), (_, b) in
+                                 zip(rows_c[name], rows_p[name])])
+    if conf_d > CONF_ATOL:
+        fail(f"connected_test --confidence: a confidence differs by {conf_d} between cuda "
+             f"and cpu (limit {CONF_ATOL})")
+    confs = [float(c) for r in rows_c.values() for _, c in r]
+    phase("main path", f"connected_test --graph loop --confidence on {n_te} wavs, cuda vs "
+                       f"cpu: the same words ({len(confs)} with confidences), largest "
+                       f"confidence difference {conf_d:.3g} (limit {CONF_ATOL}); mean "
+                       f"confidence {np.mean(confs):.3f}")
+
     # ---- 6c. training timings: isolated_train per digit, one
     # continuous_train iteration by stage (CUDA events) ----------------------
     tcfg = FrontendConfig()
@@ -1718,6 +2050,40 @@ def main() -> int:
                     f"{emb_dev:.3f} of {emb_ms[whole]:.3f} ms (idle share "
                     f"{1 - emb_dev / emb_ms[whole]:.3f}); fit_hmm of digit 0 {fit0_dev:.3f} of "
                     f"{fit0_ms:.3f} ms (idle share {1 - fit0_dev / fit0_ms:.3f}) ({card})")
+
+    # one soft (Baum-Welch) iteration on the same bank and corpus, split by
+    # stage inside each embedded_step_soft call
+    soft_stages = {"bank_nll": (est, "bank_nll"), "K16": (est, "forward_backward"),
+                   "statistics GEMMs": (est, "soft_stats"), "M-step": (est, "soft_update")}
+
+    def soft_iteration():
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        g_, depth_ = est.compose_graphs(bank_c, clabels, 11, end_scores=True)
+        e1.record()
+        est.embedded_step_soft(bank_c, f_c, n_c, g_, eps_depth=depth_)
+        e2.record()
+        e2.synchronize()
+        split = {"graph composition (host)": e0.elapsed_time(e1), **stage_sums()[0]}
+        split["rest"] = e1.elapsed_time(e2) - sum(split[k] for k in soft_stages)
+        split["whole embedded_step_soft"] = e1.elapsed_time(e2)
+        return split
+
+    with evented(soft_stages):
+        soft_iteration()
+        soft_splits = [soft_iteration() for _ in range(5)]
+    soft_ms = {k: statistics.median(sp[k] for sp in soft_splits) for k in soft_splits[0]}
+    gs_c, ds_c = est.compose_graphs(bank_c, clabels, 11, end_scores=True)
+    soft_dev = device_ms(lambda: est.embedded_step_soft(bank_c, f_c, n_c, gs_c, eps_depth=ds_c),
+                         reps=3, what="one soft embedded step")
+    whole_s = "whole embedded_step_soft"
+    phase("timing", f"one continuous_train --algo soft iteration, {bc} utterances x {tc_} "
+                    f"frames, {gs_c['bank_state'].shape[1]} graph states, by stage inside each "
+                    f"call: " + ", ".join(f"{k} {v:.3f} ms" for k, v in soft_ms.items())
+                    + f" (CUDA-event medians of 5 calls; {card})")
+    phase("timing", f"device busy (torch.profiler) against event time: embedded_step_soft "
+                    f"{soft_dev:.3f} of {soft_ms[whole_s]:.3f} ms (idle share "
+                    f"{1 - soft_dev / soft_ms[whole_s]:.3f}) ({card})")
 
     # ---- 7. timings ---------------------------------------------------------
     t = {}
@@ -2188,6 +2554,65 @@ def main() -> int:
     phase("timing", "bigram pipeline stages alone: " + ", ".join(
         f"{k} {ms:.3f} ms" for k, ms in stage_ms.items()) + f" (CUDA-event median; {card})")
 
+    # K15 at the confidence decode's shape (256 x 500 on the 385-state
+    # sausage), K16 at the soft-EM path's own call (419 x 319 transcripts),
+    # each beside its plain version; device times; then the K15 / K16
+    # crossover on padded transcript graphs of 30-400 states at 256 x 300
+    k15_args = (nll15, bg7, nf15)
+    t["K15"] = (cuda_ms(lambda: fbk.fb_banded(*k15_args)),
+                cuda_ms(lambda: fbk.fb_banded_ref(*k15_args), reps=1))
+    t["K16"] = (cuda_ms(lambda: fbk.fb_dense(*k16_train[0], **k16_train[1])),
+                cuda_ms(lambda: fbk.fb_dense_ref(*k16_train[0], **k16_train[1]), reps=1))
+    fb_dev = {"K15": device_ms(lambda: fbk.fb_banded(*k15_args), what="K15"),
+              "K16": device_ms(lambda: fbk.fb_dense(*k16_train[0], **k16_train[1]),
+                               what="K16")}
+    k16_synth = fb16_cases[f"{B16} padded transcript graphs {B16}x{T16}"]
+    k16_synth_ms = cuda_ms(lambda: fbk.fb_dense(*k16_synth, xi_mode="band"))
+    k15_tr_ms = cuda_ms(lambda: fbk.fb_banded(nll16, g15t, nf16, depth_b, end15t))
+    # the sweep: 256 padded transcript graphs of n words each, all 300
+    # frames, with optional silence arcs (model 10 standing in for the
+    # silence model, as continuous_train composes them for a bank that has
+    # one) and without; the constant is set from the first
+    from speech_recognition_tpu_torch.models.graph import BANDED_FB_MIN_STATES
+
+    sweeps = {}
+    for kind, sil_, n_ws in (("with silence", 10, (2, 3, 4, 5, 6, 8, 12, 16, 24, 32, 40)),
+                             ("without silence", None, (6, 8, 10, 12, 16, 24, 32, 48, 64, 80))):
+        sweeps[kind] = []
+        for n_w in n_ws:
+            gs_ = [transcript_graph(trans, [int(x) for x in fb_rng.integers(0, 10, n_w)],
+                                    sil=sil_) for _ in range(256)]
+            gd_, dd_ = pad_graphs(gs_)
+            gdt = [torch.as_tensor(gd_[k], device=dev) for k in ("trans", "init_cost")]
+            eps_, end_ = (torch.as_tensor(gd_[k], device=dev) for k in ("eps_trans",
+                                                                        "end_scores"))
+            gb_, db_ = pad_graphs_banded(gs_)
+            gbt = BandedGraph(*[torch.as_tensor(gb_[k], device=dev) for k in (
+                "band", "init_cost", "word_starts", "word_ends", "eps_block", "start_pos",
+                "is_start")], end_states=None, end_bonus=None, bank_state=None)
+            s_ = gdt[0].shape[1]
+            x_ = torch.from_numpy(fb_rng.uniform(40, 60, (256, 300, s_)).astype(
+                np.float32)).to(dev)
+            n_ = torch.full((256,), 300, dtype=torch.int32, device=dev)
+            sweeps[kind].append((s_, cuda_ms(lambda: fbk.fb_dense(x_, *gdt, n_, eps_, dd_, end_,
+                                                                  "band"), reps=3),
+                                 cuda_ms(lambda: fbk.fb_banded(x_, gbt, n_, db_, end_), reps=3)))
+        sweep = sweeps[kind]
+        cross_s = next((s_ for i, (s_, _, _) in enumerate(sweep)
+                        if all(k15 < k16 for _, k16, k15 in sweep[i:])), None)
+        fb_line = "; ".join(f"S={s_}: K16 {k16:.3f}, K15 {k15:.3f}" for s_, k16, k15 in sweep)
+        phase("timing", f"K15 / K16 crossover on padded transcript graphs {kind} at 256x300 "
+                        f"(ms): {fb_line}; K15 is faster from S={cross_s} on; "
+                        f"BANDED_FB_MIN_STATES = {BANDED_FB_MIN_STATES} (CUDA-event medians of "
+                        f"3; {card})")
+    phase("timing", f"K15 385-state sausage7 {B15}x{T15}: {t['K15'][0]:.3f} ms event, "
+                    f"{fb_dev['K15']:.3f} ms device, plain {t['K15'][1]:.3f} ms; K15 on the "
+                    f"{B16} transcripts' banded dict {k15_tr_ms:.3f} ms; K16 at the soft-EM "
+                    f"path's call {tuple(k16_train[0][0].shape)}: {t['K16'][0]:.3f} ms event, "
+                    f"{fb_dev['K16']:.3f} ms device, plain {t['K16'][1]:.3f} ms; K16 on the "
+                    f"synthetic {B16}x{T16} transcripts {k16_synth_ms:.3f} ms (CUDA-event "
+                    f"median; {card})")
+
     # ---- 8. bounds ----------------------------------------------------------
     sum_nf = int(nf.clamp(max=T).sum())  # K1 / K2 / K10 streams stop at nf
     sum_nf8 = int(nf8.clamp(max=T).sum())
@@ -2225,6 +2650,12 @@ def main() -> int:
                 + sum_nf * bg.n_words * (fwd[1].element_size() + 4),
                 sum_nf * (2 * w.numel() + 4 * w_units) + dp_ops(bg, sum_nf, span_pairs(topo))),
     }
+    # K15 / K16 (their plain versions' outputs give the output sizes)
+    out15 = fbk.fb_banded_ref(*k15_args)
+    out16 = fbk.fb_dense_ref(*k16_train[0], **k16_train[1])
+    x16, tr16, in16, n16, ep16, d16_, en16 = k16_train[0]
+    work["K15"] = fb_banded_work(nll15, bg7, nf15, 1, None, out15)
+    work["K16"] = fb_dense_work(x16, tr16, ep16, in16, en16, n16, d16_, out16)
     # K11: the isolated path stops each item at its length and writes no
     # planes; with planes every frame is computed and both planes written
     def k11_work(kw, planes=True):
@@ -2302,6 +2733,12 @@ def main() -> int:
         **{f"K11 with planes, {name}": (*k11_work(dense_cases[name]), ms)
            for name, (ms, _) in k11_ms.items()},
     }
+    more["K16 synthetic transcripts, band xi"] = (*fb_dense_work(
+        *k16_synth[:1], k16_synth[1], k16_synth[4], k16_synth[2], k16_synth[6], k16_synth[3],
+        k16_synth[5], fbk.fb_dense_ref(*k16_synth, xi_mode="band")), k16_synth_ms)
+    more["K15 transcripts' banded dict"] = (*fb_banded_work(
+        nll16, g15t, nf16, depth_b, end15t, fbk.fb_banded_ref(nll16, g15t, nf16, depth_b,
+                                                              end15t)), k15_tr_ms)
     bounds = {k: bound(*v) for k, v in work.items()}
     # a serial walk's floor beside its byte bound: its longest stream's
     # frames as dependent shared-memory loads (~30 cycles each on Hopper)
@@ -2311,9 +2748,10 @@ def main() -> int:
         floor_ms = int(nf_.clamp(max=TL).max()) * SMEM_STEP_CYCLES / SM_CLOCK_HZ * 1e3
         phase("bound", f"{name}: serial floor {floor_ms:.4f} ms ({int(nf_.max())} dependent "
                        f"shared-memory steps); the kernel took {ms / floor_ms:.1f}x it")
-    for k, (n_b, n_o, ms) in [(k, (*v, t[k][0])) for k, v in work.items()] + list(more.items()):
-        b_ms, by = bound(n_b, n_o)
-        phase("bound", f"{k}: {n_b / 1e6:.1f} MB, {n_o / 1e9:.2f} G operations -> "
+    for k, (*w_, ms) in [(k, (*v, t[k][0])) for k, v in work.items()] + list(more.items()):
+        b_ms, by = bound(*w_)
+        sfu = f", {w_[2] / 1e9:.2f} G exps and logs" if len(w_) > 2 else ""
+        phase("bound", f"{k}: {w_[0] / 1e6:.1f} MB, {w_[1] / 1e9:.2f} G operations{sfu} -> "
                        f"{b_ms:.4f} ms, bound by {by}; the kernel took {ms / b_ms:.0f}x it")
 
     bad = sorted(m for m in sys.modules if m in ("jax", "speech_recognition_tpu")
@@ -2351,7 +2789,12 @@ def main() -> int:
            "K11": ("viterbi_dense", "speech_recognition_tpu_torch/csrc/viterbi_dense.cu",
                    "speech_recognition_tpu/ops/pallas_kernels.py:59"),
            "K12": ("mfcc_fused", "speech_recognition_tpu_torch/csrc/mfcc39.cu",
-                   "speech_recognition_tpu/ops/pallas_kernels.py:294")}
+                   "speech_recognition_tpu/ops/pallas_kernels.py:294"),
+           # no TPU kernel: these replace the JAX package's lax.scan passes
+           "K15": ("fb_banded", "speech_recognition_tpu_torch/csrc/forward_backward.cu",
+                   "speech_recognition_tpu/ops/forward_backward.py:259"),
+           "K16": ("fb_dense", "speech_recognition_tpu_torch/csrc/forward_backward.cu",
+                   "speech_recognition_tpu/ops/forward_backward.py:62")}
     # each kernel's launches over the path runs above (no single PyTorch
     # call computes any of these functions: library_ms is null)
     n_launch = {fn: sum(p[fn] for p in launches.values()) for fn in launches["connected"]}

@@ -10,18 +10,22 @@ word model per digit from ``<SPEAKER>_<digit>[AB].wav`` files: MFCC-39
 a word in one launch) -> mixture splitting with k-means and EM
 (``--no-gmm``: single-Gaussian segmental K-means templates; ``--no-em``:
 k-means only; ``--norm cmvn``: corpus CMVN; ``--silence``: a silence
-model from the non-speech regions).  ``continuous_train --algo hard``
-runs embedded Viterbi-EM iterations on connected-digit strings
-(per-utterance transcript graphs, K11 with per-utterance matrices, one
-bank of statistics GEMMs) and writes ``bank_NNNNN.npz`` each iteration,
-resuming from the newest; ``--algo soft`` is not ported yet.
+model from the non-speech regions).  ``continuous_train`` runs embedded
+training iterations on connected-digit strings and writes
+``bank_NNNNN.npz`` each iteration, resuming from the newest: ``--algo
+hard`` Viterbi-EM (per-utterance transcript graphs, K11 with
+per-utterance matrices, one bank of statistics GEMMs), ``--algo soft``
+Baum-Welch (the same graphs, the dense forward-backward K16, gamma-
+weighted statistics GEMMs).
 
 ``connected_test``: wavs -> MFCC-39 (kernel K3 on CUDA) -> banded
 connected decode (kernels K1 + K2 on CUDA; K8 + K9 for graphs the fused
 kernels refuse, such as a sausage of 1-state words), or with ``--graph
 lextree`` the lexical-tree decode (kernels K4 + K5 on CUDA) -> word ids,
 scored against the Aurora-style transcripts in the file names.  Output
-lines match the reference CLI.
+lines match the reference CLI.  ``--confidence`` (``--graph loop``)
+re-derives each path (K1 + K2), runs the banded forward-backward over
+the loop graph (K15) and prints each word's mean frame posterior.
 
 ``--lm bigram`` fits an add-k bigram on the transcripts of ``--lm-train``
 (default: the test transcripts, with a warning), scales it by
@@ -45,17 +49,19 @@ Run:  python -m speech_recognition_tpu_torch.cli synth -o data
       python -m speech_recognition_tpu_torch.cli isolated_train -i data/train \
           -o bank.npz [--silence] [--device cuda|cpu]
       python -m speech_recognition_tpu_torch.cli continuous_train -i bank.npz \
-          -d data/train -o models-continuous --algo hard
+          -d data/train -o models-continuous --algo hard|soft
       python -m speech_recognition_tpu_torch.cli connected_test \
           -i bank.npz -d wav_dir [--graph loop|sausage|lextree] \
-          [--lm none|bigram] [--decoder auto|compose|lattice] [--device cuda|cpu]
+          [--lm none|bigram] [--decoder auto|compose|lattice] [--confidence] \
+          [--device cuda|cpu]
       python -m speech_recognition_tpu_torch.cli isolated_test -i bank.npz -d wav_dir
       python -m speech_recognition_tpu_torch.cli align -i bank.npz -d wav_dir \
           -o alignments.jsonl
 
 The device is explicit (default ``cuda``); asking for CUDA on a host
-without it is an error, never a silent CPU run.  Other actions are not
-ported yet (ROADMAP queue A).
+without it is an error, never a silent CPU run.  Other actions
+(``stream``, ``spellcheck``, ``record``) are not ported yet (ROADMAP
+queue A).
 """
 
 from __future__ import annotations
@@ -290,16 +296,17 @@ def cmd_continuous_train(args):
         labels_from_transcript,
         transcript_from_filename,
     )
-    from speech_recognition_tpu_torch.train.embedded_step import compose_graphs, embedded_step
+    from speech_recognition_tpu_torch.train.embedded_step import (
+        compose_graphs,
+        embedded_step,
+        embedded_step_soft,
+    )
     from speech_recognition_tpu_torch.utils.checkpoint import (
         latest_iteration,
         load_bank,
         save_iteration,
     )
 
-    if args.algo == "soft":
-        raise NotImplementedError("continuous_train --algo soft (Baum-Welch) is not ported "
-                                  "yet: ROADMAP queue A item 3")
     dev = _device(args.device)
     start_it = 0
     it_found, ckpt = latest_iteration(args.output)
@@ -323,9 +330,11 @@ def cmd_continuous_train(args):
     if sil is not None:
         print(f"using optional silence arcs (model {sil}) in alignment graphs")
     keep = {k: v for k, v in meta.items() if k != "arrays"}
+    soft = args.algo == "soft"
+    step = embedded_step_soft if soft else embedded_step
     for it in range(start_it, start_it + args.iterations):
-        g, eps_depth = compose_graphs(bank, labels, sil)
-        new_bank, stats = embedded_step(bank, feats, nf, g, eps_depth=eps_depth)
+        g, eps_depth = compose_graphs(bank, labels, sil, end_scores=soft)
+        new_bank, stats = step(bank, feats, nf, g, eps_depth=eps_depth)
         cost = float(stats.total_cost)
         print(f"iteration {it}: total alignment cost {cost:.1f}")
         save_iteration(args.output, it, new_bank, {**keep, "cost": cost},
@@ -422,10 +431,32 @@ def cmd_connected_test(args):
     for h, r in zip(hyps, refs):
         tag = "Correct" if h == r else "Incorrect"
         print(f"{tag}: {[DIGIT_NAMES[x] for x in h]} ref {[DIGIT_NAMES[x] for x in r]}")
+    if args.confidence and args.graph == "loop":
+        _print_confidence(bank, graph, feats, nf, files)
     print("Sequence accuracy:", sequence_accuracy(hyps, refs))
     print("Digit accuracy:", positional_digit_accuracy(hyps, refs))
     print("WER:", wer(hyps, refs))
     return hyps, refs
+
+
+def _print_confidence(bank, graph, feats, nf, files):
+    """``confidence <file>: word:c ...`` lines: each path re-derived by the
+    banded decode (K1 + K2), its frame posteriors from the banded
+    forward-backward (K15), averaged over each word's frames."""
+    from speech_recognition_tpu_torch.decode.confidence import path_posteriors, word_confidence
+    from speech_recognition_tpu_torch.decode.connected import _decode_banded_batch
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+
+    bg = banded_arrays(graph, feats.device)
+    feats = feats.contiguous()
+    states, eps_flags, _ = _decode_banded_batch(bank, feats, nf, bg, eps_depth=graph.eps_depth)
+    post = path_posteriors(bank, bg, feats, nf, states, eps_depth=graph.eps_depth).cpu().numpy()
+    states, eps_flags, nb = states.cpu().numpy(), eps_flags.cpu().numpy(), nf.cpu().numpy()
+    for i, f in enumerate(files):
+        wc = word_confidence(graph, states[i], eps_flags[i], post[i], int(nb[i]))
+        pretty = " ".join(f"{DIGIT_NAMES[w] if w < len(DIGIT_NAMES) else 'sil'}:{c:.3f}"
+                          for w, c in wc)
+        print(f"confidence {os.path.basename(f)}: {pretty}")
 
 
 def cmd_isolated_test(args):
@@ -542,8 +573,7 @@ def main(argv=None):
     p.add_argument("-d", "--data", required=True, help="wav dir")
     p.add_argument("--iterations", type=int, default=10)
     p.add_argument("--algo", choices=["hard", "soft"], default="hard",
-                   help="hard = Viterbi-EM; soft = forward-backward Baum-Welch "
-                        "(not ported yet)")
+                   help="hard = Viterbi-EM; soft = forward-backward Baum-Welch")
     p.add_argument("--max-samples", type=int, default=120000)
     p.add_argument("--device", default="cuda", help=device_help)
     p.set_defaults(fn=cmd_continuous_train)
@@ -566,6 +596,8 @@ def main(argv=None):
                    help="lextree+bigram strategy: compose the LM onto the graph "
                         "(flat vocabularies only) or rescore the word lattice "
                         "(the deep-tree path); auto picks lattice for multi-unit words")
+    p.add_argument("--confidence", action="store_true",
+                   help="print per-word frame-posterior confidence (loop graph)")
     p.add_argument("--max-samples", type=int, default=120000)
     p.add_argument("--device", default="cuda", help=device_help)
     p.set_defaults(fn=cmd_connected_test)

@@ -1,6 +1,8 @@
 """Decoders of the port: isolated words (GMM-HMM bank and DTW templates),
-connected words over composed graphs, and the lexical tree."""
+connected words over composed graphs, the lexical tree, and word
+confidence from forward-backward posteriors."""
 
+from speech_recognition_tpu_torch.decode.confidence import path_posteriors, word_confidence
 from speech_recognition_tpu_torch.decode.connected import (
     connected_graph_arrays,
     decode_connected,
@@ -16,4 +18,4 @@ from speech_recognition_tpu_torch.decode.lextree import decode_lextree
 
 __all__ = ["score_models", "classify_batch", "decode_connected", "connected_graph_arrays",
            "TemplateBank", "dtw_classify_batch", "dtw_score_models", "stack_templates",
-           "decode_lextree"]
+           "decode_lextree", "path_posteriors", "word_confidence"]

@@ -21,7 +21,7 @@ import numpy as np
 from speech_recognition_tpu_torch.utils.numerics import NEG_INF, POS_INF
 
 __all__ = ["WordGraph", "build_word_graph", "build_loop_graph", "transcript_graph",
-           "pad_graphs"]
+           "pad_graphs", "pad_graphs_banded", "pad_graphs_auto", "BANDED_FB_MIN_STATES"]
 
 
 @dataclasses.dataclass
@@ -380,3 +380,69 @@ def pad_graphs(graphs: List[WordGraph]):
         "n_states": np.array([g.n_states for g in graphs], dtype=np.int32),
     }
     return batch, depth
+
+
+def pad_graphs_banded(graphs: List[WordGraph]):
+    """Banded twin of :func:`pad_graphs`: each graph's
+    ``ops.viterbi_banded.BandedGraph`` arrays padded to a common (S, R, L),
+    so soft EM runs the banded forward-backward (kernel K15) with O(3S)
+    arrays per utterance instead of the dense [S, S] pair.
+
+    Padding rows and columns of ``eps_block`` are POS_INF; padded
+    ``word_starts`` / ``word_ends`` entries point at state 0 with
+    ``is_start`` false.  Returns ``(dict of stacked numpy arrays,
+    eps_depth)`` with the BandedGraph field names plus ``end_scores`` /
+    ``bank_state`` (int32 indices, as the JAX package's)."""
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+
+    bgs = [banded_arrays(g) for g in graphs]
+    smax = max(bg.band.shape[1] for bg in bgs)
+    rmax = max(bg.word_starts.shape[0] for bg in bgs)
+    lmax = max(bg.word_ends.shape[0] for bg in bgs)
+    depth = max(g.eps_depth for g in graphs)
+
+    def pad_vec(v, fill, n, dtype=np.float32):
+        out = np.full((n,), fill, dtype=dtype)
+        out[: len(v)] = v
+        return out
+
+    cols = {k: [] for k in ("band", "init_cost", "eps_block", "word_starts", "word_ends",
+                            "start_pos", "is_start", "end_scores", "bank_state")}
+    for g, bg in zip(graphs, bgs):
+        band, blk = bg.band.numpy(), bg.eps_block.numpy()
+        cols["band"].append(np.pad(band, ((0, 0), (0, smax - band.shape[1])),
+                                   constant_values=POS_INF))
+        cols["init_cost"].append(pad_vec(bg.init_cost.numpy(), POS_INF, smax))
+        cols["eps_block"].append(np.pad(blk, ((0, rmax - blk.shape[0]), (0, lmax - blk.shape[1])),
+                                        constant_values=POS_INF))
+        cols["word_starts"].append(pad_vec(bg.word_starts.numpy(), 0, rmax, np.int32))
+        cols["word_ends"].append(pad_vec(bg.word_ends.numpy(), 0, lmax, np.int32))
+        cols["start_pos"].append(pad_vec(bg.start_pos.numpy(), 0, smax, np.int32))
+        cols["is_start"].append(pad_vec(bg.is_start.numpy(), False, smax, bool))
+        cols["end_scores"].append(_end_scores(g, smax))
+        cols["bank_state"].append(pad_vec(bg.bank_state.numpy(), 0, smax, np.int32))
+    return {k: np.stack(v) for k, v in cols.items()}, depth
+
+
+#: State count from which :func:`pad_graphs_auto` picks the banded batch
+#: (kernel K15) over the dense one (kernel K16) for sum-product training.
+#: The JAX package's 256 is a TPU measurement.  On an NVIDIA H100 80GB HBM3
+#: at 700.00 W, 256 padded transcript graphs with optional silence arcs
+#: (as ``continuous_train`` composes them) at 300 frames: K16 is faster up
+#: to 52 states (2.84 ms against 3.34), K15 from 68 on (3.69 against 4.24;
+#: 3.58 against 5.79 at 100); without silence arcs K15 wins from 96
+#: (``chip_smoke.py``'s crossover sweep; PERF.md).  Only
+#: :func:`pad_graphs_auto` reads it, and no CLI path calls that:
+#: ``continuous_train --algo soft`` composes dense graphs, as the JAX CLI
+#: does, so the constant serves callers of the API.
+BANDED_FB_MIN_STATES = 68
+
+
+def pad_graphs_auto(graphs: List[WordGraph]):
+    """The graph batch for sum-product training by size: dense
+    (:func:`pad_graphs`) below :data:`BANDED_FB_MIN_STATES`, banded
+    (:func:`pad_graphs_banded`) from it on; ``embedded_step_soft`` takes
+    either."""
+    if max(g.n_states for g in graphs) >= BANDED_FB_MIN_STATES:
+        return pad_graphs_banded(graphs)
+    return pad_graphs(graphs)

@@ -124,12 +124,14 @@ def load_library() -> ctypes.CDLL:
     lib.lex_backtrace_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p, p]
     lib.lattice_rescore_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
                                            i, i, i, i, i, i, i, i, p, p, p]
+    lib.fb_banded_launch.argtypes = [p] * 24 + [i] * 10 + [p]
+    lib.fb_dense_launch.argtypes = [p] * 10 + [i] * 11 + [p]
     for fn in (lib.mfcc_tail_launch, lib.bank_emission_launch, lib.banded_forward_launch,
                lib.banded_backtrace_launch,
                lib.banded_backtrace_general_launch, lib.viterbi_lex_launch,
                lib.lex_backtrace_launch,
                lib.lattice_rescore_launch, lib.mfcc_ceps_launch,
-               lib.viterbi_dense_launch):
+               lib.viterbi_dense_launch, lib.fb_banded_launch, lib.fb_dense_launch):
         fn.restype = ctypes.c_int
     lib.bank_emission_smem_bytes.argtypes = [i, i, i, i]
     lib.banded_forward_smem_bytes.argtypes = [i, i, i, i, i, i, i, i, i, i]
@@ -143,7 +145,10 @@ def load_library() -> ctypes.CDLL:
     lib.viterbi_dense_smem_bytes.argtypes = [i] * 7
     lib.viterbi_dense_smem_bytes.restype = q
     lib.srt_smem_limit.argtypes = []
+    lib.fb_banded_smem_bytes.argtypes = [i] * 5
+    lib.fb_dense_smem_bytes.argtypes = [i] * 5
     for fn in (lib.bank_emission_smem_bytes, lib.banded_forward_smem_bytes,
+               lib.fb_banded_smem_bytes, lib.fb_dense_smem_bytes,
                lib.viterbi_lex_smem_bytes, lib.lattice_rescore_smem_bytes,
                lib.lattice_rescore_staged_smem_bytes, lib.srt_smem_limit):
         fn.restype = ctypes.c_int

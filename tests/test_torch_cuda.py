@@ -19,7 +19,11 @@ word-trace mode) is compared exactly with its plain DP on K13's own
 plane, and its final costs at rtol 1e-5 with the whole plain version and
 with K1; K13 (the bank emission) at rtol 1e-5 / atol 1e-4.  K11 (the dense Viterbi) is fed its
 plain version's own inputs and compared exactly, both planes over every
-frame; K12 (the MFCC cepstra) at K3's rtol 2e-3 / atol 5e-4.  Decodes
+frame; K12 (the MFCC cepstra) at K3's rtol 2e-3 / atol 5e-4.  K15 / K16 (the
+banded and dense forward-backward) against their plain versions: log Z
+at rtol 1e-5, gamma at atol 1e-4, xi at rtol 1e-4 / atol 1e-3 (the same
+IEEE expf / logf on both sides; only the sums over frames and over a
+row's origins run in other orders).  Decodes
 on the card against the CPU
 (emission GEMMs on two devices) compare words exactly and costs at rtol
 1e-5.
@@ -1813,3 +1817,138 @@ def test_isolated_train_cuda_matches_cpu(dev):
     np.testing.assert_array_equal(t_c, t_g)
     for f in ("means", "log_vars", "log_weights", "trans_cost"):
         torch.testing.assert_close(getattr(m_g, f).cpu(), getattr(m_c, f), rtol=1e-4, atol=1e-4)
+
+
+def _fb_close(got, want):
+    torch.testing.assert_close(got.log_z, want.log_z, rtol=1e-5, atol=0)
+    torch.testing.assert_close(got.gamma, want.gamma, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.xi_sum, want.xi_sum, rtol=1e-4, atol=1e-3)
+    assert (got.xi_cross is None) == (want.xi_cross is None)
+    if got.xi_cross is not None:
+        torch.testing.assert_close(got.xi_cross, want.xi_cross, rtol=1e-4, atol=1e-3)
+
+
+def _fb_transcripts(rng, b, dev):
+    from speech_recognition_tpu_torch.models.graph import pad_graphs, transcript_graph
+    from speech_recognition_tpu_torch.models.hmm import uniform_left_to_right_trans
+
+    trans = [uniform_left_to_right_trans(5) for _ in range(12)]
+    graphs = [transcript_graph(trans, [int(x) for x in rng.integers(0, 11, rng.integers(1, 5))],
+                               sil=11) for _ in range(b)]
+    return graphs, pad_graphs(graphs)
+
+
+@pytest.mark.parametrize("xi_mode", ["band", "dense"])
+@pytest.mark.parametrize("graph", ["transcripts", "past the shared-memory tier"])
+def test_fb_dense_kernel_edge_cases(dev, xi_mode, graph):
+    """K16 on per-item transcript graphs with lengths T, 0, 1 and mixed
+    (padded graph rows), and on a 170-state loop whose matrices pass
+    shared memory (read through L1)."""
+    from speech_recognition_tpu_torch.models.graph import build_loop_graph
+    from speech_recognition_tpu_torch.models.hmm import uniform_left_to_right_trans
+    from speech_recognition_tpu_torch.ops import forward_backward_kernels as fk
+
+    rng = np.random.default_rng(5)
+    if graph == "transcripts":
+        _, (gb, depth) = _fb_transcripts(rng, 12, dev)
+        args = [torch.as_tensor(gb[k], device=dev) for k in ("trans", "init_cost")]
+        eps, end = (torch.as_tensor(gb[k], device=dev) for k in ("eps_trans", "end_scores"))
+    else:
+        lg = build_loop_graph([uniform_left_to_right_trans(5) for _ in range(34)])
+        args = [torch.as_tensor(x, device=dev) for x in (lg.trans, lg.init_cost)]
+        eps, end, depth = torch.as_tensor(lg.eps_trans, device=dev), None, 1
+    b, t_len, s = 12, 40, args[0].shape[-1]
+    nll = torch.from_numpy(rng.uniform(40, 60, (b, t_len, s)).astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[t_len, 0, 1, rng.integers(2, t_len, b - 3)].astype(
+        np.int32)).to(dev)
+    before = fk.fb_dense.launches
+    got = fk.fb_dense(nll, *args, nf, eps, depth, end, xi_mode)
+    want = fk.fb_dense_ref(nll, *args, nf, eps, depth, end, xi_mode)
+    torch.cuda.synchronize()
+    assert fk.fb_dense.launches == before + 1
+    _fb_close(got, want)
+    assert not got.gamma[1].any() and not got.gamma[2, 1:].any() and not got.xi_sum[1:3].any()
+
+
+@pytest.mark.parametrize("graph", ["loop", "padded transcripts", "eps depth 4", "trie"])
+def test_fb_banded_kernel_edge_cases(dev, graph):
+    """K15 on the loop graph, the padded per-item banded dict of
+    transcript graphs, a sausage of 1-state words (eps depth 4) and a
+    small lexical tree (cross edges, -inf end scores off the word ends),
+    with lengths T, 0, 1 and mixed."""
+    from speech_recognition_tpu_torch.data.lexicon import bench_lexicon
+    from speech_recognition_tpu_torch.models.graph import (
+        build_loop_graph,
+        build_word_graph,
+        pad_graphs_banded,
+    )
+    from speech_recognition_tpu_torch.models.hmm import uniform_left_to_right_trans
+    from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+    from speech_recognition_tpu_torch.ops import forward_backward_kernels as fk
+    from speech_recognition_tpu_torch.ops.viterbi_banded import BandedGraph, banded_arrays
+
+    rng = np.random.default_rng(6)
+    trans = [uniform_left_to_right_trans(5) for _ in range(11)]
+    b, t_len, end, depth = 12, 40, None, 1
+    if graph == "loop":
+        g = banded_arrays(build_loop_graph(trans), dev)
+    elif graph == "padded transcripts":
+        graphs, _ = _fb_transcripts(rng, b, dev)
+        gb, depth = pad_graphs_banded(graphs)
+        g = BandedGraph(*[torch.as_tensor(gb[k], device=dev) for k in (
+            "band", "init_cost", "word_starts", "word_ends", "eps_block", "start_pos",
+            "is_start")], end_states=None, end_bonus=None,
+            bank_state=torch.as_tensor(gb["bank_state"], device=dev))
+        end = torch.as_tensor(gb["end_scores"], device=dev)
+    elif graph == "eps depth 4":
+        wg = build_word_graph([uniform_left_to_right_trans(1)] + trans[:3], [[0, 1, 2, 3]] * 5)
+        g, depth = banded_arrays(wg, dev), wg.eps_depth
+        assert depth > 1
+    else:
+        words, ltrans, ids, _ = bench_lexicon(n_words=60)
+        g = build_lex_graph(words, ltrans, ids, word_insertion_cost=0.5).banded.to(dev)
+        end = torch.full((g.n_states,), -float("inf"), device=dev)
+        end[g.end_states] = 0.0
+    s = g.band.shape[-1]
+    nll = torch.from_numpy(rng.uniform(40, 60, (b, t_len, s)).astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[t_len, 0, 1, rng.integers(2, t_len, b - 3)].astype(
+        np.int32)).to(dev)
+    before = fk.fb_banded.launches
+    got = fk.fb_banded(nll, g, nf, depth, end)
+    want = fk.fb_banded_ref(nll, g, nf, depth, end)
+    torch.cuda.synchronize()
+    assert fk.fb_banded.launches == before + 1
+    _fb_close(got, want)
+    assert not got.gamma[1].any() and not got.gamma[2, 1:].any() and not got.xi_sum[1:3].any()
+
+
+def test_fb_wrappers_raise(dev):
+    """The K15 / K16 wrappers refuse a graph on another device, a wrong
+    dtype or shape, and never fall back to the plain version."""
+    from speech_recognition_tpu_torch.models.graph import build_loop_graph
+    from speech_recognition_tpu_torch.models.hmm import uniform_left_to_right_trans
+    from speech_recognition_tpu_torch.ops import forward_backward_kernels as fk
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+
+    lg = build_loop_graph([uniform_left_to_right_trans(5) for _ in range(3)])
+    s = lg.n_states
+    nll = torch.zeros((2, 5, s), device=dev)
+    nf = torch.tensor([5, 3], dtype=torch.int32, device=dev)
+    trans, init = (torch.as_tensor(x, device=dev) for x in (lg.trans, lg.init_cost))
+    before = (fk.fb_dense.launches, fk.fb_banded.launches)
+    with pytest.raises(ValueError, match="is on"):
+        fk.fb_dense(nll, trans.cpu(), init, nf)
+    with pytest.raises(ValueError, match="float32"):
+        fk.fb_dense(nll.double(), trans, init, nf)
+    with pytest.raises(ValueError, match="trans_cost"):
+        fk.fb_dense(nll, trans[:-1, :-1], init, nf)
+    with pytest.raises(ValueError, match="n_frames"):
+        fk.fb_dense(nll, trans, init, nf[:1])
+    g = banded_arrays(lg, dev)
+    with pytest.raises(ValueError, match="is on"):
+        fk.fb_banded(nll, g._replace(band=g.band.cpu()), nf)
+    with pytest.raises(ValueError, match="band"):
+        fk.fb_banded(nll[:, :, :-1], g, nf)
+    with pytest.raises(ValueError, match="end_scores"):
+        fk.fb_banded(nll, g, nf, 1, torch.zeros(s + 1, device=dev))
+    assert (fk.fb_dense.launches, fk.fb_banded.launches) == before

@@ -139,9 +139,6 @@ def test_continuous_train_matches_reference_and_resumes(corpus, tmp_path, capsys
     out = capsys.readouterr().out
     assert f"resuming from {os.path.join(ot, 'bank_00001.npz')}" in out
     assert "iteration 2:" in out and tload(os.path.join(ot, "bank_00002.npz"))[1]["iteration"] == 2
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        tmain(["continuous_train", "-i", bank, "-d", train, "-o", ot, "--algo", "soft",
-               "--device", "cpu"])
 
 
 def test_save_iteration_and_latest(tmp_path, corpus):
