@@ -291,58 +291,84 @@ def rescore_ops(t_len: int, b: int, l: int, k: int, dense: bool) -> float:
     return float(t_len) * b * l * per_leaf
 
 
-def fb_frames(nf, t_len: int) -> int:
-    """(item, frame) steps a forward-backward kernel computes: frames below
-    each item's length, and frame 0 of an empty item."""
-    return int(nf.clamp(min=1, max=t_len).sum())
+def fb_steps(nf, t_len: int):
+    """Per item: the forward's steps (frames below its length, and frame 0
+    of an empty item), the backward's (one fewer) and the frames gamma is
+    computed on, as int64 tensors."""
+    n = nf.clamp(min=0, max=t_len).long()
+    return n.clamp(min=1), (n - 1).clamp(min=0), n
+
+
+# The forward-backward work models count what this run's inputs need: an
+# exp (and 5 f32 operations: the add, the max, the subtract, the sum) per
+# finite matrix / band / eps entry of an LSE, a log a row that has one, a
+# logaddexp (exp and log1p) a state an eps pass reaches, the cross edges',
+# then gamma a state and frame and an xi term per finite edge and frame;
+# NEG_INF entries, which add exactly nothing, are not counted.  Bytes:
+# every input read once, every output written once (the alpha and beta
+# planes are scratch).
+
+
+def _fin(cost, b):
+    """``cost < POS_INF / 2`` with a leading batch axis of ``b``."""
+    fin = cost < 0.5e30
+    return fin if fin.dim() == 3 else fin.expand((b,) + tuple(fin.shape))
 
 
 def fb_dense_work(nll, trans, eps, init, end, nf, depth: int, out):
-    """``(bytes, operations, exps and logs)`` of K16 on these inputs: per
-    frame step, forward and backward, a logsumexp over every (to, from)
-    pair of the frame edges and of each eps pass (two passes of an add and
-    a max, then an add, a subtract, an add and an exp; a log a row) and a
-    logaddexp a state an eps pass; then the xi terms (3 a state with band
-    xi, S with dense) and gamma."""
-    s = nll.shape[2]
-    f = fb_frames(nf, nll.shape[1])
-    passes = 1 + (depth if eps is not None else 0)
-    xi_terms = out.xi_sum.shape[1] * s
-    sfu = f * (2 * (passes * (s * s + s) + 2 * (passes - 1) * s) + xi_terms + s)
-    ops = f * (2 * passes * 5 * s * s + 5 * xi_terms + 20 * s)
-    return nbytes(nll, trans, eps, init, end, nf, out.gamma, out.xi_sum, out.log_z), ops, sfu
+    """``(bytes, operations, exps and logs)`` of K16 on these inputs."""
+    b, t_len, s = nll.shape
+    fw, bw, nfc = fb_steps(nf, t_len)
+    ft = _fin(trans, b)
+    sfu = ((fw - 1) * (ft.sum((1, 2)) + ft.any(2).sum(1))
+           + bw * (ft.sum((1, 2)) + ft.any(1).sum(1)))
+    if eps is not None:
+        fe = _fin(eps, b)
+        sfu = sfu + depth * (fw * (fe.sum((1, 2)) + fe.any(2).sum(1) + 2 * s)
+                             + bw * (fe.sum((1, 2)) + fe.any(1).sum(1) + 2 * s))
+    if out.xi_sum.shape[1] == s:  # dense xi: a term per finite (to, from) pair
+        xi_terms = ft.sum((1, 2))
+    else:  # band xi: the finite entries trans[u + d, u]
+        xi_terms = sum(ft[:, d:, :s - d].diagonal(dim1=1, dim2=2).sum(1) for d in range(3))
+    comb = nfc * s + (nfc - 1).clamp(min=0) * xi_terms
+    sfu_n = float((sfu + comb).sum())
+    ops = 5 * sfu_n + 4 * s * float((fw + bw).sum()) * (1 + (depth if eps is not None else 0))
+    return (nbytes(nll, trans, eps, init, end, nf, out.gamma, out.xi_sum, out.log_z), ops,
+            sfu_n)
 
 
 def fb_banded_work(nll, g, nf, depth: int, end, out):
-    """``(bytes, operations, exps and logs)`` of K15 on these inputs: per
-    frame step, forward and backward, a 3-term logsumexp a state (4 exps
-    and logs), the cross edge's logaddexp, each eps pass's finite spans of
-    the eps block (an exp a pair, a log a row or column, a logaddexp a
-    state), then xi (3 a state, 1 more with cross edges) and gamma."""
+    """``(bytes, operations, exps and logs)`` of K15 on these inputs."""
     import torch
 
-    from speech_recognition_tpu_torch.utils.numerics import POS_INF
-
-    s = nll.shape[2]
-    f = fb_frames(nf, nll.shape[1])
-    fin = g.eps_block < POS_INF / 2
-    b = nll.shape[0] if g.band.dim() == 3 else 1
-    cross = g.cross_src is not None
-    per = {}
-    for dim in (-1, -2):  # row spans (forward), column spans (backward)
-        any_ = fin.any(dim)
-        lo = torch.argmax(fin.int(), dim)
-        hi = fin.shape[dim] - torch.argmax(fin.int().flip(dim), dim)
-        per[dim] = float(torch.where(any_, hi - lo, 0).sum()) / b
-    r, l = g.word_starts.shape[-1], g.word_ends.shape[-1]
-    sfu = f * (8 * s + (4 * s if cross else 0)
-               + depth * (per[-1] + per[-2] + r + l + 4 * s) + 4 * s + (s if cross else 0))
-    ops = f * (2 * 12 * s + (12 * s if cross else 0)
-               + depth * 5 * (per[-1] + per[-2]) + 5 * 4 * s)
+    b, t_len, s = nll.shape
+    fw, bw, nfc = fb_steps(nf, t_len)
+    band = g.band if g.band.dim() == 3 else g.band.expand((b,) + tuple(g.band.shape))
+    # the band's finite entries: edge s - d -> s for s >= d
+    fb_ = torch.stack([(band[:, d] < 0.5e30) & (torch.arange(s, device=band.device) >= d)
+                       for d in range(3)], 1)
+    n_band, band_rows = fb_.sum((1, 2)), fb_.any(1).sum(1)
+    fe = _fin(g.eps_block, b)
+    n_eps = fe.sum((1, 2))
+    is_start = g.is_start if g.is_start.dim() == 2 else g.is_start.expand(b, s)
+    ends = g.word_ends if g.word_ends.dim() == 2 else g.word_ends.expand(b, -1)
+    n_end = torch.zeros((b, s), dtype=torch.bool, device=ends.device).scatter_(
+        1, ends.long(), True).sum(1)
+    n_cross = 0
+    if g.cross_src is not None:
+        cc = g.cross_cost if g.cross_cost.dim() == 2 else g.cross_cost.expand(b, s)
+        n_cross = (cc < 0.5e30).sum(1)
+    sfu = ((fw - 1) * (n_band + band_rows + 2 * n_cross) + bw * (n_band + band_rows
+                                                                 + 2 * n_cross)
+           + depth * (fw * (n_eps + fe.any(2).sum(1) + 2 * is_start.sum(1))
+                      + bw * (n_eps + fe.any(1).sum(1) + 2 * n_end))
+           + nfc * s + (nfc - 1).clamp(min=0) * (n_band + n_cross))
+    sfu_n = float(sfu.sum())
+    ops = 5 * sfu_n + 4 * s * float((fw + bw).sum()) * (1 + depth)
     graph = [g.band, g.init_cost, g.eps_block, g.word_starts, g.word_ends, g.start_pos,
              g.is_start, g.cross_src, g.cross_cost]
     return (nbytes(nll, *graph, end, nf, out.gamma, out.xi_sum, out.xi_cross, out.log_z),
-            ops, sfu)
+            ops, sfu_n)
 
 
 def fail(msg: str) -> None:
@@ -1201,9 +1227,12 @@ def main() -> int:
     # K15 on the loop graph, the 385-state sausage at 256 x 500 (emissions
     # from K13's plane, lengths T, 1, 0 and mixed), a sausage of 1-state words
     # (eps depth > 1), the 1k trie's lexgraph (cross edges, -inf end scores
-    # off the word ends) and the padded per-item banded dict of 419 transcript
-    # graphs; K16 at 419 x 319 on the same transcripts (per-item matrices,
-    # both xi modes) and on a 170-state loop past its shared-memory tier
+    # off the word ends; eps rows 1,000 ends wide, a warp each) and the padded
+    # per-item banded dict of 419 transcript graphs; K16 at 419 x 319 on the
+    # same transcripts (per-item matrices, both xi modes), on a 170-state
+    # loop, an ergodic 64-state HMM, a batch with an unreachable item and a
+    # 3,500-state loop whose lists live in device memory; every case twice,
+    # bit for bit
     from speech_recognition_tpu_torch.models.graph import (
         pad_graphs,
         pad_graphs_banded,
@@ -1296,38 +1325,86 @@ def main() -> int:
         f"{B16} padded transcript graphs (per-item banded dict) {B16}x{T16}":
             (nll16, g15t, nf16, depth_b, end15t),
     }
+    def fb_repeat(kernel, name, fn, got):
+        """A second call on the same inputs must give the same bits."""
+        again = fn()
+        torch.cuda.synchronize()
+        for a_, b_ in zip(got, again):
+            if (a_ is None) != (b_ is None) or (a_ is not None and not torch.equal(a_, b_)):
+                fail(f"{kernel} is not bit-identical across two calls on {name}")
+
     for name, (x_, g_, n_, d_, e_) in fb15_cases.items():
-        got = fbk.fb_banded(x_, g_, n_, d_, e_)
+        run = lambda: fbk.fb_banded(x_, g_, n_, d_, e_)  # noqa: E731
+        got = run()
         want = fbk.fb_banded_ref(x_, g_, n_, d_, e_)
         torch.cuda.synchronize()
         fb_err["K15"] = max(fb_err["K15"], fb_check("K15", name, got, want))
+        fb_repeat("K15", name, run, got)
     if one_g.eps_depth < 2:
         fail("the 1-state words' sausage has eps depth 1")
+    wide_ = int((g_lex.eps_block < 0.5e30).sum(-1).max())
+    if wide_ <= 64:  # K15's eps rows past 64 ends take a warp each
+        fail(f"the 1k trie's widest eps row has {wide_} ends, not past the kernel's 64")
     loop34 = build_loop_graph([trans[i % 11] for i in range(34)])
     g34 = {k: torch.as_tensor(getattr(loop34, k), device=dev)
            for k in ("trans", "eps_trans", "init_cost")}
     nll34 = torch.from_numpy(fb_rng.uniform(40, 60, (8, 60, loop34.n_states)).astype(
         np.float32)).to(dev)
     nf34 = torch.tensor([60, 0, 1, 17, 60, 33, 59, 2], dtype=torch.int32, device=dev)
+    # an ergodic 64-state HMM: every entry of both matrices finite, so the
+    # lists are the whole matrices.  Emission costs of 0-3 (the CPU tests'
+    # scale): with GMM-sized costs (40-60) |log Z| reaches ~4e3 and float32
+    # alone moves gamma by up to 6e-4 (the plain version against itself in
+    # float64, on the CPU), past the 1e-4 the hold states, whatever the order
+    # of the 64-term sums
+    erg_t, erg_e = (torch.from_numpy(fb_rng.uniform(lo, hi, (64, 64)).astype(np.float32)).to(dev)
+                    for lo, hi in ((0.5, 4.0), (3.0, 8.0)))
+    erg_i = torch.from_numpy(fb_rng.uniform(0.0, 2.0, 64).astype(np.float32)).to(dev)
+    nll_erg = torch.from_numpy(fb_rng.uniform(0, 3, (16, 100, 64)).astype(np.float32)).to(dev)
+    nf_erg = torch.from_numpy(np.r_[100, 0, 1, fb_rng.integers(2, 101, 13)].astype(
+        np.int32)).to(dev)
+    # 32 of the transcripts with item 3's init costs all POS_INF: its whole
+    # alpha row is unreachable, so its LSEs take the known-maximum branch
+    un_init = g16["init_cost"][:32].clone()
+    un_init[3] = 1e30
+    # a 3,500-state loop of 700 five-state words: the plan puts the lists
+    # in device memory, and the eps rows (700 entries each) run past their
+    # capacity into the dense loop
+    loop700 = build_loop_graph([trans[i % 11] for i in range(700)])
+    g700 = {k: torch.as_tensor(getattr(loop700, k), device=dev)
+            for k in ("trans", "eps_trans", "init_cost")}
+    nll700 = torch.from_numpy(fb_rng.uniform(40, 60, (2, 12, loop700.n_states)).astype(
+        np.float32)).to(dev)
+    nf700 = torch.tensor([12, 7], dtype=torch.int32, device=dev)
     fb16_cases = {
         f"{B16} padded transcript graphs {B16}x{T16}":
             (nll16, g16["trans"], g16["init_cost"], nf16, g16["eps_trans"], depth16,
              g16["end_scores"]),
-        f"{loop34.n_states}-state loop 8x60 (past the shared-memory tier)":
+        f"{loop34.n_states}-state loop 8x60":
             (nll34, g34["trans"], g34["init_cost"], nf34, g34["eps_trans"], 1, None),
+        "ergodic 64-state HMM 16x100 (every entry finite)":
+            (nll_erg, erg_t, erg_i, nf_erg, erg_e, 1, None),
+        "32 transcripts, item 3 unreachable":
+            (nll16[:32], g16["trans"][:32], un_init, nf16[:32], g16["eps_trans"][:32], depth16,
+             g16["end_scores"][:32]),
+        f"{loop700.n_states}-state loop 2x12 (lists in device memory)":
+            (nll700, g700["trans"], g700["init_cost"], nf700, g700["eps_trans"], 1, None),
     }
+    n_sm_fb = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, args_ in fb16_cases.items():
-        for mode in ("band", "dense"):
-            plan = fbk.dense_plan(args_[0].shape[2], True, mode == "dense",
-                                  lib.fb_dense_smem_bytes, lib.srt_smem_limit())
-            got = fbk.fb_dense(*args_, xi_mode=mode)
+        plan = fbk.dense_plan(args_[0].shape[2], True, args_[0].shape[0], n_sm_fb,
+                              lib.fb_dense_smem_bytes, lib.srt_smem_limit())
+        if name.startswith(str(loop700.n_states)) and plan.lists != "device":
+            fail(f"K16's plan keeps the {loop700.n_states}-state loop's lists in shared memory")
+        for mode in ("band", "dense") if args_[0].shape[2] < 1000 else ("band",):
+            run = lambda: fbk.fb_dense(*args_, xi_mode=mode)  # noqa: E731
+            got = run()
             want = fbk.fb_dense_ref(*args_, xi_mode=mode)
             torch.cuda.synchronize()
-            where = "shared memory" if plan.mats else "device memory through L1"
             fb_err["K16"] = max(fb_err["K16"], fb_check(
-                "K16", f"{name}, xi {mode} (matrices in {where})", got, want))
-            if name.startswith(str(loop34.n_states)) and plan.mats:
-                fail(f"K16's plan keeps the {loop34.n_states}-state matrices in shared memory")
+                "K16", f"{name}, xi {mode} (lists in {plan.lists} memory, {plan.cap} entries "
+                       f"each)", got, want))
+            fb_repeat("K16", name, run, got)
     report["K15"] = {"max_abs_err": fb_err["K15"]}
     report["K16"] = {"max_abs_err": fb_err["K16"]}
 

@@ -159,8 +159,9 @@ def main() -> int:
     for name, (nll, g, depth, nf) in cases16.items():
         for mode in ("band", "dense"):
             s = nll.shape[2]
-            plan = fk.dense_plan(s, True, mode == "dense", lib.fb_dense_smem_bytes,
-                                 lib.srt_smem_limit())
+            plan = fk.dense_plan(s, True, nll.shape[0],
+                                 torch.cuda.get_device_properties(DEV).multi_processor_count,
+                                 lib.fb_dense_smem_bytes, lib.srt_smem_limit())
             kw = dict(eps_trans=g["eps_trans"], eps_depth=depth, end_scores=g["end_scores"],
                       xi_mode=mode)
             got = fk.fb_dense(nll, g["trans"], g["init_cost"], nf, **kw)
@@ -199,8 +200,7 @@ def main() -> int:
         want = fk.fb_banded_ref(nll, g, nf, depth, end)
         torch.cuda.synchronize()
         plan = fk.banded_plan(g.band.shape[-1], g.word_starts.shape[-1], g.word_ends.shape[-1],
-                              g.cross_src is not None, lib.fb_banded_smem_bytes,
-                              lib.srt_smem_limit())
+                              lib.fb_banded_smem_bytes, lib.srt_smem_limit())
         compare(f"K15 {name} ({plan})", got, want)
     if args.check:
         return 0

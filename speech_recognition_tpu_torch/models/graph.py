@@ -429,13 +429,13 @@ def pad_graphs_banded(graphs: List[WordGraph]):
 #: The JAX package's 256 is a TPU measurement.  On an NVIDIA H100 80GB HBM3
 #: at 700.00 W, 256 padded transcript graphs with optional silence arcs
 #: (as ``continuous_train`` composes them) at 300 frames: K16 is faster up
-#: to 52 states (2.84 ms against 3.34), K15 from 68 on (3.69 against 4.24;
-#: 3.58 against 5.79 at 100); without silence arcs K15 wins from 96
+#: to 100 states (0.83 ms against 0.87), K15 from 132 on (0.89 against
+#: 0.93; 1.06 against 1.53 at 196); without silence arcs K15 wins from 192
 #: (``chip_smoke.py``'s crossover sweep; PERF.md).  Only
 #: :func:`pad_graphs_auto` reads it, and no CLI path calls that:
 #: ``continuous_train --algo soft`` composes dense graphs, as the JAX CLI
 #: does, so the constant serves callers of the API.
-BANDED_FB_MIN_STATES = 68
+BANDED_FB_MIN_STATES = 132
 
 
 def pad_graphs_auto(graphs: List[WordGraph]):

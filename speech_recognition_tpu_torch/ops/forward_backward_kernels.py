@@ -6,17 +6,26 @@ XLA as ``lax.scan``s (``speech_recognition_tpu/ops/forward_backward.py``
 ``forward_backward_banded`` and ``forward_backward``).  ``fb_banded`` and
 ``fb_dense`` run the plain versions of ``ops.forward_backward`` for CPU
 tensors and launch the kernels for CUDA tensors, or raise: there is no
-fallback.  ``fb_banded.launches`` / ``fb_dense.launches`` count launches.
+fallback.  A call launches twice, the scan (each item's forward and
+backward side by side, into alpha and beta planes) and the combine pass
+(gamma and the xi sums); ``fb_banded.launches`` / ``fb_dense.launches``
+count calls.
 
-``banded_plan`` / ``dense_plan`` pick where each kernel keeps its state:
-everything in shared memory where it fits; else the xi sums go to the
-outputs themselves, then (K16) the matrices are read through L1 as costs.
-The alpha / beta rows always stay in shared memory, so a graph whose rows
-do not fit (K15 past ~29,000 states, K16 past ~19,000) is refused.
+``banded_plan`` / ``dense_plan`` size a scan CTA: its threads (a thread a
+state or row, states past the block strided), its shared memory, whether
+the emission rows are staged ahead in a shared-memory ring (where it
+fits), and (K16) where the lists of finite matrix entries live: in shared
+memory with the capacity the plan leaves room for (so that the 2B scan
+CTAs of a call fit on the card at once where they can), else in device
+memory.  Rows past a list's capacity run the dense loop, which gives the
+same answer.  The alpha / beta rows always stay in shared memory, so a
+graph whose rows do not fit (K15 past ~29,000 states, K16 past ~19,000)
+is refused, as before.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -24,12 +33,10 @@ import torch
 from speech_recognition_tpu_torch.ops.forward_backward import (
     FBResult,
     cross_inverse,
-    end_positions,
     forward_backward_banded_plain,
     forward_backward_plain,
 )
 from speech_recognition_tpu_torch.ops.viterbi_banded import MAX_BAND, BandedGraph
-from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
 __all__ = ["fb_banded", "fb_dense", "fb_banded_ref", "fb_dense_ref", "FBPlan", "banded_plan",
            "dense_plan", "fb_threads"]
@@ -38,48 +45,79 @@ __all__ = ["fb_banded", "fb_dense", "fb_banded_ref", "fb_dense_ref", "FBPlan", "
 fb_banded_ref = forward_backward_banded_plain
 fb_dense_ref = forward_backward_plain
 
+# An H100 SM's shared memory (228 KB), handed out in 128-byte units, of
+# which each resident CTA also takes 1 KB for the system
+SM_SMEM_BYTES = 228 * 1024
+SMEM_UNIT = 128
+CTA_SMEM_RESERVED = 1024
+
 
 class FBPlan(NamedTuple):
-    """Where a forward-backward kernel keeps its state (True: shared
-    memory), and its threads per CTA."""
+    """A scan CTA's threads and dynamic shared memory, whether it stages
+    the emission rows in a shared-memory ring, and (K16) where its
+    finite-entry lists live and how many entries each holds."""
 
-    acc: bool   # the xi sums (else the outputs)
-    mats: bool  # K16: the score matrices (else costs through L1)
     threads: int
-    smem: int   # dynamic shared memory per CTA, bytes
+    smem: int   # bytes
+    lists: str  # K16: "shared" or "device"; K15: "none"
+    cap: int    # K16: entries a list holds (rows past it run the dense loop)
+    ring: bool = True
 
 
 def fb_threads(s: int) -> int:
-    """Threads per CTA: a thread a state (K15) or row (K16), a multiple of
-    32, at most 512 (states past it are strided; both kernels take 80-92
-    registers a thread, so 1,024 would not launch)."""
-    return min(512, -(-s // 32) * 32)
+    """Threads per scan CTA: a thread a state (K15) or row (K16), states
+    past the block strided as evenly as a multiple of 32 allows, at most
+    224 (the kernels' register cap, 72, leaves room for 4 such CTAs an
+    SM): the 385-state sausage gets 224, two states a thread."""
+    per = -(-s // 224)
+    return -(-(-(-s // per)) // 32) * 32
 
 
-def _first_fit(candidates, size, limit, what):
-    for flags in candidates:
-        n = size(*flags)
-        if n <= limit:
-            return flags, n
+def _refuse(n, limit, what):
     raise ValueError(f"too many states for the {what}: its rows alone need {n} bytes of "
                      f"shared memory, the card has {limit}")
 
 
-def banded_plan(s: int, r: int, l: int, has_cross: bool, smem_bytes, limit: int) -> FBPlan:
-    """K15's plan: ``smem_bytes(S, R, L, has_cross, acc)`` is the kernel's
-    own layout (``fb_banded_smem_bytes``)."""
-    (acc,), n = _first_fit(((1,), (0,)), lambda ac: smem_bytes(s, r, l, int(has_cross), ac),
-                           limit, f"banded forward-backward (S={s}, R={r}, L={l})")
-    return FBPlan(bool(acc), False, fb_threads(s), n)
+def banded_plan(s: int, r: int, l: int, smem_bytes, limit: int) -> FBPlan:
+    """K15's plan: ``smem_bytes(S, R, L, ring)`` is the kernel's own layout
+    (``fb_banded_smem_bytes``: the two rows, the eps pass's [max(R, L)]
+    vector and, where they fit, the 3-row emission ring and the band's
+    scores)."""
+    n = smem_bytes(s, r, l, 0)
+    if n > limit:
+        _refuse(n, limit, f"banded forward-backward (S={s}, R={r}, L={l})")
+    ring = smem_bytes(s, r, l, 1) <= limit
+    return FBPlan(fb_threads(s), smem_bytes(s, r, l, int(ring)), "none", 0, ring)
 
 
-def dense_plan(s: int, use_eps: bool, xi_dense: bool, smem_bytes, limit: int) -> FBPlan:
-    """K16's plan: ``smem_bytes(S, eps, xi_dense, mats, acc)`` is the
-    kernel's own layout (``fb_dense_smem_bytes``)."""
-    (mats, acc), n = _first_fit(((1, 1), (1, 0), (0, 0)),
-                                lambda m, a: smem_bytes(s, int(use_eps), int(xi_dense), m, a),
-                                limit, f"dense forward-backward (S={s})")
-    return FBPlan(bool(acc), bool(mats), fb_threads(s), n)
+def dense_plan(s: int, use_eps: bool, b: int, n_sm: int, smem_bytes, limit: int) -> FBPlan:
+    """K16's plan: ``smem_bytes(S, eps, cap, lists_in_smem, ring)`` is
+    the kernel's own layout (``fb_dense_smem_bytes``).  The emission ring
+    goes in where it fits; the lists take the shared memory left once the
+    2B scan CTAs share the card's SMs (``n_sm``) as evenly as threads
+    allow, up to S^2 entries; where that leaves fewer than min(S^2, 4 S),
+    they go to device memory with min(S^2, 16 S) entries each."""
+    e = int(use_eps)
+    threads = fb_threads(s)
+    rows = smem_bytes(s, e, 0, 0, 0)
+    if rows > limit:
+        _refuse(rows, limit, f"dense forward-backward (S={s})")
+    ring = int(smem_bytes(s, e, 0, 0, 1) <= limit)
+    ctas = max(1, min(-(-2 * b // n_sm), 2048 // threads, 32))
+    budget = min(limit, SM_SMEM_BYTES // ctas // SMEM_UNIT * SMEM_UNIT - CTA_SMEM_RESERVED)
+    fixed = smem_bytes(s, e, 0, 1, ring)
+    per_entry = smem_bytes(s, e, 1, 1, ring) - fixed
+    full = s * s
+    cap = min(full, (budget - fixed) // per_entry) if budget >= fixed else 0
+    if cap >= min(full, 4 * s):
+        return FBPlan(threads, smem_bytes(s, e, cap, 1, ring), "shared", cap, bool(ring))
+    return FBPlan(threads, smem_bytes(s, e, 0, 0, ring), "device", min(full, 16 * s),
+                  bool(ring))
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(name, x, shapes, dtype, dev):
@@ -106,32 +144,42 @@ def _nll_checks(nll, n_frames):
 
 
 def _end_scores(end_scores, b, s, dev):
+    """``end_scores`` checked, or None (the kernels read 0 everywhere)."""
     if end_scores is None:
-        return torch.zeros((s,), dtype=torch.float32, device=dev)
+        return None
     _check("end_scores", end_scores, ((s,), (b, s)), torch.float32, dev)
     return end_scores.contiguous()
+
+
+def _frames(n_frames):
+    """``(n_frames, is_int64)`` as the kernels read it: int32 or int64 as
+    given (other types cast to int32)."""
+    if n_frames.dtype in (torch.int32, torch.int64):
+        return n_frames.contiguous(), int(n_frames.dtype == torch.int64)
+    return n_frames.to(torch.int32).contiguous(), 0
 
 
 def _i32(x):
     return x.to(torch.int32).contiguous()
 
 
-def _spans(finite, dim):
-    """``(lo, hi)`` int32 of the first and one past the last True along
-    ``dim`` of ``finite``; (0, 0) where there is none."""
-    n = finite.shape[dim]
-    f = finite.to(torch.int32)
-    any_ = finite.any(dim)
-    lo = torch.argmax(f, dim)
-    hi = n - torch.argmax(f.flip(dim), dim)
-    return _i32(torch.where(any_, lo, 0)), _i32(torch.where(any_, hi, 0))
+def _ptrs(xs):
+    return [x.data_ptr() if x is not None else None for x in xs]
 
 
 def fb_banded(nll, g: BandedGraph, n_frames, eps_depth: int = 1, end_scores=None) -> FBResult:
     """K15 for CUDA tensors, the plain version for CPU tensors (see
-    ``ops.forward_backward.forward_backward_banded``)."""
+    ``ops.forward_backward.forward_backward_banded``).  A call is two
+    launches, the scan and the combine pass; ``fb_banded.launches`` counts
+    calls."""
     if not nll.is_cuda:
         return forward_backward_banded_plain(nll, g, n_frames, eps_depth, end_scores)
+    return _banded(nll, g, n_frames, eps_depth, end_scores)
+
+
+def _banded(nll, g, n_frames, eps_depth, end_scores, trace=None):
+    """K15's launch; ``trace`` (int64 ``[2B, 8]``, zeroed) takes each scan
+    CTA's clock64 cycles by phase (``csrc/forward_backward.cu`` Trace)."""
     from speech_recognition_tpu_torch.utils.build import check, load_library
 
     b, t_len, s = _nll_checks(nll, n_frames)
@@ -162,31 +210,30 @@ def fb_banded(nll, g: BandedGraph, n_frames, eps_depth: int = 1, end_scores=None
         if g.cross_src.shape != g.cross_cost.shape or g.cross_src.device != dev:
             raise ValueError("cross_src must match cross_cost's shape and device")
     ends_sc = _end_scores(end_scores, b, s, dev)
+    nf, nf64 = _frames(n_frames)
     lib = load_library()
-    plan = banded_plan(s, r, l, has_cross, lib.fb_banded_smem_bytes, lib.srt_smem_limit())
-    finite = g.eps_block < POS_INF / 2
-    row_lo, row_hi = _spans(finite, -1)
-    col_lo, col_hi = _spans(finite, -2)
+    plan = banded_plan(s, r, l, lib.fb_banded_smem_bytes, lib.srt_smem_limit())
     if has_cross:
         inv_off, inv_dst = cross_inverse(g.cross_src, g.cross_cost)
         cross = (_i32(g.cross_src), g.cross_cost.contiguous(), inv_off, inv_dst)
     else:
         cross = (None,) * 4
     alpha = torch.empty((b, t_len, s), dtype=f32, device=dev)
+    beta = torch.empty_like(alpha)
     gamma = torch.empty_like(alpha)
+    aux = torch.empty((2 * b, lib.fb_banded_aux_ints(s, r, l)), dtype=torch.int32, device=dev)
     xi = torch.empty((b, MAX_BAND + 1, s), dtype=f32, device=dev)
     xi_cross = torch.empty((b, s), dtype=f32, device=dev) if has_cross else None
     log_z = torch.empty((b,), dtype=f32, device=dev)
     args = [nll.contiguous(), g.band.contiguous(), g.init_cost.contiguous(),
             g.eps_block.contiguous(), _i32(g.word_starts), _i32(g.word_ends),
-            _i32(g.start_pos), g.is_start.contiguous(), _i32(end_positions(g.word_ends, s)),
-            row_lo, row_hi, col_lo, col_hi, *cross, ends_sc, _i32(n_frames), alpha, gamma, xi,
-            xi_cross, log_z]
+            _i32(g.start_pos), g.is_start.contiguous(), *cross, ends_sc, nf, aux, alpha, beta,
+            gamma, xi, xi_cross, log_z, trace]
     with torch.cuda.device(dev):
         rc = lib.fb_banded_launch(
-            *[x.data_ptr() if x is not None else None for x in args], b, t_len, s, r, l,
-            int(per_item), int(ends_sc.dim() == 2), eps_depth, int(plan.acc), plan.threads,
-            torch.cuda.current_stream(dev).cuda_stream)
+            *_ptrs(args), b, t_len, s, r, l, int(per_item),
+            int(ends_sc is not None and ends_sc.dim() == 2), eps_depth, nf64, int(plan.ring),
+            plan.threads, torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "banded forward-backward kernel")
     fb_banded.launches += 1
     return FBResult(gamma, xi, log_z, xi_cross)
@@ -198,10 +245,18 @@ fb_banded.launches = 0
 def fb_dense(nll, trans_cost, init_cost, n_frames, eps_trans=None, eps_depth: int = 1,
              end_scores=None, xi_mode: str = "dense") -> FBResult:
     """K16 for CUDA tensors, the plain version for CPU tensors (see
-    ``ops.forward_backward.forward_backward``)."""
+    ``ops.forward_backward.forward_backward``).  A call is two launches,
+    the scan and the combine pass; ``fb_dense.launches`` counts calls."""
     if not nll.is_cuda:
         return forward_backward_plain(nll, trans_cost, init_cost, n_frames, eps_trans,
                                       eps_depth, end_scores, xi_mode)
+    return _dense(nll, trans_cost, init_cost, n_frames, eps_trans, eps_depth, end_scores,
+                  xi_mode)
+
+
+def _dense(nll, trans_cost, init_cost, n_frames, eps_trans, eps_depth, end_scores, xi_mode,
+           trace=None):
+    """K16's launch; ``trace`` as for :func:`_banded`."""
     from speech_recognition_tpu_torch.utils.build import check, load_library
 
     if xi_mode not in ("dense", "band"):
@@ -216,22 +271,30 @@ def fb_dense(nll, trans_cost, init_cost, n_frames, eps_trans=None, eps_depth: in
     if eps_depth < 1:
         raise ValueError(f"eps_depth must be >= 1, got {eps_depth}")
     ends_sc = _end_scores(end_scores, b, s, dev)
+    nf, nf64 = _frames(n_frames)
     lib = load_library()
     xi_dense = xi_mode == "dense"
-    plan = dense_plan(s, eps_trans is not None, xi_dense, lib.fb_dense_smem_bytes,
-                      lib.srt_smem_limit())
+    use_eps = eps_trans is not None
+    plan = dense_plan(s, use_eps, b, _n_sm(dev.index if dev.index is not None else
+                                           torch.cuda.current_device()),
+                      lib.fb_dense_smem_bytes, lib.srt_smem_limit())
+    lists = None
+    if plan.lists == "device":
+        lists = torch.empty((2 * b, (1 + int(use_eps)) * lib.fb_dense_list_ints(s, plan.cap)),
+                            dtype=torch.int32, device=dev)
     alpha = torch.empty((b, t_len, s), dtype=f32, device=dev)
+    beta = torch.empty_like(alpha)
     gamma = torch.empty_like(alpha)
     xi = torch.empty((b, s, s) if xi_dense else (b, MAX_BAND + 1, s), dtype=f32, device=dev)
     log_z = torch.empty((b,), dtype=f32, device=dev)
     args = [nll.contiguous(), trans_cost.contiguous(),
-            eps_trans.contiguous() if eps_trans is not None else None,
-            init_cost.contiguous(), ends_sc, _i32(n_frames), alpha, gamma, xi, log_z]
+            eps_trans.contiguous() if use_eps else None, init_cost.contiguous(), ends_sc, nf,
+            lists, alpha, beta, gamma, xi, log_z, trace]
     with torch.cuda.device(dev):
         rc = lib.fb_dense_launch(
-            *[x.data_ptr() if x is not None else None for x in args], b, t_len, s,
-            int(trans_cost.dim() == 3), int(init_cost.dim() == 2), int(ends_sc.dim() == 2),
-            eps_depth, int(xi_dense), int(plan.mats), int(plan.acc), plan.threads,
+            *_ptrs(args), b, t_len, s, int(trans_cost.dim() == 3), int(init_cost.dim() == 2),
+            int(ends_sc is not None and ends_sc.dim() == 2), eps_depth, int(xi_dense), nf64,
+            plan.cap, int(plan.lists == "shared"), int(plan.ring), plan.threads,
             torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "dense forward-backward kernel")
     fb_dense.launches += 1

@@ -124,8 +124,8 @@ def load_library() -> ctypes.CDLL:
     lib.lex_backtrace_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p, p]
     lib.lattice_rescore_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
                                            i, i, i, i, i, i, i, i, p, p, p]
-    lib.fb_banded_launch.argtypes = [p] * 24 + [i] * 10 + [p]
-    lib.fb_dense_launch.argtypes = [p] * 10 + [i] * 11 + [p]
+    lib.fb_banded_launch.argtypes = [p] * 22 + [i] * 11 + [p]
+    lib.fb_dense_launch.argtypes = [p] * 13 + [i] * 13 + [p]
     for fn in (lib.mfcc_tail_launch, lib.bank_emission_launch, lib.banded_forward_launch,
                lib.banded_backtrace_launch,
                lib.banded_backtrace_general_launch, lib.viterbi_lex_launch,
@@ -145,10 +145,15 @@ def load_library() -> ctypes.CDLL:
     lib.viterbi_dense_smem_bytes.argtypes = [i] * 7
     lib.viterbi_dense_smem_bytes.restype = q
     lib.srt_smem_limit.argtypes = []
-    lib.fb_banded_smem_bytes.argtypes = [i] * 5
+    lib.fb_banded_smem_bytes.argtypes = [i] * 4
+    lib.fb_banded_aux_ints.argtypes = [i] * 3
     lib.fb_dense_smem_bytes.argtypes = [i] * 5
+    lib.fb_dense_list_ints.argtypes = [i, i]
+    lib.fb_dense_list_ints.restype = q
+    lib.fb_scan_occupancy.argtypes = [i] * 3
+    lib.fb_scan_occupancy.restype = ctypes.c_int
     for fn in (lib.bank_emission_smem_bytes, lib.banded_forward_smem_bytes,
-               lib.fb_banded_smem_bytes, lib.fb_dense_smem_bytes,
+               lib.fb_banded_smem_bytes, lib.fb_banded_aux_ints, lib.fb_dense_smem_bytes,
                lib.viterbi_lex_smem_bytes, lib.lattice_rescore_smem_bytes,
                lib.lattice_rescore_staged_smem_bytes, lib.srt_smem_limit):
         fn.restype = ctypes.c_int

@@ -1838,44 +1838,80 @@ def _fb_transcripts(rng, b, dev):
     return graphs, pad_graphs(graphs)
 
 
+def _fb_twice(fn):
+    """Two calls on the same inputs: the second must repeat the first bit
+    for bit (no atomics, one order per sum)."""
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+    return got
+
+
 @pytest.mark.parametrize("xi_mode", ["band", "dense"])
-@pytest.mark.parametrize("graph", ["transcripts", "past the shared-memory tier"])
+@pytest.mark.parametrize("graph", ["transcripts", "past the shared-memory tier", "ergodic",
+                                   "unreachable item", "lists in device memory"])
 def test_fb_dense_kernel_edge_cases(dev, xi_mode, graph):
     """K16 on per-item transcript graphs with lengths T, 0, 1 and mixed
-    (padded graph rows), and on a 170-state loop whose matrices pass
-    shared memory (read through L1)."""
+    (padded graph rows), on a 170-state loop, on an ergodic HMM (every
+    entry finite: the lists are the whole matrices), on transcripts with
+    one item whose every state is unreachable, and on a 3,500-state loop
+    whose lists the plan puts in device memory (eps rows past their
+    capacity run the dense loop); every call twice, bit for bit."""
     from speech_recognition_tpu_torch.models.graph import build_loop_graph
     from speech_recognition_tpu_torch.models.hmm import uniform_left_to_right_trans
     from speech_recognition_tpu_torch.ops import forward_backward_kernels as fk
+    from speech_recognition_tpu_torch.utils.build import load_library
 
     rng = np.random.default_rng(5)
-    if graph == "transcripts":
-        _, (gb, depth) = _fb_transcripts(rng, 12, dev)
+    b, t_len = 12, 40
+    if graph in ("transcripts", "unreachable item"):
+        _, (gb, depth) = _fb_transcripts(rng, b, dev)
         args = [torch.as_tensor(gb[k], device=dev) for k in ("trans", "init_cost")]
         eps, end = (torch.as_tensor(gb[k], device=dev) for k in ("eps_trans", "end_scores"))
+        if graph == "unreachable item":
+            args[1][4] = 1e30
+    elif graph == "ergodic":
+        args = [torch.from_numpy(rng.uniform(0.5, 4, (b, 48, 48)).astype(np.float32)).to(dev),
+                torch.from_numpy(rng.uniform(0, 2, 48).astype(np.float32)).to(dev)]
+        eps = torch.from_numpy(rng.uniform(3, 8, (b, 48, 48)).astype(np.float32)).to(dev)
+        end, depth = None, 1
     else:
-        lg = build_loop_graph([uniform_left_to_right_trans(5) for _ in range(34)])
+        n_words = 34 if graph == "past the shared-memory tier" else 700
+        if graph == "lists in device memory":
+            b, t_len = 3, 8
+        lg = build_loop_graph([uniform_left_to_right_trans(5) for _ in range(n_words)])
         args = [torch.as_tensor(x, device=dev) for x in (lg.trans, lg.init_cost)]
         eps, end, depth = torch.as_tensor(lg.eps_trans, device=dev), None, 1
-    b, t_len, s = 12, 40, args[0].shape[-1]
+    s = args[0].shape[-1]
+    if graph == "lists in device memory":
+        lib = load_library()
+        plan = fk.dense_plan(s, True, b, torch.cuda.get_device_properties(dev)
+                             .multi_processor_count, lib.fb_dense_smem_bytes,
+                             lib.srt_smem_limit())
+        assert plan.lists == "device"
     nll = torch.from_numpy(rng.uniform(40, 60, (b, t_len, s)).astype(np.float32)).to(dev)
     nf = torch.from_numpy(np.r_[t_len, 0, 1, rng.integers(2, t_len, b - 3)].astype(
         np.int32)).to(dev)
     before = fk.fb_dense.launches
-    got = fk.fb_dense(nll, *args, nf, eps, depth, end, xi_mode)
+    got = _fb_twice(lambda: fk.fb_dense(nll, *args, nf, eps, depth, end, xi_mode))
     want = fk.fb_dense_ref(nll, *args, nf, eps, depth, end, xi_mode)
     torch.cuda.synchronize()
-    assert fk.fb_dense.launches == before + 1
+    assert fk.fb_dense.launches == before + 2
     _fb_close(got, want)
     assert not got.gamma[1].any() and not got.gamma[2, 1:].any() and not got.xi_sum[1:3].any()
 
 
-@pytest.mark.parametrize("graph", ["loop", "padded transcripts", "eps depth 4", "trie"])
+@pytest.mark.parametrize("graph", ["loop", "padded transcripts", "eps depth 4", "trie",
+                                   "1k trie (wide spans)"])
 def test_fb_banded_kernel_edge_cases(dev, graph):
     """K15 on the loop graph, the padded per-item banded dict of
-    transcript graphs, a sausage of 1-state words (eps depth 4) and a
-    small lexical tree (cross edges, -inf end scores off the word ends),
-    with lengths T, 0, 1 and mixed."""
+    transcript graphs, a sausage of 1-state words (eps depth 4), a small
+    lexical tree and the 1k trie (cross edges, -inf end scores off the word
+    ends; the 1k trie's eps rows span 1,000 ends, a warp each), with
+    lengths T, 0, 1 and mixed; every call twice, bit for bit."""
     from speech_recognition_tpu_torch.data.lexicon import bench_lexicon
     from speech_recognition_tpu_torch.models.graph import (
         build_loop_graph,
@@ -1905,21 +1941,46 @@ def test_fb_banded_kernel_edge_cases(dev, graph):
         g, depth = banded_arrays(wg, dev), wg.eps_depth
         assert depth > 1
     else:
-        words, ltrans, ids, _ = bench_lexicon(n_words=60)
+        words, ltrans, ids, _ = bench_lexicon(**({"n_words": 60} if graph == "trie" else {}))
         g = build_lex_graph(words, ltrans, ids, word_insertion_cost=0.5).banded.to(dev)
         end = torch.full((g.n_states,), -float("inf"), device=dev)
         end[g.end_states] = 0.0
+        if graph != "trie":
+            b, t_len = 6, 30
+            assert int((g.eps_block < 0.5e30).sum(-1).max()) > 64
     s = g.band.shape[-1]
     nll = torch.from_numpy(rng.uniform(40, 60, (b, t_len, s)).astype(np.float32)).to(dev)
     nf = torch.from_numpy(np.r_[t_len, 0, 1, rng.integers(2, t_len, b - 3)].astype(
         np.int32)).to(dev)
     before = fk.fb_banded.launches
-    got = fk.fb_banded(nll, g, nf, depth, end)
+    got = _fb_twice(lambda: fk.fb_banded(nll, g, nf, depth, end))
     want = fk.fb_banded_ref(nll, g, nf, depth, end)
     torch.cuda.synchronize()
-    assert fk.fb_banded.launches == before + 1
+    assert fk.fb_banded.launches == before + 2
     _fb_close(got, want)
     assert not got.gamma[1].any() and not got.gamma[2, 1:].any() and not got.xi_sum[1:3].any()
+
+
+@pytest.mark.parametrize("kernel", ["K15", "K16"])
+def test_fb_plans_refuse_no_graph_the_earlier_layouts_took(dev, kernel):
+    """With the library's own layouts: every state count (and, for K15,
+    eps block shape) whose rows fit the layouts before the split gets a
+    plan whose shared memory the card grants."""
+    from speech_recognition_tpu_torch.ops import forward_backward_kernels as fk
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    lib = load_library()
+    limit = lib.srt_smem_limit()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for s in list(range(1, 400, 13)) + list(range(18000, 29100, 211)):
+        if kernel == "K15":
+            for r, l in ((1, 1), (77, 77), (8, 1000), (s, s), (3, s)):
+                if 4 * (64 + r + l + 2 * s) <= limit:
+                    assert fk.banded_plan(s, r, l, lib.fb_banded_smem_bytes, limit).smem <= limit
+        elif 4 * (64 + 3 * s) <= limit:
+            for b in (1, 419):
+                p = fk.dense_plan(s, True, b, n_sm, lib.fb_dense_smem_bytes, limit)
+                assert p.smem <= limit and p.cap >= 1
 
 
 def test_fb_wrappers_raise(dev):

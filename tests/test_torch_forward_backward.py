@@ -263,42 +263,48 @@ def test_cuda_tensors_never_take_the_plain_version():
 
 # the kernels' shared-memory layouts (csrc/forward_backward.cu
 # banded_smem_floats / dense_smem_floats), in bytes, and an H100's room
-def _banded_bytes(s, r, l, has_cross, acc):
-    return 4 * (64 + r + l + 2 * s + acc * (3 + has_cross) * s)
+def _banded_bytes(s, r, l, ring):
+    m = max(r, l)
+    return 4 * ((((64 + m + 8 * s + 1) & ~1) + 24 * m) if ring else 64 + m + 2 * s)
 
 
-def _dense_bytes(s, use_eps, xi_dense, mats, acc):
-    ld = s | 1
-    return 4 * (64 + 3 * s + mats * (1 + use_eps) * s * ld
-                + acc * (s * ld if xi_dense else 3 * s))
+def _dense_bytes(s, use_eps, cap, lists_smem, ring):
+    rows = (64 + (3 + 3 * ring) * s + 1) & ~1
+    return 4 * (rows + lists_smem * (1 + use_eps) * (((s + 2) & ~1) + 2 * cap))
 
 
 H100_SMEM = 227 * 1024
+H100_SMS = 132
 
 
 @pytest.mark.parametrize("kernel, shape, want", [
-    ("K15", (385, 77, 77, False), (True, False)),      # the sausage: all in shared memory
-    ("K15", (9588, 1000, 1000, True), (False, False)),  # the 1k trie: xi sums to the outputs
-    ("K15", (30000, 10, 10, False), None),             # the rows alone do not fit
-    ("K16", (75, True, False), (True, True)),          # the soft-EM graphs
-    ("K16", (200, False, True), (False, True)),        # dense xi sums to the output
-    ("K16", (170, True, True), (False, False)),        # matrices read through L1
-    ("K16", (20000, False, False), None),              # the rows alone do not fit
+    ("K15", (385, 77, 77), ("none", 0, 20280, True)),   # the sausage
+    ("K15", (9588, 1000, 1000), ("none", 0, 80960, False)),  # the 1k trie: no ring
+    ("K15", (30000, 10, 10), None),                     # the rows alone do not fit
+    # the soft-EM graphs, 419 items: lists sized so 7 CTAs share an SM
+    ("K16", (75, True, 419), ("shared", 1849, 32248, True)),
+    ("K16", (200, False, 8), ("shared", 28323, 232448, True)),  # rows past 28,323 entries: dense loop
+    ("K16", (170, True, 8), ("shared", 14171, 232448, True)),   # the 34-word loop
+    ("K16", (20000, False, 1), None),                   # the rows alone do not fit
+    ("K16", (5000, True, 1), ("device", 80000, 120256, True)),  # lists in device memory
 ])
 def test_fb_plans_pick_tiers_and_refuse_past_shared_memory(kernel, shape, want):
-    """``banded_plan`` / ``dense_plan`` take the first layout that fits
-    (xi sums, then K16's matrices, leave shared memory), and refuse a
-    graph whose alpha / beta rows alone do not fit."""
+    """``banded_plan`` sizes K15's scan CTA; ``dense_plan`` gives K16's
+    finite-entry lists the shared memory left when the 2B scan CTAs share
+    the SMs (device memory where that is too little); both stage the
+    emission rows in a ring where it fits, and refuse a graph whose alpha
+    / beta rows alone do not fit."""
     from speech_recognition_tpu_torch.ops import forward_backward_kernels as fk
 
     if kernel == "K15":
         plan = lambda: fk.banded_plan(*shape, _banded_bytes, H100_SMEM)  # noqa: E731
     else:
-        plan = lambda: fk.dense_plan(*shape, _dense_bytes, H100_SMEM)  # noqa: E731
+        plan = lambda: fk.dense_plan(*shape, H100_SMS, _dense_bytes, H100_SMEM)  # noqa: E731
     if want is None:
         with pytest.raises(ValueError, match="too many states"):
             plan()
         return
     p = plan()
-    assert (p.acc, p.mats) == want and p.smem <= H100_SMEM
-    assert p.threads == min(512, -(-shape[0] // 32) * 32)
+    assert (p.lists, p.cap, p.smem, p.ring) == want and p.smem <= H100_SMEM
+    per = -(-shape[0] // 224)
+    assert p.threads == -(-(-(-shape[0] // per)) // 32) * 32 <= 224
