@@ -59,7 +59,25 @@ through the CLI with the launch counters reset just before each:
 * word confidence, ``connected_test --graph loop --confidence``: K3 -> K1
   -> K2 -> bank emissions -> the banded forward-backward K15 -> word
   averages, on cuda and on cpu (the same words, confidences within
-  ``CONF_ATOL``).
+  ``CONF_ATOL``);
+* streaming, ``cli stream --device cuda`` with ``--graph loop``, ``loop
+  --incremental`` and ``lextree``, and ``StreamingDecoder`` on a sausage
+  of 1-state words: wavs -> MFCC-39 (K3) -> per pushed chunk K13 + K17
+  (K1's DP from the carried frontier), bank emissions + K18 (K4's), or
+  bank emissions + K17's general mode (K8's) -> one backtrace at finish
+  and at each mid-stream flush (K2, K5, K9) -> words, equal to ``--device
+  cpu``'s (costs at rtol 1e-5).  K17 and K18 are held bit for bit to
+  their plain versions chunk by chunk from their own carry (with and
+  without the ancestor map) on the CLI's loop graph at 256 x 500 in
+  64-frame and 1-frame chunks, the 1-state sausage at 512 x 500, the
+  7,500-state loop (the work area in device memory at 300 streams), the
+  1k trie at 128 x 500 on planted words, the dictionary-shaped trie and
+  the 8,000-bank-row trie; the concatenated planes equal the monolithic
+  DP's.  Then each is timed per push, and whole streams through the push
+  API (pushes, finish, a flush attempt, idle share) beside the
+  monolithic decode.  ``device_ms`` holds each profiler window's kernel
+  count to the wrappers' launch counts and reports NaN ("not measured")
+  for a reading whose window lost kernels three times.
 
 Each CLI output is checked against the same command on the CPU (plain
 versions); the training path's, which sum GEMMs in other orders on the
@@ -399,27 +417,78 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+# The kernel wrappers whose launch counts device_ms holds the profiler's
+# trace to, each with the kernels one counted launch starts (K15 and K16:
+# a scan and a combine); filled in main() once the port is importable.
+COUNTED = []
+DEVICE_READINGS = {"readings": 0, "rerun": 0, "failed": []}
+
+
+def kernel_names() -> list:
+    """The names of the port's ``__global__`` functions, from the sources."""
+    import glob
+    import re
+
+    names = set()
+    for path in glob.glob(os.path.join(HERE, "speech_recognition_tpu_torch", "csrc", "*.cu")):
+        with open(path) as f:
+            names.update(re.findall(r"__global__[^;{]*?\b(\w+_kernel)\s*\(", f.read()))
+    return sorted(names)
+
+
 def device_ms(fn, reps: int = 5, what: str = "a timed call") -> float:
     """Mean device time per call of ``fn()`` (ms): the kernels it launches,
-    summed, from torch.profiler's CUPTI trace, after one warm-up run."""
+    summed, from torch.profiler's CUPTI trace, after one warm-up run.
+
+    A profiler window can lose kernels from its trace (seen as device
+    times below event times).  So each reading counts the port's kernels
+    the trace holds against the launches the wrappers counted in the
+    window; short sleep kernels on both sides of the counted calls keep
+    them off the window's edges and are left out of the sum.  Where the
+    trace holds fewer of the port's kernels (or no device time at all),
+    the window runs again; after three short windows the reading fails:
+    it is NaN ("not measured"), never a low time."""
+    import re
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    # a profiler run now and then records no kernel at all (seen once in
-    # ~300 runs on an H100, and twice in a row once): two more runs, then
-    # fail
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    pat = re.compile(r"\b(" + "|".join(kernel_names()) + r")\b")
+
+    def pad():
+        for _ in range(3):
+            torch.cuda._sleep(2000)
+        torch.cuda.synchronize()
+
+    DEVICE_READINGS["readings"] += 1
+    for attempt in range(3):
+        # a warm-up step first: its events are discarded, and the tracer is
+        # running before the counted window starts
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            pad()
+            prof.step()
+            pad()
+            before = sum(w.launches * k for w, k in COUNTED)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages())
-        if total > 0:
+            launched = sum(w.launches * k for w, k in COUNTED) - before
+            pad()
+            prof.step()
+        events = [e for e in prof.key_averages() if "spin_kernel" not in e.key]
+        seen = sum(e.count for e in events if pat.search(e.key))
+        total = sum(e.self_device_time_total for e in events)
+        if total > 0 and seen >= launched:
             return total / reps / 1e3
-    fail(f"torch.profiler recorded no device time in three runs of {what}")
-
+        DEVICE_READINGS["rerun"] += 1
+        print(f"chip_smoke: device_ms of {what}: the trace holds {seen} of {launched} kernel "
+              f"launches (device time {total / 1e3:.3f} ms); run {attempt + 1} of 3",
+              file=sys.stderr)
+    DEVICE_READINGS["failed"].append(what)
+    return float("nan")
 
 
 @contextlib.contextmanager
@@ -632,6 +701,75 @@ def make_lex_pipeline(dev, batch=128, samples=80000):
     return bank, lexg, cfg, sig, lens
 
 
+def planted_features(bank, b: int, t_len: int, rng, units=None, dwell=(2, 5), noise=0.3):
+    """``([B, T, D] features, n_frames [B])`` on the bank's device that
+    walk random unit sequences (``units``: lists of bank models to draw
+    from; default single models) through a few frames at each state's
+    first-mixture mean plus noise, each stream up to ``t_len`` frames:
+    speech-like input whose paths become immortal as real audio's do."""
+    import numpy as np
+    import torch
+
+    means = bank.means.cpu().numpy()[:, :, 0, :]  # [N, S, D]
+    n_models, n_states, d = means.shape
+    x = np.zeros((b, t_len, d), np.float32)
+    nf = np.zeros(b, np.int32)
+    for i in range(b):
+        rows = []
+        while True:
+            seq = units[int(rng.integers(len(units)))] if units else [int(rng.integers(n_models))]
+            r = [means[u, s] for u in seq for s in range(n_states)
+                 for _ in range(int(rng.integers(*dwell)))]
+            if len(rows) + len(r) > t_len:
+                break
+            rows += r
+        x[i, : len(rows)] = np.asarray(rows) + noise * rng.standard_normal((len(rows), d))
+        nf[i] = len(rows)
+    dev = bank.means.device
+    return torch.from_numpy(x).to(dev), torch.from_numpy(nf).to(dev)
+
+
+def hold_chunks(name, launch, plain, frontier, nf, t_len: int, chunk: int, batch_axis: int):
+    """A chunk kernel (K17 or K18) against its plain version, chunk by
+    chunk from the kernel's own carry: ``launch`` and ``plain`` take
+    ``(t0, c, frontier, n_valid, first)``; every output must be
+    bit-identical and a frozen stream's carry unchanged.  Returns the
+    kernel's outputs per chunk."""
+    import torch
+
+    outs = []
+    for t0 in range(0, t_len, chunk):
+        c = min(chunk, t_len - t0)
+        nv = (nf - t0).clamp(0, c).to(torch.int32)
+        got = launch(t0, c, frontier, nv, t0 == 0)
+        want = plain(t0, c, frontier, nv, t0 == 0)
+        torch.cuda.synchronize()
+        for k, (a, b_) in enumerate(zip(got, want)):
+            if (a is None) != (b_ is None) or (a is not None and not torch.equal(a, b_)):
+                fail(f"{name}: output {k} of the chunk at frame {t0} differs from the plain "
+                     f"version")
+        frozen = torch.nonzero(nv == 0)[:, 0]
+        if not torch.equal(got[0].index_select(batch_axis, frozen),
+                           frontier.index_select(batch_axis, frozen)):
+            fail(f"{name}: a frozen stream's carry moved in the chunk at frame {t0}")
+        outs.append(got)
+        frontier = got[0]
+    return outs
+
+
+def stream_lines(out: str) -> dict:
+    """``{file: (words, emitted counts or None, cost)}`` from ``cli stream``."""
+    import re
+
+    got = {}
+    for line in out.splitlines():
+        m = re.match(r"(\S+): (\[.*\]) \((?:(\d+/\d+) words emitted mid-stream, )?"
+                     r"cost (\S+)\)$", line)
+        if m:
+            got[m.group(1)] = (m.group(2), m.group(3), float(m.group(4)))
+    return got
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "speech_recognition_tpu_torch")):
         fail("run from a checkout of the repository (speech_recognition_tpu_torch/ missing)")
@@ -685,7 +823,7 @@ def main() -> int:
         mfcc_tail,
     )
     from speech_recognition_tpu_torch.ops.gmm import augment_dtb, gmm_emission_weights
-    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+    from speech_recognition_tpu_torch.ops.viterbi_banded import _eps_u_dtype, banded_arrays
 
     report = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1559,6 +1697,132 @@ def main() -> int:
     k7_plans("1k trie, dense LM", nll_b, g1k, nf_b, lm_ld)
     k7_plans("dict1-shaped trie, uniform emissions", nll_bd, gd, nf_bd, lm_ldd)
 
+    # ---- 5c. K17 / K18 (the streaming chunk steps) vs their plain versions --
+    # Each kernel runs chunk by chunk from its own carry and every chunk is
+    # held bit for bit against the plain version on the same carry; the
+    # concatenated planes must then equal the monolithic DP's.
+    from speech_recognition_tpu_torch.config import DecodeConfig
+    from speech_recognition_tpu_torch.decode.streaming import StreamingDecoder
+
+    CH, BS, BL = 64, 256, 128  # chunk frames; streams on the loop and on the trie
+    cli_loop = build_loop_graph([bank.trans_cost[i].cpu().numpy() for i in range(bank.n_models)],
+                                word_insertion_cost=DecodeConfig().word_insertion_cost)
+    bgl = banded_arrays(cli_loop, device=dev)
+    topol = vk.banded_topology(bgl)
+    if vk.banded_route(topol, cli_loop.eps_depth) != "fused":
+        fail("the CLI's loop graph does not take K17's uniform route")
+    feats_s, nf_s = planted_features(bank, BS, T, np.random.default_rng(21))
+    xa_s = augment_dtb(feats_s)
+    nll_s = vk.bank_emission(xa_s, w, lw)  # K13's [U, T, B] view
+    init_l = bgl.init_cost[:, None].expand(-1, BS).contiguous()
+
+    def k17_hold(name, g_, topo_, nll_, nf_, depth, base, org, chunk=CH):
+        mode = f"{base}_chunk" + ("_org" if org else "")
+
+        def launch(t0, c, fr, nv, first):
+            return vk._banded_forward(nll_[:, t0:t0 + c], g_, nv, depth, mode,
+                                      vk.viterbi_banded_chunk, frontier=fr, first=first)
+
+        def plain(t0, c, fr, nv, first):
+            x_ = nll_[:, t0:t0 + c]
+            if base == "fused":
+                return vk._fused_dp(x_, g_, nv, fr, fr, first, org)
+            return vk.viterbi_banded_chunk_ref(x_, g_, topo_, fr, nv, first, org, "general",
+                                               depth)
+
+        b_ = nll_.shape[2]
+        init_ = g_.init_cost[:, None].expand(-1, b_).contiguous()
+        outs = hold_chunks(f"K17 {mode} on {name}", launch, plain, init_, nf_, nll_.shape[1],
+                           chunk, 1)
+        mono = (vk._banded_forward(nll_, g_, nf_, 1, "fused", vk.viterbi_banded_fused)
+                if base == "fused" else vk.viterbi_banded_general_ref(nll_, g_, topo_, nf_,
+                                                                      depth))
+        torch.cuda.synchronize()
+        # a stream of length 0 keeps its frontier in the chunk step (K1's DP
+        # gives it POS_INF, K8's moves it at frame 0): compare the others
+        live = nf_ > 0
+        for k in ((1, 2, 3) if base == "fused" else (1, 2)):
+            if not torch.equal(torch.cat([o[k] for o in outs])[..., live], mono[k][..., live]):
+                fail(f"K17 {mode} on {name}: concatenated planes differ from the monolithic "
+                     f"DP's (output {k})")
+        if not torch.equal(outs[-1][0][:, live], mono[0][:, live]):
+            fail(f"K17 {mode} on {name}: the last carry differs from the monolithic final")
+        plan_ = vk.banded_plan(b_, vk._n_sm(dev), g_.n_states, g_.n_words, g_.n_ends,
+                               nll_.shape[0], mode, load_library().srt_smem_limit())
+        phase("K17", f"{mode} on {name} ({g_.n_states} states) at {b_}x{nll_.shape[1]} in "
+                     f"{chunk}-frame chunks (work area in {plan_.frontier} memory, "
+                     f"{plan_.kf} frames staged): carry, planes{', org' if org else ''} == "
+                     f"plain every chunk; concatenated planes == the monolithic DP's")
+        return outs
+
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    for org in (False, True):
+        k17_hold("the CLI loop graph, planted features", bgl, topol, nll_s, nf_s, 1, "fused",
+                 org)
+    k17_hold("the CLI loop graph, 1-frame chunks", bgl, topol, nll_s[:, :8], nf_s.clamp(max=8),
+             1, "fused", True, chunk=1)
+    bg1_, topo1_, nll1_, _, _, graph1_, _ = gen_planes["1-state sausage7"]
+    for org in (False, True):
+        k17_hold("the 1-state sausage7", bg1_, topo1_, nll1_, nf8, graph1_.eps_depth, "general",
+                 org)
+    k17_hold("the 1,500-word loop", bgb, topob, vk.bank_emission(xab, w, lw), nfb, 1, "fused",
+             True)
+    nl7 = vk.bank_emission(augment_dtb(torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (300, 5, 39)).astype(np.float32)).to(dev)), w, lw)
+    k17_hold("the 1,500-word loop, 300 streams", bgb, topob, nl7,
+             torch.full((300,), 5, dtype=torch.int32, device=dev), 1, "fused", True)
+    # the wrapper (K13 + the DP) against its whole plain version on one chunk
+    nv0 = nf_s.clamp(max=CH)
+    got17 = vk.viterbi_banded_chunk((xa_s[:, :CH].contiguous(), w, lw), bgl, topol, init_l, nv0,
+                                    True, True, "fused")
+    want17 = vk.viterbi_banded_chunk_ref((xa_s[:, :CH].contiguous(), w, lw), bgl, topol, init_l,
+                                         nv0, True, True, "fused")
+    torch.cuda.synchronize()
+    if not torch.allclose(got17[0], want17[0], rtol=K1_RTOL, atol=0.0):
+        fail("K17 (K13 + the DP) carry differs from its plain version beyond rtol 1e-5")
+    report["K17"] = {"max_abs_err": float((got17[0] - want17[0]).abs().max())}
+
+    topo1k_ = lk.lex_topology(g1k)
+
+    def k18_hold(name, g_, topo_, nll_, nf_, org, chunk=CH):
+        def launch(t0, c, fr, nv, first):
+            return lk.viterbi_lex_chunk(nll_[:, t0:t0 + c].contiguous(), g_, topo_, fr, nv,
+                                        first, org)
+
+        def plain(t0, c, fr, nv, first):
+            return lk.viterbi_lex_chunk_ref(nll_[:, t0:t0 + c], g_, topo_, fr, nv, first, org)
+
+        b_ = nll_.shape[2]
+        init_ = g_.init_cost[None].expand(b_, -1).contiguous()
+        outs = hold_chunks(f"K18 on {name}", launch, plain, init_, nf_, nll_.shape[1], chunk, 0)
+        mono = lk.viterbi_lex_ref(nll_, g_, topo_, nf_)
+        torch.cuda.synchronize()
+        live = nf_ > 0  # a stream of length 0 keeps its frontier (K4's moves at frame 0)
+        for k in (1, 2, 3):
+            if not torch.equal(torch.cat([o[k] for o in outs])[:, live], mono[k][:, live]):
+                fail(f"K18 on {name}: concatenated planes differ from K4's plain version's "
+                     f"(output {k})")
+        if not torch.equal(outs[-1][0][live], mono[0][live]):
+            fail(f"K18 on {name}: the last carry differs from the monolithic final")
+        mode_ = lk.LEX_MODES["chunk_org" if org else "chunk"]
+        plan_ = lk.lex_plan(mode_, topo_, load_library().srt_smem_limit())
+        phase("K18", f"{name} ({g_.n_states} states, {topo_.pack.rows.shape[0]} bank rows) at "
+                     f"{b_}x{nll_.shape[1]} in {chunk}-frame chunks ({plan_text(topo_, False)}; "
+                     f"with the ancestor map: frontier {plan_.frontier}, org rows "
+                     f"{'shared' if plan_.tau else 'device'}): carry, planes"
+                     f"{', org' if org else ''} == plain every chunk; concatenated planes == "
+                     f"K4's plain version's")
+        return outs
+
+    for org in (False, True):
+        k18_hold("the 1k trie, planted words", g1k, topo1k_, nll_p, nf_p, org)
+    k18_hold("the 1k trie, 1-frame chunks", g1k, topo1k_, nll_p[:, :6], nf_p.clamp(max=6), True,
+             chunk=1)
+    k18_hold("the dict1-shaped trie", gd, lk.lex_topology(gd), nlld, nfd, True)
+    k18_hold("the 8,000-bank-row trie", gbig, lk.lex_topology(gbig), nllbig, nfbig, True)
+    report["K18"] = {"max_abs_err": 0.0}
+
     # ---- 6. both paths, through the CLI, on the card ------------------------
     from speech_recognition_tpu_torch import cli
     from speech_recognition_tpu_torch.data.synthetic import SyntheticDigits
@@ -1588,7 +1852,10 @@ def main() -> int:
                 lk.viterbi_lex, lk.lex_backtrace_val, lt.viterbi_lattice, lt.rescore_lattice,
                 vk.viterbi_banded_general, vk.banded_backtrace_general,
                 vk.viterbi_banded_wordtrace, viterbi_dense, mfcc_fused, fbk.fb_banded,
-                fbk.fb_dense)
+                fbk.fb_dense, vk.viterbi_banded_chunk, lk.viterbi_lex_chunk)
+    # device_ms holds the profiler's kernels to these counts (K15 and K16
+    # launch a scan and a combine per counted call)
+    COUNTED[:] = [(c, 2 if c in (fbk.fb_banded, fbk.fb_dense) else 1) for c in counters]
     bigram = "--lm bigram"
     k3 = (mfcc39_fused, mfcc_tail)
     paths = {"connected": (("loop", "sausage"), (*k3, vk.bank_emission,
@@ -1682,6 +1949,67 @@ def main() -> int:
                            f"states path's (K1 + K2), costs within rtol 1e-5 (max |d| "
                            f"{float(np.abs(costs_w - costs_a).max()):.3g}); mean words/utt "
                            f"{sum(map(len, words_w)) / len(words_w):.2f}")
+
+    # streaming: cli stream --device cuda for --graph loop, loop --incremental
+    # and lextree, and the push API on the 1-state sausage (K17's general
+    # route and K9), with the counters reset just before
+    def run_stream(extra, device):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["stream", "-i", bank_path, "-d", wav_dir, *extra, "--device", device])
+        return buf.getvalue()
+
+    def sausage_stream(bank_, f_, n_):
+        dec_ = StreamingDecoder(bank_, graph1_, chunk_frames=CH, batch=f_.shape[0])
+        nb_ = n_.cpu().numpy()
+        for t0 in range(0, int(nb_.max()), CH):
+            dec_.push(f_[:, t0:t0 + CH], n_valid=np.clip(nb_ - t0, 0, CH).astype(np.int32))
+        return dec_.finish()
+
+    stream_runs = {"loop": [],
+                   "loop --incremental": ["--chunk-frames", "32", "--incremental",
+                                          "--window-chunks", "2"],
+                   "lextree": ["--graph", "lextree"]}
+    for c in counters:
+        c.launches = 0
+    s_out = {sk_: stream_lines(run_stream(sv_, "cuda")) for sk_, sv_ in stream_runs.items()}
+    sau_out = sausage_stream(bank1, f_w, n_w)
+    torch.cuda.synchronize()
+    launches["stream"] = {c.__name__: c.launches for c in counters}
+    s_used = (mfcc39_fused, mfcc_tail, vk.bank_emission, vk.viterbi_banded_chunk,
+              lk.viterbi_lex_chunk, vk.banded_backtrace_val, vk.banded_backtrace_general,
+              lk.lex_backtrace_val)
+    if not all(launches["stream"][c.__name__] for c in s_used) or any(
+            launches["stream"][c.__name__] for c in (vk.viterbi_banded_fused, lk.viterbi_lex,
+                                                     vk.viterbi_banded_general)):
+        fail(f"the stream path did not run K3, K13, K17, K18, K2, K9 and K5 (and no "
+             f"monolithic forward): {launches['stream']}")
+    phase("main path", f"stream path launches: {launches['stream']}")
+    for sk_, sv_ in stream_runs.items():
+        ref = stream_lines(run_stream(sv_, "cpu"))
+        got = s_out[sk_]
+        if sorted(got) != sorted(ref) or len(ref) != n_wavs:
+            fail(f"cli stream {sk_}: {len(got)} cuda lines, {len(ref)} cpu lines, {n_wavs} wavs")
+        for wav_ in ref:
+            if got[wav_][:2] != ref[wav_][:2] or not np.isclose(got[wav_][2], ref[wav_][2],
+                                                                rtol=K1_RTOL, atol=0.0):
+                fail(f"cli stream {sk_} on {wav_}: cuda {got[wav_]} != cpu {ref[wav_]}")
+        early = [int(v_[1].split("/")[0]) for v_ in got.values() if v_[1]]
+        phase("main path", f"cli stream {' '.join(['--graph', *sk_.split()])} --device cuda on "
+                           f"{n_wavs} wavs: words{' and mid-stream counts' if early else ''} "
+                           f"identical to --device cpu, costs within rtol 1e-5"
+                           + (f"; {sum(early)} words emitted mid-stream" if early else ""))
+    if not ({f: v_[0] for f, v_ in s_out["loop"].items()}
+            == {f: v_[0] for f, v_ in s_out["loop --incremental"].items()}
+            == {f: v_[0] for f, v_ in s_out["lextree"].items()}):
+        fail("cli stream: loop, loop --incremental and lextree decoded other words")
+    sau_cpu = sausage_stream(bank1.to("cpu"), f_w.cpu(), n_w.cpu())
+    for (wg, _, cg), (wc, _, cc) in zip(sau_out, sau_cpu):
+        if wg != wc or not np.isclose(cg, cc, rtol=K1_RTOL, atol=0.0):
+            fail("StreamingDecoder on the 1-state sausage: cuda differs from cpu")
+    phase("main path", f"StreamingDecoder on the 1-state sausage7 (K17 general route + K9) "
+                       f"over the CLI corpus's features: words == cpu, costs within rtol "
+                       f"1e-5; the three cli stream graphs decode the same words")
 
     # isolated words, forced alignment, the dense decoder and ops.frontend.mfcc,
     # each with the counters reset just before it
@@ -2690,6 +3018,125 @@ def main() -> int:
                     f"synthetic {B16}x{T16} transcripts {k16_synth_ms:.3f} ms (CUDA-event "
                     f"median; {card})")
 
+    # ---- 7b. streaming: the chunk kernels per push, the push API ------------
+    # K17 on the second 64-frame chunk of the 256 x 500 planted stream over
+    # the CLI's loop graph (carried frontier, no first-frame seed), K18 on
+    # the second chunk of the 128 x 500 planted-word emissions over the 1k
+    # trie; then whole streams through StreamingDecoder.push / finish
+    nv_c = (nf_s - CH).clamp(0, CH).to(torch.int32)
+    fr_c = vk.viterbi_banded_chunk((xa_s[:, :CH].contiguous(), w, lw), bgl, topol, init_l,
+                                   nf_s.clamp(max=CH), True, False, "fused")[0]
+    xa_c = xa_s[:, CH:2 * CH].contiguous()
+    nll_c = vk.bank_emission(xa_c, w, lw)
+    k17_args = ((xa_c, w, lw), bgl, topol, fr_c, nv_c, False, False, "fused")
+    k17_org_args = k17_args[:6] + (True, "fused")
+    t["K17"] = (cuda_ms(lambda: vk.viterbi_banded_chunk(*k17_args)),
+                cuda_ms(lambda: vk.viterbi_banded_chunk_ref(*k17_args), reps=3))
+    k17_org_ms = cuda_ms(lambda: vk.viterbi_banded_chunk(*k17_org_args))
+    k17_dp_ms = cuda_ms(lambda: vk._banded_forward(nll_c, bgl, nv_c, 1, "fused_chunk",
+                                                   vk.viterbi_banded_chunk, frontier=fr_c))
+    init_t = g1k.init_cost[None].expand(BL, -1).contiguous()
+    fr_t = lk.viterbi_lex_chunk(nll_p[:, :CH].contiguous(), g1k, topo1k_, init_t,
+                                nf_p.clamp(max=CH).to(torch.int32), True, False)[0]
+    nll_pc = nll_p[:, CH:2 * CH].contiguous()
+    nv_t = (nf_p - CH).clamp(0, CH).to(torch.int32)
+    k18_args = (nll_pc, g1k, topo1k_, fr_t, nv_t, False, False)
+    t["K18"] = (cuda_ms(lambda: lk.viterbi_lex_chunk(*k18_args)),
+                cuda_ms(lambda: lk.viterbi_lex_chunk_ref(*k18_args), reps=3))
+    k18_org_ms = cuda_ms(lambda: lk.viterbi_lex_chunk(*k18_args[:6], True))
+    dev_ms.update({k: device_ms(fn, what=k) for k, fn in (
+        ("K17", lambda: vk.viterbi_banded_chunk(*k17_args)),
+        ("K13 on a chunk", lambda: vk.bank_emission(xa_c, w, lw)),
+        ("K17 DP", lambda: vk._banded_forward(nll_c, bgl, nv_c, 1, "fused_chunk",
+                                              vk.viterbi_banded_chunk, frontier=fr_c)),
+        ("K18", lambda: lk.viterbi_lex_chunk(*k18_args)))})
+    phase("timing", f"K17 per push (K13 + the DP's uniform chunk mode) on the CLI loop graph "
+                    f"({bgl.n_states} states) at {BS} streams x {CH} frames: "
+                    f"{t['K17'][0]:.3f} ms event, {dev_ms['K17']:.3f} ms device; with the "
+                    f"ancestor map {k17_org_ms:.3f}; the DP alone {k17_dp_ms:.3f} ms, device "
+                    f"{dev_ms['K17 DP']:.3f}; K13 on the chunk alone device "
+                    f"{dev_ms['K13 on a chunk']:.3f}; plain {t['K17'][1]:.3f} ms ({card})")
+    phase("timing", f"K18 per push on the 1k trie ({g1k.n_states} states) at {BL} x {CH} "
+                    f"planted-word emissions: {t['K18'][0]:.3f} ms event, {dev_ms['K18']:.3f} "
+                    f"ms device; with the ancestor map {k18_org_ms:.3f}; plain "
+                    f"{t['K18'][1]:.3f} ms ({card})")
+
+    def stream_rates(name, bank_, graph_, feats_, nf_, mono):
+        """Event ms of a whole stream's pushes, of its finish and of the
+        monolithic decode at the same shape, device ms and idle share of
+        the pushes, and flush attempts in incremental mode."""
+        b_, t_len = feats_.shape[0], feats_.shape[1]
+        nf_np = nf_.cpu().numpy()
+
+        def pushes(dec_, incremental):
+            for t0 in range(0, t_len, CH):
+                nv = (np.full(b_, min(CH, t_len - t0), np.int32) if incremental
+                      else np.clip(nf_np - t0, 0, CH).astype(np.int32))
+                dec_.push(feats_[:, t0:t0 + CH], n_valid=nv)
+            return dec_
+
+        def new(incremental):
+            return StreamingDecoder(bank_, graph_, chunk_frames=CH, batch=b_,
+                                    emit_incremental=incremental, window_chunks=4)
+
+        n_push = -(-t_len // CH)
+        dec_n = new(False)  # built once: the graph's tables are set-up, not a push
+
+        def run_pushes():
+            dec_n.reset()
+            return pushes(dec_n, False)
+
+        push_ms = cuda_ms(run_pushes, reps=3)
+        push_dev = device_ms(run_pushes, reps=2, what=f"the pushes of a {name} stream")
+        run_pushes()
+        fin_ms = cuda_ms(dec_n.finish, reps=3)
+        whole_ms = cuda_ms(lambda: run_pushes().finish(), reps=3)
+        mono_ms = cuda_ms(mono, reps=3)
+        flushes = []
+        dec_i = new(True)
+        orig = dec_i._try_flush
+
+        def timed_flush():
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            out = orig()
+            torch.cuda.synchronize()
+            flushes.append(((time.perf_counter() - t0_) * 1e3, dec_i._flushed))
+            return out
+
+        dec_i._try_flush = timed_flush
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        pushes(dec_i, True)
+        res_i = dec_i.finish()
+        inc_ms = (time.perf_counter() - t0_) * 1e3
+        audio_s = float(nf_.sum()) / 100.0
+        flush_ms = [f_[0] for f_ in flushes]
+        phase("timing", f"stream {name} ({b_} x {t_len} frames, {n_push} pushes of {CH}): "
+                        f"pushes {push_ms:.3f} ms event ({push_ms / n_push:.3f} a push), "
+                        f"device {push_dev:.3f} ms, idle share {1 - push_dev / push_ms:.3f}; "
+                        f"finish {fin_ms:.3f} ms; pushes + finish {whole_ms:.3f} ms = "
+                        f"{audio_s / whole_ms * 1e3:,.0f} audio-s/s ({audio_s:.1f} s of audio); "
+                        f"the monolithic decode {mono_ms:.3f} ms "
+                        f"({whole_ms / mono_ms:.2f}x) ({card})")
+        phase("timing", f"stream {name}, incremental (window 4, a flush try every 2 pushes): "
+                        f"{inc_ms:.1f} ms host clock for the pushes and finish; {len(flushes)} "
+                        f"flush attempts, {statistics.median(flush_ms) if flush_ms else 0:.3f} "
+                        f"ms median (max {max(flush_ms) if flush_ms else 0:.3f}), "
+                        f"{dec_i._flushed} of {t_len} frames flushed mid-stream; "
+                        f"{sum(map(len, dec_i._emitted))} words in all ({card})")
+        return {"push_ms": push_ms, "push_dev": push_dev, "finish_ms": fin_ms,
+                "whole_ms": whole_ms, "mono_ms": mono_ms, "flush_ms": flush_ms,
+                "audio_s": audio_s, "res_i": res_i}
+
+    stream_rates("loop", bank, cli_loop, feats_s, nf_s,
+                 lambda: _decode_banded_batch(bank, feats_s, nf_s, bgl, topo=topol))
+    units_l = [[ord(ch) - ord("a") for ch in wd] for wd in lexp.words]
+    feats_l, nf_l = planted_features(lbank, BL, T, np.random.default_rng(23), units=units_l,
+                                     dwell=(2, 4))
+    stream_rates("lextree", lbank, lexp, feats_l, nf_l,
+                 lambda: _decode_lex_batch(lbank, feats_l, nf_l, gp, topop))
+
     # ---- 8. bounds ----------------------------------------------------------
     sum_nf = int(nf.clamp(max=T).sum())  # K1 / K2 / K10 streams stop at nf
     sum_nf8 = int(nf8.clamp(max=T).sum())
@@ -2816,6 +3263,27 @@ def main() -> int:
     more["K15 transcripts' banded dict"] = (*fb_banded_work(
         nll16, g15t, nf16, depth_b, end15t, fbk.fb_banded_ref(nll16, g15t, nf16, depth_b,
                                                               end15t)), k15_tr_ms)
+    # K17 / K18 per chunk (the timed calls: every frame of the chunk is
+    # computed, frozen ones too); with the ancestor map add its [S, B]
+    # output and an org select and store per state and frame
+    eu17 = torch.empty((), dtype=_eps_u_dtype(bgl.n_ends)).element_size()
+    frames17, frames18 = CH * BS, CH * BL
+    work["K17"] = (nbytes(xa_c, w, lw, nv_c, fr_c) + graph_bytes(bgl) + nbytes(fr_c)
+                   + frames17 * (bgl.n_states + bgl.n_words * (eu17 + 4)),
+                   frames17 * (2 * w.numel() + 4 * w_units) + dp_ops(bgl, frames17,
+                                                                     span_pairs(topol)))
+    work["K18"] = (nbytes(nll_pc, nv_t, fr_t) + graph_bytes(g1k) + nbytes(fr_t)
+                   + frames18 * (g1k.n_states + g1k.n_words * (topo1k_.eps_u_dtype.itemsize
+                                                               + 4)),
+                   dp_ops(g1k, frames18))
+    more["K17 with the ancestor map"] = (work["K17"][0] + 4 * bgl.n_states * BS,
+                                         work["K17"][1] + 2.0 * bgl.n_states * frames17,
+                                         k17_org_ms)
+    more["K17 DP alone"] = (work["K17"][0] - nbytes(xa_c, w, lw) + nbytes(nll_c),
+                            dp_ops(bgl, frames17, span_pairs(topol)), k17_dp_ms)
+    more["K18 with the ancestor map"] = (work["K18"][0] + 4 * g1k.n_states * BL,
+                                         work["K18"][1] + 2.0 * g1k.n_states * frames18,
+                                         k18_org_ms)
     bounds = {k: bound(*v) for k, v in work.items()}
     # a serial walk's floor beside its byte bound: its longest stream's
     # frames as dependent shared-memory loads (~30 cycles each on Hopper)
@@ -2871,7 +3339,13 @@ def main() -> int:
            "K15": ("fb_banded", "speech_recognition_tpu_torch/csrc/forward_backward.cu",
                    "speech_recognition_tpu/ops/forward_backward.py:259"),
            "K16": ("fb_dense", "speech_recognition_tpu_torch/csrc/forward_backward.cu",
-                   "speech_recognition_tpu/ops/forward_backward.py:62")}
+                   "speech_recognition_tpu/ops/forward_backward.py:62"),
+           # no TPU kernel: these replace the streaming chunk step's lax.scan
+           "K17": ("viterbi_banded_chunk",
+                   "speech_recognition_tpu_torch/csrc/banded_forward.cu",
+                   "speech_recognition_tpu/decode/streaming.py:86"),
+           "K18": ("viterbi_lex_chunk", "speech_recognition_tpu_torch/csrc/viterbi_lex.cu",
+                   "speech_recognition_tpu/decode/streaming.py:86")}
     # each kernel's launches over the path runs above (no single PyTorch
     # call computes any of these functions: library_ms is null)
     n_launch = {fn: sum(p[fn] for p in launches.values()) for fn in launches["connected"]}
@@ -2880,6 +3354,10 @@ def main() -> int:
                 "ms": t[k][0], "plain_ms": t[k][1], "bound_ms": bounds[k][0],
                 "bound_by": bounds[k][1], "library_ms": None}
                for k, (fn, path, rep) in src.items()]
+    phase("timing", f"device_ms: {DEVICE_READINGS['readings']} readings; "
+                    f"{DEVICE_READINGS['rerun']} profiler window(s) re-run for missing "
+                    f"kernels; not measured (three short windows, printed as nan): "
+                    f"{', '.join(DEVICE_READINGS['failed']) or 'none'}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,6 @@
 """Command-line interface of the port: ``synth``, ``isolated_train``,
-``isolated_test``, ``continuous_train``, ``connected_test`` and
-``align``.
+``isolated_test``, ``continuous_train``, ``connected_test``, ``stream``
+and ``align``.
 
 Counterpart of ``speech_recognition_tpu/cli.py``.  ``synth`` writes the
 deterministic synthetic Aurora-style corpus (the same wavs, byte for
@@ -45,6 +45,16 @@ bank has a silence model): padded transcript graphs -> K11 with
 per-utterance matrices -> backtrace, and writes one JSON line per file
 with its word segments, their times and the path cost.
 
+``stream`` decodes every wav of a directory chunk by chunk through
+``decode.streaming.StreamingDecoder`` (the long-audio serving path):
+MFCC-39 (K3 on CUDA) -> per chunk the chunk step K17 (K13 + K1's DP from
+the carried frontier; ``--graph loop``) or K18 (K4 from the carry;
+``--graph lextree``) -> one backtrace at the end (K2 or K5) -> words,
+printed with the path cost.  ``--incremental`` streams each file alone
+and prints words as they become immortal (their paths backtraced
+mid-stream, their planes dropped), with the count emitted before the
+end.
+
 Run:  python -m speech_recognition_tpu_torch.cli synth -o data
       python -m speech_recognition_tpu_torch.cli isolated_train -i data/train \
           -o bank.npz [--silence] [--device cuda|cpu]
@@ -55,13 +65,14 @@ Run:  python -m speech_recognition_tpu_torch.cli synth -o data
           [--lm none|bigram] [--decoder auto|compose|lattice] [--confidence] \
           [--device cuda|cpu]
       python -m speech_recognition_tpu_torch.cli isolated_test -i bank.npz -d wav_dir
+      python -m speech_recognition_tpu_torch.cli stream -i bank.npz -d wav_dir \
+          [--graph loop|lextree] [--chunk-frames 64] [--incremental]
       python -m speech_recognition_tpu_torch.cli align -i bank.npz -d wav_dir \
           -o alignments.jsonl
 
 The device is explicit (default ``cuda``); asking for CUDA on a host
 without it is an error, never a silent CPU run.  Other actions
-(``stream``, ``spellcheck``, ``record``) are not ported yet (ROADMAP
-queue A).
+(``spellcheck``, ``record``) are not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -86,7 +97,7 @@ from speech_recognition_tpu_torch.config import (
 )
 
 __all__ = ["main", "cmd_synth", "cmd_isolated_train", "cmd_continuous_train",
-           "cmd_connected_test", "cmd_isolated_test", "cmd_align"]
+           "cmd_connected_test", "cmd_isolated_test", "cmd_align", "cmd_stream"]
 
 
 def _device(name: str) -> torch.device:
@@ -454,9 +465,80 @@ def _print_confidence(bank, graph, feats, nf, files):
     states, eps_flags, nb = states.cpu().numpy(), eps_flags.cpu().numpy(), nf.cpu().numpy()
     for i, f in enumerate(files):
         wc = word_confidence(graph, states[i], eps_flags[i], post[i], int(nb[i]))
-        pretty = " ".join(f"{DIGIT_NAMES[w] if w < len(DIGIT_NAMES) else 'sil'}:{c:.3f}"
-                          for w, c in wc)
+        pretty = " ".join(f"{_digit_name(w)}:{c:.3f}" for w, c in wc)
         print(f"confidence {os.path.basename(f)}: {pretty}")
+
+
+def _digit_name(w: int) -> str:
+    return DIGIT_NAMES[w] if w < len(DIGIT_NAMES) else "sil"
+
+
+def cmd_stream(args):
+    """Streaming decode: push fixed-size feature chunks of every wav
+    through the carried-frontier ``StreamingDecoder`` instead of decoding
+    utterances whole.  ``--incremental`` turns on bounded-memory
+    mid-stream word emission; each file then streams alone (incremental
+    emission needs full-width pushes per stream)."""
+    from speech_recognition_tpu_torch.decode.streaming import StreamingDecoder
+    from speech_recognition_tpu_torch.models.graph import build_loop_graph
+    from speech_recognition_tpu_torch.utils.checkpoint import load_bank
+
+    dev = _device(args.device)
+    bank, meta = load_bank(args.input)
+    bank = bank.to(dev)
+    norm, cmvn = _norm_from_meta(meta)
+    files = sorted(glob.glob(os.path.join(args.data, "*.wav")))
+    if not files:
+        sys.exit(f"no wavs under {args.data}")
+    feats, nf = _featurize_files(files, FrontendConfig(), args.max_samples, dev, norm=norm,
+                                 cmvn=cmvn)
+    nb = nf.cpu().numpy()
+    t_max = int(nb.max())
+    feats = feats[:, :t_max]  # rows past a file's length are pushed as frozen frames
+
+    trans_np = [bank.trans_cost[i].cpu().numpy() for i in range(bank.n_models)]
+    if args.graph == "lextree":
+        from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+
+        symbols = [chr(ord("0") + i) if i < 10 else chr(ord("A") + i - 10)
+                   for i in range(bank.n_models)]
+        graph = build_lex_graph(symbols, trans_np, {s: i for i, s in enumerate(symbols)},
+                                word_insertion_cost=args.word_insertion_cost)
+    else:
+        graph = build_loop_graph(trans_np, word_insertion_cost=args.word_insertion_cost)
+
+    chunk = args.chunk_frames
+    d = feats.shape[2]
+    if args.incremental:
+        for i, f in enumerate(files):
+            dec = StreamingDecoder(bank, graph, chunk_frames=chunk, emit_incremental=True,
+                                   window_chunks=args.window_chunks)
+            early = []
+            t, n = 0, int(nb[i])
+            while t < n:
+                c = min(chunk, n - t)
+                buf = torch.zeros((chunk, d), dtype=torch.float32, device=dev)
+                buf[:c] = feats[i, t:t + c]
+                early.extend(dec.push(buf, n_valid=c)[0])
+                t += c
+            words, _, cost = dec.finish()
+            print(f"{os.path.basename(f)}: {[_digit_name(w) for w in words]} "
+                  f"({len(early)}/{len(words)} words emitted mid-stream, cost {cost:.1f})")
+        return
+    dec = StreamingDecoder(bank, graph, chunk_frames=chunk, batch=len(files))
+    t = 0
+    while t < t_max:
+        nv = np.clip(nb - t, 0, chunk).astype(np.int32)
+        c = min(chunk, t_max - t)
+        buf = torch.zeros((len(files), chunk, d), dtype=torch.float32, device=dev)
+        buf[:, :c] = feats[:, t:t + c]
+        dec.push(buf, n_valid=nv)
+        t += chunk
+    results = dec.finish()
+    if len(files) == 1:
+        results = [results]
+    for f, (words, _, cost) in zip(files, results):
+        print(f"{os.path.basename(f)}: {[_digit_name(w) for w in words]} (cost {cost:.1f})")
 
 
 def cmd_isolated_test(args):
@@ -608,6 +690,19 @@ def main(argv=None):
     p.add_argument("--max-samples", type=int, default=64000)
     p.add_argument("--device", default="cuda", help=device_help)
     p.set_defaults(fn=cmd_isolated_test)
+
+    p = sub.add_parser("stream", help="streaming (chunked) connected decode")
+    p.add_argument("-i", "--input", required=True, help="bank .npz")
+    p.add_argument("-d", "--data", required=True, help="wav dir")
+    p.add_argument("--graph", choices=["loop", "lextree"], default="loop")
+    p.add_argument("--chunk-frames", type=int, default=64)
+    p.add_argument("--incremental", action="store_true",
+                   help="bounded-memory mid-stream word emission")
+    p.add_argument("--window-chunks", type=int, default=4)
+    p.add_argument("--word-insertion-cost", type=float, default=_dc.word_insertion_cost)
+    p.add_argument("--max-samples", type=int, default=120000)
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_stream)
 
     p = sub.add_parser("align", help="forced alignment -> word segments")
     p.add_argument("-i", "--input", required=True, help="bank .npz")

@@ -21,6 +21,23 @@
 // (ops/viterbi_banded_pallas.py:133, reached at :867 from
 // viterbi_banded_wordtrace_pallas, the backend="wordtrace" decode).
 //
+// K17 (kFusedChunk, kGeneralChunk): one chunk of a streaming decode on K1's
+// or K8's DP (decode/streaming.StreamingDecoder).  It replaces no Pallas
+// kernel: the JAX package runs the chunk step as a lax.scan
+// (speech_recognition_tpu/decode/streaming.py:86 _chunk_step).  What
+// changes against K1 / K8 (the plain version is
+// ops/viterbi_banded_kernels.viterbi_banded_chunk_ref):
+//   carry  each stream starts from its carried frontier [S, B] (passed in
+//          init's place); with `first` frame 0 seeds from it (code 0), else
+//          frame 0 relaxes the band from it like any later frame
+//   mask   every frame t >= nf (nf = the chunk's valid frames, 0 allowed)
+//          freezes the carry, frame 0 included; final = the carry
+//   org    (the C interface's modes 5 and 6) an int32 ancestor map carried
+//          beside the costs, as K10 carries tau: s at the chunk start, the
+//          band winner's org[s-d] (0 for s < d), and on an eps arrival the
+//          origin end's org as the pass found it (snapshotted with the
+//          word-end costs, Jacobi); written out as org [S, B]
+//
 // Per frame t of stream b (the plain versions' semantics, unchanged):
 //   band   best = min_d band[d,s] + cost[s-d] (d = 0, 1, 2; cost[s-d] is
 //          POS_INF for s < d); frame 0 seeds from init with d = 0.  K1 and
@@ -111,13 +128,21 @@ constexpr int kPad = 4;       // POS_INF floats in front of each cost row
 // wait, band, eps passes, plane rows, mask, flush
 constexpr int kPhases = 6;
 
-enum Mode { kFused = 0, kGeneral = 1, kWordTrace = 2 };
+enum Mode { kFused = 0, kGeneral = 1, kWordTrace = 2, kFusedChunk = 3, kGeneralChunk = 4 };
+// The C interface's mode numbers add 5 and 6: the chunk modes 3 and 4 with
+// the ancestor map.  The DP a mode runs (K1's, K8's or K10's), whether it
+// carries a chunk's frontier, and whether it keeps the ancestor map:
+__host__ __device__ constexpr int base_mode(int mode) {
+  return mode <= kWordTrace ? mode : (mode - kFusedChunk) % 2;
+}
+__host__ __device__ constexpr bool chunk_mode(int mode) { return mode >= kFusedChunk; }
+__host__ __device__ constexpr bool org_mode(int mode) { return mode >= 5; }
 
 struct Params {
   const float* nll;       // emission (u, t, b) at u*su + t*st + b*sb
   long long su, st, sb;
   const float4* band4;    // [S] (band0, band1, band2, bank_state as int bits)
-  const float* init;      // [S]
+  const float* init;      // [S]; the chunk modes: the carried frontier [S, B]
   const int* word_starts; // [R]
   const int* word_ends;   // [L]
   const float* eps_t;     // [L, R] the eps block, transposed
@@ -130,22 +155,26 @@ struct Params {
   int u_wide;
   int* eps_aux;           // [T, R, B]: K1's eps_prev, K10's eps_tau
   int* final_tau;         // [S, B] (K10)
+  int* org_out;           // [S, B] the chunk modes' ancestor map, or null
   unsigned char* scratch; // per-stream work areas when not in shared memory
   long long* trace;       // [B, kPhases] cycles per phase, or null (off)
   int U, T, B, S, R, L, eps_depth;
   int tile, work_smem, tables, ring, kf;
+  int mode, first;        // the C interface's mode number; chunk: frame 0 seeds
 };
 
 __host__ __device__ inline size_t r16(size_t n) { return (n + 15) & ~(size_t)15; }
 
 // Bytes of one stream's work area: the two padded cost rows and the codes of
-// the frontier (K10: two padded tau rows instead of the codes), the
-// word-end snapshot (and K1's end(u) - d_end(u), the eps_prev of an arrival
-// from u; K10's word-end taus), and each row's last improving origin.
+// the frontier (K10: two padded tau rows instead of the codes), K17's two
+// padded ancestor-map rows (modes 5, 6), the word-end snapshot (and K1's
+// end(u) - d_end(u), the eps_prev of an arrival from u; K10's word-end
+// taus; K17's word-end ancestors), and each row's last improving origin.
 __host__ __device__ inline size_t work_bytes(int mode, int S, int R, int L) {
   const size_t row = r16((size_t)(S + kPad) * 4);
-  return (mode == kWordTrace ? 4 * row : 2 * row + r16((size_t)S)) +
-         r16((size_t)L * 4) * (mode == kGeneral ? 1 : 2) + r16((size_t)R * 4);
+  const int base = base_mode(mode), org = org_mode(mode);
+  return (base == kWordTrace ? 4 * row : 2 * row + r16((size_t)S)) + (org ? 2 * row : 0) +
+         r16((size_t)L * 4) * ((base == kGeneral ? 1 : 2) + org) + r16((size_t)R * 4);
 }
 
 __host__ __device__ inline size_t ring_bytes(int U) { return r16((size_t)kRing * U * 4); }
@@ -153,11 +182,11 @@ __host__ __device__ inline size_t ring_bytes(int U) { return r16((size_t)kRing *
 // Bytes of one frame of the CTA's plane staging: the bp8 rows (not K10's)
 // and the int32 eps rows (eps_u, and K1's eps_prev or K10's eps_tau).
 __host__ __device__ inline size_t stage_bp_bytes(int mode, int S, int tile) {
-  return mode == kWordTrace ? 0 : r16((size_t)S * tile);
+  return base_mode(mode) == kWordTrace ? 0 : r16((size_t)S * tile);
 }
 __host__ __device__ inline size_t stage_frame_bytes(int mode, int S, int R, int tile) {
   return stage_bp_bytes(mode, S, tile) +
-         (mode == kGeneral ? 1 : 2) * r16((size_t)R * tile * 4);
+         (base_mode(mode) == kGeneral ? 1 : 2) * r16((size_t)R * tile * 4);
 }
 
 // Bytes of the CTA's double-buffered plane staging for kf frames.
@@ -194,6 +223,7 @@ __device__ __forceinline__ T ldt(const T* p) {
 constexpr int kBarFull = 1;   // a staged block is ready to be written
 constexpr int kBarEmpty = 2;  // a staging buffer has been written out
 constexpr int kBarStream = 3; // + the stream's index in the CTA
+constexpr int kBarCompute = kBarStream + kMaxTile;  // every compute warp of the CTA
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
@@ -238,9 +268,12 @@ constexpr int kMaxThreads = (kMaxTile * kWps + 1) * kWarp;
 
 template <int kMode, bool kWorkSmem, bool kTables, bool kRingOn>
 __device__ __forceinline__ void banded_forward_body(const Params& p) {
-  constexpr bool kK1 = kMode == kFused;
-  constexpr bool kWT = kMode == kWordTrace;
-  constexpr bool kAux = kMode != kGeneral;  // a second int32 eps plane
+  constexpr int kBase = base_mode(kMode);
+  constexpr bool kChunk = chunk_mode(kMode);
+  constexpr bool kK1 = kBase == kFused;
+  constexpr bool kWT = kBase == kWordTrace;
+  constexpr bool kAux = kBase != kGeneral;  // a second int32 eps plane
+  const bool org = kChunk && org_mode(p.mode);  // K17's ancestor map
   extern __shared__ __align__(16) unsigned char smem[];
   // tile streams of kWps warps each; with staging a writer warp follows
   const int tile = p.tile;
@@ -254,7 +287,7 @@ __device__ __forceinline__ void banded_forward_body(const Params& p) {
   const int nf = live ? p.nf[b] : 0;
 
   // ---- shared memory / scratch carve-up --------------------------------
-  const size_t wk = work_bytes(kMode, S, R, L);
+  const size_t wk = work_bytes(p.mode, S, R, L);
   const size_t rg = kRingOn ? ring_bytes(p.U) : 0;
   unsigned char* mine = smem + (size_t)sw * ((kWorkSmem ? wk : 0) + rg);
   unsigned char* work = kWorkSmem ? mine : p.scratch + (size_t)gw * wk;
@@ -267,10 +300,15 @@ __device__ __forceinline__ void banded_forward_body(const Params& p) {
   int* tnxt = reinterpret_cast<int*>(q + row) + kPad;                  // [S] (K10)
   int8_t* wcode = reinterpret_cast<int8_t*>(q);                        // [S] (K1, K8)
   q += kWT ? 2 * row : r16((size_t)S);
+  int* ocur = reinterpret_cast<int*>(q) + kPad;                        // [S] (K17 org)
+  int* onxt = reinterpret_cast<int*>(q + row) + kPad;                  // [S] (K17 org)
+  q += org ? 2 * row : 0;
   float* ends = reinterpret_cast<float*>(q);                           // [L]
   q += r16((size_t)L * 4);
   int* endpp = reinterpret_cast<int*>(q);  // [L] K1: end - d_end; K10: tau of the end
   q += kAux ? r16((size_t)L * 4) : 0;
+  int* endorg = reinterpret_cast<int*>(q);                             // [L] (K17 org)
+  q += org ? r16((size_t)L * 4) : 0;
   int* eu = reinterpret_cast<int*>(q);                                 // [R]
   unsigned char* stage = smem + (size_t)tile * ((kWorkSmem ? wk : 0) + rg);
   const size_t st_bp = stage_bp_bytes(kMode, S, tile), st_row = r16((size_t)R * tile * 4);
@@ -381,11 +419,17 @@ __device__ __forceinline__ void banded_forward_body(const Params& p) {
     for (int tf = 0; tf < kRing - 1; ++tf) prefetch(tf);
 
   for (int i = ln; i < S + kPad; i += kSL) {
-    cur[i - kPad] = SRT_POS_INF;
+    // the chunk modes start from the stream's carried frontier
+    cur[i - kPad] = (kChunk && i >= kPad) ? __ldg(p.init + (size_t)(i - kPad) * p.B + b)
+                                          : SRT_POS_INF;
     nxt[i - kPad] = SRT_POS_INF;
     if (kWT) {  // tau 0 in front of the rows and before frame 0
       tcur[i - kPad] = 0;
       tnxt[i - kPad] = 0;
+    }
+    if (org) {  // 0 in front of the rows; each state its own ancestor
+      ocur[i - kPad] = i >= kPad ? i - kPad : 0;
+      onxt[i - kPad] = 0;
     }
   }
   for (int r = ln; r < R; r += kSL) eu[r] = -1;  // -1: not entered by eps
@@ -425,14 +469,16 @@ __device__ __forceinline__ void banded_forward_body(const Params& p) {
     const int cs = p.kf ? tile : 1;  // code stride
     mark(0);
 
-    // (a) band relaxation + emission; frame 0 seeds from init (code 0)
-    if (t == 0) {
+    // (a) band relaxation + emission; frame 0 seeds from init (code 0), a
+    // chunk's from the carried frontier, or (a later chunk) relaxes from it
+    if (t == 0 && (!kChunk || p.first)) {
       for (int s = ln; s < S; s += kSL) {
-        nxt[s] = fminf(__ldg(p.init + s) + emis(bank_of(s)), SRT_POS_INF);
+        nxt[s] = fminf((kChunk ? cur[s] : __ldg(p.init + s)) + emis(bank_of(s)), SRT_POS_INF);
         if (kWT)
           tnxt[s] = 0;
         else
           code[s * cs] = 0;
+        if (org) onxt[s] = s;
       }
     } else {
       // kBatch states per lane at a time: every load of a batch is issued
@@ -457,7 +503,7 @@ __device__ __forceinline__ void banded_forward_body(const Params& p) {
           float best[kBatch];
 #pragma unroll
           for (int k = 0; k < kBatch; ++k)
-            best[k] = band_select<kMode>(bd[k].x + c0[k], bd[k].y + c1[k], bd[k].z + c2[k],
+            best[k] = band_select<kBase>(bd[k].x + c0[k], bd[k].y + c1[k], bd[k].z + c2[k],
                                          d[k]);
 #pragma unroll
           for (int k = 0; k < kBatch; ++k) tau[k] = tcur[min(sb + k * kSL, S - 1) - d[k]];
@@ -469,13 +515,33 @@ __device__ __forceinline__ void banded_forward_body(const Params& p) {
               tnxt[s] = tau[k];
             }
           }
+        } else if (org) {
+          // the ancestor follows the band winner (0 in front of the row);
+          // its loads, like the others, come before the batch's stores
+          int d[kBatch], o[kBatch];
+          float best[kBatch];
+#pragma unroll
+          for (int k = 0; k < kBatch; ++k)
+            best[k] = band_select<kBase>(bd[k].x + c0[k], bd[k].y + c1[k], bd[k].z + c2[k],
+                                         d[k]);
+#pragma unroll
+          for (int k = 0; k < kBatch; ++k) o[k] = ocur[min(sb + k * kSL, S - 1) - d[k]];
+#pragma unroll
+          for (int k = 0; k < kBatch; ++k) {
+            const int s = sb + k * kSL;
+            if (s < S) {
+              nxt[s] = fminf(best[k] + e[k], SRT_POS_INF);
+              code[s * cs] = (int8_t)d[k];
+              onxt[s] = o[k];
+            }
+          }
         } else {
 #pragma unroll
           for (int k = 0; k < kBatch; ++k) {
             const int s = sb + k * kSL;
             if (s < S) {
               int d;
-              const float best = band_select<kMode>(bd[k].x + c0[k], bd[k].y + c1[k],
+              const float best = band_select<kBase>(bd[k].x + c0[k], bd[k].y + c1[k],
                                                     bd[k].z + c2[k], d);
               nxt[s] = fminf(best + e[k], SRT_POS_INF);
               code[s * cs] = (int8_t)d;
@@ -493,7 +559,7 @@ __device__ __forceinline__ void banded_forward_body(const Params& p) {
     // block and one word end per step) and applies each to the row's start
     for (int pass = 0; pass < p.eps_depth; ++pass) {
       for (int ub = ln; ub < L; ub += 4 * kSL) {
-        int e[4], pe[4];
+        int e[4], pe[4], oe[4];
         float v[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) e[k] = ldt<kTables>(word_ends + min(ub + k * kSL, L - 1));
@@ -501,12 +567,14 @@ __device__ __forceinline__ void banded_forward_body(const Params& p) {
         for (int k = 0; k < 4; ++k) {
           v[k] = nxt[e[k]];
           pe[k] = kK1 ? e[k] - code[e[k] * cs] : (kWT ? tnxt[e[k]] : 0);
+          oe[k] = org ? onxt[e[k]] : 0;
         }
 #pragma unroll
         for (int k = 0; k < 4; ++k)
           if (ub + k * kSL < L) {
             ends[ub + k * kSL] = v[k];
             if (kAux) endpp[ub + k * kSL] = pe[k];
+            if (org) endorg[ub + k * kSL] = oe[k];
           }
       }
       stream_sync();
@@ -539,6 +607,7 @@ __device__ __forceinline__ void banded_forward_body(const Params& p) {
             tnxt[st] = t;
           else
             code[st * cs] = (int8_t)kEpsCode;
+          if (org) onxt[st] = endorg[arg];
           eu[r] = arg;
           improved = true;
         }
@@ -575,7 +644,7 @@ __device__ __forceinline__ void banded_forward_body(const Params& p) {
     mark(3);
 
     // (d) length mask: the carry moves on only for active frames
-    const bool frozen = kAux ? t >= nf : (t >= 1 && t >= nf);
+    const bool frozen = (kAux || kChunk) ? t >= nf : (t >= 1 && t >= nf);
     if (!frozen) {
       float* tmp = cur;
       cur = nxt;
@@ -585,12 +654,25 @@ __device__ __forceinline__ void banded_forward_body(const Params& p) {
         tcur = tnxt;
         tnxt = ttmp;
       }
+      if (org) {
+        int* otmp = ocur;
+        ocur = onxt;
+        onxt = otmp;
+      }
     }
     stream_sync();  // the ring slot and the work area are reused next frame
     mark(4);
 
-    // (e) every kf frames (and after the last) hand the block to the writer
+    // (e) every kf frames (and after the last) hand the block to the writer.
+    // kBarFull counts arrivals, so a stream must not arrive for the next
+    // block before every stream has arrived for this one: from the third
+    // block on, the kBarEmpty wait keeps the CTA's streams within a block
+    // of each other; before it, the compute warps meet here (a stream
+    // whose frames run more eps passes, such as one frozen on its initial
+    // frontier, otherwise fell a block behind and the writer sent its
+    // half-written rows)
     if (p.kf && (f == p.kf - 1 || t == T - 1)) {
+      if (t < 2 * p.kf) bar_sync(kBarCompute, tile * kSL);
       bar_arrive(kBarFull, n_all);
       buf ^= 1;
       f = 0;
@@ -608,10 +690,11 @@ __device__ __forceinline__ void banded_forward_body(const Params& p) {
   if (!live) return;
   if (p.trace && ln == 0)
     for (int k = 0; k < kPhases; ++k) p.trace[(size_t)b * kPhases + k] = tr[k];
-  const bool has_final = kAux || (nf >= 1 && nf <= T);
+  const bool has_final = kAux || kChunk || (nf >= 1 && nf <= T);
   for (int s = ln; s < S; s += kSL) {
     p.final_cost[(size_t)s * p.B + b] = has_final ? cur[s] : SRT_POS_INF;
     if (kWT) p.final_tau[(size_t)s * p.B + b] = tcur[s];
+    if (org) p.org_out[(size_t)s * p.B + b] = ocur[s];
   }
 }
 
@@ -632,7 +715,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) wordtrace_forward_kernel(Param
 
 template <int kMode, bool kWorkSmem, bool kTables, bool kRingOn>
 int launch(const Params& p, int tile, cudaStream_t stream) {
-  const size_t smem = smem_bytes(kMode, p.U, p.S, p.R, p.L, tile, p.work_smem, p.tables,
+  const size_t smem = smem_bytes(p.mode, p.U, p.S, p.R, p.L, tile, p.work_smem, p.tables,
                                  p.ring, p.kf);
   void (*kernel)(Params);
   if constexpr (kMode == kWordTrace)
@@ -673,8 +756,9 @@ int launch_mode(const Params& p, int tile, cudaStream_t s) {
 }  // namespace
 
 // Modes of the C interface: 0 K1 (uniform graphs, eps_prev), 1 K8 (any
-// banded graph), 2 K10 (uniform graphs, entry times).
-inline bool valid_mode(int mode) { return mode >= kFused && mode <= kWordTrace; }
+// banded graph), 2 K10 (uniform graphs, entry times), 3 and 4 K17 (the chunk
+// step on K1's or K8's DP), 5 and 6 the same with the ancestor map.
+inline bool valid_mode(int mode) { return mode >= kFused && mode <= 6; }
 
 // Shared memory of one CTA for a plan (the wrapper's banded_plan computes
 // the same sum; the card tests hold the two equal).
@@ -691,10 +775,12 @@ extern "C" long long banded_forward_work_bytes(int mode, int S, int R, int L) {
 }
 
 // nll: emission (u, t, b) at u*su + t*st + b*sb; band4 [S] float4 (band0,
-// band1, band2, bank_state's int bits); init [S]; word_starts [R];
+// band1, band2, bank_state's int bits); init [S] (K17: the carried frontier
+// [S, B], and `first`: frame 0 seeds from it); word_starts [R];
 // word_ends [L]; eps_t [L, R]; row_lo / row_hi [R]; nf [B] -> final [S, B],
-// eps_u [T, R, B]; K1 and K8: bp8 [T, S, B]; K1: eps_aux = eps_prev
-// [T, R, B]; K10: eps_aux = eps_tau [T, R, B] and final_tau [S, B].
+// eps_u [T, R, B]; K1, K8 and K17: bp8 [T, S, B]; K1 and K17 on K1's DP:
+// eps_aux = eps_prev [T, R, B]; K10: eps_aux = eps_tau [T, R, B] and
+// final_tau [S, B]; K17 with the ancestor map (modes 5, 6): org [S, B].
 // scratch: (B rounded up to the tile) work areas when work_smem is 0.
 // trace: null, or [B, 6] int64 that receives each stream's cycles per phase
 // of the frame steps (emission wait, band, eps passes, plane rows, mask,
@@ -702,15 +788,16 @@ extern "C" long long banded_forward_work_bytes(int mode, int S, int R, int L) {
 extern "C" int banded_forward_launch(
     int mode, const float* nll, long long su, long long st, long long sb,
     const void* band4, const float* init, const int* word_starts, const int* word_ends,
-    const float* eps_t, const int* row_lo, const int* row_hi, const int* nf,
+    const float* eps_t, const int* row_lo, const int* row_hi, const int* nf, int first,
     float* final_cost, int8_t* bp8, void* eps_u, int u_wide, int* eps_aux, int* final_tau,
-    void* scratch, int U, int T, int B, int S, int R, int L, int eps_depth, int tile,
-    int work_smem, int tables, int ring, int kf, long long* trace, void* stream) {
-  if (!valid_mode(mode) || U < 1 || S < 1 || R < 1 || L < 1 || eps_depth < 1 || B <= 0 ||
+    int* org_out, void* scratch, int U, int T, int B, int S, int R, int L, int eps_depth,
+    int tile, int work_smem, int tables, int ring, int kf, long long* trace, void* stream) {
+  const int base = valid_mode(mode) ? base_mode(mode) : -1;
+  if (base < 0 || U < 1 || S < 1 || R < 1 || L < 1 || eps_depth < 1 || B <= 0 ||
       T <= 0 || tile < 1 || tile > kMaxTile || kf < 0 || (!work_smem && scratch == nullptr) ||
-      (mode != kWordTrace && bp8 == nullptr) ||
-      (mode != kGeneral && (eps_depth != 1 || eps_aux == nullptr)) ||
-      (mode == kWordTrace && final_tau == nullptr))
+      (base != kWordTrace && bp8 == nullptr) ||
+      (base != kGeneral && (eps_depth != 1 || eps_aux == nullptr)) ||
+      (base == kWordTrace && final_tau == nullptr) || (org_mode(mode) != (org_out != nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p{};
   p.nll = nll; p.su = su; p.st = st; p.sb = sb;
@@ -718,12 +805,16 @@ extern "C" int banded_forward_launch(
   p.word_starts = word_starts; p.word_ends = word_ends; p.eps_t = eps_t;
   p.row_lo = row_lo; p.row_hi = row_hi;
   p.nf = nf; p.final_cost = final_cost; p.bp8 = bp8; p.eps_u = eps_u;
-  p.u_wide = u_wide; p.eps_aux = eps_aux; p.final_tau = final_tau;
+  p.u_wide = u_wide; p.eps_aux = eps_aux; p.final_tau = final_tau; p.org_out = org_out;
+  p.mode = mode; p.first = first;
   p.scratch = static_cast<unsigned char*>(scratch);
   p.U = U; p.T = T; p.B = B; p.S = S; p.R = R; p.L = L; p.eps_depth = eps_depth;
   p.tile = tile; p.work_smem = work_smem; p.tables = tables; p.ring = ring; p.kf = kf;
   p.trace = trace;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (chunk_mode(mode))
+    return base == kFused ? launch_mode<kFusedChunk>(p, tile, s)
+                          : launch_mode<kGeneralChunk>(p, tile, s);
   switch (mode) {
     case kFused: return launch_mode<kFused>(p, tile, s);
     case kGeneral: return launch_mode<kGeneral>(p, tile, s);

@@ -105,6 +105,24 @@
 //            ends repeat, or whose leaf ends carry their own cross pair,
 //            runs the gather mode instead: each root's warp reads
 //            cost[word_ends[l]] itself.
+// K18, the chunk mode (template argument kChunk, the C interface's modes 2
+// and 3), is one chunk of a streaming decode over the trie
+// (decode/streaming.StreamingDecoder).  It replaces no Pallas kernel: the
+// JAX package runs the chunk step as a lax.scan
+// (speech_recognition_tpu/decode/streaming.py:86 _chunk_step).  Against K4
+// (its plain version is ops/viterbi_lex_kernels.viterbi_lex_chunk_ref):
+//   carry    each stream starts from its carried frontier [B, S]; with
+//            `first` frame 0 seeds from it (code 0), else frame 0 runs the
+//            band and cross step from it like any later frame
+//   length   all T frames run; frames t >= nf (0 allowed) compute and write
+//            their planes from the frozen carry, which moves on only for
+//            t < nf; final = the carry
+//   org      (mode 3) an int32 ancestor map in the rows K6 keeps tau in: v
+//            at the chunk start, the band winner's org[v-d] (0 for v < d) or
+//            the cross source's org, and on a re-entry the leaf end's org
+//            (starts and ends are disjoint, so the eps pass never writes
+//            what it reads); written out as org [B, S]
+//
 // An optional per-phase clock64 trace (kPhases) is written when a pointer
 // is passed (scripts/exp_r7_lex_plan.py reads it).
 
@@ -131,9 +149,16 @@ constexpr int kPad = 4;          // POS_INF (tau: 0) entries in front of a row
 constexpr int kPhases = 6;
 constexpr unsigned kLeaf = 0x80000000u;
 
+// The kernel's modes (its first template argument); the C interface numbers
+// K18 with the ancestor map 3.
+enum LexMode { kLexFwd = 0, kLatticeMode = 1, kChunkMode = 2 };
+// The C interface's modes that keep a second int32 frontier (K6's tau, K18's
+// ancestor map) and that stage K4's codes (all but K6)
+__host__ __device__ inline bool has_tau(int mode) { return mode == 1 || mode == 3; }
+
 struct Params {
   const float* nll;         // [U, T, B] bank emissions
-  const float* init;        // [S]
+  const float* init;        // [S]; K18: the carried frontier [B, S]
   const unsigned* rec;      // [S] packed records
   const float4* rows;       // [n_rows] band costs per bank row (.w unused)
   const float4* band_s;     // [S] per-state band costs (general mode), or null
@@ -143,7 +168,7 @@ struct Params {
   const float* eps;         // [R, eps_ld]: [R, L], or [R] where every row is one value
   const int* nf;            // [B]
   float* scratch;           // [B, 2, S + kPad] cost frontier (not on chip)
-  int* tau_scratch;         // [B, 2, S + kPad] tau frontier (K6, not on chip)
+  int* tau_scratch;         // [B, 2, S + kPad] tau / org frontier (K6, K18; not on chip)
   float* final_cost;        // [B, S]
   int8_t* bp8;              // [T, B, S]
   void* eps_u;              // [T, B, R] int8 or int32
@@ -151,9 +176,11 @@ struct Params {
   int* eps_prev;            // [T, B, R]
   float* ends_cost;         // [T, B, L] (K6)
   int* ends_tau;            // [T, B, L] (K6)
+  int* org_out;             // [B, S] K18's ancestor map (mode 3), or null
   long long* trace;         // [B, kPhases] or null
   int U, T, B, S, R, L, n_rows, n_cx, shift, gather, eps_ld;
   int tau_smem, eps_smem, rep, rep_shift;
+  int mode, first;          // the C interface's mode; K18: frame 0 seeds from the carry
 };
 
 __host__ __device__ inline size_t r16(size_t n) { return (n + 15) & ~(size_t)15; }
@@ -164,7 +191,7 @@ __host__ __device__ inline size_t frontier_row(int S) { return r16((size_t)(S + 
 struct Layout {
   size_t front, tau, codes, rec, cross, eps, rows, ends, endx, total;
 };
-__host__ __device__ inline Layout layout(int lattice, int S, int n_eps, int L, int n_rows,
+__host__ __device__ inline Layout layout(int mode, int S, int n_eps, int L, int n_rows,
                                          int n_cx, int front, int tau, int tables, int eps,
                                          int gather, int rep) {
   Layout y;
@@ -172,9 +199,9 @@ __host__ __device__ inline Layout layout(int lattice, int S, int n_eps, int L, i
   y.front = o;
   o += front ? 2 * frontier_row(S) : 0;
   y.tau = o;
-  o += (lattice && tau) ? 2 * frontier_row(S) : 0;
-  y.codes = o;  // K4's codes of two frames, staged with an on-chip frontier
-  o += (front && !lattice) ? 2 * r16((size_t)S) : 0;
+  o += (has_tau(mode) && tau) ? 2 * frontier_row(S) : 0;
+  y.codes = o;  // K4's and K18's codes of two frames, staged with an on-chip frontier
+  o += (front && mode != kLatticeMode) ? 2 * r16((size_t)S) : 0;
   y.rec = o;
   o += tables ? r16((size_t)S * 4) : 0;
   y.cross = o;
@@ -256,12 +283,16 @@ enum Tables { kTabL1 = 0, kTabSmem = 1, kTabGeneral = 2 };
 // device memory.  K6's tau frontier follows p.tau_smem.  kWide: two-word
 // state records.  kRowsDev: no row tables; band costs and emissions are
 // read through L1.
-template <bool kLattice, bool kFront, int kTab, bool kWide, bool kRowsDev>
+template <int kMode, bool kFront, int kTab, bool kWide, bool kRowsDev>
 __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(Params p) {
   constexpr int kThreads = threads_for<kFront>(), kWarps = kThreads / 32;
   constexpr bool kTablesSmem = kTab == kTabSmem;
+  constexpr bool kLattice = kMode == kLatticeMode, kChunk = kMode == kChunkMode;
+  // K18's ancestor map lives where K6 keeps tau
+  const bool org = kChunk && p.org_out != nullptr;
+  const bool tauf = kLattice || org;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout y = layout(kLattice, p.S, p.R * max(p.eps_ld, 1), p.L, p.n_rows, p.n_cx,
+  const Layout y = layout(p.mode, p.S, p.R * max(p.eps_ld, 1), p.L, p.n_rows, p.n_cx,
                           kFront, p.tau_smem, kTablesSmem, p.eps_smem, p.gather, p.rep);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
@@ -274,10 +305,10 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
   float* cur = fr + kPad;
   float* nxt = fr + rowf + kPad;
   int* tf = nullptr;
-  if (kLattice)
+  if (tauf)
     tf = p.tau_smem ? reinterpret_cast<int*>(smem + y.tau) : p.tau_scratch + (size_t)b * 2 * rowf;
-  int* tcur = kLattice ? tf + kPad : nullptr;
-  int* tnxt = kLattice ? tf + rowf + kPad : nullptr;
+  int* tcur = tauf ? tf + kPad : nullptr;
+  int* tnxt = tauf ? tf + rowf + kPad : nullptr;
   const unsigned* rec = kTablesSmem ? reinterpret_cast<const unsigned*>(smem + y.rec) : p.rec;
   const int2* cross = kTablesSmem ? reinterpret_cast<const int2*>(smem + y.cross) : p.cross;
   const float* eps = p.eps_smem ? reinterpret_cast<const float*>(smem + y.eps) : p.eps;
@@ -336,11 +367,16 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
   for (int i = tid; i < kPad; i += kThreads) {
     fr[i] = SRT_POS_INF;
     fr[rowf + i] = SRT_POS_INF;
-    if (kLattice) {
+    if (tauf) {
       tf[i] = 0;
       tf[rowf + i] = 0;
     }
   }
+  if (kChunk)  // the carried frontier, and each state its own ancestor
+    for (int v = tid; v < S; v += kThreads) {
+      cur[v] = __ldg(p.init + (size_t)b * S + v);
+      if (org) tcur[v] = v;
+    }
   // frame t's emissions -> the .w lanes of row table t & 1; each thread
   // clamps its own rows to POS_INF once they have landed
   auto prefetch = [&](int t) {
@@ -372,8 +408,9 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
   };
   constexpr bool kStaged = kFront && !kLattice;
   const int nfb = p.nf[b];
-  // K4 stops at the stream's length; the lattice runs frame 0 always
-  const int n = kLattice ? max(min(nfb, T), 1) : min(nfb, T);
+  // K4 stops at the stream's length; the lattice runs frame 0 always; K18
+  // runs every frame (the carry freezes at t >= nf)
+  const int n = kChunk ? T : (kLattice ? max(min(nfb, T), 1) : min(nfb, T));
   if (n > 0) prefetch(0);
   landed(0);
   __syncthreads();
@@ -399,16 +436,19 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
     int8_t* code = kStaged ? codes + (t & 1) * codes_n
                            : (kLattice ? nullptr : p.bp8 + ((size_t)t * p.B + b) * S);
 
-    // (a) band select, cross edge, emission; leaf ends into their slots
-    if (t == 0) {
+    // (a) band select, cross edge, emission; leaf ends into their slots;
+    // frame 0 seeds from init (K18: from the carry, or runs the band step)
+    if (t == 0 && (!kChunk || p.first)) {
       for (int v = tid; v < S; v += kThreads) {
         const Rec rc = rec_at(v);
-        const float val = fminf(__ldg(p.init + v) + row_at(rw, rc.row, t).w, SRT_POS_INF);
+        const float val =
+            fminf((kChunk ? cur[v] : __ldg(p.init + v)) + row_at(rw, rc.row, t).w, SRT_POS_INF);
         nxt[v] = val;
         if (kLattice)
           tnxt[v] = 0;
         else
           code[v] = 0;
+        if (org) tnxt[v] = v;
         if (rc.lf & leaf_bit) {
           ends[rc.link] = val;
           endx[rc.link] = kLattice ? 0 : v;
@@ -441,13 +481,11 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
           base = cc;
           d = kCrossCode;
         }
-        const int tv = kLattice ? tcur[from] : 0;
+        const int tv = tauf ? tcur[from] : 0;
         const float val = fminf(base + bd.w, SRT_POS_INF);
         nxt[v] = val;
-        if (kLattice)
-          tnxt[v] = tv;
-        else
-          code[v] = (int8_t)d;
+        if (tauf) tnxt[v] = tv;
+        if (!kLattice) code[v] = (int8_t)d;
         if (rc.lf & leaf_bit) {
           ends[rc.link] = val;
           endx[rc.link] = kLattice ? tv : v - d;
@@ -518,6 +556,7 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
               pp = endx[bi];
             }
             code[start] = kEpsCode;
+            if (org) tnxt[start] = tnxt[__ldg(p.word_ends + bi)];  // no start is an end
           }
         }
         if (!kLattice) {
@@ -535,13 +574,15 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
     __syncthreads();               // barrier B: the applied starts, the next row table
     mark(5);
 
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-    if (kLattice) {
-      int* ttmp = tcur;
-      tcur = tnxt;
-      tnxt = ttmp;
+    if (!kChunk || t < nfb) {  // K18: the carry moves on only for valid frames
+      float* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+      if (tauf) {
+        int* ttmp = tcur;
+        tcur = tnxt;
+        tnxt = ttmp;
+      }
     }
   }
   if (kStaged && n > 0) flush_codes(n - 1);
@@ -558,16 +599,19 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
     }
     has_final = nfb >= 1 && nfb <= T;
   }
-  for (int v = tid; v < S; v += kThreads)
+  if (kChunk) has_final = true;
+  for (int v = tid; v < S; v += kThreads) {
     p.final_cost[(size_t)b * S + v] = has_final ? cur[v] : SRT_POS_INF;
+    if (org) p.org_out[(size_t)b * S + v] = tcur[v];
+  }
   if (p.trace && tid == 0)
     for (int k = 0; k < kPhases; ++k) p.trace[(size_t)b * kPhases + k] = tr[k];
 }
 
-template <bool kLattice, bool kFront, int kTab, bool kWide, bool kRowsDev>
+template <int kMode, bool kFront, int kTab, bool kWide, bool kRowsDev>
 int launch(const Params& p, size_t smem, cudaStream_t stream) {
   constexpr int kThreads = threads_for<kFront>();
-  auto kernel = viterbi_lex_kernel<kLattice, kFront, kTab, kWide, kRowsDev>;
+  auto kernel = viterbi_lex_kernel<kMode, kFront, kTab, kWide, kRowsDev>;
   SRT_SET_SMEM(kernel, smem);
   // carve out the CTA's shared memory and no more: the rest of the SM's
   // 256 KB stays L1, which serves what is read from device memory
@@ -581,42 +625,44 @@ int launch(const Params& p, size_t smem, cudaStream_t stream) {
 
 // The wide records and the plan without row tables read their tables
 // through L1 (no kTabSmem instance) and keep the frontier in device memory.
-template <bool kLattice, bool kFront, bool kWide, bool kRowsDev>
+template <int kMode, bool kFront, bool kWide, bool kRowsDev>
 int launch_tables(const Params& p, int tab, size_t smem, cudaStream_t s) {
-  if (tab == kTabGeneral) return launch<kLattice, kFront, kTabGeneral, kWide, kRowsDev>(p, smem, s);
+  if (tab == kTabGeneral) return launch<kMode, kFront, kTabGeneral, kWide, kRowsDev>(p, smem, s);
   if (tab == kTabSmem) {
-    if constexpr (!kWide && !kRowsDev) return launch<kLattice, kFront, kTabSmem, false, false>(p, smem, s);
+    if constexpr (!kWide && !kRowsDev) return launch<kMode, kFront, kTabSmem, false, false>(p, smem, s);
     return (int)cudaErrorInvalidValue;
   }
-  return launch<kLattice, kFront, kTabL1, kWide, kRowsDev>(p, smem, s);
+  return launch<kMode, kFront, kTabL1, kWide, kRowsDev>(p, smem, s);
 }
 
-template <bool kLattice>
+template <int kMode>
 int launch_plan(const Params& p, int wide, int front, int tab, cudaStream_t s) {
-  const size_t smem = layout(kLattice, p.S, p.R * max(p.eps_ld, 1), p.L, p.n_rows, p.n_cx,
+  const size_t smem = layout(p.mode, p.S, p.R * max(p.eps_ld, 1), p.L, p.n_rows, p.n_cx,
                              front, p.tau_smem, tab == kTabSmem, p.eps_smem, p.gather,
                              p.rep).total;
   if (wide)
-    return p.rep ? launch_tables<kLattice, false, true, false>(p, tab, smem, s)
-                 : launch_tables<kLattice, false, true, true>(p, tab, smem, s);
-  if (!p.rep) return launch_tables<kLattice, false, false, true>(p, tab, smem, s);
-  return front ? launch_tables<kLattice, true, false, false>(p, tab, smem, s)
-               : launch_tables<kLattice, false, false, false>(p, tab, smem, s);
+    return p.rep ? launch_tables<kMode, false, true, false>(p, tab, smem, s)
+                 : launch_tables<kMode, false, true, true>(p, tab, smem, s);
+  if (!p.rep) return launch_tables<kMode, false, false, true>(p, tab, smem, s);
+  return front ? launch_tables<kMode, true, false, false>(p, tab, smem, s)
+               : launch_tables<kMode, false, false, false>(p, tab, smem, s);
 }
 
 }  // namespace
 
 // Shared memory of one CTA for a plan (the wrapper's lex_smem_bytes
 // computes the same sum; the card tests hold the two equal).
-extern "C" int viterbi_lex_smem_bytes(int lattice, int S, int n_eps, int L, int n_rows,
+extern "C" int viterbi_lex_smem_bytes(int mode, int S, int n_eps, int L, int n_rows,
                                       int n_cx, int front, int tau, int tables, int eps,
                                       int gather, int rep) {
   const size_t n =
-      layout(lattice, S, n_eps, L, n_rows, n_cx, front, tau, tables, eps, gather, rep).total;
+      layout(mode, S, n_eps, L, n_rows, n_cx, front, tau, tables, eps, gather, rep).total;
   return n > (size_t)INT_MAX ? INT_MAX : (int)n;
 }
 
-// K4 (lattice = 0) or K6 (lattice = 1).  nll [U, T, B]; init [S]; rec [S]
+// K4 (mode 0), K6 (mode 1) or K18 (mode 2; 3 with the ancestor map).
+// nll [U, T, B]; init [S] (K18: the carried frontier [B, S], and `first`:
+// frame 0 seeds from it); rec [S]
 // packed records (wide: [S] uint2, bank row and link, shift 0); rows
 // [n_rows] float4 band costs per bank row; band_s [S]
 // float4 per-state band costs or null; cross [n_cx] int2 (source, cost
@@ -624,26 +670,28 @@ extern "C" int viterbi_lex_smem_bytes(int lattice, int S, int n_eps, int L, int 
 // [R]; word_ends [L]; eps [R, eps_ld] (eps_ld = L, or 0 where each row is
 // one value, stored once); nf [B].  K4 writes
 // final [B, S], bp8 [T, B, S], eps_u [T, B, R] (int32 when u_wide) and
-// eps_prev [T, B, R]; K6 final, ends_cost and ends_tau [T, B, L].  scratch /
-// tau_scratch: [B, 2, S + 4] where the frontier / tau frontier is not in
-// shared memory (front / tau = 0).  trace: null, or [B, 6] int64 cycles per
+// eps_prev [T, B, R]; K6 final, ends_cost and ends_tau [T, B, L]; K18 what K4
+// writes (every frame's planes, final = the carry) and, in mode 3, org
+// [B, S].  scratch / tau_scratch: [B, 2, S + 4] where the frontier / tau
+// (K18: ancestor) frontier is not in shared memory (front / tau = 0).  trace: null, or [B, 6] int64 cycles per
 // phase of the frame steps (band, barrier, eps scan, warp reduction, apply,
 // barrier).  rep: copies of each bank row in the row tables (8 or 1), or 0
 // for none (frontier and tables then in device memory).
 extern "C" int viterbi_lex_launch(
-    int lattice, const float* nll, const float* init, const unsigned* rec, const void* rows,
+    int mode, const float* nll, const float* init, const unsigned* rec, const void* rows,
     const void* band_s, const void* cross, const int* word_starts, const int* word_ends,
-    const float* eps, const int* nf, float* scratch, int* tau_scratch, float* final_cost,
-    int8_t* bp8, void* eps_u, int u_wide, int* eps_prev, float* ends_cost, int* ends_tau,
-    long long* trace, int U, int T, int B, int S, int R, int L, int n_rows, int n_cx,
-    int shift, int wide, int eps_ld, int front, int tau, int tables,
+    const float* eps, const int* nf, int first, float* scratch, int* tau_scratch,
+    float* final_cost, int8_t* bp8, void* eps_u, int u_wide, int* eps_prev, float* ends_cost,
+    int* ends_tau, int* org_out, long long* trace, int U, int T, int B, int S, int R, int L,
+    int n_rows, int n_cx, int shift, int wide, int eps_ld, int front, int tau, int tables,
     int eps_smem, int gather, int rep, void* stream) {
-  if (B <= 0 || T < 0 || S <= 0 || R <= 0 || L <= 0 || U <= 0 || n_rows <= 0 ||
-      n_rows > U || n_cx < 1 || (wide ? shift != 0 : (shift < 1 || shift > 30)) ||
+  const int lattice = mode == kLatticeMode;
+  if (mode < 0 || mode > 3 || B <= 0 || T < 0 || S <= 0 || R <= 0 || L <= 0 || U <= 0 ||
+      n_rows <= 0 || n_rows > U || n_cx < 1 || (wide ? shift != 0 : (shift < 1 || shift > 30)) ||
       (eps_ld != 0 && eps_ld != L) ||
       (!front && scratch == nullptr) || (lattice && T <= 0) ||
-      (lattice && !tau && tau_scratch == nullptr) || (band_s && tables) ||
-      (rep != 0 && rep != 1 && rep != 8) ||
+      (has_tau(mode) && !tau && tau_scratch == nullptr) || (band_s && tables) ||
+      (rep != 0 && rep != 1 && rep != 8) || ((mode == 3) != (org_out != nullptr)) ||
       ((wide || rep == 0) && (front || tables)))
     return (int)cudaErrorInvalidValue;
   Params p{};
@@ -654,13 +702,15 @@ extern "C" int viterbi_lex_launch(
   p.word_starts = word_starts; p.word_ends = word_ends; p.eps = eps; p.nf = nf;
   p.scratch = scratch; p.tau_scratch = tau_scratch; p.final_cost = final_cost;
   p.bp8 = bp8; p.eps_u = eps_u; p.u_wide = u_wide; p.eps_prev = eps_prev;
-  p.ends_cost = ends_cost; p.ends_tau = ends_tau; p.trace = trace;
+  p.ends_cost = ends_cost; p.ends_tau = ends_tau; p.org_out = org_out; p.trace = trace;
+  p.mode = mode; p.first = first;
   p.U = U; p.T = T; p.B = B; p.S = S; p.R = R; p.L = L;
   p.n_rows = n_rows; p.n_cx = n_cx; p.shift = shift; p.gather = gather; p.eps_ld = eps_ld;
-  p.tau_smem = lattice ? tau : 0; p.eps_smem = eps_smem; p.rep = rep;
+  p.tau_smem = has_tau(mode) ? tau : 0; p.eps_smem = eps_smem; p.rep = rep;
   p.rep_shift = rep == 8 ? 3 : 0;
   const cudaStream_t s = (cudaStream_t)stream;
   const int tab = band_s ? kTabGeneral : (tables ? kTabSmem : kTabL1);
-  return lattice ? launch_plan<true>(p, wide, front, tab, s)
-                 : launch_plan<false>(p, wide, front, tab, s);
+  if (mode >= kChunkMode) return launch_plan<kChunkMode>(p, wide, front, tab, s);
+  return lattice ? launch_plan<kLatticeMode>(p, wide, front, tab, s)
+                 : launch_plan<kLexFwd>(p, wide, front, tab, s);
 }

@@ -1,6 +1,7 @@
 """Decoders of the port: isolated words (GMM-HMM bank and DTW templates),
-connected words over composed graphs, the lexical tree, and word
-confidence from forward-backward posteriors."""
+connected words over composed graphs, the lexical tree, streaming
+(chunked) decoding of long audio, and word confidence from
+forward-backward posteriors."""
 
 from speech_recognition_tpu_torch.decode.confidence import path_posteriors, word_confidence
 from speech_recognition_tpu_torch.decode.connected import (
@@ -15,7 +16,8 @@ from speech_recognition_tpu_torch.decode.dtw import (
 )
 from speech_recognition_tpu_torch.decode.isolated import classify_batch, score_models
 from speech_recognition_tpu_torch.decode.lextree import decode_lextree
+from speech_recognition_tpu_torch.decode.streaming import StreamingDecoder
 
 __all__ = ["score_models", "classify_batch", "decode_connected", "connected_graph_arrays",
            "TemplateBank", "dtw_classify_batch", "dtw_score_models", "stack_templates",
-           "decode_lextree", "path_posteriors", "word_confidence"]
+           "decode_lextree", "path_posteriors", "word_confidence", "StreamingDecoder"]

@@ -37,6 +37,7 @@ from speech_recognition_tpu_torch.ops.viterbi_banded import BandedGraph, banded_
 from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import (
     banded_backtrace_general,
     banded_backtrace_val,
+    banded_route,
     banded_topology,
     fused_forward,
     viterbi_banded_general,
@@ -89,7 +90,7 @@ def _decode_banded_batch(bank: HMMBank, feats, n_frames, g: BandedGraph,
     g = g.to(dev)
     n_frames = n_frames.to(dev)
     topo = banded_topology(g) if topo is None else topo
-    fused = topo.fused_ok and eps_depth == 1
+    fused = banded_route(topo, eps_depth) == "fused"
     if fused:
         final, bp8, _, eps_prev = fused_forward(bank, feats, n_frames, g, topo)
     else:

@@ -47,6 +47,7 @@ from speech_recognition_tpu_torch.ops.viterbi_banded import (
     MAX_BAND,
     BandedGraph,
     _select_band,
+    _shift_org,
     _shift_s,
 )
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
@@ -59,13 +60,6 @@ __all__ = ["viterbi_lattice_tb", "RescoreResult", "lattice_rescore_ref", "rescor
 # ---------------------------------------------------------------------------
 # pass 1: the lattice planes
 # ---------------------------------------------------------------------------
-
-
-def _shift_tau(tau, d):
-    """``tau[v-d]`` along the state axis (0) with 0 fill."""
-    if d == 0:
-        return tau
-    return torch.cat([torch.zeros_like(tau[:d]), tau[:-d]], dim=0)
 
 
 def viterbi_lattice_tb(nll_tb, g: BandedGraph, n_frames):
@@ -108,7 +102,7 @@ def viterbi_lattice_tb(nll_tb, g: BandedGraph, n_frames):
                                     for d in range(MAX_BAND + 1)])
         tau_new = tprev
         for d in range(1, MAX_BAND + 1):
-            tau_new = torch.where(d_sel == d, _shift_tau(tprev, d), tau_new)
+            tau_new = torch.where(d_sel == d, _shift_org(tprev, d), tau_new)
         if g.cross_src is not None:
             cand = torch.clamp(prev[g.cross_src] + g.cross_cost[:, None], max=POS_INF)
             take = cand <= base

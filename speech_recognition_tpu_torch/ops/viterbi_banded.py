@@ -28,7 +28,7 @@ import torch
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
 __all__ = ["MAX_BAND", "BandedGraph", "banded_arrays", "eps_ranges",
-           "viterbi_banded_tb", "banded_backtrace_tb"]
+           "viterbi_banded_tb", "viterbi_banded_chunk_tb", "banded_backtrace_tb"]
 
 MAX_BAND = 2  # reference max_jump_dist
 _CROSS = MAX_BAND + 1  # bp8 code: cross-arc frame edge (origin = cross_src[s])
@@ -193,6 +193,31 @@ def _first_min(scores, dim):
     return scores.amin(dim), torch.argmin(scores, dim)
 
 
+def _column(base_cost, d_sel, emis, g: BandedGraph, eps_depth: int, u_dtype, org=None):
+    """One frame after the band (and cross) select: the emission, then
+    ``eps_depth`` Jacobi eps passes.  ``org [S, B]`` (the ancestor map
+    after the band move, or None) follows each eps arrival: a start that
+    an arrival improves takes the org of the origin word end as the pass
+    found it.  Returns ``(cost, bp8, eps_u [R, B], org)``."""
+    cost = torch.clamp(base_cost + emis, max=POS_INF)
+    bp8 = d_sel
+    eps_u = torch.zeros((g.n_words, cost.shape[1]), dtype=u_dtype, device=cost.device)
+    for _ in range(eps_depth):
+        end_vals = cost[g.word_ends]  # [L, B]
+        base, origin = _first_min(g.eps_block[:, :, None] + end_vals[None], 1)
+        cand = torch.clamp(base + emis[g.word_starts], max=POS_INF)
+        cand_dense = cand[g.start_pos]
+        better = g.is_start[:, None] & (cand_dense < cost)
+        if org is not None:
+            arc_org = org[g.word_ends].gather(0, origin)  # [R, B]
+            org = torch.where(better, arc_org[g.start_pos], org)
+        cost = torch.where(better, cand_dense, cost)
+        bp8 = torch.where(better, torch.full_like(bp8, _EPS), bp8)
+        better_r = better[g.word_starts]
+        eps_u = torch.where(better_r, origin.to(u_dtype), eps_u)
+    return cost, bp8, eps_u, org
+
+
 def viterbi_banded_tb(nll_tb, g: BandedGraph, n_frames, eps_depth: int = 1):
     """State-major batched banded Viterbi: ``nll_tb [T, S, B]``,
     ``n_frames [B]`` -> ``(final [S, B], bp8 [T, S, B] int8,
@@ -205,19 +230,7 @@ def viterbi_banded_tb(nll_tb, g: BandedGraph, n_frames, eps_depth: int = 1):
     n_frames = n_frames.to(dev)
 
     def column(base_cost, d_sel, emis):
-        cost = torch.clamp(base_cost + emis, max=POS_INF)
-        bp8 = d_sel
-        eps_u = torch.zeros((r, b), dtype=u_dtype, device=dev)
-        for _ in range(eps_depth):
-            end_vals = cost[g.word_ends]  # [L, B]
-            base, origin = _first_min(g.eps_block[:, :, None] + end_vals[None], 1)
-            cand = torch.clamp(base + emis[g.word_starts], max=POS_INF)
-            cand_dense = cand[g.start_pos]
-            better = g.is_start[:, None] & (cand_dense < cost)
-            cost = torch.where(better, cand_dense, cost)
-            bp8 = torch.where(better, torch.full_like(bp8, _EPS), bp8)
-            better_r = better[g.word_starts]
-            eps_u = torch.where(better_r, origin.to(u_dtype), eps_u)
+        cost, bp8, eps_u, _ = _column(base_cost, d_sel, emis, g, eps_depth, u_dtype)
         return cost, bp8, eps_u
 
     bp8 = torch.empty((t_len, s, b), dtype=torch.int8, device=dev)
@@ -235,6 +248,64 @@ def viterbi_banded_tb(nll_tb, g: BandedGraph, n_frames, eps_depth: int = 1):
         cost = torch.where((t < n_frames)[None, :], cost, prev)
         final = torch.where((t == n_frames - 1)[None, :], cost, final)
     return final, bp8, eps_u
+
+
+def _shift_org(org, d):
+    """``org[v-d]`` along the state axis with 0 fill (an int32 carry that
+    follows the band winner: an ancestor map or an entry time)."""
+    pad = torch.zeros((d,) + org.shape[1:], dtype=org.dtype, device=org.device)
+    return torch.cat([pad, org[:-d]], dim=0)
+
+
+def viterbi_banded_chunk_tb(nll_tb, g: BandedGraph, frontier, n_valid, eps_depth: int = 1,
+                            first_chunk: bool = False, track_org: bool = False):
+    """One chunk of a streaming decode: ``nll_tb [C, S, B]`` advances the
+    carried ``frontier [S, B]``; ``n_valid [B]`` frames of each stream are
+    real.  Returns ``(frontier_out [S, B], bp8 [C, S, B] int8,
+    eps_u [C, R, B], org [S, B] int32 or None)``.
+
+    ``first_chunk``: frame 0 seeds from ``frontier`` (the graph's init
+    cost) with code 0, as the utterance's first frame does; otherwise
+    frame 0 relaxes the band and cross edges from ``frontier``, the
+    previous chunk's last column.  Every frame ``t >= n_valid`` freezes
+    the carry (frame 0 included) and ``frontier_out`` is the carry, so a
+    stream with no valid frame keeps its frontier; frozen frames still
+    write their plane rows from the frozen carry.  With ``track_org``
+    the ancestor map ``org`` (state -> the state at the chunk start its
+    best token descends from) starts as the identity, follows the band
+    winner (``org[s-d]``, 0 for ``s < d``), the cross edge
+    (``org[cross_src]``) and each eps arrival, and freezes with the
+    carry.  Fed a whole utterance's emissions chunk by chunk, the planes
+    and the final carry equal ``viterbi_banded_tb``'s."""
+    c_len, s, b = nll_tb.shape
+    u_dtype = _eps_u_dtype(g.n_ends)
+    dev = nll_tb.device
+    nll_tb = torch.clamp(nll_tb, max=POS_INF)
+    active = torch.arange(c_len, device=dev)[:, None] < n_valid.to(dev)[None, :]  # [C, B]
+    bp8 = torch.empty((c_len, s, b), dtype=torch.int8, device=dev)
+    eps_u = torch.empty((c_len, g.n_words, b), dtype=u_dtype, device=dev)
+    prev = frontier
+    org = (torch.arange(s, dtype=torch.int32, device=dev)[:, None].expand(s, b).contiguous()
+           if track_org else None)
+    for t in range(c_len):
+        if t == 0 and first_chunk:
+            base, d_sel = prev, torch.zeros((s, b), dtype=torch.int8, device=dev)
+        else:
+            base, d_sel = _select_band([g.band[d][:, None] + _shift_s(prev, d)
+                                        for d in range(MAX_BAND + 1)])
+            base, d_sel = _cross_relax(base, d_sel, prev, g)
+        new_org = org
+        if track_org:
+            for d in range(1, MAX_BAND + 1):
+                new_org = torch.where(d_sel == d, _shift_org(org, d), new_org)
+            if g.cross_src is not None:
+                new_org = torch.where(d_sel == _CROSS, org[g.cross_src], new_org)
+        cost, bp8[t], eps_u[t], new_org = _column(base, d_sel, nll_tb[t], g, eps_depth,
+                                                   u_dtype, new_org)
+        prev = torch.where(active[t][None, :], cost, prev)
+        if track_org:
+            org = torch.where(active[t][None, :], new_org, org)
+    return prev, bp8, eps_u, org
 
 
 def banded_backtrace_tb(bp8, eps_u, g: BandedGraph, end_state, n_frames,

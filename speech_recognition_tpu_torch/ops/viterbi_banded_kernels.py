@@ -16,14 +16,20 @@ on the connected-decode path:
   transcript graphs;
 * K10 (the word-trace forward, ``viterbi_banded_wordtrace_pallas``)
   takes K1's graphs and emission and writes entry-time side planes
-  instead of backpointers; ``wordtrace_words_device`` walks them.
+  instead of backpointers; ``wordtrace_words_device`` walks them;
+* K17 (the streaming chunk step, ``viterbi_banded_chunk``; the JAX
+  package runs it as a ``lax.scan``, ``decode/streaming.py:86
+  _chunk_step``) advances a carried frontier over one chunk on K1's DP
+  (after K13) or K8's, routed as a whole utterance is
+  (``banded_route``), optionally with an ancestor map for incremental
+  emission.
 
 K1 and K10 run as two launches each: the emission kernel K13
 (``bank_emission``, ``csrc/bank_emission.cu``: every frame's bank NLLs
 in one tiled GEMM with the mixture logsumexp in its epilogue) and the
 banded DP of ``csrc/banded_forward.cu`` in its uniform-graph mode (K1)
 or its word-trace mode (K10); K8 is the same DP in its general mode on
-``bank_nll_ubt``'s emissions.  ``banded_plan`` picks the DP's streams
+``bank_nll_ubt``'s emissions; K17 is K1's or K8's DP in a chunk mode.  ``banded_plan`` picks the DP's streams
 per CTA, where its frontier lives (shared memory or a device-memory
 scratch) and how many frames of planes it stages; no graph size is
 refused.
@@ -49,9 +55,11 @@ from speech_recognition_tpu_torch.ops.viterbi_banded import (
     MAX_BAND,
     BandedGraph,
     _eps_u_dtype,
+    _shift_org,
     _shift_s,
     banded_backtrace_tb,
     eps_ranges,
+    viterbi_banded_chunk_tb,
     viterbi_banded_tb,
 )
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
@@ -62,6 +70,7 @@ __all__ = ["BandedTopo", "banded_topology", "use_kernels", "BandedPlan", "banded
            "banded_backtrace_val", "banded_backtrace_val_ref",
            "viterbi_banded_general", "viterbi_banded_general_ref",
            "banded_backtrace_general", "banded_backtrace_general_ref",
+           "viterbi_banded_chunk", "viterbi_banded_chunk_ref", "banded_route",
            "viterbi_banded_wordtrace", "viterbi_banded_wordtrace_ref",
            "wordtrace_words_device"]
 
@@ -112,6 +121,14 @@ def banded_topology(g: BandedGraph) -> BandedTopo:
                       disjoint=not (set(starts.tolist()) & set(ends.tolist())),
                       max_bank_state=int(g.bank_state.max()) if s else -1,
                       cross=g.cross_src is not None)
+
+
+def banded_route(topo: BandedTopo, eps_depth: int) -> str:
+    """The DP a graph runs on: ``fused`` (K13 + K1's DP, backtraced by K2)
+    where K1 takes the graph at this eps depth, else ``general`` (K8's DP
+    on bank emissions, backtraced by K9).  A whole utterance
+    (``decode.connected``) and a streaming chunk (K17) route alike."""
+    return "fused" if topo.fused_ok and eps_depth == 1 else "general"
 
 
 def use_kernels(t: torch.Tensor) -> bool:
@@ -239,10 +256,24 @@ def fused_dp_ref(nll_bank, g: BandedGraph, n_frames):
     band (largest d on ties), one eps pass (first minimum, strict
     improvement, ``eps_prev = end - d_end``) and the length mask.  The
     plain version of the DP kernel's uniform-graph mode."""
+    s, b = g.n_states, nll_bank.shape[2]
+    carry = torch.full((s, b), POS_INF, dtype=torch.float32, device=nll_bank.device)
+    return _fused_dp(nll_bank, g, n_frames, g.init_cost[:, None].expand(s, b), carry, True,
+                     False)[:4]
+
+
+def _fused_dp(nll_bank, g: BandedGraph, n_valid, seed, carry, first: bool, track_org: bool):
+    """The uniform-mode DP from ``carry [S, B]``: with ``first`` frame 0
+    seeds from ``seed [S, B]`` (code 0), else it relaxes the band from
+    the carry; frames ``t >= n_valid`` freeze the carry.  With
+    ``track_org`` an ancestor map (identity at frame 0) follows the band
+    winner (``org[s-d]``, 0 fill) and the eps arrivals (the origin end's
+    org before the pass).  Returns ``(carry, bp8, eps_u, eps_prev, org
+    or None)``."""
     _, t_len, b = nll_bank.shape
     dev = nll_bank.device
     s, r, l = g.n_states, g.n_words, g.n_ends
-    n_frames = n_frames.to(dev)
+    n_valid = n_valid.to(dev)
     u_dtype = _eps_u_dtype(l)
     starts, ends = g.word_starts, g.word_ends
     bank_starts = g.bank_state[starts]
@@ -250,17 +281,23 @@ def fused_dp_ref(nll_bank, g: BandedGraph, n_frames):
     bp8 = torch.empty((t_len, s, b), dtype=torch.int8, device=dev)
     eps_u = torch.empty((t_len, r, b), dtype=u_dtype, device=dev)
     eps_prev = torch.empty((t_len, r, b), dtype=torch.int32, device=dev)
-    prev = torch.full((s, b), POS_INF, dtype=torch.float32, device=dev)
+    prev = carry
+    org = (torch.arange(s, dtype=torch.int32, device=dev)[:, None].expand(s, b)
+           if track_org else None)
     for t in range(t_len):
         emis_bank = nll_bank[:, t]  # [U, B]
-        if t == 0:
-            best = g.init_cost[:, None].expand(s, b)
+        new_org = org
+        if t == 0 and first:
+            best = seed
             dsel = torch.zeros((s, b), dtype=torch.int8, device=dev)
         else:
             cands = [g.band[d][:, None] + _shift_s(prev, d) for d in range(MAX_BAND + 1)]
             best = torch.minimum(torch.minimum(cands[0], cands[1]), cands[2])
             dsel = torch.where(cands[2] == best, 2,
                                torch.where(cands[1] == best, 1, 0)).to(torch.int8)
+            if track_org:
+                new_org = torch.where(dsel == 2, _shift_org(org, 2),
+                                      torch.where(dsel == 1, _shift_org(org, 1), org))
         cost = torch.clamp(best + emis_bank[g.bank_state], max=POS_INF)
         # eps: first-minimum origin per destination word
         end_vals = cost[ends]  # [L, B]
@@ -269,14 +306,21 @@ def fused_dp_ref(nll_bank, g: BandedGraph, n_frames):
         cand = torch.clamp(base + emis_bank[bank_starts], max=POS_INF)
         better = cand < cost[starts]
         pp = ends[origin] - dsel[ends].to(torch.int64).gather(0, origin)
+        if track_org:
+            arc_org = new_org[ends].gather(0, origin)  # [R, B]
+            new_org = new_org.index_copy(0, starts, torch.where(better, arc_org,
+                                                                new_org[starts]))
         cost[starts] = torch.where(better, cand, cost[starts])
         dsel[starts] = torch.where(better, torch.full_like(dsel[starts], _EPS),
                                    dsel[starts])
         eps_u[t] = torch.where(better, origin, 0).to(u_dtype)
         eps_prev[t] = torch.where(better, pp, 0).to(torch.int32)
         bp8[t] = dsel
-        prev = torch.where((t < n_frames)[None, :], cost, prev)
-    return prev, bp8, eps_u, eps_prev
+        active = (t < n_valid)[None, :]
+        prev = torch.where(active, cost, prev)
+        if track_org:
+            org = torch.where(active, new_org, org)
+    return prev, bp8, eps_u, eps_prev, org
 
 
 # The DP kernel's launch plan (csrc/banded_forward.cu), mirrored here so
@@ -285,8 +329,10 @@ def fused_dp_ref(nll_bank, g: BandedGraph, n_frames):
 _TILES = (1, 2, 4)  # streams per CTA (four warps each)
 _RING = 4           # frames in each stream's emission ring
 _KF = (8, 4, 2, 1)  # frames of planes staged per hand-off to the writer warp
-# the DP's modes and their numbers in the C interface: K1, K8, K10
-MODES = {"fused": 0, "general": 1, "wordtrace": 2}
+# the DP's modes and their numbers in the C interface: K1, K8, K10, and
+# K17 (the chunk step) on K1's or K8's DP, with or without the ancestor map
+MODES = {"fused": 0, "general": 1, "wordtrace": 2, "fused_chunk": 3, "general_chunk": 4,
+         "fused_chunk_org": 5, "general_chunk_org": 6}
 
 
 class BandedPlan(NamedTuple):
@@ -322,16 +368,24 @@ def _check_mode(mode: str) -> None:
         raise ValueError(f"DP mode {mode!r} is not one of {sorted(MODES)}")
 
 
+def _base_mode(mode: str) -> str:
+    """The DP a mode runs: ``fused``, ``general`` or ``wordtrace``."""
+    _check_mode(mode)
+    return mode.split("_")[0]
+
+
 def banded_work_bytes(mode: str, s: int, r: int, l: int) -> int:
     """One stream's work area: two cost rows (with 4 POS_INF entries in
     front) and the codes of the frontier (``wordtrace``: two entry-time
-    rows with 4 zeros in front instead of the codes), the word-end
-    snapshot (and K1's eps_prev or K10's entry time per end), and each
-    row's last improving origin (``banded_forward_work_bytes``)."""
-    _check_mode(mode)
+    rows with 4 zeros in front instead of the codes), the chunk step's two
+    ancestor-map rows (``*_org``, 4 zeros in front), the word-end snapshot
+    (and K1's eps_prev or K10's entry time per end, and the ancestor of
+    each end), and each row's last improving origin
+    (``banded_forward_work_bytes``)."""
+    base, org = _base_mode(mode), mode.endswith("_org")
     row = _r16(4 * (s + 4))
-    front = 4 * row if mode == "wordtrace" else 2 * row + _r16(s)
-    return front + _r16(4 * l) * (1 if mode == "general" else 2) + _r16(4 * r)
+    front = (4 * row if base == "wordtrace" else 2 * row + _r16(s)) + (2 * row if org else 0)
+    return front + _r16(4 * l) * ((1 if base == "general" else 2) + org) + _r16(4 * r)
 
 
 def banded_table_bytes(s: int, r: int, l: int) -> int:
@@ -345,9 +399,9 @@ def banded_stage_bytes(mode: str, s: int, r: int, tile: int) -> int:
     """One frame of the CTA's plane staging: the bp8 rows (none in
     ``wordtrace`` mode) and the int32 eps rows (eps_u, and K1's eps_prev
     or K10's eps_tau)."""
-    _check_mode(mode)
-    return ((0 if mode == "wordtrace" else _r16(s * tile))
-            + (1 if mode == "general" else 2) * _r16(4 * r * tile))
+    base = _base_mode(mode)
+    return ((0 if base == "wordtrace" else _r16(s * tile))
+            + (1 if base == "general" else 2) * _r16(4 * r * tile))
 
 
 def banded_smem_bytes(mode: str, u: int, s: int, r: int, l: int, tile: int,
@@ -395,31 +449,43 @@ def eps_row_spans(g: BandedGraph):
 
 
 def _banded_forward(nll, g: BandedGraph, n_frames, eps_depth: int, mode: str, wrapper,
-                    plan: BandedPlan = None, trace=None):
+                    plan: BandedPlan = None, trace=None, frontier=None, first: bool = False):
     """Launch the DP kernel in ``mode`` on emissions ``nll [U, T, B]`` (any
     strides) and count the launch on ``wrapper``: ``fused`` -> ``(final
     [S, B], bp8 [T, S, B], eps_u [T, R, B], eps_prev)``, ``general`` ->
     ``(final, bp8, eps_u)``, ``wordtrace`` -> ``(final, eps_u, eps_tau
-    [T, R, B], final_tau [S, B])``.  ``plan`` overrides ``banded_plan``'s;
-    ``trace``, a ``[B, 6]`` int64 tensor, receives each stream's cycles per
-    phase of the frame steps."""
+    [T, R, B], final_tau [S, B])``; the chunk modes carry ``frontier
+    [S, B]`` (``first``: frame 0 seeds from it) and return ``(carry,
+    bp8, eps_u, eps_prev or None, org [S, B] or None)``.  ``plan``
+    overrides ``banded_plan``'s; ``trace``, a ``[B, 6]`` int64 tensor,
+    receives each stream's cycles per phase of the frame steps."""
     from speech_recognition_tpu_torch.utils.build import check, load_library
 
-    _check_mode(mode)
+    base = _base_mode(mode)
+    chunk, org_on = "chunk" in mode, mode.endswith("_org")
     dev = nll.device
     u, t_len, b = nll.shape
     s, r, l = g.n_states, g.n_words, g.n_ends
     u_dtype = _eps_u_dtype(l)
-    wt = mode == "wordtrace"
+    wt = base == "wordtrace"
     final = torch.empty((s, b), dtype=torch.float32, device=dev)
     bp8 = None if wt else torch.empty((t_len, s, b), dtype=torch.int8, device=dev)
     eps_u = torch.empty((t_len, r, b), dtype=u_dtype, device=dev)
-    aux = (None if mode == "general"
+    aux = (None if base == "general"
            else torch.empty((t_len, r, b), dtype=torch.int32, device=dev))
     final_tau = torch.empty((s, b), dtype=torch.int32, device=dev) if wt else None
-    outs = {"fused": (final, bp8, eps_u, aux), "general": (final, bp8, eps_u),
-            "wordtrace": (final, eps_u, aux, final_tau)}[mode]
+    org = torch.empty((s, b), dtype=torch.int32, device=dev) if org_on else None
+    if chunk:
+        outs = (final, bp8, eps_u, aux, org)
+    else:
+        outs = {"fused": (final, bp8, eps_u, aux), "general": (final, bp8, eps_u),
+                "wordtrace": (final, eps_u, aux, final_tau)}[mode]
     if b == 0 or t_len == 0:
+        if chunk:
+            final.copy_(frontier)
+            if org_on:
+                org.copy_(torch.arange(s, dtype=torch.int32, device=dev)[:, None].expand(s, b))
+            return outs
         final.fill_(POS_INF)
         if wt:
             final_tau.zero_()
@@ -443,15 +509,17 @@ def _banded_forward(nll, g: BandedGraph, n_frames, eps_depth: int, mode: str, wr
     band4 = torch.empty((s, 4), dtype=torch.float32, device=dev)
     band4[:, :3] = g.band.T
     band4[:, 3] = i32(g.bank_state).view(torch.float32)
-    args = [band4, g.init_cost.contiguous(), i32(g.word_starts), i32(g.word_ends),
+    # the chunk modes read each stream's carried frontier instead of init
+    init = frontier.contiguous() if chunk else g.init_cost.contiguous()
+    args = [band4, init, i32(g.word_starts), i32(g.word_ends),
             g.eps_block.T.contiguous(), row_lo, row_hi, i32(n_frames)]
     with torch.cuda.device(dev):
         rc = lib.banded_forward_launch(
             MODES[mode], nll.data_ptr(), *nll.stride(), *[x.data_ptr() for x in args],
-            final.data_ptr(), ptr(bp8), eps_u.data_ptr(), int(u_dtype == torch.int32),
-            ptr(aux), ptr(final_tau), ptr(scratch), u, t_len, b, s, r, l, eps_depth,
-            plan.tile, int(plan.work_smem), int(plan.tables), int(plan.ring), plan.kf,
-            ptr(trace), torch.cuda.current_stream(dev).cuda_stream)
+            int(first), final.data_ptr(), ptr(bp8), eps_u.data_ptr(),
+            int(u_dtype == torch.int32), ptr(aux), ptr(final_tau), ptr(org), ptr(scratch), u,
+            t_len, b, s, r, l, eps_depth, plan.tile, int(plan.work_smem), int(plan.tables),
+            int(plan.ring), plan.kf, ptr(trace), torch.cuda.current_stream(dev).cuda_stream)
     check(rc, wrapper.__name__)
     wrapper.launches += 1
     return outs
@@ -595,6 +663,12 @@ def viterbi_banded_general(nll, g: BandedGraph, topo: BandedTopo, n_frames,
     planes, frozen frames included, as the plain scan does."""
     if not use_kernels(nll):
         return viterbi_banded_general_ref(nll, g, topo, n_frames, eps_depth)
+    _check_general_inputs(nll, g, topo, n_frames, eps_depth)
+    return _banded_forward(nll, g, n_frames, eps_depth, "general", viterbi_banded_general)
+
+
+def _check_general_inputs(nll, g: BandedGraph, topo: BandedTopo, n_frames, eps_depth: int):
+    """The checks K8 and K17's general mode share."""
     if topo.cross:
         raise ValueError("the general banded kernel does not implement cross edges "
                          "(lexical trees decode through decode.lextree)")
@@ -611,7 +685,6 @@ def viterbi_banded_general(nll, g: BandedGraph, topo: BandedTopo, n_frames,
         raise ValueError(f"graph reads bank row {topo.max_bank_state}, emissions have {u}")
     if eps_depth < 1:
         raise ValueError(f"eps_depth must be >= 1, got {eps_depth}")
-    return _banded_forward(nll, g, n_frames, eps_depth, "general", viterbi_banded_general)
 
 
 viterbi_banded_general.launches = 0
@@ -679,14 +752,80 @@ banded_backtrace_general.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K10: word-trace forward (K13 + the DP's word-trace mode)
+# K17: the streaming chunk step (the DP's chunk modes)
 # ---------------------------------------------------------------------------
 
 
-def _shift_tau(tau, d):
-    """``tau[v-d]`` along the state axis with 0 fill."""
-    pad = torch.zeros((d,) + tau.shape[1:], dtype=tau.dtype, device=tau.device)
-    return torch.cat([pad, tau[:-d]], dim=0)
+def viterbi_banded_chunk_ref(inputs, g: BandedGraph, topo: BandedTopo, frontier, n_valid,
+                             first_chunk: bool, track_org: bool, mode: str,
+                             eps_depth: int = 1):
+    """Plain version of K17: one chunk of a streaming decode from the
+    carried ``frontier [S, B]``, ``n_valid [B]`` real frames per stream
+    (``ops.viterbi_banded.viterbi_banded_chunk_tb``'s semantics: frame 0
+    seeds from the frontier with ``first_chunk``, else relaxes the band
+    from it; every frame ``t >= n_valid`` freezes the carry; the carry is
+    returned).
+
+    ``mode="fused"``: ``inputs = (xa [A, C, B], w, lw)`` (as K1's), K13's
+    plain version then K1's DP (min-chain band, one eps pass, eps_prev);
+    ``mode="general"``: ``inputs = nll [U, C, B]`` bank emissions, the
+    plain scan at ``eps_depth``.  Returns ``(frontier_out [S, B], bp8
+    [C, S, B] int8, eps_u [C, R, B], eps_prev [C, R, B] int32 (fused) or
+    None, org [S, B] int32 or None)``."""
+    if mode == "fused":
+        _check_fused(g, topo, "the uniform chunk step")
+        xa, w, lw = inputs
+        return _fused_dp(bank_emission_ref(xa, w, lw), g, n_valid, frontier, frontier,
+                         first_chunk, track_org)
+    if mode != "general":
+        raise ValueError(f"chunk mode {mode!r} is not 'fused' or 'general'")
+    if topo.n_states != g.n_states:
+        raise ValueError(f"topology/graph mismatch: {topo.n_states} vs {g.n_states}")
+    fo, bp8, eps_u, org = viterbi_banded_chunk_tb(
+        inputs.permute(1, 0, 2)[:, g.bank_state, :], g, frontier, n_valid, eps_depth,
+        first_chunk, track_org)
+    return fo, bp8, eps_u, None, org
+
+
+def viterbi_banded_chunk(inputs, g: BandedGraph, topo: BandedTopo, frontier, n_valid,
+                         first_chunk: bool, track_org: bool, mode: str, eps_depth: int = 1):
+    """K17 for CUDA tensors: ``fused``, K13 (``bank_emission``) on the
+    chunk then the DP kernel (``csrc/banded_forward.cu``) in its uniform
+    chunk mode; ``general``, the DP's general chunk mode on the given bank
+    emissions.  The plain version for CPU tensors.  Arguments and results
+    as ``viterbi_banded_chunk_ref``."""
+    if mode not in ("fused", "general"):
+        raise ValueError(f"chunk mode {mode!r} is not 'fused' or 'general'")
+    x = inputs[0] if mode == "fused" else inputs
+    if not use_kernels(x):
+        return viterbi_banded_chunk_ref(inputs, g, topo, frontier, n_valid, first_chunk,
+                                        track_org, mode, eps_depth)
+    dev = x.device
+    if mode == "fused":
+        _check_fused(g, topo, "the uniform chunk step")
+        if eps_depth != 1:
+            raise ValueError(f"the uniform chunk step runs eps depth 1, not {eps_depth}")
+        xa, w, lw = inputs
+        _check_fused_inputs(xa, w, lw, g, topo, n_valid)
+        nll = bank_emission(xa, w, lw)  # [U, C, B] view of a [C, B, U] plane
+    else:
+        _check_general_inputs(x, g, topo, n_valid, eps_depth)
+        nll = x
+    b = x.shape[2]
+    if (frontier.dtype != torch.float32 or frontier.shape != (g.n_states, b)
+            or frontier.device != dev):
+        raise ValueError(f"frontier must be a float32 [{g.n_states}, {b}] tensor on {dev}")
+    return _banded_forward(nll, g, n_valid, eps_depth,
+                           f"{mode}_chunk" + ("_org" if track_org else ""),
+                           viterbi_banded_chunk, frontier=frontier, first=first_chunk)
+
+
+viterbi_banded_chunk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10: word-trace forward (K13 + the DP's word-trace mode)
+# ---------------------------------------------------------------------------
 
 
 def _wordtrace_dp(nll_bank, g: BandedGraph, n_frames):
@@ -717,8 +856,8 @@ def _wordtrace_dp(nll_bank, g: BandedGraph, n_frames):
         else:
             cands = [g.band[d][:, None] + _shift_s(prev, d) for d in range(MAX_BAND + 1)]
             best = torch.minimum(torch.minimum(cands[0], cands[1]), cands[2])
-            tau_b = torch.where(cands[2] == best, _shift_tau(tau, 2),
-                                torch.where(cands[1] == best, _shift_tau(tau, 1), tau))
+            tau_b = torch.where(cands[2] == best, _shift_org(tau, 2),
+                                torch.where(cands[1] == best, _shift_org(tau, 1), tau))
         cost = torch.clamp(best + emis_bank[g.bank_state], max=POS_INF)
         scores = g.eps_block[:, :, None] + cost[ends][None]  # [R, L, B]
         base, origin = scores.amin(1), torch.argmin(scores, 1)

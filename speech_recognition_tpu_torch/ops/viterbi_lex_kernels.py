@@ -5,7 +5,11 @@ Counterpart of ``speech_recognition_tpu/ops/viterbi_lex_pallas.py``:
 K4 replaces ``_lex_kernel`` (``viterbi_lex_pallas(...,
 emit_eps_prev=True)``) and its lane-major twin ``_lex_kernel_wide``; K5
 replaces the three reverse walks ``_lex_bt_kernel``,
-``_lex_bt_val_kernel`` and ``_lex_bt_wide_kernel``.  The Pallas
+``_lex_bt_val_kernel`` and ``_lex_bt_wide_kernel``.  K18
+(``viterbi_lex_chunk``) is K4 in its chunk mode: one chunk of a
+streaming decode from a carried frontier, optionally with an ancestor
+map (the JAX package's ``decode/streaming.py:86 _chunk_step``, a
+``lax.scan``).  The Pallas
 kernels renumber states (SoA rows, BFS-level selectors, bf16 x 3
 splits, 8/128 padding, VMEM budgets) so that every gather becomes an
 MXU one-hot; on the GPU a gather is an indexed load, so both kernels
@@ -35,6 +39,7 @@ from speech_recognition_tpu_torch.ops.viterbi_banded import (
     MAX_BAND,
     BandedGraph,
     _eps_u_dtype,
+    viterbi_banded_chunk_tb,
     viterbi_banded_tb,
 )
 from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import use_kernels
@@ -42,7 +47,8 @@ from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
 __all__ = ["LexPack", "lex_pack", "LexTopo", "lex_topology", "LexPlan", "lex_plan",
            "lex_smem_bytes", "viterbi_lex", "viterbi_lex_ref", "lex_chains",
-           "lex_backtrace_val", "lex_backtrace_val_ref"]
+           "lex_backtrace_val", "lex_backtrace_val_ref", "LEX_MODES",
+           "viterbi_lex_chunk", "viterbi_lex_chunk_ref"]
 
 
 class LexPack(NamedTuple):
@@ -228,24 +234,37 @@ def _r16(n: int) -> int:
     return (n + 15) & ~15
 
 
-def lex_smem_bytes(lattice: bool, s: int, n_eps: int, l: int, n_rows: int, n_cx: int,
+# the forward kernel's modes in the C interface: K4, K6 (the lattice pass),
+# K18 (the chunk step) and K18 with the ancestor map
+LEX_MODES = {"forward": 0, "lattice": 1, "chunk": 2, "chunk_org": 3}
+
+
+def _has_tau(mode: int) -> bool:
+    """Whether a mode keeps a second int32 frontier: K6's entry times,
+    K18's ancestor map."""
+    return mode in (1, 3)
+
+
+def lex_smem_bytes(mode: int, s: int, n_eps: int, l: int, n_rows: int, n_cx: int,
                    front: bool, tau: bool, tables: bool, eps: bool, gather: bool,
                    rep: int) -> int:
-    """Shared memory of one K4 / K6 CTA (``viterbi_lex_smem_bytes``) for
-    a graph of ``LexTopo.dims``: the frontier rows (with K4's staged codes
-    of two frames), K6's tau rows, the tables, the eps block, the two row
-    tables and the leaf-slot rows."""
+    """Shared memory of one K4 / K6 / K18 CTA (``viterbi_lex_smem_bytes``)
+    in ``mode`` (a value of ``LEX_MODES``; False / True are K4 / K6) for a
+    graph of ``LexTopo.dims``: the frontier rows (with K4's and K18's
+    staged codes of two frames), K6's tau rows or K18's ancestor rows, the
+    tables, the eps block, the two row tables and the leaf-slot rows."""
     row = 2 * _r16(4 * (s + 4))
-    return ((row + (0 if lattice else 2 * _r16(s)) if front else 0)
-            + (row if lattice and tau else 0)
+    return ((row + (0 if mode == 1 else 2 * _r16(s)) if front else 0)
+            + (row if _has_tau(mode) and tau else 0)
             + (_r16(4 * s) + _r16(8 * n_cx) if tables else 0) + (_r16(4 * n_eps) if eps else 0)
             + 2 * _r16(16 * n_rows * rep)
             + (0 if gather else 2 * _r16(4 * l)))
 
 
-def lex_plan(lattice: bool, topo: LexTopo, limit: int) -> LexPlan:
-    """The plan for ``topo``'s graph: in order of preference the cost
-    frontier, K6's tau frontier, the tables and the eps block in shared
+def lex_plan(mode: int, topo: LexTopo, limit: int) -> LexPlan:
+    """The plan for ``topo``'s graph in ``mode`` (as ``lex_smem_bytes``):
+    in order of preference the cost frontier, K6's tau frontier (K18's
+    ancestor map), the tables and the eps block in shared
     memory (the general mode and the wide records read their tables
     through L1, and the wide records keep the frontier in device memory),
     then the leaf-end row (where the pack allows it), then eight copies
@@ -255,11 +274,11 @@ def lex_plan(lattice: bool, topo: LexTopo, limit: int) -> LexPlan:
     tables in device memory; it fits any graph."""
     p = topo.pack
     plans = [LexPlan(front, tau, tables, eps, gather, rep,
-                     lex_smem_bytes(lattice, *topo.dims, front, tau, tables, eps, gather, rep))
+                     lex_smem_bytes(mode, *topo.dims, front, tau, tables, eps, gather, rep))
              for rows in (True, False)  # row tables in shared memory, else none
              for front, tau, tables, eps, gather, rep in itertools.product(
                  (True, False) if rows and not p.wide else (False,),
-                 (True, False) if lattice else (False,),
+                 (True, False) if _has_tau(mode) else (False,),
                  (True, False) if rows and p.factorised and not p.wide else (False,),
                  (True, False), (True,) if p.gather else (False, True),
                  (8, 1) if rows else (0,))]
@@ -296,55 +315,69 @@ def lex_launch_inputs(nll, g: BandedGraph, topo: LexTopo, n_frames, what: str):
 
 
 def lex_forward(nll, g: BandedGraph, topo: LexTopo, n_frames, lattice: bool, wrapper,
-                plan: LexPlan = None, trace=None):
-    """Launch ``csrc/viterbi_lex.cu`` (K4, or K6 with ``lattice``) with
-    ``plan`` (default ``lex_plan``'s) and count the launch on
-    ``wrapper``; ``trace``: None or a ``[B, 6]`` int64 tensor that
-    receives each stream's cycles per phase of its frame steps (band,
-    barrier, eps scan, warp reduction, apply, barrier; thread 0's
-    clock)."""
+                plan: LexPlan = None, trace=None, frontier=None, first: bool = False,
+                track_org: bool = False):
+    """Launch ``csrc/viterbi_lex.cu`` (K4, or K6 with ``lattice``, or K18
+    with a carried ``frontier [B, S]``) with ``plan`` (default
+    ``lex_plan``'s) and count the launch on ``wrapper``; ``trace``: None
+    or a ``[B, 6]`` int64 tensor that receives each stream's cycles per
+    phase of its frame steps (band, barrier, eps scan, warp reduction,
+    apply, barrier; thread 0's clock).  K18 (``first``: frame 0 seeds
+    from the frontier; ``track_org``: the ancestor map) returns K4's
+    outputs and ``org [B, S]`` int32 or None."""
     from speech_recognition_tpu_torch.utils.build import check, load_library
 
-    what = "lattice kernel" if lattice else "lexical-tree kernel"
+    chunk = frontier is not None
+    mode = LEX_MODES["lattice" if lattice else
+                     ("chunk_org" if track_org else "chunk") if chunk else "forward"]
+    what = ("lattice kernel" if lattice else "lexical-tree chunk kernel" if chunk
+            else "lexical-tree kernel")
     nf = lex_launch_inputs(nll, g, topo, n_frames, what)
     dev = nll.device
     u, t_len, b = nll.shape
     s, r, l = g.n_states, g.n_words, g.n_ends
     final = torch.empty((b, s), dtype=torch.float32, device=dev)
+    org = torch.empty((b, s), dtype=torch.int32, device=dev) if chunk and track_org else None
     if lattice:
         if t_len == 0:
             raise ValueError("the lattice pass needs at least one frame")
         outs = (final, torch.empty((t_len, b, l), dtype=torch.float32, device=dev),
                 torch.empty((t_len, b, l), dtype=torch.int32, device=dev))
-        planes = [None, None, 0, None, outs[1], outs[2]]
+        planes = [None, None, 0, None, outs[1], outs[2], None]
     else:
         u_dtype = topo.eps_u_dtype
         outs = (final, torch.empty((t_len, b, s), dtype=torch.int8, device=dev),
                 torch.empty((t_len, b, r), dtype=u_dtype, device=dev),
                 torch.empty((t_len, b, r), dtype=torch.int32, device=dev))
-        planes = [outs[1], outs[2], int(u_dtype == torch.int32), outs[3], None, None]
+        planes = [outs[1], outs[2], int(u_dtype == torch.int32), outs[3], None, None, org]
+        if chunk:
+            if (frontier.dtype != torch.float32 or frontier.shape != (b, s)
+                    or frontier.device != dev):
+                raise ValueError(f"frontier must be a float32 [{b}, {s}] tensor on {dev}")
+            outs = (*outs, org)
     if b == 0:
         return outs
     lib = load_library()
     if plan is None:
-        key = ("plan", lattice, lib.srt_smem_limit())
+        key = ("plan", mode, lib.srt_smem_limit())
         if key not in topo.on_device:
-            topo.on_device[key] = lex_plan(lattice, topo, key[2])
+            topo.on_device[key] = lex_plan(mode, topo, key[2])
         plan = topo.on_device[key]
     pk = topo.pack
     t = _device_pack(topo, dev)
     row = _r16(4 * (s + 4)) // 4  # entries per frontier row
     scratch = None if plan.front else torch.empty((b, 2, row), dtype=torch.float32, device=dev)
-    tau_scratch = None if not lattice or plan.tau else torch.empty((b, 2, row),
-                                                                   dtype=torch.int32, device=dev)
+    tau_scratch = None if not _has_tau(mode) or plan.tau else torch.empty(
+        (b, 2, row), dtype=torch.int32, device=dev)
+    tables = [frontier.contiguous() if chunk else t["init"], *(t[k] for k in _PACKED[1:])]
 
     def ptr(x):
         return x if x is None or isinstance(x, int) else x.data_ptr()
 
     with torch.cuda.device(dev):
         rc = lib.viterbi_lex_launch(
-            int(lattice), *map(ptr, (nll, *(t[k] for k in _PACKED), nf, scratch, tau_scratch,
-                                     final)),
+            mode, *map(ptr, (nll, *tables, nf)), int(first),
+            *map(ptr, (scratch, tau_scratch, final)),
             *map(ptr, planes), ptr(trace), u, t_len, b, s, r, l, pk.rows.shape[0],
             pk.cross.shape[0], pk.shift, int(pk.wide),
             0 if pk.eps.ndim == 1 else l, int(plan.front), int(plan.tau), int(plan.tables),
@@ -368,7 +401,14 @@ def viterbi_lex_ref(nll, g: BandedGraph, topo: LexTopo, n_frames):
     if topo.n_states != g.n_states:
         raise ValueError(f"topology/graph mismatch: {topo.n_states} vs {g.n_states}")
     nll_tb = nll.permute(1, 0, 2)[:, g.bank_state, :]  # [T, S, B]
-    final, bp8, eps_u = viterbi_banded_tb(nll_tb, g, n_frames)
+    return _k4_layouts(g, *viterbi_banded_tb(nll_tb, g, n_frames))
+
+
+def _k4_layouts(g: BandedGraph, final, bp8, eps_u):
+    """The plain banded DP's ``final [S, B]``, ``bp8 [T, S, B]`` and
+    ``eps_u [T, R, B]`` in K4's layouts, with each re-entry winner's
+    ``eps_prev``: ``(final [B, S], bp8 [T, B, S], eps_u [T, B, R],
+    eps_prev [T, B, R] int32)``."""
     ends = g.word_ends[eps_u.to(torch.int64)]  # [T, R, B]
     code_end = torch.gather(bp8, 1, ends).to(torch.int64)
     took = bp8[:, g.word_starts, :] == _EPS
@@ -393,6 +433,44 @@ def viterbi_lex(nll, g: BandedGraph, topo: LexTopo, n_frames):
 
 
 viterbi_lex.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K18: the streaming chunk step over a lexical tree (K4's chunk mode)
+# ---------------------------------------------------------------------------
+
+
+def viterbi_lex_chunk_ref(nll, g: BandedGraph, topo: LexTopo, frontier, n_valid,
+                          first_chunk: bool, track_org: bool):
+    """Plain version of K18: the plain chunk DP
+    (``ops.viterbi_banded.viterbi_banded_chunk_tb``) in K4's layouts.
+
+    ``nll [U, C, B]`` bank emissions of the chunk, ``frontier [B, S]``
+    the carry, ``n_valid [B]`` -> ``(frontier_out [B, S], bp8 [C, B, S]
+    int8, eps_u [C, B, R], eps_prev [C, B, R] int32, org [B, S] int32 or
+    None)``; ``eps_prev`` as ``viterbi_lex_ref`` derives it."""
+    if topo.n_states != g.n_states:
+        raise ValueError(f"topology/graph mismatch: {topo.n_states} vs {g.n_states}")
+    nll_tb = nll.permute(1, 0, 2)[:, g.bank_state, :]  # [C, S, B]
+    *outs, org = viterbi_banded_chunk_tb(nll_tb, g, frontier.T, n_valid, 1, first_chunk,
+                                         track_org)
+    return (*_k4_layouts(g, *outs), None if org is None else org.T.contiguous())
+
+
+def viterbi_lex_chunk(nll, g: BandedGraph, topo: LexTopo, frontier, n_valid,
+                      first_chunk: bool, track_org: bool):
+    """K18 for CUDA tensors (``csrc/viterbi_lex.cu`` in its chunk mode: K4
+    from each stream's carried frontier, every frame computed, the carry
+    frozen at ``t >= n_valid``), the plain version for CPU tensors.
+    Arguments and results as ``viterbi_lex_chunk_ref``; every
+    ``lex_plan`` tier is taken."""
+    if not use_kernels(nll):
+        return viterbi_lex_chunk_ref(nll, g, topo, frontier, n_valid, first_chunk, track_org)
+    return lex_forward(nll, g, topo, n_valid, False, viterbi_lex_chunk, frontier=frontier,
+                       first=first_chunk, track_org=track_org)
+
+
+viterbi_lex_chunk.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -110,15 +110,15 @@ def load_library() -> ctypes.CDLL:
     lib.viterbi_dense_launch.argtypes = [p, p, p, p, p, p, p, p, p,
                                          i, i, i, i, i, i, i, i, i, i, i, i, q, p, p]
     lib.bank_emission_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
-    lib.banded_forward_launch.argtypes = [i, p, q, q, q, p, p, p, p, p, p, p, p, p, p, p,
-                                          i, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i,
+    lib.banded_forward_launch.argtypes = [i, p, q, q, q, p, p, p, p, p, p, p, p, i, p, p, p,
+                                          i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i,
                                           p, p]
     lib.banded_backtrace_launch.argtypes = [p, p, p, p, p, p,
                                             i, i, i, i, i, p]
     lib.banded_backtrace_general_launch.argtypes = [p, p, i, p, p, p, p, p, p, p,
                                                     i, i, i, i, i, i, p, p]
-    lib.viterbi_lex_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, p,
-                                       p, p, i, p, p, p, p,
+    lib.viterbi_lex_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, p, p, p,
+                                       p, p, i, p, p, p, p, p,
                                        i, i, i, i, i, i, i, i, i, i,
                                        i, i, i, i, i, i, i, p]
     lib.lex_backtrace_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p, p]

@@ -2013,3 +2013,320 @@ def test_fb_wrappers_raise(dev):
     with pytest.raises(ValueError, match="end_scores"):
         fk.fb_banded(nll, g, nf, 1, torch.zeros(s + 1, device=dev))
     assert (fk.fb_dense.launches, fk.fb_banded.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# K17 / K18: the streaming chunk steps
+# ---------------------------------------------------------------------------
+
+
+def _chunks(t, chunk):
+    return [(t0, min(chunk, t - t0)) for t0 in range(0, t, chunk)]
+
+
+def _hold_chunk_chain(launch, plain, frontier, nf, t, chunk):
+    """Run ``launch(t0, c, frontier, nv, first)`` chunk by chunk from
+    ``frontier``; at every chunk the plain version gets the kernel's own
+    carry, and every output (carry, planes, org) must be bit-identical;
+    a second launch on the same inputs too.  Returns the kernel's
+    outputs per chunk."""
+    outs = []
+    for t0, c in _chunks(t, chunk):
+        nv = torch.clamp(nf - t0, 0, c).to(torch.int32)
+        got = launch(t0, c, frontier, nv, t0 == 0)
+        again = launch(t0, c, frontier, nv, t0 == 0)
+        want = plain(t0, c, frontier, nv, t0 == 0)
+        torch.cuda.synchronize()
+        for k, (a, a2, w) in enumerate(zip(got, again, want)):
+            assert (a is None) == (w is None), k
+            if w is not None:
+                assert torch.equal(a, w) and torch.equal(a, a2), (t0, k)
+        frozen = nv == 0
+        fr_axis = 1 if got[0].shape[1] == nf.shape[0] else 0
+        kept = got[0].index_select(fr_axis, torch.nonzero(frozen)[:, 0])
+        assert torch.equal(kept, frontier.index_select(fr_axis, torch.nonzero(frozen)[:, 0]))
+        outs.append(got)
+        frontier = got[0]
+    return outs
+
+
+K17_CASES = {  # kind: (mode, b, t)
+    "loop": ("fused", 6, 70),
+    "loop ties": ("fused", 5, 40),
+    "7,500-state loop": ("fused", 300, 5),
+    "sausage_1state": ("general", 6, 40),
+    "sausage_mixed": ("general", 5, 40),
+}
+
+
+@pytest.mark.parametrize("track_org", [False, True])
+@pytest.mark.parametrize("chunk", [1, 64, 0])
+@pytest.mark.parametrize("kind", sorted(K17_CASES))
+def test_k17_matches_plain(dev, kind, chunk, track_org):
+    """K17's DP (``csrc/banded_forward.cu``'s chunk modes) on given bank
+    emissions against its plain version, chunk by chunk from the carry
+    (chunks of 1, 64 and T frames; lengths 0, 1, T and between, so some
+    streams are frozen for whole chunks): carry, bp8, eps_u, eps_prev and
+    the ancestor map bit-identical, a frozen stream's carry unchanged,
+    two launches equal; the planes concatenated give the monolithic
+    DP's (K1's or K8's plain version) and the same backtrace; the plan's
+    shared memory equals the kernel's, and the 7,500-state loop's work
+    area lies in device memory."""
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    mode, b, t = K17_CASES[kind]
+    if kind.startswith("sausage"):
+        _, graph = _general_graph(kind)
+        g, depth = banded_arrays(graph), graph.eps_depth
+    elif kind == "7,500-state loop":
+        graph, g = _big_loop(1500, (5,), 55)
+        depth = 1
+    else:
+        from speech_recognition_tpu_torch.models.graph import build_loop_graph
+
+        bank = _bank(11, 5, 2, 6)
+        graph = build_loop_graph([bank.trans_cost[i].numpy() for i in range(11)],
+                                 word_insertion_cost=0.5)
+        g, depth = banded_arrays(graph), 1
+    g = g.to(dev)
+    topo = vk.banded_topology(g)
+    assert vk.banded_route(topo, depth) == mode
+    u = int(g.bank_state.max()) + 1
+    full = f"{mode}_chunk" + ("_org" if track_org else "")
+    plan = _plan_agrees_with_kernel(load_library(), full, g, u, b, dev)
+    if kind == "7,500-state loop":
+        assert plan.frontier == "device"
+    rng = np.random.default_rng(len(kind) + chunk)
+    e = rng.integers(0, 3, (u, t, b)) if "ties" in kind else rng.uniform(0, 6, (u, t, b))
+    nll = torch.from_numpy(e.astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[0, t, 1, rng.integers(1, t + 1, b)][:b].astype(np.int32)).to(dev)
+    chunk = chunk or t
+
+    def launch(t0, c, fr, nv, first):
+        return vk._banded_forward(nll[:, t0:t0 + c], g, nv, depth, full,
+                                  vk.viterbi_banded_chunk, frontier=fr, first=first)
+
+    def plain(t0, c, fr, nv, first):
+        x = nll[:, t0:t0 + c]
+        if mode == "fused":
+            return vk._fused_dp(x, g, nv, fr, fr, first, track_org)
+        return vk.viterbi_banded_chunk_ref(x.contiguous(), g, topo, fr, nv, first, track_org,
+                                           "general", depth)
+
+    init = g.init_cost[:, None].expand(-1, b).contiguous()
+    outs = _hold_chunk_chain(launch, plain, init, nf, t, chunk)
+    planes = [torch.cat([o[k] for o in outs]) for k in (1, 2)]
+    # a stream of length 0 keeps its frontier in the chunk step and is
+    # POS_INF (K1) or moved by frame 0 (K8) in the monolithic DP: the
+    # planes agree on the other streams
+    live = nf > 0
+    if mode == "fused":
+        want = vk.fused_dp_ref(nll, g, nf)
+        eps_prev = torch.cat([o[3] for o in outs])
+        assert torch.equal(eps_prev[..., live], want[3][..., live])
+    else:
+        want = vk.viterbi_banded_general_ref(nll, g, topo, nf, depth)
+    assert all(torch.equal(a[..., live], w[..., live]) for a, w in zip(planes, want[1:3]))
+    assert torch.equal(outs[-1][0][:, live], want[0][:, live])
+    ends = g.end_states[torch.argmin(want[0][g.end_states] + g.end_bonus[:, None], 0)]
+    if mode == "fused":
+        sk, fk = vk.banded_backtrace_val(planes[0], eps_prev, ends, nf, topo.uniform_w)
+        sp, fp = vk.banded_backtrace_val_ref(want[1], want[3], ends, nf, topo.uniform_w)
+    else:
+        sk, fk = vk.banded_backtrace_general(planes[0], planes[1], g, ends, nf, depth)
+        sp, fp = vk.banded_backtrace_general_ref(want[1], want[2], g, ends, nf, depth)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, sp) and torch.equal(fk, fp)
+
+
+def test_k17_wrapper_runs_k13_then_the_dp(dev):
+    """``viterbi_banded_chunk(mode="fused")`` is K13 then the DP (one
+    launch each, counted), within rtol 1e-5 of its plain version (the
+    emission GEMM sums in another order); the general mode on bank
+    emissions is bit-identical; a CUDA tensor never runs the plain
+    version, and the wrong inputs raise."""
+    from speech_recognition_tpu_torch.models.graph import build_loop_graph
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.gmm import augment_dtb, gmm_emission_weights
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+
+    bank = _bank(11, 5, 4, 39).to(dev)
+    graph = build_loop_graph([bank.trans_cost[i].cpu().numpy() for i in range(11)],
+                             word_insertion_cost=0.5)
+    g = banded_arrays(graph, device=dev)
+    topo = vk.banded_topology(g)
+    b, c = 7, 16
+    rng = np.random.default_rng(3)
+    xa = augment_dtb(torch.from_numpy(rng.standard_normal((b, c, 39)).astype(np.float32))
+                     .to(dev))
+    w, lw = gmm_emission_weights(*bank.flat_states())
+    fr = g.init_cost[:, None].expand(-1, b).contiguous()
+    nv = torch.tensor([c, 0, 3, c, c, 1, 9], dtype=torch.int32, device=dev)
+    before = (vk.bank_emission.launches, vk.viterbi_banded_chunk.launches)
+    got = vk.viterbi_banded_chunk((xa, w, lw), g, topo, fr, nv, True, True, "fused")
+    want = vk.viterbi_banded_chunk_ref((xa, w, lw), g, topo, fr, nv, True, True, "fused")
+    torch.cuda.synchronize()
+    assert (vk.bank_emission.launches, vk.viterbi_banded_chunk.launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+    assert torch.equal(got[0][:, 1], fr[:, 1])
+    with pytest.raises(ValueError, match="frontier"):
+        vk.viterbi_banded_chunk((xa, w, lw), g, topo, fr.T.contiguous(), nv, True, False,
+                                "fused")
+    with pytest.raises(ValueError, match="chunk mode"):
+        vk.viterbi_banded_chunk((xa, w, lw), g, topo, fr, nv, True, False, "wordtrace")
+    nll = vk.bank_emission(xa, w, lw).contiguous()
+    got = vk.viterbi_banded_chunk(nll, g, topo, fr, nv, False, True, "general")
+    want = vk.viterbi_banded_chunk_ref(nll, g, topo, fr, nv, False, True, "general")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, want) if b_ is not None)
+
+
+K18_CASES = {  # kind: (b, t)
+    "1k": (5, 40), "dict1": (3, 12), "dup_end": (5, 30), "1k_general": (4, 24),
+    "8,000 bank rows": (4, 20), "wide records": (3, 10),
+}
+
+
+@pytest.mark.parametrize("track_org", [False, True])
+@pytest.mark.parametrize("chunk", [1, 64, 0])
+@pytest.mark.parametrize("kind", sorted(K18_CASES))
+def test_k18_matches_plain(dev, kind, chunk, track_org):
+    """K18 (``csrc/viterbi_lex.cu``'s chunk mode) against its plain
+    version in every ``lex_plan`` tier (the 1k trie on chip, the
+    dictionary-shaped trie in device memory, the gather mode, the general
+    mode, no row tables past 8,000 bank rows, the wide two-word
+    records), chunk by chunk from the carry (chunks of 1, 64 and T;
+    lengths 0, 1, T and between): carry, bp8, eps_u, eps_prev and the
+    ancestor map bit-identical, frozen streams' carries unchanged, two
+    launches equal; the planes concatenated give K4's plain version's
+    and the same K5 walk; the plan's shared memory equals the kernel's."""
+    from speech_recognition_tpu_torch.ops import viterbi_lex_kernels as lk
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    b, t = K18_CASES[kind]
+    if kind == "8,000 bank rows":
+        lexg, topo, _, _ = _large_bank_case(dev, b, t)
+        g = lexg.banded
+    elif kind == "wide records":
+        from speech_recognition_tpu_torch.data.lexicon import bench_lexicon
+        from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+
+        words, trans, ids, rng_w = bench_lexicon()
+        g = build_lex_graph(words, trans, ids, word_insertion_cost=0.5).banded
+        g = g._replace(bank_state=g.bank_state * 45000)
+        topo = lk.lex_topology(g)
+        assert topo.pack.wide
+    else:
+        g, _ = _lex_case(kind)
+        topo = lk.lex_topology(g)
+    mode = lk.LEX_MODES["chunk_org" if track_org else "chunk"]
+    lib = load_library()
+    plan = lk.lex_plan(mode, topo, lib.srt_smem_limit())
+    assert plan.smem == lib.viterbi_lex_smem_bytes(
+        mode, *topo.dims, int(plan.front), int(plan.tau), int(plan.tables), int(plan.eps),
+        int(plan.gather), plan.rep)
+    if kind in ("dict1", "8,000 bank rows", "wide records"):
+        assert plan.frontier == "device"
+    assert (plan.rep == 0) == (kind in ("8,000 bank rows", "wide records"))
+    g = g.to(dev)
+    u = topo.max_bank_state + 1
+    gen = torch.Generator(device=dev).manual_seed(len(kind) + chunk)
+    nll = torch.rand((u, t, b), generator=gen, device=dev) * 5
+    nf = torch.tensor(np.r_[t, 0, 1, np.arange(2, b) * t // b][:b].astype(np.int32),
+                      device=dev)
+    chunk = chunk or t
+
+    def launch(t0, c, fr, nv, first):
+        return lk.viterbi_lex_chunk(nll[:, t0:t0 + c].contiguous(), g, topo, fr, nv, first,
+                                    track_org)
+
+    def plain(t0, c, fr, nv, first):
+        return lk.viterbi_lex_chunk_ref(nll[:, t0:t0 + c].contiguous(), g, topo, fr, nv, first,
+                                        track_org)
+
+    init = g.init_cost[None].expand(b, -1).contiguous()
+    outs = _hold_chunk_chain(launch, plain, init, nf, t, chunk)
+    want = lk.viterbi_lex_ref(nll, g, topo, nf)
+    planes = [torch.cat([o[k] for o in outs]) for k in (1, 2, 3)]
+    live = nf > 0  # a stream of length 0 keeps its frontier (K4's moves at frame 0)
+    assert all(torch.equal(a[:, live], w[:, live]) for a, w in zip(planes, want[1:]))
+    assert torch.equal(outs[-1][0][live], want[0][live])
+    ends = g.end_states[torch.argmin(want[0][:, g.end_states] + g.end_bonus, 1)]
+    sk, fk = lk.lex_backtrace_val(planes[0], planes[2], g, ends, nf, topo=topo)
+    sp, fp = lk.lex_backtrace_val_ref(want[1], want[3], g, ends, nf)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, sp) and torch.equal(fk, fp)
+
+
+@pytest.mark.parametrize("kind", ["loop", "loop incremental", "sausage_1state", "lextree",
+                                  "lextree incremental"])
+def test_streaming_decode_cuda_matches_monolithic(dev, kind):
+    """``StreamingDecoder`` on the card (K13 + K17 + K2, K17 + K9, or K18
+    + K5, with flushes in incremental mode) gives the monolithic decode's
+    states and words on the card (K1 + K2, K8 + K9, K4 + K5) and the CPU
+    streaming decode's words, costs at rtol 1e-5."""
+    from speech_recognition_tpu_torch.decode.connected import _decode_banded_batch
+    from speech_recognition_tpu_torch.decode.lextree import _decode_lex_batch
+    from speech_recognition_tpu_torch.decode.streaming import StreamingDecoder
+    from speech_recognition_tpu_torch.models.graph import build_loop_graph
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops import viterbi_lex_kernels as lk
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+
+    incremental = kind.endswith("incremental")
+    if kind.startswith("sausage"):
+        bank, graph = _general_graph(kind)
+    elif kind.startswith("lextree"):
+        from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+
+        bank = _bank(4, 3, 2, 6, seed=2)
+        words = ["ab", "abc", "ba", "d", "ca", "cab", "bad", "c"]
+        graph = build_lex_graph(words, [bank.trans_cost[i].numpy() for i in range(4)],
+                                {c: i for i, c in enumerate("abcd")}, word_insertion_cost=0.5)
+    else:
+        bank = _bank(6, 3, 2, 6, seed=1)
+        graph = build_loop_graph([bank.trans_cost[i].numpy() for i in range(6)],
+                                 word_insertion_cost=0.5)
+    rng = np.random.default_rng(len(kind))
+    means = bank.means.numpy()[:, :, 0, :]
+    b = 1 if incremental else 3
+    t = 160
+    feats = np.zeros((b, t, 6), np.float32)
+    for i in range(b):
+        f = [means[u, s] + 0.3 * rng.standard_normal(6)
+             for u in rng.integers(0, means.shape[0], 40) for s in range(means.shape[1])
+             for _ in range(int(rng.integers(2, 4)))][:t]
+        feats[i, : len(f)] = f
+    nf = np.r_[t, t - 37, t // 3][:b].astype(np.int32)
+    bank_d = bank.to(dev)
+    res = {}
+    for where, bk in (("cuda", bank_d), ("cpu", bank)):
+        dec = StreamingDecoder(bk, graph, chunk_frames=32, batch=b,
+                               emit_incremental=incremental, window_chunks=2)
+        t0 = 0
+        while t0 < t:
+            x = torch.from_numpy(feats[:, t0:t0 + 32]).to(bk.means.device)
+            dec.push(x, n_valid=np.clip(nf - t0, 0, 32).astype(np.int32))
+            t0 += 32
+        out = dec.finish()
+        res[where] = [out] if b == 1 else out
+    x, n = torch.from_numpy(feats).to(dev), torch.from_numpy(nf).to(dev)
+    if kind.startswith("lextree"):
+        g = graph.banded.to(dev)
+        st, _, costs = _decode_lex_batch(bank_d, x, n, g, lk.lex_topology(graph.banded))
+        st = st.T
+    else:
+        st, _, costs = _decode_banded_batch(bank_d, x, n, banded_arrays(graph, dev),
+                                            eps_depth=graph.eps_depth)
+    st, costs = st.cpu().numpy(), costs.cpu().numpy()
+    for i in range(b):
+        words, states, cost = res["cuda"][i]
+        assert words == res["cpu"][i][0]
+        np.testing.assert_allclose(cost, res["cpu"][i][2], rtol=1e-5)
+        np.testing.assert_allclose(cost, costs[i], rtol=1e-5)
+        if not incremental:
+            np.testing.assert_array_equal(states, st[i, : nf[i]])
+    assert vk.viterbi_banded_chunk.launches + lk.viterbi_lex_chunk.launches > 0
