@@ -417,6 +417,37 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, reps: int = 10) -> float:
+    """Device ms per call of ``fn()`` from CUDA events alone: a sleep
+    kernel holds the stream while the host enqueues ``reps`` calls
+    between two events, so the events' distance is the device's time for
+    the calls (the gaps between their launches included), not the
+    host's.  The least of three readings, after one warm-up run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)  # ~20 ms: longer than the calls' enqueue
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        e1.synchronize()
+        best = min(best, e0.elapsed_time(e1) / reps)
+    return best
+
+
+# The streaming figures before the chunk kernels' warp form and cached
+# launch tables (PERF.md §6, the K17 / K18 rows' earlier times; NVIDIA H100
+# 80GB HBM3, 700 W), printed beside this run's in 7b.
+STREAM_PARENT = {"K17": 0.625, "K17 DP": 0.492, "K17 DP device": 0.143, "K18": 0.435,
+                 "K18 device": 0.332, "push": 0.900, "idle": 0.779, "rate": 110486}
+
+
 # The kernel wrappers whose launch counts device_ms holds the profiler's
 # trace to, each with the kernels one counted launch starts (K15 and K16:
 # a scan and a combine); filled in main() once the port is importable.
@@ -1716,12 +1747,28 @@ def main() -> int:
     nll_s = vk.bank_emission(xa_s, w, lw)  # K13's [U, T, B] view
     init_l = bgl.init_cost[:, None].expand(-1, BS).contiguous()
 
-    def k17_hold(name, g_, topo_, nll_, nf_, depth, base, org, chunk=CH):
+    def k17_hold(name, g_, topo_, nll_, nf_, depth, base, org, chunk=CH, form=None):
+        """K17 chunk by chunk against its plain version, in the form
+        ``banded_plan`` picks, or with ``form`` (``warp`` / ``four``)
+        forced."""
         mode = f"{base}_chunk" + ("_org" if org else "")
+        b_ = nll_.shape[2]
+        lib_ = load_library()
+        plan_ = vk.banded_plan(b_, vk._n_sm(dev), g_.n_states, g_.n_words, g_.n_ends,
+                               nll_.shape[0], mode, lib_.srt_smem_limit(), form=form)
+        if plan_.form == "warp":
+            if plan_.smem != lib_.banded_warp_smem_bytes(vk.MODES[mode], nll_.shape[0],
+                                                         plan_.tile):
+                fail(f"K17 {mode} on {name}: the warp plan's bytes differ from the kernel's")
+        elif plan_.smem != lib_.banded_forward_smem_bytes(
+                vk.MODES[mode], nll_.shape[0], g_.n_states, g_.n_words, g_.n_ends, plan_.tile,
+                int(plan_.work_smem), int(plan_.tables), int(plan_.ring), plan_.kf):
+            fail(f"K17 {mode} on {name}: the plan's bytes differ from the kernel's")
 
         def launch(t0, c, fr, nv, first):
             return vk._banded_forward(nll_[:, t0:t0 + c], g_, nv, depth, mode,
-                                      vk.viterbi_banded_chunk, frontier=fr, first=first)
+                                      vk.viterbi_banded_chunk, plan=plan_, frontier=fr,
+                                      first=first, topo=topo_)
 
         def plain(t0, c, fr, nv, first):
             x_ = nll_[:, t0:t0 + c]
@@ -1730,10 +1777,9 @@ def main() -> int:
             return vk.viterbi_banded_chunk_ref(x_, g_, topo_, fr, nv, first, org, "general",
                                                depth)
 
-        b_ = nll_.shape[2]
         init_ = g_.init_cost[:, None].expand(-1, b_).contiguous()
-        outs = hold_chunks(f"K17 {mode} on {name}", launch, plain, init_, nf_, nll_.shape[1],
-                           chunk, 1)
+        outs = hold_chunks(f"K17 {mode} ({plan_.form} form) on {name}", launch, plain, init_,
+                           nf_, nll_.shape[1], chunk, 1)
         mono = (vk._banded_forward(nll_, g_, nf_, 1, "fused", vk.viterbi_banded_fused)
                 if base == "fused" else vk.viterbi_banded_general_ref(nll_, g_, topo_, nf_,
                                                                       depth))
@@ -1747,25 +1793,49 @@ def main() -> int:
                      f"DP's (output {k})")
         if not torch.equal(outs[-1][0][:, live], mono[0][:, live]):
             fail(f"K17 {mode} on {name}: the last carry differs from the monolithic final")
-        plan_ = vk.banded_plan(b_, vk._n_sm(dev), g_.n_states, g_.n_words, g_.n_ends,
-                               nll_.shape[0], mode, load_library().srt_smem_limit())
+        where = (f"{plan_.form} form, {plan_.tile} warps a CTA, {plan_.per} states a lane"
+                 if plan_.form == "warp" else f"{plan_.form} form, work area in "
+                 f"{plan_.frontier} memory, {plan_.kf} frames staged")
         phase("K17", f"{mode} on {name} ({g_.n_states} states) at {b_}x{nll_.shape[1]} in "
-                     f"{chunk}-frame chunks (work area in {plan_.frontier} memory, "
-                     f"{plan_.kf} frames staged): carry, planes{', org' if org else ''} == "
-                     f"plain every chunk; concatenated planes == the monolithic DP's")
+                     f"{chunk}-frame chunks ({where}): carry, planes{', org' if org else ''} "
+                     f"== plain every chunk; concatenated planes == the monolithic DP's")
         return outs
 
     from speech_recognition_tpu_torch.utils.build import load_library
 
     for org in (False, True):
-        k17_hold("the CLI loop graph, planted features", bgl, topol, nll_s, nf_s, 1, "fused",
-                 org)
+        for form in (None, "four"):
+            k17_hold("the CLI loop graph, planted features", bgl, topol, nll_s, nf_s, 1, "fused",
+                     org, form=form)
     k17_hold("the CLI loop graph, 1-frame chunks", bgl, topol, nll_s[:, :8], nf_s.clamp(max=8),
              1, "fused", True, chunk=1)
+    # a stream count off the warps per CTA: padding warps in the last CTA
+    k17_hold("the CLI loop graph, 203 streams", bgl, topol, nll_s[:, :70, :203],
+             nf_s[:203].clamp(max=70), 1, "fused", True, form="warp")
     bg1_, topo1_, nll1_, _, _, graph1_, _ = gen_planes["1-state sausage7"]
+    nll6_ = gen_planes["3-6-state sausage7"][2]
+    for org in (False, True):  # 77 words: past the warp form's 32 rows
+        k17_hold("the 1-state sausage7", bg1_, topo1_, nll1_, nf8, graph1_.eps_depth,
+                 "general", org)
+    # the warp form on general graphs: 1-state words over 3 slots (eps
+    # depth 2), words of 3-6 states over 2 slots, and the loop at eps
+    # depth 2 in the general chunk mode
+    small = {"the 1-state sausage3": build_word_graph(
+                 [bank1.trans_cost[i].cpu().numpy() for i in range(10)], [list(range(10))] * 3),
+             "the 3-6-state sausage2": build_word_graph(
+                 [bank6.trans_cost[i].cpu().numpy()[:k, :k] for i, k in enumerate(sizes)],
+                 [list(range(11))] * 2)}
+    for gname, graph_ in small.items():
+        bgs = banded_arrays(graph_, device=dev)
+        topos = vk.banded_topology(bgs)
+        nlls = nll6_ if "3-6" in gname else nll1_
+        for org in (False, True):
+            for form in ("warp", "four"):
+                k17_hold(gname, bgs, topos, nlls[:, :128], nf8.clamp(max=128),
+                         graph_.eps_depth, "general", org, form=form)
     for org in (False, True):
-        k17_hold("the 1-state sausage7", bg1_, topo1_, nll1_, nf8, graph1_.eps_depth, "general",
-                 org)
+        k17_hold("the CLI loop graph at eps depth 2", bgl, topol, nll_s[:, :128],
+                 nf_s.clamp(max=128), 2, "general", org, form="warp")
     k17_hold("the 1,500-word loop", bgb, topob, vk.bank_emission(xab, w, lw), nfb, 1, "fused",
              True)
     nl7 = vk.bank_emission(augment_dtb(torch.from_numpy(np.random.default_rng(22).standard_normal(
@@ -3033,8 +3103,17 @@ def main() -> int:
     t["K17"] = (cuda_ms(lambda: vk.viterbi_banded_chunk(*k17_args)),
                 cuda_ms(lambda: vk.viterbi_banded_chunk_ref(*k17_args), reps=3))
     k17_org_ms = cuda_ms(lambda: vk.viterbi_banded_chunk(*k17_org_args))
-    k17_dp_ms = cuda_ms(lambda: vk._banded_forward(nll_c, bgl, nv_c, 1, "fused_chunk",
-                                                   vk.viterbi_banded_chunk, frontier=fr_c))
+
+    def k17_dp():
+        return vk._banded_forward(nll_c, bgl, nv_c, 1, "fused_chunk", vk.viterbi_banded_chunk,
+                                  frontier=fr_c, topo=topol)
+
+    k17_dp_ms = cuda_ms(k17_dp)
+    # K13 + the DP behind a sleep kernel: the pair's device time from
+    # events (the profiler's window of the pair has lost a launch in every
+    # run so far), and the DP's alone
+    k17_q = queued_ms(lambda: vk.viterbi_banded_chunk(*k17_args))
+    k17_dp_q = queued_ms(k17_dp)
     init_t = g1k.init_cost[None].expand(BL, -1).contiguous()
     fr_t = lk.viterbi_lex_chunk(nll_p[:, :CH].contiguous(), g1k, topo1k_, init_t,
                                 nf_p.clamp(max=CH).to(torch.int32), True, False)[0]
@@ -3047,19 +3126,24 @@ def main() -> int:
     dev_ms.update({k: device_ms(fn, what=k) for k, fn in (
         ("K17", lambda: vk.viterbi_banded_chunk(*k17_args)),
         ("K13 on a chunk", lambda: vk.bank_emission(xa_c, w, lw)),
-        ("K17 DP", lambda: vk._banded_forward(nll_c, bgl, nv_c, 1, "fused_chunk",
-                                              vk.viterbi_banded_chunk, frontier=fr_c)),
+        ("K17 DP", k17_dp),
         ("K18", lambda: lk.viterbi_lex_chunk(*k18_args)))})
+    k18_q = queued_ms(lambda: lk.viterbi_lex_chunk(*k18_args))
+    sp = STREAM_PARENT
     phase("timing", f"K17 per push (K13 + the DP's uniform chunk mode) on the CLI loop graph "
                     f"({bgl.n_states} states) at {BS} streams x {CH} frames: "
-                    f"{t['K17'][0]:.3f} ms event, {dev_ms['K17']:.3f} ms device; with the "
-                    f"ancestor map {k17_org_ms:.3f}; the DP alone {k17_dp_ms:.3f} ms, device "
-                    f"{dev_ms['K17 DP']:.3f}; K13 on the chunk alone device "
-                    f"{dev_ms['K13 on a chunk']:.3f}; plain {t['K17'][1]:.3f} ms ({card})")
+                    f"{t['K17'][0]:.3f} ms event (parent {sp['K17']:.3f}), {k17_q:.4f} ms device "
+                    f"from queued events ({dev_ms['K17']:.3f} from the profiler); with the "
+                    f"ancestor map {k17_org_ms:.3f}; the DP alone {k17_dp_ms:.3f} ms event "
+                    f"(parent {sp['K17 DP']:.3f}), {dev_ms['K17 DP']:.4f} ms device (parent "
+                    f"{sp['K17 DP device']:.3f}), {k17_dp_q:.4f} queued; K13 on the chunk "
+                    f"alone device {dev_ms['K13 on a chunk']:.4f}; plain {t['K17'][1]:.3f} ms "
+                    f"({card}; parent: PERF.md's earlier figures)")
     phase("timing", f"K18 per push on the 1k trie ({g1k.n_states} states) at {BL} x {CH} "
-                    f"planted-word emissions: {t['K18'][0]:.3f} ms event, {dev_ms['K18']:.3f} "
-                    f"ms device; with the ancestor map {k18_org_ms:.3f}; plain "
-                    f"{t['K18'][1]:.3f} ms ({card})")
+                    f"planted-word emissions: {t['K18'][0]:.3f} ms event (parent "
+                    f"{sp['K18']:.3f}), {dev_ms['K18']:.4f} ms device (parent "
+                    f"{sp['K18 device']:.3f}), {k18_q:.4f} queued; with the ancestor map "
+                    f"{k18_org_ms:.3f}; plain {t['K18'][1]:.3f} ms ({card})")
 
     def stream_rates(name, bank_, graph_, feats_, nf_, mono):
         """Event ms of a whole stream's pushes, of its finish and of the
@@ -3088,6 +3172,9 @@ def main() -> int:
 
         push_ms = cuda_ms(run_pushes, reps=3)
         push_dev = device_ms(run_pushes, reps=2, what=f"the pushes of a {name} stream")
+        # one stream of pushes per reading: the decoder's pinned n_valid
+        # slots then never wait on a copy queued behind the sleep
+        push_q = queued_ms(run_pushes, reps=1)
         run_pushes()
         fin_ms = cuda_ms(dec_n.finish, reps=3)
         whole_ms = cuda_ms(lambda: run_pushes().finish(), reps=3)
@@ -3114,7 +3201,10 @@ def main() -> int:
         flush_ms = [f_[0] for f_ in flushes]
         phase("timing", f"stream {name} ({b_} x {t_len} frames, {n_push} pushes of {CH}): "
                         f"pushes {push_ms:.3f} ms event ({push_ms / n_push:.3f} a push), "
-                        f"device {push_dev:.3f} ms, idle share {1 - push_dev / push_ms:.3f}; "
+                        f"device {push_dev:.3f} ms (kernels, profiler), idle share "
+                        f"{1 - push_dev / push_ms:.3f}; device with launch gaps {push_q:.3f} "
+                        f"ms (queued events, {push_q / n_push:.3f} a push), idle share "
+                        f"{1 - push_q / push_ms:.3f}; "
                         f"finish {fin_ms:.3f} ms; pushes + finish {whole_ms:.3f} ms = "
                         f"{audio_s / whole_ms * 1e3:,.0f} audio-s/s ({audio_s:.1f} s of audio); "
                         f"the monolithic decode {mono_ms:.3f} ms "
@@ -3125,12 +3215,18 @@ def main() -> int:
                         f"ms median (max {max(flush_ms) if flush_ms else 0:.3f}), "
                         f"{dec_i._flushed} of {t_len} frames flushed mid-stream; "
                         f"{sum(map(len, dec_i._emitted))} words in all ({card})")
-        return {"push_ms": push_ms, "push_dev": push_dev, "finish_ms": fin_ms,
+        return {"push_ms": push_ms, "push_dev": push_dev, "push_q": push_q, "finish_ms": fin_ms,
                 "whole_ms": whole_ms, "mono_ms": mono_ms, "flush_ms": flush_ms,
                 "audio_s": audio_s, "res_i": res_i}
 
-    stream_rates("loop", bank, cli_loop, feats_s, nf_s,
-                 lambda: _decode_banded_batch(bank, feats_s, nf_s, bgl, topo=topol))
+    sr = stream_rates("loop", bank, cli_loop, feats_s, nf_s,
+                      lambda: _decode_banded_batch(bank, feats_s, nf_s, bgl, topo=topol))
+    n_push = -(-T // CH)
+    phase("timing", f"stream loop against the parent (PERF.md's earlier figures): a push "
+                    f"{sr['push_ms'] / n_push:.3f} ms event (parent {sp['push']:.3f}), idle "
+                    f"share {1 - sr['push_dev'] / sr['push_ms']:.3f} (parent {sp['idle']:.3f}); "
+                    f"pushes + finish {sr['audio_s'] / sr['whole_ms'] * 1e3:,.0f} audio-s/s "
+                    f"(parent {sp['rate']:,}) ({card})")
     units_l = [[ord(ch) - ord("a") for ch in wd] for wd in lexp.words]
     feats_l, nf_l = planted_features(lbank, BL, T, np.random.default_rng(23), units=units_l,
                                      dwell=(2, 4))
@@ -3342,7 +3438,7 @@ def main() -> int:
                    "speech_recognition_tpu/ops/forward_backward.py:62"),
            # no TPU kernel: these replace the streaming chunk step's lax.scan
            "K17": ("viterbi_banded_chunk",
-                   "speech_recognition_tpu_torch/csrc/banded_forward.cu",
+                   "speech_recognition_tpu_torch/csrc/banded_warp.cu",
                    "speech_recognition_tpu/decode/streaming.py:86"),
            "K18": ("viterbi_lex_chunk", "speech_recognition_tpu_torch/csrc/viterbi_lex.cu",
                    "speech_recognition_tpu/decode/streaming.py:86")}

@@ -1,5 +1,9 @@
 // Banded Viterbi forward DP over composed word graphs, four warps per
-// stream, shared by three kernels:
+// stream, shared by three kernels.  Graphs of at most 32 words and
+// BANDED_WARP_MAX_STATES states (the streaming path's CLI loop graph) run
+// its warp form instead, one warp a stream with the frame step in
+// registers (csrc/banded_warp.cu, all modes but K10's); the plan
+// (ops/viterbi_banded_kernels.banded_plan) picks the form.
 //
 // K1 (kFused): the DP half of the fused emission + banded forward over a
 // uniform composed word graph (eps depth 1, disjoint word starts and ends).

@@ -149,9 +149,10 @@ constexpr int kPad = 4;          // POS_INF (tau: 0) entries in front of a row
 constexpr int kPhases = 6;
 constexpr unsigned kLeaf = 0x80000000u;
 
-// The kernel's modes (its first template argument); the C interface numbers
-// K18 with the ancestor map 3.
-enum LexMode { kLexFwd = 0, kLatticeMode = 1, kChunkMode = 2 };
+// The kernel's modes (its first template argument), numbered as in the C
+// interface: K18 without and with the ancestor map are instances of their
+// own, so that K18's frame step carries no test of a map it does not keep.
+enum LexMode { kLexFwd = 0, kLatticeMode = 1, kChunkMode = 2, kChunkOrgMode = 3 };
 // The C interface's modes that keep a second int32 frontier (K6's tau, K18's
 // ancestor map) and that stage K4's codes (all but K6)
 __host__ __device__ inline bool has_tau(int mode) { return mode == 1 || mode == 3; }
@@ -287,10 +288,11 @@ template <int kMode, bool kFront, int kTab, bool kWide, bool kRowsDev>
 __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(Params p) {
   constexpr int kThreads = threads_for<kFront>(), kWarps = kThreads / 32;
   constexpr bool kTablesSmem = kTab == kTabSmem;
-  constexpr bool kLattice = kMode == kLatticeMode, kChunk = kMode == kChunkMode;
+  constexpr bool kLattice = kMode == kLatticeMode;
+  constexpr bool kChunk = kMode == kChunkMode || kMode == kChunkOrgMode;
   // K18's ancestor map lives where K6 keeps tau
-  const bool org = kChunk && p.org_out != nullptr;
-  const bool tauf = kLattice || org;
+  constexpr bool org = kMode == kChunkOrgMode;
+  constexpr bool tauf = kLattice || org;
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout y = layout(p.mode, p.S, p.R * max(p.eps_ld, 1), p.L, p.n_rows, p.n_cx,
                           kFront, p.tau_smem, kTablesSmem, p.eps_smem, p.gather, p.rep);
@@ -454,7 +456,11 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
           endx[rc.link] = kLattice ? 0 : v;
         }
       }
-    } else {
+    } else if constexpr (tauf) {
+      // K6 and K18 with the map: one state a thread at a time (runs of four
+      // measured slower for K6, 2.398 against 2.297 ms at 128 x 500 on the
+      // 1k trie, scripts/exp_r16_chunk_dp.py --regress: a run's second
+      // frontier is gathered a state at a time, tcur[from])
       for (int v = tid; v < S; v += kThreads) {
         const Rec rc = rec_at(v);
         float4 bd = row_at(rw, rc.row, t);
@@ -481,14 +487,87 @@ __global__ void __launch_bounds__(threads_for<kFront>(), 1) viterbi_lex_kernel(P
           base = cc;
           d = kCrossCode;
         }
-        const int tv = tauf ? tcur[from] : 0;
+        const int tv = tcur[from];
         const float val = fminf(base + bd.w, SRT_POS_INF);
         nxt[v] = val;
-        if (tauf) tnxt[v] = tv;
+        tnxt[v] = tv;
         if (!kLattice) code[v] = (int8_t)d;
         if (rc.lf & leaf_bit) {
           ends[rc.link] = val;
           endx[rc.link] = kLattice ? tv : v - d;
+        }
+      }
+    } else {
+      // K4 and K18 without the map: runs of four consecutive states a
+      // thread.  One 16-byte load of the carried costs at v0..v0+3 and one
+      // 8-byte load of v0-2, v0-1 (POS_INF in front of the row) give every
+      // band candidate; the run's costs go out as one 16-byte store, the
+      // staged codes as one word.  A row holds S rounded up to 4 entries, so
+      // the last run stays inside it; its states past S read record 0 and
+      // write only into that padding.
+      for (int v0 = 4 * tid; v0 < S; v0 += 4 * kThreads) {
+        const float4 c4 = *reinterpret_cast<const float4*>(cur + v0);
+        const float2 h = *reinterpret_cast<const float2*>(cur + v0 - 2);
+        const float cm[6] = {h.x, h.y, c4.x, c4.y, c4.z, c4.w};  // cur[v0 - 2 + i]
+        Rec rcs[4];
+        if constexpr (kTablesSmem) {
+          if (v0 + 4 <= S) {  // the staged records: one 16-byte load
+            const uint4 r4 = *reinterpret_cast<const uint4*>(rec + v0);
+            const unsigned rr[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k) rcs[k] = {rr[k] & mask, (rr[k] & ~kLeaf) >> p.shift, rr[k]};
+          } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) rcs[k] = v0 + k < S ? rec_at(v0 + k) : Rec{0u, 0u, 0u};
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) rcs[k] = v0 + k < S ? rec_at(v0 + k) : Rec{0u, 0u, 0u};
+        }
+        float val[4];
+        int dd[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int v = v0 + k;
+          const Rec rc = rcs[k];
+          float4 bd = row_at(rw, rc.row, t);
+          if (kTab == kTabGeneral) {
+            const float4 g = v < S ? __ldg(p.band_s + v) : make_float4(0.f, 0.f, 0.f, 0.f);
+            bd.x = g.x;
+            bd.y = g.y;
+            bd.z = g.z;
+          }
+          const float a0 = bd.x + cm[k + 2], a1 = bd.y + cm[k + 1], a2 = bd.z + cm[k];
+          float base = SRT_POS_INF;
+          int d = 0;
+          if (a0 <= base) { base = a0; d = 0; }
+          if (a1 <= base) { base = a1; d = 1; }
+          if (a2 <= base) { base = a2; d = 2; }
+          // every state reads a cross pair: its own, else the default (entry
+          // 0; a leaf slot's link is no cross entry), so no branch diverges
+          const int2 e = ldt<kTablesSmem>(cross + ((rc.lf & kLeaf) ? 0u : rc.link));
+          const int src = e.x;
+          const float cc = fminf(cur[src] + __int_as_float(e.y), SRT_POS_INF);
+          if (cc <= base) {
+            base = cc;
+            d = kCrossCode;
+          }
+          val[k] = fminf(base + bd.w, SRT_POS_INF);
+          dd[k] = d;
+          if (rc.lf & leaf_bit) {
+            ends[rc.link] = val[k];
+            endx[rc.link] = v - d;
+          }
+        }
+        *reinterpret_cast<float4*>(nxt + v0) = make_float4(val[0], val[1], val[2], val[3]);
+        if constexpr (kStaged) {  // the staged codes row holds S rounded up to 16
+          *reinterpret_cast<unsigned*>(code + v0) =
+              (unsigned)(dd[0] & 255) | ((unsigned)(dd[1] & 255) << 8) |
+              ((unsigned)(dd[2] & 255) << 16) | ((unsigned)(dd[3] & 255) << 24);
+        } else {  // straight to the plane: no byte past S
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (v0 + k < S) code[v0 + k] = (int8_t)dd[k];
         }
       }
     }
@@ -710,7 +789,8 @@ extern "C" int viterbi_lex_launch(
   p.rep_shift = rep == 8 ? 3 : 0;
   const cudaStream_t s = (cudaStream_t)stream;
   const int tab = band_s ? kTabGeneral : (tables ? kTabSmem : kTabL1);
-  if (mode >= kChunkMode) return launch_plan<kChunkMode>(p, wide, front, tab, s);
+  if (mode == kChunkOrgMode) return launch_plan<kChunkOrgMode>(p, wide, front, tab, s);
+  if (mode == kChunkMode) return launch_plan<kChunkMode>(p, wide, front, tab, s);
   return lattice ? launch_plan<kLatticeMode>(p, wide, front, tab, s)
                  : launch_plan<kLexFwd>(p, wide, front, tab, s);
 }

@@ -35,9 +35,13 @@ import numpy as np
 import torch
 
 from speech_recognition_tpu_torch.decode.connected import states_to_words_device
-from speech_recognition_tpu_torch.models.hmm import HMMBank, bank_nll_ubt
+from speech_recognition_tpu_torch.models.hmm import HMMBank
 from speech_recognition_tpu_torch.models.lexgraph import LexGraph, lex_words_from_path_batch
-from speech_recognition_tpu_torch.ops.gmm import augment_dtb, gmm_emission_weights
+from speech_recognition_tpu_torch.ops.gmm import (
+    augment_dtb,
+    gmm_emission_weights,
+    gmm_neg_log_lik_ubt,
+)
 from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
 from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import (
     banded_backtrace_general,
@@ -54,6 +58,8 @@ from speech_recognition_tpu_torch.ops.viterbi_lex_kernels import (
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
 __all__ = ["StreamingDecoder"]
+
+_NV_SLOTS = 8  # pinned n_valid slots a decoder rotates through
 
 
 def _immortal_scan(org_stack, alive):
@@ -106,8 +112,9 @@ class StreamingDecoder:
             self.topo = banded_topology(bg)
             self.mode = banded_route(self.topo, graph.eps_depth)
         self.bg = bg.to(self.device)
-        if self.mode == "fused":
-            self._w, self._lw = gmm_emission_weights(*bank.flat_states())
+        # the bank's emission weights, once (bank_nll_ubt would recompute
+        # them every push)
+        self._w, self._lw = gmm_emission_weights(*bank.flat_states())
         self.chunk_frames = chunk_frames
         self.batch = batch
         self.emit_incremental = emit_incremental
@@ -115,6 +122,17 @@ class StreamingDecoder:
         self.flush_every = max(1, int(flush_every))
         self._ends = self.bg.end_states
         self._ends_np = self._ends.cpu().numpy()
+        self._xa = {}  # chunk width -> the K13 input buffer (fused route)
+        # n_valid's way to the device: pinned host slots, each copied
+        # without blocking into its device slot; a slot is written again
+        # only once the event after its last copy has passed
+        self._nv_slot = 0
+        if self.device.type == "cuda":
+            self._nv_host = [torch.empty(batch, dtype=torch.int32).pin_memory()
+                             for _ in range(_NV_SLOTS)]
+            self._nv_dev = [torch.empty(batch, dtype=torch.int32, device=self.device)
+                            for _ in range(_NV_SLOTS)]
+            self._nv_done = [torch.cuda.Event() for _ in range(_NV_SLOTS)]
         self.reset()
 
     def reset(self):
@@ -154,7 +172,7 @@ class StreamingDecoder:
             x = x[None]
         if x.shape[0] != self.batch:
             raise ValueError(f"push of {x.shape[0]} streams to a decoder of {self.batch}")
-        return x.to(torch.float32).contiguous()
+        return x.to(torch.float32)  # any strides: only _augmented reads it
 
     def push(self, feats_chunk, n_valid=None):
         """Feed ``[C, D]`` (batch 1) or ``[B, C, D]`` feature frames, numpy
@@ -173,24 +191,20 @@ class StreamingDecoder:
                                  "(only the final chunk may be partial)")
             if int(nv.min()) != c:
                 self._saw_partial = True
-        nv_t = torch.from_numpy(nv)
-        # a pageable host-to-device copy would wait for the previous push's
-        # kernels; from pinned memory it queues behind them instead
-        nv_t = (nv_t.pin_memory().to(self.device, non_blocking=True)
-                if self.device.type == "cuda" else nv_t)
+        nv_t = self._n_valid_on_device(nv)
         track = self.emit_incremental
         if self.mode == "lex":
-            nll = bank_nll_ubt(self.bank, x, nv_t)  # [U, C, B]
+            nll = self._bank_nll(x, nv_t)  # [U, C, B]
             self._frontier, bp8, _, eps_prev, org = viterbi_lex_chunk(
                 nll, self.bg, self.topo, self._frontier, nv_t, self._first, track)
             planes = eps_prev
         elif self.mode == "fused":
-            inputs = (augment_dtb(x), self._w, self._lw)
+            inputs = (self._augmented(x), self._w, self._lw)
             self._frontier, bp8, _, eps_prev, org = viterbi_banded_chunk(
                 inputs, self.bg, self.topo, self._frontier, nv_t, self._first, track, "fused")
             planes = eps_prev
         else:
-            nll = bank_nll_ubt(self.bank, x, nv_t)
+            nll = self._bank_nll(x, nv_t)
             self._frontier, bp8, eps_u, _, org = viterbi_banded_chunk(
                 nll, self.bg, self.topo, self._frontier, nv_t, self._first, track, "general",
                 self.graph.eps_depth)
@@ -209,6 +223,40 @@ class StreamingDecoder:
                 self._since_flush = 0
                 return self._try_flush()
         return [[] for _ in range(self.batch)]
+
+    def _n_valid_on_device(self, nv):
+        """``nv [B]`` int32 as a tensor on the decoder's device.  A
+        pageable host-to-device copy would wait for the previous push's
+        kernels; from a pinned slot it queues behind them instead.  The
+        slots rotate, and a slot's event (recorded after its copy) has
+        passed long before the slot comes round again."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(nv)
+        k = self._nv_slot
+        self._nv_slot = (k + 1) % _NV_SLOTS
+        self._nv_done[k].synchronize()  # the slot's previous copy has left it
+        self._nv_host[k].numpy()[:] = nv
+        out = self._nv_dev[k].copy_(self._nv_host[k], non_blocking=True)
+        self._nv_done[k].record()
+        return out
+
+    def _augmented(self, x):
+        """``[B, C, D]`` features -> K13's ``[2D+1, C, B]`` input in a
+        buffer kept per chunk width (``augment_dtb(x, out=)``; its row of
+        ones is written once).  The next push's writes queue behind this
+        push's kernels on the stream."""
+        b, c, d = x.shape
+        out = self._xa.get(c)
+        if out is None:
+            out = self._xa[c] = torch.empty((2 * d + 1, c, b), dtype=torch.float32,
+                                            device=x.device)
+            out[2 * d].fill_(1.0)
+        return augment_dtb(x, out=out)
+
+    def _bank_nll(self, x, nv_t):
+        """``models.hmm.bank_nll_ubt`` of the push, ``[U, C, B]``, from the
+        cached weights and the push's augmented features."""
+        return gmm_neg_log_lik_ubt(x, self._w, self._lw, nv_t, xa=self._augmented(x))
 
     def _backtrace(self, bp8, planes, end_state, n_frames):
         """One backtrace launch over concatenated planes ->

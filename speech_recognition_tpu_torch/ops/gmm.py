@@ -43,12 +43,18 @@ def augment_features(x):
     return torch.cat([x * x, x, ones], dim=-1)
 
 
-def augment_dtb(feats):
+def augment_dtb(feats, out=None):
     """``[B, T, D]`` features -> ``[2D+1, T, B]`` augmented tensor
     (``[x^2, x, 1]`` along the leading axis), the layout the fused
-    decode kernel streams."""
-    b, t, _ = feats.shape
+    decode kernel streams.  With ``out`` (a contiguous ``[2D+1, T, B]``
+    buffer whose last row already holds the ones) its first ``2D`` rows
+    are written in place and ``out`` is returned."""
+    b, t, d = feats.shape
     ft = feats.permute(2, 1, 0)
+    if out is not None:
+        torch.mul(ft, ft, out=out[:d])
+        out[d:2 * d].copy_(ft)
+        return out
     ones = torch.ones((1, t, b), dtype=feats.dtype, device=feats.device)
     return torch.cat([ft * ft, ft, ones], dim=0).contiguous()
 
@@ -72,12 +78,13 @@ def gmm_neg_log_lik(x, w, log_weights, frame_mask=None):
     return nll
 
 
-def gmm_neg_log_lik_ubt(feats, w, log_weights, n_frames):
+def gmm_neg_log_lik_ubt(feats, w, log_weights, n_frames, xa=None):
     """``feats [B, T, D]``, ``n_frames [B]`` -> ``[U, T, B]`` NLLs in the
-    state-major layout; masked frames get 0."""
+    state-major layout; masked frames get 0.  ``xa``: ``augment_dtb(feats)``
+    where the caller has it."""
     b, t, _ = feats.shape
     u, m, a = w.shape
-    xa = augment_dtb(feats).reshape(a, t * b)
+    xa = (augment_dtb(feats) if xa is None else xa).reshape(a, t * b)
     pm = torch.matmul(w.reshape(u * m, a), xa).reshape(u, m, t, b)
     nll = _mix_lse(pm, log_weights[:, :, None, None], 1)
     mask = (torch.arange(t, device=feats.device)[:, None]

@@ -44,7 +44,8 @@ CUDA kernel for CUDA tensors, counting launches in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,7 +77,14 @@ __all__ = ["BandedTopo", "banded_topology", "use_kernels", "BandedPlan", "banded
 
 
 class BandedTopo(NamedTuple):
-    """Static facts about a BandedGraph that select and feed the kernels."""
+    """Static facts about a BandedGraph that select and feed the kernels.
+
+    A topo belongs to the graph it was built from (``banded_topology``):
+    the DP's launch tables are built from that graph's tensors at its
+    first launch on a device and kept in ``on_device``.  A launch with a
+    graph of another size raises; one with other tensors of the same size
+    (the graph moved to the device again, or changed in place) rebuilds
+    the tables."""
 
     n_states: int
     # W when the graph is V words of W states, slot-major (starts = v*W,
@@ -91,6 +99,9 @@ class BandedTopo(NamedTuple):
     # the graph carries cross edges (cross_src / cross_cost), which K1/K2
     # do not implement
     cross: bool = False
+    # the DP's launch tables and plans per device (``launch_tables``);
+    # ``banded_topology`` gives each topo a dict of its own
+    on_device: Optional[dict] = None
 
     @property
     def fused_ok(self) -> bool:
@@ -107,7 +118,8 @@ class BandedTopo(NamedTuple):
 
 
 def banded_topology(g: BandedGraph) -> BandedTopo:
-    """Host-side topology of a banded graph."""
+    """Host-side topology of a banded graph, with an empty cache of its
+    launch tables."""
     starts = g.word_starts.cpu().numpy()
     ends = g.word_ends.cpu().numpy()
     s, v = g.n_states, len(starts)
@@ -120,7 +132,7 @@ def banded_topology(g: BandedGraph) -> BandedTopo:
     return BandedTopo(n_states=s, uniform_w=uniform_w, ranges=eps_ranges(g),
                       disjoint=not (set(starts.tolist()) & set(ends.tolist())),
                       max_bank_state=int(g.bank_state.max()) if s else -1,
-                      cross=g.cross_src is not None)
+                      cross=g.cross_src is not None, on_device={})
 
 
 def banded_route(topo: BandedTopo, eps_depth: int) -> str:
@@ -157,6 +169,7 @@ def _check_devices(dev, what: str, tensors) -> None:
             raise ValueError(f"{name} is on {x.device}, {what} on {dev}")
 
 
+@functools.lru_cache(maxsize=None)
 def _n_sm(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -219,7 +232,7 @@ def bank_emission(xa, w, lw):
     if n == 0:
         return out.permute(2, 0, 1)
     lib = load_library()
-    limit = lib.srt_smem_limit()
+    limit = _smem_limit()
     if _emission_smem(a, u, m, False) > limit:
         raise ValueError(f"emission kernel: two [{a}][{_EMIS_COLS}] feature tiles exceed "
                          f"the {limit} B of shared memory")
@@ -336,14 +349,20 @@ MODES = {"fused": 0, "general": 1, "wordtrace": 2, "fused_chunk": 3, "general_ch
 
 
 class BandedPlan(NamedTuple):
-    """How the DP kernel runs a batch: ``tile`` streams per CTA;
+    """How the DP kernel runs a batch.  ``form`` ``four`` (four warps a
+    stream, ``csrc/banded_forward.cu``): ``tile`` streams per CTA;
     ``work_smem``: each stream's work area (its frontier, codes or entry
     times, word-end snapshot and row origins, ``work`` bytes) in shared
     memory, else in a device-memory scratch; ``tables``: the CTA's copy of
     the graph tables in shared memory, else they are read through L1;
     ``ring``: the emission ring; ``kf``: frames of planes staged per
-    hand-off to the writer warp (0: each stream writes its rows itself);
-    ``smem``: bytes of shared memory per CTA."""
+    hand-off to the writer warp (0: each stream writes its rows itself).
+    ``form`` ``warp`` (one warp a stream, ``csrc/banded_warp.cu``):
+    ``tile`` warps (streams) per CTA, ``per`` states per lane, ``work``
+    one warp's shared memory (its emission ring and the eps snapshot
+    rows); the frontier, the tables and each lane's eps row are in
+    registers, nothing is staged (``tables`` False, ``kf`` 0).  ``smem``:
+    bytes of shared memory per CTA."""
 
     tile: int
     work_smem: bool
@@ -352,10 +371,15 @@ class BandedPlan(NamedTuple):
     kf: int
     smem: int
     work: int
+    form: str = "four"
+    per: int = 0
 
     @property
     def frontier(self) -> str:
-        """Where the cost frontier lives: ``shared`` or ``device`` memory."""
+        """Where the cost frontier lives: ``shared`` or ``device`` memory
+        (the warp form: ``registers``)."""
+        if self.form == "warp":
+            return "registers"
         return "shared" if self.work_smem else "device"
 
 
@@ -413,16 +437,76 @@ def banded_smem_bytes(mode: str, u: int, s: int, r: int, l: int, tile: int,
             + (banded_table_bytes(s, r, l) if tables else 0))
 
 
+# The warp form (csrc/banded_warp.cu) serves these modes (K10's word-trace
+# mode keeps the four-warp form), up to 8 states a lane and one eps row and
+# one word end a lane.
+WARP_MODES = ("fused", "general", "fused_chunk", "general_chunk", "fused_chunk_org",
+              "general_chunk_org")
+_WARP_PER = (2, 4, 8)
+_WARP_TILES = (1, 2, 4, 8)
+WARP_MAX_ROWS = 32  # eps rows and word ends: one a lane
+_WARP_RING = 8  # frames in each warp's emission ring
+# banded_plan takes the warp form for graphs of at most this many states.
+# Set from the chip sweep scripts/exp_r16_chunk_dp.py --sweep (the DP alone
+# at 256 streams x 64 frames, both forms in one call; NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md §6): on loop graphs of 5 to 32 words (25-160 states)
+# the warp form took 0.35-0.51x the four-warp form's time, the ratio
+# rising with the states; 160 is the largest graph swept, and loops of
+# 5-state words past it pass the warp form's 32 rows anyway.
+BANDED_WARP_MAX_STATES = 160
+
+
+def banded_warp_smem_bytes(mode: str, u: int, tile: int) -> int:
+    """Shared memory of one warp-form CTA (``banded_warp_smem_bytes``):
+    per warp the emission ring of 8 frames of ``u`` bank rows and the eps
+    pass's 32-entry snapshot rows (word-end costs, word-start costs, K1's
+    eps_prev entries, the ends' ancestors with the map)."""
+    base, org = _base_mode(mode), mode.endswith("_org")
+    return tile * (_r16(4 * _WARP_RING * u) + 128 * (2 + (base == "fused") + org))
+
+
+def _warp_plan(b: int, n_sm: int, s: int, r: int, l: int, u: int, mode: str,
+               limit: int):
+    """The warp form's plan, or None where the graph has more states than
+    a warp holds (8 a lane), more than 32 words or word ends, or not even
+    one warp's emission ring fits ``limit``.  ``tile`` is the fewest warps
+    per CTA that keep the grid within one CTA per SM, at least 2 (the
+    sweep's best at 256 streams), fewer where the rings do not fit."""
+    if (mode not in WARP_MODES or s > 32 * _WARP_PER[-1] or r > WARP_MAX_ROWS
+            or l > WARP_MAX_ROWS):
+        return None
+    per = next(k for k in _WARP_PER if 32 * k >= s)
+    want = next((t for t in _WARP_TILES if t >= 2 and -(-b // t) <= n_sm), _WARP_TILES[-1])
+    for tile in (t for t in reversed(_WARP_TILES) if t <= want):
+        smem = banded_warp_smem_bytes(mode, u, tile)
+        if smem <= limit:
+            return BandedPlan(tile, True, False, True, 0, smem,
+                              banded_warp_smem_bytes(mode, u, 1), "warp", per)
+    return None
+
+
 def banded_plan(b: int, n_sm: int, s: int, r: int, l: int, u: int, mode: str,
-                limit: int) -> BandedPlan:
+                limit: int, form: str = None) -> BandedPlan:
     """The DP's plan in ``mode`` (a key of ``MODES``) for ``b`` streams over
     a graph of ``s`` states, ``r`` word starts, ``l`` word ends and ``u``
-    bank rows.  ``tile`` is the fewest streams per CTA that keep the grid
-    within one CTA per SM, up to 4 (each stream takes four warps); then,
-    in order of preference, the work area in shared memory, the graph
-    tables in shared memory, the emission ring and the most staged frames
-    that fit ``limit``.  The last choice (everything in device memory, no
-    ring, no staging) needs no shared memory, so every size gets a plan."""
+    bank rows.  ``form`` None: the warp form (``_warp_plan``) for graphs
+    of at most ``BANDED_WARP_MAX_STATES`` states in the modes it serves,
+    else the four-warp form; ``"warp"`` / ``"four"`` force one (``"warp"``
+    raises where the warp form cannot take the graph).  Four-warp form:
+    ``tile`` is the fewest streams per CTA that keep the grid within one
+    CTA per SM, up to 4 (each stream takes four warps); then, in order of
+    preference, the work area in shared memory, the graph tables in shared
+    memory, the emission ring and the most staged frames that fit
+    ``limit``.  Its last choice (everything in device memory, no ring, no
+    staging) needs no shared memory, so every size gets a plan."""
+    if form not in (None, "warp", "four"):
+        raise ValueError(f"plan form {form!r} is not 'warp' or 'four'")
+    if form == "warp" or (form is None and s <= BANDED_WARP_MAX_STATES):
+        plan = _warp_plan(b, n_sm, s, r, l, u, mode, limit)
+        if plan is not None:
+            return plan
+        if form == "warp":
+            raise ValueError(f"the warp form does not take {s} states in mode {mode!r}")
     tile = next((t for t in _TILES if -(-b // t) <= n_sm), _TILES[-1])
     work = banded_work_bytes(mode, s, r, l)
     for work_smem in (True, False):
@@ -448,17 +532,89 @@ def eps_row_spans(g: BandedGraph):
     return lo.to(torch.int32), hi.to(torch.int32)
 
 
+def _graph_key(g: BandedGraph):
+    """Which tensors (and which in-place version of each) the graph's
+    launch tables come from."""
+    return tuple((x.data_ptr(), x._version) for x in (g.band, g.bank_state, g.init_cost,
+                                                      g.word_starts, g.word_ends, g.eps_block))
+
+
+def launch_tables(g: BandedGraph, topo: BandedTopo, dev) -> dict:
+    """The DP's launch tables of ``g`` on ``dev``, built at the first
+    launch per device and kept on ``topo`` (``topo.on_device[str(dev)]``):
+    ``band4 [S, 4]`` (the band costs, the bank row's int32 bits), int32
+    ``starts`` / ``ends``, ``eps_t`` (the eps block transposed to
+    ``[L, R]``), the row spans ``lo`` / ``hi`` (``eps_row_spans``) and the
+    plans by ``(B, U, mode, smem limit)``.  Building them also checks
+    once that every graph tensor lies on ``dev``.  A topo of another
+    graph size raises; other tensors of this size (the graph moved to the
+    device again, or changed in place) rebuild the tables."""
+    if topo.n_states != g.n_states:
+        raise ValueError(f"topology/graph mismatch: {topo.n_states} vs {g.n_states}")
+    dev = torch.device(dev)
+    cache = topo.on_device if topo.on_device is not None else {}
+    key, src = str(dev), _graph_key(g)
+    ent = cache.get(key)
+    if ent is None or ent["src"] != src:
+        _check_devices(dev, "the DP", zip(g._fields, g))
+        band4 = torch.empty((g.n_states, 4), dtype=torch.float32, device=dev)
+        band4[:, :3] = g.band.T
+        band4[:, 3] = g.bank_state.to(torch.int32).view(torch.float32)
+        lo, hi = eps_row_spans(g)
+        ent = {"src": src, "band4": band4,
+               "starts": g.word_starts.to(torch.int32).contiguous(),
+               "ends": g.word_ends.to(torch.int32).contiguous(),
+               "eps_t": g.eps_block.T.contiguous(), "lo": lo, "hi": hi, "plans": {}}
+        ent.update(_warp_tables(g, lo, hi))
+        cache[key] = ent
+    return ent
+
+
+def _warp_tables(g: BandedGraph, lo, hi) -> dict:
+    """The warp form's tables: ``info [S]`` int32 (word-end slot + 1) |
+    (word-start row + 1) << 16, and ``eps_m [R, 32]`` each row's eps
+    entries over its finite span, +inf elsewhere and past L; ``warp_ok``
+    whether the form takes the graph (at most 32 words and ends, each
+    start and each end its own state).  Empty where it does not."""
+    r, l = g.n_words, g.n_ends
+    dev = g.word_starts.device
+    if (r > WARP_MAX_ROWS or l > WARP_MAX_ROWS
+            or torch.unique(g.word_starts).numel() != r
+            or torch.unique(g.word_ends).numel() != l):
+        return {"warp_ok": False}
+    info = torch.zeros(g.n_states, dtype=torch.int32, device=dev)
+    info[g.word_ends] = torch.arange(1, l + 1, dtype=torch.int32, device=dev)
+    info.index_add_(0, g.word_starts,
+                    torch.arange(1, r + 1, dtype=torch.int32, device=dev) << 16)
+    u = torch.arange(32, device=dev)
+    span = (u[None] >= lo[:, None]) & (u[None] < hi[:, None])
+    eps = torch.zeros((r, 32), dtype=torch.float32, device=dev)
+    eps[:, :l] = g.eps_block
+    return {"warp_ok": True, "info": info,
+            "eps_m": torch.where(span, eps, torch.tensor(float("inf"), device=dev))}
+
+
+@functools.lru_cache(maxsize=1)
+def _smem_limit() -> int:
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    return load_library().srt_smem_limit()
+
+
 def _banded_forward(nll, g: BandedGraph, n_frames, eps_depth: int, mode: str, wrapper,
-                    plan: BandedPlan = None, trace=None, frontier=None, first: bool = False):
+                    plan: BandedPlan = None, trace=None, frontier=None, first: bool = False,
+                    topo: BandedTopo = None):
     """Launch the DP kernel in ``mode`` on emissions ``nll [U, T, B]`` (any
     strides) and count the launch on ``wrapper``: ``fused`` -> ``(final
     [S, B], bp8 [T, S, B], eps_u [T, R, B], eps_prev)``, ``general`` ->
     ``(final, bp8, eps_u)``, ``wordtrace`` -> ``(final, eps_u, eps_tau
     [T, R, B], final_tau [S, B])``; the chunk modes carry ``frontier
     [S, B]`` (``first``: frame 0 seeds from it) and return ``(carry,
-    bp8, eps_u, eps_prev or None, org [S, B] or None)``.  ``plan``
-    overrides ``banded_plan``'s; ``trace``, a ``[B, 6]`` int64 tensor,
-    receives each stream's cycles per phase of the frame steps."""
+    bp8, eps_u, eps_prev or None, org [S, B] or None)``.  The graph's
+    launch tables and plan come from ``topo`` (``launch_tables``; built
+    for this call where it is None).  ``plan`` overrides ``banded_plan``'s;
+    ``trace``, a ``[B, 6]`` int64 tensor, receives each stream's cycles
+    per phase of the frame steps."""
     from speech_recognition_tpu_torch.utils.build import check, load_library
 
     base = _base_mode(mode)
@@ -490,52 +646,64 @@ def _banded_forward(nll, g: BandedGraph, n_frames, eps_depth: int, mode: str, wr
         if wt:
             final_tau.zero_()
         return outs
+    tabs = launch_tables(g, topo if topo is not None else banded_topology(g), dev)
     lib = load_library()
     if plan is None:
-        plan = banded_plan(b, _n_sm(dev), s, r, l, u, mode, lib.srt_smem_limit())
-    row_lo, row_hi = eps_row_spans(g)
-    scratch = None
-    if not plan.work_smem:
-        scratch = torch.empty(-(-b // plan.tile) * plan.tile * plan.work, dtype=torch.uint8,
-                              device=dev)
-
-    def i32(x):
-        return x.to(torch.int32).contiguous()
+        key = (b, u, mode, _smem_limit())
+        plan = tabs["plans"].get(key)
+        if plan is None:
+            plan = tabs["plans"][key] = banded_plan(b, _n_sm(dev), s, r, l, u, mode, key[3],
+                                                    form=None if tabs["warp_ok"] else "four")
+    # the chunk modes read each stream's carried frontier instead of init
+    init = frontier.contiguous() if chunk else g.init_cost.contiguous()
+    nf = n_frames if n_frames.dtype == torch.int32 else n_frames.to(torch.int32)
+    nf = nf.contiguous()
 
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
-    # per state (band0, band1, band2, bank row's int32 bits): one 16-byte load
-    band4 = torch.empty((s, 4), dtype=torch.float32, device=dev)
-    band4[:, :3] = g.band.T
-    band4[:, 3] = i32(g.bank_state).view(torch.float32)
-    # the chunk modes read each stream's carried frontier instead of init
-    init = frontier.contiguous() if chunk else g.init_cost.contiguous()
-    args = [band4, init, i32(g.word_starts), i32(g.word_ends),
-            g.eps_block.T.contiguous(), row_lo, row_hi, i32(n_frames)]
     with torch.cuda.device(dev):
-        rc = lib.banded_forward_launch(
-            MODES[mode], nll.data_ptr(), *nll.stride(), *[x.data_ptr() for x in args],
-            int(first), final.data_ptr(), ptr(bp8), eps_u.data_ptr(),
-            int(u_dtype == torch.int32), ptr(aux), ptr(final_tau), ptr(org), ptr(scratch), u,
-            t_len, b, s, r, l, eps_depth, plan.tile, int(plan.work_smem), int(plan.tables),
-            int(plan.ring), plan.kf, ptr(trace), torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if plan.form == "warp":
+            if not tabs["warp_ok"]:
+                raise ValueError("the warp form takes at most 32 words and word ends, each "
+                                 "its own state")
+            rc = lib.banded_warp_launch(
+                MODES[mode], nll.data_ptr(), *nll.stride(),
+                *[x.data_ptr() for x in (tabs["band4"], init, tabs["starts"], tabs["info"],
+                                         tabs["eps_m"], nf)],
+                int(first), final.data_ptr(), bp8.data_ptr(), eps_u.data_ptr(),
+                int(u_dtype == torch.int32), ptr(aux), ptr(org), u, t_len, b, s, r, l,
+                eps_depth, plan.tile, plan.per, ptr(trace), stream)
+        else:
+            ptrs = [x.data_ptr() for x in (tabs["band4"], init, tabs["starts"], tabs["ends"],
+                                           tabs["eps_t"], tabs["lo"], tabs["hi"], nf)]
+            scratch = None
+            if not plan.work_smem:
+                scratch = torch.empty(-(-b // plan.tile) * plan.tile * plan.work,
+                                      dtype=torch.uint8, device=dev)
+            rc = lib.banded_forward_launch(
+                MODES[mode], nll.data_ptr(), *nll.stride(), *ptrs, int(first),
+                final.data_ptr(), ptr(bp8), eps_u.data_ptr(), int(u_dtype == torch.int32),
+                ptr(aux), ptr(final_tau), ptr(org), ptr(scratch), u, t_len, b, s, r, l,
+                eps_depth, plan.tile, int(plan.work_smem), int(plan.tables), int(plan.ring),
+                plan.kf, ptr(trace), stream)
     check(rc, wrapper.__name__)
     wrapper.launches += 1
     return outs
 
 
 def _check_fused_inputs(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
-    """The checks K1 and K10 share: devices, shapes, dtypes, the bank's
-    size."""
+    """The per-call checks K1 and K10 share: devices, shapes, dtypes, the
+    bank's size (the graph's own tensors are checked once per device,
+    when ``launch_tables`` builds its tables)."""
     dev = xa.device
     a, _, b = xa.shape
     u, m, a_w = w.shape
     if a_w != a or lw.shape != (u, m):
         raise ValueError(f"emission weights {tuple(w.shape)}/{tuple(lw.shape)} "
                          f"do not match features [A={a}]")
-    _check_devices(dev, "features", [("w", w), ("lw", lw), ("n_frames", n_frames),
-                                     *zip(g._fields, g)])
+    _check_devices(dev, "features", [("w", w), ("lw", lw), ("n_frames", n_frames)])
     if xa.dtype != torch.float32 or not xa.is_contiguous():
         raise ValueError("xa must be a contiguous float32 [A, T, B] tensor")
     if n_frames.shape != (b,):
@@ -554,7 +722,7 @@ def viterbi_banded_fused(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_frames):
     _check_fused(g, topo)
     _check_fused_inputs(xa, w, lw, g, topo, n_frames)
     nll = bank_emission(xa, w, lw)  # [U, T, B] view of a [T, B, U] plane
-    return _banded_forward(nll, g, n_frames, 1, "fused", viterbi_banded_fused)
+    return _banded_forward(nll, g, n_frames, 1, "fused", viterbi_banded_fused, topo=topo)
 
 
 viterbi_banded_fused.launches = 0
@@ -664,18 +832,20 @@ def viterbi_banded_general(nll, g: BandedGraph, topo: BandedTopo, n_frames,
     if not use_kernels(nll):
         return viterbi_banded_general_ref(nll, g, topo, n_frames, eps_depth)
     _check_general_inputs(nll, g, topo, n_frames, eps_depth)
-    return _banded_forward(nll, g, n_frames, eps_depth, "general", viterbi_banded_general)
+    return _banded_forward(nll, g, n_frames, eps_depth, "general", viterbi_banded_general,
+                           topo=topo)
 
 
 def _check_general_inputs(nll, g: BandedGraph, topo: BandedTopo, n_frames, eps_depth: int):
-    """The checks K8 and K17's general mode share."""
+    """The per-call checks K8 and K17's general mode share (the graph's
+    own tensors are checked once per device, by ``launch_tables``)."""
     if topo.cross:
         raise ValueError("the general banded kernel does not implement cross edges "
                          "(lexical trees decode through decode.lextree)")
     if topo.n_states != g.n_states:
         raise ValueError(f"topology/graph mismatch: {topo.n_states} vs {g.n_states}")
     dev = nll.device
-    _check_devices(dev, "emissions", [("n_frames", n_frames), *zip(g._fields, g)])
+    _check_devices(dev, "emissions", [("n_frames", n_frames)])
     if nll.dtype != torch.float32 or nll.dim() != 3 or not nll.is_contiguous():
         raise ValueError("nll must be a contiguous float32 [U, T, B] tensor")
     u, t_len, b = nll.shape
@@ -817,7 +987,8 @@ def viterbi_banded_chunk(inputs, g: BandedGraph, topo: BandedTopo, frontier, n_v
         raise ValueError(f"frontier must be a float32 [{g.n_states}, {b}] tensor on {dev}")
     return _banded_forward(nll, g, n_valid, eps_depth,
                            f"{mode}_chunk" + ("_org" if track_org else ""),
-                           viterbi_banded_chunk, frontier=frontier, first=first_chunk)
+                           viterbi_banded_chunk, frontier=frontier, first=first_chunk,
+                           topo=topo)
 
 
 viterbi_banded_chunk.launches = 0
@@ -896,7 +1067,8 @@ def viterbi_banded_wordtrace(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_fram
     _check_fused(g, topo, "the word-trace forward")
     _check_fused_inputs(xa, w, lw, g, topo, n_frames)
     nll = bank_emission(xa, w, lw)  # [U, T, B] view of a [T, B, U] plane
-    return _banded_forward(nll, g, n_frames, 1, "wordtrace", viterbi_banded_wordtrace)
+    return _banded_forward(nll, g, n_frames, 1, "wordtrace", viterbi_banded_wordtrace,
+                           topo=topo)
 
 
 viterbi_banded_wordtrace.launches = 0

@@ -291,27 +291,41 @@ def lex_plan(mode: int, topo: LexTopo, limit: int) -> LexPlan:
 # ---------------------------------------------------------------------------
 
 
-def lex_launch_inputs(nll, g: BandedGraph, topo: LexTopo, n_frames, what: str):
-    """The checks K4 and its lattice mode K6 share (devices, ``nll``'s
-    dtype and layout, the graph's topology); returns ``n_frames`` as
-    int32.  The kernels read the graph from ``topo``'s packed tables, so
-    ``topo`` must be ``lex_topology`` of this graph."""
-    dev = nll.device
-    for name, x in (("n_frames", n_frames),
-                    *((f, x) for f, x in zip(g._fields, g) if x is not None)):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, emissions on {dev}")
-    if nll.dtype != torch.float32 or nll.dim() != 3 or not nll.is_contiguous():
-        raise ValueError("nll must be a contiguous float32 [U, T, B] tensor")
+def _check_graph(g: BandedGraph, topo: LexTopo, dev, what: str) -> None:
+    """The checks of the graph itself (its tensors on ``dev``, ``topo``
+    its topology), once per topo, device and graph tensors: a launch with
+    the same tensors skips them."""
+    key = ("checked", str(dev))
+    src = tuple((x.data_ptr(), x._version) for x in g if x is not None)
+    if topo.on_device.get(key) == src:
+        return
+    for f, x in zip(g._fields, g):
+        if x is not None and x.device != dev:
+            raise ValueError(f"{f} is on {x.device}, emissions on {dev}")
     if g.cross_src is None or topo.n_states != g.n_states or not topo.disjoint:
         raise ValueError(f"{what} needs the graph's LexTopo (cross edges, disjoint "
                          "word starts and ends)")
+    topo.on_device[key] = src
+
+
+def lex_launch_inputs(nll, g: BandedGraph, topo: LexTopo, n_frames, what: str):
+    """The checks K4 and its lattice mode K6 share (devices, ``nll``'s
+    dtype and layout, the graph's topology, checked once per topo and
+    device by ``_check_graph``); returns ``n_frames`` as int32.  The
+    kernels read the graph from ``topo``'s packed tables, so ``topo``
+    must be ``lex_topology`` of this graph."""
+    dev = nll.device
+    _check_graph(g, topo, dev, what)
+    if n_frames.device != dev:
+        raise ValueError(f"n_frames is on {n_frames.device}, emissions on {dev}")
+    if nll.dtype != torch.float32 or nll.dim() != 3 or not nll.is_contiguous():
+        raise ValueError("nll must be a contiguous float32 [U, T, B] tensor")
     u, _, b = nll.shape
     if n_frames.shape != (b,):
         raise ValueError(f"n_frames has shape {tuple(n_frames.shape)}, batch is {b}")
     if topo.max_bank_state >= u:
         raise ValueError(f"graph reads bank row {topo.max_bank_state}, emissions have {u}")
-    return n_frames.to(torch.int32).contiguous()
+    return n_frames if n_frames.dtype == torch.int32 else n_frames.to(torch.int32)
 
 
 def lex_forward(nll, g: BandedGraph, topo: LexTopo, n_frames, lattice: bool, wrapper,
@@ -359,10 +373,10 @@ def lex_forward(nll, g: BandedGraph, topo: LexTopo, n_frames, lattice: bool, wra
         return outs
     lib = load_library()
     if plan is None:
-        key = ("plan", mode, lib.srt_smem_limit())
-        if key not in topo.on_device:
-            topo.on_device[key] = lex_plan(mode, topo, key[2])
-        plan = topo.on_device[key]
+        key = ("plan", mode)
+        plan = topo.on_device.get(key)
+        if plan is None:
+            plan = topo.on_device[key] = lex_plan(mode, topo, lib.srt_smem_limit())
     pk = topo.pack
     t = _device_pack(topo, dev)
     row = _r16(4 * (s + 4)) // 4  # entries per frontier row
@@ -376,7 +390,7 @@ def lex_forward(nll, g: BandedGraph, topo: LexTopo, n_frames, lattice: bool, wra
 
     with torch.cuda.device(dev):
         rc = lib.viterbi_lex_launch(
-            mode, *map(ptr, (nll, *tables, nf)), int(first),
+            mode, *map(ptr, (nll, *tables, nf.contiguous())), int(first),
             *map(ptr, (scratch, tau_scratch, final)),
             *map(ptr, planes), ptr(trace), u, t_len, b, s, r, l, pk.rows.shape[0],
             pk.cross.shape[0], pk.shift, int(pk.wide),

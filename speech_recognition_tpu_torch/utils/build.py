@@ -113,6 +113,8 @@ def load_library() -> ctypes.CDLL:
     lib.banded_forward_launch.argtypes = [i, p, q, q, q, p, p, p, p, p, p, p, p, i, p, p, p,
                                           i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i,
                                           p, p]
+    lib.banded_warp_launch.argtypes = [i, p, q, q, q, p, p, p, p, p, p, i, p, p, p, i, p,
+                                       p] + [i] * 9 + [p, p]
     lib.banded_backtrace_launch.argtypes = [p, p, p, p, p, p,
                                             i, i, i, i, i, p]
     lib.banded_backtrace_general_launch.argtypes = [p, p, i, p, p, p, p, p, p, p,
@@ -127,6 +129,7 @@ def load_library() -> ctypes.CDLL:
     lib.fb_banded_launch.argtypes = [p] * 22 + [i] * 11 + [p]
     lib.fb_dense_launch.argtypes = [p] * 13 + [i] * 13 + [p]
     for fn in (lib.mfcc_tail_launch, lib.bank_emission_launch, lib.banded_forward_launch,
+               lib.banded_warp_launch,
                lib.banded_backtrace_launch,
                lib.banded_backtrace_general_launch, lib.viterbi_lex_launch,
                lib.lex_backtrace_launch,
@@ -136,6 +139,7 @@ def load_library() -> ctypes.CDLL:
     lib.bank_emission_smem_bytes.argtypes = [i, i, i, i]
     lib.banded_forward_smem_bytes.argtypes = [i, i, i, i, i, i, i, i, i, i]
     lib.banded_forward_work_bytes.argtypes = [i, i, i, i]
+    lib.banded_warp_smem_bytes.argtypes = [i] * 3
     lib.banded_forward_work_bytes.restype = q
     lib.viterbi_lex_smem_bytes.argtypes = [i] * 12
     lib.lattice_rescore_smem_bytes.argtypes = [i]
@@ -153,6 +157,7 @@ def load_library() -> ctypes.CDLL:
     lib.fb_scan_occupancy.argtypes = [i] * 3
     lib.fb_scan_occupancy.restype = ctypes.c_int
     for fn in (lib.bank_emission_smem_bytes, lib.banded_forward_smem_bytes,
+               lib.banded_warp_smem_bytes,
                lib.fb_banded_smem_bytes, lib.fb_banded_aux_ints, lib.fb_dense_smem_bytes,
                lib.viterbi_lex_smem_bytes, lib.lattice_rescore_smem_bytes,
                lib.lattice_rescore_staged_smem_bytes, lib.srt_smem_limit):

@@ -231,6 +231,9 @@ def _plan_agrees_with_kernel(lib, mode, g, u, b, dev):
     s, r, l = g.n_states, g.n_words, g.n_ends
     plan = vk.banded_plan(b, torch.cuda.get_device_properties(dev).multi_processor_count,
                           s, r, l, u, mode, lib.srt_smem_limit())
+    if plan.form == "warp":
+        assert plan.smem == lib.banded_warp_smem_bytes(vk.MODES[mode], u, plan.tile)
+        return plan
     assert plan.smem == lib.banded_forward_smem_bytes(
         vk.MODES[mode], u, s, r, l, plan.tile, int(plan.work_smem), int(plan.tables),
         int(plan.ring), plan.kf)
@@ -333,7 +336,7 @@ def test_k8_at_batch_sizes_and_large_graphs(dev, b, ties, big):
     topo = vk.banded_topology(g)
     assert not topo.fused_ok
     plan = _plan_agrees_with_kernel(load_library(), "general", g, u, b, dev)
-    assert plan.frontier == "shared"
+    assert plan.frontier == ("shared" if big else "registers")  # the sausage: warp form
     rng = np.random.default_rng(b + 7)
     e = rng.integers(0, 3, (u, t, b)) if ties else rng.uniform(0, 6, (u, t, b))
     nll = torch.from_numpy(e.astype(np.float32)).to(dev)
@@ -2139,6 +2142,73 @@ def test_k17_matches_plain(dev, kind, chunk, track_org):
         sp, fp = vk.banded_backtrace_general_ref(want[1], want[2], g, ends, nf, depth)
     torch.cuda.synchronize()
     assert torch.equal(sk, sp) and torch.equal(fk, fp)
+
+
+WARP_CASES = {  # kind: (route, eps depth or None for the graph's)
+    "loop": ("fused", None), "loop ties": ("fused", None), "loop depth 2": ("general", 2),
+    "sausage_1state": ("general", None), "sausage_mixed": ("general", None),
+    "loop_lm": ("general", None),
+}
+
+
+@pytest.mark.parametrize("form", ["warp", "four"])
+@pytest.mark.parametrize("track_org", [False, True])
+@pytest.mark.parametrize("chunk", [1, 64])
+@pytest.mark.parametrize("kind", sorted(WARP_CASES))
+def test_k17_forms_match_plain(dev, kind, chunk, track_org, form):
+    """K17's DP with its form forced by ``plan=`` (the warp form of
+    ``csrc/banded_warp.cu``, the four-warp form of ``banded_forward.cu``)
+    against its plain version, chunk by chunk from its own carry: the
+    uniform chunk mode and the general one at eps depth 1, 2 and the
+    1-state sausage's 3, with and without the map, 1- and 64-frame chunks,
+    ragged lengths with 0, at 37 streams (off every warp tile: padding
+    warps); the warp plan's bytes equal the kernel's."""
+    from speech_recognition_tpu_torch.models.graph import build_loop_graph
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    route, depth = WARP_CASES[kind]
+    if kind.startswith("loop") and kind != "loop_lm":
+        bank = _bank(11, 5, 2, 6)
+        graph = build_loop_graph([bank.trans_cost[i].numpy() for i in range(11)],
+                                 word_insertion_cost=0.5)
+    else:
+        _, graph = _general_graph(kind)
+    depth = depth or graph.eps_depth
+    g = banded_arrays(graph, device=dev)
+    topo = vk.banded_topology(g)
+    b, t = 37, 70
+    u = int(g.bank_state.max()) + 1
+    mode = f"{route}_chunk" + ("_org" if track_org else "")
+    lib = load_library()
+    plan = vk.banded_plan(b, torch.cuda.get_device_properties(dev).multi_processor_count,
+                          g.n_states, g.n_words, g.n_ends, u, mode, lib.srt_smem_limit(),
+                          form=form)
+    assert plan.form == form
+    if form == "warp":
+        assert b % plan.tile
+        assert plan.smem == lib.banded_warp_smem_bytes(vk.MODES[mode], u, plan.tile)
+    rng = np.random.default_rng(len(kind) + chunk)
+    e = rng.integers(0, 3, (u, t, b)) if "ties" in kind else rng.uniform(0, 6, (u, t, b))
+    nll = torch.from_numpy(e.astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[0, t, 1, 0, rng.integers(1, t + 1, b)][:b]
+                          .astype(np.int32)).to(dev)
+
+    def launch(t0, c, fr, nv, first):
+        return vk._banded_forward(nll[:, t0:t0 + c], g, nv, depth, mode,
+                                  vk.viterbi_banded_chunk, plan=plan, frontier=fr,
+                                  first=first, topo=topo)
+
+    def plain(t0, c, fr, nv, first):
+        x = nll[:, t0:t0 + c]
+        if route == "fused":
+            return vk._fused_dp(x, g, nv, fr, fr, first, track_org)
+        return vk.viterbi_banded_chunk_ref(x.contiguous(), g, topo, fr, nv, first, track_org,
+                                           "general", depth)
+
+    _hold_chunk_chain(launch, plain, g.init_cost[:, None].expand(-1, b).contiguous(), nf, t,
+                      chunk)
 
 
 def test_k17_wrapper_runs_k13_then_the_dp(dev):

@@ -454,8 +454,10 @@ def _r16(n):
 def test_k17_plans_count_the_ancestor_rows(base, s, r, l):
     """K17's work area is its DP's, plus two padded ancestor-map rows and
     the word ends' ancestors with the map; its staged planes are its DP's;
-    a plan is found at every size, with the work area in device memory
-    where four streams' do not fit (no size is refused)."""
+    a four-warp plan is found at every size, with the work area in device
+    memory where four streams' do not fit (no size is refused); the plan
+    banded_plan picks is the warp form up to BANDED_WARP_MAX_STATES
+    states and 32 words, with the ends' ancestors in its warp area."""
     row = _r16(4 * (s + 4))
     plain = tvk.banded_work_bytes(f"{base}_chunk", s, r, l)
     assert plain == tvk.banded_work_bytes(base, s, r, l)
@@ -464,7 +466,15 @@ def test_k17_plans_count_the_ancestor_rows(base, s, r, l):
                                                                                         r, 4)
     for org in ("", "_org"):
         mode = f"{base}_chunk{org}"
-        plan = tvk.banded_plan(512, 132, s, r, l, 55, mode, LIMIT)
+        auto = tvk.banded_plan(512, 132, s, r, l, 55, mode, LIMIT)
+        small = s <= tvk.BANDED_WARP_MAX_STATES and max(r, l) <= tvk.WARP_MAX_ROWS
+        assert auto.form == ("warp" if small else "four")
+        if auto.form == "warp":  # the map adds the ends' ancestors' snapshot row
+            assert tvk.banded_warp_smem_bytes(mode, 55, 1) - tvk.banded_warp_smem_bytes(
+                f"{base}_chunk", 55, 1) == (128 if org else 0)
+            assert auto.smem == tvk.banded_warp_smem_bytes(mode, 55, auto.tile) <= LIMIT
+        plan = tvk.banded_plan(512, 132, s, r, l, 55, mode, LIMIT, form="four")
+        assert plan.form == "four"
         assert plan.smem <= LIMIT and plan.work == tvk.banded_work_bytes(mode, s, r, l)
         assert plan.work_smem == (4 * plan.work <= LIMIT)
         assert plan.smem == tvk.banded_smem_bytes(mode, 55, s, r, l, plan.tile, plan.work_smem,
