@@ -169,6 +169,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import copy
 import io
 import json
 import os
@@ -3233,6 +3234,293 @@ def main() -> int:
     stream_rates("lextree", lbank, lexp, feats_l, nf_l,
                  lambda: _decode_lex_batch(lbank, feats_l, nf_l, gp, topop))
 
+    # ---- 7c. the beams, the spell checker and the native IO -------------------
+    # No kernel prunes, in either package: the rank-threshold forward
+    # (viterbi_banded_tb(beam_width=)) and the token beam (ops.beam) are plain
+    # tensor ops on the card; K9 backtraces the beam planes, on the trie in its
+    # cross mode.  Each path runs with the counters reset just before it.
+    from speech_recognition_tpu_torch.data.wav import load_wav_batch as scipy_load
+    from speech_recognition_tpu_torch.decode.connected import _decode_banded_batch
+    from speech_recognition_tpu_torch.decode.lextree import beam_decode_lextree, decode_lextree
+    from speech_recognition_tpu_torch.langmodel.lextree import lextree_from_words
+    from speech_recognition_tpu_torch.langmodel.spellcheck import SpellChecker, text_viterbi_batch
+    from speech_recognition_tpu_torch.models.hmm import bank_nll_ubt
+    from speech_recognition_tpu_torch.ops.beam import beam_backtrace, beam_search, beam_tables
+    from speech_recognition_tpu_torch.ops.viterbi_banded import (
+        _CROSS,
+        banded_backtrace_tb,
+        viterbi_banded_tb,
+    )
+    from speech_recognition_tpu_torch.runtime.loader import load_wav_batch as native_load
+
+    cpu = torch.device("cpu")
+    beam_ms = {}  # the stage times printed at the section's end
+
+    def on(bank_, where):
+        """A copy of a bank on ``where`` (a module's ``to`` moves it in place)."""
+        return copy.deepcopy(bank_).to(where)
+
+    no_exact = (vk.viterbi_banded_fused, vk.banded_backtrace_val, vk.viterbi_banded_general,
+                lk.viterbi_lex, lk.lex_backtrace_val)
+
+    def same(a, b_):
+        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b_))
+
+    def ends_of(g_, final_):
+        return g_.end_states[torch.argmin(final_[g_.end_states] + g_.end_bonus[:, None], 0)]
+
+    def beam_planes(name, bank_, g_, f_, n_, depth, ks):
+        """The pruned forward at each k on cuda == cpu (final, bp8, eps_u);
+        K9 on its planes == the plain backtrace.  Returns the graph
+        emissions [T, S, B], the bank emissions [U, T, B] and the planes of
+        the first k."""
+        nll_ = bank_nll_ubt(bank_, f_, n_)
+        tb_ = nll_.permute(1, 0, 2)[:, g_.bank_state, :]
+        first = None
+        for k in ks:
+            got = viterbi_banded_tb(tb_, g_, n_, depth, beam_width=k)
+            want = viterbi_banded_tb(tb_.cpu(), g_.to(cpu), n_.cpu(), depth, beam_width=k)
+            if not same(got, want):
+                fail(f"the beam forward on {name} at k={k}: cuda differs from cpu")
+            ends = ends_of(g_, got[0])
+            sk, fk = vk.banded_backtrace_general(got[1], got[2], g_, ends, n_, depth)
+            sp, fp = banded_backtrace_tb(got[1], got[2], g_, ends, n_, depth)
+            torch.cuda.synchronize()
+            if not (torch.equal(sk, sp) and torch.equal(fk, fp)):
+                fail(f"K9 on the beam planes of {name} at k={k} differs from its plain version")
+            first = first or (got, ends, sp, fp)
+        return tb_, nll_, first
+
+    # (a) word graphs: the CLI's loop graph (exact route K1 + K2) and the
+    # 1-state sausage (K8 + K9), 64 x 500 planted features, k = 8 and S
+    BB = 64
+    word_runs = {}
+    for name, bank_, graph_ in (("CLI loop", on(bank, dev), cli_loop),
+                                ("1-state sausage7", on(bank1, dev), g1s)):
+        f_, n_ = planted_features(bank_, BB, T, np.random.default_rng(31))
+        g_ = banded_arrays(graph_, device=dev)
+        topo_ = vk.banded_topology(g_)
+        s_ = g_.n_states
+        tb_, nll_, _ = beam_planes(name, bank_, g_, f_, n_, graph_.eps_depth, (8, s_))
+        w_x, c_x = decode_connected(bank_, graph_, f_, n_)
+        w_f, c_f = decode_connected(bank_, graph_, f_, n_, beam_width=s_)
+        if w_f != w_x or not np.allclose(c_f, c_x, rtol=K1_RTOL, atol=0.0):
+            fail(f"decode_connected(beam_width=S) on {name}: other words or costs than the "
+                 f"exact route")
+        if graph_ is cli_loop:
+            exact_fwd = (lambda b_=bank_, f=f_, n=n_, g=g_, tp=topo_:
+                         vk.fused_forward(b_, f, n, g, tp))
+        else:
+            exact_fwd = (lambda x=nll_, g=g_, tp=topo_, n=n_, d=graph_.eps_depth:
+                         vk.viterbi_banded_general(x, g, tp, n, d))
+        word_runs[name] = (bank_, graph_, f_, n_)
+        beam_ms[name] = {
+            "beam forward k=8": cuda_ms(lambda x=tb_, g=g_, n=n_, d=graph_.eps_depth:
+                                        viterbi_banded_tb(x, g, n, d, beam_width=8), reps=3),
+            "exact forward": cuda_ms(exact_fwd, reps=3),
+            "beam route k=8": cuda_ms(lambda b_=bank_, f=f_, n=n_, g=g_, d=graph_.eps_depth:
+                                      _decode_banded_batch(b_, f, n, g, d, beam_width=8),
+                                      reps=3),
+            "exact route": cuda_ms(lambda b_=bank_, f=f_, n=n_, g=g_, d=graph_.eps_depth,
+                                   tp=topo_: _decode_banded_batch(b_, f, n, g, d, topo=tp),
+                                   reps=3)}
+        phase("beam", f"{name} ({s_} states) at {BB}x{T}, planted: the beam forward at k = 8 "
+                      f"and k = S on cuda == cpu (final, bp8, eps_u); K9 on the beam planes "
+                      f"== plain; at k = S the words == the exact route's, costs within rtol "
+                      f"1e-5 (max |d| {float(np.abs(c_f - c_x).max()):.3g})")
+    counted("beam connected", lambda: [decode_connected(b_, g_, f_, n_, beam_width=16)
+                                       for b_, g_, f_, n_ in word_runs.values()],
+            (vk.banded_backtrace_general,), no_exact)
+
+    # the pipeline: wav -> K3 -> decode_connected(beam_width=16), 64 x 5 s
+    pipe_dir = os.path.join(tmp, "beam_wavs")
+    os.makedirs(pipe_dir)
+    for u in SyntheticDigits(seed=3).continuous_corpus(BB, tag="beam"):
+        write_wav(os.path.join(pipe_dir, u.name), u.samples)
+    pipe_files = sorted(glob.glob(os.path.join(pipe_dir, "*.wav")))
+
+    def beam_pipeline(device, bank_):
+        f_, n_ = cli._featurize_files(pipe_files, FrontendConfig(), 80000, device)
+        return decode_connected(bank_, cli_loop, f_[:, : int(n_.max())].contiguous(), n_,
+                                beam_width=16)
+
+    w_pg, c_pg = counted("beam pipeline", lambda: beam_pipeline(dev, bank),
+                         (*k3, vk.banded_backtrace_general), no_exact)
+    w_pc, c_pc = beam_pipeline(cpu, on(bank, cpu))
+    if w_pg != w_pc:
+        fail("wav -> K3 -> decode_connected(beam_width=16): cuda words differ from cpu")
+    beam_ms["pipeline"] = cuda_ms(lambda: beam_pipeline(dev, bank), reps=3)
+    phase("beam", f"wav -> K3 -> decode_connected(beam_width=16) on {BB} wavs (5 s cap): "
+                  f"words == --device cpu; costs max rel |d| "
+                  f"{float(np.abs(c_pg - c_pc).max() / np.abs(c_pc).max()):.3g} (K3 vs the "
+                  f"plain frontend)")
+
+    # (b) the 1k trie (bench_lex_pipeline's bank and trie), 32 x 500 planted
+    f_t, n_t = feats_l[:32].contiguous(), nf_l[:32].contiguous()
+    s_t = gp.n_states
+    tb_t, nll_t, (bt_planes, bt_ends, sp64, fp64) = beam_planes(
+        "1k trie", lbank, gp, f_t, n_t, lexp.eps_depth, (64, s_t))
+    fin0, bp0, eu0 = viterbi_banded_tb(tb_t, gp, n_t, lexp.eps_depth)
+    ends0 = ends_of(gp, fin0)
+    sk, fk = vk.banded_backtrace_general(bp0, eu0, gp, ends0, n_t, lexp.eps_depth)
+    sp, fp = banded_backtrace_tb(bp0, eu0, gp, ends0, n_t, lexp.eps_depth)
+    torch.cuda.synchronize()
+    if not (torch.equal(sk, sp) and torch.equal(fk, fp)):
+        fail("K9 (cross mode) on the 1k trie's exact planes differs from its plain version")
+    tt_ = torch.arange(1, T, device=dev)[:, None]
+    n_cross = int(((bp0[tt_, sp[1:].long(), torch.arange(32, device=dev)[None]] == _CROSS)
+                   & (tt_ < n_t[None])).sum())
+    w_lex, c_lex = decode_lextree(lbank, lexp, f_t, n_t)
+    w_lb, c_lb = decode_lextree(lbank, lexp, f_t, n_t, beam_width=s_t)
+    if w_lb != w_lex or not np.array_equal(c_lb, c_lex):
+        fail("decode_lextree(beam_width=S) on the 1k trie: other words or costs than K4 + K5")
+    counted("lextree beam", lambda: decode_lextree(lbank, lexp, f_t, n_t, beam_width=64),
+            (vk.banded_backtrace_general,), no_exact)
+    # K9's work on the k = 64 planes: a code per frame below nf, an eps_u,
+    # start_pos and word_ends entry and a code per unwind, a cross_src entry
+    # per cross step
+    cross64 = int(((bt_planes[1][tt_, sp64[1:].long(), torch.arange(32, device=dev)[None]]
+                    == _CROSS) & (tt_ < n_t[None])).sum())
+    k9x_work = (int(n_t.clamp(max=T).sum()) + int(fp64.sum()) * (bt_planes[2].element_size() + 9)
+                + cross64 * 8 + T * 32 * 5 + nbytes(bt_ends, n_t),
+                4.0 * (int(n_t.clamp(max=T).sum()) + int(fp64.sum())))
+    k9x = (bt_planes[1], bt_planes[2], gp, bt_ends, n_t, 1)
+    k9x_ms = cuda_ms(lambda: vk.banded_backtrace_general(*k9x))
+    k9x_plain = cuda_ms(lambda: banded_backtrace_tb(*k9x), reps=3)
+    beam_ms["1k trie"] = {
+        "beam forward k=64": cuda_ms(lambda: viterbi_banded_tb(tb_t, gp, n_t, 1, beam_width=64),
+                                     reps=3),
+        "exact forward (K4)": cuda_ms(lambda: lk.viterbi_lex(nll_t, gp, topop, n_t), reps=3),
+        "beam route k=64": cuda_ms(lambda: decode_lextree(lbank, lexp, f_t, n_t,
+                                                          beam_width=64), reps=3),
+        "exact route (K4 + K5)": cuda_ms(lambda: decode_lextree(lbank, lexp, f_t, n_t),
+                                         reps=3)}
+    phase("beam", f"1k trie ({s_t} states) at 32x{T}, planted: the beam forward at k = 64 and "
+                  f"k = S on cuda == cpu; K9 (cross mode) == plain on the beam planes and on "
+                  f"the exact planes ({n_cross} cross steps on the best paths); at k = S "
+                  f"words and costs == decode_lextree's (K4 + K5)")
+
+    # (c) the token beam on the same batch
+    w_tk, c_tk = beam_decode_lextree(lbank, lexp, f_t, n_t, s_t)
+    if w_tk != w_lex or not np.array_equal(c_tk, c_lex):
+        fail("the token beam at k = S on the 1k trie: other words or costs than K4 + K5")
+    lm_t = fit_bigram([[int(x) for x in np.random.default_rng(41).integers(0, len(lexp.words),
+                                                                           12)]
+                       for _ in range(200)], len(lexp.words))
+    big = torch.from_numpy(np.concatenate([np.asarray(lm_t.cost, np.float32),
+                                           np.asarray(lm_t.start_cost, np.float32)[None]]))
+    big_end = torch.from_numpy(np.asarray(lm_t.end_cost, np.float32))
+    nll_bt = nll_t.permute(2, 1, 0).contiguous()  # [B, T, U], the same on both devices
+    for lm_on in (False, True):
+        outs = []
+        for where in (dev, cpu):
+            tb = beam_tables(lexp.banded, leaf_word=lexp.leaf_word, device=where)
+            bc, be = (big.to(where), big_end.to(where)) if lm_on else (None, None)
+            r = beam_search(nll_bt.to(where), tb, n_t.to(where), 64, bigram_cost=bc)
+            outs.append(r + beam_backtrace(r[0], r[1], r[4], r[5], tb, n_t.to(where),
+                                           final_pred=r[2], bigram_cost=bc, bigram_end=be))
+        if not same(*outs):
+            fail(f"the token beam at k = 64 ({'with' if lm_on else 'without'} the bigram): "
+                 f"cuda differs from cpu")
+    w_t64, _ = counted("token beam", lambda: beam_decode_lextree(lbank, lexp, f_t, n_t, 64),
+                       (), no_exact + (vk.banded_backtrace_general,))
+    beam_ms["token beam"] = {
+        "k=64": cuda_ms(lambda: beam_decode_lextree(lbank, lexp, f_t, n_t, 64), reps=3),
+        "k=64 with the bigram": cuda_ms(lambda: beam_decode_lextree(lbank, lexp, f_t, n_t, 64,
+                                                                    lm=lm_t), reps=3),
+        "k=S": cuda_ms(lambda: beam_decode_lextree(lbank, lexp, f_t, n_t, s_t), reps=1),
+        "exact K4 + K5": beam_ms["1k trie"]["exact route (K4 + K5)"]}
+    agree = sum(a == b_ for a, b_ in zip(w_t64, w_lex))
+    phase("beam", f"token beam on the 1k trie at 32x{T}: at k = S ({s_t}) words and costs == "
+                  f"K4 + K5; at k = 64, without and with a bigram, every output (token planes "
+                  f"included) on cuda == cpu on the same emissions; k = 64 decodes {agree} of "
+                  f"32 streams as the exact decode")
+
+    # (d) the spell checker: 256 misspellings against the 1,000-word list
+    words_sc = list(lexp.words)
+    srng = np.random.default_rng(51)
+    texts = []
+    for _ in range(256):
+        s_ = list(" ".join(words_sc[int(i)] for i in srng.integers(0, 1000,
+                                                                   int(srng.integers(1, 4)))))
+        i_ = int(srng.integers(0, len(s_)))
+        op = int(srng.integers(0, 3))
+        if op == 0:
+            s_[i_] = "abcdefghij"[int(srng.integers(0, 10))]
+        elif op == 1:
+            del s_[i_]
+        else:
+            s_.insert(i_, "abcdefghij"[int(srng.integers(0, 10))])
+        texts.append("".join(s_).strip() or words_sc[0])
+    tree_sc = lextree_from_words(words_sc)
+    sc_g = text_viterbi_batch(texts, tree_sc, device=dev)
+    t0_ = time.perf_counter()
+    sc_c = text_viterbi_batch(texts, tree_sc, device=cpu)
+    sc_cpu_ms = (time.perf_counter() - t0_) * 1e3
+    if sc_g != sc_c:
+        fail("text_viterbi_batch: cuda strings or costs differ from cpu")
+    checker_g, checker_c = SpellChecker(device=dev).fit(words_sc), SpellChecker(device=cpu).fit(
+        words_sc)
+    if [checker_g.spell_check(x) for x in texts[:64]] != [checker_c.spell_check(x)
+                                                           for x in texts[:64]]:
+        fail("SpellChecker.spell_check: cuda differs from cpu")
+    dict_file, text_file = os.path.join(tmp, "dict.txt"), os.path.join(tmp, "text.txt")
+    with open(dict_file, "w") as f_:
+        f_.write("words\n" + "\n".join(words_sc) + "\n")
+    with open(text_file, "w") as f_:
+        f_.write("\n".join(texts[:64]) + "\n")
+    sc_cmd = ["spellcheck", "-d", dict_file, "-f", text_file, "--device"]
+    sc_out = counted("spellcheck", lambda: run_action(sc_cmd + ["cuda"]), (), counters)
+    if sc_out != run_action(sc_cmd + ["cpu"]) or len(sc_out.splitlines()) != 64:
+        fail("cli spellcheck --device cuda: output differs from --device cpu")
+    beam_ms["spellcheck"] = {
+        "text_viterbi_batch, 256 strings": cuda_ms(
+            lambda: text_viterbi_batch(texts, tree_sc, device=dev), reps=3),
+        "the same on the CPU (host clock)": sc_cpu_ms,
+        "cli spellcheck, 64 lines": cuda_ms(lambda: run_action(sc_cmd + ["cuda"]), reps=1)}
+    phase("spellcheck", f"256 misspellings against the 1,000-word list: text_viterbi_batch "
+                        f"strings and costs on cuda == cpu; SpellChecker on 64 == cpu; cli "
+                        f"spellcheck --device cuda prints cpu's 64 lines "
+                        f"({sum(c == 0 for c, _ in sc_g)} strings at cost 0)")
+
+    # (e) the native loader: 600 wavs, and connected_test through 512-file chunks
+    io_dir = os.path.join(tmp, "io_wavs")
+    os.makedirs(io_dir)
+    for u in SyntheticDigits(seed=4).continuous_corpus(600, tag="io"):
+        write_wav(os.path.join(io_dir, u.name), u.samples)
+    io_files = sorted(glob.glob(os.path.join(io_dir, "*.wav")))
+    t0_ = time.perf_counter()
+    nat = native_load(io_files, 120000)
+    nat_ms = (time.perf_counter() - t0_) * 1e3
+    t0_ = time.perf_counter()
+    ref = scipy_load(io_files, 120000)
+    scipy_ms = (time.perf_counter() - t0_) * 1e3
+    if not all(np.array_equal(a, b_) for a, b_ in zip(nat, ref)):
+        fail("the native loader's samples, lengths or rates differ from scipy's")
+    io_cmd = ["connected_test", "-i", bank_path, "-d", io_dir, "--device", "cuda"]
+    io_chunked = counted("native IO", lambda: run_action(io_cmd),
+                         (*k3, vk.bank_emission, vk.viterbi_banded_fused,
+                          vk.banded_backtrace_val))
+    orig_featurize = cli._featurize_files
+    cli._featurize_files = lambda *a, **k: orig_featurize(*a, **{**k, "chunk": 10 ** 9})
+    try:
+        io_one = run_action(io_cmd)
+    finally:
+        cli._featurize_files = orig_featurize
+    if io_chunked != io_one or len(word_lines(io_chunked)) != 600:
+        fail("connected_test over 600 wavs: the 512-file chunks print other lines than one "
+             "batch")
+    beam_ms["native IO"] = {"native load, 600 wavs": nat_ms, "scipy load, 600 wavs": scipy_ms}
+    phase("native IO", f"600 synthetic wavs: the native loader == scipy (samples, lengths, "
+                       f"rates); connected_test --device cuda through 512-file chunks prints "
+                       f"what one batch prints")
+    for stage, v_ in beam_ms.items():
+        items = v_.items() if isinstance(v_, dict) else [("ms", v_)]
+        phase("timing", f"7c {stage}: " + "; ".join(f"{k_} {ms_:.3f} ms" for k_, ms_ in items)
+              + f" ({card})")
+    phase("timing", f"7c K9 cross mode on the 1k trie's k = 64 beam planes (32x{T}): "
+                    f"{k9x_ms:.4f} ms event, plain {k9x_plain:.3f} ms ({card})")
+
     # ---- 8. bounds ----------------------------------------------------------
     sum_nf = int(nf.clamp(max=T).sum())  # K1 / K2 / K10 streams stop at nf
     sum_nf8 = int(nf8.clamp(max=T).sum())
@@ -3325,6 +3613,7 @@ def main() -> int:
                                   + T * B * 5 + nbytes(ends6, nf8), 4.0 * (sum_nf8 + unwinds6),
                                   k9_mixed_ms),
         "K8 + K9": (work["K8"][0] + work["K9"][0], work["K8"][1] + work["K9"][1], k8k9_ms),
+        "K9 cross mode, 1k trie k=64 beam planes 32x500": (*k9x_work, k9x_ms),
         "K11 wide form, 500 states 8x100": (*k11_work(wide_case), cuda_ms(
             lambda: viterbi_dense(**wide_case))),
         "K1 + K2": (work["K1"][0] + work["K2"][0], work["K1"][1] + work["K2"][1], k1k2_ms),

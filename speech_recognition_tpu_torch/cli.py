@@ -1,6 +1,6 @@
 """Command-line interface of the port: ``synth``, ``isolated_train``,
-``isolated_test``, ``continuous_train``, ``connected_test``, ``stream``
-and ``align``.
+``isolated_test``, ``continuous_train``, ``connected_test``, ``stream``,
+``align``, ``spellcheck`` and ``record``.
 
 Counterpart of ``speech_recognition_tpu/cli.py``.  ``synth`` writes the
 deterministic synthetic Aurora-style corpus (the same wavs, byte for
@@ -69,10 +69,22 @@ Run:  python -m speech_recognition_tpu_torch.cli synth -o data
           [--graph loop|lextree] [--chunk-frames 64] [--incremental]
       python -m speech_recognition_tpu_torch.cli align -i bank.npz -d wav_dir \
           -o alignments.jsonl
+      python -m speech_recognition_tpu_torch.cli spellcheck -d dict.txt \
+          [-t text | -f file] [--device cuda|cpu]
+
+``spellcheck`` corrects each line of ``-t`` text, a ``-f`` file or
+stdin against a dictionary file (one word per line, or a CSV whose first
+line is ``words``) and prints whole dictionary words; the text Viterbi
+runs on the device.  ``record`` captures one endpointed utterance from
+the microphone (it needs pyaudio and raises without it), writes it and,
+with ``-i``, classifies it.
+
+Wavs are read by the native batched loader (``runtime.loader``); a
+corpus of more than 512 files streams through it 512 files at a time,
+each batch read while the one before it featurizes.
 
 The device is explicit (default ``cuda``); asking for CUDA on a host
-without it is an error, never a silent CPU run.  Other actions
-(``spellcheck``, ``record``) are not ported yet (ROADMAP queue A).
+without it is an error, never a silent CPU run.
 """
 
 from __future__ import annotations
@@ -97,7 +109,8 @@ from speech_recognition_tpu_torch.config import (
 )
 
 __all__ = ["main", "cmd_synth", "cmd_isolated_train", "cmd_continuous_train",
-           "cmd_connected_test", "cmd_isolated_test", "cmd_align", "cmd_stream"]
+           "cmd_connected_test", "cmd_isolated_test", "cmd_align", "cmd_stream",
+           "cmd_spellcheck", "cmd_record"]
 
 
 def _device(name: str) -> torch.device:
@@ -108,15 +121,35 @@ def _device(name: str) -> torch.device:
 
 
 def _featurize_files(paths, cfg: FrontendConfig, cap_samples: int, device,
-                     norm: str = "utterance", cmvn=None):
+                     norm: str = "utterance", cmvn=None, chunk: int = 512):
     """Wavs -> ``(feats [N, F, 39], n_frames [N])`` on ``device``.
 
-    The frontend adapts to the files' sample rate; ``norm`` is
-    'utterance' (per-utterance z-norm) or 'cmvn' (raw features, then the
-    corpus statistics ``cmvn = (mean, std)``)."""
-    from speech_recognition_tpu_torch.data.wav import load_wav_batch
+    The files are read by the native loader (``runtime.loader``); more
+    than ``chunk`` of them stream through ``PrefetchWavBatches`` in
+    batches of ``chunk`` (the next batch read from disk while this one
+    featurizes; the tail batch pads with the first file and its extra
+    rows are dropped), each featurized alone.  The frontend adapts to
+    the files' sample rate; ``norm`` is 'utterance' (per-utterance
+    z-norm) or 'cmvn' (raw features, then the corpus statistics ``cmvn =
+    (mean, std)``)."""
+    from speech_recognition_tpu_torch.runtime.loader import PrefetchWavBatches, load_wav_batch
 
-    samples, lengths, rates = load_wav_batch(list(paths), cap_samples)
+    paths = list(paths)
+    if len(paths) > chunk:
+        padded = paths + [paths[0]] * ((-len(paths)) % chunk)
+        parts = [_featurize_loaded(samples, lengths, rates, cfg, cap_samples, device, norm,
+                                   cmvn)
+                 for _, samples, lengths, rates in PrefetchWavBatches(padded, chunk,
+                                                                      cap_samples)]
+        return (torch.cat([f for f, _ in parts])[: len(paths)],
+                torch.cat([n for _, n in parts])[: len(paths)])
+    return _featurize_loaded(*load_wav_batch(paths, cap_samples), cfg, cap_samples, device,
+                             norm, cmvn)
+
+
+def _featurize_loaded(samples, lengths, rates, cfg: FrontendConfig, cap_samples: int, device,
+                      norm: str, cmvn):
+    """One loaded batch -> features, at the batch's sample rate."""
     b = samples.shape[0]
     rate = int(rates[0]) if len(rates) else cfg.sample_rate
     if np.any(rates[:b] != rate):
@@ -268,8 +301,8 @@ def cmd_isolated_train(args):
             "n_mix": args.n_gaussians if args.gmm else 1, "norm": args.norm}
     arrays = {} if cmvn is None else {"cmvn_mean": cmvn[0], "cmvn_std": cmvn[1]}
     if args.silence:
-        from speech_recognition_tpu_torch.data.wav import load_wav_batch
         from speech_recognition_tpu_torch.ops.frontend import padded_length
+        from speech_recognition_tpu_torch.runtime.loader import load_wav_batch
         from speech_recognition_tpu_torch.train.silence import (
             fit_silence_hmm,
             harvest_silence_samples,
@@ -618,6 +651,52 @@ def cmd_align(args):
     print(f"wrote alignments for {len(files)} files to {args.output}")
 
 
+def cmd_spellcheck(args):
+    """Correct text against a dictionary: each non-empty line, lowercased,
+    becomes whole dictionary words (``langmodel.spellcheck``)."""
+    from speech_recognition_tpu_torch.langmodel.spellcheck import SpellChecker
+
+    dev = _device(args.device)
+    with open(args.dict) as f:
+        words = [ln.strip().lower() for ln in f if ln.strip()]
+    # the CSV-with-header format ("words" on the first line) is accepted
+    if words and words[0] == "words":
+        words = words[1:]
+    if not words:
+        sys.exit(f"dictionary {args.dict} contains no words")
+    sc = SpellChecker(device=dev).fit(words)
+    if args.text is not None:
+        text = args.text
+    elif args.file:
+        with open(args.file) as f:
+            text = f.read()
+    else:
+        text = sys.stdin.read()
+    for line in text.splitlines():
+        line = line.strip().lower()
+        if line:
+            print(sc.spell_check(line))
+
+
+def cmd_record(args):
+    """Record one endpointed utterance from the microphone (needs
+    pyaudio), write it, and with ``-i`` classify it as a digit."""
+    from speech_recognition_tpu_torch.data.capture import record
+
+    dev = _device(args.device)
+    record(args.output_wav)
+    print(f"wrote {args.output_wav}")
+    if args.input:
+        from speech_recognition_tpu_torch.decode.isolated import classify_batch
+        from speech_recognition_tpu_torch.utils.checkpoint import load_bank
+
+        bank, _ = load_bank(args.input)
+        feats, nf = _featurize_files([args.output_wav], FrontendConfig(), args.max_samples,
+                                     dev)
+        pred, _ = classify_batch(bank.to(dev), feats[:, : int(nf.max())].contiguous(), nf)
+        print("recognized:", DIGIT_NAMES[int(pred[0])])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Digit ASR (PyTorch/CUDA port)")
     sub = ap.add_subparsers(dest="action", required=True)
@@ -711,6 +790,22 @@ def main(argv=None):
     p.add_argument("--max-samples", type=int, default=120000)
     p.add_argument("--device", default="cuda", help=device_help)
     p.set_defaults(fn=cmd_align)
+
+    p = sub.add_parser("spellcheck", help="correct text against a dictionary")
+    p.add_argument("-d", "--dict", required=True,
+                   help="dictionary file (one word per line, or a 'words' CSV)")
+    p.add_argument("-t", "--text", default=None, help="text to correct")
+    p.add_argument("-f", "--file", default=None,
+                   help="file of text to correct (default: stdin)")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_spellcheck)
+
+    p = sub.add_parser("record")
+    p.add_argument("-i", "--input", default=None, help="bank .npz for classify")
+    p.add_argument("-o", "--output-wav", default="test.wav")
+    p.add_argument("--max-samples", type=int, default=64000)
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_record)
     args = ap.parse_args(argv)
     return args.fn(args)
 

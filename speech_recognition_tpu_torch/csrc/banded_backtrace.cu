@@ -1,5 +1,5 @@
 // K2: value-carried backtrace over the banded backpointer planes, and K9:
-// the general backtrace over any banded graph without cross edges.
+// the general backtrace over any banded graph, cross edges included.
 //
 // K2 replaces the TPU kernel speech_recognition_tpu/ops/viterbi_banded_pallas.py
 // _backtrace_kernel_val (reached through banded_backtrace_tb_pallas with
@@ -19,9 +19,10 @@
 // eps_depth times, while code is the eps code, the origin u =
 // eps_u[t, start_pos[st], b] moves st to word_ends[u] and code is re-read
 // there (a chain of eps arrivals within one frame, as 1-state words make);
-// then, for t > 0, the predecessor is st - code.  The eps flag is set when
-// any unwind step ran.  The rules are those of the plain version
-// ops/viterbi_banded.banded_backtrace_tb.
+// then, for t > 0, the predecessor is st - code, or cross_src[st] for the
+// cross code (3: a trie's parent-arc end -> child-arc start frame edge).
+// The eps flag is set when any unwind step ran.  The rules are those of
+// the plain version ops/viterbi_banded.banded_backtrace_tb.
 //
 // What bounds them on the H100: a walk is T dependent steps per stream,
 // each a 1-byte read of the [T, S, B] plane at a state known only after
@@ -44,14 +45,18 @@
 // eps_u entries with its window and stashes each frame's unwind target
 // (word_ends of that entry), so an unwind at the word start costs no
 // read of its own; the state it lands on lies in another word, so it
-// starts a new window at the same frame.  No layout, alignment or size
-// limit: any B, S, word length and eps depth.
+// starts a new window at the same frame.  A cross step lands in the parent
+// arc, below the child arc's start: it leaves the window as an unwind does
+// and the walk reloads at the next frame (on a trie the span hint is the
+// last arc start, so a window covers the states of one arc).  No layout,
+// alignment or size limit: any B, S, word length and eps depth.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxBand = 2;
+constexpr int kCrossCode = kMaxBand + 1;
 constexpr int kEpsCode = kMaxBand + 2;
 constexpr int kWin = 128;             // codes one warp loads per window
 constexpr int kPerLane = kWin / 32;   // codes (and eps_prev entries) per lane
@@ -151,13 +156,15 @@ banded_backtrace_window_kernel(const int8_t* __restrict__ bp8,
 }
 
 // K9: one warp per stream, kGenWarps streams per CTA, the graph tables
-// (start_pos, word_ends, is_start) staged in shared memory where they fit
-// in kGenStageBytes, else read through L1.  A window is K2's: F frames x
-// the states [lo, hi = st], F = min(t + 1, kWin / (hi - lo + 2)), where lo
-// is a hint, the last word start at or below st (a ballot over is_start,
-// at most 31 below); with it the word's eps_u entries eps_u[t, start_pos
-// [lo], b] of the F frames.  Stashed per (frame, state): the step target
-// s - code and the eps mark; per frame: word_ends of the eps_u entry.
+// (start_pos, word_ends, cross_src, the span hint) staged in shared memory
+// where they fit in kGenStageBytes, else read through L1.  A window is
+// K2's: F frames x the states [lo, hi = st], F = min(t + 1, kWin / (hi -
+// lo + 2)), where lo is a hint, the last span start at or below st (a
+// ballot over the hint table, at most 31 below: the word starts, and on a
+// graph with cross edges the arc starts too); with it the eps_u entries
+// eps_u[t, start_pos[lo], b] of the F frames.  Stashed per (frame, state):
+// the step target (s - code, cross_src[s] for the cross code) and the eps
+// mark; per frame: word_ends of the eps_u entry.
 // Lane 0 walks (the other lanes wait at one __syncwarp a window; writing
 // each frame's state where it goes from the walk measured slower than
 // stashing them for the lanes to write): at frame t it records st (the
@@ -176,6 +183,7 @@ banded_backtrace_general_kernel(const int8_t* __restrict__ bp8,
                                 const void* __restrict__ eps_u, int u_wide,
                                 const long long* __restrict__ start_pos,
                                 const long long* __restrict__ word_ends,
+                                const long long* __restrict__ cross_src,
                                 const uint8_t* __restrict__ is_start,
                                 const int* __restrict__ end_state,
                                 const int* __restrict__ nf,
@@ -183,7 +191,8 @@ banded_backtrace_general_kernel(const int8_t* __restrict__ bp8,
                                 uint8_t* __restrict__ flags, int T, int S,
                                 int R, int L, int B, int eps_depth, int stage,
                                 long long* __restrict__ trace) {
-  extern __shared__ __align__(16) int tabs[];  // staged: start_pos, word_ends, is_start
+  extern __shared__ __align__(16) int tabs[];  // staged: start_pos, word_ends,
+                                                // [cross_src,] the span hint
   constexpr int kFrames = kWin / 2;             // a window's frames, at most
   __shared__ int step_s[kGenWarps][kWin];      // (s - code) * 2 + eps mark, [frame][state]
   __shared__ int uw_s[kGenWarps][kFrames];     // unwind target at lo per frame
@@ -192,22 +201,32 @@ banded_backtrace_general_kernel(const int8_t* __restrict__ bp8,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int* sp_t = nullptr;
   const int* we_t = nullptr;
+  const int* cs_t = nullptr;
   const uint8_t* is_t = is_start;
   if (stage) {
     int* sp = tabs;
     int* we = tabs + S;
-    uint8_t* is = reinterpret_cast<uint8_t*>(tabs + S + L);
+    int* cs = we + L;
+    uint8_t* is = reinterpret_cast<uint8_t*>(cross_src ? cs + S : cs);
     for (int i = threadIdx.x; i < S; i += blockDim.x) {
       sp[i] = (int)start_pos[i];
       is[i] = is_start[i];
+      if (cross_src) cs[i] = (int)cross_src[i];
     }
     for (int i = threadIdx.x; i < L; i += blockDim.x) we[i] = (int)word_ends[i];
     __syncthreads();
     sp_t = sp;
     we_t = we;
+    cs_t = cross_src ? cs : nullptr;
     is_t = is;
   }
   auto start_of = [&](int s) -> int { return sp_t ? sp_t[s] : (int)start_pos[s]; };
+  // the step target of code c at state s (the eps code's is s - 4, taken
+  // only when the eps code is left after eps_depth unwinds)
+  auto target_of = [&](int s, int c) -> int {
+    if (c == kCrossCode && cross_src) return cs_t ? cs_t[s] : (int)cross_src[s];
+    return s - c;
+  };
   auto end_of = [&](int u) -> int {
     if ((unsigned)u >= (unsigned)L) return 0;  // never taken on a forward's planes
     return we_t ? we_t[u] : (int)word_ends[u];
@@ -295,7 +314,7 @@ banded_backtrace_general_kernel(const int8_t* __restrict__ bp8,
       const int i = lane + 32 * j, f = (i * w.inv) >> 16, s = w.lo + i - f * w.ns;
       if (i < nfr * w.ns) {
         const int code = rc[j];
-        step[i] = (s - code) * 2 + (code == kEpsCode);
+        step[i] = target_of(s, code) * 2 + (code == kEpsCode);
         if (code == kEpsCode && s == w.lo) first_eps = min(first_eps, i);
       }
       if (i < nfr) uw[i] = end_of(re[j]);
@@ -375,23 +394,24 @@ extern "C" int banded_backtrace_launch(const int8_t* bp8, const int* eps_prev,
 }
 
 // bp8 [T,S,B] i8, eps_u [T,R,B] i8 or i32, start_pos [S] / word_ends [L]
-// i64, is_start [S] u8, end_state / nf [B] i32 -> states [T,B] i32,
-// flags [T,B] u8 (0/1).  trace (null: off): [B][5] per stream, lane 0's
+// i64, cross_src [S] i64 (null: no cross edges), the span hint [S] u8 (the
+// word starts, and the arc starts of a graph with cross edges), end_state
+// / nf [B] i32 -> states [T,B] i32, flags [T,B] u8 (0/1).  trace (null: off): [B][5] per stream, lane 0's
 // cycles loading and stashing windows (and writing out), walking; the
 // windows waited for, the windows loaded during the walk (same span or
 // word change), the frames.
 extern "C" int banded_backtrace_general_launch(
     const int8_t* bp8, const void* eps_u, int u_wide, const long long* start_pos,
-    const long long* word_ends, const uint8_t* is_start, const int* end_state,
-    const int* nf, int* states, uint8_t* flags, int T, int S, int R, int L, int B,
-    int eps_depth, long long* trace, void* stream) {
+    const long long* word_ends, const long long* cross_src, const uint8_t* is_start,
+    const int* end_state, const int* nf, int* states, uint8_t* flags, int T, int S, int R,
+    int L, int B, int eps_depth, long long* trace, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || L <= 0 || eps_depth < 1)
     return (int)cudaErrorInvalidValue;
-  const long long tab = 4LL * (S + L) + ((S + 3) / 4) * 4LL;
+  const long long tab = 4LL * (S + L) + (cross_src ? 4LL * S : 0) + ((S + 3) / 4) * 4LL;
   const int stage = tab <= kGenStageBytes;
   banded_backtrace_general_kernel<<<(B + kGenWarps - 1) / kGenWarps, kGenWarps * 32,
                                     stage ? (size_t)tab : 0, (cudaStream_t)stream>>>(
-      bp8, eps_u, u_wide, start_pos, word_ends, is_start, end_state, nf, states, flags,
-      T, S, R, L, B, eps_depth, stage, trace);
+      bp8, eps_u, u_wide, start_pos, word_ends, cross_src, is_start, end_state, nf, states,
+      flags, T, S, R, L, B, eps_depth, stage, trace);
   return (int)cudaGetLastError();
 }

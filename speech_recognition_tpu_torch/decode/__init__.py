@@ -1,5 +1,6 @@
 """Decoders of the port: isolated words (GMM-HMM bank and DTW templates),
-connected words over composed graphs, the lexical tree, streaming
+connected words over composed graphs, the lexical tree (exact, and with
+the rank-threshold or the token-passing beam), streaming
 (chunked) decoding of long audio, and word confidence from
 forward-backward posteriors."""
 
@@ -15,9 +16,10 @@ from speech_recognition_tpu_torch.decode.dtw import (
     stack_templates,
 )
 from speech_recognition_tpu_torch.decode.isolated import classify_batch, score_models
-from speech_recognition_tpu_torch.decode.lextree import decode_lextree
+from speech_recognition_tpu_torch.decode.lextree import beam_decode_lextree, decode_lextree
 from speech_recognition_tpu_torch.decode.streaming import StreamingDecoder
 
 __all__ = ["score_models", "classify_batch", "decode_connected", "connected_graph_arrays",
            "TemplateBank", "dtw_classify_batch", "dtw_score_models", "stack_templates",
-           "decode_lextree", "path_posteriors", "word_confidence", "StreamingDecoder"]
+           "decode_lextree", "beam_decode_lextree", "path_posteriors", "word_confidence",
+           "StreamingDecoder"]

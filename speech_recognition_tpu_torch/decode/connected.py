@@ -17,8 +17,13 @@ dense decoder: the bank emissions gathered to graph states, kernel K11
 end-state select and ``ops.viterbi.viterbi_backtrace``.  CPU tensors
 take every kernel's plain version.
 
-Not ported yet: beam pruning (raises ``NotImplementedError``, ROADMAP
-queue A item 6).
+``beam_width`` k > 0 runs the rank-threshold beam on any banded graph:
+``bank_nll_ubt``, the pruned plain forward ``viterbi_banded_tb(...,
+beam_width=k)`` (no kernel prunes, in either package) on either device,
+the end-state select and kernel K9 (its plain version on the CPU).  Two
+of the reference's rules are kept: ``backend="wordtrace"`` with a beam
+runs this banded beam route, and ``backend="dense"`` (or ``auto`` on a
+graph that is not banded) ignores ``beam_width``.
 """
 
 from __future__ import annotations
@@ -33,7 +38,11 @@ from speech_recognition_tpu_torch.models.graph import WordGraph, build_word_grap
 from speech_recognition_tpu_torch.models.hmm import HMMBank, bank_nll, bank_nll_ubt
 from speech_recognition_tpu_torch.ops.gmm import augment_dtb, gmm_emission_weights
 from speech_recognition_tpu_torch.ops.viterbi import viterbi_backtrace
-from speech_recognition_tpu_torch.ops.viterbi_banded import BandedGraph, banded_arrays
+from speech_recognition_tpu_torch.ops.viterbi_banded import (
+    BandedGraph,
+    banded_arrays,
+    viterbi_banded_tb,
+)
 from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import (
     banded_backtrace_general,
     banded_backtrace_val,
@@ -80,22 +89,30 @@ def _decode_graph_batch(bank: HMMBank, feats, n_frames, trans, eps_trans, init_c
 
 
 def _decode_banded_batch(bank: HMMBank, feats, n_frames, g: BandedGraph,
-                         eps_depth: int = 1, topo=None):
+                         eps_depth: int = 1, topo=None, beam_width: int = 0):
     """Batched banded decode: ``feats [B, T, D]``, ``n_frames [B]`` ->
     ``(states [B, T] int32, eps_flags [B, T] bool, costs [B])``, on the
-    device of ``feats``."""
+    device of ``feats``.  ``beam_width`` > 0 takes the pruned plain
+    forward and K9 on any banded graph, cross edges included (the
+    lexical-tree beam route shares it)."""
     dev = feats.device
     if bank.means.device != dev:
         raise ValueError(f"bank is on {bank.means.device}, features on {dev}")
     g = g.to(dev)
     n_frames = n_frames.to(dev)
-    topo = banded_topology(g) if topo is None else topo
-    fused = banded_route(topo, eps_depth) == "fused"
-    if fused:
-        final, bp8, _, eps_prev = fused_forward(bank, feats, n_frames, g, topo)
-    else:
+    if beam_width:
+        fused = False
         nll = bank_nll_ubt(bank, feats, n_frames)  # [U, T, B]
-        final, bp8, eps_u = viterbi_banded_general(nll, g, topo, n_frames, eps_depth)
+        final, bp8, eps_u = viterbi_banded_tb(nll.permute(1, 0, 2)[:, g.bank_state, :], g,
+                                              n_frames, eps_depth, beam_width=beam_width)
+    else:
+        topo = banded_topology(g) if topo is None else topo
+        fused = banded_route(topo, eps_depth) == "fused"
+        if fused:
+            final, bp8, _, eps_prev = fused_forward(bank, feats, n_frames, g, topo)
+        else:
+            nll = bank_nll_ubt(bank, feats, n_frames)  # [U, T, B]
+            final, bp8, eps_u = viterbi_banded_general(nll, g, topo, n_frames, eps_depth)
     end_costs = final[g.end_states, :] + g.end_bonus[:, None]  # [E, B]
     best = torch.argmin(end_costs, dim=0)
     end_state = g.end_states[best]
@@ -149,14 +166,15 @@ def decode_connected(bank: HMMBank, graph: WordGraph, feats, n_frames,
     on their device.  ``backend``: 'banded' (states path), 'wordtrace'
     (the backtrace-free path; uniform word graphs with eps depth 1, else
     ``ValueError``), 'dense' (the dense decoder), or 'auto' (banded when
-    the graph is banded, else dense).  Returns ``(word_sequences,
-    costs)``; each sequence is the consecutive-deduped slot labels along
-    the best path.
+    the graph is banded, else dense).  ``beam_width`` > 0 prunes each
+    frame to the costs within the k best on the banded routes (the
+    states path; 'wordtrace' takes it too, as the reference does) and is
+    ignored by the dense decoder, as the reference ignores it.  Returns
+    ``(word_sequences, costs)``; each sequence is the consecutive-deduped
+    slot labels along the best path.
     """
     if backend not in ("auto", "banded", "wordtrace", "dense"):
         raise ValueError(f"unknown backend {backend!r}")
-    if beam_width:
-        raise NotImplementedError("beam pruning is not ported yet (ROADMAP queue A item 6)")
     bg = None
     if backend != "dense":
         try:
@@ -171,6 +189,10 @@ def decode_connected(bank: HMMBank, graph: WordGraph, feats, n_frames,
                          "bank_state")}
         states, eps_flags, costs = _decode_graph_batch(bank, feats, n_frames,
                                                        eps_depth=graph.eps_depth, **arr)
+        return _words_out(graph, states, eps_flags, costs, n_frames, 0, drop_labels)
+    if beam_width:
+        states, eps_flags, costs = _decode_banded_batch(
+            bank, feats, n_frames, bg, eps_depth=graph.eps_depth, beam_width=beam_width)
         return _words_out(graph, states, eps_flags, costs, n_frames, 0, drop_labels)
     topo = banded_topology(bg)
     if backend == "wordtrace":

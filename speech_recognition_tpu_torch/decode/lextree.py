@@ -10,8 +10,13 @@ walks the planes back, and ``models.lexgraph.lex_words_from_path_batch``
 reads the words off the path on the host.  The device of ``feats``
 picks the kernels (CUDA) or their plain versions (CPU).
 
-Not ported yet: beam pruning and ``beam_decode_lextree`` (ROADMAP queue
-A item 6).
+``decode_lextree(beam_width=k)`` takes the rank-threshold beam route:
+``bank_nll_ubt``, the pruned plain forward ``viterbi_banded_tb`` over the
+trie's banded graph (cross edges included; no kernel prunes, in either
+package), the best leaf and kernel K9, which walks the cross edges.
+``beam_decode_lextree`` is the token-passing beam of ``ops.beam`` (k
+tokens a frame, emissions gathered per token from the unit bank), with
+an optional bigram carried on each token's predecessor word.
 """
 
 from __future__ import annotations
@@ -21,9 +26,10 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from speech_recognition_tpu_torch.decode.connected import _warn_no_path
+from speech_recognition_tpu_torch.decode.connected import _decode_banded_batch, _warn_no_path
 from speech_recognition_tpu_torch.models.hmm import HMMBank, bank_nll_ubt
 from speech_recognition_tpu_torch.models.lexgraph import LexGraph, lex_words_from_path_batch
+from speech_recognition_tpu_torch.ops.beam import beam_backtrace, beam_search, beam_tables
 from speech_recognition_tpu_torch.ops.viterbi_banded import BandedGraph
 from speech_recognition_tpu_torch.ops.viterbi_lex_kernels import (
     LexTopo,
@@ -32,7 +38,7 @@ from speech_recognition_tpu_torch.ops.viterbi_lex_kernels import (
     viterbi_lex,
 )
 
-__all__ = ["decode_lextree"]
+__all__ = ["decode_lextree", "beam_decode_lextree"]
 
 
 def _decode_lex_batch(bank: HMMBank, feats, n_frames, g: BandedGraph, topo: LexTopo):
@@ -60,15 +66,66 @@ def decode_lextree(bank: HMMBank, lexg: LexGraph, feats, n_frames,
     ``bank`` is the *unit* bank (the models ``lexg`` was built from, in
     the order of its ``unit_trans``); ``feats [B, T, D]`` and
     ``n_frames [B]`` are tensors and the decode runs on their device.
-    Returns ``(word_sequences, costs)`` with word ids indexing
-    ``lexg.words``."""
+    ``beam_width`` > 0 prunes each frame to the costs within the k best
+    (the reference's XLA beam route).  Returns ``(word_sequences,
+    costs)`` with word ids indexing ``lexg.words``."""
     if beam_width:
-        raise NotImplementedError("beam pruning and beam_decode_lextree are not "
-                                  "ported yet (ROADMAP queue A item 6)")
-    states, eps_flags, costs = _decode_lex_batch(
-        bank, feats, n_frames, lexg.banded.to(feats.device), lex_topology(lexg.banded))
+        states, eps_flags, costs = _decode_banded_batch(
+            bank, feats, n_frames, lexg.banded, eps_depth=lexg.eps_depth,
+            beam_width=beam_width)
+    else:
+        states, eps_flags, costs = _decode_lex_batch(
+            bank, feats, n_frames, lexg.banded.to(feats.device), lex_topology(lexg.banded))
+        states, eps_flags = states.T, eps_flags.T
     costs = costs.cpu().numpy()
     _warn_no_path(costs)
-    seqs = lex_words_from_path_batch(lexg, states.T.cpu().numpy(),
-                                     n_frames.cpu().numpy(), eps_flags.T.cpu().numpy())
+    seqs = lex_words_from_path_batch(lexg, states.cpu().numpy(), n_frames.cpu().numpy(),
+                                     eps_flags.cpu().numpy())
+    return seqs, costs
+
+
+def _beam_batch(bank: HMMBank, feats, n_frames, tables, k: int, has_cross: bool,
+                bigram_cost=None, bigram_end=None):
+    """Token beam over a batch: unit-bank emissions, ``beam_search`` and
+    ``beam_backtrace`` -> ``(costs [B], words_rev [B, T + 1])``."""
+    dev = feats.device
+    if bank.means.device != dev:
+        raise ValueError(f"bank is on {bank.means.device}, features on {dev}")
+    n_frames = n_frames.to(dev)
+    nll = bank_nll_ubt(bank, feats, n_frames).permute(2, 1, 0)  # [B, T, U]
+    fst, fco, fpd, _, tok_p, tok_w = beam_search(nll, tables, n_frames, k,
+                                                 has_cross=has_cross,
+                                                 bigram_cost=bigram_cost)
+    return beam_backtrace(fst, fco, tok_p, tok_w, tables, n_frames, final_pred=fpd,
+                          bigram_cost=bigram_cost, bigram_end=bigram_end)
+
+
+def beam_decode_lextree(bank: HMMBank, lexg: LexGraph, feats, n_frames, k: int,
+                        lm=None) -> Tuple[List[List[int]], np.ndarray]:
+    """Fixed-width token-passing beam decode (``ops.beam``): per frame
+    only the k best tokens survive, and emissions are gathered per token
+    from the unit bank.  Exact for k >= the reachable state count;
+    narrower beams are the classic approximation.
+
+    ``lm`` (a bigram over word ids: ``.cost [V, V]``, ``.start_cost
+    [V]``, ``.end_cost [V]``) is carried on each token's predecessor word
+    and charged at word exits, on any tree shape (``ops.beam``); build
+    ``lexg`` without an LM then.  ``feats [B, T, D]`` and ``n_frames
+    [B]`` are tensors and the decode runs on their device.  Returns
+    ``(word_sequences, costs)`` with word ids indexing ``lexg.words``."""
+    dev = feats.device
+    tables = beam_tables(lexg.banded, leaf_word=lexg.leaf_word, device=dev)
+    has_cross = lexg.banded.cross_src is not None and tables.n_children > 0
+    bigram_cost = bigram_end = None
+    if lm is not None:
+        bigram_cost = torch.as_tensor(np.concatenate(
+            [np.asarray(lm.cost, np.float32), np.asarray(lm.start_cost, np.float32)[None]]),
+            device=dev)
+        bigram_end = torch.as_tensor(np.asarray(lm.end_cost, np.float32), device=dev)
+    costs, words_rev = _beam_batch(bank, feats, n_frames, tables, k, has_cross,
+                                   bigram_cost=bigram_cost, bigram_end=bigram_end)
+    costs = costs.cpu().numpy()
+    words_rev = words_rev.cpu().numpy()
+    seqs = [[int(w) for w in row[:0:-1] if w >= 0] + [int(row[0])] for row in words_rev]
+    _warn_no_path(costs)
     return seqs, costs

@@ -1,5 +1,5 @@
-"""Language-model side of the port: the lexical tree and the bigram LM
-(the spell checker is a later slice)."""
+"""Language-model side of the port: the lexical tree, the bigram LM and
+the spell checker."""
 
 from speech_recognition_tpu_torch.langmodel.bigram import (
     BigramBackoff,
@@ -11,6 +11,12 @@ from speech_recognition_tpu_torch.langmodel.bigram import (
     uniform_bigram,
 )
 from speech_recognition_tpu_torch.langmodel.lextree import LexTree, lextree_from_words
+from speech_recognition_tpu_torch.langmodel.spellcheck import (
+    SpellChecker,
+    text_viterbi,
+    text_viterbi_batch,
+)
 
 __all__ = ["LexTree", "lextree_from_words", "BigramLM", "uniform_bigram", "fit_bigram",
-           "scale", "sequence_cost", "BigramBackoff", "bigram_backoff"]
+           "scale", "sequence_cost", "BigramBackoff", "bigram_backoff", "SpellChecker",
+           "text_viterbi", "text_viterbi_batch"]

@@ -16,7 +16,8 @@ arithmetic; the graph is a port ``BandedGraph`` of CPU tensors):
 Language models: ``lm=`` (anything with ``.cost [V, V]``,
 ``.start_cost [V]``, ``.end_cost [V]``) is exact only on flat
 vocabularies (every word one unit), where it gives the per-row
-``eps_block[r, l] = wic + cost[word(l), word(r)]``; a deep tree raises.
+``eps_block[r, l] = wic + cost[word(l), word(r)]``; a deep tree raises
+(its bigram runs in the token beam, ``beam_decode_lextree(..., lm=lm)``).
 ``unigram_cost=`` is exact on any tree by min-smearing: each arc
 carries the minimum word cost below it, a root entry charges its
 smear, and each cross edge the increment ``smear(child) -
@@ -87,8 +88,8 @@ def build_lex_graph(
     if lm is not None and any(len(w) > 1 for w in words):
         raise ValueError(
             "exact bigram on a deep lexical tree needs predecessor-carried "
-            "token passing (ROADMAP queue A item 6): build the graph "
-            "without lm")
+            "token passing: build the graph without lm and decode with "
+            "decode.lextree.beam_decode_lextree(..., lm=lm)")
 
     tree = lextree_from_words(words)
     word_id = {w: i for i, w in enumerate(words)}

@@ -11,11 +11,16 @@ applies strict improvements only; ``bp`` row 0 is -1, ``eps_bp`` -1
 where no pass improved; frames ``>= n_frames`` keep the cost frozen but
 still write their ``bp`` / ``eps_bp`` rows from it; ``final`` is the
 cost at frame ``n_frames - 1`` (``POS_INF`` for ``n_frames`` 0).
+``beam_width`` k > 0 prunes each column after its eps passes to the
+costs ``<=`` its k-th smallest (``_beam_prune``: exact ties with the
+k-th best survive, a column with fewer than k finite costs keeps them
+all); the pruned column is the carry.
 
 ``viterbi_batch`` is the batched plain version of kernel K11
 (``ops.viterbi_kernels.viterbi_dense``, ``csrc/viterbi_dense.cu``);
 ``viterbi`` runs one utterance through that wrapper, so a CUDA tensor
-runs K11.  ``viterbi_backtrace`` stays plain tensor ops (in JAX it is an
+runs K11; with a beam it runs ``viterbi_batch`` (no kernel prunes, in
+either package).  ``viterbi_backtrace`` stays plain tensor ops (in JAX it is an
 XLA scan, not a Pallas kernel): one batched loop over the frames.
 """
 
@@ -48,15 +53,25 @@ def _relax(prev, mat):
     return m, idx.to(torch.int32)
 
 
+def _beam_prune(cost, beam_width: int, dim: int = -1):
+    """Rank-threshold beam along ``dim`` (the states): costs above the
+    ``beam_width``-th smallest become ``POS_INF`` (ties with it survive;
+    a width past the axis keeps everything)."""
+    k = min(beam_width, cost.shape[dim])
+    thresh = torch.kthvalue(cost, k, dim=dim, keepdim=True).values
+    return torch.where(cost <= thresh, cost, torch.full_like(cost, POS_INF))
+
+
 def viterbi_batch(nll, trans, init_cost, n_frames, eps_trans=None, eps_depth: int = 1,
-                  planes: bool = True):
+                  planes: bool = True, beam_width: int = 0):
     """Batched dense Viterbi in tensor ops (the plain version of K11).
 
     ``nll [B, T, S]``; ``trans`` / ``eps_trans`` ``[S, S]`` shared or
     ``[B, S, S]`` per item; ``init_cost [S]`` or ``[B, S]``; ``n_frames
     [B]``.  Returns ``(final [B, S], bp [B, T, S] int32, eps_bp [B, T, S]
     int32)``; with ``planes=False`` the planes are ``None`` (and frames
-    past the longest item are not visited).
+    past the longest item are not visited).  ``beam_width`` > 0 prunes
+    every column of every item (``_beam_prune``).
     """
     b, t_len, s = nll.shape
     dev = nll.device
@@ -84,6 +99,8 @@ def viterbi_batch(nll, trans, init_cost, n_frames, eps_trans=None, eps_depth: in
         return cost, ebp
 
     prev, ebp = column(init, nll[:, 0])
+    if beam_width:
+        prev = _beam_prune(prev, beam_width)
     if planes:
         bp[:, 0] = -1
         eps_bp[:, 0] = ebp
@@ -92,6 +109,8 @@ def viterbi_batch(nll, trans, init_cost, n_frames, eps_trans=None, eps_depth: in
     for t in range(1, t_stop):
         base, arg = _relax(prev, mat)
         cost, ebp = column(base, nll[:, t])
+        if beam_width:
+            cost = _beam_prune(cost, beam_width)
         cost = torch.where((t < nf)[:, None], cost, prev)
         final = torch.where((t == nf - 1)[:, None], cost, final)
         prev = cost
@@ -106,14 +125,18 @@ def viterbi(nll, trans_cost, init_cost, n_frames, eps_trans=None, eps_depth: int
     """Min-cost Viterbi over one utterance: ``nll [T, S]``, ``trans_cost
     [S, S]`` (``T[to, from]``, ``POS_INF`` where absent), ``init_cost
     [S]``, ``n_frames`` (frames >= it are ignored), optional ``eps_trans
-    [S, S]`` with ``eps_depth`` passes.  A CUDA tensor runs K11."""
-    if beam_width:
-        raise NotImplementedError("beam pruning is not ported yet (ROADMAP queue A item 6)")
+    [S, S]`` with ``eps_depth`` passes.  A CUDA tensor runs K11;
+    ``beam_width`` > 0 runs the pruned ``viterbi_batch`` on either device."""
     from speech_recognition_tpu_torch.ops.viterbi_kernels import viterbi_dense
 
     nf = torch.as_tensor(n_frames, dtype=torch.int32, device=nll.device).reshape(1)
-    final, bp, eps_bp = viterbi_dense(nll[None], trans_cost, init_cost, nf,
-                                      eps_trans=eps_trans, eps_depth=eps_depth)
+    if beam_width:
+        final, bp, eps_bp = viterbi_batch(nll[None], trans_cost, init_cost, nf,
+                                          eps_trans=eps_trans, eps_depth=eps_depth,
+                                          beam_width=beam_width)
+    else:
+        final, bp, eps_bp = viterbi_dense(nll[None], trans_cost, init_cost, nf,
+                                          eps_trans=eps_trans, eps_depth=eps_depth)
     return ViterbiResult(final[0], bp[0], eps_bp[0])
 
 

@@ -14,7 +14,9 @@ arrival whose origin word end goes to the ``[T, R, B]`` side plane.
 
 ``viterbi_banded_tb`` / ``banded_backtrace_tb`` are per-frame Python
 loops over ``[S, B]`` tensors: the oracles for any banded graph and
-the CPU path for graphs the fused kernels do not take.  The production
+the CPU path for graphs the fused kernels do not take.  With a beam
+(``beam_width``) the forward is this loop on either device, as no
+kernel prunes.  The production
 path is ``ops.viterbi_banded_kernels``.
 """
 
@@ -25,6 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from speech_recognition_tpu_torch.ops.viterbi import _beam_prune
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
 __all__ = ["MAX_BAND", "BandedGraph", "banded_arrays", "eps_ranges",
@@ -218,10 +221,16 @@ def _column(base_cost, d_sel, emis, g: BandedGraph, eps_depth: int, u_dtype, org
     return cost, bp8, eps_u, org
 
 
-def viterbi_banded_tb(nll_tb, g: BandedGraph, n_frames, eps_depth: int = 1):
+def viterbi_banded_tb(nll_tb, g: BandedGraph, n_frames, eps_depth: int = 1,
+                      beam_width: int = 0):
     """State-major batched banded Viterbi: ``nll_tb [T, S, B]``,
     ``n_frames [B]`` -> ``(final [S, B], bp8 [T, S, B] int8,
-    eps_u [T, R, B])``."""
+    eps_u [T, R, B])``.
+
+    ``beam_width`` k > 0 prunes each column after its eps passes to the
+    costs ``<=`` the stream's k-th smallest, and the pruned column is the
+    carry: the reference's per-utterance ``viterbi_banded(beam_width=)``
+    run on every stream at once (its batched form takes no beam)."""
     t_len, s, b = nll_tb.shape
     r = g.n_words
     u_dtype = _eps_u_dtype(g.n_ends)
@@ -231,6 +240,8 @@ def viterbi_banded_tb(nll_tb, g: BandedGraph, n_frames, eps_depth: int = 1):
 
     def column(base_cost, d_sel, emis):
         cost, bp8, eps_u, _ = _column(base_cost, d_sel, emis, g, eps_depth, u_dtype)
+        if beam_width:
+            cost = _beam_prune(cost, beam_width, dim=0)
         return cost, bp8, eps_u
 
     bp8 = torch.empty((t_len, s, b), dtype=torch.int8, device=dev)

@@ -34,9 +34,11 @@ per CTA, where its frontier lives (shared memory or a device-memory
 scratch) and how many frames of planes it stages; no graph size is
 refused.
 
-No kernel implements cross edges, so a graph that carries them (a
-lexical tree) is refused here rather than decoded without them; it goes
-to ``ops.viterbi_lex_kernels``.
+The forward kernels (K1, K8, K10, K17) implement no cross edges, so they
+refuse a graph that carries them (a lexical tree) rather than decode it
+without them; its forward goes to ``ops.viterbi_lex_kernels``, or, with a
+beam, to the plain ``viterbi_banded_tb``.  K9 walks cross edges: it
+backtraces a trie's planes from either forward.
 
 Each wrapper runs its plain version for CPU tensors and launches its
 CUDA kernel for CUDA tensors, counting launches in ``<wrapper>.launches``.
@@ -873,9 +875,10 @@ banded_backtrace_general_ref = banded_backtrace_tb
 def banded_backtrace_general(bp8, eps_u, g: BandedGraph, end_state, n_frames,
                              eps_depth: int = 1, trace=None):
     """K9 for CUDA tensors (``csrc/banded_backtrace.cu``: one warp per
-    stream, a window of frames x the states of the word the band can
-    reach, with the word's eps_u entries, per round trip), the plain
-    version for CPU tensors.  Arguments and results as
+    stream, a window of frames x the states of the word (or, on a graph
+    with cross edges, the arc) the band can reach, with the word's eps_u
+    entries, per round trip; a cross step goes to ``cross_src``), the
+    plain version for CPU tensors.  Arguments and results as
     ``banded_backtrace_tb``; ``trace`` (int64 ``[B, 5]`` on the device)
     receives the kernel's clock64 counts per stream (see the launcher)."""
     if not use_kernels(bp8):
@@ -885,8 +888,6 @@ def banded_backtrace_general(bp8, eps_u, g: BandedGraph, end_state, n_frames,
     dev = bp8.device
     t_len, s, b = bp8.shape
     r, l_ends = g.n_words, g.n_ends
-    if g.cross_src is not None:
-        raise ValueError("the general backtrace kernel does not implement cross edges")
     if (bp8.dtype != torch.int8 or eps_u.dtype not in (torch.int8, torch.int32)
             or eps_u.shape != (t_len, r, b) or s != g.n_states
             or end_state.shape != (b,) or n_frames.shape != (b,)
@@ -897,9 +898,17 @@ def banded_backtrace_general(bp8, eps_u, g: BandedGraph, end_state, n_frames,
         raise ValueError(f"eps_depth must be >= 1, got {eps_depth}")
     _check_devices(dev, "planes", [("eps_u", eps_u), ("end_state", end_state),
                                    ("n_frames", n_frames), ("start_pos", g.start_pos),
-                                   ("word_ends", g.word_ends), ("is_start", g.is_start)])
+                                   ("word_ends", g.word_ends), ("is_start", g.is_start),
+                                   ("cross_src", g.cross_src), ("cross_cost", g.cross_cost)])
+    # the window's span hint: the word starts, and the targets of cross
+    # edges (a trie's arc starts), which no band move crosses
+    hint = g.is_start.to(torch.bool)
+    cross = None
+    if g.cross_src is not None:
+        hint = hint | (g.cross_cost < POS_INF / 2)
+        cross = g.cross_src.to(torch.int64).contiguous()
     tabs = [g.start_pos.to(torch.int64).contiguous(), g.word_ends.to(torch.int64).contiguous(),
-            g.is_start.to(torch.bool).contiguous()]
+            cross, hint.contiguous()]
     i32 = [x.to(torch.int32).contiguous() for x in (end_state, n_frames)]
     states = torch.empty((t_len, b), dtype=torch.int32, device=dev)
     flags = torch.empty((t_len, b), dtype=torch.bool, device=dev)
@@ -909,7 +918,8 @@ def banded_backtrace_general(bp8, eps_u, g: BandedGraph, end_state, n_frames,
     with torch.cuda.device(dev):
         rc = lib.banded_backtrace_general_launch(
             bp8.data_ptr(), eps_u.data_ptr(), int(eps_u.dtype == torch.int32),
-            *[x.data_ptr() for x in tabs + i32], states.data_ptr(), flags.data_ptr(),
+            *[None if x is None else x.data_ptr() for x in tabs + i32], states.data_ptr(),
+            flags.data_ptr(),
             t_len, s, r, l_ends, b, eps_depth,
             trace.data_ptr() if trace is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)

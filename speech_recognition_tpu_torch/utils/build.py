@@ -117,7 +117,7 @@ def load_library() -> ctypes.CDLL:
                                        p] + [i] * 9 + [p, p]
     lib.banded_backtrace_launch.argtypes = [p, p, p, p, p, p,
                                             i, i, i, i, i, p]
-    lib.banded_backtrace_general_launch.argtypes = [p, p, i, p, p, p, p, p, p, p,
+    lib.banded_backtrace_general_launch.argtypes = [p, p, i, p, p, p, p, p, p, p, p,
                                                     i, i, i, i, i, i, p, p]
     lib.viterbi_lex_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, p, p, p,
                                        p, p, i, p, p, p, p, p,

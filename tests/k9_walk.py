@@ -11,8 +11,11 @@ the word's eps_u entries (slot start_pos[lo]).  At frame t the state
 before any unwind is recorded; while the code is the eps code (4) and
 fewer than eps_depth unwinds ran, st moves to word_ends[eps_u[t,
 start_pos[st], b]] and the code is re-read at the same frame (a new
-window once st leaves [lo, hi]); then st steps to st - code for t > 0
-(st - 4 if the eps code is left after eps_depth unwinds).  While the
+window once st leaves [lo, hi]); then st steps to st - code for t > 0,
+or to cross_src[st] for the cross code (3) of a graph with cross edges
+(st - 4 if the eps code is left after eps_depth unwinds).  On such a
+graph the hint also takes the arc starts (the targets of finite cross
+edges).  While the
 walk runs, the next window of the same word and span is loaded (used when
 the walk ends inside [lo, hi] with the window used up), and, where the
 window has an eps code at lo, the window of the word the first such
@@ -22,6 +25,7 @@ unwind lands in, at that frame (used when the walk unwinds there).
 import numpy as np
 
 K_WIN = 128  # the kernel's kWin
+CROSS = 3    # the cross code
 EPS = 4      # the eps code
 
 
@@ -34,12 +38,14 @@ def word_hint(st, is_start):
     return max(st - 31, 0)
 
 
-def walk(bp8, eps_u, start_pos, word_ends, is_start, end_state, nf, eps_depth):
+def walk(bp8, eps_u, start_pos, word_ends, is_start, end_state, nf, eps_depth,
+         cross_src=None):
     """The kernel's walk over numpy planes ``bp8 [T, S, B]``, ``eps_u [T,
-    R, B]`` and the graph's ``start_pos``, ``word_ends``, ``is_start``:
-    ``(states [T, B], flags [T, B], waited, ahead, unwinds)``, the last
-    three summed over streams (``ahead``: windows loaded during a walk,
-    of the same span or of a word change)."""
+    R, B]`` and the graph's ``start_pos``, ``word_ends``, span hint
+    ``is_start`` (``graph_tables``) and ``cross_src`` (None: no cross
+    edges): ``(states [T, B], flags [T, B], waited, ahead, unwinds)``, the
+    last three summed over streams (``ahead``: windows loaded during a
+    walk, of the same span or of a word change)."""
     t_len, _, b_len = bp8.shape
     n_ends = len(word_ends)
     states = np.zeros((t_len, b_len), np.int64)
@@ -83,7 +89,8 @@ def walk(bp8, eps_u, start_pos, word_ends, is_start, end_state, nf, eps_depth):
                     continue
                 states[tt, b], flags[tt, b] = rec, used
                 if tt > 0:
-                    st -= code
+                    st = (int(cross_src[st]) if code == CROSS and cross_src is not None
+                          else st - code)
                 f += 1
                 rec, k, used = st, 0, False
                 if st < lo or st > hi:
@@ -94,5 +101,10 @@ def walk(bp8, eps_u, start_pos, word_ends, is_start, end_state, nf, eps_depth):
 
 
 def graph_tables(g):
-    """``(start_pos, word_ends, is_start)`` of a BandedGraph as numpy."""
-    return g.start_pos.numpy(), g.word_ends.numpy(), g.is_start.numpy()
+    """``(start_pos, word_ends, span hint)`` of a BandedGraph as numpy: the
+    hint the kernel's wrapper passes (word starts, and on a graph with
+    cross edges the targets of finite ones)."""
+    hint = g.is_start.numpy()
+    if g.cross_src is not None:
+        hint = hint | (g.cross_cost.numpy() < 1e30 / 2)
+    return g.start_pos.numpy(), g.word_ends.numpy(), hint

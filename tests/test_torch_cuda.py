@@ -23,7 +23,10 @@ frame; K12 (the MFCC cepstra) at K3's rtol 2e-3 / atol 5e-4.  K15 / K16 (the
 banded and dense forward-backward) against their plain versions: log Z
 at rtol 1e-5, gamma at atol 1e-4, xi at rtol 1e-4 / atol 1e-3 (the same
 IEEE expf / logf on both sides; only the sums over frames and over a
-row's origins run in other orders).  Decodes
+row's origins run in other orders).  K9's cross mode is held exactly
+to the plain backtrace on tries' exact and beam planes; the pruned
+forward, the token beam and the spell checker run the same tensor ops
+on the card as on the CPU and are compared exactly.  Decodes
 on the card against the CPU
 (emission GEMMs on two devices) compare words exactly and costs at rtol
 1e-5.
@@ -2400,3 +2403,162 @@ def test_streaming_decode_cuda_matches_monolithic(dev, kind):
         if not incremental:
             np.testing.assert_array_equal(states, st[i, : nf[i]])
     assert vk.viterbi_banded_chunk.launches + lk.viterbi_lex_chunk.launches > 0
+
+
+# ---------------------------------------------------------------------------
+# the beams: K9's cross mode, the pruned forward, the token beam, the spell
+# checker (the plain forms run on the card; K9 backtraces their planes)
+# ---------------------------------------------------------------------------
+
+
+def _trie_case(kind):
+    """``(port graph, eps_depth, n_bank_rows)``: the hand-built tries of
+    ``tests/hand_trie.py`` (arcs of 1, 2 and 3 states) or a lexicon trie."""
+    from hand_trie import port_graph, trie_arrays
+
+    if kind == "hand trie":
+        arrs, depth, n_bank = trie_arrays(5)
+    elif kind == "big hand trie":  # ~50 roots, arcs down to depth 5
+        arrs, depth, n_bank = trie_arrays(8, n_roots=50, depth=5)
+    else:
+        lexg, n_bank = _lex_graph(kind)
+        return lexg.banded, lexg.eps_depth, n_bank
+    return port_graph(arrs), depth, n_bank
+
+
+@pytest.mark.parametrize("kind,b,t,beam", [
+    ("hand trie", 7, 30, 0), ("hand trie", 40, 50, 5), ("big hand trie", 64, 80, 0),
+    ("big hand trie", 64, 80, 16), ("deep", 33, 60, 0), ("deep", 33, 60, 8),
+    ("deep_int32", 20, 40, 12)])
+def test_k9_cross_mode_matches_plain(dev, kind, b, t, beam):
+    """K9 on a trie's planes (the exact plain forward's and the beam
+    forward's): states and flags bit-identical to the plain backtrace,
+    with lengths 0, 1, T and T + 3, and cross steps out of arcs of every
+    length on the best paths."""
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.viterbi_banded import _CROSS, viterbi_banded_tb
+
+    g, depth, n_bank = _trie_case(kind)
+    g = g.to(dev)
+    rng = np.random.default_rng(b + t + beam)
+    nll = torch.from_numpy(rng.uniform(0, 5, (t, n_bank, b)).astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[t, 0, 1, t + 3, rng.integers(2, t + 1, b)][:b]
+                          .astype(np.int32)).to(dev)
+    fin, bp8, eps_u = viterbi_banded_tb(nll[:, g.bank_state], g, nf, depth, beam_width=beam)
+    ends = g.end_states[torch.argmin(fin[g.end_states] + g.end_bonus[:, None], 0)]
+    before = vk.banded_backtrace_general.launches
+    sk, fk = vk.banded_backtrace_general(bp8, eps_u, g, ends, nf, depth)
+    sp, fp = vk.banded_backtrace_general_ref(bp8, eps_u, g, ends, nf, depth)
+    torch.cuda.synchronize()
+    assert vk.banded_backtrace_general.launches == before + 1
+    assert torch.equal(sk, sp) and torch.equal(fk, fp)
+    tt = torch.arange(1, t, device=dev)[:, None]
+    codes = bp8[tt, sp[1:].long(), torch.arange(b, device=dev)[None]]
+    assert int(((codes == _CROSS) & (tt < nf[None])).sum()) > 0  # the walks crossed arcs
+
+
+@pytest.mark.parametrize("kind,beam", [("hand trie", 4), ("deep", 9), ("loop_lm", 3),
+                                       ("sausage_1state", 6)])
+def test_beam_forward_cuda_matches_cpu(dev, kind, beam):
+    """The pruned plain forward on the card: final, bp8 and eps_u
+    bit-identical to the CPU's (``torch.kthvalue`` on both)."""
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays, viterbi_banded_tb
+
+    if kind in ("hand trie", "deep"):
+        g, depth, n_bank = _trie_case(kind)
+    else:
+        bank, graph = _general_graph(kind)
+        g, depth, n_bank = banded_arrays(graph), graph.eps_depth, bank.n_models * bank.n_states
+    rng = np.random.default_rng(beam)
+    nll = torch.from_numpy(rng.integers(0, 4, (40, n_bank, 9)).astype(np.float32))
+    nf = torch.from_numpy(np.r_[40, 1, rng.integers(2, 41, 7)].astype(np.int32))
+    want = viterbi_banded_tb(nll[:, g.bank_state], g, nf, depth, beam_width=beam)
+    gd = g.to(dev)
+    got = viterbi_banded_tb(nll.to(dev)[:, gd.bank_state], gd, nf.to(dev), depth,
+                            beam_width=beam)
+    for a, w in zip(got, want):
+        assert torch.equal(a.cpu(), w)
+
+
+@pytest.mark.parametrize("k,lm", [(12, False), (24, True), (200, False)])
+def test_token_beam_cuda_matches_cpu(dev, k, lm):
+    """``beam_search`` and ``beam_backtrace`` on the card: every output
+    (token planes included) bit-identical to the CPU's on the same
+    emissions, with and without the carried bigram."""
+    from speech_recognition_tpu_torch.ops.beam import beam_backtrace, beam_search, beam_tables
+
+    lexg, n_bank = _lex_graph("deep")
+    rng = np.random.default_rng(k)
+    e = torch.from_numpy(rng.uniform(0, 5, (6, 50, n_bank)).astype(np.float32))
+    nf = torch.from_numpy(np.r_[50, 1, 17, 50, 33, 8].astype(np.int32))
+    big = big_end = None
+    if lm:
+        v = lexg.n_words
+        big = torch.from_numpy(rng.uniform(0.1, 3, (v + 1, v)).astype(np.float32))
+        big_end = torch.from_numpy(rng.uniform(0.1, 2, v).astype(np.float32))
+    out = {}
+    for where in ("cpu", dev):
+        tb = beam_tables(lexg.banded, leaf_word=lexg.leaf_word, device=where)
+        mv = (lambda x: None if x is None else x.to(where))
+        res = beam_search(e.to(where), tb, nf.to(where), k, bigram_cost=mv(big))
+        out[str(where)] = [x.cpu() for x in res + beam_backtrace(
+            res[0], res[1], res[4], res[5], tb, nf.to(where), final_pred=res[2],
+            bigram_cost=mv(big), bigram_end=mv(big_end))]
+    for a, w in zip(out[str(dev)], out["cpu"]):
+        assert torch.equal(a, w)
+
+
+def test_beam_decodes_cuda_match_cpu(dev):
+    """``decode_connected(beam_width=)`` and ``decode_lextree(beam_width=)``
+    on the card run the pruned forward and K9 (counted): words equal to
+    the CPU's, costs at rtol 1e-5; ``beam_decode_lextree`` likewise."""
+    import copy
+
+    from speech_recognition_tpu_torch.decode.connected import decode_connected
+    from speech_recognition_tpu_torch.decode.lextree import beam_decode_lextree, decode_lextree
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+
+    bank, graph = _general_graph("sausage_mixed")
+    lexg, _ = _lex_graph("deep")
+    lbank = _bank(5, 3, 2, 6, seed=3)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((8, 40, 6)).astype(np.float32)
+    nf = np.r_[40, 1, rng.integers(2, 41, 6)].astype(np.int32)
+    banks = {"cpu": (bank, lbank), "cuda": (copy.deepcopy(bank).to(dev),
+                                           copy.deepcopy(lbank).to(dev))}
+    runs = {"connected": lambda bk, f, n: decode_connected(bk[0], graph, f, n, beam_width=20),
+            "lextree": lambda bk, f, n: decode_lextree(bk[1], lexg, f, n, beam_width=7),
+            "token": lambda bk, f, n: beam_decode_lextree(bk[1], lexg, f, n, 16)}
+    for name, run in runs.items():
+        before = vk.banded_backtrace_general.launches
+        w_g, c_g = run(banks["cuda"], torch.from_numpy(x).to(dev),
+                       torch.from_numpy(nf).to(dev))
+        torch.cuda.synchronize()
+        k9 = vk.banded_backtrace_general.launches - before
+        w_c, c_c = run(banks["cpu"], torch.from_numpy(x), torch.from_numpy(nf))
+        assert w_g == w_c, name
+        np.testing.assert_allclose(c_g, c_c, rtol=1e-5)
+        assert k9 == (0 if name == "token" else 1), name
+
+
+def test_spell_checker_cuda_matches_cpu(dev):
+    from speech_recognition_tpu_torch.data.lexicon import random_words
+    from speech_recognition_tpu_torch.langmodel.lextree import lextree_from_words
+    from speech_recognition_tpu_torch.langmodel.spellcheck import (
+        SpellChecker,
+        text_viterbi,
+        text_viterbi_batch,
+    )
+
+    words = random_words(np.random.default_rng(1), list("abcdefgh"), 300, 2, 8)
+    tree = lextree_from_words(words)
+    rng = np.random.default_rng(2)
+    texts = ["".join(rng.choice(list("abcdefghij "), int(rng.integers(1, 14))))
+             for _ in range(40)]
+    texts = [t.strip() or "a" for t in texts]
+    assert text_viterbi_batch(texts, tree, device=dev) == text_viterbi_batch(texts, tree,
+                                                                             device="cpu")
+    sc_g, sc_c = SpellChecker(device=dev).fit(words), SpellChecker(device="cpu").fit(words)
+    for t in texts[:12]:
+        assert text_viterbi(t, tree, device=dev) == text_viterbi(t, tree, device="cpu")
+        assert sc_g.spell_check(t) == sc_c.spell_check(t)

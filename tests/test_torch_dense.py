@@ -104,8 +104,13 @@ def test_single_utterance_forms_and_batched_backtrace():
     for b in range(4):
         s1, f1 = tv.viterbi_backtrace(bp[b], eps_bp[b], int(ends[b]), int(nf[b]))
         assert torch.equal(states[b], s1) and torch.equal(flags[b], f1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tv.viterbi(_t(nll[0]), _t(trans), _t(init), 20, beam_width=3)
+    # the rank-threshold beam: the reference's beam_width=3, bit for bit
+    for b in range(4):
+        ref = jv.viterbi(jnp.asarray(nll[b]), jnp.asarray(trans), jnp.asarray(init),
+                         jnp.int32(nf[b]), beam_width=3)
+        got = tv.viterbi(_t(nll[b]), _t(trans), _t(init), int(nf[b]), beam_width=3)
+        for g_, r_ in zip(got, ref[:3]):
+            np.testing.assert_array_equal(g_.numpy(), np.asarray(r_))
 
 
 def test_planes_off_gives_the_same_final():
@@ -169,9 +174,16 @@ def test_graph_that_is_not_banded_decodes_dense_under_auto():
     with pytest.raises(ValueError):
         tconn.decode_connected(tb, gt, torch.from_numpy(feats), torch.from_numpy(nf),
                                backend="banded")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tconn.decode_connected(tb, gt, torch.from_numpy(feats), torch.from_numpy(nf),
-                               backend="dense", beam_width=4)
+    # a beam on a graph that is not banded: the dense decoder ignores it, as
+    # the reference's does (ROADMAP C13), under "dense" and under "auto"
+    for backend in ("dense", "auto"):
+        w_jb, c_jb = jconn.decode_connected(jb, gj, feats, nf, backend=backend, beam_width=4)
+        w_tb, c_tb = tconn.decode_connected(tb, gt, torch.from_numpy(feats),
+                                            torch.from_numpy(nf), backend=backend,
+                                            beam_width=4)
+        assert w_tb == w_jb == w_t
+        np.testing.assert_array_equal(c_tb, c_t)
+        np.testing.assert_allclose(c_tb, np.asarray(c_jb), rtol=1e-5)
 
 
 # K11's plan: the form and sizes ``dense_plan`` picks (no card needed)

@@ -410,9 +410,14 @@ def test_decode_lextree_matches_reference():
     assert w_t == w_j
     assert w_t[:3] == [[words.index(w) for w in seq] for seq in refs]
     np.testing.assert_allclose(c_t, np.asarray(c_j), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tdec.decode_lextree(tb, tg, torch.from_numpy(feats), torch.from_numpy(nf),
-                            beam_width=8)
+    # the beam route (pruned plain forward, K9's plain version over the
+    # cross edges) against the reference's XLA beam route
+    w_jb, c_jb = jdec.decode_lextree(jb, jg, feats, nf, beam_width=8)
+    w_tb, c_tb = tdec.decode_lextree(tb, tg, torch.from_numpy(feats), torch.from_numpy(nf),
+                                     beam_width=8)
+    assert w_tb == w_jb
+    assert w_tb[:3] == w_t[:3]
+    np.testing.assert_allclose(c_tb, np.asarray(c_jb), rtol=1e-5)
 
 
 def test_cli_connected_test_lextree_matches_reference(tmp_path, capsys, monkeypatch):

@@ -219,9 +219,18 @@ def test_wordtrace_refuses_other_graphs():
         with pytest.raises(ValueError, match="word-trace"):
             vk.viterbi_banded_wordtrace_ref(tgmm.augment_dtb(feats), w, lw, bg,
                                             vk.banded_topology(bg), nf)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tconn.decode_connected(tb, tgraph.build_loop_graph(trans), feats, nf,
-                               backend="wordtrace", beam_width=4)
+    # with a beam, "wordtrace" runs the banded beam route, as the reference's
+    # does (ROADMAP C4), on any banded graph
+    for model_trans in (trans, mixed):
+        jw, jc = jconn.decode_connected(jb, jgraph.build_loop_graph(model_trans),
+                                        feats.numpy(), nf.numpy(), backend="wordtrace",
+                                        beam_width=4)
+        tg_ = tgraph.build_loop_graph(model_trans)
+        tw, tc = tconn.decode_connected(tb, tg_, feats, nf, backend="wordtrace", beam_width=4)
+        bw, bc = tconn.decode_connected(tb, tg_, feats, nf, backend="banded", beam_width=4)
+        assert tw == jw == bw
+        np.testing.assert_array_equal(tc, bc)
+        np.testing.assert_allclose(tc, np.asarray(jc), rtol=1e-5)
 
 
 def test_wordtrace_keeps_every_word_on_skip_arcs():
