@@ -155,9 +155,20 @@ the 128 x 5 s lexical-tree and bigram-lattice pipelines are timed with
 CUDA events, K13 and K10 also with torch.profiler's device time (and
 torch.matmul of K13's product alone as a yardstick), and each kernel's
 least possible time on the card (its bound) is computed from the bytes
-and operations of this run's inputs.
+and operations of this run's inputs (``utils/roofline.py``).  Past the
+old size limits, K13 at 512 and 1,024 feature dimensions (its chunked
+form), K15 on a 30,000-state loop and K16 on a 19,500-state loop (their
+device-row tier) are held to their plain versions and timed.
+
+Section 8 (the counterpart of ``__graft_entry__.dryrun_multichip``)
+spawns one NCCL rank per visible card and holds the sharded paths of
+``parallel/`` to the single-process results on card 0: the hard and soft
+training steps, the state-sharded banded Viterbi (bit for bit), the
+classifier and a data-sharded bigram decode; their launches count
+toward the kernels' totals.
 
 Run from the repository root with one GPU:  python3 chip_smoke.py
+(``--parallel``: the build and section 8 alone, on every visible card)
 
 The last three lines of stdout are the kernels JSON, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -201,194 +212,6 @@ FB_XI_TOL = {"rtol": 1e-4, "atol": 1e-3}
 # the CPU test corpus (scripts/exp_r13_float32_noise.py)
 CONF_ATOL = 1e-2
 
-# The card's published peaks (H100 SXM data sheet, at a 700 W limit):
-# device memory bandwidth and f32 rate outside the tensor cores (the port
-# keeps TF32 off); an add, min or compare counts as one operation.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# a serial walk's step: one dependent shared-memory load (~30 cycles on
-# Hopper) at the H100 SXM's boost clock
-SMEM_STEP_CYCLES = 30
-SM_CLOCK_HZ = 1.98e9
-
-
-# exp and log issue on the special function units, 16 a clock per SM: 132
-# SMs at the boost clock give ~4.2e12 a second (the forward-backward
-# kernels K15 / K16 are mostly exps and logs)
-SFU_PER_S = 132 * 16 * SM_CLOCK_HZ
-
-
-def bound(n_bytes: float, n_ops: float, n_sfu: float = 0.0):
-    """``(ms, "bytes" | "operations")``: the least time the card could
-    take to move ``n_bytes``, do ``n_ops`` f32 operations and ``n_sfu``
-    exps and logs (the largest of the three; the SFU term counts as
-    operations), and which sets it."""
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
-    t_o = max(t_o, n_sfu / SFU_PER_S * 1e3)
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
-def nbytes(*tensors) -> int:
-    return sum(x.numel() * x.element_size() for x in tensors if x is not None)
-
-
-# Work models of the bounds: the bytes each kernel must move (every input
-# read once, every output written once; a backtrace reads only the plane
-# entries its walk visits) and the operations it does on this run's data
-# (frames past a stream's length are not counted where the kernel skips
-# them).  Per state and frame the banded DP does 3 band adds and compares,
-# an emission add and a clamp (8), a trie's cross edge 3 more; the re-entry
-# an add and a compare per (root, leaf) pair.
-
-
-def graph_bytes(g) -> int:
-    """The graph arrays a DP kernel reads, at 4 bytes an entry."""
-    parts = (g.band, g.init_cost, g.bank_state, g.word_starts, g.word_ends, g.eps_block,
-             g.cross_src, g.cross_cost)
-    return 4 * sum(x.numel() for x in parts if x is not None)
-
-
-def dp_ops(g, frames: int, eps_pairs: int = None, passes: int = 1) -> float:
-    """Operations of ``frames`` (frame, stream) steps of the banded DP:
-    ``passes`` re-entry passes over ``eps_pairs`` (word end, word start)
-    pairs each (default: the whole eps block)."""
-    per_state = 8 + (3 if g.cross_src is not None else 0)
-    pairs = g.eps_block.numel() if eps_pairs is None else eps_pairs
-    return frames * (g.n_states * per_state + passes * (2 * pairs + 2 * g.n_words))
-
-
-def span_pairs(topo) -> int:
-    """The (word start, word end) pairs a banded kernel visits: the finite
-    spans of the eps block (``BandedTopo.ranges``)."""
-    return sum((r_hi - r_lo) * (u_hi - u_lo) for r_lo, r_hi, u_lo, u_hi in topo.ranges)
-
-
-def ceps_ops(cfg, n_frames: int) -> float:
-    """Operations of the MFCC cepstra over ``n_frames`` frames: pre-emphasis
-    and window, half a complex N-point FFT per real frame (5 N log2 N
-    each), power, two triangular filters per bin, log, DCT, lifter."""
-    import math
-
-    n, half = cfg.n_fft, cfg.n_fft // 2 + 1
-    return n_frames * (3 * cfg.frame_len + 2.5 * n * math.log2(n) + 3 * half + 4 * half
-                       + cfg.n_mels + 2 * cfg.n_mels * cfg.n_ceps + cfg.n_ceps)
-
-
-def dense_ops(steps: int, s: int, eps_depth: int) -> float:
-    """Operations of ``steps`` (item, frame) steps of the dense Viterbi: an
-    add and a compare per (to, from) pair for the frame edge and for each
-    of ``eps_depth`` eps passes (0 without eps)."""
-    return float(steps) * s * s * 2 * (1 + eps_depth)
-
-
-def mfcc_ops(cfg, n_frames: int) -> float:
-    """Operations of the fused MFCC-39 over ``n_frames`` frames: pre-emphasis
-    and window, half a complex N-point FFT per real frame (5 N log2 N
-    each), power, two triangular filters per bin, log, DCT, lifter, the
-    two delta passes and the standardization."""
-    import math
-
-    n, half = cfg.n_fft, cfg.n_fft // 2 + 1
-    per = (3 * cfg.frame_len + 2.5 * n * math.log2(n) + 3 * half + 4 * half + cfg.n_mels
-           + 2 * cfg.n_mels * cfg.n_ceps + cfg.n_ceps + 2 * 10 * cfg.n_ceps
-           + 4 * 3 * cfg.n_ceps)
-    return n_frames * per
-
-
-def tail_ops(cfg, n_frames: int) -> float:
-    """Operations of the MFCC-39 tail over ``n_frames`` frames: the two
-    delta passes and the standardization (mfcc_ops' last two terms)."""
-    return n_frames * (2 * 10 * cfg.n_ceps + 4 * 3 * cfg.n_ceps)
-
-
-def rescore_ops(t_len: int, b: int, l: int, k: int, dense: bool) -> float:
-    """Operations of the rescoring DP over every frame of ``b`` streams:
-    per leaf the D select and add, the backoff add and compare, K sparse
-    adds and compares, the take and the ring store (6 + 2K), or the dense
-    min-plus column (2L) plus 3."""
-    per_leaf = 2 * l + 3 if dense else 6 + 2 * k
-    return float(t_len) * b * l * per_leaf
-
-
-def fb_steps(nf, t_len: int):
-    """Per item: the forward's steps (frames below its length, and frame 0
-    of an empty item), the backward's (one fewer) and the frames gamma is
-    computed on, as int64 tensors."""
-    n = nf.clamp(min=0, max=t_len).long()
-    return n.clamp(min=1), (n - 1).clamp(min=0), n
-
-
-# The forward-backward work models count what this run's inputs need: an
-# exp (and 5 f32 operations: the add, the max, the subtract, the sum) per
-# finite matrix / band / eps entry of an LSE, a log a row that has one, a
-# logaddexp (exp and log1p) a state an eps pass reaches, the cross edges',
-# then gamma a state and frame and an xi term per finite edge and frame;
-# NEG_INF entries, which add exactly nothing, are not counted.  Bytes:
-# every input read once, every output written once (the alpha and beta
-# planes are scratch).
-
-
-def _fin(cost, b):
-    """``cost < POS_INF / 2`` with a leading batch axis of ``b``."""
-    fin = cost < 0.5e30
-    return fin if fin.dim() == 3 else fin.expand((b,) + tuple(fin.shape))
-
-
-def fb_dense_work(nll, trans, eps, init, end, nf, depth: int, out):
-    """``(bytes, operations, exps and logs)`` of K16 on these inputs."""
-    b, t_len, s = nll.shape
-    fw, bw, nfc = fb_steps(nf, t_len)
-    ft = _fin(trans, b)
-    sfu = ((fw - 1) * (ft.sum((1, 2)) + ft.any(2).sum(1))
-           + bw * (ft.sum((1, 2)) + ft.any(1).sum(1)))
-    if eps is not None:
-        fe = _fin(eps, b)
-        sfu = sfu + depth * (fw * (fe.sum((1, 2)) + fe.any(2).sum(1) + 2 * s)
-                             + bw * (fe.sum((1, 2)) + fe.any(1).sum(1) + 2 * s))
-    if out.xi_sum.shape[1] == s:  # dense xi: a term per finite (to, from) pair
-        xi_terms = ft.sum((1, 2))
-    else:  # band xi: the finite entries trans[u + d, u]
-        xi_terms = sum(ft[:, d:, :s - d].diagonal(dim1=1, dim2=2).sum(1) for d in range(3))
-    comb = nfc * s + (nfc - 1).clamp(min=0) * xi_terms
-    sfu_n = float((sfu + comb).sum())
-    ops = 5 * sfu_n + 4 * s * float((fw + bw).sum()) * (1 + (depth if eps is not None else 0))
-    return (nbytes(nll, trans, eps, init, end, nf, out.gamma, out.xi_sum, out.log_z), ops,
-            sfu_n)
-
-
-def fb_banded_work(nll, g, nf, depth: int, end, out):
-    """``(bytes, operations, exps and logs)`` of K15 on these inputs."""
-    import torch
-
-    b, t_len, s = nll.shape
-    fw, bw, nfc = fb_steps(nf, t_len)
-    band = g.band if g.band.dim() == 3 else g.band.expand((b,) + tuple(g.band.shape))
-    # the band's finite entries: edge s - d -> s for s >= d
-    fb_ = torch.stack([(band[:, d] < 0.5e30) & (torch.arange(s, device=band.device) >= d)
-                       for d in range(3)], 1)
-    n_band, band_rows = fb_.sum((1, 2)), fb_.any(1).sum(1)
-    fe = _fin(g.eps_block, b)
-    n_eps = fe.sum((1, 2))
-    is_start = g.is_start if g.is_start.dim() == 2 else g.is_start.expand(b, s)
-    ends = g.word_ends if g.word_ends.dim() == 2 else g.word_ends.expand(b, -1)
-    n_end = torch.zeros((b, s), dtype=torch.bool, device=ends.device).scatter_(
-        1, ends.long(), True).sum(1)
-    n_cross = 0
-    if g.cross_src is not None:
-        cc = g.cross_cost if g.cross_cost.dim() == 2 else g.cross_cost.expand(b, s)
-        n_cross = (cc < 0.5e30).sum(1)
-    sfu = ((fw - 1) * (n_band + band_rows + 2 * n_cross) + bw * (n_band + band_rows
-                                                                 + 2 * n_cross)
-           + depth * (fw * (n_eps + fe.any(2).sum(1) + 2 * is_start.sum(1))
-                      + bw * (n_eps + fe.any(1).sum(1) + 2 * n_end))
-           + nfc * s + (nfc - 1).clamp(min=0) * (n_band + n_cross))
-    sfu_n = float(sfu.sum())
-    ops = 5 * sfu_n + 4 * s * float((fw + bw).sum()) * (1 + depth)
-    graph = [g.band, g.init_cost, g.eps_block, g.word_starts, g.word_ends, g.start_pos,
-             g.is_start, g.cross_src, g.cross_cost]
-    return (nbytes(nll, *graph, end, nf, out.gamma, out.xi_sum, out.xi_cross, out.log_z),
-            ops, sfu_n)
-
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -401,21 +224,10 @@ def phase(name: str, msg: str) -> None:
 
 def cuda_ms(fn, reps: int = 5) -> float:
     """Median CUDA-event time of ``fn()`` over ``reps`` runs, after one
-    warm-up run."""
-    import torch
+    warm-up run, in ms (``utils.profiling.timed``)."""
+    from speech_recognition_tpu_torch.utils.profiling import timed
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
+    return timed(fn, warmup=1, iters=reps)[0] * 1e3
 
 
 def queued_ms(fn, reps: int = 10) -> float:
@@ -802,7 +614,345 @@ def stream_lines(out: str) -> dict:
     return got
 
 
-def main() -> int:
+def kernel_counters() -> tuple:
+    """Every kernel wrapper of the port, each counting its launches in
+    ``<wrapper>.launches``."""
+    from speech_recognition_tpu_torch.ops import forward_backward_kernels as fbk
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lt
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops import viterbi_lex_kernels as lk
+    from speech_recognition_tpu_torch.ops.frontend_kernel import (
+        mfcc39_fused,
+        mfcc_fused,
+        mfcc_tail,
+    )
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import viterbi_dense
+
+    return (mfcc39_fused, mfcc_tail, vk.bank_emission, vk.viterbi_banded_fused,
+            vk.banded_backtrace_val,
+            lk.viterbi_lex, lk.lex_backtrace_val, lt.viterbi_lattice, lt.rescore_lattice,
+            vk.viterbi_banded_general, vk.banded_backtrace_general,
+            vk.viterbi_banded_wordtrace, viterbi_dense, mfcc_fused, fbk.fb_banded,
+            fbk.fb_dense, vk.viterbi_banded_chunk, lk.viterbi_lex_chunk)
+
+
+# ---- section 8: the sharded paths, one NCCL rank per card ---------------------
+# The counterpart of __graft_entry__.dryrun_multichip: the sharded hard and
+# soft training steps on its shapes (a (world/2, 2) grid with 12 models when
+# the world is even, else (world, 1) with 11), the state-sharded banded
+# Viterbi on a (1, world) line, the data-sharded classifier and bigram
+# decode on a (world, 1) mesh.  The parent builds the inputs and the
+# single-process results on card 0; each rank loads the inputs, runs the
+# paths with its launch counters reset before each (their launches count
+# toward the kernels' totals) and times them; the parent compares.
+
+PAR_TRAIN = {"hard step (K11)": ("g_hard", False), "soft step, dense dict (K16)":
+             ("g_dense", True), "soft step, banded dict (K15)": ("g_band", True)}
+PAR_BEAMS = (0, 8)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def parallel_rank(rank: int, world: int, workdir: str, port: int) -> None:
+    """One NCCL rank of section 8 (``torch.multiprocessing.spawn``'s
+    target): writes ``rank_<rank>.pt`` with its outputs, launch counts,
+    times and collectives per frame."""
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    from speech_recognition_tpu_torch import parallel
+    from speech_recognition_tpu_torch.models.hmm import HMMBank
+    from speech_recognition_tpu_torch.ops.lattice import decode_lextree_bigram
+    from speech_recognition_tpu_torch.parallel.sharded_decode import (
+        gather_planes,
+        make_sharded_banded_viterbi,
+        pad_banded_for_sharding,
+        state_slice,
+    )
+    from speech_recognition_tpu_torch.utils.build import load_library
+    from speech_recognition_tpu_torch.utils.numerics import POS_INF
+
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    load_library()
+    parallel.init_distributed(backend="nccl", init_method=f"tcp://localhost:{port}",
+                              rank=rank, world_size=world)
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    counters = kernel_counters()
+    out = {"launches": {c.__name__: 0 for c in counters}, "ms": {}, "collectives": {},
+           "train": {}, "decode": {}}
+
+    def counted(fn):
+        for c in counters:
+            c.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        for c in counters:
+            out["launches"][c.__name__] += c.launches
+        return res
+
+    def ms_of(name, fn):
+        dist.barrier()
+        out["ms"][name] = cuda_ms(fn)
+
+    grid_shape = inp["grid"]
+    shard = grid_shape[1] > 1
+    grid = parallel.make_mesh(grid_shape)
+    bank = HMMBank(*inp["train_bank"])
+    for name, (gkey, soft) in PAR_TRAIN.items():
+        step = parallel.make_sharded_embedded_step(grid, eps_depth=inp["depth"],
+                                                   shard_models=shard, soft=soft)
+        args = parallel.shard_embedded_inputs(grid, bank, inp["feats"], inp["nf"], inp[gkey],
+                                              shard_models=shard)
+        new, stats = counted(lambda: step(*args))
+        out["train"][name] = ([x.cpu() for x in (new.means, new.log_vars, new.log_weights,
+                                                  new.trans_cost)], float(stats.total_cost))
+        ms_of(name, lambda: step(*args))
+    line = parallel.make_mesh((1, world))
+    for name, (g, nll_tb, nf, depth) in inp["decode"].items():
+        gp, s = pad_banded_for_sharding(g.to(dev), world)
+        pad = torch.full((nll_tb.shape[0], gp.n_states - s, nll_tb.shape[2]), POS_INF)
+        local = torch.cat([nll_tb, pad], 1)[:, state_slice(line, gp.n_states)].to(dev)
+        nf = nf.to(dev)
+        for beam in PAR_BEAMS:
+            run = make_sharded_banded_viterbi(line, gp, depth, beam_width=beam)
+            fin, bp8, eps_u = counted(lambda: run(local, nf))
+            fin, bp8 = gather_planes(line, fin, bp8)
+            out["decode"][name, beam] = (fin[:s].cpu(), bp8[:, :s].cpu(), eps_u.cpu())
+            out["collectives"][name, beam] = run.collectives_per_frame
+            ms_of(f"decode {name}, k = {beam}", lambda: run(local, nf))
+    data = parallel.make_mesh((world, 1))
+    classify = parallel.make_sharded_classifier(data)
+    cbank = parallel.bank_shard(data, HMMBank(*inp["cls_bank"]))
+    cx, cn = (parallel.batch_shard(data, inp[k]) for k in ("cls_feats", "cls_nf"))
+    out["classify"] = counted(lambda: classify(cbank, cx, cn))[0].cpu()
+    ms_of("classifier", lambda: classify(cbank, cx, cn))
+    ubank = parallel.bank_shard(data, HMMBank(*inp["lex_bank"]))
+    lx, ln = (parallel.batch_shard(data, inp[k]) for k in ("lex_feats", "lex_nf"))
+    words = counted(lambda: decode_lextree_bigram(ubank, inp["lexg"], inp["lm"], lx, ln))[0]
+    parts = [None] * world
+    dist.all_gather_object(parts, words, group=data.get_group("data"))
+    out["bigram"] = [w for part in parts for w in part]
+    ms_of("bigram decode", lambda: decode_lextree_bigram(ubank, inp["lexg"], inp["lm"], lx,
+                                                         ln))
+    torch.save(out, os.path.join(workdir, f"rank_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_section(dev, tmp: str, card: str) -> dict:
+    """Section 8: builds the inputs and the single-process results on
+    ``dev``, spawns one NCCL rank per card, holds every rank's outputs to
+    the single-process ones and prints the times.  Returns the ranks'
+    launch counts, summed."""
+    import numpy as np
+    import torch
+
+    from speech_recognition_tpu_torch.data.synthetic import random_gmm_hmm
+    from speech_recognition_tpu_torch.decode.connected import connected_graph_arrays
+    from speech_recognition_tpu_torch.decode.isolated import classify_batch
+    from speech_recognition_tpu_torch.langmodel.bigram import fit_bigram
+    from speech_recognition_tpu_torch.models.graph import (
+        build_word_graph,
+        pad_graphs,
+        pad_graphs_banded,
+    )
+    from speech_recognition_tpu_torch.models.hmm import HMMBank, bank_nll_ubt
+    from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.frontend import mfcc39_auto
+    from speech_recognition_tpu_torch.ops.gmm import augment_dtb, gmm_emission_weights
+    from speech_recognition_tpu_torch.ops.lattice import decode_lextree_bigram
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays, viterbi_banded_tb
+    from speech_recognition_tpu_torch.train.embedded_step import (
+        embedded_step,
+        embedded_step_soft,
+    )
+    from speech_recognition_tpu_torch.utils.numerics import to_cost_matrix
+
+    world = torch.cuda.device_count()
+    grid = (world // 2, 2) if world % 2 == 0 else (world, 1)
+    n_models = 12 if grid[1] > 1 else 11
+    rng = np.random.default_rng(0)
+    # dryrun_multichip's training shapes: 5 states x 2 mixtures x 16 dims,
+    # 2 utterances a data rank of 64 frames, 3-word transcripts
+    ps = [random_gmm_hmm(rng, n_states=5, n_mix=2, dim=16, sep=3.0) for _ in range(n_models)]
+    tbank = HMMBank.from_numpy(np.stack([p["means"] for p in ps]),
+                               np.log(np.stack([p["variances"] for p in ps])),
+                               np.log(np.stack([p["weights"] for p in ps])),
+                               np.stack([to_cost_matrix(p["trans"]) for p in ps]))
+    trans_np = [tbank.trans_cost[i].numpy() for i in range(n_models)]
+    b_tr, t_tr = grid[0] * 2, 64
+    labels = [[int(rng.integers(0, n_models)) for _ in range(3)] for _ in range(b_tr)]
+    graphs = [build_word_graph(trans_np, [[w_] for w_ in ls]) for ls in labels]
+    dense, depth = pad_graphs(graphs)
+    banded, depth_b = pad_graphs_banded(graphs)
+    if depth_b != depth:
+        fail(f"the banded dict's eps depth {depth_b} is not the dense one's {depth}")
+    gt = lambda keys, src: {k: torch.as_tensor(src[k]) for k in keys}  # noqa: E731
+    inp = {"grid": grid, "depth": depth,
+           "train_bank": [tbank.means, tbank.log_vars, tbank.log_weights, tbank.trans_cost],
+           "feats": torch.from_numpy(rng.standard_normal((b_tr, t_tr, 16)).astype(np.float32)),
+           "nf": torch.full((b_tr,), t_tr, dtype=torch.int32),
+           "g_hard": gt(("trans", "eps_trans", "init_cost", "end_states", "bank_state"), dense),
+           "g_dense": gt(("trans", "eps_trans", "init_cost", "end_scores", "bank_state"), dense),
+           "g_band": gt(tuple(banded), banded)}
+    # the decodes: the 385-state sausage over the CLI-shaped bank (K13's
+    # emissions, 64 streams x 200 frames) and the 8-word lexgraph
+    cbank = random_bank(5).to(dev)
+    w, lw = gmm_emission_weights(*cbank.flat_states())
+    graph7 = connected_graph_arrays(cbank, 7)
+    bg7 = banded_arrays(graph7, device=dev)
+    b_d, t_d = 64, 200
+    feats_d = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (b_d, t_d, 39)).astype(np.float32)).to(dev)
+    nf_d = torch.from_numpy(np.r_[t_d, 1, np.random.default_rng(2).integers(
+        2, t_d + 1, b_d - 2)].astype(np.int32)).to(dev)
+    u_plane = vk.bank_emission(augment_dtb(feats_d), w, lw)  # [U, T, B]
+    words8 = ["aa", "ab", "abb", "ba", "b", "cab", "ca", "c"]
+    units8 = sorted(set("".join(words8)))
+    lrng = np.random.default_rng(3)
+
+    def ltr3(skip):
+        t_ = np.full((3, 3), np.inf)
+        for i in range(3):
+            t_[i, i] = lrng.uniform(0.1, 1)
+            if i + 1 < 3:
+                t_[i + 1, i] = lrng.uniform(0.1, 1)
+            if skip and i + 2 < 3:
+                t_[i + 2, i] = lrng.uniform(0.5, 2)
+        return t_
+
+    lex8 = build_lex_graph(words8, [ltr3(i % 2 == 0) for i in range(len(units8))],
+                           {c: i for i, c in enumerate(units8)},
+                           unigram_cost=lrng.uniform(0.5, 3.0, len(words8)).astype(np.float32),
+                           word_insertion_cost=0.4)
+    g8 = lex8.banded.to(dev)
+    e8 = torch.from_numpy(lrng.uniform(0, 5, (37, len(units8) * 3, 8)).astype(np.float32))
+    nf8_ = torch.tensor([37, 19, 1, 37, 30, 2, 11, 36], dtype=torch.int32)
+    decode = {"385-state sausage7 64x200": (bg7, u_plane[bg7.bank_state].permute(1, 0, 2),
+                                            nf_d, graph7.eps_depth),
+              f"8-word lexgraph ({lex8.n_states} states, cross edges) 8x37":
+                  (g8, e8[:, g8.bank_state.cpu()].to(dev), nf8_.to(dev), lex8.eps_depth)}
+    inp["decode"] = {k: (g_.to("cpu"), x_.contiguous().cpu(), n_.cpu(), d_)
+                     for k, (g_, x_, n_, d_) in decode.items()}
+    # the classifier: the CLI-shaped bank, 64 x world utterances of 200 frames
+    b_c = 64 * world
+    inp["cls_bank"] = [x.cpu() for x in (cbank.means, cbank.log_vars, cbank.log_weights,
+                                         cbank.trans_cost)]
+    inp["cls_feats"] = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (b_c, 200, 39)).astype(np.float32))
+    inp["cls_nf"] = torch.from_numpy(np.random.default_rng(5).integers(
+        100, 201, b_c).astype(np.int32))
+    # the bigram decode: the lex pipeline's 8-unit bank and 1k trie, 32 x
+    # world 5 s signals, an add-k LM of 200 random 12-word sentences
+    lbank, lexg, lcfg, lsig, llens = make_lex_pipeline(dev, batch=32 * world)
+    lfeats, lnf = mfcc39_auto(lsig, llens, lcfg)
+    prng = np.random.default_rng(9)
+    lm = fit_bigram([[int(x) for x in prng.integers(0, len(lexg.words), 12)]
+                     for _ in range(200)], len(lexg.words))
+    inp.update(lex_bank=[x.cpu() for x in (lbank.means, lbank.log_vars, lbank.log_weights,
+                                           lbank.trans_cost)],
+               lex_feats=lfeats.cpu(), lex_nf=lnf.cpu(), lexg=lexg, lm=lm)
+    workdir = os.path.join(tmp, "parallel")
+    os.makedirs(workdir)
+    torch.save(inp, os.path.join(workdir, "inputs.pt"))
+
+    # the single-process results on the card, and their times
+    single_ms = {}
+    tb = tbank.to(dev)
+    fx, fn_ = inp["feats"].to(dev), inp["nf"].to(dev)
+    single_train = {}
+    for name, (gkey, soft) in PAR_TRAIN.items():
+        g_ = {k: v.to(dev) for k, v in inp[gkey].items()}
+        fn = (lambda g_=g_, soft=soft: (embedded_step_soft if soft else embedded_step)(
+            tb, fx, fn_, g_, eps_depth=depth))
+        single_train[name] = fn()
+        single_ms[name] = cuda_ms(fn)
+    single_dec = {}
+    for name, (g_, x_, n_, d_) in decode.items():
+        for beam in PAR_BEAMS:
+            single_dec[name, beam] = viterbi_banded_tb(x_, g_, n_, d_, beam_width=beam)
+            single_ms[f"decode {name}, k = {beam}"] = cuda_ms(
+                lambda: viterbi_banded_tb(x_, g_, n_, d_, beam_width=beam), 3)
+    k8 = vk.viterbi_banded_general(u_plane.contiguous(), bg7, vk.banded_topology(bg7), nf_d,
+                                   graph7.eps_depth)
+    cx, cn = inp["cls_feats"].to(dev), inp["cls_nf"].to(dev)
+    cpred = classify_batch(cbank, cx, cn)[0]
+    single_ms["classifier"] = cuda_ms(lambda: classify_batch(cbank, cx, cn))
+    lwords = decode_lextree_bigram(lbank, lexg, lm, lfeats, lnf)[0]
+    single_ms["bigram decode"] = cuda_ms(lambda: decode_lextree_bigram(lbank, lexg, lm, lfeats,
+                                                                       lnf))
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(parallel_rank, args=(world, workdir, free_port()),
+                                nprocs=world, join=True)
+    spawn_s = time.perf_counter() - t0
+    outs = [torch.load(os.path.join(workdir, f"rank_{r}.pt"), weights_only=False)
+            for r in range(world)]
+    for r, o in enumerate(outs):
+        for name, (params, total) in o["train"].items():
+            want_bank, want_stats = single_train[name]
+            for f_, x_ in zip(("means", "log_vars", "log_weights", "trans_cost"), params):
+                if not torch.allclose(x_, getattr(want_bank, f_).cpu(), rtol=1e-4, atol=1e-4):
+                    fail(f"rank {r}: the sharded {name} disagrees on {f_}: max |d| "
+                         f"{float((x_ - getattr(want_bank, f_).cpu()).abs().max())}")
+            if abs(total - float(want_stats.total_cost)) > 1e-5 * abs(float(
+                    want_stats.total_cost)):
+                fail(f"rank {r}: the sharded {name}'s total cost {total} is not "
+                     f"{float(want_stats.total_cost)}")
+        for key, got in o["decode"].items():
+            want = single_dec[key]
+            for plane, a_, b_ in zip(("final", "bp8", "eps_u"), got, want):
+                if not torch.equal(a_, b_.cpu()):
+                    fail(f"rank {r}: the state-sharded decode of {key[0]} (k = {key[1]}) "
+                         f"differs from viterbi_banded_tb on {plane}")
+            if key[1] == 0 and key[0].startswith("385"):
+                for plane, a_, b_ in zip(("final", "bp8", "eps_u"), got, k8):
+                    if not torch.equal(a_, b_.cpu()):
+                        fail(f"rank {r}: the state-sharded decode differs from K8 on {plane}")
+        if not torch.equal(o["classify"], cpred.cpu()):
+            fail(f"rank {r}: the sharded classifier's predictions differ")
+        if o["bigram"] != lwords:
+            fail(f"rank {r}: the data-sharded bigram decode's words differ")
+    launched = {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
+    for k in ("viterbi_dense", "fb_dense", "fb_banded", "viterbi_lattice", "rescore_lattice"):
+        if not launched[k]:
+            fail(f"section 8 launched no {k}: {launched}")
+    phase("parallel", f"world {world} (NCCL, one rank a card; spawned and done in "
+                      f"{spawn_s:.1f} s); grid {grid} with {n_models} models: sharded hard "
+                      f"and soft steps == single-process (rtol / atol 1e-4, total cost rtol "
+                      f"1e-5); state-sharded decode on (1, {world}) == viterbi_banded_tb bit "
+                      f"for bit (k = 0 and 8), == K8's planes on the sausage; classifier "
+                      f"predictions and bigram words on ({world}, 1) identical")
+    for name in outs[0]["ms"]:
+        ms = max(o["ms"][name] for o in outs)
+        coll = [v for (n_, b_), v in outs[0]["collectives"].items()
+                if name == f"decode {n_}, k = {b_}"]
+        extra = f", {coll[0]} collectives a frame" if coll else ""
+        phase("parallel", f"{name}: {ms:.3f} ms a call (the slowest rank), single process "
+                          f"{single_ms[name]:.3f} ms{extra} (world {world}; {card})")
+    phase("parallel", f"launches: {launched}")
+    return launched
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="the port's chip smoke test (one card by "
+                                             "default)")
+    ap.add_argument("--parallel", action="store_true",
+                    help="build the kernels and run section 8 alone (the sharded paths, "
+                         "one NCCL rank on each visible card)")
+    args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "speech_recognition_tpu_torch")):
         fail("run from a checkout of the repository (speech_recognition_tpu_torch/ missing)")
     sys.path.insert(0, HERE)
@@ -822,6 +972,22 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     from speech_recognition_tpu_torch.utils import build
+    from speech_recognition_tpu_torch.utils.roofline import (
+        SM_CLOCK_HZ,
+        SMEM_STEP_CYCLES,
+        bound,
+        ceps_ops,
+        dense_ops,
+        dp_ops,
+        fb_banded_work,
+        fb_dense_work,
+        graph_bytes,
+        mfcc_ops,
+        nbytes,
+        rescore_ops,
+        span_pairs,
+        tail_ops,
+    )
 
     t0 = time.perf_counter()
     lib_path = build.build()
@@ -860,6 +1026,14 @@ def main() -> int:
     report = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     atexit.register(shutil.rmtree, tmp, True)
+    device_line = json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+    if args.parallel:  # section 8 alone
+        parallel_section(dev, tmp, card)
+        print(card)
+        print(device_line)
+        return 0
 
     # ---- 3. K3 vs its plain version --------------------------------------
     cfg = FrontendConfig()
@@ -1392,6 +1566,34 @@ def main() -> int:
     phase("K11", f"{s11} states (one past the shared-memory frontier; scratch form: "
                  f"frontier in device memory) at 2x4: final, bp, eps_bp == plain "
                  f"(bit-identical)")
+    # K13 past two feature tiles' room in shared memory (A above ~450): the
+    # chunked form at A = 512 and 1,024 over the CLI bank's 55 states x 4
+    # mixtures, 64 x 500 columns
+    k13_wide = {}
+    for a_w in (512, 1024):
+        gen_w = torch.Generator(device=dev).manual_seed(a_w)
+        w_w = torch.randn((55, 4, a_w), generator=gen_w, device=dev) * 0.05
+        lw_w = torch.log_softmax(torch.randn((55, 4), generator=gen_w, device=dev), -1)
+        xa_w = torch.randn((a_w, 500, 64), generator=gen_w, device=dev)
+        if vk.emission_plan(a_w, 55, 4, lib.srt_smem_limit()) != "chunked":
+            fail(f"K13 at A = {a_w} does not take the chunked form")
+        before = vk.bank_emission.launches
+        got = vk.bank_emission(xa_w, w_w, lw_w)
+        want = vk.bank_emission_ref(xa_w, w_w, lw_w)
+        torch.cuda.synchronize()
+        if vk.bank_emission.launches != before + 1:
+            fail(f"K13 at A = {a_w} did not launch once")
+        if not torch.allclose(got, want, **K13_TOL):
+            fail(f"K13 at A = {a_w} disagrees with its plain version: max |d| "
+                 f"{float((got - want).abs().max())}")
+        err = float((got - want).abs().max())
+        ms = cuda_ms(lambda: vk.bank_emission(xa_w, w_w, lw_w))
+        plain = cuda_ms(lambda: vk.bank_emission_ref(xa_w, w_w, lw_w))
+        k13_wide[a_w] = (xa_w, w_w, lw_w, got, ms, plain)
+        report["K13"]["max_abs_err"] = max(report["K13"]["max_abs_err"], err)
+        phase("K13", f"A = {a_w} (chunked form: features in chunks of 64 dimensions) at "
+                     f"64x500, 55 states x 4 mixtures: == plain (rtol 1e-5, atol 1e-4; max "
+                     f"|d| {err:.3g}); {ms:.3f} ms, plain {plain:.3f} ms ({card})")
 
     # ---- 4g. K15 / K16 (the forward-backward) vs their plain versions --------
     # K15 on the loop graph, the 385-state sausage at 256 x 500 (emissions
@@ -1575,6 +1777,68 @@ def main() -> int:
                 "K16", f"{name}, xi {mode} (lists in {plan.lists} memory, {plan.cap} entries "
                        f"each)", got, want))
             fb_repeat("K16", name, run, got)
+    # past the rows' room in shared memory (the device-row tier): K15 on a
+    # 30,000-state loop (300 words of 100 states), K16 on a 19,500-state
+    # loop (195 words; its [S, S] matrices built on the card, its lists
+    # prebuilt in device memory); lengths T, 0, 1 and mixed
+    def long_loop(n_words, n):
+        """A loop of ``n_words`` left-to-right words of ``n`` states (self
+        and step costs -log 0.5, each word end to each word start at cost
+        1) as a BandedGraph, and as K16's dense (trans, eps, init)."""
+        s_ = n_words * n
+        idx = torch.arange(s_, device=dev)
+        first = idx % n == 0
+        band = torch.full((3, s_), 1e30, device=dev)
+        band[0] = 0.6931472
+        band[1] = torch.where(first, 1e30, 0.6931472)
+        starts, init = idx[first], torch.where(first, 0.0, 1e30)
+        ends, blk = starts + n - 1, torch.ones((n_words, n_words), device=dev)
+        g_ = BandedGraph(band, init, starts, ends, blk, torch.where(first, idx // n, 0), first,
+                         ends, torch.zeros(n_words, device=dev), idx % 55)
+        return g_, lambda: (torch.full((s_, s_), 1e30, device=dev).index_put_(
+            (idx, idx), band[0]).index_put_((idx[1:], idx[:-1]), band[1, 1:]),
+            torch.full((s_, s_), 1e30, device=dev).index_put_(
+                (starts[:, None], ends[None, :]), blk), init)
+
+    big_fb = {}
+    g30k, _ = long_loop(300, 100)
+    gen_fb = torch.Generator(device=dev).manual_seed(15)
+    nll30k = torch.rand((4, 40, g30k.n_states), generator=gen_fb, device=dev) * 20 + 40
+    nf30k = torch.tensor([40, 0, 1, 23], dtype=torch.int32, device=dev)
+    if fbk.banded_plan(g30k.n_states, 300, 300, lib.fb_banded_smem_bytes,
+                       lib.srt_smem_limit()).rows != "device":
+        fail("K15's plan keeps the 30,000-state loop's rows in shared memory")
+    run = lambda: fbk.fb_banded(nll30k, g30k, nf30k)  # noqa: E731
+    got = run()
+    want = fbk.fb_banded_ref(nll30k, g30k, nf30k)
+    torch.cuda.synchronize()
+    name = f"{g30k.n_states}-state loop 4x40 (rows in device memory)"
+    fb_err["K15"] = max(fb_err["K15"], fb_check("K15", name, got, want))
+    fb_repeat("K15", name, run, got)
+    big_fb["K15"] = (name, fb_banded_work(nll30k, g30k, nf30k, 1, None, got), cuda_ms(run, 3),
+                     cuda_ms(lambda: fbk.fb_banded_ref(nll30k, g30k, nf30k), 1))
+    g19k, dense19k = long_loop(195, 100)
+    tr19k, ep19k, in19k = dense19k()
+    nll19k = torch.rand((2, 12, g19k.n_states), generator=gen_fb, device=dev) * 20 + 40
+    nf19k = torch.tensor([12, 7], dtype=torch.int32, device=dev)
+    plan19k = fbk.dense_plan(g19k.n_states, True, 2, n_sm_fb, lib.fb_dense_smem_bytes,
+                             lib.srt_smem_limit())
+    if (plan19k.rows, plan19k.lists) != ("device", "device"):
+        fail(f"K16's plan for the 19,500-state loop is {plan19k}, not the device-row tier")
+    args19k = (nll19k, tr19k, in19k, nf19k, ep19k, 1, None)
+    run = lambda: fbk.fb_dense(*args19k, xi_mode="band")  # noqa: E731
+    got = run()
+    want = fbk.fb_dense_ref(*args19k, xi_mode="band")
+    torch.cuda.synchronize()
+    name = f"{g19k.n_states}-state loop 2x12, xi band (rows in device memory, lists prebuilt)"
+    fb_err["K16"] = max(fb_err["K16"], fb_check("K16", name, got, want))
+    fb_repeat("K16", name, run, got)
+    big_fb["K16"] = (name, fb_dense_work(nll19k, tr19k, ep19k, in19k, None, nf19k, 1, got),
+                     cuda_ms(run, 3),
+                     cuda_ms(lambda: fbk.fb_dense_ref(*args19k, xi_mode="band"), 1))
+    del want, got, args19k, tr19k, ep19k, run  # 3 GB of matrices
+    for k_, (name, _, ms, plain) in big_fb.items():
+        phase(k_, f"{name}: {ms:.3f} ms, plain {plain:.3f} ms ({card})")
     report["K15"] = {"max_abs_err": fb_err["K15"]}
     report["K16"] = {"max_abs_err": fb_err["K16"]}
 
@@ -1918,12 +2182,7 @@ def main() -> int:
     def word_lines(out):
         return [l for l in out.splitlines() if l.startswith(("Correct:", "Incorrect:"))]
 
-    counters = (mfcc39_fused, mfcc_tail, vk.bank_emission, vk.viterbi_banded_fused,
-                vk.banded_backtrace_val,
-                lk.viterbi_lex, lk.lex_backtrace_val, lt.viterbi_lattice, lt.rescore_lattice,
-                vk.viterbi_banded_general, vk.banded_backtrace_general,
-                vk.viterbi_banded_wordtrace, viterbi_dense, mfcc_fused, fbk.fb_banded,
-                fbk.fb_dense, vk.viterbi_banded_chunk, lk.viterbi_lex_chunk)
+    counters = kernel_counters()
     # device_ms holds the profiler's kernels to these counts (K15 and K16
     # launch a scan and a combine per counted call)
     COUNTED[:] = [(c, 2 if c in (fbk.fb_banded, fbk.fb_dense) else 1) for c in counters]
@@ -3521,7 +3780,10 @@ def main() -> int:
     phase("timing", f"7c K9 cross mode on the 1k trie's k = 64 beam planes (32x{T}): "
                     f"{k9x_ms:.4f} ms event, plain {k9x_plain:.3f} ms ({card})")
 
-    # ---- 8. bounds ----------------------------------------------------------
+    # ---- 8. parallel: the sharded paths, one NCCL rank per card ---------------
+    launches["parallel"] = parallel_section(dev, tmp, card)
+
+    # ---- 9. bounds ----------------------------------------------------------
     sum_nf = int(nf.clamp(max=T).sum())  # K1 / K2 / K10 streams stop at nf
     sum_nf8 = int(nf8.clamp(max=T).sum())
     unwinds1 = gen_planes["1-state sausage7"][-1]  # eps flags on the best paths
@@ -3645,6 +3907,11 @@ def main() -> int:
     more["K16 synthetic transcripts, band xi"] = (*fb_dense_work(
         *k16_synth[:1], k16_synth[1], k16_synth[4], k16_synth[2], k16_synth[6], k16_synth[3],
         k16_synth[5], fbk.fb_dense_ref(*k16_synth, xi_mode="band")), k16_synth_ms)
+    for a_w, (xa_w, w_w, lw_w, out_w, ms, _) in k13_wide.items():
+        more[f"K13 chunked form, A = {a_w}, 64x500"] = (
+            nbytes(xa_w, w_w, lw_w, out_w), 500 * 64 * (2 * w_w.numel() + 4 * 55 * 4), ms)
+    for k_, (name, work_, ms, _) in big_fb.items():
+        more[f"{k_} {name}"] = (*work_, ms)
     more["K15 transcripts' banded dict"] = (*fb_banded_work(
         nll16, g15t, nf16, depth_b, end15t, fbk.fb_banded_ref(nll16, g15t, nf16, depth_b,
                                                               end15t)), k15_tr_ms)
@@ -3745,9 +4012,7 @@ def main() -> int:
                     f"{', '.join(DEVICE_READINGS['failed']) or 'none'}")
     print(json.dumps({"kernels": kernels}))
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    print(device_line)
     return 0
 
 

@@ -39,6 +39,17 @@
 // the wrapper picks 4-8 warps per CTA so that the last pass leaves the
 // fewest lanes idle (U = 55: 28 pairs x 8 groups = 7 full warps), two CTAs
 // per SM.  Weights too large for shared memory are read from w through L1.
+//
+// Feature widths whose two [A][kCols] tiles do not fit in shared memory
+// (A above ~450) take the chunked form: the weights are read through L1 as
+// above, and each tile's features come in chunks of kChunk dimensions, two
+// chunk buffers filled by cp.async (chunk c + 1 in flight while chunk c
+// computes).  A thread's 64 partial dot products stay in registers across
+// the chunks of a block of 4 mixtures, so every product is summed over a in
+// ascending order, as the unchunked L1 form sums it.  Every thread walks
+// the same sequence of (tile, item pass, mixture block, chunk) steps, one
+// barrier a step; a chunk is loaded again for each item pass and mixture
+// block (once at U = 55, M = 4).
 
 #include <math.h>
 #include <stdint.h>
@@ -52,6 +63,7 @@ constexpr int kCols = 64;    // columns per tile
 constexpr int kMixT = 4;     // mixtures per register block
 constexpr int kColsT = 8;    // columns per item: two float4, 32 columns apart
 constexpr int kGroups = kCols / kColsT;  // column groups per tile (items per state pair)
+constexpr int kChunk = 64;   // feature dimensions per chunk (the chunked form)
 
 __host__ __device__ inline int round4(int m) { return (m + 3) & ~3; }
 
@@ -60,8 +72,10 @@ __host__ __device__ inline size_t weight_floats(int A, int U, int M) {
   return (size_t)(A + 1) * U * round4(M);
 }
 
-size_t smem_bytes(int A, int U, int M, int stage) {
-  return ((stage ? weight_floats(A, U, M) : 0) + 2 * (size_t)A * kCols) * sizeof(float);
+// mode 0: weights through L1, 1: weights staged, 2: chunked features
+size_t smem_bytes(int A, int U, int M, int mode) {
+  if (mode == 2) return 2 * (size_t)kChunk * kCols * sizeof(float);
+  return ((mode ? weight_floats(A, U, M) : 0) + 2 * (size_t)A * kCols) * sizeof(float);
 }
 
 __device__ __forceinline__ float4 lds4(const float* p) {
@@ -250,6 +264,146 @@ bank_emission_kernel(const float* __restrict__ xa, const float* __restrict__ w,
   cp_async_wait<0>();
 }
 
+// The chunked form (see the head of this file).
+template <bool kOneBlock>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+bank_emission_chunked_kernel(const float* __restrict__ xa, const float* __restrict__ w,
+                             const float* __restrict__ lw, float* __restrict__ out, int A,
+                             int N, int U, int M, int vec) {
+  extern __shared__ __align__(16) float smem[];  // two [kChunk][kCols] buffers
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int n_tiles = (N + kCols - 1) / kCols;
+  const int n_items = ((U + 1) / 2) * kGroups;
+  const int n_pass = (n_items + nt - 1) / nt;
+  const int n_blocks = kOneBlock ? 1 : (M + kMixT - 1) / kMixT;
+  const int n_chunks = (A + kChunk - 1) / kChunk;
+
+  // chunk c of a tile's features into buf; dimensions past A and columns
+  // past N are zeros (never read, never stored)
+  auto load_chunk = [&](int tile, int c, float* buf) {
+    const int n0 = tile * kCols, a0 = c * kChunk;
+    if (vec) {
+      for (int i = tid; i < kChunk * (kCols / 4); i += nt) {
+        const int da = i / (kCols / 4), col = (i % (kCols / 4)) * 4;
+        const bool in = a0 + da < A && n0 + col < N;
+        cp_async16(buf + da * kCols + col,
+                   xa + (in ? (size_t)(a0 + da) * N + n0 + col : 0), in ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < kChunk * kCols; i += nt) {
+        const int da = i / kCols, col = i % kCols;
+        const bool in = a0 + da < A && n0 + col < N;
+        cp_async4(buf + i, xa + (in ? (size_t)(a0 + da) * N + n0 + col : 0), in ? 4 : 0);
+      }
+    }
+  };
+  // the step after (tile, p, mb, c)
+  auto advance = [&](int& tile, int& p, int& mb, int& c) {
+    if (++c < n_chunks) return;
+    c = 0;
+    if (++mb < n_blocks) return;
+    mb = 0;
+    if (++p < n_pass) return;
+    p = 0;
+    tile += gridDim.x;
+  };
+
+  if ((int)blockIdx.x < n_tiles) load_chunk(blockIdx.x, 0, smem);
+  cp_async_commit();
+  int k = 0;  // steps taken: chunk buffer k & 1
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int n0 = tile * kCols;
+    for (int p = 0; p < n_pass; ++p) {
+      const int it = p * nt + tid;
+      const bool valid = it < n_items;
+      const int u0 = valid ? 2 * (it / kGroups) : 0, cg = it % kGroups;
+      const int u1 = min(u0 + 1, U - 1);
+      float zmax[2][kColsT], sum[2][kColsT];
+      for (int mb = 0; mb < n_blocks; ++mb) {
+        const int m0 = mb * kMixT;
+        float acc[2 * kMixT][kColsT];
+#pragma unroll
+        for (int m = 0; m < 2 * kMixT; ++m)
+#pragma unroll
+          for (int j = 0; j < kColsT; ++j) acc[m][j] = 0.f;
+        for (int c = 0; c < n_chunks; ++c, ++k) {
+          cp_async_wait<0>();
+          __syncthreads();  // chunk k arrived; step k - 1's reads of the other buffer are done
+          int nt_ = tile, np = p, nmb = mb, nc = c;
+          advance(nt_, np, nmb, nc);
+          if (nt_ < n_tiles) load_chunk(nt_, nc, smem + (size_t)((k + 1) & 1) * kChunk * kCols);
+          cp_async_commit();
+          if (!valid) continue;
+          const float* xr = smem + (size_t)(k & 1) * kChunk * kCols + cg * 4;
+          const int a0 = c * kChunk, a1 = min(A, a0 + kChunk);
+          for (int a = a0; a < a1; ++a) {
+            float wm[2 * kMixT];
+#pragma unroll
+            for (int m = 0; m < kMixT; ++m) {
+              const bool in = m0 + m < M;
+              wm[m] = in ? __ldg(w + ((size_t)u0 * M + m0 + m) * A + a) : 0.f;
+              wm[kMixT + m] = in ? __ldg(w + ((size_t)u1 * M + m0 + m) * A + a) : 0.f;
+            }
+            const float4 x0 = lds4(xr + (a - a0) * kCols), x1 = lds4(xr + (a - a0) * kCols + 32);
+            const float xj[kColsT] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+            for (int m = 0; m < 2 * kMixT; ++m)
+#pragma unroll
+              for (int j = 0; j < kColsT; ++j) acc[m][j] = fmaf(wm[m], xj[j], acc[m][j]);
+          }
+        }
+        if (!valid) continue;
+#pragma unroll
+        for (int m = 0; m < 2 * kMixT; ++m) {
+          const int uu = m < kMixT ? u0 : u1, mm = m0 + m % kMixT;
+          const float l = mm < M ? __ldg(lw + uu * M + mm) : 0.f;
+#pragma unroll
+          for (int j = 0; j < kColsT; ++j) acc[m][j] = l - acc[m][j];
+        }
+        // the running logsumexp over the blocks, as the unchunked kernel's
+#pragma unroll
+        for (int s2 = 0; s2 < 2; ++s2)
+#pragma unroll
+          for (int j = 0; j < kColsT; ++j) {
+            float nm = mb ? zmax[s2][j] : acc[s2 * kMixT][j];
+#pragma unroll
+            for (int m = 0; m < kMixT; ++m)
+              if (m0 + m < M && (mb || m)) nm = fmaxf(nm, acc[s2 * kMixT + m][j]);
+            float sm = mb ? sum[s2][j] * __expf(zmax[s2][j] - nm) : 0.f;
+#pragma unroll
+            for (int m = 0; m < kMixT; ++m)
+              if (m0 + m < M) sm += __expf(acc[s2 * kMixT + m][j] - nm);
+            zmax[s2][j] = nm;
+            sum[s2][j] = sm;
+          }
+      }
+      if (!valid) continue;
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+        if (s2 && u0 + 1 >= U) break;
+        const int uu = u0 + s2;
+#pragma unroll
+        for (int j = 0; j < kColsT; ++j) {
+          const int col = n0 + (j / 4) * 32 + cg * 4 + j % 4;
+          if (col < N) out[(size_t)col * U + uu] = -(__logf(sum[s2][j]) + zmax[s2][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <bool kOneBlock>
+int launch_chunked(const float* xa, const float* w, const float* lw, float* out, int A, int N,
+                   int U, int M, int warps, int grid, cudaStream_t s) {
+  const size_t smem = smem_bytes(A, U, M, 2);
+  auto kernel = bank_emission_chunked_kernel<kOneBlock>;
+  SRT_SET_SMEM(kernel, smem);
+  const int vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(xa) % 16 == 0;
+  kernel<<<grid, warps * 32, smem, s>>>(xa, w, lw, out, A, N, U, M, vec);
+  return (int)cudaGetLastError();
+}
+
 template <bool kStage, bool kOneBlock>
 int launch(const float* xa, const float* w, const float* lw, float* out, int A, int N, int U,
            int M, int warps, int grid, cudaStream_t s) {
@@ -267,22 +421,27 @@ int launch(const float* xa, const float* w, const float* lw, float* out, int A, 
 
 }  // namespace
 
-// Shared memory of one CTA, with or without the staged weights.
-extern "C" int bank_emission_smem_bytes(int A, int U, int M, int stage) {
-  const size_t n = smem_bytes(A, U, M, stage);
+// Shared memory of one CTA in mode 0 (weights through L1), 1 (weights
+// staged) or 2 (chunked features).
+extern "C" int bank_emission_smem_bytes(int A, int U, int M, int mode) {
+  const size_t n = smem_bytes(A, U, M, mode);
   return n > 0x7fffffff ? 0x7fffffff : (int)n;
 }
 
-// xa [A, N] (N = T*B columns), w [U, M, A], lw [U, M] -> out [N, U]; stage:
-// the weights in shared memory; warps (1-8) per CTA; grid = CTAs of the
+// xa [A, N] (N = T*B columns), w [U, M, A], lw [U, M] -> out [N, U]; mode
+// as bank_emission_smem_bytes; warps (1-8) per CTA; grid = CTAs of the
 // persistent column walk.
 extern "C" int bank_emission_launch(const float* xa, const float* w, const float* lw,
-                                    float* out, int A, int N, int U, int M, int stage,
+                                    float* out, int A, int N, int U, int M, int mode,
                                     int warps, int grid, void* stream) {
   if (A < 1 || N < 1 || U < 1 || M < 1 || grid < 1 || warps < 1 ||
-      warps * 32 > kMaxThreads)
+      warps * 32 > kMaxThreads || mode < 0 || mode > 2)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (mode == 2)
+    return M <= kMixT ? launch_chunked<true>(xa, w, lw, out, A, N, U, M, warps, grid, s)
+                      : launch_chunked<false>(xa, w, lw, out, A, N, U, M, warps, grid, s);
+  const int stage = mode;
   if (M <= kMixT)
     return stage ? launch<true, true>(xa, w, lw, out, A, N, U, M, warps, grid, s)
                  : launch<false, true>(xa, w, lw, out, A, N, U, M, warps, grid, s);

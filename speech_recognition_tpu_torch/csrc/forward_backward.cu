@@ -66,6 +66,16 @@
 //   cannot pin down, run the dense loop itself;
 // - registers capped (FB_SCAN_MIN_CTAS, FB_DENSE_MIN_CTAS) so that all 2B
 //   scan CTAs of the path shapes are resident at once.
+// Graphs whose rows do not fit in shared memory (K15 past ~29,000 states,
+// K16 past ~19,000) take the device-row tier: each scan CTA's rows (K15 also
+// its eps vector) live in a device-memory scratch of its own, read and
+// written through L1 between the same barriers (a barrier orders global
+// memory within the CTA as it does shared memory); shared memory then holds
+// the block-reduction scratch alone, and no ring.  K16's finite-entry lists
+// are built before the scan by three grid-wide launches (count, scan, fill;
+// one list per matrix and direction, not per CTA), since one CTA reading a
+// matrix of ~19,000^2 entries would take minutes.  The lists are the ones
+// build_list makes, in the same order, so the LSEs are the same.
 
 #include "common.cuh"
 
@@ -288,7 +298,8 @@ struct BandedArgs {
   float* xi_cross;              // [B, S] or null
   float* log_z;                 // [B]
   long long* trace;             // [2B, 8] or null
-  int T, S, R, L, aux_ld;
+  float* rows;                  // [2B, rows_ld] (the device-row tier) or null
+  int T, S, R, L, aux_ld, rows_ld;
   int graph_per_item, end_per_item, eps_depth, nf64, ering;
 };
 
@@ -298,13 +309,17 @@ int banded_aux_ints(int S, int R, int L) { return std::max(4 * R + 1, 4 * L + 1 
 
 // the shared layout: the block scratch, the eps vector [max(R, L)], two
 // rows; staged (the plan's ring flag): the emission ring [3S], the band's
-// scores [3S] and the narrow spans' terms [max(R, L), FB_SPAN_REG] (Ent)
+// scores [3S] and the narrow spans' terms [max(R, L), FB_SPAN_REG] (Ent).
+// The device-row tier (rows_smem 0): the block scratch alone; the eps
+// vector and the rows, banded_rows_floats of them, in device memory.
 __host__ __device__ __forceinline__ size_t banded_se_offset(int S, int R, int L) {
   return (FB_RED + (size_t)(R > L ? R : L) + 8 * (size_t)S + 1) & ~(size_t)1;
 }
-size_t banded_smem_floats(int S, int R, int L, int ering) {
+size_t banded_rows_floats(int S, int R, int L) { return (size_t)std::max(R, L) + 2 * (size_t)S; }
+size_t banded_smem_floats(int S, int R, int L, int ering, int rows_smem) {
+  if (!rows_smem) return FB_RED;
   const size_t m = std::max(R, L);
-  return ering ? banded_se_offset(S, R, L) + 2 * FB_SPAN_REG * m : FB_RED + m + 2 * (size_t)S;
+  return ering ? banded_se_offset(S, R, L) + 2 * FB_SPAN_REG * m : FB_RED + banded_rows_floats(S, R, L);
 }
 
 // the spans of the eps block's finite entries, [lo, hi) (0, 0 where none),
@@ -401,7 +416,8 @@ fb_banded_scan_kernel(BandedArgs a) {
   int* aux = a.aux + (size_t)blockIdx.x * a.aux_ld;
 
   float* red = smem;
-  float* v = red + FB_RED;     // [max(R, L)]: start-row candidates / end-column pullbacks
+  // [max(R, L)]: start-row candidates / end-column pullbacks, then the rows
+  float* v = a.rows ? a.rows + (size_t)blockIdx.x * a.rows_ld : red + FB_RED;
   float* row0 = v + max(R, L);
   float* row1 = row0 + S;
   const ERing er{nll, a.ering ? row1 + S : nullptr, S};
@@ -644,6 +660,7 @@ struct DenseArgs {
   float* xi;                // [B, 3, S] (band) or [B, S, S] (dense)
   float* log_z;             // [B]
   long long* trace;         // [2B, 8] or null
+  float* rows;              // [2B, 3S] (the device-row tier: lists prebuilt) or null
   int T, S, cap;
   int mats_per_item, init_per_item, end_per_item, eps_depth, xi_dense, nf64, lists_smem, ering;
 };
@@ -661,7 +678,9 @@ __host__ __device__ __forceinline__ size_t dense_rows_floats(int S, int ering) {
   return (FB_RED + (3 + (ering ? 3 : 0)) * (size_t)S + 1) & ~(size_t)1;
 }
 
-size_t dense_smem_floats(int S, int use_eps, int cap, int lists_smem, int ering) {
+// the device-row tier (rows_smem 0): the block scratch alone
+size_t dense_smem_floats(int S, int use_eps, int cap, int lists_smem, int ering, int rows_smem) {
+  if (!rows_smem) return FB_RED;
   const size_t rows = dense_rows_floats(S, ering);
   return rows + (lists_smem ? (1 + (use_eps ? 1 : 0)) * list_ints(S, cap) : 0);
 }
@@ -833,18 +852,24 @@ fb_dense_scan_kernel(DenseArgs a) {
 
   float* red = smem;            // block_reduce: [0, 33)
   float* wmax = smem + 40;      // the xmax slots: two parities of 8 warps
-  float* r0 = smem + FB_RED;
+  float* r0 = a.rows ? a.rows + (size_t)blockIdx.x * 3 * S : smem + FB_RED;
   float* r1 = r0 + S;
   float* r2 = r1 + S;
   const ERing er{nll, a.ering ? r2 + S : nullptr, S};
   const size_t li = list_ints(S, a.cap);
+  const int n_kinds = use_eps ? 2 : 1;
+  // the device-row tier reads the prebuilt lists of its matrix and
+  // direction (fb_list_pass_kernel); else each CTA builds its own
   int* lt = a.lists_smem ? reinterpret_cast<int*>(smem + dense_rows_floats(S, a.ering))
-                         : a.lists + (size_t)blockIdx.x * (use_eps ? 2 : 1) * li;
+            : a.rows     ? a.lists + (g * 2 + bwd) * n_kinds * li
+                         : a.lists + (size_t)blockIdx.x * n_kinds * li;
   int* le = lt + li;
   Trace tr;
   tr.start(a.trace);
-  build_list(mt, S, bwd, a.cap, lt);
-  if (use_eps) build_list(me, S, bwd, a.cap, le);
+  if (!a.rows) {
+    build_list(mt, S, bwd, a.cap, lt);
+    if (use_eps) build_list(me, S, bwd, a.cap, le);
+  }
 
   // each step publishes the warp maxima of the vector it writes; the next
   // step reads them (zall = fl(NEG_INF + max x)) after the barrier
@@ -997,6 +1022,124 @@ fb_dense_scan_kernel(DenseArgs a) {
   }
 }
 
+// ------------------------------------------- K16's prebuilt lists ----
+// The device-row tier's lists: list id = (g * 2 + dir) * n_kinds + kind for
+// matrix g (each item's, or the one shared), direction dir (0: rows, the
+// forward's; 1: columns, the backward's) and kind (0: trans, 1: eps), each
+// list_ints(S, cap) ints, the layout and order of build_list.
+
+struct ListArgs {
+  const float* trans;  // [(B,) S, S]
+  const float* eps;    // [(B,) S, S] or null
+  int* lists;          // [n_lists, list_ints]
+  int S, cap, n_kinds;
+};
+
+__device__ __forceinline__ const float* list_matrix(const ListArgs& a, int id, int* dir,
+                                                    int** reg) {
+  const int kind = id % a.n_kinds, d = (id / a.n_kinds) & 1, g = id / (2 * a.n_kinds);
+  *dir = d;
+  *reg = a.lists + (size_t)id * list_ints(a.S, a.cap);
+  return (kind ? a.eps : a.trans) + (size_t)g * a.S * a.S;
+}
+
+// kFill false: the count of each row's (column's) finite entries into
+// off[i + 1]; true: the entries of each row (column) within the capacity,
+// at off[i] after the scan.  Rows: a warp a row, ballots over 32-column
+// chunks; columns: a thread a column, rows ascending.  blockIdx.y: list.
+template <bool kFill>
+__global__ void __launch_bounds__(256) fb_list_pass_kernel(ListArgs a) {
+  int dir, *reg;
+  const float* M = list_matrix(a, blockIdx.y, &dir, &reg);
+  const int S = a.S, lane = threadIdx.x & 31;
+  int* off = reg;
+  Ent* ent = reinterpret_cast<Ent*>(reg + list_off_ints(S));
+  if (!dir) {
+    const int nw = gridDim.x * (blockDim.x >> 5);
+    for (int v = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); v < S; v += nw) {
+      const float* row = M + (size_t)v * S;
+      int c = kFill ? (off[v + 1] <= a.cap ? off[v] : -1) : 0;
+      if (kFill && c < 0) continue;
+      for (int u0 = 0; u0 < S; u0 += 32) {
+        const int u = u0 + lane;
+        const float x = u < S ? __ldg(row + u) : SRT_POS_INF;
+        const bool fin = x < FB_HALF_INF;
+        const unsigned m = __ballot_sync(0xffffffffu, fin);
+        if (kFill && fin) ent[c + __popc(m & ((1u << lane) - 1))] = Ent{score_of(x), u};
+        c += __popc(m);
+      }
+      if (!kFill && lane == 0) off[v + 1] = c;
+    }
+  } else {
+    for (int u = blockIdx.x * blockDim.x + threadIdx.x; u < S; u += gridDim.x * blockDim.x) {
+      if (kFill) {
+        if (off[u + 1] > a.cap) continue;
+        int p = off[u];
+#pragma unroll 8
+        for (int v = 0; v < S; ++v) {
+          const float c = __ldg(M + (size_t)v * S + u);
+          if (c < FB_HALF_INF) ent[p++] = Ent{score_of(c), v};
+        }
+      } else {
+        int c = 0;
+#pragma unroll 8
+        for (int v = 0; v < S; ++v) c += __ldg(M + (size_t)v * S + u) < FB_HALF_INF;
+        off[u + 1] = c;
+      }
+    }
+  }
+  if (!kFill && blockIdx.x == 0 && threadIdx.x == 0) off[0] = 0;
+}
+
+// the inclusive scan of off[1..S] of list blockIdx.x, one CTA of 1,024
+// threads over chunks of 1,024 entries
+__global__ void __launch_bounds__(1024) fb_list_scan_kernel(ListArgs a) {
+  __shared__ int wsum[32];
+  __shared__ int carry;
+  int* off = a.lists + (size_t)blockIdx.x * list_ints(a.S, a.cap);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) carry = 0;
+  __syncthreads();
+  for (int i0 = 1; i0 <= a.S; i0 += blockDim.x) {
+    const int i = i0 + threadIdx.x;
+    int x = i <= a.S ? off[i] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) wsum[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int w = lane < (int)(blockDim.x >> 5) ? wsum[lane] : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      wsum[lane] = w;  // inclusive warp totals
+    }
+    __syncthreads();
+    const int base = carry + (warp ? wsum[warp - 1] : 0);
+    if (i <= a.S) off[i] = x + base;
+    __syncthreads();
+    if (threadIdx.x == 0) carry += wsum[(blockDim.x >> 5) - 1];
+    __syncthreads();
+  }
+}
+
+int build_lists(const ListArgs& l, int n_lists, cudaStream_t stream) {
+  const dim3 grid((unsigned)std::min((l.S + 255) / 256, 1024), (unsigned)n_lists);
+  fb_list_pass_kernel<false><<<grid, 256, 0, stream>>>(l);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  fb_list_scan_kernel<<<n_lists, 1024, 0, stream>>>(l);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  fb_list_pass_kernel<true><<<grid, 256, 0, stream>>>(l);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------------ combine ----
 
 struct CombineArgs {
@@ -1097,15 +1240,21 @@ int launch_combine(const CombineArgs& c, int B, cudaStream_t stream) {
 
 }  // namespace
 
-extern "C" int fb_banded_smem_bytes(int S, int R, int L, int ering) {
-  const size_t n = 4 * banded_smem_floats(S, R, L, ering);
+extern "C" int fb_banded_smem_bytes(int S, int R, int L, int ering, int rows_smem) {
+  const size_t n = 4 * banded_smem_floats(S, R, L, ering, rows_smem);
   return n > (size_t)1 << 30 ? 1 << 30 : (int)n;
 }
 
 extern "C" int fb_banded_aux_ints(int S, int R, int L) { return banded_aux_ints(S, R, L); }
 
-extern "C" int fb_dense_smem_bytes(int S, int use_eps, int cap, int lists_smem, int ering) {
-  const size_t n = 4 * dense_smem_floats(S, use_eps, cap, lists_smem, ering);
+// floats of one scan CTA's device-memory rows in the device-row tier
+extern "C" long long fb_banded_rows_floats(int S, int R, int L) {
+  return (long long)banded_rows_floats(S, R, L);
+}
+
+extern "C" int fb_dense_smem_bytes(int S, int use_eps, int cap, int lists_smem, int ering,
+                                   int rows_smem) {
+  const size_t n = 4 * dense_smem_floats(S, use_eps, cap, lists_smem, ering, rows_smem);
   return n > (size_t)1 << 30 ? 1 << 30 : (int)n;
 }
 
@@ -1132,17 +1281,19 @@ extern "C" int fb_banded_launch(
     const int* ends, const int* start_pos, const unsigned char* is_start, const int* cross_src,
     const float* cross_cost, const int* inv_off, const int* inv_dst, const float* end_scores,
     const void* n_frames, int* aux, float* alpha, float* beta, float* gamma, float* xi,
-    float* xi_cross, float* log_z, long long* trace, int B, int T, int S, int R, int L,
-    int graph_per_item, int end_per_item, int eps_depth, int nf64, int ering, int threads,
-    cudaStream_t stream) {
+    float* xi_cross, float* log_z, long long* trace, float* rows, int B, int T, int S, int R,
+    int L, int graph_per_item, int end_per_item, int eps_depth, int nf64, int ering,
+    int threads, cudaStream_t stream) {
   if (B <= 0) return 0;
-  BandedArgs a{nll,      band,       init,      blk,     starts,   ends,
+  if (rows) ering = 0;  // the device-row tier stages nothing
+  BandedArgs a{nll,       band,      init,      blk,        starts,  ends,
                start_pos, is_start,  cross_src, cross_cost, inv_off, inv_dst,
-               end_scores, n_frames, aux,       alpha,   beta,     gamma,
-               xi,       xi_cross,   log_z,     trace,   T,        S,
-               R,        L,          banded_aux_ints(S, R, L), graph_per_item, end_per_item,
-               eps_depth, nf64,      ering};
-  const size_t smem = 4 * banded_smem_floats(S, R, L, ering);
+               end_scores, n_frames, aux,       alpha,      beta,    gamma,
+               xi,        xi_cross,  log_z,     trace,      rows,    T,
+               S,         R,         L,         banded_aux_ints(S, R, L),
+               (int)banded_rows_floats(S, R, L), graph_per_item, end_per_item, eps_depth, nf64,
+               ering};
+  const size_t smem = 4 * banded_smem_floats(S, R, L, ering, rows == nullptr);
   SRT_SET_SMEM(fb_banded_scan_kernel, smem);
   fb_banded_scan_kernel<<<2 * B, threads, smem, stream>>>(a);
   const int rc = (int)cudaGetLastError();
@@ -1155,16 +1306,24 @@ extern "C" int fb_banded_launch(
 extern "C" int fb_dense_launch(const float* nll, const float* trans, const float* eps,
                                const float* init, const float* end_scores, const void* n_frames,
                                int* lists, float* alpha, float* beta, float* gamma, float* xi,
-                               float* log_z, long long* trace, int B, int T, int S,
-                               int mats_per_item, int init_per_item, int end_per_item,
+                               float* log_z, long long* trace, float* rows, int B, int T,
+                               int S, int mats_per_item, int init_per_item, int end_per_item,
                                int eps_depth, int xi_dense, int nf64, int cap, int lists_smem,
                                int ering, int threads, cudaStream_t stream) {
   if (B <= 0) return 0;
+  if (rows) {  // the device-row tier: no ring, lists prebuilt in device memory
+    ering = 0;
+    lists_smem = 0;
+    const ListArgs l{trans, eps, lists, S, cap, eps ? 2 : 1};
+    const int rc = build_lists(l, (mats_per_item ? B : 1) * 2 * l.n_kinds, stream);
+    if (rc) return rc;
+  }
   DenseArgs a{nll,   trans, eps,   init,  end_scores, n_frames,      lists,
-              alpha, beta,  gamma, xi,    log_z,      trace,         T,
-              S,     cap,   mats_per_item, init_per_item, end_per_item, eps_depth,
+              alpha, beta,  gamma, xi,    log_z,      trace,         rows,
+              T,     S,     cap,   mats_per_item, init_per_item, end_per_item, eps_depth,
               xi_dense, nf64, lists_smem, ering};
-  const size_t smem = 4 * dense_smem_floats(S, eps != nullptr, cap, lists_smem, ering);
+  const size_t smem = 4 * dense_smem_floats(S, eps != nullptr, cap, lists_smem, ering,
+                                            rows == nullptr);
   SRT_SET_SMEM(fb_dense_scan_kernel, smem);
   fb_dense_scan_kernel<<<2 * B, threads, smem, stream>>>(a);
   const int rc = (int)cudaGetLastError();

@@ -18,9 +18,11 @@ fits), and (K16) where the lists of finite matrix entries live: in shared
 memory with the capacity the plan leaves room for (so that the 2B scan
 CTAs of a call fit on the card at once where they can), else in device
 memory.  Rows past a list's capacity run the dense loop, which gives the
-same answer.  The alpha / beta rows always stay in shared memory, so a
-graph whose rows do not fit (K15 past ~29,000 states, K16 past ~19,000)
-is refused, as before.
+same answer.  A graph whose alpha / beta rows do not fit in shared memory
+(K15 past ~29,000 states, K16 past ~19,000) takes the device-row tier:
+each scan CTA's rows live in a device-memory scratch, no ring, and K16's
+lists are built before the scan by grid-wide launches, one list per
+matrix and direction.  No size is refused.
 """
 
 from __future__ import annotations
@@ -54,14 +56,16 @@ CTA_SMEM_RESERVED = 1024
 
 class FBPlan(NamedTuple):
     """A scan CTA's threads and dynamic shared memory, whether it stages
-    the emission rows in a shared-memory ring, and (K16) where its
-    finite-entry lists live and how many entries each holds."""
+    the emission rows in a shared-memory ring, (K16) where its
+    finite-entry lists live and how many entries each holds, and where its
+    alpha / beta rows live."""
 
     threads: int
     smem: int   # bytes
     lists: str  # K16: "shared" or "device"; K15: "none"
     cap: int    # K16: entries a list holds (rows past it run the dense loop)
     ring: bool = True
+    rows: str = "shared"  # "device": the device-row tier
 
 
 def fb_threads(s: int) -> int:
@@ -73,45 +77,44 @@ def fb_threads(s: int) -> int:
     return -(-(-(-s // per)) // 32) * 32
 
 
-def _refuse(n, limit, what):
-    raise ValueError(f"too many states for the {what}: its rows alone need {n} bytes of "
-                     f"shared memory, the card has {limit}")
-
-
 def banded_plan(s: int, r: int, l: int, smem_bytes, limit: int) -> FBPlan:
-    """K15's plan: ``smem_bytes(S, R, L, ring)`` is the kernel's own layout
-    (``fb_banded_smem_bytes``: the two rows, the eps pass's [max(R, L)]
-    vector and, where they fit, the 3-row emission ring and the band's
-    scores)."""
-    n = smem_bytes(s, r, l, 0)
-    if n > limit:
-        _refuse(n, limit, f"banded forward-backward (S={s}, R={r}, L={l})")
-    ring = smem_bytes(s, r, l, 1) <= limit
-    return FBPlan(fb_threads(s), smem_bytes(s, r, l, int(ring)), "none", 0, ring)
+    """K15's plan: ``smem_bytes(S, R, L, ring, rows_in_smem)`` is the
+    kernel's own layout (``fb_banded_smem_bytes``: the two rows, the eps
+    pass's [max(R, L)] vector and, where they fit, the 3-row emission
+    ring and the band's scores; with the rows in device memory, the block
+    scratch alone).  Rows that do not fit in shared memory take the
+    device-row tier."""
+    if smem_bytes(s, r, l, 0, 1) > limit:
+        return FBPlan(fb_threads(s), smem_bytes(s, r, l, 0, 0), "none", 0, False, "device")
+    ring = smem_bytes(s, r, l, 1, 1) <= limit
+    return FBPlan(fb_threads(s), smem_bytes(s, r, l, int(ring), 1), "none", 0, ring)
 
 
 def dense_plan(s: int, use_eps: bool, b: int, n_sm: int, smem_bytes, limit: int) -> FBPlan:
-    """K16's plan: ``smem_bytes(S, eps, cap, lists_in_smem, ring)`` is
-    the kernel's own layout (``fb_dense_smem_bytes``).  The emission ring
-    goes in where it fits; the lists take the shared memory left once the
-    2B scan CTAs share the card's SMs (``n_sm``) as evenly as threads
-    allow, up to S^2 entries; where that leaves fewer than min(S^2, 4 S),
-    they go to device memory with min(S^2, 16 S) entries each."""
+    """K16's plan: ``smem_bytes(S, eps, cap, lists_in_smem, ring,
+    rows_in_smem)`` is the kernel's own layout (``fb_dense_smem_bytes``).
+    The emission ring goes in where it fits; the lists take the shared
+    memory left once the 2B scan CTAs share the card's SMs (``n_sm``) as
+    evenly as threads allow, up to S^2 entries; where that leaves fewer
+    than min(S^2, 4 S), they go to device memory with min(S^2, 16 S)
+    entries each.  Rows that do not fit in shared memory take the
+    device-row tier (lists prebuilt in device memory, min(S^2, 16 S)
+    entries)."""
     e = int(use_eps)
     threads = fb_threads(s)
-    rows = smem_bytes(s, e, 0, 0, 0)
-    if rows > limit:
-        _refuse(rows, limit, f"dense forward-backward (S={s})")
-    ring = int(smem_bytes(s, e, 0, 0, 1) <= limit)
+    full = s * s
+    if smem_bytes(s, e, 0, 0, 0, 1) > limit:
+        return FBPlan(threads, smem_bytes(s, e, 0, 0, 0, 0), "device", min(full, 16 * s),
+                      False, "device")
+    ring = int(smem_bytes(s, e, 0, 0, 1, 1) <= limit)
     ctas = max(1, min(-(-2 * b // n_sm), 2048 // threads, 32))
     budget = min(limit, SM_SMEM_BYTES // ctas // SMEM_UNIT * SMEM_UNIT - CTA_SMEM_RESERVED)
-    fixed = smem_bytes(s, e, 0, 1, ring)
-    per_entry = smem_bytes(s, e, 1, 1, ring) - fixed
-    full = s * s
+    fixed = smem_bytes(s, e, 0, 1, ring, 1)
+    per_entry = smem_bytes(s, e, 1, 1, ring, 1) - fixed
     cap = min(full, (budget - fixed) // per_entry) if budget >= fixed else 0
     if cap >= min(full, 4 * s):
-        return FBPlan(threads, smem_bytes(s, e, cap, 1, ring), "shared", cap, bool(ring))
-    return FBPlan(threads, smem_bytes(s, e, 0, 0, ring), "device", min(full, 16 * s),
+        return FBPlan(threads, smem_bytes(s, e, cap, 1, ring, 1), "shared", cap, bool(ring))
+    return FBPlan(threads, smem_bytes(s, e, 0, 0, ring, 1), "device", min(full, 16 * s),
                   bool(ring))
 
 
@@ -222,13 +225,15 @@ def _banded(nll, g, n_frames, eps_depth, end_scores, trace=None):
     beta = torch.empty_like(alpha)
     gamma = torch.empty_like(alpha)
     aux = torch.empty((2 * b, lib.fb_banded_aux_ints(s, r, l)), dtype=torch.int32, device=dev)
+    rows = torch.empty((2 * b, lib.fb_banded_rows_floats(s, r, l)), dtype=f32, device=dev) \
+        if plan.rows == "device" else None
     xi = torch.empty((b, MAX_BAND + 1, s), dtype=f32, device=dev)
     xi_cross = torch.empty((b, s), dtype=f32, device=dev) if has_cross else None
     log_z = torch.empty((b,), dtype=f32, device=dev)
     args = [nll.contiguous(), g.band.contiguous(), g.init_cost.contiguous(),
             g.eps_block.contiguous(), _i32(g.word_starts), _i32(g.word_ends),
             _i32(g.start_pos), g.is_start.contiguous(), *cross, ends_sc, nf, aux, alpha, beta,
-            gamma, xi, xi_cross, log_z, trace]
+            gamma, xi, xi_cross, log_z, trace, rows]
     with torch.cuda.device(dev):
         rc = lib.fb_banded_launch(
             *_ptrs(args), b, t_len, s, r, l, int(per_item),
@@ -278,9 +283,15 @@ def _dense(nll, trans_cost, init_cost, n_frames, eps_trans, eps_depth, end_score
     plan = dense_plan(s, use_eps, b, _n_sm(dev.index if dev.index is not None else
                                            torch.cuda.current_device()),
                       lib.fb_dense_smem_bytes, lib.srt_smem_limit())
-    lists = None
-    if plan.lists == "device":
-        lists = torch.empty((2 * b, (1 + int(use_eps)) * lib.fb_dense_list_ints(s, plan.cap)),
+    lists = rows = None
+    n_kinds = 1 + int(use_eps)
+    if plan.rows == "device":  # a list per matrix and direction, built before the scan
+        n_mats = b if trans_cost.dim() == 3 else 1
+        lists = torch.empty((n_mats * 2 * n_kinds, lib.fb_dense_list_ints(s, plan.cap)),
+                            dtype=torch.int32, device=dev)
+        rows = torch.empty((2 * b, 3 * s), dtype=f32, device=dev)
+    elif plan.lists == "device":
+        lists = torch.empty((2 * b, n_kinds * lib.fb_dense_list_ints(s, plan.cap)),
                             dtype=torch.int32, device=dev)
     alpha = torch.empty((b, t_len, s), dtype=f32, device=dev)
     beta = torch.empty_like(alpha)
@@ -289,7 +300,7 @@ def _dense(nll, trans_cost, init_cost, n_frames, eps_trans, eps_depth, end_score
     log_z = torch.empty((b,), dtype=f32, device=dev)
     args = [nll.contiguous(), trans_cost.contiguous(),
             eps_trans.contiguous() if use_eps else None, init_cost.contiguous(), ends_sc, nf,
-            lists, alpha, beta, gamma, xi, log_z, trace]
+            lists, alpha, beta, gamma, xi, log_z, trace, rows]
     with torch.cuda.device(dev):
         rc = lib.fb_dense_launch(
             *_ptrs(args), b, t_len, s, int(trans_cost.dim() == 3), int(init_cost.dim() == 2),

@@ -190,14 +190,30 @@ def bank_emission_ref(xa, w, lw):
 
 
 _EMIS_COLS = 64  # columns per tile of the emission kernel
+_EMIS_CHUNK = 64  # feature dimensions per chunk of its chunked form
+EMISSION_MODES = ("l1", "staged", "chunked")  # the kernel's mode argument, in order
 
 
-def _emission_smem(a: int, u: int, m: int, stage: bool) -> int:
-    """Shared memory of one emission CTA: the ``[A][U][Mp]`` weights and
-    ``[U][Mp]`` log weights (mixtures padded to a multiple of 4) when
-    staged, and two ``[A][64]`` feature tiles
-    (``bank_emission_smem_bytes``)."""
+def _emission_smem(a: int, u: int, m: int, stage) -> int:
+    """Shared memory of one emission CTA (``bank_emission_smem_bytes``):
+    the ``[A][U][Mp]`` weights and ``[U][Mp]`` log weights (mixtures
+    padded to a multiple of 4) when staged (``stage`` true or 1), and two
+    ``[A][64]`` feature tiles; the chunked form (``stage`` 2) holds two
+    ``[64][64]`` chunks of a tile and nothing else."""
+    if stage == 2:
+        return 4 * 2 * _EMIS_CHUNK * _EMIS_COLS
     return 4 * (((a + 1) * u * (-(-m // 4) * 4) if stage else 0) + 2 * a * _EMIS_COLS)
+
+
+def emission_plan(a: int, u: int, m: int, limit: int) -> str:
+    """K13's form for ``A`` feature dimensions, ``U`` bank states and ``M``
+    mixtures under a shared-memory ``limit``: ``"staged"`` (the weights and
+    two feature tiles in shared memory), ``"l1"`` (the weights read
+    through L1) or, where two feature tiles do not fit (A above ~450),
+    ``"chunked"`` (the tiles in chunks of 64 dimensions).  Any A gets one."""
+    if _emission_smem(a, u, m, True) <= limit:
+        return "staged"
+    return "l1" if _emission_smem(a, u, m, False) <= limit else "chunked"
 
 
 def _emission_warps(u: int) -> int:
@@ -212,8 +228,8 @@ def bank_emission(xa, w, lw):
     """K13 for CUDA tensors (``csrc/bank_emission.cu``), the plain version
     for CPU tensors.  Arguments and result as ``bank_emission_ref``; the
     kernel writes a ``[T, B, U]`` plane and returns it as a ``[U, T, B]``
-    view (strides ``(1, B*U, U)``).  Raises for a feature dimension whose
-    two feature tiles do not fit in shared memory (A > ~450)."""
+    view (strides ``(1, B*U, U)``).  Any feature dimension: the form is
+    :func:`emission_plan`'s."""
     if not use_kernels(xa):
         return bank_emission_ref(xa, w, lw)
     from speech_recognition_tpu_torch.utils.build import check, load_library
@@ -234,16 +250,12 @@ def bank_emission(xa, w, lw):
     if n == 0:
         return out.permute(2, 0, 1)
     lib = load_library()
-    limit = _smem_limit()
-    if _emission_smem(a, u, m, False) > limit:
-        raise ValueError(f"emission kernel: two [{a}][{_EMIS_COLS}] feature tiles exceed "
-                         f"the {limit} B of shared memory")
-    stage = _emission_smem(a, u, m, True) <= limit
+    mode = EMISSION_MODES.index(emission_plan(a, u, m, _smem_limit()))
     wc, lwc = w.contiguous(), lw.contiguous()
     grid = min(-(-n // _EMIS_COLS), 2 * _n_sm(dev))
     with torch.cuda.device(dev):
         rc = lib.bank_emission_launch(xa.data_ptr(), wc.data_ptr(), lwc.data_ptr(),
-                                      out.data_ptr(), a, n, u, m, int(stage),
+                                      out.data_ptr(), a, n, u, m, mode,
                                       _emission_warps(u), grid,
                                       torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "bank emission kernel")

@@ -35,11 +35,13 @@ __all__ = ["align_batch", "harvest_state_ids", "continuous_train"]
 
 
 def align_batch(bank: HMMBank, feats, n_frames, trans, eps_trans, init_cost, end_states,
-                bank_state, eps_depth: int = 1):
+                bank_state, eps_depth: int = 1, nll=None):
     """Forced alignment of ``feats [B, T, D]`` against per-utterance
     graphs: ``trans`` / ``eps_trans [B, S, S]``, ``init_cost [B, S]``,
     ``end_states [B, E]``, ``bank_state [B, S]`` (tensors on the device of
-    ``feats``).
+    ``feats``).  ``nll [B, T, N*S]``: the bank's emissions where the
+    caller has them (a rank that holds a slice of the bank gathers
+    them), else ``bank_nll`` of ``bank``.
 
     Returns ``(ids [B, T], costs [B])``: ids index the flat (model, state)
     bank, -1 on padded frames; costs are the best end state's."""
@@ -51,7 +53,9 @@ def align_batch(bank: HMMBank, feats, n_frames, trans, eps_trans, init_cost, end
     mask = torch.arange(t, device=dev)[None, :] < n_frames[:, None]
     bank_state = bank_state.to(dev, torch.int64)
     s = bank_state.shape[1]
-    nll = bank_nll(bank, feats, mask).gather(2, bank_state[:, None, :].expand(b, t, s))
+    if nll is None:
+        nll = bank_nll(bank, feats, mask)
+    nll = nll.gather(2, bank_state[:, None, :].expand(b, t, s))
     final, bp, eps_bp = viterbi_dense(nll.contiguous(), trans, init_cost, n_frames,
                                       eps_trans=eps_trans, eps_depth=eps_depth)
     end_states = end_states.to(dev, torch.int64)

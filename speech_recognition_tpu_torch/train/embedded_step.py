@@ -44,7 +44,8 @@ from speech_recognition_tpu_torch.ops.viterbi_banded import BandedGraph
 from speech_recognition_tpu_torch.train.continuous import align_batch
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
-__all__ = ["embedded_step", "embedded_step_soft", "EmbeddedStats", "compose_graphs"]
+__all__ = ["embedded_step", "embedded_step_soft", "EmbeddedStats", "compose_graphs",
+           "embedded_shard_stats", "soft_shard_stats"]
 
 GRAPH_KEYS = ("trans", "eps_trans", "init_cost", "end_states", "bank_state")
 BANDED_KEYS = ("band", "init_cost", "eps_block", "word_starts", "word_ends", "start_pos",
@@ -84,22 +85,47 @@ def embedded_step(bank: HMMBank, feats, n_frames, graph_batch, eps_depth: int = 
     re-estimated parameters (1 replaces them).
 
     Returns ``(new_bank, EmbeddedStats)``."""
+    d = feats.shape[2]
+    ns, m = bank.n_models * bank.n_states, bank.n_mix
+    frame_counts, run_counts, r_sum, rx, rxx, total_cost = embedded_shard_stats(
+        bank, feats, n_frames, graph_batch, eps_depth, frame_chunk)
+    new_bank = embedded_update(bank, frame_counts, run_counts, r_sum, rx, rxx, var_floor, lr)
+    return new_bank, EmbeddedStats(r_sum.reshape(ns, m), rx.reshape(ns, m, d),
+                                   rxx.reshape(ns, m, d), frame_counts, run_counts,
+                                   total_cost)
+
+
+def _local_ids(ids, first_state: int, n_local: int):
+    """Global state ids -> indices into a bank slice whose first state is
+    ``first_state`` (``n_local`` states), -1 outside it."""
+    loc = ids - first_state
+    return torch.where((ids >= 0) & (loc >= 0) & (loc < n_local), loc, -1)
+
+
+def embedded_shard_stats(bank: HMMBank, feats, n_frames, graph_batch, eps_depth: int = 1,
+                         frame_chunk: int = 65536, nll=None, first_state: int = 0):
+    """The half of :func:`embedded_step` that one shard computes before
+    the statistics are summed over shards: this batch's alignment and the
+    statistics of ``bank``'s states.  Returns ``(frame_counts [NS],
+    run_counts [NS], r_sum [NS*M], rx [NS*M, D], rxx [NS*M, D],
+    total_cost)``.
+
+    A rank that holds a slice of the bank passes ``nll [B, T, N*S]``, the
+    whole bank's emissions (its own columns gathered with the others'),
+    for the alignment, and ``first_state``, the flat index of its slice's
+    first state: it then counts the frames aligned to its own states."""
     b, t, d = feats.shape
-    n, s, m = bank.n_models, bank.n_states, bank.n_mix
-    ns = n * s
     dev = feats.device
     ids, costs = align_batch(bank, feats, n_frames, *(graph_batch[k] for k in GRAPH_KEYS),
-                             eps_depth=eps_depth)
+                             eps_depth=eps_depth, nll=nll)
     ids = ids.to(torch.int64)
     # run starts (the per-state segment counts) before flattening
     prev = torch.cat([torch.full((b, 1), -2, dtype=ids.dtype, device=dev), ids[:, :-1]], 1)
     starts = (ids >= 0) & (ids != prev)
-    frame_counts, run_counts, r_sum, rx, rxx = embedded_stats(
-        bank, ids.reshape(b * t), feats.reshape(b * t, d), starts.reshape(b * t), frame_chunk)
-    new_bank = embedded_update(bank, frame_counts, run_counts, r_sum, rx, rxx, var_floor, lr)
-    return new_bank, EmbeddedStats(r_sum.reshape(ns, m), rx.reshape(ns, m, d),
-                                   rxx.reshape(ns, m, d), frame_counts, run_counts,
-                                   costs.sum())
+    ids = _local_ids(ids, first_state, bank.n_models * bank.n_states)
+    stats = embedded_stats(bank, ids.reshape(b * t), feats.reshape(b * t, d),
+                           starts.reshape(b * t), frame_chunk)
+    return (*stats, costs.sum())
 
 
 def embedded_stats(bank: HMMBank, ids, x, starts, frame_chunk: int):
@@ -260,14 +286,34 @@ def embedded_step_soft(bank: HMMBank, feats, n_frames, graph_batch, eps_depth: i
 
     Returns ``(new_bank, EmbeddedStats)`` with ``run_counts`` the expected
     step counts and ``total_cost`` ``-sum log Z``."""
-    b, t, d = feats.shape
+    d = feats.shape[2]
     ns, m = bank.n_models * bank.n_states, bank.n_mix
+    frame_counts, self_counts, exit_counts, r_sum, rx, rxx, total_cost = soft_shard_stats(
+        bank, feats, n_frames, graph_batch, eps_depth, frame_chunk)
+    new_bank = soft_update(bank, frame_counts, self_counts, exit_counts, r_sum, rx, rxx,
+                           var_floor)
+    return new_bank, EmbeddedStats(r_sum.reshape(ns, m), rx.reshape(ns, m, d),
+                                   rxx.reshape(ns, m, d), frame_counts, exit_counts,
+                                   total_cost)
+
+
+def soft_shard_stats(bank: HMMBank, feats, n_frames, graph_batch, eps_depth: int = 1,
+                     frame_chunk: int = 65536, nll=None, first_state: int = 0):
+    """The half of :func:`embedded_step_soft` that one shard computes
+    before the statistics are summed over shards: the forward-backward
+    of this batch and the statistics of ``bank``'s states.  Returns
+    ``(frame_counts [NS], self_counts [NS], exit_counts [NS], r_sum
+    [NS*M], rx [NS*M, D], rxx [NS*M, D], total_cost)``; ``nll`` and
+    ``first_state`` as for :func:`embedded_shard_stats`."""
+    b, t, d = feats.shape
     dev = feats.device
     n_frames = n_frames.to(dev)
     bstate = graph_batch["bank_state"].to(dev, torch.int64)
     sg = bstate.shape[1]
     mask = torch.arange(t, device=dev)[None, :] < n_frames[:, None]
-    nll = bank_nll(bank, feats, mask).gather(2, bstate[:, None, :].expand(b, t, sg)).contiguous()
+    if nll is None:
+        nll = bank_nll(bank, feats, mask)
+    nll = nll.gather(2, bstate[:, None, :].expand(b, t, sg)).contiguous()
     g = graph_batch
     if "band" in g:
         bg = BandedGraph(band=g["band"], init_cost=g["init_cost"], word_starts=g["word_starts"],
@@ -278,10 +324,5 @@ def embedded_step_soft(bank: HMMBank, feats, n_frames, graph_batch, eps_depth: i
     else:
         res = forward_backward(nll, g["trans"], g["init_cost"], n_frames, g["eps_trans"],
                                eps_depth, g["end_scores"], xi_mode="band")
-    frame_counts, self_counts, exit_counts, r_sum, rx, rxx = soft_stats(
-        bank, feats, res.gamma, res.xi_sum, bstate, frame_chunk)
-    new_bank = soft_update(bank, frame_counts, self_counts, exit_counts, r_sum, rx, rxx,
-                           var_floor)
-    return new_bank, EmbeddedStats(r_sum.reshape(ns, m), rx.reshape(ns, m, d),
-                                   rxx.reshape(ns, m, d), frame_counts, exit_counts,
-                                   -res.log_z.sum())
+    stats = soft_stats(bank, feats, res.gamma, res.xi_sum, bstate - first_state, frame_chunk)
+    return (*stats, -res.log_z.sum())

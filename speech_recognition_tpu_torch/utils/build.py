@@ -126,8 +126,8 @@ def load_library() -> ctypes.CDLL:
     lib.lex_backtrace_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p, p]
     lib.lattice_rescore_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
                                            i, i, i, i, i, i, i, i, p, p, p]
-    lib.fb_banded_launch.argtypes = [p] * 22 + [i] * 11 + [p]
-    lib.fb_dense_launch.argtypes = [p] * 13 + [i] * 13 + [p]
+    lib.fb_banded_launch.argtypes = [p] * 23 + [i] * 11 + [p]
+    lib.fb_dense_launch.argtypes = [p] * 14 + [i] * 13 + [p]
     for fn in (lib.mfcc_tail_launch, lib.bank_emission_launch, lib.banded_forward_launch,
                lib.banded_warp_launch,
                lib.banded_backtrace_launch,
@@ -149,9 +149,11 @@ def load_library() -> ctypes.CDLL:
     lib.viterbi_dense_smem_bytes.argtypes = [i] * 7
     lib.viterbi_dense_smem_bytes.restype = q
     lib.srt_smem_limit.argtypes = []
-    lib.fb_banded_smem_bytes.argtypes = [i] * 4
+    lib.fb_banded_smem_bytes.argtypes = [i] * 5
     lib.fb_banded_aux_ints.argtypes = [i] * 3
-    lib.fb_dense_smem_bytes.argtypes = [i] * 5
+    lib.fb_banded_rows_floats.argtypes = [i] * 3
+    lib.fb_banded_rows_floats.restype = q
+    lib.fb_dense_smem_bytes.argtypes = [i] * 6
     lib.fb_dense_list_ints.argtypes = [i, i]
     lib.fb_dense_list_ints.restype = q
     lib.fb_scan_occupancy.argtypes = [i] * 3

@@ -1,0 +1,223 @@
+"""The H100 bound model: the least time the card could take for a
+kernel's work, and a report of measured times against it.
+
+Counterpart of ``speech_recognition_tpu/utils/roofline.py``, whose peaks
+and work models are a TPU v5e's (its MXU passes and lane padding have no
+counterpart here).  A kernel's bound is the larger of two times: the
+bytes it must move (each input read once, each output written once) over
+the card's memory rate, and the operations it does on these inputs over
+the card's f32 rate (exps and logs over the special function units'
+rate, where they bind).  Where the work depends on the data (frames past
+a stream's length, finite matrix entries), the models count what the
+given inputs need.  ``chip_smoke.py`` prints each kernel's bound from
+these models beside its measured time.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+__all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "SFU_PER_S", "SMEM_STEP_CYCLES", "SM_CLOCK_HZ",
+           "bound", "nbytes", "graph_bytes", "dp_ops", "span_pairs", "ceps_ops", "dense_ops",
+           "mfcc_ops", "tail_ops", "rescore_ops", "fb_steps", "fb_dense_work",
+           "fb_banded_work", "report"]
+
+# The card's published peaks (H100 SXM data sheet, at a 700 W limit):
+# device memory bandwidth and f32 rate outside the tensor cores (the port
+# keeps TF32 off); an add, min or compare counts as one operation.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# a serial walk's step: one dependent shared-memory load (~30 cycles on
+# Hopper) at the H100 SXM's boost clock
+SMEM_STEP_CYCLES = 30
+SM_CLOCK_HZ = 1.98e9
+
+
+# exp and log issue on the special function units, 16 a clock per SM: 132
+# SMs at the boost clock give ~4.2e12 a second (the forward-backward
+# kernels K15 / K16 are mostly exps and logs)
+SFU_PER_S = 132 * 16 * SM_CLOCK_HZ
+
+
+def bound(n_bytes: float, n_ops: float, n_sfu: float = 0.0):
+    """``(ms, "bytes" | "operations")``: the least time the card could
+    take to move ``n_bytes``, do ``n_ops`` f32 operations and ``n_sfu``
+    exps and logs (the largest of the three; the SFU term counts as
+    operations), and which sets it."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+    t_o = max(t_o, n_sfu / SFU_PER_S * 1e3)
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors if x is not None)
+
+
+# Work models of the bounds: the bytes each kernel must move (every input
+# read once, every output written once; a backtrace reads only the plane
+# entries its walk visits) and the operations it does on this run's data
+# (frames past a stream's length are not counted where the kernel skips
+# them).  Per state and frame the banded DP does 3 band adds and compares,
+# an emission add and a clamp (8), a trie's cross edge 3 more; the re-entry
+# an add and a compare per (root, leaf) pair.
+
+
+def graph_bytes(g) -> int:
+    """The graph arrays a DP kernel reads, at 4 bytes an entry."""
+    parts = (g.band, g.init_cost, g.bank_state, g.word_starts, g.word_ends, g.eps_block,
+             g.cross_src, g.cross_cost)
+    return 4 * sum(x.numel() for x in parts if x is not None)
+
+
+def dp_ops(g, frames: int, eps_pairs: int = None, passes: int = 1) -> float:
+    """Operations of ``frames`` (frame, stream) steps of the banded DP:
+    ``passes`` re-entry passes over ``eps_pairs`` (word end, word start)
+    pairs each (default: the whole eps block)."""
+    per_state = 8 + (3 if g.cross_src is not None else 0)
+    pairs = g.eps_block.numel() if eps_pairs is None else eps_pairs
+    return frames * (g.n_states * per_state + passes * (2 * pairs + 2 * g.n_words))
+
+
+def span_pairs(topo) -> int:
+    """The (word start, word end) pairs a banded kernel visits: the finite
+    spans of the eps block (``BandedTopo.ranges``)."""
+    return sum((r_hi - r_lo) * (u_hi - u_lo) for r_lo, r_hi, u_lo, u_hi in topo.ranges)
+
+
+def ceps_ops(cfg, n_frames: int) -> float:
+    """Operations of the MFCC cepstra over ``n_frames`` frames: pre-emphasis
+    and window, half a complex N-point FFT per real frame (5 N log2 N
+    each), power, two triangular filters per bin, log, DCT, lifter."""
+    import math
+
+    n, half = cfg.n_fft, cfg.n_fft // 2 + 1
+    return n_frames * (3 * cfg.frame_len + 2.5 * n * math.log2(n) + 3 * half + 4 * half
+                       + cfg.n_mels + 2 * cfg.n_mels * cfg.n_ceps + cfg.n_ceps)
+
+
+def dense_ops(steps: int, s: int, eps_depth: int) -> float:
+    """Operations of ``steps`` (item, frame) steps of the dense Viterbi: an
+    add and a compare per (to, from) pair for the frame edge and for each
+    of ``eps_depth`` eps passes (0 without eps)."""
+    return float(steps) * s * s * 2 * (1 + eps_depth)
+
+
+def mfcc_ops(cfg, n_frames: int) -> float:
+    """Operations of the fused MFCC-39 over ``n_frames`` frames: pre-emphasis
+    and window, half a complex N-point FFT per real frame (5 N log2 N
+    each), power, two triangular filters per bin, log, DCT, lifter, the
+    two delta passes and the standardization."""
+    import math
+
+    n, half = cfg.n_fft, cfg.n_fft // 2 + 1
+    per = (3 * cfg.frame_len + 2.5 * n * math.log2(n) + 3 * half + 4 * half + cfg.n_mels
+           + 2 * cfg.n_mels * cfg.n_ceps + cfg.n_ceps + 2 * 10 * cfg.n_ceps
+           + 4 * 3 * cfg.n_ceps)
+    return n_frames * per
+
+
+def tail_ops(cfg, n_frames: int) -> float:
+    """Operations of the MFCC-39 tail over ``n_frames`` frames: the two
+    delta passes and the standardization (mfcc_ops' last two terms)."""
+    return n_frames * (2 * 10 * cfg.n_ceps + 4 * 3 * cfg.n_ceps)
+
+
+def rescore_ops(t_len: int, b: int, l: int, k: int, dense: bool) -> float:
+    """Operations of the rescoring DP over every frame of ``b`` streams:
+    per leaf the D select and add, the backoff add and compare, K sparse
+    adds and compares, the take and the ring store (6 + 2K), or the dense
+    min-plus column (2L) plus 3."""
+    per_leaf = 2 * l + 3 if dense else 6 + 2 * k
+    return float(t_len) * b * l * per_leaf
+
+
+def fb_steps(nf, t_len: int):
+    """Per item: the forward's steps (frames below its length, and frame 0
+    of an empty item), the backward's (one fewer) and the frames gamma is
+    computed on, as int64 tensors."""
+    n = nf.clamp(min=0, max=t_len).long()
+    return n.clamp(min=1), (n - 1).clamp(min=0), n
+
+
+# The forward-backward work models count what this run's inputs need: an
+# exp (and 5 f32 operations: the add, the max, the subtract, the sum) per
+# finite matrix / band / eps entry of an LSE, a log a row that has one, a
+# logaddexp (exp and log1p) a state an eps pass reaches, the cross edges',
+# then gamma a state and frame and an xi term per finite edge and frame;
+# NEG_INF entries, which add exactly nothing, are not counted.  Bytes:
+# every input read once, every output written once (the alpha and beta
+# planes are scratch).
+
+
+def _fin(cost, b):
+    """``cost < POS_INF / 2`` with a leading batch axis of ``b``."""
+    fin = cost < 0.5e30
+    return fin if fin.dim() == 3 else fin.expand((b,) + tuple(fin.shape))
+
+
+def fb_dense_work(nll, trans, eps, init, end, nf, depth: int, out):
+    """``(bytes, operations, exps and logs)`` of K16 on these inputs."""
+    b, t_len, s = nll.shape
+    fw, bw, nfc = fb_steps(nf, t_len)
+    ft = _fin(trans, b)
+    sfu = ((fw - 1) * (ft.sum((1, 2)) + ft.any(2).sum(1))
+           + bw * (ft.sum((1, 2)) + ft.any(1).sum(1)))
+    if eps is not None:
+        fe = _fin(eps, b)
+        sfu = sfu + depth * (fw * (fe.sum((1, 2)) + fe.any(2).sum(1) + 2 * s)
+                             + bw * (fe.sum((1, 2)) + fe.any(1).sum(1) + 2 * s))
+    if out.xi_sum.shape[1] == s:  # dense xi: a term per finite (to, from) pair
+        xi_terms = ft.sum((1, 2))
+    else:  # band xi: the finite entries trans[u + d, u]
+        xi_terms = sum(ft[:, d:, :s - d].diagonal(dim1=1, dim2=2).sum(1) for d in range(3))
+    comb = nfc * s + (nfc - 1).clamp(min=0) * xi_terms
+    sfu_n = float((sfu + comb).sum())
+    ops = 5 * sfu_n + 4 * s * float((fw + bw).sum()) * (1 + (depth if eps is not None else 0))
+    return (nbytes(nll, trans, eps, init, end, nf, out.gamma, out.xi_sum, out.log_z), ops,
+            sfu_n)
+
+
+def fb_banded_work(nll, g, nf, depth: int, end, out):
+    """``(bytes, operations, exps and logs)`` of K15 on these inputs."""
+    import torch
+
+    b, t_len, s = nll.shape
+    fw, bw, nfc = fb_steps(nf, t_len)
+    band = g.band if g.band.dim() == 3 else g.band.expand((b,) + tuple(g.band.shape))
+    # the band's finite entries: edge s - d -> s for s >= d
+    fb_ = torch.stack([(band[:, d] < 0.5e30) & (torch.arange(s, device=band.device) >= d)
+                       for d in range(3)], 1)
+    n_band, band_rows = fb_.sum((1, 2)), fb_.any(1).sum(1)
+    fe = _fin(g.eps_block, b)
+    n_eps = fe.sum((1, 2))
+    is_start = g.is_start if g.is_start.dim() == 2 else g.is_start.expand(b, s)
+    ends = g.word_ends if g.word_ends.dim() == 2 else g.word_ends.expand(b, -1)
+    n_end = torch.zeros((b, s), dtype=torch.bool, device=ends.device).scatter_(
+        1, ends.long(), True).sum(1)
+    n_cross = 0
+    if g.cross_src is not None:
+        cc = g.cross_cost if g.cross_cost.dim() == 2 else g.cross_cost.expand(b, s)
+        n_cross = (cc < 0.5e30).sum(1)
+    sfu = ((fw - 1) * (n_band + band_rows + 2 * n_cross) + bw * (n_band + band_rows
+                                                                 + 2 * n_cross)
+           + depth * (fw * (n_eps + fe.any(2).sum(1) + 2 * is_start.sum(1))
+                      + bw * (n_eps + fe.any(1).sum(1) + 2 * n_end))
+           + nfc * s + (nfc - 1).clamp(min=0) * (n_band + n_cross))
+    sfu_n = float(sfu.sum())
+    ops = 5 * sfu_n + 4 * s * float((fw + bw).sum()) * (1 + depth)
+    graph = [g.band, g.init_cost, g.eps_block, g.word_starts, g.word_ends, g.start_pos,
+             g.is_start, g.cross_src, g.cross_cost]
+    return (nbytes(nll, *graph, end, nf, out.gamma, out.xi_sum, out.xi_cross, out.log_z),
+            ops, sfu_n)
+
+
+def report(stages: Dict[str, Tuple[float, str]], measured_s: float) -> str:
+    """One line: the stages' bounds (``{name: bound(...)}``, ms and what
+    sets each) summed against ``measured_s``, the share of the bound the
+    measurement reached, and each stage's bound."""
+    total_ms = sum(ms for ms, _ in stages.values())
+    measured_ms = measured_s * 1e3
+    pct = 100.0 * total_ms / measured_ms if measured_ms > 0 else float("nan")
+    parts = ", ".join(f"{k}: {ms:.4f} ms by {by}" for k, (ms, by) in stages.items())
+    return (f"bound {total_ms:.4f} ms vs measured {measured_ms:.4f} ms -> {pct:.1f}% of "
+            f"the bound ({parts})")

@@ -410,6 +410,31 @@ def test_emission_launch_shape(u, warps):
     assert _emission_smem(a, 55, 4, False) == 4 * 2 * a * 64
 
 
+@pytest.mark.parametrize("a, u, m, want", [
+    (79, 55, 4, "staged"),     # the CLI's bank
+    (79, 110, 8, "l1"),        # weights past shared memory: read through L1
+    (450, 11, 1, "l1"),        # the widest the unchunked form takes (~453)
+    (455, 1, 1, "chunked"),    # two [A][64] feature tiles past shared memory
+    (512, 55, 4, "chunked"),
+    (1024, 55, 4, "chunked"),
+    (100000, 55, 4, "chunked"),
+])
+def test_emission_plan_takes_any_feature_width(a, u, m, want):
+    """K13's plan never refuses a feature width: past the two feature
+    tiles' room (A above ~450) it takes the chunked form, whose shared
+    memory (two [64][64] chunks) does not grow with A."""
+    from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import (
+        _emission_smem,
+        emission_plan,
+    )
+
+    limit = 227 * 1024
+    assert emission_plan(a, u, m, limit) == want
+    stage = {"l1": 0, "staged": 1, "chunked": 2}[want]
+    assert _emission_smem(a, u, m, stage) <= limit
+    assert _emission_smem(a, u, m, 2) == 4 * 2 * 64 * 64
+
+
 @pytest.mark.parametrize("n_mix,n_states", [(2, 3), (4, 5), (11, 2)])
 def test_bank_emission_plain_matches_reference(n_mix, n_states):
     """The emission kernel's plain version (K1's factored GMM GEMM +

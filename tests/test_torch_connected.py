@@ -137,6 +137,9 @@ def test_port_imports_no_jax():
     the reference package, and leaves TF32 off."""
     mods = _port_modules()
     assert "speech_recognition_tpu_torch.ops.lattice_kernels" in mods and len(mods) > 30
+    assert {f"speech_recognition_tpu_torch.{m}" for m in (
+        "parallel", "parallel.mesh", "parallel.trainer", "parallel.sharded_decode",
+        "utils.profiling", "utils.roofline")} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

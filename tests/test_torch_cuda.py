@@ -23,7 +23,9 @@ frame; K12 (the MFCC cepstra) at K3's rtol 2e-3 / atol 5e-4.  K15 / K16 (the
 banded and dense forward-backward) against their plain versions: log Z
 at rtol 1e-5, gamma at atol 1e-4, xi at rtol 1e-4 / atol 1e-3 (the same
 IEEE expf / logf on both sides; only the sums over frames and over a
-row's origins run in other orders).  K9's cross mode is held exactly
+row's origins run in other orders), past shared memory too (their
+device-row tier), and K13's chunked form past ~450 feature dimensions
+at K13's tolerance.  K9's cross mode is held exactly
 to the plain backtrace on tries' exact and beam planes; the pruned
 forward, the token beam and the spell checker run the same tensor ops
 on the card as on the CPU and are compared exactly.  Decodes
@@ -1965,6 +1967,103 @@ def test_fb_banded_kernel_edge_cases(dev, graph):
     assert fk.fb_banded.launches == before + 2
     _fb_close(got, want)
     assert not got.gamma[1].any() and not got.gamma[2, 1:].any() and not got.xi_sum[1:3].any()
+
+
+def _long_loop(n_words, n, dev, dense=False):
+    """A loop graph of ``n_words`` left-to-right words of ``n`` states
+    (self and step costs -log 0.5, every word end to every word start at
+    cost 1), built on the card: as a ``BandedGraph``, or with ``dense`` as
+    K16's ``(trans, eps_trans, init_cost)`` (its ``[S, S]`` matrices, too
+    large to build on the host)."""
+    from speech_recognition_tpu_torch.ops.viterbi_banded import BandedGraph
+
+    s = n_words * n
+    idx = torch.arange(s, device=dev)
+    first = idx % n == 0
+    band = torch.full((3, s), 1e30, device=dev)
+    band[0] = 0.6931472
+    band[1] = torch.where(first, 1e30, 0.6931472)
+    starts = idx[first]
+    ends = starts + n - 1
+    init = torch.where(first, 0.0, 1e30)
+    eps_block = torch.ones((n_words, n_words), device=dev)
+    if not dense:
+        return BandedGraph(band, init, starts, ends, eps_block, torch.where(first, idx // n, 0),
+                           first, ends, torch.zeros(n_words, device=dev), idx % 55)
+    trans = torch.full((s, s), 1e30, device=dev)
+    for d in range(2):
+        trans[idx[d:], idx[:s - d]] = band[d, d:]
+    eps = torch.full((s, s), 1e30, device=dev)
+    eps[starts[:, None], ends[None, :]] = eps_block
+    return trans, eps, init
+
+
+@pytest.mark.parametrize("kernel", ["K15", "K16"])
+def test_fb_device_row_tier(dev, kernel):
+    """Past the rows' room in shared memory: K15 on a 30,000-state loop
+    (300 words of 100 states), K16 on a 19,500-state loop (195 words),
+    both in the device-row tier (K16's lists prebuilt in device memory),
+    lengths T, 0, 1 and mixed; against the plain versions at the usual
+    tolerances, every call twice, bit for bit."""
+    from speech_recognition_tpu_torch.ops import forward_backward_kernels as fk
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    lib = load_library()
+    limit = lib.srt_smem_limit()
+    rng = np.random.default_rng(8)
+    b, t_len = 4, 12
+    if kernel == "K15":
+        g = _long_loop(300, 100, dev)
+        s = g.n_states
+        assert fk.banded_plan(s, 300, 300, lib.fb_banded_smem_bytes, limit).rows == "device"
+    else:
+        trans, eps, init = _long_loop(195, 100, dev, dense=True)
+        s = trans.shape[0]
+        plan = fk.dense_plan(s, True, b, torch.cuda.get_device_properties(dev)
+                             .multi_processor_count, lib.fb_dense_smem_bytes, limit)
+        assert (plan.rows, plan.lists) == ("device", "device")
+    nll = torch.from_numpy(rng.uniform(40, 60, (b, t_len, s)).astype(np.float32)).to(dev)
+    nf = torch.tensor([t_len, 0, 1, 7], dtype=torch.int32, device=dev)
+    if kernel == "K15":
+        before = fk.fb_banded.launches
+        got = _fb_twice(lambda: fk.fb_banded(nll, g, nf))
+        want = fk.fb_banded_ref(nll, g, nf)
+        launches = fk.fb_banded.launches - before
+    else:
+        before = fk.fb_dense.launches
+        got = _fb_twice(lambda: fk.fb_dense(nll, trans, init, nf, eps, 1, None, "band"))
+        want = fk.fb_dense_ref(nll, trans, init, nf, eps, 1, None, "band")
+        launches = fk.fb_dense.launches - before
+    torch.cuda.synchronize()
+    assert launches == 2
+    _fb_close(got, want)
+    assert not got.gamma[1].any() and not got.gamma[2, 1:].any()
+
+
+@pytest.mark.parametrize("a", [455, 512, 1024])
+def test_k13_chunked_feature_widths(dev, a):
+    """K13 past two feature tiles' room in shared memory (A above ~450):
+    the chunked form against its plain version at rtol 1e-5 / atol 1e-4
+    (K13_TOL), on 40 x 37 columns (not a multiple of 4: 4-byte copies)
+    and 32 x 40 (16-byte copies), with one and with three mixture blocks."""
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    lib = load_library()
+    rng = np.random.default_rng(a)
+    for u, m in ((55, 4), (7, 11)):
+        assert vk.emission_plan(a, u, m, lib.srt_smem_limit()) == "chunked"
+        assert lib.bank_emission_smem_bytes(a, u, m, 2) == vk._emission_smem(a, u, m, 2)
+        w = torch.from_numpy(rng.standard_normal((u, m, a)).astype(np.float32) * 0.05).to(dev)
+        lw = torch.from_numpy(np.log(rng.dirichlet(np.ones(m), u)).astype(np.float32)).to(dev)
+        for t, b in ((40, 37), (32, 40)):
+            xa = torch.from_numpy(rng.standard_normal((a, t, b)).astype(np.float32)).to(dev)
+            before = vk.bank_emission.launches
+            got = vk.bank_emission(xa, w, lw)
+            want = vk.bank_emission_ref(xa, w, lw)
+            torch.cuda.synchronize()
+            assert vk.bank_emission.launches == before + 1
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("kernel", ["K15", "K16"])

@@ -262,13 +262,18 @@ def test_cuda_tensors_never_take_the_plain_version():
 
 
 # the kernels' shared-memory layouts (csrc/forward_backward.cu
-# banded_smem_floats / dense_smem_floats), in bytes, and an H100's room
-def _banded_bytes(s, r, l, ring):
+# banded_smem_floats / dense_smem_floats), in bytes, and an H100's room;
+# with the rows in device memory (rows_smem 0), the block scratch alone
+def _banded_bytes(s, r, l, ring, rows_smem):
     m = max(r, l)
+    if not rows_smem:
+        return 4 * 64
     return 4 * ((((64 + m + 8 * s + 1) & ~1) + 24 * m) if ring else 64 + m + 2 * s)
 
 
-def _dense_bytes(s, use_eps, cap, lists_smem, ring):
+def _dense_bytes(s, use_eps, cap, lists_smem, ring, rows_smem):
+    if not rows_smem:
+        return 4 * 64
     rows = (64 + (3 + 3 * ring) * s + 1) & ~1
     return 4 * (rows + lists_smem * (1 + use_eps) * (((s + 2) & ~1) + 2 * cap))
 
@@ -280,31 +285,60 @@ H100_SMS = 132
 @pytest.mark.parametrize("kernel, shape, want", [
     ("K15", (385, 77, 77), ("none", 0, 20280, True)),   # the sausage
     ("K15", (9588, 1000, 1000), ("none", 0, 80960, False)),  # the 1k trie: no ring
-    ("K15", (30000, 10, 10), None),                     # the rows alone do not fit
+    ("K15", (30000, 10, 10), ("none", 0, 256, False, "device")),  # rows in device memory
     # the soft-EM graphs, 419 items: lists sized so 7 CTAs share an SM
     ("K16", (75, True, 419), ("shared", 1849, 32248, True)),
     ("K16", (200, False, 8), ("shared", 28323, 232448, True)),  # rows past 28,323 entries: dense loop
     ("K16", (170, True, 8), ("shared", 14171, 232448, True)),   # the 34-word loop
-    ("K16", (20000, False, 1), None),                   # the rows alone do not fit
+    ("K16", (20000, False, 1), ("device", 320000, 256, False, "device")),  # device rows
     ("K16", (5000, True, 1), ("device", 80000, 120256, True)),  # lists in device memory
 ])
 def test_fb_plans_pick_tiers_and_refuse_past_shared_memory(kernel, shape, want):
     """``banded_plan`` sizes K15's scan CTA; ``dense_plan`` gives K16's
     finite-entry lists the shared memory left when the 2B scan CTAs share
     the SMs (device memory where that is too little); both stage the
-    emission rows in a ring where it fits, and refuse a graph whose alpha
-    / beta rows alone do not fit."""
+    emission rows in a ring where it fits; a graph whose alpha / beta rows
+    alone do not fit takes the device-row tier (nothing is refused)."""
     from speech_recognition_tpu_torch.ops import forward_backward_kernels as fk
 
     if kernel == "K15":
         plan = lambda: fk.banded_plan(*shape, _banded_bytes, H100_SMEM)  # noqa: E731
     else:
         plan = lambda: fk.dense_plan(*shape, H100_SMS, _dense_bytes, H100_SMEM)  # noqa: E731
-    if want is None:
-        with pytest.raises(ValueError, match="too many states"):
-            plan()
-        return
     p = plan()
-    assert (p.lists, p.cap, p.smem, p.ring) == want and p.smem <= H100_SMEM
+    assert (p.lists, p.cap, p.smem, p.ring, p.rows) == (want + ("shared",))[:5] \
+        and p.smem <= H100_SMEM
     per = -(-shape[0] // 224)
     assert p.threads == -(-(-(-shape[0] // per)) // 32) * 32 <= 224
+
+
+@pytest.mark.parametrize("kernel", ["K15", "K16"])
+def test_fb_plans_take_any_size(kernel):
+    """Neither plan refuses a size: past the rows' room in shared memory
+    (K15 ~29,000 states, K16 ~19,000) both take the device-row tier (the
+    block scratch alone in shared memory, no ring; K16's lists in device
+    memory with min(S^2, 16 S) entries), and below it the plans are
+    the shared-memory tiers they were."""
+    from speech_recognition_tpu_torch.ops import forward_backward_kernels as fk
+
+    tiers = set()
+    for s in (1, 385, 18000, 19500, 28000, 29500, 30000, 60000, 100000):
+        if kernel == "K15":
+            for r, l in ((1, 1), (300, 300), (6000, 6000), (3, s)):
+                p = fk.banded_plan(s, r, l, _banded_bytes, H100_SMEM)
+                shared = _banded_bytes(s, r, l, 0, 1) <= H100_SMEM
+                assert p.rows == ("shared" if shared else "device") and p.smem <= H100_SMEM
+                assert p.ring or not shared or _banded_bytes(s, r, l, 1, 1) > H100_SMEM
+                tiers.add(p.rows)
+        else:
+            for use_eps in (False, True):
+                for b in (1, 419):
+                    p = fk.dense_plan(s, use_eps, b, H100_SMS, _dense_bytes, H100_SMEM)
+                    shared = _dense_bytes(s, use_eps, 0, 0, 0, 1) <= H100_SMEM
+                    assert p.rows == ("shared" if shared else "device")
+                    assert p.smem <= H100_SMEM and p.cap >= 1
+                    if not shared:
+                        assert (p.lists, p.cap, p.ring, p.smem) == (
+                            "device", min(s * s, 16 * s), False, 4 * 64)
+                    tiers.add(p.rows)
+    assert tiers == {"shared", "device"}
