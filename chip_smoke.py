@@ -79,6 +79,20 @@ through the CLI with the launch counters reset just before each:
   count to the wrappers' launch counts and reports NaN ("not measured")
   for a reading whose window lost kernels three times.
 
+K21 (the dense backtrace behind ``viterbi_backtrace``), K22 (the bigram
+lattice's word walk) and K23 (the word-trace walk) replace the JAX
+package's backtrace scans.  K21 is held bit for bit to
+``viterbi_backtrace_ref`` on K11's planes of each K11 case below (the
+385-state sausage at 64 x 500, the isolated shape, the transcript
+graphs, the integer-tie batch: eps depth 2, lengths 0, 1 and T), batched
+and one stream; K22 to ``lattice_words_ref`` in every K6 + K7 check, at
+the decode's max_words and one word short of the longest chain; K23 to
+``wordtrace_words_ref`` on the sausage's word trace at 512 x 500 and on
+a skip-arc loop graph whose chains outgrow the reference's T / W + 1
+rows.  The align, dense, training and section 8 paths count K21, the
+bigram lattice path and section 8 K22, the word-trace path K23; each is
+timed beside its plain version, its bound and its serial floor.
+
 Each CLI output is checked against the same command on the CPU (plain
 versions); the training path's, which sum GEMMs in other orders on the
 two devices, by accuracy: ``isolated_test`` within one file, and
@@ -464,7 +478,8 @@ def check_lattice(name, lexg, g, nll, nf, lm_l, max_dur=128):
     bit-identical in every frame, frozen ones included), K7 on K6's
     planes against ``rescore_lattice_ref`` (cost and best leaf
     bit-identical, pred_w at t < nf), and the words both walks read.
-    Returns ``(words, K6 max |d| of ends_cost, K7 max |d| of cost)``."""
+    Returns ``(words, K6 max |d| of ends_cost, K7 max |d| of cost, K22's
+    arguments with its max_words)``."""
     import torch
 
     from speech_recognition_tpu_torch.ops import lattice as lat
@@ -496,6 +511,17 @@ def check_lattice(name, lexg, g, nll, nf, lm_l, max_dur=128):
     mw = min(t_len, t_len // su + 1)
     walks = [lat.lattice_words_device(r[2].transpose(1, 2), got[2].transpose(1, 2), r[1],
                                       nf, max_words=mw) for r in (rk, rp)]
+    # K22 against its plain version on K7's planes (the [T, L, B] views of
+    # [T, B, L]): at the decode's max_words and one word short of the
+    # longest chain
+    k22_args = (rk[2].transpose(1, 2), got[2].transpose(1, 2), rk[1], nf)
+    cut = max(int(walks[0][1].max()) - 1, 1)
+    for mw_ in (mw, cut):
+        k22 = lat.lattice_words_device(*k22_args, max_words=mw_)
+        p22 = lat.lattice_words_ref(*k22_args, max_words=mw_)
+        torch.cuda.synchronize()
+        if not (torch.equal(k22[0], p22[0]) and torch.equal(k22[1], p22[1])):
+            fail(f"K22 differs from lattice_words_ref on {name} at max_words {mw_}")
     lw = lexg.leaf_word
     words = []
     for lr, nw in walks:
@@ -508,10 +534,11 @@ def check_lattice(name, lexg, g, nll, nf, lm_l, max_dur=128):
                    f"{'dense' if big is not None else 'backoff'} LM) at "
                    f"{nll.shape[2]}x{t_len}: K6 planes == plain (bit-identical, frozen "
                    f"frames included); K7 cost, best leaf, pred_w == plain; words "
-                   f"identical; live arcs {live:.3f}; mean words/utt "
+                   f"identical; K22 == plain at max_words {mw} and {cut} (the longest chain "
+                   f"cut); live arcs {live:.3f}; mean words/utt "
                    f"{sum(map(len, words[0])) / len(words[0]):.2f}")
     return (words[0], float((got[1] - want[1]).abs().max()),
-            float((rk[0] - rp[0]).abs().max()))
+            float((rk[0] - rp[0]).abs().max()), (*k22_args, mw))
 
 
 def make_lex_pipeline(dev, batch=128, samples=80000):
@@ -626,14 +653,15 @@ def kernel_counters() -> tuple:
         mfcc_fused,
         mfcc_tail,
     )
-    from speech_recognition_tpu_torch.ops.viterbi_kernels import viterbi_dense
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import dense_backtrace, viterbi_dense
 
     return (mfcc39_fused, mfcc_tail, vk.bank_emission, vk.viterbi_banded_fused,
             vk.banded_backtrace_val,
             lk.viterbi_lex, lk.lex_backtrace_val, lt.viterbi_lattice, lt.rescore_lattice,
             vk.viterbi_banded_general, vk.banded_backtrace_general,
             vk.viterbi_banded_wordtrace, viterbi_dense, mfcc_fused, fbk.fb_banded,
-            fbk.fb_dense, vk.viterbi_banded_chunk, lk.viterbi_lex_chunk)
+            fbk.fb_dense, vk.viterbi_banded_chunk, lk.viterbi_lex_chunk, dense_backtrace,
+            lt.lattice_walk, vk.wordtrace_words_device)
 
 
 # ---- section 8: the sharded paths, one NCCL rank per card ---------------------
@@ -924,7 +952,8 @@ def parallel_section(dev, tmp: str, card: str) -> dict:
         if o["bigram"] != lwords:
             fail(f"rank {r}: the data-sharded bigram decode's words differ")
     launched = {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
-    for k in ("viterbi_dense", "fb_dense", "fb_banded", "viterbi_lattice", "rescore_lattice"):
+    for k in ("viterbi_dense", "dense_backtrace", "fb_dense", "fb_banded", "viterbi_lattice",
+              "rescore_lattice", "lattice_walk"):
         if not launched[k]:
             fail(f"section 8 launched no {k}: {launched}")
     phase("parallel", f"world {world} (NCCL, one rank a card; spawned and done in "
@@ -977,7 +1006,9 @@ def main(argv=None) -> int:
         SMEM_STEP_CYCLES,
         bound,
         ceps_ops,
+        chain_walk_work,
         dense_ops,
+        dense_walk_work,
         dp_ops,
         fb_banded_work,
         fb_dense_work,
@@ -1271,14 +1302,63 @@ def main(argv=None) -> int:
 
     bank_dup = random_bank(5, seed=12, dup=5).to(dev)  # models 6-10 copy 0-4
     w_d, lw_d = gmm_emission_weights(*bank_dup.flat_states())
-    k10_err = 0.0
+    k10_err, k10_out = 0.0, {}
     for bname, bk, ww, ll in (("random bank", bank, w, lw),
                               ("bank with 5 copied models (ties)", bank_dup, w_d, lw_d)):
         graph = connected_graph_arrays(bk, 7)
         bg = banded_arrays(graph, device=dev)
-        err, _ = check_k10(f"sausage7 ({graph.n_states} states), {bname}", xa, ww, ll, bg,
-                           vk.banded_topology(bg), nf)
+        err, k10_out[bname] = check_k10(f"sausage7 ({graph.n_states} states), {bname}", xa,
+                                        ww, ll, bg, vk.banded_topology(bg), nf)
         k10_err = max(k10_err, err)
+
+    # ---- 4c'. K23 (the word-trace walk) vs its plain version ------------------
+    def wordtrace_walk_args(fwd_, bg_, nf_):
+        """The walk's arguments as ``decode.connected`` builds them from
+        K10's outputs: the side planes, each stream's final slot and its
+        entry time."""
+        end_ = bg_.end_states[torch.argmin(fwd_[0][bg_.end_states]
+                                           + bg_.end_bonus[:, None], 0)]
+        return (fwd_[1], fwd_[2], end_ // vk.banded_topology(bg_).uniform_w,
+                fwd_[3].gather(0, end_[None])[0], nf_)
+
+    def check_k23(name, args_):
+        """K23 against ``wordtrace_words_ref`` on the same CUDA planes: the
+        words plane (its rows included) and n_words bit for bit."""
+        got_ = vk.wordtrace_words_device(*args_)
+        want_ = vk.wordtrace_words_ref(*args_)
+        torch.cuda.synchronize()
+        if got_[0].shape != want_[0].shape or not (torch.equal(got_[0], want_[0])
+                                                   and torch.equal(got_[1], want_[1])):
+            fail(f"K23 differs from the plain walk on {name}: rows {got_[0].shape[0]} / "
+                 f"{want_[0].shape[0]}")
+        phase("K23", f"{name}: words plane ({want_[0].shape[0]} rows) and n_words == plain "
+                     f"(bit-identical); eps_u {str(args_[0].dtype).split('.')[-1]}, longest "
+                     f"chain {int(want_[1].max())} words, {int(want_[1].sum())} in all")
+        return want_
+
+    # the sausage's word trace at 512 x 500, and the skip-arc loop graph (3
+    # words of 5 states with cheap skips, word insertion -1000: more words
+    # than T / 5 + 1, which the reference's plane would drop) at 64 x 300
+    bg7_ = banded_arrays(connected_graph_arrays(bank, 7), device=dev)
+    wt_args7 = wordtrace_walk_args(k10_out["random bank"], bg7_, nf)
+    check_k23(f"sausage7 word trace {B}x{T}", wt_args7)
+    bank_skip = random_bank(5, seed=17, n_models=3)
+    for tr_ in bank_skip.trans_cost:
+        for i_ in range(3):
+            tr_[i_ + 2, i_] = 0.05
+    bank_skip = bank_skip.to(dev)
+    g_skip = banded_arrays(build_loop_graph([x.cpu().numpy() for x in bank_skip.trans_cost],
+                                            word_insertion_cost=-1000.0), device=dev)
+    w_s, lw_s = gmm_emission_weights(*bank_skip.flat_states())
+    xa_s = xa[:, :300, :64].contiguous()
+    nf_s = nf[:64].clamp(max=300)
+    fwd_s = vk.viterbi_banded_wordtrace(xa_s, w_s, lw_s, g_skip, vk.banded_topology(g_skip),
+                                        nf_s)
+    k23_skip_args = wordtrace_walk_args(fwd_s, g_skip, nf_s)
+    want_s = check_k23("skip-arc loop graph 64x300", k23_skip_args)
+    if int(want_s[1].max()) <= 300 // 5 + 1:
+        fail("the skip-arc graph's longest chain fits the reference's T / W + 1 rows")
+    report["K23"] = {"max_abs_err": 0.0}
 
     # ---- 4d. K11 vs its plain version -----------------------------------------
     from speech_recognition_tpu_torch.models.graph import pad_graphs, transcript_graph
@@ -1430,6 +1510,36 @@ def main(argv=None) -> int:
                  "every frame; final without planes identical), states per form: "
                  + "; ".join(f"{k} {', '.join(v)}" for k, v in forms_seen.items()))
     report["K11"] = {"max_abs_err": 0.0}
+
+    # ---- 4d'. K21 (the dense backtrace) vs its plain version ------------------
+    # on K11's planes of every case above: the 385-state sausage at 64 x 500
+    # (the dense decode), the isolated / skmeans shape (5 states), the
+    # transcript graphs (the hard training step and align), the integer-tie
+    # batch (eps depth 2, lengths T, 0 and 1); end states: the last state
+    # (the isolated shape, as segmental K-means walks) or each item's best
+    from speech_recognition_tpu_torch.ops.viterbi import viterbi_backtrace_ref
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import dense_backtrace
+
+    k21_args = {}
+    for name, kw in dense_cases.items():
+        fin_, bp_, ebp_ = dense_out[name]
+        end_ = (torch.full((fin_.shape[0],), fin_.shape[1] - 1, device=dev)
+                if kw["eps_trans"] is None else torch.argmin(fin_, 1))
+        k21_args[name] = (bp_, ebp_, end_, kw["n_frames"], kw["eps_depth"])
+        got_ = dense_backtrace(*k21_args[name])
+        want_ = viterbi_backtrace_ref(*k21_args[name])
+        one_ = dense_backtrace(bp_[1], ebp_[1], int(end_[1]), int(kw["n_frames"][1]),
+                               kw["eps_depth"])
+        torch.cuda.synchronize()
+        if not (torch.equal(got_[0], want_[0]) and torch.equal(got_[1], want_[1])):
+            fail(f"K21 differs from viterbi_backtrace_ref on {name}")
+        if not (torch.equal(one_[0], want_[0][1]) and torch.equal(one_[1], want_[1][1])):
+            fail(f"K21's single-stream form differs from the batched walk on {name}")
+        phase("K21", f"{name} (eps depth {kw['eps_depth'] if kw['eps_trans'] is not None else 0}"
+                     f", lengths {int(kw['n_frames'].min())}-{int(kw['n_frames'].max())}): "
+                     f"states and flags == viterbi_backtrace_ref (bit-identical, batched and "
+                     f"one stream); eps hops {int(want_[1].sum())}")
+    report["K21"] = {"max_abs_err": 0.0}
 
     # ---- 4e. K12 vs its plain version -----------------------------------------
     k12_err = 0.0
@@ -1958,6 +2068,7 @@ def main(argv=None) -> int:
                    f"{len(seqs_p)}")
     report["K6"] = {"max_abs_err": max(e[1] for e in errs)}
     report["K7"] = {"max_abs_err": max(e[2] for e in errs)}
+    report["K22"] = {"max_abs_err": 0.0}
 
     # K7 in every plan on K6's planes: the staged mode as the plan takes it
     # and with its LM tables through L1, the direct
@@ -2198,7 +2309,8 @@ def main(argv=None) -> int:
                                   vk.banded_backtrace_val, lk.viterbi_lex,
                                   lk.lex_backtrace_val)),
              "bigram lattice": ((f"lextree {bigram} --decoder lattice",),
-                                (*k3, lt.viterbi_lattice, lt.rescore_lattice)),
+                                (*k3, lt.viterbi_lattice, lt.rescore_lattice,
+                                 lt.lattice_walk)),
              "general graph": (("sausage @1-state-bank",),
                                (*k3, vk.viterbi_banded_general,
                                 vk.banded_backtrace_general)),
@@ -2261,9 +2373,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     launches["wordtrace"] = {c.__name__: c.launches for c in counters}
     if not all(launches["wordtrace"][c.__name__] for c in (
-            mfcc39_fused, mfcc_tail, vk.bank_emission, vk.viterbi_banded_wordtrace)) or \
-            launches["wordtrace"]["viterbi_banded_fused"]:
-        fail(f"the word-trace path did not run K3 and K10 (K13 + the word-trace DP) "
+            mfcc39_fused, mfcc_tail, vk.bank_emission, vk.viterbi_banded_wordtrace,
+            vk.wordtrace_words_device)) or launches["wordtrace"]["viterbi_banded_fused"]:
+        fail(f"the word-trace path did not run K3, K10 (K13 + the word-trace DP) and K23 "
              f"alone: {launches['wordtrace']}")
     phase("main path", f"wordtrace path launches: {launches['wordtrace']}")
     for k, (g_, f_, n_) in wt_runs.items():
@@ -2382,7 +2494,7 @@ def main(argv=None) -> int:
     al = {d: os.path.join(tmp, f"align_{d}.jsonl") for d in ("cuda", "cpu")}
     al_cmd = ["align", "-i", bank_sil_path, "-d", wav_dir, "--device"]
     counted("align", lambda: run_action(al_cmd + ["cuda", "-o", al["cuda"]]),
-            (*k3, viterbi_dense))
+            (*k3, viterbi_dense, dense_backtrace))
     run_action(al_cmd + ["cpu", "-o", al["cpu"]])
     recs = {}
     for d, path in al.items():
@@ -2409,7 +2521,7 @@ def main(argv=None) -> int:
         return {k: decode_connected(bank, graphs[k], f_, n_, backend="dense")
                 for k in ("loop", "sausage7")}
 
-    dense_words = counted("dense", dense_decode, (*k3, viterbi_dense),
+    dense_words = counted("dense", dense_decode, (*k3, viterbi_dense, dense_backtrace),
                           (vk.viterbi_banded_fused, vk.viterbi_banded_general))
     for k, (words_d, costs_d) in dense_words.items():
         words_b, costs_b = decode_connected(bank, graphs[k], f_w, n_w)
@@ -2482,7 +2594,7 @@ def main(argv=None) -> int:
             with recording(skm, "viterbi_dense", k11_train_calls["skmeans"]), \
                     recording(cont, "viterbi_dense", k11_train_calls["embedded"]):
                 train_out[d], train_wall[d] = counted("training", train_run,
-                                                      (*k3, viterbi_dense))
+                                                      (*k3, viterbi_dense, dense_backtrace))
         else:
             train_out[d], train_wall[d] = train_run()
     acc = {d: float(o["isolated_test"].splitlines()[-1]) for d, o in train_out.items()}
@@ -2904,16 +3016,20 @@ def main(argv=None) -> int:
         return end_state, fwd[3].gather(0, end_state[None])[0]
 
     end_state7, entry7 = wt_ends()
+    k23_args = (fwd[1], fwd[2], end_state7 // topo.uniform_w, entry7, nf)
     wt_stages = {
         "augment_dtb + weights": lambda: (augment_dtb(feats),
                                           gmm_emission_weights(*bank.flat_states())),
         "K10": lambda: vk.viterbi_banded_wordtrace(xa, w, lw, bg, topo, nf),
         "end selection": wt_ends,
-        "chain walk": lambda: vk.wordtrace_words_device(fwd[1], fwd[2],
-                                                        end_state7 // topo.uniform_w,
-                                                        entry7, nf),
+        "chain walk (K23)": lambda: vk.wordtrace_words_device(*k23_args),
     }
     wt_stage_ms = {k: cuda_ms(fn) for k, fn in wt_stages.items()}
+    # K23 alone (its one host read of the longest chain included) beside
+    # its plain version, on the word trace's own planes
+    t["K23"] = (cuda_ms(lambda: vk.wordtrace_words_device(*k23_args), reps=20),
+                cuda_ms(lambda: vk.wordtrace_words_ref(*k23_args), reps=3))
+    k23_words = vk.wordtrace_words_ref(*k23_args)
 
     topo1k = lk.lex_topology(g1k)
     t["K4"] = (cuda_ms(lambda: lk.viterbi_lex(nll1k, g1k, topo1k, nf1k)),
@@ -3059,6 +3175,7 @@ def main(argv=None) -> int:
     from speech_recognition_tpu_torch.ops.lattice import (
         _lattice_truncation_count,
         lattice_words_device,
+        lattice_words_ref,
     )
 
     f_p, n_p = mfcc39_auto(lsig, llens, lcfg)
@@ -3067,6 +3184,8 @@ def main(argv=None) -> int:
     p6 = lt.viterbi_lattice(nll_pp, gp, topop, n_p)
     p7_args = (p6[1], p6[2], p6[1].amin(2), lm_lp[0], lm_lp[1], n_p, _ring_depth(t_p, 128))
     p7 = lt.rescore_lattice(*p7_args, big_ll=lm_lp[2], backoff=lm_lp[3])
+    k22_args = (p7[2].transpose(1, 2), p6[2].transpose(1, 2), p7[1], n_p)
+    mw_p = min(t_p, t_p // su_p + 1)
     stages = {
         "K3": lambda: mfcc39_auto(lsig, llens, lcfg),
         "bank_nll_ubt": lambda: bank_nll_ubt(lbank, f_p, n_p),
@@ -3074,11 +3193,13 @@ def main(argv=None) -> int:
         "truncation count": lambda: _lattice_truncation_count(
             p6[1].transpose(1, 2), p6[2].transpose(1, 2), n_p, 128),
         "K7": lambda: lt.rescore_lattice(*p7_args, big_ll=lm_lp[2], backoff=lm_lp[3]),
-        "word walk": lambda: lattice_words_device(
-            p7[2].transpose(1, 2), p6[2].transpose(1, 2), p7[1], n_p,
-            max_words=min(t_p, t_p // su_p + 1)),
+        "word walk (K22)": lambda: lattice_words_device(*k22_args, max_words=mw_p),
     }
     stage_ms = {k: cuda_ms(fn) for k, fn in stages.items()}
+    # K22 alone beside its plain version, on the pipeline's own planes
+    t["K22"] = (cuda_ms(lambda: lattice_words_device(*k22_args, max_words=mw_p), reps=20),
+                cuda_ms(lambda: lattice_words_ref(*k22_args, max_words=mw_p), reps=3))
+    k22_words = lattice_words_ref(*k22_args, max_words=mw_p)
     leaves_rev, n_words, _, _ = bigram_pipeline()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3133,8 +3254,26 @@ def main(argv=None) -> int:
     fin_s, bp_s, ebp_s = dense_out["385-state sausage7 64x500"]
     ends7 = on_dev(g7.end_states).long()
     end_s = ends7[torch.argmin(fin_s[:, ends7] + on_dev(g7.end_bonus), 1)]
-    bt_ms = cuda_ms(lambda: viterbi_backtrace(bp_s, ebp_s, end_s, saus["n_frames"],
-                                              saus["eps_depth"]))
+    # K21 through viterbi_backtrace (the dense decode's call) beside its
+    # plain version, and alone at the other checked shapes
+    bt_args = (bp_s, ebp_s, end_s, saus["n_frames"], saus["eps_depth"])
+    t["K21"] = (cuda_ms(lambda: viterbi_backtrace(*bt_args), reps=20),
+                cuda_ms(lambda: viterbi_backtrace_ref(*bt_args), reps=3))
+    k21_states = viterbi_backtrace_ref(*bt_args)[0]
+    k21_ms = {name: cuda_ms(lambda a=a: dense_backtrace(*a), reps=10)
+              for name, a in k21_args.items() if not name.startswith("385")}
+    # K22 and K23 where chains are long: the planted 1k-trie words (the
+    # random-signal pipeline's chains hold a word or two) and the skip-arc
+    # loop graph
+    k22_planted = errs[1][3]
+    k22_pl_words = lattice_words_ref(*k22_planted[:4], max_words=k22_planted[4])[1]
+    k22_pl_ms = cuda_ms(lambda: lattice_words_device(*k22_planted[:4],
+                                                     max_words=k22_planted[4]), reps=10)
+    k23_skip_ms = cuda_ms(lambda: vk.wordtrace_words_device(*k23_skip_args), reps=10)
+    walk_dev = {k: device_ms(fn, what=k) for k, fn in (
+        ("K21", lambda: viterbi_backtrace(*bt_args)),
+        ("K22", lambda: lattice_words_device(*k22_args, max_words=mw_p)),
+        ("K23", lambda: vk.wordtrace_words_device(*k23_args)))}
     t["K12"] = (cuda_ms(lambda: mfcc_fused(sig, lens, cfg)),
                 cuda_ms(lambda: mfcc_fused_ref(sig, lens, cfg)))
     n2 = 32000  # 2 s at 16 kHz
@@ -3173,8 +3312,18 @@ def main(argv=None) -> int:
                         f"{k} {v:.0f}" for k, v in zip(("scans", "owners + publish",
                                                          "barriers", "total"), k11_cycles[1]))
                     + f" ({card})")
-    phase("timing", f"dense backtrace (viterbi_backtrace, tensor ops) on the 385-state "
-                    f"sausage at 64x{T}: {bt_ms:.3f} ms (CUDA-event median; {card})")
+    phase("timing", f"dense backtrace on the 385-state sausage at 64x{T}: K21 "
+                    f"{t['K21'][0]:.4f} ms, viterbi_backtrace_ref (tensor ops) "
+                    f"{t['K21'][1]:.3f} ms (CUDA-event median; {card}); K21 elsewhere: "
+                    + ", ".join(f"{k} {v:.4f} ms" for k, v in k21_ms.items()))
+    phase("timing", f"the walks on long chains: K22 on the planted 1k trie 128x500 "
+                    f"(longest chain {int(k22_pl_words.max())} words) {k22_pl_ms:.4f} ms, "
+                    f"K23 on the skip-arc loop graph 64x300 (longest chain "
+                    f"{int(want_s[1].max())} words) {k23_skip_ms:.4f} ms (CUDA-event median; "
+                    f"{card})")
+    phase("timing", "the walks' device time (torch.profiler; the kernel, K23's memset of "
+                    "its maximum): " + ", ".join(f"{k} {v:.4f} ms" for k, v in walk_dev.items())
+          + f" ({card})")
     phase("timing", f"isolated pipeline 512 x 2 s wav -> predictions (K3 + bank_nll + "
                     f"K11 + argmin): {iso_ms:.3f} ms = {512 * 2 / (iso_ms / 1e3):.0f} "
                     f"audio-s/s (CUDA-event median; {card}); stages alone: " + ", ".join(
@@ -3819,6 +3968,11 @@ def main(argv=None) -> int:
         "K10": (nbytes(xa, w, lw, nf) + graph_bytes(bg) + 2 * nbytes(fwd[0])
                 + sum_nf * bg.n_words * (fwd[1].element_size() + 4),
                 sum_nf * (2 * w.numel() + 4 * w_units) + dp_ops(bg, sum_nf, span_pairs(topo))),
+        # the walks read only the entries their chains visit
+        "K21": dense_walk_work(k21_states, ebp_s, saus["n_frames"], saus["eps_depth"]),
+        "K22": chain_walk_work(k22_words[1], mw_p, 4, 4, 8),
+        "K23": chain_walk_work(k23_words[1], k23_words[0].shape[0], 0,
+                               k23_args[0].element_size() + 4, 12),
     }
     # K15 / K16 (their plain versions' outputs give the output sizes)
     out15 = fbk.fb_banded_ref(*k15_args)
@@ -3903,6 +4057,14 @@ def main(argv=None) -> int:
         f"K11 at {s11} states": (*k11_work(k11_big), k11_big_ms),
         **{f"K11 with planes, {name}": (*k11_work(dense_cases[name]), ms)
            for name, (ms, _) in k11_ms.items()},
+        **{f"K21 {name}": (*dense_walk_work(viterbi_backtrace_ref(*k21_args[name])[0],
+                                            k21_args[name][1], k21_args[name][3],
+                                            k21_args[name][4]), ms)
+           for name, ms in k21_ms.items()},
+        "K22 1k trie, planted words 128x500": (
+            *chain_walk_work(k22_pl_words, k22_planted[4], 4, 4, 8), k22_pl_ms),
+        "K23 skip-arc loop graph 64x300": (
+            *chain_walk_work(want_s[1], want_s[0].shape[0], 0, 5, 12), k23_skip_ms),
     }
     more["K16 synthetic transcripts, band xi"] = (*fb_dense_work(
         *k16_synth[:1], k16_synth[1], k16_synth[4], k16_synth[2], k16_synth[6], k16_synth[3],
@@ -3945,6 +4107,17 @@ def main(argv=None) -> int:
         floor_ms = int(nf_.clamp(max=TL).max()) * SMEM_STEP_CYCLES / SM_CLOCK_HZ * 1e3
         phase("bound", f"{name}: serial floor {floor_ms:.4f} ms ({int(nf_.max())} dependent "
                        f"shared-memory steps); the kernel took {ms / floor_ms:.1f}x it")
+    # the walks K21-K23: their longest chain's steps (frames, words)
+    for name, steps, ms in (
+            (f"K21 385-state sausage 64x{T}", int(saus["n_frames"].clamp(max=T).max()),
+             t["K21"][0]),
+            ("K22 bigram pipeline 128x5s", int(k22_words[1].max()), t["K22"][0]),
+            ("K22 1k trie, planted words 128x500", int(k22_pl_words.max()), k22_pl_ms),
+            (f"K23 sausage7 word trace {B}x{T}", int(k23_words[1].max()), t["K23"][0]),
+            ("K23 skip-arc loop graph 64x300", int(want_s[1].max()), k23_skip_ms)):
+        floor_ms = steps * SMEM_STEP_CYCLES / SM_CLOCK_HZ * 1e3
+        phase("bound", f"{name}: serial floor {floor_ms:.3g} ms ({steps} dependent steps at "
+                       f"one shared-memory load each); the kernel took {ms / floor_ms:.1f}x it")
     for k, (*w_, ms) in [(k, (*v, t[k][0])) for k, v in work.items()] + list(more.items()):
         b_ms, by = bound(*w_)
         sfu = f", {w_[2] / 1e9:.2f} G exps and logs" if len(w_) > 2 else ""
@@ -3997,7 +4170,14 @@ def main(argv=None) -> int:
                    "speech_recognition_tpu_torch/csrc/banded_warp.cu",
                    "speech_recognition_tpu/decode/streaming.py:86"),
            "K18": ("viterbi_lex_chunk", "speech_recognition_tpu_torch/csrc/viterbi_lex.cu",
-                   "speech_recognition_tpu/decode/streaming.py:86")}
+                   "speech_recognition_tpu/decode/streaming.py:86"),
+           # no TPU kernel: these replace the backtrace scans (lax.scan)
+           "K21": ("dense_backtrace", "speech_recognition_tpu_torch/csrc/dense_backtrace.cu",
+                   "speech_recognition_tpu/ops/viterbi.py:141"),
+           "K22": ("lattice_walk", "speech_recognition_tpu_torch/csrc/word_walk.cu",
+                   "speech_recognition_tpu/ops/lattice.py:479"),
+           "K23": ("wordtrace_words_device", "speech_recognition_tpu_torch/csrc/word_walk.cu",
+                   "speech_recognition_tpu/ops/viterbi_banded_pallas.py:912")}
     # each kernel's launches over the path runs above (no single PyTorch
     # call computes any of these functions: library_ms is null)
     n_launch = {fn: sum(p[fn] for p in launches.values()) for fn in launches["connected"]}

@@ -1,0 +1,152 @@
+// K22: the lattice word walk, and K23: the word-trace walk.  Both follow a
+// chain of (frame, word) pairs back from each stream's last word, one word
+// a step, and write the word ids in reverse order.
+//
+// Neither replaces a TPU kernel: the JAX package runs each as one XLA scan,
+// K22 speech_recognition_tpu/ops/lattice.py lattice_words_device and K23
+// speech_recognition_tpu/ops/viterbi_banded_pallas.py wordtrace_words_device.
+// Their plain versions are ops/lattice.lattice_words_ref and
+// ops/viterbi_banded_kernels.wordtrace_words_ref (loops of batched gathers).
+//
+// K22 (the bigram lattice): from leaf = best_leaf[b] at t = clamp(nf - 1,
+// 0, T - 1), alive = nf > 0, for max_words rows: the row is leaf while
+// alive, else -1; tau = ends_tau[t, clamp(leaf)], and while tau > 0 the
+// walk moves to leaf = pred_w[clamp(tau), clamp(leaf)], t = tau (K7's
+// predecessor of the word that entered at tau); else it ends.  The planes
+// are read at the strides the wrapper passes: K6 and K7 write them
+// [T, B, L] and the walk takes their [T, L, B] views as they are.
+//
+// K23 (the word-trace backend): from v = best_slot[b] entered at t =
+// entry_t[b], alive = nf > 0, for T + 1 rows: the row is v while alive,
+// else -1; while t > 0 the walk moves to (eps_u[t, v], eps_tau[t, v]) (the
+// word K10 recorded at the re-entry of slot v at frame t, and that word's
+// entry time); else it ends.  eps_u is int8 or int32 (the type
+// _eps_u_dtype picks).  Entry times fall each step, so every chain ends
+// within the T + 1 rows; the kernel also folds each chain's length into
+// one maximum, the one number the wrapper reads back to cut the plane.
+//
+// n_words counts the rows >= 0, as the JAX functions do.  An index is
+// clamped to its axis as the JAX scans clamp it.
+//
+// What bounds them on the H100: a step is a dependent read at a (frame,
+// word) known only after the step before (K22: two, tau then pred_w; K23:
+// two at the same entry, issued together).  The time is the longest
+// chain's round trips, ~0.5-1 us each where the planes are past L2 or cold
+// in it, while the bytes on the chains are a few KB.  Design: one thread a
+// stream, no staging; a dead stream writes its remaining rows of -1 and
+// stops.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+__device__ __forceinline__ int clamp_index(int x, int n) {
+  return x < 0 ? 0 : (x >= n ? n - 1 : x);
+}
+
+// pred_w / ends_tau int32 with strides (t, l, b); best_leaf, nf [B] int32
+// -> out [max_words, B] int32, n_words [B] int32.
+__global__ void __launch_bounds__(kThreads) lattice_walk_kernel(
+    const int* __restrict__ pred, long long p_t, long long p_l, long long p_b,
+    const int* __restrict__ tau_pl, long long q_t, long long q_l, long long q_b,
+    const int* __restrict__ best_leaf, const int* __restrict__ nf, int* __restrict__ out,
+    int* __restrict__ n_words, int T, int L, int B, int max_words) {
+  const int b = blockIdx.x * kThreads + threadIdx.x;
+  if (b >= B) return;
+  const int n = nf[b];
+  int leaf = best_leaf[b];
+  int t = clamp_index(n - 1, T);
+  int count = 0;
+  int k = 0;
+  if (n > 0) {
+    for (; k < max_words; ++k) {
+      out[(long long)k * B + b] = leaf;
+      count += leaf >= 0;
+      const int lc = clamp_index(leaf, L);
+      const int tau = tau_pl[t * q_t + lc * q_l + b * q_b];
+      if (tau <= 0) {
+        ++k;
+        break;
+      }
+      t = clamp_index(tau, T);
+      leaf = pred[t * p_t + lc * p_l + b * p_b];
+    }
+  }
+  for (; k < max_words; ++k) out[(long long)k * B + b] = -1;
+  n_words[b] = count;
+}
+
+// eps_u (U) / eps_tau (int32) with strides (t, r, b); best_slot, entry_t,
+// nf [B] int32 -> out [T + 1, B] int32, counts [B + 1] int32: n_words,
+// then the longest chain (atomicMax; the launcher zeroes it first).
+template <typename U>
+__global__ void __launch_bounds__(kThreads) wordtrace_walk_kernel(
+    const U* __restrict__ eps_u, long long u_t, long long u_r, long long u_b,
+    const int* __restrict__ eps_tau, long long e_t, long long e_r, long long e_b,
+    const int* __restrict__ best_slot, const int* __restrict__ entry_t,
+    const int* __restrict__ nf, int* __restrict__ out, int* __restrict__ counts, int T, int R,
+    int B) {
+  const int b = blockIdx.x * kThreads + threadIdx.x;
+  if (b >= B) return;
+  const int rows = T + 1;
+  int v = best_slot[b];
+  int t = entry_t[b];
+  int count = 0;
+  int k = 0;
+  if (nf[b] > 0) {
+    for (; k < rows; ++k) {
+      out[(long long)k * B + b] = v;
+      count += v >= 0;
+      if (t <= 0) {
+        ++k;
+        break;
+      }
+      const int tc = clamp_index(t, T), vc = clamp_index(v, R);
+      v = (int)eps_u[tc * u_t + vc * u_r + b * u_b];
+      t = eps_tau[tc * e_t + vc * e_r + b * e_b];
+    }
+  }
+  const int chain = k;
+  for (; k < rows; ++k) out[(long long)k * B + b] = -1;
+  counts[b] = count;
+  atomicMax(counts + B, chain);
+}
+
+}  // namespace
+
+extern "C" int lattice_walk_launch(const int* pred, long long p_t, long long p_l,
+                                   long long p_b, const int* ends_tau, long long q_t,
+                                   long long q_l, long long q_b, const int* best_leaf,
+                                   const int* nf, int* out, int* n_words, int T, int L, int B,
+                                   int max_words, void* stream) {
+  if (B <= 0 || T <= 0 || L <= 0 || max_words < 0) return (int)cudaErrorInvalidValue;
+  lattice_walk_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+      pred, p_t, p_l, p_b, ends_tau, q_t, q_l, q_b, best_leaf, nf, out, n_words, T, L, B,
+      max_words);
+  return (int)cudaGetLastError();
+}
+
+// u_wide: eps_u is int32 (1) or int8 (0).
+extern "C" int wordtrace_walk_launch(const void* eps_u, int u_wide, long long u_t,
+                                     long long u_r, long long u_b, const int* eps_tau,
+                                     long long e_t, long long e_r, long long e_b,
+                                     const int* best_slot, const int* entry_t, const int* nf,
+                                     int* out, int* counts, int T, int R, int B,
+                                     void* stream) {
+  if (B <= 0 || T <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(counts + B, 0, sizeof(int), st);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (B + kThreads - 1) / kThreads;
+  if (u_wide)
+    wordtrace_walk_kernel<int><<<grid, kThreads, 0, st>>>(
+        (const int*)eps_u, u_t, u_r, u_b, eps_tau, e_t, e_r, e_b, best_slot, entry_t, nf, out,
+        counts, T, R, B);
+  else
+    wordtrace_walk_kernel<int8_t><<<grid, kThreads, 0, st>>>(
+        (const int8_t*)eps_u, u_t, u_r, u_b, eps_tau, e_t, e_r, e_b, best_slot, entry_t, nf,
+        out, counts, T, R, B);
+  return (int)cudaGetLastError();
+}

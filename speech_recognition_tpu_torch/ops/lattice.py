@@ -53,8 +53,8 @@ from speech_recognition_tpu_torch.ops.viterbi_banded import (
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
 __all__ = ["viterbi_lattice_tb", "RescoreResult", "lattice_rescore_ref", "rescore_tbl",
-           "lattice_words", "lattice_words_device", "rescore_backoff", "lattice_lm",
-           "decode_lextree_bigram"]
+           "lattice_words", "lattice_words_device", "lattice_words_ref", "rescore_backoff",
+           "lattice_lm", "decode_lextree_bigram"]
 
 
 # ---------------------------------------------------------------------------
@@ -286,10 +286,20 @@ def lattice_words(res: RescoreResult, leaf_word, n_frames) -> List[List[int]]:
 
 
 def lattice_words_device(pred_w, ends_tau, best_leaf, n_frames, max_words: int = 128):
-    """Device word backtrace with per-step gathers: ``pred_w / ends_tau
-    [T, L, B]`` (any strides) -> ``(leaves_rev [max_words, B] int32, -1
-    past the first word, n_words [B])``; reverse per stream and map
-    through ``leaf_word``."""
+    """Word backtrace on the planes' device: ``pred_w / ends_tau [T, L,
+    B]`` int32 (any strides) -> ``(leaves_rev [max_words, B] int32, -1
+    past the first word, n_words [B] int32)``; reverse per stream and map
+    through ``leaf_word``.  CUDA planes run kernel K22
+    (``ops.lattice_kernels.lattice_walk``), CPU planes
+    :func:`lattice_words_ref`."""
+    from speech_recognition_tpu_torch.ops.lattice_kernels import lattice_walk
+
+    return lattice_walk(pred_w, ends_tau, best_leaf, n_frames, max_words)
+
+
+def lattice_words_ref(pred_w, ends_tau, best_leaf, n_frames, max_words: int = 128):
+    """Plain version of K22: :func:`lattice_words_device` as a loop of
+    ``max_words`` batched gathers (the JAX scan's steps)."""
     t_len, l, b = pred_w.shape
     dev = pred_w.device
     cols = torch.arange(b, device=dev)
@@ -307,7 +317,7 @@ def lattice_words_device(pred_w, ends_tau, best_leaf, n_frames, max_words: int =
         leaf = torch.where(cont, nxt, leaf)
         t = torch.where(cont, tau, t)
         alive = cont
-    return out, (out >= 0).sum(0)
+    return out, (out >= 0).sum(0).to(torch.int32)
 
 
 def _lattice_truncation_count(ends_cost, ends_tau, n_frames, max_dur: int = 128):

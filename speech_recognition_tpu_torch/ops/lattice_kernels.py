@@ -10,7 +10,11 @@ replaces ``ops/lattice.py``'s ``_hq_sweep_pallas``, the VMEM-resident
 ring lookup of the rescorer; the ring exists because XLA would not keep
 it resident across the scan, and on the card the lookup is one indexed
 load, so K7 is the whole rescoring DP (plain version
-``ops.lattice.rescore_tbl``).
+``ops.lattice.rescore_tbl``).  K22 (``csrc/word_walk.cu``) is the word
+walk over K7's predecessors and K6's entry times that
+``ops.lattice.lattice_words_device`` runs on CUDA planes; it replaces no
+TPU kernel but the JAX package's ``lattice_words_device`` scan, and its
+plain version is ``ops.lattice.lattice_words_ref``.
 
 Layouts: emissions ``nll [U, T, B]`` as K4 takes them; the lattice
 planes ``ends_cost / ends_tau [T, B, L]`` and the predecessor plane
@@ -29,16 +33,21 @@ from typing import NamedTuple
 
 import torch
 
-from speech_recognition_tpu_torch.ops.lattice import rescore_tbl, viterbi_lattice_tb
+from speech_recognition_tpu_torch.ops.lattice import (
+    lattice_words_ref,
+    rescore_tbl,
+    viterbi_lattice_tb,
+)
 from speech_recognition_tpu_torch.ops.viterbi_banded import BandedGraph
-from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import use_kernels
+from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import _walk_vector, use_kernels
 from speech_recognition_tpu_torch.ops.viterbi_lex_kernels import (
     LexTopo,
     lex_forward,
 )
 
 __all__ = ["viterbi_lattice", "viterbi_lattice_ref", "RescorePlan", "rescore_plan",
-           "rescore_smem_bytes", "rescore_lattice", "rescore_lattice_ref"]
+           "rescore_smem_bytes", "rescore_lattice", "rescore_lattice_ref", "lattice_walk",
+           "lattice_walk_ref"]
 
 
 # ---------------------------------------------------------------------------
@@ -213,3 +222,51 @@ def rescore_lattice(ends_cost, ends_tau, q, start_l, end_l, n_frames, dmax: int,
 
 
 rescore_lattice.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K22: the word walk
+# ---------------------------------------------------------------------------
+
+lattice_walk_ref = lattice_words_ref
+
+
+def lattice_walk(pred_w, ends_tau, best_leaf, n_frames, max_words: int = 128):
+    """K22 for CUDA planes (``csrc/word_walk.cu``: one thread a stream,
+    reading the planes at their strides: the ``[T, L, B]`` views of K7's
+    and K6's ``[T, B, L]`` planes are not copied), the plain version
+    ``lattice_words_ref`` for CPU planes.  Arguments and results as
+    ``ops.lattice.lattice_words_device``."""
+    if pred_w.dim() != 3 or pred_w.dtype != torch.int32 or ends_tau.dtype != torch.int32 \
+            or ends_tau.shape != pred_w.shape:
+        raise ValueError(f"the word walk takes int32 pred_w / ends_tau [T, L, B] of one "
+                         f"shape; got {pred_w.dtype} {tuple(pred_w.shape)} and "
+                         f"{ends_tau.dtype} {tuple(ends_tau.shape)}")
+    t_len, l, b = pred_w.shape
+    dev = pred_w.device
+    if ends_tau.device != dev:
+        raise ValueError(f"ends_tau is on {ends_tau.device}, pred_w on {dev}")
+    leaf = _walk_vector(best_leaf, b, dev, "best_leaf")
+    nf = _walk_vector(n_frames, b, dev, "n_frames")
+    if max_words < 0 or (b and not (t_len and l)):
+        raise ValueError(f"the word walk needs max_words >= 0 and non-empty planes, got "
+                         f"{max_words} and {tuple(pred_w.shape)}")
+    if not use_kernels(pred_w):
+        return lattice_words_ref(pred_w, ends_tau, best_leaf, n_frames, max_words)
+    from speech_recognition_tpu_torch.utils.build import check, load_library
+
+    out = torch.empty((max_words, b), dtype=torch.int32, device=dev)
+    n_words = torch.empty((b,), dtype=torch.int32, device=dev)
+    if b:
+        lib = load_library()
+        with torch.cuda.device(dev):
+            rc = lib.lattice_walk_launch(
+                pred_w.data_ptr(), *pred_w.stride(), ends_tau.data_ptr(), *ends_tau.stride(),
+                leaf.data_ptr(), nf.data_ptr(), out.data_ptr(), n_words.data_ptr(), t_len, l,
+                b, max_words, torch.cuda.current_stream(dev).cuda_stream)
+        check(rc, "lattice word walk kernel")
+        lattice_walk.launches += 1
+    return out, n_words
+
+
+lattice_walk.launches = 0

@@ -20,8 +20,10 @@ all); the pruned column is the carry.
 (``ops.viterbi_kernels.viterbi_dense``, ``csrc/viterbi_dense.cu``);
 ``viterbi`` runs one utterance through that wrapper, so a CUDA tensor
 runs K11; with a beam it runs ``viterbi_batch`` (no kernel prunes, in
-either package).  ``viterbi_backtrace`` stays plain tensor ops (in JAX it is an
-XLA scan, not a Pallas kernel): one batched loop over the frames.
+either package).  ``viterbi_backtrace`` (an XLA scan in JAX, not a
+Pallas kernel) runs kernel K21 (``ops.viterbi_kernels.dense_backtrace``,
+``csrc/dense_backtrace.cu``) on CUDA planes and its plain version
+``viterbi_backtrace_ref``, one batched loop over the frames, on CPU ones.
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ import torch
 
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
-__all__ = ["viterbi", "viterbi_batch", "viterbi_backtrace", "viterbi_path_cost",
-           "ViterbiResult"]
+__all__ = ["viterbi", "viterbi_batch", "viterbi_backtrace", "viterbi_backtrace_ref",
+           "viterbi_path_cost", "ViterbiResult"]
 
 
 class ViterbiResult(NamedTuple):
@@ -149,7 +151,17 @@ def viterbi_backtrace(bp, eps_bp, end_state, n_frames, eps_depth: int = 1):
     ``end_state`` and ``n_frames`` scalars or ``[B]``.  Returns ``(states
     int32, eps_entered bool)``, each ``[T]`` or ``[B, T]``:
     ``eps_entered[t]`` marks a word-boundary eps edge crossed at frame t.
-    Entries >= ``n_frames`` repeat the end state / False."""
+    Entries >= ``n_frames`` repeat the end state / False.  CUDA planes run
+    K21 (``ops.viterbi_kernels.dense_backtrace``), CPU planes
+    ``viterbi_backtrace_ref``."""
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import dense_backtrace
+
+    return dense_backtrace(bp, eps_bp, end_state, n_frames, eps_depth)
+
+
+def viterbi_backtrace_ref(bp, eps_bp, end_state, n_frames, eps_depth: int = 1):
+    """Plain version of K21: ``viterbi_backtrace`` as one batched loop of
+    gathers over the frames (arguments and results as there)."""
     single = bp.dim() == 2
     if single:
         bp, eps_bp = bp[None], eps_bp[None]

@@ -16,7 +16,9 @@ on the connected-decode path:
   transcript graphs;
 * K10 (the word-trace forward, ``viterbi_banded_wordtrace_pallas``)
   takes K1's graphs and emission and writes entry-time side planes
-  instead of backpointers; ``wordtrace_words_device`` walks them;
+  instead of backpointers; ``wordtrace_words_device`` (kernel K23,
+  ``csrc/word_walk.cu``, in place of the JAX package's scan of that
+  name) walks them;
 * K17 (the streaming chunk step, ``viterbi_banded_chunk``; the JAX
   package runs it as a ``lax.scan``, ``decode/streaming.py:86
   _chunk_step``) advances a carried frontier over one chunk on K1's DP
@@ -75,7 +77,7 @@ __all__ = ["BandedTopo", "banded_topology", "use_kernels", "BandedPlan", "banded
            "banded_backtrace_general", "banded_backtrace_general_ref",
            "viterbi_banded_chunk", "viterbi_banded_chunk_ref", "banded_route",
            "viterbi_banded_wordtrace", "viterbi_banded_wordtrace_ref",
-           "wordtrace_words_device"]
+           "wordtrace_words_device", "wordtrace_words_ref"]
 
 
 class BandedTopo(NamedTuple):
@@ -169,6 +171,22 @@ def _check_devices(dev, what: str, tensors) -> None:
     for name, x in tensors:
         if x is not None and x.device != dev:
             raise ValueError(f"{name} is on {x.device}, {what} on {dev}")
+
+
+def _walk_vector(x, b: int, dev, name: str):
+    """A walk's per-stream integer argument (a ``[B]`` tensor, or a scalar
+    for one stream) as a contiguous int32 ``[B]`` tensor on ``dev``;
+    raises ``ValueError`` on a float, a wrong size or a device mismatch."""
+    if torch.is_tensor(x):
+        if x.is_floating_point() or x.is_complex() or x.dtype == torch.bool:
+            raise ValueError(f"{name} must be integer, got {x.dtype}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, planes on {dev}")
+    else:
+        x = torch.as_tensor(x, dtype=torch.int32, device=dev)
+    if x.numel() != b:
+        raise ValueError(f"{name} has {x.numel()} entries, batch is {b}")
+    return x.reshape(b).to(torch.int32).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -1096,8 +1114,9 @@ def viterbi_banded_wordtrace(xa, w, lw, g: BandedGraph, topo: BandedTopo, n_fram
 viterbi_banded_wordtrace.launches = 0
 
 
-def wordtrace_words_device(eps_u, eps_tau, best_slot, entry_t, n_frames):
-    """Word recovery over K10's side planes, in tensor ops on their device.
+def wordtrace_words_ref(eps_u, eps_tau, best_slot, entry_t, n_frames):
+    """Plain version of K23: word recovery over K10's side planes, in
+    tensor ops on their device.
 
     From each stream's final word (slot ``best_slot``, entered at
     ``entry_t``) follows the eps chain ``(t, v) -> (eps_tau[t, v],
@@ -1126,3 +1145,60 @@ def wordtrace_words_device(eps_u, eps_tau, best_slot, entry_t, n_frames):
             break
     words_rev = torch.stack(words).to(torch.int32)
     return words_rev, (words_rev >= 0).sum(0).to(torch.int32)
+
+
+def wordtrace_words_device(eps_u, eps_tau, best_slot, entry_t, n_frames):
+    """K23 for CUDA planes (``csrc/word_walk.cu``: one thread a stream
+    walks its chain to its end and writes a ``[T + 1, B]`` plane), the
+    plain version ``wordtrace_words_ref`` for CPU planes.
+
+    ``eps_u [T, R, B]`` in the type ``_eps_u_dtype`` gives (int8 or
+    int32) and ``eps_tau [T, R, B]`` int32, as K10 writes them (any
+    strides); ``best_slot``, ``entry_t``, ``n_frames`` integer ``[B]``.
+    Returns what the plain version returns, its row count included: the
+    kernel folds the chains' lengths into one maximum, the one number
+    read back to the host, and the plane is cut to the plain walk's rows
+    (a multiple of 16 past the longest chain, at most ``T + 1``)."""
+    if eps_u.dim() != 3 or eps_u.dtype not in (torch.int8, torch.int32) \
+            or eps_tau.dtype != torch.int32 or eps_tau.shape != eps_u.shape:
+        raise ValueError(f"the word-trace walk takes eps_u [T, R, B] int8 or int32 and "
+                         f"int32 eps_tau of its shape; got {eps_u.dtype} "
+                         f"{tuple(eps_u.shape)} and {eps_tau.dtype} {tuple(eps_tau.shape)}")
+    t_len, r, b = eps_u.shape
+    dev = eps_u.device
+    if eps_tau.device != dev:
+        raise ValueError(f"eps_tau is on {eps_tau.device}, eps_u on {dev}")
+    vecs = [_walk_vector(x, b, dev, name) for x, name in (
+        (best_slot, "best_slot"), (entry_t, "entry_t"), (n_frames, "n_frames"))]
+    if not (t_len and r):
+        raise ValueError(f"the word-trace walk needs non-empty planes, got "
+                         f"{tuple(eps_u.shape)}")
+    if not use_kernels(eps_u):
+        return wordtrace_words_ref(eps_u, eps_tau, best_slot, entry_t, n_frames)
+    from speech_recognition_tpu_torch.utils.build import check, load_library
+
+    out = torch.empty((t_len + 1, b), dtype=torch.int32, device=dev)
+    counts = torch.empty((b + 1,), dtype=torch.int32, device=dev)
+    if not b:
+        return out[:_wordtrace_rows(0, t_len)], counts[:0]
+    lib = load_library()
+    with torch.cuda.device(dev):
+        rc = lib.wordtrace_walk_launch(
+            eps_u.data_ptr(), int(eps_u.dtype == torch.int32), *eps_u.stride(),
+            eps_tau.data_ptr(), *eps_tau.stride(), *(x.data_ptr() for x in vecs),
+            out.data_ptr(), counts.data_ptr(), t_len, r, b,
+            torch.cuda.current_stream(dev).cuda_stream)
+    check(rc, "word-trace walk kernel")
+    wordtrace_words_device.launches += 1
+    rows = _wordtrace_rows(int(counts[b]), t_len)  # the one host read
+    return out[:rows], counts[:b]
+
+
+wordtrace_words_device.launches = 0
+
+
+def _wordtrace_rows(longest: int, t_len: int) -> int:
+    """The rows of ``wordtrace_words_ref``'s plane when its longest chain
+    is ``longest`` words: it checks every 16 steps whether a chain goes
+    on, and stops at ``T + 1``."""
+    return min(t_len + 1, 16 * max(1, -(-longest // 16)))

@@ -16,6 +16,13 @@ per batch slice for a shared matrix, CTAs sized to S for per-item
 matrices, the 1,024-thread wide form where neither fits, and its
 device-memory frontier above ~11,600 states); ``dense_smem_bytes``
 mirrors the kernel's shared-memory layouts.
+
+``dense_backtrace`` is kernel K21 (``csrc/dense_backtrace.cu``), the
+backtrace over K11's planes that ``ops.viterbi.viterbi_backtrace`` runs
+on CUDA tensors (one thread a stream; it replaces the JAX package's
+``viterbi_backtrace`` scan); its plain version is
+``ops.viterbi.viterbi_backtrace_ref``, and ``dense_backtrace.launches``
+counts its launches.
 """
 
 from __future__ import annotations
@@ -25,14 +32,16 @@ from typing import NamedTuple
 
 import torch
 
-from speech_recognition_tpu_torch.ops.viterbi import viterbi_batch
+from speech_recognition_tpu_torch.ops.viterbi import viterbi_backtrace_ref, viterbi_batch
+from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import _walk_vector, use_kernels
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
 __all__ = ["viterbi_dense", "viterbi_dense_ref", "max_dense_states", "DensePlan",
-           "dense_plan", "dense_smem_bytes"]
+           "dense_plan", "dense_smem_bytes", "dense_backtrace", "dense_backtrace_ref"]
 
-# K11's plain version
+# K11's and K21's plain versions
 viterbi_dense_ref = viterbi_batch
+dense_backtrace_ref = viterbi_backtrace_ref
 
 # the kernel's forms (csrc/viterbi_dense.cu, enum Form)
 FORMS = {"packed": 0, "cluster": 1, "item": 1, "wide": 2, "scratch": 3}
@@ -279,3 +288,50 @@ def _launch(nll, trans, init_cost, n_frames, eps_trans=None, eps_depth: int = 1,
 
 
 viterbi_dense.launches = 0
+
+
+def dense_backtrace(bp, eps_bp, end_state, n_frames, eps_depth: int = 1):
+    """K21 for CUDA planes (``csrc/dense_backtrace.cu``: one thread a
+    stream, reading K11's planes in place), the plain version
+    ``viterbi_backtrace_ref`` for CPU planes.  Arguments and results as
+    ``ops.viterbi.viterbi_backtrace``: int32 ``bp`` / ``eps_bp`` ``[T, S]``
+    with scalar ``end_state`` / ``n_frames``, or ``[B, T, S]`` with ``[B]``
+    ones (any strides)."""
+    if bp.dim() not in (2, 3) or bp.dtype != torch.int32 or eps_bp.dtype != torch.int32 \
+            or eps_bp.shape != bp.shape:
+        raise ValueError(f"the dense backtrace takes int32 bp / eps_bp of one shape, [T, S] "
+                         f"or [B, T, S]; got {bp.dtype} {tuple(bp.shape)} and {eps_bp.dtype} "
+                         f"{tuple(eps_bp.shape)}")
+    dev = bp.device
+    if eps_bp.device != dev:
+        raise ValueError(f"eps_bp is on {eps_bp.device}, bp on {dev}")
+    if eps_depth < 0:
+        raise ValueError(f"eps_depth must be >= 0, got {eps_depth}")
+    single = bp.dim() == 2
+    bp3, ep3 = (bp[None], eps_bp[None]) if single else (bp, eps_bp)
+    b, t_len, s = bp3.shape
+    end = _walk_vector(end_state, b, dev, "end_state")
+    nf = _walk_vector(n_frames, b, dev, "n_frames")
+    if t_len and not s:
+        raise ValueError("the dense backtrace needs at least one state")
+    if not use_kernels(bp):
+        return viterbi_backtrace_ref(bp, eps_bp, end_state, n_frames, eps_depth)
+    from speech_recognition_tpu_torch.utils.build import check, load_library
+
+    states = torch.empty((b, t_len), dtype=torch.int32, device=dev)
+    flags = torch.empty((b, t_len), dtype=torch.bool, device=dev)
+    if b and t_len:
+        lib = load_library()
+        with torch.cuda.device(dev):
+            rc = lib.dense_backtrace_launch(
+                bp3.data_ptr(), *bp3.stride(), ep3.data_ptr(), *ep3.stride(), end.data_ptr(),
+                nf.data_ptr(), states.data_ptr(), flags.data_ptr(), t_len, s, b, eps_depth,
+                torch.cuda.current_stream(dev).cuda_stream)
+        check(rc, "dense backtrace kernel")
+        dense_backtrace.launches += 1
+    if single:
+        return states[0], flags[0]
+    return states, flags
+
+
+dense_backtrace.launches = 0

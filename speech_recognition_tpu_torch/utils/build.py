@@ -128,13 +128,20 @@ def load_library() -> ctypes.CDLL:
                                            i, i, i, i, i, i, i, i, p, p, p]
     lib.fb_banded_launch.argtypes = [p] * 23 + [i] * 11 + [p]
     lib.fb_dense_launch.argtypes = [p] * 14 + [i] * 13 + [p]
+    lib.dense_backtrace_launch.argtypes = [p, q, q, q, p, q, q, q, p, p, p, p,
+                                           i, i, i, i, p]
+    lib.lattice_walk_launch.argtypes = [p, q, q, q, p, q, q, q, p, p, p, p, i, i, i, i, p]
+    lib.wordtrace_walk_launch.argtypes = [p, i, q, q, q, p, q, q, q, p, p, p, p, p,
+                                          i, i, i, p]
     for fn in (lib.mfcc_tail_launch, lib.bank_emission_launch, lib.banded_forward_launch,
                lib.banded_warp_launch,
                lib.banded_backtrace_launch,
                lib.banded_backtrace_general_launch, lib.viterbi_lex_launch,
                lib.lex_backtrace_launch,
                lib.lattice_rescore_launch, lib.mfcc_ceps_launch,
-               lib.viterbi_dense_launch, lib.fb_banded_launch, lib.fb_dense_launch):
+               lib.viterbi_dense_launch, lib.fb_banded_launch, lib.fb_dense_launch,
+               lib.dense_backtrace_launch, lib.lattice_walk_launch,
+               lib.wordtrace_walk_launch):
         fn.restype = ctypes.c_int
     lib.bank_emission_smem_bytes.argtypes = [i, i, i, i]
     lib.banded_forward_smem_bytes.argtypes = [i, i, i, i, i, i, i, i, i, i]

@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 __all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "SFU_PER_S", "SMEM_STEP_CYCLES", "SM_CLOCK_HZ",
            "bound", "nbytes", "graph_bytes", "dp_ops", "span_pairs", "ceps_ops", "dense_ops",
            "mfcc_ops", "tail_ops", "rescore_ops", "fb_steps", "fb_dense_work",
-           "fb_banded_work", "report"]
+           "fb_banded_work", "dense_walk_work", "chain_walk_work", "report"]
 
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit):
 # device memory bandwidth and f32 rate outside the tensor cores (the port
@@ -209,6 +209,52 @@ def fb_banded_work(nll, g, nf, depth: int, end, out):
              g.is_start, g.cross_src, g.cross_cost]
     return (nbytes(nll, *graph, end, nf, out.gamma, out.xi_sum, out.xi_cross, out.log_z),
             ops, sfu_n)
+
+
+# The walks K21-K23 read only the plane entries their chains visit; a
+# stream's chain is serial, so beside this bound a walk also has a floor
+# of its longest chain's dependent steps (``SMEM_STEP_CYCLES`` each at
+# ``SM_CLOCK_HZ``, as for K5).
+
+
+def dense_walk_work(states, eps_bp, n_frames, eps_depth: int):
+    """``(bytes, operations)`` of K21 on these inputs: ``states`` ``[B, T]``
+    (or ``[T]``) is the walk's result and ``eps_bp`` ``[B, T, S]`` (or
+    ``[T, S]``) its plane.  Per stream, at every frame below its length,
+    the ``eps_bp`` entries of its eps chain (one, and one more after each
+    hop taken while fewer than ``eps_depth`` were), a ``bp`` entry at each
+    of those frames but frame 0 (4 bytes each), the ``[B, T]`` states
+    (int32) and flags (bytes) written and the end states and lengths read;
+    4 operations a frame (two compares, two selects)."""
+    import torch
+
+    if states.dim() == 1:
+        states, eps_bp = states[None], eps_bp[None]
+    b, t_len = states.shape
+    nf = torch.as_tensor(n_frames, device=states.device).reshape(b).clamp(min=0, max=t_len)
+    going = torch.arange(t_len, device=states.device)[None, :] < nf[:, None]
+    frames = int(going.sum())
+    s, eps_reads = states.long(), 0
+    for _ in range(eps_depth):
+        eps_reads += int(going.sum())
+        origin = eps_bp.gather(2, s[..., None])[..., 0].long()
+        going = going & (origin >= 0)
+        s = torch.where(origin >= 0, origin, s)
+    reads = eps_reads + int((nf.long() - 1).clamp(min=0).sum())
+    return 4 * reads + 5 * b * t_len + 8 * b, 4.0 * frames
+
+
+def chain_walk_work(n_words, rows: int, word_bytes: int, step_bytes: int,
+                    start_bytes: int):
+    """``(bytes, operations)`` of K22 / K23 on these inputs: per word found
+    ``word_bytes`` of plane entries, and per step from a word to the one
+    before it (every word but a chain's first) ``step_bytes`` more; the
+    ``[rows, B]`` int32 word plane and ``[B]`` int32 counts written;
+    ``start_bytes`` a stream of inputs read; 4 operations a word."""
+    words, b = int(n_words.sum()), n_words.numel()
+    steps = words - int((n_words > 0).sum())
+    return (words * word_bytes + steps * step_bytes + 4 * b * (rows + 1) + start_bytes * b,
+            4.0 * words)
 
 
 def report(stages: Dict[str, Tuple[float, str]], measured_s: float) -> str:

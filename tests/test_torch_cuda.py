@@ -28,12 +28,15 @@ device-row tier), and K13's chunked form past ~450 feature dimensions
 at K13's tolerance.  K9's cross mode is held exactly
 to the plain backtrace on tries' exact and beam planes; the pruned
 forward, the token beam and the spell checker run the same tensor ops
-on the card as on the CPU and are compared exactly.  Decodes
+on the card as on the CPU and are compared exactly.  K21-K23 (the dense
+backtrace, the lattice word walk, the word-trace walk) walk the plain
+versions' own planes and are compared exactly, K23's row count included.  Decodes
 on the card against the CPU
 (emission GEMMs on two devices) compare words exactly and costs at rtol
 1e-5.
 """
 
+import os
 import types
 
 import numpy as np
@@ -2661,3 +2664,231 @@ def test_spell_checker_cuda_matches_cpu(dev):
     for t in texts[:12]:
         assert text_viterbi(t, tree, device=dev) == text_viterbi(t, tree, device="cpu")
         assert sc_g.spell_check(t) == sc_c.spell_check(t)
+
+
+# ---------------------------------------------------------------------------
+# K21 (dense backtrace), K22 (lattice word walk), K23 (word-trace walk)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,b,t,s,per_item,eps,depth,ties", [
+    ("sausage size", 8, 120, 385, False, True, 1, False),
+    ("isolated / skmeans shape", 300, 200, 5, True, False, 1, False),
+    ("eps depth 2, ties", 20, 60, 40, False, True, 2, True),
+    ("transcript graphs", 12, 80, 75, True, True, 2, False),
+])
+def test_k21_matches_plain(dev, name, b, t, s, per_item, eps, depth, ties):
+    """K21 on K11's own planes (lengths T, 0, 1 and mid-length in every
+    batch) against ``viterbi_backtrace_ref`` on the same CUDA planes: states
+    and flags bit for bit, batched, single-stream and on strided views."""
+    from speech_recognition_tpu_torch.ops import viterbi as tv
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import dense_backtrace, viterbi_dense
+
+    nll, trans, init, nf, eps_t = _dense_problem(40 + s, b, t, s, per_item, eps, ties)
+    nf = nf.to(dev)
+    final, bp, eps_bp = viterbi_dense(nll.to(dev), trans.to(dev), init.to(dev), nf,
+                                      None if eps_t is None else eps_t.to(dev), depth)
+    end = torch.argmin(final, 1) if eps else torch.full((b,), s - 1, device=dev)
+    before = dense_backtrace.launches
+    got = tv.viterbi_backtrace(bp, eps_bp, end, nf, depth)
+    want = tv.viterbi_backtrace_ref(bp, eps_bp, end, nf, depth)
+    torch.cuda.synchronize()
+    assert dense_backtrace.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+    if eps:
+        assert bool(want[1].any())
+    # a strided view of the planes ([B, S, T] storage) and the single form
+    bp_v = bp.transpose(1, 2).contiguous().transpose(1, 2)
+    ebp_v = eps_bp.transpose(1, 2).contiguous().transpose(1, 2)
+    got_v = dense_backtrace(bp_v, ebp_v, end, nf, depth)
+    one = dense_backtrace(bp[0], eps_bp[0], int(end[0]), int(nf[0]), depth)
+    torch.cuda.synchronize()
+    assert torch.equal(got_v[0], want[0]) and torch.equal(got_v[1], want[1])
+    assert torch.equal(one[0], want[0][0]) and torch.equal(one[1], want[1][0])
+
+
+def _random_lattice(seed, t, b, l, dev):
+    """Random ``[T, B, L]`` int32 planes (entry times below the frame, some
+    0; predecessors in [0, L)), best leaves and lengths T, 0, 1, mid."""
+    rng = np.random.default_rng(seed)
+    back = (rng.uniform(size=(t, b, l)) * np.arange(t)[:, None, None] ** 0.5).astype(np.int32)
+    tau = np.maximum(np.arange(t)[:, None, None] - 1 - back, 0).astype(np.int32)
+    tau[rng.uniform(size=tau.shape) < 0.02] = 0
+    pred = rng.integers(0, l, (t, b, l)).astype(np.int32)
+    nf = np.r_[t, 0, 1, rng.integers(2, t + 1, b - 3)].astype(np.int32)
+    return [torch.from_numpy(x).to(dev) for x in (pred, tau, rng.integers(0, l, b)
+                                                  .astype(np.int32), nf)]
+
+
+@pytest.mark.parametrize("t,b,l", [(500, 128, 1000), (40, 37, 3), (60, 5, 200)])
+def test_k22_matches_plain(dev, t, b, l):
+    """K22 on the ``[T, L, B]`` views of ``[T, B, L]`` planes against
+    ``lattice_words_ref`` bit for bit, at a ``max_words`` that holds every
+    chain and at one that cuts the longest."""
+    from speech_recognition_tpu_torch.ops import lattice as lat
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lk
+
+    pred, tau, best, nf = _random_lattice(t + l, t, b, l, dev)
+    p_v, t_v = pred.transpose(1, 2), tau.transpose(1, 2)
+    full = lat.lattice_words_ref(p_v, t_v, best, nf, t)
+    longest = int(full[1].max())
+    assert longest > 2
+    for mw in (t, longest - 1, 1, 0):
+        before = lk.lattice_walk.launches
+        got = lat.lattice_words_device(p_v, t_v, best, nf, max_words=mw)
+        want = lat.lattice_words_ref(p_v, t_v, best, nf, max_words=mw)
+        torch.cuda.synchronize()
+        assert lk.lattice_walk.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), mw
+
+
+def _skip_arc_case(b, t):
+    """The skip-arc loop graph (3 words of 5 states, cheap skips, word
+    insertion -1000: up to T / 3 words) and features."""
+    from speech_recognition_tpu_torch.models.graph import build_loop_graph
+    from speech_recognition_tpu_torch.ops.viterbi_banded import banded_arrays
+
+    bank = _bank(3, 5, 2, 6, seed=17)
+    trans = [bank.trans_cost[i].numpy().copy() for i in range(3)]
+    for tr in trans:
+        for i in range(3):
+            tr[i + 2, i] = 0.05
+    bank.trans_cost.copy_(torch.from_numpy(np.stack(trans)))
+    graph = build_loop_graph(trans, word_insertion_cost=-1000.0)
+    rng = np.random.default_rng(18)
+    feats = torch.from_numpy(rng.standard_normal((b, t, 6)).astype(np.float32))
+    nf = torch.from_numpy(np.r_[t, 0, 1, rng.integers(2, t + 1, b - 3)].astype(np.int32))
+    return bank, banded_arrays(graph), feats, nf
+
+
+def _wordtrace_planes(dev, bank, g, feats, nf):
+    """K10's side planes on the card and each stream's final slot and
+    entry time, as ``decode.connected`` gives them to the walk."""
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.gmm import augment_dtb, gmm_emission_weights
+
+    g = g.to(dev)
+    topo = vk.banded_topology(g)
+    w, lw = gmm_emission_weights(*bank.to(dev).flat_states())
+    final, eps_u, eps_tau, ftau = vk.viterbi_banded_wordtrace(
+        augment_dtb(feats.to(dev)), w, lw, g, topo, nf.to(dev))
+    end = g.end_states[torch.argmin(final[g.end_states] + g.end_bonus[:, None], 0)]
+    return eps_u, eps_tau, end // topo.uniform_w, ftau.gather(0, end[None])[0], nf.to(dev)
+
+
+@pytest.mark.parametrize("case", ["skip arcs 3x12", "skip arcs 64x300", "random int32"])
+def test_k23_matches_plain(dev, case):
+    """K23 against ``wordtrace_words_ref`` on the same CUDA planes, the
+    plane's rows included: K10's int8 planes of the skip-arc loop graph
+    (more words than T / W + 1) and random int32 planes."""
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+
+    if case.startswith("skip"):
+        b, t = (3, 12) if case.endswith("3x12") else (64, 300)
+        args = _wordtrace_planes(dev, *_skip_arc_case(b, t))
+        assert args[0].dtype == torch.int8
+    else:
+        rng = np.random.default_rng(23)
+        t, r, b = 200, 300, 40
+        et = (rng.uniform(size=(t, r, b)) * np.arange(t)[:, None, None]).astype(np.int32)
+        args = [torch.from_numpy(x).to(dev) for x in (
+            rng.integers(0, r, (t, r, b)).astype(np.int32), et,
+            rng.integers(0, r, b).astype(np.int32), np.full(b, t - 1, np.int32),
+            np.r_[t, 0, 1, rng.integers(2, t, b - 3)].astype(np.int32))]
+    before = vk.wordtrace_words_device.launches
+    got = vk.wordtrace_words_device(*args)
+    want = vk.wordtrace_words_ref(*args)
+    torch.cuda.synchronize()
+    assert vk.wordtrace_words_device.launches == before + 1
+    assert got[0].shape == want[0].shape
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case.startswith("skip"):
+        assert int(want[1].max()) > t // 5 + 1
+
+
+def test_walk_wrappers_raise_instead_of_falling_back(dev):
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lk
+    from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import dense_backtrace
+
+    bp = torch.zeros((2, 6, 4), dtype=torch.int32, device=dev)
+    nf = torch.full((2,), 6, dtype=torch.int32, device=dev)
+    counts = (dense_backtrace.launches, lk.lattice_walk.launches,
+              vk.wordtrace_words_device.launches)
+    with pytest.raises(ValueError, match="n_frames is on cpu"):
+        dense_backtrace(bp, bp, nf, nf.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        dense_backtrace(bp.long(), bp, nf, nf)
+    with pytest.raises(ValueError, match="int32"):
+        lk.lattice_walk(bp.permute(1, 2, 0), bp.permute(1, 2, 0).long(), nf, nf)
+    with pytest.raises(ValueError, match="best_leaf is on cpu"):
+        lk.lattice_walk(bp.permute(1, 2, 0), bp.permute(1, 2, 0), nf.cpu(), nf)
+    planes = bp.permute(1, 2, 0)  # [T, R, B]
+    with pytest.raises(ValueError, match="int8 or int32"):
+        vk.wordtrace_words_device(planes.short(), planes, nf, nf, nf)
+    with pytest.raises(ValueError, match="entry_t is on cpu"):
+        vk.wordtrace_words_device(planes, planes, nf, nf.cpu(), nf)
+    assert (dense_backtrace.launches, lk.lattice_walk.launches,
+            vk.wordtrace_words_device.launches) == counts
+
+
+@pytest.fixture(scope="module")
+def walk_corpus(tmp_path_factory):
+    """A small corpus from the port's ``synth`` and a bank trained on it
+    on the CPU."""
+    import contextlib
+    import io
+
+    from speech_recognition_tpu_torch.cli import main
+
+    root = str(tmp_path_factory.mktemp("walks"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        main(["synth", "-o", root, "--n-train", "2", "--n-test", "1", "--n-continuous", "8",
+              "--seed", "5"])
+        main(["isolated_train", "-i", os.path.join(root, "train"), "-o",
+              os.path.join(root, "bank.npz"), "--n-gaussians", "2", "--device", "cpu"])
+    return root
+
+
+@pytest.mark.parametrize("action", ["isolated_train", "align", "connected_test bigram"])
+def test_walk_clis_cuda_match_cpu(dev, walk_corpus, tmp_path, action):
+    """``align``, ``isolated_train`` and ``connected_test --graph lextree
+    --lm bigram --decoder lattice`` on the card launch K21 / K22 and print
+    what ``--device cpu`` prints (align: its segments too, costs at rtol
+    1e-5)."""
+    import contextlib
+    import io
+    import json
+
+    from speech_recognition_tpu_torch.cli import main
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lk
+    from speech_recognition_tpu_torch.ops.viterbi_kernels import dense_backtrace
+
+    bank = os.path.join(walk_corpus, "bank.npz")
+    argv = {"isolated_train": ["isolated_train", "-i", os.path.join(walk_corpus, "train"),
+                               "-o", str(tmp_path / "out.npz"), "--n-gaussians", "2"],
+            "align": ["align", "-i", bank, "-d", os.path.join(walk_corpus, "train"), "-o",
+                      str(tmp_path / "out.jsonl")],
+            "connected_test bigram": ["connected_test", "-i", bank, "-d",
+                                      os.path.join(walk_corpus, "test"), "--graph",
+                                      "lextree", "--lm", "bigram", "--decoder", "lattice"]}
+    counter = lk.lattice_walk if action.startswith("connected") else dense_backtrace
+    out = {}
+    for d in ("cuda", "cpu"):
+        before = counter.launches
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(argv[action] + ["--device", d])
+        torch.cuda.synchronize()
+        assert (counter.launches > before) == (d == "cuda"), (action, d)
+        out[d] = buf.getvalue()
+        if action == "align":
+            with open(tmp_path / "out.jsonl") as f:
+                out[d + " segments"] = [json.loads(x) for x in f]
+    assert out["cuda"] == out["cpu"] and out["cuda"]
+    if action == "align":
+        segs = {d: [(r["file"], r["segments"]) for r in out[d + " segments"]]
+                for d in ("cuda", "cpu")}
+        assert segs["cuda"] == segs["cpu"]
+        np.testing.assert_allclose([r["cost"] for r in out["cuda segments"]],
+                                   [r["cost"] for r in out["cpu segments"]], rtol=1e-5)
