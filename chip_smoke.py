@@ -85,13 +85,19 @@ package's backtrace scans.  K21 is held bit for bit to
 ``viterbi_backtrace_ref`` on K11's planes of each K11 case below (the
 385-state sausage at 64 x 500, the isolated shape, the transcript
 graphs, the integer-tie batch: eps depth 2, lengths 0, 1 and T), batched
-and one stream; K22 to ``lattice_words_ref`` in every K6 + K7 check, at
-the decode's max_words and one word short of the longest chain; K23 to
-``wordtrace_words_ref`` on the sausage's word trace at 512 x 500 and on
-a skip-arc loop graph whose chains outgrow the reference's T / W + 1
-rows.  The align, dense, training and section 8 paths count K21, the
+and one stream, in each form ``dense_backtrace_plan`` picks (its window
+form, the window form at 8 frames x 8 states and the chain form forced
+on the same planes), on a strided view of the sausage's planes and on
+K11's planes at 11,623 states (both the plan's chain form); K22 to
+``lattice_words_ref`` in every K6 + K7 check, at the decode's max_words
+and one word short of the longest chain; K23 to ``wordtrace_words_ref``
+on the sausage's word trace at 512 x 500 and on a skip-arc loop graph
+whose chains outgrow the reference's T / W + 1 rows, its T + 1 rows
+included, under CUDA's sync debug mode (the wrapper reads nothing
+back).  The align, dense, training and section 8 paths count K21, the
 bigram lattice path and section 8 K22, the word-trace path K23; each is
-timed beside its plain version, its bound and its serial floor.
+timed beside its plain version, its bound and its serial floor; K21's
+two forms on each dense case in one call (the chain form as parent).
 
 Each CLI output is checked against the same command on the CPU (plain
 versions); the training path's, which sum GEMMs in other orders on the
@@ -1323,17 +1329,26 @@ def main(argv=None) -> int:
 
     def check_k23(name, args_):
         """K23 against ``wordtrace_words_ref`` on the same CUDA planes: the
-        words plane (its rows included) and n_words bit for bit."""
-        got_ = vk.wordtrace_words_device(*args_)
+        words plane (its T + 1 rows included) and n_words bit for bit; the
+        call runs under CUDA's sync debug mode, which raises on any read
+        back to the host."""
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got_ = vk.wordtrace_words_device(*args_)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         want_ = vk.wordtrace_words_ref(*args_)
         torch.cuda.synchronize()
-        if got_[0].shape != want_[0].shape or not (torch.equal(got_[0], want_[0])
+        if got_[0].shape != (args_[0].shape[0] + 1, args_[0].shape[2]) \
+                or got_[0].shape != want_[0].shape or not (torch.equal(got_[0], want_[0])
                                                    and torch.equal(got_[1], want_[1])):
             fail(f"K23 differs from the plain walk on {name}: rows {got_[0].shape[0]} / "
                  f"{want_[0].shape[0]}")
         phase("K23", f"{name}: words plane ({want_[0].shape[0]} rows) and n_words == plain "
-                     f"(bit-identical); eps_u {str(args_[0].dtype).split('.')[-1]}, longest "
-                     f"chain {int(want_[1].max())} words, {int(want_[1].sum())} in all")
+                     f"(bit-identical), no host read (sync debug mode); eps_u "
+                     f"{str(args_[0].dtype).split('.')[-1]}, longest chain "
+                     f"{int(want_[1].max())} words, {int(want_[1].sum())} in all")
         return want_
 
     # the sausage's word trace at 512 x 500, and the skip-arc loop graph (3
@@ -1516,9 +1531,48 @@ def main(argv=None) -> int:
     # (the dense decode), the isolated / skmeans shape (5 states), the
     # transcript graphs (the hard training step and align), the integer-tie
     # batch (eps depth 2, lengths T, 0 and 1); end states: the last state
-    # (the isolated shape, as segmental K-means walks) or each item's best
+    # (the isolated shape, as segmental K-means walks) or each item's best.
+    # Each in the form dense_backtrace_plan picks (the window form), the
+    # window form at 8 frames x 8 states (many reloads) and at 32 x 128 (a
+    # bulk copy a row) and the chain form, forced on the same planes; then
+    # a strided view of the sausage's
+    # planes, and after K11's scratch case its planes at 11,623 states (the
+    # plan's chain form both)
     from speech_recognition_tpu_torch.ops.viterbi import viterbi_backtrace_ref
     from speech_recognition_tpu_torch.ops.viterbi_kernels import dense_backtrace
+
+    smem_lim = build.load_library().srt_smem_limit()
+
+    def k21_plans(bp_, depth_):
+        """The plan's form for these planes, and the other forms forced
+        (the window form only where the state stride is 1)."""
+        b_, t_, s_ = bp_.shape
+        plans_ = {"plan": dk.dense_backtrace_plan(b_, t_, s_, [bp_.stride()] * 2, smem_lim,
+                                                   n_sm, depth_),
+                  "chain": dk.BacktracePlan("chain", 0, 0, 1, 4, -(-b_ // 128), 0)}
+        if bp_.stride()[2] == 1:
+            plans_["window 8x8"] = dk.window_plan(b_, t_, s_, depth_, 8, 8, smem_lim, n_sm)
+            plans_["window 32x128 rows"] = dk.window_plan(b_, t_, s_, depth_, 32, 128, smem_lim,
+                                                          n_sm)
+        return plans_
+
+    k21_forms = {}  # form -> the cases it ran on
+    k21_picked = {}  # case -> the plan's own form
+
+    def check_k21(name, args_):
+        """K21 in each form of ``k21_plans`` against viterbi_backtrace_ref,
+        states and flags bit for bit."""
+        want_ = viterbi_backtrace_ref(*args_)
+        for label, plan_ in k21_plans(args_[0], args_[4]).items():
+            got_ = dk._backtrace(*args_, plan=plan_)
+            torch.cuda.synchronize()
+            if not (torch.equal(got_[0], want_[0]) and torch.equal(got_[1], want_[1])):
+                fail(f"K21 ({label}: {plan_.form} form) differs from viterbi_backtrace_ref "
+                     f"on {name}")
+            k21_forms.setdefault(plan_.form, []).append(name)
+            if label == "plan":
+                k21_picked[name] = plan_
+        return want_
 
     k21_args = {}
     for name, kw in dense_cases.items():
@@ -1526,8 +1580,8 @@ def main(argv=None) -> int:
         end_ = (torch.full((fin_.shape[0],), fin_.shape[1] - 1, device=dev)
                 if kw["eps_trans"] is None else torch.argmin(fin_, 1))
         k21_args[name] = (bp_, ebp_, end_, kw["n_frames"], kw["eps_depth"])
+        want_ = check_k21(name, k21_args[name])
         got_ = dense_backtrace(*k21_args[name])
-        want_ = viterbi_backtrace_ref(*k21_args[name])
         one_ = dense_backtrace(bp_[1], ebp_[1], int(end_[1]), int(kw["n_frames"][1]),
                                kw["eps_depth"])
         torch.cuda.synchronize()
@@ -1535,10 +1589,22 @@ def main(argv=None) -> int:
             fail(f"K21 differs from viterbi_backtrace_ref on {name}")
         if not (torch.equal(one_[0], want_[0][1]) and torch.equal(one_[1], want_[1][1])):
             fail(f"K21's single-stream form differs from the batched walk on {name}")
+        p_ = k21_picked[name]
         phase("K21", f"{name} (eps depth {kw['eps_depth'] if kw['eps_trans'] is not None else 0}"
                      f", lengths {int(kw['n_frames'].min())}-{int(kw['n_frames'].max())}): "
                      f"states and flags == viterbi_backtrace_ref (bit-identical, batched and "
-                     f"one stream); eps hops {int(want_[1].sum())}")
+                     f"one stream) in the plan's {p_.form} form ({p_.rows} frames x "
+                     f"{p_.states} states, {'block' if p_.block else 'row'} layout, "
+                     f"{32 // p_.lanes} streams a warp), the window form at 8 x 8 and "
+                     f"32 x 128 (row layout) and the chain form; eps hops "
+                     f"{int(want_[1].sum())}")
+    s_name, view_name = "385-state sausage7 64x500", "the sausage's planes as [B, S, T] views"
+    bp_v = k21_args[s_name][0].transpose(1, 2).contiguous().transpose(1, 2)
+    ebp_v = k21_args[s_name][1].transpose(1, 2).contiguous().transpose(1, 2)
+    check_k21(view_name, (bp_v, ebp_v, *k21_args[s_name][2:]))
+    del bp_v, ebp_v
+    phase("K21", f"{view_name}: states and flags == viterbi_backtrace_ref in the plan's "
+                 f"{k21_picked[view_name].form} form and the chain form")
     report["K21"] = {"max_abs_err": 0.0}
 
     # ---- 4e. K12 vs its plain version -----------------------------------------
@@ -1676,6 +1742,21 @@ def main(argv=None) -> int:
     phase("K11", f"{s11} states (one past the shared-memory frontier; scratch form: "
                  f"frontier in device memory) at 2x4: final, bp, eps_bp == plain "
                  f"(bit-identical)")
+    # K21 on those planes: past K11's frontier the plan takes the chain form
+    big_name = f"K11's planes at {s11} states"
+    check_k21(big_name, (want[1], want[2], torch.argmin(want[0], 1), k11_big["n_frames"], 1))
+    picked = {k: p.form for k, p in k21_picked.items()}
+    if picked != {**{n_: "window" for n_ in dense_cases}, view_name: "chain",
+                  big_name: "chain"}:
+        fail(f"K21's plan picked {picked}: not the window form on K11's planes and the "
+             f"chain form on views and past {s11 - 1} states")
+    if set(k21_forms) != {"chain", "window"}:
+        fail(f"the K21 sweep missed a form: {sorted(k21_forms)}")
+    phase("K21", f"{big_name}: states and flags == viterbi_backtrace_ref in the plan's "
+                 f"{k21_picked[big_name].form} form and the window form at 8 x 8 and "
+                 f"32 x 128; every "
+                 f"form ran: " + "; ".join(f"{k} on {len(v)} cases" for k, v in
+                                           k21_forms.items()))
     # K13 past two feature tiles' room in shared memory (A above ~450): the
     # chunked form at A = 512 and 1,024 over the CLI bank's 55 states x 4
     # mixtures, 64 x 500 columns
@@ -3025,8 +3106,7 @@ def main(argv=None) -> int:
         "chain walk (K23)": lambda: vk.wordtrace_words_device(*k23_args),
     }
     wt_stage_ms = {k: cuda_ms(fn) for k, fn in wt_stages.items()}
-    # K23 alone (its one host read of the longest chain included) beside
-    # its plain version, on the word trace's own planes
+    # K23 alone beside its plain version, on the word trace's own planes
     t["K23"] = (cuda_ms(lambda: vk.wordtrace_words_device(*k23_args), reps=20),
                 cuda_ms(lambda: vk.wordtrace_words_ref(*k23_args), reps=3))
     k23_words = vk.wordtrace_words_ref(*k23_args)
@@ -3262,6 +3342,31 @@ def main(argv=None) -> int:
     k21_states = viterbi_backtrace_ref(*bt_args)[0]
     k21_ms = {name: cuda_ms(lambda a=a: dense_backtrace(*a), reps=10)
               for name, a in k21_args.items() if not name.startswith("385")}
+    # K21's two forms on each dense case in this call: the chain form (the
+    # parent's kernel) as "parent" and the plan's window form as "change",
+    # timed parent, change, change, parent; device times of both; and the
+    # window form's counters (windows a stream, loads ahead taken and
+    # dropped, words staged) for the bytes it staged and their rate
+    k21_forms_ms = {}
+    for name, a in k21_args.items():
+        pl = k21_plans(a[0], a[4])
+        fns = {"parent": lambda a=a, p=pl["chain"]: dk._backtrace(*a, plan=p),
+               "change": lambda a=a, p=pl["plan"]: dk._backtrace(*a, plan=p)}
+        ev = {k: [] for k in fns}
+        for k in ("parent", "change", "change", "parent"):
+            ev[k].append(cuda_ms(fns[k], reps=10))
+        stats = torch.zeros((a[0].shape[0], 7), dtype=torch.int64, device=dev)
+        dk._backtrace(*a, plan=pl["plan"], stats=stats)
+        torch.cuda.synchronize()
+        st = stats.double()
+        k21_forms_ms[name] = dict(
+            event=ev, plan=pl["plan"],
+            device={k: device_ms(fn, what=f"K21 {k} on {name}") for k, fn in fns.items()},
+            windows=(float(st[:, 0].mean()), int(st[:, 0].max())),
+            ahead=int(st[:, 1].sum()), dropped=int(st[:, 2].sum()),
+            staged=4 * int(st[:, 3].sum()),
+            wait=float((st[:, 4] / st[:, 6].clamp(min=1)).mean()),
+            reload=float((st[:, 5] / st[:, 6].clamp(min=1)).mean()))
     # K22 and K23 where chains are long: the planted 1k-trie words (the
     # random-signal pipeline's chains hold a word or two) and the skip-arc
     # loop graph
@@ -3321,9 +3426,24 @@ def main(argv=None) -> int:
                     f"K23 on the skip-arc loop graph 64x300 (longest chain "
                     f"{int(want_s[1].max())} words) {k23_skip_ms:.4f} ms (CUDA-event median; "
                     f"{card})")
-    phase("timing", "the walks' device time (torch.profiler; the kernel, K23's memset of "
-                    "its maximum): " + ", ".join(f"{k} {v:.4f} ms" for k, v in walk_dev.items())
-          + f" ({card})")
+    phase("timing", "the walks' device time (torch.profiler): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in walk_dev.items()) + f" ({card})")
+    for name, r in k21_forms_ms.items():
+        p, ev, dv = r["plan"], r["event"], r["device"]
+        phase("timing", f"K21 forms on {name}: parent (chain form) "
+                        f"{ev['parent'][0]:.4f} / {ev['parent'][1]:.4f} ms, change (window "
+                        f"form, {p.rows} frames x {p.states} states, "
+                        f"{'block' if p.block else 'row'} layout, {32 // p.lanes} streams "
+                        f"a warp, {p.grid} CTAs of {p.warps} warps) {ev['change'][0]:.4f} / "
+                        f"{ev['change'][1]:.4f} ms (CUDA-event medians, in the order parent, "
+                        f"change, change, parent); device {dv['parent']:.4f} / "
+                        f"{dv['change']:.4f} ms (torch.profiler); window form: "
+                        f"{r['windows'][0]:.1f} windows a stream (at most {r['windows'][1]}), "
+                        f"{r['ahead']} taken from the load ahead, {r['dropped']} loads ahead "
+                        f"dropped, {r['staged'] / 1e6:.2f} MB staged = "
+                        f"{r['staged'] / 1e6 / dv['change']:.1f} GB/s at its device time; of "
+                        f"a stream's cycles {r['reload']:.2f} in window changes, "
+                        f"{r['wait']:.2f} of them waiting for copies ({card})")
     phase("timing", f"isolated pipeline 512 x 2 s wav -> predictions (K3 + bank_nll + "
                     f"K11 + argmin): {iso_ms:.3f} ms = {512 * 2 / (iso_ms / 1e3):.0f} "
                     f"audio-s/s (CUDA-event median; {card}); stages alone: " + ", ".join(

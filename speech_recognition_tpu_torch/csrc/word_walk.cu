@@ -22,8 +22,8 @@
 // word K10 recorded at the re-entry of slot v at frame t, and that word's
 // entry time); else it ends.  eps_u is int8 or int32 (the type
 // _eps_u_dtype picks).  Entry times fall each step, so every chain ends
-// within the T + 1 rows; the kernel also folds each chain's length into
-// one maximum, the one number the wrapper reads back to cut the plane.
+// within the T + 1 rows, and the plane keeps all of them: nothing is read
+// back to cut it.
 //
 // n_words counts the rows >= 0, as the JAX functions do.  An index is
 // clamped to its axis as the JAX scans clamp it.
@@ -79,14 +79,13 @@ __global__ void __launch_bounds__(kThreads) lattice_walk_kernel(
 }
 
 // eps_u (U) / eps_tau (int32) with strides (t, r, b); best_slot, entry_t,
-// nf [B] int32 -> out [T + 1, B] int32, counts [B + 1] int32: n_words,
-// then the longest chain (atomicMax; the launcher zeroes it first).
+// nf [B] int32 -> out [T + 1, B] int32, n_words [B] int32.
 template <typename U>
 __global__ void __launch_bounds__(kThreads) wordtrace_walk_kernel(
     const U* __restrict__ eps_u, long long u_t, long long u_r, long long u_b,
     const int* __restrict__ eps_tau, long long e_t, long long e_r, long long e_b,
     const int* __restrict__ best_slot, const int* __restrict__ entry_t,
-    const int* __restrict__ nf, int* __restrict__ out, int* __restrict__ counts, int T, int R,
+    const int* __restrict__ nf, int* __restrict__ out, int* __restrict__ n_words, int T, int R,
     int B) {
   const int b = blockIdx.x * kThreads + threadIdx.x;
   if (b >= B) return;
@@ -108,10 +107,8 @@ __global__ void __launch_bounds__(kThreads) wordtrace_walk_kernel(
       t = eps_tau[tc * e_t + vc * e_r + b * e_b];
     }
   }
-  const int chain = k;
   for (; k < rows; ++k) out[(long long)k * B + b] = -1;
-  counts[b] = count;
-  atomicMax(counts + B, chain);
+  n_words[b] = count;
 }
 
 }  // namespace
@@ -133,20 +130,18 @@ extern "C" int wordtrace_walk_launch(const void* eps_u, int u_wide, long long u_
                                      long long u_r, long long u_b, const int* eps_tau,
                                      long long e_t, long long e_r, long long e_b,
                                      const int* best_slot, const int* entry_t, const int* nf,
-                                     int* out, int* counts, int T, int R, int B,
+                                     int* out, int* n_words, int T, int R, int B,
                                      void* stream) {
   if (B <= 0 || T <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(counts + B, 0, sizeof(int), st);
-  if (e != cudaSuccess) return (int)e;
   const int grid = (B + kThreads - 1) / kThreads;
   if (u_wide)
     wordtrace_walk_kernel<int><<<grid, kThreads, 0, st>>>(
         (const int*)eps_u, u_t, u_r, u_b, eps_tau, e_t, e_r, e_b, best_slot, entry_t, nf, out,
-        counts, T, R, B);
+        n_words, T, R, B);
   else
     wordtrace_walk_kernel<int8_t><<<grid, kThreads, 0, st>>>(
         (const int8_t*)eps_u, u_t, u_r, u_b, eps_tau, e_t, e_r, e_b, best_slot, entry_t, nf,
-        out, counts, T, R, B);
+        out, n_words, T, R, B);
   return (int)cudaGetLastError();
 }

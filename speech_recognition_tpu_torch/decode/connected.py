@@ -52,6 +52,7 @@ from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import (
     viterbi_banded_general,
     viterbi_banded_wordtrace,
     wordtrace_words_device,
+    wordtrace_words_host,
 )
 from speech_recognition_tpu_torch.ops.viterbi_kernels import viterbi_dense
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
@@ -132,8 +133,9 @@ def _decode_banded_words(bank: HMMBank, graph: WordGraph, g: BandedGraph, feats,
     carries entry times and records (origin word, entry time) at every
     re-entry, so the words come from an O(#words) chain walk; the
     ``[T, S, B]`` backpointer plane and the backtrace never exist.
-    Returns ``(word_sequences, costs [B])`` with the costs on the device
-    of ``feats``."""
+    Returns ``(word_sequences, costs [B])`` with the costs on the host:
+    their copy is queued before the walk, and the walk's one blocking
+    copy of its words waits for both."""
     dev = feats.device
     if bank.means.device != dev:
         raise ValueError(f"bank is on {bank.means.device}, features on {dev}")
@@ -144,14 +146,16 @@ def _decode_banded_words(bank: HMMBank, graph: WordGraph, g: BandedGraph, feats,
                                                            topo, n_frames)
     end_costs = final[g.end_states, :] + g.end_bonus[:, None]  # [E, B]
     best = torch.argmin(end_costs, dim=0)
-    costs = end_costs.gather(0, best[None, :])[0]
+    costs = end_costs.gather(0, best[None, :])[0].to("cpu", non_blocking=True)
     end_state = g.end_states[best]
     entry = ftau.gather(0, end_state[None, :])[0]
-    words_rev, n_words = wordtrace_words_device(eps_u, eps_tau, end_state // topo.uniform_w,
-                                                entry, n_frames)
-    words_rev, n_words = words_rev.cpu().numpy(), n_words.cpu().numpy()
-    # root slot -> word id
-    labels = graph.slot_label[graph.slot[g.word_starts.cpu().numpy()]]
+    # one blocking copy after the walk: the words and counts share a buffer
+    words_rev, n_words = wordtrace_words_host(*wordtrace_words_device(
+        eps_u, eps_tau, end_state // topo.uniform_w, entry, n_frames))
+    # root slot -> word id, from the host graph (``g.word_starts`` are the
+    # states where the slot changes)
+    slot = np.asarray(graph.slot)
+    labels = graph.slot_label[slot[np.r_[True, slot[1:] != slot[:-1]]]]
     seqs = [labels[words_rev[: n_words[i], i][::-1]].tolist()
             for i in range(words_rev.shape[1])]
     return seqs, costs
@@ -199,7 +203,7 @@ def decode_connected(bank: HMMBank, graph: WordGraph, feats, n_frames,
         if not (topo.fused_ok and graph.eps_depth == 1):
             raise ValueError("wordtrace backend needs a uniform word graph")
         seqs, costs = _decode_banded_words(bank, graph, bg, feats, n_frames, topo)
-        costs = costs.cpu().numpy()
+        costs = costs.numpy()
         _warn_no_path(costs)
         if drop_labels:
             seqs = [[w for w in s if w not in drop_labels] for s in seqs]

@@ -77,7 +77,7 @@ __all__ = ["BandedTopo", "banded_topology", "use_kernels", "BandedPlan", "banded
            "banded_backtrace_general", "banded_backtrace_general_ref",
            "viterbi_banded_chunk", "viterbi_banded_chunk_ref", "banded_route",
            "viterbi_banded_wordtrace", "viterbi_banded_wordtrace_ref",
-           "wordtrace_words_device", "wordtrace_words_ref"]
+           "wordtrace_words_device", "wordtrace_words_ref", "wordtrace_words_host"]
 
 
 class BandedTopo(NamedTuple):
@@ -1123,8 +1123,11 @@ def wordtrace_words_ref(eps_u, eps_tau, best_slot, entry_t, n_frames):
     eps_u[t, v])`` until the word entered at frame 0, checking every 16
     steps whether any chain is still going.  The reference stops after
     ``T // W + 1`` steps, which skip arcs undercut; this walk drops no
-    word.  Returns ``(words_rev [W, B] int32, slots from the last word
-    back, -1 past each stream's first word; n_words [B] int32)``.
+    word.  Returns ``(words_rev [T + 1, B] int32, slots from the last word
+    back, -1 past each stream's first word; n_words [B] int32)``: entry
+    times fall each step, so T + 1 rows hold every chain.  Both are views
+    of one ``[T + 2, B]`` buffer whose last row is ``n_words``, as
+    ``wordtrace_words_device`` returns them.
     """
     t_len, r, b = eps_u.shape
     dev = eps_u.device
@@ -1134,7 +1137,7 @@ def wordtrace_words_ref(eps_u, eps_tau, best_slot, entry_t, n_frames):
     t = entry_t.to(dev, torch.int64)
     alive = n_frames.to(dev) > 0
     words = []
-    while len(words) <= t_len:  # entry times fall each step: <= T + 1 words
+    while len(words) <= t_len:
         words.append(torch.where(alive, v, -1))
         idx = (t.clamp(0, max(t_len - 1, 0)) * r + v.clamp(0, r - 1)) * b + cols
         cont = alive & (t > 0)
@@ -1143,22 +1146,24 @@ def wordtrace_words_ref(eps_u, eps_tau, best_slot, entry_t, n_frames):
         alive = cont
         if len(words) % 16 == 0 and not bool(alive.any()):
             break
-    words_rev = torch.stack(words).to(torch.int32)
-    return words_rev, (words_rev >= 0).sum(0).to(torch.int32)
+    out = torch.full((t_len + 2, b), -1, dtype=torch.int32, device=dev)
+    out[:len(words)] = torch.stack(words)
+    out[t_len + 1] = (out[:t_len + 1] >= 0).sum(0)
+    return out[:t_len + 1], out[t_len + 1]
 
 
 def wordtrace_words_device(eps_u, eps_tau, best_slot, entry_t, n_frames):
     """K23 for CUDA planes (``csrc/word_walk.cu``: one thread a stream
-    walks its chain to its end and writes a ``[T + 1, B]`` plane), the
-    plain version ``wordtrace_words_ref`` for CPU planes.
+    walks its chain to its end), the plain version ``wordtrace_words_ref``
+    for CPU planes.
 
     ``eps_u [T, R, B]`` in the type ``_eps_u_dtype`` gives (int8 or
     int32) and ``eps_tau [T, R, B]`` int32, as K10 writes them (any
     strides); ``best_slot``, ``entry_t``, ``n_frames`` integer ``[B]``.
-    Returns what the plain version returns, its row count included: the
-    kernel folds the chains' lengths into one maximum, the one number
-    read back to the host, and the plane is cut to the plain walk's rows
-    (a multiple of 16 past the longest chain, at most ``T + 1``)."""
+    Returns what the plain version returns: ``words_rev [T + 1, B]`` and
+    ``n_words [B]``, views of one ``[T + 2, B]`` buffer, so
+    ``wordtrace_words_host`` brings both to the host in one copy.  Nothing
+    is read back here."""
     if eps_u.dim() != 3 or eps_u.dtype not in (torch.int8, torch.int32) \
             or eps_tau.dtype != torch.int32 or eps_tau.shape != eps_u.shape:
         raise ValueError(f"the word-trace walk takes eps_u [T, R, B] int8 or int32 and "
@@ -1177,28 +1182,31 @@ def wordtrace_words_device(eps_u, eps_tau, best_slot, entry_t, n_frames):
         return wordtrace_words_ref(eps_u, eps_tau, best_slot, entry_t, n_frames)
     from speech_recognition_tpu_torch.utils.build import check, load_library
 
-    out = torch.empty((t_len + 1, b), dtype=torch.int32, device=dev)
-    counts = torch.empty((b + 1,), dtype=torch.int32, device=dev)
-    if not b:
-        return out[:_wordtrace_rows(0, t_len)], counts[:0]
-    lib = load_library()
-    with torch.cuda.device(dev):
-        rc = lib.wordtrace_walk_launch(
-            eps_u.data_ptr(), int(eps_u.dtype == torch.int32), *eps_u.stride(),
-            eps_tau.data_ptr(), *eps_tau.stride(), *(x.data_ptr() for x in vecs),
-            out.data_ptr(), counts.data_ptr(), t_len, r, b,
-            torch.cuda.current_stream(dev).cuda_stream)
-    check(rc, "word-trace walk kernel")
-    wordtrace_words_device.launches += 1
-    rows = _wordtrace_rows(int(counts[b]), t_len)  # the one host read
-    return out[:rows], counts[:b]
+    out = torch.empty((t_len + 2, b), dtype=torch.int32, device=dev)
+    if b:
+        lib = load_library()
+        with torch.cuda.device(dev):
+            rc = lib.wordtrace_walk_launch(
+                eps_u.data_ptr(), int(eps_u.dtype == torch.int32), *eps_u.stride(),
+                eps_tau.data_ptr(), *eps_tau.stride(), *(x.data_ptr() for x in vecs),
+                out.data_ptr(), out[t_len + 1].data_ptr(), t_len, r, b,
+                torch.cuda.current_stream(dev).cuda_stream)
+        check(rc, "word-trace walk kernel")
+        wordtrace_words_device.launches += 1
+    return out[:t_len + 1], out[t_len + 1]
 
 
 wordtrace_words_device.launches = 0
 
 
-def _wordtrace_rows(longest: int, t_len: int) -> int:
-    """The rows of ``wordtrace_words_ref``'s plane when its longest chain
-    is ``longest`` words: it checks every 16 steps whether a chain goes
-    on, and stops at ``T + 1``."""
-    return min(t_len + 1, 16 * max(1, -(-longest // 16)))
+def wordtrace_words_host(words_rev, n_words):
+    """``(words_rev, n_words)`` as ``wordtrace_words_device`` returns
+    them, as numpy arrays from one device-to-host copy of the buffer they
+    share (``n_words`` is its row after ``words_rev``)."""
+    rows, b = words_rev.shape
+    if not (words_rev.is_contiguous() and n_words.shape == (b,)
+            and n_words.untyped_storage().data_ptr() == words_rev.untyped_storage().data_ptr()
+            and n_words.storage_offset() == words_rev.storage_offset() + rows * b):
+        raise ValueError("words_rev and n_words are not the rows of one buffer")
+    both = words_rev.as_strided((rows + 1, b), (b, 1)).cpu().numpy()
+    return both[:rows], both[rows]

@@ -19,10 +19,12 @@ mirrors the kernel's shared-memory layouts.
 
 ``dense_backtrace`` is kernel K21 (``csrc/dense_backtrace.cu``), the
 backtrace over K11's planes that ``ops.viterbi.viterbi_backtrace`` runs
-on CUDA tensors (one thread a stream; it replaces the JAX package's
-``viterbi_backtrace`` scan); its plain version is
-``ops.viterbi.viterbi_backtrace_ref``, and ``dense_backtrace.launches``
-counts its launches.
+on CUDA tensors (it replaces the JAX package's ``viterbi_backtrace``
+scan); its plain version is ``ops.viterbi.viterbi_backtrace_ref``, and
+``dense_backtrace.launches`` counts its launches.  ``dense_backtrace_plan``
+is the pure host function that picks its form: windows of frames x
+states staged in shared memory for planes with a unit state stride, else
+one thread a stream.
 """
 
 from __future__ import annotations
@@ -33,11 +35,16 @@ from typing import NamedTuple
 import torch
 
 from speech_recognition_tpu_torch.ops.viterbi import viterbi_backtrace_ref, viterbi_batch
-from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import _walk_vector, use_kernels
+from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import (
+    _n_sm,
+    _walk_vector,
+    use_kernels,
+)
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
 __all__ = ["viterbi_dense", "viterbi_dense_ref", "max_dense_states", "DensePlan",
-           "dense_plan", "dense_smem_bytes", "dense_backtrace", "dense_backtrace_ref"]
+           "dense_plan", "dense_smem_bytes", "dense_backtrace", "dense_backtrace_ref",
+           "BacktracePlan", "dense_backtrace_plan"]
 
 # K11's and K21's plain versions
 viterbi_dense_ref = viterbi_batch
@@ -290,13 +297,132 @@ def _launch(nll, trans, init_cost, n_frames, eps_trans=None, eps_depth: int = 1,
 viterbi_dense.launches = 0
 
 
+# K21's window form (csrc/dense_backtrace.cu): at most WINDOW_STATES states
+# and WINDOW_ROWS frames a window, at most BACKTRACE_WARPS warps a CTA, and
+# no window of fewer than MIN_WINDOW_ROWS frames
+WINDOW_STATES = 128
+WINDOW_ROWS = 32
+MIN_WINDOW_ROWS = 8
+BACKTRACE_WARPS = 4
+
+
+class BacktracePlan(NamedTuple):
+    """K21's form and launch sizes (see ``dense_backtrace_plan``)."""
+
+    form: str    # window | chain
+    rows: int    # frames a window (W); chain: 0
+    states: int  # states a window (R); chain: 0
+    lanes: int   # lanes that walk one stream (32 / streams a warp); chain: 1
+    warps: int   # warps a CTA
+    grid: int    # CTAs
+    smem: int    # dynamic shared memory a CTA, bytes
+    block: bool = False  # a window's rows are one segment (R = S = frame stride)
+
+
+def dense_backtrace_plan(b: int, t: int, s: int, strides, smem_limit: int, n_sm: int,
+                         eps_depth: int = 1) -> BacktracePlan:
+    """K21's form for ``b`` streams of ``t`` frames over ``s`` states,
+    planes at ``strides`` (each plane's ``(b, t, s)`` element strides),
+    under ``smem_limit`` bytes of shared memory a CTA on ``n_sm`` SMs:
+
+    * ``window`` where every plane's state stride is 1 (K11's ``[B, T,
+      S]`` planes, a ``[T, S]`` plane's view) and ``s`` is at most K11's
+      shared-memory frontier (``smem_limit // 20``, ``max_dense_states``):
+      windows of ``WINDOW_ROWS`` frames x every state in the block layout
+      where the planes' rows are contiguous and two stages of them fit
+      (S up to ~450: the sausage's 385), else x ``WINDOW_STATES`` states a
+      row (``window_plan``);
+    * ``chain`` otherwise: one thread a stream reading the planes in place.
+      Past K11's frontier a window of 128 states covers about 1% of a row,
+      so a walk that jumps across the graph would reload at every jump.
+
+    Why (``scripts/exp_r20_dense_backtrace.py --sweep`` on an NVIDIA H100
+    80GB HBM3 at 700 W): a window of every state is one bulk copy
+    a plane and never misses on a state, so on the sausage at 64 x 500 it
+    beats 128-state rows (a bulk copy a row) by ~1.8x though it stages 3x
+    the bytes; 32 frames beat 16 (more window changes) and 64 (half the
+    streams a warp's shared memory holds, at S = 5); 128 states a row hold
+    the sausage's largest drop at a slot boundary (101 states)."""
+    if b < 1 or t < 1 or s < 1:
+        raise ValueError(f"backtrace plan needs b, t, s >= 1, got {b}, {t}, {s}")
+    if all(st[2] == 1 for st in strides) and s <= smem_limit // 20:
+        block = all(st[1] == s for st in strides)
+        if block:
+            plan = window_plan(b, t, s, eps_depth, WINDOW_ROWS, s, smem_limit, n_sm, block=True)
+            if plan is not None and plan.rows == min(WINDOW_ROWS, t):
+                return plan
+        plan = window_plan(b, t, s, eps_depth, WINDOW_ROWS, WINDOW_STATES, smem_limit, n_sm,
+                           block=block)
+        if plan is not None:
+            return plan
+    return BacktracePlan("chain", 0, 0, 1, 4, _cdiv(b, 128), 0)
+
+
+def window_smem(w: int, r: int, s: int, lanes: int, warps: int, eps_depth: int,
+                block: bool) -> int:
+    """Shared memory of a window-form CTA (bytes; ``window_smem`` in
+    ``csrc/dense_backtrace.cu``): two stages a stream of each plane's rows,
+    a row ``4 ceil((R + 3) / 4)`` words (16-byte chunks from the one
+    holding the row's first state), or in the block layout one segment of
+    ``W S`` words and its phase; and a ring of the stream's last 32 states
+    and flags and the stages' two mbarriers (44 words)."""
+    plane = 4 * ((w * s + 6) // 4) if block else w * 4 * ((r + 6) // 4)
+    return warps * (_WARP // lanes) * (2 * plane * (2 if eps_depth > 0 else 1) + 44) * 4
+
+
+def window_plan(b: int, t: int, s: int, eps_depth: int, rows: int, states: int,
+                smem_limit: int, n_sm: int, block: bool = False):
+    """The window form's sizes at up to ``rows`` frames x ``states``
+    states a window, or ``None`` where fewer than ``MIN_WINDOW_ROWS``
+    frames fit.  R = min(S, states); the lanes a stream are the largest
+    power of two up to min(32, R) (S = 5: 4 lanes, 8 streams a warp),
+    W = min(rows, T), halved until a warp's two stages fit; as many warps
+    a CTA (up to ``BACKTRACE_WARPS``) as there are warps for each SM, so a
+    small batch spreads over the SMs.  ``block`` (the planes' frame stride
+    is S) takes the block layout where R = S."""
+    r = min(s, states)
+    block = block and r == s
+    lanes = 1 << (min(_WARP, r).bit_length() - 1)
+    groups = _WARP // lanes
+    w = min(rows, t)
+    while w > 1 and window_smem(w, r, s, lanes, 1, eps_depth, block) > smem_limit:
+        w //= 2
+    if w < min(MIN_WINDOW_ROWS, t):
+        return None
+    warp_bytes = window_smem(w, r, s, lanes, 1, eps_depth, block)
+    n_warps = _cdiv(b, groups)
+    warps = max(1, min(BACKTRACE_WARPS, n_warps // n_sm, smem_limit // warp_bytes))
+    return BacktracePlan("window", w, r, lanes, warps, _cdiv(n_warps, warps),
+                         warps * warp_bytes, block)
+
+
+@functools.lru_cache(maxsize=256)
+def _card_backtrace_plan(dev, b: int, t: int, s: int, strides, eps_depth: int) -> BacktracePlan:
+    """``dense_backtrace_plan`` for the card ``dev``, once per shape."""
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    return dense_backtrace_plan(b, t, s, strides, load_library().srt_smem_limit(), _n_sm(dev),
+                                eps_depth)
+
+
 def dense_backtrace(bp, eps_bp, end_state, n_frames, eps_depth: int = 1):
-    """K21 for CUDA planes (``csrc/dense_backtrace.cu``: one thread a
-    stream, reading K11's planes in place), the plain version
+    """K21 for CUDA planes (``csrc/dense_backtrace.cu`` in the form
+    ``dense_backtrace_plan`` picks), the plain version
     ``viterbi_backtrace_ref`` for CPU planes.  Arguments and results as
     ``ops.viterbi.viterbi_backtrace``: int32 ``bp`` / ``eps_bp`` ``[T, S]``
     with scalar ``end_state`` / ``n_frames``, or ``[B, T, S]`` with ``[B]``
     ones (any strides)."""
+    return _backtrace(bp, eps_bp, end_state, n_frames, eps_depth)
+
+
+def _backtrace(bp, eps_bp, end_state, n_frames, eps_depth: int = 1,
+               plan: BacktracePlan = None, stats=None):
+    """``dense_backtrace`` with its form forced by ``plan`` (the card
+    tests and the timing lab; default ``dense_backtrace_plan``'s) and, in
+    the window form, ``stats`` (int64 ``[B, 7]`` on the device) given each
+    stream's windows walked, windows taken from the load ahead, loads
+    ahead dropped, words staged, cycles waiting for copies, cycles in
+    window changes and cycles in all."""
     if bp.dim() not in (2, 3) or bp.dtype != torch.int32 or eps_bp.dtype != torch.int32 \
             or eps_bp.shape != bp.shape:
         raise ValueError(f"the dense backtrace takes int32 bp / eps_bp of one shape, [T, S] "
@@ -322,12 +448,21 @@ def dense_backtrace(bp, eps_bp, end_state, n_frames, eps_depth: int = 1):
     flags = torch.empty((b, t_len), dtype=torch.bool, device=dev)
     if b and t_len:
         lib = load_library()
+        if plan is None:
+            plan = _card_backtrace_plan(dev, b, t_len, s, (bp3.stride(), ep3.stride()),
+                                        eps_depth)
+        if stats is not None and (plan.form != "window" or stats.shape != (b, 7)
+                                  or stats.dtype != torch.int64 or stats.device != dev):
+            raise ValueError("stats takes the window form's int64 [B, 7] counters")
         with torch.cuda.device(dev):
             rc = lib.dense_backtrace_launch(
-                bp3.data_ptr(), *bp3.stride(), ep3.data_ptr(), *ep3.stride(), end.data_ptr(),
-                nf.data_ptr(), states.data_ptr(), flags.data_ptr(), t_len, s, b, eps_depth,
+                int(plan.form == "window"), bp3.data_ptr(), *bp3.stride(), ep3.data_ptr(),
+                *ep3.stride(), end.data_ptr(), nf.data_ptr(), states.data_ptr(),
+                flags.data_ptr(), t_len, s, b, eps_depth, plan.rows, plan.states, plan.lanes,
+                plan.warps, plan.grid, plan.smem, int(plan.block),
+                stats.data_ptr() if stats is not None else None,
                 torch.cuda.current_stream(dev).cuda_stream)
-        check(rc, "dense backtrace kernel")
+        check(rc, f"dense backtrace kernel ({plan.form} form)")
         dense_backtrace.launches += 1
     if single:
         return states[0], flags[0]

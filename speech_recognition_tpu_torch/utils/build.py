@@ -128,8 +128,8 @@ def load_library() -> ctypes.CDLL:
                                            i, i, i, i, i, i, i, i, p, p, p]
     lib.fb_banded_launch.argtypes = [p] * 23 + [i] * 11 + [p]
     lib.fb_dense_launch.argtypes = [p] * 14 + [i] * 13 + [p]
-    lib.dense_backtrace_launch.argtypes = [p, q, q, q, p, q, q, q, p, p, p, p,
-                                           i, i, i, i, p]
+    lib.dense_backtrace_launch.argtypes = [i, p, q, q, q, p, q, q, q, p, p, p, p,
+                                           i, i, i, i, i, i, i, i, i, i, i, p, p]
     lib.lattice_walk_launch.argtypes = [p, q, q, q, p, q, q, q, p, p, p, p, i, i, i, i, p]
     lib.wordtrace_walk_launch.argtypes = [p, i, q, q, q, p, q, q, q, p, p, p, p, p,
                                           i, i, i, p]

@@ -29,8 +29,9 @@ at K13's tolerance.  K9's cross mode is held exactly
 to the plain backtrace on tries' exact and beam planes; the pruned
 forward, the token beam and the spell checker run the same tensor ops
 on the card as on the CPU and are compared exactly.  K21-K23 (the dense
-backtrace, the lattice word walk, the word-trace walk) walk the plain
-versions' own planes and are compared exactly, K23's row count included.  Decodes
+backtrace, in each of its forms; the lattice word walk, the word-trace
+walk) walk the plain versions' own planes and are compared exactly, K23's
+T + 1 rows included.  Decodes
 on the card against the CPU
 (emission GEMMs on two devices) compare words exactly and costs at rtol
 1e-5.
@@ -2682,6 +2683,7 @@ def test_k21_matches_plain(dev, name, b, t, s, per_item, eps, depth, ties):
     batch) against ``viterbi_backtrace_ref`` on the same CUDA planes: states
     and flags bit for bit, batched, single-stream and on strided views."""
     from speech_recognition_tpu_torch.ops import viterbi as tv
+    from speech_recognition_tpu_torch.ops import viterbi_kernels as vk_dense
     from speech_recognition_tpu_torch.ops.viterbi_kernels import dense_backtrace, viterbi_dense
 
     nll, trans, init, nf, eps_t = _dense_problem(40 + s, b, t, s, per_item, eps, ties)
@@ -2697,7 +2699,8 @@ def test_k21_matches_plain(dev, name, b, t, s, per_item, eps, depth, ties):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
     if eps:
         assert bool(want[1].any())
-    # a strided view of the planes ([B, S, T] storage) and the single form
+    # a strided view of the planes ([B, S, T] storage: the chain form) and
+    # the single form
     bp_v = bp.transpose(1, 2).contiguous().transpose(1, 2)
     ebp_v = eps_bp.transpose(1, 2).contiguous().transpose(1, 2)
     got_v = dense_backtrace(bp_v, ebp_v, end, nf, depth)
@@ -2705,6 +2708,75 @@ def test_k21_matches_plain(dev, name, b, t, s, per_item, eps, depth, ties):
     torch.cuda.synchronize()
     assert torch.equal(got_v[0], want[0]) and torch.equal(got_v[1], want[1])
     assert torch.equal(one[0], want[0][0]) and torch.equal(one[1], want[1][0])
+    # each form forced on the same planes: the plan's window, small windows
+    # (many reloads), and the chain
+    for plan in _k21_plans(bp, depth):
+        got_f = vk_dense._backtrace(bp, eps_bp, end, nf, depth, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got_f[0], want[0]) and torch.equal(got_f[1], want[1]), plan
+
+
+def _k21_plans(bp, depth):
+    """K21's plan for ``bp`` [B, T, S], the window form at 8 frames x 8
+    states (or S) and at 32 x 128 in the row layout, and the chain form."""
+    from speech_recognition_tpu_torch.ops import viterbi_kernels as dk
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    b, t, s = bp.shape
+    lim, n_sm = load_library().srt_smem_limit(), torch.cuda.get_device_properties(
+        bp.device).multi_processor_count
+    plan = dk.dense_backtrace_plan(b, t, s, [bp.stride()] * 2, lim, n_sm, depth)
+    assert plan.form == "window"
+    return (plan, dk.window_plan(b, t, s, depth, 8, 8, lim, n_sm),
+            dk.window_plan(b, t, s, depth, 32, 128, lim, n_sm),
+            dk.BacktracePlan("chain", 0, 0, 1, 4, -(-b // 128), 0))
+
+
+@pytest.mark.parametrize("case", ["large S", "left to right, wraps", "eps depth 0"])
+def test_k21_forms_edge_cases(dev, case):
+    """K21's forms on planes the main paths do not give: S past K11's
+    shared-memory frontier (the plan's chain tier; the window form forced
+    too), a left-to-right walk through small windows with indices that wrap
+    or clamp (held to the chain form: the plain version's gathers take
+    neither), eps depth 0."""
+    from speech_recognition_tpu_torch.ops import viterbi as tv
+    from speech_recognition_tpu_torch.ops import viterbi_kernels as dk
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    rng = np.random.default_rng(21)
+    lim = load_library().srt_smem_limit()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    if case == "large S":
+        b, t, s, depth = 3, 6, lim // 20 + 1, 2
+    else:
+        b, t, s, depth = 37, 90, 300, 0 if case == "eps depth 0" else 3
+    here = np.arange(s)[None, None, :]
+    bp = np.maximum(here - rng.integers(0, 4, (b, t, s)), 0).astype(np.int32)
+    bp[:, 0] = -1
+    eps_bp = (here - rng.integers(1, 60, (b, t, s))).astype(np.int32)
+    eps_bp[(rng.uniform(size=eps_bp.shape) > 0.2) | (eps_bp < 0)] = -1
+    if case == "left to right, wraps":
+        hit = rng.uniform(size=bp.shape) < 0.03
+        bp[hit] = rng.integers(-3, 0, int(hit.sum()))
+        bp[rng.uniform(size=bp.shape) < 0.01] = s + 5
+    end = torch.from_numpy((s - 1 - rng.integers(0, 4, b)).astype(np.int32)).to(dev)
+    nf = torch.from_numpy(np.r_[t, 0, 1, rng.integers(2, t, b - 3)].astype(np.int32)).to(dev)
+    bp, eps_bp = torch.from_numpy(bp).to(dev), torch.from_numpy(eps_bp).to(dev)
+    plan = dk.dense_backtrace_plan(b, t, s, [bp.stride()] * 2, lim, n_sm, depth)
+    assert plan.form == ("chain" if case == "large S" else "window")
+    chain = dk.BacktracePlan("chain", 0, 0, 1, 4, 1, 0)
+    want = dk._backtrace(bp, eps_bp, end, nf, depth, plan=chain)
+    if case != "left to right, wraps":
+        ref = tv.viterbi_backtrace_ref(bp, eps_bp, end, nf, depth)
+        assert torch.equal(want[0], ref[0]) and torch.equal(want[1], ref[1])
+    stats = torch.zeros((b, 7), dtype=torch.int64, device=dev)
+    for p in (plan, dk.window_plan(b, t, s, depth, 8, 8, lim, n_sm),
+              dk.window_plan(b, t, s, depth, 32, 128, lim, n_sm)):
+        got = dk._backtrace(bp, eps_bp, end, nf, depth, plan=p,
+                            stats=stats if p.form == "window" else None)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), p
+    assert int(stats[:, 0].sum()) > 0 and int(stats[:, 3].sum()) > 0
 
 
 def _random_lattice(seed, t, b, l, dev):
@@ -2779,8 +2851,9 @@ def _wordtrace_planes(dev, bank, g, feats, nf):
 @pytest.mark.parametrize("case", ["skip arcs 3x12", "skip arcs 64x300", "random int32"])
 def test_k23_matches_plain(dev, case):
     """K23 against ``wordtrace_words_ref`` on the same CUDA planes, the
-    plane's rows included: K10's int8 planes of the skip-arc loop graph
-    (more words than T / W + 1) and random int32 planes."""
+    plane's T + 1 rows included, with no read back to the host: K10's int8
+    planes of the skip-arc loop graph (more words than T / W + 1) and
+    random int32 planes."""
     from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
 
     if case.startswith("skip"):
@@ -2796,12 +2869,19 @@ def test_k23_matches_plain(dev, case):
             rng.integers(0, r, b).astype(np.int32), np.full(b, t - 1, np.int32),
             np.r_[t, 0, 1, rng.integers(2, t, b - 3)].astype(np.int32))]
     before = vk.wordtrace_words_device.launches
-    got = vk.wordtrace_words_device(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the wrapper reads nothing back
+    try:
+        got = vk.wordtrace_words_device(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     want = vk.wordtrace_words_ref(*args)
     torch.cuda.synchronize()
     assert vk.wordtrace_words_device.launches == before + 1
-    assert got[0].shape == want[0].shape
+    assert got[0].shape == want[0].shape == (args[0].shape[0] + 1, args[0].shape[2])
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    host = vk.wordtrace_words_host(*got)
+    assert (host[0] == want[0].cpu().numpy()).all() and (host[1] == want[1].cpu().numpy()).all()
     if case.startswith("skip"):
         assert int(want[1].max()) > t // 5 + 1
 

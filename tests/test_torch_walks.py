@@ -171,6 +171,257 @@ def test_dense_backtrace_kernel_loop_emulated(kind, depth):
     np.testing.assert_array_equal(f_e, f_t.numpy())
 
 
+SENTINEL = -(1 << 40)  # a staged word that no load wrote
+
+
+def k21_window_emulated(bp, eps_bp, end, nf, depth, w, r):
+    """``dense_backtrace_window_kernel``'s walk with windows of ``w``
+    frames x ``r`` states (r <= S), one stream at a time: every read goes
+    through a staged copy of its window (a word no load wrote holds
+    ``SENTINEL``), windows load where the kernel loads them (where R = S on
+    a grid of W frames from T - 1, the same for every stream), and the load
+    ahead is taken or dropped as the kernel takes or drops it.  Returns
+    ``(states, flags, events)``; ``events[i]`` lists stream i's window
+    starts: "first"; "frames" (the load ahead taken at the frame edge);
+    "frames+drop" / "frames+rise" (the frame edge crossed at a state below
+    / above the load ahead); "drop" / "rise" (the frame's state below /
+    above its window); "eps" (an eps origin outside the window, at the same
+    frame); and "dropped" after a miss that threw a load ahead away."""
+    b, t_len, s = bp.shape
+    assert r <= s
+    states = np.zeros((b, t_len), np.int32)
+    flags = np.zeros((b, t_len), bool)
+    events = []
+
+    def idx(x):
+        x = x + s if x < 0 else x
+        return min(max(x, 0), s - 1)
+
+    for i in range(b):
+        stage = np.full((2, 2, w, r), SENTINEL, np.int64)  # [stage, plane, frame, state]
+        win = {"cur": 0, "wt": None, "wlo": 0, "pt": -1}
+        ev = []
+
+        def load(st, t_lo, t_hi, lo):
+            stage[st] = SENTINEL
+            stage[st, 0, :t_hi - t_lo + 1] = bp[i, t_lo:t_hi + 1, lo:lo + r]
+            stage[st, 1, :t_hi - t_lo + 1] = eps_bp[i, t_lo:t_hi + 1, lo:lo + r]
+
+        def at(t, se, eps_read):
+            cur, wt, wlo, pt = win["cur"], win["wt"], win["wlo"], win["pt"]
+            if wt is not None and t >= wt and 0 <= se - wlo < r:
+                return cur, t - wt, se - wlo
+            if pt >= 0 and pt <= t < wt and 0 <= se - wlo < r:
+                ev.append("frames")
+                cur, wt, pt = cur ^ 1, pt, -1
+                if wt > 0:
+                    pt = max(0, wt - w)
+                    load(cur ^ 1, pt, wt - 1, wlo)
+            else:
+                if wt is None:
+                    ev.append("first")
+                elif eps_read:
+                    ev.append("eps")
+                else:
+                    ev.append(("frames+" if t < wt else "") + ("drop" if se < wlo else "rise"))
+                if pt >= 0:
+                    ev.append("dropped")
+                # R = S: windows on a frame grid from T - 1
+                top = t_len - 1 - w * ((t_len - 1 - t) // w) if r == s else t
+                lo, t_lo = max(0, se - r + 1), max(0, top - w + 1)
+                load(cur ^ 1, t_lo, top, lo)
+                pt = -1
+                if t_lo > 0:
+                    pt = max(0, t_lo - w)
+                    load(cur, pt, t_lo - 1, lo)
+                cur, wt, wlo = cur ^ 1, t_lo, lo
+            win.update(cur=cur, wt=wt, wlo=wlo, pt=pt)
+            return cur, t - wt, se - wlo
+
+        st = int(end[i])
+        n = min(max(int(nf[i]), 0), t_len)
+        states[i, n:] = st
+        for t in range(n - 1, -1, -1):
+            states[i, t] = st
+            c, f, k_ = at(t, idx(st), False)
+            prev = stage[c, 0, f, k_] if t > 0 else 0
+            used = False
+            for k in range(depth):
+                origin = stage[c, 1, f, k_]
+                assert origin != SENTINEL, (i, t)
+                if origin < 0:
+                    break
+                used = True
+                if k + 1 < depth or t > 0:
+                    c, f, k_ = at(t, idx(int(origin)), True)
+            if t > 0:
+                nxt = stage[c, 0, f, k_] if used else prev
+                assert nxt != SENTINEL, (i, t)
+                st = int(nxt)
+            flags[i, t] = used
+        events.append(ev)
+    return states, flags, events
+
+
+def left_to_right_planes(seed, b=6, t=T_LEN, s=40, fall=3, drop=12, p_eps=0.3):
+    """Planes of a left-to-right graph, as the paths' graphs give: a
+    frame's backpointer is 0-``fall`` states below its state, an eps origin
+    (at ``p_eps`` of the entries) 1-``drop`` below, -1 below state 0; end
+    states near the top; n_frames T, 0, 1 and mid-length."""
+    rng = np.random.default_rng(seed)
+    here = np.arange(s)[None, None, :]
+    bp = np.maximum(here - rng.integers(0, fall + 1, (b, t, s)), 0).astype(np.int32)
+    bp[:, 0] = -1
+    eps_bp = (here - rng.integers(1, drop + 1, (b, t, s))).astype(np.int32)
+    eps_bp[(rng.uniform(size=eps_bp.shape) >= p_eps) | (eps_bp < 0)] = -1
+    end = (s - 1 - rng.integers(0, 4, b)).astype(np.int32)
+    nf = np.r_[t, 0, 1, rng.integers(2, t, max(b - 3, 0))][:b].astype(np.int32)
+    return bp, eps_bp, end, nf
+
+
+WINDOW_CASES = {
+    # (planes, w, r, window starts the case must show)
+    "left to right, 4 x 8": (lambda d: left_to_right_planes(50 + d), 4, 8,
+                             {"first", "frames", "drop", "eps", "dropped"}),
+    "left to right, 5 x 16": (lambda d: left_to_right_planes(65 + d, fall=4), 5, 16,
+                              {"first", "frames", "frames+drop", "drop"}),
+    "random (rises), 4 x 4": (lambda d: random_dense_planes(70 + d), 4, 4,
+                              {"first", "rise", "drop", "dropped"}),
+    "reference's planes, 3 x 6": (lambda d: viterbi_dense_planes(80 + d, d), 3, 6,
+                                  {"first", "frames"}),
+    # R = S: every state in every window, only frames end one
+    "left to right, S <= R": (lambda d: left_to_right_planes(90 + d, s=12), 4, 12,
+                              {"first", "frames"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_dense_backtrace_window_walk_emulated(case, depth):
+    """The window form's walk, read only through its staged windows, gives
+    ``viterbi_backtrace_ref`` and the reference's scan bit for bit: windows
+    cut by frames, by a drop below the window, by a rise, by an eps origin
+    outside it at the same frame; n_frames inside a window, T (23) not a
+    multiple of W, eps depth 1-3."""
+    make, w, r, want_events = WINDOW_CASES[case]
+    bp, eps_bp, end, nf = make(min(depth, 2))
+    s_t, f_t = tv.viterbi_backtrace_ref(*(torch.from_numpy(x) for x in (bp, eps_bp, end, nf)),
+                                        depth)
+    s_j, f_j = jax_backtrace(bp, eps_bp, end, nf, depth)
+    s_e, f_e, events = k21_window_emulated(bp, eps_bp, end, nf, depth, w, r)
+    np.testing.assert_array_equal(s_e, s_t.numpy())
+    np.testing.assert_array_equal(f_e, f_t.numpy())
+    np.testing.assert_array_equal(s_e, s_j)
+    np.testing.assert_array_equal(f_e, f_j)
+    seen = {e for ev in events for e in ev}
+    assert want_events <= seen, (want_events - seen, seen)
+    if r == bp.shape[2]:
+        assert seen <= {"first", "frames"}
+    assert T_LEN % w and f_e.any()
+    assert any(0 < n < T_LEN and n % w for n in nf)  # a length inside a window
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2])
+def test_dense_backtrace_window_walk_wraps_and_clamps(depth):
+    """Indices below 0 wrap by S (a rise into another window) and past S -
+    1 clamp, as the reference's indexing does: the window walk equals the
+    reference's scan and the chain form's loop (``viterbi_backtrace_ref``
+    gathers and takes neither)."""
+    bp, eps_bp, end, nf = left_to_right_planes(95)
+    rng = np.random.default_rng(96)
+    hit = rng.uniform(size=bp.shape) < 0.05
+    bp[hit] = rng.integers(-3, 0, int(hit.sum()))  # wraps to the top: a rise
+    bp[rng.uniform(size=bp.shape) < 0.02] = bp.shape[2] + 3
+    end[0] = -3
+    s_j, f_j = jax_backtrace(bp, eps_bp, end, nf, depth)
+    s_c, f_c = k21_emulated(bp, eps_bp, end, nf, depth)
+    s_e, f_e, events = k21_window_emulated(bp, eps_bp, end, nf, depth, 4, 8)
+    np.testing.assert_array_equal(s_e, s_j)
+    np.testing.assert_array_equal(f_e, f_j)
+    np.testing.assert_array_equal(s_c, s_j)
+    np.testing.assert_array_equal(f_c, f_j)
+    assert {"rise", "frames+rise"} & {e for ev in events for e in ev}
+
+
+SMEM_LIMIT, N_SM = 232448, 132  # the H100's, as the card reports them
+
+
+def _strides(b, t, s):
+    return [(t * s, s, 1)] * 2
+
+
+def test_dense_backtrace_plan_window_form():
+    """Contiguous planes take the window form: 32 frames x every state of
+    the sausage's 385 in the block layout, one stream a warp and a CTA each
+    for 64 streams; 128-state rows where a window of every state does not
+    fit (500 states) or the rows are not contiguous; every state of the
+    isolated shape's 5 in a window, 4 lanes a stream; a ``[T, S]`` plane's
+    view too; eps depth 0 stages one plane."""
+    p = tdk.dense_backtrace_plan(64, 500, 385, _strides(64, 500, 385), SMEM_LIMIT, N_SM)
+    # a window of 32 x 385 words (3,081 16-byte chunks a plane) and 44
+    # words for a ring of the last 32 states and flags and two mbarriers
+    assert p == tdk.BacktracePlan("window", 32, 385, 32, 1, 64, (2 * 2 * 12324 + 44) * 4,
+                                  True)
+    p = tdk.dense_backtrace_plan(64, 500, 500, _strides(64, 500, 500), SMEM_LIMIT, N_SM)
+    # rows of 132 words (the 33 16-byte chunks that 128 states can span)
+    assert p == tdk.BacktracePlan("window", 32, 128, 32, 1, 64, (2 * 2 * 32 * 132 + 44) * 4,
+                                  False)
+    assert tdk.dense_backtrace_plan(64, 500, 385, [(500 * 400, 400, 1)] * 2, SMEM_LIMIT,
+                                    N_SM)[:3] == ("window", 32, 128)
+    p = tdk.dense_backtrace_plan(5632, 500, 5, _strides(5632, 500, 5), SMEM_LIMIT, N_SM)
+    assert (p.form, p.rows, p.states, p.lanes, p.warps, p.block) == ("window", 32, 5, 4, 4,
+                                                                     True)
+    # the block layout: a window's 32 x 5 words as one segment of 41 chunks
+    assert p.grid * p.warps * 8 >= 5632 and p.smem == 4 * 8 * (2 * 2 * 164 + 44) * 4
+    assert not tdk.dense_backtrace_plan(5632, 500, 5, [(5000, 10, 1)] * 2, SMEM_LIMIT,
+                                        N_SM).block
+    one = torch.zeros((1, 30, 7), dtype=torch.int32)[0]  # viterbi's bp[0]
+    p = tdk.dense_backtrace_plan(1, 30, 7, [one[None].stride()] * 2, SMEM_LIMIT, N_SM)
+    assert (p.form, p.rows, p.states, p.lanes) == ("window", 30, 7, 4)
+    p0 = tdk.dense_backtrace_plan(64, 500, 385, _strides(64, 500, 385), SMEM_LIMIT, N_SM,
+                                  eps_depth=0)
+    assert p0.smem == (2 * 12324 + 44) * 4  # the bp plane alone
+    p = tdk.dense_backtrace_plan(3, 1, 9, _strides(3, 1, 9), SMEM_LIMIT, N_SM)
+    assert (p.form, p.rows) == ("window", 1)
+
+
+def test_dense_backtrace_plan_chain_form():
+    """Strided views and S past K11's shared-memory frontier take the
+    chain form; so does a window that fits fewer than 8 frames."""
+    b, t, s = 8, 100, 40
+    strided = [(t * s, 1, t), (t * s, s, 1)]  # bp a [B, S, T] storage's view
+    assert tdk.dense_backtrace_plan(b, t, s, strided, SMEM_LIMIT, N_SM).form == "chain"
+    big = SMEM_LIMIT // 20 + 1  # K11's scratch tier starts here: 11,623 states
+    assert big == 11623
+    assert tdk.dense_backtrace_plan(2, 4, big, _strides(2, 4, big), SMEM_LIMIT,
+                                    N_SM).form == "chain"
+    assert tdk.dense_backtrace_plan(2, 4, big - 1, _strides(2, 4, big - 1), SMEM_LIMIT,
+                                    N_SM).form == "window"
+    assert tdk.window_plan(b, t, 4096, 1, 32, 4096, SMEM_LIMIT, N_SM) is None
+    with pytest.raises(ValueError):
+        tdk.dense_backtrace_plan(0, t, s, _strides(0, t, s), SMEM_LIMIT, N_SM)
+
+
+@pytest.mark.parametrize("b", [1, 7, 64, 133, 256, 5632])
+@pytest.mark.parametrize("s", [1, 2, 5, 31, 48, 75, 128, 385, 4000])
+def test_dense_backtrace_plan_sizes_fit(b, s):
+    """Every window plan holds every stream, fits its shared memory under
+    the limit, and its lanes divide the warp and are at most R."""
+    for t, depth in ((500, 1), (7, 2), (200, 0)):
+        p = tdk.dense_backtrace_plan(b, t, s, _strides(b, t, s), SMEM_LIMIT, N_SM, depth)
+        assert p.form == "window"
+        groups = 32 // p.lanes
+        assert p.lanes & (p.lanes - 1) == 0 and p.lanes <= min(32, p.states)
+        assert p.rows == min(t, tdk.WINDOW_ROWS) and p.block == (p.states == s)
+        # every state where two stages of 32 frames of them fit, else 128
+        full = tdk.window_smem(p.rows, s, s, 32, 1, depth, True) <= SMEM_LIMIT
+        assert p.states == (s if full else min(s, tdk.WINDOW_STATES))
+        assert p.grid * p.warps * groups >= b > (p.grid - 1) * p.warps * groups
+        assert p.smem == tdk.window_smem(p.rows, p.states, s, p.lanes, p.warps, depth, p.block)
+        assert p.smem >= p.warps * groups * 2 * (2 if depth else 1) * p.rows * p.states * 4
+        assert p.smem <= SMEM_LIMIT and 1 <= p.warps <= tdk.BACKTRACE_WARPS
+
+
 # ---------------------------------------------------------------------------
 # K22: the lattice word walk
 # ---------------------------------------------------------------------------
@@ -281,16 +532,15 @@ def test_wordtrace_walk_plain_matches_reference(u_name):
     k = wt.shape[0]
     np.testing.assert_array_equal(wt.numpy(), np.asarray(wj)[:k])
     assert (np.asarray(wj)[k:] == -1).all()
-    assert k % 16 == 0 and int(nt.max()) <= k and int(nt.max()) > 1
+    assert k == T_LEN + 1 and int(nt.max()) <= k and int(nt.max()) > 1
 
 
 def k23_emulated(eu, et, best, entry, nf):
     """``wordtrace_walk_kernel``'s per-thread loop: the ``[T + 1, B]``
-    plane, n_words and the longest chain."""
+    plane and n_words."""
     t_len, r, b = eu.shape
     out = np.full((t_len + 1, b), -1, np.int32)
     n_words = np.zeros(b, np.int32)
-    longest = 0
     for i in range(b):
         v, t, k = int(best[i]), int(entry[i]), 0
         if nf[i] > 0:
@@ -302,27 +552,31 @@ def k23_emulated(eu, et, best, entry, nf):
                     break
                 tc, vc = min(max(t, 0), t_len - 1), min(max(v, 0), r - 1)
                 v, t = int(eu[tc, vc, i]), int(et[tc, vc, i])
-        longest = max(longest, k)
-    return out, n_words, longest
+    return out, n_words
 
 
 @pytest.mark.parametrize("t_len", [5, 15, 16, 40])
 def test_wordtrace_kernel_loop_and_rows_emulated(t_len):
-    """The kernel's loop and the wrapper's row count from the longest
-    chain give the plain walk's plane, rows included (a multiple of 16
-    past the longest chain, at most T + 1)."""
+    """The kernel's loop gives the plain walk's plane, rows included: both
+    write T + 1 rows (every chain ends within them), -1 past each chain,
+    and the plain walk returns its words and counts as the rows of one
+    ``[T + 2, B]`` buffer, which ``wordtrace_words_host`` copies at once."""
     for seed in range(3):
         eu, et, best, entry, nf = random_wordtrace(seed, np.int8, t=t_len)
         if seed == 2:
-            nf[:] = 0  # no chain at all: the plain walk still writes 16 rows
+            nf[:] = 0  # no chain at all: the plain walk still writes T + 1 rows
         wt, nt = tvk.wordtrace_words_ref(*[torch.from_numpy(x)
                                            for x in (eu, et, best, entry, nf)])
-        out, n_words, longest = k23_emulated(eu, et, best, entry, nf)
-        rows = tvk._wordtrace_rows(longest, t_len)
-        assert rows == wt.shape[0]
-        np.testing.assert_array_equal(out[:rows], wt.numpy())
-        assert (out[rows:] == -1).all()
+        out, n_words = k23_emulated(eu, et, best, entry, nf)
+        assert wt.shape[0] == t_len + 1
+        np.testing.assert_array_equal(out, wt.numpy())
         np.testing.assert_array_equal(n_words, nt.numpy())
+        assert nt.storage_offset() == wt.numel()
+        host_w, host_n = tvk.wordtrace_words_host(wt, nt)
+        np.testing.assert_array_equal(host_w, out)
+        np.testing.assert_array_equal(host_n, n_words)
+    with pytest.raises(ValueError, match="one buffer"):
+        tvk.wordtrace_words_host(wt, nt.clone())
 
 
 # ---------------------------------------------------------------------------

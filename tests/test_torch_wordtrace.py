@@ -103,13 +103,13 @@ def test_wordtrace_walk_matches_reference(kind):
                     jnp.asarray(entry), jnp.asarray(nf), max_words=max_words)
     wt, nt = vk.wordtrace_words_device(
         *[torch.from_numpy(x) for x in (r_eu, r_et, best // w, entry, nf)])
-    # the port walks until every chain has ended (16 steps at a time); the
-    # reference stops after max_words steps, which hold every word here
+    # the port writes T + 1 rows, which hold every chain; the reference
+    # stops after max_words steps, which hold every word here
     np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
     k = min(wt.shape[0], max_words)
     np.testing.assert_array_equal(wt.numpy()[:k], np.asarray(wj)[:k])
     assert (wt.numpy()[k:] == -1).all() and (np.asarray(wj)[k:] == -1).all()
-    assert wt.shape[0] % 16 == 0 and nt.numpy().max() <= wt.shape[0]
+    assert wt.shape[0] == nll.shape[1] + 1 and nt.numpy().max() <= wt.shape[0]
 
 
 @pytest.mark.parametrize("kind", ["loop_lm", "sausage"])
