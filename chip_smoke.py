@@ -19,7 +19,9 @@ through the CLI with the launch counters reset just before each:
   (K3 + K4 + K5);
 * bigram LM over word lattices, ``--graph lextree --lm bigram --decoder
   lattice``: wavs -> MFCC-39 (K3) -> unit-bank emissions -> lattice pass
-  (K6) -> bigram rescoring (K7) -> word walk -> word ids;
+  (K6) -> one K7 launch (``rescore_and_walk``: the per-frame minimum q,
+  the truncation count, bigram rescoring and, as its last step, K22's
+  word walk) -> word ids;
 * general word graphs, ``cli connected_test --graph sausage --device
   cuda`` with a bank of 1-state words (every word start is also a word
   end, eps depth up to 6): wavs -> MFCC-39 (K3) -> unit-bank emissions ->
@@ -90,13 +92,19 @@ form, the window form at 8 frames x 8 states and the chain form forced
 on the same planes), on a strided view of the sausage's planes and on
 K11's planes at 11,623 states (both the plan's chain form); K22 to
 ``lattice_words_ref`` in every K6 + K7 check, at the decode's max_words
-and one word short of the longest chain; K23 to ``wordtrace_words_ref``
+and one word short of the longest chain, standalone and as K7's last
+step (``rescore_and_walk`` against ``rescore_and_walk_ref``: q, the
+truncation counts, cost, best leaf, pred_w, the walk's leaves and word
+counts bit for bit, in every plan K7 is run in); K23 to ``wordtrace_words_ref``
 on the sausage's word trace at 512 x 500 and on a skip-arc loop graph
 whose chains outgrow the reference's T / W + 1 rows, its T + 1 rows
 included, under CUDA's sync debug mode (the wrapper reads nothing
 back).  The align, dense, training and section 8 paths count K21, the
-bigram lattice path and section 8 K22, the word-trace path K23; each is
-timed beside its plain version, its bound and its serial floor; K21's
+bigram lattice path and section 8 K7 with K22 as its last step (and no
+standalone K7 or K22 launch), the word-trace path K23; each is
+timed beside its plain version, its bound and its serial floor (K22 as
+K7's device time less the same launch's at max_words 0, where the walk
+takes no step, and standalone); K21's
 two forms on each dense case in one call (the chain form as parent).
 
 Each CLI output is checked against the same command on the CPU (plain
@@ -479,12 +487,45 @@ def perturbed_band(g):
     return g._replace(band=band)
 
 
+def check_rescore_and_walk(name, args, kw, max_dur, max_words, plan=None, want=None):
+    """The pipeline's K7 launch (``rescore_and_walk``) on ``args`` (K6's
+    planes, start / end costs, lengths, dmax) against its plain version
+    (``want``, its outputs on the same arguments, where already made):
+    the q it computed against ``ends_cost.amin(2)``, each stream's
+    truncation count, cost, best leaf, pred_w at t < nf, the walk's
+    leaves and word counts, all bit for bit.  Returns ``(its outputs,
+    the plain version's)``."""
+    import torch
+
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lt
+
+    ec, et, nf = args[0], args[1], args[4]
+    q_k = torch.empty(ec.shape[:2], dtype=torch.float32, device=ec.device)
+    got = lt.rescore_and_walk(*args, max_dur, max_words, **kw, plan=plan, q_out=q_k)
+    if want is None:
+        want = lt.rescore_and_walk_ref(*args, max_dur, max_words, **kw)
+    q_p = ec.amin(2)
+    torch.cuda.synchronize()
+    valid = torch.arange(ec.shape[0], device=ec.device)[:, None, None] < nf[None, :, None]
+    if not torch.equal(q_k.view(torch.int32), q_p.view(torch.int32)):
+        fail(f"K7's own q differs from ends_cost.amin(2) on {name}")
+    for i, part in ((0, "cost"), (1, "best leaf"), (3, "truncation counts"),
+                    (4, "walk's leaves"), (5, "walk's word counts")):
+        if not torch.equal(got[i], want[i]):
+            fail(f"rescore_and_walk's {part} differ from the plain version on {name} "
+                 f"({'plan ' + plan.mode if plan else 'its plan'})")
+    if not bool(((got[2] == want[2]) | ~valid).all()):
+        fail(f"rescore_and_walk's pred_w differs from the plain version on {name}")
+    return got, want
+
+
 def check_lattice(name, lexg, g, nll, nf, lm_l, max_dur=128):
     """K6 against ``viterbi_lattice_ref`` (final, ends_cost and ends_tau
     bit-identical in every frame, frozen ones included), K7 on K6's
     planes against ``rescore_lattice_ref`` (cost and best leaf
-    bit-identical, pred_w at t < nf), and the words both walks read.
-    Returns ``(words, K6 max |d| of ends_cost, K7 max |d| of cost, K22's
+    bit-identical, pred_w at t < nf), the pipeline's K7 launch
+    (``check_rescore_and_walk``), and the words all walks read.  Returns
+    ``(words, K6 max |d| of ends_cost, K7 max |d| of cost, K22's
     arguments with its max_words)``."""
     import torch
 
@@ -517,6 +558,13 @@ def check_lattice(name, lexg, g, nll, nf, lm_l, max_dur=128):
     mw = min(t_len, t_len // su + 1)
     walks = [lat.lattice_words_device(r[2].transpose(1, 2), got[2].transpose(1, 2), r[1],
                                       nf, max_words=mw) for r in (rk, rp)]
+    rw = check_rescore_and_walk(name, (got[1], got[2], start_l, end_l, nf, args[-1]), kw,
+                                max_dur, mw)[0]
+    walks.append(rw[4:])
+    n_trunc = int(rw[3].sum())
+    if n_trunc != int(lat._lattice_truncation_count(got[1].transpose(1, 2),
+                                                    got[2].transpose(1, 2), nf, max_dur)):
+        fail(f"rescore_and_walk's truncation counts do not sum to the count on {name}")
     # K22 against its plain version on K7's planes (the [T, L, B] views of
     # [T, B, L]): at the decode's max_words and one word short of the
     # longest chain
@@ -533,15 +581,16 @@ def check_lattice(name, lexg, g, nll, nf, lm_l, max_dur=128):
     for lr, nw in walks:
         lr, nw = lr.cpu().numpy(), nw.cpu().numpy()
         words.append([lw[lr[: nw[i], i][::-1]].tolist() for i in range(lr.shape[1])])
-    if words[0] != words[1]:
-        fail(f"words differ between K7 and its plain version on {name}")
+    if not words[0] == words[1] == words[2]:
+        fail(f"words differ between K7, its plain version and rescore_and_walk on {name}")
     live = float((got[1] < 1e29).float().mean())
     phase("K6+K7", f"{name} ({g.n_states} states, L={g.n_ends}; {plan_text(topo, True)}, "
                    f"{'dense' if big is not None else 'backoff'} LM) at "
                    f"{nll.shape[2]}x{t_len}: K6 planes == plain (bit-identical, frozen "
-                   f"frames included); K7 cost, best leaf, pred_w == plain; words "
-                   f"identical; K22 == plain at max_words {mw} and {cut} (the longest chain "
-                   f"cut); live arcs {live:.3f}; mean words/utt "
+                   f"frames included); K7 cost, best leaf, pred_w == plain; rescore_and_walk "
+                   f"(q, {n_trunc} truncated arcs, DP, walk) == plain; words identical; K22 "
+                   f"== plain at max_words {mw} and {cut} (the longest chain cut); live arcs "
+                   f"{live:.3f}; mean words/utt "
                    f"{sum(map(len, words[0])) / len(words[0]):.2f}")
     return (words[0], float((got[1] - want[1]).abs().max()),
             float((rk[0] - rp[0]).abs().max()), (*k22_args, mw))
@@ -667,7 +716,7 @@ def kernel_counters() -> tuple:
             vk.viterbi_banded_general, vk.banded_backtrace_general,
             vk.viterbi_banded_wordtrace, viterbi_dense, mfcc_fused, fbk.fb_banded,
             fbk.fb_dense, vk.viterbi_banded_chunk, lk.viterbi_lex_chunk, dense_backtrace,
-            lt.lattice_walk, vk.wordtrace_words_device)
+            lt.lattice_walk, vk.wordtrace_words_device, lt.rescore_and_walk)
 
 
 # ---- section 8: the sharded paths, one NCCL rank per card ---------------------
@@ -959,9 +1008,11 @@ def parallel_section(dev, tmp: str, card: str) -> dict:
             fail(f"rank {r}: the data-sharded bigram decode's words differ")
     launched = {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
     for k in ("viterbi_dense", "dense_backtrace", "fb_dense", "fb_banded", "viterbi_lattice",
-              "rescore_lattice", "lattice_walk"):
+              "rescore_and_walk"):
         if not launched[k]:
             fail(f"section 8 launched no {k}: {launched}")
+    if launched["rescore_lattice"] or launched["lattice_walk"]:
+        fail(f"section 8's bigram decode launched a standalone K7 or K22: {launched}")
     phase("parallel", f"world {world} (NCCL, one rank a card; spawned and done in "
                       f"{spawn_s:.1f} s); grid {grid} with {n_models} models: sharded hard "
                       f"and soft steps == single-process (rtol / atol 1e-4, total cost rtol "
@@ -1022,6 +1073,7 @@ def main(argv=None) -> int:
         mfcc_ops,
         nbytes,
         rescore_ops,
+        rescore_walk_work,
         span_pairs,
         tail_ops,
     )
@@ -2156,7 +2208,7 @@ def main(argv=None) -> int:
     # mode with its D rows in shared memory and in a device-memory scratch
     from speech_recognition_tpu_torch.ops.lattice import _ring_depth
 
-    def k7_plans(name, nll_, g_, nf_, lm_):
+    def k7_plans(name, nll_, g_, nf_, lm_, lexg_):
         ec, et = lt.viterbi_lattice(nll_, g_, lk.lex_topology(g_), nf_)[1:]
         l_, dense = g_.n_ends, lm_[3] is None
         k_ = 0 if dense else lm_[3][1].shape[1]
@@ -2171,19 +2223,31 @@ def main(argv=None) -> int:
         kw = dict(big_ll=lm_[2], backoff=lm_[3])
         want_ = lt.rescore_lattice_ref(*args, **kw)
         ok = torch.arange(nll_.shape[1], device=dev)[:, None, None] < nf_[None, :, None]
+        mw_ = min(nll_.shape[1], nll_.shape[1] // (lexg_.n_states // lexg_.n_arcs) + 1)
+        # the pipeline's launch at a max_dur of 11 frames (off a multiple of
+        # 8, ring depth 16): a word of 4 or more 3-state units spans more
+        args_w = (ec, et, lm_[0], lm_[1], nf_, _ring_depth(nll_.shape[1], 11))
+        want_w = None
         for pname, plan in plans.items():
             got_ = lt.rescore_lattice(*args, **kw, plan=plan)
             torch.cuda.synchronize()
             if not (torch.equal(got_[0], want_[0]) and torch.equal(got_[1], want_[1])
                     and bool(((got_[2] == want_[2]) | ~ok).all())):
                 fail(f"K7 ({pname} plan, {plan.mode}) differs from the plain version on {name}")
+            want_w = check_rescore_and_walk(name, args_w, kw, 11, mw_, plan=plan,
+                                            want=want_w)[1]
+        n_cut = int(want_w[3].sum())
+        if not n_cut:
+            fail(f"no arc of {name} is longer than 11 frames: the count went unchecked")
         phase("K7", f"{name} (L={l_}, {'dense' if dense else f'backoff, K={k_}'} LM) in every "
                     f"plan (" + "; ".join(v.mode for v in plans.values())
-                    + "): cost, best leaf, pred_w == plain (bit-identical)")
+                    + "): cost, best leaf, pred_w == plain (bit-identical); rescore_and_walk's "
+                    f"q, truncation counts ({n_cut} arcs past max_dur 11), DP and walk == "
+                    f"plain in each")
 
-    k7_plans("1k trie, uniform emissions", nll_b, g1k, nf_b, lm_l1k)
-    k7_plans("1k trie, dense LM", nll_b, g1k, nf_b, lm_ld)
-    k7_plans("dict1-shaped trie, uniform emissions", nll_bd, gd, nf_bd, lm_ldd)
+    k7_plans("1k trie, uniform emissions", nll_b, g1k, nf_b, lm_l1k, lex1k)
+    k7_plans("1k trie, dense LM", nll_b, g1k, nf_b, lm_ld, lex1k)
+    k7_plans("dict1-shaped trie, uniform emissions", nll_bd, gd, nf_bd, lm_ldd, lexd)
 
     # ---- 5c. K17 / K18 (the streaming chunk steps) vs their plain versions --
     # Each kernel runs chunk by chunk from its own carry and every chunk is
@@ -2390,8 +2454,7 @@ def main(argv=None) -> int:
                                   vk.banded_backtrace_val, lk.viterbi_lex,
                                   lk.lex_backtrace_val)),
              "bigram lattice": ((f"lextree {bigram} --decoder lattice",),
-                                (*k3, lt.viterbi_lattice, lt.rescore_lattice,
-                                 lt.lattice_walk)),
+                                (*k3, lt.viterbi_lattice, lt.rescore_and_walk)),
              "general graph": (("sausage @1-state-bank",),
                                (*k3, vk.viterbi_banded_general,
                                 vk.banded_backtrace_general)),
@@ -2413,6 +2476,12 @@ def main(argv=None) -> int:
     if launches["general graph"]["viterbi_banded_fused"] or \
             launches["general graph"]["banded_backtrace_val"]:
         fail(f"the 1-state bank's sausage ran the fused kernels: {launches['general graph']}")
+    # the bigram lattice path's K7 launch computes q and the truncation
+    # count and walks the words: no standalone K7 or K22 launch
+    if launches["bigram lattice"]["rescore_lattice"] or \
+            launches["bigram lattice"]["lattice_walk"]:
+        fail(f"the bigram lattice path launched a standalone K7 or K22: "
+             f"{launches['bigram lattice']}")
     for run in outs:
         if len(word_lines(outs[run])) != n_wavs:
             fail(f"connected_test --graph {run} decoded "
@@ -3180,17 +3249,47 @@ def main(argv=None) -> int:
     words_ms = (time.perf_counter() - t0) * 1e3
 
     # K6 / K7 at bench_lextree_bigram's shape (every stream 500 frames)
-    from speech_recognition_tpu_torch.ops.lattice import _decode_lattice_batch, _ring_depth
+    from speech_recognition_tpu_torch.ops.lattice import (
+        _decode_lattice_batch,
+        _ring_depth,
+        lattice_words_ref,
+    )
 
     nf_full = torch.full((128,), TL, dtype=torch.int32, device=dev)
     dmax = _ring_depth(TL, 128)
     k6_out = lt.viterbi_lattice(nll_b, g1k, topo1k, nf_full)
     k7_args = (k6_out[1], k6_out[2], k6_out[1].amin(2), lm_l1k[0], lm_l1k[1], nf_full, dmax)
     k7_kw = dict(big_ll=None, backoff=lm_l1k[3])
+    # the pipeline's K7 launch: q, the truncation count and the walk too
+    mw_1k = min(TL, TL // (lex1k.n_states // lex1k.n_arcs) + 1)
+    k7w_args = (*k7_args[:2], *k7_args[3:], 128, mw_1k)
     t["K6"] = (cuda_ms(lambda: lt.viterbi_lattice(nll_b, g1k, topo1k, nf_full)),
                cuda_ms(lambda: lt.viterbi_lattice_ref(nll_b, g1k, topo1k, nf_full), reps=3))
-    t["K7"] = (cuda_ms(lambda: lt.rescore_lattice(*k7_args, **k7_kw)),
-               cuda_ms(lambda: lt.rescore_lattice_ref(*k7_args, **k7_kw), reps=3))
+
+    def k7_extras():
+        return lt.rescore_and_walk(*k7w_args, **k7_kw)
+
+    def k7_no_walk():  # max_words 0: the walk takes no step, q and the count stay
+        return lt.rescore_and_walk(*k7w_args[:-1], 0, **k7_kw)
+
+    t["K7"] = (cuda_ms(k7_extras),
+               cuda_ms(lambda: lt.rescore_and_walk_ref(*k7w_args, **k7_kw), reps=3))
+    k7w_out = k7_extras()
+    # cycles a frame by phase (clock64, thread 0 of each CTA)
+    tr = torch.zeros((128, 4), dtype=torch.int64, device=dev)
+    lt.rescore_and_walk(*k7w_args, **k7_kw, trace=tr)
+    torch.cuda.synchronize()
+    k7_cycles = (tr.double().mean(0) / TL).tolist()
+    # K22 as it runs on the path, K7's last step: the launch's device time
+    # less the same launch's at max_words 0 (the walk takes no step), in
+    # turns; beside its plain version on the same planes
+    k7_walk_turns = [device_ms(fn, reps=20, what=w_) for fn, w_ in (
+        (k7_extras, "K7"), (k7_no_walk, "K7 without the walk"),
+        (k7_no_walk, "K7 without the walk, again"), (k7_extras, "K7, again"))]
+    k22_w_args = (k7w_out[2].transpose(1, 2), k7w_args[1].transpose(1, 2), k7w_out[1],
+                  nf_full)
+    t["K22"] = (statistics.median(k7_walk_turns[::3]) - statistics.median(k7_walk_turns[1:3]),
+                cuda_ms(lambda: lattice_words_ref(*k22_w_args, max_words=mw_1k), reps=3))
     k7_dense_ms = cuda_ms(lambda: lt.rescore_lattice(*k7_args[:-1], dmax, big_ll=lm_ld[2]))
     nf_d16 = torch.full((16,), TL, dtype=torch.int32, device=dev)
     k6_dict_ms = cuda_ms(lambda: lt.viterbi_lattice(nll_bd, gd, topod, nf_d16))
@@ -3206,10 +3305,11 @@ def main(argv=None) -> int:
     k7_plan = lt.rescore_plan(g1k.n_ends, lm_l1k[3][1].shape[1], False, lib.srt_smem_limit())
     k7d_plan = lt.rescore_plan(gd.n_ends, lm_ldd[3][1].shape[1], False, lib.srt_smem_limit())
     k7_dict_ms = cuda_ms(lambda: lt.rescore_lattice(*k7d_args, backoff=lm_ldd[3]))
+    dev_ms["K7"] = statistics.median(k7_walk_turns[::3])
+    dev_ms["K7 without the walk"] = statistics.median(k7_walk_turns[1:3])
     dev_ms.update({k: device_ms(fn, what=k) for k, fn in (
         ("K2", lambda: vk.banded_backtrace_val(want[1], want[3], ends, nf, topo.uniform_w)),
         ("K1+K2", k1_k2),
-        ("K7", lambda: lt.rescore_lattice(*k7_args, **k7_kw)),
         ("K7 dict1-shaped", lambda: lt.rescore_lattice(*k7d_args, backoff=lm_ldd[3])))})
 
     # K9 on both sausages, K8 alone and K8 then K9 as one number (K9 reads
@@ -3245,19 +3345,37 @@ def main(argv=None) -> int:
     lm_lp = lattice_lm(lm_p, lexp.leaf_word, dev)
     su_p = lexp.n_states // lexp.n_arcs
 
-    def bigram_pipeline():
-        f, n = mfcc39_auto(lsig, llens, lcfg)
-        return _decode_lattice_batch(lbank, f, n, gp, topop, lm_lp, su_p)
-
-    big_ms = cuda_ms(bigram_pipeline)
-    # its stages, each timed alone on the previous stage's outputs
     from speech_recognition_tpu_torch.models.hmm import bank_nll_ubt
     from speech_recognition_tpu_torch.ops.lattice import (
         _lattice_truncation_count,
         lattice_words_device,
-        lattice_words_ref,
     )
 
+    def bigram_pipeline():
+        f, n = mfcc39_auto(lsig, llens, lcfg)
+        return _decode_lattice_batch(lbank, f, n, gp, topop, lm_lp, su_p)
+
+    def bigram_pipeline_unfused():
+        # the stages the one launch replaced, each on its own: the
+        # tensor-op truncation count, the amin, K7 and the standalone K22
+        f, n = mfcc39_auto(lsig, llens, lcfg)
+        _, ec, et = lt.viterbi_lattice(bank_nll_ubt(lbank, f, n), gp, topop, n)
+        nt = _lattice_truncation_count(ec.transpose(1, 2), et.transpose(1, 2), n, 128)
+        c, bl, pr = lt.rescore_lattice(ec, et, ec.amin(2), lm_lp[0], lm_lp[1], n,
+                                       _ring_depth(f.shape[1], 128), big_ll=lm_lp[2],
+                                       backoff=lm_lp[3])
+        lr, nw = lattice_words_device(pr.transpose(1, 2), et.transpose(1, 2), bl, n,
+                                      max_words=min(f.shape[1], f.shape[1] // su_p + 1))
+        return lr, nw, c, nt
+
+    big_ms = cuda_ms(bigram_pipeline)
+    got_p, was_p = bigram_pipeline(), bigram_pipeline_unfused()
+    torch.cuda.synchronize()
+    if not (torch.equal(got_p[0], was_p[0]) and torch.equal(got_p[1], was_p[1])
+            and torch.equal(got_p[2], was_p[2]) and int(got_p[3].sum()) == int(was_p[3])):
+        fail("the bigram pipeline's words, costs or truncation count differ from its "
+             "stages run one by one")
+    # its stages, each timed alone on the previous stage's outputs
     f_p, n_p = mfcc39_auto(lsig, llens, lcfg)
     t_p = f_p.shape[1]
     nll_pp = bank_nll_ubt(lbank, f_p, n_p)
@@ -3270,16 +3388,20 @@ def main(argv=None) -> int:
         "K3": lambda: mfcc39_auto(lsig, llens, lcfg),
         "bank_nll_ubt": lambda: bank_nll_ubt(lbank, f_p, n_p),
         "K6": lambda: lt.viterbi_lattice(nll_pp, gp, topop, n_p),
-        "truncation count": lambda: _lattice_truncation_count(
-            p6[1].transpose(1, 2), p6[2].transpose(1, 2), n_p, 128),
-        "K7": lambda: lt.rescore_lattice(*p7_args, big_ll=lm_lp[2], backoff=lm_lp[3]),
-        "word walk (K22)": lambda: lattice_words_device(*k22_args, max_words=mw_p),
+        "K7 (+q, count, walk)": lambda: lt.rescore_and_walk(
+            *p7_args[:2], *p7_args[3:], 128, mw_p, big_ll=lm_lp[2], backoff=lm_lp[3]),
     }
     stage_ms = {k: cuda_ms(fn) for k, fn in stages.items()}
-    # K22 alone beside its plain version, on the pipeline's own planes
-    t["K22"] = (cuda_ms(lambda: lattice_words_device(*k22_args, max_words=mw_p), reps=20),
-                cuda_ms(lambda: lattice_words_ref(*k22_args, max_words=mw_p), reps=3))
-    k22_words = lattice_words_ref(*k22_args, max_words=mw_p)
+    # the launches the last stage replaced that run on in other code, on
+    # the same planes
+    replaced_ms = {
+        "tensor-op truncation count": cuda_ms(lambda: _lattice_truncation_count(
+            p6[1].transpose(1, 2), p6[2].transpose(1, 2), n_p, 128)),
+        "amin": cuda_ms(lambda: p6[1].amin(2)),
+        "standalone K22": cuda_ms(lambda: lattice_words_device(*k22_args, max_words=mw_p),
+                                  reps=20)}
+    k7p_dev = device_ms(stages["K7 (+q, count, walk)"], what="bigram pipeline, K7")
+    k22_p_plain = cuda_ms(lambda: lattice_words_ref(*k22_args, max_words=mw_p), reps=3)
     leaves_rev, n_words, _, _ = bigram_pipeline()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3377,7 +3499,8 @@ def main(argv=None) -> int:
     k23_skip_ms = cuda_ms(lambda: vk.wordtrace_words_device(*k23_skip_args), reps=10)
     walk_dev = {k: device_ms(fn, what=k) for k, fn in (
         ("K21", lambda: viterbi_backtrace(*bt_args)),
-        ("K22", lambda: lattice_words_device(*k22_args, max_words=mw_p)),
+        ("standalone K22 on the bigram pipeline's planes",
+         lambda: lattice_words_device(*k22_args, max_words=mw_p)),
         ("K23", lambda: vk.wordtrace_words_device(*k23_args)))}
     t["K12"] = (cuda_ms(lambda: mfcc_fused(sig, lens, cfg)),
                 cuda_ms(lambda: mfcc_fused_ref(sig, lens, cfg)))
@@ -3421,7 +3544,7 @@ def main(argv=None) -> int:
                     f"{t['K21'][0]:.4f} ms, viterbi_backtrace_ref (tensor ops) "
                     f"{t['K21'][1]:.3f} ms (CUDA-event median; {card}); K21 elsewhere: "
                     + ", ".join(f"{k} {v:.4f} ms" for k, v in k21_ms.items()))
-    phase("timing", f"the walks on long chains: K22 on the planted 1k trie 128x500 "
+    phase("timing", f"the walks on long chains: standalone K22 on the planted 1k trie 128x500 "
                     f"(longest chain {int(k22_pl_words.max())} words) {k22_pl_ms:.4f} ms, "
                     f"K23 on the skip-arc loop graph 64x300 (longest chain "
                     f"{int(want_s[1].max())} words) {k23_skip_ms:.4f} ms (CUDA-event median; "
@@ -3509,10 +3632,20 @@ def main(argv=None) -> int:
                     f"device; K1 then K2 as one number (K2 on the planes K1 has just "
                     f"written): {k1k2_ms:.3f} ms event, {dev_ms['K1+K2']:.3f} ms device, "
                     f"against K1 alone {t['K1'][0]:.3f} / {dev_ms['K1']:.3f} ms ({card})")
-    phase("timing", f"K7 1k trie 128x{TL} (backoff, plan {k7_plan.mode}): {t['K7'][0]:.3f} "
-                    f"ms event, {dev_ms['K7']:.3f} ms device; dict1-shaped 16x{TL} (plan "
+    phase("timing", f"K7 1k trie 128x{TL} (backoff, plan {k7_plan.mode}) with q, the "
+                    f"truncation count and the walk (rescore_and_walk, max_words {mw_1k}): "
+                    f"{t['K7'][0]:.4f} ms event, "
+                    f"{dev_ms['K7']:.4f} ms device, at max_words 0 (no walk) "
+                    f"{dev_ms['K7 without the walk']:.4f} ms device: the walk (K22, its last "
+                    f"step) {t['K22'][0]:.4f} ms; in turns (with, without, without, with) "
+                    + " / ".join(f"{v:.4f}" for v in k7_walk_turns)
+                    + f" ms device; dict1-shaped 16x{TL} (plan "
                     f"{k7d_plan.mode}): {k7_dict_ms:.3f} ms event, "
                     f"{dev_ms['K7 dict1-shaped']:.3f} ms device ({card})")
+    phase("timing", "K7 cycles a frame (clock64, thread 0 of each CTA; row wait, D + ring "
+                    "reads, barrier, recombination + stores): "
+                    + " / ".join(f"{v:.0f}" for v in k7_cycles)
+                    + f" = {sum(k7_cycles):.0f} ({card})")
     phase("timing", f"on the {bgb.n_states}-state loop at {Bb}x{Tb}: K10 {k10_big_ms:.3f} ms "
                     f"(frontier in {plan_10b.frontier} memory), K1 {k1_big_ms:.3f} ms "
                     f"(CUDA-event median; {card})")
@@ -3530,7 +3663,7 @@ def main(argv=None) -> int:
                              ("word-trace decode 512 x 500", wt_ms, 10.014),
                              ("K2 512 x 500", t["K2"][0], 0.183),
                              ("K5 1k trie 128 x 500", t["K5"][0], 0.325),
-                             ("K7 1k trie 128 x 500", t["K7"][0], 1.867),
+                             ("K7 (+q, count, walk) 1k trie 128 x 500", t["K7"][0], 1.867),
                              ("K7 dict1-shaped 16 x 500", k7_dict_ms, 11.467),
                              ("K1 7,500-state loop 64 x 100", k1_big_ms, 116.473),
                              ("K9 512 x 500, 1-state sausage", t["K9"][0], 0.256),
@@ -3551,12 +3684,15 @@ def main(argv=None) -> int:
                     f"+ host words {words_ms:.1f} ms wall for "
                     f"{sum(map(len, lex_words))} words")
     phase("timing", f"bigram pipeline 128 x 5 s wav -> words over the 1k trie (K3 + "
-                    f"bank_nll_ubt + K6 + K7 + lattice_words_device): {big_ms:.3f} ms "
-                    f"= {128 * 5 / (big_ms / 1e3):.0f} audio-s/s (CUDA-event median; {card}); "
-                    f"+ host words {big_words_ms:.1f} ms wall for "
-                    f"{sum(map(len, big_words))} words")
+                    f"bank_nll_ubt + K6 + K7 with q, the truncation count and the walk): "
+                    f"{big_ms:.3f} ms = {128 * 5 / (big_ms / 1e3):.0f} audio-s/s "
+                    f"(CUDA-event median; {card}); + host words {big_words_ms:.1f} ms "
+                    f"wall for {sum(map(len, big_words))} words")
     phase("timing", "bigram pipeline stages alone: " + ", ".join(
-        f"{k} {ms:.3f} ms" for k, ms in stage_ms.items()) + f" (CUDA-event median; {card})")
+        f"{k} {ms:.3f} ms" for k, ms in stage_ms.items()) + "; the launches the last "
+        "replaced, each alone: " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in replaced_ms.items())
+        + f"; K7 device {k7p_dev:.4f} ms; the plain walk {k22_p_plain:.3f} ms "
+        f"(CUDA-event medians, torch.profiler; {card})")
 
     # K15 at the confidence decode's shape (256 x 500 on the 385-state
     # sausage), K16 at the soft-EM path's own call (419 x 319 transcripts),
@@ -4073,8 +4209,10 @@ def main(argv=None) -> int:
                dp_ops(g1k, sum_nf1k)),
         "K5": (sum_nf1k * 1 + TL * 128 * 5 + nbytes(lex_ends, nf1k), 4.0 * sum_nf1k),
         "K6": (nbytes(nll_b, nf_full, *k6_out) + graph_bytes(g1k), dp_ops(g1k, 128 * TL)),
-        "K7": (nbytes(*k7_args[:6], *lm_l1k[3]) + TL * 128 * l1k * 4 + 128 * 8,
-               rescore_ops(TL, 128, l1k, k1k, dense=False)),
+        # the pipeline's launch: no q plane read; the truncation counts
+        # and the walk's rows written
+        "K7": rescore_walk_work(nbytes(*k7_args[:2], *k7_args[3:6], *lm_l1k[3]), TL, 128, l1k,
+                                k1k, False, k7w_out[5], mw_1k),
         # K8 computes and writes every frame of every stream (the plain
         # scan's planes, frozen frames included)
         "K8": (nbytes(nll1, nf8, *want1) + graph_bytes(bg1),
@@ -4090,7 +4228,7 @@ def main(argv=None) -> int:
                 sum_nf * (2 * w.numel() + 4 * w_units) + dp_ops(bg, sum_nf, span_pairs(topo))),
         # the walks read only the entries their chains visit
         "K21": dense_walk_work(k21_states, ebp_s, saus["n_frames"], saus["eps_depth"]),
-        "K22": chain_walk_work(k22_words[1], mw_p, 4, 4, 8),
+        "K22": chain_walk_work(k7w_out[5], mw_1k, 4, 4, 8),
         "K23": chain_walk_work(k23_words[1], k23_words[0].shape[0], 0,
                                k23_args[0].element_size() + 4, 12),
     }
@@ -4231,8 +4369,9 @@ def main(argv=None) -> int:
     for name, steps, ms in (
             (f"K21 385-state sausage 64x{T}", int(saus["n_frames"].clamp(max=T).max()),
              t["K21"][0]),
-            ("K22 bigram pipeline 128x5s", int(k22_words[1].max()), t["K22"][0]),
-            ("K22 1k trie, planted words 128x500", int(k22_pl_words.max()), k22_pl_ms),
+            (f"K22 as K7's last step, 1k trie 128x{TL}", int(k7w_out[5].max()), t["K22"][0]),
+            ("standalone K22 1k trie, planted words 128x500", int(k22_pl_words.max()),
+             k22_pl_ms),
             (f"K23 sausage7 word trace {B}x{T}", int(k23_words[1].max()), t["K23"][0]),
             ("K23 skip-arc loop graph 64x300", int(want_s[1].max()), k23_skip_ms)):
         floor_ms = steps * SMEM_STEP_CYCLES / SM_CLOCK_HZ * 1e3
@@ -4265,7 +4404,9 @@ def main(argv=None) -> int:
                   "speech_recognition_tpu/ops/viterbi_lex_pallas.py:1581"),
            "K6": ("viterbi_lattice", "speech_recognition_tpu_torch/csrc/viterbi_lex.cu",
                   "speech_recognition_tpu/ops/viterbi_lex_pallas.py:1017"),
-           "K7": ("rescore_lattice", "speech_recognition_tpu_torch/csrc/lattice_rescore.cu",
+           # rescore_lattice launches K7 too (a walk of no rows)
+           "K7": (("rescore_and_walk", "rescore_lattice"),
+                  "speech_recognition_tpu_torch/csrc/lattice_rescore.cu",
                   "speech_recognition_tpu/ops/lattice.py:165"),
            "K8": ("viterbi_banded_general",
                   "speech_recognition_tpu_torch/csrc/banded_forward.cu",
@@ -4294,15 +4435,22 @@ def main(argv=None) -> int:
            # no TPU kernel: these replace the backtrace scans (lax.scan)
            "K21": ("dense_backtrace", "speech_recognition_tpu_torch/csrc/dense_backtrace.cu",
                    "speech_recognition_tpu/ops/viterbi.py:141"),
-           "K22": ("lattice_walk", "speech_recognition_tpu_torch/csrc/word_walk.cu",
+           # K22 runs on the path as K7's last step: its launches are K7's
+           # (rescore_and_walk's), its ms that launch's device time less the
+           # same launch's at max_words 0 (the standalone lattice_walk, off
+           # every path, is timed apart)
+           "K22": ("rescore_and_walk",
+                   "speech_recognition_tpu_torch/csrc/lattice_walk.cuh",
                    "speech_recognition_tpu/ops/lattice.py:479"),
            "K23": ("wordtrace_words_device", "speech_recognition_tpu_torch/csrc/word_walk.cu",
                    "speech_recognition_tpu/ops/viterbi_banded_pallas.py:912")}
     # each kernel's launches over the path runs above (no single PyTorch
     # call computes any of these functions: library_ms is null)
     n_launch = {fn: sum(p[fn] for p in launches.values()) for fn in launches["connected"]}
-    kernels = [{"name": f"{k} {fn}", "route": "cuda", "source": path, "replaces": rep,
-                "launches": n_launch[fn], "max_abs_err": report[k]["max_abs_err"],
+    src = {k: ((fn,) if isinstance(fn, str) else fn, *v) for k, (fn, *v) in src.items()}
+    kernels = [{"name": f"{k} {' + '.join(fn)}", "route": "cuda", "source": path,
+                "replaces": rep, "launches": sum(n_launch[f_] for f_ in fn),
+                "max_abs_err": report[k]["max_abs_err"],
                 "ms": t[k][0], "plain_ms": t[k][1], "bound_ms": bounds[k][0],
                 "bound_by": bounds[k][1], "library_ms": None}
                for k, (fn, path, rep) in src.items()]

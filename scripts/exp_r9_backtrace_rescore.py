@@ -20,12 +20,19 @@ launches) for the K1, K2 and K7 rows:
                    2..T as chip_smoke.py draws them)
   k1_512, k1_k2_512  K1 alone, and K1 then K2 as one number
   k7_1k            K7 at 128 x 500 on the 1,000-word trie (every stream
-                   500 frames, uniform emissions, the add-k LM: backoff)
+                   500 frames, uniform emissions, the add-k LM: backoff),
+                   through ``rescore_lattice`` (in trees that have
+                   ``rescore_and_walk``, the same launch with q, the
+                   truncation count and a walk of no rows)
+  k7w_1k           the same through ``rescore_and_walk`` with the bigram
+                   path's max_words, where the tree has it
   k7_1k_dense      the same with a dense [L, L] LM
   k7_dict          K7 at 16 x 500 on the dictionary-shaped trie (6,250 leaves)
   pipeline         256 x 5 s wav -> word ids (K3 + K1 + K2 + word ids)
   bigram           128 x 5 s wav -> words over the 1k trie (K3 +
-                   bank_nll_ubt + K6 + K7 + the device word walk)
+                   bank_nll_ubt + K6 + K7 and the word walk: one launch,
+                   or, in older trees, the tensor-op truncation count,
+                   the amin, K7 and K22)
   states_decode    decode_connected at 512 x 500 on the sausage (K1 + K2
                    + states_to_words_device and the host work around them)
 
@@ -213,6 +220,11 @@ def main() -> int:
         "k1_k2_512": dv(k1_k2),
         "k7_1k": dv(lambda: lt.rescore_lattice(*k7_args, backoff=lm_l1k[3])),
         "k7_dict": dv(lambda: lt.rescore_lattice(*kd_args, backoff=lm_ldd[3]))}
+    if hasattr(lt, "rescore_and_walk"):
+        mw = min(TL, TL // (lex1k.n_states // lex1k.n_arcs) + 1)
+        k7w_args = (*k7_args[:2], *k7_args[3:], 128, mw)
+        out["k7w_1k"] = ms(lambda: lt.rescore_and_walk(*k7w_args, backoff=lm_l1k[3]), reps=10)
+        out["dev"]["k7w_1k"] = dv(lambda: lt.rescore_and_walk(*k7w_args, backoff=lm_l1k[3]))
 
     if args.lab:
         limit = lib.srt_smem_limit()

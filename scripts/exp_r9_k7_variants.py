@@ -3,12 +3,13 @@
 mode) spends its time, on one GPU: the kernel as it is, and copies of
 its source with one part taken out, each compiled by nvcc (with
 csrc/errors.cu) into a library of its own and launched through the
-port's wrapper, ``rescore_lattice``, at the bigram path's shape (128 x
-500 frames on the 1,000-word trie, chip_smoke.py's add-k LM and uniform
-emissions, lattice planes from K6):
+bigram pipeline's wrapper, ``rescore_and_walk`` (the rescoring DP, the
+per-frame minimum q, the truncation count and the word walk), at the
+bigram path's shape (128 x 500 frames on the 1,000-word trie,
+chip_smoke.py's add-k LM and uniform emissions, lattice planes from K6):
 
-* ``as is``: the kernel (cost, best leaf and pred_w checked against the
-  plain version);
+* ``as is``: the kernel (every output checked against the plain
+  version), and at max_words 0 (the walk takes no step);
 * ``gathers conflict-free``: the sparse candidates read D[j] instead of
   D[pidx[j, k]] (the pairs are still loaded);
 * ``no sparse loop``: the K candidates per target taken out;
@@ -22,6 +23,10 @@ emissions, lattice planes from K6):
 * ``no start / base loads``: start_l and base_l read as 0;
 * ``no ring reads``: the ring value replaced by a constant (the tau
   cache still applies);
+* ``no walk``: the word walk at the end taken out (leaves and word
+  counts not written; timing only);
+* ``walk clock``: clock64 reads around the walk, for a trace of its
+  cycles (timing only: they go into the last phase's column);
 * the kernel as it is with 2 leaves per thread x 512 threads and 4 x 256
   (the plan takes 1 x 1,024 at L = 1,000).
 
@@ -77,6 +82,13 @@ PATCHES = {
                                "const float db = dl;")],
     "no ring reads": [("hq_next[i] = ring[(size_t)(slot < 0 ? slot + dmax : slot) * L + l];",
                        "hq_next[i] = (float)slot;")],
+    "no walk": [("    walk_tail(p, b, fi, nf, lane);\n  }\n  if (p.trace", "  }\n  if (p.trace")],
+    "walk clock": [("    walk_tail(p, b, fi, nf, lane);\n  }\n  if (p.trace",
+                    "    const long long w0 = p.trace ? clock64() : 0;\n"
+                    "    walk_tail(p, b, fi, nf, lane);\n"
+                    "    if (p.trace && lane == 0)\n"
+                    "      p.trace[(size_t)b * kPhases + 3] += clock64() - w0;\n"
+                    "  }\n  if (p.trace")],
 }
 
 
@@ -92,8 +104,8 @@ def compile_variant(src, tmp):
 
 def bind(so):
     lib = ctypes.CDLL(so)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lattice_rescore_launch.argtypes = [p] * 15 + [i] * 8 + [p, p, p]
+    i = ctypes.c_int
+    lib.lattice_rescore_launch.argtypes = build.RESCORE_ARGTYPES
     lib.lattice_rescore_launch.restype = i
     lib.srt_smem_limit.restype = i
     lib.cuda_error_string.argtypes = [i]
@@ -139,32 +151,35 @@ def main():
     nf = torch.full((128,), t_len, dtype=torch.int32, device=dev)
     lm_l = lattice_lm(lm, lexg.leaf_word, dev)
     k6 = lt.viterbi_lattice(nll, g, topo, nf)
-    args = (k6[1], k6[2], k6[1].amin(2), lm_l[0], lm_l[1], nf, _ring_depth(t_len, 128))
-    want = lt.rescore_lattice_ref(*args, backoff=lm_l[3])
+    max_words = min(t_len, t_len // (lexg.n_states // lexg.n_arcs) + 1)
+    args = (k6[1], k6[2], lm_l[0], lm_l[1], nf, _ring_depth(t_len, 128), 128, max_words)
+    want = lt.rescore_and_walk_ref(*args, backoff=lm_l[3])
     l, k = g.n_ends, lm_l[3][1].shape[1]
     plan = lt.rescore_plan(l, k, False, build.load_library().srt_smem_limit())
     real = build.load_library
     try:
         for name, lib in libs.items():
             build.load_library = lambda lib=lib: lib
-            got = lt.rescore_lattice(*args, backoff=lm_l[3])
+            got = lt.rescore_and_walk(*args, backoff=lm_l[3])
             torch.cuda.synchronize()
             check = ""
             if name == "as is":
                 if not all(torch.equal(a, b) for a, b in zip(got, want)):
                     sys.exit("as is: disagrees with the plain version")
                 check = ", == plain"
-            ms = cs.device_ms(lambda: lt.rescore_lattice(*args, backoff=lm_l[3]), reps=10)
+            ms = cs.device_ms(lambda: lt.rescore_and_walk(*args, backoff=lm_l[3]), reps=10)
             print(f"K7 {name}: {ms:.4f} ms device{check} ({card})", flush=True)
         build.load_library = lambda: libs["as is"]
+        ms = cs.device_ms(lambda: lt.rescore_and_walk(*args[:-1], 0, backoff=lm_l[3]), reps=10)
+        print(f"K7 as is, max_words 0 (no walk): {ms:.4f} ms device ({card})", flush=True)
         for leaves, threads in ((2, 512), (4, 256)):
             alt = plan._replace(leaves=leaves, threads=threads)
-            ms = cs.device_ms(lambda: lt.rescore_lattice(*args, backoff=lm_l[3], plan=alt),
+            ms = cs.device_ms(lambda: lt.rescore_and_walk(*args, backoff=lm_l[3], plan=alt),
                               reps=10)
             print(f"K7 as is, {leaves} leaves x {threads} threads: {ms:.4f} ms device ({card})",
                   flush=True)
         tr = torch.zeros((128, 4), dtype=torch.int64, device=dev)
-        lt.rescore_lattice(*args, backoff=lm_l[3], trace=tr)
+        lt.rescore_and_walk(*args, backoff=lm_l[3], trace=tr)
         torch.cuda.synchronize()
         cyc = (tr.double().mean(0) / t_len).tolist()
         print("K7 as is, cycles per frame: " + ", ".join(

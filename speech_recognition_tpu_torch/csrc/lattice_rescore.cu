@@ -59,11 +59,31 @@
 // 1,024 threads per stream, the D row (and D at the last frame) in shared
 // memory or, past ~29,000 leaves, in a device-memory scratch, the rows
 // read where they lie, four barriers per frame.
+//
+// Every launch (ops/lattice_kernels.rescore_and_walk; rescore_lattice
+// with no walk) also does three jobs that were launches of their own, in
+// both modes:
+// - q, the per-frame minimum of ends_cost, from the rows the kernel reads
+//   anyway: each thread's minimum over its leaves, a warp redux.sync of
+//   its order-preserving key, published beside the argmin partials at the
+//   frame's barrier and reduced by every warp.  The staged mode reduces
+//   q[t + 1] in frame t, from the rows already landed for it, so no frame
+//   waits for its own q (q[0] takes one barrier before the first frame);
+//   the direct mode reduces q[t] behind one more barrier in frame t.  A
+//   float minimum does not depend on order, so q equals ends_cost.amin(2)
+//   bit for bit.
+// - the truncation count of the reference's _lattice_truncation_count:
+//   the (t, l) with t < nf, ends_cost < POS_INF / 2 and t - tau > max_dur,
+//   a register count a thread, one block sum at the end into n_trunc[b].
+// - K22's word walk (lattice_walk.cuh) from the best leaf: past the block
+//   barrier of the final argmin every pred_w store of the CTA is visible,
+//   so lane 0 of warp 0 follows the chain on the rows just written and the
+//   warp writes the rows of -1.
 
 #include <limits.h>
 #include <math.h>
 
-#include "common.cuh"
+#include "lattice_walk.cuh"
 
 namespace {
 
@@ -73,7 +93,6 @@ constexpr int kWarps = kThreads / 32;  // == 32: one reduction warp
 struct Params {
   const float* ends_cost;  // [T, B, L]
   const int* ends_tau;     // [T, B, L]
-  const float* q;          // [T, B] per-frame minimum of ends_cost
   const float* start_l;    // [L]
   const float* end_l;      // [L]
   const int* nf;           // [B]
@@ -88,7 +107,11 @@ struct Params {
   float* cost;             // [B]
   int* best_leaf;          // [B]
   int* pred_w;             // [T, B, L]
-  int T, B, L, K, dmax;
+  float* q_out;            // [T, B] the q the kernel computed, or null
+  int* n_trunc;            // [B] truncated live arcs
+  int* leaves_rev;         // [max_words, B] the walk's leaves
+  int* n_words;            // [B] the walk's words
+  int T, B, L, K, dmax, max_dur, max_words;
 };
 
 constexpr int kPhases = 4;  // row wait, D + gathers, barrier, recombination
@@ -161,6 +184,28 @@ __device__ __forceinline__ void warp_argmin(float& v, int& i) {
   v = fval(m);
 }
 
+// An arc the rescorer drops for its length (the reference's truncation
+// count): live (t < nf, cost below POS_INF / 2) and longer than max_dur,
+// i.e. tau < lim = t - max_dur; `live_t` is t < nf, known once a frame.
+__device__ __forceinline__ int truncated(bool live_t, int lim, float s0, int tau) {
+  return live_t & (tau < lim) & (s0 < SRT_POS_INF * 0.5f);
+}
+
+// K22's walk as the last step of stream b's CTA, in one warp: lane 0
+// follows the chain from `best` on the [T, B, L] planes, then the warp
+// writes the rows of -1.  Call past a block barrier that follows every
+// pred_w store of the CTA.
+__device__ __forceinline__ void walk_tail(const Params& p, int b, int best, int nf, int lane) {
+  const long long row = (long long)p.B * p.L;
+  int k = 0, count = 0;
+  if (lane == 0)
+    k = lattice_walk_chain(p.pred_w, row, 1, p.L, p.ends_tau, row, 1, p.L, b, best, nf, p.T,
+                           p.L, p.B, p.max_words, p.leaves_rev, count);
+  k = __shfl_sync(0xffffffffu, k, 0);
+  for (int r = k + lane; r < p.max_words; r += 32) p.leaves_rev[(size_t)r * p.B + b] = -1;
+  if (lane == 0) p.n_words[b] = count;
+}
+
 // Direct mode.  kScratch: the D rows live in p.scratch, not shared memory.
 template <bool kScratch>
 __global__ void __launch_bounds__(kThreads, 1) lattice_rescore_kernel(Params p) {
@@ -172,17 +217,25 @@ __global__ void __launch_bounds__(kThreads, 1) lattice_rescore_kernel(Params p) 
   __shared__ int red_i[kWarps];
 
   const int L = p.L, K = p.K, dmax = p.dmax;
+  const int lane = tid & 31, warp = tid >> 5;
   const bool backoff = p.base_l != nullptr;
   float* ring = p.ring + (size_t)b * dmax * L;
-  const int t_fin = min(max(p.nf[b] - 1, 0), p.T - 1);
+  const int nf = p.nf[b];
+  const int t_fin = min(max(nf - 1, 0), p.T - 1);
+  int n_long = 0;  // this thread's truncated arcs
 
   for (int t = 0; t < p.T; ++t) {
     const size_t row = ((size_t)t * p.B + b) * L;
+    const bool live_t = t < nf;
+    const int lim = t - p.max_dur;
     float mv = INFINITY;  // first minimum of D + base_l (backoff)
     int mi = INT_MAX;
+    float qmin = INFINITY;  // this thread's minimum of ends_cost
     for (int l = tid; l < L; l += kThreads) {
       const float s0 = __ldg(p.ends_cost + row + l);
       const int tau = __ldg(p.ends_tau + row + l);
+      qmin = fminf(qmin, s0);
+      n_long += truncated(live_t, lim, s0, tau);
       float dl;
       if (tau <= 0) {
         dl = s0 + __ldg(p.start_l + l);
@@ -207,7 +260,14 @@ __global__ void __launch_bounds__(kThreads, 1) lattice_rescore_kernel(Params p) 
     else
       __syncthreads();
 
-    const float qt = __ldg(p.q + (size_t)t * p.B + b);
+    // red_v is free: block_argmin's last barrier follows its reads, and
+    // the next frame writes it after the barrier that ends this one
+    unsigned* red_q = reinterpret_cast<unsigned*>(red_v);
+    const unsigned wk = __reduce_min_sync(0xffffffffu, fkey(qmin));
+    if (lane == 0) red_q[warp] = wk;
+    __syncthreads();
+    const float qt = fval(__reduce_min_sync(0xffffffffu, red_q[lane]));
+    if (p.q_out != nullptr && tid == 0) p.q_out[(size_t)t * p.B + b] = qt;
     float* ring_row = ring + (size_t)(t % dmax) * L;
     for (int j = tid; j < L; j += kThreads) {
       float h;
@@ -256,10 +316,19 @@ __global__ void __launch_bounds__(kThreads, 1) lattice_rescore_kernel(Params p) 
       fi = l;
     }
   }
-  block_argmin(fv, fi, red_v, red_i);
+  block_argmin(fv, fi, red_v, red_i);  // ends with a barrier
   if (tid == 0) {
     p.cost[b] = fv;
     p.best_leaf[b] = fi;
+  }
+  const int wc = __reduce_add_sync(0xffffffffu, n_long);
+  if (lane == 0) red_i[warp] = wc;
+  __syncthreads();
+  if (warp == 0) {
+    const int c = __reduce_add_sync(0xffffffffu, red_i[lane]);
+    if (lane == 0) p.n_trunc[b] = c;
+    // every pred_w store came before the frame loop's last barrier
+    walk_tail(p, b, fi, nf, lane);
   }
 }
 
@@ -271,6 +340,7 @@ lattice_rescore_staged_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float red_v[2][kWarps];
   __shared__ int red_i[2][kWarps];
+  __shared__ unsigned red_q[2][kWarps];  // q's keys; at the end the counts
   const int L = p.L, K = p.K, T = p.T, B = p.B, dmax = p.dmax;
   const int lp = (L + 3) & ~3;
   float* dbuf = smem;                                  // [2][lp]
@@ -280,7 +350,9 @@ lattice_rescore_staged_kernel(Params p) {
   const int tid = threadIdx.x, nthr = blockDim.x, b = blockIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
   float* ring = p.ring + (size_t)b * dmax * L;
-  const int t_fin = min(max(p.nf[b] - 1, 0), T - 1);
+  const int nf = p.nf[b];
+  const int t_fin = min(max(nf - 1, 0), T - 1);
+  int n_long = 0;  // this thread's truncated arcs
 
   if constexpr (kTables)  // read after the first frame's barrier
     for (int x = tid; x < L * K; x += nthr) {
@@ -310,6 +382,21 @@ lattice_rescore_staged_kernel(Params p) {
   float hq_next[kNL], newest[kNL], dfin[kNL];
 #pragma unroll
   for (int i = 0; i < kNL; ++i) hq_next[i] = newest[i] = dfin[i] = SRT_POS_INF;
+  // q one frame ahead: frame t reduces q[t + 1] from the rows already
+  // landed for it, so no frame waits on its own q; q[0] first, behind
+  // one barrier of its own
+  float q_next;
+  {
+    cp_async_wait<kDepth - 2>();  // frame 0's rows
+    float qmin = INFINITY;
+#pragma unroll
+    for (int i = 0; i < kNL; ++i)
+      if (tid + i * nthr < L) qmin = fminf(qmin, rcost[tid + i * nthr]);
+    const unsigned wk = __reduce_min_sync(0xffffffffu, fkey(qmin));
+    if (lane == 0) red_q[1][warp] = wk;
+    __syncthreads();  // frame 1 rewrites red_q[1] only past frame 0's barrier
+    q_next = fval(__reduce_min_sync(0xffffffffu, lane < nwarps ? red_q[1][lane] : ~0u));
+  }
   long long tr[kPhases] = {0, 0, 0, 0};
   long long tc = p.trace ? clock64() : 0;
   auto stamp = [&](int k) {
@@ -331,16 +418,22 @@ lattice_rescore_staged_kernel(Params p) {
     const float* rc = rcost + rs * lp;
     const int* rt = rtau + rs * lp;
     float* d = dbuf + (t & 1) * lp;
-    const float qt = __ldg(p.q + (size_t)t * B + b);
+    const float qt = q_next;
+    const bool live_t = t < nf;
+    const int lim = t - p.max_dur;
     const int* rt1 = rtau + rs_next * lp;
+    const float* rc1 = rcost + rs_next * lp;
     float mv = INFINITY;  // first minimum of D + base_l over own leaves
     int mi = INT_MAX;
+    float qmin = INFINITY;  // frame t + 1's minimum over own leaves
 #pragma unroll
     for (int i = 0; i < kNL; ++i) {
       const int l = tid + i * nthr;
       if (l < L) {
         const float s0 = rc[l];
         const int tau = rt[l];
+        if (t + 1 < T) qmin = fminf(qmin, rc1[l]);
+        n_long += truncated(live_t, lim, s0, tau);
         const bool live = tau > 0 && tau < t && t - tau <= dmax;
         const float hq = live ? (tau == t - 1 ? newest[i] : hq_next[i]) : SRT_POS_INF;
         const float dl = tau <= 0 ? s0 + __ldg(p.start_l + l) : s0 + hq;
@@ -374,6 +467,10 @@ lattice_rescore_staged_kernel(Params p) {
         red_i[t & 1][warp] = mi;
       }
     }
+    {
+      const unsigned wk = __reduce_min_sync(0xffffffffu, fkey(qmin));
+      if (lane == 0) red_q[t & 1][warp] = wk;
+    }
     stamp(1);
     __syncthreads();  // D and the partials of frame t are published
     stamp(2);
@@ -382,6 +479,9 @@ lattice_rescore_staged_kernel(Params p) {
       mi = lane < nwarps ? red_i[t & 1][lane] : INT_MAX;
       warp_argmin(mv, mi);
     }
+    // q[t + 1], first used next frame
+    q_next = fval(__reduce_min_sync(0xffffffffu, lane < nwarps ? red_q[t & 1][lane] : ~0u));
+    if (p.q_out != nullptr && tid == 0) p.q_out[(size_t)t * B + b] = qt;
     float* ring_row = ring + (size_t)qs * L;
     const size_t row = ((size_t)t * B + b) * L;
 #pragma unroll
@@ -463,19 +563,29 @@ lattice_rescore_staged_kernel(Params p) {
     }
   }
   warp_argmin(fv, fi);
+  const unsigned wc = __reduce_add_sync(0xffffffffu, (unsigned)n_long);
   if (lane == 0) {
     red_v[T & 1][warp] = fv;
     red_i[T & 1][warp] = fi;
+    red_q[T & 1][warp] = wc;
   }
+  // the partials are published, and every pred_w store of the CTA is
+  // visible to the walk past this barrier
   __syncthreads();
   if (warp == 0) {
     fv = lane < nwarps ? red_v[T & 1][lane] : INFINITY;
     fi = lane < nwarps ? red_i[T & 1][lane] : INT_MAX;
     warp_argmin(fv, fi);
+    const unsigned c = __reduce_add_sync(0xffffffffu, lane < nwarps ? red_q[T & 1][lane] : 0u);
     if (lane == 0) {
       p.cost[b] = fv;
       p.best_leaf[b] = fi;
+      p.n_trunc[b] = (int)c;
     }
+    // no clock reads around the walk: with them the launch ran ~1.5%
+    // slower, trace or no trace (scripts/exp_r9_k7_variants.py, "walk
+    // clock")
+    walk_tail(p, b, fi, nf, lane);
   }
   if (p.trace && tid == 0)
     for (int k = 0; k < kPhases; ++k) p.trace[(size_t)b * kPhases + k] = tr[k];
@@ -483,10 +593,9 @@ lattice_rescore_staged_kernel(Params p) {
 
 template <int kNL>
 int launch_staged(const Params& p, bool tables, int threads, cudaStream_t stream) {
-  void (*kern)(Params) = p.big != nullptr
-                                  ? lattice_rescore_staged_kernel<kNL, true, false>
-                              : tables ? lattice_rescore_staged_kernel<kNL, false, true>
-                                       : lattice_rescore_staged_kernel<kNL, false, false>;
+  void (*kern)(Params) = p.big != nullptr ? lattice_rescore_staged_kernel<kNL, true, false>
+                         : tables         ? lattice_rescore_staged_kernel<kNL, false, true>
+                                          : lattice_rescore_staged_kernel<kNL, false, false>;
   const size_t smem = staged_smem_bytes(p.L, p.K, tables);
   SRT_SET_SMEM(kern, smem);
   kern<<<p.B, threads, smem, stream>>>(p);
@@ -512,22 +621,28 @@ extern "C" int lattice_rescore_staged_smem_bytes(int L, int K, int tables) {
 // int64.
 // leaves 0: the direct mode, its D rows in shared memory, or in `scratch`
 // ([B, 2, L] floats) when it is not null.
+// Every launch computes q ([T, B] into q_out when not null), counts the
+// arcs past max_dur into n_trunc ([B]) and walks each stream's words into
+// leaves_rev ([max_words, B]; null when max_words is 0) and n_words ([B]).
 extern "C" int lattice_rescore_launch(
-    const float* ends_cost, const int* ends_tau, const float* q,
-    const float* start_l, const float* end_l, const int* nf, const float* big,
+    const float* ends_cost, const int* ends_tau, const float* start_l, const float* end_l, const int* nf, const float* big,
     const float* base_l, const int* pidx, const float* pcost, const int* tab,
     float* ring,
     float* cost, int* best_leaf, int* pred_w, int T, int B, int L, int K,
     int dmax, int leaves, int threads, int tables, float* scratch,
-    long long* trace, void* stream) {
+    long long* trace, float* q_out, int* n_trunc, int max_dur, int* leaves_rev,
+    int* n_words, int max_words, void* stream) {
   const bool dense = big != nullptr;
   if (B <= 0 || T <= 0 || L <= 0 || dmax <= 0 ||
       dense == (base_l != nullptr) ||
-      (!dense && (K <= 0 || pidx == nullptr || pcost == nullptr)))
+      (!dense && (K <= 0 || pidx == nullptr || pcost == nullptr)) ||
+      n_trunc == nullptr || n_words == nullptr || max_dur < 1 || max_words < 0 ||
+      (max_words > 0 && leaves_rev == nullptr))
     return (int)cudaErrorInvalidValue;
-  Params p{ends_cost, ends_tau, q, start_l, end_l, nf, big, base_l, pidx,
+  Params p{ends_cost, ends_tau, start_l, end_l, nf, big, base_l, pidx,
            pcost, reinterpret_cast<const int2*>(tab), ring, scratch, trace, cost,
-           best_leaf, pred_w, T, B, L, dense ? 0 : K, dmax};
+           best_leaf, pred_w, q_out, n_trunc, leaves_rev, n_words, T, B, L,
+           dense ? 0 : K, dmax, max_dur, max_words};
   const cudaStream_t st = (cudaStream_t)stream;
   if (leaves == 0) {
     if (scratch != nullptr) {

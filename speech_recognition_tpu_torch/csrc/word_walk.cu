@@ -8,13 +8,11 @@
 // Their plain versions are ops/lattice.lattice_words_ref and
 // ops/viterbi_banded_kernels.wordtrace_words_ref (loops of batched gathers).
 //
-// K22 (the bigram lattice): from leaf = best_leaf[b] at t = clamp(nf - 1,
-// 0, T - 1), alive = nf > 0, for max_words rows: the row is leaf while
-// alive, else -1; tau = ends_tau[t, clamp(leaf)], and while tau > 0 the
-// walk moves to leaf = pred_w[clamp(tau), clamp(leaf)], t = tau (K7's
-// predecessor of the word that entered at tau); else it ends.  The planes
-// are read at the strides the wrapper passes: K6 and K7 write them
-// [T, B, L] and the walk takes their [T, L, B] views as they are.
+// K22 (the bigram lattice): the walk of lattice_walk.cuh, from leaf =
+// best_leaf[b]; rows past the chain are -1.  The planes are read at the
+// strides the wrapper passes, so the public lattice_words_device walks
+// any [T, L, B] view.  The bigram pipeline runs the same walk as K7's
+// last step (lattice_rescore.cu) and launches no K22.
 //
 // K23 (the word-trace backend): from v = best_slot[b] entered at t =
 // entry_t[b], alive = nf > 0, for T + 1 rows: the row is v while alive,
@@ -36,15 +34,11 @@
 // stream, no staging; a dead stream writes its remaining rows of -1 and
 // stops.
 
-#include "common.cuh"
+#include "lattice_walk.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ int clamp_index(int x, int n) {
-  return x < 0 ? 0 : (x >= n ? n - 1 : x);
-}
 
 // pred_w / ends_tau int32 with strides (t, l, b); best_leaf, nf [B] int32
 // -> out [max_words, B] int32, n_words [B] int32.
@@ -55,25 +49,9 @@ __global__ void __launch_bounds__(kThreads) lattice_walk_kernel(
     int* __restrict__ n_words, int T, int L, int B, int max_words) {
   const int b = blockIdx.x * kThreads + threadIdx.x;
   if (b >= B) return;
-  const int n = nf[b];
-  int leaf = best_leaf[b];
-  int t = clamp_index(n - 1, T);
-  int count = 0;
-  int k = 0;
-  if (n > 0) {
-    for (; k < max_words; ++k) {
-      out[(long long)k * B + b] = leaf;
-      count += leaf >= 0;
-      const int lc = clamp_index(leaf, L);
-      const int tau = tau_pl[t * q_t + lc * q_l + b * q_b];
-      if (tau <= 0) {
-        ++k;
-        break;
-      }
-      t = clamp_index(tau, T);
-      leaf = pred[t * p_t + lc * p_l + b * p_b];
-    }
-  }
+  int count;
+  int k = lattice_walk_chain(pred, p_t, p_l, p_b, tau_pl, q_t, q_l, q_b, b, best_leaf[b],
+                             nf[b], T, L, B, max_words, out, count);
   for (; k < max_words; ++k) out[(long long)k * B + b] = -1;
   n_words[b] = count;
 }

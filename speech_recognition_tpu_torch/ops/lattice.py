@@ -30,9 +30,10 @@ sparse minimum over each word's seen predecessors.
 The public functions keep the reference's layouts (``[T, L, B]``
 planes); the kernels work in ``[T, B, L]`` (one stream's row
 contiguous), and the pipeline :func:`decode_lextree_bigram` keeps that
-layout from K6 to the word walk.  The reference's TPU-only forms (the
-sliced-take backoff with its lane permutation, the VMEM ring blocking,
-the batch chunking and backend choice) are not carried over.
+layout from K6 to the word walk, which on CUDA is K7's last step.  The
+reference's TPU-only forms (the sliced-take backoff with its lane
+permutation, the VMEM ring blocking, the batch chunking and backend
+choice) are not carried over.
 """
 
 from __future__ import annotations
@@ -320,14 +321,20 @@ def lattice_words_ref(pred_w, ends_tau, best_leaf, n_frames, max_words: int = 12
     return out, (out >= 0).sum(0).to(torch.int32)
 
 
-def _lattice_truncation_count(ends_cost, ends_tau, n_frames, max_dur: int = 128):
-    """Number of live lattice arcs (``[T, L, B]`` planes) spanning more
-    than ``max_dur`` frames, which the rescorer drops.  The test is on
-    the raw ``max_dur``, not the rescorer's rounded ``dmax``, as in the
-    reference."""
+def _lattice_truncation_counts(ends_cost, ends_tau, n_frames, max_dur: int = 128):
+    """Per stream, the live lattice arcs (``[T, L, B]`` planes) spanning
+    more than ``max_dur`` frames, which the rescorer drops: ``[B]``
+    int32.  The test is on the raw ``max_dur``, not the rescorer's
+    rounded ``dmax``, as in the reference."""
     ts = torch.arange(ends_cost.shape[0], device=ends_cost.device)[:, None, None]
     live = (ends_cost < POS_INF / 2) & (ts < n_frames.to(ends_cost.device)[None, None, :])
-    return (live & ((ts - ends_tau) > max_dur)).sum()
+    return (live & ((ts - ends_tau) > max_dur)).sum((0, 1), dtype=torch.int32)
+
+
+def _lattice_truncation_count(ends_cost, ends_tau, n_frames, max_dur: int = 128):
+    """The reference's count: :func:`_lattice_truncation_counts` summed
+    over the streams."""
+    return _lattice_truncation_counts(ends_cost, ends_tau, n_frames, max_dur).sum()
 
 
 # ---------------------------------------------------------------------------
@@ -359,10 +366,12 @@ def _decode_lattice_batch(bank, feats, n_frames, g: BandedGraph, topo, lm_l, su:
     """The device part of :func:`decode_lextree_bigram`: ``feats [B, T,
     D]``, ``n_frames [B]``, the trie ``g`` and its ``LexTopo``, ``lm_l``
     from :func:`lattice_lm`, all on one device -> ``(leaves_rev
-    [W, B], n_words [B], costs [B], n_truncated)`` on that device."""
+    [W, B], n_words [B], costs [B], n_truncated [B])`` on that device:
+    ``bank_nll_ubt``, K6 and one ``rescore_and_walk`` (K7 with q, the
+    truncation count and the word walk)."""
     from speech_recognition_tpu_torch.models.hmm import bank_nll_ubt
     from speech_recognition_tpu_torch.ops.lattice_kernels import (
-        rescore_lattice,
+        rescore_and_walk,
         viterbi_lattice,
     )
 
@@ -373,16 +382,11 @@ def _decode_lattice_batch(bank, feats, n_frames, g: BandedGraph, topo, lm_l, su:
     t_len = feats.shape[1]
     nll = bank_nll_ubt(bank, feats, n_frames)  # [U, T, B]
     _, ends_cost, ends_tau = viterbi_lattice(nll, g, topo, n_frames)  # [T, B, L]
-    n_trunc = _lattice_truncation_count(ends_cost.transpose(1, 2), ends_tau.transpose(1, 2),
-                                        n_frames, max_dur)
     start_l, end_l, big_ll, backoff = lm_l
-    cost, best, pred = rescore_lattice(
-        ends_cost, ends_tau, ends_cost.amin(2), start_l, end_l, n_frames,
-        _ring_depth(t_len, max_dur), big_ll=big_ll, backoff=backoff)
     # every unit dwells >= 1 frame, so a word takes at least su frames
-    leaves_rev, n_words = lattice_words_device(
-        pred.transpose(1, 2), ends_tau.transpose(1, 2), best, n_frames,
-        max_words=min(t_len, t_len // max(su, 1) + 1))
+    cost, _, _, n_trunc, leaves_rev, n_words = rescore_and_walk(
+        ends_cost, ends_tau, start_l, end_l, n_frames, _ring_depth(t_len, max_dur), max_dur,
+        min(t_len, t_len // max(su, 1) + 1), big_ll=big_ll, backoff=backoff)
     return leaves_rev, n_words, cost, n_trunc
 
 
@@ -395,18 +399,22 @@ def decode_lextree_bigram(bank, lexg, lm, feats, n_frames, max_dur: int = 128
     insertion cost is allowed), ``lm`` anything with ``cost [V, V]``,
     ``start_cost [V]`` and ``end_cost [V]``; ``feats [B, T, D]`` and
     ``n_frames [B]`` are tensors.  Runs ``models.hmm.bank_nll_ubt``, K6
-    (``ops.lattice_kernels.viterbi_lattice``), the truncation count
-    (``RuntimeWarning`` when live arcs exceed ``max_dur``), K7
-    (``rescore_lattice``, the backoff recombination where the LM has
-    one, else the dense) and :func:`lattice_words_device`; the leaves
-    map to words on the host.  Returns ``(word sequences, costs)``."""
+    (``ops.lattice_kernels.viterbi_lattice``) and K7 with its extras
+    (``rescore_and_walk``: the backoff recombination where the LM has
+    one, else the dense; the truncation count, a ``RuntimeWarning`` when
+    live arcs exceed ``max_dur``; the word walk); the leaves map to words
+    on the host.  Returns ``(word sequences, costs)``."""
     from speech_recognition_tpu_torch.ops.viterbi_lex_kernels import lex_topology
 
     dev = feats.device
     leaves_rev, n_words, cost, n_trunc = _decode_lattice_batch(
         bank, feats, n_frames, lexg.banded.to(dev), lex_topology(lexg.banded),
         lattice_lm(lm, lexg.leaf_word, dev), lexg.n_states // lexg.n_arcs, max_dur)
-    n_trunc = int(n_trunc)
+    # the walk's rows, its word counts and the truncation counts in one copy
+    w, b = leaves_rev.shape
+    host = torch.cat((leaves_rev.reshape(-1), n_words, n_trunc)).cpu().numpy()
+    lr, nw = host[: w * b].reshape(w, b), host[w * b: w * b + b]
+    n_trunc = int(host[w * b + b:].sum())
     if n_trunc:
         warnings.warn(
             f"lattice_rescore: {n_trunc} live lattice arc(s) span more "
@@ -414,6 +422,5 @@ def decode_lextree_bigram(bank, lexg, lm, feats, n_frames, max_dur: int = 128
             "lattice; raise max_dur for slow speech / long words",
             RuntimeWarning, stacklevel=2)
     leaf_word = np.asarray(lexg.leaf_word)
-    lr, nw = leaves_rev.cpu().numpy(), n_words.cpu().numpy()
     seqs = [leaf_word[lr[: nw[i], i][::-1]].tolist() for i in range(feats.shape[0])]
     return seqs, cost.cpu().numpy()

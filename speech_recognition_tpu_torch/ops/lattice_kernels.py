@@ -10,11 +10,14 @@ replaces ``ops/lattice.py``'s ``_hq_sweep_pallas``, the VMEM-resident
 ring lookup of the rescorer; the ring exists because XLA would not keep
 it resident across the scan, and on the card the lookup is one indexed
 load, so K7 is the whole rescoring DP (plain version
-``ops.lattice.rescore_tbl``).  K22 (``csrc/word_walk.cu``) is the word
-walk over K7's predecessors and K6's entry times that
-``ops.lattice.lattice_words_device`` runs on CUDA planes; it replaces no
+``ops.lattice.rescore_tbl``).  K22 (``csrc/lattice_walk.cuh``) is the
+word walk over K7's predecessors and K6's entry times; it replaces no
 TPU kernel but the JAX package's ``lattice_words_device`` scan, and its
-plain version is ``ops.lattice.lattice_words_ref``.
+plain version is ``ops.lattice.lattice_words_ref``.  The bigram pipeline
+runs it as K7's last step (``rescore_and_walk``, one launch that also
+computes the per-frame minimum q and the truncation count);
+``lattice_walk`` launches it alone (``csrc/word_walk.cu``) for
+``ops.lattice.lattice_words_device`` on any strided planes.
 
 Layouts: emissions ``nll [U, T, B]`` as K4 takes them; the lattice
 planes ``ends_cost / ends_tau [T, B, L]`` and the predecessor plane
@@ -34,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from speech_recognition_tpu_torch.ops.lattice import (
+    _lattice_truncation_counts,
     lattice_words_ref,
     rescore_tbl,
     viterbi_lattice_tb,
@@ -46,8 +50,8 @@ from speech_recognition_tpu_torch.ops.viterbi_lex_kernels import (
 )
 
 __all__ = ["viterbi_lattice", "viterbi_lattice_ref", "RescorePlan", "rescore_plan",
-           "rescore_smem_bytes", "rescore_lattice", "rescore_lattice_ref", "lattice_walk",
-           "lattice_walk_ref"]
+           "rescore_smem_bytes", "rescore_lattice", "rescore_lattice_ref", "rescore_and_walk",
+           "rescore_and_walk_ref", "lattice_walk", "lattice_walk_ref"]
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +118,11 @@ class RescorePlan(NamedTuple):
 
 _K7_THREADS = 1024
 _K7_LEAVES = (1, 2, 4, 8)
+# the CTAs' static shared memory beside the dynamic rows: the staged
+# mode's double-buffered argmin, q and count partials, the direct mode's
+# argmin partials (which q and the count reuse), 32 warps each
+_K7_STAGED_STATIC = 3 * 2 * 32 * 4
+_K7_DIRECT_STATIC = 2 * 32 * 4
 
 
 def _r4(n: int) -> int:
@@ -133,33 +142,29 @@ def rescore_plan(l: int, k: int, dense: bool, limit: int) -> RescorePlan:
     backoff LM; ``dense`` for the ``[L, L]`` one): the staged mode with the
     fewest leaves per thread that cover ``l`` with 1,024 threads, the LM
     tables in shared memory where they fit ``limit``, else read through
-    L1; where even the rows do not fit (over ~7,200 leaves), the direct
-    mode with its two D rows (``8 l`` bytes) in shared memory, or past
-    ``limit`` in a device-memory scratch.  Every size gets a plan."""
+    L1; where even the rows do not fit beside the CTA's static partials
+    (over ~7,200 leaves), the direct mode with its two D rows (``8 l``
+    bytes) in shared memory where they fit beside its static partials,
+    else in a device-memory scratch.  Every size gets a plan."""
     nl = next((n for n in _K7_LEAVES if n * _K7_THREADS >= l), 0)
     if nl:
         per_thread = -(-l // nl)
         threads = -(-per_thread // 32) * 32  # whole warps
         for tables in ((False,) if dense else (True, False)):
             smem = rescore_smem_bytes(l, k, tables)
-            if smem <= limit:
+            if smem + _K7_STAGED_STATIC <= limit:
                 return RescorePlan(nl, threads, tables, False, smem)
-    if 8 * l <= limit:
+    if 8 * l + _K7_DIRECT_STATIC <= limit:
         return RescorePlan(0, _K7_THREADS, False, False, 8 * l)
     return RescorePlan(0, _K7_THREADS, False, True, 0)
 
 
-def rescore_lattice(ends_cost, ends_tau, q, start_l, end_l, n_frames, dmax: int,
-                    big_ll=None, backoff=None, plan: RescorePlan = None, trace=None):
-    """K7 for CUDA tensors, the plain version for CPU tensors; arguments
-    and results as ``rescore_lattice_ref``.  ``plan`` overrides
-    ``rescore_plan``'s; ``trace``, a ``[B, 4]`` int64 tensor, receives the
-    staged mode's cycles per phase of the frame loop (row wait, D and
-    the ring reads, barrier, recombination and stores; thread 0's clock).
-    The ``H - q`` rows live in a ``[B, dmax, L]`` device-memory ring."""
-    if not use_kernels(ends_cost):
-        return rescore_lattice_ref(ends_cost, ends_tau, q, start_l, end_l, n_frames, dmax,
-                                   big_ll=big_ll, backoff=backoff)
+def _rescore_launch(ends_cost, ends_tau, start_l, end_l, n_frames, dmax, big_ll, backoff,
+                    plan, trace, max_dur, max_words, q_out, extra=()):
+    """Checks K7's arguments (and ``extra``, more ``(name, tensor, dtype,
+    shape)`` to check), allocates its outputs and launches it on CUDA
+    tensors: ``(cost, best_leaf, pred_w, n_trunc, leaves_rev, n_words)``
+    and whether there was a stream to launch for."""
     from speech_recognition_tpu_torch.utils.build import check, load_library
 
     if (big_ll is None) == (backoff is None):
@@ -172,9 +177,11 @@ def rescore_lattice(ends_cost, ends_tau, q, start_l, end_l, n_frames, dmax: int,
         ("base_l", backoff[0], torch.float32, (l,)),
         ("pred_idx", backoff[1], torch.int32, (l, backoff[1].shape[-1])),
         ("pred_cost", backoff[2], torch.float32, (l, backoff[1].shape[-1])))
+    opt = (("q_out", q_out, torch.float32, (t_len, b)),
+           ("trace", trace, torch.int64, (b, 4)))
     for name, x, dtype, shape in (("ends_cost", ends_cost, torch.float32, (t_len, b, l)),
                                   ("ends_tau", ends_tau, torch.int32, (t_len, b, l)),
-                                  ("q", q, torch.float32, (t_len, b)),
+                                  *extra, *(x for x in opt if x[1] is not None),
                                   ("start_l", start_l, torch.float32, (l,)),
                                   ("end_l", end_l, torch.float32, (l,)),
                                   ("n_frames", n_frames, None, (b,)), *lm):
@@ -186,11 +193,18 @@ def rescore_lattice(ends_cost, ends_tau, q, start_l, end_l, n_frames, dmax: int,
                              f"{shape}, got {x.dtype} {tuple(x.shape)}")
     if t_len == 0 or l == 0 or dmax < 1:
         raise ValueError(f"rescoring needs T, L, dmax >= 1 (got {t_len}, {l}, {dmax})")
+    if max_dur < 1 or max_words < 0:
+        raise ValueError(f"rescore_and_walk needs max_dur >= 1 and max_words >= 0 (got "
+                         f"{max_dur}, {max_words})")
     cost = torch.empty((b,), dtype=torch.float32, device=dev)
     best = torch.empty((b,), dtype=torch.int32, device=dev)
     pred = torch.empty((t_len, b, l), dtype=torch.int32, device=dev)
+    n_trunc = torch.empty((b,), dtype=torch.int32, device=dev)
+    leaves_rev = torch.empty((max_words, b), dtype=torch.int32, device=dev)
+    n_words = torch.empty((b,), dtype=torch.int32, device=dev)
+    out = (cost, best, pred, n_trunc, leaves_rev, n_words)
     if b == 0:
-        return cost, best, pred
+        return out, False
     lib = load_library()
     k = 0 if backoff is None else backoff[1].shape[1]
     if plan is None:
@@ -207,21 +221,90 @@ def rescore_lattice(ends_cost, ends_tau, q, start_l, end_l, n_frames, dmax: int,
     tab = None
     if plan.leaves and backoff is not None:
         tab = torch.stack((backoff[1].T, backoff[2].T.view(torch.int32)), -1).contiguous()
+
+    def ptr(x):
+        return None if x is None or x.numel() == 0 else x.data_ptr()
+
     with torch.cuda.device(dev):
         rc = lib.lattice_rescore_launch(
-            ends_cost.data_ptr(), ends_tau.data_ptr(), q.data_ptr(), start_l.data_ptr(),
-            end_l.data_ptr(), nf.data_ptr(), *lm_ptrs, None if tab is None else tab.data_ptr(),
-            ring.data_ptr(), cost.data_ptr(), best.data_ptr(), pred.data_ptr(), t_len, b, l,
-            k, dmax, plan.leaves, plan.threads, int(plan.tables),
-            None if scratch is None else scratch.data_ptr(),
-            None if trace is None else trace.data_ptr(),
+            ends_cost.data_ptr(), ends_tau.data_ptr(), start_l.data_ptr(), end_l.data_ptr(),
+            nf.data_ptr(), *lm_ptrs, ptr(tab), ring.data_ptr(), cost.data_ptr(),
+            best.data_ptr(), pred.data_ptr(), t_len, b, l, k, dmax, plan.leaves,
+            plan.threads, int(plan.tables), ptr(scratch), ptr(trace), ptr(q_out),
+            n_trunc.data_ptr(), max_dur, ptr(leaves_rev), n_words.data_ptr(), max_words,
             torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "lattice rescoring kernel")
-    rescore_lattice.launches += 1
-    return cost, best, pred
+    return out, True
+
+
+def rescore_lattice(ends_cost, ends_tau, q, start_l, end_l, n_frames, dmax: int,
+                    big_ll=None, backoff=None, plan: RescorePlan = None, trace=None):
+    """K7 for CUDA tensors, the plain version for CPU tensors; arguments
+    and results as ``rescore_lattice_ref``.  ``q`` must be the per-frame
+    minimum ``ends_cost.amin(2)``, as every caller passes it: the kernel
+    computes that minimum itself (bit for bit), so on CUDA tensors ``q``
+    is checked for its shape and not read.  The launch is
+    ``rescore_and_walk``'s with a walk of no rows, its counts discarded.
+    ``plan`` overrides ``rescore_plan``'s; ``trace``, a ``[B, 4]`` int64
+    tensor, receives the staged mode's cycles per phase of the frame
+    loop (row wait, D and the ring reads, barrier, recombination and
+    stores; thread 0's clock).  The ``H - q`` rows live in a ``[B, dmax,
+    L]`` device-memory ring."""
+    if not use_kernels(ends_cost):
+        return rescore_lattice_ref(ends_cost, ends_tau, q, start_l, end_l, n_frames, dmax,
+                                   big_ll=big_ll, backoff=backoff)
+    shape = tuple(ends_cost.shape[:2]) if ends_cost.dim() == 3 else None
+    out, launched = _rescore_launch(ends_cost, ends_tau, start_l, end_l, n_frames, dmax,
+                                    big_ll, backoff, plan, trace, dmax, 0, None,
+                                    extra=(("q", q, torch.float32, shape),))
+    rescore_lattice.launches += launched
+    return out[:3]
 
 
 rescore_lattice.launches = 0
+
+
+def rescore_and_walk_ref(ends_cost, ends_tau, start_l, end_l, n_frames, dmax: int,
+                         max_dur: int, max_words: int, big_ll=None, backoff=None, q_out=None):
+    """Plain version of ``rescore_and_walk``: the per-frame minimum ``q =
+    ends_cost.amin(2)`` (copied into ``q_out [T, B]`` when given), the
+    truncation count of each stream, ``rescore_tbl`` and
+    ``lattice_words_ref`` on its predecessors, in the kernels' layouts."""
+    q = ends_cost.amin(2)
+    if q_out is not None:
+        q_out.copy_(q)
+    et_v = ends_tau.transpose(1, 2)
+    n_trunc = _lattice_truncation_counts(ends_cost.transpose(1, 2), et_v, n_frames, max_dur)
+    cost, best, pred = rescore_tbl(ends_cost, ends_tau, q, start_l, end_l, n_frames, dmax,
+                                   big_ll=big_ll, backoff=backoff)
+    leaves_rev, n_words = lattice_words_ref(pred.transpose(1, 2), et_v, best, n_frames,
+                                            max_words)
+    return cost, best, pred, n_trunc, leaves_rev, n_words
+
+
+def rescore_and_walk(ends_cost, ends_tau, start_l, end_l, n_frames, dmax: int, max_dur: int,
+                     max_words: int, big_ll=None, backoff=None, plan: RescorePlan = None,
+                     trace=None, q_out=None):
+    """The bigram pipeline's one K7 launch for CUDA tensors, the plain
+    ``rescore_and_walk_ref`` for CPU tensors: ``ends_cost / ends_tau [T,
+    B, L]`` from K6, the LM as for ``rescore_lattice``, the ring depth
+    ``dmax``, the raw ``max_dur`` of the truncation count and the walk's
+    ``max_words`` -> ``(cost [B], best_leaf [B] int32, pred_w [T, B, L]
+    int32, n_trunc [B] int32, leaves_rev [max_words, B] int32, n_words
+    [B] int32)``.  The kernel computes q itself (``q_out``, a ``[T, B]``
+    float32 tensor, receives it); ``plan`` and ``trace`` as for
+    ``rescore_lattice``."""
+    if not use_kernels(ends_cost):
+        return rescore_and_walk_ref(ends_cost, ends_tau, start_l, end_l, n_frames, dmax,
+                                    max_dur, max_words, big_ll=big_ll, backoff=backoff,
+                                    q_out=q_out)
+    out, launched = _rescore_launch(ends_cost, ends_tau, start_l, end_l, n_frames, dmax,
+                                    big_ll, backoff, plan, trace, max_dur, max_words, q_out)
+    rescore_and_walk.launches += launched
+    return out
+
+
+rescore_and_walk.launches = 0
 
 
 # ---------------------------------------------------------------------------

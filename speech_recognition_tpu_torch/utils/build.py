@@ -98,6 +98,12 @@ def build() -> str:
     return out
 
 
+# lattice_rescore_launch's argument types, shared with the labs that
+# build variants of its source (scripts/exp_r9_k7_variants.py)
+RESCORE_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4 + [
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+
+
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with the argument
@@ -124,8 +130,7 @@ def load_library() -> ctypes.CDLL:
                                        i, i, i, i, i, i, i, i, i, i,
                                        i, i, i, i, i, i, i, p]
     lib.lex_backtrace_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p, p]
-    lib.lattice_rescore_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
-                                           i, i, i, i, i, i, i, i, p, p, p]
+    lib.lattice_rescore_launch.argtypes = RESCORE_ARGTYPES
     lib.fb_banded_launch.argtypes = [p] * 23 + [i] * 11 + [p]
     lib.fb_dense_launch.argtypes = [p] * 14 + [i] * 13 + [p]
     lib.dense_backtrace_launch.argtypes = [i, p, q, q, q, p, q, q, q, p, p, p, p,

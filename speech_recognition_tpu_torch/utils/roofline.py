@@ -19,7 +19,7 @@ from typing import Dict, Tuple
 
 __all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "SFU_PER_S", "SMEM_STEP_CYCLES", "SM_CLOCK_HZ",
            "bound", "nbytes", "graph_bytes", "dp_ops", "span_pairs", "ceps_ops", "dense_ops",
-           "mfcc_ops", "tail_ops", "rescore_ops", "fb_steps", "fb_dense_work",
+           "mfcc_ops", "tail_ops", "rescore_ops", "rescore_walk_work", "fb_steps", "fb_dense_work",
            "fb_banded_work", "dense_walk_work", "chain_walk_work", "report"]
 
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit):
@@ -129,6 +129,23 @@ def rescore_ops(t_len: int, b: int, l: int, k: int, dense: bool) -> float:
     min-plus column (2L) plus 3."""
     per_leaf = 2 * l + 3 if dense else 6 + 2 * k
     return float(t_len) * b * l * per_leaf
+
+
+def rescore_walk_work(in_bytes: int, t_len: int, b: int, l: int, k: int, dense: bool,
+                      n_words, rows: int):
+    """``(bytes, operations)`` of the bigram pipeline's K7 launch
+    (``rescore_and_walk``): ``in_bytes`` of inputs read once (the lattice
+    planes, the LM, start / end costs, the lengths; no q plane, the
+    kernel makes q), the ``pred_w`` plane and ``[B]`` int32 cost, best
+    leaf and truncation count written, and K22's walk folded in: its
+    ``[rows, B]`` leaves and ``[B]`` word counts written (it reads K6's
+    tau plane, already an input, and ``pred_w``, the launch's own
+    output).  Operations: ``rescore_ops`` plus per leaf and frame q's
+    minimum and the count's three compares and add (5), and 4 a word of
+    the walk (``n_words [B]``)."""
+    n_bytes = in_bytes + t_len * b * l * 4 + 3 * 4 * b + 4 * b * (rows + 1)
+    return n_bytes, (rescore_ops(t_len, b, l, k, dense) + 5.0 * t_len * b * l
+                     + 4.0 * int(n_words.sum()))
 
 
 def fb_steps(nf, t_len: int):

@@ -31,7 +31,9 @@ forward, the token beam and the spell checker run the same tensor ops
 on the card as on the CPU and are compared exactly.  K21-K23 (the dense
 backtrace, in each of its forms; the lattice word walk, the word-trace
 walk) walk the plain versions' own planes and are compared exactly, K23's
-T + 1 rows included.  Decodes
+T + 1 rows included; the bigram pipeline's K7 launch (``rescore_and_walk``:
+q, the truncation count, the DP and K22's walk as its last step) is held
+to ``rescore_and_walk_ref`` bit for bit in every K7 plan.  Decodes
 on the card against the CPU
 (emission GEMMs on two devices) compare words exactly and costs at rtol
 1e-5.
@@ -634,6 +636,128 @@ def test_k7_plans_match_plain(dev, name):
     valid = torch.arange(t, device=dev)[:, None, None] < args[5][None, :, None]
     assert bool(((r_k[2] == r_p[2]) | ~valid).all())
     assert bool((trace > 0).all()) == bool(plan.leaves)
+
+
+@pytest.mark.parametrize("name", sorted(K7_CASES))
+def test_rescore_and_walk_plans_match_plain(dev, name):
+    """The pipeline's K7 launch in every plan (staged with 1, 2, 4 and 8
+    leaves a thread, LM tables on chip and through L1, dense; direct, and
+    direct with its D rows in device memory) against
+    ``rescore_and_walk_ref``: the q it computed (``q_out``) against
+    ``ends_cost.amin(2)``, each stream's truncation count, cost, best
+    leaf, pred_w for t < nf, the walk's leaves and word counts, bit for
+    bit, at a ``max_words`` that holds every chain and at one that cuts
+    the longest; one launch each, and no standalone K7 or K22."""
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lk
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    t, b, l, k, dmax, dense, forced = K7_CASES[name]
+    lib = load_library()
+    args, lm = _k7_lattice(l + t + 1, t, b, l, k, dmax, dev, dense)
+    args = (*args[:2], *args[3:])
+    plan = lk.rescore_plan(l, k, dense, lib.srt_smem_limit())
+    if forced is not None:
+        leaves, threads, tables = forced
+        plan = lk.RescorePlan(leaves, threads, tables, False,
+                              lk.rescore_smem_bytes(l, k, tables) if leaves else 8 * l)
+    max_dur = max(dmax - 1, 1)  # the raw max_dur below the ring depth
+    full = lk.rescore_and_walk_ref(*args, max_dur, t, **lm)
+    valid = torch.arange(t, device=dev)[:, None, None] < args[4][None, :, None]
+    for mw in (t, max(int(full[5].max()) - 1, 0)):
+        want = lk.rescore_and_walk_ref(*args, max_dur, mw, **lm)
+        q_k = torch.full((t, b), -1.0, device=dev)
+        trace = torch.zeros((b, 4), dtype=torch.int64, device=dev)
+        before = (lk.rescore_and_walk.launches, lk.rescore_lattice.launches,
+                  lk.lattice_walk.launches)
+        got = lk.rescore_and_walk(*args, max_dur, mw, **lm, plan=plan, trace=trace, q_out=q_k)
+        torch.cuda.synchronize()
+        assert (lk.rescore_and_walk.launches, lk.rescore_lattice.launches,
+                lk.lattice_walk.launches) == (before[0] + 1, *before[1:])
+        assert torch.equal(q_k.view(torch.int32), args[0].amin(2).view(torch.int32))
+        for i in (0, 1, 3, 4, 5):
+            assert torch.equal(got[i], want[i]), (i, mw)
+        assert bool(((got[2] == want[2]) | ~valid).all())
+        assert bool((trace > 0).all()) == bool(plan.leaves)
+    assert int(full[3].sum()) > 0  # arcs past max_dur were counted
+
+
+def test_decode_lattice_batch_launches_one_k7(dev):
+    """On CUDA the bigram decode runs ``bank_nll_ubt``, K6 and one
+    ``rescore_and_walk``: no standalone K7, no K22; its words equal the
+    same call's on the CPU, its costs at rtol 1e-5 (the emission GEMMs
+    sum in other orders), its truncation counts the tensor-op count's on
+    its own planes."""
+    from speech_recognition_tpu_torch.data.lexicon import random_words
+    from speech_recognition_tpu_torch.langmodel.bigram import fit_bigram
+    from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+    from speech_recognition_tpu_torch.ops import lattice as lat
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lk
+    from speech_recognition_tpu_torch.ops.viterbi_lex_kernels import lex_topology
+
+    bank = _bank(6, 3, 4, 39, seed=5)
+    units = list("abcdef")
+    rng = np.random.default_rng(9)
+    words = random_words(rng, units, 200, 2, 6)
+    lexg = build_lex_graph(words, [bank.trans_cost[i].numpy() for i in range(6)],
+                           {c: i for i, c in enumerate(units)}, word_insertion_cost=1.0)
+    lm = fit_bigram([[int(x) for x in rng.integers(0, 200, 10)] for _ in range(40)], 200)
+    feats = torch.from_numpy(rng.standard_normal((7, 50, 39)).astype(np.float32))
+    nf = torch.from_numpy(np.r_[50, 1, 0, rng.integers(12, 51, 4)].astype(np.int32))
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        before = (lk.viterbi_lattice.launches, lk.rescore_and_walk.launches,
+                  lk.rescore_lattice.launches, lk.lattice_walk.launches)
+        out[d.type] = lat._decode_lattice_batch(
+            bank.to(d), feats.to(d), nf.to(d), lexg.banded.to(d), lex_topology(lexg.banded),
+            lat.lattice_lm(lm, lexg.leaf_word, d), lexg.n_states // lexg.n_arcs, 8)
+        torch.cuda.synchronize()
+        after = (lk.viterbi_lattice.launches, lk.rescore_and_walk.launches,
+                 lk.rescore_lattice.launches, lk.lattice_walk.launches)
+        launched = int(d.type == "cuda")
+        assert after == (before[0] + launched, before[1] + launched, *before[2:])
+    (lr_c, nw_c, c_c, nt_c), (lr_g, nw_g, c_g, nt_g) = out["cpu"], out["cuda"]
+    assert torch.equal(lr_g.cpu(), lr_c) and torch.equal(nw_g.cpu(), nw_c)
+    np.testing.assert_allclose(c_g.cpu().numpy(), c_c.numpy(), rtol=1e-5)
+    # the counts against the tensor-op count on the card's own planes
+    from speech_recognition_tpu_torch.models.hmm import bank_nll_ubt
+
+    g_nf = nf.to(dev)
+    _, ec, et = lk.viterbi_lattice(bank_nll_ubt(bank.to(dev), feats.to(dev), g_nf),
+                                   lexg.banded.to(dev), lex_topology(lexg.banded), g_nf)
+    want = lat._lattice_truncation_counts(ec.transpose(1, 2), et.transpose(1, 2), g_nf, 8)
+    assert torch.equal(nt_g, want) and int(want.sum()) > 0 and int(nt_c.sum()) > 0
+
+
+def test_rescore_and_walk_raises_instead_of_falling_back(dev):
+    from speech_recognition_tpu_torch.ops import lattice_kernels as lk
+
+    t, b, l = 6, 2, 40
+    ec = torch.zeros((t, b, l), device=dev)
+    et = torch.zeros((t, b, l), dtype=torch.int32, device=dev)
+    vec = torch.zeros(l, device=dev)
+    big = torch.zeros((l, l), device=dev)
+    nf = torch.full((b,), t, dtype=torch.int32, device=dev)
+    before = lk.rescore_and_walk.launches
+    with pytest.raises(ValueError, match="exactly one"):
+        lk.rescore_and_walk(ec, et, vec, vec, nf, 8, 8, 6)
+    with pytest.raises(ValueError, match="ends_tau"):
+        lk.rescore_and_walk(ec, et.long(), vec, vec, nf, 8, 8, 6, big_ll=big)
+    with pytest.raises(ValueError, match="q_out"):
+        lk.rescore_and_walk(ec, et, vec, vec, nf, 8, 8, 6, big_ll=big,
+                            q_out=torch.zeros((t, b + 1), device=dev))
+    with pytest.raises(ValueError, match="max_dur >= 1"):
+        lk.rescore_and_walk(ec, et, vec, vec, nf, 8, 0, 6, big_ll=big)
+    with pytest.raises(ValueError, match="n_frames is on cpu"):
+        lk.rescore_and_walk(ec, et, vec, vec, nf.cpu(), 8, 8, 6, big_ll=big)
+    with pytest.raises(ValueError, match="trace"):
+        lk.rescore_and_walk(ec, et, vec, vec, nf, 8, 8, 6, big_ll=big,
+                            trace=torch.zeros((b, 5), dtype=torch.int64, device=dev))
+    assert lk.rescore_and_walk.launches == before
+    # rescore_lattice launches the same kernel: its q is checked, not read
+    before = lk.rescore_lattice.launches
+    with pytest.raises(ValueError, match="q must be"):
+        lk.rescore_lattice(ec, et, ec.amin(2)[:, :1], vec, vec, nf, 8, big_ll=big)
+    assert lk.rescore_lattice.launches == before
 
 
 def _units(rng, n_units, n_states=3, skip=True):
@@ -2933,9 +3057,10 @@ def walk_corpus(tmp_path_factory):
 @pytest.mark.parametrize("action", ["isolated_train", "align", "connected_test bigram"])
 def test_walk_clis_cuda_match_cpu(dev, walk_corpus, tmp_path, action):
     """``align``, ``isolated_train`` and ``connected_test --graph lextree
-    --lm bigram --decoder lattice`` on the card launch K21 / K22 and print
-    what ``--device cpu`` prints (align: its segments too, costs at rtol
-    1e-5)."""
+    --lm bigram --decoder lattice`` on the card launch K21 / K22 (the
+    bigram path's K22 as the last step of its K7 launch,
+    ``rescore_and_walk``) and print what ``--device cpu`` prints (align:
+    its segments too, costs at rtol 1e-5)."""
     import contextlib
     import io
     import json
@@ -2952,7 +3077,7 @@ def test_walk_clis_cuda_match_cpu(dev, walk_corpus, tmp_path, action):
             "connected_test bigram": ["connected_test", "-i", bank, "-d",
                                       os.path.join(walk_corpus, "test"), "--graph",
                                       "lextree", "--lm", "bigram", "--decoder", "lattice"]}
-    counter = lk.lattice_walk if action.startswith("connected") else dense_backtrace
+    counter = lk.rescore_and_walk if action.startswith("connected") else dense_backtrace
     out = {}
     for d in ("cuda", "cpu"):
         before = counter.launches

@@ -377,7 +377,10 @@ RESCORE_PLAN_CASES = {
     "l7000_rows_fit": ((7000, 9, False), (8, 896, False, False)),
     "l7300_rows_do_not_fit": ((7300, 9, False), (0, 1024, False, False)),
     "l8000_direct": ((8000, 9, False), (0, 1024, False, False)),
-    "l29056_direct_full": ((29056, 9, False), (0, 1024, False, False)),
+    # the direct CTA's 256 B of static argmin partials count against the
+    # limit beside its 8 L bytes of D rows
+    "l29024_direct_full": ((29024, 9, False), (0, 1024, False, False)),
+    "l29056_direct_full": ((29056, 9, False), (0, 1024, False, True)),
     "l29057_past_old_limit": ((29057, 9, False), (0, 1024, False, True)),
     "l100000_scratch": ((100000, 3, False), (0, 1024, False, True)),
 }
