@@ -48,7 +48,9 @@ through the CLI with the launch counters reset just before each:
   test utterances a digit, 200 training strings), ``isolated_train
   --silence`` (11 digits + silence, 5 states x 4 mixtures x 39 dims:
   MFCC-39 by K3 -> segmental K-means, every template of a word aligned by
-  one K11 launch an iteration -> mixture splitting with k-means and EM),
+  one K11 launch an iteration -> mixture splitting, a word's 5 states as
+  one batch: one launch of the k-means kernel K24 and one of the EM kernel
+  K25 a split level),
   ``isolated_test``, ``continuous_train --algo hard --iterations 3``
   (embedded Viterbi-EM: K11 with per-utterance transcript graphs) and
   ``connected_test`` on the result, once with ``--device cuda`` and once
@@ -110,11 +112,25 @@ two forms on each dense case in one call (the chain form as parent).
 Each CLI output is checked against the same command on the CPU (plain
 versions); the training path's, which sum GEMMs in other orders on the
 two devices, by accuracy: ``isolated_test`` within one file, and
-``connected_test`` within one wav decoded right.  K11 is held
+``connected_test`` within one wav decoded right.  K24 (k-means) and K25
+(EM), ``csrc/gmm_fit.cu``, replace the JAX package's two
+``lax.while_loop``s of mixture training; each launch runs a batch of fits
+to convergence with no host read.  They are held to their plain versions
+(``kmeans_batch_ref`` / ``em_fit_batch_ref``) for one iteration at every
+call ``isolated_train --silence`` made on the card (frames at a near-tie
+of the plain distances may go to the other cluster: such fits are
+counted and left out), and for one iteration and whole fits on planted
+mixtures at ``fit_hmm``'s shape, at a fit of 8,000 frames (past the
+frames a CTA stages in shared memory) and at 3,000 feature dimensions
+(the parameters in device memory), with and without the covariance
+quirk (assignments, counts and iteration counts exact, the rest at
+``GMM_TOL``), two launches bit for bit.  K11 is held
 bit-identical to its plain version at the two training shapes the cuda
 run gave it (a word's segmental K-means batch, the embedded step's
 transcript graphs), and ``isolated_train`` is timed per digit (with its
-k-means and EM calls, and segmental K-means' K11 and backtrace) and one
+K24 and K25 calls, the EM iterations a fit and the launches a digit, and
+segmental K-means' K11 and backtrace; the 11 digits' ``fit_hmm`` with its
+device idle share) and one
 ``continuous_train`` iteration by stage (graph composition, then inside
 ``embedded_step``: ``bank_nll``, K11, ``viterbi_backtrace``, the
 statistics GEMMs, the M-step), with CUDA events around the calls the
@@ -239,6 +255,19 @@ FB_XI_TOL = {"rtol": 1e-4, "atol": 1e-3}
 # 1e-3); the JAX CLI's own float32 confidences are 9.6e-3 from float64 on
 # the CPU test corpus (scripts/exp_r13_float32_noise.py)
 CONF_ATOL = 1e-2
+# K24 / K25 (the k-means and EM fits) against their plain versions: the
+# same quadratic-form NLL and M-step, sums over up to ~8,000 frames in
+# another order (the plain GEMMs' blocking against the kernels' blocked
+# Kahan sums); whole fits at GMM_TOL, one iteration at GMM_STEP_TOL;
+# assignments, counts and iteration counts exactly
+GMM_TOL = dict(rtol=1e-4, atol=1e-4)
+GMM_STEP_TOL = dict(rtol=1e-5, atol=2e-5)
+# ... and at 3,000 feature dimensions (24,000 parameters, the float32 plain
+# version itself up to ~2.3e-5 off float64 in a variance), one iteration
+# as accurate as the plain version: the kernel's largest difference from
+# the plain version run in float64 on the same inputs at most
+# GMM_AS_ACCURATE times the float32 plain version's (gmm_f64_errors)
+GMM_AS_ACCURATE = 2.0
 
 
 def fail(msg: str) -> None:
@@ -696,6 +725,54 @@ def stream_lines(out: str) -> dict:
     return got
 
 
+def planted_fits(seed: int, sizes, dev, d: int = 39, k: int = 4, n_pad: int = 64,
+                 sep: float = 3.0):
+    """One frame buffer and a fit a size in ``sizes`` for K24 / K25: each
+    fit's frames drawn from its own ``k`` well-separated Gaussians
+    (unit-scale variances), the fits' frames interleaved, ``n_pad`` frames
+    in no fit, starts near the planted centres.  Returns CUDA tensors
+    ``(x [N, d], masks [F, N], centroids0 [F, k, d], init [F, N])``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = sum(sizes) + n_pad
+    owner = rng.permutation(np.repeat(np.arange(len(sizes) + 1), list(sizes) + [n_pad]))
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    masks = np.stack([owner == i for i in range(len(sizes))])
+    c0 = np.zeros((len(sizes), k, d), np.float32)
+    for i in range(len(sizes)):
+        centres = sep * rng.standard_normal((k, d))
+        scale = rng.uniform(0.5, 1.5, (k, d))
+        lab = rng.integers(0, k, n)
+        x[masks[i]] = (centres[lab] + scale[lab] * rng.standard_normal((n, d)))[masks[i]]
+        c0[i] = centres + 0.3 * rng.standard_normal((k, d))
+    init = rng.integers(0, k, (len(sizes), n))
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, masks, c0, init))
+
+
+def gmm_f64_errors(kernel, plain, args, kw, close):
+    """K24's or K25's ``kernel`` and its float32 ``plain`` version against
+    ``plain`` in float64 on the same inputs (``args``' float tensors
+    upcast).  Returns, for each output index in ``close``, the pair
+    (kernel's largest difference, plain's), and whether every other output
+    equals the float64 run's."""
+    import torch
+
+    args64 = tuple(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                   for a in args)
+    got, ref, truth = kernel(*args, **kw), plain(*args, **kw), plain(*args64, **kw)
+    errs, exact = [], True
+    for j, (a, b, t) in enumerate(zip(got, ref, truth)):
+        t = t.to(a.device)
+        if j in close:
+            errs.append((float((a.double() - t).abs().max()),
+                         float((b.to(a.device).double() - t).abs().max())))
+        else:
+            exact = exact and torch.equal(a, t.to(a.dtype))
+    return errs, exact
+
+
 def kernel_counters() -> tuple:
     """Every kernel wrapper of the port, each counting its launches in
     ``<wrapper>.launches``."""
@@ -709,6 +786,8 @@ def kernel_counters() -> tuple:
         mfcc_tail,
     )
     from speech_recognition_tpu_torch.ops.viterbi_kernels import dense_backtrace, viterbi_dense
+    from speech_recognition_tpu_torch.train.em import em_fit_batch
+    from speech_recognition_tpu_torch.train.kmeans import kmeans_batch
 
     return (mfcc39_fused, mfcc_tail, vk.bank_emission, vk.viterbi_banded_fused,
             vk.banded_backtrace_val,
@@ -716,7 +795,8 @@ def kernel_counters() -> tuple:
             vk.viterbi_banded_general, vk.banded_backtrace_general,
             vk.viterbi_banded_wordtrace, viterbi_dense, mfcc_fused, fbk.fb_banded,
             fbk.fb_dense, vk.viterbi_banded_chunk, lk.viterbi_lex_chunk, dense_backtrace,
-            lt.lattice_walk, vk.wordtrace_words_device, lt.rescore_and_walk)
+            lt.lattice_walk, vk.wordtrace_words_device, lt.rescore_and_walk, kmeans_batch,
+            em_fit_batch)
 
 
 # ---- section 8: the sharded paths, one NCCL rank per card ---------------------
@@ -1069,6 +1149,7 @@ def main(argv=None) -> int:
         dp_ops,
         fb_banded_work,
         fb_dense_work,
+        gmm_fit_work,
         graph_bytes,
         mfcc_ops,
         nbytes,
@@ -2720,6 +2801,12 @@ def main(argv=None) -> int:
     n_tr, n_te = len(os.listdir(tr_dir)), len(os.listdir(te_dir))
     train_out, train_wall = {}, {}
     k11_train_calls = {"skmeans": [], "embedded": []}
+    # the mixture fits' calls (K24, K25) in the cuda run, held in 6d
+    gfk = importlib.import_module("speech_recognition_tpu_torch.ops.gmm_fit_kernels")
+    tkm = importlib.import_module("speech_recognition_tpu_torch.train.kmeans")
+    tem = importlib.import_module("speech_recognition_tpu_torch.train.em")
+    k24, k25 = tkm.kmeans_batch, tem.em_fit_batch
+    gmm_calls = {"K24": [], "K25": []}
     for d in ("cuda", "cpu"):
         bank_d, cont_d = os.path.join(tmp, f"trained_{d}.npz"), os.path.join(tmp, f"cont_{d}")
 
@@ -2742,9 +2829,12 @@ def main(argv=None) -> int:
 
         if d == "cuda":
             with recording(skm, "viterbi_dense", k11_train_calls["skmeans"]), \
-                    recording(cont, "viterbi_dense", k11_train_calls["embedded"]):
+                    recording(cont, "viterbi_dense", k11_train_calls["embedded"]), \
+                    recording(iso, "kmeans_batch", gmm_calls["K24"]), \
+                    recording(iso, "em_fit_batch", gmm_calls["K25"]):
                 train_out[d], train_wall[d] = counted("training", train_run,
-                                                      (*k3, viterbi_dense, dense_backtrace))
+                                                      (*k3, viterbi_dense, dense_backtrace,
+                                                       k24, k25))
         else:
             train_out[d], train_wall[d] = train_run()
     acc = {d: float(o["isolated_test"].splitlines()[-1]) for d, o in train_out.items()}
@@ -2957,9 +3047,10 @@ def main(argv=None) -> int:
         return ms, n
 
     sk_stages = {"K11": (skm, "viterbi_dense"), "viterbi_backtrace": (skm, "viterbi_backtrace")}
-    fit_stages = {"k-means": (iso, "kmeans"), "EM": (iso, "em_fit")}
-    digit_ms, em_iters = {}, []
+    fit_stages = {"k-means (K24)": (iso, "kmeans_batch"), "EM (K25)": (iso, "em_fit_batch")}
+    digit_ms, em_iters, fit_launches = {}, [], []
     for dgt in temps:
+        n0 = (k24.launches, k25.launches)
         e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
         e0.record()
         with evented(sk_stages):
@@ -2970,7 +3061,9 @@ def main(argv=None) -> int:
                 torch.Generator().manual_seed(TrainConfig().seed + dgt)))
         e2.record()
         e2.synchronize()
-        em_iters += [out[3] for stage, _, _, out in stage_ev if stage == "EM"]
+        em_iters += [n for stage, _, _, out in stage_ev if stage == "EM (K25)"
+                     for n in out[3].tolist()]
+        fit_launches.append((k24.launches - n0[0], k25.launches - n0[1]))
         digit_ms[dgt] = (e1.elapsed_time(e2), e0.elapsed_time(e1), *stage_sums())
     sk_kw = k11_train["skmeans"]
     sk_iters = sum(v[3]["K11"] for v in digit_ms.values())
@@ -3037,8 +3130,23 @@ def main(argv=None) -> int:
     phase("timing", "isolated_train, 11 digits, inside fit_hmm: " + ", ".join(
         f"{k} {sum(v[2][k] for v in digit_ms.values()):.1f} ms in "
         f"{sum(v[3][k] for v in digit_ms.values())} calls" for k in fit_stages)
-        + f"; EM iterations a call: mean {np.mean(em_iters):.1f}, at the cap of 100: "
-          f"{sum(n == 100 for n in em_iters)} (CUDA events inside the calls; {card})")
+        + f"; launches a digit (K24, K25): {sorted(set(fit_launches))}; EM iterations a "
+          f"fit: mean {np.mean(em_iters):.1f}, at the cap of 100: "
+          f"{sum(n == 100 for n in em_iters)} of {len(em_iters)} fits (CUDA events inside "
+          f"the calls; {card})")
+    if set(fit_launches) != {(2, 2)}:
+        fail(f"fit_hmm did not launch K24 and K25 once a split level: {fit_launches}")
+
+    def fit_all():
+        for dgt in temps:
+            iso.fit_hmm(temps[dgt], pad_to=int(nf_np.max()), draw_assign=random_assign(
+                torch.Generator().manual_seed(TrainConfig().seed + dgt)))
+
+    fit_all_ms = cuda_ms(fit_all, reps=1)
+    fit_all_dev = device_ms(fit_all, reps=1, what="fit_hmm of 11 digits")
+    phase("timing", f"fit_hmm of 11 digits (segmental K-means, K24, K25): {fit_all_ms:.1f} ms "
+                    f"event, device busy {fit_all_dev:.1f} ms (idle share "
+                    f"{1 - fit_all_dev / fit_all_ms:.3f}) ({card})")
     phase("timing", f"one continuous_train iteration, {bc} utterances x {tc_} frames, "
                     f"{g_c['bank_state'].shape[1]} graph states, by stage inside each call: "
                     + ", ".join(f"{k} {v:.3f} ms" for k, v in emb_ms.items())
@@ -3082,8 +3190,191 @@ def main(argv=None) -> int:
                     f"{soft_dev:.3f} of {soft_ms[whole_s]:.3f} ms (idle share "
                     f"{1 - soft_dev / soft_ms[whole_s]:.3f}) ({card})")
 
+    # ---- 6d. K24 / K25 (the k-means and EM fits) vs their plain versions ---
+    # one iteration at every shape isolated_train gave them (the cuda run's
+    # calls: 11 digits' 5 states and the silence model, each split level),
+    # whole fits on planted mixtures at fit_hmm's shape and past the frames
+    # a CTA stages in shared memory; then timed at digit 0's second level
+    from speech_recognition_tpu_torch.ops.gmm import pairwise_gaussian_nll
+    from speech_recognition_tpu_torch.train.kmeans import cluster_stats
+
+    gmm_err = {"K24": 0.0, "K25": 0.0}
+    gmm_pair = {"K24": (k24, tkm.kmeans_batch_ref), "K25": (k25, tem.em_fit_batch_ref)}
+    gmm_close = {"K24": (1, 2), "K25": (0, 1, 2)}  # compared at a tolerance; the rest exactly
+
+    def gmm_run(name, args, kw):
+        kernel, plain = gmm_pair[name]
+        got, again, want = kernel(*args, **kw), kernel(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{name}: two launches on the same inputs differ")
+        return got, want
+
+    def gmm_hold(name, what, args, kw, tol, skip_fits=()):
+        """``name``'s kernel against its plain version: the exact outputs
+        equal, the rest within ``tol``, fits in ``skip_fits`` left out;
+        returns the largest difference."""
+        got, want = gmm_run(name, args, kw)
+        keep = [i for i in range(args[1].shape[0]) if i not in skip_fits]
+        err = 0.0
+        for j, (a, b) in enumerate(zip(got, want)):
+            a, b = a[keep], b.to(a.device)[keep]
+            if j in gmm_close[name]:
+                if not torch.allclose(a, b, **tol):
+                    fail(f"{name} {what}: output {j} differs from the plain version by "
+                         f"{float((a - b).abs().max())} (rtol {tol['rtol']}, atol "
+                         f"{tol['atol']})")
+                err = max(err, float((a - b).abs().max()))
+            elif not torch.equal(a, b):
+                fail(f"{name} {what}: output {j} differs from the plain version")
+        gmm_err[name] = max(gmm_err[name], err)
+        return err
+
+    def k24_step_flips(args, kw):
+        """K24's one-iteration assignment against the plain version's: the
+        fits with frames assigned otherwise, each such frame at a near-tie
+        of the plain distances (its two nearest clusters within 1e-4 of
+        the distance), else fail."""
+        x_, masks_, c0_, k_, init_ = args
+        got, want = gmm_run("K24", args, dict(kw, max_iters=1))
+        fits = []
+        for i in range(masks_.shape[0]):
+            diff = torch.nonzero(got[0][i] != want[0][i])[:, 0]
+            if diff.numel():
+                v0 = cluster_stats(x_, masks_[i], init_[i], k_)[2]
+                top = pairwise_gaussian_nll(x_[diff], c0_[i], v0).topk(2, largest=False)[0]
+                if bool(((top[:, 1] - top[:, 0]) > 1e-4 * top[:, 0].abs()).any()):
+                    fail("K24 assigns a frame otherwise than its plain version away from a tie")
+                fits.append(i)
+        return fits
+
+    n_levels = {n_: len(c_) for n_, c_ in gmm_calls.items()}
+    if min(n_levels.values()) < 22:
+        fail(f"isolated_train --silence made fewer K24 / K25 calls than 11 digits x 2 split "
+             f"levels: {n_levels}")
+    step_err, flips = {"K24": 0.0, "K25": 0.0}, 0
+    for name in ("K24", "K25"):
+        for args_, kw_ in gmm_calls[name]:
+            skip = k24_step_flips(args_, kw_) if name == "K24" else []
+            flips += len(skip)
+            step_err[name] = max(step_err[name], gmm_hold(
+                name, "one iteration at an isolated_train shape", args_,
+                dict(kw_, max_iters=1), GMM_STEP_TOL, skip))
+    shapes = sorted({(tuple(a_[1].shape), a_[2].shape[1]) for a_, _ in gmm_calls["K24"]})
+    phase("K24/K25", f"one iteration at the {n_levels['K24']} isolated_train calls of each "
+                     f"(masks, k): {shapes}: equal to the plain versions, largest difference "
+                     f"K24 {step_err['K24']:.3g}, K25 {step_err['K25']:.3g} (rtol "
+                     f"{GMM_STEP_TOL['rtol']}, atol {GMM_STEP_TOL['atol']}); {flips} fit(s) "
+                     f"with a frame at a near-tie assigned otherwise, left out")
+    # whole fits at digit 0's calls: the kernel's own trajectory (not gated:
+    # a near-tie can move a fit by an iteration; the corpus-level gate is
+    # the accuracy above)
+    whole = []
+    for name in ("K24", "K25"):
+        for args_, kw_ in gmm_calls[name][:2]:
+            got, want = gmm_run(name, args_, kw_)
+            pairs = [(a, b.to(a.device)) for j, (a, b) in enumerate(zip(got, want))
+                     if j in gmm_close[name]]
+            same = (float((got[0] == want[0]).float().mean()) if name == "K24"
+                    else float((got[3] == want[3].to(dev)).float().mean()))
+            whole.append(f"{name} k={args_[2].shape[1]}: largest difference "
+                         f"{max(float((a - b).abs().max()) for a, b in pairs):.3g}, "
+                         f"{'assignments' if name == 'K24' else 'iteration counts'} equal "
+                         f"{same:.3f}")
+    phase("K24/K25", "whole fits at digit 0's two split levels against the plain versions "
+                     "(informational): " + "; ".join(whole))
+    # (sizes, D): a word's states; a fit past the frames a CTA stages; and
+    # features so wide that the parameters live in device memory
+    gmm_planted = {"fit_hmm shape": ((260, 240, 300, 180, 220), 39),
+                   "device memory": ((8000, 300, 40), 39),
+                   "parameters in device memory": ((12, 300), 3000)}
+    for case, (sizes, d_) in gmm_planted.items():
+        x_, masks_, c0_, init_ = planted_fits(40, sizes, dev, d=d_)
+        plan_ = gfk.gmm_fit_plan(x_.shape[0], d_, 4, em=False)
+        _, m0_, v0_, cnt_ = tkm.kmeans_batch_ref(x_, masks_, c0_, 4, init_)
+        w0_ = cnt_ / masks_.sum(1, keepdim=True).clamp(min=1).float()
+        fits_ = {"K24": [((x_, masks_, c0_, 4, init_), dict(shared_cov_quirk=q, disjoint=True))
+                         for q in (False, True)],
+                 "K25": [((x_, masks_, m0_, v0_, w0_), dict(disjoint=True))]}
+        f64_ = []
+        for name, calls_ in fits_.items():
+            for args_, kw_ in calls_:
+                if d_ == 39:
+                    gmm_hold(name, f"planted {case}", args_, dict(kw_, max_iters=1),
+                             GMM_STEP_TOL)
+                else:  # one iteration against float64 (GMM_AS_ACCURATE)
+                    f64_errs, f64_exact = gmm_f64_errors(*gmm_pair[name], args_,
+                                                         dict(kw_, max_iters=1),
+                                                         gmm_close[name])
+                    if not f64_exact or any(k > GMM_AS_ACCURATE * max(p, 1e-7)
+                                            for k, p in f64_errs):
+                        fail(f"{name} planted {case}: one iteration off the float64 plain "
+                             f"version by (kernel, float32 plain) {f64_errs}, exact outputs "
+                             f"equal {f64_exact}")
+                    f64_.append(f"{name} {max(k for k, _ in f64_errs):.3g} (plain "
+                                f"{max(p for _, p in f64_errs):.3g})")
+                gmm_hold(name, f"planted {case}", args_, dict(kw_, max_iters=100), GMM_TOL)
+        it25 = k25(x_, masks_, m0_, v0_, w0_)[3].tolist()
+        phase("K24/K25", f"planted mixtures, {case}: fits of {sizes} frames of D {d_} (plan: "
+                         f"parameters in {plan_.params} memory, cap {plan_.cap} frames staged, "
+                         f"frames tier {plan_.frames}): K24 with "
+                         f"and without the quirk and K25 equal to their plain versions, one "
+                         f"iteration"
+                         + (f" (against float64: largest difference {', '.join(f64_)}, within "
+                            f"{GMM_AS_ACCURATE}x the float32 plain version's)" if f64_ else "")
+                         + f" and whole fits (EM iterations {it25}; assignments, "
+                         f"counts and iteration counts exact; the rest rtol "
+                         f"{GMM_TOL['rtol']}, atol {GMM_TOL['atol']}), two launches bit for "
+                         f"bit")
+        if case == "device memory":
+            gmm_dev = {"K24": ((x_, masks_, c0_, 4, init_), {}),
+                       "K25": ((x_, masks_, m0_, v0_, w0_), {})}
+    for name in ("K24", "K25"):
+        report[name] = {"max_abs_err": gmm_err[name]}
+    # timed at digit 0's second split level (5 states, k = M = 4), and on
+    # the planted device-memory case
+    gmm_t, gmm_work, gmm_more = {}, {}, {}
+    for name in ("K24", "K25"):
+        args_, kw_ = gmm_calls[name][1]
+        kernel, plain = gmm_pair[name]
+        gmm_t[name] = (cuda_ms(lambda: kernel(*args_, **kw_), reps=5),
+                       cuda_ms(lambda: plain(*args_, **kw_), reps=1))
+        x_, masks_ = args_[:2]
+        n_, d_ = x_.shape
+        m_ = args_[2].shape[1]
+        n_f = masks_.sum(1).tolist()
+        plan_ = gfk.gmm_fit_plan(n_, d_, m_, em=name == "K25")
+        if name == "K24":
+            its = torch.zeros(masks_.shape[0], dtype=torch.int32, device=dev)
+            k24(*args_, **kw_, iters=its)
+            its = its.tolist()
+        else:
+            its = k25(*args_, **kw_)[3].tolist()
+        staged = all(v <= plan_.cap for v in n_f)
+        gmm_work[name] = gmm_fit_work(n_f, d_, m_, its, staged=staged, n=n_,
+                                      kmeans=name == "K24")
+        phase("timing", f"{name} at digit 0's second split level ({masks_.shape[0]} fits of "
+                        f"{n_f} frames in a buffer of {n_}, D {d_}, {m_} mixtures, iterations "
+                        f"{its}, staged {staged}): {gmm_t[name][0]:.3f} ms event, plain "
+                        f"{gmm_t[name][1]:.1f} ms ({card})")
+        args_, kw_ = gmm_dev[name]
+        n_f = args_[1].sum(1).tolist()
+        if name == "K24":
+            its = torch.zeros(args_[1].shape[0], dtype=torch.int32, device=dev)
+            k24(*args_, iters=its)
+            its = its.tolist()
+        else:
+            its = k25(*args_)[3].tolist()
+        tier_ms = cuda_ms(lambda: kernel(*args_), reps=3)
+        gmm_more[f"{name} planted, {n_f[0]} frames from device memory"] = (
+            *gmm_fit_work(n_f, 39, 4, its, staged=False, n=args_[0].shape[0],
+                          kmeans=name == "K24"), tier_ms)
+        phase("timing", f"{name} on planted fits of {n_f} frames (the first read from device "
+                        f"memory), iterations {its}: {tier_ms:.3f} ms event ({card})")
+
     # ---- 7. timings ---------------------------------------------------------
     t = {}
+    t.update(gmm_t)
     t["K3"] = (cuda_ms(lambda: mfcc39_fused(sig, lens, cfg)),
                cuda_ms(lambda: mfcc39_fused_ref(sig, lens, cfg)))
     t["K14"] = (cuda_ms(lambda: mfcc_tail(ceps_k, nf_c)),
@@ -4356,6 +4647,8 @@ def main(argv=None) -> int:
     more["K18 with the ancestor map"] = (work["K18"][0] + 4 * g1k.n_states * BL,
                                          work["K18"][1] + 2.0 * g1k.n_states * frames18,
                                          k18_org_ms)
+    work.update(gmm_work)
+    more.update(gmm_more)
     bounds = {k: bound(*v) for k, v in work.items()}
     # a serial walk's floor beside its byte bound: its longest stream's
     # frames as dependent shared-memory loads (~30 cycles each on Hopper)
@@ -4443,7 +4736,12 @@ def main(argv=None) -> int:
                    "speech_recognition_tpu_torch/csrc/lattice_walk.cuh",
                    "speech_recognition_tpu/ops/lattice.py:479"),
            "K23": ("wordtrace_words_device", "speech_recognition_tpu_torch/csrc/word_walk.cu",
-                   "speech_recognition_tpu/ops/viterbi_banded_pallas.py:912")}
+                   "speech_recognition_tpu/ops/viterbi_banded_pallas.py:912"),
+           # no TPU kernel: these replace mixture training's lax.while_loops
+           "K24": ("kmeans_batch", "speech_recognition_tpu_torch/csrc/gmm_fit.cu",
+                   "speech_recognition_tpu/train/kmeans.py:91"),
+           "K25": ("em_fit_batch", "speech_recognition_tpu_torch/csrc/gmm_fit.cu",
+                   "speech_recognition_tpu/train/em.py:95")}
     # each kernel's launches over the path runs above (no single PyTorch
     # call computes any of these functions: library_ms is null)
     n_launch = {fn: sum(p[fn] for p in launches.values()) for fn in launches["connected"]}

@@ -12,7 +12,8 @@ plain version.
 ``continuous_train`` is the from-scratch form: each iteration composes
 one linear word graph per utterance, aligns them all, refits every
 state that got frames by mixture splitting (``train.isolated.
-fit_gmm_state``, state by state) and re-estimates the self and exit
+fit_gmm_states``, all of them as one batch: on CUDA tensors one launch
+of K24 and one of K25 a split level) and re-estimates the self and exit
 costs from ``p_jump = runs / frames``; it stops when every GMM passes
 ``allclose`` (transitions excluded).  ``train.embedded_step`` is the
 one-step form the ``continuous_train --algo hard`` command runs.
@@ -99,7 +100,7 @@ def continuous_train(bank: HMMBank, feats, n_frames, label_seqs: List[List[int]]
     assignments (default: ``random_assign`` seeded ``train_cfg.seed``).
     Returns the trained bank."""
     from speech_recognition_tpu_torch.models.graph import pad_graphs
-    from speech_recognition_tpu_torch.train.isolated import fit_gmm_state
+    from speech_recognition_tpu_torch.train.isolated import fit_gmm_states
     from speech_recognition_tpu_torch.train.kmeans import random_assign
 
     if draw_assign is None:
@@ -130,17 +131,20 @@ def continuous_train(bank: HMMBank, feats, n_frames, label_seqs: List[List[int]]
         frame_counts, run_counts = harvest_state_ids(ids_np)
         frame_counts = np.pad(frame_counts, (0, ns - len(frame_counts)))
         run_counts = np.pad(run_counts, (0, ns - len(run_counts)))
-        for gs in range(ns):
-            if frame_counts[gs] == 0:  # no frames: keep the state
-                continue
-            mi, si = divmod(gs, s)
-            mask = flat_ids == gs
-            mu0 = torch.where(mask[:, None], flat_x, 0.0).sum(0) / float(frame_counts[gs])
-            m, v, w = fit_gmm_state(flat_x, mask, mu0, hmm_cfg.n_mix, use_em=use_em,
-                                    train_cfg=train_cfg, hmm_cfg=hmm_cfg,
-                                    draw_assign=draw_assign)
-            new_means[mi, si], new_vars[mi, si] = m, v
-            new_w[mi, si] = w / torch.clamp(w.sum(), min=1e-10)
+        # the states with frames, in order, as one batch (a state with no
+        # frames keeps its GMM)
+        fit = np.flatnonzero(frame_counts)
+        if len(fit):
+            gs_t = torch.as_tensor(fit, device=dev)
+            masks = flat_ids[None, :] == gs_t[:, None]
+            mu0 = torch.stack([torch.where(masks[i][:, None], flat_x, 0.0).sum(0)
+                               / float(frame_counts[gs]) for i, gs in enumerate(fit)])
+            m, v, w = fit_gmm_states(flat_x, masks, mu0, hmm_cfg.n_mix, use_em=use_em,
+                                     train_cfg=train_cfg, hmm_cfg=hmm_cfg,
+                                     draw_assign=draw_assign)
+            new_means.view(ns, *new_means.shape[2:])[gs_t] = m
+            new_vars.view(ns, *new_vars.shape[2:])[gs_t] = v
+            new_w.view(ns, -1)[gs_t] = w / torch.clamp(w.sum(1, keepdim=True), min=1e-10)
         # 4. transitions: exit -log(p_jump), self -log(1 - p_jump)
         new_trans = bank.trans_cost.cpu().numpy().copy()
         with np.errstate(divide="ignore"):

@@ -138,6 +138,8 @@ def load_library() -> ctypes.CDLL:
     lib.lattice_walk_launch.argtypes = [p, q, q, q, p, q, q, q, p, p, p, p, i, i, i, i, p]
     lib.wordtrace_walk_launch.argtypes = [p, i, q, q, q, p, q, q, q, p, p, p, p, p,
                                           i, i, i, p]
+    lib.kmeans_fit_launch.argtypes = [p] * 12 + [i] * 6 + [f, f] + [i] * 3 + [q, p]
+    lib.em_fit_launch.argtypes = [p] * 12 + [i] * 6 + [f] * 4 + [i, i, q, p]
     for fn in (lib.mfcc_tail_launch, lib.bank_emission_launch, lib.banded_forward_launch,
                lib.banded_warp_launch,
                lib.banded_backtrace_launch,
@@ -146,7 +148,7 @@ def load_library() -> ctypes.CDLL:
                lib.lattice_rescore_launch, lib.mfcc_ceps_launch,
                lib.viterbi_dense_launch, lib.fb_banded_launch, lib.fb_dense_launch,
                lib.dense_backtrace_launch, lib.lattice_walk_launch,
-               lib.wordtrace_walk_launch):
+               lib.wordtrace_walk_launch, lib.kmeans_fit_launch, lib.em_fit_launch):
         fn.restype = ctypes.c_int
     lib.bank_emission_smem_bytes.argtypes = [i, i, i, i]
     lib.banded_forward_smem_bytes.argtypes = [i, i, i, i, i, i, i, i, i, i]

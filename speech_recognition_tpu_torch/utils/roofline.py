@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 __all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "SFU_PER_S", "SMEM_STEP_CYCLES", "SM_CLOCK_HZ",
            "bound", "nbytes", "graph_bytes", "dp_ops", "span_pairs", "ceps_ops", "dense_ops",
            "mfcc_ops", "tail_ops", "rescore_ops", "rescore_walk_work", "fb_steps", "fb_dense_work",
-           "fb_banded_work", "dense_walk_work", "chain_walk_work", "report"]
+           "fb_banded_work", "dense_walk_work", "chain_walk_work", "gmm_fit_work", "report"]
 
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit):
 # device memory bandwidth and f32 rate outside the tensor cores (the port
@@ -272,6 +272,44 @@ def chain_walk_work(n_words, rows: int, word_bytes: int, step_bytes: int,
     steps = words - int((n_words > 0).sum())
     return (words * word_bytes + steps * step_bytes + 4 * b * (rows + 1) + start_bytes * b,
             4.0 * words)
+
+
+def gmm_fit_work(n_f, d: int, m: int, iters, staged: bool = True, n: int = 0,
+                 kmeans: bool = False):
+    """``(bytes, operations, exps and logs)`` of one K24 (``kmeans``) or
+    K25 launch: fits of ``n_f[i]`` frames, each run for ``iters[i]``
+    iterations, of ``d`` dimensions and ``m`` mixtures (clusters), over a
+    buffer of ``n`` frames whose ``[F, n]`` bool mask rows are read.
+
+    Bytes: each fit's frames once where they are staged in shared memory,
+    else once an iteration (K24: every frame of the buffer once, for the
+    last pass over the frames outside each fit); the mask rows; the
+    parameters in and out (K24: the centroids in, centroids, variances and
+    counts out, its ``[F, n]`` int64 draws read and assignment written;
+    K25: means, variances and weights in and out, the iteration counts).
+    Operations a (frame, iteration): the distance, ``m (2d + 1)``
+    multiply-adds (a multiply-add is 2), and the statistics: for K25,
+    whose responsibilities are dense, ``2 m d`` multiply-adds and ``m``
+    adds; for K24, whose assignment is hard, the frame's ``x`` and ``x^2``
+    added to its one cluster, ``3 d + 1`` (``d`` squares, ``2 d`` adds
+    and the count).  K24 adds the initial assignment's statistics and the
+    last pass's distances of the frames outside each fit.  K25's exps and
+    logs: ``2 m + 1`` a (frame, iteration)."""
+    n_f = [int(v) for v in n_f]
+    iters = [int(v) for v in iters]
+    f = len(n_f)
+    dist = 2 * m * (2 * d + 1)
+    stats = 3 * d + 1 if kmeans else 4 * m * d + m
+    steps = sum(a * b for a, b in zip(n_f, iters))
+    ops = float(steps) * (dist + stats)
+    x_reads = (n if kmeans else sum(n_f)) + (0 if staged else steps - sum(n_f))
+    n_bytes = 4 * d * x_reads + f * n
+    if kmeans:
+        ops += sum(n_f) * stats + sum(n - a for a in n_f) * dist
+        n_bytes += 4 * f * (3 * m * d + m) + 16 * f * n
+        return n_bytes, ops, 0.0
+    n_bytes += 8 * f * (2 * m * d + m) + 4 * f
+    return n_bytes, ops, float(steps) * (2 * m + 1)
 
 
 def report(stages: Dict[str, Tuple[float, str]], measured_s: float) -> str:

@@ -39,6 +39,7 @@ on the card against the CPU
 1e-5.
 """
 
+import importlib
 import os
 import types
 
@@ -3097,3 +3098,292 @@ def test_walk_clis_cuda_match_cpu(dev, walk_corpus, tmp_path, action):
         assert segs["cuda"] == segs["cpu"]
         np.testing.assert_allclose([r["cost"] for r in out["cuda segments"]],
                                    [r["cost"] for r in out["cpu segments"]], rtol=1e-5)
+
+
+# ---- K24 / K25: the k-means and EM fits of mixture training ------------------
+
+
+# planted mixtures, and K24 / K25's tolerances against their plain versions
+# (whole fits at GMM_TOL, rtol 1e-4 / atol 1e-4; one iteration at
+# GMM_STEP_TOL, rtol 1e-5 / atol 2e-5), as chip_smoke.py holds them
+from chip_smoke import (  # noqa: E402
+    GMM_AS_ACCURATE,
+    GMM_STEP_TOL,
+    GMM_TOL,
+    gmm_f64_errors,
+    planted_fits,
+)
+# the modules (the package's ``kmeans`` name is the function)
+tem = importlib.import_module("speech_recognition_tpu_torch.train.em")
+tkm = importlib.import_module("speech_recognition_tpu_torch.train.kmeans")
+
+
+# the fits of fit_hmm's shape (a word's 5 states, ~240 frames each), and
+# one of ~8,000 frames (past the ~1,300 frames a CTA stages: read from
+# device memory) beside two small ones
+GMM_SIZES = {"staged": (260, 240, 300, 180, 220), "device memory": (8000, 300, 40)}
+
+
+@pytest.mark.parametrize("tier", list(GMM_SIZES))
+@pytest.mark.parametrize("quirk", [False, True])
+def test_k24_kmeans_matches_plain(dev, tier, quirk):
+    """One iteration tightly, then whole fits on planted mixtures: the same
+    assignment (every frame, in a fit or not) and iteration counts, the
+    parameters at GMM_TOL; two launches give the same bits."""
+    from speech_recognition_tpu_torch.ops import gmm_fit_kernels as gfk
+
+    x, masks, c0, init = planted_fits(40, GMM_SIZES[tier], dev)
+    plan = gfk.gmm_fit_plan(x.shape[0], 39, 4, em=False)
+    assert plan.frames == ("device" if tier == "device memory" else "shared")
+    for iters, tol in ((1, GMM_STEP_TOL), (100, GMM_TOL)):
+        before = tkm.kmeans_batch.launches
+        n_it = torch.zeros(masks.shape[0], dtype=torch.int32, device=dev)
+        got = tkm.kmeans_batch(x, masks, c0, 4, init, max_iters=iters, shared_cov_quirk=quirk,
+                             iters=n_it)
+        again = tkm.kmeans_batch(x, masks, c0, 4, init, max_iters=iters, shared_cov_quirk=quirk)
+        want = tkm.kmeans_batch_ref(x, masks, c0, 4, init, max_iters=iters,
+                                  shared_cov_quirk=quirk)
+        torch.cuda.synchronize()
+        assert tkm.kmeans_batch.launches == before + 2
+        assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+        for a, b in zip(got[1:3], want[1:3]):
+            torch.testing.assert_close(a, b, **tol)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        assert int(n_it.min()) >= 1 and int(n_it.max()) <= iters
+    assert int(n_it.max()) < 100  # the planted fits converge
+
+
+@pytest.mark.parametrize("tier", list(GMM_SIZES))
+def test_k25_em_matches_plain(dev, tier):
+    """K25 from k-means' result: one iteration tightly, then whole fits with
+    the same iteration counts; two launches give the same bits."""
+
+    x, masks, c0, init = planted_fits(41, GMM_SIZES[tier], dev)
+    _, m0, v0, counts = tkm.kmeans_batch_ref(x, masks, c0, 4, init)
+    w0 = counts / masks.sum(1, keepdim=True).clamp(min=1).float()
+    for iters, tol in ((1, GMM_STEP_TOL), (100, GMM_TOL)):
+        before = tem.em_fit_batch.launches
+        got = tem.em_fit_batch(x, masks, m0, v0, w0, max_iters=iters)
+        again = tem.em_fit_batch(x, masks, m0, v0, w0, max_iters=iters)
+        want = tem.em_fit_batch_ref(x, masks, m0, v0, w0, max_iters=iters)
+        torch.cuda.synchronize()
+        assert tem.em_fit_batch.launches == before + 2
+        assert torch.equal(got[3], want[3].to(dev))
+        for a, b in zip(got[:3], want[:3]):
+            torch.testing.assert_close(a, b, **tol)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+    assert int(got[3].max()) < 100
+
+
+def test_k24_k25_parameters_in_device_memory(dev):
+    """Features too wide for a fit's parameter area in shared memory (D =
+    3,000, M = 4: ~300 KB), so the parameters and partial sums live in a
+    device scratch a CTA; of the two fits one is staged in the shared
+    memory left (its frames at the start of it) and one read from device
+    memory.  One iteration of K24 (with and without the quirk) and K25 as
+    accurate as their plain versions: the largest difference from the
+    plain version run in float64 on the same inputs at most
+    GMM_AS_ACCURATE (2) times the float32 plain version's (which is itself
+    up to ~2.3e-5 off float64 in a variance here, so that over 24,000
+    parameters kernel and plain differ by more than GMM_STEP_TOL's atol);
+    whole fits against the float32 plain versions (GMM_TOL; the same
+    assignments, counts and iteration counts)."""
+    from speech_recognition_tpu_torch.ops import gmm_fit_kernels as gfk
+
+    x, masks, c0, init = planted_fits(47, (12, 300), dev, d=3000)
+    for em in (False, True):
+        plan = gfk.gmm_fit_plan(x.shape[0], 3000, 4, em=em)
+        assert (plan.params, plan.frames) == ("device", "device") and 12 <= plan.cap < 300
+
+    def held(got, want, close, tol):
+        for j, (a, b) in enumerate(zip(got, want)):
+            if j in close:
+                torch.testing.assert_close(a, b.to(dev, a.dtype), **tol)
+            else:
+                assert torch.equal(a, b.to(dev))
+
+    def as_accurate(kernel, plain, args, kw, close):
+        errs, exact = gmm_f64_errors(kernel, plain, args, dict(kw, max_iters=1), close)
+        assert exact and all(k <= GMM_AS_ACCURATE * max(p, 1e-7) for k, p in errs), errs
+
+    for quirk in (False, True):
+        kw = dict(shared_cov_quirk=quirk, disjoint=True)
+        as_accurate(tkm.kmeans_batch, tkm.kmeans_batch_ref, (x, masks, c0, 4, init), kw, (1, 2))
+        held(tkm.kmeans_batch(x, masks, c0, 4, init, **kw),
+             tkm.kmeans_batch_ref(x, masks, c0, 4, init, **kw), (1, 2), GMM_TOL)
+    _, m0, v0, counts = tkm.kmeans_batch_ref(x, masks, c0, 4, init)
+    w0 = counts / masks.sum(1, keepdim=True).float()
+    as_accurate(tem.em_fit_batch, tem.em_fit_batch_ref, (x, masks, m0, v0, w0),
+                dict(disjoint=True), (0, 1, 2))
+    got = tem.em_fit_batch(x, masks, m0, v0, w0, disjoint=True)
+    held(got, tem.em_fit_batch_ref(x, masks, m0, v0, w0), (0, 1, 2), GMM_TOL)
+    assert int(got[3].max()) < 100
+
+
+def test_k24_k25_scratch_overrun_gives_nan(dev):
+    """Fits that share frames launched as ``disjoint``: each fit's rows of
+    the launch's N-row scratch start at the frames of the mask rows before
+    its own, so the third fit (the first again: 100 + 80 frames before
+    it, 100 of its own, in 244 rows) overruns.  Its outputs are NaN (K24's
+    assignments -1), its iteration count -1, and nothing is written past
+    the scratch; the two fits before it equal their plain versions, as
+    every fit does launched without the promise (F N rows)."""
+    from speech_recognition_tpu_torch.ops import gmm_fit_kernels as gfk
+
+    x, masks, c0, init = planted_fits(48, (100, 80), dev, d=6)
+    shared = torch.cat([masks, masks[:1]])
+    c0, init = torch.cat([c0, c0[:1]]), torch.cat([init, init[:1]])
+    want = tkm.kmeans_batch_ref(x, shared, c0, 4, init)
+    it = torch.zeros(3, dtype=torch.int32, device=dev)
+    got = gfk.launch_kmeans(x, shared, c0, 4, init, 100, False, 1e-6, it, True)
+    assert bool(torch.all(got[0][2] == -1)) and bool(torch.isnan(got[1][2]).all())
+    assert bool(torch.isnan(got[3][2]).all()) and it.tolist()[2] == -1
+    assert torch.equal(got[0][:2], want[0][:2]) and torch.equal(got[3][:2], want[3][:2])
+    w0 = torch.full((3, 4), 0.25, device=dev)
+    em = gfk.launch_em(x, shared, c0, torch.ones_like(c0), w0, 100, 1e-5, 1e-8, 1e-6, True)
+    assert all(bool(torch.isnan(t[2]).all()) for t in em[:3]) and em[3].tolist()[2] == -1
+    assert bool(torch.isfinite(em[0][:2]).all()) and min(em[3].tolist()[:2]) >= 1
+    ok = tkm.kmeans_batch(x, shared, c0, 4, init)  # not disjoint: F N rows
+    assert torch.equal(ok[0], want[0]) and torch.equal(ok[3], want[3])
+
+
+@pytest.mark.parametrize("quirk", [False, True])
+def test_k24_k25_edge_fits(dev, quirk):
+    """An empty cluster (it keeps its centroid), fits of one frame and of
+    none, and no iteration at all (K24 returns the draws and their
+    statistics, K25 its start)."""
+
+    x, masks, c0, init = planted_fits(42, (200, 1, 0), dev, d=8)
+    c0[0, 3] = 50.0
+    for iters in (0, 100):
+        got = tkm.kmeans_batch(x, masks, c0, 4, init, max_iters=iters, shared_cov_quirk=quirk)
+        want = tkm.kmeans_batch_ref(x, masks, c0, 4, init, max_iters=iters,
+                                  shared_cov_quirk=quirk)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+        for a, b in zip(got[1:3], want[1:3]):
+            torch.testing.assert_close(a, b, **GMM_TOL)
+    assert float(got[3][0, 3]) == 0.0 and bool(torch.all(got[1][0, 3] == 50.0))
+    w0 = torch.full((3, 4), 0.25, device=dev)
+    v0 = torch.ones_like(c0)
+    for iters in (0, 100):
+        got = tem.em_fit_batch(x, masks, c0, v0, w0, max_iters=iters, var_floor=1e-2)
+        want = tem.em_fit_batch_ref(x, masks, c0, v0, w0, max_iters=iters, var_floor=1e-2)
+        assert torch.equal(got[3], want[3].to(dev))
+        for a, b in zip(got[:3], want[:3]):
+            torch.testing.assert_close(a, b, **GMM_TOL)
+    assert got[3].tolist()[2] == 2
+
+
+def test_fit_gmm_states_reads_nothing_back(dev):
+    """A word's five states through ``fit_gmm_states`` under CUDA's sync
+    debug mode: one K24 and one K25 launch a split level and no wait on
+    the card (the draws go over from pinned memory)."""
+    from speech_recognition_tpu_torch.config import HMMConfig
+    from speech_recognition_tpu_torch.train.isolated import fit_gmm_states
+    from speech_recognition_tpu_torch.train.kmeans import random_assign
+
+    x, masks, c0, _ = planted_fits(43, GMM_SIZES["staged"], dev)
+    mu0 = c0.mean(1)
+    counts = (tkm.kmeans_batch.launches, tem.em_fit_batch.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fit_gmm_states(x, masks, mu0, 4, hmm_cfg=HMMConfig(n_mix=4),
+                             draw_assign=random_assign(torch.Generator().manual_seed(0)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (tkm.kmeans_batch.launches - counts[0], tem.em_fit_batch.launches - counts[1]) == (2, 2)
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+
+
+def test_gmm_fit_wrappers_raise_instead_of_falling_back(dev, monkeypatch):
+    """CUDA tensors never reach the plain versions: a library that does not
+    load raises, and so does a mask on another device."""
+    from speech_recognition_tpu_torch.utils import build
+
+    x, masks, c0, init = planted_fits(44, (50, 20), dev, d=6)
+
+    def fell_back(*a, **kw):
+        raise AssertionError("a CUDA tensor ran the plain version")
+
+    def no_library():
+        raise RuntimeError("no kernel library")
+
+    monkeypatch.setattr(tkm, "kmeans_batch_ref", fell_back)
+    monkeypatch.setattr(tem, "em_fit_batch_ref", fell_back)
+    monkeypatch.setattr(build, "load_library", no_library)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        tkm.kmeans_batch(x, masks, c0, 4, init)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        tem.em_fit_batch(x, masks, c0, torch.ones_like(c0), torch.full((2, 4), 0.25, device=dev))
+    with pytest.raises(ValueError, match="masks is on cpu"):
+        tkm.kmeans_batch(x, masks.cpu(), c0, 4, init)
+
+
+def test_isolated_train_cuda_launches_k24_k25(dev, tmp_path):
+    """``isolated_train --device cuda`` runs the mixture fits on K24 and K25
+    (two launches of each a digit: two split levels) and its bank scores
+    the accuracy the ``--device cpu`` bank scores, within one file."""
+    import contextlib
+    import io
+
+    from speech_recognition_tpu_torch.cli import main
+
+    root = str(tmp_path)
+    with contextlib.redirect_stdout(io.StringIO()):
+        main(["synth", "-o", root, "--n-train", "4", "--n-test", "3", "--n-continuous", "4",
+              "--seed", "7"])
+    acc = {}
+    for d in ("cuda", "cpu"):
+        before = (tkm.kmeans_batch.launches, tem.em_fit_batch.launches)
+        bank = os.path.join(root, f"bank_{d}.npz")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(["isolated_train", "-i", os.path.join(root, "train"), "-o", bank, "--device", d])
+            torch.cuda.synchronize()
+            launched = (tkm.kmeans_batch.launches - before[0],
+                        tem.em_fit_batch.launches - before[1])
+            main(["isolated_test", "-i", bank, "-d", os.path.join(root, "test"), "--device", d])
+        assert launched == ((22, 22) if d == "cuda" else (0, 0))
+        acc[d] = float(buf.getvalue().splitlines()[-1])
+    n_test = sum(1 for f in os.listdir(os.path.join(root, "test")) if len(f.split("_")[1]) == 6)
+    assert abs(acc["cuda"] - acc["cpu"]) <= 1.0 / n_test + 1e-9 and acc["cpu"] > 0.5
+
+
+def test_continuous_train_cuda_launches_k24_k25(dev):
+    """``continuous_train`` refits the states that got frames with one K24
+    and one K25 launch a split level and iteration, and trains what the
+    CPU trains from the same draws (rtol 1e-4 / atol 1e-4, as
+    ``test_isolated_train_cuda_matches_cpu``)."""
+    from speech_recognition_tpu_torch.config import HMMConfig, TrainConfig
+    from speech_recognition_tpu_torch.train.continuous import continuous_train
+    from speech_recognition_tpu_torch.train.kmeans import random_assign
+
+    rng = np.random.default_rng(45)
+    ps = [random_gmm_hmm(rng, n_states=3, n_mix=2, dim=8, sep=4.0) for _ in range(4)]
+    bank = _bank(4, 3, 2, 8, seed=46)
+    labels, feats, n_frames = [], np.zeros((12, 90, 8), np.float32), np.zeros(12, np.int32)
+    for b in range(12):
+        seq = [int(w) for w in rng.integers(0, 4, 3)]
+        frames = [ps[w]["means"][s_, 0] + np.sqrt(ps[w]["variances"][s_, 0])
+                  * rng.standard_normal(8) for w in seq for s_ in range(3)
+                  for _ in range(int(rng.integers(3, 9)))][:90]
+        labels.append(seq)
+        feats[b, : len(frames)] = frames
+        n_frames[b] = len(frames)
+    out = {}
+    for d in ("cpu", dev):
+        before = (tkm.kmeans_batch.launches, tem.em_fit_batch.launches)
+        out[str(d)] = continuous_train(
+            bank.to(d), torch.from_numpy(feats).to(d), torch.from_numpy(n_frames).to(d), labels,
+            hmm_cfg=HMMConfig(n_states=3, n_mix=2), train_cfg=TrainConfig(continuous_max_iters=2),
+            draw_assign=random_assign(torch.Generator().manual_seed(3)))
+        torch.cuda.synchronize()
+        launched = (tkm.kmeans_batch.launches - before[0], tem.em_fit_batch.launches - before[1])
+        assert launched == ((0, 0) if d == "cpu" else (2, 2))
+    for f in ("means", "log_vars", "log_weights", "trans_cost"):
+        torch.testing.assert_close(getattr(out[str(dev)], f).cpu(), getattr(out["cpu"], f),
+                                   rtol=1e-4, atol=1e-4)
