@@ -109,6 +109,17 @@ K7's device time less the same launch's at max_words 0, where the walk
 takes no step, and standalone); K21's
 two forms on each dense case in one call (the chain form as parent).
 
+K19 (``csrc/token_beam.cu``: the token beam's whole frame loop in one
+launch) and K26 (``csrc/word_walk.cu``: its walk) replace the JAX
+package's two ``lax.scan``s of ``ops/beam.py``.  In 7c they are held to
+``beam_search_ref`` / ``beam_backtrace_ref`` on the card's own tensors
+(every live slot of the token planes and the final frontier, costs and
+words bit for bit; dead slots -1) on the 1k trie at 32 x 500 planted
+frames, k = 64, with and without a bigram, and on the dictionary-shaped
+trie (their device-scratch tier); ``beam_decode_lextree`` at k = S (the
+device tier) gives K4 + K5's words and costs; each token beam path is one
+K19 and one K26 launch, timed beside the plain route and the exact one.
+
 Each CLI output is checked against the same command on the CPU (plain
 versions); the training path's, which sum GEMMs in other orders on the
 two devices, by accuracy: ``isolated_test`` within one file, and
@@ -773,6 +784,31 @@ def gmm_f64_errors(kernel, plain, args, kw, close):
     return errs, exact
 
 
+def token_beam_agrees(tag: str, got, want, walk, want_walk) -> int:
+    """Fail unless K19's outputs ``got`` equal the plain version's
+    ``want`` on every live slot (state >= 0) of the final frontier and the
+    token planes, with -1 (final cost POS_INF) on the dead slots, and
+    K26's ``walk`` the plain walk's costs, and its words on every stream
+    whose best token ends a word.  Returns the count of such streams."""
+    import torch
+
+    live_f = want[0] >= 0
+    if not torch.equal(got[0] >= 0, live_f) or not all(
+            torch.equal(g_[live_f], w_[live_f]) for g_, w_ in zip(got[:3], want[:3])) or \
+            not bool((got[1][~live_f] == 1e30).all()):
+        fail(f"{tag}: the final frontier differs from the plain version's on live slots")
+    live = want[3] >= 0
+    if not torch.equal(got[3] >= 0, live) or not all(
+            torch.equal(g_[live], w_[live]) and bool((g_[~live] == -1).all())
+            for g_, w_ in zip(got[3:], want[3:])):
+        fail(f"{tag}: the token planes differ from the plain version's on live slots")
+    found = want_walk[0] < 5e29
+    if not torch.equal(walk[0], want_walk[0]) or \
+            not torch.equal(walk[1][found], want_walk[1][found]):
+        fail(f"{tag}: K26's costs or words differ from the plain walk's")
+    return int(found.sum())
+
+
 def kernel_counters() -> tuple:
     """Every kernel wrapper of the port, each counting its launches in
     ``<wrapper>.launches``."""
@@ -780,6 +816,7 @@ def kernel_counters() -> tuple:
     from speech_recognition_tpu_torch.ops import lattice_kernels as lt
     from speech_recognition_tpu_torch.ops import viterbi_banded_kernels as vk
     from speech_recognition_tpu_torch.ops import viterbi_lex_kernels as lk
+    from speech_recognition_tpu_torch.ops.beam import beam_backtrace, beam_search
     from speech_recognition_tpu_torch.ops.frontend_kernel import (
         mfcc39_fused,
         mfcc_fused,
@@ -796,7 +833,7 @@ def kernel_counters() -> tuple:
             vk.viterbi_banded_wordtrace, viterbi_dense, mfcc_fused, fbk.fb_banded,
             fbk.fb_dense, vk.viterbi_banded_chunk, lk.viterbi_lex_chunk, dense_backtrace,
             lt.lattice_walk, vk.wordtrace_words_device, lt.rescore_and_walk, kmeans_batch,
-            em_fit_batch)
+            em_fit_batch, beam_search, beam_backtrace)
 
 
 # ---- section 8: the sharded paths, one NCCL rank per card ---------------------
@@ -1157,6 +1194,8 @@ def main(argv=None) -> int:
         rescore_walk_work,
         span_pairs,
         tail_ops,
+        token_beam_work,
+        token_walk_work,
     )
 
     t0 = time.perf_counter()
@@ -4190,17 +4229,26 @@ def main(argv=None) -> int:
                  lambda: _decode_lex_batch(lbank, feats_l, nf_l, gp, topop))
 
     # ---- 7c. the beams, the spell checker and the native IO -------------------
-    # No kernel prunes, in either package: the rank-threshold forward
-    # (viterbi_banded_tb(beam_width=)) and the token beam (ops.beam) are plain
-    # tensor ops on the card; K9 backtraces the beam planes, on the trie in its
-    # cross mode.  Each path runs with the counters reset just before it.
+    # The rank-threshold forward (viterbi_banded_tb(beam_width=)) is plain
+    # tensor ops on the card, as in the JAX package, and K9 backtraces its
+    # planes, on the trie in its cross mode; the token beam (ops.beam) is K19
+    # (its frame loop) and K26 (its walk).  Each path runs with the counters
+    # reset just before it.
     from speech_recognition_tpu_torch.data.wav import load_wav_batch as scipy_load
     from speech_recognition_tpu_torch.decode.connected import _decode_banded_batch
     from speech_recognition_tpu_torch.decode.lextree import beam_decode_lextree, decode_lextree
     from speech_recognition_tpu_torch.langmodel.lextree import lextree_from_words
     from speech_recognition_tpu_torch.langmodel.spellcheck import SpellChecker, text_viterbi_batch
     from speech_recognition_tpu_torch.models.hmm import bank_nll_ubt
-    from speech_recognition_tpu_torch.ops.beam import beam_backtrace, beam_search, beam_tables
+    from speech_recognition_tpu_torch.decode import lextree as lexdec
+    from speech_recognition_tpu_torch.ops import beam_kernels as bk
+    from speech_recognition_tpu_torch.ops.beam import (
+        beam_backtrace,
+        beam_backtrace_ref,
+        beam_search,
+        beam_search_ref,
+        beam_tables,
+    )
     from speech_recognition_tpu_torch.ops.viterbi_banded import (
         _CROSS,
         banded_backtrace_tb,
@@ -4355,8 +4403,20 @@ def main(argv=None) -> int:
                   f"the exact planes ({n_cross} cross steps on the best paths); at k = S "
                   f"words and costs == decode_lextree's (K4 + K5)")
 
-    # (c) the token beam on the same batch
-    w_tk, c_tk = beam_decode_lextree(lbank, lexp, f_t, n_t, s_t)
+    # (c) the token beam on the same batch: K19 (the frame loop) and K26 (the
+    # walk) against their plain versions on the card's own tensors at k = 64,
+    # with and without the bigram; at k = S (the device tier) the route's
+    # words and costs == K4 + K5; a dict1-shaped case on the device tier
+    tb_k = beam_tables(lexp.banded, leaf_word=lexp.leaf_word, device=dev)
+    c_k, (r_k, l_k) = tb_k.child_starts.shape[1], tb_k.eps_block.shape
+    u_k = nll_t.shape[0]
+    plans_k = [bk.beam_plan(s_t, k_, c_k, r_k, l_k, u_k) for k_ in (64, s_t)]
+    if [p_.tier for p_ in plans_k] != ["shared", "device"]:
+        fail(f"beam_plan on the 1k trie: k = 64 and k = S should take the shared and the "
+             f"device tier, got {plans_k}")
+    w_tk, c_tk = counted("token beam k=S", lambda: beam_decode_lextree(lbank, lexp, f_t, n_t,
+                                                                         s_t),
+                         (beam_search, beam_backtrace), no_exact)
     if w_tk != w_lex or not np.array_equal(c_tk, c_lex):
         fail("the token beam at k = S on the 1k trie: other words or costs than K4 + K5")
     lm_t = fit_bigram([[int(x) for x in np.random.default_rng(41).integers(0, len(lexp.words),
@@ -4365,31 +4425,100 @@ def main(argv=None) -> int:
     big = torch.from_numpy(np.concatenate([np.asarray(lm_t.cost, np.float32),
                                            np.asarray(lm_t.start_cost, np.float32)[None]]))
     big_end = torch.from_numpy(np.asarray(lm_t.end_cost, np.float32))
-    nll_bt = nll_t.permute(2, 1, 0).contiguous()  # [B, T, U], the same on both devices
+    nll_bt = nll_t.permute(2, 1, 0).contiguous()  # [B, T, U]
+    k19_runs, k19_err, k19_found = {}, 0.0, {}
     for lm_on in (False, True):
-        outs = []
-        for where in (dev, cpu):
-            tb = beam_tables(lexp.banded, leaf_word=lexp.leaf_word, device=where)
-            bc, be = (big.to(where), big_end.to(where)) if lm_on else (None, None)
-            r = beam_search(nll_bt.to(where), tb, n_t.to(where), 64, bigram_cost=bc)
-            outs.append(r + beam_backtrace(r[0], r[1], r[4], r[5], tb, n_t.to(where),
-                                           final_pred=r[2], bigram_cost=bc, bigram_end=be))
-        if not same(*outs):
-            fail(f"the token beam at k = 64 ({'with' if lm_on else 'without'} the bigram): "
-                 f"cuda differs from cpu")
+        bc, be = (big.to(dev), big_end.to(dev)) if lm_on else (None, None)
+        got = beam_search(nll_bt, tb_k, n_t, 64, bigram_cost=bc)
+        walk = beam_backtrace(got[0], got[1], got[4], got[5], tb_k, n_t, final_pred=got[2],
+                              bigram_cost=bc, bigram_end=be)
+        want = beam_search_ref(nll_bt, tb_k, n_t, 64, bigram_cost=bc)
+        want_walk = beam_backtrace_ref(want[0], want[1], want[4], want[5], tb_k, n_t,
+                                       final_pred=want[2], bigram_cost=bc, bigram_end=be)
+        torch.cuda.synchronize()
+        tag = f"K19 / K26 on the 1k trie at k = 64 ({'with' if lm_on else 'without'} the bigram)"
+        k19_found[lm_on] = token_beam_agrees(tag, got, want, walk, want_walk)
+        k19_err = max(k19_err, float((walk[0] - want_walk[0]).abs().max()))
+        k19_runs[lm_on] = (got, bc)
+    # the dictionary-shaped trie (86,520 states): the device tier at k = 64
+    tb_d = beam_tables(lexd.banded, leaf_word=lexd.leaf_word, device=dev)
+    plan_d = bk.beam_plan(tb_d.n_states, 64, tb_d.child_starts.shape[1],
+                          *tb_d.eps_block.shape, nlld.shape[0])
+    if plan_d.tier != "device":
+        fail(f"beam_plan on the dict1-shaped trie at k = 64: {plan_d}")
+    nll_dt = nlld.permute(2, 1, 0).contiguous()  # [32, TL, U]
+    got_d = beam_search(nll_dt, tb_d, nfd, 64)
+    walk_d = beam_backtrace(got_d[0], got_d[1], got_d[4], got_d[5], tb_d, nfd)
+    want_d = beam_search_ref(nll_dt, tb_d, nfd, 64)
+    want_walk_d = beam_backtrace_ref(want_d[0], want_d[1], want_d[4], want_d[5], tb_d, nfd)
+    torch.cuda.synchronize()
+    found_d = token_beam_agrees("K19 / K26 on the dict1-shaped trie at k = 64", got_d, want_d,
+                                walk_d, want_walk_d)
+    report["K19"] = {"max_abs_err": k19_err}
+    report["K26"] = {"max_abs_err": k19_err}
     w_t64, _ = counted("token beam", lambda: beam_decode_lextree(lbank, lexp, f_t, n_t, 64),
-                       (), no_exact + (vk.banded_backtrace_general,))
+                       (beam_search, beam_backtrace), no_exact + (vk.banded_backtrace_general,))
+    counted("token beam bigram", lambda: beam_decode_lextree(lbank, lexp, f_t, n_t, 64,
+                                                             lm=lm_t),
+            (beam_search, beam_backtrace), no_exact + (vk.banded_backtrace_general,))
+    for path in ("token beam", "token beam bigram", "token beam k=S"):
+        if (launches[path]["beam_search"], launches[path]["beam_backtrace"]) != (1, 1):
+            fail(f"the {path} path is not one K19 and one K26 launch: {launches[path]}")
+
+    @contextlib.contextmanager
+    def plain_token_beam():
+        """The route with the plain versions in place of the gates."""
+        saved = (lexdec.beam_search, lexdec.beam_backtrace)
+        lexdec.beam_search, lexdec.beam_backtrace = beam_search_ref, beam_backtrace_ref
+        try:
+            yield
+        finally:
+            lexdec.beam_search, lexdec.beam_backtrace = saved
+
+    with plain_token_beam():
+        plain_route = {lm_on: cuda_ms(lambda lm_=(lm_t if lm_on else None):
+                                      beam_decode_lextree(lbank, lexp, f_t, n_t, 64, lm=lm_),
+                                      reps=1)
+                       for lm_on in (False, True)}
+    got64 = k19_runs[False][0]
+    t["K19"] = (cuda_ms(lambda: beam_search(nll_bt, tb_k, n_t, 64), reps=10),
+                cuda_ms(lambda: beam_search_ref(nll_bt, tb_k, n_t, 64), reps=1))
+    t["K26"] = (cuda_ms(lambda: beam_backtrace(got64[0], got64[1], got64[4], got64[5], tb_k,
+                                               n_t), reps=20),
+                cuda_ms(lambda: beam_backtrace_ref(got64[0], got64[1], got64[4], got64[5],
+                                                   tb_k, n_t), reps=3))
+    k19_big_ms = cuda_ms(lambda: beam_search(nll_bt, tb_k, n_t, 64,
+                                             bigram_cost=k19_runs[True][1]), reps=10)
+    k19_s_ms = cuda_ms(lambda: beam_search(nll_bt, tb_k, n_t, s_t), reps=1)
+    k19_d_ms = cuda_ms(lambda: beam_search(nll_dt, tb_d, nfd, 64), reps=3)
+    k19_work = token_beam_work(got64[3], tb_k, n_t, u_k)
+    k19_big_work = token_beam_work(k19_runs[True][0][3], tb_k, n_t, u_k,
+                                   bigram_cost=k19_runs[True][1])
+    k19_d_work = token_beam_work(got_d[3], tb_d, nfd, nll_dt.shape[2])
+    k26_work = token_walk_work(n_t, T, 64)
     beam_ms["token beam"] = {
-        "k=64": cuda_ms(lambda: beam_decode_lextree(lbank, lexp, f_t, n_t, 64), reps=3),
-        "k=64 with the bigram": cuda_ms(lambda: beam_decode_lextree(lbank, lexp, f_t, n_t, 64,
-                                                                    lm=lm_t), reps=3),
-        "k=S": cuda_ms(lambda: beam_decode_lextree(lbank, lexp, f_t, n_t, s_t), reps=1),
+        "k=64 route (K19 + K26)": cuda_ms(lambda: beam_decode_lextree(lbank, lexp, f_t, n_t,
+                                                                      64), reps=5),
+        "k=64 route, plain": plain_route[False],
+        "k=64 with the bigram (K19 + K26)": cuda_ms(lambda: beam_decode_lextree(
+            lbank, lexp, f_t, n_t, 64, lm=lm_t), reps=5),
+        "k=64 with the bigram, plain": plain_route[True],
+        "k=S (device tier)": cuda_ms(lambda: beam_decode_lextree(lbank, lexp, f_t, n_t, s_t),
+                                     reps=1),
         "exact K4 + K5": beam_ms["1k trie"]["exact route (K4 + K5)"]}
     agree = sum(a == b_ for a, b_ in zip(w_t64, w_lex))
-    phase("beam", f"token beam on the 1k trie at 32x{T}: at k = S ({s_t}) words and costs == "
-                  f"K4 + K5; at k = 64, without and with a bigram, every output (token planes "
-                  f"included) on cuda == cpu on the same emissions; k = 64 decodes {agree} of "
-                  f"32 streams as the exact decode")
+    phase("beam", f"token beam on the 1k trie at 32x{T}: at k = S ({s_t}, the device tier) "
+                  f"words and costs == K4 + K5; at k = 64, without and with a bigram, K19 and "
+                  f"K26 == beam_search_ref / beam_backtrace_ref on every live slot, the final "
+                  f"frontier, costs and words ({k19_found[False]} and {k19_found[True]} of 32 "
+                  f"streams end in a word); the dict1-shaped trie ({tb_d.n_states} states, "
+                  f"device tier) at k = 64 likewise ({found_d} of 32); k = 64 decodes {agree} "
+                  f"of 32 streams as the exact decode")
+    phase("timing", f"K19 on the 1k trie 32x{T} (shared tier, {bk.THREADS_SHARED} threads): "
+                    f"k = 64 {t['K19'][0]:.3f} ms event (plain {t['K19'][1]:.1f} ms), with the "
+                    f"bigram {k19_big_ms:.3f} ms, k = S (device tier) {k19_s_ms:.1f} ms; the "
+                    f"dict1-shaped trie 32x{TL} k = 64 (device tier) {k19_d_ms:.3f} ms; K26 "
+                    f"{t['K26'][0]:.4f} ms (plain {t['K26'][1]:.2f} ms) ({card})")
 
     # (d) the spell checker: 256 misspellings against the 1,000-word list
     words_sc = list(lexp.words)
@@ -4522,6 +4651,8 @@ def main(argv=None) -> int:
         "K22": chain_walk_work(k7w_out[5], mw_1k, 4, 4, 8),
         "K23": chain_walk_work(k23_words[1], k23_words[0].shape[0], 0,
                                k23_args[0].element_size() + 4, 12),
+        "K19": k19_work,
+        "K26": k26_work,
     }
     # K15 / K16 (their plain versions' outputs give the output sizes)
     out15 = fbk.fb_banded_ref(*k15_args)
@@ -4614,6 +4745,8 @@ def main(argv=None) -> int:
             *chain_walk_work(k22_pl_words, k22_planted[4], 4, 4, 8), k22_pl_ms),
         "K23 skip-arc loop graph 64x300": (
             *chain_walk_work(want_s[1], want_s[0].shape[0], 0, 5, 12), k23_skip_ms),
+        f"K19 1k trie 32x{T} k=64 with the bigram": (*k19_big_work, k19_big_ms),
+        f"K19 dict1-shaped 32x{TL} k=64 (device tier)": (*k19_d_work, k19_d_ms),
     }
     more["K16 synthetic transcripts, band xi"] = (*fb_dense_work(
         *k16_synth[:1], k16_synth[1], k16_synth[4], k16_synth[2], k16_synth[6], k16_synth[3],
@@ -4658,7 +4791,7 @@ def main(argv=None) -> int:
         floor_ms = int(nf_.clamp(max=TL).max()) * SMEM_STEP_CYCLES / SM_CLOCK_HZ * 1e3
         phase("bound", f"{name}: serial floor {floor_ms:.4f} ms ({int(nf_.max())} dependent "
                        f"shared-memory steps); the kernel took {ms / floor_ms:.1f}x it")
-    # the walks K21-K23: their longest chain's steps (frames, words)
+    # the walks K21-K23 and K26: their longest chain's steps (frames, words)
     for name, steps, ms in (
             (f"K21 385-state sausage 64x{T}", int(saus["n_frames"].clamp(max=T).max()),
              t["K21"][0]),
@@ -4666,7 +4799,9 @@ def main(argv=None) -> int:
             ("standalone K22 1k trie, planted words 128x500", int(k22_pl_words.max()),
              k22_pl_ms),
             (f"K23 sausage7 word trace {B}x{T}", int(k23_words[1].max()), t["K23"][0]),
-            ("K23 skip-arc loop graph 64x300", int(want_s[1].max()), k23_skip_ms)):
+            ("K23 skip-arc loop graph 64x300", int(want_s[1].max()), k23_skip_ms),
+            (f"K26 token walk, 1k trie 32x{T} k=64", int(n_t.clamp(max=T).max()),
+             t["K26"][0])):
         floor_ms = steps * SMEM_STEP_CYCLES / SM_CLOCK_HZ * 1e3
         phase("bound", f"{name}: serial floor {floor_ms:.3g} ms ({steps} dependent steps at "
                        f"one shared-memory load each); the kernel took {ms / floor_ms:.1f}x it")
@@ -4741,7 +4876,12 @@ def main(argv=None) -> int:
            "K24": ("kmeans_batch", "speech_recognition_tpu_torch/csrc/gmm_fit.cu",
                    "speech_recognition_tpu/train/kmeans.py:91"),
            "K25": ("em_fit_batch", "speech_recognition_tpu_torch/csrc/gmm_fit.cu",
-                   "speech_recognition_tpu/train/em.py:95")}
+                   "speech_recognition_tpu/train/em.py:95"),
+           # no TPU kernel: these replace the token beam's two lax.scans
+           "K19": ("beam_search", "speech_recognition_tpu_torch/csrc/token_beam.cu",
+                   "speech_recognition_tpu/ops/beam.py:155"),
+           "K26": ("beam_backtrace", "speech_recognition_tpu_torch/csrc/word_walk.cu",
+                   "speech_recognition_tpu/ops/beam.py:327")}
     # each kernel's launches over the path runs above (no single PyTorch
     # call computes any of these functions: library_ms is null)
     n_launch = {fn: sum(p[fn] for p in launches.values()) for fn in launches["connected"]}

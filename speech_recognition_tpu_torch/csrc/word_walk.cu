@@ -1,12 +1,14 @@
-// K22: the lattice word walk, and K23: the word-trace walk.  Both follow a
-// chain of (frame, word) pairs back from each stream's last word, one word
-// a step, and write the word ids in reverse order.
+// K22: the lattice word walk, K23: the word-trace walk, and K26: the token
+// beam's walk.  Each follows a chain back from each stream's end, one step
+// a frame or a word, and writes the word ids in reverse order.
 //
-// Neither replaces a TPU kernel: the JAX package runs each as one XLA scan,
-// K22 speech_recognition_tpu/ops/lattice.py lattice_words_device and K23
-// speech_recognition_tpu/ops/viterbi_banded_pallas.py wordtrace_words_device.
-// Their plain versions are ops/lattice.lattice_words_ref and
-// ops/viterbi_banded_kernels.wordtrace_words_ref (loops of batched gathers).
+// None replaces a TPU kernel: the JAX package runs each as one XLA scan,
+// K22 speech_recognition_tpu/ops/lattice.py lattice_words_device, K23
+// speech_recognition_tpu/ops/viterbi_banded_pallas.py wordtrace_words_device
+// and K26 speech_recognition_tpu/ops/beam.py beam_backtrace (:327, its scan
+// :367).  Their plain versions are ops/lattice.lattice_words_ref,
+// ops/viterbi_banded_kernels.wordtrace_words_ref and
+// ops/beam.beam_backtrace_ref (loops of batched gathers).
 //
 // K22 (the bigram lattice): the walk of lattice_walk.cuh, from leaf =
 // best_leaf[b]; rows past the chain are -1.  The planes are read at the
@@ -23,12 +25,23 @@
 // within the T + 1 rows, and the plane keeps all of them: nothing is read
 // back to cut it.
 //
+// K26 (the token beam): the best final token is the first minimum over the
+// k slots of cost + (end_bonus[slot] (+ bigram[pred, word]) (+
+// bigram_end[word])), added in that order, POS_INF where the slot's state is
+// dead or no word end; best_cost is that sum and row 0 the token's word.
+// Then from the last frame below n_frames back to 0, row T - t is
+// tok_word[t, ix] while ix >= 0 (else -1) and ix moves to tok_prev[t, ix]
+// for t > 0; rows of frames at or past n_frames are -1.  It reads only the
+// live chain, so K19's planes (dead slots -1) and the plain version's
+// (dead slots in their sort order) give the same rows.
+//
 // n_words counts the rows >= 0, as the JAX functions do.  An index is
 // clamped to its axis as the JAX scans clamp it.
 //
 // What bounds them on the H100: a step is a dependent read at a (frame,
 // word) known only after the step before (K22: two, tau then pred_w; K23:
-// two at the same entry, issued together).  The time is the longest
+// two at the same entry, issued together; K26: tok_prev at (t, ix), with
+// tok_word beside it, every frame, after a pass over the k final slots).  The time is the longest
 // chain's round trips, ~0.5-1 us each where the planes are past L2 or cold
 // in it, while the bytes on the chains are a few KB.  Design: one thread a
 // stream, no staging; a dead stream writes its remaining rows of -1 and
@@ -89,7 +102,86 @@ __global__ void __launch_bounds__(kThreads) wordtrace_walk_kernel(
   n_words[b] = count;
 }
 
+// K26.  final_state / final_pred [B, k] int32, final_cost [B, k];
+// tok_prev / tok_word [B, T, k] int32; end_slot / end_word [S] int64,
+// end_bonus [E]; bigram [V + 1, V] and bigram_end [V] where kBigram / kEnd;
+// nf [B] int32 -> best_cost [B], words_rev [B, T + 1] int32.
+template <bool kBigram, bool kEnd>
+__global__ void __launch_bounds__(kThreads) token_walk_kernel(
+    const int* __restrict__ final_state, const float* __restrict__ final_cost,
+    const int* __restrict__ final_pred, const int* __restrict__ tok_prev,
+    const int* __restrict__ tok_word, const long long* __restrict__ end_slot,
+    const long long* __restrict__ end_word, const float* __restrict__ end_bonus,
+    const float* __restrict__ bigram, const float* __restrict__ bigram_end,
+    const int* __restrict__ nf, float* __restrict__ best_cost, int* __restrict__ words_rev,
+    int B, int T, int k, int S, int E, int V) {
+  const int b = blockIdx.x * kThreads + threadIdx.x;
+  if (b >= B) return;
+  float best = 0.0f;
+  int bi = -1, bw = 0;
+  for (int j = 0; j < k; ++j) {
+    const long long o = (long long)b * k + j;
+    const int s = final_state[o];
+    const int sc = clamp_index(s, S);
+    const int slot = (int)end_slot[sc];
+    const int word = (int)end_word[sc];
+    float bonus = end_bonus[clamp_index(slot, E)];
+    if (kBigram) {
+      const int wc = clamp_index(word, V);
+      bonus = bonus + bigram[(long long)min(max(final_pred[o], 0), V) * V + wc];
+      if (kEnd) bonus = bonus + bigram_end[wc];
+    }
+    const float tot = (s >= 0 && slot >= 0) ? final_cost[o] + bonus : SRT_POS_INF;
+    if (bi < 0 || tot < best) {
+      best = tot;
+      bi = j;
+      bw = word;
+    }
+  }
+  best_cost[b] = best;
+  int* out = words_rev + (long long)b * (T + 1);
+  out[0] = bw;
+  const int n = min(max(nf[b], 0), T);
+  for (int c = 1; c <= T - n; ++c) out[c] = -1;
+  int ix = bi;
+  for (int t = n - 1; t >= 0; --t) {
+    const long long row = ((long long)b * T + t) * k;
+    int w = -1;
+    if (ix >= 0) {
+      w = tok_word[row + ix];
+      if (t > 0) ix = tok_prev[row + ix];
+    }
+    out[T - t] = w;
+  }
+}
+
 }  // namespace
+
+extern "C" int token_walk_launch(const int* final_state, const float* final_cost,
+                                 const int* final_pred, const int* tok_prev,
+                                 const int* tok_word, const long long* end_slot,
+                                 const long long* end_word, const float* end_bonus,
+                                 const float* bigram, const float* bigram_end, const int* nf,
+                                 float* best_cost, int* words_rev, int B, int T, int k, int S,
+                                 int E, int V, void* stream) {
+  if (B <= 0 || T <= 0 || k <= 0 || S <= 0 || E <= 0 || (bigram && (V <= 0 || !final_pred)) ||
+      (bigram_end && !bigram))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int grid = (B + kThreads - 1) / kThreads;
+#define K26_LAUNCH(BG, EN)                                                                 \
+  token_walk_kernel<BG, EN><<<grid, kThreads, 0, st>>>(                                    \
+      final_state, final_cost, final_pred, tok_prev, tok_word, end_slot, end_word, end_bonus, \
+      bigram, bigram_end, nf, best_cost, words_rev, B, T, k, S, E, V)
+  if (!bigram)
+    K26_LAUNCH(false, false);
+  else if (bigram_end)
+    K26_LAUNCH(true, true);
+  else
+    K26_LAUNCH(true, false);
+#undef K26_LAUNCH
+  return (int)cudaGetLastError();
+}
 
 extern "C" int lattice_walk_launch(const int* pred, long long p_t, long long p_l,
                                    long long p_b, const int* ends_tau, long long q_t,

@@ -31,10 +31,20 @@ re-entered token's predecessor becomes v.  Tokens merging in a shared
 prefix keep the cheaper one's predecessor: the single-tree
 token-passing approximation, exact on a flat tree.
 
-``beam_search`` and ``beam_backtrace`` are frame loops of tensor ops over
-the whole batch, on the device of their inputs; no kernel backs them (in
-JAX they are ``lax.scan``s).  Every token plane, garbage slots included,
-equals the reference's, bit for bit, on the same emissions.
+``beam_search`` and ``beam_backtrace`` are gates (``ops.viterbi_banded_
+kernels.use_kernels``): on CUDA tensors each is one launch of a hand
+kernel, K19 (the whole frame loop, ``csrc/token_beam.cu``) and K26 (the
+walk, ``csrc/word_walk.cu``), launched by ``ops.beam_kernels`` and counted
+in ``<gate>.launches``; on CPU tensors their plain versions
+``beam_search_ref`` and ``beam_backtrace_ref``, frame loops of tensor ops
+over the whole batch (in JAX both are ``lax.scan``s).  No ``try`` falls
+back.  Every token plane of the plain version, garbage slots included,
+equals the reference's, bit for bit, on the same emissions.  K19 equals
+the plain version bit for bit on every live slot (state >= 0) of its
+planes and final frontier and writes -1 (final cost POS_INF) on dead
+slots, where the plain version keeps the order of dropped duplicates;
+the walk reads only live tokens, so K26 gives the plain walk's words and
+costs from either's planes.
 """
 
 from __future__ import annotations
@@ -44,10 +54,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from speech_recognition_tpu_torch.ops import beam_kernels as bk
 from speech_recognition_tpu_torch.ops.viterbi_banded import MAX_BAND, BandedGraph
+from speech_recognition_tpu_torch.ops.viterbi_banded_kernels import use_kernels
 from speech_recognition_tpu_torch.utils.numerics import POS_INF
 
-__all__ = ["BeamTables", "beam_tables", "beam_search", "beam_backtrace"]
+__all__ = ["BeamTables", "beam_tables", "beam_search", "beam_backtrace", "beam_search_ref",
+           "beam_backtrace_ref"]
 
 _NO_WORD = -1
 
@@ -151,9 +164,36 @@ def _merge_topk(state, cost, tie, payload, k: int):
             tuple(_take(p, perm) for p in payload))
 
 
+def _check_width(tables: BeamTables, k: int) -> None:
+    r0 = tables.init_states.shape[0]
+    if k < r0:
+        raise ValueError(f"beam k={k} smaller than {r0} init states")
+
+
 def beam_search(nll_bank, tables: BeamTables, n_frames, k: int, has_cross: bool = True,
                 bigram_cost=None):
-    """Token-passing beam over a batch of utterances.
+    """Token-passing beam over a batch of utterances: one K19 launch on
+    CUDA tensors (no host read), ``beam_search_ref`` on CPU tensors; the
+    arguments and results are :func:`beam_search_ref`'s, K19's dead slots
+    -1 (module docstring)."""
+    if not use_kernels(nll_bank):
+        return beam_search_ref(nll_bank, tables, n_frames, k, has_cross=has_cross,
+                               bigram_cost=bigram_cost)
+    _check_width(tables, k)
+    n_frames = torch.as_tensor(n_frames, device=nll_bank.device)
+    bk.check_search(nll_bank, tables, n_frames, bigram_cost)
+    out = bk.launch_search(nll_bank, tables, n_frames, k, has_cross, bigram_cost)
+    beam_search.launches += int(nll_bank.shape[0] > 0)  # an empty batch launches nothing
+    return out
+
+
+beam_search.launches = 0
+
+
+def beam_search_ref(nll_bank, tables: BeamTables, n_frames, k: int, has_cross: bool = True,
+                    bigram_cost=None):
+    """Token-passing beam over a batch of utterances (the plain version
+    of K19).
 
     Args:
       nll_bank: ``[B, T, U]`` unit-bank emission costs.
@@ -179,8 +219,7 @@ def beam_search(nll_bank, tables: BeamTables, n_frames, k: int, has_cross: bool 
     smax, r = tb.n_states, tb.word_starts.shape[0]
     n_ends = tb.eps_block.shape[1]
     r0 = tb.init_states.shape[0]
-    if k < r0:
-        raise ValueError(f"beam k={k} smaller than {r0} init states")
+    _check_width(tb, k)
     nf = n_frames.to(dev).to(torch.int64)
     n_vocab = 0 if bigram_cost is None else bigram_cost.shape[1]
     big_flat = None if bigram_cost is None else bigram_cost.reshape(-1)
@@ -303,7 +342,29 @@ def beam_search(nll_bank, tables: BeamTables, n_frames, k: int, has_cross: bool 
 
 def beam_backtrace(final_state, final_cost, tok_prev, tok_word, tables: BeamTables,
                    n_frames, final_pred=None, bigram_cost=None, bigram_end=None):
-    """Best final token and the index-chain backtrace, for a batch.
+    """Best final token and the index-chain backtrace, for a batch: one
+    K26 launch on CUDA tensors, ``beam_backtrace_ref`` on CPU tensors;
+    the arguments and results are :func:`beam_backtrace_ref`'s."""
+    if not use_kernels(tok_prev):
+        return beam_backtrace_ref(final_state, final_cost, tok_prev, tok_word, tables,
+                                  n_frames, final_pred=final_pred, bigram_cost=bigram_cost,
+                                  bigram_end=bigram_end)
+    n_frames = torch.as_tensor(n_frames, device=tok_prev.device)
+    bk.check_walk(final_state, final_cost, tok_prev, tok_word, tables, n_frames, final_pred,
+                  bigram_cost, bigram_end)
+    out = bk.launch_walk(final_state, final_cost, tok_prev, tok_word, tables, n_frames,
+                         final_pred, bigram_cost, bigram_end)
+    beam_backtrace.launches += int(tok_prev.shape[0] > 0)
+    return out
+
+
+beam_backtrace.launches = 0
+
+
+def beam_backtrace_ref(final_state, final_cost, tok_prev, tok_word, tables: BeamTables,
+                       n_frames, final_pred=None, bigram_cost=None, bigram_end=None):
+    """Best final token and the index-chain backtrace, for a batch (the
+    plain version of K26).
 
     With ``bigram_cost`` (and ``bigram_end``) the final token also pays
     ``bigram_cost[pred, word] + bigram_end[word]``: it never exited its

@@ -140,6 +140,10 @@ def load_library() -> ctypes.CDLL:
                                           i, i, i, p]
     lib.kmeans_fit_launch.argtypes = [p] * 12 + [i] * 6 + [f, f] + [i] * 3 + [q, p]
     lib.em_fit_launch.argtypes = [p] * 12 + [i] * 6 + [f] * 4 + [i, i, q, p]
+    lib.token_beam_launch.argtypes = [p] * 20 + [i] * 13 + [q, p]
+    lib.token_walk_launch.argtypes = [p] * 13 + [i] * 6 + [p]
+    lib.token_beam_bytes.argtypes = [i] * 7
+    lib.token_beam_bytes.restype = q
     for fn in (lib.mfcc_tail_launch, lib.bank_emission_launch, lib.banded_forward_launch,
                lib.banded_warp_launch,
                lib.banded_backtrace_launch,
@@ -148,7 +152,8 @@ def load_library() -> ctypes.CDLL:
                lib.lattice_rescore_launch, lib.mfcc_ceps_launch,
                lib.viterbi_dense_launch, lib.fb_banded_launch, lib.fb_dense_launch,
                lib.dense_backtrace_launch, lib.lattice_walk_launch,
-               lib.wordtrace_walk_launch, lib.kmeans_fit_launch, lib.em_fit_launch):
+               lib.wordtrace_walk_launch, lib.kmeans_fit_launch, lib.em_fit_launch,
+               lib.token_beam_launch, lib.token_walk_launch):
         fn.restype = ctypes.c_int
     lib.bank_emission_smem_bytes.argtypes = [i, i, i, i]
     lib.banded_forward_smem_bytes.argtypes = [i, i, i, i, i, i, i, i, i, i]

@@ -20,7 +20,8 @@ from typing import Dict, Tuple
 __all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "SFU_PER_S", "SMEM_STEP_CYCLES", "SM_CLOCK_HZ",
            "bound", "nbytes", "graph_bytes", "dp_ops", "span_pairs", "ceps_ops", "dense_ops",
            "mfcc_ops", "tail_ops", "rescore_ops", "rescore_walk_work", "fb_steps", "fb_dense_work",
-           "fb_banded_work", "dense_walk_work", "chain_walk_work", "gmm_fit_work", "report"]
+           "fb_banded_work", "dense_walk_work", "chain_walk_work", "gmm_fit_work",
+           "token_beam_work", "token_walk_work", "report"]
 
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit):
 # device memory bandwidth and f32 rate outside the tensor cores (the port
@@ -310,6 +311,70 @@ def gmm_fit_work(n_f, d: int, m: int, iters, staged: bool = True, n: int = 0,
         return n_bytes, ops, 0.0
     n_bytes += 8 * f * (2 * m * d + m) + 4 * f
     return n_bytes, ops, float(steps) * (2 * m + 1)
+
+
+def token_beam_work(tok_state, tables, n_frames, n_units: int, has_cross: bool = True,
+                    bigram_cost=None):
+    """``(bytes, operations)`` of one K19 launch from its token plane
+    ``tok_state [B, T, k]`` (live slots >= 0) and its ``BeamTables``: per
+    stream, frame 0 and each frame below its length, with n(t) the live
+    tokens the frame keeps, e(t) those at word ends and c(t) its
+    candidates (the init states at frame 0, else n(t - 1) (3 + C)).
+
+    Bytes: the frame's emission row (4 U); every table once (band, child
+    starts and costs with cross edges, bank rows, end slots and words,
+    word starts, the eps block, the init states); a bigram entry per end
+    token and frame, at most the bigram's size; the three ``[B, T, k]``
+    int32 planes and the ``[B, k]`` final frontier written.  Operations:
+    per candidate the two adds, the clamp, the live compare and the key's
+    compare (5); the kept tokens' ranking, n log2 n compares (the fewest
+    a comparison sort takes); per (word start, end token) pair an add and
+    a compare (2, one more with the bigram); the second merge's rank
+    compares, n(t) R."""
+    import math
+
+    import torch
+
+    tb = tables
+    b, t_len, k = tok_state.shape
+    n_children = tb.child_starts.shape[1] if has_cross else 0
+    n_starts = tb.eps_block.shape[0]
+    nf = torch.as_tensor(n_frames, device=tok_state.device).reshape(b).long()
+    frames = torch.clamp(nf, min=1, max=t_len)
+    going = torch.arange(t_len, device=tok_state.device)[None, :] < frames[:, None]
+    live = ((tok_state >= 0).sum(2) * going).cpu()  # n(t) [B, T]
+    ends = ((tb.end_slot[tok_state.long().clamp(min=0)] >= 0) & (tok_state >= 0)).sum(2)
+    n_ends = int((ends * going).sum())
+    prev = torch.cat([torch.zeros((b, 1), dtype=live.dtype), live[:, :-1]], 1) * going.cpu()
+    cand = prev * (3 + n_children)
+    cand[:, 0] = tb.init_states.shape[0]
+    sort_ops = sum(n * math.log2(n) for n in live.flatten().tolist() if n > 1)
+    tables_bytes = nbytes(tb.band, tb.bank_state, tb.end_slot, tb.end_word, tb.word_starts,
+                          tb.eps_block, tb.init_states, tb.init_costs)
+    if has_cross:
+        tables_bytes += nbytes(tb.child_starts, tb.child_costs)
+    big_bytes = 0 if bigram_cost is None else min(4 * n_ends, nbytes(bigram_cost))
+    n_bytes = (4 * n_units * int(frames.sum()) + tables_bytes + big_bytes
+               + 12 * b * t_len * k + 12 * b * k)
+    n_ops = (5.0 * int(cand.sum()) + sort_ops
+             + (2 if bigram_cost is None else 3) * n_ends * n_starts
+             + int(live.sum()) * n_starts)
+    return n_bytes, n_ops
+
+
+def token_walk_work(n_frames, t_len: int, k: int):
+    """``(bytes, operations)`` of one K26 launch without a bigram: per
+    stream its ``k`` final slots (state, cost and predecessor read, 12
+    bytes; the end slot and word, 16, and the end bonus, 4), then a
+    ``tok_word`` and a ``tok_prev`` entry (8) each frame below its length;
+    the ``[B, T + 1]`` words and ``[B]`` costs written.  Operations: 4 a
+    slot, 2 a frame."""
+    import torch
+
+    nf = torch.as_tensor(n_frames).reshape(-1).long().clamp(min=0, max=t_len)
+    b, steps = nf.numel(), int(nf.sum())
+    return (b * k * 32 + 8 * steps + 4 * b * (t_len + 1) + 4 * b,
+            float(b * k * 4 + 2 * steps))
 
 
 def report(stages: Dict[str, Tuple[float, str]], measured_s: float) -> str:

@@ -27,8 +27,11 @@ row's origins run in other orders), past shared memory too (their
 device-row tier), and K13's chunked form past ~450 feature dimensions
 at K13's tolerance.  K9's cross mode is held exactly
 to the plain backtrace on tries' exact and beam planes; the pruned
-forward, the token beam and the spell checker run the same tensor ops
-on the card as on the CPU and are compared exactly.  K21-K23 (the dense
+forward and the spell checker run the same tensor ops on the card as on
+the CPU and are compared exactly.  K19 (the token beam's frame loop) and
+K26 (its walk) are held to ``beam_search_ref`` / ``beam_backtrace_ref``
+on the card's own tensors: every live slot of the token planes and the
+final frontier, costs and words exactly (K19 writes -1 on dead slots).  K21-K23 (the dense
 backtrace, in each of its forms; the lattice word walk, the word-trace
 walk) walk the plain versions' own planes and are compared exactly, K23's
 T + 1 rows included; the bigram pipeline's K7 launch (``rescore_and_walk``:
@@ -2708,11 +2711,39 @@ def test_beam_forward_cuda_matches_cpu(dev, kind, beam):
         assert torch.equal(a.cpu(), w)
 
 
+def _live_equal(got, want):
+    """K19's outputs (dead slots -1, final cost POS_INF) against the plain
+    version's on every live slot (state >= 0) of the final frontier and
+    the token planes."""
+    fst, fco, fpd, ts, tp, tw = [x.cpu() for x in got]
+    want = [x.cpu() for x in want]
+    live_f = want[0] >= 0
+    assert torch.equal(fst >= 0, live_f)
+    for g_, w_ in zip((fst, fco, fpd), want[:3]):
+        assert torch.equal(g_[live_f], w_[live_f])
+    assert bool((fco[~live_f] == 1e30).all())
+    live = want[3] >= 0
+    assert torch.equal(ts >= 0, live)
+    for g_, w_ in zip((ts, tp, tw), want[3:]):
+        assert torch.equal(g_[live], w_[live]) and bool((g_[~live] == -1).all())
+
+
+def _walk_equal(got, want):
+    """K26's costs equal the plain walk's; its words on every stream whose
+    best token ends a word (a stream with none walks dead slots, which
+    K19 writes as -1 and the plain version in its sort order)."""
+    (c_g, w_g), (c_w, w_w) = [(c.cpu(), w.cpu()) for c, w in (got, want)]
+    assert torch.equal(c_g, c_w)
+    found = c_w < 5e29
+    assert torch.equal(w_g[found], w_w[found])
+
+
 @pytest.mark.parametrize("k,lm", [(12, False), (24, True), (200, False)])
 def test_token_beam_cuda_matches_cpu(dev, k, lm):
-    """``beam_search`` and ``beam_backtrace`` on the card: every output
-    (token planes included) bit-identical to the CPU's on the same
-    emissions, with and without the carried bigram."""
+    """``beam_search`` (K19) and ``beam_backtrace`` (K26) on the card:
+    every live slot of the token planes and the final frontier
+    bit-identical to the CPU's on the same emissions, costs and words
+    too, with and without the carried bigram."""
     from speech_recognition_tpu_torch.ops.beam import beam_backtrace, beam_search, beam_tables
 
     lexg, n_bank = _lex_graph("deep")
@@ -2729,11 +2760,111 @@ def test_token_beam_cuda_matches_cpu(dev, k, lm):
         tb = beam_tables(lexg.banded, leaf_word=lexg.leaf_word, device=where)
         mv = (lambda x: None if x is None else x.to(where))
         res = beam_search(e.to(where), tb, nf.to(where), k, bigram_cost=mv(big))
-        out[str(where)] = [x.cpu() for x in res + beam_backtrace(
+        out[str(where)] = (res, beam_backtrace(
             res[0], res[1], res[4], res[5], tb, nf.to(where), final_pred=res[2],
-            bigram_cost=mv(big), bigram_end=mv(big_end))]
-    for a, w in zip(out[str(dev)], out["cpu"]):
-        assert torch.equal(a, w)
+            bigram_cost=mv(big), bigram_end=mv(big_end)))
+    _live_equal(out[str(dev)][0], out["cpu"][0])
+    _walk_equal(out[str(dev)][1], out["cpu"][1])
+
+
+def _trie_1k():
+    """A 1,000-word trie over 8 units of 3 states (24 emission rows), as
+    ``chip_smoke.py``'s ``make_lex_pipeline`` builds its own."""
+    from speech_recognition_tpu_torch.data.lexicon import random_words
+    from speech_recognition_tpu_torch.models.lexgraph import build_lex_graph
+
+    rng = np.random.default_rng(7)
+    units = list("abcdefgh")
+    words = random_words(rng, units, 1000, 3, 8)
+    return build_lex_graph(words, _units(rng, 8, skip=False),
+                           {c: i for i, c in enumerate(units)}, word_insertion_cost=0.5), 24
+
+
+@pytest.mark.parametrize("kind,k,lm,tier,ties", [
+    ("flat_lm", 12, True, "shared", False),    # a flat tree: no cross edges
+    ("flat_lm", 40, False, "shared", True),
+    ("1k", 8, False, "shared", False), ("1k", 8, True, "shared", False),
+    ("1k", 64, False, "shared", False), ("1k", 64, True, "shared", False),
+    ("1k", 64, True, "shared", True),
+    ("1k", 0, True, "device", False),          # k = S: the device-scratch tier
+])
+def test_token_beam_kernels_match_plain(dev, kind, k, lm, tier, ties):
+    """K19 and K26 against ``beam_search_ref`` / ``beam_backtrace_ref``
+    on the card's own tensors: live slots, final frontiers, costs and
+    words bit for bit, on uniform and tie-forcing integer emissions, with
+    streams of length T, 1, 0 and past T; one launch of each a call, in
+    the plan's tier; the kernel's layout is the plan's."""
+    from speech_recognition_tpu_torch.ops import beam as tbeam
+    from speech_recognition_tpu_torch.ops import beam_kernels as bk
+    from speech_recognition_tpu_torch.utils.build import load_library
+
+    lexg, n_bank = _trie_1k() if kind == "1k" else _lex_graph(kind)
+    tb = tbeam.beam_tables(lexg.banded, leaf_word=lexg.leaf_word, device=dev)
+    has_cross = tb.n_children > 0
+    assert has_cross == (kind == "1k")
+    k = k or tb.n_states
+    c = tb.child_starts.shape[1] if has_cross else 0
+    r, l = tb.eps_block.shape
+    plan = bk.beam_plan(tb.n_states, k, c, r, l, n_bank)
+    assert plan.tier == tier
+    assert load_library().token_beam_bytes(tb.n_states, k, 3 + c, r, l, n_bank,
+                                           int(tier == "shared")) == plan.nbytes
+    rng = np.random.default_rng(k)
+    b, t_len = (3, 24) if tier == "device" else (5, 60)
+    e = rng.integers(0, 3, (b, t_len, n_bank)) if ties else rng.uniform(0, 5, (b, t_len, n_bank))
+    e = torch.from_numpy(e.astype(np.float32)).to(dev)
+    nf = torch.from_numpy(np.r_[t_len, 1, 0, t_len + 3, rng.integers(2, t_len)][:b]
+                          .astype(np.int32)).to(dev)
+    big = big_end = None
+    if lm:
+        v = lexg.n_words
+        big = torch.from_numpy(rng.uniform(0.1, 3, (v + 1, v)).astype(np.float32)).to(dev)
+        big_end = torch.from_numpy(rng.uniform(0.1, 2, v).astype(np.float32)).to(dev)
+    before = (tbeam.beam_search.launches, tbeam.beam_backtrace.launches)
+    got = tbeam.beam_search(e, tb, nf, k, has_cross=has_cross, bigram_cost=big)
+    walk = tbeam.beam_backtrace(got[0], got[1], got[4], got[5], tb, nf, final_pred=got[2],
+                                bigram_cost=big, bigram_end=big_end)
+    torch.cuda.synchronize()
+    assert (tbeam.beam_search.launches, tbeam.beam_backtrace.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tbeam.beam_search_ref(e, tb, nf, k, has_cross=has_cross, bigram_cost=big)
+    _live_equal(got, want)
+    want_walk = tbeam.beam_backtrace_ref(want[0], want[1], want[4], want[5], tb, nf,
+                                         final_pred=want[2], bigram_cost=big,
+                                         bigram_end=big_end)
+    _walk_equal(walk, want_walk)
+    # K26 on the plain version's own planes (dead slots in sort order)
+    _walk_equal(tbeam.beam_backtrace(want[0], want[1], want[4], want[5], tb, nf,
+                                     final_pred=want[2], bigram_cost=big,
+                                     bigram_end=big_end), want_walk)
+
+
+def test_token_beam_never_runs_the_plain_loop_on_the_card(dev, monkeypatch):
+    """``beam_decode_lextree`` on CUDA tensors: one K19 and one K26 launch
+    a call and no call of the plain versions; k below the init states
+    raises before a launch."""
+    from speech_recognition_tpu_torch.decode.lextree import beam_decode_lextree
+    from speech_recognition_tpu_torch.ops import beam as tbeam
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain token beam ran on CUDA tensors")
+
+    monkeypatch.setattr(tbeam, "beam_search_ref", refuse)
+    monkeypatch.setattr(tbeam, "beam_backtrace_ref", refuse)
+    lexg, _ = _lex_graph("deep")
+    bank = _bank(5, 3, 2, 6, seed=3).to(dev)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((4, 30, 6)).astype(np.float32)).to(dev)
+    nf = torch.tensor([30, 12, 1, 0], dtype=torch.int32, device=dev)
+    before = (tbeam.beam_search.launches, tbeam.beam_backtrace.launches)
+    words, costs = beam_decode_lextree(bank, lexg, x, nf, 16)
+    assert (tbeam.beam_search.launches, tbeam.beam_backtrace.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert len(words) == 4 and costs[0] < 5e29
+    tb = tbeam.beam_tables(lexg.banded, leaf_word=lexg.leaf_word, device=dev)
+    with pytest.raises(ValueError, match="init states"):
+        tbeam.beam_search(x[:, :, :1].repeat(1, 1, 15), tb, nf, 1)
+    assert tbeam.beam_search.launches == before[0] + 1
 
 
 def test_beam_decodes_cuda_match_cpu(dev):

@@ -134,7 +134,8 @@ def test_port_has_a_counterpart_of_every_module():
         "speech_recognition_tpu_torch")
     renamed = {"ops/frontend_pallas.py", "ops/pallas_kernels.py", "ops/viterbi_banded_pallas.py",
                "ops/viterbi_lex_pallas.py"}
-    own = {"data/lexicon.py", "ops/forward_backward_kernels.py", "ops/frontend_kernel.py",
+    own = {"data/lexicon.py", "ops/beam_kernels.py", "ops/forward_backward_kernels.py",
+           "ops/frontend_kernel.py",
            "ops/gmm_fit_kernels.py", "ops/lattice_kernels.py", "ops/viterbi_banded_kernels.py", "ops/viterbi_kernels.py",
            "ops/viterbi_lex_kernels.py", "utils/build.py"}
     assert jax_mods - port_mods == renamed
