@@ -1194,6 +1194,9 @@ def main(argv=None) -> int:
         rescore_walk_work,
         span_pairs,
         tail_ops,
+        STEP_CYCLES,
+        TOKEN_BEAM_STEPS,
+        token_beam_floor,
         token_beam_work,
         token_walk_work,
     )
@@ -4408,9 +4411,11 @@ def main(argv=None) -> int:
     # with and without the bigram; at k = S (the device tier) the route's
     # words and costs == K4 + K5; a dict1-shaped case on the device tier
     tb_k = beam_tables(lexp.banded, leaf_word=lexp.leaf_word, device=dev)
-    c_k, (r_k, l_k) = tb_k.child_starts.shape[1], tb_k.eps_block.shape
+    r_k, l_k = tb_k.eps_block.shape
     u_k = nll_t.shape[0]
-    plans_k = [bk.beam_plan(s_t, k_, c_k, r_k, l_k, u_k) for k_ in (64, s_t)]
+    pack_k = bk.beam_pack(tb_k)
+    plans_k = [bk.beam_plan(s_t, k_, bk.beam_widest(pack_k, k_, tb_k.init_states.shape[0]),
+                            r_k, l_k, u_k) for k_ in (64, s_t)]
     if [p_.tier for p_ in plans_k] != ["shared", "device"]:
         fail(f"beam_plan on the 1k trie: k = 64 and k = S should take the shared and the "
              f"device tier, got {plans_k}")
@@ -4442,7 +4447,8 @@ def main(argv=None) -> int:
         k19_runs[lm_on] = (got, bc)
     # the dictionary-shaped trie (86,520 states): the device tier at k = 64
     tb_d = beam_tables(lexd.banded, leaf_word=lexd.leaf_word, device=dev)
-    plan_d = bk.beam_plan(tb_d.n_states, 64, tb_d.child_starts.shape[1],
+    plan_d = bk.beam_plan(tb_d.n_states, 64, bk.beam_widest(bk.beam_pack(tb_d), 64,
+                                                             tb_d.init_states.shape[0]),
                           *tb_d.eps_block.shape, nlld.shape[0])
     if plan_d.tier != "device":
         fail(f"beam_plan on the dict1-shaped trie at k = 64: {plan_d}")
@@ -4491,6 +4497,18 @@ def main(argv=None) -> int:
                                              bigram_cost=k19_runs[True][1]), reps=10)
     k19_s_ms = cuda_ms(lambda: beam_search(nll_bt, tb_k, n_t, s_t), reps=1)
     k19_d_ms = cuda_ms(lambda: beam_search(nll_dt, tb_d, nfd, 64), reps=3)
+    k19_dev = device_ms(lambda: beam_search(nll_bt, tb_k, n_t, 64), what="K19")
+    k26_dev = device_ms(lambda: beam_backtrace(got64[0], got64[1], got64[4], got64[5], tb_k,
+                                               n_t), what="K26")
+    # the survivors a frame, from the kernel's counter on the k = 64 run
+    k19_stats = torch.zeros((32, bk.STATS), dtype=torch.int64, device=dev)
+    bk.launch_search(nll_bt, tb_k, n_t, 64, True, None, stats=k19_stats)
+    k19_stats = k19_stats.cpu()
+    n_fr = float(k19_stats[:, 0].sum())
+    m_mean = float(k19_stats[:, 1].sum()) / n_fr
+    m_max = int(k19_stats[:, 2].max())
+    k19_phases = {ph: float(k19_stats[:, 3 + i].sum()) / n_fr for i, ph in enumerate(bk.PHASES)}
+    frames_k = int(n_t.clamp(min=1, max=T).max())
     k19_work = token_beam_work(got64[3], tb_k, n_t, u_k)
     k19_big_work = token_beam_work(k19_runs[True][0][3], tb_k, n_t, u_k,
                                    bigram_cost=k19_runs[True][1])
@@ -4514,11 +4532,38 @@ def main(argv=None) -> int:
                   f"streams end in a word); the dict1-shaped trie ({tb_d.n_states} states, "
                   f"device tier) at k = 64 likewise ({found_d} of 32); k = 64 decodes {agree} "
                   f"of 32 streams as the exact decode")
-    phase("timing", f"K19 on the 1k trie 32x{T} (shared tier, {bk.THREADS_SHARED} threads): "
-                    f"k = 64 {t['K19'][0]:.3f} ms event (plain {t['K19'][1]:.1f} ms), with the "
-                    f"bigram {k19_big_ms:.3f} ms, k = S (device tier) {k19_s_ms:.1f} ms; the "
-                    f"dict1-shaped trie 32x{TL} k = 64 (device tier) {k19_d_ms:.3f} ms; K26 "
-                    f"{t['K26'][0]:.4f} ms (plain {t['K26'][1]:.2f} ms) ({card})")
+    phase("timing", f"K19 on the 1k trie 32x{T} (shared tier, {plans_k[0].threads} threads): "
+                    f"k = 64 {t['K19'][0]:.3f} ms event, {k19_dev:.4f} ms device "
+                    f"({k19_dev / frames_k * 1e3:.3f} us a frame over {frames_k} frames; plain "
+                    f"{t['K19'][1]:.1f} ms), with the bigram {k19_big_ms:.3f} ms, k = S (device "
+                    f"tier, {plans_k[1].threads} threads) {k19_s_ms:.1f} ms; the dict1-shaped "
+                    f"trie 32x{TL} k = 64 (device tier) {k19_d_ms:.3f} ms; survivors a frame "
+                    f"(the kernel's counter, k = 64): mean {m_mean:.1f}, most {m_max}; cycles a "
+                    f"frame by phase (its clock64 trace): "
+                    f"{', '.join(f'{k_} {v_:.0f}' for k_, v_ in k19_phases.items())}; K26 "
+                    f"({bk.walk_plan(64, T).form} form) {t['K26'][0]:.4f} ms event, "
+                    f"{k26_dev:.4f} ms device (plain {t['K26'][1]:.2f} ms) ({card})")
+    # the route by stage: the tables (cached a graph and device), the bank
+    # emissions, K19, K26 and the host's word lists
+    nll_rt = bank_nll_ubt(lbank, f_t, n_t).permute(2, 1, 0)
+    res_rt = beam_search(nll_rt, tb_k, n_t, 64)
+    walk_rt = beam_backtrace(res_rt[0], res_rt[1], res_rt[4], res_rt[5], tb_k, n_t,
+                             final_pred=res_rt[2])
+    stages = {
+        "beam_tables": cuda_ms(lambda: beam_tables(lexp.banded, leaf_word=lexp.leaf_word,
+                                                   device=dev)),
+        "bank_nll_ubt": cuda_ms(lambda: bank_nll_ubt(lbank, f_t, n_t)),
+        "K19": t["K19"][0],
+        "K26": t["K26"][0],
+        "word lists": cuda_ms(lambda: (walk_rt[0].cpu(),
+                                       lexdec._word_lists(walk_rt[1].cpu().numpy())), reps=10),
+        "route event": beam_ms["token beam"]["k=64 route (K19 + K26)"],
+        "route device": device_ms(lambda: beam_decode_lextree(lbank, lexp, f_t, n_t, 64),
+                                  what="token beam route")}
+    phase("timing", f"token beam route, 1k trie 32x{T} k = 64, by stage (ms): "
+                    + ", ".join(f"{k_} {v_:.3f}" for k_, v_ in stages.items())
+                    + f"; idle share {1 - stages['route device'] / stages['route event']:.3f} "
+                      f"({card})")
 
     # (d) the spell checker: 256 misspellings against the 1,000-word list
     words_sc = list(lexp.words)
@@ -4805,6 +4850,12 @@ def main(argv=None) -> int:
         floor_ms = steps * SMEM_STEP_CYCLES / SM_CLOCK_HZ * 1e3
         phase("bound", f"{name}: serial floor {floor_ms:.3g} ms ({steps} dependent steps at "
                        f"one shared-memory load each); the kernel took {ms / floor_ms:.1f}x it")
+    k19_floor = token_beam_floor(n_t) * 1e3
+    phase("bound", f"K19 1k trie 32x{T} k=64: serial floor {k19_floor:.4f} ms (the longest "
+                   f"stream's frames x a frame's dependent steps {TOKEN_BEAM_STEPS} at "
+                   f"{STEP_CYCLES} cycles, one merge round); the kernel took "
+                   f"{t['K19'][0] / k19_floor:.1f}x it event, {k19_dev / k19_floor:.1f}x "
+                   f"device")
     for k, (*w_, ms) in [(k, (*v, t[k][0])) for k, v in work.items()] + list(more.items()):
         b_ms, by = bound(*w_)
         sfu = f", {w_[2] / 1e9:.2f} G exps and logs" if len(w_) > 2 else ""

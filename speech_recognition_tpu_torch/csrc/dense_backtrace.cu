@@ -115,23 +115,6 @@ __global__ void __launch_bounds__(kChainThreads) dense_backtrace_chain_kernel(
   }
 }
 
-// Hopper's bulk copies (the TMA unit, no tensor map): `bytes` (a multiple
-// of 16) from 16-byte aligned global memory to 16-byte aligned shared
-// memory, completion counted on an mbarrier in transaction bytes.
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_expect(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-}
 // the 16-byte chunks that n words from address u span
 __device__ __forceinline__ int chunks(uintptr_t u, int n) {
   return (((int)(u >> 2) & 3) + n + 3) >> 2;
@@ -141,13 +124,6 @@ __device__ __forceinline__ int chunks(uintptr_t u, int n) {
 __device__ __forceinline__ void cp_async16_s(unsigned dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
 }
-__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, unsigned bytes,
-                                          unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
 // One stream's windows.  Two stages in shared memory, each the bp rows then
 // (eps_depth > 0) the eps_bp rows of one window; the current stage holds
 // frames [wt, wt + W) x states [wlo, wlo + R), the other the load ahead

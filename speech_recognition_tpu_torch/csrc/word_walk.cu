@@ -41,11 +41,22 @@
 // What bounds them on the H100: a step is a dependent read at a (frame,
 // word) known only after the step before (K22: two, tau then pred_w; K23:
 // two at the same entry, issued together; K26: tok_prev at (t, ix), with
-// tok_word beside it, every frame, after a pass over the k final slots).  The time is the longest
-// chain's round trips, ~0.5-1 us each where the planes are past L2 or cold
-// in it, while the bytes on the chains are a few KB.  Design: one thread a
+// tok_word beside it, every frame, after a pass over the k final slots).
+// The time is the longest chain's round trips, ~0.5-1 us each where the
+// planes are past L2 or cold in it, while the bytes on the chains are a
+// few KB.  Design of K22 / K23, and of K26's chain form: one thread a
 // stream, no staging; a dead stream writes its remaining rows of -1 and
 // stops.
+//
+// K26's window form (ops/beam_kernels.walk_plan: where a ring of four
+// windows of W >= 8 frames of both planes and the stream's rows fit in
+// shared memory, e.g. W = 32 at k = 64, and the planes take bulk copies):
+// one warp a stream.  The lanes pick the best final slot as a warp
+// reduction of (cost key, slot); lane 0 keeps four windows of W frames x
+// k slots of tok_prev and tok_word in flight (two bulk copies each, on an
+// mbarrier a stage), walks each at a shared-memory load a frame into the
+// rows, and refills the stage it left; a chain that dies stops the walk
+// and the copies.  The lanes write the rows at the end.
 
 #include "lattice_walk.cuh"
 
@@ -102,6 +113,35 @@ __global__ void __launch_bounds__(kThreads) wordtrace_walk_kernel(
   n_words[b] = count;
 }
 
+// A final slot's score for K26: cost + (end_bonus[slot] (+ bigram[pred,
+// word]) (+ bigram_end[word])), POS_INF where the slot's state is dead or
+// no word end; `word` its word.
+template <bool kBigram, bool kEnd>
+__device__ __forceinline__ float final_score(const int* final_state, const float* final_cost,
+                                             const int* final_pred, const long long* end_slot,
+                                             const long long* end_word,
+                                             const float* end_bonus, const float* bigram,
+                                             const float* bigram_end, long long o, int S,
+                                             int E, int V, int* word) {
+  const int s = final_state[o];
+  const int sc = clamp_index(s, S);
+  const int slot = (int)end_slot[sc];
+  *word = (int)end_word[sc];
+  float bonus = end_bonus[clamp_index(slot, E)];
+  if (kBigram) {
+    const int wc = clamp_index(*word, V);
+    bonus = bonus + bigram[(long long)min(max(final_pred[o], 0), V) * V + wc];
+    if (kEnd) bonus = bonus + bigram_end[wc];
+  }
+  return (s >= 0 && slot >= 0) ? final_cost[o] + bonus : SRT_POS_INF;
+}
+
+// A cost's order key: unsigned order is float order (no NaN), -0 as +0.
+__device__ __forceinline__ unsigned walk_cost_key(float x) {
+  const unsigned u = __float_as_uint(x + 0.0f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
 // K26.  final_state / final_pred [B, k] int32, final_cost [B, k];
 // tok_prev / tok_word [B, T, k] int32; end_slot / end_word [S] int64,
 // end_bonus [E]; bigram [V + 1, V] and bigram_end [V] where kBigram / kEnd;
@@ -120,18 +160,10 @@ __global__ void __launch_bounds__(kThreads) token_walk_kernel(
   float best = 0.0f;
   int bi = -1, bw = 0;
   for (int j = 0; j < k; ++j) {
-    const long long o = (long long)b * k + j;
-    const int s = final_state[o];
-    const int sc = clamp_index(s, S);
-    const int slot = (int)end_slot[sc];
-    const int word = (int)end_word[sc];
-    float bonus = end_bonus[clamp_index(slot, E)];
-    if (kBigram) {
-      const int wc = clamp_index(word, V);
-      bonus = bonus + bigram[(long long)min(max(final_pred[o], 0), V) * V + wc];
-      if (kEnd) bonus = bonus + bigram_end[wc];
-    }
-    const float tot = (s >= 0 && slot >= 0) ? final_cost[o] + bonus : SRT_POS_INF;
+    int word;
+    const float tot = final_score<kBigram, kEnd>(final_state, final_cost, final_pred, end_slot,
+                                                 end_word, end_bonus, bigram, bigram_end,
+                                                 (long long)b * k + j, S, E, V, &word);
     if (bi < 0 || tot < best) {
       best = tot;
       bi = j;
@@ -155,6 +187,120 @@ __global__ void __launch_bounds__(kThreads) token_walk_kernel(
   }
 }
 
+// K26's window form: one warp a stream, W frames a window.  Shared memory
+// holds a ring of kWalkStages windows of both planes ([stage][plane][W *
+// k] int32, each filled by two bulk copies), the stream's T rows and the
+// stages' mbarriers; the planes are 16-byte aligned with k a multiple of 4
+// (walk_plan), so every window is a whole number of 16-byte chunks.
+constexpr int kWalkStages = 4;
+
+__host__ __device__ inline long long walk_smem(int W, int k, int T) {
+  return 4ll * (2ll * kWalkStages * W * k + T) + 8 * kWalkStages + 8;
+}
+
+template <bool kBigram, bool kEnd>
+__global__ void __launch_bounds__(32) token_walk_window_kernel(
+    const int* __restrict__ final_state, const float* __restrict__ final_cost,
+    const int* __restrict__ final_pred, const int* __restrict__ tok_prev,
+    const int* __restrict__ tok_word, const long long* __restrict__ end_slot,
+    const long long* __restrict__ end_word, const float* __restrict__ end_bonus,
+    const float* __restrict__ bigram, const float* __restrict__ bigram_end,
+    const int* __restrict__ nf, float* __restrict__ best_cost, int* __restrict__ words_rev,
+    int T, int k, int S, int E, int V, int W) {
+  extern __shared__ __align__(16) int wsm[];
+  typedef unsigned long long u64;
+  const int b = blockIdx.x, lane = threadIdx.x;
+  const long long wk = (long long)W * k;
+  int* rows_s = wsm + 2 * kWalkStages * wk;  // rows_s[t]: frame t's word
+  const unsigned bars = (unsigned)__cvta_generic_to_shared(wsm) +
+                        ((4u * (unsigned)(2 * kWalkStages * wk + T) + 7u) & ~7u);
+  const int n = min(max(nf[b], 0), T);
+  const int n_win = (n + W - 1) / W;  // window i: frames [max(0, n - (i + 1) W), n - 1 - i W]
+  const int* prev_b = tok_prev + (long long)b * T * k;
+  const int* word_b = tok_word + (long long)b * T * k;
+  // window i into stage i % kWalkStages: two bulk copies landing on its
+  // mbarrier; the stage's last reads (lane 0's walk) come before the
+  // copies' writes by the proxy fence
+  auto issue = [&](int i) {
+    const int hi = n - 1 - i * W, lo = max(0, hi - W + 1);
+    const unsigned bytes = (unsigned)(4ll * (hi - lo + 1) * k);
+    const unsigned bar = bars + 8u * (i % kWalkStages);
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(wsm + 2 * (i % kWalkStages) * wk);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_arrive_expect(bar, 2 * bytes);
+    bulk_copy(dst, prev_b + (long long)lo * k, bytes, bar);
+    bulk_copy(dst + 4u * (unsigned)wk, word_b + (long long)lo * k, bytes, bar);
+  };
+  if (lane == 0 && n > 0) {
+    for (int st = 0; st < kWalkStages; ++st) mbar_init(bars + 8u * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int i = 0; i < min(kWalkStages, n_win); ++i) issue(i);
+  }
+  // the best final slot: the least (cost key, slot), so the first minimum
+  u64 best = ~0ull;
+  float tot_b = 0.0f;
+  int word_b0 = 0;
+  for (int j = lane; j < k; j += 32) {
+    int word;
+    const float tot = final_score<kBigram, kEnd>(final_state, final_cost, final_pred, end_slot,
+                                                 end_word, end_bonus, bigram, bigram_end,
+                                                 (long long)b * k + j, S, E, V, &word);
+    const u64 key = ((u64)walk_cost_key(tot) << 32) | (unsigned)j;
+    if (key < best) {
+      best = key;
+      tot_b = tot;
+      word_b0 = word;
+    }
+  }
+  const unsigned kmin = __reduce_min_sync(0xffffffffu, (unsigned)(best >> 32));
+  int ix = (int)__reduce_min_sync(0xffffffffu,
+                                  (unsigned)(best >> 32) == kmin ? (unsigned)best : ~0u);
+  const float cost = __shfl_sync(0xffffffffu, tot_b, ix & 31);
+  const int bw = __shfl_sync(0xffffffffu, word_b0, ix & 31);
+  int* out = words_rev + (long long)b * (T + 1);
+  if (lane == 0) {
+    best_cost[b] = cost;
+    out[0] = bw;
+    // lane 0 walks window after window: a frame is a clamp, an address and
+    // a load of tok_prev (tok_word beside it).  Once the chain dies (ix <
+    // 0) its rows are -1 (a sticky flag off the chain's path, which reads
+    // slot 0 on), and the walk stops at the window's end.
+    unsigned parity = 0;
+    int i = 0, issued = min(kWalkStages, n_win);
+    bool dead = false;
+    for (; i < n_win && !dead; ++i) {
+      const int hi = n - 1 - i * W, lo = max(0, hi - W + 1);
+      const int st = i % kWalkStages;
+      mbar_wait(bars + 8u * st, (parity >> st) & 1u);
+      parity ^= 1u << st;
+      const int* rp = wsm + 2 * st * wk + (long long)(hi - lo) * k;
+      for (int t = hi; t >= max(lo, 1); --t, rp -= k) {
+        const int c = max(ix, 0);
+        const int nx = rp[c], w = rp[wk + c];
+        dead |= ix < 0;
+        rows_s[t] = dead ? -1 : w;
+        ix = nx;
+      }
+      if (lo == 0) {  // frame 0: its word, no step
+        dead |= ix < 0;
+        rows_s[0] = dead ? -1 : rp[wk + max(ix, 0)];
+      }
+      dead |= ix < 0;
+      if (!dead && issued < n_win) issue(issued++);
+    }
+    for (int t = n - 1 - i * W; t >= 0; --t) rows_s[t] = -1;
+    // copies still in flight land before the CTA ends
+    for (; i < issued; ++i) {
+      const int st = i % kWalkStages;
+      mbar_wait(bars + 8u * st, (parity >> st) & 1u);
+      parity ^= 1u << st;
+    }
+  }
+  __syncwarp();
+  // row c of the stream: -1 for frames at or past n_frames, else frame T - c
+  for (int c = 1 + lane; c <= T; c += 32) out[c] = c <= T - n ? -1 : rows_s[T - c];
+}
+
 }  // namespace
 
 extern "C" int token_walk_launch(const int* final_state, const float* final_cost,
@@ -163,16 +309,33 @@ extern "C" int token_walk_launch(const int* final_state, const float* final_cost
                                  const long long* end_word, const float* end_bonus,
                                  const float* bigram, const float* bigram_end, const int* nf,
                                  float* best_cost, int* words_rev, int B, int T, int k, int S,
-                                 int E, int V, void* stream) {
+                                 int E, int V, int window, void* stream) {
   if (B <= 0 || T <= 0 || k <= 0 || S <= 0 || E <= 0 || (bigram && (V <= 0 || !final_pred)) ||
       (bigram_end && !bigram))
     return (int)cudaErrorInvalidValue;
+  if (window < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int grid = (B + kThreads - 1) / kThreads;
-#define K26_LAUNCH(BG, EN)                                                                 \
-  token_walk_kernel<BG, EN><<<grid, kThreads, 0, st>>>(                                    \
-      final_state, final_cost, final_pred, tok_prev, tok_word, end_slot, end_word, end_bonus, \
-      bigram, bigram_end, nf, best_cost, words_rev, B, T, k, S, E, V)
+  // the window form's shared memory: a ring of windows of both planes, the
+  // rows and the mbarriers; its planes 16-byte aligned, k a multiple of 4
+  const long long smem = window ? walk_smem(window, k, T) : 0;
+  if (window && ((k & 3) || ((uintptr_t)tok_prev | (uintptr_t)tok_word) & 15))
+    return (int)cudaErrorInvalidValue;
+  if (smem > SRT_MAX_SMEM) return (int)cudaErrorInvalidValue;
+#define K26_LAUNCH(BG, EN)                                                                   \
+  do {                                                                                       \
+    if (window) {                                                                            \
+      const auto kw = token_walk_window_kernel<BG, EN>;                                     \
+      if (smem > 48 * 1024) SRT_SET_SMEM(kw, smem);                                          \
+      kw<<<B, 32, smem, st>>>(                                                               \
+          final_state, final_cost, final_pred, tok_prev, tok_word, end_slot, end_word,        \
+          end_bonus, bigram, bigram_end, nf, best_cost, words_rev, T, k, S, E, V, window);    \
+    } else {                                                                                 \
+      token_walk_kernel<BG, EN><<<grid, kThreads, 0, st>>>(                                  \
+          final_state, final_cost, final_pred, tok_prev, tok_word, end_slot, end_word,        \
+          end_bonus, bigram, bigram_end, nf, best_cost, words_rev, B, T, k, S, E, V);         \
+    }                                                                                        \
+  } while (0)
   if (!bigram)
     K26_LAUNCH(false, false);
   else if (bigram_end)

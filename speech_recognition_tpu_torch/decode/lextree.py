@@ -125,7 +125,19 @@ def beam_decode_lextree(bank: HMMBank, lexg: LexGraph, feats, n_frames, k: int,
     costs, words_rev = _beam_batch(bank, feats, n_frames, tables, k, has_cross,
                                    bigram_cost=bigram_cost, bigram_end=bigram_end)
     costs = costs.cpu().numpy()
-    words_rev = words_rev.cpu().numpy()
-    seqs = [[int(w) for w in row[:0:-1] if w >= 0] + [int(row[0])] for row in words_rev]
+    seqs = _word_lists(words_rev.cpu().numpy())
     _warn_no_path(costs)
     return seqs, costs
+
+
+def _word_lists(words_rev: np.ndarray) -> List[List[int]]:
+    """``beam_backtrace``'s ``words_rev [B, T + 1]`` -> each stream's words:
+    the words ended along the path in time order (columns T..1, -1 left
+    out), then the final token's word (column 0).  The whole plane is
+    reversed and filtered at once; the streams are cut by their counts."""
+    fwd = words_rev[:, :0:-1]
+    keep = fwd >= 0
+    ends = np.cumsum(keep.sum(1)).tolist()
+    flat = fwd[keep].tolist()
+    last = words_rev[:, 0].tolist()
+    return [flat[a:e] + [w] for a, e, w in zip([0] + ends[:-1], ends, last)]

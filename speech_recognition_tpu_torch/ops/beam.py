@@ -33,9 +33,10 @@ token-passing approximation, exact on a flat tree.
 
 ``beam_search`` and ``beam_backtrace`` are gates (``ops.viterbi_banded_
 kernels.use_kernels``): on CUDA tensors each is one launch of a hand
-kernel, K19 (the whole frame loop, ``csrc/token_beam.cu``) and K26 (the
-walk, ``csrc/word_walk.cu``), launched by ``ops.beam_kernels`` and counted
-in ``<gate>.launches``; on CPU tensors their plain versions
+kernel, K19 (the whole frame loop, ``csrc/token_beam.cu``, reading the
+tables packed once per graph by ``ops.beam_kernels.beam_pack``) and K26
+(the walk, ``csrc/word_walk.cu``), launched by ``ops.beam_kernels`` and
+counted in ``<gate>.launches``; on CPU tensors their plain versions
 ``beam_search_ref`` and ``beam_backtrace_ref``, frame loops of tensor ops
 over the whole batch (in JAX both are ``lax.scan``s).  No ``try`` falls
 back.  Every token plane of the plain version, garbage slots included,
@@ -49,6 +50,7 @@ costs from either's planes.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import numpy as np
@@ -83,12 +85,35 @@ class BeamTables(NamedTuple):
     n_children: int  # finite cross edges in all (0: no child expansion)
 
 
+_TABLES: "collections.OrderedDict" = collections.OrderedDict()
+_TABLES_KEPT = 8
+
+
 def beam_tables(g: BandedGraph, leaf_word=None, device=None) -> BeamTables:
     """Expansion tables of a (lexical-tree or word) banded graph, built on
     the host and returned on ``device``.
 
     ``leaf_word [L]`` maps leaves to word ids (lexical trees); word graphs
-    default to the end slot (the vocabulary position in loop graphs)."""
+    default to the end slot (the vocabulary position in loop graphs).
+    Built once per graph (its tensors and their versions), leaf words and
+    device, and kept for the last few: a call on the same graph returns
+    the same tables.  An entry holds its graph, so the graph's memory is
+    not reused while it is kept."""
+    key = (tuple((t.data_ptr(), t._version, tuple(t.shape), str(t.device))
+                 for t in g if isinstance(t, torch.Tensor)),
+           None if leaf_word is None else np.asarray(leaf_word, np.int64).tobytes(),
+           None if device is None else str(torch.device(device)))
+    ent = _TABLES.get(key)
+    if ent is None:
+        ent = _TABLES[key] = (g, _build_tables(g, leaf_word, device))
+        while len(_TABLES) > _TABLES_KEPT:
+            _TABLES.popitem(last=False)
+    else:
+        _TABLES.move_to_end(key)
+    return ent[1]
+
+
+def _build_tables(g: BandedGraph, leaf_word, device) -> BeamTables:
     ends = g.word_ends.cpu().numpy()
     if not np.array_equal(g.end_states.cpu().numpy(), ends):
         raise ValueError("token beam expects end_states == word_ends "

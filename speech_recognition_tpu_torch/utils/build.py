@@ -140,9 +140,9 @@ def load_library() -> ctypes.CDLL:
                                           i, i, i, p]
     lib.kmeans_fit_launch.argtypes = [p] * 12 + [i] * 6 + [f, f] + [i] * 3 + [q, p]
     lib.em_fit_launch.argtypes = [p] * 12 + [i] * 6 + [f] * 4 + [i, i, q, p]
-    lib.token_beam_launch.argtypes = [p] * 20 + [i] * 13 + [q, p]
-    lib.token_walk_launch.argtypes = [p] * 13 + [i] * 6 + [p]
-    lib.token_beam_bytes.argtypes = [i] * 7
+    lib.token_beam_launch.argtypes = [p] * 16 + [i] * 14 + [q, p]
+    lib.token_walk_launch.argtypes = [p] * 13 + [i] * 7 + [p]
+    lib.token_beam_bytes.argtypes = [i] * 5
     lib.token_beam_bytes.restype = q
     for fn in (lib.mfcc_tail_launch, lib.bank_emission_launch, lib.banded_forward_launch,
                lib.banded_warp_launch,

@@ -21,7 +21,8 @@ __all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "SFU_PER_S", "SMEM_STEP_CYCLES", 
            "bound", "nbytes", "graph_bytes", "dp_ops", "span_pairs", "ceps_ops", "dense_ops",
            "mfcc_ops", "tail_ops", "rescore_ops", "rescore_walk_work", "fb_steps", "fb_dense_work",
            "fb_banded_work", "dense_walk_work", "chain_walk_work", "gmm_fit_work",
-           "token_beam_work", "token_walk_work", "report"]
+           "token_beam_work", "token_beam_floor", "token_walk_work", "STEP_CYCLES",
+           "TOKEN_BEAM_STEPS", "report"]
 
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit):
 # device memory bandwidth and f32 rate outside the tensor cores (the port
@@ -32,6 +33,23 @@ F32_OPS_PER_S = 67e12
 # Hopper) at the H100 SXM's boost clock
 SMEM_STEP_CYCLES = 30
 SM_CLOCK_HZ = 1.98e9
+
+
+# Latencies of one dependent step by kind, in SM cycles on the H100 80GB
+# HBM3 (scripts/exp_r25_token_beam.py --lab: a pointer chase in shared
+# memory 28.6, through L2 with ld.global.cg 283.2, a chain of 64-bit
+# shuffles each feeding a min 44.3, a chain of block barriers at 256
+# threads 74.8).
+STEP_CYCLES = {"smem": 29, "l2": 283, "shfl": 44, "barrier": 75}
+# K19's frame (csrc/token_beam.cu) as a chain of dependent steps at up to
+# 8 runs of survivors: proposals (frontier, edge record through L2, row,
+# the 64-bit atomicMin's load and swap, the list slot), the warp sort
+# (touched, key, 15 shuffle stages, store), the ranking (a key, its 6-step
+# search, the M step's store; its state record through L2), the eps pass
+# (end list, slot, eps block through L2, two minima, a ballot and a
+# shuffle, key table, cost, winner slot) and the ranks (winners, kill,
+# M's key, store, reset); five barriers.
+TOKEN_BEAM_STEPS = {"smem": 26, "l2": 3, "shfl": 19, "barrier": 5}
 
 
 # exp and log issue on the special function units, 16 a clock per SM: 132
@@ -319,40 +337,43 @@ def token_beam_work(tok_state, tables, n_frames, n_units: int, has_cross: bool =
     ``tok_state [B, T, k]`` (live slots >= 0) and its ``BeamTables``: per
     stream, frame 0 and each frame below its length, with n(t) the live
     tokens the frame keeps, e(t) those at word ends and c(t) its
-    candidates (the init states at frame 0, else n(t - 1) (3 + C)).
+    candidates (the init states at frame 0, else the proposals of the
+    tokens kept at t - 1: their runs in ``ops.beam_kernels.beam_pack``).
 
-    Bytes: the frame's emission row (4 U); every table once (band, child
-    starts and costs with cross edges, bank rows, end slots and words,
-    word starts, the eps block, the init states); a bigram entry per end
-    token and frame, at most the bigram's size; the three ``[B, T, k]``
-    int32 planes and the ``[B, k]`` final frontier written.  Operations:
-    per candidate the two adds, the clamp, the live compare and the key's
-    compare (5); the kept tokens' ranking, n log2 n compares (the fewest
-    a comparison sort takes); per (word start, end token) pair an add and
-    a compare (2, one more with the bigram); the second merge's rank
-    compares, n(t) R."""
+    Bytes: the frame's emission row (4 U); the packed tables once (the
+    edge records, the state records, the init states and word starts, 16
+    bytes each) and the eps block; a bigram entry per end token and frame,
+    at most the bigram's size; the three ``[B, T, k]`` int32 planes and
+    the ``[B, k]`` final frontier written.  Operations: per candidate the
+    two adds, the clamp, the live compare and the key's compare (5); the
+    kept tokens' ranking, n log2 n compares (the fewest a comparison sort
+    takes); per (word start, end token) pair an add and a compare (2, one
+    more with the bigram); the second merge's rank compares, n(t) R."""
     import math
 
     import torch
 
+    from speech_recognition_tpu_torch.ops.beam_kernels import beam_pack
+
     tb = tables
     b, t_len, k = tok_state.shape
-    n_children = tb.child_starts.shape[1] if has_cross else 0
+    pack = beam_pack(tb, has_cross)
+    deg = torch.from_numpy(pack.rec[:, 1].astype("int64"))
+    n_edges = int(deg.sum())
     n_starts = tb.eps_block.shape[0]
     nf = torch.as_tensor(n_frames, device=tok_state.device).reshape(b).long()
     frames = torch.clamp(nf, min=1, max=t_len)
-    going = torch.arange(t_len, device=tok_state.device)[None, :] < frames[:, None]
-    live = ((tok_state >= 0).sum(2) * going).cpu()  # n(t) [B, T]
-    ends = ((tb.end_slot[tok_state.long().clamp(min=0)] >= 0) & (tok_state >= 0)).sum(2)
+    going = (torch.arange(t_len, device=tok_state.device)[None, :] < frames[:, None]).cpu()
+    ts = tok_state.long().cpu()
+    live = ((ts >= 0).sum(2) * going)  # n(t) [B, T]
+    ends = ((tb.end_slot.cpu()[ts.clamp(min=0)] >= 0) & (ts >= 0)).sum(2)
     n_ends = int((ends * going).sum())
-    prev = torch.cat([torch.zeros((b, 1), dtype=live.dtype), live[:, :-1]], 1) * going.cpu()
-    cand = prev * (3 + n_children)
+    runs = torch.where(ts >= 0, deg[ts.clamp(min=0)], 0).sum(2)  # proposals of frame t's tokens
+    cand = torch.cat([torch.zeros((b, 1), dtype=runs.dtype), runs[:, :-1]], 1) * going
     cand[:, 0] = tb.init_states.shape[0]
     sort_ops = sum(n * math.log2(n) for n in live.flatten().tolist() if n > 1)
-    tables_bytes = nbytes(tb.band, tb.bank_state, tb.end_slot, tb.end_word, tb.word_starts,
-                          tb.eps_block, tb.init_states, tb.init_costs)
-    if has_cross:
-        tables_bytes += nbytes(tb.child_starts, tb.child_costs)
+    tables_bytes = 16 * (n_edges + len(pack.rec) + tb.init_states.shape[0] + n_starts) + \
+        nbytes(tb.eps_block)
     big_bytes = 0 if bigram_cost is None else min(4 * n_ends, nbytes(bigram_cost))
     n_bytes = (4 * n_units * int(frames.sum()) + tables_bytes + big_bytes
                + 12 * b * t_len * k + 12 * b * k)
@@ -360,6 +381,23 @@ def token_beam_work(tok_state, tables, n_frames, n_units: int, has_cross: bool =
              + (2 if bigram_cost is None else 3) * n_ends * n_starts
              + int(live.sum()) * n_starts)
     return n_bytes, n_ops
+
+
+def token_beam_floor(n_frames, rounds: int = 1) -> float:
+    """K19's serial floor in seconds: the longest stream's frames times
+    the dependent steps of one frame (``TOKEN_BEAM_STEPS``, its survivors
+    ranked in one round; each more merge round adds its search, its move
+    and two barriers) at their latencies (``STEP_CYCLES``) and the SM
+    clock.  No frame of the kernel can be shorter: each step waits for the
+    one before."""
+    import torch
+
+    frames = int(torch.as_tensor(n_frames).reshape(-1).clamp(min=1).max())
+    steps = dict(TOKEN_BEAM_STEPS)
+    steps["smem"] += 8 * (rounds - 1)
+    steps["barrier"] += 2 * (rounds - 1)
+    cycles = sum(n * STEP_CYCLES[kind] for kind, n in steps.items())
+    return frames * cycles / SM_CLOCK_HZ
 
 
 def token_walk_work(n_frames, t_len: int, k: int):

@@ -2803,12 +2803,11 @@ def test_token_beam_kernels_match_plain(dev, kind, k, lm, tier, ties):
     has_cross = tb.n_children > 0
     assert has_cross == (kind == "1k")
     k = k or tb.n_states
-    c = tb.child_starts.shape[1] if has_cross else 0
     r, l = tb.eps_block.shape
-    plan = bk.beam_plan(tb.n_states, k, c, r, l, n_bank)
+    mmax = bk.beam_widest(bk.beam_pack(tb, has_cross), k, tb.init_states.shape[0])
+    plan = bk.beam_plan(tb.n_states, k, mmax, r, l, n_bank)
     assert plan.tier == tier
-    assert load_library().token_beam_bytes(tb.n_states, k, 3 + c, r, l, n_bank,
-                                           int(tier == "shared")) == plan.nbytes
+    assert load_library().token_beam_bytes(tb.n_states, k, mmax, r, l) == plan.nbytes
     rng = np.random.default_rng(k)
     b, t_len = (3, 24) if tier == "device" else (5, 60)
     e = rng.integers(0, 3, (b, t_len, n_bank)) if ties else rng.uniform(0, 5, (b, t_len, n_bank))
@@ -2833,10 +2832,22 @@ def test_token_beam_kernels_match_plain(dev, kind, k, lm, tier, ties):
                                          final_pred=want[2], bigram_cost=big,
                                          bigram_end=big_end)
     _walk_equal(walk, want_walk)
-    # K26 on the plain version's own planes (dead slots in sort order)
-    _walk_equal(tbeam.beam_backtrace(want[0], want[1], want[4], want[5], tb, nf,
-                                     final_pred=want[2], bigram_cost=big,
-                                     bigram_end=big_end), want_walk)
+    # K26 on the plain version's own planes (dead slots in sort order), in
+    # both its forms
+    wplans = [bk.walk_plan(k, t_len), bk.WalkPlan("chain", 0, 0)]
+    if k % 4 == 0 and bk._walk_smem(8, k, t_len) <= bk.SMEM_LIMIT:
+        wplans.append(bk.WalkPlan("window", 8, 0))
+    for wplan in wplans:
+        _walk_equal(bk.launch_walk(want[0], want[1], want[4], want[5], tb, nf, want[2], big,
+                                   big_end, plan=wplan), want_walk)
+    # the survivor counter: frames, survivors summed and the most a frame
+    stats = torch.zeros((b, bk.STATS), dtype=torch.int64, device=dev)
+    again = bk.launch_search(e, tb, nf, k, has_cross, big, stats=stats)
+    assert all(torch.equal(x, y) for x, y in zip(again, got))
+    st = stats.cpu()
+    assert torch.equal(st[:, 0], nf.cpu().clamp(1, t_len).long())
+    assert bool((st[:, 2] <= mmax).all()) and bool((st[:, 1] >= st[:, 2]).all())
+    assert bool((st[:, 3:] >= 0).all()) and bool((st[:, 3:].sum(1) > 0).all())
 
 
 def test_token_beam_never_runs_the_plain_loop_on_the_card(dev, monkeypatch):
