@@ -131,11 +131,16 @@ to convergence with no host read.  They are held to their plain versions
 call ``isolated_train --silence`` made on the card (frames at a near-tie
 of the plain distances may go to the other cluster: such fits are
 counted and left out), and for one iteration and whole fits on planted
-mixtures at ``fit_hmm``'s shape, at a fit of 8,000 frames (past the
-frames a CTA stages in shared memory) and at 3,000 feature dimensions
-(the parameters in device memory), with and without the covariance
-quirk (assignments, counts and iteration counts exact, the rest at
-``GMM_TOL``), two launches bit for bit.  K11 is held
+mixtures in every instance and tier: ``fit_hmm``'s shape (D = 39, M =
+4, staged), M = 1 and 2, a fit of 8,000 frames (past the frames a CTA
+stages: the ring), the generic instance staged and streamed, and 3,000
+feature dimensions (the device instance), with and without the
+covariance quirk (assignments, counts and iteration counts exact, the
+rest at ``GMM_TOL``), two launches bit for bit; and for one iteration at
+``continuous_train``'s refit (the corpus aligned with the cuda-trained
+bank).  Their counters print the phases' cycles of the design and of the
+one it replaced (``scripts/exp_r26_parent_gmm_fit.cu``) at digit 0's
+second split level.  K11 is held
 bit-identical to its plain version at the two training shapes the cuda
 run gave it (a word's segmental K-means batch, the embedded step's
 transcript graphs), and ``isolated_train`` is timed per digit (with its
@@ -1186,6 +1191,7 @@ def main(argv=None) -> int:
         dp_ops,
         fb_banded_work,
         fb_dense_work,
+        gmm_fit_floor,
         gmm_fit_work,
         graph_bytes,
         mfcc_ops,
@@ -3046,7 +3052,7 @@ def main(argv=None) -> int:
     for dgt, fs in by_digit.items():
         temps[dgt] = [f_tr[j, : nf_np[j]] for j in range(i0, i0 + len(fs))]
         i0 += len(fs)
-    from speech_recognition_tpu_torch.config import TrainConfig
+    from speech_recognition_tpu_torch.config import HMMConfig, TrainConfig
     from speech_recognition_tpu_torch.train.kmeans import random_assign
 
     # stages split inside the port's own calls: CUDA events around the
@@ -3325,23 +3331,33 @@ def main(argv=None) -> int:
                          f"{same:.3f}")
     phase("K24/K25", "whole fits at digit 0's two split levels against the plain versions "
                      "(informational): " + "; ".join(whole))
-    # (sizes, D): a word's states; a fit past the frames a CTA stages; and
-    # features so wide that the parameters live in device memory
-    gmm_planted = {"fit_hmm shape": ((260, 240, 300, 180, 220), 39),
-                   "device memory": ((8000, 300, 40), 39),
-                   "parameters in device memory": ((12, 300), 3000)}
-    for case, (sizes, d_) in gmm_planted.items():
-        x_, masks_, c0_, init_ = planted_fits(40, sizes, dev, d=d_)
-        plan_ = gfk.gmm_fit_plan(x_.shape[0], d_, 4, em=False)
-        _, m0_, v0_, cnt_ = tkm.kmeans_batch_ref(x_, masks_, c0_, 4, init_)
+    # (sizes, D, M) in every instance and tier: a word's states (D = 39, M
+    # = 4, staged); M = 1 and 2; a fit past the frames a CTA stages (the
+    # ring); the generic instance staged and streamed; and features so wide
+    # that the parameters live in device memory (the device instance).  One
+    # iteration at GMM_STEP_TOL at fit_hmm's shape and for the 8,000-frame
+    # fit, else as accurate as the plain version against float64 (GMM_AS_ACCURATE: on
+    # planted centres a ddof-1 variance loses ~1e-4 of itself to float32
+    # cancellation in either order)
+    gmm_planted = {"fit_hmm shape": ((260, 240, 300, 180, 220), 39, 4),
+                   "M = 1": ((260, 240, 300), 39, 1),
+                   "M = 2": ((260, 240, 300), 39, 2),
+                   "device memory": ((8000, 300, 40), 39, 4),
+                   "generic": ((200, 150, 90), 20, 3),
+                   "generic, streamed": ((5000, 300), 20, 3),
+                   "parameters in device memory": ((12, 300), 3000, 4)}
+    for case, (sizes, d_, k_) in gmm_planted.items():
+        x_, masks_, c0_, init_ = planted_fits(40, sizes, dev, d=d_, k=k_)
+        plan_ = gfk.gmm_fit_plan(x_.shape[0], d_, k_, em=False)
+        _, m0_, v0_, cnt_ = tkm.kmeans_batch_ref(x_, masks_, c0_, k_, init_)
         w0_ = cnt_ / masks_.sum(1, keepdim=True).clamp(min=1).float()
-        fits_ = {"K24": [((x_, masks_, c0_, 4, init_), dict(shared_cov_quirk=q, disjoint=True))
+        fits_ = {"K24": [((x_, masks_, c0_, k_, init_), dict(shared_cov_quirk=q, disjoint=True))
                          for q in (False, True)],
                  "K25": [((x_, masks_, m0_, v0_, w0_), dict(disjoint=True))]}
         f64_ = []
         for name, calls_ in fits_.items():
             for args_, kw_ in calls_:
-                if d_ == 39:
+                if case in ("fit_hmm shape", "device memory"):
                     gmm_hold(name, f"planted {case}", args_, dict(kw_, max_iters=1),
                              GMM_STEP_TOL)
                 else:  # one iteration against float64 (GMM_AS_ACCURATE)
@@ -3357,9 +3373,10 @@ def main(argv=None) -> int:
                                 f"{max(p for _, p in f64_errs):.3g})")
                 gmm_hold(name, f"planted {case}", args_, dict(kw_, max_iters=100), GMM_TOL)
         it25 = k25(x_, masks_, m0_, v0_, w0_)[3].tolist()
-        phase("K24/K25", f"planted mixtures, {case}: fits of {sizes} frames of D {d_} (plan: "
-                         f"parameters in {plan_.params} memory, cap {plan_.cap} frames staged, "
-                         f"frames tier {plan_.frames}): K24 with "
+        phase("K24/K25", f"planted mixtures, {case}: fits of {sizes} frames of D {d_}, M {k_} "
+                         f"(plan: instance {plan_.instance}, parameters in {plan_.params} "
+                         f"memory, cap {plan_.cap} frames staged, ring {plan_.stages} x "
+                         f"{plan_.tile} frames): K24 with "
                          f"and without the quirk and K25 equal to their plain versions, one "
                          f"iteration"
                          + (f" (against float64: largest difference {', '.join(f64_)}, within "
@@ -3371,11 +3388,66 @@ def main(argv=None) -> int:
         if case == "device memory":
             gmm_dev = {"K24": ((x_, masks_, c0_, 4, init_), {}),
                        "K25": ((x_, masks_, m0_, v0_, w0_), {})}
+    # continuous_train's refit: the corpus aligned with the cuda-trained
+    # bank (as train/continuous.py forms the masks), one iteration of the
+    # function, its K24 / K25 calls recorded; held for one iteration (K24's
+    # near-tie flips left out, as above)
+    refit_calls = {"K24": [], "K25": []}
+    with recording(iso, "kmeans_batch", refit_calls["K24"]), \
+            recording(iso, "em_fit_batch", refit_calls["K25"]):
+        cont.continuous_train(bank_c, f_c, n_c, clabels,
+                              hmm_cfg=HMMConfig(n_states=bank_c.n_states, n_mix=bank_c.n_mix),
+                              train_cfg=TrainConfig(continuous_max_iters=1))
+    refit_err, refit_flips = {}, 0
+    for name in ("K24", "K25"):
+        args_, kw_ = refit_calls[name][-1]
+        skip = k24_step_flips(args_, kw_) if name == "K24" else []
+        refit_flips += len(skip)
+        refit_err[name] = gmm_hold(name, "one iteration at continuous_train's refit", args_,
+                                   dict(kw_, max_iters=1), GMM_STEP_TOL, skip)
+    refit_n_f = refit_calls["K24"][-1][0][1].sum(1)
+    phase("K24/K25", f"continuous_train's refit ({refit_n_f.numel()} fits of "
+                     f"{int(refit_n_f.min())}-{int(refit_n_f.max())} frames in a buffer of "
+                     f"{refit_calls['K24'][-1][0][0].shape[0]}, k = 4): one iteration equal to "
+                     f"the plain versions, largest difference K24 {refit_err['K24']:.3g}, K25 "
+                     f"{refit_err['K25']:.3g}; {refit_flips} fit(s) with a frame at a near-tie "
+                     f"assigned otherwise, left out")
+    # the phases' cycles by counter at digit 0's second split level: this
+    # design and the one it replaced (its traced lab copy, built here)
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "exp_r26_gmm_fit", os.path.join(HERE, "scripts", "exp_r26_gmm_fit.py"))
+    exp26 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(exp26)
+    lab_dir = os.path.join(tmp, "exp_r26")
+    os.makedirs(lab_dir, exist_ok=True)
+    parent_lib = exp26.parent_library(lab_dir)
+    for name in ("K24", "K25"):
+        args_, kw_ = gmm_calls[name][1]
+        rows_ = {}
+        for who in ("change", "replaced design"):
+            trace_ = torch.zeros((args_[1].shape[0], 8), dtype=torch.int64, device=dev)
+            if who == "replaced design":
+                exp26.parent_run(parent_lib, name, args_, kw_, trace_)
+            elif name == "K24":
+                gfk.launch_kmeans(*args_, kw_.get("max_iters", 100), False, 1e-6, None,
+                                  kw_.get("disjoint", False), trace=trace_)
+            else:
+                gfk.launch_em(*args_, kw_.get("max_iters", 100), kw_.get("rtol", 1e-5),
+                              kw_.get("atol", 1e-8), kw_.get("var_floor", 1e-6),
+                              kw_.get("disjoint", False), trace=trace_)
+            torch.cuda.synchronize()
+            rows_[who] = exp26.summarize(trace_)["slowest fit, cycles an iteration"]
+        phase("K24/K25", f"{name} at digit 0's second split level, the slowest fit's cycles an "
+                         f"iteration by phase (clock64, thread 0): "
+                         + "; ".join(f"{who} " + ", ".join(f"{k} {v:.0f}" for k, v in r.items())
+                                     for who, r in rows_.items()) + f" ({card})")
     for name in ("K24", "K25"):
         report[name] = {"max_abs_err": gmm_err[name]}
     # timed at digit 0's second split level (5 states, k = M = 4), and on
     # the planted device-memory case
-    gmm_t, gmm_work, gmm_more = {}, {}, {}
+    gmm_t, gmm_work, gmm_more, gmm_floor = {}, {}, {}, {}
     for name in ("K24", "K25"):
         args_, kw_ = gmm_calls[name][1]
         kernel, plain = gmm_pair[name]
@@ -3395,10 +3467,12 @@ def main(argv=None) -> int:
         staged = all(v <= plan_.cap for v in n_f)
         gmm_work[name] = gmm_fit_work(n_f, d_, m_, its, staged=staged, n=n_,
                                       kmeans=name == "K24")
+        gmm_floor[name] = gmm_fit_floor(n_f, its, d_, m_, staged, kmeans=name == "K24") * 1e3
         phase("timing", f"{name} at digit 0's second split level ({masks_.shape[0]} fits of "
                         f"{n_f} frames in a buffer of {n_}, D {d_}, {m_} mixtures, iterations "
                         f"{its}, staged {staged}): {gmm_t[name][0]:.3f} ms event, plain "
-                        f"{gmm_t[name][1]:.1f} ms ({card})")
+                        f"{gmm_t[name][1]:.1f} ms, serial floor {gmm_floor[name]:.4f} ms "
+                        f"({card})")
         args_, kw_ = gmm_dev[name]
         n_f = args_[1].sum(1).tolist()
         if name == "K24":
@@ -3411,8 +3485,30 @@ def main(argv=None) -> int:
         gmm_more[f"{name} planted, {n_f[0]} frames from device memory"] = (
             *gmm_fit_work(n_f, 39, 4, its, staged=False, n=args_[0].shape[0],
                           kmeans=name == "K24"), tier_ms)
-        phase("timing", f"{name} on planted fits of {n_f} frames (the first read from device "
-                        f"memory), iterations {its}: {tier_ms:.3f} ms event ({card})")
+        phase("timing", f"{name} on planted fits of {n_f} frames (the first streamed through "
+                        f"the ring), iterations {its}: {tier_ms:.3f} ms event ({card})")
+        args_, kw_ = refit_calls[name][-1]
+        n_f = args_[1].sum(1).tolist()
+        if name == "K24":
+            its = torch.zeros(args_[1].shape[0], dtype=torch.int32, device=dev)
+            k24(*args_, **kw_, iters=its)
+            its = its.tolist()
+        else:
+            its = k25(*args_, **kw_)[3].tolist()
+        plan_ = gfk.gmm_fit_plan(args_[0].shape[0], 39, 4, em=name == "K25")
+        refit_ms = cuda_ms(lambda: kernel(*args_, **kw_), reps=3)
+        refit_dev = device_ms(lambda: kernel(*args_, **kw_), reps=2,
+                              what=f"{name} at continuous_train's refit")
+        refit_floor = gmm_fit_floor(n_f, its, 39, 4, [v <= plan_.cap for v in n_f],
+                                    kmeans=name == "K24") * 1e3
+        gmm_more[f"{name} continuous_train's refit, {len(n_f)} fits"] = (
+            *gmm_fit_work(n_f, 39, 4, its, staged=False, n=args_[0].shape[0],
+                          kmeans=name == "K24"), refit_ms)
+        phase("timing", f"{name} at continuous_train's refit ({len(n_f)} fits of {min(n_f)}-"
+                        f"{max(n_f)} frames, {sum(v > plan_.cap for v in n_f)} through the ring; "
+                        f"buffer {args_[0].shape[0]}; iterations up to {max(its)}): "
+                        f"{refit_ms:.3f} ms event, {refit_dev:.3f} device; serial floor "
+                        f"{refit_floor:.4f} ms ({card})")
 
     # ---- 7. timings ---------------------------------------------------------
     t = {}
@@ -4851,6 +4947,14 @@ def main(argv=None) -> int:
         phase("bound", f"{name}: serial floor {floor_ms:.3g} ms ({steps} dependent steps at "
                        f"one shared-memory load each); the kernel took {ms / floor_ms:.1f}x it")
     k19_floor = token_beam_floor(n_t) * 1e3
+    # the serial floors the kernels line carries (K19's, K24's and K25's
+    # models; the walks' are printed above)
+    serial_floor = {"K19": k19_floor, **gmm_floor}
+    for name in ("K24", "K25"):
+        phase("bound", f"{name} at digit 0's second split level: serial floor "
+                       f"{gmm_floor[name]:.4f} ms (utils/roofline.gmm_fit_floor: the slowest "
+                       f"fit's passes x an iteration's dependent steps at {STEP_CYCLES} "
+                       f"cycles); the kernel took {t[name][0] / gmm_floor[name]:.1f}x it event")
     phase("bound", f"K19 1k trie 32x{T} k=64: serial floor {k19_floor:.4f} ms (the longest "
                    f"stream's frames x a frame's dependent steps {TOKEN_BEAM_STEPS} at "
                    f"{STEP_CYCLES} cycles, one merge round); the kernel took "
@@ -4941,7 +5045,8 @@ def main(argv=None) -> int:
                 "replaces": rep, "launches": sum(n_launch[f_] for f_ in fn),
                 "max_abs_err": report[k]["max_abs_err"],
                 "ms": t[k][0], "plain_ms": t[k][1], "bound_ms": bounds[k][0],
-                "bound_by": bounds[k][1], "library_ms": None}
+                "bound_by": bounds[k][1], "library_ms": None,
+                "serial_floor_ms": serial_floor.get(k)}
                for k, (fn, path, rep) in src.items()]
     phase("timing", f"device_ms: {DEVICE_READINGS['readings']} readings; "
                     f"{DEVICE_READINGS['rerun']} profiler window(s) re-run for missing "

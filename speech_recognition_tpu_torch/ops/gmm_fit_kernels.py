@@ -14,78 +14,141 @@ the device, count launches and hold the plain versions are
 their arguments here (``check_frames``, ``check_tensor``) before the
 kernel library is loaded.
 
-``gmm_fit_plan`` is the pure host function that sizes a launch: a fit's
-parameter area (``_param_floats``, the kernel's ``fit_layout``) in shared
-memory where it fits, else in a device scratch a CTA; and the frames a fit
-stages in shared memory (``cap``: about 1,300 at D = 39).  A fit with more
-frames reads them from device memory each iteration and keeps its
-per-frame values in a device scratch, so no size is refused.
+``gmm_fit_plan`` is the pure host function that sizes a launch and
+picks the kernel's instance: D = 39 at M = 1, 2 or 4 (compile-time
+widths), a generic one, or the device one where a fit's parameter area
+(``_param_floats``, the kernel's ``fit_layout``) passes the shared memory
+or its owners (up to 4 mixtures and a 4-dim block each) pass the CTA's 256
+threads.  On the
+shared tiers a fit stages its frames in shared memory where they fit
+(``cap``: about 1,100 at D = 39, rows of ``_row_stride(D)`` floats); a fit
+with more is gathered once into a compact device scratch and streamed
+through a ring of ``stages`` shared-memory tiles of ``tile`` frames by
+bulk copies, so no size is refused.
 
 Device memory a launch takes besides its inputs and outputs: the fits'
-compacted frame indices, ``4 rows`` bytes, and where a fit may pass
-``cap`` their per-frame values, ``4 rows V`` bytes (V = 1 for K24, M for
-K25); ``rows`` is N where the caller promises that no frame is in two
-fits (``disjoint``: each fit's rows start at the count of the frames in
-the mask rows before its own, which its CTA takes), else F N (N a fit);
-and where the parameters do not fit in shared memory, ``4 F
-_param_floats(M, D)`` bytes.  ``continuous_train`` over ~130,000 frames at M = 4 thus takes
-~2.7 MB a launch, whatever its number of states.
+compacted frame indices, ``4 rows`` bytes; where a fit may pass ``cap``
+(or on the device tier) the compact frame rows, ``4 rows _row_stride(D)``
+bytes; on the device tier the per-frame values, ``4 rows V`` bytes (V =
+1 for K24, M for K25), and ``4 F _param_floats(M, D)`` bytes of
+parameters.  ``rows`` is N where the caller promises that no frame is in
+two fits (``disjoint``: each fit's rows start at the count of the frames
+in the mask rows before its own, which its CTA takes), else F N (N a
+fit).  ``continuous_train`` over ~130,000 frames at D = 39 thus takes
+~24 MB a launch, whatever its number of states.
+
+``launch_kmeans`` / ``launch_em`` take an optional int64 ``trace [F, 8]``:
+each fit's iterations, then its CTA's thread-0 clock64 cycles by phase
+(compaction and staging, weights, distances or responsibilities,
+statistics, update and stop, K24's last pass) and the whole fit's.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
 __all__ = ["GmmFitPlan", "gmm_fit_plan", "check_frames", "check_tensor", "launch_kmeans",
-           "launch_em", "THREADS"]
+           "launch_em", "THREADS", "MAX_STAGES", "TILE"]
 
-# threads a CTA (a fit), as csrc/gmm_fit.cu's kThreads
-THREADS = 512
+# threads a CTA (a fit), and the ring's most stages, as csrc/gmm_fit.cu's
+# kThreads and kMaxStages
+THREADS = 256
+MAX_STAGES = 4
+# frames a ring tile holds at most
+TILE = 256
 # the dynamic shared memory a CTA may ask for: the card's 227 KB opt-in
-# limit less the kernels' static block-scan scratch
-SMEM_LIMIT = 227 * 1024 - 4 * (THREADS // 32)
+# limit less the kernels' static scratch (block scan, mbarriers)
+SMEM_LIMIT = 227 * 1024 - 128
 _LOG_2PI = math.log(2.0 * math.pi)
+# the instances with compile-time widths: (D, M)
+_FIXED = {(39, 1), (39, 2), (39, 4)}
 
 
 class GmmFitPlan(NamedTuple):
-    """A launch's layout: where the parameters live (``"shared"`` or
-    ``"device"``), the frames a fit stages in shared memory (``cap``; a
-    fit with more reads them from device memory), the dynamic shared
-    memory in bytes, and whether every fit's frames fit (``frames``:
-    ``"shared"``) or a fit may pass ``cap`` (``"device"``: the launch
-    allocates the per-frame scratch)."""
+    """A launch's layout: the kernel's instance (``"d39m1"``, ``"d39m2"``,
+    ``"d39m4"``, ``"generic"`` or ``"device"``), where the parameters live
+    (``"shared"`` or ``"device"``), whether every fit's frames are staged
+    (``frames``: ``"shared"``) or a fit may pass ``cap`` (``"device"``: the
+    launch allocates the compact frame rows), the frames a fit stages in
+    shared memory (``cap``), the ring's ``tile`` frames and ``stages`` (0
+    where no fit can pass ``cap``), and the dynamic shared memory in
+    bytes."""
 
+    instance: str
     params: str
     frames: str
     cap: int
+    tile: int
+    stages: int
     smem: int
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def _row_stride(d: int) -> int:
+    """Floats of a staged frame row: ``d`` rounded up to an odd number of
+    float4s (``row_stride`` in the kernel)."""
+    return 4 * (((d + 3) // 4) | 1)
+
+
+def _owners(m: int, d: int) -> int:
+    """The statistics' owners: up to 4 mixtures and a block of 4 dims."""
+    return -(-m // 4) * ((d + 3) // 4)
+
+
+def _groups(m: int, d: int) -> int:
+    """Frame groups of each owner: at most 32, one owner a thread where
+    the owners fit in the CTA, else 1."""
+    owners = _owners(m, d)
+    return min(32, THREADS // owners) if owners <= THREADS else 1
 
 
 def _param_floats(m: int, d: int) -> int:
     """Floats of a fit's parameter area (``fit_layout`` in the kernel):
-    the NLL weights [M, 2D + 1], means and variances [M, D], weights and
-    log weights [M], cluster 0's variances [D], and the partial sums of
-    the Q = M (D + 1) statistics, two floats for each of G thread groups."""
-    q = m * (d + 1)
-    groups = THREADS // min(q, THREADS)
-    return m * (2 * d + 1) + 2 * m * d + 2 * m + d + 2 * groups * q
+    two buffers of NLL weights ([M, Dq] twice and M constants), means,
+    their start (the statistics' origin) and variances [M, D], weights and
+    log weights [M], cluster 0's variances
+    [D], and the partial sums of G frame groups, ``2 M Dq + M`` each (Dq
+    the row stride); every part a multiple of 4."""
+    dq = _row_stride(d)
+    q = _round4(2 * m * dq + m)
+    return (2 * (2 * m * dq + _round4(m)) + 3 * _round4(m * d) + 2 * _round4(m) + _round4(d)
+            + _groups(m, d) * q)
 
 
+@functools.lru_cache(maxsize=256)
 def gmm_fit_plan(n: int, d: int, m: int, em: bool, limit: int = SMEM_LIMIT) -> GmmFitPlan:
     """The launch layout for fits of ``m`` mixtures (clusters) over ``n``
-    frames of ``d`` dimensions: a staged frame is its row at an odd stride
-    (``d | 1`` floats) and its values (M responsibilities for EM, one
-    assignment for k-means)."""
+    frames of ``d`` dimensions: a staged frame is its row
+    (``_row_stride(d)`` floats) and its values (M responsibilities for EM,
+    one assignment for k-means); a ring tile of up to ``TILE`` frames, as
+    many stages as fit (2 to ``MAX_STAGES``), halved until two stages
+    fit."""
+    dq, v = _row_stride(d), (m if em else 1)
     fixed = 4 * _param_floats(m, d)
-    per_frame = 4 * ((d | 1) + (m if em else 1))
-    params = "shared" if fixed <= limit else "device"
-    room = limit - (fixed if params == "shared" else 0)
-    cap = min(n, room // per_frame)
-    smem = (fixed if params == "shared" else 0) + cap * per_frame
-    return GmmFitPlan(params, "shared" if cap == n else "device", cap, smem)
+    device = GmmFitPlan("device", "device", "device", 0, 0, 0, 0)
+    if fixed > limit or _owners(m, d) > THREADS:
+        return device
+    instance = f"d39m{m}" if (d, m) in _FIXED else "generic"
+    room = limit - fixed
+    cap = min(n, room // (4 * (dq + v)))
+    if cap == n:
+        return GmmFitPlan(instance, "shared", "shared", cap, 0, 0, fixed + 4 * cap * (dq + v))
+    tile = TILE
+    while tile:
+        stages = min(MAX_STAGES, (room - 8 * tile * v) // (4 * tile * dq))
+        if stages >= 2:
+            ring = 4 * (stages * tile * dq + 2 * tile * v)
+            return GmmFitPlan(instance, "shared", "device", cap, tile, stages,
+                              fixed + max(4 * cap * (dq + v), ring))
+        tile //= 2
+    return device
 
 
 def check_tensor(name, t, shape, dtype, dev):
@@ -118,24 +181,33 @@ def check_frames(x, masks, disjoint: bool):
 def _scratch(plan: GmmFitPlan, f: int, n: int, per_frame: int, m: int, d: int,
              disjoint: bool, dev):
     """The launch's device scratch: the fits' compacted frame indices
-    [rows] int32, the per-frame values [rows, per_frame] of fits past
-    ``cap`` and the parameter areas where they are not in shared memory
-    (one element where unused); rows = N with ``disjoint``, else F N."""
+    [rows] int32, the compact frame rows [rows, _row_stride(d)] where a fit
+    may pass ``cap``, and on the device tier the per-frame values [rows,
+    per_frame] and the parameter areas (one element where unused); rows = N
+    with ``disjoint``, else F N."""
     rows = n if disjoint else f * n
+    device = plan.instance == "device"
     idx = torch.empty((max(rows, 1),), dtype=torch.int32, device=dev)
-    vals = torch.empty((rows * per_frame if plan.frames == "device" else 1,),
-                       dtype=torch.float32, device=dev)
-    params = torch.empty((f * _param_floats(m, d) if plan.params == "device" else 1,),
+    frames = torch.empty((max(rows * _row_stride(d), 1) if plan.frames == "device" else 1,),
                          dtype=torch.float32, device=dev)
-    return idx, vals, params
+    vals = torch.empty((max(rows * per_frame, 1) if device else 1,), dtype=torch.float32,
+                       device=dev)
+    params = torch.empty((f * _param_floats(m, d) if device else 1,), dtype=torch.float32,
+                         device=dev)
+    return idx, frames, vals, params
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def launch_kmeans(x, masks, centroids0, k: int, init_assign, max_iters: int,
-                  shared_cov_quirk: bool, var_floor: float, iters, disjoint: bool):
+                  shared_cov_quirk: bool, var_floor: float, iters, disjoint: bool, trace=None):
     """One K24 launch on checked CUDA tensors (``train.kmeans.kmeans_batch``
     checks and counts): ``(assign [F, N] int64, centroids [F, k, D],
     variances [F, k, D], counts [F, k])``; ``iters``, an int32 ``[F]``
-    tensor or None, gets each fit's iteration count."""
+    tensor or None, gets each fit's iteration count, ``trace`` (int64 [F,
+    8] or None) the counters."""
     from speech_recognition_tpu_torch.utils.build import check, load_library
 
     f, n = masks.shape
@@ -146,27 +218,27 @@ def launch_kmeans(x, masks, centroids0, k: int, init_assign, max_iters: int,
     var = torch.empty_like(cent)
     counts = torch.empty((f, k), dtype=torch.float32, device=dev)
     plan = gmm_fit_plan(n, d, k, em=False)
-    idx, vals, params = _scratch(plan, f, n, 1, k, d, disjoint, dev)
+    idx, frames, vals, params = _scratch(plan, f, n, 1, k, d, disjoint, dev)
     x, masks = x.contiguous(), masks.contiguous()
     c0, init = centroids0.contiguous(), init_assign.contiguous()
     lib = load_library()
     with torch.cuda.device(dev):
         rc = lib.kmeans_fit_launch(
             x.data_ptr(), masks.data_ptr(), c0.data_ptr(), init.data_ptr(), assign.data_ptr(),
-            cent.data_ptr(), var.data_ptr(), counts.data_ptr(),
-            None if iters is None else iters.data_ptr(), idx.data_ptr(), vals.data_ptr(),
-            params.data_ptr(), f, n, d, k, int(disjoint), max_iters, var_floor,
-            d * _LOG_2PI, int(shared_cov_quirk), plan.cap, int(plan.params == "shared"),
-            plan.smem, torch.cuda.current_stream(dev).cuda_stream)
+            cent.data_ptr(), var.data_ptr(), counts.data_ptr(), _ptr(iters), idx.data_ptr(),
+            frames.data_ptr(), vals.data_ptr(), params.data_ptr(), _ptr(trace), f, n, d, k,
+            int(disjoint), max_iters, var_floor, d * _LOG_2PI, int(shared_cov_quirk), plan.cap,
+            plan.tile, plan.stages, int(plan.instance == "device"), plan.smem,
+            torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "k-means kernel")
     return assign, cent, var, counts
 
 
 def launch_em(x, masks, means0, variances0, weights0, max_iters: int, rtol: float,
-              atol: float, var_floor: float, disjoint: bool):
+              atol: float, var_floor: float, disjoint: bool, trace=None):
     """One K25 launch on checked CUDA tensors (``train.em.em_fit_batch``
     checks and counts): ``(means, variances, weights, n_iters [F] int32)``,
-    all on the card."""
+    all on the card; ``trace`` as ``launch_kmeans``'s."""
     from speech_recognition_tpu_torch.utils.build import check, load_library
 
     f, n = masks.shape
@@ -177,7 +249,7 @@ def launch_em(x, masks, means0, variances0, weights0, max_iters: int, rtol: floa
     weights = torch.empty((f, m), dtype=torch.float32, device=dev)
     n_iters = torch.empty((f,), dtype=torch.int32, device=dev)
     plan = gmm_fit_plan(n, d, m, em=True)
-    idx, vals, params = _scratch(plan, f, n, m, m, d, disjoint, dev)
+    idx, frames, vals, params = _scratch(plan, f, n, m, m, d, disjoint, dev)
     x, masks = x.contiguous(), masks.contiguous()
     m0, v0, w0 = means0.contiguous(), variances0.contiguous(), weights0.contiguous()
     lib = load_library()
@@ -185,8 +257,9 @@ def launch_em(x, masks, means0, variances0, weights0, max_iters: int, rtol: floa
         rc = lib.em_fit_launch(
             x.data_ptr(), masks.data_ptr(), m0.data_ptr(), v0.data_ptr(), w0.data_ptr(),
             means.data_ptr(), var.data_ptr(), weights.data_ptr(), n_iters.data_ptr(),
-            idx.data_ptr(), vals.data_ptr(), params.data_ptr(), f, n, d, m, int(disjoint),
-            max_iters, rtol, atol, var_floor, d * _LOG_2PI, plan.cap,
-            int(plan.params == "shared"), plan.smem, torch.cuda.current_stream(dev).cuda_stream)
+            idx.data_ptr(), frames.data_ptr(), vals.data_ptr(), params.data_ptr(), _ptr(trace),
+            f, n, d, m, int(disjoint), max_iters, rtol, atol, var_floor, d * _LOG_2PI, plan.cap,
+            plan.tile, plan.stages, int(plan.instance == "device"), plan.smem,
+            torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "EM kernel")
     return means, var, weights, n_iters

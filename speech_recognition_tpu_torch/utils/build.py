@@ -138,8 +138,8 @@ def load_library() -> ctypes.CDLL:
     lib.lattice_walk_launch.argtypes = [p, q, q, q, p, q, q, q, p, p, p, p, i, i, i, i, p]
     lib.wordtrace_walk_launch.argtypes = [p, i, q, q, q, p, q, q, q, p, p, p, p, p,
                                           i, i, i, p]
-    lib.kmeans_fit_launch.argtypes = [p] * 12 + [i] * 6 + [f, f] + [i] * 3 + [q, p]
-    lib.em_fit_launch.argtypes = [p] * 12 + [i] * 6 + [f] * 4 + [i, i, q, p]
+    lib.kmeans_fit_launch.argtypes = [p] * 14 + [i] * 6 + [f, f] + [i] * 5 + [q, p]
+    lib.em_fit_launch.argtypes = [p] * 14 + [i] * 6 + [f] * 4 + [i] * 4 + [q, p]
     lib.token_beam_launch.argtypes = [p] * 16 + [i] * 14 + [q, p]
     lib.token_walk_launch.argtypes = [p] * 13 + [i] * 7 + [p]
     lib.token_beam_bytes.argtypes = [i] * 5

@@ -22,7 +22,8 @@ __all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "SFU_PER_S", "SMEM_STEP_CYCLES", 
            "mfcc_ops", "tail_ops", "rescore_ops", "rescore_walk_work", "fb_steps", "fb_dense_work",
            "fb_banded_work", "dense_walk_work", "chain_walk_work", "gmm_fit_work",
            "token_beam_work", "token_beam_floor", "token_walk_work", "STEP_CYCLES",
-           "TOKEN_BEAM_STEPS", "report"]
+           "TOKEN_BEAM_STEPS", "GMM_TILE_STEPS", "GMM_ITER_STEPS", "SM_BULK_BYTES_PER_CYCLE",
+           "gmm_fit_floor", "report"]
 
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit):
 # device memory bandwidth and f32 rate outside the tensor cores (the port
@@ -51,6 +52,19 @@ STEP_CYCLES = {"smem": 29, "l2": 283, "shfl": 44, "barrier": 75}
 # M's key, store, reset); five barriers.
 TOKEN_BEAM_STEPS = {"smem": 26, "l2": 3, "shfl": 19, "barrier": 5}
 
+
+# K24 / K25 (csrc/gmm_fit.cu) as chains of dependent steps: a tile of a
+# fit's frames (the ring's mbarrier wait, a frame's row and weights loads,
+# its value stored; the statistics' loads; the tile's barrier), and an
+# iteration's end (the owners' partial sums stored, loaded by the M-step,
+# which stores the next weights; its two warp trees side by side; the
+# partials' and the stop's barriers).  Arithmetic is left out, so no run
+# can be shorter.
+GMM_TILE_STEPS = {"smem": 4, "barrier": 1}
+GMM_ITER_STEPS = {"smem": 3, "shfl": 5, "barrier": 2}
+# bytes one SM's bulk copies bring from L2 a cycle, through a ring of four
+# 44 KB stages (scripts/exp_r26_gmm_fit.py --lab on the H100 80GB HBM3)
+SM_BULK_BYTES_PER_CYCLE = 63.96
 
 # exp and log issue on the special function units, 16 a clock per SM: 132
 # SMs at the boost clock give ~4.2e12 a second (the forward-backward
@@ -398,6 +412,42 @@ def token_beam_floor(n_frames, rounds: int = 1) -> float:
     steps["barrier"] += 2 * (rounds - 1)
     cycles = sum(n * STEP_CYCLES[kind] for kind, n in steps.items())
     return frames * cycles / SM_CLOCK_HZ
+
+
+def gmm_fit_floor(n_f, iters, d: int, m: int, staged, kmeans: bool = False) -> float:
+    """K24's (``kmeans``: one more pass, the initial assignment's
+    statistics) or K25's serial floor in seconds: over the fits, the most
+    passes x the cycles of one at the SM clock.  A pass over a staged fit
+    is one tile of ``GMM_TILE_STEPS`` (no ring wait) and the iteration's
+    end, ``GMM_ITER_STEPS``, at their latencies (``STEP_CYCLES``); a fit
+    streamed through the ring takes a tile's steps for each of its
+    ceil(n_f / 256) tiles, or, where longer, the ring's refills of its
+    ``n_f`` rows of ``d`` rounded up to an odd number of float4s at one
+    SM's bulk-copy rate (``SM_BULK_BYTES_PER_CYCLE``), the two overlapping.
+    ``staged``: a bool for every fit, or one a fit; ``m`` is kept for the
+    callers' symmetry with ``gmm_fit_work`` (the chains do not lengthen with
+    it)."""
+    import math
+
+    n_f = [int(v) for v in n_f]
+    iters = [int(v) for v in iters]
+    staged = [bool(staged)] * len(n_f) if isinstance(staged, bool) else [bool(v) for v in staged]
+    row_bytes = 16 * (((d + 3) // 4) | 1)
+
+    def cyc(steps):
+        return sum(n * STEP_CYCLES[kind] for kind, n in steps.items())
+
+    tile = cyc(GMM_TILE_STEPS)
+    end = cyc(GMM_ITER_STEPS)
+    worst = 0.0
+    for nf, it, st in zip(n_f, iters, staged):
+        if st:
+            per_pass = tile - STEP_CYCLES["smem"] + end
+        else:
+            per_pass = max(math.ceil(nf / 256) * tile,
+                           nf * row_bytes / SM_BULK_BYTES_PER_CYCLE) + end
+        worst = max(worst, (it + (1 if kmeans else 0)) * per_pass)
+    return worst / SM_CLOCK_HZ
 
 
 def token_walk_work(n_frames, t_len: int, k: int):

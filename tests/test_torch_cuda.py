@@ -3276,7 +3276,8 @@ def test_k24_kmeans_matches_plain(dev, tier, quirk):
 
     x, masks, c0, init = planted_fits(40, GMM_SIZES[tier], dev)
     plan = gfk.gmm_fit_plan(x.shape[0], 39, 4, em=False)
-    assert plan.frames == ("device" if tier == "device memory" else "shared")
+    # staged: every fit within cap; device memory: the first streamed
+    assert (max(GMM_SIZES[tier]) > plan.cap) == (tier == "device memory")
     for iters, tol in ((1, GMM_STEP_TOL), (100, GMM_TOL)):
         before = tkm.kmeans_batch.launches
         n_it = torch.zeros(masks.shape[0], dtype=torch.int32, device=dev)
@@ -3321,11 +3322,11 @@ def test_k25_em_matches_plain(dev, tier):
 
 def test_k24_k25_parameters_in_device_memory(dev):
     """Features too wide for a fit's parameter area in shared memory (D =
-    3,000, M = 4: ~300 KB), so the parameters and partial sums live in a
-    device scratch a CTA; of the two fits one is staged in the shared
-    memory left (its frames at the start of it) and one read from device
-    memory.  One iteration of K24 (with and without the quirk) and K25 as
-    accurate as their plain versions: the largest difference from the
+    3,000, M = 4: ~400 KB), so the kernels' device instance runs: the
+    parameters and partial sums in a device scratch a CTA, both fits'
+    frames and values in the launch's device scratch.  One iteration of
+    K24 (with and without the quirk) and K25 as accurate as their plain
+    versions: the largest difference from the
     plain version run in float64 on the same inputs at most
     GMM_AS_ACCURATE (2) times the float32 plain version's (which is itself
     up to ~2.3e-5 off float64 in a variance here, so that over 24,000
@@ -3337,7 +3338,7 @@ def test_k24_k25_parameters_in_device_memory(dev):
     x, masks, c0, init = planted_fits(47, (12, 300), dev, d=3000)
     for em in (False, True):
         plan = gfk.gmm_fit_plan(x.shape[0], 3000, 4, em=em)
-        assert (plan.params, plan.frames) == ("device", "device") and 12 <= plan.cap < 300
+        assert (plan.instance, plan.params, plan.frames) == ("device", "device", "device")
 
     def held(got, want, close, tol):
         for j, (a, b) in enumerate(zip(got, want)):
@@ -3362,6 +3363,88 @@ def test_k24_k25_parameters_in_device_memory(dev):
     got = tem.em_fit_batch(x, masks, m0, v0, w0, disjoint=True)
     held(got, tem.em_fit_batch_ref(x, masks, m0, v0, w0), (0, 1, 2), GMM_TOL)
     assert int(got[3].max()) < 100
+
+
+# every instance of the kernels with its tiers: (D, M, fit sizes); D = 39
+# at M = 1, 2 and 4 (compile-time widths), the generic instance at other
+# widths; "streamed": a fit past the frames a CTA stages, through the ring
+GMM_INSTANCES = {
+    "d39m1": (39, 1, (260, 240, 300)),
+    "d39m2": (39, 2, (260, 240, 300)),
+    "d39m4 streamed": (39, 4, (3000, 1500, 200)),
+    "generic": (20, 3, (200, 150, 90)),
+    "generic streamed": (20, 3, (5000, 300)),
+}
+
+
+@pytest.mark.parametrize("case", list(GMM_INSTANCES))
+def test_k24_k25_every_instance(dev, case):
+    """Each instance and tier against the plain versions: one iteration of
+    K24 (with and without the quirk) and K25 as accurate as the plain
+    version (against the plain version in float64, GMM_AS_ACCURATE: on
+    planted centres ~3 from 0 a ddof-1 variance loses ~1e-4 of itself to
+    float32 cancellation in either order) with the same assignments and
+    counts; whole fits at GMM_TOL with assignments, counts and iteration
+    counts exactly; two launches give the same bits."""
+    from speech_recognition_tpu_torch.ops import gmm_fit_kernels as gfk
+
+    d, m, sizes = GMM_INSTANCES[case]
+    x, masks, c0, init = planted_fits(49, sizes, dev, d=d, k=m)
+    for em in (False, True):
+        plan = gfk.gmm_fit_plan(x.shape[0], d, m, em=em)
+        assert plan.instance == (f"d39m{m}" if d == 39 else "generic")
+        assert (max(sizes) > plan.cap) == ("streamed" in case)
+
+    def held(kernel, plain, args, kw, close):
+        errs, exact = gmm_f64_errors(kernel, plain, args, dict(kw, max_iters=1), close)
+        assert exact and all(k <= GMM_AS_ACCURATE * max(p, 1e-7) for k, p in errs), errs
+        got, again = (kernel(*args, **kw) for _ in range(2))
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        for j, (a, b) in enumerate(zip(got, want)):
+            if j in close:
+                torch.testing.assert_close(a, b.to(dev), **GMM_TOL)
+            else:
+                assert torch.equal(a, b.to(dev))
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    for quirk in (False, True):
+        held(tkm.kmeans_batch, tkm.kmeans_batch_ref, (x, masks, c0, m, init),
+             dict(shared_cov_quirk=quirk, disjoint=True), (1, 2))
+    _, m0, v0, counts = tkm.kmeans_batch_ref(x, masks, c0, m, init)
+    w0 = counts / masks.sum(1, keepdim=True).clamp(min=1).float()
+    held(tem.em_fit_batch, tem.em_fit_batch_ref, (x, masks, m0, v0, w0), dict(disjoint=True),
+         (0, 1, 2))
+
+
+def test_k24_k25_trace(dev):
+    """The optional counters: each fit's iterations (K24's as ``iters=``
+    gives them, K25's as its output), cycles in every phase the fit runs,
+    and the whole fit at least their sum; a launch with counters gives the
+    same results as one without."""
+    from speech_recognition_tpu_torch.ops import gmm_fit_kernels as gfk
+
+    x, masks, c0, init = planted_fits(50, (300, 2000), dev)  # one staged, one streamed
+    n_it = torch.zeros(2, dtype=torch.int32, device=dev)
+    trace = torch.zeros((2, 8), dtype=torch.int64, device=dev)
+    got = gfk.launch_kmeans(x, masks, c0, 4, init, 100, False, 1e-6, n_it, True, trace=trace)
+    plain = gfk.launch_kmeans(x, masks, c0, 4, init, 100, False, 1e-6, None, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    tr = trace.cpu()
+    assert torch.equal(tr[:, 0], n_it.cpu().long()) and bool((tr[:, 0] >= 1).all())
+    assert bool((tr[:, [1, 3, 4, 5, 6]] > 0).all()) and bool((tr[:, 2] == 0).all())
+    assert bool((tr[:, 7] >= tr[:, 1:7].sum(1)).all())
+    _, m0, v0, counts = tkm.kmeans_batch_ref(x, masks, c0, 4, init)
+    w0 = counts / masks.sum(1, keepdim=True).float()
+    trace.zero_()
+    got = gfk.launch_em(x, masks, m0, v0, w0, 100, 1e-5, 1e-8, 1e-6, True, trace=trace)
+    plain = gfk.launch_em(x, masks, m0, v0, w0, 100, 1e-5, 1e-8, 1e-6, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    tr = trace.cpu()
+    assert torch.equal(tr[:, 0], got[3].cpu().long())
+    assert bool((tr[:, 1:6] > 0).all()) and bool((tr[:, 7] >= tr[:, 1:7].sum(1)).all())
 
 
 def test_k24_k25_scratch_overrun_gives_nan(dev):

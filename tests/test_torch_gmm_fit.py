@@ -21,18 +21,21 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import GMM_AS_ACCURATE, planted_fits
 from speech_recognition_tpu.config import HMMConfig as JHMMConfig
 from speech_recognition_tpu_torch.config import HMMConfig, TrainConfig
 from speech_recognition_tpu_torch.ops import gmm_fit_kernels as gfk
 from speech_recognition_tpu_torch.utils import build
 from speech_recognition_tpu_torch.utils.roofline import gmm_fit_work
+from tests import k24_k25_fit as emu
 from tests.test_torch_train import JaxDraws, blobs, templates
 
-jiso, tem, tiso, tkm, tcont = (
+jiso, tem, tiso, tkm, tcont, jkm, jem = (
     importlib.import_module(m) for m in (
         "speech_recognition_tpu.train.isolated", "speech_recognition_tpu_torch.train.em",
         "speech_recognition_tpu_torch.train.isolated", "speech_recognition_tpu_torch.train.kmeans",
-        "speech_recognition_tpu_torch.train.continuous"))
+        "speech_recognition_tpu_torch.train.continuous", "speech_recognition_tpu.train.kmeans",
+        "speech_recognition_tpu.train.em"))
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -252,30 +255,67 @@ def test_continuous_train_refits_the_states_as_one_batch(monkeypatch):
     assert torch.equal(out.means[-1], bank.means[-1])
 
 
-def test_plan_tiers():
-    """Every fit staged while the frames fit; past ~1,300 frames at D = 39
-    the plan keeps a capacity and the rest read from device memory; very
-    wide features put the parameters in a device scratch."""
+# (n, d, m, em) -> what the plan must say: the instance, where the
+# parameters live, whether every fit is staged, and the ring
+PLAN_CASES = {
+    "staged, d39m4": (900, 39, 4, True),
+    "ring, the 8,000-frame fit": (8404, 39, 4, True),
+    "ring, k-means": (8404, 39, 4, False),
+    "d39m1": (500, 39, 1, True),
+    "d39m2, continuous_train's buffer": (133661, 39, 2, False),
+    "generic, even D at an odd float4 stride": (10, 40, 2, False),
+    "generic, the ring's tile halved": (5000, 900, 1, True),
+    "device, wide parameters": (312, 3000, 4, True),
+    "device, more owners than threads": (100, 1100, 4, True),
+    "no frames": (0, 39, 4, True),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_plan_tiers(case):
+    """Every fit staged while the frames fit; past ~1,100 frames at D = 39
+    a fit streams through a ring of 2-4 tiles of up to 256 frames; D = 39
+    at M = 1, 2 and 4 take the compile-time instances; parameters past the
+    shared memory, or more (mixture, 4-dim block) owners than the 256
+    threads, take the device instance."""
+    n, d, m, em = PLAN_CASES[case]
     lim = gfk.SMEM_LIMIT
-    p = gfk.gmm_fit_plan(1000, 39, 4, em=True)
-    assert (p.params, p.frames, p.cap) == ("shared", "shared", 1000)
-    assert p.smem == 4 * gfk._param_floats(4, 39) + 1000 * 4 * (39 + 4)
-    p = gfk.gmm_fit_plan(8000, 39, 4, em=True)
-    assert (p.params, p.frames) == ("shared", "device") and 1250 < p.cap < 1350
-    assert p.smem <= lim < p.smem + 4 * (39 + 4)
-    k = gfk.gmm_fit_plan(8000, 39, 4, em=False)
-    assert k.cap > p.cap and k.smem <= lim
-    # an even D is staged at an odd row stride
-    assert gfk.gmm_fit_plan(10, 40, 2, em=False).smem == \
-        4 * gfk._param_floats(2, 40) + 10 * 4 * (41 + 1)
-    wide = gfk.gmm_fit_plan(100, 20000, 4, em=True)
-    assert wide.params == "device" and wide.cap == min(100, lim // (4 * (20001 + 4)))
-    assert gfk.gmm_fit_plan(0, 39, 4, em=True) == ("shared", "shared", 0,
-                                                  4 * gfk._param_floats(4, 39))
-    # the parameter area: weights, means, variances, weights and logs,
-    # cluster 0's variances, and 3 groups of 160 statistics at M = 4, D = 39
-    assert gfk._param_floats(4, 39) == 4 * 79 + 2 * 156 + 8 + 39 + 2 * 3 * 160
-    assert gfk._param_floats(16, 39) == 16 * 79 + 2 * 624 + 32 + 39 + 2 * 640
+    p = gfk.gmm_fit_plan(n, d, m, em=em)
+    fixed = 4 * gfk._param_floats(m, d)
+    dq, v = gfk._row_stride(d), (m if em else 1)
+    if case.startswith("device"):
+        assert p == ("device", "device", "device", 0, 0, 0, 0)
+        assert fixed > lim or -(-m // 4) * ((d + 3) // 4) > gfk.THREADS
+        return
+    assert p.instance == (f"d39m{m}" if d == 39 else "generic") and p.params == "shared"
+    assert dq % 4 == 0 and (dq // 4) % 2 == 1 and d <= dq < d + 8
+    if p.frames == "shared":
+        assert case.startswith(("staged", "d39m1", "generic, even", "no frames"))
+        assert (p.cap, p.tile, p.stages) == (n, 0, 0) and p.smem == fixed + 4 * n * (dq + v)
+        return
+    ring = 4 * (p.stages * p.tile * dq + 2 * p.tile * v)
+    assert p.cap < n and 2 <= p.stages <= gfk.MAX_STAGES and 1 <= p.tile <= gfk.TILE
+    assert p.smem == fixed + max(4 * p.cap * (dq + v), ring) <= lim
+    assert lim < fixed + 4 * (p.cap + 1) * (dq + v)  # cap is all that fits
+    assert (p.tile < gfk.TILE) == case.endswith("halved")
+    if d == 39:
+        assert (p.tile, p.stages) == (256, 4) and 950 < p.cap < 1200
+        assert (gfk.gmm_fit_plan(n, d, m, em=False).cap > p.cap) == em
+
+
+def test_param_floats():
+    """The parameter area: two buffers of weights ([M, Dq] twice and M
+    constants), means, their start and variances, weights and logs, cluster 0's
+    variances, and the groups' partials (2 M Dq + M rounded to 4 a group:
+    at D = 39 10 owners of 25 groups each; 32 groups at most; one where
+    the owners pass the 256 threads)."""
+    assert gfk._row_stride(39) == 44 and gfk._row_stride(40) == 44 and gfk._row_stride(5) == 12
+    assert gfk._param_floats(4, 39) == 2 * (2 * 4 * 44 + 4) + 3 * 156 + 2 * 4 + 40 + 25 * 356
+    assert gfk._param_floats(1, 39) == 2 * (2 * 44 + 4) + 3 * 40 + 2 * 4 + 40 + 25 * 92
+    assert gfk._param_floats(8, 13) == (2 * (2 * 8 * 20 + 8) + 3 * 104 + 2 * 8 + 16
+                                        + 32 * 328)
+    assert gfk._param_floats(2, 3000) == (2 * (2 * 2 * 3004 + 4) + 3 * 6000 + 2 * 4 + 3000
+                                         + 12020)
 
 
 def _no_library(monkeypatch):
@@ -388,12 +428,161 @@ def test_gmm_fit_work_counts_a_hard_assignment():
 
 def test_scratch_takes_one_row_a_frame_where_fits_are_disjoint():
     """The launch's scratch: N rows where no frame is in two fits, else
-    F N; the per-frame values only where a fit may pass ``cap``, the
-    parameter areas only where they are not in shared memory."""
+    F N; the compact frame rows only where a fit may pass ``cap``, the
+    per-frame values and parameter areas only on the device tier."""
+    cpu = torch.device("cpu")
     plan = gfk.gmm_fit_plan(50, 5, 2, em=True)
-    idx, vals, params = gfk._scratch(plan, 3, 50, 2, 2, 5, True, torch.device("cpu"))
-    assert idx.numel() == 50 and vals.numel() == 1 and params.numel() == 1
-    small = gfk.GmmFitPlan("device", "device", 4, 0)
-    idx, vals, params = gfk._scratch(small, 3, 50, 2, 2, 5, False, torch.device("cpu"))
-    assert idx.numel() == 150 and vals.numel() == 300
-    assert params.numel() == 3 * gfk._param_floats(2, 5)
+    idx, frames, vals, params = gfk._scratch(plan, 3, 50, 2, 2, 5, True, cpu)
+    assert idx.numel() == 50 and frames.numel() == vals.numel() == params.numel() == 1
+    ring = gfk.gmm_fit_plan(8404, 39, 4, em=True)
+    idx, frames, vals, params = gfk._scratch(ring, 3, 8404, 4, 4, 39, False, cpu)
+    assert idx.numel() == 3 * 8404 and frames.numel() == 3 * 8404 * 44
+    assert vals.numel() == params.numel() == 1
+    dev = gfk.gmm_fit_plan(50, 3000, 2, em=True)
+    idx, frames, vals, params = gfk._scratch(dev, 3, 50, 2, 2, 3000, True, cpu)
+    assert idx.numel() == 50 and frames.numel() == 50 * 3004 and vals.numel() == 100
+    assert params.numel() == 3 * gfk._param_floats(2, 3000)
+
+
+def test_gmm_fit_floor():
+    """The serial floor: a pass over a staged fit is a tile's steps less
+    the ring's wait and an iteration's end, at ``STEP_CYCLES``; the fit of
+    most passes sets it (K24: one more, the initial assignment's); a
+    streamed fit takes its 256-frame tiles' steps or its rows' refills at
+    one SM's bulk-copy rate, the larger."""
+    from speech_recognition_tpu_torch.utils.roofline import (
+        GMM_ITER_STEPS,
+        GMM_TILE_STEPS,
+        SM_BULK_BYTES_PER_CYCLE,
+        SM_CLOCK_HZ,
+        STEP_CYCLES,
+        gmm_fit_floor,
+    )
+
+    def cyc(steps):
+        return sum(n * STEP_CYCLES[k] for k, n in steps.items())
+
+    tile, end = cyc(GMM_TILE_STEPS), cyc(GMM_ITER_STEPS)
+    staged = tile - STEP_CYCLES["smem"] + end
+    # digit 0's second split level: 5 fits, the slowest EM fit 100 iterations
+    sizes = [134, 216, 236, 219, 112]
+    got = gmm_fit_floor(sizes, [16, 76, 32, 100, 36], 39, 4, True)
+    assert got == pytest.approx(100 * staged / SM_CLOCK_HZ)
+    got = gmm_fit_floor(sizes, [12, 19, 11, 9, 6], 39, 4, True, kmeans=True)
+    assert got == pytest.approx(20 * staged / SM_CLOCK_HZ)
+    # the planted fits: 8,000 frames streamed (32 tiles), two staged
+    ring = max(32 * tile, 8000 * 176 / SM_BULK_BYTES_PER_CYCLE) + end
+    got = gmm_fit_floor([8000, 300, 40], [2, 2, 2], 39, 4, [False, True, True])
+    assert got == pytest.approx(2 * ring / SM_CLOCK_HZ)
+    # a 3,000-frame fit: 12 tiles, the rest staged and short
+    one = gmm_fit_floor([3000, 200], [30, 30], 39, 4, [False, True])
+    assert one == pytest.approx(30 * (max(12 * tile, 3000 * 176 / SM_BULK_BYTES_PER_CYCLE)
+                                      + end) / SM_CLOCK_HZ)
+    assert gmm_fit_floor([3000], [30], 39, 4, True) < one
+
+
+# the kernels' order of summation, emulated (tests/k24_k25_fit.py): fits of
+# fit_hmm's shape (a word's 5 states, staged) and one of 3,000 frames (past
+# cap: 12 tiles of the ring), planted mixtures of 4 at D = 39
+EMU_CASES = {"fit_hmm shape": (260, 240, 300, 180, 220), "3,000-frame fit": (3000,)}
+
+
+def _emu_case(case):
+    x, masks, c0, init = (t.numpy() for t in planted_fits(60, EMU_CASES[case],
+                                                          torch.device("cpu")))
+    plans = {em: gfk.gmm_fit_plan(x.shape[0], 39, 4, em=em) for em in (False, True)}
+    ring = {em: dict(cap=p.cap, tile=p.tile or gfk.TILE) for em, p in plans.items()}
+    assert (max(EMU_CASES[case]) > plans[True].cap) == (case != "fit_hmm shape")
+    return x, masks, c0, init, ring
+
+
+@pytest.mark.parametrize("case", list(EMU_CASES))
+def test_emulated_order_is_as_accurate_as_the_plain_version(case):
+    """One iteration of K24 and of K25 in the kernels' order against the
+    plain version run in float64: the emulation's largest difference in the
+    centroids, means, variances and weights at most GMM_AS_ACCURATE times
+    the float32 plain version's (blocks of 32 frames summed plainly, the
+    blocks with Kahan's compensation, the groups in order: the accuracy of
+    a short sum over thousands of frames); assignments and counts equal."""
+    x, masks, c0, init, ring = _emu_case(case)
+    xt = torch.from_numpy(x)
+    for i, mask in enumerate(masks):
+        mt, ct, it_ = torch.from_numpy(mask), torch.from_numpy(c0[i]), torch.from_numpy(init[i])
+        got = emu.kmeans_fit(x, mask, c0[i], 4, init[i], max_iters=1, **ring[False])
+        f32 = tkm.kmeans_ref(xt, mt, ct, 4, it_, max_iters=1)
+        f64 = tkm.kmeans_ref(xt.double(), mt, ct.double(), 4, it_, max_iters=1)
+        assert np.array_equal(got[0], f64[0].numpy()) and np.array_equal(got[3], f64[3].numpy())
+        for j in (1, 2):
+            err, plain = (float(np.abs(np.asarray(a, np.float64) - f64[j].numpy()).max())
+                          for a in (got[j], f32[j].numpy()))
+            assert err <= GMM_AS_ACCURATE * max(plain, 1e-7), (i, j, err, plain)
+        w0 = f32[3] / mt.sum().float()
+        args = (f32[1], f32[2], w0)
+        got = emu.em_fit(x, mask, *(a.numpy() for a in args), max_iters=1, **ring[True])
+        f32 = tem.em_fit_ref(xt, mt, *args, max_iters=1)
+        f64 = tem.em_fit_ref(xt.double(), mt, *(a.double() for a in args), max_iters=1)
+        for j in (0, 1, 2):
+            err, plain = (float(np.abs(np.asarray(a, np.float64) - f64[j].numpy()).max())
+                          for a in (got[j], f32[j].numpy()))
+            assert err <= GMM_AS_ACCURATE * max(plain, 1e-7), (i, j, err, plain)
+
+
+def _near_ties_only(x, got, want, centroids, variances):
+    """Fail unless every frame assigned otherwise is at a near-tie: its
+    two least NLLs under the final clusters (float64) within 1e-4 of
+    each other, relatively (as ``chip_smoke.py`` 6d takes them)."""
+    diff = np.flatnonzero(got != want)
+    if diff.size:
+        mu, var = (np.asarray(a, np.float64) for a in (centroids, variances))
+        nll = 0.5 * ((x[diff, None, :] - mu[None]) ** 2 / var[None] + np.log(var)[None]).sum(2)
+        top = np.sort(nll, axis=1)[:, :2]
+        assert bool(((top[:, 1] - top[:, 0]) <= 1e-4 * np.abs(top[:, 0])).all()), diff
+
+
+@pytest.mark.parametrize("case", list(EMU_CASES))
+def test_emulated_fits_match_jax(case):
+    """Whole fits in the kernels' order against the JAX package: K24
+    against ``train/kmeans.kmeans`` (its draws from the key replayed) with
+    the same assignment of every frame of the buffer away from near-ties,
+    K25 against ``train/em.em_fit`` from the same start with the same
+    iteration count; the parameters at TOL."""
+    x, masks, c0, init, ring = _emu_case(case)
+    for i, mask in enumerate(masks):
+        key = jax.random.PRNGKey(70 + i)
+        draws = np.asarray(jax.random.randint(key, (x.shape[0],), 0, 4))
+        want = jkm.kmeans(key, jnp.asarray(x), jnp.asarray(mask), jnp.asarray(c0[i]), 4)
+        got = emu.kmeans_fit(x, mask, c0[i], 4, draws, **ring[False])
+        assert got[4] >= 2
+        _near_ties_only(x, got[0], np.asarray(want[0]), want[1], want[2])
+        for a, b in zip(got[1:4], want[1:4]):
+            np.testing.assert_allclose(a, np.asarray(b), **TOL)
+        w0 = np.asarray(want[3]) / np.float32(mask.sum())
+        start = (np.asarray(want[1]), np.asarray(want[2]), w0)
+        want = jem.em_fit(jnp.asarray(x), jnp.asarray(mask), *(jnp.asarray(a) for a in start))
+        got = emu.em_fit(x, mask, *start, **ring[True])
+        assert got[3] == int(want[3]) and got[3] >= 2
+        for a, b in zip(got[:3], want[:3]):
+            np.testing.assert_allclose(a, np.asarray(b), **TOL)
+
+
+def test_emulated_em_keeps_the_plain_mean_of_a_component_of_no_weight():
+    """A component far from every frame gets no responsibility, so EM
+    clamps its denominator at 1e-10: in the kernels' order (sums about the
+    start means) its mean and variance are still the plain version's (r x
+    / den, floored), one iteration and whole fits."""
+    x, masks, c0, init, ring = _emu_case("fit_hmm shape")
+    xt = torch.from_numpy(x)
+    mask = masks[0]
+    mt = torch.from_numpy(mask)
+    _, m0, v0, counts = tkm.kmeans_ref(xt, mt, torch.from_numpy(c0[0]), 4,
+                                       torch.from_numpy(init[0]))
+    m0[3] = 50.0
+    w0 = counts / mt.sum().float()
+    for iters in (1, 100):
+        got = emu.em_fit(x, mask, m0.numpy(), v0.numpy(), w0.numpy(), max_iters=iters,
+                         **ring[True])
+        want = tem.em_fit_ref(xt, mt, m0, v0, w0, max_iters=iters)
+        assert got[3] == want[3]
+        for a, b in zip(got[:3], want[:3]):
+            np.testing.assert_allclose(a, b.numpy(), **TOL)
+    assert float(np.abs(got[0][3]).max()) == 0.0 and float(got[2][3]) == 0.0
